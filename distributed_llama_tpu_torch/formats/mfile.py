@@ -1,0 +1,359 @@
+"""`.m` model-file codec: header parsing and the per-tensor walk.
+
+Binary-compatible with the reference engine's model format:
+
+* magic ``0xA00ABCD``, then ``headerSize`` (int32), then (key, value) int32
+  pairs (reference: src/llm.cpp:37-121, converter/writer.py:108-150).
+* tensor payload: a fixed walk order that both the converter and the weight
+  loader agree on (reference: src/llm.cpp:658-713) —
+  ``embedding; per layer: q,k,v,wo, [moe_gate, experts x (w1,w2,w3) | w1,w2,w3],
+  [qwen3: q_norm,k_norm], norm0, norm1; final_norm; wcls``.
+
+Float header values are stored as int32s and cast on read (so e.g. a rope
+theta of 500000 is the int 500000); norm epsilon is encoded as the exponent
+(5 -> 1e-5, 6 -> 1e-6; reference: src/llm.cpp:31-35).
+"""
+
+from __future__ import annotations
+
+import mmap
+import os
+import struct
+from dataclasses import dataclass
+
+import numpy as np
+
+from .quants import FloatType, tensor_bytes, dequantize_q40, dequantize_q80, unpack_q40
+
+MAGIC = 0x0A00ABCD
+
+# header keys (reference: src/llm.hpp:9-32)
+K_VERSION = 0
+K_ARCH_TYPE = 1
+K_DIM = 2
+K_HIDDEN_DIM = 3
+K_N_LAYERS = 4
+K_N_HEADS = 5
+K_N_KV_HEADS = 6
+K_N_EXPERTS = 7
+K_N_ACTIVE_EXPERTS = 8
+K_VOCAB_SIZE = 9
+K_SEQ_LEN = 10
+K_HIDDEN_ACT = 11
+K_ROPE_THETA = 12
+K_WEIGHT_FLOAT_TYPE = 13
+K_ROPE_SCALING_FACTOR = 14
+K_ROPE_SCALING_LOW_FREQ_FACTOR = 15
+K_ROPE_SCALING_HIGH_FREQ_FACTORY = 16
+K_ROPE_SCALING_ORIG_MAX_SEQ_LEN = 17
+K_ROPE_TYPE = 18
+K_HEAD_DIM = 19
+K_NORM_EPSILON = 20
+K_MOE_HIDDEN_DIM = 21
+
+
+class ArchType:
+    LLAMA = 0xABCD00
+    QWEN3 = 0xABCD01
+    QWEN3_MOE = 0xABCD02
+
+    _NAMES = {LLAMA: "llama", QWEN3: "qwen3", QWEN3_MOE: "qwen3_moe"}
+
+    @classmethod
+    def name(cls, t: int) -> str:
+        return cls._NAMES[t]
+
+
+class HiddenAct:
+    GELU = 0
+    SILU = 1
+
+
+class RopeType:
+    LLAMA = 0
+    FALCON = 1
+    LLAMA3_1 = 2
+
+
+@dataclass
+class ModelHeader:
+    """Parsed .m header (reference: src/llm.hpp:45-77)."""
+
+    version: int = 0
+    arch_type: int = ArchType.LLAMA
+    dim: int = 0
+    hidden_dim: int = 0
+    moe_hidden_dim: int = 0
+    n_layers: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    n_experts: int = 0
+    n_active_experts: int = 0
+    vocab_size: int = 0
+    seq_len: int = 0
+    orig_seq_len: int = 0
+    hidden_act: int = HiddenAct.SILU
+    rope_theta: float = 10000.0
+    rope_type: int = RopeType.LLAMA
+    rope_scaling_factor: float = 1.0
+    rope_scaling_low_freq_factor: float = 0.0
+    rope_scaling_high_freq_factor: float = 0.0
+    rope_scaling_orig_max_seq_len: int = 0
+    norm_epsilon: float = 1e-5
+    weight_type: int = FloatType.UNK
+    head_dim: int = 0
+    header_bytes: int = 0  # magic + size field + kv pairs
+    file_bytes: int = 0
+
+    @property
+    def q_dim(self) -> int:
+        return self.head_dim * self.n_heads
+
+    @property
+    def kv_dim(self) -> int:
+        return self.head_dim * self.n_kv_heads
+
+    @property
+    def ff_dim(self) -> int:
+        """Per-expert FFN width for MoE, dense FFN width otherwise."""
+        return self.moe_hidden_dim if self.arch_type == ArchType.QWEN3_MOE else self.hidden_dim
+
+    def finalize(self, max_seq_len: int = 0) -> "ModelHeader":
+        """Apply derived-field defaults (reference: src/llm.cpp:105-117)."""
+        self.orig_seq_len = self.seq_len
+        if max_seq_len > 0 and self.seq_len > max_seq_len:
+            self.seq_len = max_seq_len
+        if self.head_dim == 0:
+            self.head_dim = self.dim // self.n_heads
+        if self.arch_type in (ArchType.QWEN3, ArchType.QWEN3_MOE):
+            self.rope_type = RopeType.FALCON
+        return self
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """One entry of the fixed tensor walk."""
+
+    role: str  # embedding|q|k|v|wo|moe_gate|w1|w2|w3|q_norm|k_norm|norm0|norm1|final_norm|wcls
+    layer: int  # -1 for global tensors
+    expert: int  # -1 for non-expert tensors
+    shape: tuple  # logical (out_features, in_features) or (n,) — torch row-major
+    float_type: int
+    offset: int  # byte offset of this tensor's payload within the file
+
+    @property
+    def name(self) -> str:
+        parts = [self.role]
+        if self.layer >= 0:
+            parts.append(f"l{self.layer}")
+        if self.expert >= 0:
+            parts.append(f"e{self.expert}")
+        return ".".join(parts)
+
+    @property
+    def n_elements(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def n_bytes(self) -> int:
+        return tensor_bytes(self.float_type, self.n_elements)
+
+
+def tensor_walk(h: ModelHeader) -> list[TensorSpec]:
+    """The fixed tensor order of a .m file (reference: src/llm.cpp:658-713).
+
+    Shapes are torch-convention ``(out_features, in_features)`` with row-major
+    flattening — i.e. ``q`` is ``(q_dim, dim)`` and a row-split over nodes
+    slices its leading axis, matching ``splitRowMatmulWeight``
+    (reference: src/nn/nn-core.cpp:291-324).
+    """
+    wt = h.weight_type
+    specs: list[TensorSpec] = []
+    off = h.header_bytes
+    is_qwen = h.arch_type in (ArchType.QWEN3, ArchType.QWEN3_MOE)
+
+    def add(role, layer, expert, shape, ft):
+        nonlocal off
+        s = TensorSpec(role, layer, expert, tuple(shape), ft, off)
+        specs.append(s)
+        off += s.n_bytes
+
+    add("embedding", -1, -1, (h.vocab_size, h.dim), FloatType.F32)
+    for l in range(h.n_layers):
+        add("q", l, -1, (h.q_dim, h.dim), wt)
+        add("k", l, -1, (h.kv_dim, h.dim), wt)
+        add("v", l, -1, (h.kv_dim, h.dim), wt)
+        add("wo", l, -1, (h.dim, h.q_dim), wt)
+        if h.n_experts > 0:
+            add("moe_gate", l, -1, (h.n_experts, h.dim), FloatType.F32)
+            for e in range(h.n_experts):
+                add("w1", l, e, (h.ff_dim, h.dim), wt)
+                add("w2", l, e, (h.dim, h.ff_dim), wt)
+                add("w3", l, e, (h.ff_dim, h.dim), wt)
+        else:
+            add("w1", l, -1, (h.ff_dim, h.dim), wt)
+            add("w2", l, -1, (h.dim, h.ff_dim), wt)
+            add("w3", l, -1, (h.ff_dim, h.dim), wt)
+        if is_qwen:
+            add("q_norm", l, -1, (h.head_dim,), FloatType.F32)
+            add("k_norm", l, -1, (h.head_dim,), FloatType.F32)
+        add("norm0", l, -1, (h.dim,), FloatType.F32)
+        add("norm1", l, -1, (h.dim,), FloatType.F32)
+    add("final_norm", -1, -1, (h.dim,), FloatType.F32)
+    add("wcls", -1, -1, (h.vocab_size, h.dim), wt)
+    return specs
+
+
+class MFileReader:
+    """mmap-backed .m reader: header + zero-copy per-tensor views.
+
+    The reference's root node mmaps the file and streams split slices to
+    workers over TCP (reference: src/llm.cpp:658-713); here the per-tensor
+    byte views are regrouped into the device layout and copied to the card
+    (models/params.py).
+    """
+
+    def __init__(self, path: str, max_seq_len: int = 0):
+        self.path = path
+        self._f = open(path, "rb")
+        self._mm = mmap.mmap(self._f.fileno(), 0, access=mmap.ACCESS_READ)
+        self.header = _parse_header(self._mm, os.path.getsize(path)).finalize(max_seq_len)
+        self.specs = tensor_walk(self.header)
+        self.by_name = {s.name: s for s in self.specs}
+        end = self.specs[-1].offset + self.specs[-1].n_bytes
+        if end != self.header.file_bytes:
+            raise ValueError(
+                f"model file size mismatch: walk ends at {end}, file is {self.header.file_bytes} bytes"
+            )
+
+    def close(self):
+        self._mm.close()
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def raw(self, spec: TensorSpec) -> memoryview:
+        return memoryview(self._mm)[spec.offset : spec.offset + spec.n_bytes]
+
+    def tensor_f32(self, spec: TensorSpec) -> np.ndarray:
+        """Dequantize/convert a tensor to f32 in its logical shape."""
+        raw = self.raw(spec)
+        n = spec.n_elements
+        if spec.float_type == FloatType.F32:
+            # copy so the returned array outlives the mmap (close() requires
+            # no exported views)
+            x = np.frombuffer(raw, dtype=np.float32, count=n).copy()
+        elif spec.float_type == FloatType.F16:
+            x = np.frombuffer(raw, dtype=np.float16, count=n).astype(np.float32)
+        elif spec.float_type == FloatType.Q40:
+            x = dequantize_q40(raw, n)
+        elif spec.float_type == FloatType.Q80:
+            x = dequantize_q80(raw, n)
+        else:
+            raise ValueError(f"unsupported float type {spec.float_type}")
+        return x.reshape(spec.shape)
+
+    def tensor_q40(self, spec: TensorSpec) -> tuple[np.ndarray, np.ndarray]:
+        """Q40 tensor as (int8 q [out, in//32, 32], f16 scales [out, in//32])."""
+        assert spec.float_type == FloatType.Q40 and len(spec.shape) == 2
+        out_f, in_f = spec.shape
+        q, d = unpack_q40(self.raw(spec), spec.n_elements)
+        return q.reshape(out_f, in_f // 32, 32), d.reshape(out_f, in_f // 32)
+
+
+def _parse_header(buf, file_size: int) -> ModelHeader:
+    magic = struct.unpack_from("<i", buf, 0)[0]
+    if magic in (0xABCD00, 0xABCD01):
+        raise ValueError("old model format is not supported")
+    if magic != MAGIC:
+        raise ValueError(f"unsupported magic number 0x{magic:X}")
+    header_size = struct.unpack_from("<i", buf, 4)[0]
+    n_kv = (header_size - 8) // 4
+    vals = struct.unpack_from(f"<{n_kv}i", buf, 8)
+
+    h = ModelHeader()
+    setters = {
+        K_VERSION: lambda v: setattr(h, "version", v),
+        K_ARCH_TYPE: lambda v: setattr(h, "arch_type", v),
+        K_DIM: lambda v: setattr(h, "dim", v),
+        K_HIDDEN_DIM: lambda v: setattr(h, "hidden_dim", v),
+        K_N_LAYERS: lambda v: setattr(h, "n_layers", v),
+        K_N_HEADS: lambda v: setattr(h, "n_heads", v),
+        K_N_KV_HEADS: lambda v: setattr(h, "n_kv_heads", v),
+        K_N_EXPERTS: lambda v: setattr(h, "n_experts", v),
+        K_N_ACTIVE_EXPERTS: lambda v: setattr(h, "n_active_experts", v),
+        K_VOCAB_SIZE: lambda v: setattr(h, "vocab_size", v),
+        K_SEQ_LEN: lambda v: setattr(h, "seq_len", v),
+        K_HIDDEN_ACT: lambda v: setattr(h, "hidden_act", v),
+        K_ROPE_THETA: lambda v: setattr(h, "rope_theta", float(v)),
+        K_WEIGHT_FLOAT_TYPE: lambda v: setattr(h, "weight_type", v),
+        K_ROPE_SCALING_FACTOR: lambda v: setattr(h, "rope_scaling_factor", float(v)),
+        K_ROPE_SCALING_LOW_FREQ_FACTOR: lambda v: setattr(h, "rope_scaling_low_freq_factor", float(v)),
+        K_ROPE_SCALING_HIGH_FREQ_FACTORY: lambda v: setattr(h, "rope_scaling_high_freq_factor", float(v)),
+        K_ROPE_SCALING_ORIG_MAX_SEQ_LEN: lambda v: setattr(h, "rope_scaling_orig_max_seq_len", v),
+        K_ROPE_TYPE: lambda v: setattr(h, "rope_type", v),
+        K_HEAD_DIM: lambda v: setattr(h, "head_dim", v),
+        K_NORM_EPSILON: lambda v: setattr(h, "norm_epsilon", _norm_epsilon(v)),
+        K_MOE_HIDDEN_DIM: lambda v: setattr(h, "moe_hidden_dim", v),
+    }
+    for i in range(0, n_kv, 2):
+        key, value = vals[i], vals[i + 1]
+        if key not in setters:
+            raise ValueError(f"unsupported header key {key}")
+        setters[key](value)
+    if h.weight_type == FloatType.UNK:
+        raise ValueError("model does not specify weight type")
+    h.header_bytes = 8 + n_kv * 4
+    h.file_bytes = file_size
+    return h
+
+
+def _norm_epsilon(v: int) -> float:
+    # stored as the exponent (reference: src/llm.cpp:31-35)
+    if v == 5:
+        return 1e-5
+    if v == 6:
+        return 1e-6
+    raise ValueError(f"unsupported norm epsilon code {v}")
+
+
+class MFileWriter:
+    """Writes .m files in the reference layout; used by the converter and by
+    the synthetic-model generator in tests."""
+
+    def __init__(self, path: str, header_kv: dict[int, int]):
+        self._f = open(path, "wb")
+        data = b"".join(struct.pack("<ii", k, v) for k, v in header_kv.items())
+        self._f.write(struct.pack("<ii", MAGIC, 8 + len(data)))
+        self._f.write(data)
+
+    def write_tensor(self, x: np.ndarray, float_type: int):
+        from .quants import quantize_q40, quantize_q80
+
+        flat = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
+        if float_type == FloatType.F32:
+            self._f.write(flat.tobytes())
+        elif float_type == FloatType.F16:
+            self._f.write(flat.astype(np.float16).tobytes())
+        elif float_type == FloatType.Q40:
+            self._f.write(quantize_q40(flat))
+        elif float_type == FloatType.Q80:
+            self._f.write(quantize_q80(flat))
+        else:
+            raise ValueError(f"unsupported float type {float_type}")
+
+    def close(self):
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,0 +1,152 @@
+"""Block-quantized tensor formats (Q40 / Q80), vectorized in numpy.
+
+Binary layout is compatible with the reference engine's formats
+(reference: src/nn/nn-quants.hpp:53-72, converter/writer.py:29-74):
+
+* Q40: 32-element blocks -> 18 bytes: one float16 scale ``d`` followed by 16
+  bytes of packed nibbles. Byte ``j`` holds element ``j`` in its low nibble and
+  element ``j+16`` in its high nibble; dequant is ``(nibble - 8) * d``
+  (reference: src/nn/nn-quants.cpp:229-246).
+* Q80: 32-element blocks -> 34 bytes: float16 scale + 32 int8 values; dequant
+  is ``q * d``.
+
+The device never computes on these layouts directly: Q40 weights are
+regrouped at load time into the packed T layout (ops/quant.py) that the CUDA
+kernels read. This module is the host-side (numpy) codec, a copy of the JAX
+package's so that the port imports nothing from it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+Q_BLOCK = 32  # block size shared by Q40 and Q80
+Q40_BLOCK_BYTES = 2 + Q_BLOCK // 2  # f16 scale + 16 nibble-pairs
+Q80_BLOCK_BYTES = 2 + Q_BLOCK  # f16 scale + 32 int8
+
+
+class FloatType:
+    """Scalar type ids as encoded in .m headers (reference: nn-quants.hpp:57-62)."""
+
+    UNK = -1
+    F32 = 0
+    F16 = 1
+    Q40 = 2
+    Q80 = 3
+
+    _NAMES = {UNK: "unk", F32: "f32", F16: "f16", Q40: "q40", Q80: "q80"}
+
+    @classmethod
+    def name(cls, t: int) -> str:
+        return cls._NAMES[t]
+
+    @classmethod
+    def parse(cls, s: str) -> int:
+        for k, v in cls._NAMES.items():
+            if v == s:
+                return k
+        raise ValueError(f"unknown float type: {s!r}")
+
+
+def tensor_bytes(float_type: int, n_elements: int) -> int:
+    """Serialized size of a flat tensor of ``n_elements`` in ``float_type``."""
+    if float_type == FloatType.F32:
+        return 4 * n_elements
+    if float_type == FloatType.F16:
+        return 2 * n_elements
+    if float_type == FloatType.Q40:
+        assert n_elements % Q_BLOCK == 0
+        return (n_elements // Q_BLOCK) * Q40_BLOCK_BYTES
+    if float_type == FloatType.Q80:
+        assert n_elements % Q_BLOCK == 0
+        return (n_elements // Q_BLOCK) * Q80_BLOCK_BYTES
+    raise ValueError(f"unsupported float type {float_type}")
+
+
+# ---------------------------------------------------------------------------
+# Q40
+# ---------------------------------------------------------------------------
+
+def quantize_q40(x: np.ndarray) -> bytes:
+    """Quantize a flat f32 array to Q40 bytes.
+
+    Mirrors the converter's algorithm (reference: converter/writer.py:29-53):
+    scale = extreme/-8 (the signed extreme, so the value furthest from zero maps
+    to nibble 0 or 15), q = clip(x/d + 8.5, 0, 15) truncated.
+    """
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
+    assert x.size % Q_BLOCK == 0, f"size {x.size} not a multiple of {Q_BLOCK}"
+    groups = x.reshape(-1, Q_BLOCK)
+    gmax = groups.max(axis=1)
+    gmin = groups.min(axis=1)
+    deltas = np.where(-gmin > gmax, gmin, gmax) / -8.0
+    deltas16 = deltas.astype(np.float16)
+    inv = np.where(deltas != 0, np.divide(1.0, deltas, where=deltas != 0), 0.0)
+    q = np.clip(groups * inv[:, None] + 8.5, 0, 15).astype(np.int64)
+    lo = q[:, : Q_BLOCK // 2] & 0xF
+    hi = (q[:, Q_BLOCK // 2 :] & 0xF) << 4
+    packed = (lo | hi).astype(np.uint8)
+
+    out = np.empty((groups.shape[0], Q40_BLOCK_BYTES), dtype=np.uint8)
+    out[:, :2] = deltas16.view(np.uint8).reshape(-1, 2)
+    out[:, 2:] = packed
+    return out.tobytes()
+
+
+def unpack_q40(raw: bytes | np.ndarray, n_elements: int) -> tuple[np.ndarray, np.ndarray]:
+    """Decode Q40 bytes into (int8 values in [-8,7], f16 per-block scales).
+
+    Returns ``(q, d)`` with ``q.shape == (n_blocks, 32)`` int8 and
+    ``d.shape == (n_blocks,)`` float16, such that dequant = q * d.
+    This is the TPU load path: q and d are shipped to the device as-is.
+    """
+    assert n_elements % Q_BLOCK == 0
+    n_blocks = n_elements // Q_BLOCK
+    buf = np.frombuffer(raw, dtype=np.uint8, count=n_blocks * Q40_BLOCK_BYTES).reshape(
+        n_blocks, Q40_BLOCK_BYTES
+    )
+    d = buf[:, :2].copy().view(np.float16).reshape(n_blocks)
+    packed = buf[:, 2:]
+    q = np.empty((n_blocks, Q_BLOCK), dtype=np.int8)
+    q[:, : Q_BLOCK // 2] = (packed & 0x0F).astype(np.int8) - 8
+    q[:, Q_BLOCK // 2 :] = (packed >> 4).astype(np.int8) - 8
+    return q, d
+
+
+def dequantize_q40(raw: bytes | np.ndarray, n_elements: int) -> np.ndarray:
+    """Q40 bytes -> flat f32 array (reference: nn-quants.cpp:229-246)."""
+    q, d = unpack_q40(raw, n_elements)
+    return (q.astype(np.float32) * d.astype(np.float32)[:, None]).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Q80
+# ---------------------------------------------------------------------------
+
+def quantize_q80(x: np.ndarray) -> bytes:
+    """Quantize a flat f32 array to Q80 bytes (reference: writer.py:55-74)."""
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
+    assert x.size % Q_BLOCK == 0
+    groups = x.reshape(-1, Q_BLOCK)
+    amax = np.abs(groups).max(axis=1)
+    deltas = amax / 127.0
+    deltas16 = deltas.astype(np.float16)
+    inv = np.where(deltas != 0, np.divide(1.0, deltas, where=deltas != 0), 0.0)
+    q = np.round(groups * inv[:, None]).astype(np.int8)
+
+    out = np.empty((groups.shape[0], Q80_BLOCK_BYTES), dtype=np.uint8)
+    out[:, :2] = deltas16.view(np.uint8).reshape(-1, 2)
+    out[:, 2:] = q.view(np.uint8)
+    return out.tobytes()
+
+
+def dequantize_q80(raw: bytes | np.ndarray, n_elements: int) -> np.ndarray:
+    """Q80 bytes -> flat f32 array."""
+    assert n_elements % Q_BLOCK == 0
+    n_blocks = n_elements // Q_BLOCK
+    buf = np.frombuffer(raw, dtype=np.uint8, count=n_blocks * Q80_BLOCK_BYTES).reshape(
+        n_blocks, Q80_BLOCK_BYTES
+    )
+    d = buf[:, :2].copy().view(np.float16).reshape(n_blocks).astype(np.float32)
+    q = buf[:, 2:].view(np.int8).astype(np.float32)
+    return (q * d[:, None]).reshape(-1)
