@@ -6,6 +6,17 @@
 // _quantize_rows_q80_split (:506). The layer index of a stacked weight only
 // offsets the base pointers; an unstacked weight is layer 0.
 //
+// q40_gemv_q80_indexed is the same per-row function for the MoE decode
+// experts (q40_matmul_pallas_stacked_i8 as models/transformer.py
+// _moe_decode_i8 calls it, with a flat layer * E + expert index): row r of x
+// (or x's one row, shared by every slot) against group idx[r] of a flat
+// [G, nb*4, out] stack. idx lives in device memory and each CTA loads its
+// own group, so the host never reads it. One launch covers all slots (grid
+// y = slot). Group offsets are size_t from the index load on: one role's
+// flat Qwen3-30B-A3B stack is 5.4 GB, so idx * nb * 4 * out passes 2^31 from
+// index 2,731 up. A group outside [0, G) gives NaN rows instead of a read
+// out of bounds. Bound: the bytes of the slots' experts (memory).
+//
 // What bounds it on Hopper: memory. It reads each weight once, 0.5625 bytes
 // per weight (a 4-bit nibble plus a 2-byte f16 scale per 32), and does 2
 // integer ops per weight per row, far below the card's integer rate; the
@@ -74,13 +85,16 @@ __global__ void quantize_rows_q80(const void* __restrict__ x, int x_is_bf16,
   }
 }
 
+// One CTA's 32 output columns of R rows: x8w/xsg/bsg point at the rows'
+// quantized activations, q/d at the weight, out at the rows' outputs.
 template <int R>
-__global__ void __launch_bounds__(COLS * KSPLIT)
-q40_gemv_kernel(const int* __restrict__ x8w, const float* __restrict__ xsg,
-                const int* __restrict__ bsg, const int* __restrict__ q,
-                const __half* __restrict__ d, float* __restrict__ out, int nb,
-                int out_f) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__device__ __forceinline__ void gemv_tile(const int* __restrict__ x8w,
+                                          const float* __restrict__ xsg,
+                                          const int* __restrict__ bsg,
+                                          const int* __restrict__ q,
+                                          const __half* __restrict__ d,
+                                          float* __restrict__ out, int nb, int out_f,
+                                          unsigned char* smem) {
   int* xw = reinterpret_cast<int*>(smem);             // [R][nb * 8] int8 x4
   float* xs = reinterpret_cast<float*>(xw + R * nb * 8);  // [R][nb]
   int* bs = reinterpret_cast<int*>(xs + R * nb);          // [R][nb]
@@ -144,19 +158,64 @@ q40_gemv_kernel(const int* __restrict__ x8w, const float* __restrict__ xsg,
 }
 
 template <int R>
+__global__ void __launch_bounds__(COLS * KSPLIT)
+q40_gemv_kernel(const int* __restrict__ x8w, const float* __restrict__ xsg,
+                const int* __restrict__ bsg, const int* __restrict__ q,
+                const __half* __restrict__ d, float* __restrict__ out, int nb,
+                int out_f) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gemv_tile<R>(x8w, xsg, bsg, q, d, out, nb, out_f, smem);
+}
+
+// grid (column tiles, slots): slot s multiplies activation row
+// (x_shared ? 0 : s) by group idx[s] of the flat stack.
+__global__ void __launch_bounds__(COLS * KSPLIT)
+q40_gemv_indexed_kernel(const int* __restrict__ x8w, const float* __restrict__ xsg,
+                        const int* __restrict__ bsg, const int* __restrict__ q,
+                        const __half* __restrict__ d, const int* __restrict__ idx,
+                        int x_shared, long long n_groups, float* __restrict__ out,
+                        int nb, int out_f) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int slot = blockIdx.y;
+  const long long g = idx[slot];  // uniform over the CTA
+  float* o = out + (size_t)slot * out_f;
+  if (g < 0 || g >= n_groups) {
+    const int col = blockIdx.x * COLS + threadIdx.x;
+    if (threadIdx.y == 0 && col < out_f) o[col] = __int_as_float(0x7fc00000);
+    return;
+  }
+  const size_t xr = x_shared ? 0 : (size_t)slot;
+  const size_t gq = (size_t)g * (size_t)nb * 4 * (size_t)out_f;
+  const size_t gd = (size_t)g * (size_t)nb * (size_t)out_f;
+  gemv_tile<1>(x8w + xr * nb * 8, xsg + xr * nb, bsg + xr * nb, q + gq, d + gd, o, nb,
+               out_f, smem);
+}
+
+template <int R>
+size_t gemv_smem(int nb) {
+  return (size_t)R * nb * 8 * sizeof(int) + (size_t)R * nb * 2 * sizeof(float) +
+         (size_t)KSPLIT * R * COLS * sizeof(float);
+}
+
+// Allow `smem` bytes of dynamic shared memory for `kernel` (above 48 KB it
+// must be asked for); `raised` is the kernel's allowance so far.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem, size_t* raised) {
+  if (smem <= *raised) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess) *raised = smem;
+  return e;
+}
+
+template <int R>
 cudaError_t launch_gemv(const int8_t* x8, const float* xs, const int* bs,
                         const int* q, const __half* d, float* out, int nb,
                         int out_f, cudaStream_t stream) {
-  const size_t smem = (size_t)R * nb * 8 * sizeof(int) + (size_t)R * nb * 2 * sizeof(float) +
-                      (size_t)KSPLIT * R * COLS * sizeof(float);
+  const size_t smem = gemv_smem<R>(nb);
   static size_t raised = 48 * 1024;  // dynamic shared memory allowed so far
-  if (smem > raised) {
-    cudaError_t e = cudaFuncSetAttribute(q40_gemv_kernel<R>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-    raised = smem;
-  }
+  cudaError_t e = allow_smem(q40_gemv_kernel<R>, smem, &raised);
+  if (e != cudaSuccess) return e;
   dim3 block(COLS, KSPLIT);
   dim3 grid((out_f + COLS - 1) / COLS);
   q40_gemv_kernel<R><<<grid, block, smem, stream>>>(
@@ -203,4 +262,38 @@ extern "C" int q40_gemv_q80(const void* x, int x_is_bf16, const void* q,
     default: e = launch_gemv<8>(x8p, xsp, bsp, qp, dp, o, nb, out_features, s); break;
   }
   return (int)e;
+}
+
+// x [x_rows, in] f32 or bf16, x_rows 1 (shared by every slot) or n_slots;
+// q [n_groups, in/8, out] int32; d [n_groups, in/32, out] f16; idx
+// [n_slots] int32 on the device; out [n_slots, out] f32; x8 [x_rows, in]
+// int8, xs/bs [x_rows, in/32] scratch.
+extern "C" int q40_gemv_q80_indexed(const void* x, int x_is_bf16, int x_rows, const void* q,
+                                    const void* d, const void* idx, int n_slots,
+                                    long long n_groups, void* out, int in_features,
+                                    int out_features, void* x8, void* xs, void* bs,
+                                    void* stream) {
+  if (n_slots < 1 || n_slots > 8 || (x_rows != 1 && x_rows != n_slots) ||
+      in_features % QB != 0 || out_features < 1 || n_groups < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nb = in_features / QB;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int warps = x_rows * nb;
+  quantize_rows_q80<<<(warps * 32 + 255) / 256, 256, 0, s>>>(
+      x, x_is_bf16, in_features, nb, x_rows, reinterpret_cast<int8_t*>(x8),
+      reinterpret_cast<float*>(xs), reinterpret_cast<int*>(bs));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = gemv_smem<1>(nb);
+  static size_t raised = 48 * 1024;
+  e = allow_smem(q40_gemv_indexed_kernel, smem, &raised);
+  if (e != cudaSuccess) return (int)e;
+  dim3 block(COLS, KSPLIT);
+  dim3 grid((out_features + COLS - 1) / COLS, n_slots);
+  q40_gemv_indexed_kernel<<<grid, block, smem, s>>>(
+      reinterpret_cast<const int*>(x8), reinterpret_cast<const float*>(xs),
+      reinterpret_cast<const int*>(bs), reinterpret_cast<const int*>(q),
+      reinterpret_cast<const __half*>(d), reinterpret_cast<const int*>(idx), x_rows == 1,
+      n_groups, reinterpret_cast<float*>(out), nb, out_features);
+  return (int)cudaGetLastError();
 }

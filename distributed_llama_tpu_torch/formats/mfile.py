@@ -242,6 +242,10 @@ class MFileReader:
     def raw(self, spec: TensorSpec) -> memoryview:
         return memoryview(self._mm)[spec.offset : spec.offset + spec.n_bytes]
 
+    def raw_span(self, first: TensorSpec, last: TensorSpec) -> memoryview:
+        """The bytes of `first` through `last` of the walk, inclusive."""
+        return memoryview(self._mm)[first.offset : last.offset + last.n_bytes]
+
     def tensor_f32(self, spec: TensorSpec) -> np.ndarray:
         """Dequantize/convert a tensor to f32 in its logical shape."""
         raw = self.raw(spec)
@@ -348,6 +352,10 @@ class MFileWriter:
             self._f.write(quantize_q80(flat))
         else:
             raise ValueError(f"unsupported float type {float_type}")
+
+    def write_raw(self, data) -> None:
+        """Append a tensor's payload already in its file encoding."""
+        self._f.write(data)
 
     def close(self):
         self._f.close()

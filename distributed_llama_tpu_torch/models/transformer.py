@@ -1,10 +1,13 @@
-"""The transformer forward pass (dense Llama and Qwen3).
+"""The transformer forward pass (Llama, Qwen3 and Qwen3-MoE).
 
 The counterpart of the JAX package's `models/transformer.py`: its `linear`
-(:39), `_dense_ffn` (:79), `_attention_auto` (:135), the dense, stacked,
-contiguous-cache branch of `_layer` (:310, :495-558, scalar pos_start) and
-`forward_uncompiled` (:660). PyTorch runs eagerly, so the scan over layers is
-a Python loop and each matmul selects its layer inside the kernel.
+(:39), `_dense_ffn` (:79), the MoE block (`_gather_expert` :93,
+`_expert_matmul` :105, `_n_local_experts` :179, `_moe_ffn` :186,
+`_moe_decode_i8` :270, single device), `_attention_auto` (:135), the
+stacked, contiguous-cache branch of `_layer` (:310, :495-558, scalar
+pos_start) and `forward_uncompiled` (:660). PyTorch runs eagerly, so the
+scan over layers is a Python loop and each matmul selects its layer inside
+the kernel.
 
 Math per layer (reference att segment src/llm.cpp:278-418, ff segment
 src/llm.cpp:421-569):
@@ -13,7 +16,9 @@ src/llm.cpp:421-569):
     [qwen3: per-head rms_norm of q, k]
     q, k = rope(q, k); cache[layer, :, pos:pos+t] = k, v   (in place)
     a  = attention(q, cache[layer, :, :kv_len]);  x += a @ Wo
-    y  = rms_norm(x, norm1);  x += (silu(y @ W1) * (y @ W3)) @ W2
+    y  = rms_norm(x, norm1)
+    dense: x += (silu(y @ W1) * (y @ W3)) @ W2
+    moe:   route y to its top-k experts; x += the weighted sum of their SwiGLUs
 
 Dtype boundaries are the JAX package's: the residual stream is f32, matmul
 operands are the compute dtype (bf16 on the fast path), `linear` returns its
@@ -22,6 +27,7 @@ input's dtype, and the cache is written in the cache dtype.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any
 
 import torch
@@ -30,8 +36,12 @@ from ..formats.mfile import HiddenAct
 from ..ops.activations import gelu, silu
 from ..ops.attention import gqa_attention
 from ..ops.cuda_attention import flash_attention, flash_attention_aligned
+from ..ops.cuda_q40 import q40_gemv_q80_indexed
+from ..ops.moe import moe_ffn_ragged, moe_router
 from ..ops.norm import rms_norm
-from ..ops.quant import QuantTensor, _f32_matmul, quant_matmul
+from ..ops.quant import (
+    QuantTensor, _f32_matmul, dequantize_t, q40_stacked_aligned, quant_matmul, slice_layer,
+)
 from ..ops.rope import RopeTables, apply_rope
 from .config import ModelConfig
 from .params import KVCache, LayerParams, ModelParams
@@ -61,6 +71,94 @@ def _dense_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -
     ff = h13.shape[-1] // 2
     h = _activation(cfg, h13[..., :ff]) * h13[..., ff:]
     return linear(h, lp.w2, cfg.dtype, layer)
+
+
+def _gather_expert(w: Any, idx: torch.Tensor) -> Any:
+    """Per-token expert weights: w [E, ...] (one layer's stack) gathered by
+    idx [b, t, k]."""
+    sel = idx.long()
+    if isinstance(w, QuantTensor):
+        return QuantTensor(q=w.q[sel], d=w.d[sel])
+    return w[sel]
+
+
+def _expert_matmul(x: torch.Tensor, w: Any, dtype) -> torch.Tensor:
+    """x [b, t, k, in] against per-token gathered experts (a QuantTensor in
+    the T layout, or dense [..., out, in]) -> [b, t, k, out] in x.dtype. The
+    operands take `dtype`, the products are exact in f32 and TF32 stays
+    off."""
+    if isinstance(w, QuantTensor):
+        wd = dequantize_t(w, dtype)  # [b, t, k, in, out]
+    else:
+        wd = w.to(dtype).transpose(-1, -2)
+    xd = x.to(dtype).to(torch.float32).unsqueeze(-2)  # [b, t, k, 1, in]
+    y = _f32_matmul(xd, wd.to(torch.float32)).squeeze(-2)
+    return y.to(x.dtype)
+
+
+def _n_local_experts(w: Any, stacked: bool = False) -> int:
+    """Expert count of an expert weight; `stacked`: w has a leading
+    all-layers axis ([L, E, ...])."""
+    axis = 1 if stacked else 0
+    return w.q.shape[axis] if isinstance(w, QuantTensor) else w.shape[axis]
+
+
+def _moe_decode_i8_eligible(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams) -> bool:
+    """One token on the bf16 kernel path with aligned Q40 expert stacks ->
+    the indexed integer-dot kernel, which reads only the k active experts."""
+    return (
+        cfg.dtype == torch.bfloat16
+        and y.shape[0] * y.shape[1] == 1
+        and all(isinstance(w, QuantTensor) for w in (lp.w1, lp.w2, lp.w3))
+        and q40_stacked_aligned(lp.w1.in_features, lp.w1.out_features)
+        and q40_stacked_aligned(lp.w2.in_features, lp.w2.out_features)
+    )
+
+
+def _moe_decode_i8(cfg, y, lp, layer, idx, wts):
+    """One token's top-k expert SwiGLU through K1-indexed on the [L*E]-flat
+    expert stacks: w1 and w3 are one launch each over the k slots (the
+    token's row quantized once, shared by every slot), w2 one launch over
+    the k rows of h. The flat index layer * E + expert stays on the device:
+    nothing syncs with the host."""
+    n_e = _n_local_experts(lp.w1, stacked=lp.w1.q.ndim == 4)
+    base = layer * n_e if layer is not None else 0
+    k = idx.shape[-1]
+    fi = (idx.reshape(k) + base).to(torch.int32)
+    x = y.reshape(1, y.shape[-1])
+    h = _activation(cfg, q40_gemv_q80_indexed(x, lp.w1.q, lp.w1.d, fi)) * q40_gemv_q80_indexed(
+        x, lp.w3.q, lp.w3.d, fi
+    )  # [k, ff]
+    o = q40_gemv_q80_indexed(h.to(y.dtype), lp.w2.q, lp.w2.d, fi)  # [k, dim]
+    out = (o * wts.reshape(k, 1).to(torch.float32)).sum(dim=0)  # the slots, in f32
+    return out.reshape(*y.shape[:2], cfg.dim)
+
+
+def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -> torch.Tensor:
+    """Top-k expert SwiGLU (reference src/llm.cpp:440-514): the router on
+    the normed activation, then the JAX package's choice of arm by the
+    static row count rows = b * t * k:
+      * rows >= E (prefill chunks): moe_ffn_ragged, the grouped kernel K4
+        over every hit expert once;
+      * one token on the bf16 kernel path: _moe_decode_i8 (K1-indexed);
+      * otherwise (prefill tails of a few tokens, the f32 arm): gather each
+        row's experts and dequantize them (plain torch; XLA in JAX)."""
+    idx, wts = moe_router(y, lp.moe_gate[layer], cfg.n_active_experts)  # [b, t, k]
+    rows = y.shape[0] * y.shape[1] * cfg.n_active_experts
+    act = partial(_activation, cfg)
+    if rows >= cfg.n_experts:
+        return moe_ffn_ragged(y, idx, wts, lp.w1, lp.w3, lp.w2, act, cfg.dtype, layer=layer)
+    if _moe_decode_i8_eligible(cfg, y, lp):
+        out = _moe_decode_i8(cfg, y, lp, layer, idx, wts)
+    else:
+        w1 = _gather_expert(slice_layer(lp.w1, layer), idx)
+        w3 = _gather_expert(slice_layer(lp.w3, layer), idx)
+        w2 = _gather_expert(slice_layer(lp.w2, layer), idx)
+        xk = y[:, :, None, :].expand(*y.shape[:2], cfg.n_active_experts, y.shape[-1])
+        h = act(_expert_matmul(xk, w1, cfg.dtype)) * _expert_matmul(xk, w3, cfg.dtype)
+        out = _expert_matmul(h, w2, cfg.dtype)  # [b, t, k, dim]
+        out = (out.to(torch.float32) * wts.unsqueeze(-1)).sum(dim=2)
+    return out.to(y.dtype)
 
 
 def _attention_auto(cfg, q, k_view, v_view, positions, pos_start: int):
@@ -112,7 +210,8 @@ def _layer(
     x = x + att_out.to(x.dtype)
 
     y = rms_norm(x, lp.norm1[li], cfg.norm_epsilon)
-    x = x + _dense_ffn(cfg, y, lp, li).to(x.dtype)
+    ff = _moe_ffn(cfg, y, lp, li) if cfg.is_moe else _dense_ffn(cfg, y, lp, li)
+    x = x + ff.to(x.dtype)
     return x
 
 
@@ -129,8 +228,6 @@ def forward(
     """One forward step (prefill chunk or decode token); writes the chunk's
     K/V into `cache` in place. Returns f32 logits: [b, vocab] for "last",
     [b, t, vocab] for "all"."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not ported yet (ROADMAP A7)")
     if logits_mode not in ("last", "all"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     b, t = tokens.shape

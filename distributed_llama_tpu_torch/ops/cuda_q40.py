@@ -21,6 +21,17 @@ K2 `q40_gemm_bf16` (csrc/q40_gemm.cu) replaces
 `_dequant_dot_accum` (:160): w = bf16((u - 8) * bf16(scale)), one rounding,
 then x (cast to bf16) @ w with f32 accumulation.
 
+K1-indexed `q40_gemv_q80_indexed` (csrc/q40_gemv.cu) is K1's per-row
+function for the MoE decode experts: B1 as the JAX package's
+`models/transformer.py:_moe_decode_i8` calls it, with a flat `layer * E +
+expert` index that stays on the device. Row r (or one row shared by every
+slot) runs against group idx[r]; one launch covers all slots.
+
+K4 `q40_grouped_gemm_bf16` (csrc/q40_grouped_gemm.cu) replaces
+`ops/pallas_q40.py:q40_matmul_pallas_grouped` (:779), body
+`_kernel_grouped` (:772): K2's math on row block i against group
+block_expert[i] of a flat expert stack (MoE prefill).
+
 Every wrapper takes its plain version for a tensor on the CPU, launches its
 kernel for a tensor on the card (or raises), and counts its launches in a
 plain int attribute `launches`, incremented where it launches and nowhere
@@ -37,12 +48,29 @@ from .quant import _f32_matmul, unpack_q
 
 MAX_I8_ROWS = 8
 
+GROUPED_BLOCK_ROWS = (8, 16, 32, 64)
+
 _GEMV_SIG = {
     # x, x_is_bf16, q, d, out, rows, in, out, layer, x8, xs, bs, stream
     "q40_gemv_q80": (
         kernels.P, kernels.I, kernels.P, kernels.P, kernels.P,
         kernels.I, kernels.I, kernels.I, kernels.LL,
         kernels.P, kernels.P, kernels.P, kernels.P,
+    ),
+    # x, x_is_bf16, x_rows, q, d, idx, n_slots, n_groups, out, in, out,
+    # x8, xs, bs, stream
+    "q40_gemv_q80_indexed": (
+        kernels.P, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P,
+        kernels.I, kernels.LL, kernels.P, kernels.I, kernels.I,
+        kernels.P, kernels.P, kernels.P, kernels.P,
+    ),
+}
+_GROUPED_SIG = {
+    # x (bf16), q, d, block_group, n_blocks, n_groups, out, block_r, in,
+    # out, stream
+    "q40_grouped_gemm_bf16": (
+        kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.LL,
+        kernels.P, kernels.I, kernels.I, kernels.I, kernels.P,
     ),
 }
 _GEMM_SIG = {
@@ -102,6 +130,48 @@ def q40_gemm_bf16_plain(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor) -> to
     return _f32_matmul(x2, w).reshape(*lead, q.shape[-1])
 
 
+def flat_groups(q: torch.Tensor, d: torch.Tensor):
+    """[..., nb*4, out] / [..., nb, out] stacks -> flat [G, nb*4, out] /
+    [G, nb, out] views (an [L, E, ...] expert stack becomes G = L * E groups,
+    group layer * E + e)."""
+    return q.reshape(-1, *q.shape[-2:]), d.reshape(-1, *d.shape[-2:])
+
+
+def q40_gemv_q80_indexed_plain(x, q, d, idx) -> torch.Tensor:
+    """K1-indexed's plain version: row r of x [R, in] (or its one row) times
+    group idx[r] of the flat stack, K1's math per row -> [len(idx), out] f32.
+    The slots' groups are gathered on the device, so nothing reads idx on
+    the host."""
+    qf, df = flat_groups(q, d)
+    nb = qf.shape[-2] // 4
+    n = idx.shape[0]
+    x8, xs, bs = quantize_rows_q80(x.reshape(-1, nb * Q_BLOCK), nb)
+    if x8.shape[0] == 1:  # one row shared by every slot
+        x8, xs, bs = x8.expand(n, -1, -1), xs.expand(n, -1), bs.expand(n, -1)
+    sel = idx.long()
+    u = (unpack_q(qf[sel]) + 8).to(torch.float32)  # [n, nb, 32, out]
+    partial = torch.einsum("rbf,rbfo->rbo", x8, u)  # exact, as in K1's plain
+    pr = partial - 8.0 * bs.unsqueeze(-1)
+    scale = xs.unsqueeze(-1) * df[sel].to(torch.float32)  # [n, nb, out]
+    return (pr * scale).sum(dim=1)
+
+
+def q40_grouped_gemm_bf16_plain(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
+    """K4's plain version: row block i of xp [R_pad, in] (cast to bf16)
+    times group block_expert[i] of the flat stack, K2's rounding ->
+    [R_pad, out] f32."""
+    qf, df = flat_groups(q, d)
+    nb = qf.shape[-2] // 4
+    out_f = qf.shape[-1]
+    n_blocks = xp.shape[0] // block_r
+    sel = block_expert.long()
+    sb = df[sel].to(torch.float32).to(torch.bfloat16).to(torch.float32)
+    w = (unpack_q(qf[sel]).to(torch.float32) * sb.unsqueeze(2)).to(torch.bfloat16)
+    w = w.reshape(n_blocks, nb * Q_BLOCK, out_f).to(torch.float32)
+    xb = xp.reshape(n_blocks, block_r, nb * Q_BLOCK).to(torch.bfloat16).to(torch.float32)
+    return _f32_matmul(xb, w).reshape(n_blocks * block_r, out_f)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -134,6 +204,16 @@ def _layer_index(layer, n_layers: int) -> int:
     return li
 
 
+def _q80_scratch(rows: int, nb: int, device):
+    """The Q80 prologue's outputs: int8 rows, f32 block scales, int32 block
+    sums."""
+    return (
+        torch.empty((rows, nb * Q_BLOCK), dtype=torch.int8, device=device),
+        torch.empty((rows, nb), dtype=torch.float32, device=device),
+        torch.empty((rows, nb), dtype=torch.int32, device=device),
+    )
+
+
 def _launch_gemv(x, q, d, layer: int) -> torch.Tensor:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
@@ -145,9 +225,7 @@ def _launch_gemv(x, q, d, layer: int) -> torch.Tensor:
         raise ValueError(f"q40_gemv_q80 takes 1..{MAX_I8_ROWS} rows, got {rows}")
     lib = kernels.load("q40_gemv", _GEMV_SIG)
     out = torch.empty((rows, out_f), dtype=torch.float32, device=x.device)
-    x8 = torch.empty((rows, in_f), dtype=torch.int8, device=x.device)
-    xs = torch.empty((rows, nb), dtype=torch.float32, device=x.device)
-    bs = torch.empty((rows, nb), dtype=torch.int32, device=x.device)
+    x8, xs, bs = _q80_scratch(rows, nb, x.device)
     rc = lib.q40_gemv_q80(
         x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(), d.data_ptr(),
         out.data_ptr(), rows, in_f, out_f, layer,
@@ -171,6 +249,23 @@ def _launch_gemm(x, q, d, layer: int) -> torch.Tensor:
     )
     kernels.check(lib, rc, "q40_gemm_bf16")
     return out.reshape(*x.shape[:-1], out_f)
+
+
+def _check_groups(q, d, x, index):
+    """A flat or [L, E] group stack, activations and a 1-D int32 group
+    index, all on one device and contiguous."""
+    if q.ndim < 3 or d.ndim != q.ndim or q.shape[:-2] != d.shape[:-2]:
+        raise ValueError(f"expected [..., nb*4, out] / [..., nb, out] stacks, got "
+                         f"{tuple(q.shape)} / {tuple(d.shape)}")
+    if not (q.is_contiguous() and d.is_contiguous()):
+        raise ValueError("q and d must be contiguous")
+    _check_weight(q.reshape(-1, *q.shape[-2:]), d.reshape(-1, *d.shape[-2:]), x, stacked=True)
+    if index.ndim != 1 or index.dtype != torch.int32:
+        raise TypeError(f"the group index must be 1-D int32, got {index.dtype} {tuple(index.shape)}")
+    if index.device != x.device:
+        raise ValueError(f"the group index is on {index.device}, x on {x.device}")
+    if not index.is_contiguous():
+        raise ValueError("the group index must be contiguous")
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -236,4 +331,78 @@ def q40_gemm_bf16(x, q, d) -> torch.Tensor:
     )
 
 
-KERNELS = (q40_gemv_q80_stacked, q40_gemv_q80, q40_gemm_bf16_stacked)
+def q40_gemv_q80_indexed(x, q, d, idx) -> torch.Tensor:
+    """K1 against a group index held on the device (B1's MoE arm): row r of
+    x [R, in] — or x's one row, shared by every slot — times group idx[r]
+    of q [..., nb*4, out], d [..., nb, out] (leading axes flatten to groups:
+    [L, E] stacks take idx = layer * E + expert). idx: [n <= 8] int32 on x's
+    device. Returns [n, out] f32; a group out of range gives NaN rows."""
+    _check_groups(q, d, x, idx)
+    n = idx.shape[0]
+    nb = q.shape[-2] // 4
+    in_f, out_f = nb * Q_BLOCK, q.shape[-1]
+    rows = x.numel() // in_f
+    if not 1 <= n <= MAX_I8_ROWS:
+        raise ValueError(f"q40_gemv_q80_indexed takes 1..{MAX_I8_ROWS} slots, got {n}")
+    if rows not in (1, n):
+        raise ValueError(f"x has {rows} rows for {n} slots (1 shared row or one per slot)")
+    if _device_kind(x) == "cpu":
+        return q40_gemv_q80_indexed_plain(x, q, d, idx)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    n_groups = q.numel() // (nb * 4 * out_f)
+    lib = kernels.load("q40_gemv", _GEMV_SIG)
+    out = torch.empty((n, out_f), dtype=torch.float32, device=x.device)
+    x8, xs, bs = _q80_scratch(rows, nb, x.device)
+    rc = lib.q40_gemv_q80_indexed(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), rows, q.data_ptr(), d.data_ptr(),
+        idx.data_ptr(), n, n_groups, out.data_ptr(), in_f, out_f,
+        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(), kernels.stream_of(x),
+    )
+    kernels.check(lib, rc, "q40_gemv_q80_indexed")
+    q40_gemv_q80_indexed.launches += 1
+    return out
+
+
+q40_gemv_q80_indexed.launches = 0
+
+
+def q40_grouped_gemm_bf16(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
+    """K4 (B7): row block i of xp [R_pad, in] (cast to bf16) times group
+    block_expert[i] of q [..., nb*4, out], d [..., nb, out] (leading axes
+    flatten to groups; [L, E] stacks take layer * E + expert). block_r is
+    8, 16, 32 or 64 and divides R_pad; block_expert is [R_pad // block_r]
+    int32 on xp's device. Returns [R_pad, out] f32."""
+    _check_groups(q, d, xp, block_expert)
+    if xp.ndim != 2:
+        raise ValueError(f"xp must be [R_pad, in], got {tuple(xp.shape)}")
+    if block_r not in GROUPED_BLOCK_ROWS or xp.shape[0] % block_r:
+        raise ValueError(f"block_r {block_r} must be one of {GROUPED_BLOCK_ROWS} and divide "
+                         f"{xp.shape[0]} rows")
+    n_blocks = xp.shape[0] // block_r
+    if block_expert.shape[0] != n_blocks:
+        raise ValueError(f"{block_expert.shape[0]} block groups for {n_blocks} row blocks")
+    if _device_kind(xp) == "cpu":
+        return q40_grouped_gemm_bf16_plain(xp, q, d, block_expert, block_r)
+    nb = q.shape[-2] // 4
+    in_f, out_f = nb * Q_BLOCK, q.shape[-1]
+    xb = xp.to(torch.bfloat16).contiguous()
+    lib = kernels.load("q40_grouped_gemm", _GROUPED_SIG)
+    out = torch.empty((xp.shape[0], out_f), dtype=torch.float32, device=xp.device)
+    rc = lib.q40_grouped_gemm_bf16(
+        xb.data_ptr(), q.data_ptr(), d.data_ptr(), block_expert.data_ptr(), n_blocks,
+        q.numel() // (nb * 4 * out_f), out.data_ptr(), block_r, in_f, out_f,
+        kernels.stream_of(xp),
+    )
+    kernels.check(lib, rc, "q40_grouped_gemm_bf16")
+    q40_grouped_gemm_bf16.launches += 1
+    return out
+
+
+q40_grouped_gemm_bf16.launches = 0
+
+
+KERNELS = (
+    q40_gemv_q80_stacked, q40_gemv_q80, q40_gemm_bf16_stacked,
+    q40_gemv_q80_indexed, q40_grouped_gemm_bf16,
+)

@@ -109,14 +109,24 @@ def q40_bytes_to_t_layout(
     """A Q40 tensor's file bytes (uint8, on any device) -> (q, d) in the
     packed T layout on that device. Each 18-byte block is an f16 scale and
     16 nibble bytes; nibble byte s already is byte s of the T layout's
-    block (module docstring), so this is a regroup and one transpose."""
+    block (module docstring), so this is a regroup and one transpose.
+    `raw` [..., nbytes] may hold several same-shape tensors (a layer's
+    experts); q and d then keep its leading axes."""
     nb = in_features // Q_BLOCK
-    blocks = raw.reshape(out_features, nb, Q40_BLOCK_BYTES)
-    words = blocks[:, :, 2:].contiguous().view(torch.int32)  # [out, nb, 4]
-    q = words.permute(1, 2, 0).reshape(nb * 4, out_features).contiguous()
-    scales = blocks[:, :, :2].contiguous().view(torch.float16)  # [out, nb, 1]
-    d = scales.reshape(out_features, nb).t().contiguous()
-    return q, d
+    lead = raw.shape[:-1]
+    blocks = raw.reshape(-1, out_features, nb, Q40_BLOCK_BYTES)
+    words = blocks[..., 2:].contiguous().view(torch.int32)  # [n, out, nb, 4]
+    q = words.permute(0, 2, 3, 1).reshape(*lead, nb * 4, out_features).contiguous()
+    scales = blocks[..., :2].contiguous().view(torch.float16)  # [n, out, nb, 1]
+    d = scales.reshape(-1, out_features, nb).transpose(1, 2).reshape(*lead, nb, out_features)
+    return q, d.contiguous()
+
+
+def slice_layer(w, layer: int):
+    """w[layer] of a stacked weight, dense or QuantTensor (views, no copy)."""
+    if isinstance(w, QuantTensor):
+        return QuantTensor(q=w.q[layer], d=w.d[layer])
+    return w[layer]
 
 
 def dequantize_t(w: QuantTensor, dtype=torch.float32) -> torch.Tensor:

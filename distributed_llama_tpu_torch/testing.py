@@ -98,6 +98,9 @@ def header_kv(h: ModelHeader) -> dict[int, int]:
     return kv
 
 
+_NORM_ROLES = ("norm0", "norm1", "final_norm", "q_norm", "k_norm")
+
+
 def write_tiny_model(path: str, h: ModelHeader, seed: int = 0, scale: float = 0.05) -> ModelHeader:
     """Write a random-weight .m file for ``h``; returns the header re-read back."""
     rng = np.random.default_rng(seed)
@@ -107,11 +110,39 @@ def write_tiny_model(path: str, h: ModelHeader, seed: int = 0, scale: float = 0.
     h.header_bytes = 8 + len(kv) * 8
     with MFileWriter(path, kv) as w:
         for spec in tensor_walk(h):
-            if spec.role in ("norm0", "norm1", "final_norm", "q_norm", "k_norm"):
+            if spec.role in _NORM_ROLES:
                 x = 1.0 + rng.standard_normal(spec.shape).astype(np.float32) * 0.01
             else:
                 x = rng.standard_normal(spec.shape).astype(np.float32) * scale
             w.write_tensor(x, spec.float_type)
+    return h
+
+
+def write_random_q40_model(path: str, h: ModelHeader, seed: int = 0, scale: float = 0.05) -> ModelHeader:
+    """Write a random-weight .m file for a Q40 header ``h`` fast, for
+    full-width models: every Q40 tensor is random block bytes in the file's
+    layout (an f16 scale uniform in [0.004, 0.02), then 16 bytes of random
+    nibbles), streamed tensor by tensor from numpy's Generator without ever
+    making f32 weights. f32 tensors are drawn as `write_tiny_model` draws
+    them (norms 1 + 0.01 N(0, 1), the rest `scale` N(0, 1)), in f32."""
+    if h.weight_type != FloatType.Q40:
+        raise ValueError("write_random_q40_model writes Q40 models only")
+    rng = np.random.default_rng(seed)
+    kv = header_kv(h)
+    h.header_bytes = 8 + len(kv) * 8
+    with MFileWriter(path, kv) as w:
+        for spec in tensor_walk(h):
+            if spec.float_type == FloatType.Q40:
+                n_blocks = spec.n_elements // 32
+                scales = (rng.random(n_blocks, dtype=np.float32) * 0.016 + 0.004).astype(np.float16)
+                blocks = np.empty((n_blocks, 18), dtype=np.uint8)
+                blocks[:, :2] = scales.view(np.uint8).reshape(n_blocks, 2)
+                blocks[:, 2:] = np.frombuffer(rng.bytes(n_blocks * 16), dtype=np.uint8).reshape(n_blocks, 16)
+                w.write_raw(blocks)
+            elif spec.role in _NORM_ROLES:
+                w.write_tensor(1.0 + rng.standard_normal(spec.shape, dtype=np.float32) * 0.01, spec.float_type)
+            else:
+                w.write_tensor(rng.standard_normal(spec.shape, dtype=np.float32) * scale, spec.float_type)
     return h
 
 

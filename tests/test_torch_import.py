@@ -14,6 +14,7 @@ import distributed_llama_tpu_torch.cli
 import distributed_llama_tpu_torch.runtime.engine
 import distributed_llama_tpu_torch.ops.cuda_q40
 import distributed_llama_tpu_torch.ops.cuda_attention
+import distributed_llama_tpu_torch.ops.moe
 import distributed_llama_tpu_torch.testing
 print(json.dumps(sorted(sys.modules)))
 """
@@ -45,4 +46,5 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     ).stdout
     mods = json.loads(out.strip().splitlines()[-1])
     assert "distributed_llama_tpu_torch.runtime.engine" in mods
+    assert "distributed_llama_tpu_torch.ops.moe" in mods
     assert [m for m in mods if _is_forbidden(m)] == []
