@@ -15,13 +15,20 @@ caught):
      its bound;
   4. small-input references: a tiny Llama and a tiny Qwen3-MoE through the
      engine on the card and on the CPU (plain versions), logits and greedy
-     tokens compared;
-  5. the main paths: the CLI's `inference` mode at the full Llama-3.2-1B
-     width, then at Qwen3-30B-A3B's width (synthetic Q40 weights from a
-     seed, written once into build/), each with every kernel's launch
-     counter set to 0 just before and read just after;
-  6. where a decode token's time goes: torch.profiler over 16 decode steps
-     of each model;
+     tokens compared; a tiny Llama's paged int8 BatchSession at batch 4,
+     card against CPU;
+  5. the main paths, each with every kernel's launch counter set to 0 just
+     before it and read just after (synthetic Q40 weights from a seed,
+     written once into build/). At the full Llama-3.2-1B width: the CLI's
+     `inference` (contiguous, then at its paged bf16 default), `perplexity`
+     at its defaults (paged bf16; equal to the contiguous run's to 1e-3),
+     `inference --kv-dtype int8` (paged), a BatchSession at batch 16 (paged
+     int8, rolling release and re-admission; rows against their runs with
+     the other rows parked) and
+     `generate_batch` at batch 4 (paged int8; rows against solo runs). At
+     Qwen3-30B-A3B's width: the CLI's `inference` (contiguous);
+  6. where a decode token's time goes: torch.profiler over 16 batch-1
+     decode steps of each model and over one batch-16 paged int8 chunk;
   7. one {"kernels": [...]} line, then the card, then the result line.
 
 It needs a CUDA device and the repository around it: without either it
@@ -103,10 +110,11 @@ def nvidia_smi_line() -> str:
     return out.splitlines()[0]
 
 
-def graph_ms(torch, fn, replays: int = 20) -> float:
+def graph_ms(torch, fn, replays: int = 20, budget_ms: float = 1000.0) -> float:
     """Median device time of one call of `fn`, from CUDA events around
     replays of a CUDA graph that holds the call (so Python's launch cost is
-    not in the number)."""
+    not in the number): `replays` of them, or as many as fit `budget_ms`
+    once three are done (the plain versions take up to ~0.2 s a call)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -128,6 +136,8 @@ def graph_ms(torch, fn, replays: int = 20) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+        if len(times) >= 3 and sum(times) > budget_ms:
+            break
     del g
     return statistics.median(times)
 
@@ -288,7 +298,135 @@ def kernel_checks(torch, rates):
 
     # -- K3: one 32-token prefill chunk's attention in all 16 layers ---------
     results.append(flash_row(torch, gen, bw, bf16_peak, L, nh, nkv, hd))
+
+    # -- B5 (K2 on the unstacked wcls): perplexity's and batch > 8 logits ---
+    results.append(b5_row(torch, gen, wcls, dim, c["vocab_size"], bw, bf16_peak))
     return results
+
+
+def b5_row(torch, gen, wcls, dim, vocab, bw, bf16_peak):
+    """B5: the wcls 2048 -> 128256 at 16 rows (a batch-16 decode step's
+    logits) and 32 rows (a 32-token perplexity chunk); the row records the
+    16-row call."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    xs = {r: torch.randn((r, dim), device="cuda", generator=gen) for r in (16, 32)}
+    # K2's tolerance: exact bf16 products, tensor-core f32 sums in another order
+    errs = compare(torch, "q40_gemm_bf16", (
+        (cuda_q40.q40_gemm_bf16(x, *wcls), cuda_q40.q40_gemm_bf16_plain(x, *wcls))
+        for x in xs.values()
+    ), rel_tol=1e-4)
+    w_bf16 = _dq(torch, *wcls)
+    x16, xb = xs[16], xs[16].to(torch.bfloat16)
+    rows = 16
+    row = _entry(
+        torch, "q40_gemm_bf16", "distributed_llama_tpu_torch/csrc/q40_gemm.cu",
+        "distributed_llama_tpu/ops/pallas_q40.py:880", errs,
+        lambda: cuda_q40.q40_gemm_bf16(x16, *wcls),
+        lambda: cuda_q40.q40_gemm_bf16_plain(x16, *wcls),
+        lambda: torch.matmul(xb, w_bf16),
+        _wbytes(dim, vocab) + rows * (dim + vocab) * 4, 2 * rows * dim * vocab, bw, bf16_peak,
+        f"logits of a batch-16 decode step: wcls {dim} -> {vocab} at 16 rows "
+        f"(32 rows checked too); library: torch.matmul on the bf16-dequantized wcls",
+    )
+    row["ms_32_rows"] = graph_ms(torch, lambda: cuda_q40.q40_gemm_bf16(xs[32], *wcls))
+    log(json.dumps({"kernel_extra": "q40_gemm_bf16", "ms_32_rows": row["ms_32_rows"]}))
+    return row
+
+
+def paged_case(torch, gen, L, n_kv, g, hd, b, n_read, ps=16, t=1):
+    """Inputs for K5 at one shape: an int8 pool of L layers with b * n_read
+    mapped pages plus spare ones, each row's table a random permutation of
+    pool pages with its unmapped tail at -1, row 1 parked (pos_base =
+    seq_len, every entry read) and the live rows at random positions in
+    the last two pages of their view."""
+    kv_len = n_read * ps
+    P = b * n_read + 8
+    k = torch.randint(-127, 128, (L, P, ps, n_kv, hd), dtype=torch.int8, device="cuda", generator=gen)
+    v = torch.randint(-127, 128, (L, P, ps, n_kv, hd), dtype=torch.int8, device="cuda", generator=gen)
+    ks = torch.rand((L, P, ps, n_kv), device="cuda", generator=gen) * 0.02 + 1e-3
+    vs = torch.rand((L, P, ps, n_kv), device="cuda", generator=gen) * 0.02 + 1e-3
+    table = torch.randperm(P, device="cuda", generator=gen)[: b * n_read].reshape(b, n_read)
+    table = table.to(torch.int32).contiguous()
+    pos = torch.randint(kv_len - 2 * ps, kv_len - t + 1, (b,), device="cuda", generator=gen)
+    pos[1] = MAX_SEQ_LEN  # parked at seq_len
+    for r in range(2, b, 5):  # rows whose last pages are unmapped, causally dead
+        dead = (int(pos[r]) + t - 1) // ps + 1
+        table[r, dead:] = -1
+    # f32, as the main path's q leaves rope (the residual stream is f32)
+    q = torch.randn((b, t, n_kv * g, hd), device="cuda", generator=gen)
+    return q, k, v, ks, vs, pos.contiguous(), table, kv_len
+
+
+def paged_rows(torch, rates):
+    """K5 against its plain version at the two models' widths, b = 16, page
+    16, n_read 16 (kv_len 256) and 64 (kv_len 1024); times over all layers
+    of one decode step. Returns the 1B row at n_read 16 (the batch-16
+    session's bucket) for the kernels line; the other cases are logged."""
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops.kv_quant import dequantize_kv
+
+    bw, bf16_peak, _ = rates
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    shapes = (("llama32_1b", LLAMA32_1B["n_layers"], 8, 4, 64),
+              ("qwen3_30b_a3b", QWEN3_30B_A3B["n_layers"], 4, 8, 128))
+    b, ps = 16, 16
+    chosen = None
+    for model, L, n_kv, g, hd in shapes:
+        for n_read in (16, 64):
+            q, k, v, ks, vs, pos, table, kv_len = paged_case(torch, gen, L, n_kv, g, hd, b, n_read)
+            # f32 sums in another order over <= 1024 keys: 1e-4 of the scale
+            errs = compare(torch, f"paged_flash_attention {model} n_read {n_read}", (
+                (ca.paged_flash_attention(q, k, v, ks, vs, li, pos, table, n_read, ps),
+                 ca.paged_flash_attention_plain(q, k, v, ks, vs, li, pos, table, n_read, ps))
+                for li in (0, L - 1)
+            ), rel_tol=1e-4)
+
+            def run(fn):
+                def go():
+                    for li in range(L):
+                        fn(q, k, v, ks, vs, li, pos, table, n_read, ps)
+                return go
+
+            # nearest library call, not the same function: SDPA over a
+            # pre-gathered, pre-dequantized bf16 view with a per-row mask
+            pages = table.clamp(min=0).long()
+            views = []
+            for li in range(L):
+                kv_ = [dequantize_kv(x[li, pages], s[li, pages], torch.bfloat16)
+                       .reshape(b, kv_len, n_kv, hd).transpose(1, 2) for x, s in ((k, ks), (v, vs))]
+                views.append(kv_)
+            mask = (torch.arange(kv_len, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+            sq = q.to(torch.bfloat16).transpose(1, 2)
+
+            def lib():
+                for kk, vv in views:
+                    F.scaled_dot_product_attention(sq, kk, vv, attn_mask=mask, enable_gqa=True)
+
+            # bytes the causal limit needs: a live row reads pages 0..pos // ps,
+            # the parked row all n_read; int8 payload + f32 scale per vector
+            need = [n_read if int(p) >= MAX_SEQ_LEN else min(n_read, int(p) // ps + 1) for p in pos.tolist()]
+            page_bytes = ps * n_kv * (hd + 4)
+            nbytes = L * (2 * sum(need) * page_bytes + 2 * b * n_kv * g * hd * 4 + b * (n_read * 4 + 8))
+            nops = L * 4 * g * hd * ps * n_kv * sum(need)
+            row = _entry(
+                torch, "paged_flash_attention", "distributed_llama_tpu_torch/csrc/paged_attention.cu",
+                "distributed_llama_tpu/ops/pallas_attention.py:313", errs,
+                run(ca.paged_flash_attention), run(ca.paged_flash_attention_plain), lib,
+                nbytes, nops, bw, bf16_peak,
+                f"one batch-16 decode step's attention over {L} layers at {model} width "
+                f"(head_dim {hd}, {g} query heads per kv head), page 16, n_read {n_read} "
+                f"(kv_len {kv_len}), one parked row; library: SDPA on a pre-gathered "
+                f"dequantized bf16 view, nearest call, not the same function",
+            )
+            if chosen is None:
+                chosen = row
+            del views, k, v, ks, vs
+            torch.cuda.empty_cache()
+    return chosen
 
 
 def flash_row(torch, gen, bw, bf16_peak, L, nh, nkv, hd):
@@ -546,6 +684,53 @@ def small_reference(torch, tmp: Path, name: str, header_kw: dict, prompt: list[i
         assert n > 0, f"{name}: kernel {k} never launched on the card"
 
 
+def small_batch_reference(torch, tmp: Path):
+    """A tiny Llama through a paged int8 BatchSession at batch 4, on the
+    card and on the CPU: one decode step's logits after admission and 24
+    greedy tokens a row compared; K1 and K5 must have launched on the card."""
+    from distributed_llama_tpu_torch.models import forward
+    from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+    from distributed_llama_tpu_torch.testing import tiny_header, write_tiny_model
+
+    h = tiny_header(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                    vocab_size=512, seq_len=512)
+    path = str(tmp / "tiny_llama_batch.m")
+    write_tiny_model(path, h, seed=1)
+    prompts = [list(range(1, 1 + n)) for n in (5, 17, 38, 9)]
+    kernels = (cuda_q40.q40_gemv_q80_stacked, cuda_attention.paged_flash_attention)
+    before = {k.__name__: k.launches for k in kernels}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = InferenceEngine(path, device=dev, batch=4, kv_layout="paged", cache_dtype="int8")
+        s = BatchSession(eng)
+        for r, p in enumerate(prompts):
+            s.admit(r, p)
+        pos = torch.tensor(s.pos, device=dev)
+        logits = forward(eng.cfg, eng.params, eng.rope, eng.cache,
+                         torch.tensor(s.token, device=dev)[:, None], pos,
+                         kv_len=eng._kv_bucket(int(pos.max()) + 1),
+                         page_table=eng._pt_operand(), page_size=eng.page_size).cpu()
+        toks = [s.step(8) for _ in range(3)]
+        out[dev] = (logits, [t.tolist() for t in toks])
+        eng.close()
+    launched = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    (lg, tg), (lc, tc) = out["cuda"], out["cpu"]
+    assert torch.isfinite(lg).all() and lg.shape == (4, h.vocab_size)
+    err = (lg - lc).abs().max().item()
+    # the kernels and the plain versions sum in other orders (K1's f32
+    # block sums, K5's f32 dots): far below a wrong kernel's O(1)
+    tol = 2e-2 * lc.abs().max().item()
+    log(json.dumps({"phase": "small_reference", "model": "tiny_llama_paged_int8_batch4",
+                    "logits_max_abs_err": err, "tol": tol, "tokens_equal": tg == tc,
+                    "launches_on_card": launched}))
+    assert err <= tol, f"paged int8 batch: logits differ from the CPU by {err} > {tol}"
+    assert tg == tc, "paged int8 batch: greedy tokens differ from the CPU"
+    for k, n in launched.items():
+        assert n > 0, f"paged int8 batch: kernel {k} never launched on the card"
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main paths at full width
 # ---------------------------------------------------------------------------
@@ -583,21 +768,12 @@ def synthetic_model(stem: str, header_kw: dict, norm_epsilon: float | None = Non
     return str(mp), str(tp), time.perf_counter() - t0, mp.stat().st_size
 
 
-def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expected):
-    """The CLI's inference mode on one model: 256 greedy decode steps after
-    the prompt, every counter set to 0 just before and read just after;
-    each kernel in `expected` must have launched."""
+def run_cli(torch, argv, counters):
+    """One CLI run on the card with every launch counter set to 0 just
+    before and read just after. Returns (stdout, launches)."""
     from distributed_llama_tpu_torch import cli
-    from distributed_llama_tpu_torch.tokenizer import Tokenizer
 
-    n_prompt = len(Tokenizer(tp).encode(PROMPT))
-    # decode runs positions n_prompt - 1 .. steps - 1 (the reference's maxPos)
-    steps = n_prompt - 1 + DECODE_STEPS
-    argv = ["inference", "--model", mp, "--tokenizer", tp, "--prompt", PROMPT,
-            "--steps", str(steps), "--max-seq-len", str(MAX_SEQ_LEN),
-            "--temperature", "0", "--device", "cuda"]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     for k in counters:
         k.launches = 0
     buf = io.StringIO()
@@ -606,8 +782,31 @@ def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expec
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in counters}
     text = buf.getvalue()
+    assert rc == 0, f"cli {argv[0]} exited {rc}"
+    return text, launches
+
+
+def check_launched(launches, expected, where):
+    for k in expected:
+        assert launches[k.__name__] > 0, f"kernel {k.__name__} was never launched on {where}"
+
+
+def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expected,
+              extra=("--kv-layout", "contiguous")):
+    """The CLI's inference mode on one model: 256 greedy decode steps after
+    the prompt; each kernel in `expected` must have launched. The layout
+    is explicit: the CLI's default is paged."""
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    n_prompt = len(Tokenizer(tp).encode(PROMPT))
+    # decode runs positions n_prompt - 1 .. steps - 1 (the reference's maxPos)
+    steps = n_prompt - 1 + DECODE_STEPS
+    argv = ["inference", "--model", mp, "--tokenizer", tp, "--prompt", PROMPT,
+            "--steps", str(steps), "--max-seq-len", str(MAX_SEQ_LEN),
+            "--temperature", "0", "--device", "cuda", *extra]
+    torch.cuda.reset_peak_memory_stats()
+    text, launches = run_cli(torch, argv, counters)
     print(text[-4000:], flush=True)
-    assert rc == 0, f"cli inference exited {rc}"
 
     def num(section, key):
         m = re.search(section + r"\n(?:.*\n)*?\s*" + key + r":\s*([0-9.]+)", text)
@@ -617,7 +816,7 @@ def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expec
     n_pred = int(num("Prediction", "nTokens"))
     assert n_pred == DECODE_STEPS, f"decoded {n_pred} tokens, expected {DECODE_STEPS}"
     summary = {
-        "phase": "main_path", "model": name, "n_layers": n_layers,
+        "phase": "main_path", "model": name, "args": list(extra), "n_layers": n_layers,
         "prompt_tokens": n_prompt, "decode_tokens": n_pred,
         "load_s": num("Load", "seconds"),
         "prefill_tok_s": num("Evaluation", "tokens/s"),
@@ -627,39 +826,170 @@ def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expec
         "launches": launches,
     }
     log(json.dumps(summary))
-    for k in expected:
-        assert launches[k.__name__] > 0, f"kernel {k.__name__} was never launched on {name}'s main path"
+    check_launched(launches, expected, f"{name}'s main path {' '.join(extra)}")
     return launches
 
 
-def decode_profile(torch, name: str, model_path: str, steps: int = 16) -> dict:
-    """Where one decode token's time goes: torch.profiler over `steps`
-    decode steps of the main path's engine after a 99-token prefill. Host
-    wall per token; device busy time per token, summed over the device's
-    own events (kernels, copies) only: an aten op's device time is its
-    kernels' again; the device's idle share; kernels and host-side launch
-    calls per token; the top kernels and host ops."""
+def perplexity_path(torch, mp: str, tp: str, counters, expected):
+    """The CLI's perplexity mode over PROMPT at its defaults (paged bf16),
+    then with --kv-layout contiguous: the two perplexities agree to 1e-3
+    relative (the same numerics arms; only attention's view is gathered)."""
+    argv = ["perplexity", "--model", mp, "--tokenizer", tp, "--prompt", PROMPT,
+            "--max-seq-len", str(MAX_SEQ_LEN), "--device", "cuda"]
+    ppl, out = {}, {}
+    for layout in ("paged", "contiguous"):
+        t0 = time.perf_counter()
+        extra = [] if layout == "paged" else ["--kv-layout", "contiguous"]
+        text, launches = run_cli(torch, argv + extra, counters)
+        ppl[layout] = float(re.search(r"perplexity: ([0-9.]+)", text).group(1))
+        out[layout] = {"perplexity": ppl[layout], "wall_s": time.perf_counter() - t0,
+                       "launches": launches}
+        if layout == "paged":
+            paged_launches = launches
+    log(json.dumps({"phase": "perplexity", **out}))
+    assert abs(ppl["paged"] - ppl["contiguous"]) <= 1e-3 * ppl["contiguous"], ppl
+    check_launched(paged_launches, expected, "the perplexity path")
+    return paged_launches
+
+
+def batch_session_path(torch, mp: str, tp: str, counters, expected):
+    """A BatchSession at batch 16 on the paged int8 layout: 16 prompts of
+    16-113 tokens (prefixes of PROMPT), 8-token chunks to 128 tokens; at
+    token 64 four rows are released and four new prompts admitted. The
+    gate: every row, and each re-admitted row, produces the same greedy
+    tokens as the same row alone in a batch-16 session whose other rows
+    are parked. Returns (launches, the session, its engine)."""
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer(tp).encode(PROMPT)
+    b, chunk, n_chunks, swap_at = 16, 8, 16, 8
+    prompts = [ids[: 16 + (len(ids) - 16) * i // (b - 1)] for i in range(b)]
+    swapped = (2, 6, 10, 14)
+    new_prompts = {r: ids[10 + 5 * j : 10 + 5 * j + 24 + 20 * j] for j, r in enumerate(swapped)}
+    eng = InferenceEngine(mp, max_seq_len=MAX_SEQ_LEN, batch=b, kv_layout="paged",
+                          cache_dtype="int8", device="cuda")
+
+    def run(rows_first, rows_new, chunks):
+        """Admit `rows_first`, step; at chunk swap_at release `swapped` and
+        admit `rows_new`. Returns tokens per (row, admission), TTFTs and
+        the decode tokens and seconds."""
+        s = BatchSession(eng)
+        toks, ttft, t_adm = {}, {}, {}
+        for r in rows_first:
+            t_adm[(r, 0)] = time.perf_counter()
+            s.admit(r, prompts[r])
+            toks[(r, 0)] = []
+        n_dec, dec_s = 0, 0.0
+        for c in range(chunks):
+            if c == swap_at and rows_new:
+                for r in swapped:
+                    s.release(r)
+                for r in rows_new:
+                    t_adm[(r, 1)] = time.perf_counter()
+                    s.admit(r, new_prompts[r])
+                    toks[(r, 1)] = []
+            live = {r: k for (r, k) in toks if s.active[r] and (k == 1 or c < swap_at or r not in swapped)}
+            t0 = time.perf_counter()
+            host = s.step(chunk)
+            dt = time.perf_counter() - t0
+            now = time.perf_counter()
+            for r, k in live.items():
+                if not toks[(r, k)]:
+                    ttft[(r, k)] = (now - t_adm[(r, k)]) * 1e3
+                toks[(r, k)].extend(int(t) for t in host[r])
+            n_dec += chunk * len(live)
+            dec_s += dt
+        return s, toks, ttft, n_dec, dec_s
+
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    sess, toks, ttft, n_dec, dec_s = run(range(b), swapped, n_chunks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    check_launched(launches, expected, "the batch-16 session")
+    summary = {
+        "phase": "batch_session", "batch": b, "layout": "paged", "kv_dtype": "int8",
+        "prompt_tokens": [len(p) for p in prompts],
+        "readmitted_prompt_tokens": [len(p) for p in new_prompts.values()],
+        "decode_tokens": n_dec, "decode_s": dec_s, "decode_tok_s": n_dec / dec_s,
+        "wall_s": wall,
+        "ttft_ms": {f"row{r}" + ("_readmitted" if k else ""): v for (r, k), v in ttft.items()},
+        "launches": launches,
+    }
+    log(json.dumps(summary))
+    # the gate: every row, each admission of it, alone among parked rows
+    checked = {}
+    for r, k in toks:
+        if k == 0:
+            _, ref, _, _, _ = run([r], (), swap_at if r in swapped else n_chunks)
+        else:
+            s = BatchSession(eng)
+            s.admit(r, new_prompts[r])
+            ref = {(r, 1): [int(t) for c in range(n_chunks - swap_at) for t in s.step(chunk)[r]]}
+        same = ref[(r, k)] == toks[(r, k)]
+        checked[f"row{r}" + ("_readmitted" if k else "")] = {"tokens": len(ref[(r, k)]), "equal": same}
+        assert same, f"batch-16 row {r} ({k}) differs from its run with the other rows parked"
+    log(json.dumps({"phase": "batch_session_gate", "rows": checked}))
+    return launches, sess, eng
+
+
+def generate_batch_path(torch, mp: str, tp: str, counters, expected):
+    """generate_batch at batch 4 on the paged int8 layout: four 81-token
+    windows of PROMPT (one length, so the batch and a row alone take the
+    same prefill chunks and numerics arms), 64 greedy tokens a row; each
+    row must equal its solo paged-int8 run."""
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer(tp).encode(PROMPT)
+    prompts = [ids[o : o + 81] for o in (0, 10, 20, 32)]
+    n = 64
+    kw = dict(max_seq_len=MAX_SEQ_LEN, kv_layout="paged", cache_dtype="int8", device="cuda")
+    eng = InferenceEngine(mp, batch=4, **kw)
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = eng.generate_batch(prompts, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    eng.close()
+    del eng
+    solo = InferenceEngine(mp, **kw)
+    equal = []
+    for p, got in zip(prompts, out):
+        solo.reset()
+        equal.append(solo.generate(p, len(p) + n).tokens[len(p) : len(p) + n] == got)
+    solo.close()
+    log(json.dumps({"phase": "generate_batch", "batch": 4, "layout": "paged", "kv_dtype": "int8",
+                    "tokens_per_row": n, "wall_s": wall, "decode_tok_s_upper": 4 * n / wall,
+                    "rows_equal_solo": equal, "launches": launches}))
+    assert all(len(o) == n for o in out) and all(equal), "generate_batch rows differ from solo runs"
+    check_launched(launches, expected, "generate_batch at batch 4")
+    return launches
+
+
+def profile_window(torch, name: str, run, n_tokens: int) -> dict:
+    """Where a decode window's time goes: torch.profiler over one call of
+    `run` (after one warm call), which decodes `n_tokens` tokens. Host wall
+    per token; device busy time per token, summed over the device's own
+    events (kernels, copies) only: an aten op's device time is its kernels'
+    again; the device's idle share; kernels and host-side launch calls per
+    token; the top kernels and host ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from distributed_llama_tpu_torch.runtime.decode import decode_chunk
-    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
-
-    eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda")
-    prompt = [(7 * i) % 1000 + 1 for i in range(100)]
-    eng.prefill(prompt[:-1])
-    tok = torch.tensor([prompt[-1]], device="cuda")
-    pos = len(prompt) - 1
-
-    def run(at):
-        return decode_chunk(eng.cfg, eng.params, eng.rope, eng.cache, tok, at, n_steps=steps,
-                            kv_len=eng._kv_bucket(at + steps))
-
-    run(pos)  # warm
+    run()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(pos + steps)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -669,20 +999,41 @@ def decode_profile(torch, name: str, model_path: str, steps: int = 16) -> dict:
     by_dev = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:10]
     by_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
     out = {
-        "phase": "decode_profile", "model": name, "steps": steps,
-        "wall_ms_per_token": wall * 1e3 / steps,
-        "device_busy_ms_per_token": dev_us / 1e3 / steps,
+        "phase": "decode_profile", "model": name, "tokens": n_tokens,
+        "wall_ms_per_token": wall * 1e3 / n_tokens,
+        "device_busy_ms_per_token": dev_us / 1e3 / n_tokens,
         "device_idle_share": 1.0 - (dev_us / 1e6) / wall,
-        "kernels_per_token": sum(e.count for e in on_dev) / steps,
+        "kernels_per_token": sum(e.count for e in on_dev) / n_tokens,
         "launch_calls_per_token": sum(
-            e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel")) / steps,
-        "top_kernels_ms_per_token": {e.key[:100]: e.self_device_time_total / 1e3 / steps
+            e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel")) / n_tokens,
+        "top_kernels_ms_per_token": {e.key[:100]: e.self_device_time_total / 1e3 / n_tokens
                                      for e in by_dev},
-        "top_host_ops_ms_per_token": {e.key: e.self_cpu_time_total / 1e3 / steps for e in by_cpu},
+        "top_host_ops_ms_per_token": {e.key: e.self_cpu_time_total / 1e3 / n_tokens
+                                      for e in by_cpu},
     }
-    eng.close()
-    del eng
     log(json.dumps(out))
+    return out
+
+
+def decode_profile(torch, name: str, model_path: str, steps: int = 16) -> dict:
+    """16 batch-1 decode steps of the main path's engine (contiguous)
+    after a 99-token prefill, profiled."""
+    from distributed_llama_tpu_torch.runtime.decode import decode_chunk
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda")
+    prompt = [(7 * i) % 1000 + 1 for i in range(100)]
+    eng.prefill(prompt[:-1])
+    tok = torch.tensor([prompt[-1]], device="cuda")
+    at = [len(prompt) - 1]
+
+    def run():
+        decode_chunk(eng.cfg, eng.params, eng.rope, eng.cache, tok, at[0], n_steps=steps,
+                     kv_len=eng._kv_bucket(at[0] + steps))
+        at[0] += steps
+
+    out = profile_window(torch, name, run, steps)
+    eng.close()
     return out
 
 
@@ -694,6 +1045,11 @@ def release(torch) -> None:
 
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
+
+    def done(what: str) -> None:
+        log(f"{what} done at {time.perf_counter() - t_start:.1f} s")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -722,19 +1078,22 @@ def main() -> int:
     for name, text in logs.items():
         log(f"--- nvcc {name}.cu\n{text.strip()}")
     log(f"kernels built in {secs:.1f} s ({len(logs)} compiled, one nvcc each, in parallel)")
+    done("phases 1-2")
 
     # 3. kernels against their plain versions
-    rows = {r["name"]: r for r in kernel_checks(torch, rates)}
+    rows = {r["name"]: r for r in kernel_checks(torch, rates)}  # K1, K1-stacked, K2, K3, B5
     release(torch)
     rows.update({r["name"]: r for r in moe_kernel_checks(torch, rates)})  # K3 at hd 128
     release(torch)
+    rows["paged_flash_attention"] = paged_rows(torch, rates)  # K5
+    release(torch)
+    done("phase 3")
 
     # 4. small inputs against the CPU
     tmp = BUILD / "smoke"
     tmp.mkdir(parents=True, exist_ok=True)
-    q = cuda_q40
-    dense = (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked,
-             cuda_attention.flash_attention)
+    q, ca = cuda_q40, cuda_attention
+    dense = (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked, ca.flash_attention)
     small_reference(torch, tmp, "tiny_llama", dict(
         dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=512,
         seq_len=512), list(range(1, 39)), dense)  # prefill 37: a 32-row and an 8-row chunk
@@ -745,35 +1104,67 @@ def main() -> int:
         n_heads=4, n_kv_heads=2, head_dim=64, n_experts=16, n_active_experts=2,
         vocab_size=512, seq_len=512), list(range(1, 37)),
         (q.q40_gemv_q80_indexed, q.q40_grouped_gemm_bf16))
+    small_batch_reference(torch, tmp)
     release(torch)
+    done("phase 4")
 
-    # 5-6. the main paths, each followed by its decode profile
+    # 5-6. the main paths, each with its counters set to 0 just before it
+    # and read just after, and profiles of their decode
     counters = (*cuda_q40.KERNELS, *cuda_attention.KERNELS)
+    paths = {}
     mp, tp, write_s, size = synthetic_model("llama32_1b", LLAMA32_1B)
     log(f"synthetic Llama-3.2-1B-width model: {size} bytes, ready in {write_s:.1f} s "
         f"(set-up, not timed below)")
-    dense_launches = main_path(torch, "llama32_1b", mp, tp, LLAMA32_1B["n_layers"], counters, dense)
+    paths["llama32_1b inference contiguous"] = main_path(
+        torch, "llama32_1b", mp, tp, LLAMA32_1B["n_layers"], counters, dense)
     release(torch)
     decode_profile(torch, "llama32_1b", mp)
     release(torch)
+    paths["llama32_1b perplexity paged"] = perplexity_path(
+        torch, mp, tp, counters, (q.q40_gemm_bf16_stacked, q.q40_gemm_bf16, ca.flash_attention))
+    release(torch)
+    paths["llama32_1b inference paged (the CLI default)"] = main_path(
+        torch, "llama32_1b", mp, tp, LLAMA32_1B["n_layers"], counters, dense, extra=())
+    release(torch)
+    paths["llama32_1b inference paged int8"] = main_path(
+        torch, "llama32_1b", mp, tp, LLAMA32_1B["n_layers"], counters,
+        (*dense, ca.paged_flash_attention), extra=("--kv-dtype", "int8"))
+    release(torch)
+    launches, sess, eng = batch_session_path(
+        torch, mp, tp, counters,
+        (q.q40_gemm_bf16_stacked, q.q40_gemm_bf16, ca.flash_attention, ca.paged_flash_attention))
+    paths["llama32_1b batch_session 16 paged int8"] = launches
+    profile_window(torch, "llama32_1b batch-16 paged int8 chunk", lambda: sess.step(8), 8 * 16)
+    eng.close()
+    del sess, eng
+    release(torch)
+    paths["llama32_1b generate_batch 4 paged int8"] = generate_batch_path(
+        torch, mp, tp, counters, (q.q40_gemv_q80_stacked, ca.paged_flash_attention))
+    release(torch)
     Path(mp).unlink()  # room on the disk for the MoE file
+    done("phases 5-6 at Llama-3.2-1B width")
 
     moe_kw = dict(QWEN3_30B_A3B, arch=QWEN3_MOE_ARCH)
     mp, tp, write_s, size = synthetic_model("qwen3_30b_a3b", moe_kw, norm_epsilon=QWEN3_NORM_EPS)
     log(f"synthetic Qwen3-30B-A3B-width model: {size} bytes, {QWEN3_30B_A3B['n_layers']} layers "
         f"(full depth, no cut), ready in {write_s:.1f} s (set-up, not timed below)")
-    moe_launches = main_path(torch, "qwen3_30b_a3b", mp, tp, QWEN3_30B_A3B["n_layers"],
-                             counters, counters)
+    moe = (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked,
+           q.q40_gemv_q80_indexed, q.q40_grouped_gemm_bf16, ca.flash_attention)
+    paths["qwen3_30b_a3b inference contiguous"] = main_path(
+        torch, "qwen3_30b_a3b", mp, tp, QWEN3_30B_A3B["n_layers"], counters, moe)
     release(torch)
     decode_profile(torch, "qwen3_30b_a3b", mp)
     release(torch)
+    done("phases 5-6 at Qwen3-30B-A3B width")
 
-    # 7. the record: one row a kernel; launches from the Qwen3-30B-A3B main
-    # path (all six run there), the Llama-3.2-1B path's beside them
+    # 7. the record: one row a kernel; `launches` sums the main paths'
+    # counts (each path counted on its own), `launches_by_path` holds them
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    kern = [{**{k: r[k] for k in keys}, "launches": moe_launches[name],
-             "launches_dense": dense_launches[name]} for name, r in rows.items()]
+    kern = [{**{k: r[k] for k in keys},
+             "launches": sum(p[name] for p in paths.values()),
+             "launches_by_path": {path: p[name] for path, p in paths.items()}}
+            for name, r in rows.items()]
     print(json.dumps({"kernels": kern}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,12 +1,13 @@
 """Command-line entry point — the `dllama` analogue, on PyTorch.
 
-The counterpart of the JAX package's `cli.py` for the `inference` mode
-(reference: src/dllama.cpp:13-151): the same flags where this slice runs
-them, plus `--device {cuda,cpu}` (default cuda: the CLI runs on the card
-unless asked for the CPU). The JAX CLI's defaults turn on the paged KV
-layout, ngram speculation and the prefix cache; this port defaults to the
-contiguous layout with both off, and a value not ported yet raises
-NotImplementedError naming its ROADMAP item.
+The counterpart of the JAX package's `cli.py`: the `inference`,
+`perplexity` and `chat` modes (reference: src/dllama.cpp:13-305) with the
+same flags where the port runs them, plus `--device {cuda,cpu}` (default
+cuda: the CLI runs on the card unless asked for the CPU). As in the JAX
+CLI, `--kv-layout` defaults to paged (DLT_KV_LAYOUT env first);
+`--kv-dtype int8` stores the cache in int8. Speculation and the prefix
+cache are not ported: their non-off values raise NotImplementedError
+naming ROADMAP A10.
 
 Usage:
   python -m distributed_llama_tpu_torch.cli inference --model m.m \
@@ -18,8 +19,20 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
+
 from .runtime.engine import InferenceEngine
-from .tokenizer import Sampler, Tokenizer
+from .runtime.paged_kv import resolve_kv_layout
+from .tokenizer import (
+    EOS_FOUND,
+    EOS_MAYBE,
+    TEMPLATE_UNKNOWN,
+    ChatItem,
+    ChatTemplateGenerator,
+    EosDetector,
+    Sampler,
+    Tokenizer,
+)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -33,19 +46,24 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--chat-template", default=None)
     p.add_argument("--compute-dtype", choices=["bfloat16", "float32"], default="bfloat16")
     p.add_argument(
         "--cache-dtype", "--kv-dtype", dest="cache_dtype",
         choices=["bfloat16", "float32", "int8"], default=None,
-        help="KV cache storage dtype (default: the compute dtype's); int8 is "
-        "not ported yet",
+        help="KV cache storage dtype (default DLT_KV_DTYPE env, else the "
+        "compute dtype's): int8 stores quantized KV with an f32 scale per "
+        "(token, kv head)",
     )
     p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="where the model runs (default cuda; no GPU is an error, not a "
         "fallback)",
     )
-    p.add_argument("--batch", type=int, default=1)
+    p.add_argument(
+        "--batch", type=int, default=1,
+        help="engine batch rows (the CLI's modes run the same sequence in each)",
+    )
     p.add_argument(
         "--host-decode", action="store_true",
         help="per-token host decode loop (bit-parity RNG with the reference)",
@@ -53,8 +71,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-batch-size", "--nbatches", dest="max_chunk", type=int, default=32)
     p.add_argument("--prefill-chunk-size", type=int, default=0)
     p.add_argument(
-        "--kv-layout", choices=["contiguous", "paged"], default="contiguous",
-        help="KV cache layout; only contiguous is ported",
+        "--kv-layout", choices=["contiguous", "paged"], default=None,
+        help="KV cache layout: paged (fixed-size pages and per-row page "
+        "tables) or contiguous (per-row seq_len slabs). Default: "
+        "DLT_KV_LAYOUT env, else paged",
+    )
+    p.add_argument(
+        "--kv-page-size", type=int, default=0,
+        help="tokens per KV page, a power of two (default DLT_KV_PAGE env, else 16)",
+    )
+    p.add_argument(
+        "--kv-pool-mb", type=int, default=0,
+        help="paged KV pool budget in MB (default DLT_KV_POOL_MB env, else "
+        "batch x seq_len worth of pages)",
     )
     p.add_argument(
         "--speculative", choices=["off", "ngram", "model"], default="off",
@@ -68,10 +97,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    """Flags the JAX CLI has whose other values this slice does not run."""
+    """Flags the JAX CLI has whose other values the port does not run."""
     for flag, value, ported, item in (
-        ("--batch", args.batch, 1, "A8, batched decode"),
-        ("--kv-layout", args.kv_layout, "contiguous", "A9, paged and int8 KV"),
         ("--speculative", args.speculative, "off", "A10, speculation"),
         ("--prefix-cache-mb", args.prefix_cache_mb, 0, "A10, prefix cache"),
     ):
@@ -87,10 +114,16 @@ def make_engine(args) -> InferenceEngine:
         compute_dtype=args.compute_dtype,
         cache_dtype=args.cache_dtype,
         max_seq_len=args.max_seq_len,
+        batch=args.batch,
         max_chunk=max_chunk,
         device_decode=not args.host_decode,
         verbose=True,
         device=args.device,
+        # paged is the CLI's default, as in the JAX CLI (cli.py:236);
+        # library engines keep contiguous
+        kv_layout=resolve_kv_layout(args.kv_layout, default="paged"),
+        kv_page_size=args.kv_page_size or None,
+        kv_pool_mb=args.kv_pool_mb or None,
     )
 
 
@@ -154,17 +187,130 @@ def run_inference(args) -> int:
     return 0
 
 
+def run_perplexity(args) -> int:
+    """Next-token probabilities over the prompt (reference:
+    dllama.cpp:167-207), as the JAX CLI computes them: one teacher-forced
+    forward with logits at every position per chunk of max_chunk tokens."""
+    if not args.prompt:
+        print("Prompt is required", file=sys.stderr)
+        return 1
+    engine = make_engine(args)
+    tok = Tokenizer(args.tokenizer)
+    ids = tok.encode(args.prompt)
+    n = len(ids)
+    print(f"Evaluating {n} tokens...")
+
+    total_log_prob = 0.0
+    pos = 0
+    chunk = engine.max_chunk
+    for i in range(0, n - 1, chunk):
+        part = ids[i : i + chunk]
+        probs = _softmax_np(engine.forward_tokens(part, i, logits_mode="all")[0])
+        for j in range(len(part)):
+            if i + j + 1 >= n:
+                break
+            p = max(float(probs[j, ids[i + j + 1]]), 1e-30)
+            total_log_prob += float(np.log(p))
+            pos += 1
+            print(f"{pos:5d} / {n - 1}, prob={p:f}")
+
+    avg = total_log_prob / (n - 1)
+    print()
+    print("Results")
+    print(f"   perplexity: {float(np.exp(-avg)):f} (lower = better)")
+    print(f"   avgLogProb: {avg:f}")
+    print(f"   bitPerToken: {-avg / float(np.log(2.0)):f}")
+    engine.close()
+    return 0
+
+
+def _softmax_np(x):
+    m = x.max(axis=-1, keepdims=True)
+    e = np.exp(x - m)
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def run_chat(args) -> int:
+    """Interactive chat REPL (reference: dllama.cpp:209-305): each turn's
+    prompt continues the cache where the previous turn stopped."""
+    engine = make_engine(args)
+    tok = Tokenizer(args.tokenizer)
+    sampler = make_sampler(args, engine.cfg.vocab_size)
+
+    template_type = (
+        ChatTemplateGenerator.parse_type(args.chat_template)
+        if args.chat_template
+        else TEMPLATE_UNKNOWN
+    )
+    stops = [tok.piece(t).decode("utf-8", errors="replace") for t in tok.eos_token_ids]
+    gen = ChatTemplateGenerator(template_type, tok.chat_template, stops[0] if stops else "")
+    max_stop = max((len(s) for s in stops), default=0)
+
+    try:
+        sys_prompt = input("💻 System prompt (optional): ")
+    except (EOFError, KeyboardInterrupt):
+        print()
+        return 0
+    delta_items: list[ChatItem] = []
+    if sys_prompt:
+        delta_items.append(ChatItem("system", sys_prompt))
+
+    pos = 0
+    seq_len = engine.cfg.seq_len
+    while pos < seq_len:
+        user = ""
+        try:
+            while not user:
+                user = input("\n👱 User\n> ")
+        except (EOFError, KeyboardInterrupt):
+            print()
+            return 0
+        delta_items.append(ChatItem("user", user))
+        prompt = gen.generate(delta_items, True)
+        ids = tok.encode(prompt.content, is_start=(pos == 0))
+        if pos + len(ids) - 1 >= seq_len:
+            break
+
+        tok.reset_decoder()
+        detector = EosDetector(tok.eos_token_ids, stops, max_stop, max_stop)
+        print("\n🤖 Assistant")
+        if prompt.public_prompt:
+            print(prompt.public_prompt, end="")
+
+        # chunked on-device decode with host-side stop scanning: tokens past
+        # the stop are dropped, and the next turn's prefill rewrites the
+        # cache past this turn's end before reading it
+        state = {"stop": False}
+
+        def on_token(t):
+            piece = tok.decode(t)
+            eos_type = detector.append(t, piece)
+            if eos_type != EOS_MAYBE:
+                delta = detector.get_delta()
+                if delta:
+                    print(delta, end="", flush=True)
+                detector.reset()
+            if eos_type == EOS_FOUND:
+                state["stop"] = True
+
+        res = engine.generate(
+            ids, seq_len, sampler=sampler, pos_start=pos,
+            on_token=on_token, stop_fn=lambda t: state["stop"],
+        )
+        pos = pos + len(ids) - 1 + res.n_pred_tokens
+        delta_items.clear()
+    print("(end of context)")
+    return 0
+
+
 def main(argv=None) -> int:
     raw = list(argv) if argv is not None else sys.argv[1:]
     args = build_arg_parser().parse_args(raw)
     if args.model is None or args.tokenizer is None:
         print("--model and --tokenizer are required", file=sys.stderr)
         return 2
-    if args.mode == "inference":
-        return run_inference(args)
-    raise NotImplementedError(
-        f"the {args.mode} mode is not ported yet (ROADMAP A6b, chat and perplexity)"
-    )
+    modes = {"inference": run_inference, "perplexity": run_perplexity, "chat": run_chat}
+    return modes[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,10 @@
 //
 // Replaces the JAX package's ops/pallas_q40.py q40_matmul_pallas_stacked
 // (:253), body _dequant_dot_accum (:160). The layer index of the stacked
-// weight only offsets the base pointers.
+// weight only offsets the base pointers; an unstacked weight is layer 0,
+// which also makes this kernel B5 (q40_matmul_pallas, :880: the wcls at more
+// than 8 rows). Any block count and any out_features run: the contraction
+// goes one Q40 block at a time and the last column tile is masked.
 //
 // Numerics, as in _dequant_dot_accum's bf16 branch (:173-178): the f16 scale
 // goes to f32 and rounds to bf16; each weight is (u - 8) * bf16(scale),

@@ -17,6 +17,7 @@ import torch
 from ..formats.mfile import ArchType, ModelHeader
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_KV_DTYPES = {**_DTYPES, "int8": torch.int8}
 
 
 @dataclass(frozen=True)
@@ -38,7 +39,8 @@ class ModelConfig:
     # compute_dtype: operand dtype of the matmuls and of flash attention.
     # "bfloat16" runs the CUDA kernels; "float32" is the parity path.
     compute_dtype: str = "bfloat16"
-    # cache_dtype: KV cache storage dtype.
+    # cache_dtype: KV cache storage dtype; "int8" stores the payload in int8
+    # with an f32 scale per (token, kv head) (ops/kv_quant.py).
     cache_dtype: str = "bfloat16"
 
     @property
@@ -63,12 +65,12 @@ class ModelConfig:
 
     @property
     def kv_dtype(self) -> torch.dtype:
-        if self.cache_dtype not in _DTYPES:
-            raise NotImplementedError(
-                f"cache dtype {self.cache_dtype!r} is not ported yet "
-                "(ROADMAP A9, paged and int8 KV)"
-            )
-        return _DTYPES[self.cache_dtype]
+        return _KV_DTYPES[self.cache_dtype]
+
+    @property
+    def kv_quantized(self) -> bool:
+        """The cache stores int8 with f32 scale sidecars."""
+        return self.cache_dtype == "int8"
 
 
 def config_from_header(
@@ -78,6 +80,8 @@ def config_from_header(
         raise ValueError(f"unknown compute dtype {compute_dtype!r}")
     if cache_dtype is None:
         cache_dtype = "float32" if compute_dtype == "float32" else "bfloat16"
+    if cache_dtype not in _KV_DTYPES:
+        raise ValueError(f"unknown cache dtype {cache_dtype!r}")
     return ModelConfig(
         arch_type=h.arch_type,
         dim=h.dim,

@@ -59,7 +59,11 @@ class ModelParams:
 
 @dataclass
 class KVCache:
-    """[n_layers, batch, seq_len, n_kv_heads, head_dim] key/value tensors.
+    """[n_layers, batch, seq_len, n_kv_heads, head_dim] key/value tensors
+    (the contiguous layout), or the paged layout's page pools [n_layers,
+    pages, page_size, n_kv_heads, head_dim] (runtime/paged_kv.py). The int8
+    arm adds f32 scale sidecars of the same shape without head_dim
+    (ops/kv_quant.py); float caches leave them None.
 
     The forward pass writes each step's rows into these tensors IN PLACE.
     (The JAX package threads the cache functionally and donates the buffer
@@ -68,10 +72,31 @@ class KVCache:
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def seq_len(self) -> int:
+        """Positions per row of the contiguous layout."""
         return self.k.shape[2]
+
+    def tensors(self) -> tuple:
+        """Every device tensor of the cache, scales included."""
+        return tuple(t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None)
+
+
+def kv_cache_of_shape(cfg: ModelConfig, shape: tuple, device="cpu") -> KVCache:
+    """Zeroed k/v of `shape` (trailing head_dim) in the cache dtype, with
+    zeroed f32 scales on the int8 arm."""
+    k = torch.zeros(shape, dtype=cfg.kv_dtype, device=device)
+    v = torch.zeros(shape, dtype=cfg.kv_dtype, device=device)
+    if not cfg.kv_quantized:
+        return KVCache(k=k, v=v)
+    return KVCache(
+        k=k, v=v,
+        k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+    )
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None, device="cpu") -> KVCache:
@@ -82,10 +107,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None, devi
         cfg.n_kv_heads,
         cfg.head_dim,
     )
-    return KVCache(
-        k=torch.zeros(shape, dtype=cfg.kv_dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.kv_dtype, device=device),
-    )
+    return kv_cache_of_shape(cfg, shape, device)
 
 
 # ---------------------------------------------------------------------------

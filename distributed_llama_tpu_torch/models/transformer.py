@@ -3,9 +3,10 @@
 The counterpart of the JAX package's `models/transformer.py`: its `linear`
 (:39), `_dense_ffn` (:79), the MoE block (`_gather_expert` :93,
 `_expert_matmul` :105, `_n_local_experts` :179, `_moe_ffn` :186,
-`_moe_decode_i8` :270, single device), `_attention_auto` (:135), the
-stacked, contiguous-cache branch of `_layer` (:310, :495-558, scalar
-pos_start) and `forward_uncompiled` (:660). PyTorch runs eagerly, so the
+`_moe_decode_i8` :270, single device), `_attention_auto` (:135),
+`_fused_paged_eligible` (:164), the paged branch of `_layer` (:410-493), its
+stacked contiguous branch with scalar or per-row positions and the int8 arm
+(:495-558), and `forward_uncompiled` (:660). PyTorch runs eagerly, so the
 scan over layers is a Python loop and each matmul selects its layer inside
 the kernel.
 
@@ -14,19 +15,28 @@ src/llm.cpp:421-569):
 
     y  = rms_norm(x, norm0);  q|k|v = y @ Wqkv
     [qwen3: per-head rms_norm of q, k]
-    q, k = rope(q, k); cache[layer, :, pos:pos+t] = k, v   (in place)
-    a  = attention(q, cache[layer, :, :kv_len]);  x += a @ Wo
+    q, k = rope(q, k); write k, v at their positions     (in place)
+    a  = attention(q, the first kv_len positions);  x += a @ Wo
     y  = rms_norm(x, norm1)
     dense: x += (silu(y @ W1) * (y @ W3)) @ W2
     moe:   route y to its top-k experts; x += the weighted sum of their SwiGLUs
 
 Dtype boundaries are the JAX package's: the residual stream is f32, matmul
 operands are the compute dtype (bf16 on the fast path), `linear` returns its
-input's dtype, and the cache is written in the cache dtype.
+input's dtype, and the cache is written in the cache dtype (int8 with f32
+scales on the quantized arm, read back dequantized to the compute dtype).
+
+Rows at per-row positions may be parked (pos = seq_len) or finished: their
+writes must not land. JAX drops them with mode="drop" scatters; here the
+contiguous arm rewrites an in-bounds window with the old values
+(`_write_rows`) and the paged arm sends them to the pool's sink page, both
+by index arithmetic, with no host sync. That index work is the same in
+every layer, so `forward` does it once (`_row_window`, `_paged_index`).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import partial
 from typing import Any
 
@@ -35,14 +45,17 @@ import torch
 from ..formats.mfile import HiddenAct
 from ..ops.activations import gelu, silu
 from ..ops.attention import gqa_attention
-from ..ops.cuda_attention import flash_attention, flash_attention_aligned
+from ..ops.cuda_attention import (
+    flash_attention, flash_attention_aligned, paged_attention_eligible, paged_flash_attention,
+)
 from ..ops.cuda_q40 import q40_gemv_q80_indexed
+from ..ops.kv_quant import dequantize_kv, quantize_kv
 from ..ops.moe import moe_ffn_ragged, moe_router
 from ..ops.norm import rms_norm
 from ..ops.quant import (
     QuantTensor, _f32_matmul, dequantize_t, q40_stacked_aligned, quant_matmul, slice_layer,
 )
-from ..ops.rope import RopeTables, apply_rope
+from ..ops.rope import RopeTables, rope_rows, rotate
 from .config import ModelConfig
 from .params import KVCache, LayerParams, ModelParams
 
@@ -130,8 +143,19 @@ def _moe_decode_i8(cfg, y, lp, layer, idx, wts):
         x, lp.w3.q, lp.w3.d, fi
     )  # [k, ff]
     o = q40_gemv_q80_indexed(h.to(y.dtype), lp.w2.q, lp.w2.d, fi)  # [k, dim]
-    out = (o * wts.reshape(k, 1).to(torch.float32)).sum(dim=0)  # the slots, in f32
-    return out.reshape(*y.shape[:2], cfg.dim)
+    return combine_slots(o, wts.reshape(k)).reshape(*y.shape[:2], cfg.dim)
+
+
+def combine_slots(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum over slots of w[slot] * o[slot] in f32, added one slot at a time
+    in slot order onto a zero row, as the JAX package's `_moe_decode_i8`
+    adds them (:297-306): the same f32 roundings, so the same bits. One
+    multiply for every slot, then k adds (a `.sum` would reassociate)."""
+    prod = o * w.to(torch.float32).unsqueeze(-1)  # [k, dim]
+    out = torch.zeros_like(prod[0])
+    for slot in range(prod.shape[0]):
+        out = out + prod[slot]
+    return out
 
 
 def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -> torch.Tensor:
@@ -161,26 +185,166 @@ def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -> 
     return out.to(y.dtype)
 
 
-def _attention_auto(cfg, q, k_view, v_view, positions, pos_start: int):
-    """Prefill-sized q on a bf16 cache -> the flash kernel (K3); otherwise
-    (decode t = 1, the f32 parity path, unaligned shapes) the plain
-    whole-cache attention, whose reads the engine bounds with kv_len."""
+def _attention_auto(cfg, q, k_view, v_view, positions, pos_start):
+    """Prefill-sized q on a bf16 cache, all rows aligned at a scalar
+    `pos_start` -> the flash kernel (K3); otherwise (decode t = 1, per-row
+    positions, the f32 parity path, unaligned shapes) the plain whole-view
+    attention, whose reads the engine bounds with kv_len."""
     t = q.shape[1]
-    if k_view.dtype == torch.bfloat16 and flash_attention_aligned(q, k_view, t):
+    if (
+        isinstance(pos_start, int)
+        and k_view.dtype == torch.bfloat16
+        and flash_attention_aligned(q, k_view, t)
+    ):
         return flash_attention(q, k_view, v_view, pos_start)
     return gqa_attention(q, k_view, v_view, positions)
 
 
+def _kv_for_write(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
+    """(k, v, k_scale, v_scale) as the cache stores them: quantized with
+    their scales on the int8 arm (ops/kv_quant.py), cast otherwise."""
+    if cfg.kv_quantized:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        return kq, vq, ks, vs
+    return k.to(cfg.kv_dtype), v.to(cfg.kv_dtype), None, None
+
+
+def _row_window(pos: torch.Tensor, S: int, t: int) -> tuple:
+    """Where `_write_rows` writes, the same in every layer, so built once per
+    forward: row r rewrites the in-bounds window [w, w + t) of its slab,
+    w = min(pos[r], S - t); slot i takes src[r, i - (pos[r] - w)] when that
+    index is >= 0 and its old value otherwise. Returns (rows [b, 1], slots
+    [b, t], src index [b, t], keep [b, t])."""
+    dev = pos.device
+    w = pos.clamp(0, S - t)
+    steps = torch.arange(t, device=dev)
+    j = steps[None, :] - (pos - w)[:, None]
+    rows = torch.arange(pos.shape[0], device=dev)[:, None]
+    return rows, w[:, None] + steps, j.clamp(min=0), j >= 0
+
+
+def _write_rows(dst: torch.Tensor, src: torch.Tensor, window: tuple) -> None:
+    """dst[r, pos[r] + j] = src[r, j] for every position below dst's length;
+    a write at or past it (a parked row, a finished row riding a batch
+    chunk) leaves dst as it was. dst [b, S, ...] (a view, written in place),
+    src [b, t, ...], `window` from `_row_window`.
+
+    The JAX package scatters with mode="drop". Here every index is in bounds
+    and unique, and nothing syncs with the host."""
+    rows, idx, j, keep = window
+    keep = keep.reshape(*keep.shape, *([1] * (src.ndim - 2)))
+    dst[rows, idx] = torch.where(keep, src[rows, j], dst[rows, idx])
+
+
+def _contiguous_attention(cfg, q, k, v, positions, pos_start, cache: KVCache, li, kv_len,
+                          window):
+    """Write this layer's K/V into the [L, b, S, h, d] cache in place and
+    attend over its first kv_len positions. `window`: per-row positions'
+    `_row_window`, None for a scalar pos_start."""
+    t = q.shape[1]
+    kw, vw, ks, vs = _kv_for_write(cfg, k, v)
+    new = [(cache.k, kw), (cache.v, vw)]
+    if cfg.kv_quantized:
+        new += [(cache.k_scale, ks), (cache.v_scale, vs)]
+    for dst, src in new:
+        if window is None:
+            # padded prefill tails write junk past the true length: attention
+            # masks it, and later writes replace it before any query reads it
+            dst[li, :, pos_start : pos_start + t] = src
+        else:
+            _write_rows(dst[li], src, window)
+    S = cache.k.shape[2]
+    view_len = min(kv_len, S) if kv_len is not None else S
+    k_view = cache.k[li, :, :view_len]
+    v_view = cache.v[li, :, :view_len]
+    if cfg.kv_quantized:
+        # the bucketed view dequantized to the compute dtype (flash stays
+        # eligible on the bf16 path)
+        k_view = dequantize_kv(k_view, cache.k_scale[li, :, :view_len], cfg.dtype)
+        v_view = dequantize_kv(v_view, cache.v_scale[li, :, :view_len], cfg.dtype)
+    return _attention_auto(cfg, q, k_view, v_view, positions, pos_start)
+
+
+@dataclass(frozen=True)
+class _PagedIndex:
+    """Where a forward step writes and reads the page pool
+    (runtime/paged_kv.py): the same in every layer, so `_paged_index` builds
+    it once per forward."""
+
+    table: torch.Tensor  # [b, max_slots] int32 page tables (-1 = unmapped)
+    page_size: int
+    write: torch.Tensor  # [b * t] flat pool slots, page * page_size + offset
+    pages: torch.Tensor  # [b, n_read] int64 pages read, unmapped -> page 0
+    pos_base: torch.Tensor  # [b] int64, each row's first query position
+
+
+def _paged_index(cfg: ModelConfig, positions: torch.Tensor, table: torch.Tensor,
+                 page_size: int, sink: int, kv_len: int | None) -> _PagedIndex:
+    """Writes go to (table[row, pos // ps], pos % ps). A write that must not
+    land (pos >= seq_len, a slot past the table, an unmapped -1 entry) goes
+    to the `sink` page, which no table maps. Reads take the first n_read
+    table entries, n_read covering kv_len; an unmapped entry reads page 0,
+    which the causal mask discards."""
+    ps = page_size
+    max_slots = table.shape[1]
+    slot = positions // ps
+    phys = torch.gather(table, 1, slot.clamp(max=max_slots - 1)).long()
+    invalid = (positions >= cfg.seq_len) | (slot >= max_slots) | (phys < 0)
+    write = torch.where(invalid, sink, phys) * ps + positions % ps
+    n_read = max_slots if kv_len is None else min(-(-kv_len // ps), max_slots)
+    return _PagedIndex(
+        table=table, page_size=ps, write=write.reshape(-1),
+        pages=table[:, :n_read].clamp(min=0).long(), pos_base=positions[:, 0].contiguous(),
+    )
+
+
+def _paged_attention(cfg, q, k, v, positions, pos_start, cache: KVCache, li, ix: _PagedIndex):
+    """The paged layout: write this layer's K/V into the pool slots of `ix`
+    and attend over its pages. Reads: int8 decode-sized q on the bf16 kernel
+    path -> K5 through the table; otherwise gather the pages into a [b,
+    n_read * ps, h, d] view, dequantized on the int8 arm."""
+    b = q.shape[0]
+    kw, vw, ks, vs = _kv_for_write(cfg, k, v)
+    new = [(cache.k, kw), (cache.v, vw)]
+    if cfg.kv_quantized:
+        new += [(cache.k_scale, ks), (cache.v_scale, vs)]
+    for dst, src in new:
+        layer = dst[li]  # [P, ps, ...], contiguous
+        layer.view(-1, *layer.shape[2:]).index_copy_(0, ix.write, src.reshape(-1, *src.shape[2:]))
+
+    ps, n_read = ix.page_size, ix.pages.shape[1]
+    if (
+        cfg.kv_quantized
+        and cfg.dtype == torch.bfloat16
+        and paged_attention_eligible(q, cfg.n_kv_heads, ps)
+    ):
+        return paged_flash_attention(
+            q, cache.k, cache.v, cache.k_scale, cache.v_scale, li, ix.pos_base, ix.table,
+            n_read, ps,
+        )
+    k_view = cache.k[li, ix.pages]  # [b, n_read, ps, h, d]
+    v_view = cache.v[li, ix.pages]
+    if cfg.kv_quantized:
+        k_view = dequantize_kv(k_view, cache.k_scale[li, ix.pages], cfg.dtype)
+        v_view = dequantize_kv(v_view, cache.v_scale[li, ix.pages], cfg.dtype)
+    k_view = k_view.reshape(b, n_read * ps, cfg.n_kv_heads, cfg.head_dim)
+    v_view = v_view.reshape(b, n_read * ps, cfg.n_kv_heads, cfg.head_dim)
+    return _attention_auto(cfg, q, k_view, v_view, positions, pos_start)
+
+
 def _layer(
     cfg: ModelConfig,
-    rope: RopeTables,
+    rope: tuple,  # the (cos, sin) rows of `positions` (ops/rope.py rope_rows)
     x: torch.Tensor,  # [b, t, dim] residual stream (f32)
     positions: torch.Tensor,  # [b, t]
-    pos_start: int,  # cache write offset
+    pos_start,  # int (rows aligned) or [b] tensor (per-row positions)
     lp: LayerParams,
     cache: KVCache,
     li: int,
     kv_len: int | None,
+    kv_index,  # _PagedIndex (paged layout), a `_row_window` (contiguous at
+    # per-row positions) or None (contiguous, scalar pos_start)
 ) -> torch.Tensor:
     b, t, _ = x.shape
     y = rms_norm(x, lp.norm0[li], cfg.norm_epsilon)
@@ -192,20 +356,14 @@ def _layer(
     if cfg.is_qwen3:
         q = rms_norm(q, lp.q_norm[li], cfg.norm_epsilon)
         k = rms_norm(k, lp.k_norm[li], cfg.norm_epsilon)
-    q = apply_rope(q, rope, positions, cfg.rope_type).contiguous()
-    k = apply_rope(k, rope, positions, cfg.rope_type)
+    q = rotate(q, rope, cfg.rope_type).contiguous()
+    k = rotate(k, rope, cfg.rope_type)
 
-    # in-place write of this layer's rows (the JAX package's donated
-    # dynamic_update_slice). Padded prefill tails write junk past the true
-    # length: attention masks it, and later writes replace it before any
-    # query at that position reads it.
-    S = cache.k.shape[2]
-    cache.k[li, :, pos_start : pos_start + t] = k.to(cache.k.dtype)
-    cache.v[li, :, pos_start : pos_start + t] = v.to(cache.v.dtype)
-    view_len = min(kv_len, S) if kv_len is not None else S
-    k_view = cache.k[li, :, :view_len]
-    v_view = cache.v[li, :, :view_len]
-    a = _attention_auto(cfg, q, k_view, v_view, positions, pos_start)
+    if isinstance(kv_index, _PagedIndex):
+        a = _paged_attention(cfg, q, k, v, positions, pos_start, cache, li, kv_index)
+    else:
+        a = _contiguous_attention(cfg, q, k, v, positions, pos_start, cache, li, kv_len,
+                                  kv_index)
     att_out = linear(a.reshape(b, t, cfg.q_dim), lp.wo, cfg.dtype, li)
     x = x + att_out.to(x.dtype)
 
@@ -221,26 +379,50 @@ def forward(
     rope: RopeTables,
     cache: KVCache,
     tokens: torch.Tensor,  # [b, t] integer
-    pos_start: int,  # absolute position of tokens[:, 0], all rows aligned
+    pos_start,  # int: position of tokens[:, 0] in every row; or a [b] tensor
+    # on the device: each row's own (per-row sequences, batched decode; a
+    # row at seq_len is parked and writes nothing)
     logits_mode: str = "last",  # "last" | "all"
-    kv_len: int | None = None,  # attention reads cache[:, :kv_len]
+    kv_len: int | None = None,  # attention reads the first kv_len positions
+    page_table: torch.Tensor | None = None,  # [b, max_slots] int32 on the
+    # device: the paged layout, where `cache` is the page pool
+    page_size: int | None = None,  # the paged layout's page length
 ) -> torch.Tensor:
     """One forward step (prefill chunk or decode token); writes the chunk's
     K/V into `cache` in place. Returns f32 logits: [b, vocab] for "last",
     [b, t, vocab] for "all"."""
     if logits_mode not in ("last", "all"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
+    if (page_table is None) != (page_size is None):
+        raise ValueError("the paged layout needs both page_table and page_size")
     b, t = tokens.shape
-    pos_start = int(pos_start)
-    if pos_start < 0 or pos_start + t > cache.seq_len:
-        raise ValueError(
-            f"positions {pos_start}..{pos_start + t - 1} do not fit the cache "
-            f"({cache.seq_len})"
-        )
-    positions = (pos_start + torch.arange(t, device=tokens.device)).expand(b, t)
+    steps = torch.arange(t, device=tokens.device)
+    if isinstance(pos_start, torch.Tensor):
+        if pos_start.shape != (b,):
+            raise ValueError(f"per-row positions must be [{b}], got {tuple(pos_start.shape)}")
+        positions = pos_start.long()[:, None] + steps
+        pos_start = positions[:, 0]
+    else:
+        pos_start = int(pos_start)
+        limit = cfg.seq_len if page_table is not None else cache.seq_len
+        if pos_start < 0 or pos_start + t > limit:
+            raise ValueError(
+                f"positions {pos_start}..{pos_start + t - 1} do not fit the cache ({limit})"
+            )
+        positions = (pos_start + steps).expand(b, t)
+    # the layer-invariant index work, once per forward
+    if page_table is not None:
+        sink = cache.k.shape[1] - 1
+        kv_index = _paged_index(cfg, positions, page_table, page_size, sink, kv_len)
+    elif isinstance(pos_start, torch.Tensor):
+        kv_index = _row_window(pos_start, cache.seq_len, t)
+    else:
+        kv_index = None
     x = params.embedding[tokens].to(torch.float32)
+    rows = rope_rows(rope, positions)
     for li in range(cfg.n_layers):
-        x = _layer(cfg, rope, x, positions, pos_start, params.layers, cache, li, kv_len)
+        x = _layer(cfg, rows, x, positions, pos_start, params.layers, cache, li, kv_len,
+                   kv_index)
     x = rms_norm(x, params.final_norm, cfg.norm_epsilon)
     if logits_mode == "last":
         x = x[:, -1, :].contiguous()

@@ -1,5 +1,6 @@
-"""K3: causal GQA flash attention for prefill chunks, beside its plain
-PyTorch version.
+"""K3: causal GQA flash attention for prefill chunks, and K5: int8 paged
+decode attention through the page table, each beside its plain PyTorch
+version.
 
 `flash_attention` (csrc/flash_attention.cu) replaces the JAX package's
 `ops/pallas_attention.py:flash_attention` (:199), bodies `_attend_block`
@@ -11,9 +12,19 @@ strides; the plain version repeats the Pallas kernel's blocking (query
 blocks of min(512, t), KV blocks of min(1024, S), invisible blocks skipped)
 so that it follows the JAX kernel's rounding as closely as torch allows.
 
-The wrapper takes the plain version for a tensor on the CPU, launches the
-kernel for a tensor on the card (or raises), and counts its launches in the
-plain int attribute `launches`.
+`paged_flash_attention` (csrc/paged_attention.cu, K5) replaces
+`ops/pallas_attention.py:paged_flash_attention` (:313), body
+`_paged_kernel` (:250): the int8 paged decode arm. Per (row, kv head) it
+walks the row's first `n_read` page-table entries (clamped at 0), skips
+pages past the row's last query position, dequantizes K and V in f32 and
+runs the same online softmax as K3 with P . V in f32 (no bf16 rounding of
+P). Per-row `pos_base` puts a parked row (pos_base = seq_len) on every
+page; its output is junk the host discards. The plain version walks the
+pages in the same order with torch ops, the skip as a per-row select.
+
+Each wrapper takes its plain version for a tensor on the CPU, launches its
+kernel for a tensor on the card (or raises), and counts its launches in
+the plain int attribute `launches`.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .quant import _f32_matmul
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 DEFAULT_BLOCK_T = 512
@@ -37,6 +49,18 @@ _SIG = {
         kernels.I, kernels.F, kernels.P,
     ),
 }
+_PAGED_SIG = {
+    # q, q_is_f32, k_pool, v_pool, k_scale, v_scale, table, table_stride,
+    # pos_base, out, b, t, n_heads, n_kv, hd, ps, n_read, n_pages, layer,
+    # scale, stream
+    "paged_attention_fwd": (
+        kernels.P, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P,
+        kernels.P, kernels.I, kernels.P, kernels.P,
+        kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
+        kernels.I, kernels.LL, kernels.F, kernels.P,
+    ),
+}
+PAGE_SIZE_MAX = 64
 
 
 def flash_attention_aligned(q: torch.Tensor, k_cache: torch.Tensor, t: int) -> bool:
@@ -171,4 +195,172 @@ def flash_attention(
 
 flash_attention.launches = 0
 
-KERNELS = (flash_attention,)
+
+def paged_attention_eligible(q: torch.Tensor, n_kv: int, page_size: int) -> bool:
+    """The JAX package's `_fused_paged_eligible` shape gate: decode-sized q
+    blocks (at most one page of queries) and uniform head grouping. The
+    caller adds the dtype conditions (an int8 pool, the bf16 kernel path)."""
+    _, t, n_heads, head_dim = q.shape
+    return t <= page_size and n_heads % n_kv == 0 and head_dim % 8 == 0
+
+
+def paged_flash_attention_plain(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    layer: int,
+    pos_base: torch.Tensor,
+    page_table: torch.Tensor,
+    n_read: int,
+    page_size: int,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """K5's plain version: q [b, t, H, hd]; pools [L, P, ps, n_kv, hd] int8
+    with [L, P, ps, n_kv] f32 scales; pos_base [b]; page_table [b, >=
+    n_read] (-1 = unmapped) -> [b, t, H, hd] in q.dtype. Page by page, as
+    `_paged_kernel` walks them; a page past a row's last query position
+    leaves that row's state as it was."""
+    b, t, n_heads, hd = q.shape
+    n_kv = k_pool.shape[3]
+    g = n_heads // n_kv
+    ps = page_size
+    rows = t * g
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+    q4 = (
+        q.reshape(b, t, n_kv, g, hd).permute(0, 2, 1, 3, 4)
+        .reshape(b, n_kv, rows, hd).to(torch.float32)
+    )
+    pages = page_table[:, :n_read].clamp(min=0).long()  # [b, n_read]
+    pos = pos_base.long()
+    row_pos = pos[:, None, None, None] + (torch.arange(rows, device=dev) // g)[None, None, :, None]
+    last_pos = pos + t - 1
+    m = torch.full((b, n_kv, rows, 1), NEG_INF, device=dev)
+    l = torch.zeros((b, n_kv, rows, 1), device=dev)
+    acc = torch.zeros((b, n_kv, rows, hd), device=dev)
+    for si in range(n_read):
+        phys = pages[:, si]
+        k = k_pool[layer, phys].to(torch.float32) * k_scale[layer, phys].unsqueeze(-1)
+        v = v_pool[layer, phys].to(torch.float32) * v_scale[layer, phys].unsqueeze(-1)
+        k = k.permute(0, 2, 1, 3)  # [b, n_kv, ps, hd]
+        v = v.permute(0, 2, 1, 3)
+        s = _f32_matmul(q4, k.transpose(-1, -2)) * scale  # [b, n_kv, rows, ps]
+        col_pos = si * ps + torch.arange(ps, device=dev)
+        vis = col_pos <= row_pos  # [b, 1, rows, ps]
+        s = torch.where(vis, s, NEG_INF)
+        m_cur = torch.maximum(s.amax(dim=-1, keepdim=True), m)
+        m_safe = torch.clamp(m_cur, min=NEG_INF / 2)
+        corr = torch.exp(m - m_safe)
+        p = torch.where(vis, torch.exp(s - m_safe), 0.0)
+        l_new = l * corr + p.sum(dim=-1, keepdim=True)
+        acc_new = acc * corr + _f32_matmul(p, v)
+        live = (si * ps <= last_pos)[:, None, None, None]
+        m = torch.where(live, m_safe, m)
+        l = torch.where(live, l_new, l)
+        acc = torch.where(live, acc_new, acc)
+    out = acc / torch.clamp(l, min=1e-30)
+    return (
+        out.reshape(b, n_kv, t, g, hd).permute(0, 2, 1, 3, 4)
+        .reshape(b, t, n_heads, hd).to(q.dtype)
+    )
+
+
+def _check_paged(q, k_pool, v_pool, k_scale, v_scale, layer, pos_base, page_table,
+                 n_read, page_size) -> int:
+    b, t, n_heads, hd = q.shape
+    if k_pool.ndim != 5 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"expected [L, P, ps, n_kv, hd] pools, got {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)}")
+    L, P, ps, n_kv, hd_pool = k_pool.shape
+    if k_scale.shape != (L, P, ps, n_kv) or v_scale.shape != k_scale.shape:
+        raise ValueError(f"scales {tuple(k_scale.shape)} do not match the pool {tuple(k_pool.shape)}")
+    if hd_pool != hd or n_heads % n_kv or ps != page_size:
+        raise ValueError("head counts, head_dim or page size disagree")
+    if page_table.ndim != 2 or page_table.shape[0] != b or not 1 <= n_read <= page_table.shape[1]:
+        raise ValueError(f"page table {tuple(page_table.shape)} for {b} rows and n_read {n_read}")
+    if pos_base.shape != (b,):
+        raise ValueError(f"pos_base must be [{b}], got {tuple(pos_base.shape)}")
+    li = int(layer)
+    if not 0 <= li < L:
+        raise IndexError(f"layer {li} out of range for a {L}-layer pool")
+    return li
+
+
+def _launch_paged(q, k_pool, v_pool, k_scale, v_scale, layer, pos_base, page_table,
+                  n_read, page_size, scale) -> torch.Tensor:
+    b, t, n_heads, hd = q.shape
+    _, P, ps, n_kv, _ = k_pool.shape
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise TypeError("paged_flash_attention's kernel takes an int8 pool")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError("the pool's scales must be float32")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if ps > PAGE_SIZE_MAX or ps & (ps - 1) or t > ps:
+        raise ValueError(f"page size {ps} must be a power of two <= {PAGE_SIZE_MAX} and >= t = {t}")
+    if page_table.dtype != torch.int32 or pos_base.dtype != torch.int64:
+        raise TypeError(f"page table must be int32 and pos_base int64, got {page_table.dtype} / "
+                        f"{pos_base.dtype}")
+    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("k_scale", k_scale),
+                    ("v_scale", v_scale), ("pos_base", pos_base)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if page_table.device != q.device or page_table.stride(1) != 1:
+        raise ValueError("the page table must be on q's device with unit column stride")
+    lib = kernels.load("paged_attention", _PAGED_SIG)
+    out = torch.empty_like(q)
+    rc = lib.paged_attention_fwd(
+        q.data_ptr(), int(q.dtype == torch.float32), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(), page_table.stride(0),
+        pos_base.data_ptr(), out.data_ptr(), b, t, n_heads, n_kv, hd, ps, int(n_read), P,
+        int(layer), float(scale), kernels.stream_of(q),
+    )
+    kernels.check(lib, rc, "paged_attention_fwd")
+    return out
+
+
+def paged_flash_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    layer: int,
+    pos_base: torch.Tensor,
+    page_table: torch.Tensor,
+    n_read: int,
+    page_size: int,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Int8 paged GQA decode attention (B6): q [b, t <= page_size, H, hd];
+    pools [L, P, ps, n_kv, hd] int8 with [L, P, ps, n_kv] f32 scales;
+    `layer` a host int; pos_base [b] int64, each row's first query
+    position; page_table [b, >= n_read] int32 (-1 = unmapped), both on the
+    device. Returns [b, t, H, hd] in q.dtype. Nothing syncs with the host."""
+    if q.ndim != 4:
+        raise ValueError(f"q must be [b, t, H, hd], got {tuple(q.shape)}")
+    li = _check_paged(q, k_pool, v_pool, k_scale, v_scale, layer, pos_base, page_table,
+                      n_read, page_size)
+    if scale is None:
+        scale = 1.0 / (q.shape[3] ** 0.5)
+    if q.device.type == "cpu":
+        return paged_flash_attention_plain(q, k_pool, v_pool, k_scale, v_scale, li, pos_base,
+                                           page_table, n_read, page_size, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = _launch_paged(q.contiguous(), k_pool, v_pool, k_scale, v_scale, li, pos_base,
+                        page_table, n_read, page_size, scale)
+    paged_flash_attention.launches += 1
+    return out
+
+
+paged_flash_attention.launches = 0
+
+KERNELS = (flash_attention, paged_flash_attention)

@@ -16,10 +16,12 @@ K1 `q40_gemv_q80` (csrc/q40_gemv.cu) replaces the JAX package's
 The integer partials are bit-exact against the Pallas kernel; only the
 order of the f32 block sums differs.
 
-K2 `q40_gemm_bf16` (csrc/q40_gemm.cu) replaces
+K2 `q40_gemm_bf16_stacked` (csrc/q40_gemm.cu) replaces
 `ops/pallas_q40.py:q40_matmul_pallas_stacked` (:253), body
 `_dequant_dot_accum` (:160): w = bf16((u - 8) * bf16(scale)), one rounding,
-then x (cast to bf16) @ w with f32 accumulation.
+then x (cast to bf16) @ w with f32 accumulation. `q40_gemm_bf16` is the
+same kernel on an unstacked weight and replaces `q40_matmul_pallas` (:880),
+B5.
 
 K1-indexed `q40_gemv_q80_indexed` (csrc/q40_gemv.cu) is K1's per-row
 function for the MoE decode experts: B1 as the JAX package's
@@ -319,16 +321,21 @@ q40_gemm_bf16_stacked.launches = 0
 
 
 def q40_gemm_bf16(x, q, d) -> torch.Tensor:
-    """B3's math on an unstacked weight: the JAX package's
-    `q40_matmul_pallas` (B5, the wcls at more than 8 rows: perplexity and
-    speculative verify). Not ported to the card yet."""
+    """K2 on an unstacked weight (B5, the JAX package's `q40_matmul_pallas`
+    :880): the wcls at more than 8 rows (perplexity's logits_mode "all",
+    batched decode at batch > 8). The same kernel at layer 0: it walks the
+    contraction one Q40 block at a time and masks the last column tile, so
+    any block count and any out_features (the vocab widths 128256 and
+    151936 included) run as they are."""
     _check_weight(q, d, x, stacked=False)
     if _device_kind(x) == "cpu":
         return q40_gemm_bf16_plain(x, q, d)
-    raise NotImplementedError(
-        "the unstacked bf16-dequant matmul (wcls at more than 8 rows) has no "
-        "CUDA kernel yet: ROADMAP queue B, item B5"
-    )
+    out = _launch_gemm(x, q, d, 0)
+    q40_gemm_bf16.launches += 1
+    return out
+
+
+q40_gemm_bf16.launches = 0
 
 
 def q40_gemv_q80_indexed(x, q, d, idx) -> torch.Tensor:
@@ -403,6 +410,6 @@ q40_grouped_gemm_bf16.launches = 0
 
 
 KERNELS = (
-    q40_gemv_q80_stacked, q40_gemv_q80, q40_gemm_bf16_stacked,
+    q40_gemv_q80_stacked, q40_gemv_q80, q40_gemm_bf16_stacked, q40_gemm_bf16,
     q40_gemv_q80_indexed, q40_grouped_gemm_bf16,
 )

@@ -79,33 +79,38 @@ def build_rope_tables(h: ModelHeader, device="cpu") -> RopeTables:
     )
 
 
-def apply_rope_llama(x: torch.Tensor, tables: RopeTables, positions: torch.Tensor) -> torch.Tensor:
-    """Interleaved-pair rotation. x: [..., seq, n_heads, head_dim];
-    positions: [..., seq]."""
-    cos = tables.cos[positions].unsqueeze(-2)  # [..., seq, 1, half]
-    sin = tables.sin[positions].unsqueeze(-2)
-    x0 = x[..., 0::2]
-    x1 = x[..., 1::2]
-    r0 = x0 * cos - x1 * sin
-    r1 = x0 * sin + x1 * cos
-    return torch.stack([r0, r1], dim=-1).reshape(x.shape).to(x.dtype)
+def rope_rows(tables: RopeTables, positions: torch.Tensor) -> tuple:
+    """The (cos, sin) rows of `positions`, each [..., seq, 1, half]: the
+    forward pass gathers them once and every layer rotates q and k with
+    them. A parked row's positions reach seq_len, past the tables: JAX's
+    gather clamps such an index, torch's indexing would raise (CPU) or trap
+    (device), so the index is clamped here, on the device, with no host
+    sync. The clamped rows rotate junk whose cache writes the forward pass
+    drops."""
+    p = positions.clamp(0, tables.cos.shape[0] - 1)
+    return tables.cos[p].unsqueeze(-2), tables.sin[p].unsqueeze(-2)
 
 
-def apply_rope_falcon(x: torch.Tensor, tables: RopeTables, positions: torch.Tensor) -> torch.Tensor:
-    """Half-split rotation (NeoX convention, used by Qwen3)."""
-    cos = tables.cos[positions].unsqueeze(-2)
-    sin = tables.sin[positions].unsqueeze(-2)
-    half = x.shape[-1] // 2
-    x0 = x[..., :half]
-    x1 = x[..., half:]
-    r0 = x0 * cos - x1 * sin
-    r1 = x0 * sin + x1 * cos
-    return torch.cat([r0, r1], dim=-1).to(x.dtype)
+def rotate(x: torch.Tensor, rows: tuple, rope_type: int) -> torch.Tensor:
+    """Rotate x [..., seq, n_heads, head_dim] by `rope_rows` output:
+    interleaved pairs (Llama) or half-split pairs (Falcon/NeoX, Qwen3)."""
+    cos, sin = rows
+    if rope_type in (RopeType.LLAMA, RopeType.LLAMA3_1):
+        x0 = x[..., 0::2]
+        x1 = x[..., 1::2]
+        r0 = x0 * cos - x1 * sin
+        r1 = x0 * sin + x1 * cos
+        return torch.stack([r0, r1], dim=-1).reshape(x.shape).to(x.dtype)
+    if rope_type == RopeType.FALCON:
+        half = x.shape[-1] // 2
+        x0 = x[..., :half]
+        x1 = x[..., half:]
+        r0 = x0 * cos - x1 * sin
+        r1 = x0 * sin + x1 * cos
+        return torch.cat([r0, r1], dim=-1).to(x.dtype)
+    raise ValueError(f"unsupported rope type {rope_type}")
 
 
 def apply_rope(x: torch.Tensor, tables: RopeTables, positions: torch.Tensor, rope_type: int) -> torch.Tensor:
-    if rope_type in (RopeType.LLAMA, RopeType.LLAMA3_1):
-        return apply_rope_llama(x, tables, positions)
-    if rope_type == RopeType.FALCON:
-        return apply_rope_falcon(x, tables, positions)
-    raise ValueError(f"unsupported rope type {rope_type}")
+    """Rotate x [..., seq, n_heads, head_dim] at positions [..., seq]."""
+    return rotate(x, rope_rows(tables, positions), rope_type)

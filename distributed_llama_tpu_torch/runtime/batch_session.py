@@ -1,0 +1,224 @@
+"""Continuous batching: rolling admission over parkable batch rows.
+
+The counterpart of the JAX package's `runtime/batch_session.py`:
+`batch_decode_chunk` (:62), `prefill_row` (:114) and `BatchSession` (:160)
+with `admit`, `begin_admit`, `prefill_pending` (budgeted, interleaved with
+decode chunks), `release`, `step` and the row queries. Not ported: the
+prefix-cache splice and publish, speculation (`spec_step`), grammar and
+tracing (ROADMAP A10).
+
+* Every batch row is an independent slot with its own position, last
+  token, sampling settings and random stream.
+* A free slot is (re)filled between decode chunks: its prompt prefills
+  into its row alone at b = 1 (engine `_dispatch_prefill_row`), in chunks
+  of a bounded token budget, so a long prompt interleaves with the other
+  rows' decode.
+* `step(n)` decodes n tokens for all slots with per-row positions and
+  per-row temperature and top-p; a row's draws come from a counter-based
+  stream of its own seed and draw count (ops/sampling.py `row_coins`), so
+  its sampled tokens never depend on its co-tenants.
+* A finished row is parked (pos = seq_len): it keeps riding the chunk, its
+  writes land nowhere, its tokens are discarded.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.params import KVCache
+from ..models.transformer import forward
+from ..ops.sampling import row_coins, sample_logits_per_row
+
+_SEED_MASK = (1 << 63) - 1
+
+
+def batch_decode_chunk(
+    cfg,
+    params,
+    rope,
+    cache: KVCache,
+    token: torch.Tensor,  # [b] int64
+    pos: torch.Tensor,  # [b] int64 per-row positions (seq_len = parked)
+    seeds: torch.Tensor,  # [b] int64 per-row stream seeds
+    draws: torch.Tensor,  # [b] int64 per-row draw counters
+    temperature: torch.Tensor,  # [b] f32 (<= 0 = greedy row)
+    topp: torch.Tensor,  # [b] f32
+    n_steps: int,
+    kv_len: int | None = None,
+    page_table: torch.Tensor | None = None,
+    page_size: int | None = None,
+    sampled: bool = True,  # False: every row is greedy, so argmax alone
+) -> torch.Tensor:
+    """n_steps decode iterations with per-row positions and sampling, all
+    on the device. Returns tokens [b, n_steps]."""
+    out = []
+    for i in range(n_steps):
+        logits = forward(
+            cfg, params, rope, cache, token[:, None], pos + i,
+            kv_len=kv_len, page_table=page_table, page_size=page_size,
+        )
+        if sampled:
+            token = sample_logits_per_row(logits, row_coins(seeds, draws + i), temperature, topp)
+        else:
+            token = torch.argmax(logits, dim=-1)
+        out.append(token)
+    return torch.stack(out, dim=1)
+
+
+def prefill_row(cfg, params, rope, cache: KVCache, tokens: torch.Tensor, pos_start: int,
+                row: int, kv_len: int | None = None) -> None:
+    """Prefill one row of a contiguous batched cache with the ordinary b = 1
+    forward at a scalar position (flash-eligible), on a view of the row's
+    slab: the writes land in place, no copy moves in or out (JAX slices
+    the row out and writes it back)."""
+    view = KVCache(*(None if t is None else t[:, row : row + 1]
+                     for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
+    forward(cfg, params, rope, view, tokens, pos_start, kv_len=kv_len)
+
+
+class BatchSession:
+    """Host-side slot state for one continuously-batched engine. Not
+    thread-safe. Device work happens in `prefill_pending` and `step`."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        b = engine.batch
+        self.seq_len = engine.cfg.seq_len
+        self.pos = np.full((b,), self.seq_len, np.int64)  # parked
+        self.token = np.zeros((b,), np.int64)
+        self.active = np.zeros((b,), bool)
+        self.temp = np.zeros((b,), np.float32)
+        self.topp = np.full((b,), 0.9, np.float32)
+        self.seeds = np.zeros((b,), np.int64)
+        self.draws = np.zeros((b,), np.int64)
+        self._admits = 0  # numbers the unseeded admissions' streams
+        # rows mid-admission, in staging order: prompt and prefill progress
+        self._pending: dict[int, dict] = {}
+        engine.reset()
+
+    def free_rows(self) -> list[int]:
+        return [r for r in range(len(self.active)) if not self.active[r] and r not in self._pending]
+
+    def active_rows(self) -> list[int]:
+        return [r for r in range(len(self.active)) if self.active[r]]
+
+    def pending_rows(self) -> list[int]:
+        """Rows whose admission is staged and not yet armed, in staging
+        order."""
+        return list(self._pending)
+
+    def admit(self, row: int, prompt_tokens: list[int], temperature: float = 0.0,
+              topp: float = 0.9, seed: int | None = None) -> None:
+        """Prefill `prompt_tokens[:-1]` into `row` and arm the slot: the
+        row decodes from the next `step`."""
+        self.begin_admit(row, prompt_tokens, temperature, topp, seed)
+        self.prefill_pending(row)
+
+    def begin_admit(self, row: int, prompt_tokens: list[int], temperature: float = 0.0,
+                    topp: float = 0.9, seed: int | None = None) -> None:
+        """Stage an admission without running its prefill; `prefill_pending`
+        then advances it between decode chunks. The row stays parked until
+        its prefill completes. `seed`: the row's stream; None gives each
+        admission a stream of its own, numbered in arrival order."""
+        n = len(prompt_tokens)
+        if n == 0:
+            raise ValueError("empty prompt")
+        if n >= self.seq_len:
+            raise ValueError(f"prompt ({n} tokens) exceeds the context window ({self.seq_len})")
+        if self.active[row]:
+            raise ValueError(f"row {row} is still active")
+        if row in self._pending:
+            raise ValueError(f"row {row} already has a pending admission")
+        if seed is None:
+            self._admits += 1
+            seed = (self._admits * 2654435761) & 0xFFFFFFFF
+        self._pending[row] = {
+            "tokens": list(prompt_tokens),
+            "done": 0,  # prefilled prefix length within tokens[:-1]
+            "temperature": temperature,
+            "topp": topp,
+            "seed": int(seed) & _SEED_MASK,
+        }
+
+    def prefill_pending(self, row: int, max_tokens: int | None = None) -> int:
+        """Advance `row`'s staged prefill by up to `max_tokens` tokens (None
+        = to completion); returns the prefill tokens still remaining. Chunks
+        follow the padded power-of-two ladder, planned against the
+        remaining budget so a budget below max_chunk is honoured exactly.
+        When the last chunk lands the slot arms."""
+        from .engine import chunk_plan
+
+        eng = self.engine
+        st = self._pending[row]
+        pre = st["tokens"][:-1]
+        budget = len(pre) if max_tokens is None else max_tokens
+        while st["done"] < len(pre) and budget > 0:
+            done = st["done"]
+            _, size, n_real = next(iter(chunk_plan(
+                min(len(pre) - done, budget), done, eng.max_chunk, self.seq_len
+            )))
+            chunk = pre[done : done + n_real] + [0] * (size - n_real)
+            eng._dispatch_prefill_row(row, chunk, done, eng._kv_bucket(done + size))
+            st["done"] = done + n_real
+            budget -= n_real
+        remaining = len(pre) - st["done"]
+        if remaining > 0:
+            return remaining
+        tokens = st["tokens"]
+        self.pos[row] = len(tokens) - 1
+        self.token[row] = tokens[-1]
+        self.temp[row] = st["temperature"]
+        self.topp[row] = st["topp"]
+        self.seeds[row] = st["seed"]
+        self.draws[row] = 0
+        self.active[row] = True
+        del self._pending[row]
+        return 0
+
+    def release(self, row: int) -> None:
+        """Park the row: its writes land nowhere from the next chunk on, so
+        the slot can be re-admitted later without disturbing anyone. Drops
+        a staged admission mid-prefill; a paged engine unmaps the row's
+        pages."""
+        self.active[row] = False
+        self.pos[row] = self.seq_len
+        self.temp[row] = 0.0
+        self._pending.pop(row, None)
+        if self.engine.paged:
+            self.engine.page_pool.release_row(row)
+
+    def step(self, n_steps: int) -> np.ndarray:
+        """One decode chunk for every slot; returns host tokens [b, n_steps]
+        (junk in parked rows). Raises if an active row would run past
+        seq_len."""
+        eng = self.engine
+        ends = [int(self.pos[r]) + 1 + n_steps for r in self.active_rows()]
+        if ends and max(ends) > self.seq_len:
+            raise ValueError(
+                f"decode chunk would overrun seq_len={self.seq_len}: "
+                f"max row end {max(ends)} (step n_steps={n_steps})"
+            )
+        kv_len = eng._kv_bucket(min(max(ends, default=1), self.seq_len))
+        if eng.paged:
+            # live rows need private pages over their chunk span before the
+            # chunk; parked rows write nothing and need nothing
+            eng._ensure_pages(
+                (r, int(self.pos[r]), int(self.pos[r]) + n_steps) for r in self.active_rows()
+            )
+        ints = torch.from_numpy(np.stack([self.token, self.pos, self.seeds, self.draws]))
+        floats = torch.from_numpy(np.stack([self.temp, self.topp]))
+        ints, floats = ints.to(eng.device), floats.to(eng.device)
+        toks = batch_decode_chunk(
+            eng.cfg, eng.params, eng.rope, eng.cache, ints[0], ints[1], ints[2], ints[3],
+            floats[0], floats[1], n_steps=n_steps, kv_len=kv_len,
+            page_table=eng._pt_operand() if eng.paged else None, page_size=eng.page_size,
+            sampled=bool((self.temp > 0.0).any()),
+        )
+        host = toks.cpu().numpy()
+        self.pos += n_steps
+        # parked rows stay pinned at seq_len
+        self.pos[~self.active] = self.seq_len
+        self.draws += n_steps
+        self.token = host[:, -1].copy()
+        return host

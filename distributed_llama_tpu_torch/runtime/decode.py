@@ -26,21 +26,24 @@ def decode_chunk(
     rope: RopeTables,
     cache: KVCache,
     token: torch.Tensor,  # [b] — the token to feed first, on the device
-    pos_start: int,
+    pos_start,  # int (rows aligned) or a [b] tensor of per-row positions
     n_steps: int,
     temperature: float = 0.0,
     topp: float = 0.9,
     generator: torch.Generator | None = None,
     kv_len: int | None = None,  # KV read bound covering pos_start + n_steps
+    page_table: torch.Tensor | None = None,  # the paged layout's tables
+    page_size: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run n_steps forward+sample iterations; the cache is updated in
     place. Returns (tokens [b, n_steps], last_token [b]), both on the
     device."""
     out = []
     for i in range(n_steps):
+        pos = pos_start + i  # a device add for per-row positions
         logits = forward(
-            cfg, params, rope, cache, token[:, None], pos_start + i,
-            logits_mode="last", kv_len=kv_len,
+            cfg, params, rope, cache, token[:, None], pos,
+            logits_mode="last", kv_len=kv_len, page_table=page_table, page_size=page_size,
         )
         token = sample_logits_traced(logits, temperature, topp, generator=generator)
         out.append(token)

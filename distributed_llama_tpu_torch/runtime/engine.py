@@ -2,13 +2,19 @@
 
 The counterpart of the JAX package's `runtime/engine.py` (the reference's
 `RootLlmInference` + `inference()` loop, src/app.cpp:223-303,
-src/dllama.cpp:13-151), for one device at batch 1 with a contiguous KV
-cache: `chunk_plan`, `__init__`, `_kv_bucket`, `reset`, `prefill` (serial,
-no prefix cache), `decode_one`, `generate`, `_decode_host` and
-`_decode_device`.
+src/dllama.cpp:13-151), for one device: `chunk_plan`, `__init__` with its
+`batch`, `kv_layout`, `kv_page_size` and `kv_pool_mb` arguments,
+`_kv_bucket`, `_new_cache`, `reset`, the paged plumbing (`_pt_operand`,
+`_ensure_pages`), `forward_tokens`, `prefill` (serial, no prefix cache),
+`decode_one`, `_dispatch_prefill_row`, `generate`, `_decode_host`,
+`_decode_device`, `generate_batch` and `_decode_batch_chunked`. Not ported:
+the prefix cache, speculation, grammar, meshes.
 
 * The engine runs on the card unless the caller asks for the CPU:
   `device=None` means "cuda" and raises where no GPU is present.
+* The library default layout is contiguous, as in the JAX package; the
+  paged layout (runtime/paged_kv.py) and the int8 cache (ops/kv_quant.py)
+  run on either device.
 * Prompt chunks are padded to power-of-two buckets, as in the JAX package,
   so a run takes the same chunk shapes (and numerics arms) there and here.
   Padded tail positions write junk into cache slots past the true length;
@@ -32,6 +38,10 @@ from ..models import config_from_header, forward, init_kv_cache, load_params
 from ..ops.rope import build_rope_tables
 from ..tokenizer import Sampler
 from .decode import decode_chunk
+from .paged_kv import (
+    PagePool, copy_page, init_kv_pool, page_pool_bytes, resolve_kv_dtype, resolve_kv_layout,
+    resolve_page_size, resolve_pool_pages,
+)
 
 
 @dataclass
@@ -102,37 +112,61 @@ def resolve_device(device) -> torch.device:
 
 
 class InferenceEngine:
-    """Owns params + cache for one model on one device, at batch 1."""
+    """Owns params + cache for one model on one device: `batch` rows, in
+    the contiguous or the paged KV layout."""
 
     def __init__(
         self,
         model_path: str,
         compute_dtype: str = "bfloat16",
         max_seq_len: int = 0,
+        batch: int = 1,
         max_chunk: int = 32,
         cache_dtype: str | None = None,
         device_decode: bool = True,
         decode_chunk_size: int = 64,
         verbose: bool = False,
         device=None,
+        kv_layout: str | None = None,  # "contiguous" (per-row seq_len slabs)
+        # or "paged" (runtime/paged_kv.py). None = DLT_KV_LAYOUT env, else
+        # contiguous for library engines; the CLI defaults to paged
+        kv_page_size: int | None = None,  # tokens per page; None = DLT_KV_PAGE
+        # env, else 16
+        kv_pool_mb: int | None = None,  # the paged pool's device budget; None =
+        # DLT_KV_POOL_MB env, else batch x seq_len worth of pages
     ):
         self.device = resolve_device(device)
+        if batch < 1:
+            raise ValueError(f"batch must be at least 1, got {batch}")
         t0 = time.perf_counter()
         self.reader = MFileReader(model_path, max_seq_len=max_seq_len)
         self.header = self.reader.header
         self.cfg = config_from_header(
-            self.header, compute_dtype=compute_dtype, cache_dtype=cache_dtype
+            self.header, compute_dtype=compute_dtype, cache_dtype=resolve_kv_dtype(cache_dtype)
         )
         self.params = load_params(self.reader, self.cfg, device=self.device)
         # the header's seq_len is already capped at max_seq_len, so the
         # tables cover the cache, not the model's 128k context
         self.rope = build_rope_tables(self.header, device=self.device)
+        self.batch = batch
         self.max_chunk = max(1, min(max_chunk, self.cfg.seq_len))
         # device_decode: chunked decode on the device (fast path); False =
         # per-token host loop with the reference's exact RNG stream
         self.device_decode = device_decode
         self.decode_chunk_size = decode_chunk_size
-        self.cache = init_kv_cache(self.cfg, batch=1, device=self.device)
+        self.kv_layout = resolve_kv_layout(kv_layout)
+        self.paged = self.kv_layout == "paged"
+        self.page_size = resolve_page_size(kv_page_size) if self.paged else None
+        self.page_pool = None
+        self._pt_cache = None  # (pool version, device tables)
+        if self.paged:
+            ps = self.page_size
+            page_bytes = page_pool_bytes(self.cfg, 1, ps)
+            parity = batch * -(-self.cfg.seq_len // ps)
+            self.page_pool = PagePool(
+                resolve_pool_pages(kv_pool_mb, page_bytes, parity), ps, batch, self.cfg.seq_len
+            )
+        self.cache = self._new_cache()
         self._sync()
         self.load_seconds = time.perf_counter() - t0
         if verbose:
@@ -152,17 +186,22 @@ class InferenceEngine:
         p = self.params
         w = sum(nbytes(getattr(p.layers, f)) for f in p.layers.__dataclass_fields__)
         w += nbytes(p.embedding) + nbytes(p.final_norm) + nbytes(p.wcls)
-        kv = nbytes(self.cache.k) + nbytes(self.cache.v)
+        kv = sum(nbytes(t) for t in self.cache.tensors())
+        layout = (
+            f"paged: {self.page_pool.n_pages} pages of {self.page_size}"
+            if self.paged else "contiguous"
+        )
         return (
             f"💿 weights {w / 2**20:.1f} MiB, KV cache {kv / 2**20:.1f} MiB "
-            f"on {self.device}"
+            f"({self.cfg.cache_dtype}, {layout}, batch {self.batch}) on {self.device}"
         )
 
     # -- low-level steps ----------------------------------------------------
 
     def _kv_bucket(self, end_pos: int) -> int:
-        """Attention reads cache[:, :bucket]: the smallest power-of-two
-        bucket covering `end_pos`, floored at 256, as in the JAX package."""
+        """Attention reads the first `bucket` positions: the smallest
+        power-of-two bucket covering `end_pos`, floored at 256, as in the
+        JAX package."""
         floor = min(256, self.cfg.seq_len)
         b = floor
         while b < end_pos:
@@ -176,28 +215,78 @@ class InferenceEngine:
     def _tokens(self, rows) -> torch.Tensor:
         return torch.tensor(rows, dtype=torch.long).to(self.device, non_blocking=True)
 
+    def _new_cache(self):
+        if self.paged:
+            return init_kv_pool(self.cfg, self.page_pool.n_pages, self.page_size, self.device)
+        return init_kv_cache(self.cfg, batch=self.batch, device=self.device)
+
     def reset(self):
-        """Fresh independent sequence: zero the cache."""
-        self.cache.k.zero_()
-        self.cache.v.zero_()
+        """Fresh independent sequences: contiguous zeroes the cache; paged
+        unmaps every row (the pool's content is junk that later writes
+        replace before any query reads it)."""
+        if self.paged:
+            self.page_pool.release_all_rows()
+            return
+        for t in self.cache.tensors():
+            t.zero_()
+
+    # -- paged-KV plumbing (runtime/paged_kv.py) -----------------------------
+
+    def _pt_operand(self) -> torch.Tensor:
+        """The device page tables, uploaded again only when the pool's
+        tables changed (its version moved), not once per step."""
+        pool = self.page_pool
+        if self._pt_cache is None or self._pt_cache[0] != pool.version:
+            tables = torch.from_numpy(pool.device_tables()).to(self.device)
+            self._pt_cache = (pool.version, tables)
+        return self._pt_cache[1]
+
+    def _ensure_pages(self, spans) -> None:
+        """Make every (row, start, end) span privately writable before a
+        step writes it; a copy-on-write copy runs here, before the write."""
+        for row, start, end in spans:
+            for src, dst in self.page_pool.ensure(row, start, end):
+                copy_page(self.cache, src, dst)
+
+    def _ensure_pages_all_rows(self, start: int, end: int) -> None:
+        self._ensure_pages((r, start, end) for r in range(self.batch))
+
+    def _forward(self, tokens: torch.Tensor, pos, logits_mode="last", kv_len=None):
+        """One forward step on this engine's cache and layout."""
+        return forward(
+            self.cfg, self.params, self.rope, self.cache, tokens, pos,
+            logits_mode=logits_mode, kv_len=kv_len,
+            page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
+        )
+
+    def forward_tokens(self, tokens: list[int], pos_start: int, logits_mode: str = "last") -> np.ndarray:
+        """One forward over `tokens` (unpadded, as the caller shapes them)
+        in every row; attention reads the whole cache. Returns host logits."""
+        if self.paged:
+            self._ensure_pages_all_rows(pos_start, pos_start + len(tokens))
+        logits = self._forward(self._tokens([tokens] * self.batch), pos_start, logits_mode)
+        return logits.cpu().numpy()
 
     def prefill(self, tokens: list[int], pos_start: int = 0, on_chunk=None) -> None:
-        """Feed `tokens` through the model in padded power-of-two chunks.
-        Only the KV cache matters: the first generated token's logits come
-        from the decode step that feeds the final prompt token (the
-        reference's shape: prefill covers nInputTokens-1 tokens,
-        dllama.cpp:44-85)."""
+        """Feed `tokens` through the model in padded power-of-two chunks,
+        the same sequence in every row. Only the KV cache matters: the first
+        generated token's logits come from the decode step that feeds the
+        final prompt token (the reference's shape: prefill covers
+        nInputTokens-1 tokens, dllama.cpp:44-85)."""
         n = len(tokens)
         if n == 0:
             return
         t0 = time.perf_counter()
         plan = list(chunk_plan(n, pos_start, self.max_chunk, self.cfg.seq_len))
+        if self.paged:
+            # the whole span, padded tail included, before the first chunk
+            i_last, size_last, _ = plan[-1]
+            self._ensure_pages_all_rows(pos_start, pos_start + i_last + size_last)
         for i, size, n_real in plan:
             chunk = tokens[i : i + n_real] + [0] * (size - n_real)
-            forward(
-                self.cfg, self.params, self.rope, self.cache,
-                self._tokens([chunk]), pos_start + i,
-                logits_mode="last", kv_len=self._kv_bucket(pos_start + i + size),
+            self._forward(
+                self._tokens([chunk] * self.batch), pos_start + i,
+                kv_len=self._kv_bucket(pos_start + i + size),
             )
         self._sync()
         total_us = int((time.perf_counter() - t0) * 1e6)
@@ -206,12 +295,31 @@ class InferenceEngine:
                 on_chunk(StepTiming(eval_us=total_us * n_real // n, n_tokens=n_real))
 
     def decode_one(self, token: int, pos: int) -> np.ndarray:
-        """One decode step; returns host logits [1, vocab]."""
-        logits = forward(
-            self.cfg, self.params, self.rope, self.cache,
-            self._tokens([[token]]), pos, kv_len=self._kv_bucket(pos + 1),
+        """One decode step, the same token in every row; returns host logits
+        [batch, vocab]."""
+        if self.paged:
+            self._ensure_pages_all_rows(pos, pos + 1)
+        logits = self._forward(
+            self._tokens([[token]] * self.batch), pos, kv_len=self._kv_bucket(pos + 1)
         )
         return logits.cpu().numpy()
+
+    def _dispatch_prefill_row(self, row: int, chunk: list, pos: int, kv_len: int) -> None:
+        """One admission-prefill chunk into `row` alone, at b = 1 and a
+        scalar position (flash-eligible): paged, through the row's table
+        slice against the shared pool; contiguous, on a view of the row's
+        slab (no copy: the writes land in place)."""
+        toks = self._tokens([chunk])
+        if self.paged:
+            self._ensure_pages([(row, pos, pos + len(chunk))])
+            forward(
+                self.cfg, self.params, self.rope, self.cache, toks, pos, kv_len=kv_len,
+                page_table=self._pt_operand()[row : row + 1], page_size=self.page_size,
+            )
+            return
+        from .batch_session import prefill_row
+
+        prefill_row(self.cfg, self.params, self.rope, self.cache, toks, pos, row, kv_len)
 
     # -- generation ---------------------------------------------------------
 
@@ -226,7 +334,8 @@ class InferenceEngine:
     ) -> GenerationResult:
         """The reference `inference()` loop (dllama.cpp:13-151): prefill all
         but the last prompt token, then decode until position `steps` or
-        `stop_fn(token)` says stop."""
+        `stop_fn(token)` says stop. Every row runs the same sequence; row
+        0's tokens are returned."""
         if not prompt_tokens:
             raise ValueError("prompt tokens required")
         if pos_start + len(prompt_tokens) > self.cfg.seq_len:
@@ -289,7 +398,7 @@ class InferenceEngine:
         temperature = 0.0 if sampler is None else sampler.temperature
         topp = sampler.topp if sampler is not None else 0.9
         gen = self._generator(sampler)
-        tok_arr = self._tokens([token])
+        tok_arr = self._tokens([token] * self.batch)
         # a streaming consumer gets its first tokens after a short first
         # chunk (the JAX engine's TTFT ramp; the same chunk ladder as there)
         n = min(8, self.decode_chunk_size) if on_token is not None else self.decode_chunk_size
@@ -301,10 +410,13 @@ class InferenceEngine:
             while n > limit:
                 n //= 2
             n = max(n, 1)
+            if self.paged:
+                self._ensure_pages_all_rows(pos, pos + n)
             toks, tok_arr = decode_chunk(
                 self.cfg, self.params, self.rope, self.cache, tok_arr, pos,
                 n_steps=n, temperature=temperature, topp=topp, generator=gen,
                 kv_len=self._kv_bucket(pos + n),
+                page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
             )
             host_toks = toks[0].tolist()  # the one device-to-host fetch of the chunk
             now = time.perf_counter()
@@ -324,3 +436,108 @@ class InferenceEngine:
                     # before reading
                     return
             n = self.decode_chunk_size
+
+    def generate_batch(
+        self,
+        prompts: list,
+        max_new_tokens,  # int (shared) or list[int] (per row)
+        sampler: Sampler | None = None,
+        on_token=None,  # on_token(row, token) as tokens arrive
+        stop_fn=None,  # stop_fn(row, token) -> bool, per row
+    ) -> list:
+        """Independent continuations of `batch` different prompts in one
+        batch, each row its own sequence with its own positions (the JAX
+        engine's `generate_batch` :1641, without the prefix cache,
+        speculation or grammar).
+
+        Rows are right-padded to a common length for prefill (junk written
+        past a row's true length is causally masked until decode overwrites
+        it); decode then runs chunks with per-row positions. Each row's
+        budget is bounded by its own prompt against seq_len; a finished row
+        keeps riding the chunks, its writes past seq_len land nowhere
+        (forward's per-row arms) and its tokens are discarded. Returns one
+        list of generated tokens per row (a stop token included)."""
+        if len(prompts) != self.batch:
+            raise ValueError(f"need exactly {self.batch} prompts, got {len(prompts)}")
+        if any(len(p) == 0 for p in prompts):
+            raise ValueError("empty prompt")
+        lens = [len(p) for p in prompts]
+        if isinstance(max_new_tokens, int):
+            budgets = [max_new_tokens] * self.batch
+        else:
+            budgets = list(max_new_tokens)
+            if len(budgets) != self.batch:
+                raise ValueError("per-row budgets must match the batch size")
+        for r in range(self.batch):
+            if lens[r] + budgets[r] > self.cfg.seq_len:
+                raise ValueError(
+                    f"row {r}: prompt ({lens[r]}) + budget ({budgets[r]}) "
+                    f"exceeds the sequence length ({self.cfg.seq_len})"
+                )
+        pre_t = max(lens) - 1
+        if pre_t > 0:
+            padded = [list(p[:-1]) + [0] * (pre_t - (len(p) - 1)) for p in prompts]
+            plan = list(chunk_plan(pre_t, 0, self.max_chunk, self.cfg.seq_len))
+            if self.paged:
+                i_last, size_last, _ = plan[-1]
+                self._ensure_pages_all_rows(0, i_last + size_last)
+            for i, size, _ in plan:
+                rows = [row[i : i + size] + [0] * (size - len(row[i : i + size])) for row in padded]
+                self._forward(self._tokens(rows), i, kv_len=self._kv_bucket(i + size))
+        out: list[list[int]] = [[] for _ in range(self.batch)]
+        if max(budgets) > 0:
+            self._decode_batch_chunked(prompts, lens, budgets, out, sampler, on_token, stop_fn)
+        return out
+
+    def _decode_batch_chunked(self, prompts, lens, budgets, out, sampler, on_token, stop_fn):
+        """generate_batch's chunked decode loop, one token fetch per chunk
+        and no lookahead (`_decode_device` gives the reason). Chunks are
+        planned against the largest per-row budget; rows cap at their own
+        budgets as the tokens are consumed."""
+        temperature = 0.0 if sampler is None else sampler.temperature
+        topp = sampler.topp if sampler is not None else 0.9
+        gen = self._generator(sampler)
+        pos0 = torch.tensor([l - 1 for l in lens], dtype=torch.long, device=self.device)
+        token = self._tokens([p[-1] for p in prompts])
+        done = [False] * self.batch
+        total_needed = max(budgets)
+        planned = 0
+        while planned < total_needed and not all(done):
+            ramp = planned == 0 and on_token is not None
+            n = min(8, self.decode_chunk_size) if ramp else self.decode_chunk_size
+            while n > total_needed - planned:
+                n //= 2
+            n = max(n, 1)
+            # the read bound covers the furthest position a live row reaches
+            max_end = min(
+                max(lens[r] + planned for r in range(self.batch) if not done[r]) + n,
+                self.cfg.seq_len,
+            )
+            if self.paged:
+                # live rows need pages over their chunk span; finished rows
+                # keep stepping, and their writes to unmapped slots go to
+                # the sink page
+                self._ensure_pages(
+                    (r, lens[r] - 1 + planned, lens[r] - 1 + planned + n)
+                    for r in range(self.batch)
+                    if not done[r] and lens[r] - 1 + planned < self.cfg.seq_len
+                )
+            toks, token = decode_chunk(
+                self.cfg, self.params, self.rope, self.cache, token, pos0 + planned,
+                n_steps=n, temperature=temperature, topp=topp, generator=gen,
+                kv_len=self._kv_bucket(max_end),
+                page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
+            )
+            planned += n
+            host = toks.cpu().tolist()  # [b][n], the chunk's one fetch
+            for j in range(n):
+                for r in range(self.batch):
+                    if done[r] or len(out[r]) >= budgets[r]:
+                        done[r] = True
+                        continue
+                    tkn = host[r][j]
+                    out[r].append(tkn)
+                    if on_token is not None:
+                        on_token(r, tkn)
+                    if (stop_fn is not None and stop_fn(r, tkn)) or len(out[r]) >= budgets[r]:
+                        done[r] = True

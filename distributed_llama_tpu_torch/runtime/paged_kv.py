@@ -1,0 +1,250 @@
+"""Paged KV cache: fixed-size KV pages, per-row page tables, refcounted
+sharing and copy-on-write.
+
+The counterpart of the JAX package's `runtime/paged_kv.py`: the resolvers
+(:78-150), `page_pool_bytes` (:152), `init_kv_pool` (:162), `copy_page`
+(:184), `PagePoolExhausted` (:297) and `PagePool` (:302-552), for one
+device. The KV transport's page movers (`gather_pages`, `scatter_pages`),
+the prefix cache's hooks (the reclaim callback, `retain`/`release`,
+`allocate_pages`, `row_pages`) and the server's `/stats` snapshot are not
+ported.
+
+The pool is ``[L, n_pages + 1, page_size, n_kv, head_dim]`` k/v tensors
+(plus ``[L, n_pages + 1, page_size, n_kv]`` f32 scales on the int8 arm).
+Page ``n_pages`` is the SINK: no table ever maps it and no read ever
+gathers it. The forward pass sends every write that must not land (a
+parked row at ``pos >= seq_len``, a slot past the table, an unmapped
+``-1`` entry) to the sink through index arithmetic alone, where JAX
+scatters with ``mode="drop"``: torch has no dropping scatter, and filtering
+the writes with a mask would sync the host every layer.
+
+Device side the forward pass changes in two places (models/transformer.py):
+writes scatter to ``(table[row, pos // ps], pos % ps)``; reads gather the
+first ``n_read`` table entries (clamped at 0: unmapped slots read page 0,
+whose content the causal mask discards), or go to the fused int8 decode
+kernel (ops/cuda_attention.py, K5), which reads the pool through the table.
+
+Host side :class:`PagePool` owns allocation: a free list, per-page
+refcounts and the page tables, under one lock. ``version`` moves on every
+table change, so the engine re-uploads the tables only then.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+import numpy as np
+import torch
+
+from ..models.config import ModelConfig
+from ..models.params import KVCache, kv_cache_of_shape
+
+#: default page size in token positions
+DEFAULT_PAGE_SIZE = 16
+
+KV_LAYOUTS = ("contiguous", "paged")
+KV_DTYPES = ("bfloat16", "float32", "int8")
+
+
+def resolve_kv_layout(explicit: str | None, default: str = "contiguous") -> str:
+    """The one resolver of the KV layout: an explicit value wins; otherwise
+    ``DLT_KV_LAYOUT``; unset or unrecognized means `default`."""
+    layout = explicit
+    if layout is None:
+        raw = (os.environ.get("DLT_KV_LAYOUT") or "").strip().lower()
+        layout = raw if raw in KV_LAYOUTS else default
+    layout = layout.strip().lower()
+    if layout not in KV_LAYOUTS:
+        raise ValueError(f"unknown kv layout {layout!r} (choose from {KV_LAYOUTS})")
+    return layout
+
+
+def resolve_page_size(explicit: int | None = None) -> int:
+    """Page size in tokens: explicit > ``DLT_KV_PAGE`` env > 16. Must be a
+    power of two."""
+    v = explicit
+    if v is None:
+        raw = os.environ.get("DLT_KV_PAGE")
+        try:
+            v = int(raw) if raw else 0
+        except ValueError:
+            v = 0
+    v = int(v) if v else DEFAULT_PAGE_SIZE
+    if v <= 0 or (v & (v - 1)) != 0:
+        raise ValueError(f"kv page size must be a positive power of two, got {v}")
+    return v
+
+
+def resolve_kv_dtype(explicit: str | None = None) -> str | None:
+    """The one resolver of the KV storage dtype: an explicit value wins;
+    otherwise ``DLT_KV_DTYPE``; unset means None (the compute dtype's
+    default cache)."""
+    v = explicit
+    if v is None:
+        raw = (os.environ.get("DLT_KV_DTYPE") or "").strip()
+        v = raw or None
+    if v is None:
+        return None
+    v = v.strip().lower()
+    if v == "bf16":
+        v = "bfloat16"
+    if v not in KV_DTYPES:
+        raise ValueError(f"unknown kv dtype {v!r} (choose from {KV_DTYPES})")
+    return v
+
+
+def resolve_pool_pages(explicit_mb: int | None, page_bytes: int, parity_pages: int) -> int:
+    """Pool size in pages: an explicit MB budget (argument >
+    ``DLT_KV_POOL_MB`` env) wins; 0 or unset means contiguous parity, the
+    pages a ``batch x seq_len`` slab holds."""
+    mb = explicit_mb
+    if mb is None:
+        raw = os.environ.get("DLT_KV_POOL_MB")
+        try:
+            mb = int(raw) if raw else 0
+        except ValueError:
+            mb = 0
+    if mb and mb > 0:
+        return max(1, (int(mb) * 1024 * 1024) // max(page_bytes, 1))
+    return parity_pages
+
+
+def page_pool_bytes(cfg: ModelConfig, n_pages: int, page_size: int) -> int:
+    """Device bytes of `n_pages` pages of k+v, the int8 arm's f32 scales
+    included (the sink page is not counted)."""
+    itemsize = torch.empty((), dtype=cfg.kv_dtype).element_size()
+    per_vector = cfg.head_dim * itemsize + (4 if cfg.kv_quantized else 0)
+    return 2 * cfg.n_layers * n_pages * page_size * cfg.n_kv_heads * per_vector
+
+
+def init_kv_pool(cfg: ModelConfig, n_pages: int, page_size: int, device="cpu") -> KVCache:
+    """The zeroed page pool: `n_pages` allocatable pages and the sink."""
+    shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return kv_cache_of_shape(cfg, shape, device)
+
+
+def copy_page(cache: KVCache, src: int, dst: int) -> None:
+    """Copy one physical page (every layer, scales included) onto another,
+    in place: the copy-on-write of a write that starts mid-page."""
+    for t in cache.tensors():
+        t[:, dst].copy_(t[:, src])
+
+
+class PagePoolExhausted(RuntimeError):
+    """No free page: size the pool or free rows."""
+
+
+class PagePool:
+    """Host-side page allocator and per-row page tables.
+
+    ``tables[row, slot]`` is the physical page holding the row's logical
+    positions ``[slot*ps, (slot+1)*ps)``, or -1 (unmapped). ``version``
+    moves on every table change."""
+
+    def __init__(self, n_pages: int, page_size: int, n_rows: int, seq_len: int):
+        if n_pages <= 0:
+            raise ValueError("page pool needs at least one page")
+        self.n_pages = int(n_pages)
+        self.page_size = int(page_size)
+        self.n_rows = int(n_rows)
+        self.seq_len = int(seq_len)
+        self.max_slots = -(-seq_len // page_size)
+        self.refs = np.zeros(self.n_pages, np.int32)
+        self._free: list = list(range(self.n_pages - 1, -1, -1))
+        self.tables = np.full((self.n_rows, self.max_slots), -1, np.int32)
+        self.version = 0
+        self._lock = threading.Lock()
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.n_pages - len(self._free)
+
+    def ensure(self, row: int, start: int, end: int) -> list:
+        """Make span ``[start, end)`` of `row` privately writable: allocate
+        unmapped slots, copy-on-write shared ones. Returns the ``[(src,
+        dst), ...]`` page copies the caller must run (:func:`copy_page`)
+        BEFORE the write: only a shared page that holds positions below
+        `start` needs its content moved.
+
+        Atomic per span: the whole plan applies only when every page it
+        needs is free; otherwise nothing changes and
+        :class:`PagePoolExhausted` raises."""
+        if end <= start:
+            return []
+        end = min(end, self.seq_len)
+        ps = self.page_size
+        with self._lock:
+            plan = []  # (slot, current page or -1)
+            for slot in range(start // ps, -(-end // ps)):
+                cur = int(self.tables[row, slot])
+                if cur < 0 or int(self.refs[cur]) > 1:
+                    plan.append((slot, cur))
+            if not plan:
+                return []
+            if len(self._free) < len(plan):
+                raise PagePoolExhausted(
+                    f"kv page pool exhausted ({self.n_pages} pages of {self.page_size} tokens)"
+                )
+            cow: list = []
+            for slot, cur in plan:
+                page = self._free.pop()
+                self.refs[page] = 1
+                if cur >= 0:
+                    # the row gives up its claim on the shared page; the
+                    # content moves only when positions below `start` live
+                    # on it (a page-aligned write overwrites it whole)
+                    self.refs[cur] -= 1
+                    if self.refs[cur] == 0:
+                        self._free.append(cur)
+                    if slot * ps < start:
+                        cow.append((cur, page))
+                self.tables[row, slot] = page
+            self.version += 1
+            return cow
+
+    def share(self, row: int, pages) -> None:
+        """Map `pages` into the row's leading slots with their refcounts
+        bumped (zero-copy sharing). Mappings they replace are released,
+        after the new references are taken, so a self-share is safe."""
+        pages = list(pages)
+        if len(pages) > self.max_slots:
+            raise ValueError("shared prefix longer than the row's table")
+        with self._lock:
+            for p in pages:
+                self.refs[p] += 1
+            for slot, p in enumerate(pages):
+                cur = int(self.tables[row, slot])
+                if cur >= 0:
+                    self.refs[cur] -= 1
+                    if self.refs[cur] == 0:
+                        self._free.append(cur)
+                self.tables[row, slot] = p
+            self.version += 1
+
+    def release_row(self, row: int) -> None:
+        """Unmap the whole row: every mapped page loses the row's
+        reference; shared pages survive through their other holders."""
+        with self._lock:
+            for slot in range(self.max_slots):
+                cur = int(self.tables[row, slot])
+                if cur >= 0:
+                    self.refs[cur] -= 1
+                    if self.refs[cur] == 0:
+                        self._free.append(cur)
+                    self.tables[row, slot] = -1
+            self.version += 1
+
+    def release_all_rows(self) -> None:
+        for r in range(self.n_rows):
+            self.release_row(r)
+
+    def device_tables(self) -> np.ndarray:
+        """A copy of the tables, -1 for unmapped slots: the operand the
+        forward pass writes and reads through."""
+        with self._lock:
+            return self.tables.copy()

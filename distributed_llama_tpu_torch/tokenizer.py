@@ -8,6 +8,8 @@ src/tokenizer.{hpp,cpp}) in Python:
   and best-pair merging (reference: tokenizer.cpp:311-390);
 * UTF-8-safe streaming decoder that holds back incomplete multi-byte
   sequences between tokens (reference: tokenizer.cpp:225-289);
+* chat templates (llama2, llama3, deepSeek3, chatml; reference:
+  tokenizer.cpp:549-637);
 * multi-token stop-sequence ("EOS") detector (reference: tokenizer.cpp:639-725);
 * sampler: argmax / multinomial / top-p with the same xorshift* RNG so seeded
   runs are reproducible against the reference (reference: tokenizer.cpp:25-36,
@@ -20,6 +22,8 @@ merge engine), so the port imports nothing from that package.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -217,6 +221,110 @@ class Sampler:
         r = coin * csum[last]
         pick = np.searchsorted(csum[: last + 1], r, side="right")
         return int(order[min(pick, last)])
+
+
+# ---------------------------------------------------------------------------
+# Chat templates
+# ---------------------------------------------------------------------------
+
+TEMPLATE_UNKNOWN = 0
+TEMPLATE_LLAMA2 = 1
+TEMPLATE_LLAMA3 = 2
+TEMPLATE_DEEP_SEEK3 = 3
+TEMPLATE_CHATML = 4
+
+_TEMPLATE_NAMES = {
+    "llama2": TEMPLATE_LLAMA2,
+    "llama3": TEMPLATE_LLAMA3,
+    "deepSeek3": TEMPLATE_DEEP_SEEK3,
+    "chatml": TEMPLATE_CHATML,
+}
+
+
+@dataclass
+class ChatItem:
+    role: str
+    message: str
+
+
+@dataclass
+class GeneratedChat:
+    content: str
+    public_prompt: str | None = None
+
+
+class ChatTemplateGenerator:
+    """Renders chat turns into the model's prompt format, auto-detecting the
+    dialect from the HF template string when not forced
+    (reference: tokenizer.cpp:549-637)."""
+
+    def __init__(self, type_: int = TEMPLATE_UNKNOWN, chat_template: str | None = None, eos: str = ""):
+        if type_ == TEMPLATE_UNKNOWN:
+            if not chat_template:
+                raise ValueError("the tokenizer does not include chat template")
+            if "[INST]" in chat_template:
+                type_ = TEMPLATE_LLAMA2
+            elif "<|start_header_id|>" in chat_template:
+                type_ = TEMPLATE_LLAMA3
+            elif "<｜Assistant｜>" in chat_template:
+                type_ = TEMPLATE_DEEP_SEEK3
+            elif "<|im_start|>" in chat_template:
+                type_ = TEMPLATE_CHATML
+            else:
+                raise ValueError("not supported chat template")
+        self.type = type_
+        self.eos = eos
+
+    @staticmethod
+    def parse_type(name: str) -> int:
+        if name in _TEMPLATE_NAMES:
+            return _TEMPLATE_NAMES[name]
+        raise ValueError(f"unknown chat template {name!r}")
+
+    def generate(self, items: list[ChatItem], append_generation_prompt: bool = True) -> GeneratedChat:
+        buf = []
+        public_prompt = None
+        eos = self.eos
+        if self.type == TEMPLATE_LLAMA2:
+            i = 0
+            if len(items) >= 2 and items[0].role == "system" and items[1].role == "user":
+                buf.append(
+                    "[INST] <<SYS>>\n" + items[0].message + "\n<</SYS>>\n\n" + items[1].message + " [/INST]" + eos
+                )
+                i = 2
+            for it in items[i:]:
+                if it.role == "assistant":
+                    buf.append(it.message + eos)
+                elif it.role == "user":
+                    buf.append("[INST] " + it.message + " [/INST]" + eos)
+        elif self.type == TEMPLATE_LLAMA3:
+            for it in items:
+                buf.append("<|start_header_id|>" + it.role + "<|end_header_id|>\n\n" + it.message + eos)
+            if append_generation_prompt:
+                buf.append("<|start_header_id|>assistant<|end_header_id|>\n\n")
+        elif self.type == TEMPLATE_DEEP_SEEK3:
+            i = 0
+            if items and items[0].role == "system":
+                buf.append(items[0].message)
+                i = 1
+            for it in items[i:]:
+                if it.role == "user":
+                    buf.append("<｜User｜>" + it.message)
+                elif it.role == "assistant":
+                    buf.append("<｜Assistant｜>" + it.message)
+            if append_generation_prompt:
+                buf.append("<｜Assistant｜><think>\n")
+                public_prompt = "<think>\n"
+        elif self.type == TEMPLATE_CHATML:
+            # the reference appends the generation prompt inside its per-item
+            # loop (tokenizer.cpp:624-634), a malformed ChatML prompt; the
+            # JAX package emits it once, at the end, and so does this copy
+            for it in items:
+                if it.role in ("system", "user", "assistant"):
+                    buf.append("<|im_start|>" + it.role + "\n" + it.message + "<|im_end|>\n")
+            if append_generation_prompt:
+                buf.append("<|im_start|>assistant\n")
+        return GeneratedChat("".join(buf), public_prompt)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,9 @@ import distributed_llama_tpu_torch.runtime.engine
 import distributed_llama_tpu_torch.ops.cuda_q40
 import distributed_llama_tpu_torch.ops.cuda_attention
 import distributed_llama_tpu_torch.ops.moe
+import distributed_llama_tpu_torch.ops.kv_quant
+import distributed_llama_tpu_torch.runtime.batch_session
+import distributed_llama_tpu_torch.runtime.paged_kv
 import distributed_llama_tpu_torch.testing
 print(json.dumps(sorted(sys.modules)))
 """
@@ -47,4 +50,5 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     mods = json.loads(out.strip().splitlines()[-1])
     assert "distributed_llama_tpu_torch.runtime.engine" in mods
     assert "distributed_llama_tpu_torch.ops.moe" in mods
+    assert "distributed_llama_tpu_torch.runtime.batch_session" in mods
     assert [m for m in mods if _is_forbidden(m)] == []

@@ -87,10 +87,20 @@ def test_flash_kernel_matches_plain(cuda, hd, g, t, pos):
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
     q, d = (t.to(cuda) for t in _weights(256, 384, layers=1))
-    with pytest.raises(NotImplementedError, match="B5"):
-        cuda_q40.q40_gemm_bf16(_x(16, 256).to(cuda), q[0], d[0])
+    with pytest.raises(ValueError):
+        cuda_q40.q40_gemm_bf16(_x(16, 128).to(cuda), q[0], d[0])  # 128 features, weight 256
     with pytest.raises(ValueError):
         cuda_q40.q40_gemv_q80_stacked(_x(9, 256).to(cuda), q, d, 0)
+    args = _paged_inputs(cuda, L=1, n_kv=2, g=4, hd=64, b=2, n_read=2)
+    qq, k, v, ks, vs, pos, table = args
+    with pytest.raises(TypeError):  # a bf16 pool: the kernel takes int8
+        cuda_attention.paged_flash_attention(qq, k.bfloat16(), v.bfloat16(), ks, vs, 0, pos,
+                                             table, 2, 16)
+    with pytest.raises(TypeError):  # an int64 page table
+        cuda_attention.paged_flash_attention(qq, k, v, ks, vs, 0, pos, table.long(), 2, 16)
+    with pytest.raises(ValueError):  # more queries than a page holds
+        cuda_attention.paged_flash_attention(qq.repeat(1, 17, 1, 1), k, v, ks, vs, 0, pos,
+                                             table, 2, 16)
 
 
 def _flat_stack(cuda, groups, in_f, out_f, seed=0):
@@ -206,3 +216,59 @@ def test_out_of_range_groups_give_nan(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all()
     assert torch.isnan(out4[:8]).all() and torch.isfinite(out4[8:]).all()
+
+
+@pytest.mark.parametrize("rows,in_f,out_f", [(16, 2048, 128256), (32, 2048, 128256),
+                                             (9, 2048, 151936), (12, 2080, 384)])
+def test_b5_kernel_matches_plain(cuda, rows, in_f, out_f):
+    """B5: K2 on an unstacked weight at the vocab widths and a ragged block
+    count (65 blocks)."""
+    q, d = _flat_stack(cuda, 1, in_f, out_f, seed=rows)
+    x = _x(rows, in_f).to(cuda)
+    before = cuda_q40.q40_gemm_bf16.launches
+    got = cuda_q40.q40_gemm_bf16(x, q[0], d[0])
+    want = cuda_q40.q40_gemm_bf16_plain(x, q[0], d[0])
+    torch.cuda.synchronize()
+    assert cuda_q40.q40_gemm_bf16.launches == before + 1
+    # K2's tolerance: exact bf16 products, tensor-core f32 sums in another order
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def _paged_inputs(cuda, L, n_kv, g, hd, b, n_read, ps=16, t=1, seed=0):
+    """An int8 pool with b * n_read mapped pages in random order, row 1
+    parked (pos_base = seq_len), the other rows live."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    P = b * n_read + 4
+    k = torch.randint(-127, 128, (L, P, ps, n_kv, hd), dtype=torch.int8, device=cuda, generator=gen)
+    v = torch.randint(-127, 128, (L, P, ps, n_kv, hd), dtype=torch.int8, device=cuda, generator=gen)
+    ks = torch.rand((L, P, ps, n_kv), device=cuda, generator=gen) * 0.02 + 1e-3
+    vs = torch.rand((L, P, ps, n_kv), device=cuda, generator=gen) * 0.02 + 1e-3
+    table = torch.randperm(P, device=cuda, generator=gen)[: b * n_read].reshape(b, n_read)
+    table = table.to(torch.int32).contiguous()
+    pos = torch.randint(0, n_read * ps - t + 1, (b,), device=cuda, generator=gen)
+    pos[min(1, b - 1)] = 4096
+    table[0, int(pos[0] + t - 1) // ps + 1 :] = -1  # row 0's unmapped tail
+    q = torch.randn((b, t, n_kv * g, hd), device=cuda, generator=gen)
+    return q, k, v, ks, vs, pos.contiguous(), table
+
+
+@pytest.mark.parametrize("hd,n_kv,g", [(64, 8, 4), (128, 4, 8)])
+@pytest.mark.parametrize("ps,t,n_read", [(16, 1, 16), (16, 1, 64), (16, 5, 8), (32, 1, 8),
+                                         (64, 16, 4)])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_k5_kernel_matches_plain(cuda, hd, n_kv, g, ps, t, n_read, q_dtype):
+    """K5 (B6) at both models' head shapes, page sizes 16-64, decode (t = 1)
+    and verify-sized (t > 1) query blocks, a parked row and unmapped
+    entries. f32 q: f32 sums in another order (1e-4 of the output scale);
+    bf16 q (output in bf16): plus one bf16 rounding of the output."""
+    q, k, v, ks, vs, pos, table = _paged_inputs(cuda, 2, n_kv, g, hd, 6, n_read, ps, t, seed=hd + t)
+    q = q.to(q_dtype)
+    before = cuda_attention.paged_flash_attention.launches
+    got = cuda_attention.paged_flash_attention(q, k, v, ks, vs, 1, pos, table, n_read, ps)
+    want = cuda_attention.paged_flash_attention_plain(q, k, v, ks, vs, 1, pos, table, n_read, ps)
+    torch.cuda.synchronize()
+    assert cuda_attention.paged_flash_attention.launches == before + 1
+    assert got.dtype == q_dtype and got.shape == q.shape
+    scale = want.float().abs().max().item()
+    tol = 1e-4 * scale if q_dtype == torch.float32 else 1e-4 * scale + 2.0 ** -8 * scale
+    assert (got.float() - want.float()).abs().max().item() <= tol
