@@ -13,6 +13,13 @@ caught):
      with its time (CUDA events over CUDA-graph replays), its plain
      version's time, one PyTorch library call's time as a yardstick, and
      its bound;
+  3b. the kernel probes (B9, P3, P4, P14): each new kernel or instance
+     against its plain version at every probe shape (Llama-3.2-1B layer
+     shapes and the full wcls 2048 -> 128256), the six int8-matmul
+     instances against each other (bit for bit) and P14's checksums; then
+     the probes' entry points (probes/int4.py and probes/dma.py main) with
+     their launch counters set to 0 just before and read just after: cold
+     (operands out of L2) and hot times, the streaming ceiling per shape;
   4. small-input references: a tiny Llama and a tiny Qwen3-MoE through the
      engine on the card and on the CPU (plain versions), logits and greedy
      tokens compared; a tiny Llama's paged int8 BatchSession at batch 4,
@@ -43,8 +50,6 @@ import gc
 import io
 import json
 import re
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -89,6 +94,8 @@ RATES = {
     "H100": (3.35e12, 989e12, 1979e12),  # SXM
     "H200": (4.8e12, 989e12, 1979e12),
 }
+# published f32 rates outside the tensor cores (flop/s), for P4's f32 dot
+FP32_PEAK = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12, "H200": 67e12}
 
 
 def log(msg: str) -> None:
@@ -100,46 +107,6 @@ def rates_for(name: str):
         if key in name:
             return key, val
     raise RuntimeError(f"no published rates for {name!r}")
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
-
-
-def graph_ms(torch, fn, replays: int = 20, budget_ms: float = 1000.0) -> float:
-    """Median device time of one call of `fn`, from CUDA events around
-    replays of a CUDA graph that holds the call (so Python's launch cost is
-    not in the number): `replays` of them, or as many as fit `budget_ms`
-    once three are done (the plain versions take up to ~0.2 s a call)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        fn()
-    g.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        g.replay()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-        if len(times) >= 3 and sum(times) > budget_ms:
-            break
-    del g
-    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +276,7 @@ def b5_row(torch, gen, wcls, dim, vocab, bw, bf16_peak):
     logits) and 32 rows (a 32-token perplexity chunk); the row records the
     16-row call."""
     from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.probes import timing
 
     xs = {r: torch.randn((r, dim), device="cuda", generator=gen) for r in (16, 32)}
     # K2's tolerance: exact bf16 products, tensor-core f32 sums in another order
@@ -329,7 +297,7 @@ def b5_row(torch, gen, wcls, dim, vocab, bw, bf16_peak):
         f"logits of a batch-16 decode step: wcls {dim} -> {vocab} at 16 rows "
         f"(32 rows checked too); library: torch.matmul on the bf16-dequantized wcls",
     )
-    row["ms_32_rows"] = graph_ms(torch, lambda: cuda_q40.q40_gemm_bf16(xs[32], *wcls))
+    row["ms_32_rows"] = timing.graph_ms([lambda: cuda_q40.q40_gemm_bf16(xs[32], *wcls)])
     log(json.dumps({"kernel_extra": "q40_gemm_bf16", "ms_32_rows": row["ms_32_rows"]}))
     return row
 
@@ -625,21 +593,133 @@ def moe_kernel_checks(torch, rates):
 
 def _entry(torch, name, source, replaces, errs, fn, plain, lib, nbytes, nops,
            bw, peak, work):
+    """One kernels-line row, each of the three calls timed by
+    probes/timing.graph_ms (CUDA events over CUDA-graph replays)."""
+    from distributed_llama_tpu_torch.probes import timing
+
+    times = {"ms": timing.graph_ms([fn]), "plain_ms": timing.graph_ms([plain]),
+             "library_ms": timing.graph_ms([lib])}
+    return _row(name, source, replaces, errs, times, nbytes, nops, bw, peak, work)
+
+
+def _row(name, source, replaces, errs, times, nbytes, nops, bw, peak, work):
+    """One kernels-line row from measured `times` (ms, plain_ms,
+    library_ms and any more), with its bound from the card's rates."""
     err, rel, tol = errs
-    ms = graph_ms(torch, fn)
-    plain_ms = graph_ms(torch, plain)
-    library_ms = graph_ms(torch, lib)
     t_bytes = nbytes / bw * 1e3
     t_ops = nops / peak * 1e3
     row = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "max_abs_err": err, "max_rel_err": rel, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+        "max_abs_err": err, "max_rel_err": rel, "tol": tol, **times,
+        "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "ops": nops, "work": work,
     }
     log("kernel " + json.dumps(row))
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the kernel probes
+# ---------------------------------------------------------------------------
+
+PROBE_SOURCES = {
+    "q40_i8_unpacked": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu",
+                        "distributed_llama_tpu/ops/pallas_q40.py:657"),
+    "i4_call_int8": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:153"),
+    "i4_call_bf16": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:153"),
+    "i32_call_int8": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:219"),
+    "i32_call_bf16": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:219"),
+    "i32_call_f32": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:219"),
+    "stream_call": ("distributed_llama_tpu_torch/csrc/stream_probe.cu", "scripts/probe_dma.py:40"),
+}
+
+
+def probe_checks(torch):
+    """B9 and the five P3/P4 instances against their plain versions at
+    every shape of the int4 probe (B9 at 8 rows too), each instance equal to
+    B9 bit for bit (exact integer partials in every dot type, one shared
+    scale-and-accumulate order); P14 at every swept tile of every dma probe
+    shape, its out and checksums against the plain version's. Returns
+    {kernel name: (max abs err, max rel err, tolerance)}."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.probes import dma, int4
+
+    errs = {}
+
+    def keep(name, e):
+        old = errs.get(name, (0.0, 0.0, 0.0))
+        errs[name] = tuple(max(a, b) for a, b in zip(old, e))
+
+    for label, in_f, out_f in int4.SHAPES:
+        for rows in ((1, 8) if out_f == 3072 else (1,)):
+            x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, "cuda", seed=11)
+            ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
+            for _, fn, plain, w, dot, _ in int4.variants(qt):
+                got = fn(x8, xs, w, dt)
+                # exact integer partials, f32 block sums in another order
+                keep(fn.__name__, compare(torch, f"{fn.__name__} {label} rows {rows}",
+                                          [(got, plain(x8, xs, w, dt, dot))], rel_tol=1e-5))
+                diff = (got - ref).abs().max().item()
+                assert torch.equal(got, ref), f"{fn.__name__} {label}: differs from B9 by {diff}"
+            del x8, xs, qt, dt, ref
+            torch.cuda.empty_cache()
+    for label, in_f, out_f in dma.SHAPES:
+        bias, qp = dma.make_plane(in_f, out_f, "cuda", seed=12)
+        for tn, tk in dma.tiles_for(in_f, out_f):
+            out, chk = dma.stream_call(bias, qp, tn, tk)
+            p_out, p_chk = dma.stream_call_plain(bias, qp, tn, tk)
+            # an exact 64-bit corner sum rounded once: 1e-6 relative is the
+            # stated tolerance, equality the expectation
+            keep("stream_call", compare(torch, f"stream_call {label} {tn}x{tk}",
+                                        [(out, p_out)], rel_tol=1e-6))
+            assert torch.equal(chk, p_chk), f"stream_call {label} {tn}x{tk}: checksums differ"
+        del bias, qp
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "probe_checks", "errs": errs}))
+    return errs
+
+
+def probe_rows(torch, rates, rate_key, errs, counters):
+    """The probes' entry points, as a user runs them, with every launch
+    counter in `counters` set to 0 just before and read just after; B9, P3,
+    P4 and P14 must have launched. Returns (launches, one kernels-line row
+    a kernel: its numbers at the 1B's full wcls 2048 -> 128256, P14's at
+    its best tile there)."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.probes import dma, int4
+
+    bw, bf16_peak, int8_peak = rates
+    peaks = {"int8": int8_peak, "bf16": bf16_peak, "f32": FP32_PEAK[rate_key]}
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    i_rows = int4.main(["--device", "cuda"])
+    d_rows = dma.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    log(json.dumps({"phase": "kernel_probes", "launches": launches}))
+    for r in i_rows + d_rows:
+        log("probe_row " + json.dumps(r))
+    check_launched(launches, (cuda_q40.q40_i8_unpacked, *int4.KERNELS, *dma.KERNELS),
+                   "the kernel probes")
+    def row(name, r, nops, peak, work):
+        times = {"ms": r["cold_ms"], "hot_ms": r["hot_ms"], "plain_ms": r["plain_ms"],
+                 "library_ms": r["library_cold_ms"]}
+        return _row(name, *PROBE_SOURCES[name], errs[name], times, r["bytes"], nops, bw, peak,
+                    work)
+
+    out = {r["kernel"]: row(r["kernel"], r, r["ops"], peaks[r["dot"]],
+                            f"{r['probe']}: wcls 2048 -> 128256 at 1 row, cold; library: "
+                            f"torch.matmul on the bf16-dequantized weight")
+           for r in i_rows if r["out"] == 128256}
+    d = next(r for r in d_rows if r["out"] == 128256)
+    out["stream_call"] = row(
+        "stream_call", d, 0, int8_peak,
+        f"stream the wcls 2048 -> 128256 packed plane at its best tile ({d['tile_n']} x "
+        f"{d['tile_knb']} blocks), cold; library: torch.sum over the plane, the nearest "
+        f"call, not the same function")
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -1059,13 +1139,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40, kernels
+    from distributed_llama_tpu_torch.probes import dma, int4, timing
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. the card
     kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi_line()
+    smi = timing.card_line()
     rate_key, rates = rates_for(kind)
     log(f"card: {kind} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| bounds from the {rate_key} data sheet: {rates[0] / 1e12} TB/s, "
@@ -1089,6 +1170,19 @@ def main() -> int:
     release(torch)
     done("phase 3")
 
+    # every launch counter: each counted run (the probes', then each main
+    # path) sets all of them to 0 just before it and reads all just after
+    counters = (*cuda_q40.KERNELS, *cuda_attention.KERNELS, *int4.KERNELS, *dma.KERNELS)
+
+    # 3b. the kernel probes: checks, then the probes' own run, counted
+    errs = probe_checks(torch)
+    release(torch)
+    paths = {}
+    paths["probes"], probe_kernels = probe_rows(torch, rates, rate_key, errs, counters)
+    rows.update(probe_kernels)
+    release(torch)
+    done("phase 3b")
+
     # 4. small inputs against the CPU
     tmp = BUILD / "smoke"
     tmp.mkdir(parents=True, exist_ok=True)
@@ -1110,8 +1204,6 @@ def main() -> int:
 
     # 5-6. the main paths, each with its counters set to 0 just before it
     # and read just after, and profiles of their decode
-    counters = (*cuda_q40.KERNELS, *cuda_attention.KERNELS)
-    paths = {}
     mp, tp, write_s, size = synthetic_model("llama32_1b", LLAMA32_1B)
     log(f"synthetic Llama-3.2-1B-width model: {size} bytes, ready in {write_s:.1f} s "
         f"(set-up, not timed below)")
@@ -1161,7 +1253,7 @@ def main() -> int:
     # counts (each path counted on its own), `launches_by_path` holds them
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    kern = [{**{k: r[k] for k in keys},
+    kern = [{**{k: r[k] for k in keys}, **({"hot_ms": r["hot_ms"]} if "hot_ms" in r else {}),
              "launches": sum(p[name] for p in paths.values()),
              "launches_by_path": {path: p[name] for path, p in paths.items()}}
             for name, r in rows.items()]

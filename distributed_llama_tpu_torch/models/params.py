@@ -23,6 +23,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..formats.mfile import MFileReader, TensorSpec
 from ..formats.quants import FloatType
 from ..ops.quant import QuantTensor, q40_bytes_to_t_layout
@@ -85,9 +86,10 @@ class KVCache:
         return tuple(t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None)
 
 
-def kv_cache_of_shape(cfg: ModelConfig, shape: tuple, device="cpu") -> KVCache:
+def kv_cache_of_shape(cfg: ModelConfig, shape: tuple, device=None) -> KVCache:
     """Zeroed k/v of `shape` (trailing head_dim) in the cache dtype, with
-    zeroed f32 scales on the int8 arm."""
+    zeroed f32 scales on the int8 arm. `device=None` means the card."""
+    device = resolve_device(device)
     k = torch.zeros(shape, dtype=cfg.kv_dtype, device=device)
     v = torch.zeros(shape, dtype=cfg.kv_dtype, device=device)
     if not cfg.kv_quantized:
@@ -99,7 +101,7 @@ def kv_cache_of_shape(cfg: ModelConfig, shape: tuple, device="cpu") -> KVCache:
     )
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None, device="cpu") -> KVCache:
+def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None, device=None) -> KVCache:
     shape = (
         cfg.n_layers,
         batch,
@@ -209,9 +211,11 @@ def _norm_stack(reader: MFileReader, cfg: ModelConfig, role: str, device) -> tor
     )
 
 
-def load_params(reader: MFileReader, cfg: ModelConfig, device="cpu") -> ModelParams:
+def load_params(reader: MFileReader, cfg: ModelConfig, device=None) -> ModelParams:
     """Read all weights, fuse and stack them per layer, place them on
-    `device`. Q40 bytes are regrouped into the T layout on the device."""
+    `device` (None: the card). Q40 bytes are regrouped into the T layout on
+    the device."""
+    device = resolve_device(device)
     if cfg.is_moe:
         experts = _expert_stacks(reader, cfg, device)
         ffn = dict(w13=None, w2=experts["w2"], w1=experts["w1"], w3=experts["w3"],

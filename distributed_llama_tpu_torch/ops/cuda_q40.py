@@ -29,6 +29,16 @@ function for the MoE decode experts: B1 as the JAX package's
 expert` index that stays on the device. Row r (or one row shared by every
 slot) runs against group idx[r]; one launch covers all slots.
 
+B9 `q40_i8_unpacked` (csrc/q40_i8_mma.cu) replaces `ops/pallas_q40.py:_i8_call`
+(:657), body `_kernel_i8` (:323): the int8 matmul over pre-quantized
+activations and an UNPACKED [nb, 32, out] int8 weight, one int8 tensor-core
+MMA (m16n8k32, k = one Q40 block) per block and 8 columns. out = sum over
+blocks of partial * (xs * dt) in f32, partial the exact integer dot. The
+same kernel template, with other weight loaders and dot types, runs the
+kernel probes P3 and P4 (probes/int4.py). Not ported: `_i8_tiles` (:439, a
+v5e tile table) and `_dt_operand`/`_scale_f32` (:112-143, a Mosaic
+workaround: Hopper loads f16 natively).
+
 K4 `q40_grouped_gemm_bf16` (csrc/q40_grouped_gemm.cu) replaces
 `ops/pallas_q40.py:q40_matmul_pallas_grouped` (:779), body
 `_kernel_grouped` (:772): K2's math on row block i against group
@@ -75,6 +85,17 @@ _GROUPED_SIG = {
         kernels.P, kernels.I, kernels.I, kernels.I, kernels.P,
     ),
 }
+_I8_MMA_SIG = {
+    # x8, xs, w, weights, dot, dt, out, part, rows, nb, out, splits, stream
+    "q40_i8_mma": (
+        kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.P,
+        kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
+    ),
+}
+# q40_i8_mma's weight storages and dot types (csrc/q40_i8_mma.cu)
+W_I8, W_S4, W_I32 = 0, 1, 2
+DOTS = {"int8": 0, "bf16": 1, "f32": 2}
+I8_MMA_COLS = 64  # output columns per CTA
 _GEMM_SIG = {
     # x (bf16), q, d, out, rows, in, out, layer, stream
     "q40_gemm_bf16": (
@@ -130,6 +151,31 @@ def q40_gemm_bf16_plain(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor) -> to
     w = w.reshape(nb * Q_BLOCK, q.shape[-1]).to(torch.float32)
     x2 = x.reshape(-1, nb * Q_BLOCK).to(torch.bfloat16).to(torch.float32)
     return _f32_matmul(x2, w).reshape(*lead, q.shape[-1])
+
+
+def i8_blocks_plain(x8: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
+                    dt: torch.Tensor, dot: str = "int8") -> torch.Tensor:
+    """The plain version shared by B9, P3 and P4: x8 [R, nb*32] int8, xs
+    [R, nb] f32, wq [nb, 32, out] weight values in [-8, 7] (any integer
+    dtype), dt [nb, out] f16 -> [R, out] f32 = sum over blocks of partial *
+    (xs * dt), JAX's association. `dot` names the operand type of the
+    integer dot (int8 values are exact in bf16 and f32, and every partial,
+    |p| <= 32 * 127 * 8 < 2^24, is exact in f32): the result does not depend
+    on it."""
+    nb = wq.shape[0]
+    R = x8.shape[0]
+    ty = {"int8": torch.float32, "bf16": torch.bfloat16, "f32": torch.float32}[dot]
+    xb = x8.reshape(R, nb, Q_BLOCK).to(ty).to(torch.float32)
+    wf = wq.to(ty).to(torch.float32)
+    partial = torch.einsum("rbf,bfo->rbo", xb, wf)  # exact integers
+    scale = xs.unsqueeze(-1) * dt.to(torch.float32).unsqueeze(0)  # [R, nb, out]
+    return (partial * scale).sum(dim=1)
+
+
+def q40_i8_unpacked_plain(x8, xs, qt, dt) -> torch.Tensor:
+    """B9's plain version: x8 [R, in] int8, xs [R, nb] f32, qt [nb, 32, out]
+    int8, dt [nb, out] f16 -> [R, out] f32."""
+    return i8_blocks_plain(x8, xs, qt, dt)
 
 
 def flat_groups(q: torch.Tensor, d: torch.Tensor):
@@ -276,6 +322,74 @@ def _device_kind(x: torch.Tensor) -> str:
     return x.device.type
 
 
+def i8_mma_splits(nb: int, out_f: int) -> int:
+    """Split-K of q40_i8_mma: enough CTAs (about 1,024) to fill the card
+    when the 64-column tiles alone do not, at least 8 blocks a split. A
+    function of the shape alone, so every instance sums in one order."""
+    col_tiles = -(-out_f // I8_MMA_COLS)
+    return max(1, min(1024 // col_tiles, nb // 8))
+
+
+def check_i8_operands(x8, xs, w, dt, rows_per_block: int, w_dtype) -> None:
+    """The operands of B9/P3/P4: x8 [R, nb*32] int8 with 1 <= R <= 8, xs
+    [R, nb] f32, w [nb, rows_per_block, out] of `w_dtype`, dt [nb, out]
+    f16, out % 8 == 0, all on one device and contiguous."""
+    if w.ndim != 3 or w.shape[1] != rows_per_block or w.dtype != w_dtype:
+        raise ValueError(f"expected a [nb, {rows_per_block}, out] {w_dtype} weight, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    nb, _, out_f = w.shape
+    if x8.ndim != 2 or x8.dtype != torch.int8 or x8.shape[1] != nb * Q_BLOCK:
+        raise ValueError(f"x8 must be [R, {nb * Q_BLOCK}] int8, got {x8.dtype} {tuple(x8.shape)}")
+    R = x8.shape[0]
+    if not 1 <= R <= MAX_I8_ROWS:
+        raise ValueError(f"the int8 matmul takes 1..{MAX_I8_ROWS} rows, got {R}")
+    if xs.dtype != torch.float32 or tuple(xs.shape) != (R, nb):
+        raise ValueError(f"xs must be [{R}, {nb}] float32, got {xs.dtype} {tuple(xs.shape)}")
+    if dt.dtype != torch.float16 or tuple(dt.shape) != (nb, out_f):
+        raise ValueError(f"dt must be [{nb}, {out_f}] float16, got {dt.dtype} {tuple(dt.shape)}")
+    if out_f % 8:
+        raise ValueError(f"out_features must be a multiple of 8, got {out_f}")
+    for name, t in (("xs", xs), ("w", w), ("dt", dt)):
+        if t.device != x8.device:
+            raise ValueError(f"{name} is on {t.device}, x8 on {x8.device}")
+    for name, t in (("x8", x8), ("xs", xs), ("w", w), ("dt", dt)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def launch_i8_mma(x8, xs, w, weights: int, dot: str, dt) -> torch.Tensor:
+    """One launch of csrc/q40_i8_mma.cu on checked operands on the card."""
+    if _device_kind(x8) != "cuda":
+        raise ValueError(f"q40_i8_mma runs on a CUDA device, not {x8.device}")
+    R, nb, out_f = x8.shape[0], w.shape[0], w.shape[2]
+    splits = i8_mma_splits(nb, out_f)
+    lib = kernels.load("q40_i8_mma", _I8_MMA_SIG)
+    out = torch.empty((R, out_f), dtype=torch.float32, device=x8.device)
+    part = torch.empty((splits, R, out_f) if splits > 1 else (1,), dtype=torch.float32,
+                       device=x8.device)
+    rc = lib.q40_i8_mma(
+        x8.data_ptr(), xs.data_ptr(), w.data_ptr(), weights, DOTS[dot], dt.data_ptr(),
+        out.data_ptr(), part.data_ptr(), R, nb, out_f, splits, kernels.stream_of(x8),
+    )
+    kernels.check(lib, rc, "q40_i8_mma")
+    return out
+
+
+def q40_i8_unpacked(x8, xs, qt, dt) -> torch.Tensor:
+    """B9: x8 [R <= 8, in] int8 activations, xs [R, nb] f32 f16-rounded Q80
+    scales (`quantize_rows_q80`), qt UNPACKED [nb, 32, out] int8 in [-8, 7],
+    dt [nb, out] f16 -> [R, out] f32; out % 8 == 0."""
+    check_i8_operands(x8, xs, qt, dt, Q_BLOCK, torch.int8)
+    if _device_kind(x8) == "cpu":
+        return q40_i8_unpacked_plain(x8, xs, qt, dt)
+    out = launch_i8_mma(x8, xs, qt, W_I8, "int8", dt)
+    q40_i8_unpacked.launches += 1
+    return out
+
+
+q40_i8_unpacked.launches = 0
+
+
 def q40_gemv_q80_stacked(x, q, d, layer) -> torch.Tensor:
     """K1 on layer `layer` of an all-layers stack (B1): x [..., in] with at
     most 8 rows, q [L, nb*4, out], d [L, nb, out] -> [..., out] f32."""
@@ -411,5 +525,5 @@ q40_grouped_gemm_bf16.launches = 0
 
 KERNELS = (
     q40_gemv_q80_stacked, q40_gemv_q80, q40_gemm_bf16_stacked, q40_gemm_bf16,
-    q40_gemv_q80_indexed, q40_grouped_gemm_bf16,
+    q40_gemv_q80_indexed, q40_grouped_gemm_bf16, q40_i8_unpacked,
 )

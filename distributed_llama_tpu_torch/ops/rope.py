@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..formats.mfile import ModelHeader, RopeType
 
 
@@ -53,8 +54,10 @@ def _scale_frequency_llama3(
     return (1 - smooth) * freq / scaling_factor + smooth * freq
 
 
-def build_rope_tables(h: ModelHeader, device="cpu") -> RopeTables:
-    """Precompute per-position cos/sin for all pair indices of one head."""
+def build_rope_tables(h: ModelHeader, device=None) -> RopeTables:
+    """Precompute per-position cos/sin for all pair indices of one head, on
+    `device` (None: the card)."""
+    device = resolve_device(device)
     half = h.head_dim // 2
     freqs = np.empty(half, dtype=np.float64)
     # scaling is gated on the factor alone, as in the reference

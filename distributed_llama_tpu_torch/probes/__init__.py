@@ -1,0 +1,20 @@
+"""The kernel probes of the JAX package's `scripts/` on the card.
+
+`int4` (scripts/probe_int4.py) A/Bs the int8 decode matmul over unpacked
+weights (B9, ops/cuda_q40.py) against the same kernel fed from 4-bit storage
+(P3) and from int32 nibble words (P4); `dma` (scripts/probe_dma.py, P14)
+measures how fast the card streams a packed weight plane. `timing` times a
+kernel cold (operands out of L2) and hot; `operands` carries the JAX probes'
+operands across, for the tests. Run a probe with
+
+    python -m distributed_llama_tpu_torch.probes.int4 [--device cpu] [--shape IN,OUT]
+    python -m distributed_llama_tpu_torch.probes.dma [--device cpu] [--shape IN,OUT]
+
+Without `--device cpu` a probe needs a CUDA device and raises otherwise.
+"""
+
+
+def parse_shape(text: str) -> tuple[str, int, int]:
+    """A `--shape IN,OUT` argument -> (label, in_features, out_features)."""
+    i, o = (int(v) for v in text.split(","))
+    return (f"{i}->{o}", i, o)

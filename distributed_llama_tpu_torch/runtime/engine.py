@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..formats.mfile import MFileReader
 from ..models import config_from_header, forward, init_kv_cache, load_params
 from ..ops.rope import build_rope_tables
@@ -95,20 +96,6 @@ def chunk_plan(n_tokens: int, pos_start: int, max_chunk: int, seq_len: int):
         n_real = min(size, remaining)
         yield i, size, n_real
         i += n_real
-
-
-def resolve_device(device) -> torch.device:
-    """`None` means the card. A CUDA device where none is present raises:
-    the engine never falls back to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' (CLI: --device cpu) "
-            "to run on the CPU"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 class InferenceEngine:

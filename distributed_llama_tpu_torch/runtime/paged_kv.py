@@ -118,8 +118,9 @@ def page_pool_bytes(cfg: ModelConfig, n_pages: int, page_size: int) -> int:
     return 2 * cfg.n_layers * n_pages * page_size * cfg.n_kv_heads * per_vector
 
 
-def init_kv_pool(cfg: ModelConfig, n_pages: int, page_size: int, device="cpu") -> KVCache:
-    """The zeroed page pool: `n_pages` allocatable pages and the sink."""
+def init_kv_pool(cfg: ModelConfig, n_pages: int, page_size: int, device=None) -> KVCache:
+    """The zeroed page pool: `n_pages` allocatable pages and the sink, on
+    `device` (None: the card)."""
     shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
     return kv_cache_of_shape(cfg, shape, device)
 

@@ -114,7 +114,7 @@ _ROPES = {
 def test_rope_matches_jax(kind):
     kw = dict(dim=256, hidden_dim=512, n_heads=4, n_kv_heads=2, seq_len=4096, **_ROPES[kind])
     jt = jrope.build_rope_tables(j_header(**kw))
-    pt = prope.build_rope_tables(p_header(**kw))
+    pt = prope.build_rope_tables(p_header(**kw), device="cpu")
     np.testing.assert_array_equal(pt.cos.numpy(), np.asarray(jt.cos))
     np.testing.assert_array_equal(pt.sin.numpy(), np.asarray(jt.sin))
     hd = kw["head_dim"]
@@ -137,5 +137,5 @@ def test_rope_table_is_capped_at_max_seq_len(tmp_path):
     path = str(tmp_path / "m.m")
     write_tiny_model(path, h, seed=0)
     with MFileReader(path, max_seq_len=4096) as r:
-        tables = prope.build_rope_tables(r.header)
+        tables = prope.build_rope_tables(r.header, device="cpu")
     assert tables.cos.shape == (4096, 8)

@@ -1,4 +1,5 @@
-"""The port imports neither jax nor anything of the JAX package."""
+"""The port imports neither jax, nor anything of the JAX package, nor the
+JAX package's scripts (the kernel probes there import jax)."""
 
 import json
 import subprocess
@@ -19,6 +20,10 @@ import distributed_llama_tpu_torch.ops.kv_quant
 import distributed_llama_tpu_torch.runtime.batch_session
 import distributed_llama_tpu_torch.runtime.paged_kv
 import distributed_llama_tpu_torch.testing
+import distributed_llama_tpu_torch.probes.int4
+import distributed_llama_tpu_torch.probes.dma
+import distributed_llama_tpu_torch.probes.timing
+import distributed_llama_tpu_torch.probes.operands
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -30,6 +35,8 @@ def _is_forbidden(name: str) -> bool:
         or name.startswith("jax.")
         or name == "distributed_llama_tpu"
         or name.startswith("distributed_llama_tpu.")
+        or name == "scripts"
+        or name.startswith("scripts.")
     )
 
 
@@ -40,6 +47,8 @@ def test_prefix_rule_tells_the_port_from_the_reference():
     assert not _is_forbidden("distributed_llama_tpu_torch")
     assert not _is_forbidden("distributed_llama_tpu_torch.ops")
     assert not _is_forbidden("jaxlib_lookalike")
+    assert _is_forbidden("scripts.probe_int4")
+    assert not _is_forbidden("distributed_llama_tpu_torch.probes.int4")
 
 
 def test_fresh_import_loads_no_jax_and_no_jax_package():
@@ -51,4 +60,5 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     assert "distributed_llama_tpu_torch.runtime.engine" in mods
     assert "distributed_llama_tpu_torch.ops.moe" in mods
     assert "distributed_llama_tpu_torch.runtime.batch_session" in mods
+    assert "distributed_llama_tpu_torch.probes.operands" in mods
     assert [m for m in mods if _is_forbidden(m)] == []

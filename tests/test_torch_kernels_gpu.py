@@ -13,6 +13,7 @@ import torch
 
 from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
 from distributed_llama_tpu_torch.ops.quant import pack_q
+from distributed_llama_tpu_torch.probes import dma, int4
 
 pytestmark = pytest.mark.gpu
 
@@ -272,3 +273,100 @@ def test_k5_kernel_matches_plain(cuda, hd, n_kv, g, ps, t, n_read, q_dtype):
     scale = want.float().abs().max().item()
     tol = 1e-4 * scale if q_dtype == torch.float32 else 1e-4 * scale + 2.0 ** -8 * scale
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# -- B9, P3, P4 (csrc/q40_i8_mma.cu) and P14 (csrc/stream_probe.cu) ----------
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8])
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (2176, 264), (8192, 2048)])
+def test_b9_kernel_matches_plain(cuda, rows, in_f, out_f):
+    """B9 at 1-8 rows, a ragged block count (68) and a column count that is
+    a multiple of 8 but not of the CTA's 64: exact integer partials, f32
+    block sums in another order (1e-5 of the output scale)."""
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, cuda, seed=rows)
+    before = cuda_q40.q40_i8_unpacked.launches
+    got = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
+    want = cuda_q40.q40_i8_unpacked_plain(x8, xs, qt, dt)
+    torch.cuda.synchronize()
+    assert cuda_q40.q40_i8_unpacked.launches == before + 1
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (2176, 264)])
+def test_p3_p4_instances_match_plain_and_b9_exactly(cuda, rows, in_f, out_f):
+    """Each of the five instances within 1e-5 of its plain version, and
+    equal to B9 bit for bit: exact partials in every dot type, one shared
+    scale-and-accumulate order."""
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, cuda, seed=7)
+    ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
+    for label, fn, plain, w, dot, _ in int4.variants(qt)[1:]:
+        before = fn.launches
+        got = fn(x8, xs, w, dt)
+        want = plain(x8, xs, w, dt, dot)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, label
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item(), label
+        assert torch.equal(got, ref), label
+
+
+def test_probe_wrappers_raise_instead_of_falling_back(cuda):
+    x8, xs, qt, dt, _ = int4.make_operands(256, 64, 1, cuda)
+    qt4, qw = int4.pack_s4(qt), int4.pack_i32_t(qt)
+    x9, xs9, _, _, _ = int4.make_operands(256, 64, 9, cuda)
+    with pytest.raises(ValueError):  # more than 8 rows
+        cuda_q40.q40_i8_unpacked(x9, xs9, qt, dt)
+    with pytest.raises(ValueError):  # out % 8
+        cuda_q40.q40_i8_unpacked(x8, xs, qt[:, :, :60].contiguous(), dt[:, :60].contiguous())
+    with pytest.raises(ValueError):  # weights on the CPU, rows on the card
+        int4.i4_call(x8, xs, qt4.cpu(), dt)
+    with pytest.raises(ValueError):  # the wrong storage for the instance
+        int4.i32_call(x8, xs, qt4, dt, dot="f32")
+    bias, qp = dma.make_plane(2048, 512, cuda)
+    with pytest.raises(ValueError):  # a tile that does not divide the plane
+        dma.stream_call(bias, qp, 384, 8)
+    with pytest.raises(ValueError):
+        dma.stream_call(bias.cpu(), qp, 128, 8)
+
+
+@pytest.mark.parametrize("in_f,out_f,tile_n,tile_knb",
+                         [(2048, 3072, 1024, 8), (2048, 3072, 128, 64), (8192, 2048, 2048, 16),
+                          (2048, 128256, 256, 32)])
+def test_stream_probe_matches_plain(cuda, in_f, out_f, tile_n, tile_knb):
+    """P14: the corner sum is an exact 64-bit sum rounded once, and the
+    checksums are XORs: both equal the plain version's exactly."""
+    bias, qp = dma.make_plane(in_f, out_f, cuda, seed=in_f + tile_n)
+    before = dma.stream_call.launches
+    out, chk = dma.stream_call(bias, qp, tile_n, tile_knb)
+    p_out, p_chk = dma.stream_call_plain(bias, qp, tile_n, tile_knb)
+    torch.cuda.synchronize()
+    assert dma.stream_call.launches == before + 1
+    assert chk.shape == (out_f // tile_n, in_f // 8 // (4 * tile_knb))
+    assert torch.equal(out, p_out)
+    assert torch.equal(chk, p_chk)
+
+
+def test_stream_probe_leaves_its_accumulator_zero(cuda):
+    """P14 keeps one accumulator a device across calls: each call, graph
+    replays included, reads it from zero and leaves it zero."""
+    bias, qp = dma.make_plane(2048, 3072, cuda, seed=5)
+    p_out, _ = dma.stream_call_plain(bias, qp, 1024, 8)
+    outs = [dma.stream_call(bias, qp, 1024, 8)[0] for _ in range(3)]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        g_out, _ = dma.stream_call(bias, qp, 1024, 8)
+    for _ in range(3):
+        g.replay()
+        outs.append(g_out.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, p_out) for o in outs)
+    assert not dma._ACC[qp.device].any()
+
+
+def test_probe_shapes_run_on_the_card(cuda):
+    """Each probe's per-shape routine, untimed, at one small shape."""
+    rows = int4.run_shape("1024->512", 1024, 512, cuda, timed=False)
+    assert [r["max_err_vs_b9"] for r in rows] == [0.0] * 6
+    best = dma.run_shape("2048->2048", 2048, 2048, cuda, timed=False)
+    assert best["checksums_equal_all_tiles"] and best["max_rel_err_all_tiles"] == 0.0

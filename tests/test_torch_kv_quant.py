@@ -80,10 +80,10 @@ def test_int8_config_and_cache_layout():
     cfg = config_from_header(h, cache_dtype="int8")
     assert cfg.kv_quantized and cfg.kv_dtype == torch.int8
     assert not config_from_header(h).kv_quantized
-    c = init_kv_cache(cfg, batch=3)
+    c = init_kv_cache(cfg, batch=3, device="cpu")
     assert c.k.dtype == torch.int8 and c.k.shape == (2, 3, 64, 2, 16)
     assert c.k_scale.dtype == torch.float32 and c.k_scale.shape == (2, 3, 64, 2)
-    assert init_kv_cache(config_from_header(h), batch=1).k_scale is None
+    assert init_kv_cache(config_from_header(h), batch=1, device="cpu").k_scale is None
     with pytest.raises(ValueError):
         config_from_header(h, cache_dtype="int4")
 
@@ -95,7 +95,7 @@ def test_pool_bytes_match_jax(cache_dtype):
     jcfg = j_config(h, cache_dtype=cache_dtype)
     for n_pages, ps in ((1, 16), (37, 32)):
         assert ppaged.page_pool_bytes(cfg, n_pages, ps) == jpaged.page_pool_bytes(jcfg, n_pages, ps)
-    pool = ppaged.init_kv_pool(cfg, 5, 16)
+    pool = ppaged.init_kv_pool(cfg, 5, 16, device="cpu")
     # five allocatable pages and the sink
     assert pool.k.shape == (3, 6, 16, 2, 32)
     stored = sum(t.numel() * t.element_size() for t in pool.tensors())

@@ -152,7 +152,7 @@ def test_copy_page_matches_jax(cache_dtype):
     jcfg, cfg = j_config(h, cache_dtype=cache_dtype), config_from_header(h, cache_dtype=cache_dtype)
     rng = np.random.default_rng(5)
     n_pages, ps = 6, 16
-    pool = ppaged.init_kv_pool(cfg, n_pages, ps)
+    pool = ppaged.init_kv_pool(cfg, n_pages, ps, device="cpu")
     for t in pool.tensors():
         t.copy_(torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32) * 50))
     arrays = {k: getattr(pool, k) for k in ("k", "v", "k_scale", "v_scale")
@@ -376,8 +376,8 @@ def test_forward_drops_parked_and_unmapped_writes():
                    "w2": w(L, dim, 128), "norm0": np.ones((L, dim), np.float32),
                    "norm1": np.ones((L, dim), np.float32)},
     })
-    rope = build_rope_tables(h)
-    pool = ppaged.init_kv_pool(cfg, 8, 16)
+    rope = build_rope_tables(h, device="cpu")
+    pool = ppaged.init_kv_pool(cfg, 8, 16, device="cpu")
     for t in pool.tensors():
         t.copy_(torch.full(t.shape, 3, dtype=t.dtype))
     table = torch.tensor([[0, 1, 2, 3], [4, -1, -1, -1]], dtype=torch.int32)
