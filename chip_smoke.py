@@ -20,6 +20,13 @@ caught):
      the probes' entry points (probes/int4.py and probes/dma.py main) with
      their launch counters set to 0 just before and read just after: cold
      (operands out of L2) and hot times, the streaming ceiling per shape;
+  3c. the decode-attention floor probes and K1's body: P11 (pure read), P12
+     (grouped decode attention, hd 64 and 128, g 4 and 8), P8 (K3 on a
+     head-major cache) and P7 (K1's GEMV body at every tile, and K1's Q80
+     prologue alone) against their plain versions at the probe shapes, P7
+     at K1's tile bit for bit equal to K1; then the probes' entry points
+     (probes/attention.py and probes/int4_prod.py main), counted as the
+     path "decode floor probes";
   4. small-input references: a tiny Llama and a tiny Qwen3-MoE through the
      engine on the card and on the CPU (plain versions), logits and greedy
      tokens compared; a tiny Llama's paged int8 BatchSession at batch 4,
@@ -723,6 +730,154 @@ def probe_rows(torch, rates, rate_key, errs, counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the decode-attention floor probes and K1's body alone
+# ---------------------------------------------------------------------------
+
+FLOOR_SOURCES = {
+    "pure_read": ("distributed_llama_tpu_torch/csrc/attention_probe.cu",
+                  "scripts/probe_att_floor.py:68"),
+    "decode_attention": ("distributed_llama_tpu_torch/csrc/attention_probe.cu",
+                         "scripts/probe_grouped_decode_att.py:73"),
+    "flash_headmajor": ("distributed_llama_tpu_torch/csrc/flash_attention.cu",
+                        "scripts/probe_flash_headmajor.py:26"),
+    "fs_call_tiles": ("distributed_llama_tpu_torch/csrc/q40_gemv.cu",
+                      "scripts/probe_int4_prod.py:49"),
+    "q80_prologue": ("distributed_llama_tpu_torch/csrc/q40_gemv.cu",
+                     "distributed_llama_tpu/ops/pallas_q40.py:506"),
+}
+FLOOR_PATH = "decode floor probes"
+ATT_REL_TOL = 2.0 ** -6  # P12 and P8 against their plain versions, of the output's largest value
+
+
+def floor_checks(torch):
+    """P11, P12 and P8 at the attention probe's shapes (b 1, h 32, kv 8, hd
+    64, S 1024 / 2048 / 32768, pos = S - 10), P12 also at hd 128 and g 8
+    and with col0 > 0; P7 at every tile of every int4_prod shape, at 1 and
+    8 rows, its K1 tile bit-equal to K1, and the prologue equal to its
+    plain version. Returns {row name: (max abs err, max rel err,
+    tolerance)}."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.probes import attention, int4_prod
+
+    errs = {}
+
+    def keep(name, e):
+        old = errs.get(name, (0.0, 0.0, 0.0))
+        errs[name] = tuple(max(a, b) for a, b in zip(old, e))
+
+    for S in attention.SEQS:
+        q, k, v = attention.make_operands(1, 32, 8, 64, S, "cuda", seed=S)
+        got, want = attention.pure_read(k, v), attention.pure_read_plain(k, v)
+        # f32 sums of 8 * S bf16 values in another order: 1e-6 of the
+        # column's sum of magnitudes
+        mag = (k.float().abs().sum(dim=(1, 2)) + v.float().abs().sum(dim=(1, 2))).max().item()
+        keep("pure_read", compare(torch, f"pure_read S {S}", [(got, want)], abs_tol=1e-6 * mag))
+        pos = S - 10
+        q4 = q.reshape(1, 1, 32, 64)
+        # p rounds to bf16 against each tile's (split's, block's) running
+        # max and the output to bf16: a few bf16 ulps of the output's
+        # largest value, which shrinks as 1/sqrt(S), so held relative to it
+        keep("flash_headmajor", compare(torch, f"flash_headmajor S {S}", [
+            (attention.flash_headmajor(q4, k, v, pos), attention.flash_headmajor_plain(q4, k, v, pos))
+        ], rel_tol=ATT_REL_TOL))
+        keep("decode_attention", compare(torch, f"decode_attention S {S}", [
+            (attention.decode_attention(q, k, v, pos), attention.decode_attention_plain(q, k, v, pos))
+        ], rel_tol=ATT_REL_TOL))
+        del q, k, v
+    # hd 64 and 128, g 4 and 8 (Qwen3-30B-A3B's attention is h 32, kv 4, hd 128)
+    for h, kv, hd, S, pos, col0 in ((32, 4, 64, 2048, 2038, 0), (32, 8, 128, 2048, 1500, 0),
+                                    (32, 4, 128, 4096, 4095, 0), (32, 4, 128, 2048, 2500, 1024)):
+        q, k, v = attention.make_operands(1, h, kv, hd, S, "cuda", seed=hd + kv)
+        keep("decode_attention", compare(torch, f"decode_attention h {h} kv {kv} hd {hd}", [
+            (attention.decode_attention(q, k, v, pos, col0),
+             attention.decode_attention_plain(q, k, v, pos, col0))
+        ], rel_tol=ATT_REL_TOL))
+    for label, in_f, out_f in int4_prod.SHAPES:
+        for rows in (1, 8):
+            x, qp, d = int4_prod.make_operands(in_f, out_f, "cuda", seed=rows, rows=rows)
+            x8, xs, bs = int4_prod.q80_prologue(x)
+            for got, want in zip((x8, xs, bs), int4_prod.q80_prologue_plain(x)):
+                assert torch.equal(got, want), f"q80_prologue {label} rows {rows}: differs"
+            keep("q80_prologue", (0.0, 0.0, 0.0))
+            k1 = cuda_q40.q40_gemv_q80(x, qp, d)
+            want = int4_prod.fs_call_tiles_plain(x8, xs, bs, qp, d, *cuda_q40.K1_TILE)
+            for cols, ksplit in cuda_q40.GEMV_TILES:
+                got = int4_prod.fs_call_tiles(x8, xs, bs, qp, d, cols, ksplit)
+                # exact integer partials, f32 block sums in the tile's order
+                keep("fs_call_tiles", compare(torch, f"fs_call_tiles {label} {cols}x{ksplit}",
+                                              [(got, want)], rel_tol=1e-5))
+                if (cols, ksplit) == cuda_q40.K1_TILE:
+                    diff = (got - k1).abs().max().item()
+                    assert torch.equal(got, k1), f"fs_call_tiles {label}: K1's tile differs from K1 by {diff}"
+            del x, qp, d, x8, xs, bs, k1, want
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "floor_checks", "errs": errs}))
+    return errs
+
+
+def floor_rows(torch, rates, errs, counters):
+    """The floor probes' entry points, as a user runs them, with every
+    launch counter in `counters` set to 0 just before and read just after;
+    P11, P12, P7 (body and prologue), K3 (P8) and K1 must have launched.
+    Returns (launches, one kernels-line row a probe: P11 at S 1024, P12 and
+    P8 at S 32768, P7 and the prologue at the wcls 2048 -> 32768)."""
+    from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
+    from distributed_llama_tpu_torch.probes import attention, int4_prod
+
+    bw, bf16_peak, int8_peak = rates
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    a_rows = attention.main(["--device", "cuda"])
+    p_rows = int4_prod.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    log(json.dumps({"phase": "floor_probes", "launches": launches}))
+    for r in a_rows + p_rows:
+        log("floor_row " + json.dumps(r))
+    check_launched(launches, (*attention.KERNELS, *int4_prod.KERNELS,
+                              cuda_attention.flash_attention, cuda_q40.q40_gemv_q80), FLOOR_PATH)
+
+    def row(name, r, nops, peak, work, **extra):
+        times = {"ms": r["cold_ms"], "hot_ms": r["hot_ms"], "plain_ms": r["plain_ms"],
+                 "library_ms": r["library_cold_ms"]}
+        return {**_row(name, *FLOOR_SOURCES[name], errs[name], times, r["bytes"], nops, bw,
+                       peak, work), **extra}
+
+    def att(name, S):
+        return next(r for r in a_rows if r["probe"] == name and r["S"] == S)
+
+    def flops(r):  # QK^T and PV over the visible rows
+        return 4 * r["b"] * r["h"] * r["hd"] * min(r["S"], r["pos"] + 1)
+
+    out = {}
+    r = att("pure_read", 1024)
+    out["pure_read"] = row("pure_read", r, 0, bf16_peak,
+                           f"sum K + V, b 1, kv 8, S 1024, hd 64, cold; {r['ctas']} CTAs; "
+                           f"library: torch.sum of K and of V, the nearest call, not the same "
+                           f"function")
+    for name in ("decode_attention", "flash_headmajor"):
+        r = att(name, 32768)
+        out[name] = row(name, r, flops(r), bf16_peak,
+                        f"one layer's decode attention, b 1, h 32, kv 8, hd 64, S 32768 at pos "
+                        f"{r['pos']}, cold; {r['ctas']} CTAs; library: SDPA with enable_gqa on the "
+                        f"cache cut to pos + 1", **({"counter": "flash_attention", "path": FLOOR_PATH}
+                                                    if name == "flash_headmajor" else {}))
+    p = next(r for r in p_rows if r["out"] == 32768)
+    body = {"cold_ms": p["a_cold_ms"], "hot_ms": p["a_hot_ms"], "plain_ms": p["plain_ms"],
+            "library_cold_ms": p["library_cold_ms"], "bytes": p["body"]}
+    out["fs_call_tiles"] = row("fs_call_tiles", body, p["ops"], int8_peak,
+                               "K1's GEMV alone at its tile (32, 8): wcls 2048 -> 32768 at 1 "
+                               "row, cold; library: torch.matmul on the bf16-dequantized plane")
+    pro = {"cold_ms": p["c_cold_ms"], "hot_ms": p["c_hot_ms"], "plain_ms": p["prologue_plain_ms"],
+           "library_cold_ms": None, "bytes": p["prologue"]}
+    out["q80_prologue"] = row("q80_prologue", pro, 0, bf16_peak,
+                              "K1's Q80 prologue alone on one bf16 row of 2048, cold; no library "
+                              "call computes it")
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: small inputs on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -1139,7 +1294,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40, kernels
-    from distributed_llama_tpu_torch.probes import dma, int4, timing
+    from distributed_llama_tpu_torch.probes import attention, dma, int4, int4_prod, timing
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1172,7 +1327,8 @@ def main() -> int:
 
     # every launch counter: each counted run (the probes', then each main
     # path) sets all of them to 0 just before it and reads all just after
-    counters = (*cuda_q40.KERNELS, *cuda_attention.KERNELS, *int4.KERNELS, *dma.KERNELS)
+    counters = (*cuda_q40.KERNELS, *cuda_attention.KERNELS, *int4.KERNELS, *dma.KERNELS,
+                *attention.KERNELS, *int4_prod.KERNELS)
 
     # 3b. the kernel probes: checks, then the probes' own run, counted
     errs = probe_checks(torch)
@@ -1182,6 +1338,15 @@ def main() -> int:
     rows.update(probe_kernels)
     release(torch)
     done("phase 3b")
+
+    # 3c. the decode-attention floor probes and K1's body: checks, then the
+    # probes' own run, counted
+    errs = floor_checks(torch)
+    release(torch)
+    paths[FLOOR_PATH], floor_kernels = floor_rows(torch, rates, errs, counters)
+    rows.update(floor_kernels)
+    release(torch)
+    done("phase 3c")
 
     # 4. small inputs against the CPU
     tmp = BUILD / "smoke"
@@ -1253,9 +1418,14 @@ def main() -> int:
     # counts (each path counted on its own), `launches_by_path` holds them
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    # a row without a counter of its own (P8 runs K3) reads its kernel's
+    # counter on its own path only
+    def by_path(name, r):
+        count = r.get("counter", name)
+        return {path: p[count] for path, p in paths.items() if r.get("path", path) == path}
+
     kern = [{**{k: r[k] for k in keys}, **({"hot_ms": r["hot_ms"]} if "hot_ms" in r else {}),
-             "launches": sum(p[name] for p in paths.values()),
-             "launches_by_path": {path: p[name] for path, p in paths.items()}}
+             "launches": sum(by_path(name, r).values()), "launches_by_path": by_path(name, r)}
             for name, r in rows.items()]
     print(json.dumps({"kernels": kern}))
     print(smi)

@@ -68,8 +68,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--host-decode", action="store_true",
         help="per-token host decode loop (bit-parity RNG with the reference)",
     )
+    # the JAX CLI's compat knobs from the reference CLI: parsed, ignored
+    p.add_argument("--nthreads", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--buffer-float-type", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--net-turbo", default=None, help=argparse.SUPPRESS)
     p.add_argument("--max-batch-size", "--nbatches", dest="max_chunk", type=int, default=32)
     p.add_argument("--prefill-chunk-size", type=int, default=0)
+    p.add_argument("--prefill-chunk-threshold", type=int, default=128, help=argparse.SUPPRESS)
     p.add_argument(
         "--kv-layout", choices=["contiguous", "paged"], default=None,
         help="KV cache layout: paged (fixed-size pages and per-row page "

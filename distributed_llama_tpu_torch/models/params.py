@@ -256,8 +256,9 @@ def _weight_from_numpy(w, device) -> Weight:
     return _from_numpy(w, device)
 
 
-def params_from_jax(tree: dict, device="cpu") -> ModelParams:
-    """The JAX package's `ModelParams` -> the port's, without importing JAX.
+def params_from_jax(tree: dict, device=None) -> ModelParams:
+    """The JAX package's `ModelParams` -> the port's, without importing JAX,
+    on `device` (None: the card; see `device.resolve_device`).
 
     `tree` holds numpy arrays keyed by the JAX field names:
     ``{"embedding", "final_norm", "wcls", "layers": {field: ...}}``, where a
@@ -272,6 +273,7 @@ def params_from_jax(tree: dict, device="cpu") -> ModelParams:
         if lt.get(name) is not None:
             kind = "MoE" if moe else "dense"
             raise ValueError(f"params_from_jax: field {name!r} is set ({kind} params keep it None)")
+    device = resolve_device(device)
     kw = {f.name: _weight_from_numpy(lt.get(f.name), device) for f in fields(LayerParams)}
     return ModelParams(
         embedding=_from_numpy(tree["embedding"], device),

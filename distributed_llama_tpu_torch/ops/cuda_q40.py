@@ -14,7 +14,10 @@ K1 `q40_gemv_q80` (csrc/q40_gemv.cu) replaces the JAX package's
   3. out = sum over blocks of (partial - 8 * bsum) * (xs * d), in f32.
 
 The integer partials are bit-exact against the Pallas kernel; only the
-order of the f32 block sums differs.
+order of the f32 block sums differs. `launch_q80_prologue` and
+`launch_gemv_body` launch step 1 alone and step 2 alone (the latter at any
+CTA tile of GEMV_TILES; K1 is the tile K1_TILE), for the kernel probe P7
+(probes/int4_prod.py).
 
 K2 `q40_gemm_bf16_stacked` (csrc/q40_gemm.cu) replaces
 `ops/pallas_q40.py:q40_matmul_pallas_stacked` (:253), body
@@ -76,7 +79,22 @@ _GEMV_SIG = {
         kernels.I, kernels.LL, kernels.P, kernels.I, kernels.I,
         kernels.P, kernels.P, kernels.P, kernels.P,
     ),
+    # x, x_is_bf16, rows, in, x8, xs, bs, stream
+    "q40_quantize_q80": (
+        kernels.P, kernels.I, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P,
+    ),
+    # x8, xs, bs, q, d, out, rows, in, out, cols, ksplit, stream
+    "q40_gemv_body": (
+        kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
+        kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
+    ),
 }
+# K1's CTA tile (output columns, warps that split the contraction), the
+# tiles its body is built at (csrc/q40_gemv.cu q40_gemv_body) and the row
+# counts the tiles other than K1's are built at (K1's takes 1..8)
+K1_TILE = (32, 8)
+GEMV_TILES = tuple((c, k) for c in (32, 64, 128) for k in (4, 8, 16))
+BODY_ROWS = (1, 8)
 _GROUPED_SIG = {
     # x (bf16), q, d, block_group, n_blocks, n_groups, out, block_r, in,
     # out, stream
@@ -117,12 +135,29 @@ def quantize_rows_q80(x2: torch.Tensor, nb: int):
     R = x2.shape[0]
     xb = x2.reshape(R, nb, Q_BLOCK).to(torch.float32)
     amax = xb.abs().amax(dim=-1, keepdim=True)
-    scale = amax / 127.0
+    # a tensor divisor: torch on CUDA turns division by a host scalar into a
+    # product with its reciprocal, which can round the scale another way
+    scale = amax / torch.full_like(amax, 127.0)
     inv = torch.where(scale > 0, 1.0 / scale, torch.zeros_like(scale))
     x8 = torch.clamp(torch.round(xb * inv), -127, 127)
     xs = scale.to(torch.float16).to(torch.float32).squeeze(-1)
     bs = x8.sum(dim=-1)  # small integers: exact in f32
     return x8, xs, bs
+
+
+def q80_gemv_plain(x8: torch.Tensor, xs: torch.Tensor, bs: torch.Tensor, q: torch.Tensor,
+                   d: torch.Tensor) -> torch.Tensor:
+    """K1's GEMV on rows already quantized: x8 [R, nb*32] (or [R, nb, 32])
+    int8 values in any dtype, xs [R, nb] f32, bs [R, nb] block sums (int32
+    or f32), q [nb*4, out] int32, d [nb, out] f16 -> [R, out] f32."""
+    nb = q.shape[-2] // 4
+    x8 = x8.reshape(-1, nb, Q_BLOCK).to(torch.float32)
+    u = (unpack_q(q) + 8).to(torch.float32)  # [nb, 32, out] unsigned nibbles
+    # integer-valued f32 products and sums below 2^24: exact
+    partial = torch.einsum("rbf,bfo->rbo", x8, u)
+    pr = partial - 8.0 * bs.to(torch.float32).unsqueeze(-1)
+    scale = xs.unsqueeze(-1) * d.to(torch.float32).unsqueeze(0)  # [R, nb, out]
+    return (pr * scale).sum(dim=1)
 
 
 def q40_gemv_q80_plain(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -131,13 +166,7 @@ def q40_gemv_q80_plain(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor) -> tor
     nb = q.shape[-2] // 4
     lead = x.shape[:-1]
     x8, xs, bs = quantize_rows_q80(x.reshape(-1, nb * Q_BLOCK), nb)
-    u = (unpack_q(q) + 8).to(torch.float32)  # [nb, 32, out] unsigned nibbles
-    # integer-valued f32 products and sums below 2^24: exact
-    partial = torch.einsum("rbf,bfo->rbo", x8, u)
-    pr = partial - 8.0 * bs.unsqueeze(-1)
-    scale = xs.unsqueeze(-1) * d.to(torch.float32).unsqueeze(0)  # [R, nb, out]
-    out = (pr * scale).sum(dim=1)
-    return out.reshape(*lead, q.shape[-1])
+    return q80_gemv_plain(x8, xs, bs, q, d).reshape(*lead, q.shape[-1])
 
 
 def q40_gemm_bf16_plain(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -281,6 +310,39 @@ def _launch_gemv(x, q, d, layer: int) -> torch.Tensor:
     )
     kernels.check(lib, rc, "q40_gemv_q80")
     return out.reshape(*x.shape[:-1], out_f)
+
+
+def launch_q80_prologue(x: torch.Tensor):
+    """K1's prologue kernel alone on x [R, in] f32 or bf16 (contiguous, on
+    the card) -> (x8 [R, in] int8, xs [R, nb] f32, bs [R, nb] int32)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    rows, in_f = x.shape
+    lib = kernels.load("q40_gemv", _GEMV_SIG)
+    x8, xs, bs = _q80_scratch(rows, in_f // Q_BLOCK, x.device)
+    rc = lib.q40_quantize_q80(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), rows, in_f,
+        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(), kernels.stream_of(x),
+    )
+    kernels.check(lib, rc, "q40_quantize_q80")
+    return x8, xs, bs
+
+
+def launch_gemv_body(x8, xs, bs, q, d, cols: int, ksplit: int) -> torch.Tensor:
+    """K1's GEMV kernel alone at CTA tile (cols, ksplit), one of
+    GEMV_TILES, on checked operands on the card -> [R, out] f32."""
+    if (cols, ksplit) not in GEMV_TILES:
+        raise ValueError(f"tile ({cols}, {ksplit}) is not one of {GEMV_TILES}")
+    rows, in_f = x8.shape
+    out_f = q.shape[-1]
+    lib = kernels.load("q40_gemv", _GEMV_SIG)
+    out = torch.empty((rows, out_f), dtype=torch.float32, device=x8.device)
+    rc = lib.q40_gemv_body(
+        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(), q.data_ptr(), d.data_ptr(), out.data_ptr(),
+        rows, in_f, out_f, cols, ksplit, kernels.stream_of(x8),
+    )
+    kernels.check(lib, rc, "q40_gemv_body")
+    return out
 
 
 def _launch_gemm(x, q, d, layer: int) -> torch.Tensor:

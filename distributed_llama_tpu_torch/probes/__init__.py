@@ -3,12 +3,18 @@
 `int4` (scripts/probe_int4.py) A/Bs the int8 decode matmul over unpacked
 weights (B9, ops/cuda_q40.py) against the same kernel fed from 4-bit storage
 (P3) and from int32 nibble words (P4); `dma` (scripts/probe_dma.py, P14)
-measures how fast the card streams a packed weight plane. `timing` times a
-kernel cold (operands out of L2) and hot; `operands` carries the JAX probes'
-operands across, for the tests. Run a probe with
+measures how fast the card streams a packed weight plane; `attention`
+(scripts/probe_att_floor.py, probe_grouped_decode_att.py and
+probe_flash_headmajor.py: P11, P12, P8) measures the decode-attention floor
+on a head-major cache; `int4_prod` (scripts/probe_int4_prod.py, P7) splits
+K1's call into its prologue and its body. `timing` times a kernel cold
+(operands out of L2) and hot; `operands` carries the JAX probes' operands
+across, for the tests. Run a probe with
 
     python -m distributed_llama_tpu_torch.probes.int4 [--device cpu] [--shape IN,OUT]
     python -m distributed_llama_tpu_torch.probes.dma [--device cpu] [--shape IN,OUT]
+    python -m distributed_llama_tpu_torch.probes.attention [--device cpu] [--seq S ...]
+    python -m distributed_llama_tpu_torch.probes.int4_prod [--device cpu] [--shape IN,OUT]
 
 Without `--device cpu` a probe needs a CUDA device and raises otherwise.
 """

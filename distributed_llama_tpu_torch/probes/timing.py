@@ -32,24 +32,29 @@ def ring_size(nbytes: int) -> int:
     return max(1, -(-RING_BYTES // max(int(nbytes), 1)))
 
 
-def graph_ms(calls, replays: int = 20, budget_ms: float = 500.0) -> float:
+def graph_ms(calls, replays: int = 20, budget_ms: float = 500.0, warm: bool = True) -> float:
     """Median device time of one replay of a CUDA graph that holds `calls`
     (zero-argument callables) in order, divided by their number: `replays`
-    replays, or as many as fit `budget_ms` once three are done."""
+    replays, or as many as fit `budget_ms` once three are done. `warm=False`
+    skips the eager pass that builds, loads and allocates, for calls that
+    have run before; a single replay also skips the untimed first one (for
+    a graph long enough that uploading it is lost in its run)."""
     if not torch.cuda.is_available():
         raise RuntimeError("timing needs a CUDA device")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm: builds, loads and allocates
-        for c in calls:
-            c()
-    torch.cuda.current_stream().wait_stream(side)
+    if warm:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for c in calls:
+                c()
+        torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         for c in calls:
             c()
-    g.replay()
+    if replays > 1:
+        g.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(replays):

@@ -161,3 +161,32 @@ def test_inference_paged_int8_batch_prints_row_zero(files, capsys):
     assert pcli.main(args + ["--batch", "2"]) == 0
     two = [l for l in capsys.readouterr().out.splitlines() if l.startswith("🔶 Pred")]
     assert [l.split("|", 1)[1] for l in one] == [l.split("|", 1)[1] for l in two]
+
+
+_COMPAT = ["--nthreads", "4", "--buffer-float-type", "q80", "--net-turbo", "1",
+           "--prefill-chunk-threshold", "64"]
+
+
+def test_compat_flags_parse_as_in_the_jax_cli():
+    """The reference CLI's knobs that the JAX CLI parses and ignores: the
+    port parses them to the same values and defaults."""
+    for argv in (["inference"], ["inference"] + _COMPAT):
+        j = jcli.build_arg_parser().parse_args(argv)
+        p = pcli.build_arg_parser().parse_args(argv)
+        for name in ("nthreads", "buffer_float_type", "net_turbo", "prefill_chunk_threshold"):
+            assert getattr(p, name) == getattr(j, name), name
+
+
+def test_inference_with_compat_flags_prints_the_jax_cli_tokens(files, monkeypatch, capsys):
+    mp, tp = files
+    args = ["inference", "--model", mp, "--tokenizer", tp, "--prompt", TEXT, "--steps", "96",
+            "--temperature", "0", "--compute-dtype", "float32", "--kv-layout", "contiguous",
+            *_COMPAT]
+    monkeypatch.setenv("DLT_GRAMMAR", "0")
+    assert jcli.main(args + _JAX_OFF) == 0
+    want = [l.split("|", 1)[1] for l in capsys.readouterr().out.splitlines()
+            if l.startswith("🔶 Pred")]
+    assert pcli.main(args + ["--device", "cpu"]) == 0
+    got = [l.split("|", 1)[1] for l in capsys.readouterr().out.splitlines()
+           if l.startswith("🔶 Pred")]
+    assert want and got == want

@@ -2,12 +2,18 @@
 caller asks for the CPU, as the JAX package's land on the default device:
 with no device given and no GPU present they raise instead of falling back."""
 
+import numpy as np
 import pytest
 import torch
 
 from distributed_llama_tpu_torch.device import resolve_device
 from distributed_llama_tpu_torch.formats.mfile import MFileReader
-from distributed_llama_tpu_torch.models import config_from_header, init_kv_cache, load_params
+from distributed_llama_tpu_torch.models import (
+    config_from_header,
+    init_kv_cache,
+    load_params,
+    params_from_jax,
+)
 from distributed_llama_tpu_torch.models.params import kv_cache_of_shape
 from distributed_llama_tpu_torch.ops.rope import build_rope_tables
 from distributed_llama_tpu_torch.runtime.paged_kv import init_kv_pool
@@ -67,3 +73,18 @@ def test_build_rope_tables_needs_a_gpu_by_default(no_gpu, header):
     with pytest.raises(RuntimeError):
         build_rope_tables(header)
     assert build_rope_tables(header, device="cpu").cos.device.type == "cpu"
+
+
+def test_params_from_jax_needs_a_gpu_by_default(no_gpu):
+    """The weights carried across from the JAX package land on the card,
+    as the loader's do."""
+    L, dim = 2, 64
+    w = np.ones((L, dim, dim), np.float32)
+    tree = {"embedding": np.ones((32, dim), np.float32), "final_norm": np.ones(dim, np.float32),
+            "wcls": np.ones((32, dim), np.float32),
+            "layers": {"wqkv": w, "wo": w, "w13": w, "w2": w,
+                       "norm0": np.ones((L, dim), np.float32), "norm1": np.ones((L, dim), np.float32)}}
+    with pytest.raises(RuntimeError):
+        params_from_jax(tree)
+    p = params_from_jax(tree, device="cpu")
+    assert p.embedding.device.type == "cpu" and p.layers.wqkv.device.type == "cpu"

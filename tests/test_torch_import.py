@@ -24,6 +24,9 @@ import distributed_llama_tpu_torch.probes.int4
 import distributed_llama_tpu_torch.probes.dma
 import distributed_llama_tpu_torch.probes.timing
 import distributed_llama_tpu_torch.probes.operands
+import distributed_llama_tpu_torch.probes.attention
+import distributed_llama_tpu_torch.probes.int4_prod
+import distributed_llama_tpu_torch.probes.k1_step
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -61,4 +64,7 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     assert "distributed_llama_tpu_torch.ops.moe" in mods
     assert "distributed_llama_tpu_torch.runtime.batch_session" in mods
     assert "distributed_llama_tpu_torch.probes.operands" in mods
+    assert "distributed_llama_tpu_torch.probes.attention" in mods
+    assert "distributed_llama_tpu_torch.probes.k1_step" in mods
+    assert "distributed_llama_tpu_torch.probes.int4_prod" in mods
     assert [m for m in mods if _is_forbidden(m)] == []

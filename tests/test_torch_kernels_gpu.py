@@ -13,7 +13,10 @@ import torch
 
 from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
 from distributed_llama_tpu_torch.ops.quant import pack_q
-from distributed_llama_tpu_torch.probes import dma, int4
+from distributed_llama_tpu_torch.probes import attention, dma, int4, int4_prod
+
+# P12 and P8 against their plain versions, of the plain output's largest value
+ATT_REL_TOL = 2.0 ** -6
 
 pytestmark = pytest.mark.gpu
 
@@ -370,3 +373,136 @@ def test_probe_shapes_run_on_the_card(cuda):
     assert [r["max_err_vs_b9"] for r in rows] == [0.0] * 6
     best = dma.run_shape("2048->2048", 2048, 2048, cuda, timed=False)
     assert best["checksums_equal_all_tiles"] and best["max_rel_err_all_tiles"] == 0.0
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("b,n_kv,S", [(1, 8, 1024), (2, 4, 1000), (1, 2, 37)])
+def test_pure_read_matches_plain(cuda, hd, b, n_kv, S):
+    """P11: f32 sums of bf16 values in another order than torch's: within
+    1e-6 of the column's sum of magnitudes."""
+    _, k, v = attention.make_operands(b, n_kv, n_kv, hd, S, cuda, seed=S)
+    before = attention.pure_read.launches
+    got = attention.pure_read(k, v)
+    want = attention.pure_read_plain(k, v)
+    mag = (k.float().abs().sum(dim=(1, 2)) + v.float().abs().sum(dim=(1, 2))).unsqueeze(1)
+    torch.cuda.synchronize()
+    assert attention.pure_read.launches == before + 1
+    assert got.shape == (b, 1, hd) and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 1e-6 * mag).all())
+
+
+@pytest.mark.parametrize("hd,g,S,pos,col0", [
+    (64, 4, 1024, 1014, 0), (64, 8, 2048, 700, 0), (128, 4, 512, 300, 100),
+    (128, 8, 1024, 1023, 0), (64, 4, 256, 20, 0), (64, 4, 300, 200, 10), (128, 2, 4096, 4000, 0),
+])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_matches_plain(cuda, hd, g, S, pos, col0, q_dtype):
+    """P12: p rounds to bf16 against the running max of each 64-row tile
+    and each split, where the plain version walks 512-row blocks in order:
+    within 2^-6 of the plain output's largest value (a few bf16 ulps; the
+    output shrinks as 1/sqrt(S), so an absolute bound would hide a lost
+    split at long S)."""
+    n_kv = 2
+    q, k, v = attention.make_operands(1, n_kv * g, n_kv, hd, S, cuda, seed=hd + g + S)
+    q = q.to(q_dtype)
+    before = attention.decode_attention.launches
+    got = attention.decode_attention(q, k, v, pos, col0)
+    want = attention.decode_attention_plain(q, k, v, pos, col0)
+    torch.cuda.synchronize()
+    assert attention.decode_attention.launches == before + 1
+    assert got.dtype == q_dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= ATT_REL_TOL * want.float().abs().max().item()
+
+
+def test_decode_attention_with_nothing_visible_is_zero(cuda):
+    q, k, v = attention.make_operands(1, 8, 2, 64, 256, cuda)
+    got = attention.decode_attention(q, k, v, pos=5, col0=10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, attention.decode_attention_plain(q, k, v, 5, 10))
+    assert not got.any()
+
+
+@pytest.mark.parametrize("S,pos", [(1024, 1014), (2048, 100)])
+def test_flash_headmajor_runs_k3_on_the_view(cuda, S, pos):
+    """P8: K3 on the head-major cache's [b, S, kv, hd] view, no copy; the
+    same attention as P12; each within 2^-6 of the output's largest value,
+    P8 against P12 within twice that (two roundings apart)."""
+    q, k, v = attention.make_operands(1, 32, 8, 64, S, cuda, seed=S)
+    view = attention.headmajor_view(k)
+    assert view.data_ptr() == k.data_ptr() and view.stride() == (8 * S * 64, 64, S * 64, 1)
+    q4 = q.reshape(1, 1, 32, 64)
+    before = cuda_attention.flash_attention.launches
+    got = attention.flash_headmajor(q4, k, v, pos)
+    want = attention.flash_headmajor_plain(q4, k, v, pos)
+    p12 = attention.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert cuda_attention.flash_attention.launches == before + 1
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= ATT_REL_TOL * scale
+    assert (got.reshape(1, 32, 64).float() - p12.float()).abs().max().item() <= 2 * ATT_REL_TOL * scale
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2176, 200)])
+def test_fs_call_tiles_match_plain_and_k1(cuda, rows, in_f, out_f):
+    """P7: every tile within 1e-5 of the output scale of its plain version
+    (exact integer partials, f32 block sums in the tile's order); K1's tile
+    equal to K1's call bit for bit; the prologue alone equal to its plain
+    version (the same f32 operations, round half to even). The other
+    tiles are built at 1 and 8 rows only and refuse 3."""
+    x, q, d = int4_prod.make_operands(in_f, out_f, cuda, seed=rows, rows=rows)
+    x8, xs, bs = int4_prod.q80_prologue(x)
+    for got, want in zip((x8, xs, bs), int4_prod.q80_prologue_plain(x)):
+        assert torch.equal(got, want)
+    k1 = cuda_q40.q40_gemv_q80(x, q, d)
+    want = int4_prod.fs_call_tiles_plain(x8, xs, bs, q, d, *cuda_q40.K1_TILE)
+    scale = want.abs().max().item()
+    for cols, ksplit in cuda_q40.GEMV_TILES:
+        before = int4_prod.fs_call_tiles.launches
+        if (cols, ksplit) != cuda_q40.K1_TILE and rows not in cuda_q40.BODY_ROWS:
+            with pytest.raises(ValueError):
+                int4_prod.fs_call_tiles(x8, xs, bs, q, d, cols, ksplit)
+            assert int4_prod.fs_call_tiles.launches == before
+            continue
+        got = int4_prod.fs_call_tiles(x8, xs, bs, q, d, cols, ksplit)
+        torch.cuda.synchronize()
+        assert int4_prod.fs_call_tiles.launches == before + 1
+        assert (got - want).abs().max().item() <= 1e-5 * scale, (cols, ksplit)
+        if (cols, ksplit) == cuda_q40.K1_TILE:
+            assert torch.equal(got, k1)
+
+
+def test_floor_wrappers_raise_instead_of_falling_back(cuda):
+    q, k, v = attention.make_operands(1, 8, 2, 96, 128, cuda)
+    with pytest.raises(ValueError):  # head_dim 96
+        attention.pure_read(k, v)
+    with pytest.raises(ValueError):
+        attention.decode_attention(q, k, v, 100)
+    q, k, v = attention.make_operands(1, 8, 2, 64, 128, cuda)
+    with pytest.raises(ValueError):  # a cache that is not contiguous
+        attention.pure_read(k.transpose(2, 3).contiguous().transpose(2, 3), v)
+    with pytest.raises(ValueError):  # V on the CPU
+        attention.decode_attention(q, k, v.cpu(), 100)
+    with pytest.raises(TypeError):  # an f32 cache
+        attention.pure_read(k.float(), v.float())
+    x, qp, d = int4_prod.make_operands(256, 64, cuda)
+    x8, xs, bs = int4_prod.q80_prologue(x)
+    with pytest.raises(ValueError):  # a tile that is not built
+        int4_prod.fs_call_tiles(x8, xs, bs, qp, d, 256, 8)
+    with pytest.raises(ValueError):  # bs as f32
+        int4_prod.fs_call_tiles(x8, xs, bs.float(), qp, d, 32, 8)
+    with pytest.raises(ValueError):  # rows on the CPU
+        int4_prod.fs_call_tiles(x8.cpu(), xs.cpu(), bs.cpu(), qp, d, 32, 8)
+
+
+def test_floor_probes_run_on_the_card(cuda):
+    """Each probe's per-shape routine, untimed, at one small shape."""
+    rows = attention.run_seq(256, cuda, timed=False)
+    assert [r["probe"] for r in rows] == ["pure_read", "decode_attention", "flash_headmajor"]
+    # P11: 1e-6 of a column's sum of magnitudes (2 * 8 * 256 values, |x| < 4)
+    assert rows[0]["max_abs_err"] <= 1e-6 * 2 * 8 * 256 * 4
+    for row in rows[1:]:
+        assert row["max_abs_err"] <= ATT_REL_TOL * row["out_scale"]
+    assert rows[1]["p12_vs_p8"] <= 2 * ATT_REL_TOL * rows[1]["out_scale"]
+    row = int4_prod.run_shape("1024->512", 1024, 512, cuda, timed=False)
+    assert row["k1_tile_equals_k1"] and row["max_abs_err"] <= 1e-5 * row["out_scale"]

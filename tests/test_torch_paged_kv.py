@@ -375,7 +375,7 @@ def test_forward_drops_parked_and_unmapped_writes():
         "layers": {"wqkv": w(L, qkv, dim), "wo": w(L, dim, cfg.q_dim), "w13": w(L, 256, dim),
                    "w2": w(L, dim, 128), "norm0": np.ones((L, dim), np.float32),
                    "norm1": np.ones((L, dim), np.float32)},
-    })
+    }, device="cpu")
     rope = build_rope_tables(h, device="cpu")
     pool = ppaged.init_kv_pool(cfg, 8, 16, device="cpu")
     for t in pool.tensors():
