@@ -27,6 +27,15 @@ caught):
      at K1's tile bit for bit equal to K1; then the probes' entry points
      (probes/attention.py and probes/int4_prod.py main), counted as the
      path "decode floor probes";
+  3d. the scale-plane and tile sweeps and the f16-bits convert: P1 (raw
+     f16 bits -> f32) on the 1B wcls plane bit for bit, P13 at B9's tile
+     equal to B9 with each plane, P2's two planes equal to P13 and P6 at
+     P4's tile equal to P4; then the sweeps' entry points (probes/scales.py
+     and probes/i4_tiles.py main), counted as the path "scale and tile
+     sweeps", whose rows are held: P1 on every bit pattern bit for bit, P13
+     at every tile of the JAX sweep's eight 1B and 8B shapes with its f16,
+     f32 and i16 planes bit for bit equal, P2, and P6 at every tile of its
+     five shapes, each within its tolerance of the plain version;
   4. small-input references: a tiny Llama and a tiny Qwen3-MoE through the
      engine on the card and on the CPU (plain versions), logits and greedy
      tokens compared; a tiny Llama's paged int8 BatchSession at batch 4,
@@ -447,12 +456,27 @@ def flash_row(torch, gen, bw, bf16_peak, L, nh, nkv, hd):
     visible = sum(pos_start + i + 1 for i in range(t))  # keys each query needs
     att_bytes = L * (2 * t * nh * hd * 4 + 2 * (pos_start + t) * nkv * hd * 2)
     att_flops = L * 4 * nh * hd * visible
+    # cold: the L layers' q and 256-row K/V views as compact copies, timed
+    # over a >= 200 MB ring of them (the chunk's operands fit the L2)
+    from distributed_llama_tpu_torch.probes import timing
+
+    q_all = torch.stack(qs)
+    k_all, v_all = cache_k[:, :, :S].contiguous(), cache_v[:, :, :S].contiguous()
+
+    def k3_layers(q_all, k_all, v_all):
+        for li in range(L):
+            cuda_attention.flash_attention(q_all[li], k_all[li], v_all[li], pos_start)
+
+    cold = timing.cold_ms(k3_layers, (q_all, k_all, v_all),
+                          sum(a.numel() * a.element_size() for a in (q_all, k_all, v_all)))
+    del q_all, k_all, v_all
     return _entry(
         torch, "flash_attention", "distributed_llama_tpu_torch/csrc/flash_attention.cu",
         "distributed_llama_tpu/ops/pallas_attention.py:199", errs,
         k3_all, k3_plain, k3_lib, att_bytes, att_flops, bw, bf16_peak,
         f"one prefill chunk: {L} layers, head_dim {hd}, {nh // nkv} query heads per kv head, "
-        f"t=32 at pos 64 over a 256-row cache view",
+        f"t=32 at pos 64 over a 256-row cache view; ms L2-warm, cold_ms from a ring of "
+        f"compact copies", cold_ms=cold,
     )
 
 
@@ -599,13 +623,14 @@ def moe_kernel_checks(torch, rates):
 
 
 def _entry(torch, name, source, replaces, errs, fn, plain, lib, nbytes, nops,
-           bw, peak, work):
+           bw, peak, work, **more_times):
     """One kernels-line row, each of the three calls timed by
-    probes/timing.graph_ms (CUDA events over CUDA-graph replays)."""
+    probes/timing.graph_ms (CUDA events over CUDA-graph replays), with any
+    `more_times` measured by the caller."""
     from distributed_llama_tpu_torch.probes import timing
 
     times = {"ms": timing.graph_ms([fn]), "plain_ms": timing.graph_ms([plain]),
-             "library_ms": timing.graph_ms([lib])}
+             "library_ms": timing.graph_ms([lib]), **more_times}
     return _row(name, source, replaces, errs, times, nbytes, nops, bw, peak, work)
 
 
@@ -874,6 +899,155 @@ def floor_rows(torch, rates, errs, counters):
     out["q80_prologue"] = row("q80_prologue", pro, 0, bf16_peak,
                               "K1's Q80 prologue alone on one bf16 row of 2048, cold; no library "
                               "call computes it")
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the scale-plane and tile sweeps and the f16-bits convert
+# ---------------------------------------------------------------------------
+
+SWEEP_SOURCES = {
+    "f16bits_to_f32": ("distributed_llama_tpu_torch/csrc/i8_tile_probe.cu",
+                       "scripts/probe_f16_scales.py:48"),
+    "scale_plane_call": ("distributed_llama_tpu_torch/csrc/i8_tile_probe.cu",
+                         "scripts/probe_f16_scales.py:118"),
+    "i8_tile_call": ("distributed_llama_tpu_torch/csrc/i8_tile_probe.cu",
+                     "scripts/sweep_i8_tiles.py:69"),
+    "i4_sweep_call": ("distributed_llama_tpu_torch/csrc/i8_tile_probe.cu",
+                      "scripts/sweep_i4_tiles.py:123"),
+}
+SWEEP_PATH = "scale and tile sweeps"
+SWEEP_REL_TOL = 1e-5  # exact integer partials, f32 block sums in the tile's order
+
+
+def sweep_checks(torch):
+    """The identities that the sweeps' mains do not check: P1 bit for bit
+    on random bit patterns over the 1B wcls plane [64, 128256]; P13 at 64
+    columns and B9's split, each plane, bit for bit equal to B9 at every
+    sweep shape (1B and 8B); P2's two planes equal to P13 at its tile; P6
+    at 64 columns and P4's split bit for bit equal to P4's bf16 instance.
+    Every tile against the plain version, the three planes' bit identity at
+    every tile and P1 on every bit pattern are the mains' rows, held in
+    sweep_rows."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.probes import i4_tiles, int4, scales
+    from distributed_llama_tpu_torch.probes.operands import scale_planes
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    wcls = torch.randint(-32768, 32768, (64, 128256), dtype=torch.int32, device="cuda",
+                         generator=gen).to(torch.int16)
+    got, want = scales.f16bits_to_f32(wcls), scales.f16bits_to_f32_plain(wcls)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        "f16bits_to_f32 on the 1B wcls plane: differs from its plain version"
+    del wcls, got, want
+    for label, in_f, out_f in scales.SHAPES_1B + scales.SHAPES_8B:
+        nb = in_f // 32
+        x8, xs, qt, dt16, _ = scales.make_operands(in_f, out_f, "cuda", seed=13)
+        planes = scale_planes(dt16)
+        splits = cuda_q40.i8_mma_splits(nb, out_f)
+        assert nb % splits == 0, f"{label}: B9's {splits} splits do not divide nb {nb}"
+        ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt16)
+        for plane, d in planes.items():
+            got = scales.i8_tile_call(x8, xs, qt, d, 64, nb // splits)
+            assert torch.equal(got, ref), f"i8_tile_call {label} {plane} at B9's tile: differs from B9"
+        if (in_f, out_f) == scales.P2_SHAPE[1:]:
+            p13 = scales.i8_tile_call(x8, xs, qt, dt16, *scales.P2_TILE)
+            for plane in ("f32", "i16"):
+                got = scales.scale_plane_call(x8, xs, qt, planes[plane])
+                assert torch.equal(got, p13), f"scale_plane_call {plane}: differs from P13"
+        del x8, xs, qt, dt16, planes, ref, got
+        torch.cuda.empty_cache()
+    for label, in_f, out_f in i4_tiles.SHAPES:
+        nb = in_f // 32
+        x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, 1, "cuda", seed=6)
+        qw = int4.pack_i32_t(qt)
+        splits = cuda_q40.i8_mma_splits(nb, out_f)
+        assert nb % splits == 0, f"{label}: P4's {splits} splits do not divide nb {nb}"
+        got = i4_tiles.i4_sweep_call(x8, xs, qw, dt.view(torch.int16), 64, nb // splits)
+        assert torch.equal(got, int4.i32_call_bf16(x8, xs, qw, dt)), \
+            f"i4_sweep_call {label} at P4's tile: differs from P4's bf16 instance"
+        del x8, xs, qt, dt, qw, got
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "sweep_checks", "ok": True}))
+
+
+def sweep_rows(torch, rates, counters):
+    """The sweeps' entry points (probes/scales.py and probes/i4_tiles.py
+    main), as a user runs them, with every launch counter in `counters`
+    set to 0 just before and read just after; P1, P2, P13, P6 and B9 (P6's
+    baseline) must have launched, and every row of the mains must hold its
+    checks: P1 bit for bit equal to its plain version, every other row
+    within SWEEP_REL_TOL of the plain output's largest value and, at each
+    tile, the planes bit for bit equal. Returns (launches, one kernels-line row a probe: P1 on the 1B
+    wcls plane, P2's i16 plane, P13 at the 8B wcls 4096 -> 128256 (i16
+    plane, its best tile), P6 at the 1B wcls 2048 -> 32768 (its best tile))."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.probes import i4_tiles, scales
+
+    bw, bf16_peak, int8_peak = rates
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    # all eight shapes at every tile: phase 3d takes ~35 s, so the 8B
+    # shapes need no --quick
+    s_rows = scales.main(["--device", "cuda"])
+    t1 = time.perf_counter()
+    i_rows = i4_tiles.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    log(json.dumps({"phase": "sweeps", "launches": launches, "scales_s": t1 - t0,
+                    "i4_tiles_s": time.perf_counter() - t1}))
+    for r in s_rows + i_rows:
+        log("sweep_row " + json.dumps(r))
+    check_launched(launches, (*scales.KERNELS, *i4_tiles.KERNELS, cuda_q40.q40_i8_unpacked),
+                   SWEEP_PATH)
+    errs = {}  # kernel -> (max abs err, max rel err, loosest tolerance)
+    for r in s_rows + i_rows:
+        if r["probe"] == "P1":
+            assert r["bit_equal_plain"] and r["equal_f16_on_finite"], f"P1 {r['shape']}"
+            e = (0.0, 0.0, 0.0)
+        else:
+            tol = SWEEP_REL_TOL * r["out_scale"]
+            assert r["max_abs_err"] <= tol, f"{r['probe']} {r['shape']}: {r['max_abs_err']}"
+            assert r.get("planes_bit_equal", True), \
+                f"{r['probe']} {r['shape']} {r['cols']}x{r['blocks_per_cta']}: the planes differ"
+            e = (r["max_abs_err"], r["max_abs_err"] / r["out_scale"], tol)
+        old = errs.get(r["kernel"], (0.0, 0.0, 0.0))
+        errs[r["kernel"]] = tuple(max(a, b) for a, b in zip(old, e))
+
+    def row(name, r, peak, work):
+        times = {"ms": r["cold_ms"], "hot_ms": r["hot_ms"], "chain_ms": r["chain_ms"],
+                 "plain_ms": r["plain_ms"], "library_ms": r["library_cold_ms"]}
+        return _row(name, *SWEEP_SOURCES[name], errs[name], times, r["bytes"], r["ops"], bw,
+                    peak, work)
+
+    def best(rows):
+        return min(rows, key=lambda r: r["cold_ms"])
+
+    out = {}
+    r = next(r for r in s_rows if r["probe"] == "P1" and "128256" in r["shape"])
+    out["f16bits_to_f32"] = row("f16bits_to_f32", r, int8_peak,
+                                f"P1: {r['shape']} raw f16 bits -> f32, cold; library: "
+                                f".view(torch.float16).float(), the same function on finite "
+                                f"values only")
+    r = next(r for r in s_rows if r["probe"] == "P2" and r["plane"] == "i16")
+    out["scale_plane_call"] = row("scale_plane_call", r, int8_peak,
+                                  f"P2: {r['shape']} at 1 row, i16 plane, TN {r['cols']} x "
+                                  f"{r['blocks_per_cta']} blocks, cold; library: torch.matmul "
+                                  f"on the bf16-dequantized plane")
+    r = best([r for r in s_rows if r["probe"] == "P13" and r["out"] == 128256
+              and r["plane"] == "i16"])
+    out["i8_tile_call"] = row("i8_tile_call", r, int8_peak,
+                              f"P13: {r['shape']} at 1 row, i16 plane, best tile TN {r['cols']} "
+                              f"x {r['blocks_per_cta']} blocks, cold; library: torch.matmul on "
+                              f"the bf16-dequantized plane")
+    r = best([r for r in i_rows if r["probe"] == "P6" and r["out"] == 32768])
+    out["i4_sweep_call"] = row("i4_sweep_call", r, bf16_peak,
+                               f"P6: {r['shape'].strip()} at 1 row, best tile TN {r['cols']} x "
+                               f"{r['blocks_per_cta']} blocks, cold, one instance for the "
+                               f"variants {'/'.join(r['variants'])}; library: torch.matmul "
+                               f"on the bf16-dequantized plane")
     return launches, out
 
 
@@ -1294,7 +1468,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40, kernels
-    from distributed_llama_tpu_torch.probes import attention, dma, int4, int4_prod, timing
+    from distributed_llama_tpu_torch.probes import (
+        attention, dma, i4_tiles, int4, int4_prod, scales, timing)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1328,7 +1503,7 @@ def main() -> int:
     # every launch counter: each counted run (the probes', then each main
     # path) sets all of them to 0 just before it and reads all just after
     counters = (*cuda_q40.KERNELS, *cuda_attention.KERNELS, *int4.KERNELS, *dma.KERNELS,
-                *attention.KERNELS, *int4_prod.KERNELS)
+                *attention.KERNELS, *int4_prod.KERNELS, *scales.KERNELS, *i4_tiles.KERNELS)
 
     # 3b. the kernel probes: checks, then the probes' own run, counted
     errs = probe_checks(torch)
@@ -1347,6 +1522,15 @@ def main() -> int:
     rows.update(floor_kernels)
     release(torch)
     done("phase 3c")
+
+    # 3d. the scale-plane and tile sweeps and the f16-bits convert: checks,
+    # then the sweeps' own run, counted
+    sweep_checks(torch)
+    release(torch)
+    paths[SWEEP_PATH], sweep_kernels = sweep_rows(torch, rates, counters)
+    rows.update(sweep_kernels)
+    release(torch)
+    done("phase 3d")
 
     # 4. small inputs against the CPU
     tmp = BUILD / "smoke"
@@ -1424,7 +1608,7 @@ def main() -> int:
         count = r.get("counter", name)
         return {path: p[count] for path, p in paths.items() if r.get("path", path) == path}
 
-    kern = [{**{k: r[k] for k in keys}, **({"hot_ms": r["hot_ms"]} if "hot_ms" in r else {}),
+    kern = [{**{k: r[k] for k in keys}, **{k: r[k] for k in ("cold_ms", "hot_ms") if k in r},
              "launches": sum(by_path(name, r).values()), "launches_by_path": by_path(name, r)}
             for name, r in rows.items()]
     print(json.dumps({"kernels": kern}))

@@ -38,9 +38,11 @@ activations and an UNPACKED [nb, 32, out] int8 weight, one int8 tensor-core
 MMA (m16n8k32, k = one Q40 block) per block and 8 columns. out = sum over
 blocks of partial * (xs * dt) in f32, partial the exact integer dot. The
 same kernel template, with other weight loaders and dot types, runs the
-kernel probes P3 and P4 (probes/int4.py). Not ported: `_i8_tiles` (:439, a
-v5e tile table) and `_dt_operand`/`_scale_f32` (:112-143, a Mosaic
-workaround: Hopper loads f16 natively).
+kernel probes P3 and P4 (probes/int4.py), and the template's tile and
+scale-plane sweeps P13, P2 and P6 (probes/scales.py, probes/i4_tiles.py).
+Not ported to the serving path: `_i8_tiles` (:439, a v5e tile table) and
+`_dt_operand`/`_scale_f32` (:112-143, a Mosaic workaround: Hopper loads
+f16 natively); the raw-bits convert runs in the probes only.
 
 K4 `q40_grouped_gemm_bf16` (csrc/q40_grouped_gemm.cu) replaces
 `ops/pallas_q40.py:q40_matmul_pallas_grouped` (:779), body
@@ -392,10 +394,12 @@ def i8_mma_splits(nb: int, out_f: int) -> int:
     return max(1, min(1024 // col_tiles, nb // 8))
 
 
-def check_i8_operands(x8, xs, w, dt, rows_per_block: int, w_dtype) -> None:
+def check_i8_operands(x8, xs, w, dt, rows_per_block: int, w_dtype,
+                      dt_dtypes=(torch.float16,)) -> None:
     """The operands of B9/P3/P4: x8 [R, nb*32] int8 with 1 <= R <= 8, xs
     [R, nb] f32, w [nb, rows_per_block, out] of `w_dtype`, dt [nb, out]
-    f16, out % 8 == 0, all on one device and contiguous."""
+    f16 (or another of `dt_dtypes`), out % 8 == 0, all on one device and
+    contiguous."""
     if w.ndim != 3 or w.shape[1] != rows_per_block or w.dtype != w_dtype:
         raise ValueError(f"expected a [nb, {rows_per_block}, out] {w_dtype} weight, got "
                          f"{w.dtype} {tuple(w.shape)}")
@@ -407,8 +411,9 @@ def check_i8_operands(x8, xs, w, dt, rows_per_block: int, w_dtype) -> None:
         raise ValueError(f"the int8 matmul takes 1..{MAX_I8_ROWS} rows, got {R}")
     if xs.dtype != torch.float32 or tuple(xs.shape) != (R, nb):
         raise ValueError(f"xs must be [{R}, {nb}] float32, got {xs.dtype} {tuple(xs.shape)}")
-    if dt.dtype != torch.float16 or tuple(dt.shape) != (nb, out_f):
-        raise ValueError(f"dt must be [{nb}, {out_f}] float16, got {dt.dtype} {tuple(dt.shape)}")
+    if dt.dtype not in dt_dtypes or tuple(dt.shape) != (nb, out_f):
+        names = " or ".join(str(d).removeprefix("torch.") for d in dt_dtypes)
+        raise ValueError(f"dt must be [{nb}, {out_f}] {names}, got {dt.dtype} {tuple(dt.shape)}")
     if out_f % 8:
         raise ValueError(f"out_features must be a multiple of 8, got {out_f}")
     for name, t in (("xs", xs), ("w", w), ("dt", dt)):

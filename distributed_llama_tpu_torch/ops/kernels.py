@@ -7,8 +7,8 @@ Every kernel lives in one source under `csrc/`, with a plain C interface.
 
 one nvcc process per source, all started together, into `build/kernels/` at
 the root of the checkout (listed in `.gitignore`). A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is reused. `load` opens a library with ctypes on first use
+carries a hash of its source, the headers under `csrc/` and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused. `load` opens a library with ctypes on first use
 and declares its functions' argument types: every pointer and the stream as
 `c_void_p`, so that ctypes never cuts a 64-bit pointer to a C int.
 
@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "q40_gemv", "q40_gemm", "q40_grouped_gemm", "flash_attention", "paged_attention",
-    "q40_i8_mma", "stream_probe", "attention_probe",
+    "q40_i8_mma", "stream_probe", "attention_probe", "i8_tile_probe",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -61,6 +61,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

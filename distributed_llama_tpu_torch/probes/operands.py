@@ -5,8 +5,11 @@ The JAX probes (scripts/probe_int4.py, ops/pallas_q40.py:_i8_call) take
 x8 [R, in] int8, xs [nb, R*128] f32 (row r's block scales broadcast over
 lanes r*128..r*128+127), the weight as qt [nb, 32, out] int8, qt4
 [nb, 32, out] `jnp.int4` or qw [nb, 4, out] int32, and dt as
-`_dt_operand` gives it (the f16 plane bit-cast to int16). The port takes
-xs as [R, nb], dt as f16, and the 4-bit weight as `pack_s4`'s bytes.
+`_dt_operand` gives it (the f16 plane bit-cast to int16; the scale-plane
+sweep scripts/sweep_i8_tiles.py also an f32 plane). The port takes xs as
+[R, nb], dt as f16 (or f32 as it is), and the 4-bit weight as `pack_s4`'s
+bytes. `scale_planes` gives one f16 plane in the three storages of the
+sweep: f16, f32 and its raw bits as int16.
 
 P7 (scripts/probe_int4_prod.py) takes the split prologue's operands
 (ops/pallas_q40.py:_quantize_rows_q80_split): x8a/x8b [R, nb*16] int8, the
@@ -39,6 +42,20 @@ def _f16_plane(dt: np.ndarray) -> np.ndarray:
     return np.array(dt)
 
 
+def _scale_plane(dt: np.ndarray) -> np.ndarray:
+    """An f32 plane as it is; an f16 plane or its int16 bits as f16."""
+    return np.array(dt) if dt.dtype == np.float32 else _f16_plane(dt)
+
+
+def scale_planes(dt_f16: torch.Tensor) -> dict:
+    """One f16 scale plane in the three storages the scale-plane sweep
+    compares: {"f16": B9's own, "f32": the JAX sweep's `dt_f32` (exact),
+    "i16": the raw bits, `dt.view(torch.int16)`}, on dt's device."""
+    if dt_f16.dtype != torch.float16:
+        raise ValueError(f"expected an f16 plane, got {dt_f16.dtype}")
+    return {"f16": dt_f16, "f32": dt_f16.to(torch.float32), "i16": dt_f16.view(torch.int16)}
+
+
 def split_operands_from_jax(x8a, x8b, xs, bs, qp, dt, device=None):
     """P7's operands as numpy arrays from the JAX side -> K1's body's
     tensors (x8 [R, nb*32] int8, xs [R, nb] f32, bs [R, nb] int32, qp
@@ -63,7 +80,8 @@ def operands_from_jax(x8, xs, w, dt, device=None):
     """(x8, xs, w, dt) as numpy arrays from the JAX side -> the port's
     tensors on `device` (None: the card): x8 as it is; xs [nb, R*128] ->
     [R, nb], column r*128; w: an int4 plane -> `pack_s4`, int8 qt and int32
-    qw as they are; dt: an int16 bit plane -> f16 by a view, f16 as it is."""
+    qw as they are; dt: an int16 bit plane -> f16 by a view, f16 and f32 as
+    they are."""
     device = resolve_device(device)
     x8 = np.asarray(x8)
     xs = np.asarray(xs)
@@ -80,5 +98,5 @@ def operands_from_jax(x8, xs, w, dt, device=None):
         raise ValueError(f"unknown weight storage {w.dtype}")
     return tuple(t.to(device) for t in (
         torch.from_numpy(np.array(x8)), torch.from_numpy(xs_t), wt,
-        torch.from_numpy(_f16_plane(dt)),
+        torch.from_numpy(_scale_plane(dt)),
     ))

@@ -27,6 +27,8 @@ import distributed_llama_tpu_torch.probes.operands
 import distributed_llama_tpu_torch.probes.attention
 import distributed_llama_tpu_torch.probes.int4_prod
 import distributed_llama_tpu_torch.probes.k1_step
+import distributed_llama_tpu_torch.probes.scales
+import distributed_llama_tpu_torch.probes.i4_tiles
 print(json.dumps(sorted(sys.modules)))
 """
 

@@ -13,7 +13,8 @@ import torch
 
 from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
 from distributed_llama_tpu_torch.ops.quant import pack_q
-from distributed_llama_tpu_torch.probes import attention, dma, int4, int4_prod
+from distributed_llama_tpu_torch.probes import attention, dma, i4_tiles, int4, int4_prod, scales
+from distributed_llama_tpu_torch.probes.operands import scale_planes
 
 # P12 and P8 against their plain versions, of the plain output's largest value
 ATT_REL_TOL = 2.0 ** -6
@@ -506,3 +507,135 @@ def test_floor_probes_run_on_the_card(cuda):
     assert rows[1]["p12_vs_p8"] <= 2 * ATT_REL_TOL * rows[1]["out_scale"]
     row = int4_prod.run_shape("1024->512", 1024, 512, cuda, timed=False)
     assert row["k1_tile_equals_k1"] and row["max_abs_err"] <= 1e-5 * row["out_scale"]
+
+
+# -- P1, P13, P2, P6 (csrc/i8_tile_probe.cu on csrc/q40_i8_mma.cuh) --------
+
+
+@pytest.mark.parametrize("n", [65536, 65533, 1])
+def test_f16bits_convert_matches_plain_bit_for_bit(cuda, n):
+    """P1 on every f16 bit pattern (and a tail that is not a multiple of
+    the 4 elements a thread converts): equal to the plain version bit for
+    bit through int32 views, inf/NaN patterns included."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)[:n].to(cuda)
+    before = scales.f16bits_to_f32.launches
+    got = scales.f16bits_to_f32(bits)
+    want = scales.f16bits_to_f32_plain(bits)
+    torch.cuda.synchronize()
+    assert scales.f16bits_to_f32.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ref = bits.view(torch.float16).float()
+    finite = torch.isfinite(ref)
+    assert torch.equal(got[finite], ref[finite]) and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 264)])
+def test_i8_tile_instances_match_plain_and_each_other(cuda, rows, in_f, out_f):
+    """P13 at every tile: each plane within 1e-5 of the output scale of the
+    plain version (exact integer partials, f32 block sums in the tile's
+    order), and the f16, f32 and i16 planes equal bit for bit (the same
+    f32 scale for every finite f16)."""
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, cuda, seed=rows + in_f)
+    planes = scale_planes(dt)
+    want = cuda_q40.i8_blocks_plain(x8, xs, qt, dt)
+    scale = want.abs().max().item()
+    for cols, blocks in scales.tiles_for(in_f // 32):
+        outs = []
+        for plane, d in planes.items():
+            before = scales.i8_tile_call.launches
+            outs.append(scales.i8_tile_call(x8, xs, qt, d, cols, blocks))
+            torch.cuda.synchronize()
+            assert scales.i8_tile_call.launches == before + 1
+            assert (outs[-1] - want).abs().max().item() <= 1e-5 * scale, (plane, cols, blocks)
+        assert all(torch.equal(outs[0], o) for o in outs[1:]), (cols, blocks)
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 2048), (2048, 32768), (8192, 2048),
+                                        (4096, 14336)])
+def test_i8_tile_at_b9s_tile_is_b9(cuda, in_f, out_f):
+    """P13 at 64 columns and B9's split is B9's kernel: equal bit for bit
+    on each of the three planes."""
+    nb = in_f // 32
+    splits = cuda_q40.i8_mma_splits(nb, out_f)
+    assert nb % splits == 0
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, 1, cuda, seed=3)
+    ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
+    for plane, d in scale_planes(dt).items():
+        assert torch.equal(scales.i8_tile_call(x8, xs, qt, d, 64, nb // splits), ref), plane
+
+
+def test_scale_plane_call_matches_plain_and_p13(cuda):
+    """P2: the f32 and i16 planes at its tile, within 1e-5 of the plain
+    version, equal to each other and to P13 at that tile bit for bit."""
+    x8, xs, qt, dt, _ = scales.make_operands(2048, 8192, cuda, seed=2)
+    planes = scale_planes(dt)
+    want = scales.scale_plane_call_plain(x8, xs, qt, planes["f32"])
+    p13 = scales.i8_tile_call(x8, xs, qt, planes["f16"], *scales.P2_TILE)
+    for plane in ("f32", "i16"):
+        before = scales.scale_plane_call.launches
+        got = scales.scale_plane_call(x8, xs, qt, planes[plane])
+        torch.cuda.synchronize()
+        assert scales.scale_plane_call.launches == before + 1
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+        assert torch.equal(got, p13), plane
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 264)])
+def test_i4_sweep_matches_plain_and_p4(cuda, rows, in_f, out_f):
+    """P6 at every tile, one launch a call whatever the variant, within
+    1e-5 of the plain version; at 64 columns and P4's split equal to P4's
+    bf16 instance bit for bit."""
+    nb = in_f // 32
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, cuda, seed=rows)
+    qw = int4.pack_i32_t(qt)
+    bits = dt.view(torch.int16)
+    want = i4_tiles.i4_sweep_call_plain(x8, xs, qw, bits, 64, nb)
+    scale = want.abs().max().item()
+    p4 = int4.i32_call(x8, xs, qw, dt, dot="bf16")
+    splits = cuda_q40.i8_mma_splits(nb, out_f)
+    for cols, blocks in scales.tiles_for(nb) + [(64, nb // splits)]:
+        for variant in i4_tiles.VARIANTS:
+            before = i4_tiles.i4_sweep_call.launches
+            got = i4_tiles.i4_sweep_call(x8, xs, qw, bits, cols, blocks, variant)
+            torch.cuda.synchronize()
+            assert i4_tiles.i4_sweep_call.launches == before + 1
+            assert (got - want).abs().max().item() <= 1e-5 * scale, (cols, blocks, variant)
+    assert torch.equal(i4_tiles.i4_sweep_call(x8, xs, qw, bits, 64, nb // splits), p4)
+
+
+def test_tile_probe_wrappers_raise_instead_of_falling_back(cuda):
+    x8, xs, qt, dt, _ = int4.make_operands(2048, 256, 1, cuda)
+    qw, bits = int4.pack_i32_t(qt), dt.view(torch.int16)
+    for cols, blocks in ((48, 8), (64, 3), (64, 0), (256, 8)):  # tiles that are not built
+        with pytest.raises(ValueError):
+            scales.i8_tile_call(x8, xs, qt, dt, cols, blocks)
+        with pytest.raises(ValueError):
+            i4_tiles.i4_sweep_call(x8, xs, qw, bits, cols, blocks)
+    with pytest.raises(ValueError):  # B9's own f16 plane is not one of P2's
+        scales.scale_plane_call(x8, xs, qt, dt)
+    with pytest.raises(ValueError):  # a bf16 plane
+        scales.i8_tile_call(x8, xs, qt, dt.to(torch.bfloat16), 64, 8)
+    with pytest.raises(ValueError):  # a variant the JAX probe does not have
+        i4_tiles.i4_sweep_call(x8, xs, qw, bits, 64, 8, "concat-f32")
+    with pytest.raises(ValueError):  # P6 reads the int16 bits, not the f16 plane
+        i4_tiles.i4_sweep_call(x8, xs, qw, dt, 64, 8)
+    with pytest.raises(ValueError):  # the plane on the CPU
+        scales.i8_tile_call(x8, xs, qt, dt.cpu(), 64, 8)
+    with pytest.raises(ValueError):  # f16 storage, not its int16 bits
+        scales.f16bits_to_f32(dt)
+    with pytest.raises(ValueError):  # an odd start
+        scales.f16bits_to_f32(dt.view(torch.int16).reshape(-1)[1:])
+
+
+def test_scale_probes_run_on_the_card(cuda):
+    """Each probe's routines, untimed, at small shapes."""
+    rows = scales.sweep_shape("1024->512", 1024, 512, cuda, time_it=False, quick=True)
+    assert len(rows) == 3 * len(scales.tiles_for(32, quick=True))
+    assert all(r["planes_bit_equal"] and r["max_abs_err"] <= 1e-5 * r["out_scale"] for r in rows)
+    assert all(r["bit_equal_plain"] and r["equal_f16_on_finite"]
+               for r in scales.convert_rows(cuda, time_it=False))
+    got = i4_tiles.sweep_shape("1024->512", 1024, 512, cuda, time_it=False)
+    assert all(r["variants"] == list(i4_tiles.VARIANTS)
+               and r["max_abs_err"] <= 1e-5 * r["out_scale"] for r in got["tiles"])
