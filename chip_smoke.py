@@ -36,6 +36,14 @@ caught):
      at every tile of the JAX sweep's eight 1B and 8B shapes with its f16,
      f32 and i16 planes bit for bit equal, P2, and P6 at every tile of its
      five shapes, each within its tolerance of the plain version;
+  3e. the unsigned-nibble codecs: P5 (split-half bytes, both storages) and
+     P9/P10 (the T layout's feature-split words, both views) at every tile
+     and both planes (f16, raw f16 bits) of the JAX probes' five 1B shapes,
+     at 1 and 3 rows, against their plain versions; at B9's tile each
+     codec bit for bit equal to B9 (f16) and to P13 (i16); then the probes'
+     entry points (probes/int4b.py and probes/int4c.py main, with B9 and
+     K1's body beside them on the same weights), counted as the path
+     "nibble codec probes", whose rows are held;
   4. small-input references: a tiny Llama and a tiny Qwen3-MoE through the
      engine on the card and on the CPU (plain versions), logits and greedy
      tokens compared; a tiny Llama's paged int8 BatchSession at batch 4,
@@ -1052,6 +1060,140 @@ def sweep_rows(torch, rates, counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the unsigned-nibble codecs
+# ---------------------------------------------------------------------------
+
+CODEC_SOURCES = {
+    "sh_call": ("distributed_llama_tpu_torch/csrc/i4_codec_probe.cu",
+                "scripts/probe_int4b.py:119"),
+    "fs2d_call": ("distributed_llama_tpu_torch/csrc/i4_codec_probe.cu",
+                  "scripts/probe_int4c.py:145"),
+    "fs_call": ("distributed_llama_tpu_torch/csrc/i4_codec_probe.cu",
+                "scripts/probe_int4c.py:173"),
+}
+CODEC_PATH = "nibble codec probes"
+CODEC_REL_TOL = 1e-5  # exact corrected partials, f32 block sums in the tile's order
+
+
+def codec_checks(torch):
+    """Every instance of csrc/i4_codec_probe.cu (P5 and P9/P10, f16 and i16
+    planes, TN 32, 64, 128) at every tile of the five probe shapes, at 1 and
+    3 rows, against its plain version; P10 bit-equal to P9 and P5's two
+    storages to each other; at 64 columns and B9's split, both codecs bit
+    for bit equal to B9 on the f16 plane and to P13 on the i16 plane.
+    Returns {kernel name: (max abs err, max rel err, tolerance)}."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.probes import int4, int4b, int4c, scales
+
+    errs = {}
+
+    def keep(name, e):
+        old = errs.get(name, (0.0, 0.0, 0.0))
+        errs[name] = tuple(max(a, b) for a, b in zip(old, e))
+
+    for label, in_f, out_f in int4c.SHAPES:
+        nb = in_f // 32
+        splits = cuda_q40.i8_mma_splits(nb, out_f)
+        assert nb % splits == 0, f"{label}: B9's {splits} splits do not divide nb {nb}"
+        for rows in (1, 3):
+            x8, xs, qt, dt16, _ = int4.make_operands(in_f, out_f, rows, "cuda", seed=14 + rows)
+            bs = int4b.block_sums(x8, nb)
+            qp = int4c.pack_feature_split(qt)
+            qp2d, qsh = qp.view(nb * 4, out_f), int4b.pack_split_half(qt)
+            planes = int4b.planes(dt16)
+            refs = {"f16": cuda_q40.q40_i8_unpacked(x8, xs, qt, dt16),
+                    "i16": scales.i8_tile_call(x8, xs, qt, planes["i16"], 64, nb // splits)}
+            for plane, d in planes.items():
+                d2 = d.reshape(nb, 2, out_f // 2)
+                want_fs = int4c.fs2d_call_plain(x8, xs, bs, qp2d, d, 64, nb)
+                want_sh = int4b.sh_call_plain(x8, xs, bs, qsh, d2, 64, nb)
+                for cols, blocks in scales.tiles_for(nb) + [(64, nb // splits)]:
+                    where = f"{label} rows {rows} {plane} {cols}x{blocks}"
+                    got = int4c.fs2d_call(x8, xs, bs, qp2d, d, cols, blocks)
+                    keep("fs2d_call", compare(torch, f"fs2d_call {where}", [(got, want_fs)],
+                                              rel_tol=CODEC_REL_TOL))
+                    keep("fs_call", errs["fs2d_call"])
+                    assert torch.equal(int4c.fs_call(x8, xs, bs, qp, d, cols, blocks), got), \
+                        f"fs_call {where}: differs from fs2d_call"
+                    sh = int4b.sh_call(x8, xs, bs, qsh, d2, cols, blocks, "i8ops")
+                    keep("sh_call", compare(torch, f"sh_call {where}", [(sh, want_sh)],
+                                            rel_tol=CODEC_REL_TOL))
+                    assert torch.equal(int4b.sh_call(x8, xs, bs, qsh.view(torch.int32), d2, cols,
+                                                     blocks, "i32st"), sh), \
+                        f"sh_call {where}: the i32st storage differs from i8ops"
+                    if (cols, blocks) == (64, nb // splits):
+                        ref = refs[plane]
+                        b = "B9" if plane == "f16" else "P13"
+                        assert torch.equal(got, ref), f"fs2d_call {where}: differs from {b}"
+                        assert torch.equal(sh.reshape(rows, out_f), ref), \
+                            f"sh_call {where}: differs from {b}"
+            del x8, xs, qt, dt16, bs, qp, qp2d, qsh, planes, refs, got, sh
+            torch.cuda.empty_cache()
+    log(json.dumps({"phase": "codec_checks", "errs": errs}))
+    return errs
+
+
+def codec_rows(torch, rates, errs, counters):
+    """The codec probes' entry points (probes/int4b.py and probes/int4c.py
+    main), as a user runs them, with every launch counter in `counters` set
+    to 0 just before and read just after; P5, P9, P10, B9 and K1's body
+    must have launched, and every row of the mains must hold its checks:
+    within CODEC_REL_TOL of the plain output's largest value, the planes,
+    storages and views bit for bit equal. Returns (launches, one
+    kernels-line row a probe at the wcls 2048 -> 32768: P5 and P9 at their
+    best tile on the i16 plane (the JAX probes' `_dt_operand`), P10 at P9's
+    best tile)."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.probes import int4_prod, int4b, int4c
+
+    bw, bf16_peak, int8_peak = rates
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    b_rows = int4b.main(["--device", "cuda"])
+    t1 = time.perf_counter()
+    c_rows = int4c.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    log(json.dumps({"phase": "codecs", "launches": launches, "int4b_s": t1 - t0,
+                    "int4c_s": time.perf_counter() - t1}))
+    for r in b_rows + c_rows:
+        log("codec_row " + json.dumps(r))
+    check_launched(launches, (*int4b.KERNELS, *int4c.KERNELS, cuda_q40.q40_i8_unpacked,
+                              int4_prod.fs_call_tiles), CODEC_PATH)
+    errs = dict(errs)
+    for r in b_rows + c_rows:
+        tol = CODEC_REL_TOL * r["out_scale"]
+        assert r["max_abs_err"] <= tol, f"{r['probe']} {r['shape']}: {r['max_abs_err']}"
+        for flag in ("planes_bit_equal", "storages_bit_equal", "views_bit_equal"):
+            assert r.get(flag, True), f"{r['probe']} {r['shape']} {r.get('cols')}: {flag} fails"
+        if r["kernel"] in CODEC_SOURCES:
+            e = (r["max_abs_err"], r["max_abs_err"] / r["out_scale"], tol)
+            errs[r["kernel"]] = tuple(max(a, b) for a, b in zip(errs[r["kernel"]], e))
+
+    def at_wcls(rows, probe, plane):
+        return min((r for r in rows if r["probe"] == probe and r["out"] == 32768
+                    and r["plane"] == plane), key=lambda r: r["cold_ms"])
+
+    out = {}
+    for name, rows, probe in (("sh_call", b_rows, "P5"), ("fs2d_call", c_rows, "P9"),
+                              ("fs_call", c_rows, "P10")):
+        r, f16 = at_wcls(rows, probe, "i16"), at_wcls(rows, probe, "f16")
+        times = {"ms": r["cold_ms"], "hot_ms": r["hot_ms"], "chain_ms": r["chain_ms"],
+                 "plain_ms": r["plain_ms"], "library_ms": r["library_cold_ms"],
+                 "f16_ms": f16["cold_ms"], "x_b9": r["x_b9"], "x_k1": r["x_k1"]}
+        tile = "P9's best" if probe == "P10" else "best"
+        out[name] = _row(name, *CODEC_SOURCES[name], errs[name], times, r["bytes"], r["ops"],
+                         bw, int8_peak,
+                         f"{probe}: {r['shape'].strip()} at 1 row, i16 plane, {tile} tile TN "
+                         f"{r['cols']} x {r['blocks_per_cta']} blocks, cold (f16_ms: the f16 "
+                         f"plane's best, TN {f16['cols']} x {f16['blocks_per_cta']}); library: "
+                         f"torch.matmul on the bf16-dequantized plane")
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: small inputs on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -1469,7 +1611,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40, kernels
     from distributed_llama_tpu_torch.probes import (
-        attention, dma, i4_tiles, int4, int4_prod, scales, timing)
+        attention, dma, i4_tiles, int4, int4_prod, int4b, int4c, scales, timing)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1503,7 +1645,8 @@ def main() -> int:
     # every launch counter: each counted run (the probes', then each main
     # path) sets all of them to 0 just before it and reads all just after
     counters = (*cuda_q40.KERNELS, *cuda_attention.KERNELS, *int4.KERNELS, *dma.KERNELS,
-                *attention.KERNELS, *int4_prod.KERNELS, *scales.KERNELS, *i4_tiles.KERNELS)
+                *attention.KERNELS, *int4_prod.KERNELS, *scales.KERNELS, *i4_tiles.KERNELS,
+                *int4b.KERNELS, *int4c.KERNELS)
 
     # 3b. the kernel probes: checks, then the probes' own run, counted
     errs = probe_checks(torch)
@@ -1531,6 +1674,15 @@ def main() -> int:
     rows.update(sweep_kernels)
     release(torch)
     done("phase 3d")
+
+    # 3e. the unsigned-nibble codecs: checks, then the probes' own run,
+    # counted
+    errs = codec_checks(torch)
+    release(torch)
+    paths[CODEC_PATH], codec_kernels = codec_rows(torch, rates, errs, counters)
+    rows.update(codec_kernels)
+    release(torch)
+    done("phase 3e")
 
     # 4. small inputs against the CPU
     tmp = BUILD / "smoke"

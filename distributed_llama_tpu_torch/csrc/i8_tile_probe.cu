@@ -32,18 +32,6 @@ namespace {
 constexpr int CONVERT_THREADS = 256;
 constexpr int CONVERT_PER_THREAD = 4;
 
-template <int WK, int DOT, int SCALE>
-cudaError_t launch_cols(int cols, const int8_t* x8, const float* xs, const void* w,
-                        const void* dt, float* dst, int R, int nb, int out_f, int splits,
-                        cudaStream_t s) {
-  switch (cols) {
-    case 32: return launch<WK, DOT, SCALE, 32>(x8, xs, w, dt, dst, R, nb, out_f, splits, s);
-    case 64: return launch<WK, DOT, SCALE, 64>(x8, xs, w, dt, dst, R, nb, out_f, splits, s);
-    case 128: return launch<WK, DOT, SCALE, 128>(x8, xs, w, dt, dst, R, nb, out_f, splits, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 __global__ void __launch_bounds__(CONVERT_THREADS)
 f16bits_to_f32_kernel(const uint16_t* __restrict__ bits, float* __restrict__ out, long long n) {
   const long long i =

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "q40_gemv", "q40_gemm", "q40_grouped_gemm", "flash_attention", "paged_attention",
-    "q40_i8_mma", "stream_probe", "attention_probe", "i8_tile_probe",
+    "q40_i8_mma", "stream_probe", "attention_probe", "i8_tile_probe", "i4_codec_probe",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -10,7 +10,10 @@ on a head-major cache; `int4_prod` (scripts/probe_int4_prod.py, P7) splits
 K1's call into its prologue and its body; `scales` (scripts/probe_f16_scales.py
 and sweep_i8_tiles.py: P1, P2, P13) measures what B9's scale plane costs as
 f16, f32 or raw f16 bits and sweeps its CTA tile, and `i4_tiles`
-(scripts/sweep_i4_tiles.py, P6) sweeps P4's tile. `timing` times a kernel cold
+(scripts/sweep_i4_tiles.py, P6) sweeps P4's tile; `int4b`
+(scripts/probe_int4b.py, P5) and `int4c` (scripts/probe_int4c.py, P9, P10)
+feed the same matmul from the two unsigned-nibble codecs, split-half bytes
+and the T layout's feature-split words, beside B9 and K1. `timing` times a kernel cold
 (operands out of L2) and hot; `operands` carries the JAX probes' operands
 across, for the tests. Run a probe with
 
@@ -20,6 +23,8 @@ across, for the tests. Run a probe with
     python -m distributed_llama_tpu_torch.probes.int4_prod [--device cpu] [--shape IN,OUT]
     python -m distributed_llama_tpu_torch.probes.scales [--device cpu] [--1b | --8b] [--quick]
     python -m distributed_llama_tpu_torch.probes.i4_tiles [--device cpu] [--shape IN,OUT]
+    python -m distributed_llama_tpu_torch.probes.int4b [--device cpu] [--shape IN,OUT]
+    python -m distributed_llama_tpu_torch.probes.int4c [--device cpu] [--shape IN,OUT]
 
 Without `--device cpu` a probe needs a CUDA device and raises otherwise.
 """

@@ -13,7 +13,8 @@ import torch
 
 from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
 from distributed_llama_tpu_torch.ops.quant import pack_q
-from distributed_llama_tpu_torch.probes import attention, dma, i4_tiles, int4, int4_prod, scales
+from distributed_llama_tpu_torch.probes import (
+    attention, dma, i4_tiles, int4, int4_prod, int4b, int4c, scales)
 from distributed_llama_tpu_torch.probes.operands import scale_planes
 
 # P12 and P8 against their plain versions, of the plain output's largest value
@@ -639,3 +640,128 @@ def test_scale_probes_run_on_the_card(cuda):
     got = i4_tiles.sweep_shape("1024->512", 1024, 512, cuda, time_it=False)
     assert all(r["variants"] == list(i4_tiles.VARIANTS)
                and r["max_abs_err"] <= 1e-5 * r["out_scale"] for r in got["tiles"])
+
+
+def _codec_operands(in_f, out_f, rows, device, seed):
+    """x8, xs, bs, qt, the f16 plane and both codecs' planes of one draw."""
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, device, seed=seed)
+    bs = int4b.block_sums(x8, in_f // 32)
+    return x8, xs, bs, qt, dt, int4c.pack_feature_split(qt), int4b.pack_split_half(qt)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 264)])
+def test_feature_split_instances_match_plain_and_each_other(cuda, rows, in_f, out_f):
+    """P9 at every tile and plane within 1e-5 of the output scale of the
+    plain version (exact corrected partials, f32 block sums in the tile's
+    order); P10 on the [nb, 4, out] view and the i16 plane equal to P9 on
+    the f16 plane bit for bit."""
+    nb = in_f // 32
+    x8, xs, bs, qt, dt, qp, _ = _codec_operands(in_f, out_f, rows, cuda, rows + in_f)
+    qp2d = qp.view(nb * 4, out_f)
+    want = int4c.fs2d_call_plain(x8, xs, bs, qp2d, dt, 64, nb)
+    scale = want.abs().max().item()
+    for cols, blocks in scales.tiles_for(nb):
+        outs = []
+        for d in int4b.planes(dt).values():
+            before = (int4c.fs2d_call.launches, int4c.fs_call.launches)
+            outs += [int4c.fs2d_call(x8, xs, bs, qp2d, d, cols, blocks),
+                     int4c.fs_call(x8, xs, bs, qp, d, cols, blocks)]
+            torch.cuda.synchronize()
+            assert (int4c.fs2d_call.launches, int4c.fs_call.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+            assert (outs[-1] - want).abs().max().item() <= 1e-5 * scale, (d.dtype, cols, blocks)
+        assert all(torch.equal(outs[0], o) for o in outs[1:]), (cols, blocks)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 1056)])
+def test_split_half_instances_match_plain_and_each_other(cuda, rows, in_f, out_f):
+    """P5 at every tile whose half-width divides out / 2 (at 1056 only TN
+    32: the others raise), each plane and storage within 1e-5 of the plain
+    version, [R, 2, out / 2] in natural column order; the two storages and
+    the two planes equal bit for bit."""
+    nb = in_f // 32
+    x8, xs, bs, qt, dt, _, qp = _codec_operands(in_f, out_f, rows, cuda, rows + out_f)
+    dt2 = {p: d.reshape(nb, 2, out_f // 2) for p, d in int4b.planes(dt).items()}
+    want = int4b.sh_call_plain(x8, xs, bs, qp, dt2["f16"], 32, nb)
+    assert torch.equal(want.reshape(rows, out_f), cuda_q40.i8_blocks_plain(x8, xs, qt, dt))
+    scale = want.abs().max().item()
+    for cols, blocks in scales.tiles_for(nb):
+        if (out_f // 2) % (cols // 2):
+            with pytest.raises(ValueError):
+                int4b.sh_call(x8, xs, bs, qp, dt2["f16"], cols, blocks)
+            continue
+        outs = []
+        for d in dt2.values():
+            for storage in int4b.STORAGES:
+                before = int4b.sh_call.launches
+                outs.append(int4b.sh_call(x8, xs, bs, int4b.storage_view(qp, storage), d, cols,
+                                          blocks, storage))
+                torch.cuda.synchronize()
+                assert int4b.sh_call.launches == before + 1
+                assert outs[-1].shape == (rows, 2, out_f // 2)
+                assert (outs[-1] - want).abs().max().item() <= 1e-5 * scale, (storage, cols)
+        assert all(torch.equal(outs[0], o) for o in outs[1:]), (cols, blocks)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
+                                        (2048, 32768)])
+def test_codecs_at_b9s_tile_are_b9_and_p13(cuda, rows, in_f, out_f):
+    """At 64 columns and B9's split, both codecs on the f16 plane equal B9
+    and on the i16 plane equal P13's i16 instance, bit for bit: the
+    corrected partials are the signed ones exactly, and the scale and
+    accumulate code is shared."""
+    nb = in_f // 32
+    splits = cuda_q40.i8_mma_splits(nb, out_f)
+    assert nb % splits == 0
+    x8, xs, bs, qt, dt, qp, qsh = _codec_operands(in_f, out_f, rows, cuda, 5)
+    bits = dt.view(torch.int16)
+    b9 = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
+    p13 = scales.i8_tile_call(x8, xs, qt, bits, 64, nb // splits)
+    for d, ref in ((dt, b9), (bits, p13)):
+        assert torch.equal(int4c.fs2d_call(x8, xs, bs, qp.view(nb * 4, out_f), d, 64,
+                                           nb // splits), ref), d.dtype
+        got = int4b.sh_call(x8, xs, bs, qsh, d.reshape(nb, 2, out_f // 2), 64, nb // splits)
+        assert torch.equal(got.reshape(rows, out_f), ref), d.dtype
+
+
+def test_codec_wrappers_raise_instead_of_falling_back(cuda):
+    x8, xs, bs, qt, dt, qp, qsh = _codec_operands(2048, 256, 1, cuda, 0)
+    qp2d, dt2 = qp.view(256, 256), dt.reshape(64, 2, 128)
+    for cols, blocks in ((48, 8), (64, 3), (64, 0), (256, 8)):  # tiles that are not built
+        with pytest.raises(ValueError):
+            int4c.fs2d_call(x8, xs, bs, qp2d, dt, cols, blocks)
+        with pytest.raises(ValueError):
+            int4b.sh_call(x8, xs, bs, qsh, dt2, cols, blocks)
+    with pytest.raises(ValueError):  # bs as f32, as the JAX probes hold it
+        int4c.fs_call(x8, xs, bs.float(), qp, dt, 64, 8)
+    with pytest.raises(ValueError):  # bs on the CPU
+        int4c.fs_call(x8, xs, bs.cpu(), qp, dt, 64, 8)
+    with pytest.raises(ValueError):  # one row's sums for three rows
+        int4c.fs_call(x8.expand(3, -1).contiguous(), xs.expand(3, -1).contiguous(), bs, qp, dt,
+                      64, 8)
+    with pytest.raises(ValueError):  # B9's unpacked weight, not the words
+        int4c.fs_call(x8, xs, bs, qt, dt, 64, 8)
+    with pytest.raises(ValueError):  # the split-half bytes as i32st without the view
+        int4b.sh_call(x8, xs, bs, qsh, dt2, 64, 8, "i32st")
+    with pytest.raises(ValueError):  # a storage the JAX probe does not have
+        int4b.sh_call(x8, xs, bs, qsh, dt2, 64, 8, "u8ops")
+    with pytest.raises(ValueError):  # a bf16 plane
+        int4c.fs_call(x8, xs, bs, qp, dt.to(torch.bfloat16), 64, 8)
+    with pytest.raises(ValueError):  # the plane on the CPU
+        int4b.sh_call(x8, xs, bs, qsh, dt2.cpu(), 64, 8)
+    x8w, xsw, bsw, _, dtw, _, qshw = _codec_operands(2048, 264, 1, cuda, 0)
+    with pytest.raises(ValueError):  # (out / 2) % (cols / 2) != 0: 132 % 16
+        int4b.sh_call(x8w, xsw, bsw, qshw, dtw.reshape(64, 2, 132), 32, 8)
+
+
+def test_codec_probes_run_on_the_card(cuda):
+    """Each codec probe's routine, untimed, at a small shape."""
+    for mod, flag in ((int4b, "storages_bit_equal"), (int4c, "views_bit_equal")):
+        got = mod.sweep_shape("1024->512", 1024, 512, cuda, time_it=False)
+        assert [r["probe"] for r in got["baseline"]] == ["B9 baseline", "K1 body"]
+        assert len(got["tiles"]) == 2 * len(scales.tiles_for(32))
+        assert all(r[flag] and r["planes_bit_equal"] and r["max_abs_err"] <= 1e-5 * r["out_scale"]
+                   for r in got["tiles"])
