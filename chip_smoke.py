@@ -12,7 +12,10 @@ caught):
      shapes the main paths give it (Llama-3.2-1B and Qwen3-30B-A3B widths),
      with its time (CUDA events over CUDA-graph replays), its plain
      version's time, one PyTorch library call's time as a yardstick, and
-     its bound;
+     its bound; B8 (the shard-local flash partial) on 4096-row shards of
+     a 16384-row cache at col_offset 0, 4096 (a straddling chunk) and
+     8192 (fully masked: exact), and the four-shard combine against K3
+     over the whole cache, at the 1B and 30B-A3B attention shapes;
   3b. the kernel probes (B9, P3, P4, P14): each new kernel or instance
      against its plain version at every probe shape (Llama-3.2-1B layer
      shapes and the full wcls 2048 -> 128256), the six int8-matmul
@@ -55,8 +58,14 @@ caught):
      at its defaults (paged bf16; equal to the contiguous run's to 1e-3),
      `inference --kv-dtype int8` (paged), a BatchSession at batch 16 (paged
      int8, rolling release and re-admission; rows against their runs with
-     the other rows parked) and
-     `generate_batch` at batch 4 (paged int8; rows against solo runs). At
+     the other rows parked),
+     `generate_batch` at batch 4 (paged int8; rows against solo runs) and
+     the sequence-parallel engine on an sp = 4 mesh of this one card (a
+     16384-row cache in four 4096-row shards): the 113-token prompt's
+     prefill logits bit for bit equal to the sp = 1 engine's, then a
+     6000-token prompt and 64 greedy steps with B8 launched chunks x
+     layers x shards times and K3 never, logits and tokens against sp = 1,
+     and profiles of its prefill tail (B8's share) and decode. At
      Qwen3-30B-A3B's width: the CLI's `inference` (contiguous);
   6. where a decode token's time goes: torch.profiler over 16 batch-1
      decode steps of each model and over one batch-16 paged int8 chunk;
@@ -76,6 +85,7 @@ import json
 import re
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -486,6 +496,139 @@ def flash_row(torch, gen, bw, bf16_peak, L, nh, nkv, hd):
         f"t=32 at pos 64 over a 256-row cache view; ms L2-warm, cold_ms from a ring of "
         f"compact copies", cold_ms=cold,
     )
+
+
+SP = 4  # the sp path's shards
+SP_SEQ_LEN = 16384  # its cache: four shards of 4096 rows
+SP_PROMPT_TOKENS = 6000
+SP_DECODE_STEPS = 64
+
+
+# B8's normalized output o / l (and the shards' combine) against its plain
+# version (and K3), as a share of the reference's largest value: P rounds
+# to bf16 (2^-9 relative) against each tile's running max, and the kernel's
+# 64-row tiles are not the plain version's 1024-row blocks. The kernel
+# read 2.0e-3 (head_dim 64) and 1.4e-3 (head_dim 128) of it at the sp
+# path's shape on an H100. A P.V that skipped one of a 4096-row shard's 64
+# tiles would drop 1/64 of the keys, about an eighth of a typical output
+# value: several times this bound. Never above the absolute 1e-2 it
+# replaced (rows that see a few keys have outputs above 2).
+B8_OUT_REL_TOL = 5e-3
+
+
+def b8_bound(scale: float) -> float:
+    """B8's output bound for a reference whose largest value is `scale`."""
+    return min(1e-2, B8_OUT_REL_TOL * scale)
+
+
+def b8_check(torch, got, want):
+    """B8 against its plain version: rows that see no column of the shard
+    exactly (o = 0, l = 0, the JAX kernel's m); rows that do with m to the
+    f32 order of the score dots (1e-5 of its scale), l to the f32
+    rescalings at other tile boundaries (1e-4 relative) and o / l, the
+    shard's normalized output, within `b8_bound` of its largest value.
+    Returns (normalized output error, the same relative to the output's
+    largest value, that error's bound, m error, l relative error, rows
+    seeing the shard)."""
+    (o, m, l), (po, pm, pl) = got, want
+    seen = pl > 0
+    assert torch.equal(seen, l > 0), "B8: the rows that see the shard differ"
+    blind = ~seen
+    assert torch.equal(m[blind], pm[blind]), "B8: a blind row's m differs"
+    assert (o[blind] == 0).all() and (l[blind] == 0).all(), "B8: a blind row is not zero"
+    if not seen.any():
+        return 0.0, 0.0, 0.0, 0.0, 0.0, 0
+    e_m = (m[seen] - pm[seen]).abs().max().item()
+    e_l = ((l[seen] - pl[seen]).abs() / pl[seen]).max().item()
+    ref = po[seen] / pl[seen][:, None]
+    e_o = (o[seen] / l[seen][:, None] - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert e_m <= 1e-5 * pm[seen].abs().max().item(), f"B8: m err {e_m}"
+    assert e_l <= 1e-4, f"B8: l rel err {e_l}"
+    assert e_o <= b8_bound(scale), f"B8: normalized output err {e_o} of {scale}"
+    return e_o, e_o / scale, b8_bound(scale), e_m, e_l, int(seen.sum().item())
+
+
+def partial_row(torch, gen, bw, bf16_peak, nh, nkv, hd):
+    """B8 at the sp path's shape: one 32-token chunk at position 4080 (it
+    straddles the shard 0/1 boundary) against 4096-row shards of a
+    16384-row cache. Checked at col_offset 0 (the whole shard visible),
+    4096 (the straddle: the first 16 tokens see none of it) and 8192 (the
+    shard wholly in the chunk's future: exact), and the four-shard combine
+    against K3 over the whole cache. Timed at col_offset 0, the live shard
+    that costs most."""
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops import attention as ops_attention
+    from distributed_llama_tpu_torch.ops import cuda_attention
+    from distributed_llama_tpu_torch.probes import timing
+
+    t, S, pos = PREFILL_ROWS, SP_SEQ_LEN // SP, SP_SEQ_LEN // SP - 16
+    k = torch.randn((1, SP_SEQ_LEN, nkv, hd), device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn((1, SP_SEQ_LEN, nkv, hd), device="cuda", generator=gen).to(torch.bfloat16)
+    q = torch.randn((1, t, nh, hd), device="cuda", generator=gen)
+    ks = [k[:, i * S : (i + 1) * S] for i in range(SP)]
+    vs = [v[:, i * S : (i + 1) * S] for i in range(SP)]
+    checks = {}
+    for col in (0, S, 2 * S):
+        shard = col // S
+        got = cuda_attention.flash_attention_partial(q, ks[shard], vs[shard], pos, col)
+        want = cuda_attention.flash_attention_partial_plain(q, ks[shard], vs[shard], pos, col)
+        e_o, e_rel, tol, e_m, e_l, seen = b8_check(torch, got, want)
+        checks[col] = {"out_err": e_o, "out_rel_err": e_rel, "out_tol": tol, "m_err": e_m,
+                       "l_rel_err": e_l, "rows_seeing": seen, "rows": got[1].numel()}
+    assert checks[2 * S]["rows_seeing"] == 0
+    # the combine against K3 over the whole cache: equal up to the bf16
+    # rounding of P against other running maxima (`b8_bound` of K3's
+    # largest value)
+    combine_err = {}
+    for p in (pos, 6000, SP_SEQ_LEN - t):
+        sp_out = ops_attention.flash_attention_sp(q, ks, vs, p, [i * S for i in range(SP)])
+        k3_out = cuda_attention.flash_attention(q, k, v, p)
+        combine_err[p] = (sp_out - k3_out).abs().max().item()
+        bound = b8_bound(k3_out.abs().max().item())
+        assert combine_err[p] <= bound, f"B8 combine vs K3 at pos {p}: {combine_err[p]} > {bound}"
+    torch.cuda.synchronize()
+    worst = max(checks.values(), key=lambda c: c["out_err"])  # col_offset 0
+    errs = (worst["out_err"], worst["out_rel_err"], worst["out_tol"])
+
+    def b8(q, k_, v_):
+        cuda_attention.flash_attention_partial(q, k_, v_, pos, 0)
+
+    kc, vc = ks[0].contiguous(), vs[0].contiguous()
+    nbytes = sum(a.numel() * a.element_size() for a in (q, kc, vc))
+    cold, hot = timing.cold_hot_ms(b8, (q, kc, vc), nbytes)
+    plain_ms = timing.graph_ms([lambda: cuda_attention.flash_attention_partial_plain(q, kc, vc, pos, 0)])
+    # the other two shards of the path's straddling chunk, hot
+    other_ms = {col: timing.graph_ms([partial(cuda_attention.flash_attention_partial, q, ks[col // S],
+                                              vs[col // S], pos, col)] * 64)
+                for col in (S, 2 * S)}
+    # nearest library call, not the same function: SDPA normalizes and
+    # returns no (m, l); on the shard with its causal mask
+    mask = (torch.arange(S, device="cuda")[None, :] <= pos + torch.arange(t, device="cuda")[:, None])
+    sq, sk, sv = q.to(torch.bfloat16).transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    lib_ms = timing.graph_ms([lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                                                     enable_gqa=True)])
+    visible = sum(min(S, pos + i + 1) for i in range(t))  # keys each query sees in the shard
+    rows_kv = min(S, pos + t)
+    nbytes = t * nh * hd * 4 + 2 * rows_kv * nkv * hd * 2 + t * nh * hd * 4 + 2 * t * nh * 4
+    row = _row(
+        "flash_attention_partial", "distributed_llama_tpu_torch/csrc/flash_attention.cu",
+        "distributed_llama_tpu/ops/pallas_attention.py:398", errs,
+        {"ms": hot, "hot_ms": hot, "cold_ms": cold, "plain_ms": plain_ms, "library_ms": lib_ms},
+        nbytes, 4 * nh * hd * visible, bw, bf16_peak,
+        f"one shard of a 32-token chunk at pos {pos}: {S}-row shard at col_offset 0 (all "
+        f"visible), head_dim {hd}, {nh // nkv} query heads per kv head; ms hot, cold_ms from "
+        f"a ring of copies; library: SDPA on the shard with its mask (nearest call, not the "
+        f"same function)",
+    )
+    row["checks"] = checks
+    row["combine_vs_k3_err"] = combine_err
+    row["straddle_ms"], row["masked_ms"] = other_ms[S], other_ms[2 * S]
+    log(json.dumps({"kernel_extra": "flash_attention_partial", "hd": hd, "checks": checks,
+                    "combine_vs_k3_err": combine_err, "straddle_ms": other_ms[S],
+                    "masked_ms": other_ms[2 * S]}))
+    return row
 
 
 def moe_kernel_checks(torch, rates):
@@ -1526,13 +1669,146 @@ def generate_batch_path(torch, mp: str, tp: str, counters, expected):
     return launches
 
 
-def profile_window(torch, name: str, run, n_tokens: int) -> dict:
+def prefill_logits(torch, eng, ids):
+    """Every prefill chunk's logits at its real rows, chunk by chunk as
+    `prefill` runs them (logits of all rows kept)."""
+    from distributed_llama_tpu_torch.runtime.engine import chunk_plan
+
+    out = []
+    for i, size, n_real in chunk_plan(len(ids), 0, eng.max_chunk, eng.cfg.seq_len):
+        chunk = ids[i : i + n_real] + [0] * (size - n_real)
+        logits = eng._forward(eng._tokens([chunk]), i, logits_mode="all",
+                              kv_len=eng._kv_bucket(i + size))
+        out.append(logits[:, :n_real])
+    return torch.cat(out, dim=1)
+
+
+def sp_path(torch, mp: str, tp: str, counters, expected, b8, k3):
+    """The sequence-parallel path at Llama-3.2-1B width and depth:
+    InferenceEngine(mesh=make_mesh(sp=4)) on this card four times, a
+    16384-row cache in four 4096-row shards, against the sp = 1 engine.
+    Gates, each on the card:
+      * the 113-token PROMPT's prefill logits, every chunk, equal the sp = 1
+        engine's bit for bit (shards 1-3 add exact zeros and shard 0 runs
+        K3's own loop through B8);
+      * a 6000-token seeded prompt (prefill through shard 0 into shard 1;
+        shards 2-3 fully masked) and 64 greedy steps, counted: B8 launched
+        chunks x layers x shards times and K3 never;
+      * the last prompt row's logits within 5e-2 of their scale of the sp =
+        1 engine's (the engine tests' bf16 bound: chunks past 4096 combine
+        two shards, whose P rounds to bf16 against other running maxima);
+      * the greedy tokens equal up to the first step whose sp = 1 top-2
+        margin is under that tolerance."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.parallel import make_mesh
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine, chunk_plan
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    kw = dict(max_seq_len=SP_SEQ_LEN, kv_layout="contiguous")
+    eng = InferenceEngine(mp, mesh=make_mesh(sp=SP, devices=[torch.device("cuda")] * SP), **kw)
+    solo = InferenceEngine(mp, device="cuda", **kw)
+    assert eng.use_pipeline and [c.k.shape[2] for c in eng.cache] == [SP_SEQ_LEN // SP] * SP
+
+    ids = Tokenizer(tp).encode(PROMPT)
+    short_equal = torch.equal(prefill_logits(torch, eng, ids), prefill_logits(torch, solo, ids))
+    assert short_equal, "sp = 4 prefill logits differ from sp = 1 on PROMPT"
+    eng.reset()
+    solo.reset()
+
+    vocab = eng.cfg.vocab_size
+    prompt = np.random.default_rng(0).integers(1, vocab, SP_PROMPT_TOKENS).tolist()
+    n = len(prompt)
+    steps = n - 1 + SP_DECODE_STEPS
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    res = eng.generate(prompt, steps, sampler=None)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    n_chunks = len(list(chunk_plan(n - 1, 0, eng.max_chunk, eng.cfg.seq_len)))
+    expected_b8 = n_chunks * eng.cfg.n_layers * SP
+    assert launches[b8.__name__] == expected_b8, (launches[b8.__name__], expected_b8)
+    assert launches[k3.__name__] == 0, launches[k3.__name__]
+    check_launched(launches, expected, "the sp path")
+    res1 = solo.generate(prompt, steps, sampler=None)
+    got, want = res.tokens[n:], res1.tokens[n:]
+    assert len(got) == len(want) == SP_DECODE_STEPS
+
+    # the first step's logits, recomputed on each engine's cache (the row
+    # at n - 1 is rewritten with the same values; later rows are masked)
+    lg = torch.from_numpy(eng.decode_one(prompt[-1], n - 1))
+    l1 = torch.from_numpy(solo.decode_one(prompt[-1], n - 1))
+    assert torch.isfinite(lg).all() and lg.shape == (1, vocab)
+    scale = l1.abs().max().item()
+    tol = 5e-2 * scale
+    err = (lg - l1).abs().max().item()
+    assert err <= tol, f"sp last-row logits differ from sp = 1 by {err} > {tol}"
+    first_diff = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    margin = None
+    if first_diff is not None:
+        feed = prompt[-1] if first_diff == 0 else want[first_diff - 1]
+        top2 = torch.from_numpy(solo.decode_one(feed, n - 1 + first_diff))[0].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        assert margin < tol, (
+            f"sp tokens diverge at step {first_diff} where the sp = 1 top-2 margin is {margin} "
+            f">= {tol}")
+    summary = {
+        "phase": "sp_path", "sp": SP, "seq_len": SP_SEQ_LEN, "prompt_tokens": n,
+        "decode_tokens": len(got), "chunks": n_chunks,
+        "prefill_tok_s": (n - 1) / (res.prefill_us / 1e6),
+        "decode_tok_s": len(got) / (res.decode_us / 1e6),
+        "sp1_prefill_tok_s": (n - 1) / (res1.prefill_us / 1e6),
+        "sp1_decode_tok_s": len(got) / (res1.decode_us / 1e6),
+        "short_prompt_prefill_logits_bit_equal": short_equal,
+        "last_row_logits_max_abs_err": err, "tol": tol, "logits_scale": scale,
+        "tokens_equal": first_diff is None, "first_differing_step": first_diff,
+        "sp1_top2_margin_there": margin, "launches": launches, "expected_b8": expected_b8,
+    }
+    log(json.dumps(summary))
+
+    # where the prefill's device time goes: the last four chunks again
+    # (their rows are rewritten with the same values), B8's share at sp = 4
+    # beside K3's at sp = 1
+    plan = list(chunk_plan(n - 1, 0, eng.max_chunk, eng.cfg.seq_len))[-4:]
+    shares = {}
+    for label, e, kernel in (("sp=4", eng, "<64, true>"), ("sp=1", solo, "<64, false>")):
+
+        def tail(e=e):
+            for i, size, n_real in plan:
+                chunk = prompt[i : i + n_real] + [0] * (size - n_real)
+                e._forward(e._tokens([chunk]), i, kv_len=e._kv_bucket(i + size))
+
+        prof = profile_window(torch, f"llama32_1b {label} prefill tail", tail,
+                              sum(nr for _, _, nr in plan),
+                              share_of={"flash": f"flash_attention_fwd_kernel{kernel}"})
+        shares[label] = prof["share"]["flash"]
+    log(json.dumps({"phase": "sp_prefill_share", "b8_device_share_sp4": shares["sp=4"],
+                    "k3_device_share_sp1": shares["sp=1"]}))
+
+    # and its decode, at sp = 4 and at sp = 1, past the generated tokens
+    for label, e in (("sp=4", eng), ("sp=1", solo)):
+        at = [steps]
+        tok = torch.tensor([got[-1]], device=e.device)
+
+        def run(e=e, at=at, tok=tok, n_steps=16):
+            e._decode_chunk(tok, at[0], n_steps)
+            at[0] += n_steps
+
+        profile_window(torch, f"llama32_1b {label} decode from position {steps}", run, 16)
+    eng.close()
+    solo.close()
+    return launches
+
+
+def profile_window(torch, name: str, run, n_tokens: int, share_of=None) -> dict:
     """Where a decode window's time goes: torch.profiler over one call of
     `run` (after one warm call), which decodes `n_tokens` tokens. Host wall
     per token; device busy time per token, summed over the device's own
     events (kernels, copies) only: an aten op's device time is its kernels'
     again; the device's idle share; kernels and host-side launch calls per
-    token; the top kernels and host ops."""
+    token; the top kernels and host ops; with `share_of` ({label: a kernel
+    name's substring}), each label's share of the device busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1562,6 +1838,9 @@ def profile_window(torch, name: str, run, n_tokens: int) -> dict:
         "top_host_ops_ms_per_token": {e.key: e.self_cpu_time_total / 1e3 / n_tokens
                                       for e in by_cpu},
     }
+    if share_of:
+        out["share"] = {label: sum(e.self_device_time_total for e in on_dev if sub in e.key) / dev_us
+                        for label, sub in share_of.items()}
     log(json.dumps(out))
     return out
 
@@ -1569,7 +1848,6 @@ def profile_window(torch, name: str, run, n_tokens: int) -> dict:
 def decode_profile(torch, name: str, model_path: str, steps: int = 16) -> dict:
     """16 batch-1 decode steps of the main path's engine (contiguous)
     after a 99-token prefill, profiled."""
-    from distributed_llama_tpu_torch.runtime.decode import decode_chunk
     from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
 
     eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda")
@@ -1579,8 +1857,7 @@ def decode_profile(torch, name: str, model_path: str, steps: int = 16) -> dict:
     at = [len(prompt) - 1]
 
     def run():
-        decode_chunk(eng.cfg, eng.params, eng.rope, eng.cache, tok, at[0], n_steps=steps,
-                     kv_len=eng._kv_bucket(at[0] + steps))
+        eng._decode_chunk(tok, at[0], steps)
         at[0] += steps
 
     out = profile_window(torch, name, run, steps)
@@ -1639,6 +1916,16 @@ def main() -> int:
     rows.update({r["name"]: r for r in moe_kernel_checks(torch, rates)})  # K3 at hd 128
     release(torch)
     rows["paged_flash_attention"] = paged_rows(torch, rates)  # K5
+    release(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    c, m = LLAMA32_1B, QWEN3_30B_A3B
+    rows["flash_attention_partial"] = partial_row(  # B8 at the sp path's 1B shape
+        torch, gen, rates[0], rates[1], c["n_heads"], c["n_kv_heads"], c["head_dim"])
+    rows["flash_attention_partial"]["hd128"] = {
+        k: v for k, v in partial_row(torch, gen, rates[0], rates[1], m["n_heads"], m["n_kv_heads"],
+                                     m["head_dim"]).items()
+        if k in ("ms", "cold_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
     release(torch)
     done("phase 3")
 
@@ -1733,6 +2020,11 @@ def main() -> int:
     release(torch)
     paths["llama32_1b generate_batch 4 paged int8"] = generate_batch_path(
         torch, mp, tp, counters, (q.q40_gemv_q80_stacked, ca.paged_flash_attention))
+    release(torch)
+    paths["llama32_1b sp=4 inference contiguous"] = sp_path(
+        torch, mp, tp, counters,
+        (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked, ca.flash_attention_partial),
+        ca.flash_attention_partial, ca.flash_attention)
     release(torch)
     Path(mp).unlink()  # room on the disk for the MoE file
     done("phases 5-6 at Llama-3.2-1B width")

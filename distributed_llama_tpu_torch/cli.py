@@ -5,9 +5,11 @@ The counterpart of the JAX package's `cli.py`: the `inference`,
 same flags where the port runs them, plus `--device {cuda,cpu}` (default
 cuda: the CLI runs on the card unless asked for the CPU). As in the JAX
 CLI, `--kv-layout` defaults to paged (DLT_KV_LAYOUT env first);
-`--kv-dtype int8` stores the cache in int8. Speculation and the prefix
-cache are not ported: their non-off values raise NotImplementedError
-naming ROADMAP A10.
+`--kv-dtype int8` stores the cache in int8. `--sp n` splits the KV
+cache's sequence axis over an n-shard mesh (parallel/): n cards, or the
+CPU n times with `--device cpu`; like the JAX CLI it keeps the contiguous
+layout there and says so. Speculation and the prefix cache are not ported:
+their non-off values raise NotImplementedError naming ROADMAP A10.
 
 Usage:
   python -m distributed_llama_tpu_torch.cli inference --model m.m \
@@ -21,6 +23,7 @@ import sys
 
 import numpy as np
 
+from .parallel import make_mesh
 from .runtime.engine import InferenceEngine
 from .runtime.paged_kv import resolve_kv_layout
 from .tokenizer import (
@@ -60,6 +63,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="where the model runs (default cuda; no GPU is an error, not a "
         "fallback)",
     )
+    p.add_argument("--sp", type=int, default=1, help="sequence-parallel mesh size (long context)")
     p.add_argument(
         "--batch", type=int, default=1,
         help="engine batch rows (the CLI's modes run the same sequence in each)",
@@ -114,6 +118,21 @@ def _refuse_unported(args) -> None:
 def make_engine(args) -> InferenceEngine:
     _refuse_unported(args)
     max_chunk = args.prefill_chunk_size if args.prefill_chunk_size > 0 else args.max_chunk
+    mesh = None
+    if args.sp > 1:
+        # the CPU stands in for n devices, as the JAX tests' forced host
+        # devices do; on the card the mesh takes the visible cards
+        devices = [args.device] * args.sp if args.device == "cpu" else None
+        mesh = make_mesh(sp=args.sp, devices=devices)
+    # paged is the CLI's default, as in the JAX CLI (cli.py:236); library
+    # engines keep contiguous. A mesh keeps contiguous, as there (:236-250)
+    kv_layout = resolve_kv_layout(args.kv_layout, default="paged")
+    if kv_layout == "paged" and mesh is not None:
+        print(
+            "⚠️  --kv-layout paged covers single-chip and pure pp x tp "
+            "pipeline meshes: this topology keeps the contiguous KV layout"
+        )
+        kv_layout = "contiguous"
     return InferenceEngine(
         args.model,
         compute_dtype=args.compute_dtype,
@@ -123,10 +142,9 @@ def make_engine(args) -> InferenceEngine:
         max_chunk=max_chunk,
         device_decode=not args.host_decode,
         verbose=True,
-        device=args.device,
-        # paged is the CLI's default, as in the JAX CLI (cli.py:236);
-        # library engines keep contiguous
-        kv_layout=resolve_kv_layout(args.kv_layout, default="paged"),
+        device=None if mesh is not None else args.device,
+        mesh=mesh,
+        kv_layout=kv_layout,
         kv_page_size=args.kv_page_size or None,
         kv_pool_mb=args.kv_pool_mb or None,
     )

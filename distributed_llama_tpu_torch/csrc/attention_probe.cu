@@ -55,6 +55,7 @@ constexpr int ATT_THREADS = 128;
 constexpr int COMBINE_THREADS = 1024;  // second passes: HD columns x (1024 / HD) lanes
 constexpr int T = 64;  // KV rows per P12 tile
 constexpr float NEG_INF = -FLT_MAX;
+constexpr int MAX_DEVICES = 64;  // shared-memory opt-ins are kept per device
 
 __device__ __forceinline__ void add8(float* acc, const uint4& v) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -353,12 +354,17 @@ cudaError_t launch_attention(const void* q, int q_is_f32, const void* k, const v
                              float* m_part, float* l_part, float* acc_part, void* out,
                              cudaStream_t s) {
   const size_t smem = AttSmem<HD>::bytes(g);
-  static size_t raised = 48 * 1024;  // dynamic shared memory allowed so far
-  if (smem > raised) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attention_partial<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // dynamic shared memory allowed so far on each device (48 KB unasked)
+  static size_t raised[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > raised[dev]) {
+    e = cudaFuncSetAttribute(decode_attention_partial<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    raised = smem;
+    raised[dev] = smem;
   }
   // columns s < visible are visible: col0 + s <= pos
   const long long vis = (long long)pos - col0 + 1;
@@ -368,7 +374,7 @@ cudaError_t launch_attention(const void* q, int q_is_f32, const void* k, const v
       q, q_is_f32, reinterpret_cast<const __nv_bfloat16*>(k),
       reinterpret_cast<const __nv_bfloat16*>(v), n_kv, g, S, chunk, visible, scale, m_part,
       l_part, acc_part);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   decode_attention_combine<HD><<<b * n_kv * g, COMBINE_THREADS, 0, s>>>(
       m_part, l_part, acc_part, splits, g, out, q_is_f32);

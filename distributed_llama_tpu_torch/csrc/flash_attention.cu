@@ -1,8 +1,13 @@
 // K3: causal GQA flash attention forward over the KV cache, from a scalar
 // pos_start: o = softmax(q k^T * scale + causal) v, for a prefill chunk.
+// B8: the same loop over ONE shard of a sequence-parallel cache, whose row 0
+// sits at the global position col_offset, returning the unnormalized
+// online-softmax triple (o, m, l) for the cross-shard combine.
 //
 // Replaces the JAX package's ops/pallas_attention.py flash_attention (:199),
-// bodies _attend_block (:46) and _kernel (:103).
+// bodies _attend_block (:46) and _kernel (:103) (K3), and
+// flash_attention_partial (:398), bodies _attend_block and _kernel_partial
+// (:114) (B8).
 //
 // What bounds it on Hopper: at prefill chunk sizes (t <= 32 query tokens
 // against a cache view of S >= 256 rows), memory: the K/V rows up to the
@@ -16,15 +21,24 @@
 //   * the cache is read IN PLACE through strides from its [b, S, n_kv, hd]
 //     view of the stacked [L, b, S, n_kv, hd] cache: no transpose copy
 //     (the JAX wrapper's _flash_operands makes XLA materialize one).
-//   * KV tiles of 64 rows stream through shared memory only up to the
+//   * KV tiles of 64 rows stream through shared memory only while the
+//     tile's first global column col_offset + j * 64 is at or before the
 //     causal limit pos_start + (last token of the tile); later tiles are
-//     never loaded.
+//     never loaded. The mask compares global columns: col_offset + c <=
+//     row position. K3 is B8 at col_offset 0 with the normalizing epilogue,
+//     so the two share every operation up to it.
 //   * S = Q K^T and P V run on the tensor cores (WMMA bf16 m16n16k16, f32
 //     accumulate); each warp owns 16 rows. The online softmax runs in f32
 //     exactly as _attend_block: masked scores are NEG_INF, m is clamped to
 //     NEG_INF / 2 so fully masked rows stay finite, P is cast to bf16
 //     before PV, acc = acc * corr + pv and l = l * corr + sum(p) with
-//     separate roundings, and the end divides by max(l, 1e-30).
+//     separate roundings. K3 ends by dividing by max(l, 1e-30).
+//   * B8's epilogue writes acc (f32) as it stands, with m and l per row. A
+//     CTA whose rows see no column of the shard (the shard lies wholly in
+//     their future) loads nothing and still writes o = 0, l = 0 and the m
+//     of the JAX kernel: NEG_INF / 2 where the row's JAX query block
+//     (block_t tokens) visits a KV block of the shard, else NEG_INF (its
+//     scratch init). Either way the combine's e^(m - M) is exactly 0.
 //   * templated on head_dim 64 (Llama) and 128 (Qwen3).
 
 #include <cuda_bf16.h>
@@ -41,6 +55,7 @@ constexpr int ROWS = 64;   // score rows per CTA
 constexpr int BS = 64;     // KV rows per tile
 constexpr int WARPS = ROWS / 16;
 constexpr float NEG_INF = -FLT_MAX;
+constexpr int MAX_DEVICES = 64;  // shared-memory opt-ins are kept per device
 
 template <int HD>
 struct Smem {
@@ -58,13 +73,15 @@ struct Smem {
   static constexpr size_t total = q + k + v + s + p + 2 * o + stats;
 };
 
-template <int HD>
+template <int HD, bool PARTIAL>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_attention_fwd_kernel(const void* __restrict__ qp, int q_is_f32,
                            const __nv_bfloat16* __restrict__ kc,
                            const __nv_bfloat16* __restrict__ vc, long long ksb,
-                           long long kss, long long ksh, float* __restrict__ o, int t,
-                           int S, int n_heads, int n_kv, int pos_start, float scale) {
+                           long long kss, long long ksh, float* __restrict__ o,
+                           float* __restrict__ m_out, float* __restrict__ l_out, int t,
+                           int S, int n_heads, int n_kv, int pos_start, int col_offset,
+                           int block_t, float scale) {
   using L = Smem<HD>;
   extern __shared__ __align__(32) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -109,11 +126,11 @@ flash_attention_fwd_kernel(const void* __restrict__ qp, int q_is_f32,
     l_s[i] = 0.0f;
   }
 
-  // causal limit: the tile's last real token
+  // causal limit: the tile's last real token, in the shard's local rows
   const int last_row = min(row0 + ROWS, n_rows) - 1;
   const int last_pos = pos_start + last_row / g;
-  const int kv_end = min(S, last_pos + 1);
-  const int n_tiles = (kv_end + BS - 1) / BS;
+  const int kv_end = min(S, last_pos - col_offset + 1);
+  const int n_tiles = kv_end > 0 ? (kv_end + BS - 1) / BS : 0;
 
   const __nv_bfloat16* kbase = kc + (size_t)bi * ksb + (size_t)kvh * ksh;
   const __nv_bfloat16* vbase = vc + (size_t)bi * ksb + (size_t)kvh * ksh;
@@ -165,8 +182,8 @@ flash_attention_fwd_kernel(const void* __restrict__ qp, int q_is_f32,
       const int row_pos = pos_start + (row0 + r) / g;
       const int c0 = j * BS + lane;
       const int c1 = c0 + 32;
-      const bool ok0 = c0 <= row_pos && c0 < S;
-      const bool ok1 = c1 <= row_pos && c1 < S;
+      const bool ok0 = col_offset + c0 <= row_pos && c0 < S;
+      const bool ok1 = col_offset + c1 <= row_pos && c1 < S;
       const float s0 = ok0 ? __fmul_rn(Ss[r * L::SLD + lane], scale) : NEG_INF;
       const float s1 = ok1 ? __fmul_rn(Ss[r * L::SLD + lane + 32], scale) : NEG_INF;
       float mx = fmaxf(s0, s1);
@@ -226,32 +243,68 @@ flash_attention_fwd_kernel(const void* __restrict__ qp, int q_is_f32,
     if (R >= n_rows) continue;
     const int tok = R / g;
     const int head = kvh * g + R % g;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    o[(((size_t)bi * t + tok) * n_heads + head) * HD + dd] = Os[r * L::OLD + dd] / l;
+    const size_t idx = (((size_t)bi * t + tok) * n_heads + head) * HD + dd;
+    if constexpr (PARTIAL) {
+      o[idx] = Os[r * L::OLD + dd];
+    } else {
+      const float l = fmaxf(l_s[r], 1e-30f);
+      o[idx] = Os[r * L::OLD + dd] / l;
+    }
+  }
+  if constexpr (PARTIAL) {
+    for (int r = tid; r < ROWS; r += WARPS * 32) {
+      const int R = row0 + r;
+      if (R >= n_rows) continue;
+      const int tok = R / g;
+      const int head = kvh * g + R % g;
+      float mv = m_s[r];
+      if (!(mv > NEG_INF / 2)) {  // the row saw no column of the shard
+        const int q_last = pos_start + (tok / block_t) * block_t + block_t - 1;
+        mv = col_offset <= q_last ? NEG_INF / 2 : NEG_INF;
+      }
+      const size_t idx = ((size_t)bi * t + tok) * n_heads + head;
+      m_out[idx] = mv;
+      l_out[idx] = l_s[r];
+    }
   }
 }
 
-template <int HD>
+template <int HD, bool PARTIAL>
 cudaError_t launch(const void* q, int q_is_f32, const void* k, const void* v,
-                   long long ksb, long long kss, long long ksh, void* o, int b,
-                   int t, int S, int n_heads, int n_kv, int pos_start, float scale,
-                   cudaStream_t stream) {
+                   long long ksb, long long kss, long long ksh, void* o, void* m,
+                   void* l, int b, int t, int S, int n_heads, int n_kv, int pos_start,
+                   int col_offset, int block_t, float scale, cudaStream_t stream) {
   const size_t smem = Smem<HD>::total;
-  static bool raised = false;
-  if (!raised) {
-    cudaError_t e = cudaFuncSetAttribute(flash_attention_fwd_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  static bool raised[MAX_DEVICES] = {};  // the opt-in is per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(flash_attention_fwd_kernel<HD, PARTIAL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    raised = true;
+    raised[dev] = true;
   }
   const int g = n_heads / n_kv;
   dim3 grid(b * n_kv, (t * g + ROWS - 1) / ROWS);
-  flash_attention_fwd_kernel<HD><<<grid, WARPS * 32, smem, stream>>>(
+  flash_attention_fwd_kernel<HD, PARTIAL><<<grid, WARPS * 32, smem, stream>>>(
       q, q_is_f32, reinterpret_cast<const __nv_bfloat16*>(k),
       reinterpret_cast<const __nv_bfloat16*>(v), ksb, kss, ksh,
-      reinterpret_cast<float*>(o), t, S, n_heads, n_kv, pos_start, scale);
+      reinterpret_cast<float*>(o), reinterpret_cast<float*>(m),
+      reinterpret_cast<float*>(l), t, S, n_heads, n_kv, pos_start, col_offset, block_t,
+      scale);
   return cudaGetLastError();
+}
+
+cudaError_t check_args(const void* k, const void* v, long long ksb, long long kss,
+                       long long ksh, int b, int t, int S, int n_heads, int n_kv) {
+  if (b < 1 || t < 1 || S < 1 || n_kv < 1 || n_heads % n_kv != 0)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0 ||
+      (ksb | kss | ksh) % 8 != 0)
+    return cudaErrorMisalignedAddress;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -268,17 +321,38 @@ extern "C" int flash_attention_fwd(const void* q, int q_is_f32, const void* k,
                                    long long ksh, void* o, int b, int t, int S,
                                    int n_heads, int n_kv, int head_dim, int pos_start,
                                    float scale, void* stream) {
-  if (b < 1 || t < 1 || S < 1 || n_kv < 1 || n_heads % n_kv != 0)
-    return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0 ||
-      (ksb | kss | ksh) % 8 != 0)
-    return (int)cudaErrorMisalignedAddress;
+  const cudaError_t bad = check_args(k, v, ksb, kss, ksh, b, t, S, n_heads, n_kv);
+  if (bad != cudaSuccess) return (int)bad;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return (int)launch<64>(q, q_is_f32, k, v, ksb, kss, ksh, o, b, t, S, n_heads, n_kv,
-                           pos_start, scale, s);
+    return (int)launch<64, false>(q, q_is_f32, k, v, ksb, kss, ksh, o, nullptr, nullptr, b,
+                                  t, S, n_heads, n_kv, pos_start, 0, 1, scale, s);
   if (head_dim == 128)
-    return (int)launch<128>(q, q_is_f32, k, v, ksb, kss, ksh, o, b, t, S, n_heads, n_kv,
-                            pos_start, scale, s);
+    return (int)launch<128, false>(q, q_is_f32, k, v, ksb, kss, ksh, o, nullptr, nullptr, b,
+                                   t, S, n_heads, n_kv, pos_start, 0, 1, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B8: as flash_attention_fwd over one shard whose row 0 is the global
+// position col_offset; o [b, t, n_heads, hd] f32 unnormalized, m and l
+// [b, t, n_heads] f32, all contiguous; block_t: the JAX kernel's query block
+// (min(512, t), halved until it divides t), which decides a row's m when it
+// sees no column of the shard.
+extern "C" int flash_attention_partial_fwd(const void* q, int q_is_f32, const void* k,
+                                           const void* v, long long ksb, long long kss,
+                                           long long ksh, void* o, void* m, void* l, int b,
+                                           int t, int S, int n_heads, int n_kv,
+                                           int head_dim, int pos_start, int col_offset,
+                                           int block_t, float scale, void* stream) {
+  const cudaError_t bad = check_args(k, v, ksb, kss, ksh, b, t, S, n_heads, n_kv);
+  if (bad != cudaSuccess) return (int)bad;
+  if (block_t < 1 || t % block_t != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (head_dim == 64)
+    return (int)launch<64, true>(q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, b, t, S,
+                                 n_heads, n_kv, pos_start, col_offset, block_t, scale, s);
+  if (head_dim == 128)
+    return (int)launch<128, true>(q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, b, t, S,
+                                  n_heads, n_kv, pos_start, col_offset, block_t, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -45,6 +45,7 @@ constexpr int WARPS = 4;
 constexpr int RT = 16;       // score rows per CTA
 constexpr int PS_MAX = 64;   // largest page size the shared buffers hold
 constexpr float NEG_INF = -FLT_MAX;
+constexpr int MAX_DEVICES = 64;  // shared-memory opt-ins are kept per device
 
 template <int HD>
 size_t smem_bytes(int ps) {
@@ -212,13 +213,17 @@ cudaError_t launch(const void* q, int q_is_f32, const int8_t* k, const int8_t* v
                    const float* ks, const float* vs, const int* table, int table_stride,
                    const long long* pos_base, void* out, int b, int t, int n_heads, int n_kv,
                    int ps, int n_read, int n_pages, float scale, cudaStream_t stream) {
-  static bool raised = false;
-  if (!raised) {
-    cudaError_t e = cudaFuncSetAttribute(paged_attention_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes<HD>(PS_MAX));
+  static bool raised[MAX_DEVICES] = {};  // the opt-in is per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(paged_attention_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes<HD>(PS_MAX));
     if (e != cudaSuccess) return e;
-    raised = true;
+    raised[dev] = true;
   }
   const int g = n_heads / n_kv;
   dim3 grid(b * n_kv, (t * g + RT - 1) / RT);

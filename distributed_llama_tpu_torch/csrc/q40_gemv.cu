@@ -67,6 +67,7 @@ constexpr int QB = 32;        // Q40/Q80 block
 constexpr int K1_COLS = 32;   // K1's output columns per CTA (one per lane)
 constexpr int K1_KSPLIT = 8;  // K1's warps per CTA, each takes blocks b = warp + 8j
 constexpr unsigned NIB = 0x0F0F0F0Fu;
+constexpr int MAX_DEVICES = 64;  // shared-memory opt-ins are kept per device
 
 __global__ void quantize_rows_q80(const void* __restrict__ x, int x_is_bf16,
                                   int in_features, int nb, int rows,
@@ -231,14 +232,18 @@ size_t gemv_smem(int nb) {
          (size_t)KSPLIT * R * COLS * sizeof(float);
 }
 
-// Allow `smem` bytes of dynamic shared memory for `kernel` (above 48 KB it
-// must be asked for); `raised` is the kernel's allowance so far.
+// Allow `smem` bytes of dynamic shared memory for `kernel` on the current
+// device (above 48 KB it must be asked for, device by device); `raised`
+// holds the kernel's allowance so far on each device.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem, size_t* raised) {
-  if (smem <= *raised) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e == cudaSuccess) *raised = smem;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem <= 48 * 1024 || smem <= raised[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) raised[dev] = smem;
   return e;
 }
 
@@ -247,8 +252,8 @@ cudaError_t launch_gemv(const int8_t* x8, const float* xs, const int* bs,
                         const int* q, const __half* d, float* out, int nb,
                         int out_f, cudaStream_t stream) {
   const size_t smem = gemv_smem<R, COLS, KSPLIT>(nb);
-  static size_t raised = 48 * 1024;  // dynamic shared memory allowed so far
-  cudaError_t e = allow_smem(q40_gemv_kernel<R, COLS, KSPLIT>, smem, &raised);
+  static size_t raised[MAX_DEVICES] = {};  // dynamic shared memory allowed so far
+  cudaError_t e = allow_smem(q40_gemv_kernel<R, COLS, KSPLIT>, smem, raised);
   if (e != cudaSuccess) return e;
   dim3 block(32, KSPLIT);
   dim3 grid((out_f + COLS - 1) / COLS);
@@ -366,8 +371,8 @@ extern "C" int q40_gemv_q80_indexed(const void* x, int x_is_bf16, int x_rows, co
   cudaError_t e = launch_quantize(x, x_is_bf16, x_rows, in_features, x8, xs, bs, s);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = gemv_smem<1, K1_COLS, K1_KSPLIT>(nb);
-  static size_t raised = 48 * 1024;
-  e = allow_smem(q40_gemv_indexed_kernel, smem, &raised);
+  static size_t raised[MAX_DEVICES] = {};
+  e = allow_smem(q40_gemv_indexed_kernel, smem, raised);
   if (e != cudaSuccess) return (int)e;
   dim3 block(K1_COLS, K1_KSPLIT);
   dim3 grid((out_features + K1_COLS - 1) / K1_COLS, n_slots);

@@ -6,9 +6,10 @@ The counterpart of the JAX package's `models/transformer.py`: its `linear`
 `_moe_decode_i8` :270, single device), `_attention_auto` (:135),
 `_fused_paged_eligible` (:164), the paged branch of `_layer` (:410-493), its
 stacked contiguous branch with scalar or per-row positions and the int8 arm
-(:495-558), and `forward_uncompiled` (:660). PyTorch runs eagerly, so the
-scan over layers is a Python loop and each matmul selects its layer inside
-the kernel.
+(:495-558), its sequence-parallel branch (:591-640, driven by
+parallel/pipeline.py), and `forward_uncompiled` (:660). PyTorch runs
+eagerly, so the scan over layers is a Python loop and each matmul selects
+its layer inside the kernel.
 
 Math per layer (reference att segment src/llm.cpp:278-418, ff segment
 src/llm.cpp:421-569):
@@ -44,7 +45,9 @@ import torch
 
 from ..formats.mfile import HiddenAct
 from ..ops.activations import gelu, silu
-from ..ops.attention import gqa_attention
+from ..ops.attention import (
+    flash_attention_sp, gqa_attention, gqa_attention_sp, scatter_cache_update_sp,
+)
 from ..ops.cuda_attention import (
     flash_attention, flash_attention_aligned, paged_attention_eligible, paged_flash_attention,
 )
@@ -333,6 +336,45 @@ def _paged_attention(cfg, q, k, v, positions, pos_start, cache: KVCache, li, ix:
     return _attention_auto(cfg, q, k_view, v_view, positions, pos_start)
 
 
+@dataclass(frozen=True)
+class SpShards:
+    """A sequence-parallel cache (parallel/pipeline.py): shard i's [L, b,
+    local_seq, n_kv, hd] slab `caches[i]`, on its own device, holds the
+    global positions offsets[i] + [0, local_seq)."""
+
+    caches: tuple  # KVCache per shard
+    offsets: tuple  # int per shard
+
+
+def _sp_attention(cfg, q, k, v, positions, pos_start, sp: SpShards, li, kv_len):
+    """The sp branch of the JAX `_layer` (:591-640). Each shard writes the
+    rows of this step that land in it (`scatter_cache_update_sp`) and reads
+    at most local_kv = min(kv_len, local_seq) rows. That bound is exact: a
+    row past it lies past the global bucket (shard 0) or at a global
+    position >= kv_len (later shards), in the future either way. Prefill
+    chunks on a bf16 cache pass `_attention_auto`'s gate on the shard's
+    view (pos_start is always a scalar here) and run B8 on every shard
+    (`flash_attention_sp`); the rest run `gqa_attention_sp`.
+
+    Everything outside this function runs once, on the mesh's first
+    device, where JAX repeats it on every shard: the same deterministic
+    computation, so the same numbers. Here only the cache writes and the
+    per-shard attention run on the shards' devices."""
+    kw, vw = k.to(cfg.kv_dtype), v.to(cfg.kv_dtype)
+    k_views, v_views = [], []
+    for cache, off in zip(sp.caches, sp.offsets):
+        dev = cache.k.device
+        scatter_cache_update_sp(cache.k, kw.to(dev), pos_start, off, layer=li)
+        scatter_cache_update_sp(cache.v, vw.to(dev), pos_start, off, layer=li)
+        local_seq = cache.k.shape[2]
+        local_kv = min(kv_len, local_seq) if kv_len is not None else local_seq
+        k_views.append(cache.k[li, :, :local_kv])
+        v_views.append(cache.v[li, :, :local_kv])
+    if k_views[0].dtype == torch.bfloat16 and flash_attention_aligned(q, k_views[0], q.shape[1]):
+        return flash_attention_sp(q, k_views, v_views, pos_start, sp.offsets)
+    return gqa_attention_sp(q, k_views, v_views, positions, sp.offsets)
+
+
 def _layer(
     cfg: ModelConfig,
     rope: tuple,  # the (cos, sin) rows of `positions` (ops/rope.py rope_rows)
@@ -340,11 +382,11 @@ def _layer(
     positions: torch.Tensor,  # [b, t]
     pos_start,  # int (rows aligned) or [b] tensor (per-row positions)
     lp: LayerParams,
-    cache: KVCache,
+    cache,  # KVCache, or SpShards (a sequence-parallel cache)
     li: int,
     kv_len: int | None,
     kv_index,  # _PagedIndex (paged layout), a `_row_window` (contiguous at
-    # per-row positions) or None (contiguous, scalar pos_start)
+    # per-row positions) or None (contiguous at a scalar pos_start, or sp)
 ) -> torch.Tensor:
     b, t, _ = x.shape
     y = rms_norm(x, lp.norm0[li], cfg.norm_epsilon)
@@ -359,7 +401,9 @@ def _layer(
     q = rotate(q, rope, cfg.rope_type).contiguous()
     k = rotate(k, rope, cfg.rope_type)
 
-    if isinstance(kv_index, _PagedIndex):
+    if isinstance(cache, SpShards):
+        a = _sp_attention(cfg, q, k, v, positions, pos_start, cache, li, kv_len)
+    elif isinstance(kv_index, _PagedIndex):
         a = _paged_attention(cfg, q, k, v, positions, pos_start, cache, li, kv_index)
     else:
         a = _contiguous_attention(cfg, q, k, v, positions, pos_start, cache, li, kv_len,
@@ -395,29 +439,44 @@ def forward(
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     if (page_table is None) != (page_size is None):
         raise ValueError("the paged layout needs both page_table and page_size")
+    limit = cfg.seq_len if page_table is not None else cache.seq_len
+    positions, pos_start = step_positions(tokens, pos_start, limit)
+    # the layer-invariant index work, once per forward
+    if page_table is not None:
+        sink = cache.k.shape[1] - 1
+        kv_index = _paged_index(cfg, positions, page_table, page_size, sink, kv_len)
+    elif isinstance(pos_start, torch.Tensor):
+        kv_index = _row_window(pos_start, cache.seq_len, tokens.shape[1])
+    else:
+        kv_index = None
+    return forward_layers(cfg, params, rope, cache, tokens, positions, pos_start, logits_mode,
+                          kv_len, kv_index)
+
+
+def step_positions(tokens: torch.Tensor, pos_start, limit: int) -> tuple:
+    """(positions [b, t], pos_start) of one step: pos_start an int, checked
+    against the cache's `limit`, or a [b] tensor of each row's first
+    position (returned as an int64 tensor)."""
     b, t = tokens.shape
     steps = torch.arange(t, device=tokens.device)
     if isinstance(pos_start, torch.Tensor):
         if pos_start.shape != (b,):
             raise ValueError(f"per-row positions must be [{b}], got {tuple(pos_start.shape)}")
         positions = pos_start.long()[:, None] + steps
-        pos_start = positions[:, 0]
-    else:
-        pos_start = int(pos_start)
-        limit = cfg.seq_len if page_table is not None else cache.seq_len
-        if pos_start < 0 or pos_start + t > limit:
-            raise ValueError(
-                f"positions {pos_start}..{pos_start + t - 1} do not fit the cache ({limit})"
-            )
-        positions = (pos_start + steps).expand(b, t)
-    # the layer-invariant index work, once per forward
-    if page_table is not None:
-        sink = cache.k.shape[1] - 1
-        kv_index = _paged_index(cfg, positions, page_table, page_size, sink, kv_len)
-    elif isinstance(pos_start, torch.Tensor):
-        kv_index = _row_window(pos_start, cache.seq_len, t)
-    else:
-        kv_index = None
+        return positions, positions[:, 0]
+    pos_start = int(pos_start)
+    if pos_start < 0 or pos_start + t > limit:
+        raise ValueError(
+            f"positions {pos_start}..{pos_start + t - 1} do not fit the cache ({limit})"
+        )
+    return (pos_start + steps).expand(b, t), pos_start
+
+
+def forward_layers(cfg, params, rope, cache, tokens, positions, pos_start, logits_mode, kv_len,
+                   kv_index) -> torch.Tensor:
+    """Embedding, every layer and the logits of one step, once the caller
+    has laid out its positions and cache index (`forward`), or passed a
+    sequence-parallel cache as `cache` (parallel/pipeline.py)."""
     x = params.embedding[tokens].to(torch.float32)
     rows = rope_rows(rope, positions)
     for li in range(cfg.n_layers):

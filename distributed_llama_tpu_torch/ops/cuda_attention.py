@@ -1,6 +1,6 @@
-"""K3: causal GQA flash attention for prefill chunks, and K5: int8 paged
-decode attention through the page table, each beside its plain PyTorch
-version.
+"""K3: causal GQA flash attention for prefill chunks, B8: its shard-local
+partial for a sequence-parallel cache, and K5: int8 paged decode attention
+through the page table, each beside its plain PyTorch version.
 
 `flash_attention` (csrc/flash_attention.cu) replaces the JAX package's
 `ops/pallas_attention.py:flash_attention` (:199), bodies `_attend_block`
@@ -11,6 +11,16 @@ folded into the score rows. The kernel reads the cache in place through its
 strides; the plain version repeats the Pallas kernel's blocking (query
 blocks of min(512, t), KV blocks of min(1024, S), invisible blocks skipped)
 so that it follows the JAX kernel's rounding as closely as torch allows.
+
+`flash_attention_partial` (B8, the same source) replaces
+`ops/pallas_attention.py:flash_attention_partial` (:398), body
+`_kernel_partial` (:114): K3's loop over one shard of a sequence-parallel
+cache whose row 0 is the global position `col_offset`, returning the
+unnormalized triple (o, m, l) that `ops/attention.py:flash_attention_sp`
+combines across shards. A row that sees no column of the shard gets o = 0,
+l = 0 and the JAX kernel's m: NEG_INF / 2 where its query block (the JAX
+kernel's block_t tokens) visits a KV block of the shard, NEG_INF (the
+scratch init) where it visits none.
 
 `paged_flash_attention` (csrc/paged_attention.cu, K5) replaces
 `ops/pallas_attention.py:paged_flash_attention` (:313), body
@@ -48,6 +58,14 @@ _SIG = {
         kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
         kernels.I, kernels.F, kernels.P,
     ),
+    # q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, b, t, S, n_heads, n_kv, hd,
+    # pos_start, col_offset, block_t, scale, stream
+    "flash_attention_partial_fwd": (
+        kernels.P, kernels.I, kernels.P, kernels.P,
+        kernels.LL, kernels.LL, kernels.LL, kernels.P, kernels.P, kernels.P,
+        kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
+        kernels.I, kernels.I, kernels.I, kernels.F, kernels.P,
+    ),
 }
 _PAGED_SIG = {
     # q, q_is_f32, k_pool, v_pool, k_scale, v_scale, table, table_stride,
@@ -75,25 +93,28 @@ def flash_attention_aligned(q: torch.Tensor, k_cache: torch.Tensor, t: int) -> b
     )
 
 
-def flash_attention_plain(
-    q: torch.Tensor,
-    k_cache: torch.Tensor,
-    v_cache: torch.Tensor,
-    pos_start: int,
-    scale: float | None = None,
-    block_t: int = DEFAULT_BLOCK_T,
-    block_s: int = DEFAULT_BLOCK_S,
-) -> torch.Tensor:
-    """K3's plain version: q [b, t, H, hd], k/v [b, S, n_kv, hd] -> [b, t, H,
-    hd] in q.dtype. Dots take exact products of bf16 values in f32."""
-    b, t, n_heads, hd = q.shape
-    S, n_kv = k_cache.shape[1], k_cache.shape[2]
-    g = n_heads // n_kv
-    if scale is None:
-        scale = 1.0 / (hd ** 0.5)
+def _query_block(t: int, block_t: int = DEFAULT_BLOCK_T) -> int:
+    """The JAX kernel's query block: min(block_t, t), halved until it
+    divides t (`_flash_operands`)."""
     bt = min(block_t, t)
     while t % bt:
         bt //= 2
+    return bt
+
+
+def _flash_blocks(q, k_cache, v_cache, pos_start: int, col_offset: int, scale: float,
+                  block_t: int, block_s: int):
+    """The Pallas kernels' blocked loop (`_attend_block`) in torch: query
+    blocks of `_query_block(t)` tokens, KV blocks of min(block_s, S) rows
+    halved until they divide S, a block skipped unless its first global
+    column col_offset + si * bs is at or before the query block's last
+    position. Returns the unnormalized (acc [b * n_kv, t * g, hd], m, l
+    [b * n_kv, t * g, 1]) in f32, rows folded as `_flash_operands` folds
+    them. Dots take exact products of bf16 values in f32."""
+    b, t, n_heads, hd = q.shape
+    S, n_kv = k_cache.shape[1], k_cache.shape[2]
+    g = n_heads // n_kv
+    bt = _query_block(t, block_t)
     bs = min(block_s, S)
     while S % bs:
         bs //= 2
@@ -107,8 +128,8 @@ def flash_attention_plain(
     v3 = v_cache.permute(0, 2, 1, 3).reshape(b * n_kv, S, hd)
     vdt = v3.dtype
     v3 = v3.to(torch.float32)
-    out = torch.empty((b * n_kv, t * g, hd), dtype=torch.float32, device=q.device)
     rows = bt * g
+    accs, ms, ls = [], [], []
     for ti in range(t // bt):
         qb = q4[:, ti * rows : (ti + 1) * rows]
         m = torch.full((b * n_kv, rows, 1), NEG_INF, device=q.device)
@@ -117,10 +138,10 @@ def flash_attention_plain(
         row_pos = pos_start + ti * bt + torch.arange(rows, device=q.device)[:, None] // g
         last_pos = pos_start + ti * bt + bt - 1
         for si in range(S // bs):
-            if si * bs > last_pos:
+            if col_offset + si * bs > last_pos:
                 continue
             s = torch.matmul(qb, k3[:, si * bs : (si + 1) * bs].transpose(1, 2)) * scale
-            col_pos = si * bs + torch.arange(bs, device=q.device)[None, :]
+            col_pos = col_offset + si * bs + torch.arange(bs, device=q.device)[None, :]
             vis = col_pos <= row_pos  # [rows, bs]
             s = torch.where(vis, s, NEG_INF)
             m_cur = torch.maximum(s.amax(dim=-1, keepdim=True), m)
@@ -131,18 +152,66 @@ def flash_attention_plain(
             pv = torch.matmul(p.to(vdt).to(torch.float32), v3[:, si * bs : (si + 1) * bs])
             acc = acc * corr + pv
             m = m_safe
-        out[:, ti * rows : (ti + 1) * rows] = acc / torch.clamp(l, min=1e-30)
+        accs.append(acc)
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(accs, dim=1), torch.cat(ms, dim=1), torch.cat(ls, dim=1)
+
+
+def _unfold(x: torch.Tensor, b: int, t: int, n_kv: int) -> torch.Tensor:
+    """[b * n_kv, t * g, ...] folded rows -> [b, t, n_kv * g, ...]."""
+    g = x.shape[1] // t
+    rest = x.shape[2:]
     return (
-        out.reshape(b, n_kv, t, g, hd).permute(0, 2, 1, 3, 4)
-        .reshape(b, t, n_heads, hd).to(q.dtype)
+        x.reshape(b, n_kv, t, g, *rest).transpose(1, 2).reshape(b, t, n_kv * g, *rest)
     )
 
 
-def _launch(q, k_cache, v_cache, pos_start: int, scale: float) -> torch.Tensor:
-    b, t, n_heads, hd = q.shape
-    S, n_kv = k_cache.shape[1], k_cache.shape[2]
+def flash_attention_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos_start: int,
+    scale: float | None = None,
+    block_t: int = DEFAULT_BLOCK_T,
+    block_s: int = DEFAULT_BLOCK_S,
+) -> torch.Tensor:
+    """K3's plain version: q [b, t, H, hd], k/v [b, S, n_kv, hd] -> [b, t, H,
+    hd] in q.dtype."""
+    b, t, _, hd = q.shape
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    acc, _, l = _flash_blocks(q, k_cache, v_cache, pos_start, 0, scale, block_t, block_s)
+    out = acc / torch.clamp(l, min=1e-30)
+    return _unfold(out, b, t, k_cache.shape[2]).to(q.dtype)
+
+
+def flash_attention_partial_plain(
+    q: torch.Tensor,
+    k_local: torch.Tensor,
+    v_local: torch.Tensor,
+    pos_start: int,
+    col_offset: int,
+    scale: float | None = None,
+    block_t: int = DEFAULT_BLOCK_T,
+    block_s: int = DEFAULT_BLOCK_S,
+) -> tuple:
+    """B8's plain version: q [b, t, H, hd], one shard's k/v [b, S_local,
+    n_kv, hd] whose row 0 is the global position `col_offset` -> (o [b, t,
+    H, hd], m [b, t, H], l [b, t, H]), all f32, o unnormalized."""
+    b, t, _, hd = q.shape
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    acc, m, l = _flash_blocks(q, k_local, v_local, pos_start, col_offset, scale, block_t,
+                              block_s)
+    n_kv = k_local.shape[2]
+    return _unfold(acc, b, t, n_kv), _unfold(m[..., 0], b, t, n_kv), _unfold(l[..., 0], b, t, n_kv)
+
+
+def _check_launch(q, k_cache, v_cache) -> None:
+    hd = q.shape[3]
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
-        raise TypeError("flash_attention's kernel takes a bfloat16 cache")
+        raise TypeError("the flash kernels take a bfloat16 cache")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if hd not in HEAD_DIMS:
@@ -156,16 +225,29 @@ def _launch(q, k_cache, v_cache, pos_start: int, scale: float) -> torch.Tensor:
     for t_ in (q, k_cache, v_cache):
         if t_.device != q.device:
             raise ValueError("q, k and v must be on one device")
+
+
+def _launch(q, k_cache, v_cache, pos_start: int, scale: float) -> torch.Tensor:
+    b, t, n_heads, hd = q.shape
+    S, n_kv = k_cache.shape[1], k_cache.shape[2]
+    _check_launch(q, k_cache, v_cache)
     lib = kernels.load("flash_attention", _SIG)
     out = torch.empty((b, t, n_heads, hd), dtype=torch.float32, device=q.device)
     ksb, kss, ksh, _ = k_cache.stride()
-    rc = lib.flash_attention_fwd(
+    kernels.launch(
+        lib, "flash_attention_fwd", q,
         q.data_ptr(), int(q.dtype == torch.float32), k_cache.data_ptr(),
         v_cache.data_ptr(), ksb, kss, ksh, out.data_ptr(), b, t, S, n_heads,
-        n_kv, hd, int(pos_start), float(scale), kernels.stream_of(q),
+        n_kv, hd, int(pos_start), float(scale),
     )
-    kernels.check(lib, rc, "flash_attention_fwd")
     return out.to(q.dtype)
+
+
+def _check_flash_shapes(q, k_cache) -> None:
+    if q.ndim != 4 or k_cache.ndim != 4 or q.shape[0] != k_cache.shape[0]:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k_cache.shape)}")
+    if q.shape[2] % k_cache.shape[2] or q.shape[3] != k_cache.shape[3]:
+        raise ValueError("head counts or head_dim disagree")
 
 
 def flash_attention(
@@ -178,10 +260,7 @@ def flash_attention(
     """Blocked causal GQA attention with positions = pos_start + arange(t);
     the contract of `gqa_attention`. q [b, t, H, hd]; k/v [b, S, n_kv, hd]
     (views of the stacked cache are read in place). Returns q.dtype."""
-    if q.ndim != 4 or k_cache.ndim != 4 or q.shape[0] != k_cache.shape[0]:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k_cache.shape)}")
-    if q.shape[2] % k_cache.shape[2] or q.shape[3] != k_cache.shape[3]:
-        raise ValueError("head counts or head_dim disagree")
+    _check_flash_shapes(q, k_cache)
     if scale is None:
         scale = 1.0 / (q.shape[3] ** 0.5)
     if q.device.type == "cpu":
@@ -194,6 +273,48 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_partial(
+    q: torch.Tensor,
+    k_local: torch.Tensor,
+    v_local: torch.Tensor,
+    pos_start: int,
+    col_offset: int,
+    scale: float | None = None,
+) -> tuple:
+    """Shard-local blocked attention (B8) for the sequence-parallel combine:
+    q [b, t, H, hd] at positions pos_start + arange(t); one shard's k/v [b,
+    S_local, n_kv, hd] (views read in place) whose row 0 is the global
+    position `col_offset`. Returns the unnormalized (o [b, t, H, hd], m [b,
+    t, H], l [b, t, H]), all f32, in fresh tensors."""
+    _check_flash_shapes(q, k_local)
+    if scale is None:
+        scale = 1.0 / (q.shape[3] ** 0.5)
+    if q.device.type == "cpu":
+        return flash_attention_partial_plain(q, k_local, v_local, int(pos_start),
+                                             int(col_offset), scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_launch(q, k_local, v_local)
+    b, t, n_heads, hd = q.shape
+    S, n_kv = k_local.shape[1], k_local.shape[2]
+    lib = kernels.load("flash_attention", _SIG)
+    o = torch.empty((b, t, n_heads, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, t, n_heads), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, t, n_heads), dtype=torch.float32, device=q.device)
+    ksb, kss, ksh, _ = k_local.stride()
+    kernels.launch(
+        lib, "flash_attention_partial_fwd", q,
+        q.data_ptr(), int(q.dtype == torch.float32), k_local.data_ptr(), v_local.data_ptr(),
+        ksb, kss, ksh, o.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, S, n_heads, n_kv, hd,
+        int(pos_start), int(col_offset), _query_block(t), float(scale),
+    )
+    flash_attention_partial.launches += 1
+    return o, m, l
+
+
+flash_attention_partial.launches = 0
 
 
 def paged_attention_eligible(q: torch.Tensor, n_kv: int, page_size: int) -> bool:
@@ -316,13 +437,13 @@ def _launch_paged(q, k_pool, v_pool, k_scale, v_scale, layer, pos_base, page_tab
         raise ValueError("the page table must be on q's device with unit column stride")
     lib = kernels.load("paged_attention", _PAGED_SIG)
     out = torch.empty_like(q)
-    rc = lib.paged_attention_fwd(
+    kernels.launch(
+        lib, "paged_attention_fwd", q,
         q.data_ptr(), int(q.dtype == torch.float32), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(), page_table.stride(0),
         pos_base.data_ptr(), out.data_ptr(), b, t, n_heads, n_kv, hd, ps, int(n_read), P,
-        int(layer), float(scale), kernels.stream_of(q),
+        int(layer), float(scale),
     )
-    kernels.check(lib, rc, "paged_attention_fwd")
     return out
 
 
@@ -363,4 +484,4 @@ def paged_flash_attention(
 
 paged_flash_attention.launches = 0
 
-KERNELS = (flash_attention, paged_flash_attention)
+KERNELS = (flash_attention, flash_attention_partial, paged_flash_attention)

@@ -310,12 +310,12 @@ def _launch_gemv(x, q, d, layer: int) -> torch.Tensor:
     lib = kernels.load("q40_gemv", _GEMV_SIG)
     out = torch.empty((rows, out_f), dtype=torch.float32, device=x.device)
     x8, xs, bs = _q80_scratch(rows, nb, x.device)
-    rc = lib.q40_gemv_q80(
+    kernels.launch(
+        lib, "q40_gemv_q80", x,
         x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(), d.data_ptr(),
         out.data_ptr(), rows, in_f, out_f, layer,
-        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(), kernels.stream_of(x),
+        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(),
     )
-    kernels.check(lib, rc, "q40_gemv_q80")
     return out.reshape(*x.shape[:-1], out_f)
 
 
@@ -327,11 +327,11 @@ def launch_q80_prologue(x: torch.Tensor):
     rows, in_f = x.shape
     lib = kernels.load("q40_gemv", _GEMV_SIG)
     x8, xs, bs = _q80_scratch(rows, in_f // Q_BLOCK, x.device)
-    rc = lib.q40_quantize_q80(
+    kernels.launch(
+        lib, "q40_quantize_q80", x,
         x.data_ptr(), int(x.dtype == torch.bfloat16), rows, in_f,
-        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(), kernels.stream_of(x),
+        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(),
     )
-    kernels.check(lib, rc, "q40_quantize_q80")
     return x8, xs, bs
 
 
@@ -344,11 +344,11 @@ def launch_gemv_body(x8, xs, bs, q, d, cols: int, ksplit: int) -> torch.Tensor:
     out_f = q.shape[-1]
     lib = kernels.load("q40_gemv", _GEMV_SIG)
     out = torch.empty((rows, out_f), dtype=torch.float32, device=x8.device)
-    rc = lib.q40_gemv_body(
+    kernels.launch(
+        lib, "q40_gemv_body", x8,
         x8.data_ptr(), xs.data_ptr(), bs.data_ptr(), q.data_ptr(), d.data_ptr(), out.data_ptr(),
-        rows, in_f, out_f, cols, ksplit, kernels.stream_of(x8),
+        rows, in_f, out_f, cols, ksplit,
     )
-    kernels.check(lib, rc, "q40_gemv_body")
     return out
 
 
@@ -360,11 +360,11 @@ def _launch_gemm(x, q, d, layer: int) -> torch.Tensor:
     rows = xb.shape[0]
     lib = kernels.load("q40_gemm", _GEMM_SIG)
     out = torch.empty((rows, out_f), dtype=torch.float32, device=x.device)
-    rc = lib.q40_gemm_bf16(
+    kernels.launch(
+        lib, "q40_gemm_bf16", x,
         xb.data_ptr(), q.data_ptr(), d.data_ptr(), out.data_ptr(),
-        rows, in_f, out_f, layer, kernels.stream_of(x),
+        rows, in_f, out_f, layer,
     )
-    kernels.check(lib, rc, "q40_gemm_bf16")
     return out.reshape(*x.shape[:-1], out_f)
 
 
@@ -472,11 +472,11 @@ def launch_i8_mma(x8, xs, w, weights: int, dot: str, dt) -> torch.Tensor:
     out = torch.empty((R, out_f), dtype=torch.float32, device=x8.device)
     part = torch.empty((splits, R, out_f) if splits > 1 else (1,), dtype=torch.float32,
                        device=x8.device)
-    rc = lib.q40_i8_mma(
+    kernels.launch(
+        lib, "q40_i8_mma", x8,
         x8.data_ptr(), xs.data_ptr(), w.data_ptr(), weights, DOTS[dot], dt.data_ptr(),
-        out.data_ptr(), part.data_ptr(), R, nb, out_f, splits, kernels.stream_of(x8),
+        out.data_ptr(), part.data_ptr(), R, nb, out_f, splits,
     )
-    kernels.check(lib, rc, "q40_i8_mma")
     return out
 
 
@@ -580,12 +580,12 @@ def q40_gemv_q80_indexed(x, q, d, idx) -> torch.Tensor:
     lib = kernels.load("q40_gemv", _GEMV_SIG)
     out = torch.empty((n, out_f), dtype=torch.float32, device=x.device)
     x8, xs, bs = _q80_scratch(rows, nb, x.device)
-    rc = lib.q40_gemv_q80_indexed(
+    kernels.launch(
+        lib, "q40_gemv_q80_indexed", x,
         x.data_ptr(), int(x.dtype == torch.bfloat16), rows, q.data_ptr(), d.data_ptr(),
         idx.data_ptr(), n, n_groups, out.data_ptr(), in_f, out_f,
-        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(), kernels.stream_of(x),
+        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(),
     )
-    kernels.check(lib, rc, "q40_gemv_q80_indexed")
     q40_gemv_q80_indexed.launches += 1
     return out
 
@@ -615,12 +615,11 @@ def q40_grouped_gemm_bf16(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
     xb = xp.to(torch.bfloat16).contiguous()
     lib = kernels.load("q40_grouped_gemm", _GROUPED_SIG)
     out = torch.empty((xp.shape[0], out_f), dtype=torch.float32, device=xp.device)
-    rc = lib.q40_grouped_gemm_bf16(
+    kernels.launch(
+        lib, "q40_grouped_gemm_bf16", xp,
         xb.data_ptr(), q.data_ptr(), d.data_ptr(), block_expert.data_ptr(), n_blocks,
         q.numel() // (nb * 4 * out_f), out.data_ptr(), block_r, in_f, out_f,
-        kernels.stream_of(xp),
     )
-    kernels.check(lib, rc, "q40_grouped_gemm_bf16")
     q40_grouped_gemm_bf16.launches += 1
     return out
 

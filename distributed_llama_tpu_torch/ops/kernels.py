@@ -130,7 +130,16 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def stream_of(t) -> int:
+def launch(lib: ctypes.CDLL, fn: str, t, *args) -> None:
+    """Call the C entry `fn` of `lib` with `args` and the current stream of
+    the card that holds the tensor `t`, that card made current for the
+    call; raise if it reports a CUDA error. A launch goes to the current
+    device (stream handle 0 is that device's default stream), and a
+    kernel's shared-memory opt-in is set per device, so a kernel on
+    another card than the current one would otherwise run on the wrong
+    card, unordered with the work queued on its own."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    with torch.cuda.device(t.device):
+        rc = getattr(lib, fn)(*args, torch.cuda.current_stream(t.device).cuda_stream)
+    check(lib, rc, fn)

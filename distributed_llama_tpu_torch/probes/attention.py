@@ -140,9 +140,11 @@ def pure_read(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     lib = kernels.load("attention_probe", _SIG)
     part = torch.empty((b, splits, hd), dtype=torch.float32, device=k.device)
     out = torch.empty((b, 1, hd), dtype=torch.float32, device=k.device)
-    rc = lib.pure_read(k.data_ptr(), v.data_ptr(), b, n_kv, S, hd, splits, part.data_ptr(),
-                       out.data_ptr(), kernels.stream_of(k))
-    kernels.check(lib, rc, "pure_read")
+    kernels.launch(
+        lib, "pure_read", k,
+        k.data_ptr(), v.data_ptr(), b, n_kv, S, hd, splits, part.data_ptr(),
+        out.data_ptr(),
+    )
     pure_read.launches += 1
     return out
 
@@ -226,12 +228,12 @@ def decode_attention(q, k, v, pos: int, col0: int = 0) -> torch.Tensor:
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty((b * n_kv, splits, g, hd), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    rc = lib.decode_attention(
+    kernels.launch(
+        lib, "decode_attention", q,
         q.data_ptr(), int(q.dtype == torch.float32), k.data_ptr(), v.data_ptr(), b, n_kv, g, S,
         hd, pos, col0, splits, 1.0 / (hd ** 0.5), m_part.data_ptr(), l_part.data_ptr(),
-        acc_part.data_ptr(), out.data_ptr(), kernels.stream_of(q),
+        acc_part.data_ptr(), out.data_ptr(),
     )
-    kernels.check(lib, rc, "decode_attention")
     decode_attention.launches += 1
     return out
 

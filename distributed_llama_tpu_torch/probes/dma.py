@@ -116,11 +116,11 @@ def stream_call(bias, qp, tile_n: int, tile_knb: int):
         acc = _ACC[qp.device] = torch.zeros(_ACC_WORDS, dtype=torch.int64, device=qp.device)
     out = torch.empty(CORNER, dtype=torch.float32, device=qp.device)
     chk = torch.empty((grid_j, grid_k), dtype=torch.int32, device=qp.device)
-    rc = lib.stream_probe(
+    kernels.launch(
+        lib, "stream_probe", qp,
         bias.data_ptr(), qp.data_ptr(), qp.shape[0], qp.shape[1], tile_n, tile_knb,
-        out.data_ptr(), chk.data_ptr(), acc.data_ptr(), kernels.stream_of(qp),
+        out.data_ptr(), chk.data_ptr(), acc.data_ptr(),
     )
-    kernels.check(lib, rc, "stream_probe")
     stream_call.launches += 1
     return out, chk
 

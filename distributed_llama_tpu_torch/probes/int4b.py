@@ -135,12 +135,12 @@ def launch_u4(x8, xs, bs, w, weights: int, dt, cols: int, blocks_per_cta: int) -
     out = torch.empty((R, out_f), dtype=torch.float32, device=x8.device)
     part = torch.empty((splits, R, out_f) if splits > 1 else (1,), dtype=torch.float32,
                        device=x8.device)
-    rc = lib.q40_u4_mma(
+    kernels.launch(
+        lib, "q40_u4_mma", x8,
         x8.data_ptr(), xs.data_ptr(), bs.data_ptr(), w.data_ptr(), weights, dt.data_ptr(),
         SCALE_KINDS[dt.dtype], out.data_ptr(), part.data_ptr(), R, nb, out_f, cols,
-        blocks_per_cta, kernels.stream_of(x8),
+        blocks_per_cta,
     )
-    kernels.check(lib, rc, "q40_u4_mma")
     return out
 
 

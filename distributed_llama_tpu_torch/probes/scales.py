@@ -131,9 +131,10 @@ def f16bits_to_f32(bits: torch.Tensor) -> torch.Tensor:
         raise ValueError("the plane must start on an 8-byte boundary")
     out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
     lib = kernels.load(SOURCE, _SIG)
-    rc = lib.f16bits_to_f32(bits.data_ptr(), out.data_ptr(), bits.numel(),
-                            kernels.stream_of(bits))
-    kernels.check(lib, rc, "f16bits_to_f32")
+    kernels.launch(
+        lib, "f16bits_to_f32", bits,
+        bits.data_ptr(), out.data_ptr(), bits.numel(),
+    )
     f16bits_to_f32.launches += 1
     return out
 
@@ -178,12 +179,12 @@ def launch_tiled(x8, xs, w, weights: int, dot: str, dt, cols: int,
     out = torch.empty((R, out_f), dtype=torch.float32, device=x8.device)
     part = torch.empty((splits, R, out_f) if splits > 1 else (1,), dtype=torch.float32,
                        device=x8.device)
-    rc = lib.q40_i8_mma_tiled(
+    kernels.launch(
+        lib, "q40_i8_mma_tiled", x8,
         x8.data_ptr(), xs.data_ptr(), w.data_ptr(), weights, cuda_q40.DOTS[dot], dt.data_ptr(),
         SCALE_KINDS[dt.dtype], out.data_ptr(), part.data_ptr(), R, nb, out_f, cols,
-        blocks_per_cta, kernels.stream_of(x8),
+        blocks_per_cta,
     )
-    kernels.check(lib, rc, "q40_i8_mma_tiled")
     return out
 
 

@@ -82,6 +82,7 @@ class BatchSession:
     thread-safe. Device work happens in `prefill_pending` and `step`."""
 
     def __init__(self, engine):
+        engine._refuse_on_mesh("BatchSession")
         self.engine = engine
         b = engine.batch
         self.seq_len = engine.cfg.seq_len

@@ -6,7 +6,8 @@ ships the chunk's tokens back in one transfer. Here it is a Python loop over
 `forward` plus `sample_logits_traced`: each step's token stays on the
 device and feeds the next step, and the engine fetches the whole chunk to
 the host once (runtime/engine.py), so there is no device-to-host sync
-inside the loop.
+inside the loop. `decode_loop` is that loop for any one-step forward; the
+sequence-parallel decode (parallel/pipeline.py) runs it too.
 """
 
 from __future__ import annotations
@@ -18,6 +19,19 @@ from ..models.params import KVCache, ModelParams
 from ..models.transformer import forward
 from ..ops.rope import RopeTables
 from ..ops.sampling import sample_logits_traced
+
+
+def decode_loop(step, token: torch.Tensor, pos_start, n_steps: int, temperature: float,
+                topp: float, generator: torch.Generator | None):
+    """n_steps iterations of logits = step(token[:, None], pos) and a
+    sampled token that feeds the next one. Returns (tokens [b, n_steps],
+    last_token [b]), both on the device."""
+    out = []
+    for i in range(n_steps):
+        logits = step(token[:, None], pos_start + i)  # a device add for per-row positions
+        token = sample_logits_traced(logits, temperature, topp, generator=generator)
+        out.append(token)
+    return torch.stack(out, dim=1), token
 
 
 def decode_chunk(
@@ -38,13 +52,11 @@ def decode_chunk(
     """Run n_steps forward+sample iterations; the cache is updated in
     place. Returns (tokens [b, n_steps], last_token [b]), both on the
     device."""
-    out = []
-    for i in range(n_steps):
-        pos = pos_start + i  # a device add for per-row positions
-        logits = forward(
-            cfg, params, rope, cache, token[:, None], pos,
+
+    def step(tok, pos):
+        return forward(
+            cfg, params, rope, cache, tok, pos,
             logits_mode="last", kv_len=kv_len, page_table=page_table, page_size=page_size,
         )
-        token = sample_logits_traced(logits, temperature, topp, generator=generator)
-        out.append(token)
-    return torch.stack(out, dim=1), token
+
+    return decode_loop(step, token, pos_start, n_steps, temperature, topp, generator)

@@ -7,8 +7,9 @@ src/dllama.cpp:13-151), for one device: `chunk_plan`, `__init__` with its
 `_kv_bucket`, `_new_cache`, `reset`, the paged plumbing (`_pt_operand`,
 `_ensure_pages`), `forward_tokens`, `prefill` (serial, no prefix cache),
 `decode_one`, `_dispatch_prefill_row`, `generate`, `_decode_host`,
-`_decode_device`, `generate_batch` and `_decode_batch_chunked`. Not ported:
-the prefix cache, speculation, grammar, meshes.
+`_decode_device`, `generate_batch` and `_decode_batch_chunked`, and the
+`mesh=` argument for a sequence-parallel mesh (parallel/). Not ported: the
+prefix cache, speculation, grammar, and the other mesh axes (ROADMAP A13).
 
 * The engine runs on the card unless the caller asks for the CPU:
   `device=None` means "cuda" and raises where no GPU is present.
@@ -20,7 +21,11 @@ the prefix cache, speculation, grammar, meshes.
   Padded tail positions write junk into cache slots past the true length;
   those slots are masked (attention sees t <= pos) or overwritten by the
   next real token before they are read.
-* The KV cache lives on the device and is updated in place.
+* The KV cache lives on the device and is updated in place. On an sp mesh
+  it is a list of per-shard [L, b, seq_len / sp, n_kv, hd] slabs, shard i
+  on the mesh's device i, and every step goes through
+  parallel/pipeline.py; weights, tokens and logits live on the mesh's
+  first device.
 * Decode runs in chunks of device steps with one token fetch to the host
   per chunk (`_decode_device`).
 """
@@ -28,6 +33,7 @@ the prefix cache, speculation, grammar, meshes.
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,6 +43,7 @@ from ..device import resolve_device
 from ..formats.mfile import MFileReader
 from ..models import config_from_header, forward, init_kv_cache, load_params
 from ..ops.rope import build_rope_tables
+from ..parallel.pipeline import pipeline_decode_chunk, pipeline_forward
 from ..tokenizer import Sampler
 from .decode import decode_chunk
 from .paged_kv import (
@@ -99,8 +106,8 @@ def chunk_plan(n_tokens: int, pos_start: int, max_chunk: int, seq_len: int):
 
 
 class InferenceEngine:
-    """Owns params + cache for one model on one device: `batch` rows, in
-    the contiguous or the paged KV layout."""
+    """Owns params + cache for one model on one device, or on an sp mesh:
+    `batch` rows, in the contiguous or the paged KV layout."""
 
     def __init__(
         self,
@@ -121,16 +128,48 @@ class InferenceEngine:
         # env, else 16
         kv_pool_mb: int | None = None,  # the paged pool's device budget; None =
         # DLT_KV_POOL_MB env, else batch x seq_len worth of pages
+        mesh=None,  # parallel.make_mesh(sp=n): the KV cache's sequence axis
+        # split over n shards (contiguous layout, float cache). Replaces
+        # `device`: the engine runs on the mesh's devices
     ):
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("give the engine a mesh or a device, not both")
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         if batch < 1:
             raise ValueError(f"batch must be at least 1, got {batch}")
+        self.mesh = mesh
+        # a mesh with more than one shard runs every step through
+        # parallel/pipeline.py, as the JAX engine's sp axis requires its
+        # shard_map pipeline (engine.py:274-290)
+        self.use_pipeline = mesh is not None and mesh.sp > 1
+        if mesh is not None and resolve_kv_layout(kv_layout) == "paged":
+            raise ValueError(
+                "kv_layout='paged' on meshes requires the pure pp x tp "
+                "shard_map pipeline path (dp=sp=ep=1); other topologies "
+                "keep the contiguous layout"
+            )
+        cache_dtype = resolve_kv_dtype(cache_dtype)
+        if cache_dtype == "int8" and mesh is not None:
+            # as the JAX engine: a perf hint, not a topology contract
+            warnings.warn(
+                "kv_dtype='int8' is single-chip only; mesh engine falls "
+                "back to the default float KV cache",
+                stacklevel=2,
+            )
+            cache_dtype = None
         t0 = time.perf_counter()
         self.reader = MFileReader(model_path, max_seq_len=max_seq_len)
         self.header = self.reader.header
         self.cfg = config_from_header(
-            self.header, compute_dtype=compute_dtype, cache_dtype=resolve_kv_dtype(cache_dtype)
+            self.header, compute_dtype=compute_dtype, cache_dtype=cache_dtype
         )
+        if self.use_pipeline:
+            sp = mesh.sp
+            if self.cfg.seq_len % sp or (self.cfg.seq_len // sp) % 128:
+                raise ValueError(
+                    f"seq_len {self.cfg.seq_len} must split over sp={sp} into shards of a "
+                    f"multiple of 128 rows (the flash kernels' cache tiles)"
+                )
         self.params = load_params(self.reader, self.cfg, device=self.device)
         # the header's seq_len is already capped at max_seq_len, so the
         # tables cover the cache, not the model's 128k context
@@ -173,11 +212,13 @@ class InferenceEngine:
         p = self.params
         w = sum(nbytes(getattr(p.layers, f)) for f in p.layers.__dataclass_fields__)
         w += nbytes(p.embedding) + nbytes(p.final_norm) + nbytes(p.wcls)
-        kv = sum(nbytes(t) for t in self.cache.tensors())
+        kv = sum(nbytes(t) for t in self._cache_tensors())
         layout = (
             f"paged: {self.page_pool.n_pages} pages of {self.page_size}"
             if self.paged else "contiguous"
         )
+        if self.use_pipeline:
+            layout += f", sp {self.mesh.sp} shards of {self.cfg.seq_len // self.mesh.sp} rows"
         return (
             f"💿 weights {w / 2**20:.1f} MiB, KV cache {kv / 2**20:.1f} MiB "
             f"({self.cfg.cache_dtype}, {layout}, batch {self.batch}) on {self.device}"
@@ -196,8 +237,9 @@ class InferenceEngine:
         return min(b, self.cfg.seq_len)
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self.mesh.devices if self.mesh is not None else [self.device]):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _tokens(self, rows) -> torch.Tensor:
         return torch.tensor(rows, dtype=torch.long).to(self.device, non_blocking=True)
@@ -205,7 +247,19 @@ class InferenceEngine:
     def _new_cache(self):
         if self.paged:
             return init_kv_pool(self.cfg, self.page_pool.n_pages, self.page_size, self.device)
+        if self.use_pipeline:
+            local_seq = self.cfg.seq_len // self.mesh.sp
+            return [init_kv_cache(self.cfg, batch=self.batch, seq_len=local_seq, device=dev)
+                    for dev in self.mesh.devices]
         return init_kv_cache(self.cfg, batch=self.batch, device=self.device)
+
+    def _cache_tensors(self) -> tuple:
+        shards = self.cache if self.use_pipeline else [self.cache]
+        return tuple(t for shard in shards for t in shard.tensors())
+
+    def _refuse_on_mesh(self, what: str) -> None:
+        if self.use_pipeline:
+            raise NotImplementedError(f"{what} on a mesh is not ported (ROADMAP A13)")
 
     def reset(self):
         """Fresh independent sequences: contiguous zeroes the cache; paged
@@ -214,7 +268,7 @@ class InferenceEngine:
         if self.paged:
             self.page_pool.release_all_rows()
             return
-        for t in self.cache.tensors():
+        for t in self._cache_tensors():
             t.zero_()
 
     # -- paged-KV plumbing (runtime/paged_kv.py) -----------------------------
@@ -239,7 +293,13 @@ class InferenceEngine:
         self._ensure_pages((r, start, end) for r in range(self.batch))
 
     def _forward(self, tokens: torch.Tensor, pos, logits_mode="last", kv_len=None):
-        """One forward step on this engine's cache and layout."""
+        """One forward step on this engine's cache and layout, through the
+        sp pipeline on a mesh."""
+        if self.use_pipeline:
+            return pipeline_forward(
+                self.cfg, self.mesh, self.params, self.rope, self.cache, tokens, pos,
+                logits_mode=logits_mode, kv_len=kv_len,
+            )
         return forward(
             self.cfg, self.params, self.rope, self.cache, tokens, pos,
             logits_mode=logits_mode, kv_len=kv_len,
@@ -372,6 +432,25 @@ class InferenceEngine:
         gen.manual_seed(int(sampler._state) & 0xFFFFFFFFFFFFFFFF)
         return gen
 
+    def _decode_chunk(self, tok_arr, pos: int, n: int, temperature: float = 0.0,
+                      topp: float = 0.9, generator=None):
+        """n device decode steps from `tok_arr` [b] at pos on this engine's
+        cache and layout, through the sp pipeline on a mesh. Returns (tokens
+        [b, n], last_token [b]) on the device."""
+        kv_len = self._kv_bucket(pos + n)
+        if self.use_pipeline:
+            return pipeline_decode_chunk(
+                self.cfg, self.mesh, self.params, self.rope, self.cache, tok_arr, pos,
+                n_steps=n, temperature=temperature, topp=topp, generator=generator, kv_len=kv_len,
+            )
+        if self.paged:
+            self._ensure_pages_all_rows(pos, pos + n)
+        return decode_chunk(
+            self.cfg, self.params, self.rope, self.cache, tok_arr, pos,
+            n_steps=n, temperature=temperature, topp=topp, generator=generator, kv_len=kv_len,
+            page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
+        )
+
     def _decode_device(self, res, token, pos, max_pos, sampler, on_token, stop_fn, wall0):
         """Chunked on-device decode: n forward+sample steps per chunk, one
         token fetch per chunk; each chunk's last token stays on the device
@@ -397,14 +476,7 @@ class InferenceEngine:
             while n > limit:
                 n //= 2
             n = max(n, 1)
-            if self.paged:
-                self._ensure_pages_all_rows(pos, pos + n)
-            toks, tok_arr = decode_chunk(
-                self.cfg, self.params, self.rope, self.cache, tok_arr, pos,
-                n_steps=n, temperature=temperature, topp=topp, generator=gen,
-                kv_len=self._kv_bucket(pos + n),
-                page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
-            )
+            toks, tok_arr = self._decode_chunk(tok_arr, pos, n, temperature, topp, gen)
             host_toks = toks[0].tolist()  # the one device-to-host fetch of the chunk
             now = time.perf_counter()
             res.pred_steps.append(StepTiming(eval_us=int((now - t_prev) * 1e6), n_tokens=n))
@@ -444,6 +516,7 @@ class InferenceEngine:
         keeps riding the chunks, its writes past seq_len land nowhere
         (forward's per-row arms) and its tokens are discarded. Returns one
         list of generated tokens per row (a stop token included)."""
+        self._refuse_on_mesh("generate_batch")
         if len(prompts) != self.batch:
             raise ValueError(f"need exactly {self.batch} prompts, got {len(prompts)}")
         if any(len(p) == 0 for p in prompts):

@@ -31,6 +31,9 @@ import distributed_llama_tpu_torch.probes.scales
 import distributed_llama_tpu_torch.probes.i4_tiles
 import distributed_llama_tpu_torch.probes.int4b
 import distributed_llama_tpu_torch.probes.int4c
+import distributed_llama_tpu_torch.parallel
+import distributed_llama_tpu_torch.parallel.mesh
+import distributed_llama_tpu_torch.parallel.pipeline
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -72,4 +75,5 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     assert "distributed_llama_tpu_torch.probes.k1_step" in mods
     assert "distributed_llama_tpu_torch.probes.int4_prod" in mods
     assert "distributed_llama_tpu_torch.probes.int4c" in mods
+    assert "distributed_llama_tpu_torch.parallel.pipeline" in mods
     assert [m for m in mods if _is_forbidden(m)] == []

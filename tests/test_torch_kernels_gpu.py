@@ -11,11 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_llama_tpu_torch.ops import attention as ops_attention
 from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
 from distributed_llama_tpu_torch.ops.quant import pack_q
+from distributed_llama_tpu_torch.parallel import make_mesh
 from distributed_llama_tpu_torch.probes import (
     attention, dma, i4_tiles, int4, int4_prod, int4b, int4c, scales)
 from distributed_llama_tpu_torch.probes.operands import scale_planes
+from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+from distributed_llama_tpu_torch.testing import tiny_header, write_tiny_model
 
 # P12 and P8 against their plain versions, of the plain output's largest value
 ATT_REL_TOL = 2.0 ** -6
@@ -89,6 +93,157 @@ def test_flash_kernel_matches_plain(cuda, hd, g, t, pos):
     # P rounds to bf16 against each KV tile's running max, and the kernel's
     # 64-row tiles are not the plain version's blocks: bf16-level on |v| ~ 1
     assert (got - want).abs().max().item() <= 1e-2
+
+
+# B8's normalized output (and the shards' combine) against its plain
+# version (and K3), as a share of the reference's largest value: chip_smoke.py's
+# B8_OUT_REL_TOL (P rounds to bf16 against each 64-row tile's running max),
+# never above the absolute 1e-2 it replaced
+B8_OUT_REL_TOL = 5e-3
+
+
+def _b8_bound(ref: torch.Tensor) -> float:
+    return min(1e-2, B8_OUT_REL_TOL * ref.abs().max().item())
+
+
+def _b8_check(o, m, l, po, pm, pl):
+    """B8 against its plain version. Rows that see no column of the shard:
+    exact (o = 0, l = 0, the JAX kernel's m). Rows that do: m to the f32
+    order of the score dots (1e-5 of its scale), l to the f32 rescalings of
+    other tile boundaries (1e-4 relative), and o / l, the shard's normalized
+    output, within `_b8_bound` of it."""
+    seen = pl > 0
+    assert torch.equal(seen, l > 0)
+    blind = ~seen
+    assert torch.equal(m[blind], pm[blind])
+    assert (o[blind] == 0).all() and (l[blind] == 0).all()
+    if seen.any():
+        assert (m[seen] - pm[seen]).abs().max().item() <= 1e-5 * pm[seen].abs().max().item()
+        assert ((l[seen] - pl[seen]).abs() / pl[seen]).max().item() <= 1e-4
+        ref = po[seen] / pl[seen][:, None]
+        d = o[seen] / l[seen][:, None] - ref
+        assert d.abs().max().item() <= _b8_bound(ref)
+    return seen
+
+
+@pytest.mark.parametrize("hd,g", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("t", [8, 32])
+@pytest.mark.parametrize("pos,col", [(100, 0), (508, 0), (508, 512), (500, 512), (508, 1024)])
+def test_b8_kernel_matches_plain(cuda, hd, g, t, pos, col):
+    """B8 on one 512-row shard whose row 0 is the global position col: a
+    chunk wholly inside it, one straddling into it (its first rows see none
+    of it: m = NEG_INF / 2), and shards wholly in the chunk's future (m =
+    NEG_INF, nothing loaded, everything still written)."""
+    gen = torch.Generator().manual_seed(hd + g + t + pos + col)
+    n_kv, S = 2, 512
+    q = torch.randn((1, t, n_kv * g, hd), generator=gen).to(cuda)
+    cache = torch.randn((3, 1, 1024, n_kv, hd), generator=gen).to(torch.bfloat16).to(cuda)
+    k, v = cache[1, :, :S], cache[2, :, :S]  # strided views, as on the main path
+    before = cuda_attention.flash_attention_partial.launches
+    o, m, l = cuda_attention.flash_attention_partial(q, k, v, pos, col)
+    po, pm, pl = cuda_attention.flash_attention_partial_plain(q, k, v, pos, col)
+    torch.cuda.synchronize()
+    assert cuda_attention.flash_attention_partial.launches == before + 1
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    seen = _b8_check(o, m, l, po, pm, pl)
+    if pos + t - 1 < col:
+        assert not seen.any() and (m == torch.finfo(torch.float32).min).all()
+
+
+@pytest.mark.parametrize("hd,g", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("pos", [0, 300, 1020, 2016])
+def test_flash_attention_sp_on_the_card_matches_k3(cuda, hd, g, pos):
+    """The four-shard combine of B8's triples against K3 over the whole
+    2048-row cache: equal up to the bf16 rounding of P against other
+    running maxima (`_b8_bound` of K3's output); bit for bit while the
+    chunk lies inside shard 0's first tile range, where the other shards
+    add exact zeros and shard 0 runs K3's own loop."""
+    gen = torch.Generator().manual_seed(hd + g + pos)
+    n_kv, S, sp, t = 2, 2048, 4, 32
+    q = torch.randn((1, t, n_kv * g, hd), generator=gen).to(cuda)
+    k = torch.randn((1, S, n_kv, hd), generator=gen).to(torch.bfloat16).to(cuda)
+    v = torch.randn((1, S, n_kv, hd), generator=gen).to(torch.bfloat16).to(cuda)
+    local = S // sp
+    got = ops_attention.flash_attention_sp(
+        q, [k[:, i * local : (i + 1) * local] for i in range(sp)],
+        [v[:, i * local : (i + 1) * local] for i in range(sp)], pos, [i * local for i in range(sp)])
+    want = cuda_attention.flash_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    if pos + t <= local:
+        assert torch.equal(got, cuda_attention.flash_attention(q, k[:, :local], v[:, :local], pos))
+    assert (got - want).abs().max().item() <= _b8_bound(want)
+
+
+def _cards(n: int) -> int:
+    """How many cards a multi-card test spreads over: n (or 4 where there
+    are four); skips where fewer than n are visible."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        pytest.skip(f"needs {n} CUDA devices, have {have}")
+    return 4 if have >= 4 else n
+
+
+def test_b8_on_each_card_matches_its_launch_on_the_first(cuda):
+    """B8 on a tensor of card i while card 0 is current: the wrapper makes
+    card i current and launches on its stream, so the result is card 0's
+    bit for bit and within `_b8_bound` of the plain version."""
+    n = _cards(2)
+    gen = torch.Generator().manual_seed(9)
+    q = torch.randn((1, 32, 8, 64), generator=gen)
+    k, v = torch.randn((2, 1, 512, 2, 64), generator=gen).to(torch.bfloat16)
+    want = cuda_attention.flash_attention_partial(q.to(cuda), k.to(cuda), v.to(cuda), 600, 256)
+    for i in range(1, n):
+        dev = torch.device("cuda", i)
+        with torch.cuda.device(0):
+            got = cuda_attention.flash_attention_partial(q.to(dev), k.to(dev), v.to(dev), 600, 256)
+        torch.cuda.synchronize(dev)
+        assert all(g.device == dev for g in got)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu())
+        _b8_check(*got, *cuda_attention.flash_attention_partial_plain(
+            q.to(dev), k.to(dev), v.to(dev), 600, 256))
+
+
+@pytest.fixture(scope="module")
+def sp_model(tmp_path_factory):
+    """A two-layer Llama with head_dim 64 (B8's), a 512-row context."""
+    path = str(tmp_path_factory.mktemp("sp") / "m.m")
+    write_tiny_model(path, tiny_header(dim=256, hidden_dim=256, n_layers=2, n_heads=4,
+                                       n_kv_heads=2, seq_len=512), seed=21)
+    return path
+
+
+def test_sp_engine_over_distinct_cards_equals_one_card(cuda, sp_model):
+    """make_mesh(sp=n) with no devices puts shard i on card i: greedy
+    generation there (a 149-token prefill in 24-row chunks through B8, then
+    decode) gives the tokens and the next logits of the same mesh with
+    every shard on card 0, bit for bit, and leaves each shard's cache on
+    its card."""
+    n = _cards(2)
+    prompt = [(7 * i) % 200 + 1 for i in range(150)]
+    spread = InferenceEngine(sp_model, max_chunk=24, mesh=make_mesh(sp=n))
+    assert [c.k.device for c in spread.cache] == [torch.device("cuda", i) for i in range(n)]
+    shared = InferenceEngine(sp_model, max_chunk=24,
+                             mesh=make_mesh(sp=n, devices=[torch.device("cuda", 0)] * n))
+    before = cuda_attention.flash_attention_partial.launches
+    got = spread.generate(prompt, 190, sampler=None).tokens
+    assert cuda_attention.flash_attention_partial.launches > before
+    assert got == shared.generate(prompt, 190, sampler=None).tokens
+    la = spread.decode_one(prompt[-1], len(prompt) - 1)
+    lb = shared.decode_one(prompt[-1], len(prompt) - 1)
+    assert np.isfinite(la).all() and np.array_equal(la, lb)
+    for a, b in zip(spread.cache, shared.cache):
+        assert torch.equal(a.k.cpu(), b.k.cpu()) and torch.equal(a.v.cpu(), b.v.cpu())
+
+
+def test_b8_wrapper_raises_instead_of_falling_back(cuda):
+    q = torch.randn((1, 8, 8, 64), device=cuda)
+    k = torch.randn((1, 256, 2, 64), device=cuda)
+    with pytest.raises(TypeError):  # an f32 cache: the kernel takes bf16
+        cuda_attention.flash_attention_partial(q, k, k, 0, 256)
+    kb = torch.randn((1, 256, 2, 96), device=cuda).bfloat16()
+    with pytest.raises(ValueError):  # head_dim 96
+        cuda_attention.flash_attention_partial(torch.randn((1, 8, 8, 96), device=cuda), kb, kb, 0, 0)
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
