@@ -12,7 +12,10 @@ caught):
      shapes the main paths give it (Llama-3.2-1B and Qwen3-30B-A3B widths),
      with its time (CUDA events over CUDA-graph replays), its plain
      version's time, one PyTorch library call's time as a yardstick, and
-     its bound; B8 (the shard-local flash partial) on 4096-row shards of
+     its bound; K2 also per call at each 1B shape at 16 and 32 rows beside
+     torch.matmul, K3 also at long context (t 32 at position 6000 over an
+     8192-row view, hd 64) beside SDPA; B8 (the shard-local flash
+     partial) on 4096-row shards of
      a 16384-row cache at col_offset 0, 4096 (a straddling chunk) and
      8192 (fully masked: exact), and the four-shard combine against K3
      over the whole cache, at the 1B and 30B-A3B attention shapes;
@@ -295,6 +298,7 @@ def kernel_checks(torch, rates):
         k2_all, k2_plain, k2_lib, chunk_bytes, chunk_flops, bw, bf16_peak,
         "one prefill chunk: 16 layers x (wqkv, wo, w13, w2) at 32 rows",
     ))
+    results[-1]["per_shape"] = k2_shape_times(torch, gen, shapes, stacks, lib_w, L, bw, bf16_peak)
     del lib_w, stacks
 
     # -- K3: one 32-token prefill chunk's attention in all 16 layers ---------
@@ -303,6 +307,34 @@ def kernel_checks(torch, rates):
     # -- B5 (K2 on the unstacked wcls): perplexity's and batch > 8 logits ---
     results.append(b5_row(torch, gen, wcls, dim, c["vocab_size"], bw, bf16_peak))
     return results
+
+
+def k2_shape_times(torch, gen, shapes, stacks, lib_w, L, bw, bf16_peak):
+    """K2 per call at each of the four 1B shapes at 16 and 32 rows: ms a
+    call over the L layers' weights in one graph, torch.matmul's on the
+    bf16-dequantized weights the same way, and the bound of one call.
+    Logged once; returns {shape: {rows: times}}."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.probes import timing
+
+    out = {}
+    for n, i, o in shapes:
+        plan = cuda_q40.gemm_plan(i // 32, o)
+        out[n] = {"in": i, "out": o, "plan": plan.__dict__}
+        for rows in (16, 32):
+            x = torch.randn((rows, i), device="cuda", generator=gen)
+            xb = x.to(torch.bfloat16)
+            t_bytes = (_wbytes(i, o) + rows * (i + o) * 4) / bw * 1e3
+            t_ops = 2 * rows * i * o / bf16_peak * 1e3
+            out[n][rows] = {
+                "ms": timing.graph_ms([partial(cuda_q40.q40_gemm_bf16_stacked, x, *stacks[n], li)
+                                       for li in range(L)]),
+                "library_ms": timing.graph_ms([partial(torch.matmul, xb, lib_w[n][li])
+                                               for li in range(L)]),
+                "bound_ms": max(t_bytes, t_ops), "ctas": plan.ctas(o, rows),
+            }
+    log(json.dumps({"kernel_extra": "q40_gemm_bf16_stacked", "per_shape": out}))
+    return out
 
 
 def b5_row(torch, gen, wcls, dim, vocab, bw, bf16_peak):
@@ -488,7 +520,7 @@ def flash_row(torch, gen, bw, bf16_peak, L, nh, nkv, hd):
     cold = timing.cold_ms(k3_layers, (q_all, k_all, v_all),
                           sum(a.numel() * a.element_size() for a in (q_all, k_all, v_all)))
     del q_all, k_all, v_all
-    return _entry(
+    row = _entry(
         torch, "flash_attention", "distributed_llama_tpu_torch/csrc/flash_attention.cu",
         "distributed_llama_tpu/ops/pallas_attention.py:199", errs,
         k3_all, k3_plain, k3_lib, att_bytes, att_flops, bw, bf16_peak,
@@ -496,6 +528,44 @@ def flash_row(torch, gen, bw, bf16_peak, L, nh, nkv, hd):
         f"t=32 at pos 64 over a 256-row cache view; ms L2-warm, cold_ms from a ring of "
         f"compact copies", cold_ms=cold,
     )
+    if hd == 64:
+        row["long"] = flash_long(torch, gen, bw, bf16_peak, nh, nkv, hd)
+    return row
+
+
+FLASH_LONG = (32, 6000, 8192)  # t, pos, view rows
+
+
+def flash_long(torch, gen, bw, bf16_peak, nh, nkv, hd):
+    """K3 at long context: a 32-token chunk at position 6000 over an
+    8192-row view of a stacked cache (the sp = 1 prefill tail's shape),
+    against its plain version (K3's 1e-2), timed beside SDPA with the
+    causal mask and its bound. Logged once."""
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops import cuda_attention
+    from distributed_llama_tpu_torch.probes import timing
+
+    t, pos, S = FLASH_LONG
+    cache = torch.randn((2, 1, S + 256, nkv, hd), device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = cache[0, :, :S], cache[1, :, :S]
+    q = torch.randn((1, t, nh, hd), device="cuda", generator=gen)
+    err = (cuda_attention.flash_attention(q, k, v, pos)
+           - cuda_attention.flash_attention_plain(q, k, v, pos)).abs().max().item()
+    assert err <= 1e-2, f"K3 at pos {pos}: max abs err {err}"
+    mask = torch.arange(S, device="cuda")[None, :] <= pos + torch.arange(t, device="cuda")[:, None]
+    sq, sk, sv = q.to(torch.bfloat16).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    visible = sum(pos + i + 1 for i in range(t))
+    t_bytes = (2 * t * nh * hd * 4 + 2 * (pos + t) * nkv * hd * 2) / bw * 1e3
+    t_ops = 4 * nh * hd * visible / bf16_peak * 1e3
+    row = {"t": t, "pos": pos, "S": S, "max_abs_err": err,
+           "splits": cuda_attention.plan_for(q, k, pos).splits,
+           "ms": timing.graph_ms([partial(cuda_attention.flash_attention, q, k, v, pos)] * 16),
+           "library_ms": timing.graph_ms([partial(F.scaled_dot_product_attention, sq, sk, sv,
+                                                  attn_mask=mask, enable_gqa=True)] * 16),
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(json.dumps({"kernel_extra": "flash_attention", "hd": hd, "long": row}))
+    return row
 
 
 SP = 4  # the sp path's shards

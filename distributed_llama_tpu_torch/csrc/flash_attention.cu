@@ -9,271 +9,390 @@
 // flash_attention_partial (:398), bodies _attend_block and _kernel_partial
 // (:114) (B8).
 //
-// What bounds it on Hopper: at prefill chunk sizes (t <= 32 query tokens
-// against a cache view of S >= 256 rows), memory: the K/V rows up to the
+// What bounds it on Hopper: memory. At prefill chunk sizes (t <= 32 query
+// tokens against a cache view of S >= 256 rows) the K/V rows up to the
 // causal limit are read once per (batch, kv head, query tile), and the
-// flops per byte are ~2 * rows, far under the tensor cores' ratio.
+// flops per byte are ~2 * rows, far under the tensor cores' ratio. Between
+// two and a few hundred 64-row tiles per (batch, kv head), so the latency of
+// each tile and the number of SMs that stream them set the time.
 //
 // Design:
-//   * one CTA per (batch * kv head, tile of 64 score rows). The g query
-//     heads of a kv head fold into the rows as _attend_block folds them:
-//     row R is token R / g, head kvh * g + R % g, position pos_start + R / g.
+//   * one CTA per (batch * kv head, tile of 64 score rows, split). The g
+//     query heads of a kv head fold into the rows as _attend_block folds
+//     them: row R is token R / g, head kvh * g + R % g, position pos_start +
+//     R / g.
+//   * split-S to fill the card: the visible KV range is cut into `splits`
+//     runs of `split_tiles` whole 64-row tiles, aligned on the shard's
+//     rows, which are aligned on global columns (a shard is a multiple of
+//     128 rows). The plan (ops/cuda_attention.py flash_plan) is a function
+//     of the chunk's visible tile count and the grid alone, so a chunk
+//     inside shard 0 gets the same splits under K3 and under B8.
+//   * with one split a CTA writes its result directly (one launch). With
+//     more, each CTA writes its unnormalized (o, m, l) to a workspace the
+//     wrapper allocated, and a second kernel combines the splits in split
+//     order: M = max m_s, o = sum o_s e^(m_s - M), l alike; K3 then divides,
+//     B8 writes the triple. K3 and B8 share every operation up to K3's
+//     division, so on shard 0 (whose factor e^(m - M) is exactly 1, the other
+//     shards adding exact zeros) the sp combine gives K3's bits.
 //   * the cache is read IN PLACE through strides from its [b, S, n_kv, hd]
-//     view of the stacked [L, b, S, n_kv, hd] cache: no transpose copy
-//     (the JAX wrapper's _flash_operands makes XLA materialize one).
-//   * KV tiles of 64 rows stream through shared memory only while the
-//     tile's first global column col_offset + j * 64 is at or before the
-//     causal limit pos_start + (last token of the tile); later tiles are
-//     never loaded. The mask compares global columns: col_offset + c <=
-//     row position. K3 is B8 at col_offset 0 with the normalizing epilogue,
-//     so the two share every operation up to it.
-//   * S = Q K^T and P V run on the tensor cores (WMMA bf16 m16n16k16, f32
-//     accumulate); each warp owns 16 rows. The online softmax runs in f32
-//     exactly as _attend_block: masked scores are NEG_INF, m is clamped to
-//     NEG_INF / 2 so fully masked rows stay finite, P is cast to bf16
-//     before PV, acc = acc * corr + pv and l = l * corr + sum(p) with
-//     separate roundings. K3 ends by dividing by max(l, 1e-30).
-//   * B8's epilogue writes acc (f32) as it stands, with m and l per row. A
-//     CTA whose rows see no column of the shard (the shard lies wholly in
-//     their future) loads nothing and still writes o = 0, l = 0 and the m
-//     of the JAX kernel: NEG_INF / 2 where the row's JAX query block
-//     (block_t tokens) visits a KV block of the shard, else NEG_INF (its
-//     scratch init). Either way the combine's e^(m - M) is exactly 0.
+//     view of the stacked [L, b, S, n_kv, hd] cache: no transpose copy.
+//     K and V tiles go through a two-slot ring in shared memory fed by
+//     cp.async (16 bytes a thread): tile j + 1 streams in while tile j is
+//     computed. A tile is loaded only while its first column col_offset +
+//     j * 64 is at or before the CTA's causal limit.
+//   * the FlashAttention-2 loop with everything in registers: each warp owns
+//     16 score rows; Q's fragments are loaded once (ldmatrix); S = Q K^T
+//     runs on mma.sync m16n8k16 bf16 into registers; the row max and row sum
+//     combine the four lanes that share a row (two xor-shuffles); P is
+//     rounded to bf16 in registers and is PV's A fragment as it stands; V's
+//     B fragments come from ldmatrix.trans; O stays in registers.
+//   * the online softmax in f32 exactly as _attend_block: masked scores are
+//     NEG_INF, m is clamped to NEG_INF / 2 so fully masked rows stay finite,
+//     P is cast to bf16 before PV while l sums the f32 p, and acc * corr +
+//     pv and l * corr + sum(p) round separately (PV goes to a zeroed
+//     fragment first). K3 ends by dividing by max(l, 1e-30).
+//   * B8 writes acc (f32) as it stands, with m and l per row. A row that
+//     sees no column of the shard gets o = 0, l = 0 and the m of the JAX
+//     kernel: NEG_INF / 2 where the row's JAX query block (block_t tokens)
+//     visits a KV block of the shard, else NEG_INF (its scratch init). A
+//     CTA with nothing to load still writes.
 //   * templated on head_dim 64 (Llama) and 128 (Qwen3).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "async_mma.cuh"
 
 namespace {
 
 constexpr int ROWS = 64;   // score rows per CTA
 constexpr int BS = 64;     // KV rows per tile
 constexpr int WARPS = ROWS / 16;
+constexpr int THREADS = WARPS * 32;
+constexpr int SLOTS = 2;   // K/V ring depth
 constexpr float NEG_INF = -FLT_MAX;
 constexpr int MAX_DEVICES = 64;  // shared-memory opt-ins are kept per device
+constexpr int COMBINE_THREADS = 256;
 
 template <int HD>
 struct Smem {
-  static constexpr int QLD = HD + 8;   // bf16 leading dims (multiples of 8)
-  static constexpr int SLD = BS + 4;   // f32
-  static constexpr int PLD = BS + 8;   // bf16
-  static constexpr int OLD = HD + 4;   // f32
-  static constexpr size_t q = (size_t)ROWS * QLD * 2;
-  static constexpr size_t k = (size_t)BS * QLD * 2;
-  static constexpr size_t v = (size_t)BS * QLD * 2;
-  static constexpr size_t s = (size_t)ROWS * SLD * 4;
-  static constexpr size_t p = (size_t)ROWS * PLD * 2;
-  static constexpr size_t o = (size_t)ROWS * OLD * 4;
-  static constexpr size_t stats = (size_t)3 * ROWS * 4;
-  static constexpr size_t total = q + k + v + s + p + 2 * o + stats;
+  static constexpr int LD = HD + 8;  // bf16 per row: ldmatrix rows hit distinct banks
+  static constexpr size_t tile = (size_t)BS * LD * 2;
+  static constexpr size_t q = (size_t)ROWS * LD * 2;
+  static constexpr size_t total = q + 2 * SLOTS * tile;  // Q, then K and V slots
 };
 
+// K and V rows j * BS .. j * BS + BS - 1 of the view into one ring slot;
+// rows past S read zeros
+template <int HD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                          const __nv_bfloat16* kbase,
+                                          const __nv_bfloat16* vbase, long long kss, int j,
+                                          int S, int tid) {
+  constexpr int CH = HD / 8;  // 16-byte chunks a row
+  for (int i = tid; i < BS * CH; i += THREADS) {
+    const int r = i / CH;
+    const int c = (i % CH) * 8;
+    const int s = j * BS + r;
+    const bool in = s < S;
+    const size_t off = in ? (size_t)s * kss + c : 0;
+    dlt::cp_async16(ks + r * Smem<HD>::LD + c, kbase + off, in ? 16 : 0);
+    dlt::cp_async16(vs + r * Smem<HD>::LD + c, vbase + off, in ? 16 : 0);
+  }
+}
+
+// m of a B8 row that saw no column of the shard: the JAX kernel's
+// NEG_INF / 2 where the row's query block visits a KV block of the shard,
+// NEG_INF (its scratch init) where it visits none
+__device__ __forceinline__ float blind_m(int tok, int pos_start, int col_offset, int block_t) {
+  const int q_last = pos_start + (tok / block_t) * block_t + block_t - 1;
+  return col_offset <= q_last ? NEG_INF / 2 : NEG_INF;
+}
+
 template <int HD, bool PARTIAL>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(THREADS)
 flash_attention_fwd_kernel(const void* __restrict__ qp, int q_is_f32,
                            const __nv_bfloat16* __restrict__ kc,
                            const __nv_bfloat16* __restrict__ vc, long long ksb,
                            long long kss, long long ksh, float* __restrict__ o,
-                           float* __restrict__ m_out, float* __restrict__ l_out, int t,
-                           int S, int n_heads, int n_kv, int pos_start, int col_offset,
-                           int block_t, float scale) {
+                           float* __restrict__ m_out, float* __restrict__ l_out,
+                           float* __restrict__ o_ws, float* __restrict__ m_ws,
+                           float* __restrict__ l_ws, int t, int S, int n_heads, int n_kv,
+                           int pos_start, int col_offset, int block_t, float scale,
+                           int split_tiles, int splits) {
   using L = Smem<HD>;
-  extern __shared__ __align__(32) unsigned char smem[];
+  constexpr int KS = HD / 16;  // k-steps of Q K^T
+  constexpr int NO = HD / 8;   // 8-column groups of O
+  extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::q + L::k);
-  float* Ss = reinterpret_cast<float*>(smem + L::q + L::k + L::v);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::q + L::k + L::v + L::s);
-  float* Os = reinterpret_cast<float*>(smem + L::q + L::k + L::v + L::s + L::p);
-  float* PVs = Os + ROWS * L::OLD;
-  float* m_s = PVs + ROWS * L::OLD;
-  float* l_s = m_s + ROWS;
-  float* c_s = l_s + ROWS;
+  __nv_bfloat16* Kr = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
+  __nv_bfloat16* Vr = reinterpret_cast<__nv_bfloat16*>(smem + L::q + SLOTS * L::tile);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
   const int g = n_heads / n_kv;
   const int bk = blockIdx.x;
   const int bi = bk / n_kv;
   const int kvh = bk % n_kv;
   const int row0 = blockIdx.y * ROWS;  // first score row of this tile
+  const int split = blockIdx.z;
   const int n_rows = t * g;
 
-  // Q tile -> bf16 (the JAX wrapper casts q to the cache dtype)
-  for (int i = tid; i < ROWS * HD; i += WARPS * 32) {
-    const int r = i / HD;
-    const int dd = i % HD;
-    const int R = row0 + r;
-    float val = 0.0f;
-    if (R < n_rows) {
-      const int tok = R / g;
-      const int head = kvh * g + R % g;
-      const size_t idx = (((size_t)bi * t + tok) * n_heads + head) * HD + dd;
-      val = q_is_f32 ? reinterpret_cast<const float*>(qp)[idx]
-                     : __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(qp)[idx]);
-    }
-    Qs[r * L::QLD + dd] = __float2bfloat16_rn(val);
-  }
-  for (int i = tid; i < ROWS * L::OLD; i += WARPS * 32) Os[i] = 0.0f;
-  for (int i = tid; i < ROWS; i += WARPS * 32) {
-    m_s[i] = NEG_INF;
-    l_s[i] = 0.0f;
-  }
-
-  // causal limit: the tile's last real token, in the shard's local rows
+  // this CTA's tiles: its split's run, cut at its rows' causal limit
   const int last_row = min(row0 + ROWS, n_rows) - 1;
   const int last_pos = pos_start + last_row / g;
   const int kv_end = min(S, last_pos - col_offset + 1);
   const int n_tiles = kv_end > 0 ? (kv_end + BS - 1) / BS : 0;
+  const int j0 = split * split_tiles;
+  const int j1 = min(n_tiles, j0 + split_tiles);
 
   const __nv_bfloat16* kbase = kc + (size_t)bi * ksb + (size_t)kvh * ksh;
   const __nv_bfloat16* vbase = vc + (size_t)bi * ksb + (size_t)kvh * ksh;
-  constexpr int VEC = 8;  // bf16 per 16-byte load
+  if (j0 < j1) load_tile<HD>(Kr, Vr, kbase, vbase, kss, j0, S, tid);
+  dlt::cp_async_commit();
 
-  for (int j = 0; j < n_tiles; ++j) {
-    __syncthreads();  // previous tile's K/V fully consumed; Q/O init visible
-    for (int i = tid; i < BS * (HD / VEC); i += WARPS * 32) {
-      const int r = i / (HD / VEC);
-      const int c = (i % (HD / VEC)) * VEC;
-      const int s = j * BS + r;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (s < S) {
-        kv4 = *reinterpret_cast<const uint4*>(kbase + (size_t)s * kss + c);
-        vv4 = *reinterpret_cast<const uint4*>(vbase + (size_t)s * kss + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * L::QLD + c]) = kv4;
-      *reinterpret_cast<uint4*>(&Vs[r * L::QLD + c]) = vv4;
-    }
-    __syncthreads();
-
-    // scores for this warp's 16 rows: [16, BS] = Q_w [16, HD] . K^T
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc[BS / 16];
+  // Q tile -> bf16 (the JAX wrapper casts q to the cache dtype): 8 values a
+  // chunk, every load of a thread issued before its first store
+  {
+    constexpr int CH = HD / 8;                  // chunks a row
+    constexpr int PER = ROWS * CH / THREADS;    // chunks a thread
+    float4 v[PER][2];
 #pragma unroll
-      for (int n = 0; n < BS / 16; ++n) wmma::fill_fragment(sc[n], 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, &Qs[(warp * 16) * L::QLD + kk * 16], L::QLD);
-#pragma unroll
-        for (int n = 0; n < BS / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bfr;
-          wmma::load_matrix_sync(bfr, &Ks[(n * 16) * L::QLD + kk * 16], L::QLD);
-          wmma::mma_sync(sc[n], a, bfr, sc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BS / 16; ++n)
-        wmma::store_matrix_sync(&Ss[(warp * 16) * L::SLD + n * 16], sc[n], L::SLD,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax, one row at a time across the warp (2 columns a lane)
-    for (int i = 0; i < 16; ++i) {
-      const int r = warp * 16 + i;
-      const int row_pos = pos_start + (row0 + r) / g;
-      const int c0 = j * BS + lane;
-      const int c1 = c0 + 32;
-      const bool ok0 = col_offset + c0 <= row_pos && c0 < S;
-      const bool ok1 = col_offset + c1 <= row_pos && c1 < S;
-      const float s0 = ok0 ? __fmul_rn(Ss[r * L::SLD + lane], scale) : NEG_INF;
-      const float s1 = ok1 ? __fmul_rn(Ss[r * L::SLD + lane + 32], scale) : NEG_INF;
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_safe = fmaxf(fmaxf(mx, m_prev), NEG_INF / 2);
-      const float corr = expf(m_prev - m_safe);
-      const float p0 = ok0 ? expf(s0 - m_safe) : 0.0f;
-      const float p1 = ok1 ? expf(s1 - m_safe) : 0.0f;
-      float ps = __fadd_rn(p0, p1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, off));
-      Ps[r * L::PLD + lane] = __float2bfloat16_rn(p0);
-      Ps[r * L::PLD + lane + 32] = __float2bfloat16_rn(p1);
-      __syncwarp();
-      if (lane == 0) {
-        l_s[r] = __fadd_rn(__fmul_rn(l_s[r], corr), ps);
-        m_s[r] = m_safe;
-        c_s[r] = corr;
+    for (int u = 0; u < PER; ++u) {
+      const int i = tid + u * THREADS;
+      const int R = row0 + i / CH;
+      v[u][0] = v[u][1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (R >= n_rows) continue;
+      const size_t idx =
+          (((size_t)bi * t + R / g) * n_heads + kvh * g + R % g) * HD + (i % CH) * 8;
+      if (q_is_f32) {
+        const float4* src = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(qp) + idx);
+        v[u][0] = src[0];
+        v[u][1] = src[1];
+      } else {  // 8 bf16 in the bits of v[u][0]
+        v[u][0] = *reinterpret_cast<const float4*>(reinterpret_cast<const __nv_bfloat16*>(qp) + idx);
       }
     }
-    __syncwarp();
-
-    // pv = P_w [16, BS] . V [BS, HD]
-    {
 #pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < BS / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(a, &Ps[(warp * 16) * L::PLD + kk * 16], L::PLD);
-          wmma::load_matrix_sync(bfr, &Vs[(kk * 16) * L::QLD + n * 16], L::QLD);
-          wmma::mma_sync(acc, a, bfr, acc);
-        }
-        wmma::store_matrix_sync(&PVs[(warp * 16) * L::OLD + n * 16], acc, L::OLD,
-                                wmma::mem_row_major);
+    for (int u = 0; u < PER; ++u) {
+      const int i = tid + u * THREADS;
+      uint4 b = *reinterpret_cast<const uint4*>(&v[u][0]);
+      if (q_is_f32) {
+        const float4 a = v[u][0];
+        const float4 c = v[u][1];
+        b = make_uint4(dlt::pack_bf16x2(a.x, a.y), dlt::pack_bf16x2(a.z, a.w),
+                       dlt::pack_bf16x2(c.x, c.y), dlt::pack_bf16x2(c.z, c.w));
       }
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * HD; i += 32) {
-      const int r = warp * 16 + i / HD;
-      const int dd = i % HD;
-      float* a = &Os[r * L::OLD + dd];
-      *a = __fadd_rn(__fmul_rn(*a, c_s[r]), PVs[r * L::OLD + dd]);
+      *reinterpret_cast<uint4*>(Qs + (i / CH) * L::LD + (i % CH) * 8) = b;
     }
   }
   __syncthreads();
 
-  for (int i = tid; i < ROWS * HD; i += WARPS * 32) {
-    const int r = i / HD;
-    const int dd = i % HD;
-    const int R = row0 + r;
+  const bool active = row0 + 16 * warp < n_rows;  // the warp has a real row
+  unsigned qa[KS][4];
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      dlt::ldmatrix_x4(qa[kk], Qs + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * L::LD +
+                                   16 * kk + 8 * (lane >> 4));
+  }
+  // rows gid and gid + 8 of the warp's 16: positions and running state
+  const int R0 = row0 + 16 * warp + gid;
+  const int pos_r[2] = {pos_start + R0 / g, pos_start + (R0 + 8) / g};
+  float m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.0f, 0.0f};
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int j = j0; j < j1; ++j) {
+    const int slot = (j - j0) % SLOTS;
+    if (j + 1 < j1)
+      load_tile<HD>(Kr + (1 - slot) * (L::tile / 2), Vr + (1 - slot) * (L::tile / 2), kbase,
+                    vbase, kss, j + 1, S, tid);
+    dlt::cp_async_commit();
+    dlt::cp_async_wait<1>();  // tile j has landed (this thread's copies)
+    __syncthreads();          // ... and everyone's
+    if (active) {
+      const __nv_bfloat16* Ks = Kr + slot * (L::tile / 2);
+      const __nv_bfloat16* Vs = Vr + slot * (L::tile / 2);
+      // S = Q K^T for the warp's 16 rows x 64 columns
+      float sc[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int n = 0; n < 8; n += 2) {
+          unsigned b[4];
+          dlt::ldmatrix_x4(b, Ks + (8 * (n + (lane >> 4)) + (lane & 7)) * L::LD + 16 * kk +
+                                  8 * ((lane >> 3) & 1));
+          dlt::mma_bf16(sc[n], qa[kk], b[0], b[1]);
+          dlt::mma_bf16(sc[n + 1], qa[kk], b[2], b[3]);
+        }
+      }
+      // online softmax over this tile, rows gid (h = 0) and gid + 8 (h = 1)
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = j * BS + 8 * n + 2 * tig + e;
+            const bool ok = col_offset + c <= pos_r[h] && c < S;
+            const float s = ok ? __fmul_rn(sc[n][2 * h + e], scale) : NEG_INF;
+            sc[n][2 * h + e] = s;
+            mx = fmaxf(mx, s);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_safe = fmaxf(fmaxf(mx, m_r[h]), NEG_INF / 2);
+        corr[h] = expf(m_r[h] - m_safe);
+        float ps = 0.0f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float s = sc[n][2 * h + e];
+            const float p = s == NEG_INF ? 0.0f : expf(s - m_safe);
+            sc[n][2 * h + e] = p;
+            ps = __fadd_rn(ps, p);
+          }
+        ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, 1));
+        ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, 2));
+        l_r[h] = __fadd_rn(__fmul_rn(l_r[h], corr[h]), ps);
+        m_r[h] = m_safe;
+      }
+      // P in bf16 as PV's A fragments: k-step kk is S columns 16kk..16kk+15
+      unsigned pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = dlt::pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]);
+        pa[kk][1] = dlt::pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]);
+        pa[kk][2] = dlt::pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+        pa[kk][3] = dlt::pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      }
+      // acc = acc * corr + P V, two 8-column groups of O at a time
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        float pv[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          unsigned b[4];
+          dlt::ldmatrix_x4_trans(b, Vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * L::LD +
+                                        8 * (n + (lane >> 4)));
+          dlt::mma_bf16(pv[0], pa[kk], b[0], b[1]);
+          dlt::mma_bf16(pv[1], pa[kk], b[2], b[3]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[n + u][e] = __fadd_rn(__fmul_rn(acc[n + u][e], corr[e >> 1]), pv[u][e]);
+      }
+    }
+    __syncthreads();  // the slot is free for tile j + 2
+  }
+  dlt::cp_async_wait<0>();
+
+  if (!active) return;
+  const bool direct = splits == 1;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int R = R0 + 8 * h;
     if (R >= n_rows) continue;
     const int tok = R / g;
     const int head = kvh * g + R % g;
-    const size_t idx = (((size_t)bi * t + tok) * n_heads + head) * HD + dd;
-    if constexpr (PARTIAL) {
-      o[idx] = Os[r * L::OLD + dd];
-    } else {
-      const float l = fmaxf(l_s[r], 1e-30f);
-      o[idx] = Os[r * L::OLD + dd] / l;
-    }
-  }
-  if constexpr (PARTIAL) {
-    for (int r = tid; r < ROWS; r += WARPS * 32) {
-      const int R = row0 + r;
-      if (R >= n_rows) continue;
-      const int tok = R / g;
-      const int head = kvh * g + R % g;
-      float mv = m_s[r];
-      if (!(mv > NEG_INF / 2)) {  // the row saw no column of the shard
-        const int q_last = pos_start + (tok / block_t) * block_t + block_t - 1;
-        mv = col_offset <= q_last ? NEG_INF / 2 : NEG_INF;
+    const size_t row_idx = ((size_t)bi * t + tok) * n_heads + head;
+    if (direct) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        float2 v = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+        if (!PARTIAL) {
+          const float l = fmaxf(l_r[h], 1e-30f);
+          v.x = v.x / l;
+          v.y = v.y / l;
+        }
+        *reinterpret_cast<float2*>(o + row_idx * HD + 8 * n + 2 * tig) = v;
       }
-      const size_t idx = ((size_t)bi * t + tok) * n_heads + head;
-      m_out[idx] = mv;
-      l_out[idx] = l_s[r];
+      if (PARTIAL && tig == 0) {
+        m_out[row_idx] = m_r[h] > NEG_INF / 2 ? m_r[h]
+                                              : blind_m(tok, pos_start, col_offset, block_t);
+        l_out[row_idx] = l_r[h];
+      }
+    } else {
+      const size_t ws_row = ((size_t)split * gridDim.x + bk) * n_rows + R;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(o_ws + ws_row * HD + 8 * n + 2 * tig) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      if (tig == 0) {
+        m_ws[ws_row] = m_r[h];
+        l_ws[ws_row] = l_r[h];
+      }
     }
   }
 }
 
+// The splits' triples of one (batch * kv head, score row), combined in split
+// order; one thread an output element
 template <int HD, bool PARTIAL>
-cudaError_t launch(const void* q, int q_is_f32, const void* k, const void* v,
-                   long long ksb, long long kss, long long ksh, void* o, void* m,
-                   void* l, int b, int t, int S, int n_heads, int n_kv, int pos_start,
-                   int col_offset, int block_t, float scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(COMBINE_THREADS)
+flash_combine_kernel(const float* __restrict__ o_ws, const float* __restrict__ m_ws,
+                     const float* __restrict__ l_ws, float* __restrict__ o,
+                     float* __restrict__ m_out, float* __restrict__ l_out, int splits, int t,
+                     int n_heads, int n_kv, int pos_start, int col_offset, int block_t) {
+  constexpr int RPB = COMBINE_THREADS / HD;  // rows a block
+  const int g = n_heads / n_kv;
+  const int n_rows = t * g;
+  const int bk = blockIdx.x;
+  const int BK = gridDim.x;
+  const int R = blockIdx.y * RPB + threadIdx.x / HD;
+  const int dd = threadIdx.x % HD;
+  if (R >= n_rows) return;
+  float M = NEG_INF;
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, m_ws[((size_t)s * BK + bk) * n_rows + R]);
+  float acc = 0.0f;
+  float l = 0.0f;
+  for (int s = 0; s < splits; ++s) {
+    const size_t ws_row = ((size_t)s * BK + bk) * n_rows + R;
+    const float f = expf(m_ws[ws_row] - M);
+    const float os = __fmul_rn(o_ws[ws_row * HD + dd], f);
+    const float ls = __fmul_rn(l_ws[ws_row], f);
+    acc = s == 0 ? os : __fadd_rn(acc, os);
+    l = s == 0 ? ls : __fadd_rn(l, ls);
+  }
+  const int bi = bk / n_kv;
+  const int tok = R / g;
+  const size_t row_idx = ((size_t)bi * t + tok) * n_heads + (bk % n_kv) * g + R % g;
+  if (PARTIAL) {
+    o[row_idx * HD + dd] = acc;
+    if (dd == 0) {
+      m_out[row_idx] = M > NEG_INF / 2 ? M : blind_m(tok, pos_start, col_offset, block_t);
+      l_out[row_idx] = l;
+    }
+  } else {
+    o[row_idx * HD + dd] = acc / fmaxf(l, 1e-30f);
+  }
+}
+
+template <int HD, bool PARTIAL>
+cudaError_t launch(const void* q, int q_is_f32, const void* k, const void* v, long long ksb,
+                   long long kss, long long ksh, void* o, void* m, void* l, void* o_ws,
+                   void* m_ws, void* l_ws, int b, int t, int S, int n_heads, int n_kv,
+                   int pos_start, int col_offset, int block_t, float scale, int split_tiles,
+                   int splits, cudaStream_t stream) {
   const size_t smem = Smem<HD>::total;
   static bool raised[MAX_DEVICES] = {};  // the opt-in is per device
   int dev = 0;
@@ -287,21 +406,37 @@ cudaError_t launch(const void* q, int q_is_f32, const void* k, const void* v,
     raised[dev] = true;
   }
   const int g = n_heads / n_kv;
-  dim3 grid(b * n_kv, (t * g + ROWS - 1) / ROWS);
-  flash_attention_fwd_kernel<HD, PARTIAL><<<grid, WARPS * 32, smem, stream>>>(
+  const int n_rows = t * g;
+  dim3 grid(b * n_kv, (n_rows + ROWS - 1) / ROWS, splits);
+  flash_attention_fwd_kernel<HD, PARTIAL><<<grid, THREADS, smem, stream>>>(
       q, q_is_f32, reinterpret_cast<const __nv_bfloat16*>(k),
-      reinterpret_cast<const __nv_bfloat16*>(v), ksb, kss, ksh,
-      reinterpret_cast<float*>(o), reinterpret_cast<float*>(m),
-      reinterpret_cast<float*>(l), t, S, n_heads, n_kv, pos_start, col_offset, block_t,
-      scale);
+      reinterpret_cast<const __nv_bfloat16*>(v), ksb, kss, ksh, reinterpret_cast<float*>(o),
+      reinterpret_cast<float*>(m), reinterpret_cast<float*>(l), reinterpret_cast<float*>(o_ws),
+      reinterpret_cast<float*>(m_ws), reinterpret_cast<float*>(l_ws), t, S, n_heads, n_kv,
+      pos_start, col_offset, block_t, scale, split_tiles, splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  constexpr int RPB = COMBINE_THREADS / HD;
+  flash_combine_kernel<HD, PARTIAL>
+      <<<dim3(b * n_kv, (n_rows + RPB - 1) / RPB), COMBINE_THREADS, 0, stream>>>(
+          reinterpret_cast<const float*>(o_ws), reinterpret_cast<const float*>(m_ws),
+          reinterpret_cast<const float*>(l_ws), reinterpret_cast<float*>(o),
+          reinterpret_cast<float*>(m), reinterpret_cast<float*>(l), splits, t, n_heads, n_kv,
+          pos_start, col_offset, block_t);
   return cudaGetLastError();
 }
 
-cudaError_t check_args(const void* k, const void* v, long long ksb, long long kss,
-                       long long ksh, int b, int t, int S, int n_heads, int n_kv) {
-  if (b < 1 || t < 1 || S < 1 || n_kv < 1 || n_heads % n_kv != 0)
+cudaError_t check_args(const void* q, const void* k, const void* v, long long ksb,
+                       long long kss, long long ksh, int b, int t, int S, int n_heads, int n_kv,
+                       int split_tiles, int splits, const void* o_ws, const void* m_ws,
+                       const void* l_ws) {
+  if (b < 1 || t < 1 || S < 1 || n_kv < 1 || n_heads % n_kv != 0 || split_tiles < 1 ||
+      splits < 1 || splits > 65535)
     return cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0 ||
+  if (splits > 1 && (o_ws == nullptr || m_ws == nullptr || l_ws == nullptr))
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0 ||
       (ksb | kss | ksh) % 8 != 0)
     return cudaErrorMisalignedAddress;
   return cudaSuccess;
@@ -315,21 +450,27 @@ extern "C" const char* dlt_cuda_error_string(int e) {
 
 // q [b, t, n_heads, hd] f32 or bf16, contiguous; k, v: bf16 [b, S, n_kv, hd]
 // views with unit stride on hd and element strides (ksb, kss, ksh), shared by
-// k and v; o [b, t, n_heads, hd] f32, contiguous.
-extern "C" int flash_attention_fwd(const void* q, int q_is_f32, const void* k,
-                                   const void* v, long long ksb, long long kss,
-                                   long long ksh, void* o, int b, int t, int S,
-                                   int n_heads, int n_kv, int head_dim, int pos_start,
-                                   float scale, void* stream) {
-  const cudaError_t bad = check_args(k, v, ksb, kss, ksh, b, t, S, n_heads, n_kv);
+// k and v; o [b, t, n_heads, hd] f32, contiguous. The plan
+// (ops/cuda_attention.py flash_plan): `splits` runs of `split_tiles` 64-row
+// tiles; with splits > 1 the workspace o_ws [splits, b * n_kv, t * g, hd],
+// m_ws and l_ws [splits, b * n_kv, t * g] f32 (else null).
+extern "C" int flash_attention_fwd(const void* q, int q_is_f32, const void* k, const void* v,
+                                   long long ksb, long long kss, long long ksh, void* o, int b,
+                                   int t, int S, int n_heads, int n_kv, int head_dim,
+                                   int pos_start, float scale, int split_tiles, int splits,
+                                   void* o_ws, void* m_ws, void* l_ws, void* stream) {
+  const cudaError_t bad = check_args(q, k, v, ksb, kss, ksh, b, t, S, n_heads, n_kv, split_tiles,
+                                     splits, o_ws, m_ws, l_ws);
   if (bad != cudaSuccess) return (int)bad;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return (int)launch<64, false>(q, q_is_f32, k, v, ksb, kss, ksh, o, nullptr, nullptr, b,
-                                  t, S, n_heads, n_kv, pos_start, 0, 1, scale, s);
+    return (int)launch<64, false>(q, q_is_f32, k, v, ksb, kss, ksh, o, nullptr, nullptr, o_ws,
+                                  m_ws, l_ws, b, t, S, n_heads, n_kv, pos_start, 0, 1, scale,
+                                  split_tiles, splits, s);
   if (head_dim == 128)
-    return (int)launch<128, false>(q, q_is_f32, k, v, ksb, kss, ksh, o, nullptr, nullptr, b,
-                                   t, S, n_heads, n_kv, pos_start, 0, 1, scale, s);
+    return (int)launch<128, false>(q, q_is_f32, k, v, ksb, kss, ksh, o, nullptr, nullptr, o_ws,
+                                   m_ws, l_ws, b, t, S, n_heads, n_kv, pos_start, 0, 1, scale,
+                                   split_tiles, splits, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -341,18 +482,22 @@ extern "C" int flash_attention_fwd(const void* q, int q_is_f32, const void* k,
 extern "C" int flash_attention_partial_fwd(const void* q, int q_is_f32, const void* k,
                                            const void* v, long long ksb, long long kss,
                                            long long ksh, void* o, void* m, void* l, int b,
-                                           int t, int S, int n_heads, int n_kv,
-                                           int head_dim, int pos_start, int col_offset,
-                                           int block_t, float scale, void* stream) {
-  const cudaError_t bad = check_args(k, v, ksb, kss, ksh, b, t, S, n_heads, n_kv);
+                                           int t, int S, int n_heads, int n_kv, int head_dim,
+                                           int pos_start, int col_offset, int block_t,
+                                           float scale, int split_tiles, int splits,
+                                           void* o_ws, void* m_ws, void* l_ws, void* stream) {
+  const cudaError_t bad = check_args(q, k, v, ksb, kss, ksh, b, t, S, n_heads, n_kv, split_tiles,
+                                     splits, o_ws, m_ws, l_ws);
   if (bad != cudaSuccess) return (int)bad;
   if (block_t < 1 || t % block_t != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return (int)launch<64, true>(q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, b, t, S,
-                                 n_heads, n_kv, pos_start, col_offset, block_t, scale, s);
+    return (int)launch<64, true>(q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, o_ws, m_ws, l_ws, b,
+                                 t, S, n_heads, n_kv, pos_start, col_offset, block_t, scale,
+                                 split_tiles, splits, s);
   if (head_dim == 128)
-    return (int)launch<128, true>(q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, b, t, S,
-                                  n_heads, n_kv, pos_start, col_offset, block_t, scale, s);
+    return (int)launch<128, true>(q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, o_ws, m_ws, l_ws,
+                                  b, t, S, n_heads, n_kv, pos_start, col_offset, block_t, scale,
+                                  split_tiles, splits, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,10 @@ through the page table, each beside its plain PyTorch version.
 `pos_start` with an f32 online softmax (m clamped to NEG_INF / 2, l to
 1e-30, P cast to the V dtype before PV), the g query heads of a KV head
 folded into the score rows. The kernel reads the cache in place through its
-strides; the plain version repeats the Pallas kernel's blocking (query
+strides and splits the visible KV range over CTAs by `flash_plan` (a
+function of the visible tile count and the grid alone), combining the
+splits in split order; `flash_split_plain` repeats that blocking on the
+CPU. The plain version repeats the Pallas kernel's blocking (query
 blocks of min(512, t), KV blocks of min(1024, S), invisible blocks skipped)
 so that it follows the JAX kernel's rounding as closely as torch allows.
 
@@ -39,6 +42,8 @@ the plain int attribute `launches`.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from . import kernels
@@ -51,22 +56,72 @@ HEAD_DIMS = (64, 128)
 
 _SIG = {
     # q, q_is_f32, k, v, ksb, kss, ksh, o, b, t, S, n_heads, n_kv, hd,
-    # pos_start, scale, stream
+    # pos_start, scale, split_tiles, splits, o_ws, m_ws, l_ws, stream
     "flash_attention_fwd": (
         kernels.P, kernels.I, kernels.P, kernels.P,
         kernels.LL, kernels.LL, kernels.LL, kernels.P,
         kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
-        kernels.I, kernels.F, kernels.P,
+        kernels.I, kernels.F, kernels.I, kernels.I,
+        kernels.P, kernels.P, kernels.P, kernels.P,
     ),
     # q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, b, t, S, n_heads, n_kv, hd,
-    # pos_start, col_offset, block_t, scale, stream
+    # pos_start, col_offset, block_t, scale, split_tiles, splits, o_ws,
+    # m_ws, l_ws, stream
     "flash_attention_partial_fwd": (
         kernels.P, kernels.I, kernels.P, kernels.P,
         kernels.LL, kernels.LL, kernels.LL, kernels.P, kernels.P, kernels.P,
         kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
-        kernels.I, kernels.I, kernels.I, kernels.F, kernels.P,
+        kernels.I, kernels.I, kernels.I, kernels.F, kernels.I, kernels.I,
+        kernels.P, kernels.P, kernels.P, kernels.P,
     ),
 }
+# K3's and B8's plan (csrc/flash_attention.cu): score rows per CTA, KV rows
+# per tile and the CTAs a call should reach (two per SM of an H100 SXM's 132)
+FLASH_ROWS = 64
+FLASH_TILE = 64
+FLASH_TARGET_CTAS = 264
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    """K3's and B8's split of the visible KV range: `splits` runs of
+    `split_tiles` FLASH_TILE-row tiles (the last may be shorter), one CTA
+    per (batch * kv head, `rows` score rows, split)."""
+
+    rows: int
+    split_tiles: int
+    splits: int
+
+
+def visible_tiles(t: int, S: int, pos_start: int, col_offset: int = 0) -> int:
+    """KV tiles of a view of S rows whose row 0 is the global position
+    col_offset that the chunk's last query (position pos_start + t - 1)
+    sees."""
+    kv_end = min(S, pos_start + t - col_offset)
+    return -(-kv_end // FLASH_TILE) if kv_end > 0 else 0
+
+
+def flash_plan(n_tiles: int, base_ctas: int) -> FlashPlan:
+    """The split of `n_tiles` visible tiles over a grid of `base_ctas`
+    (batch * kv head) x row-tile CTAs: the fewest splits of whole tiles that
+    reach FLASH_TARGET_CTAS. A function of these two counts alone: a chunk
+    inside shard 0 splits alike under K3 and B8."""
+    want = -(-FLASH_TARGET_CTAS // max(base_ctas, 1))
+    splits = max(1, min(want, n_tiles))
+    split_tiles = max(1, -(-n_tiles // splits))
+    return FlashPlan(FLASH_ROWS, split_tiles, max(1, -(-n_tiles // split_tiles)))
+
+
+def plan_for(q: torch.Tensor, k_view: torch.Tensor, pos_start: int,
+             col_offset: int = 0) -> FlashPlan:
+    """The plan of one call: q [b, t, H, hd] against a [b, S, n_kv, hd]
+    view whose row 0 is the global position col_offset."""
+    b, t, n_heads, _ = q.shape
+    S, n_kv = k_view.shape[1], k_view.shape[2]
+    base = b * n_kv * -(-(t * (n_heads // n_kv)) // FLASH_ROWS)
+    return flash_plan(visible_tiles(t, S, pos_start, col_offset), base)
+
+
 _PAGED_SIG = {
     # q, q_is_f32, k_pool, v_pool, k_scale, v_scale, table, table_stride,
     # pos_base, out, b, t, n_heads, n_kv, hd, ps, n_read, n_pages, layer,
@@ -208,6 +263,70 @@ def flash_attention_partial_plain(
     return _unfold(acc, b, t, n_kv), _unfold(m[..., 0], b, t, n_kv), _unfold(l[..., 0], b, t, n_kv)
 
 
+def flash_split_plain(q, k_view, v_view, pos_start: int, col_offset: int = 0,
+                      scale: float | None = None, plan: FlashPlan | None = None) -> tuple:
+    """The kernel's blocking on the CPU: FLASH_ROWS-row tiles of folded
+    score rows, each cutting its visible KV range (up to its own last
+    row's position) into the plan's splits of FLASH_TILE-row tiles, the
+    online softmax tile by tile within a split, and the splits combined in
+    split order (M = max m_s, o and l summed with weights e^(m_s - M)).
+    Returns B8's (o [b, t, H, hd], m, l [b, t, H]) f32, unnormalized, with
+    the JAX kernel's m on rows that see no column; K3 is o / max(l, 1e-30).
+    Dots take exact products of bf16 values in f32."""
+    b, t, n_heads, hd = q.shape
+    S, n_kv = k_view.shape[1], k_view.shape[2]
+    g = n_heads // n_kv
+    n_rows = t * g
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    if plan is None:
+        plan = plan_for(q, k_view, pos_start, col_offset)
+    q4 = (q.reshape(b, t, n_kv, g, hd).permute(0, 2, 1, 3, 4).reshape(b * n_kv, n_rows, hd)
+          .to(torch.bfloat16).to(torch.float32))
+    k3 = k_view.permute(0, 2, 1, 3).reshape(b * n_kv, S, hd).to(torch.float32)
+    v3 = v_view.permute(0, 2, 1, 3).reshape(b * n_kv, S, hd).to(torch.float32)
+    row_pos = pos_start + torch.arange(n_rows)[:, None] // g
+    accs, ms, ls = [], [], []
+    for r0 in range(0, n_rows, plan.rows):
+        rows = slice(r0, min(r0 + plan.rows, n_rows))
+        pos_r = row_pos[rows]
+        n_t = visible_tiles(1, S, pos_start + (rows.stop - 1) // g, col_offset)
+        parts = []
+        for sp in range(plan.splits):
+            m = torch.full((b * n_kv, rows.stop - r0, 1), NEG_INF)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((b * n_kv, rows.stop - r0, hd))
+            for j in range(sp * plan.split_tiles, min(n_t, (sp + 1) * plan.split_tiles)):
+                cols = torch.arange(j * FLASH_TILE, min((j + 1) * FLASH_TILE, S))
+                s = torch.matmul(q4[:, rows], k3[:, cols].transpose(1, 2)) * scale
+                vis = col_offset + cols[None, :] <= pos_r
+                s = torch.where(vis, s, NEG_INF)
+                m_safe = torch.clamp(torch.maximum(s.amax(dim=-1, keepdim=True), m), min=NEG_INF / 2)
+                corr = torch.exp(m - m_safe)
+                p = torch.where(vis, torch.exp(s - m_safe), 0.0)
+                l = l * corr + p.sum(dim=-1, keepdim=True)
+                acc = acc * corr + torch.matmul(p.to(torch.bfloat16).to(torch.float32), v3[:, cols])
+                m = m_safe
+            parts.append((acc, m, l))
+        m = parts[0][1]
+        for _, m_s, _ in parts[1:]:
+            m = torch.maximum(m, m_s)
+        acc = l = None
+        for a_s, m_s, l_s in parts:
+            f = torch.exp(m_s - m)
+            acc = a_s * f if acc is None else acc + a_s * f
+            l = l_s * f if l is None else l + l_s * f
+        accs.append(acc)
+        ms.append(m)
+        ls.append(l)
+    acc, m, l = torch.cat(accs, dim=1), torch.cat(ms, dim=1)[..., 0], torch.cat(ls, dim=1)[..., 0]
+    bt = _query_block(t)
+    tok = torch.arange(n_rows) // g
+    blind = torch.where(col_offset <= pos_start + (tok // bt) * bt + bt - 1, NEG_INF / 2, NEG_INF)
+    m = torch.where(m > NEG_INF / 2, m, blind.expand_as(m))
+    return _unfold(acc, b, t, n_kv), _unfold(m, b, t, n_kv), _unfold(l, b, t, n_kv)
+
+
 def _check_launch(q, k_cache, v_cache) -> None:
     hd = q.shape[3]
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
@@ -227,20 +346,58 @@ def _check_launch(q, k_cache, v_cache) -> None:
             raise ValueError("q, k and v must be on one device")
 
 
+def _workspace(q, n_kv: int, plan: FlashPlan) -> tuple:
+    """The splits' (o, m, l) for the combine pass (None with one split):
+    [splits, b * n_kv, t * g, hd] and [splits, b * n_kv, t * g] f32."""
+    if plan.splits == 1:
+        return None, None, None
+    b, t, n_heads, hd = q.shape
+    rows = (plan.splits, b * n_kv, t * n_heads // n_kv)
+    ml = torch.empty((2, *rows), dtype=torch.float32, device=q.device)
+    return torch.empty((*rows, hd), dtype=torch.float32, device=q.device), ml[0], ml[1]
+
+
+def _ptrs(tensors) -> list:
+    return [None if x is None else x.data_ptr() for x in tensors]
+
+
 def _launch(q, k_cache, v_cache, pos_start: int, scale: float) -> torch.Tensor:
     b, t, n_heads, hd = q.shape
     S, n_kv = k_cache.shape[1], k_cache.shape[2]
     _check_launch(q, k_cache, v_cache)
+    plan = plan_for(q, k_cache, pos_start)
     lib = kernels.load("flash_attention", _SIG)
     out = torch.empty((b, t, n_heads, hd), dtype=torch.float32, device=q.device)
+    ws = _workspace(q, n_kv, plan)
     ksb, kss, ksh, _ = k_cache.stride()
     kernels.launch(
         lib, "flash_attention_fwd", q,
         q.data_ptr(), int(q.dtype == torch.float32), k_cache.data_ptr(),
         v_cache.data_ptr(), ksb, kss, ksh, out.data_ptr(), b, t, S, n_heads,
-        n_kv, hd, int(pos_start), float(scale),
+        n_kv, hd, int(pos_start), float(scale), plan.split_tiles, plan.splits, *_ptrs(ws),
     )
     return out.to(q.dtype)
+
+
+def _launch_partial(q, k_local, v_local, pos_start: int, col_offset: int, scale: float) -> tuple:
+    b, t, n_heads, hd = q.shape
+    S, n_kv = k_local.shape[1], k_local.shape[2]
+    _check_launch(q, k_local, v_local)
+    plan = plan_for(q, k_local, pos_start, col_offset)
+    lib = kernels.load("flash_attention", _SIG)
+    o = torch.empty((b, t, n_heads, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, t, n_heads), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, t, n_heads), dtype=torch.float32, device=q.device)
+    ws = _workspace(q, n_kv, plan)
+    ksb, kss, ksh, _ = k_local.stride()
+    kernels.launch(
+        lib, "flash_attention_partial_fwd", q,
+        q.data_ptr(), int(q.dtype == torch.float32), k_local.data_ptr(), v_local.data_ptr(),
+        ksb, kss, ksh, o.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, S, n_heads, n_kv, hd,
+        pos_start, col_offset, _query_block(t), float(scale), plan.split_tiles, plan.splits,
+        *_ptrs(ws),
+    )
+    return o, m, l
 
 
 def _check_flash_shapes(q, k_cache) -> None:
@@ -296,22 +453,9 @@ def flash_attention_partial(
                                              int(col_offset), scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_launch(q, k_local, v_local)
-    b, t, n_heads, hd = q.shape
-    S, n_kv = k_local.shape[1], k_local.shape[2]
-    lib = kernels.load("flash_attention", _SIG)
-    o = torch.empty((b, t, n_heads, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, t, n_heads), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, t, n_heads), dtype=torch.float32, device=q.device)
-    ksb, kss, ksh, _ = k_local.stride()
-    kernels.launch(
-        lib, "flash_attention_partial_fwd", q,
-        q.data_ptr(), int(q.dtype == torch.float32), k_local.data_ptr(), v_local.data_ptr(),
-        ksb, kss, ksh, o.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, S, n_heads, n_kv, hd,
-        int(pos_start), int(col_offset), _query_block(t), float(scale),
-    )
+    out = _launch_partial(q, k_local, v_local, int(pos_start), int(col_offset), scale)
     flash_attention_partial.launches += 1
-    return o, m, l
+    return out
 
 
 flash_attention_partial.launches = 0

@@ -24,7 +24,11 @@ K2 `q40_gemm_bf16_stacked` (csrc/q40_gemm.cu) replaces
 `_dequant_dot_accum` (:160): w = bf16((u - 8) * bf16(scale)), one rounding,
 then x (cast to bf16) @ w with f32 accumulation. `q40_gemm_bf16` is the
 same kernel on an unstacked weight and replaces `q40_matmul_pallas` (:880),
-B5.
+B5. Its blocking is `gemm_plan(nb, out_f)`: column tile, split-K count
+(the splits of a column tile reduce in one thread-block cluster, in split
+order) and ring depth, from the weight's shape alone, so a row's bits do
+not depend on the call's other rows; `q40_gemm_bf16_blocked` repeats its
+order of sums on the CPU.
 
 K1-indexed `q40_gemv_q80_indexed` (csrc/q40_gemv.cu) is K1's per-row
 function for the MoE decode experts: B1 as the JAX package's
@@ -58,6 +62,8 @@ else.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -122,12 +128,57 @@ W_I8, W_S4, W_I32, W_FS, W_SH = 0, 1, 2, 3, 4
 DOTS = {"int8": 0, "bf16": 1, "f32": 2}
 I8_MMA_COLS = 64  # output columns per CTA
 _GEMM_SIG = {
-    # x (bf16), q, d, out, rows, in, out, layer, stream
+    # x (bf16), q, d, out, rows, in, out, layer, cols, splits, blocks per
+    # split, stream
     "q40_gemm_bf16": (
         kernels.P, kernels.P, kernels.P, kernels.P,
-        kernels.I, kernels.I, kernels.I, kernels.LL, kernels.P,
+        kernels.I, kernels.I, kernels.I, kernels.LL,
+        kernels.I, kernels.I, kernels.I, kernels.P,
     ),
 }
+# K2's plan (csrc/q40_gemm.cu): rows per CTA, Q40 blocks per ring stage
+# (one per warp along the contraction), ring depth, the largest split count
+# (the portable cluster size) and the CTAs a call should reach (about two
+# per SM of an H100 SXM's 132)
+GEMM_ROWS = 32
+GEMM_STAGE_BLOCKS = 4
+GEMM_STAGES = 4
+GEMM_MAX_SPLITS = 8
+GEMM_TARGET_CTAS = 256
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """K2's blocking of one weight shape: `cols` output columns per CTA,
+    the contraction cut into `splits` runs of `blocks_per_split` Q40 blocks
+    (the last may be shorter), reduced in split order in one thread-block
+    cluster; a ring of `stages` stages of GEMM_STAGE_BLOCKS blocks."""
+
+    cols: int
+    splits: int
+    blocks_per_split: int
+    stages: int
+
+    def ctas(self, out_f: int, rows: int = GEMM_ROWS) -> int:
+        return -(-out_f // self.cols) * self.splits * -(-rows // GEMM_ROWS)
+
+
+def gemm_plan(nb: int, out_f: int) -> GemmPlan:
+    """K2's plan for a weight of nb Q40 blocks by out_f columns: a function
+    of the shape alone, never of the row count or the data, so a row's sums
+    are the same in every call. Tiles of 128 columns where two splits of
+    them reach GEMM_TARGET_CTAS (1B's w13, the vocab widths): every column
+    tile reads its rows' x, so wider tiles halve that traffic where enough
+    of them remain. Else 64. Then the fewest splits, a power of two up to
+    GEMM_MAX_SPLITS, that reach the target, each split at least
+    GEMM_STAGE_BLOCKS blocks."""
+    cols = 128 if 2 * -(-out_f // 128) >= GEMM_TARGET_CTAS else 64
+    tiles = -(-out_f // cols)
+    splits = 1
+    while (splits < GEMM_MAX_SPLITS and tiles * splits < GEMM_TARGET_CTAS
+           and 2 * splits * GEMM_STAGE_BLOCKS <= nb):
+        splits *= 2
+    return GemmPlan(cols, splits, -(-nb // splits), GEMM_STAGES)
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +238,36 @@ def q40_gemm_bf16_plain(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor) -> to
     w = w.reshape(nb * Q_BLOCK, q.shape[-1]).to(torch.float32)
     x2 = x.reshape(-1, nb * Q_BLOCK).to(torch.bfloat16).to(torch.float32)
     return _f32_matmul(x2, w).reshape(*lead, q.shape[-1])
+
+
+def q40_gemm_bf16_blocked(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor,
+                          plan: GemmPlan) -> torch.Tensor:
+    """K2's sums in the kernel's order, for the CPU tests: K2's plain
+    weights and x, each Q40 block's 32 products summed in f32, the blocks a
+    warp takes (block i of every stage of a split: i = (b - first) % 4)
+    accumulated in block order, the four warps' partials added in warp
+    order, then the splits in split order. Within a block the tensor cores
+    sum in their own order, so this is the kernel's blocking, not its
+    bits."""
+    nb = q.shape[-2] // 4
+    out_f = q.shape[-1]
+    lead = x.shape[:-1]
+    sb = d.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+    w = (unpack_q(q).to(torch.float32) * sb.unsqueeze(1)).to(torch.bfloat16).to(torch.float32)
+    xb = x.reshape(-1, nb, Q_BLOCK).to(torch.bfloat16).to(torch.float32)
+    per_block = torch.einsum("rbf,bfo->bro", xb, w)  # [nb, R, out] f32 block dots
+    total = None
+    for s in range(plan.splits):
+        first = s * plan.blocks_per_split
+        last = min(nb, first + plan.blocks_per_split)
+        part = torch.zeros((xb.shape[0], out_f), dtype=torch.float32)
+        for kw in range(GEMM_STAGE_BLOCKS):
+            warp = torch.zeros_like(part)
+            for b in range(first + kw, last, GEMM_STAGE_BLOCKS):
+                warp = warp + per_block[b]
+            part = warp if kw == 0 else part + warp
+        total = part if total is None else total + part
+    return total.reshape(*lead, out_f)
 
 
 def i8_blocks_plain(x8: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
@@ -358,12 +439,13 @@ def _launch_gemm(x, q, d, layer: int) -> torch.Tensor:
     out_f = q.shape[-1]
     xb = x.reshape(-1, in_f).to(torch.bfloat16).contiguous()
     rows = xb.shape[0]
+    plan = gemm_plan(nb, out_f)
     lib = kernels.load("q40_gemm", _GEMM_SIG)
     out = torch.empty((rows, out_f), dtype=torch.float32, device=x.device)
     kernels.launch(
         lib, "q40_gemm_bf16", x,
         xb.data_ptr(), q.data_ptr(), d.data_ptr(), out.data_ptr(),
-        rows, in_f, out_f, layer,
+        rows, in_f, out_f, layer, plan.cols, plan.splits, plan.blocks_per_split,
     )
     return out.reshape(*x.shape[:-1], out_f)
 
@@ -542,10 +624,10 @@ q40_gemm_bf16_stacked.launches = 0
 def q40_gemm_bf16(x, q, d) -> torch.Tensor:
     """K2 on an unstacked weight (B5, the JAX package's `q40_matmul_pallas`
     :880): the wcls at more than 8 rows (perplexity's logits_mode "all",
-    batched decode at batch > 8). The same kernel at layer 0: it walks the
-    contraction one Q40 block at a time and masks the last column tile, so
-    any block count and any out_features (the vocab widths 128256 and
-    151936 included) run as they are."""
+    batched decode at batch > 8). The same kernel at layer 0: it masks the
+    last column tile and the last split's ragged stage, so any block count
+    and any out_features (the vocab widths 128256 and 151936 included) run
+    as they are."""
     _check_weight(q, d, x, stacked=False)
     if _device_kind(x) == "cpu":
         return q40_gemm_bf16_plain(x, q, d)

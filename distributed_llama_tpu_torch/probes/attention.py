@@ -324,7 +324,8 @@ def run_seq(S: int, device, seed: int = 0, timed: bool = True, shape=SHAPE_1B) -
     p12_vs_p8 = (got["decode_attention"].float() - got["flash_headmajor"].float()).abs().max()
     ctas = {"pure_read": b * read_splits(n_kv, S, hd),
             "decode_attention": b * n_kv * attention_splits(b, n_kv, S),
-            "flash_headmajor": b * n_kv * -(-g // 64)}
+            "flash_headmajor": b * n_kv * -(-g // cuda_attention.FLASH_ROWS)
+            * cuda_attention.plan_for(q4, headmajor_view(k), pos).splits}
     rows = []
     for name in ("pure_read", "decode_attention", "flash_headmajor"):
         err = (got[name].float() - want[name].float()).abs().max().item()

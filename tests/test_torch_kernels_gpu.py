@@ -920,3 +920,163 @@ def test_codec_probes_run_on_the_card(cuda):
         assert len(got["tiles"]) == 2 * len(scales.tiles_for(32))
         assert all(r[flag] and r["planes_bit_equal"] and r["max_abs_err"] <= 1e-5 * r["out_scale"]
                    for r in got["tiles"])
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3/B8 as redesigned for the card: split-K in a cluster, split-S
+# with a combine pass
+# ---------------------------------------------------------------------------
+
+# K2's serving shapes (in, out): Llama-3.2-1B wqkv, wo, w13, w2; Qwen3-30B-A3B
+# wqkv, wo; both vocab widths
+K2_SHAPES = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048), (2048, 5120),
+             (4096, 2048), (2048, 128256), (2048, 151936)]
+
+
+def _signed_stack(cuda, groups, in_f, out_f, seed=0):
+    """`_flat_stack` with scales of both signs (a Q40 scale takes the sign
+    of its block's largest value), so -0 weights occur too."""
+    q, d = _flat_stack(cuda, groups, in_f, out_f, seed)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    sign = torch.randint(0, 2, d.shape, device=cuda, generator=gen) * 2 - 1
+    return q, (d * sign).half()
+
+
+@pytest.mark.parametrize("rows", [9, 16, 32, 40])
+@pytest.mark.parametrize("in_f,out_f", K2_SHAPES)
+def test_k2_matches_plain_at_every_serving_shape(cuda, in_f, out_f, rows):
+    """K2 stacked (layer 1) and unstacked (B5) within 1e-4 of the plain
+    version's output scale: the dequantized weights are the plain
+    version's bits and only the f32 order of sums differs (tensor-core
+    accumulation within a block, warps, then splits)."""
+    q, d = _signed_stack(cuda, 2, in_f, out_f, seed=in_f + out_f + rows)
+    x = torch.randn((1, rows, in_f), device=cuda, generator=torch.Generator(device=cuda).manual_seed(rows))
+    want = cuda_q40.q40_gemm_bf16_plain(x, q[1], d[1])
+    got = cuda_q40.q40_gemm_bf16_stacked(x, q, d, 1)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    if out_f > 100_000:
+        got0 = cuda_q40.q40_gemm_bf16(x, q[0].contiguous(), d[0].contiguous())
+        want0 = cuda_q40.q40_gemm_bf16_plain(x, q[0], d[0])
+        torch.cuda.synchronize()
+        assert (got0 - want0).abs().max().item() <= 1e-4 * want0.abs().max().item()
+
+
+@pytest.mark.parametrize("rows", [9, 40])
+@pytest.mark.parametrize("in_f,out_f", [(2080, 200), (96, 13), (32, 1), (4096, 2052)])
+def test_k2_matches_plain_at_ragged_shapes(cuda, in_f, out_f, rows):
+    """Shapes no model serves still run: a block count that no split or
+    stage divides, widths whose word and scale rows are not 16-byte
+    aligned (loaded element by element) and a masked last column tile."""
+    q, d = _signed_stack(cuda, 2, in_f, out_f, seed=in_f + out_f + rows)
+    x = torch.randn((rows, in_f), device=cuda, generator=torch.Generator(device=cuda).manual_seed(rows))
+    want = cuda_q40.q40_gemm_bf16_plain(x, q[1], d[1])
+    got = cuda_q40.q40_gemm_bf16_stacked(x, q, d, 1)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 16384), (2048, 128256)])
+def test_k2_row_bits_do_not_depend_on_other_rows(cuda, in_f, out_f):
+    """A row's output bits depend on its own input only: rows 0-15 of a
+    40-row call equal a 16-row call of those rows, the 40-row call's tail
+    equals the same rows called alone, and two launches are equal."""
+    q, d = _signed_stack(cuda, 2, in_f, out_f, seed=out_f)
+    x = torch.randn((40, in_f), device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    full = cuda_q40.q40_gemm_bf16_stacked(x, q, d, 1)
+    head = cuda_q40.q40_gemm_bf16_stacked(x[:16].contiguous(), q, d, 1)
+    tail = cuda_q40.q40_gemm_bf16_stacked(x[32:].contiguous(), q, d, 1)
+    again = cuda_q40.q40_gemm_bf16_stacked(x, q, d, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(full[:16], head)
+    assert torch.equal(full[32:], tail)
+    assert torch.equal(full, again)
+
+
+def test_k2_and_k3_wrappers_raise_instead_of_falling_back(cuda):
+    q, d = _flat_stack(cuda, 2, 256, 384)
+    with pytest.raises(IndexError):  # a layer past the stack
+        cuda_q40.q40_gemm_bf16_stacked(_x(16, 256).to(cuda), q, d, 2)
+    with pytest.raises(ValueError):  # 128 features, weight 256
+        cuda_q40.q40_gemm_bf16_stacked(_x(16, 128).to(cuda), q, d, 0)
+    qq = torch.randn((1, 8, 8, 64), device=cuda)
+    k = torch.randn((1, 256, 2, 64), device=cuda)
+    with pytest.raises(TypeError):  # an f32 cache: the kernel takes bf16
+        cuda_attention.flash_attention(qq, k, k, 0)
+    kb = torch.randn((1, 256, 2, 96), device=cuda).bfloat16()
+    with pytest.raises(ValueError):  # head_dim 96
+        cuda_attention.flash_attention(torch.randn((1, 8, 8, 96), device=cuda), kb, kb, 0)
+
+
+def _long_cache(cuda, hd, S_view, n_kv, seed):
+    """K and V [b, S_view, n_kv, hd] as strided views of one stacked bf16
+    cache, as the main path passes them."""
+    gen = torch.Generator().manual_seed(seed)
+    cache = torch.randn((2, 1, S_view + 256, n_kv, hd), generator=gen).to(torch.bfloat16).to(cuda)
+    return cache[0, :, :S_view], cache[1, :, :S_view]
+
+
+@pytest.mark.parametrize("hd,g", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("t", [8, 32])
+@pytest.mark.parametrize("pos", [4080, 6000])
+def test_k3_with_splits_matches_plain(cuda, hd, g, t, pos):
+    """K3 over an 8192-row view with the visible range cut into several
+    splits and combined: within K3's 1e-2 of the plain version."""
+    n_kv = 2
+    q = torch.randn((1, t, n_kv * g, hd), generator=torch.Generator().manual_seed(pos + t)).to(cuda)
+    k, v = _long_cache(cuda, hd, 8192, n_kv, seed=hd + pos)
+    assert cuda_attention.plan_for(q, k, pos).splits > 1
+    before = cuda_attention.flash_attention.launches
+    got = cuda_attention.flash_attention(q, k, v, pos)
+    want = cuda_attention.flash_attention_plain(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert cuda_attention.flash_attention.launches == before + 1
+    assert (got - want).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("hd,g", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("t", [8, 32])
+@pytest.mark.parametrize("pos", [4080, 6000])
+@pytest.mark.parametrize("col", [0, 4096, 8192])
+def test_b8_with_splits_matches_plain(cuda, hd, g, t, pos, col):
+    """B8 on the 4096-row shard at col of a 12288-row cache: several
+    splits where the shard is visible, one straddling tile, or nothing
+    (the shard wholly in the chunk's future), each within `_b8_check`."""
+    n_kv, S = 2, 4096
+    q = torch.randn((1, t, n_kv * g, hd), generator=torch.Generator().manual_seed(pos + t + col)).to(cuda)
+    k, v = _long_cache(cuda, hd, 3 * S, n_kv, seed=hd + pos + col)
+    ks, vs = k[:, col:col + S], v[:, col:col + S]
+    plan = cuda_attention.plan_for(q, ks, pos, col)
+    if col == 0:
+        assert plan.splits > 1
+    o, m, l = cuda_attention.flash_attention_partial(q, ks, vs, pos, col)
+    po, pm, pl = cuda_attention.flash_attention_partial_plain(q, ks, vs, pos, col)
+    torch.cuda.synchronize()
+    seen = _b8_check(o, m, l, po, pm, pl)
+    if pos + t - 1 < col:
+        assert not seen.any()
+
+
+@pytest.mark.parametrize("hd,g", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("pos", [40, 1000, 4064, 6000, 16352])
+def test_sp_combine_with_splits_matches_k3(cuda, hd, g, pos):
+    """The four-shard combine of B8's triples over a 16384-row cache
+    against K3 over all of it, within `_b8_bound` of K3's output; bit for
+    bit while the chunk lies inside shard 0, whose splits are K3's (the
+    plan depends on the visible tiles and the grid only) and whose factor
+    is exactly 1 while the other shards add exact zeros."""
+    n_kv, sp, t = 2, 4, 32
+    S = 16384
+    local = S // sp
+    q = torch.randn((1, t, n_kv * g, hd), generator=torch.Generator().manual_seed(pos)).to(cuda)
+    k, v = _long_cache(cuda, hd, S, n_kv, seed=hd + pos)
+    got = ops_attention.flash_attention_sp(
+        q, [k[:, i * local:(i + 1) * local] for i in range(sp)],
+        [v[:, i * local:(i + 1) * local] for i in range(sp)], pos, [i * local for i in range(sp)])
+    want = cuda_attention.flash_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    if pos + t <= local:
+        assert cuda_attention.plan_for(q, k, pos) == cuda_attention.plan_for(q, k[:, :local], pos)
+        assert torch.equal(got, want)
+    assert (got - want).abs().max().item() <= _b8_bound(want)
