@@ -70,9 +70,16 @@ caught):
      layers x shards times and K3 never, logits and tokens against sp = 1,
      and profiles of its prefill tail (B8's share) and decode. At
      Qwen3-30B-A3B's width: the CLI's `inference` (contiguous);
-  6. where a decode token's time goes: torch.profiler over 16 batch-1
-     decode steps of each model and over one batch-16 paged int8 chunk;
+  6. where a token's time goes: torch.profiler over 16 batch-1 decode
+     steps of each model (contiguous) and of the 1B on the paged int8
+     layout (K5's share), over one batch-16 paged int8 chunk (K5's share)
+     and over a 128-token Qwen3-30B-A3B prefill (K4's share);
   7. one {"kernels": [...]} line, then the card, then the result line.
+
+`python3 chip_smoke.py --profiles llama32_1b|qwen3_30b_a3b [--models DIR]`
+runs phases 1-2 and only that model's phase-6 windows (the paged int8
+decode and batch-16 chunk, or the prefill): run from the root of two trees
+in one call, it compares them end to end.
 
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. Bounds use the card's published rates
@@ -1500,17 +1507,18 @@ def small_batch_reference(torch, tmp: Path):
 # ---------------------------------------------------------------------------
 
 
-def synthetic_model(stem: str, header_kw: dict, norm_epsilon: float | None = None):
+def synthetic_model(stem: str, header_kw: dict, norm_epsilon: float | None = None,
+                    root: Path = BUILD):
     """The model file (random Q40 block bytes from seed 0, written fast by
     testing.write_random_q40_model) and a byte tokenizer padded to its
-    vocab, written once into build/models. Returns (model path, tokenizer
+    vocab, written once into root/models. Returns (model path, tokenizer
     path, write seconds, file bytes)."""
     from distributed_llama_tpu_torch.formats.mfile import MFileReader
     from distributed_llama_tpu_torch.testing import (
         tiny_header, write_random_q40_model, write_tiny_tokenizer,
     )
 
-    d = BUILD / "models"
+    d = root / "models"
     d.mkdir(parents=True, exist_ok=True)
     vocab = header_kw["vocab_size"]
     mp, tp = d / f"{stem}_random_q40_seed0.m", d / f"byte_tokenizer_{vocab}.t"
@@ -1915,12 +1923,13 @@ def profile_window(torch, name: str, run, n_tokens: int, share_of=None) -> dict:
     return out
 
 
-def decode_profile(torch, name: str, model_path: str, steps: int = 16) -> dict:
-    """16 batch-1 decode steps of the main path's engine (contiguous)
-    after a 99-token prefill, profiled."""
+def decode_profile(torch, name: str, model_path: str, steps: int = 16, share_of=None,
+                   **engine_kw) -> dict:
+    """16 batch-1 decode steps of the main path's engine (contiguous, or
+    the layout `engine_kw` names) after a 99-token prefill, profiled."""
     from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
 
-    eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda")
+    eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda", **engine_kw)
     prompt = [(7 * i) % 1000 + 1 for i in range(100)]
     eng.prefill(prompt[:-1])
     tok = torch.tensor([prompt[-1]], device="cuda")
@@ -1930,9 +1939,80 @@ def decode_profile(torch, name: str, model_path: str, steps: int = 16) -> dict:
         eng._decode_chunk(tok, at[0], steps)
         at[0] += steps
 
-    out = profile_window(torch, name, run, steps)
+    out = profile_window(torch, name, run, steps, share_of)
     eng.close()
     return out
+
+
+# the profiled windows' kernels of interest, by a substring of the CUDA
+# kernel's name
+K5_SHARE = {"paged_attention (K5)": "paged_attention"}
+K4_SHARE = {"q40_grouped_gemm (K4)": "q40_grouped_gemm"}
+
+
+def int8_decode_profile(torch, model_path: str) -> dict:
+    """The CLI's `inference --kv-dtype int8` path at batch 1 (paged int8,
+    K5 at b = 1): 16 decode steps after a 99-token prefill, profiled."""
+    return decode_profile(torch, "llama32_1b paged int8 batch 1", model_path, share_of=K5_SHARE,
+                          kv_layout="paged", cache_dtype="int8")
+
+
+def prefill_profile(torch, name: str, model_path: str, n_tokens: int = 128) -> dict:
+    """Prefill of n_tokens tokens (four 32-row chunks) on the CLI's
+    contiguous engine, profiled, with K4's share of the device time."""
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda")
+    prompt = [(11 * i) % 1000 + 1 for i in range(n_tokens)]
+    out = profile_window(torch, name + " prefill", lambda: eng.prefill(prompt), n_tokens, K4_SHARE)
+    eng.close()
+    return out
+
+
+def batch16_profile(torch, model_path: str, tp: str, sess=None) -> dict:
+    """One 8-step chunk of a batch-16 paged int8 BatchSession, profiled,
+    with K5's share. Without `sess` (the main run's), a session of its own:
+    the main run's 16 prompts, stepped 16 chunks of 8 first."""
+    eng = None
+    if sess is None:
+        from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+        from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+        from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+        ids = Tokenizer(tp).encode(PROMPT)
+        b = 16
+        eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, batch=b, kv_layout="paged",
+                              cache_dtype="int8", device="cuda")
+        sess = BatchSession(eng)
+        for r in range(b):
+            sess.admit(r, ids[: 16 + (len(ids) - 16) * r // (b - 1)])
+        for _ in range(16):
+            sess.step(8)
+    out = profile_window(torch, "llama32_1b batch-16 paged int8 chunk", lambda: sess.step(8),
+                         8 * 16, K5_SHARE)
+    if eng is not None:
+        eng.close()
+    return out
+
+
+def profiles_only(torch, model: str, models_dir: Path | None) -> int:
+    """`--profiles MODEL`: only the profiled windows of one model, for an
+    end-to-end comparison of two trees with this script (run it from the
+    root of each): at Llama-3.2-1B width the paged int8 batch-1 decode and
+    the batch-16 paged int8 chunk, at Qwen3-30B-A3B width the prefill.
+    `--models DIR` shares the synthetic model files between the runs."""
+    root = models_dir or BUILD
+    if model == "llama32_1b":
+        mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B, root=root)
+        out = [int8_decode_profile(torch, mp)]
+        release(torch)
+        out.append(batch16_profile(torch, mp, tp))
+    else:
+        mp, _, _, _ = synthetic_model("qwen3_30b_a3b", dict(QWEN3_30B_A3B, arch=QWEN3_MOE_ARCH),
+                                      norm_epsilon=QWEN3_NORM_EPS, root=root)
+        out = [prefill_profile(torch, "qwen3_30b_a3b", mp)]
+    print(json.dumps({"profiles": out, "tree": str(ROOT)}))
+    return 0
 
 
 def release(torch) -> None:
@@ -1941,9 +2021,16 @@ def release(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one NVIDIA GPU.")
+    ap.add_argument("--profiles", choices=("llama32_1b", "qwen3_30b_a3b"),
+                    help="only the profiled windows of one model")
+    ap.add_argument("--models", type=Path, help="with --profiles: where the model files live")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
     def done(what: str) -> None:
@@ -1979,6 +2066,10 @@ def main() -> int:
         log(f"--- nvcc {name}.cu\n{text.strip()}")
     log(f"kernels built in {secs:.1f} s ({len(logs)} compiled, one nvcc each, in parallel)")
     done("phases 1-2")
+    if args.profiles:
+        rc = profiles_only(torch, args.profiles, args.models)
+        print(smi)
+        return rc
 
     # 3. kernels against their plain versions
     rows = {r["name"]: r for r in kernel_checks(torch, rates)}  # K1, K1-stacked, K2, K3, B5
@@ -2080,11 +2171,13 @@ def main() -> int:
         torch, "llama32_1b", mp, tp, LLAMA32_1B["n_layers"], counters,
         (*dense, ca.paged_flash_attention), extra=("--kv-dtype", "int8"))
     release(torch)
+    int8_decode_profile(torch, mp)
+    release(torch)
     launches, sess, eng = batch_session_path(
         torch, mp, tp, counters,
         (q.q40_gemm_bf16_stacked, q.q40_gemm_bf16, ca.flash_attention, ca.paged_flash_attention))
     paths["llama32_1b batch_session 16 paged int8"] = launches
-    profile_window(torch, "llama32_1b batch-16 paged int8 chunk", lambda: sess.step(8), 8 * 16)
+    batch16_profile(torch, mp, tp, sess)
     eng.close()
     del sess, eng
     release(torch)
@@ -2109,6 +2202,8 @@ def main() -> int:
         torch, "qwen3_30b_a3b", mp, tp, QWEN3_30B_A3B["n_layers"], counters, moe)
     release(torch)
     decode_profile(torch, "qwen3_30b_a3b", mp)
+    release(torch)
+    prefill_profile(torch, "qwen3_30b_a3b", mp)
     release(torch)
     done("phases 5-6 at Qwen3-30B-A3B width")
 

@@ -1,4 +1,5 @@
-// Shared device helpers of K2 (q40_gemm.cu) and K3/B8 (flash_attention.cu):
+// Shared device helpers of K2 (q40_gemm.cu), K3/B8 (flash_attention.cu), K4
+// (q40_grouped_gemm.cu) and K5 (paged_attention.cu):
 // cp.async copies into shared memory, ldmatrix fragment loads and the bf16
 // tensor-core MMA (mma.sync m16n8k16, f32 accumulate), as PTX.
 //
@@ -29,7 +30,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                "l"(src), "r"(src_bytes));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// 4 bytes global -> shared, asynchronous (through L1: the .cg form takes
+// 16-byte copies only)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit(){ asm volatile("cp.async.commit_group;\n" ::); }
 
 // wait until at most N of this thread's committed groups are in flight
 template <int N>

@@ -32,8 +32,13 @@ walks the row's first `n_read` page-table entries (clamped at 0), skips
 pages past the row's last query position, dequantizes K and V in f32 and
 runs the same online softmax as K3 with P . V in f32 (no bf16 rounding of
 P). Per-row `pos_base` puts a parked row (pos_base = seq_len) on every
-page; its output is junk the host discards. The plain version walks the
-pages in the same order with torch ops, the skip as a per-row select.
+page; its output is junk the host discards. The kernel cuts the pages
+into splits of `paged_plan(page_size, head_dim, g).split_pages` absolute
+pages, one CTA of four warps each, merges the warps' runs of pages in
+warp order, and the last CTA of a (row, kv head) to finish merges the
+splits in split order; `paged_split_plain` repeats that blocking.
+The plain version walks the pages in the same order with torch ops, the
+skip as a per-row select.
 
 Each wrapper takes its plain version for a tensor on the CPU, launches its
 kernel for a tensor on the card (or raises), and counts its launches in
@@ -125,15 +130,51 @@ def plan_for(q: torch.Tensor, k_view: torch.Tensor, pos_start: int,
 _PAGED_SIG = {
     # q, q_is_f32, k_pool, v_pool, k_scale, v_scale, table, table_stride,
     # pos_base, out, b, t, n_heads, n_kv, hd, ps, n_read, n_pages, layer,
-    # scale, stream
+    # scale, split_pages, o_ws, m_ws, l_ws, tickets, stream
     "paged_attention_fwd": (
         kernels.P, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P,
         kernels.P, kernels.I, kernels.P, kernels.P,
         kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
-        kernels.I, kernels.LL, kernels.F, kernels.P,
+        kernels.I, kernels.LL, kernels.F, kernels.I,
+        kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
     ),
 }
 PAGE_SIZE_MAX = 64
+# K5's plan (csrc/paged_attention.cu): score rows per CTA, its warps, and
+# the tokens a warp takes where pages are smaller
+PAGED_ROWS = 4
+PAGED_WARPS = 4
+PAGED_WARP_TOKENS = 16
+
+
+@dataclass(frozen=True)
+class PagedPlan:
+    """K5's split of a row's pages: split s covers the absolute pages
+    [s * split_pages, (s + 1) * split_pages), one CTA per (batch * kv head,
+    `rows` score rows, split); a CTA past its rows' last position exits."""
+
+    rows: int
+    split_pages: int
+
+    def splits(self, n_read: int) -> int:
+        """The grid's splits for a call reading n_read pages."""
+        return -(-n_read // self.split_pages)
+
+    def warp_pages(self) -> int:
+        """The consecutive pages of a split that one of the CTA's
+        PAGED_WARPS warps takes (the last warps of a short split none)."""
+        return -(-self.split_pages // PAGED_WARPS)
+
+
+def paged_plan(page_size: int, head_dim: int, g: int) -> PagedPlan:
+    """K5's plan: a function of the page size, head_dim and the query heads
+    per kv head alone, never of the batch, n_read or the positions, so a
+    row's splits and sums are the same whoever shares its call and however
+    many pages the bucket reads. A split is PAGED_WARPS warps' pages: one
+    page a warp, or PAGED_WARP_TOKENS tokens of smaller pages, whatever
+    head_dim and g (four 16-token pages: 512 CTAs for a batch-16 step at
+    kv_len 256 at either model's width)."""
+    return PagedPlan(PAGED_ROWS, PAGED_WARPS * max(1, PAGED_WARP_TOKENS // page_size))
 
 
 def flash_attention_aligned(q: torch.Tensor, k_cache: torch.Tensor, t: int) -> bool:
@@ -263,6 +304,21 @@ def flash_attention_partial_plain(
     return _unfold(acc, b, t, n_kv), _unfold(m[..., 0], b, t, n_kv), _unfold(l[..., 0], b, t, n_kv)
 
 
+def _merge(parts) -> tuple:
+    """Unnormalized (acc, m, l) states merged in order: M = max m_i, then acc
+    and l summed with weights e^(m_i - M), as the kernel merges its warps
+    and its splits."""
+    M = parts[0][1]
+    for _, m_i, _ in parts[1:]:
+        M = torch.maximum(M, m_i)
+    acc = l = None
+    for a_i, m_i, l_i in parts:
+        f = torch.exp(m_i - M)
+        acc = a_i * f if acc is None else acc + a_i * f
+        l = l_i * f if l is None else l + l_i * f
+    return acc, M, l
+
+
 def flash_split_plain(q, k_view, v_view, pos_start: int, col_offset: int = 0,
                       scale: float | None = None, plan: FlashPlan | None = None) -> tuple:
     """The kernel's blocking on the CPU: FLASH_ROWS-row tiles of folded
@@ -308,14 +364,7 @@ def flash_split_plain(q, k_view, v_view, pos_start: int, col_offset: int = 0,
                 acc = acc * corr + torch.matmul(p.to(torch.bfloat16).to(torch.float32), v3[:, cols])
                 m = m_safe
             parts.append((acc, m, l))
-        m = parts[0][1]
-        for _, m_s, _ in parts[1:]:
-            m = torch.maximum(m, m_s)
-        acc = l = None
-        for a_s, m_s, l_s in parts:
-            f = torch.exp(m_s - m)
-            acc = a_s * f if acc is None else acc + a_s * f
-            l = l_s * f if l is None else l + l_s * f
+        acc, m, l = _merge(parts)
         accs.append(acc)
         ms.append(m)
         ls.append(l)
@@ -469,45 +518,36 @@ def paged_attention_eligible(q: torch.Tensor, n_kv: int, page_size: int) -> bool
     return t <= page_size and n_heads % n_kv == 0 and head_dim % 8 == 0
 
 
-def paged_flash_attention_plain(
-    q: torch.Tensor,
-    k_pool: torch.Tensor,
-    v_pool: torch.Tensor,
-    k_scale: torch.Tensor,
-    v_scale: torch.Tensor,
-    layer: int,
-    pos_base: torch.Tensor,
-    page_table: torch.Tensor,
-    n_read: int,
-    page_size: int,
-    scale: float | None = None,
-) -> torch.Tensor:
-    """K5's plain version: q [b, t, H, hd]; pools [L, P, ps, n_kv, hd] int8
-    with [L, P, ps, n_kv] f32 scales; pos_base [b]; page_table [b, >=
-    n_read] (-1 = unmapped) -> [b, t, H, hd] in q.dtype. Page by page, as
-    `_paged_kernel` walks them; a page past a row's last query position
-    leaves that row's state as it was."""
+def _paged_fold(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """q [b, t, H, hd] -> [b, n_kv, t * g, hd] f32, rows folded as
+    `_paged_kernel` folds them (row R: token R // g, head kvh * g + R % g)."""
     b, t, n_heads, hd = q.shape
-    n_kv = k_pool.shape[3]
     g = n_heads // n_kv
-    ps = page_size
-    rows = t * g
-    if scale is None:
-        scale = 1.0 / (hd ** 0.5)
-    dev = q.device
-    q4 = (
+    return (
         q.reshape(b, t, n_kv, g, hd).permute(0, 2, 1, 3, 4)
-        .reshape(b, n_kv, rows, hd).to(torch.float32)
+        .reshape(b, n_kv, t * g, hd).to(torch.float32)
     )
-    pages = page_table[:, :n_read].clamp(min=0).long()  # [b, n_read]
+
+
+def _paged_pages(q4, k_pool, v_pool, k_scale, v_scale, layer: int, pos_base, page_table,
+                 pages, page_size: int, t: int, scale: float) -> tuple:
+    """The online softmax over `pages` (an index range) of every row, in
+    order, from the empty state: a page past a row's last query position
+    (pos_base + t - 1) leaves that row's state as it was. Returns the
+    unnormalized (acc [b, n_kv, rows, hd], m, l [b, n_kv, rows, 1]) f32."""
+    b, n_kv, rows, hd = q4.shape
+    g = rows // t
+    ps = page_size
+    dev = q4.device
+    table = page_table.clamp(min=0).long()
     pos = pos_base.long()
     row_pos = pos[:, None, None, None] + (torch.arange(rows, device=dev) // g)[None, None, :, None]
     last_pos = pos + t - 1
     m = torch.full((b, n_kv, rows, 1), NEG_INF, device=dev)
     l = torch.zeros((b, n_kv, rows, 1), device=dev)
     acc = torch.zeros((b, n_kv, rows, hd), device=dev)
-    for si in range(n_read):
-        phys = pages[:, si]
+    for si in pages:
+        phys = table[:, si]
         k = k_pool[layer, phys].to(torch.float32) * k_scale[layer, phys].unsqueeze(-1)
         v = v_pool[layer, phys].to(torch.float32) * v_scale[layer, phys].unsqueeze(-1)
         k = k.permute(0, 2, 1, 3)  # [b, n_kv, ps, hd]
@@ -526,11 +566,73 @@ def paged_flash_attention_plain(
         m = torch.where(live, m_safe, m)
         l = torch.where(live, l_new, l)
         acc = torch.where(live, acc_new, acc)
-    out = acc / torch.clamp(l, min=1e-30)
+    return acc, m, l
+
+
+def _paged_unfold(out: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    b, t, n_heads, hd = q.shape
+    n_kv = out.shape[1]
     return (
-        out.reshape(b, n_kv, t, g, hd).permute(0, 2, 1, 3, 4)
+        out.reshape(b, n_kv, t, n_heads // n_kv, hd).permute(0, 2, 1, 3, 4)
         .reshape(b, t, n_heads, hd).to(q.dtype)
     )
+
+
+def paged_flash_attention_plain(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    layer: int,
+    pos_base: torch.Tensor,
+    page_table: torch.Tensor,
+    n_read: int,
+    page_size: int,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """K5's plain version: q [b, t, H, hd]; pools [L, P, ps, n_kv, hd] int8
+    with [L, P, ps, n_kv] f32 scales; pos_base [b]; page_table [b, >=
+    n_read] (-1 = unmapped) -> [b, t, H, hd] in q.dtype. Page by page, as
+    `_paged_kernel` walks them; a page past a row's last query position
+    leaves that row's state as it was."""
+    t, hd = q.shape[1], q.shape[3]
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    q4 = _paged_fold(q, k_pool.shape[3])
+    acc, _, l = _paged_pages(q4, k_pool, v_pool, k_scale, v_scale, layer, pos_base, page_table,
+                             range(n_read), page_size, t, scale)
+    return _paged_unfold(acc / torch.clamp(l, min=1e-30), q)
+
+
+def paged_split_plain(q, k_pool, v_pool, k_scale, v_scale, layer: int, pos_base, page_table,
+                      n_read: int, page_size: int, scale: float | None = None,
+                      plan: PagedPlan | None = None) -> torch.Tensor:
+    """The kernel's blocking on the CPU: the pages cut into splits of
+    `plan.split_pages` absolute pages (default: `paged_plan`'s), each split
+    into PAGED_WARPS runs of `plan.warp_pages()` pages (the CTA's warps),
+    the online softmax page by page within a run from the empty state, the
+    runs merged in warp order and the splits in split order (`_merge`),
+    then o / max(l, 1e-30). A run or split past a row's last position adds
+    exact zeros, as the kernel's warp or CTA that has nothing to read.
+    Returns [b, t, H, hd] in q.dtype."""
+    t, hd = q.shape[1], q.shape[3]
+    n_kv = k_pool.shape[3]
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    if plan is None:
+        plan = paged_plan(page_size, hd, q.shape[2] // n_kv)
+    q4 = _paged_fold(q, n_kv)
+    wp = plan.warp_pages()
+    splits = []
+    for s0 in range(0, n_read, plan.split_pages):
+        s1 = min(n_read, s0 + plan.split_pages)
+        runs = [_paged_pages(q4, k_pool, v_pool, k_scale, v_scale, layer, pos_base, page_table,
+                             range(w0, min(s1, w0 + wp)), page_size, t, scale)
+                for w0 in range(s0, s0 + PAGED_WARPS * wp, wp)]
+        splits.append(_merge(runs))
+    acc, _, l = _merge(splits)
+    return _paged_unfold(acc / torch.clamp(l, min=1e-30), q)
 
 
 def _check_paged(q, k_pool, v_pool, k_scale, v_scale, layer, pos_base, page_table,
@@ -579,16 +681,44 @@ def _launch_paged(q, k_pool, v_pool, k_scale, v_scale, layer, pos_base, page_tab
             raise ValueError(f"{name} must be contiguous")
     if page_table.device != q.device or page_table.stride(1) != 1:
         raise ValueError("the page table must be on q's device with unit column stride")
+    if q.data_ptr() % 16:
+        q = q.clone()  # the kernel loads q 16 bytes at a time
+    plan = paged_plan(ps, hd, n_heads // n_kv)
+    splits = plan.splits(int(n_read))
     lib = kernels.load("paged_attention", _PAGED_SIG)
     out = torch.empty_like(q)
+    ws = (None,) * 4
+    if splits > 1:
+        rows = (splits, b * n_kv, t * n_heads // n_kv)
+        ml = torch.empty((2, *rows), dtype=torch.float32, device=q.device)
+        tiles = b * n_kv * -(-rows[2] // plan.rows)
+        ws = (torch.empty((*rows, hd), dtype=torch.float32, device=q.device), ml[0], ml[1],
+              _tickets(q.device, tiles))
     kernels.launch(
         lib, "paged_attention_fwd", q,
         q.data_ptr(), int(q.dtype == torch.float32), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(), page_table.stride(0),
         pos_base.data_ptr(), out.data_ptr(), b, t, n_heads, n_kv, hd, ps, int(n_read), P,
-        int(layer), float(scale),
+        int(layer), float(scale), plan.split_pages, *_ptrs(ws),
     )
     return out
+
+
+_TICKETS: dict = {}  # device -> int32 counters, 0 between calls
+_TICKETS_MIN = 1 << 14
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """K5's zeroed per-(batch * kv head, row tile) counters on `device`, at
+    least n of them. The kernel's last CTA of each group resets its counter,
+    so one buffer serves every call on the device (and a graph replay); it
+    is reallocated only to grow. Calls on one device must not overlap on two
+    streams."""
+    buf = _TICKETS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, _TICKETS_MIN), dtype=torch.int32, device=device)
+        _TICKETS[device] = buf
+    return buf
 
 
 def paged_flash_attention(

@@ -53,7 +53,10 @@ f16 natively); the raw-bits convert runs in the probes only.
 K4 `q40_grouped_gemm_bf16` (csrc/q40_grouped_gemm.cu) replaces
 `ops/pallas_q40.py:q40_matmul_pallas_grouped` (:779), body
 `_kernel_grouped` (:772): K2's math on row block i against group
-block_expert[i] of a flat expert stack (MoE prefill).
+block_expert[i] of a flat expert stack (MoE prefill), with the weights as
+the MMA's 16-row operand and one CTA per (row block, `grouped_plan`
+column tile) over the whole contraction; `q40_grouped_gemm_bf16_blocked`
+repeats its order of sums on the CPU.
 
 Every wrapper takes its plain version for a tensor on the CPU, launches its
 kernel for a tensor on the card (or raises), and counts its launches in a
@@ -107,10 +110,10 @@ GEMV_TILES = tuple((c, k) for c in (32, 64, 128) for k in (4, 8, 16))
 BODY_ROWS = (1, 8)
 _GROUPED_SIG = {
     # x (bf16), q, d, block_group, n_blocks, n_groups, out, block_r, in,
-    # out, stream
+    # out, cols, stream
     "q40_grouped_gemm_bf16": (
         kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.LL,
-        kernels.P, kernels.I, kernels.I, kernels.I, kernels.P,
+        kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
     ),
 }
 _I8_MMA_SIG = {
@@ -161,6 +164,31 @@ class GemmPlan:
 
     def ctas(self, out_f: int, rows: int = GEMM_ROWS) -> int:
         return -(-out_f // self.cols) * self.splits * -(-rows // GEMM_ROWS)
+
+
+@dataclass(frozen=True)
+class GroupedPlan:
+    """K4's blocking (csrc/q40_grouped_gemm.cu): `cols` output columns per
+    CTA (4 warps of cols / 4), one row block per CTA over the whole
+    contraction."""
+
+    cols: int
+
+    def ctas(self, out_f: int, n_blocks: int) -> int:
+        return -(-out_f // self.cols) * n_blocks
+
+
+def grouped_plan(nb: int, out_f: int, block_r: int) -> GroupedPlan:
+    """K4's plan for a weight of nb Q40 blocks by out_f columns at block_r
+    rows a block: a function of the shape alone. Tiles of 128 columns
+    (each column tile reads its row block's x, so wider tiles read less of
+    it; a 30B-A3B chunk still has 144 row blocks x 6 or 16 tiles), 64
+    where the weight has no more columns than that. No split of the
+    contraction, whatever nb or block_r: a row block's sums never depend
+    on another block."""
+    if block_r not in GROUPED_BLOCK_ROWS or nb < 1:
+        raise ValueError(f"no K4 plan for nb {nb}, block_r {block_r}")
+    return GroupedPlan(64 if out_f <= 64 else 128)
 
 
 def gemm_plan(nb: int, out_f: int) -> GemmPlan:
@@ -337,6 +365,29 @@ def q40_grouped_gemm_bf16_plain(xp, q, d, block_expert, block_r: int) -> torch.T
     return _f32_matmul(xb, w).reshape(n_blocks * block_r, out_f)
 
 
+def q40_grouped_gemm_bf16_blocked(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
+    """K4's sums in the kernel's order, for the CPU tests: K2's plain
+    weights and x, each Q40 block's 32 products summed in f32 (two
+    16-feature MMA steps in the kernel), the blocks of a row block
+    accumulated in block order by the one warp that owns the column, with
+    nothing split. Within a block the tensor cores sum in their own order,
+    so this is the kernel's blocking, not its bits."""
+    qf, df = flat_groups(q, d)
+    nb = qf.shape[-2] // 4
+    out_f = qf.shape[-1]
+    n_blocks = xp.shape[0] // block_r
+    sel = block_expert.long()
+    sb = df[sel].to(torch.float32).to(torch.bfloat16).to(torch.float32)
+    w = (unpack_q(qf[sel]).to(torch.float32) * sb.unsqueeze(2)).to(torch.bfloat16)
+    w = w.to(torch.float32)  # [n_blocks, nb, 32, out]
+    xb = xp.reshape(n_blocks, block_r, nb, Q_BLOCK).to(torch.bfloat16).to(torch.float32)
+    per_block = torch.einsum("nrbf,nbfo->bnro", xb, w)  # [nb, n_blocks, block_r, out]
+    acc = torch.zeros((n_blocks, block_r, out_f), dtype=torch.float32)
+    for b in range(nb):
+        acc = acc + per_block[b]
+    return acc.reshape(n_blocks * block_r, out_f)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -448,6 +499,22 @@ def _launch_gemm(x, q, d, layer: int) -> torch.Tensor:
         rows, in_f, out_f, layer, plan.cols, plan.splits, plan.blocks_per_split,
     )
     return out.reshape(*x.shape[:-1], out_f)
+
+
+def _launch_grouped(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
+    nb = q.shape[-2] // 4
+    in_f, out_f = nb * Q_BLOCK, q.shape[-1]
+    plan = grouped_plan(nb, out_f, block_r)
+    xb = xp.to(torch.bfloat16).contiguous()  # w2's f32 rows: one cast launch
+    lib = kernels.load("q40_grouped_gemm", _GROUPED_SIG)
+    out = torch.empty((xp.shape[0], out_f), dtype=torch.float32, device=xp.device)
+    kernels.launch(
+        lib, "q40_grouped_gemm_bf16", xp,
+        xb.data_ptr(), q.data_ptr(), d.data_ptr(), block_expert.data_ptr(),
+        xp.shape[0] // block_r, q.numel() // (nb * 4 * out_f), out.data_ptr(), block_r, in_f,
+        out_f, plan.cols,
+    )
+    return out
 
 
 def _check_groups(q, d, x, index):
@@ -692,16 +759,7 @@ def q40_grouped_gemm_bf16(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
         raise ValueError(f"{block_expert.shape[0]} block groups for {n_blocks} row blocks")
     if _device_kind(xp) == "cpu":
         return q40_grouped_gemm_bf16_plain(xp, q, d, block_expert, block_r)
-    nb = q.shape[-2] // 4
-    in_f, out_f = nb * Q_BLOCK, q.shape[-1]
-    xb = xp.to(torch.bfloat16).contiguous()
-    lib = kernels.load("q40_grouped_gemm", _GROUPED_SIG)
-    out = torch.empty((xp.shape[0], out_f), dtype=torch.float32, device=xp.device)
-    kernels.launch(
-        lib, "q40_grouped_gemm_bf16", xp,
-        xb.data_ptr(), q.data_ptr(), d.data_ptr(), block_expert.data_ptr(), n_blocks,
-        q.numel() // (nb * 4 * out_f), out.data_ptr(), block_r, in_f, out_f,
-    )
+    out = _launch_grouped(xp, q, d, block_expert, block_r)
     q40_grouped_gemm_bf16.launches += 1
     return out
 

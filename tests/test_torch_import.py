@@ -32,6 +32,7 @@ import distributed_llama_tpu_torch.probes.i4_tiles
 import distributed_llama_tpu_torch.probes.int4b
 import distributed_llama_tpu_torch.probes.int4c
 import distributed_llama_tpu_torch.probes.k2_k3_ab
+import distributed_llama_tpu_torch.probes.k4_k5_ab
 import distributed_llama_tpu_torch.parallel
 import distributed_llama_tpu_torch.parallel.mesh
 import distributed_llama_tpu_torch.parallel.pipeline

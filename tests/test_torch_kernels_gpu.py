@@ -435,6 +435,104 @@ def test_k5_kernel_matches_plain(cuda, hd, n_kv, g, ps, t, n_read, q_dtype):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+def _paged_row_alone(args, r, n_read):
+    """Row r of a paged call as a b = 1 call reading n_read table entries:
+    its own entries first, then -1 (unmapped) padding where n_read is
+    larger."""
+    q, k, v, ks, vs, pos, table = args
+    row = table[r : r + 1, : min(n_read, table.shape[1])]
+    if n_read > row.shape[1]:
+        pad = torch.full((1, n_read - row.shape[1]), -1, dtype=torch.int32, device=row.device)
+        row = torch.cat([row, pad], dim=1)
+    return q[r : r + 1].contiguous(), k, v, ks, vs, pos[r : r + 1].contiguous(), row.contiguous()
+
+
+@pytest.mark.parametrize("hd,n_kv,g", [(64, 8, 4), (128, 4, 8)])
+@pytest.mark.parametrize("t", [1, 4])
+def test_k5_row_bits_do_not_depend_on_batch_or_n_read(cuda, hd, n_kv, g, t):
+    """K5's splits are absolute page ranges from paged_plan (page size,
+    head_dim, g): a live row of a b = 16 call equals, bit for bit, the same
+    row called alone with a larger and a smaller n_read (each covering its
+    visible pages)."""
+    n_read, ps = 16, 16
+    args = _paged_inputs(cuda, 2, n_kv, g, hd, 16, n_read, ps, t, seed=hd + t + 7)
+    q, k, v, ks, vs, pos, table = args
+    full = cuda_attention.paged_flash_attention(q, k, v, ks, vs, 1, pos, table, n_read, ps)
+    torch.cuda.synchronize()
+    live = [r for r in range(16) if int(pos[r]) < n_read * ps]
+    assert len(live) >= 10
+    for r in live:
+        need = (int(pos[r]) + t - 1) // ps + 1
+        for nr in sorted({need, n_read + 24}):
+            rq, *rest, rpos, rtab = _paged_row_alone(args, r, nr)
+            alone = cuda_attention.paged_flash_attention(rq, *rest, 1, rpos, rtab, nr, ps)
+            torch.cuda.synchronize()
+            assert torch.equal(alone[0], full[r]), (r, nr)
+
+
+@pytest.mark.parametrize("hd,n_kv,g", [(64, 8, 4), (128, 4, 8)])
+@pytest.mark.parametrize("ps", [16, 32])
+def test_k5_matches_split_plain_at_every_split_edge(cuda, hd, n_kv, g, ps):
+    """K5 against paged_split_plain (the same splits, warps' runs and
+    ordered merges) with the rows' positions on either side of every page
+    edge, so of every warp's run and split edge, up to n_read pages: f32
+    dots and P . V sums in another order, 1e-5 of the output's scale."""
+    n_read = 12
+    assert n_read > cuda_attention.paged_plan(ps, hd, g).split_pages
+    edges = [e * ps + d for e in range(1, n_read) for d in (-1, 0)]
+    b = len(edges) + 1
+    q, k, v, ks, vs, pos, table = _paged_inputs(cuda, 2, n_kv, g, hd, b, n_read, ps, 1, seed=ps)
+    pos = torch.tensor([0] + edges, dtype=torch.int64, device=cuda)
+    got = cuda_attention.paged_flash_attention(q, k, v, ks, vs, 0, pos, table, n_read, ps)
+    want = cuda_attention.paged_split_plain(q, k, v, ks, vs, 0, pos, table, n_read, ps)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_k5_in_a_cuda_graph_resets_its_tickets(cuda):
+    """K5 with several splits captured in a CUDA graph and replayed twice:
+    both replays equal the eager call bit for bit, so the last CTA of each
+    (row, kv head) left its ticket at 0 for the next launch."""
+    n_read, ps = 16, 16
+    q, k, v, ks, vs, pos, table = _paged_inputs(cuda, 2, 8, 4, 64, 4, n_read, ps, 1, seed=9)
+    assert cuda_attention.paged_plan(ps, 64, 4).splits(n_read) > 1
+    eager = cuda_attention.paged_flash_attention(q, k, v, ks, vs, 1, pos, table, n_read, ps)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_attention.paged_flash_attention(q, k, v, ks, vs, 1, pos, table, n_read, ps)
+    replays = []
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    again = cuda_attention.paged_flash_attention(q, k, v, ks, vs, 1, pos, table, n_read, ps)
+    torch.cuda.synchronize()
+    assert torch.equal(replays[0], eager) and torch.equal(replays[1], eager)
+    assert torch.equal(again, eager)
+
+
+@pytest.mark.parametrize("block_r", [8, 16, 32, 64])
+def test_k4_row_block_bits_do_not_depend_on_other_blocks(cuda, block_r):
+    """A row block's K4 output equals, bit for bit, the same block launched
+    alone: one CTA per (row block, column tile) over the whole
+    contraction, no split."""
+    E, dim, ff = 8, 2048, 768
+    for in_f, out_f in ((dim, ff), (ff, dim)):
+        q, d = _flat_stack(cuda, 2 * E, in_f, out_f, seed=block_r + in_f)
+        be = torch.tensor([3, 9, 0, 15, 9], dtype=torch.int32, device=cuda)
+        xp = torch.randn((5 * block_r, in_f), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(block_r))
+        full = cuda_q40.q40_grouped_gemm_bf16(xp, q, d, be, block_r)
+        for i in (1, 4):
+            rows = slice(i * block_r, (i + 1) * block_r)
+            alone = cuda_q40.q40_grouped_gemm_bf16(xp[rows].contiguous(), q, d, be[i : i + 1].contiguous(),
+                                                   block_r)
+            torch.cuda.synchronize()
+            assert torch.equal(alone, full[rows])
+
+
 # -- B9, P3, P4 (csrc/q40_i8_mma.cu) and P14 (csrc/stream_probe.cu) ----------
 
 
