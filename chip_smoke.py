@@ -12,7 +12,9 @@ caught):
      shapes the main paths give it (Llama-3.2-1B and Qwen3-30B-A3B widths),
      with its time (CUDA events over CUDA-graph replays), its plain
      version's time, one PyTorch library call's time as a yardstick, and
-     its bound; K2 also per call at each 1B shape at 16 and 32 rows beside
+     its bound; K1 at 1..8 rows at both models' widths bit for bit equal to
+     its blocked order (q40_gemv_q80_blocked at gemv_plan) and each row to
+     its 1-row call, K1-indexed's slots likewise; K2 also per call at each 1B shape at 16 and 32 rows beside
      torch.matmul, K3 also at long context (t 32 at position 6000 over an
      8192-row view, hd 64) beside SDPA; B8 (the shard-local flash
      partial) on 4096-row shards of
@@ -26,11 +28,12 @@ caught):
      the probes' entry points (probes/int4.py and probes/dma.py main) with
      their launch counters set to 0 just before and read just after: cold
      (operands out of L2) and hot times, the streaming ceiling per shape;
-  3c. the decode-attention floor probes and K1's body: P11 (pure read), P12
-     (grouped decode attention, hd 64 and 128, g 4 and 8), P8 (K3 on a
-     head-major cache) and P7 (K1's GEMV body at every tile, and K1's Q80
-     prologue alone) against their plain versions at the probe shapes, P7
-     at K1's tile bit for bit equal to K1; then the probes' entry points
+  3c. the decode-attention floor probes and the first K1's body: P11 (pure
+     read), P12 (grouped decode attention, hd 64 and 128, g 4 and 8), P8 (K3
+     on a head-major cache) and P7 (the first K1's GEMV body at every tile,
+     and its Q80 prologue alone) against their plain versions at the probe
+     shapes, K1 on the same rows bit for bit equal to its blocked order;
+     then the probes' entry points
      (probes/attention.py and probes/int4_prod.py main), counted as the
      path "decode floor probes";
   3d. the scale-plane and tile sweeps and the f16-bits convert: P1 (raw
@@ -48,7 +51,7 @@ caught):
      at 1 and 3 rows, against their plain versions; at B9's tile each
      codec bit for bit equal to B9 (f16) and to P13 (i16); then the probes'
      entry points (probes/int4b.py and probes/int4c.py main, with B9 and
-     K1's body beside them on the same weights), counted as the path
+     the first K1's body beside them on the same weights), counted as the path
      "nibble codec probes", whose rows are held;
   4. small-input references: a tiny Llama and a tiny Qwen3-MoE through the
      engine on the card and on the CPU (plain versions), logits and greedy
@@ -268,6 +271,7 @@ def kernel_checks(torch, rates):
         "decode logits: wcls 2048 -> 128256 at 1 row",
     ))
     del wcls_bf16
+    k1_gates(torch, gen, [(i, o, stacks[n]) for n, i, o in shapes] + [(dim, c["vocab_size"], wcls)])
 
     # -- K2 stacked: one 32-row prefill chunk's 64 per-layer matmuls ---------
     xp = {n: torch.randn((1, PREFILL_ROWS, i), device="cuda", generator=gen) for n, i, _ in shapes}
@@ -314,6 +318,38 @@ def kernel_checks(torch, rates):
     # -- B5 (K2 on the unstacked wcls): perplexity's and batch > 8 logits ---
     results.append(b5_row(torch, gen, wcls, dim, c["vocab_size"], bw, bf16_peak))
     return results
+
+
+def k1_gates(torch, gen, weights):
+    """K1 at 1..8 rows on each (in, out, (q, d)) of `weights` (a stack's
+    layer 1 or an unstacked weight), and on 1-layer stacks at the
+    Qwen3-30B-A3B widths: each row's 1-row call equal to
+    q40_gemv_q80_blocked at gemv_plan bit for bit, and rows 0..R-1 of an
+    R-row call equal to the rows' 1-row calls bit for bit."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    c = QWEN3_30B_A3B
+    qkv = (c["n_heads"] + 2 * c["n_kv_heads"]) * c["head_dim"]
+    weights = list(weights)
+    for i, o in ((c["dim"], qkv), (c["n_heads"] * c["head_dim"], c["dim"]),
+                 (c["dim"], c["vocab_size"])):
+        q, d = random_q40_stack(torch, gen, 1, i, o)
+        weights.append((i, o, (q[0], d[0])))
+    for i, o, (q, d) in weights:
+        if q.ndim == 3:
+            q, d = q[1], d[1]
+        plan = cuda_q40.gemv_plan(i // 32, o)
+        x = torch.randn((8, i), device="cuda", generator=gen)
+        solo = [cuda_q40.q40_gemv_q80(x[r:r + 1], q, d) for r in range(8)]
+        for r in range(8):
+            want = cuda_q40.q40_gemv_q80_blocked(x[r:r + 1], q, d, plan)
+            assert torch.equal(solo[r], want), f"K1 {i}->{o} row {r}: not its blocked order"
+        for rows in range(2, 9):
+            got = cuda_q40.q40_gemv_q80(x[:rows], q, d)
+            assert torch.equal(got, torch.cat(solo[:rows])), f"K1 {i}->{o}: {rows} rows differ"
+    torch.cuda.synchronize()
+    log(json.dumps({"kernel_extra": "q40_gemv_q80", "gates": "rows 1-8 bit-equal to the "
+                    "blocked order and to 1-row calls", "shapes": [(i, o) for i, o, _ in weights]}))
 
 
 def k2_shape_times(torch, gen, shapes, stacks, lib_w, L, bw, bf16_peak):
@@ -749,6 +785,17 @@ def moe_kernel_checks(torch, rates):
          cuda_q40.q40_gemv_q80_indexed_plain(ins[n][li], *stacks[n], idx[li]))
         for li in range(L) for n, _, _ in roles
     ), rel_tol=1e-5)
+    # bit for bit: the blocked order at gemv_plan, and each slot alone
+    for n, i, o in roles:
+        plan = cuda_q40.gemv_plan(i // 32, o)
+        for li in (0, L - 1):
+            got = cuda_q40.q40_gemv_q80_indexed(ins[n][li], *stacks[n], idx[li])
+            want = cuda_q40.q40_gemv_q80_indexed_blocked(ins[n][li], *stacks[n], idx[li], plan)
+            assert torch.equal(got, want), f"K1-indexed {n} layer {li}: not its blocked order"
+            for s in range(k):
+                x1 = ins[n][li] if ins[n][li].shape[0] == 1 else ins[n][li][s:s + 1]
+                one = cuda_q40.q40_gemv_q80_indexed(x1, *stacks[n], idx[li][s:s + 1])
+                assert torch.equal(one[0], got[s]), f"K1-indexed {n} slot {s}: differs alone"
     # yardstick: torch.matmul against the 8 gathered bf16-dequantized experts
     lib_w = {n: [_dq(torch, stacks[n][0][idx[li].long()], stacks[n][1][idx[li].long()]) for li in range(L)]
              for n, _, _ in roles}
@@ -1006,8 +1053,8 @@ def floor_checks(torch):
     """P11, P12 and P8 at the attention probe's shapes (b 1, h 32, kv 8, hd
     64, S 1024 / 2048 / 32768, pos = S - 10), P12 also at hd 128 and g 8
     and with col0 > 0; P7 at every tile of every int4_prod shape, at 1 and
-    8 rows, its K1 tile bit-equal to K1, and the prologue equal to its
-    plain version. Returns {row name: (max abs err, max rel err,
+    8 rows, K1 on the same rows bit-equal to its blocked order, and the
+    prologue equal to its plain version. Returns {row name: (max abs err, max rel err,
     tolerance)}."""
     from distributed_llama_tpu_torch.ops import cuda_q40
     from distributed_llama_tpu_torch.probes import attention, int4_prod
@@ -1053,16 +1100,16 @@ def floor_checks(torch):
                 assert torch.equal(got, want), f"q80_prologue {label} rows {rows}: differs"
             keep("q80_prologue", (0.0, 0.0, 0.0))
             k1 = cuda_q40.q40_gemv_q80(x, qp, d)
-            want = int4_prod.fs_call_tiles_plain(x8, xs, bs, qp, d, *cuda_q40.K1_TILE)
+            blocked = cuda_q40.q40_gemv_q80_blocked(x, qp, d, cuda_q40.gemv_plan(in_f // 32, out_f))
+            diff = (k1 - blocked).abs().max().item()
+            assert torch.equal(k1, blocked), f"K1 {label}: differs from its blocked order by {diff}"
+            want = int4_prod.fs_call_tiles_plain(x8, xs, bs, qp, d, *cuda_q40.FIRST_K1_TILE)
             for cols, ksplit in cuda_q40.GEMV_TILES:
                 got = int4_prod.fs_call_tiles(x8, xs, bs, qp, d, cols, ksplit)
                 # exact integer partials, f32 block sums in the tile's order
                 keep("fs_call_tiles", compare(torch, f"fs_call_tiles {label} {cols}x{ksplit}",
                                               [(got, want)], rel_tol=1e-5))
-                if (cols, ksplit) == cuda_q40.K1_TILE:
-                    diff = (got - k1).abs().max().item()
-                    assert torch.equal(got, k1), f"fs_call_tiles {label}: K1's tile differs from K1 by {diff}"
-            del x, qp, d, x8, xs, bs, k1, want
+            del x, qp, d, x8, xs, bs, k1, blocked, want
     torch.cuda.empty_cache()
     log(json.dumps({"phase": "floor_checks", "errs": errs}))
     return errs
@@ -1120,13 +1167,14 @@ def floor_rows(torch, rates, errs, counters):
     body = {"cold_ms": p["a_cold_ms"], "hot_ms": p["a_hot_ms"], "plain_ms": p["plain_ms"],
             "library_cold_ms": p["library_cold_ms"], "bytes": p["body"]}
     out["fs_call_tiles"] = row("fs_call_tiles", body, p["ops"], int8_peak,
-                               "K1's GEMV alone at its tile (32, 8): wcls 2048 -> 32768 at 1 "
-                               "row, cold; library: torch.matmul on the bf16-dequantized plane")
+                               "the first K1's GEMV alone at its tile (32, 8): wcls 2048 -> "
+                               "32768 at 1 row, cold; library: torch.matmul on the "
+                               "bf16-dequantized plane")
     pro = {"cold_ms": p["c_cold_ms"], "hot_ms": p["c_hot_ms"], "plain_ms": p["prologue_plain_ms"],
            "library_cold_ms": None, "bytes": p["prologue"]}
     out["q80_prologue"] = row("q80_prologue", pro, 0, bf16_peak,
-                              "K1's Q80 prologue alone on one bf16 row of 2048, cold; no library "
-                              "call computes it")
+                              "the first K1's Q80 prologue alone on one bf16 row of 2048, cold; "
+                              "no library call computes it")
     return launches, out
 
 
@@ -1402,7 +1450,7 @@ def codec_rows(torch, rates, errs, counters):
         r, f16 = at_wcls(rows, probe, "i16"), at_wcls(rows, probe, "f16")
         times = {"ms": r["cold_ms"], "hot_ms": r["hot_ms"], "chain_ms": r["chain_ms"],
                  "plain_ms": r["plain_ms"], "library_ms": r["library_cold_ms"],
-                 "f16_ms": f16["cold_ms"], "x_b9": r["x_b9"], "x_k1": r["x_k1"]}
+                 "f16_ms": f16["cold_ms"], "x_b9": r["x_b9"], "x_first_k1": r["x_first_k1"]}
         tile = "P9's best" if probe == "P10" else "best"
         out[name] = _row(name, *CODEC_SOURCES[name], errs[name], times, r["bytes"], r["ops"],
                          bw, int8_peak,
@@ -1879,6 +1927,12 @@ def sp_path(torch, mp: str, tp: str, counters, expected, b8, k3):
     return launches
 
 
+# the host-side launch calls a window counts: the CUDA runtime's and the
+# low-level cu* entries, plain and extended (a kernel launched as a
+# thread-block cluster goes through cudaLaunchKernelEx)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+
+
 def profile_window(torch, name: str, run, n_tokens: int, share_of=None) -> dict:
     """Where a decode window's time goes: torch.profiler over one call of
     `run` (after one warm call), which decodes `n_tokens` tokens. Host wall
@@ -1910,7 +1964,7 @@ def profile_window(torch, name: str, run, n_tokens: int, share_of=None) -> dict:
         "device_idle_share": 1.0 - (dev_us / 1e6) / wall,
         "kernels_per_token": sum(e.count for e in on_dev) / n_tokens,
         "launch_calls_per_token": sum(
-            e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel")) / n_tokens,
+            e.count for e in events if e.key in LAUNCH_CALLS) / n_tokens,
         "top_kernels_ms_per_token": {e.key[:100]: e.self_device_time_total / 1e3 / n_tokens
                                      for e in by_dev},
         "top_host_ops_ms_per_token": {e.key: e.self_cpu_time_total / 1e3 / n_tokens
@@ -1948,6 +2002,8 @@ def decode_profile(torch, name: str, model_path: str, steps: int = 16, share_of=
 # kernel's name
 K5_SHARE = {"paged_attention (K5)": "paged_attention"}
 K4_SHARE = {"q40_grouped_gemm (K4)": "q40_grouped_gemm"}
+# K1's GEMV (either design) and the first design's separate prologue
+K1_SHARE = {"q40_gemv (K1)": "q40_gemv", "quantize_rows_q80 (K1 prologue)": "quantize_rows_q80"}
 
 
 def int8_decode_profile(torch, model_path: str) -> dict:
@@ -1998,19 +2054,27 @@ def batch16_profile(torch, model_path: str, tp: str, sess=None) -> dict:
 def profiles_only(torch, model: str, models_dir: Path | None) -> int:
     """`--profiles MODEL`: only the profiled windows of one model, for an
     end-to-end comparison of two trees with this script (run it from the
-    root of each): at Llama-3.2-1B width the paged int8 batch-1 decode and
-    the batch-16 paged int8 chunk, at Qwen3-30B-A3B width the prefill.
-    `--models DIR` shares the synthetic model files between the runs."""
+    root of each): at Llama-3.2-1B width the contiguous and the paged int8
+    batch-1 decode (K1's share beside K5's) and the batch-16 paged int8
+    chunk, at Qwen3-30B-A3B width the contiguous decode (K1's share) and
+    the prefill. `--models DIR` shares the synthetic model files between
+    the runs."""
     root = models_dir or BUILD
     if model == "llama32_1b":
         mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B, root=root)
-        out = [int8_decode_profile(torch, mp)]
+        out = [decode_profile(torch, "llama32_1b", mp, share_of=K1_SHARE)]
+        release(torch)
+        out.append(decode_profile(torch, "llama32_1b paged int8 batch 1", mp,
+                                  share_of={**K5_SHARE, **K1_SHARE}, kv_layout="paged",
+                                  cache_dtype="int8"))
         release(torch)
         out.append(batch16_profile(torch, mp, tp))
     else:
         mp, _, _, _ = synthetic_model("qwen3_30b_a3b", dict(QWEN3_30B_A3B, arch=QWEN3_MOE_ARCH),
                                       norm_epsilon=QWEN3_NORM_EPS, root=root)
-        out = [prefill_profile(torch, "qwen3_30b_a3b", mp)]
+        out = [decode_profile(torch, "qwen3_30b_a3b", mp, share_of=K1_SHARE)]
+        release(torch)
+        out.append(prefill_profile(torch, "qwen3_30b_a3b", mp))
     print(json.dumps({"profiles": out, "tree": str(ROOT)}))
     return 0
 

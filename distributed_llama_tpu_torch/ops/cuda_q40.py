@@ -14,10 +14,16 @@ K1 `q40_gemv_q80` (csrc/q40_gemv.cu) replaces the JAX package's
   3. out = sum over blocks of (partial - 8 * bsum) * (xs * d), in f32.
 
 The integer partials are bit-exact against the Pallas kernel; only the
-order of the f32 block sums differs. `launch_q80_prologue` and
-`launch_gemv_body` launch step 1 alone and step 2 alone (the latter at any
-CTA tile of GEMV_TILES; K1 is the tile K1_TILE), for the kernel probe P7
-(probes/int4_prod.py).
+order of the f32 block sums differs. One launch a call does all three: its
+blocking is `gemv_plan(nb, out_f)` (words a thread loads per weight row,
+column tile, warps along the contraction, split-K count; the splits of a
+column tile reduce in one thread-block cluster, in split order), from the
+weight's shape alone, so a row's bits do not depend on the call's other
+rows or slots; `q40_gemv_q80_blocked` repeats its order of sums and equals
+it bit for bit. `launch_q80_prologue` and `launch_gemv_body` launch the
+first K1 design's two kernels apart, step 1 alone and step 2 alone (the
+latter at any CTA tile of GEMV_TILES; that K1's was FIRST_K1_TILE), for
+the kernel probe P7 (probes/int4_prod.py).
 
 K2 `q40_gemm_bf16_stacked` (csrc/q40_gemm.cu) replaces
 `ops/pallas_q40.py:q40_matmul_pallas_stacked` (:253), body
@@ -34,7 +40,8 @@ K1-indexed `q40_gemv_q80_indexed` (csrc/q40_gemv.cu) is K1's per-row
 function for the MoE decode experts: B1 as the JAX package's
 `models/transformer.py:_moe_decode_i8` calls it, with a flat `layer * E +
 expert` index that stays on the device. Row r (or one row shared by every
-slot) runs against group idx[r]; one launch covers all slots.
+slot) runs against group idx[r]; one launch covers all slots, at the
+plan of the group's shape (`q40_gemv_q80_indexed_blocked` repeats it).
 
 B9 `q40_i8_unpacked` (csrc/q40_i8_mma.cu) replaces `ops/pallas_q40.py:_i8_call`
 (:657), body `_kernel_i8` (:323): the int8 matmul over pre-quantized
@@ -79,18 +86,19 @@ MAX_I8_ROWS = 8
 GROUPED_BLOCK_ROWS = (8, 16, 32, 64)
 
 _GEMV_SIG = {
-    # x, x_is_bf16, q, d, out, rows, in, out, layer, x8, xs, bs, stream
+    # x, x_is_bf16, q, d, out, rows, in, out, layer, vec, cols, kw, splits,
+    # blocks per split, stream
     "q40_gemv_q80": (
         kernels.P, kernels.I, kernels.P, kernels.P, kernels.P,
         kernels.I, kernels.I, kernels.I, kernels.LL,
-        kernels.P, kernels.P, kernels.P, kernels.P,
+        kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
     ),
-    # x, x_is_bf16, x_rows, q, d, idx, n_slots, n_groups, out, in, out,
-    # x8, xs, bs, stream
+    # x, x_is_bf16, x_rows, q, d, idx, n_slots, n_groups, out, in, out, vec,
+    # cols, kw, splits, blocks per split, stream
     "q40_gemv_q80_indexed": (
         kernels.P, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P,
         kernels.I, kernels.LL, kernels.P, kernels.I, kernels.I,
-        kernels.P, kernels.P, kernels.P, kernels.P,
+        kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
     ),
     # x, x_is_bf16, rows, in, x8, xs, bs, stream
     "q40_quantize_q80": (
@@ -102,12 +110,27 @@ _GEMV_SIG = {
         kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
     ),
 }
-# K1's CTA tile (output columns, warps that split the contraction), the
-# tiles its body is built at (csrc/q40_gemv.cu q40_gemv_body) and the row
-# counts the tiles other than K1's are built at (K1's takes 1..8)
-K1_TILE = (32, 8)
+# P7's tiles (csrc/q40_gemv.cu q40_gemv_body: output columns, warps that
+# split the contraction), the tile of the first K1 design (its prologue
+# and this tile's body were K1's call before the cluster split-K design;
+# built at 1..8 rows) and the row counts the other tiles are built at
+FIRST_K1_TILE = (32, 8)
 GEMV_TILES = tuple((c, k) for c in (32, 64, 128) for k in (4, 8, 16))
 BODY_ROWS = (1, 8)
+# K1's plan (csrc/q40_gemv.cu): warps a CTA (256 threads, all along the
+# contraction), the largest split count (the portable cluster size), the
+# most blocks a split stages in shared memory (40 bytes a block and row),
+# the fewest blocks a split or a one-word plan's CTA should hold, the
+# blocks a CTA's warps keep in flight at one word a lane, and the CTAs a
+# call may reach unsplit and split (the sweep of probes/k1_ab.py: past
+# them, the CTAs' fixed costs outgrow the bytes in flight they add)
+GEMV_WARPS = 8
+GEMV_MAX_SPLITS = 8
+GEMV_MAX_BPS = 256
+GEMV_MIN_BPS = 32
+GEMV_FLIGHT_BLOCKS = 64
+GEMV_MAX_CTAS = 256
+GEMV_SPLIT_CTAS = 128
 _GROUPED_SIG = {
     # x (bf16), q, d, block_group, n_blocks, n_groups, out, block_r, in,
     # out, cols, stream
@@ -207,6 +230,74 @@ def gemm_plan(nb: int, out_f: int) -> GemmPlan:
            and 2 * splits * GEMM_STAGE_BLOCKS <= nb):
         splits *= 2
     return GemmPlan(cols, splits, -(-nb // splits), GEMM_STAGES)
+
+
+@dataclass(frozen=True)
+class GemvPlan:
+    """K1's blocking of one weight shape: a lane loads `vec` neighbouring
+    words of each weight row (4, 8 or 16 bytes) and owns those columns; a
+    CTA of GEMV_WARPS warps owns `cols` output columns, `kw` of its warps
+    split its contraction range into contiguous runs; the contraction is
+    cut into `splits` runs of `blocks_per_split` Q40 blocks (the last may
+    be shorter), reduced in split order in one thread-block cluster."""
+
+    vec: int
+    cols: int
+    kw: int
+    splits: int
+    blocks_per_split: int
+
+    def ctas(self, out_f: int) -> int:
+        """The CTAs a call's work takes: column tiles x splits. A call
+        launches at most 2 an SM, each walking every grid-th tile."""
+        return -(-out_f // self.cols) * self.splits
+
+    def split_range(self, s: int, nb: int) -> range:
+        first = s * self.blocks_per_split
+        return range(first, min(nb, first + self.blocks_per_split))
+
+    def warp_range(self, kw: int, blocks: range) -> range:
+        """Warp kw's run of a split's blocks: first + kw * n // KW .."""
+        n = len(blocks)
+        return range(blocks.start + kw * n // self.kw, blocks.start + (kw + 1) * n // self.kw)
+
+
+def gemv_plan(nb: int, out_f: int) -> GemvPlan:
+    """K1's plan for a weight of nb Q40 blocks by out_f columns: a function
+    of the shape alone, never of the row or slot count or the data, so a
+    row's sums are the same in every call. The 8 warps of a CTA split its
+    contraction range. One word a lane (32-column tiles, 8 blocks a warp in
+    flight) where the fewest splits that keep a CTA's range within
+    GEMV_FLIGHT_BLOCKS leave at least GEMV_MIN_BPS blocks a split and at
+    most GEMV_MAX_CTAS CTAs (GEMV_SPLIT_CTAS when split): the decode
+    shapes of in 2048 and 4096. Else four words a lane (128-column tiles)
+    and the most splits, a power of two up to GEMV_MAX_SPLITS, that keep
+    GEMV_SPLIT_CTAS CTAs and GEMV_MIN_BPS blocks a split (1B's w2 takes 8,
+    w13 and the vocab widths 1). Every split non-empty and within
+    GEMV_MAX_BPS blocks."""
+    if nb < 1 or out_f < 1:
+        raise ValueError(f"no K1 plan for nb {nb}, out_f {out_f}")
+    splits = 1
+    while -(-nb // splits) > GEMV_FLIGHT_BLOCKS and splits < GEMV_MAX_SPLITS:
+        splits *= 2
+    bps = -(-nb // splits)
+    ctas = -(-out_f // 32) * splits
+    if bps >= GEMV_MIN_BPS and ctas <= (GEMV_MAX_CTAS if splits == 1 else GEMV_SPLIT_CTAS):
+        vec = 1
+    else:
+        vec, tiles = 4, -(-out_f // 128)
+        splits = 1
+        while (2 * splits <= GEMV_MAX_SPLITS and 2 * splits * tiles <= GEMV_SPLIT_CTAS
+               and -(-nb // (2 * splits)) >= GEMV_MIN_BPS):
+            splits *= 2
+        while -(-nb // splits) > GEMV_MAX_BPS and splits < GEMV_MAX_SPLITS:
+            splits *= 2
+    while (splits - 1) * -(-nb // splits) >= nb:  # an empty last split
+        splits //= 2
+    bps = -(-nb // splits)
+    if bps > GEMV_MAX_BPS:
+        raise ValueError(f"no K1 plan for nb {nb}: a split would stage {bps} blocks")
+    return GemvPlan(vec, 32 * vec, GEMV_WARPS, splits, bps)
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +440,63 @@ def q40_gemv_q80_indexed_plain(x, q, d, idx) -> torch.Tensor:
     return (pr * scale).sum(dim=1)
 
 
+def _gemv_terms(x8, xs, bs, q, d) -> torch.Tensor:
+    """K1's per-block terms in f32, each rounded as the kernel rounds it:
+    [nb, R, out] = (partial - 8 * bsum) * (xs * d), the partial an exact
+    integer (every f32 product and sum below 2^24)."""
+    nb = q.shape[-2] // 4
+    u = (unpack_q(q) + 8).to(torch.float32)  # [nb, 32, out]
+    partial = torch.einsum("rbf,bfo->bro", x8.reshape(-1, nb, Q_BLOCK).to(torch.float32), u)
+    pr = partial - 8.0 * bs.to(torch.float32).t().unsqueeze(-1)
+    scale = xs.t().unsqueeze(-1) * d.to(torch.float32).unsqueeze(1)  # [nb, R, out]
+    return pr * scale
+
+
+def _gemv_order(terms: torch.Tensor, plan: GemvPlan) -> torch.Tensor:
+    """[nb, R, out] block terms summed in K1's order: blocks in order within
+    a warp's run (from 0), the warps of a split in warp order, then the
+    splits in split order -> [R, out]."""
+    nb = terms.shape[0]
+    total = None
+    for s in range(plan.splits):
+        blocks = plan.split_range(s, nb)
+        cta = None
+        for kw in range(plan.kw):
+            acc = torch.zeros_like(terms[0])
+            for b in plan.warp_range(kw, blocks):
+                acc = acc + terms[b]
+            cta = acc if cta is None else cta + acc
+        total = cta if total is None else total + cta
+    return total
+
+
+def q40_gemv_q80_blocked(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor,
+                         plan: GemvPlan) -> torch.Tensor:
+    """K1's sums in the kernel's order under `plan`: x [..., in], q [nb*4,
+    out] int32, d [nb, out] f16 -> [..., out] f32, bit for bit what the
+    kernel gives (K1 rounds each product and sum once, as these torch ops
+    do)."""
+    nb = q.shape[-2] // 4
+    lead = x.shape[:-1]
+    x8, xs, bs = quantize_rows_q80(x.reshape(-1, nb * Q_BLOCK), nb)
+    return _gemv_order(_gemv_terms(x8, xs, bs, q, d), plan).reshape(*lead, q.shape[-1])
+
+
+def q40_gemv_q80_indexed_blocked(x, q, d, idx, plan: GemvPlan) -> torch.Tensor:
+    """K1-indexed's sums in the kernel's order: slot s is
+    `q40_gemv_q80_blocked` of its row (or the one shared row) against group
+    idx[s] -> [len(idx), out] f32."""
+    qf, df = flat_groups(q, d)
+    nb = qf.shape[-2] // 4
+    x8, xs, bs = quantize_rows_q80(x.reshape(-1, nb * Q_BLOCK), nb)
+    rows = []
+    for s, g in enumerate(idx.long()):
+        r = 0 if x8.shape[0] == 1 else s
+        terms = _gemv_terms(x8[r:r + 1], xs[r:r + 1], bs[r:r + 1], qf[g], df[g])
+        rows.append(_gemv_order(terms, plan))
+    return torch.cat(rows)
+
+
 def q40_grouped_gemm_bf16_plain(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
     """K4's plain version: row block i of xp [R_pad, in] (cast to bf16)
     times group block_expert[i] of the flat stack, K2's rounding ->
@@ -420,17 +568,9 @@ def _layer_index(layer, n_layers: int) -> int:
     return li
 
 
-def _q80_scratch(rows: int, nb: int, device):
-    """The Q80 prologue's outputs: int8 rows, f32 block scales, int32 block
-    sums."""
-    return (
-        torch.empty((rows, nb * Q_BLOCK), dtype=torch.int8, device=device),
-        torch.empty((rows, nb), dtype=torch.float32, device=device),
-        torch.empty((rows, nb), dtype=torch.int32, device=device),
-    )
-
-
-def _launch_gemv(x, q, d, layer: int) -> torch.Tensor:
+def _launch_gemv(x, q, d, layer: int, plan: GemvPlan | None = None, lib=None) -> torch.Tensor:
+    """One K1 launch at `plan` (gemv_plan's by default) from `lib` (the
+    port's build of csrc/q40_gemv.cu by default)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     nb = q.shape[-2] // 4
@@ -439,26 +579,30 @@ def _launch_gemv(x, q, d, layer: int) -> torch.Tensor:
     rows = x.numel() // in_f
     if not 1 <= rows <= MAX_I8_ROWS:
         raise ValueError(f"q40_gemv_q80 takes 1..{MAX_I8_ROWS} rows, got {rows}")
-    lib = kernels.load("q40_gemv", _GEMV_SIG)
+    plan = plan or gemv_plan(nb, out_f)
+    lib = lib or kernels.load("q40_gemv", _GEMV_SIG)
     out = torch.empty((rows, out_f), dtype=torch.float32, device=x.device)
-    x8, xs, bs = _q80_scratch(rows, nb, x.device)
     kernels.launch(
         lib, "q40_gemv_q80", x,
         x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(), d.data_ptr(),
         out.data_ptr(), rows, in_f, out_f, layer,
-        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(),
+        plan.vec, plan.cols, plan.kw, plan.splits, plan.blocks_per_split,
     )
     return out.reshape(*x.shape[:-1], out_f)
 
 
 def launch_q80_prologue(x: torch.Tensor):
-    """K1's prologue kernel alone on x [R, in] f32 or bf16 (contiguous, on
-    the card) -> (x8 [R, in] int8, xs [R, nb] f32, bs [R, nb] int32)."""
+    """The first K1's prologue kernel alone on x [R, in] f32 or bf16
+    (contiguous, on the card) -> (x8 [R, in] int8, xs [R, nb] f32, bs [R,
+    nb] int32)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     rows, in_f = x.shape
+    nb = in_f // Q_BLOCK
     lib = kernels.load("q40_gemv", _GEMV_SIG)
-    x8, xs, bs = _q80_scratch(rows, in_f // Q_BLOCK, x.device)
+    x8 = torch.empty((rows, in_f), dtype=torch.int8, device=x.device)
+    xs = torch.empty((rows, nb), dtype=torch.float32, device=x.device)
+    bs = torch.empty((rows, nb), dtype=torch.int32, device=x.device)
     kernels.launch(
         lib, "q40_quantize_q80", x,
         x.data_ptr(), int(x.dtype == torch.bfloat16), rows, in_f,
@@ -468,7 +612,7 @@ def launch_q80_prologue(x: torch.Tensor):
 
 
 def launch_gemv_body(x8, xs, bs, q, d, cols: int, ksplit: int) -> torch.Tensor:
-    """K1's GEMV kernel alone at CTA tile (cols, ksplit), one of
+    """The first K1's GEMV kernel alone at CTA tile (cols, ksplit), one of
     GEMV_TILES, on checked operands on the card -> [R, out] f32."""
     if (cols, ksplit) not in GEMV_TILES:
         raise ValueError(f"tile ({cols}, {ksplit}) is not one of {GEMV_TILES}")
@@ -499,6 +643,25 @@ def _launch_gemm(x, q, d, layer: int) -> torch.Tensor:
         rows, in_f, out_f, layer, plan.cols, plan.splits, plan.blocks_per_split,
     )
     return out.reshape(*x.shape[:-1], out_f)
+
+
+def _launch_gemv_indexed(x, q, d, idx, plan: GemvPlan | None = None, lib=None) -> torch.Tensor:
+    """One K1-indexed launch at `plan` from `lib`, as `_launch_gemv`."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    n = idx.shape[0]
+    nb = q.shape[-2] // 4
+    in_f, out_f = nb * Q_BLOCK, q.shape[-1]
+    plan = plan or gemv_plan(nb, out_f)
+    lib = lib or kernels.load("q40_gemv", _GEMV_SIG)
+    out = torch.empty((n, out_f), dtype=torch.float32, device=x.device)
+    kernels.launch(
+        lib, "q40_gemv_q80_indexed", x,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), x.numel() // in_f, q.data_ptr(),
+        d.data_ptr(), idx.data_ptr(), n, q.numel() // (nb * 4 * out_f), out.data_ptr(), in_f,
+        out_f, plan.vec, plan.cols, plan.kw, plan.splits, plan.blocks_per_split,
+    )
+    return out
 
 
 def _launch_grouped(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
@@ -723,18 +886,7 @@ def q40_gemv_q80_indexed(x, q, d, idx) -> torch.Tensor:
         raise ValueError(f"x has {rows} rows for {n} slots (1 shared row or one per slot)")
     if _device_kind(x) == "cpu":
         return q40_gemv_q80_indexed_plain(x, q, d, idx)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    n_groups = q.numel() // (nb * 4 * out_f)
-    lib = kernels.load("q40_gemv", _GEMV_SIG)
-    out = torch.empty((n, out_f), dtype=torch.float32, device=x.device)
-    x8, xs, bs = _q80_scratch(rows, nb, x.device)
-    kernels.launch(
-        lib, "q40_gemv_q80_indexed", x,
-        x.data_ptr(), int(x.dtype == torch.bfloat16), rows, q.data_ptr(), d.data_ptr(),
-        idx.data_ptr(), n, n_groups, out.data_ptr(), in_f, out_f,
-        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(),
-    )
+    out = _launch_gemv_indexed(x, q, d, idx)
     q40_gemv_q80_indexed.launches += 1
     return out
 

@@ -373,7 +373,7 @@ def run_control(device, seed: int = 0, timed: bool = True) -> dict:
     want = cuda_q40.q40_gemv_q80_plain(x, qp, d)
     nbytes = q40_work(1, in_f, out_f)["call"]
     row = {"probe": "control K1", "in": in_f, "out": out_f, "bytes": nbytes,
-           "ctas": -(-out_f // cuda_q40.K1_TILE[0]),
+           "ctas": cuda_q40.gemv_plan(in_f // 32, out_f).ctas(out_f),
            "max_abs_err": (got - want).abs().max().item(),
            "out_scale": want.abs().max().item()}
     if timed:

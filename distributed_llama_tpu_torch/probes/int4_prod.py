@@ -1,20 +1,24 @@
-"""P7: K1's GEMV body alone, its Q80 prologue alone, and the production call
-that runs both (the counterpart of the JAX package's
+"""P7: the first K1 design's GEMV body alone, its Q80 prologue alone, and
+the production call (the counterpart of the JAX package's
 scripts/probe_int4_prod.py).
 
-K1 (`ops/cuda_q40.py:q40_gemv_q80`, csrc/q40_gemv.cu) is two dependent
-kernels a call: the prologue quantizes the activation rows to Q80 (x8 int8,
-f16-rounded block scales xs, int32 block sums bs), then the GEMV takes the
-integer dot with the packed Q40 weight. The JAX probe times its body
-`_kernel_fs_i8` alone on pre-quantized operands (`fs_call_tiles`, :49). Here:
+The first K1 design was two dependent kernels a call: the prologue
+quantized the activation rows to Q80 (x8 int8, f16-rounded block scales
+xs, int32 block sums bs), then the GEMV took the integer dot with the
+packed Q40 weight. K1 (`ops/cuda_q40.py:q40_gemv_q80`, csrc/q40_gemv.cu) now
+fuses both into one launch; the two kernels stay as P7's. The JAX probe
+times its body `_kernel_fs_i8` alone on pre-quantized operands
+(`fs_call_tiles`, :49). Here:
 
-  * `fs_call_tiles(x8, xs, bs, q, d, cols, ksplit)`: K1's GEMV kernel alone
-    (csrc/q40_gemv.cu q40_gemv_body) at CTA tile (cols output columns,
-    ksplit warps splitting the contraction), one of `cuda_q40.GEMV_TILES`.
-    At K1's tile (32, 8) it is K1's GEMV bit for bit, at 1..8 rows; other
+  * `fs_call_tiles(x8, xs, bs, q, d, cols, ksplit)`: the first K1's GEMV
+    kernel alone (csrc/q40_gemv.cu q40_gemv_body) at CTA tile (cols output
+    columns, ksplit warps splitting the contraction), one of
+    `cuda_q40.GEMV_TILES`. Its tile (32, 8) (`FIRST_K1_TILE`) takes 1..8
+    rows, and with the prologue is that K1's call bit for bit; the other
     tiles sum the f32 block partials in another order and take 1 or 8 rows
     (`cuda_q40.BODY_ROWS`);
-  * `q80_prologue(x)`: K1's prologue kernel alone (q40_quantize_q80).
+  * `q80_prologue(x)`: the first K1's prologue kernel alone
+    (q40_quantize_q80).
 
 Each wrapper takes its plain version for CPU tensors, launches its kernel
 for CUDA tensors or raises, and counts its launches in `launches`.
@@ -22,9 +26,10 @@ for CUDA tensors or raises, and counts its launches in `launches`.
     python -m distributed_llama_tpu_torch.probes.int4_prod [--device cpu] [--shape IN,OUT ...] [--seed N]
 
 prints, at the five Llama-3.2-1B shapes, the JAX probe's four numbers per
-shape: (a) the body alone at K1's tile, (b) the production call (prologue
-and body), (c) the prologue alone, and comp = b - a - c, each cold and hot
-(probes/timing.py); then the body at every tile. Without `--device cpu` it
+shape: (a) the body alone at the first K1's tile, (b) the production call
+(K1, one launch), (c) the prologue alone, and comp = b - a - c (negative
+where the fused call costs less than the two kernels apart), each cold and
+hot (probes/timing.py); then the body at every tile. Without `--device cpu` it
 needs a CUDA device and raises otherwise.
 """
 
@@ -38,7 +43,7 @@ import torch
 from ..device import resolve_device
 from ..formats.quants import Q_BLOCK
 from ..ops import cuda_q40
-from ..ops.cuda_q40 import BODY_ROWS, GEMV_TILES, K1_TILE, MAX_I8_ROWS
+from ..ops.cuda_q40 import BODY_ROWS, FIRST_K1_TILE, GEMV_TILES, MAX_I8_ROWS
 from ..ops.quant import unpack_q
 from . import parse_shape
 from .int4 import dequantized_bf16
@@ -57,7 +62,7 @@ def _check(x8, xs, bs, q, d, cols: int, ksplit: int) -> None:
     """The body's operands: x8 [R, nb*32] int8 (1 <= R <= 8), xs [R, nb]
     f32, bs [R, nb] int32, q [nb*4, out] int32, d [nb, out] f16, one
     device, contiguous; a tile of GEMV_TILES, and R in BODY_ROWS unless
-    the tile is K1's."""
+    the tile is the first K1's."""
     if (cols, ksplit) not in GEMV_TILES:
         raise ValueError(f"tile ({cols}, {ksplit}) is not one of {GEMV_TILES}")
     if q.ndim != 2 or q.dtype != torch.int32 or q.shape[0] % 4:
@@ -70,7 +75,7 @@ def _check(x8, xs, bs, q, d, cols: int, ksplit: int) -> None:
     R = x8.shape[0]
     if not 1 <= R <= MAX_I8_ROWS:
         raise ValueError(f"the body takes 1..{MAX_I8_ROWS} rows, got {R}")
-    if (cols, ksplit) != K1_TILE and R not in BODY_ROWS:
+    if (cols, ksplit) != FIRST_K1_TILE and R not in BODY_ROWS:
         raise ValueError(f"tile ({cols}, {ksplit}) is built at {BODY_ROWS} rows, got {R}")
     for name, t, dt in (("xs", xs, torch.float32), ("bs", bs, torch.int32)):
         if t.dtype != dt or tuple(t.shape) != (R, nb):
@@ -83,14 +88,14 @@ def _check(x8, xs, bs, q, d, cols: int, ksplit: int) -> None:
 
 
 def fs_call_tiles_plain(x8, xs, bs, q, d, cols: int, ksplit: int) -> torch.Tensor:
-    """P7's plain version: K1's body math, which the tile does not change
-    (only the order of the f32 block sums) -> [R, out] f32."""
+    """P7's plain version: K1's math on quantized rows, which the tile does
+    not change (only the order of the f32 block sums) -> [R, out] f32."""
     _check(x8, xs, bs, q, d, cols, ksplit)
     return cuda_q40.q80_gemv_plain(x8, xs, bs, q, d)
 
 
 def fs_call_tiles(x8, xs, bs, q, d, cols: int, ksplit: int) -> torch.Tensor:
-    """P7: K1's GEMV body on pre-quantized rows at CTA tile (cols, ksplit):
+    """P7: the first K1's GEMV body on pre-quantized rows at CTA tile (cols, ksplit):
     x8 [R <= 8, in] int8, xs [R, nb] f32, bs [R, nb] int32, q [nb*4, out]
     int32, d [nb, out] f16 -> [R, out] f32."""
     _check(x8, xs, bs, q, d, cols, ksplit)
@@ -115,7 +120,7 @@ def q80_prologue_plain(x: torch.Tensor):
 
 
 def q80_prologue(x: torch.Tensor):
-    """K1's Q80 prologue alone: x [R, in] f32 or bf16, in % 32 == 0 ->
+    """The first K1's Q80 prologue alone: x [R, in] f32 or bf16, in % 32 == 0 ->
     (x8 [R, in] int8, xs [R, nb] f32, bs [R, nb] int32)."""
     if x.ndim != 2 or x.shape[1] % Q_BLOCK or x.shape[1] == 0 or x.shape[0] == 0:
         raise ValueError(f"x must be [R, nb*32], got {tuple(x.shape)}")
@@ -168,26 +173,27 @@ def work(R: int, in_f: int, out_f: int) -> dict:
 def run_shape(label: str, in_f: int, out_f: int, device, seed: int = 0, timed: bool = True,
               prologue_ms: dict | None = None):
     """One shape at one bf16 activation row: the body at every tile against
-    its plain version (and, at K1's tile, against K1's call bit for bit),
-    and, timed on the card, (a), (b), (c) and comp cold and hot, every
-    tile's cold ms, the plain version's ms and the library call's
-    (torch.matmul of the bf16 row against the bf16-dequantized plane).
-    (c) depends on the row's width alone: `prologue_ms` {in: (cold, hot)}
-    keeps it from one shape to the next (its cold ring of a 6.6 KB operand
-    set holds 30,000 launches). Returns one dict."""
+    its plain version, K1's call against its blocked plain version
+    (`k1_vs_blocked`: 0 on the card, where the two sum in one order), and,
+    timed on the card, (a), (b), (c) and comp cold and hot, every tile's
+    cold ms, the plain version's ms and the library call's (torch.matmul of
+    the bf16 row against the bf16-dequantized plane). (c) depends on the
+    row's width alone: `prologue_ms` {in: (cold, hot)} keeps it from one
+    shape to the next (its cold ring of a 6.6 KB operand set holds 30,000
+    launches). Returns one dict."""
     x, q, d = make_operands(in_f, out_f, device, seed)
     x8, xs, bs = q80_prologue(x)
     k1 = cuda_q40.q40_gemv_q80(x, q, d)
-    want = fs_call_tiles_plain(x8, xs, bs, q, d, *K1_TILE)
+    blocked = cuda_q40.q40_gemv_q80_blocked(x, q, d, cuda_q40.gemv_plan(in_f // Q_BLOCK, out_f))
+    want = fs_call_tiles_plain(x8, xs, bs, q, d, *FIRST_K1_TILE)
     scale = want.abs().max().item()
     nbytes = work(1, in_f, out_f)
-    row = {"shape": label, "in": in_f, "out": out_f, "out_scale": scale, **nbytes, "tiles": []}
+    row = {"shape": label, "in": in_f, "out": out_f, "out_scale": scale, **nbytes, "tiles": [],
+           "k1_vs_blocked": (k1 - blocked).abs().max().item()}
     for cols, ksplit in GEMV_TILES:
         got = fs_call_tiles(x8, xs, bs, q, d, cols, ksplit)
         t = {"cols": cols, "ksplit": ksplit, "max_abs_err": (got - want).abs().max().item(),
              "ctas": -(-out_f // cols)}
-        if (cols, ksplit) == K1_TILE:
-            row["k1_tile_equals_k1"] = bool(torch.equal(got, k1))
         if timed:
             from . import timing
 
@@ -200,8 +206,8 @@ def run_shape(label: str, in_f: int, out_f: int, device, seed: int = 0, timed: b
         from . import timing
 
         row["a_cold_ms"] = next(t["cold_ms"] for t in row["tiles"]
-                                if (t["cols"], t["ksplit"]) == K1_TILE)
-        row["a_hot_ms"] = timing.hot_ms(lambda *a: fs_call_tiles(*a, *K1_TILE),
+                                if (t["cols"], t["ksplit"]) == FIRST_K1_TILE)
+        row["a_hot_ms"] = timing.hot_ms(lambda *a: fs_call_tiles(*a, *FIRST_K1_TILE),
                                         (x8, xs, bs, q, d), nbytes["body"])
         row["b_cold_ms"], row["b_hot_ms"] = timing.cold_hot_ms(cuda_q40.q40_gemv_q80, (x, q, d),
                                                                nbytes["call"])
@@ -213,7 +219,7 @@ def run_shape(label: str, in_f: int, out_f: int, device, seed: int = 0, timed: b
             row[f"comp_{kind}_ms"] = (row[f"b_{kind}_ms"] - row[f"a_{kind}_ms"]
                                       - row[f"c_{kind}_ms"])
         row["plain_ms"] = timing.graph_ms(
-            [lambda: fs_call_tiles_plain(x8, xs, bs, q, d, *K1_TILE)], replays=5)
+            [lambda: fs_call_tiles_plain(x8, xs, bs, q, d, *FIRST_K1_TILE)], replays=5)
         row["prologue_plain_ms"] = timing.graph_ms([lambda: q80_prologue_plain(x)], replays=5)
         w_bf16 = dequantized_bf16(unpack_q(q), d)
         row["library_cold_ms"], row["library_hot_ms"] = timing.cold_hot_ms(
@@ -246,11 +252,11 @@ def main(argv=None) -> list:
         r = run_shape(label, in_f, out_f, device, seed=args.seed, timed=timed,
                       prologue_ms=prologue_ms)
         print(f"== {label} (body bytes {r['body'] / 1e6:.2f} MB): max err over "
-              f"{len(r['tiles'])} tiles {r['max_abs_err']:.3e}, K1's tile equals K1: "
-              f"{r['k1_tile_equals_k1']}", flush=True)
+              f"{len(r['tiles'])} tiles {r['max_abs_err']:.3e}, K1 against its blocked order: "
+              f"{r['k1_vs_blocked']:.3e}", flush=True)
         if timed:
             for kind in ("cold", "hot"):
-                print(f"  {kind}: (a) body {r[f'a_{kind}_ms'] * 1e3:.2f} us | (b) prologue+body "
+                print(f"  {kind}: (a) body {r[f'a_{kind}_ms'] * 1e3:.2f} us | (b) K1 call "
                       f"{r[f'b_{kind}_ms'] * 1e3:.2f} us | (c) prologue "
                       f"{r[f'c_{kind}_ms'] * 1e3:.2f} us | comp "
                       f"{r[f'comp_{kind}_ms'] * 1e3:+.2f} us", flush=True)

@@ -30,13 +30,13 @@ for CUDA tensors or raises, and counts its launches in `launches`.
         [--seed N] [--shape IN,OUT ...]
 
 runs the JAX script's five Llama-3.2-1B shapes (or the `--shape`s given;
-`--only` keeps the shapes whose label holds LABEL): B9's baseline and K1's
+`--only` keeps the shapes whose label holds LABEL): B9's baseline and the first K1's
 body at its tile on the same weights, then every tile of `tiles_for` with
 the f16 and the i16 plane (one launch a storage), each against the plain
 version; on the card each point's cold and hot µs a call
 (probes/timing.py) and a chain of 64 calls in one CUDA graph, GB/s against
 the bytes the script counts (half a byte a weight, 2 a block), its CTAs
-and its speed against B9 and K1; then the best tile per shape and plane.
+and its speed against B9 and the first K1's body; then the best tile per shape and plane.
 Without `--device cpu` it needs a CUDA device and raises otherwise.
 """
 
@@ -51,7 +51,7 @@ import torch
 from ..device import resolve_device
 from ..formats.quants import Q_BLOCK
 from ..ops import cuda_q40, kernels
-from ..ops.cuda_q40 import K1_TILE, W_SH, i8_blocks_plain
+from ..ops.cuda_q40 import FIRST_K1_TILE, W_SH, i8_blocks_plain
 from ..ops.quant import pack_q
 from . import parse_shape
 from .int4 import make_operands
@@ -230,7 +230,7 @@ def err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def baselines(label: str, in_f: int, out_f: int, x8, xs, bs, qt, q2d, dt16, x,
               time_it: bool) -> tuple[list, dict]:
-    """B9 (`q40_i8_unpacked`, 1 byte a weight) and K1's body at its tile
+    """B9 (`q40_i8_unpacked`, 1 byte a weight) and the first K1's body at its tile
     (`fs_call_tiles`, the T layout q2d) on one shape's operands, each
     against its plain version and, on the card, timed. Returns (the two
     rows, the library call's cold and hot ms: torch.matmul of the bf16 row
@@ -244,17 +244,17 @@ def baselines(label: str, in_f: int, out_f: int, x8, xs, bs, qt, q2d, dt16, x,
          "ops": w["ops"], "cols": cuda_q40.I8_MMA_COLS,
          "max_abs_err": err(cuda_q40.q40_i8_unpacked(x8, xs, qt, dt16),
                             cuda_q40.q40_i8_unpacked_plain(x8, xs, qt, dt16))},
-        {"probe": "K1 body", "kernel": "fs_call_tiles", "shape": label, "in": in_f,
-         "out": out_f, **w, "cols": K1_TILE[0], "ksplit": K1_TILE[1],
-         "max_abs_err": err(fs_call_tiles(x8, xs, bs, q2d, dt16, *K1_TILE),
-                            fs_call_tiles_plain(x8, xs, bs, q2d, dt16, *K1_TILE))},
+        {"probe": "first K1 body", "kernel": "fs_call_tiles", "shape": label, "in": in_f,
+         "out": out_f, **w, "cols": FIRST_K1_TILE[0], "ksplit": FIRST_K1_TILE[1],
+         "max_abs_err": err(fs_call_tiles(x8, xs, bs, q2d, dt16, *FIRST_K1_TILE),
+                            fs_call_tiles_plain(x8, xs, bs, q2d, dt16, *FIRST_K1_TILE))},
     ]
     rows[0]["out_scale"] = cuda_q40.q40_i8_unpacked_plain(x8, xs, qt, dt16).abs().max().item()
     rows[1]["out_scale"] = rows[0]["out_scale"]
     if not time_it:
         return rows, {}
     rows[0].update(timed(cuda_q40.q40_i8_unpacked, (x8, xs, qt, dt16), b9_bytes))
-    rows[1].update(timed(lambda *a: fs_call_tiles(*a, *K1_TILE), (x8, xs, bs, q2d, dt16),
+    rows[1].update(timed(lambda *a: fs_call_tiles(*a, *FIRST_K1_TILE), (x8, xs, bs, q2d, dt16),
                          w["bytes"]))
     for r in rows:
         r["gb_s_phys"] = r["phys_bytes"] / r["cold_ms"] / 1e6
@@ -274,11 +274,11 @@ def point(label: str, in_f: int, out_f: int, probe: str, kernel: str, plane: str
 
 def time_point(row: dict, fn, operands: tuple, base: list, extra: dict) -> None:
     """Time a sweep row's call on the card: cold, hot and chained, GB/s
-    against the script's bytes, its speed against B9 and K1."""
+    against the script's bytes, its speed against B9 and the first K1's body."""
     row.update(timed(fn, operands, row["bytes"]), **extra)
     row["gb_s_phys"] = row["phys_bytes"] / row["cold_ms"] / 1e6
     row["x_b9"] = base[0]["cold_ms"] / row["cold_ms"]
-    row["x_k1"] = base[1]["cold_ms"] / row["cold_ms"]
+    row["x_first_k1"] = base[1]["cold_ms"] / row["cold_ms"]
 
 
 def plain_ms(fn, *args) -> float:
@@ -304,7 +304,8 @@ def print_shape(label: str, base: list, rows: list, time_it: bool, flags: tuple)
         line += "".join(f", {f} {r[f]}" for f in flags if f in r)
         if time_it and "cold_ms" in r:
             line += (f"; cold {r['cold_ms'] * 1e3:.2f} us ({r['gb_s_phys']:.0f} GB/s, "
-                     f"{r['x_b9']:.2f}x B9, {r['x_k1']:.2f}x K1), hot {r['hot_ms'] * 1e3:.2f} us, "
+                     f"{r['x_b9']:.2f}x B9, {r['x_first_k1']:.2f}x first K1), hot "
+                     f"{r['hot_ms'] * 1e3:.2f} us, "
                      f"chain {r['chain_ms'] * 1e3:.2f} us")
         print(line, flush=True)
     if time_it:
@@ -312,7 +313,7 @@ def print_shape(label: str, base: list, rows: list, time_it: bool, flags: tuple)
             r = best(rows, plane)
             print(f"  BEST {label} {plane}: TN {r['cols']} x {r['blocks_per_cta']} blocks "
                   f"{r['cold_ms'] * 1e3:.2f} us cold ({r['gb_s_phys']:.0f} GB/s, "
-                  f"{r['x_b9']:.2f}x B9, {r['x_k1']:.2f}x K1)", flush=True)
+                  f"{r['x_b9']:.2f}x B9, {r['x_first_k1']:.2f}x first K1)", flush=True)
 
 
 def best(rows: list, plane: str) -> dict:

@@ -36,12 +36,12 @@ or raises, and counts its launches in `launches`.
         [--seed N] [--shape IN,OUT ...]
 
 runs the JAX script's five Llama-3.2-1B shapes (or the `--shape`s given):
-B9's baseline and K1's body at its tile on the same q and d, then every
+B9's baseline and the first K1's body at its tile on the same q and d, then every
 tile of `tiles_for` with the f16 and the i16 plane (P9 timed, P10 launched
 on the same operands and held bit-equal to it), each against the plain
 version; on the card each point's cold and hot µs a call, a chain of 64
 calls in one CUDA graph, GB/s against the bytes the script counts (half a
-byte a weight, 2 a block), its CTAs and its speed against B9 and K1; then
+byte a weight, 2 a block), its CTAs and its speed against B9 and that body; then
 the best tile per shape and plane, and P10 timed at P9's best tile. Without
 `--device cpu` it needs a CUDA device and raises otherwise.
 """
@@ -202,7 +202,8 @@ def main(argv=None) -> list:
             if r["probe"] == "P10":
                 print(f"  P10 {r['plane']} at P9's best TN {r['cols']} x {r['blocks_per_cta']}: "
                       f"bit-equal to P9 {r['views_bit_equal']}; cold {r['cold_ms'] * 1e3:.2f} us "
-                      f"({r['x_k1']:.2f}x K1), hot {r['hot_ms'] * 1e3:.2f} us", flush=True)
+                      f"({r['x_first_k1']:.2f}x first K1), hot {r['hot_ms'] * 1e3:.2f} us",
+                      flush=True)
         rows.extend(got["baseline"])
         rows.extend(got["tiles"])
     print(json.dumps({"probe": "int4c", "device": str(device), "rows": len(rows)}), flush=True)

@@ -69,6 +69,98 @@ def test_k1_unstacked_kernel_matches_plain(cuda):
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
+# (in, out) of every K1 call on the main paths: Llama-3.2-1B wqkv, wo, w13,
+# w2, wcls; Qwen3-30B-A3B wqkv, wo, wcls; K1-indexed's w1/w3 and w2
+K1_SHAPES = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048), (2048, 128256),
+             (2048, 5120), (4096, 2048), (2048, 151936), (2048, 768), (768, 2048)]
+
+
+def _k1_x(cuda, rows, in_f, seed, dtype=torch.float32):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn((rows, in_f), device=cuda, generator=gen).to(dtype)
+
+
+@pytest.mark.parametrize("in_f,out_f", K1_SHAPES)
+def test_k1_equals_its_blocked_order_and_rows_stand_alone(cuda, in_f, out_f):
+    """K1-stacked (layer 1) and K1 (unstacked) at 1..8 rows equal
+    q40_gemv_q80_blocked at gemv_plan bit for bit, and rows 0..R-1 of an
+    R-row call equal the 1-row calls of those rows bit for bit."""
+    q, d = _flat_stack(cuda, 2, in_f, out_f, seed=in_f + out_f)
+    plan = cuda_q40.gemv_plan(in_f // 32, out_f)
+    x8 = _k1_x(cuda, 8, in_f, seed=out_f)
+    solo = [cuda_q40.q40_gemv_q80_stacked(x8[r:r + 1], q, d, 1) for r in range(8)]
+    for r in range(8):
+        assert torch.equal(solo[r], cuda_q40.q40_gemv_q80_blocked(x8[r:r + 1], q[1], d[1], plan))
+    for rows in range(1, 9):
+        x = x8[:rows]
+        before = cuda_q40.q40_gemv_q80_stacked.launches
+        got = cuda_q40.q40_gemv_q80_stacked(x, q, d, 1)
+        assert cuda_q40.q40_gemv_q80_stacked.launches == before + 1
+        assert torch.equal(got, torch.cat(solo[:rows]))
+        assert torch.equal(cuda_q40.q40_gemv_q80(x, q[1].contiguous(), d[1].contiguous()), got)
+    want = cuda_q40.q40_gemv_q80_plain(x8, q[1], d[1])
+    assert (torch.cat(solo) - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("in_f,out_f,shared", [(2048, 768, True), (768, 2048, False),
+                                               (2048, 768, False), (768, 2048, True)])
+def test_k1_indexed_equals_its_blocked_order_and_slots_stand_alone(cuda, in_f, out_f, shared):
+    """K1-indexed at 1..8 slots equals q40_gemv_q80_indexed_blocked bit for
+    bit, and each slot equals its 1-slot call."""
+    q, d = _flat_stack(cuda, 64, in_f, out_f, seed=in_f)
+    plan = cuda_q40.gemv_plan(in_f // 32, out_f)
+    idx = torch.tensor([63, 0, 17, 17, 40, 5, 62, 33], dtype=torch.int32, device=cuda)
+    x = _k1_x(cuda, 1 if shared else 8, in_f, seed=out_f)
+    full = cuda_q40.q40_gemv_q80_indexed(x, q, d, idx)
+    assert torch.equal(full, cuda_q40.q40_gemv_q80_indexed_blocked(x, q, d, idx, plan))
+    for n in range(1, 9):
+        got = cuda_q40.q40_gemv_q80_indexed(x if shared else x[:n], q, d, idx[:n])
+        assert torch.equal(got, full[:n])
+    for s in range(8):
+        one = cuda_q40.q40_gemv_q80_indexed(x if shared else x[s:s + 1], q, d, idx[s:s + 1])
+        assert torch.equal(one[0], full[s])
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 200), (1056, 100), (96, 130), (2048, 3072)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_equals_its_blocked_order_on_ragged_and_unaligned_operands(cuda, in_f, out_f, dtype):
+    """Widths whose rows do not take vector loads (out % 4 != 0), bf16 x,
+    and x at a storage offset that breaks its 16-byte alignment: the
+    element-wise load paths give the blocked order's bits too."""
+    q, d = _flat_stack(cuda, 2, in_f, out_f, seed=out_f)
+    plan = cuda_q40.gemv_plan(in_f // 32, out_f)
+    base = _k1_x(cuda, 5, in_f + 1, seed=in_f, dtype=dtype).reshape(-1)
+    for x in (base[:3 * in_f].reshape(3, in_f), base[1:1 + 3 * in_f].reshape(3, in_f)):
+        got = cuda_q40.q40_gemv_q80_stacked(x, q, d, 1)
+        assert torch.equal(got, cuda_q40.q40_gemv_q80_blocked(x, q[1], d[1], plan))
+
+
+def test_k1_replays_from_a_cuda_graph_bit_for_bit(cuda):
+    """K1-stacked and K1-indexed captured in one CUDA graph: two replays
+    give the eager call's bits (no state survives a call)."""
+    q, d = _flat_stack(cuda, 2, 8192, 2048, seed=7)
+    qe, de = _flat_stack(cuda, 16, 2048, 768, seed=8)
+    x = _k1_x(cuda, 4, 8192, seed=1)
+    xe = _k1_x(cuda, 1, 2048, seed=2)
+    idx = torch.tensor([3, 15, 0, 9, 9, 1, 2, 4], dtype=torch.int32, device=cuda)
+    eager = (cuda_q40.q40_gemv_q80_stacked(x, q, d, 1), cuda_q40.q40_gemv_q80_indexed(xe, qe, de, idx))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_q40.q40_gemv_q80_stacked(x, q, d, 1)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = (cuda_q40.q40_gemv_q80_stacked(x, q, d, 1),
+               cuda_q40.q40_gemv_q80_indexed(xe, qe, de, idx))
+    for _ in range(2):
+        for o in out:
+            o.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
 @pytest.mark.parametrize("rows", [16, 32, 40])
 def test_k2_kernel_matches_plain(cuda, rows):
     q, d = (t.to(cuda) for t in _weights(2048, 3072))
@@ -701,20 +793,23 @@ def test_flash_headmajor_runs_k3_on_the_view(cuda, S, pos):
 @pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2176, 200)])
 def test_fs_call_tiles_match_plain_and_k1(cuda, rows, in_f, out_f):
     """P7: every tile within 1e-5 of the output scale of its plain version
-    (exact integer partials, f32 block sums in the tile's order); K1's tile
-    equal to K1's call bit for bit; the prologue alone equal to its plain
-    version (the same f32 operations, round half to even). The other
-    tiles are built at 1 and 8 rows only and refuse 3."""
+    (exact integer partials, f32 block sums in the tile's order); K1's call
+    equal to its blocked plain version bit for bit; the prologue alone
+    equal to its plain version (the same f32 operations, round half to
+    even). The tiles other than the first K1's are built at 1 and 8 rows
+    only and refuse 3."""
     x, q, d = int4_prod.make_operands(in_f, out_f, cuda, seed=rows, rows=rows)
     x8, xs, bs = int4_prod.q80_prologue(x)
     for got, want in zip((x8, xs, bs), int4_prod.q80_prologue_plain(x)):
         assert torch.equal(got, want)
     k1 = cuda_q40.q40_gemv_q80(x, q, d)
-    want = int4_prod.fs_call_tiles_plain(x8, xs, bs, q, d, *cuda_q40.K1_TILE)
+    plan = cuda_q40.gemv_plan(in_f // 32, out_f)
+    assert torch.equal(k1, cuda_q40.q40_gemv_q80_blocked(x, q, d, plan))
+    want = int4_prod.fs_call_tiles_plain(x8, xs, bs, q, d, *cuda_q40.FIRST_K1_TILE)
     scale = want.abs().max().item()
     for cols, ksplit in cuda_q40.GEMV_TILES:
         before = int4_prod.fs_call_tiles.launches
-        if (cols, ksplit) != cuda_q40.K1_TILE and rows not in cuda_q40.BODY_ROWS:
+        if (cols, ksplit) != cuda_q40.FIRST_K1_TILE and rows not in cuda_q40.BODY_ROWS:
             with pytest.raises(ValueError):
                 int4_prod.fs_call_tiles(x8, xs, bs, q, d, cols, ksplit)
             assert int4_prod.fs_call_tiles.launches == before
@@ -723,8 +818,6 @@ def test_fs_call_tiles_match_plain_and_k1(cuda, rows, in_f, out_f):
         torch.cuda.synchronize()
         assert int4_prod.fs_call_tiles.launches == before + 1
         assert (got - want).abs().max().item() <= 1e-5 * scale, (cols, ksplit)
-        if (cols, ksplit) == cuda_q40.K1_TILE:
-            assert torch.equal(got, k1)
 
 
 def test_floor_wrappers_raise_instead_of_falling_back(cuda):
@@ -760,7 +853,7 @@ def test_floor_probes_run_on_the_card(cuda):
         assert row["max_abs_err"] <= ATT_REL_TOL * row["out_scale"]
     assert rows[1]["p12_vs_p8"] <= 2 * ATT_REL_TOL * rows[1]["out_scale"]
     row = int4_prod.run_shape("1024->512", 1024, 512, cuda, timed=False)
-    assert row["k1_tile_equals_k1"] and row["max_abs_err"] <= 1e-5 * row["out_scale"]
+    assert row["k1_vs_blocked"] == 0.0 and row["max_abs_err"] <= 1e-5 * row["out_scale"]
 
 
 # -- P1, P13, P2, P6 (csrc/i8_tile_probe.cu on csrc/q40_i8_mma.cuh) --------
@@ -1014,7 +1107,7 @@ def test_codec_probes_run_on_the_card(cuda):
     """Each codec probe's routine, untimed, at a small shape."""
     for mod, flag in ((int4b, "storages_bit_equal"), (int4c, "views_bit_equal")):
         got = mod.sweep_shape("1024->512", 1024, 512, cuda, time_it=False)
-        assert [r["probe"] for r in got["baseline"]] == ["B9 baseline", "K1 body"]
+        assert [r["probe"] for r in got["baseline"]] == ["B9 baseline", "first K1 body"]
         assert len(got["tiles"]) == 2 * len(scales.tiles_for(32))
         assert all(r[flag] and r["planes_bit_equal"] and r["max_abs_err"] <= 1e-5 * r["out_scale"]
                    for r in got["tiles"])

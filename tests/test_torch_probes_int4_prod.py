@@ -72,10 +72,11 @@ def test_split_operands_check_their_layout():
 
 
 def test_k1_tile_is_k1_on_the_cpu():
-    """The body at K1's tile and K1's call on the same row: one function."""
+    """On CPU tensors the body at the first K1's tile and K1's call are
+    both K1's plain version: one function on the same row."""
     x, q, d = int4_prod.make_operands(1024, 96, "cpu", seed=4, rows=2)
     x8, xs, bs = int4_prod.q80_prologue(x)
-    assert torch.equal(int4_prod.fs_call_tiles(x8, xs, bs, q, d, *cuda_q40.K1_TILE),
+    assert torch.equal(int4_prod.fs_call_tiles(x8, xs, bs, q, d, *cuda_q40.FIRST_K1_TILE),
                        cuda_q40.q40_gemv_q80(x, q, d))
 
 
@@ -101,7 +102,7 @@ def test_body_checks_its_operands():
         x9, xs9, bs9 = int4_prod.q80_prologue(torch.randn(9, 256))
         int4_prod.fs_call_tiles(x9, xs9, bs9, q, d, 32, 8)
     x3, xs3, bs3 = int4_prod.q80_prologue(torch.randn(3, 256))
-    int4_prod.fs_call_tiles(x3, xs3, bs3, q, d, *cuda_q40.K1_TILE)  # K1's tile: 1..8 rows
+    int4_prod.fs_call_tiles(x3, xs3, bs3, q, d, *cuda_q40.FIRST_K1_TILE)  # 1..8 rows
     with pytest.raises(ValueError):  # the other tiles: 1 or 8 rows
         int4_prod.fs_call_tiles(x3, xs3, bs3, q, d, 64, 8)
     with pytest.raises(ValueError):
@@ -116,11 +117,13 @@ def test_int4_prod_main_on_the_cpu(monkeypatch, capsys):
                            "--seed", "2"])
     assert [(r["in"], r["out"]) for r in rows] == [(1024, 256), (2048, 128)]
     for r in rows:
-        assert r["k1_tile_equals_k1"] and r["max_abs_err"] == 0.0
+        # the CPU's K1 is its plain version, which sums in another order
+        # than the blocked one: exact integer partials, a few f32 ulps
+        assert r["k1_vs_blocked"] <= 1e-5 * r["out_scale"] and r["max_abs_err"] == 0.0
         assert [(t["cols"], t["ksplit"]) for t in r["tiles"]] == list(cuda_q40.GEMV_TILES)
     assert rows[0]["body"] == 1024 * 256 // 2 + 32 * 256 * 2 + 1024 + 32 * 8 + 256 * 4
     out = capsys.readouterr().out
-    assert "not measured" in out and "K1's tile equals K1: True" in out
+    assert "not measured" in out and "K1 against its blocked order" in out
     assert int4_prod.SHAPES[0] == ("wqkv 2048->3072", 2048, 3072)
 
 

@@ -157,7 +157,7 @@ def test_int4b_main_on_the_cpu(monkeypatch, capsys):
         int4b.main(["--shape", "256,64"])
     rows = int4b.main(["--device", "cpu", "--shape", "512,128", "--shape", "1024,64",
                        "--only", "1024", "--seed", "2"])
-    assert [r["probe"] for r in rows[:2]] == ["B9 baseline", "K1 body"]
+    assert [r["probe"] for r in rows[:2]] == ["B9 baseline", "first K1 body"]
     tiles = rows[2:]
     # out / 2 = 32 bytes a row: TN 128 (64 bytes a CTA) does not fit
     assert len(tiles) == 2 * len([t for t in int4b.tiles_for(32) if t[0] < 128])

@@ -146,7 +146,7 @@ def test_int4c_main_on_the_cpu(monkeypatch, capsys):
         int4c.main(["--shape", "256,64"])
     rows = int4c.main(["--device", "cpu", "--shape", "512,128", "--shape", "1024,64",
                        "--only", "1024", "--seed", "2"])
-    assert [r["probe"] for r in rows[:2]] == ["B9 baseline", "K1 body"]
+    assert [r["probe"] for r in rows[:2]] == ["B9 baseline", "first K1 body"]
     tiles = rows[2:]
     assert len(tiles) == 2 * len(int4c.tiles_for(32))
     assert all(r["probe"] == "P9" and r["views_bit_equal"] and r["planes_bit_equal"]
