@@ -38,8 +38,10 @@ caught):
      path "decode floor probes";
   3d. the scale-plane and tile sweeps and the f16-bits convert: P1 (raw
      f16 bits -> f32) on the 1B wcls plane bit for bit, P13 at B9's tile
-     equal to B9 with each plane, P2's two planes equal to P13 and P6 at
-     P4's tile equal to P4; then the sweeps' entry points (probes/scales.py
+     equal to B9 with each plane, P2 (the one-row GEMV) at 1..8 rows equal
+     to its plain version bit for bit, its two planes equal and within
+     1e-5 of P13 at the old P2 tile, and P6 at P4's tile equal to P4;
+     then the sweeps' entry points (probes/scales.py
      and probes/i4_tiles.py main), counted as the path "scale and tile
      sweeps", whose rows are held: P1 on every bit pattern bit for bit, P13
      at every tile of the JAX sweep's eight 1B and 8B shapes with its f16,
@@ -1185,7 +1187,7 @@ def floor_rows(torch, rates, errs, counters):
 SWEEP_SOURCES = {
     "f16bits_to_f32": ("distributed_llama_tpu_torch/csrc/i8_tile_probe.cu",
                        "scripts/probe_f16_scales.py:48"),
-    "scale_plane_call": ("distributed_llama_tpu_torch/csrc/i8_tile_probe.cu",
+    "scale_plane_call": ("distributed_llama_tpu_torch/csrc/i8_gemv_probe.cu",
                          "scripts/probe_f16_scales.py:118"),
     "i8_tile_call": ("distributed_llama_tpu_torch/csrc/i8_tile_probe.cu",
                      "scripts/sweep_i8_tiles.py:69"),
@@ -1200,7 +1202,9 @@ def sweep_checks(torch):
     """The identities that the sweeps' mains do not check: P1 bit for bit
     on random bit patterns over the 1B wcls plane [64, 128256]; P13 at 64
     columns and B9's split, each plane, bit for bit equal to B9 at every
-    sweep shape (1B and 8B); P2's two planes equal to P13 at its tile; P6
+    sweep shape (1B and 8B); P2 at 1..8 rows equal to its plain version bit
+    for bit, its two planes equal to each other and within SWEEP_REL_TOL of
+    P13 at P2_TILE (its int8-MMA design before); P6
     at 64 columns and P4's split bit for bit equal to P4's bf16 instance.
     Every tile against the plain version, the three planes' bit identity at
     every tile and P1 on every bit pattern are the mains' rows, held in
@@ -1227,10 +1231,18 @@ def sweep_checks(torch):
             got = scales.i8_tile_call(x8, xs, qt, d, 64, nb // splits)
             assert torch.equal(got, ref), f"i8_tile_call {label} {plane} at B9's tile: differs from B9"
         if (in_f, out_f) == scales.P2_SHAPE[1:]:
-            p13 = scales.i8_tile_call(x8, xs, qt, dt16, *scales.P2_TILE)
-            for plane in ("f32", "i16"):
-                got = scales.scale_plane_call(x8, xs, qt, planes[plane])
-                assert torch.equal(got, p13), f"scale_plane_call {plane}: differs from P13"
+            x8r, xsr, _, _, _ = int4.make_operands(in_f, out_f, 8, "cuda", seed=14)
+            for rows in range(1, 9):
+                xr, sr = x8r[:rows], xsr[:rows]
+                p13 = scales.i8_tile_call(xr, sr, qt, dt16, *scales.P2_TILE)
+                got = {p: scales.scale_plane_call(xr, sr, qt, planes[p]) for p in ("f32", "i16")}
+                for plane, g in got.items():
+                    assert torch.equal(g, scales.scale_plane_call_plain(xr, sr, qt, planes[plane])), \
+                        f"scale_plane_call {plane} at {rows} rows: differs from its plain version"
+                    compare(torch, f"scale_plane_call {plane} {rows} rows vs P13", [(g, p13)],
+                            rel_tol=SWEEP_REL_TOL)
+                assert torch.equal(got["f32"], got["i16"]), \
+                    f"scale_plane_call at {rows} rows: the planes differ"
         del x8, xs, qt, dt16, planes, ref, got
         torch.cuda.empty_cache()
     for label, in_f, out_f in i4_tiles.SHAPES:
@@ -1309,9 +1321,10 @@ def sweep_rows(torch, rates, counters):
                                 f"values only")
     r = next(r for r in s_rows if r["probe"] == "P2" and r["plane"] == "i16")
     out["scale_plane_call"] = row("scale_plane_call", r, int8_peak,
-                                  f"P2: {r['shape']} at 1 row, i16 plane, TN {r['cols']} x "
-                                  f"{r['blocks_per_cta']} blocks, cold; library: torch.matmul "
-                                  f"on the bf16-dequantized plane")
+                                  f"P2: {r['shape']} at 1 row, i16 plane, the one-row GEMV at "
+                                  f"{r['vec']} columns a lane, {r['kw']} warps along k, "
+                                  f"{r['splits']} splits ({r['ctas']} CTAs), cold; library: "
+                                  f"torch.matmul on the bf16-dequantized plane")
     r = best([r for r in s_rows if r["probe"] == "P13" and r["out"] == 128256
               and r["plane"] == "i16"])
     out["i8_tile_call"] = row("i8_tile_call", r, int8_peak,

@@ -10,8 +10,10 @@ All three read a head-major K/V cache [b, kv, S, hd] bf16:
   * P12 `decode_attention(q, k, v, pos, col0)` (csrc/attention_probe.cu,
     probe_grouped_decode_att.py:73): grouped decode attention for one query
     token per row, q [b, h, hd], cache column s at position col0 + s and
-    visible iff col0 + s <= pos -> [b, h, hd] in q's dtype. S is split
-    across CTAs and the partials combined in a fixed order;
+    visible iff col0 + s <= pos -> [b, h, hd] in q's dtype. One launch: S
+    is split into absolute column ranges by `attention_plan` (the shape
+    alone), one thread-block cluster per (row, kv head), and the splits
+    merge in rank order inside the launch;
   * P8 `flash_headmajor(q, k, v, pos_start)` (probe_flash_headmajor.py:26):
     the prefill flash kernel K3 (csrc/flash_attention.cu, through
     ops/cuda_attention.py) fed the head-major cache at t = 1, q [b, t, h,
@@ -44,7 +46,9 @@ raises otherwise.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+from dataclasses import dataclass
 
 import torch
 
@@ -57,11 +61,19 @@ HEAD_DIMS = (64, 128)
 SEQS = (1024, 2048, 32768)
 SHAPE_1B = dict(b=1, h=32, kv=8, hd=64)  # Llama-3.2-1B's attention
 LAYERS, CHAIN = 16, 64  # the JAX probes' chain: 16 layers, 64 times
-BLOCK_S = 512  # the JAX kernel's default block_s
-ATT_TILE = 64  # csrc/attention_probe.cu: KV rows of a P12 tile
 READ_THREADS = 256  # csrc/attention_probe.cu: threads of a P11 CTA
-TARGET_CTAS = 512  # CTAs a split aims the first pass at (132 SMs)
 MAX_READ_SPLITS = 512
+# csrc/attention_probe.cu's P12: a CTA's warps each walk their own run of
+# columns in tiles of cache rows; a cluster holds at most ATT_MAX_CLUSTER
+# CTAs. ATT_VARIANT: (CTAs a cluster at most, warps a CTA, tile rows, tiles
+# a warp's ring) by head_dim, chosen by probes/p2_p12_ab.py --sweep among
+# ATT_SWEEP_VARIANTS, the (head_dim, warps, tile rows, ring depth) instances
+# the source builds with -DDLT_P12_SWEEP
+ATT_MAX_CLUSTER = 16
+ATT_VARIANT = {64: (8, 8, 32, 2), 128: (8, 8, 16, 2)}
+ATT_SWEEP_VARIANTS = ((64, 4, 32, 2), (64, 8, 32, 2), (64, 8, 16, 3), (64, 16, 16, 2),
+                      (128, 4, 32, 2), (128, 8, 16, 2))
+MAX_G = 8  # query heads a kv head: the MMA's rows 0..7 (rows 8..15 stay zero)
 CHAIN_ONCE_MS = 100.0  # a chain longer than this is replayed once
 CONTROL = (2048, 512)  # the JAX control row's plane, in -> out
 
@@ -71,12 +83,12 @@ _SIG = {
         kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
         kernels.P, kernels.P, kernels.P,
     ),
-    # q, q_is_f32, k, v, b, n_kv, g, S, hd, pos, col0, splits, scale,
-    # m_part, l_part, acc_part, out, stream
+    # q, q_is_f32, k, v, b, n_kv, g, S, hd, pos, col0, cluster, width,
+    # warps, tile, stages, scale, out, max_clusters, stream
     "decode_attention": (
         kernels.P, kernels.I, kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I,
-        kernels.I, kernels.I, kernels.I, kernels.I, kernels.F, kernels.P, kernels.P, kernels.P,
-        kernels.P, kernels.P,
+        kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
+        kernels.F, kernels.P, kernels.P, kernels.P,
     ),
 }
 
@@ -89,10 +101,52 @@ def read_splits(n_kv: int, S: int, hd: int) -> int:
     return max(1, min(-(-n_kv * S // rows_per_iter), MAX_READ_SPLITS))
 
 
-def attention_splits(b: int, n_kv: int, S: int) -> int:
-    """P12's split of S per (row, kv head): about TARGET_CTAS CTAs, at least
-    one 64-row tile each. A function of the shape alone."""
-    return max(1, min(-(-S // ATT_TILE), TARGET_CTAS // (b * n_kv)))
+@dataclass(frozen=True)
+class AttentionPlan:
+    """P12's split of a (row, kv head)'s S cache columns: `cluster` CTAs
+    (one thread-block cluster), CTA c taking columns [c * width, (c + 1) *
+    width) and each of its `warps` warps a contiguous run of width / warps
+    of those, walked in tiles of `tile` rows, `stages` tiles a warp's
+    ring."""
+
+    cluster: int
+    width: int
+    warps: int
+    tile: int
+    stages: int
+
+    @property
+    def run(self) -> int:
+        """Columns a warp's run."""
+        return self.width // self.warps
+
+
+def attention_plan(S: int, hd: int, max_cluster: int | None = None,
+                   variant: tuple | None = None) -> AttentionPlan:
+    """P12's plan for a cache of S columns at head_dim hd: a function of
+    the shape alone, never of pos, col0 or the batch, so a row's bits do
+    not depend on where its query sits. The instance (warps, tile rows,
+    ring depth) and the cluster cap of ATT_VARIANT[hd], unless `variant` /
+    `max_cluster` name others; then the fewest (warps x tile)-column units
+    a CTA that keep at most that many CTAs a cluster, and no CTA past S."""
+    if hd not in HEAD_DIMS or S < 1:
+        raise ValueError(f"no P12 plan for S {S}, hd {hd}")
+    cap, *default = ATT_VARIANT[hd]
+    max_cluster = cap if max_cluster is None else max_cluster
+    warps, tile, stages = default if variant is None else variant
+    if ((hd, warps, tile, stages) not in ATT_SWEEP_VARIANTS
+            or not 1 <= max_cluster <= ATT_MAX_CLUSTER):
+        raise ValueError(f"P12 instance {(hd, warps, tile, stages)} at <= {max_cluster} CTAs "
+                         f"a cluster is not built")
+    unit = warps * tile
+    units = -(-S // unit)
+    width = -(-units // min(max_cluster, units)) * unit
+    return AttentionPlan(-(-S // width), width, warps, tile, stages)
+
+
+def visible_columns(S: int, pos: int, col0: int) -> int:
+    """The cache columns s < visible that the query sees: col0 + s <= pos."""
+    return max(0, min(S, pos - col0 + 1))
 
 
 def _check_cache(k, v) -> None:
@@ -167,73 +221,105 @@ def _check_q(q, k) -> None:
         raise ValueError(f"q is on {q.device}, the cache on {k.device}")
 
 
+def _merge(m, l, acc, dim: int):
+    """Online-softmax states merged along `dim` in order, as the kernel
+    merges its warps and then its cluster's CTAs: M = the largest m, then
+    acc * e^(m - M) and l * e^(m - M) summed one by one from the first."""
+    M = m.amax(dim=dim, keepdim=True)
+    f = torch.exp(m - M)
+    os, ls = acc * f, l * f
+    O, L = os.select(dim, 0), ls.select(dim, 0)
+    for i in range(1, m.shape[dim]):
+        O, L = O + os.select(dim, i), L + ls.select(dim, i)
+    return M.squeeze(dim), L, O
+
+
 def decode_attention_plain(q, k, v, pos: int, col0: int = 0,
-                           block_s: int = BLOCK_S) -> torch.Tensor:
-    """P12's plain version, walking S in blocks as the Pallas kernel does:
-    blocks of min(block_s, S) (halved until they divide S), a block skipped
-    when its first column is past pos. q [b, h, hd]; K/V [b, kv, S, hd]
-    bf16 -> [b, h, hd] in q's dtype."""
+                           plan: AttentionPlan | None = None) -> torch.Tensor:
+    """P12's plain version, in the kernel's order under `plan` (by default
+    `attention_plan`): each warp's run of columns in tiles of plan.tile rows
+    with its own online softmax (p rounded to bf16 against the run's
+    running max), a tile skipped when none of its columns is visible, then
+    the warps of a CTA merged in warp order and the CTAs in rank order. q
+    [b, h, hd]; K/V [b, kv, S, hd] bf16 -> [b, h, hd] in q's dtype."""
     _check_cache(k, v)
     _check_q(q, k)
     b, h, hd = q.shape
     n_kv, S = k.shape[1], k.shape[2]
     g = h // n_kv
+    plan = plan or attention_plan(S, hd)
     scale = 1.0 / (hd ** 0.5)
-    bs = min(block_s, S)
-    while S % bs:
-        bs //= 2
+    visible = visible_columns(S, int(pos), int(col0))
+    n_runs, n_t = plan.cluster * plan.warps, plan.run // plan.tile
     dev = q.device
-    qf = q.to(torch.bfloat16).to(torch.float32).reshape(b, n_kv, g, hd)
-    m = torch.full((b, n_kv, g, 1), NEG_INF, device=dev)
-    l = torch.zeros((b, n_kv, g, 1), device=dev)
-    acc = torch.zeros((b, n_kv, g, hd), device=dev)
-    for si in range(S // bs):
-        if col0 + si * bs > pos:
-            continue
-        blk = slice(si * bs, (si + 1) * bs)
-        s = _f32_matmul(qf, k[:, :, blk].to(torch.float32).transpose(-1, -2)) * scale
-        vis = (col0 + si * bs + torch.arange(bs, device=dev)) <= pos  # [bs]
-        s = torch.where(vis, s, NEG_INF)
-        m_cur = torch.maximum(s.amax(dim=-1, keepdim=True), m)
-        m_safe = torch.clamp(m_cur, min=NEG_INF / 2)
+
+    cols = torch.arange(n_runs * n_t * plan.tile, device=dev) < visible
+
+    def tiles(c):  # [b, kv, S, hd] -> [b, kv, runs, tiles, rows, hd] f32, zero from visible on
+        c = torch.nn.functional.pad(c.to(torch.float32), (0, 0, 0, plan.cluster * plan.width - S))
+        c = torch.where(cols[:, None], c, 0.0)  # the kernel never reads them
+        return c.reshape(b, n_kv, n_runs, n_t, plan.tile, hd)
+
+    kt, vt = tiles(k), tiles(v)
+    vis = cols.reshape(n_runs, n_t, 1, plan.tile)
+    qf = q.to(torch.bfloat16).to(torch.float32).reshape(b, n_kv, 1, g, hd)
+    m = torch.full((b, n_kv, n_runs, g, 1), NEG_INF, device=dev)
+    l = torch.zeros((b, n_kv, n_runs, g, 1), device=dev)
+    acc = torch.zeros((b, n_kv, n_runs, g, hd), device=dev)
+    for t in range(n_t):
+        mask = vis[:, t]  # [runs, 1, rows]
+        seen = mask.any(dim=-1, keepdim=True)  # [runs, 1, 1]: the tile is walked
+        s = _f32_matmul(qf, kt[:, :, :, t].transpose(-1, -2)) * scale
+        s = torch.where(mask, s, NEG_INF)
+        m_safe = torch.clamp(torch.maximum(s.amax(dim=-1, keepdim=True), m), min=NEG_INF / 2)
         corr = torch.exp(m - m_safe)
-        p = torch.where(vis, torch.exp(s - m_safe), 0.0)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        pv = _f32_matmul(p.to(torch.bfloat16).to(torch.float32), v[:, :, blk].to(torch.float32))
-        acc = acc * corr + pv
-        m = m_safe
+        p = torch.where(mask, torch.exp(s - m_safe), 0.0)
+        pv = _f32_matmul(p.to(torch.bfloat16).to(torch.float32), vt[:, :, :, t])
+        l = torch.where(seen, l * corr + p.sum(dim=-1, keepdim=True), l)
+        acc = torch.where(seen, acc * corr + pv, acc)
+        m = torch.where(seen, m_safe, m)
+    split = (b, n_kv, plan.cluster, plan.warps, g)
+    m, l, acc = _merge(m.reshape(*split, 1), l.reshape(*split, 1), acc.reshape(*split, hd), 3)
+    _, l, acc = _merge(m, l, acc, 2)
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def _launch_attention(q, k, v, pos: int, col0: int, plan: AttentionPlan,
+                      max_clusters: bool = False, lib=None):
+    """One launch of csrc/attention_probe.cu's P12 under `plan` on checked
+    CUDA operands -> [b, h, hd] in q's dtype (`lib`: another build of the
+    source); with `max_clusters`, no launch: how many of the plan's clusters
+    the card holds at once."""
+    b, h, hd = q.shape
+    n_kv, S = k.shape[1], k.shape[2]
+    if h // n_kv > MAX_G:
+        raise ValueError(f"{h // n_kv} query heads a kv head: at most {MAX_G}")
+    lib = lib or kernels.load("attention_probe", _SIG)
+    out = torch.empty_like(q)
+    n = ctypes.c_int(0)
+    kernels.launch(
+        lib, "decode_attention", q,
+        q.data_ptr(), int(q.dtype == torch.float32), k.data_ptr(), v.data_ptr(), b, n_kv,
+        h // n_kv, S, hd, int(pos), int(col0), plan.cluster, plan.width, plan.warps, plan.tile,
+        plan.stages, 1.0 / (hd ** 0.5), out.data_ptr(),
+        ctypes.addressof(n) if max_clusters else None,
+    )
+    return n.value if max_clusters else out
 
 
 def decode_attention(q, k, v, pos: int, col0: int = 0) -> torch.Tensor:
     """P12: grouped decode attention for one query token per row: q [b, h,
     hd] (f32 or bf16), head-major K/V [b, kv, S, hd] bf16, host ints pos
     (the query's position) and col0 (the position of cache column 0) ->
-    [b, h, hd] in q's dtype."""
+    [b, h, hd] in q's dtype. One launch at `attention_plan(S, hd)`."""
     _check_cache(k, v)
     _check_q(q, k)
     pos, col0 = int(pos), int(col0)
-    if q.device.type == "cpu":
+    if cuda_q40._device_kind(q) == "cpu":
         return decode_attention_plain(q, k, v, pos, col0)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     _check_launch(q, k, v)
-    b, h, hd = q.shape
-    n_kv, S = k.shape[1], k.shape[2]
-    g = h // n_kv
-    splits = attention_splits(b, n_kv, S)
-    lib = kernels.load("attention_probe", _SIG)
-    m_part = torch.empty((b * n_kv, splits, g), dtype=torch.float32, device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((b * n_kv, splits, g, hd), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
-    kernels.launch(
-        lib, "decode_attention", q,
-        q.data_ptr(), int(q.dtype == torch.float32), k.data_ptr(), v.data_ptr(), b, n_kv, g, S,
-        hd, pos, col0, splits, 1.0 / (hd ** 0.5), m_part.data_ptr(), l_part.data_ptr(),
-        acc_part.data_ptr(), out.data_ptr(),
-    )
+    out = _launch_attention(q, k, v, pos, col0, attention_plan(k.shape[2], q.shape[2]))
     decode_attention.launches += 1
     return out
 
@@ -323,7 +409,7 @@ def run_seq(S: int, device, seed: int = 0, timed: bool = True, shape=SHAPE_1B) -
             "flash_headmajor": flash_headmajor_plain(q4, k, v, pos).reshape(b, h, hd)}
     p12_vs_p8 = (got["decode_attention"].float() - got["flash_headmajor"].float()).abs().max()
     ctas = {"pure_read": b * read_splits(n_kv, S, hd),
-            "decode_attention": b * n_kv * attention_splits(b, n_kv, S),
+            "decode_attention": b * n_kv * attention_plan(S, hd).cluster,
             "flash_headmajor": b * n_kv * -(-g // cuda_attention.FLASH_ROWS)
             * cuda_attention.plan_for(q4, headmajor_view(k), pos).splits}
     rows = []

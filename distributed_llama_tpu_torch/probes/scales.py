@@ -21,15 +21,22 @@ probes ask what the plane's storage and the tile cost:
     TPU lane width, and no CTA that wide makes sense on the card, so the
     sweep takes 32, 64 and 128 columns instead;
   * P2 `scale_plane_call(x8, xs, qt, dt)` (probe_f16_scales.py:118, the
-    inner `build`): P13's f32 and i16 instances at one tile, 2048 -> 8192
-    in the probe. `build` is `build_call` with the JAX default tile (1024,
-    64), which maps to P2_TILE: 64 blocks a CTA and the widest CTA, 128
-    columns. The one difference from P13 is the JAX kernel: the i16 plane
-    runs `_mm_kernel_i16` (:72), the same math as `_kernel_i8_i16`.
+    inner `build`; bodies _kernel_i8 and _mm_kernel_i16 :72): the same
+    function on an f32 or raw-bits plane, 2048 -> 8192 in the probe, as
+    its own one-row GEMV on the CUDA cores (csrc/i8_gemv_probe.cu): a lane
+    owns 4 or 8 consecutive columns, transposes each 4 x 4 byte patch in
+    registers and takes __dp4a, at the plan `i8_gemv_plan(nb, out)` of the
+    shape alone (columns a lane, warps along the contraction, a split-K
+    over a thread-block cluster merged in order). The JAX default tile
+    (1024, 64) maps to P2_TILE, 128 columns and 64 blocks a CTA: P13 there
+    is the int8-MMA design P2 had before, the A/B's old arm
+    (probes/p2_p12_ab.py).
 
-Every instance at one tile gives the same f32 scale for every finite f16
-and the same exact integer partials, so on the card the three planes agree
-bit for bit, and P13 at 64 columns and B9's split is B9 bit for bit. Each
+P13's instances at one tile give the same f32 scale for every finite f16
+and the same exact integer partials, so on the card its three planes agree
+bit for bit, and P13 at 64 columns and B9's split is B9 bit for bit. P2's
+two planes agree bit for bit on every bit pattern, and P2 equals its plain
+version, which repeats its plan's order, bit for bit. Each
 wrapper takes its plain version for CPU tensors, launches its kernel for
 CUDA tensors or raises, and counts its launches in `launches`.
 
@@ -58,11 +65,12 @@ import torch
 from ..device import resolve_device
 from ..formats.quants import Q_BLOCK
 from ..ops import cuda_q40, kernels
-from ..ops.cuda_q40 import W_I8, i8_blocks_plain, quantize_rows_q80
+from ..ops.cuda_q40 import W_I8, GemvPlan, _gemv_order, i8_blocks_plain, quantize_rows_q80
 from . import parse_shape
 from .operands import scale_planes
 
 SOURCE = "i8_tile_probe"
+P2_SOURCE = "i8_gemv_probe"
 _SIG = {
     # x8, xs, w, weights, dot, dt, scale_kind, out, part, rows, nb, out,
     # cols, blocks_per_cta, stream
@@ -73,13 +81,29 @@ _SIG = {
     # bits, out, n, stream
     "f16bits_to_f32": (kernels.P, kernels.P, kernels.LL, kernels.P),
 }
+_P2_SIG = {
+    # x8, xs, qt, dt, scale_kind, out, rows, nb, out, vec, cols, kw, splits,
+    # blocks_per_split, stream
+    "i8_gemv": (
+        kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.P, kernels.I, kernels.I,
+        kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
+    ),
+}
 # the plane's storage -> q40_i8_mma_tiled's scale_kind
 SCALE_KINDS = {torch.float16: 0, torch.float32: 1, torch.int16: 2}
 PLANES = ("f16", "f32", "i16")
 TILE_COLS = (32, 64, 128)  # output columns a CTA (the template's TN)
 SWEEP_BLOCKS = (8, 16, 32, 64, 128)  # blocks a CTA, where they divide nb
 QUICK_COLS, QUICK_BLOCKS = (64, 128), (8, 32)  # --quick
-P2_TILE = (128, 64)  # the JAX default (tile_n 1024, tile_knb 64)
+P2_TILE = (128, 64)  # the JAX default (tile_n 1024, tile_knb 64): P13's, the old P2
+# P2's plans (csrc/i8_gemv_probe.cu): columns a lane, warps along the
+# contraction (of 8 a CTA) and the split-K, chosen by probes/p2_p12_ab.py
+# --sweep at 2048 -> 8192
+P2_VEC, P2_KW = 4, 8
+P2_TARGET_CTAS = 128  # CTAs the split-K aims a call at (132 SMs)
+P2_MAX_SPLITS = 8     # the portable cluster size
+P2_MAX_BPS = 256      # blocks a split stages in shared memory
+P2_WARPS = 8
 P2_SHAPE = ("ffn 2048->8192", 2048, 8192)
 CHAIN = 64  # calls in one chained graph, as the JAX probes' lax.scan
 # the JAX sweep's shapes: Llama-3.2-1B and Llama-3.1-8B layer shapes
@@ -211,20 +235,82 @@ def i8_tile_call(x8, xs, qt, dt, cols: int, blocks_per_cta: int) -> torch.Tensor
 i8_tile_call.launches = 0
 
 
-def scale_plane_call_plain(x8, xs, qt, dt) -> torch.Tensor:
-    """P2's plain version: P13's at P2_TILE."""
-    return i8_tile_call_plain(x8, xs, qt, dt, *P2_TILE)
+def i8_gemv_plan(nb: int, out_f: int) -> GemvPlan:
+    """P2's plan for a weight of nb blocks by out_f columns (a multiple of
+    8): a function of the shape alone, never of the row count or the data,
+    so a row's sums are the same in every call. A lane owns P2_VEC columns
+    and a CTA's 8 warps put P2_KW along its contraction range; then the
+    fewest splits, a power of two up to P2_MAX_SPLITS, that reach
+    P2_TARGET_CTAS while every warp keeps its loads in flight (64 / (8 *
+    P2_VEC) blocks), and at most P2_MAX_BPS blocks a split, none empty."""
+    if nb < 1 or out_f < 8 or out_f % 8:
+        raise ValueError(f"no P2 plan for nb {nb}, out {out_f}")
+    vec, kw = P2_VEC, P2_KW
+    cols = 32 * vec * (P2_WARPS // kw)
+    tiles = -(-out_f // cols)
+    flight = 8 // vec
+    splits = 1
+    while (2 * splits <= P2_MAX_SPLITS and tiles * splits < P2_TARGET_CTAS
+           and -(-nb // (2 * splits)) >= kw * flight):
+        splits *= 2
+    while -(-nb // splits) > P2_MAX_BPS and splits < P2_MAX_SPLITS:
+        splits *= 2
+    while (splits - 1) * -(-nb // splits) >= nb:  # an empty last split
+        splits //= 2
+    bps = -(-nb // splits)
+    if bps > P2_MAX_BPS:
+        raise ValueError(f"no P2 plan for nb {nb}: a split would stage {bps} blocks")
+    return GemvPlan(vec, cols, kw, splits, bps)
+
+
+def scale_plane_terms(x8, xs, qt, dt) -> torch.Tensor:
+    """P2's per-block terms [nb, R, out] = p * (xs * dt) in f32, each
+    product rounded once as the kernel rounds it; p the exact integer dot
+    (|p| <= 32 * 128 * 128 < 2^24, exact in f32)."""
+    nb = qt.shape[0]
+    x = x8.reshape(x8.shape[0], nb, Q_BLOCK).to(torch.float32)
+    p = torch.einsum("rbk,bko->bro", x, qt.to(torch.float32))
+    return p * (xs.t().unsqueeze(-1) * plane_f32(dt).unsqueeze(1))
+
+
+def scale_plane_call_plain(x8, xs, qt, dt, plan: GemvPlan | None = None) -> torch.Tensor:
+    """P2's plain version: its terms summed in the kernel's order under
+    `plan` (by default `i8_gemv_plan`): blocks in order within a warp's
+    run, the warps in order, then the splits in order. Bit for bit the
+    kernel's."""
+    plan = plan or i8_gemv_plan(qt.shape[0], qt.shape[2])
+    return _gemv_order(scale_plane_terms(x8, xs, qt, dt), plan)
+
+
+def launch_scale_plane(x8, xs, qt, dt, plan: GemvPlan, lib=None) -> torch.Tensor:
+    """One launch of csrc/i8_gemv_probe.cu under `plan` on checked operands
+    on the card (`lib`: another build of the source)."""
+    if cuda_q40._device_kind(x8) != "cuda":
+        raise ValueError(f"i8_gemv runs on a CUDA device, not {x8.device}")
+    for t in (x8, qt, dt):
+        if t.data_ptr() % 16:
+            raise ValueError("P2's operands must start on a 16-byte boundary")
+    R, nb, out_f = x8.shape[0], qt.shape[0], qt.shape[2]
+    lib = lib or kernels.load(P2_SOURCE, _P2_SIG)
+    out = torch.empty((R, out_f), dtype=torch.float32, device=x8.device)
+    kernels.launch(
+        lib, "i8_gemv", x8,
+        x8.data_ptr(), xs.data_ptr(), qt.data_ptr(), dt.data_ptr(), SCALE_KINDS[dt.dtype],
+        out.data_ptr(), R, nb, out_f, plan.vec, plan.cols, plan.kw, plan.splits,
+        plan.blocks_per_split,
+    )
+    return out
 
 
 def scale_plane_call(x8, xs, qt, dt) -> torch.Tensor:
-    """P2: B9's kernel with an f32 or int16 (raw f16 bits) scale plane dt
-    [nb, out] at P2_TILE (nb a multiple of 64) -> [R, out] f32."""
+    """P2: x8 [R <= 8, in] int8, xs [R, nb] f32, qt [nb, 32, out] int8, dt
+    [nb, out] f32 or int16 (raw f16 bits) -> [R, out] f32, one launch at
+    `i8_gemv_plan(nb, out)`."""
     cuda_q40.check_i8_operands(x8, xs, qt, dt, Q_BLOCK, torch.int8,
                                dt_dtypes=(torch.float32, torch.int16))
-    check_tile(qt.shape[0], *P2_TILE)
     if cuda_q40._device_kind(x8) == "cpu":
         return scale_plane_call_plain(x8, xs, qt, dt)
-    out = launch_tiled(x8, xs, qt, W_I8, "int8", dt, *P2_TILE)
+    out = launch_scale_plane(x8, xs, qt, dt, i8_gemv_plan(qt.shape[0], qt.shape[2]))
     scale_plane_call.launches += 1
     return out
 
@@ -332,23 +418,24 @@ def convert_rows(device, seed: int = 0, time_it: bool = True) -> list:
 
 
 def p2_rows(device, seed: int = 0, time_it: bool = True) -> list:
-    """P2 at its shape: the f32 and the i16 plane at P2_TILE, each against
-    the plain version, and against each other."""
+    """P2 at its shape: the f32 and the i16 plane at `i8_gemv_plan`, each
+    against the plain version, and against each other."""
     label, in_f, out_f = P2_SHAPE
     x8, xs, qt, dt16, x = make_operands(in_f, out_f, device, seed)
     planes = scale_planes(dt16)
-    want = i8_blocks_plain(x8, xs, qt, dt16)
+    plan = i8_gemv_plan(in_f // Q_BLOCK, out_f)
     lib = library_ms(x, qt, dt16) if time_it else {}
     rows, outs = [], {}
     for plane in ("f32", "i16"):
         dt = planes[plane]
+        want = scale_plane_call_plain(x8, xs, qt, dt)
         outs[plane] = got = scale_plane_call(x8, xs, qt, dt)
         nbytes, nops = work(1, in_f, out_f, 1.0, dt.element_size())
         row = {"probe": "P2", "kernel": "scale_plane_call", "shape": label, "in": in_f,
-               "out": out_f, "plane": plane, "cols": P2_TILE[0], "blocks_per_cta": P2_TILE[1],
-               "ctas": -(-out_f // P2_TILE[0]) * (in_f // Q_BLOCK // P2_TILE[1]),
-               "max_abs_err": _err(got, want), "out_scale": want.abs().max().item(),
-               "bytes": nbytes, "ops": nops}
+               "out": out_f, "plane": plane, "cols": plan.cols, "vec": plan.vec, "kw": plan.kw,
+               "splits": plan.splits, "blocks_per_split": plan.blocks_per_split,
+               "ctas": plan.ctas(out_f), "max_abs_err": _err(got, want),
+               "out_scale": want.abs().max().item(), "bytes": nbytes, "ops": nops}
         if time_it:
             from . import timing
 
@@ -451,11 +538,16 @@ def main(argv=None) -> list:
                      f"library .view(f16).float() cold {r['library_cold_ms'] * 1e3:.2f} us")
         print(line, flush=True)
         rows.append(r)
-    print(f"== P2: {P2_SHAPE[0]} at TN {P2_TILE[0]} x {P2_TILE[1]} blocks (JAX tile (1024, 64)) ==",
-          flush=True)
     p2 = p2_rows(device, args.seed, time_it)
+    r = p2[0]
+    print(f"== P2: {P2_SHAPE[0]}, the one-row GEMV at {r['vec']} columns a lane, {r['kw']} "
+          f"warps along k, {r['splits']} splits ({r['ctas']} CTAs) ==", flush=True)
     for r in p2:
-        print(_point(r, time_it) + f"; planes bit-equal {r['planes_bit_equal']}", flush=True)
+        line = f"  {r['plane']}: maxerr vs plain {r['max_abs_err']:.3e}"
+        if time_it:
+            line += (f"; cold {r['cold_ms'] * 1e3:.2f} us ({r['gb_s_cold']:.0f} GB/s), hot "
+                     f"{r['hot_ms'] * 1e3:.2f} us, chain {r['chain_ms'] * 1e3:.2f} us")
+        print(line + f"; planes bit-equal {r['planes_bit_equal']}", flush=True)
     rows.extend(p2)
     shapes = args.shape or ((SHAPES_1B if args.b1 else ()) + (SHAPES_8B if args.b8 else ())
                             or SHAPES_1B + SHAPES_8B)

@@ -34,6 +34,7 @@ import distributed_llama_tpu_torch.probes.int4c
 import distributed_llama_tpu_torch.probes.k2_k3_ab
 import distributed_llama_tpu_torch.probes.k4_k5_ab
 import distributed_llama_tpu_torch.probes.k1_ab
+import distributed_llama_tpu_torch.probes.p2_p12_ab
 import distributed_llama_tpu_torch.parallel
 import distributed_llama_tpu_torch.parallel.mesh
 import distributed_llama_tpu_torch.parallel.pipeline
@@ -77,6 +78,7 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     assert "distributed_llama_tpu_torch.probes.attention" in mods
     assert "distributed_llama_tpu_torch.probes.k1_step" in mods
     assert "distributed_llama_tpu_torch.probes.k1_ab" in mods
+    assert "distributed_llama_tpu_torch.probes.p2_p12_ab" in mods
     assert "distributed_llama_tpu_torch.probes.int4_prod" in mods
     assert "distributed_llama_tpu_torch.probes.int4c" in mods
     assert "distributed_llama_tpu_torch.parallel.pipeline" in mods

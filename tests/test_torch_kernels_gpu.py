@@ -744,11 +744,11 @@ def test_pure_read_matches_plain(cuda, hd, b, n_kv, S):
 ])
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 def test_decode_attention_matches_plain(cuda, hd, g, S, pos, col0, q_dtype):
-    """P12: p rounds to bf16 against the running max of each 64-row tile
-    and each split, where the plain version walks 512-row blocks in order:
-    within 2^-6 of the plain output's largest value (a few bf16 ulps; the
-    output shrinks as 1/sqrt(S), so an absolute bound would hide a lost
-    split at long S)."""
+    """P12: one launch a call; p rounds to bf16 against the same running
+    maxima as the plain version's (the plan's runs and tiles), so only the
+    f32 sums' order and exp differ: within 2^-6 of the plain output's
+    largest value (a few bf16 ulps; the output shrinks as 1/sqrt(S), so an
+    absolute bound would hide a lost split at long S)."""
     n_kv = 2
     q, k, v = attention.make_operands(1, n_kv * g, n_kv, hd, S, cuda, seed=hd + g + S)
     q = q.to(q_dtype)
@@ -759,6 +759,26 @@ def test_decode_attention_matches_plain(cuda, hd, g, S, pos, col0, q_dtype):
     assert attention.decode_attention.launches == before + 1
     assert got.dtype == q_dtype and got.shape == q.shape
     assert (got.float() - want.float()).abs().max().item() <= ATT_REL_TOL * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("max_cluster", [8, 16])
+def test_decode_attention_every_plan_matches_plain(cuda, hd, max_cluster):
+    """The plan's instance at clusters of up to 8 and 16 CTAs, at S 32768
+    and 1000 (a ragged last tile), b 2: within 2^-6 of the plain version in
+    that plan's order; the cache past the visible columns is never read
+    (NaN there changes nothing)."""
+    for S, pos in ((32768, 32000), (1000, 999)):
+        q, k, v = attention.make_operands(2, 16, 4, hd, S, cuda, seed=S + hd)
+        k[:, :, pos + 1:] = float("nan")
+        v[:, :, pos + 1:] = float("nan")
+        plan = attention.attention_plan(S, hd, max_cluster)
+        got = attention._launch_attention(q, k, v, pos, 0, plan)
+        want = attention.decode_attention_plain(q, k, v, pos, 0, plan)
+        torch.cuda.synchronize()
+        assert torch.isfinite(want).all()
+        assert (got.float() - want.float()).abs().max().item() <= \
+            ATT_REL_TOL * want.float().abs().max().item(), (S, plan)
 
 
 def test_decode_attention_with_nothing_visible_is_zero(cuda):
@@ -913,19 +933,67 @@ def test_i8_tile_at_b9s_tile_is_b9(cuda, in_f, out_f):
 
 
 def test_scale_plane_call_matches_plain_and_p13(cuda):
-    """P2: the f32 and i16 planes at its tile, within 1e-5 of the plain
-    version, equal to each other and to P13 at that tile bit for bit."""
-    x8, xs, qt, dt, _ = scales.make_operands(2048, 8192, cuda, seed=2)
+    """P2 at its shape at 1..8 rows: one launch a call at `i8_gemv_plan`,
+    equal to its plain version bit for bit (the plan's order), each row
+    equal to its one-row call, the f32 and i16 planes equal bit for bit,
+    and within 1e-5 of P13 at P2_TILE (exact integer partials, f32 block
+    sums in another order)."""
+    x8, xs, qt, dt, _ = int4.make_operands(2048, 8192, 8, cuda, seed=2)
     planes = scale_planes(dt)
-    want = scales.scale_plane_call_plain(x8, xs, qt, planes["f32"])
     p13 = scales.i8_tile_call(x8, xs, qt, planes["f16"], *scales.P2_TILE)
-    for plane in ("f32", "i16"):
-        before = scales.scale_plane_call.launches
-        got = scales.scale_plane_call(x8, xs, qt, planes[plane])
-        torch.cuda.synchronize()
-        assert scales.scale_plane_call.launches == before + 1
-        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
-        assert torch.equal(got, p13), plane
+    ones = {p: torch.cat([scales.scale_plane_call(x8[r:r + 1], xs[r:r + 1], qt, planes[p])
+                          for r in range(8)]) for p in ("f32", "i16")}
+    for rows in range(1, 9):
+        outs = {}
+        for plane in ("f32", "i16"):
+            before = scales.scale_plane_call.launches
+            got = scales.scale_plane_call(x8[:rows], xs[:rows], qt, planes[plane])
+            torch.cuda.synchronize()
+            assert scales.scale_plane_call.launches == before + 1
+            assert torch.equal(got, scales.scale_plane_call_plain(x8[:rows], xs[:rows], qt,
+                                                                  planes[plane])), (plane, rows)
+            assert torch.equal(got, ones[plane][:rows]), (plane, rows)
+            want = p13[:rows]
+            assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+            outs[plane] = got
+        assert torch.equal(outs["f32"], outs["i16"]), rows
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 2048), (8192, 2048), (1024, 264), (4096, 14336)])
+def test_scale_plane_call_every_plan_matches_its_plain_order(cuda, in_f, out_f):
+    """The built (vec, kw) pair at 1 and 4 splits, and the shape's own
+    plan: bit for bit the plain version in that plan's order, at 1 and 3
+    rows."""
+    nb = in_f // 32
+    for rows in (1, 3):
+        x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, cuda, seed=rows + in_f)
+        plane = scale_planes(dt)["i16"]
+        plans = [scales.i8_gemv_plan(nb, out_f)]
+        vec, kw = scales.P2_VEC, scales.P2_KW
+        for splits in (1, 4):
+            bps = -(-nb // splits)
+            if (splits - 1) * bps < nb:
+                plans.append(scales.GemvPlan(vec, 32 * vec * (8 // kw), kw, splits, bps))
+        for plan in plans:
+            got = scales.launch_scale_plane(x8, xs, qt, plane, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, scales.scale_plane_call_plain(x8, xs, qt, plane, plan)), plan
+
+
+def test_scale_plane_call_on_every_bit_pattern(cuda):
+    """P2's i16 plane holding all 65,536 f16 bit patterns (inf and NaN
+    included): the kernel's convert gives the JAX integer algorithm's value
+    for each, so it equals the plain version and the f32 plane of those
+    values bit for bit."""
+    nb, out_f = 256, 256
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).reshape(nb, out_f)
+    x8, xs, qt, _, _ = int4.make_operands(nb * 32, out_f, 2, cuda, seed=9)
+    plane = bits.to(cuda)
+    got = scales.scale_plane_call(x8, xs, qt, plane)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, scales.scale_plane_call_plain(x8, xs, qt, plane))
+    assert torch.equal(got, scales.scale_plane_call(x8, xs, qt, scales.plane_f32(plane)))
 
 
 @pytest.mark.parametrize("rows", [1, 3])

@@ -1,0 +1,259 @@
+"""The plans of P2 (probes/scales.py i8_gemv_plan, the one-row int8 GEMV on
+a scale plane) and P12 (probes/attention.py attention_plan, one-launch
+split-S decode attention merged in a cluster), on the CPU: each a function
+of the shape alone, held against hand-worked shapes; the wrappers' launch
+paths, run on the CPU with `kernels.load`/`kernels.launch` and the device
+check monkeypatched, hand the kernels those plans whatever the row count,
+pos or col0 and launch once a call; the plain versions, which repeat the
+kernels' orders, keep a row's bits independent of the other rows and read
+nothing past the visible columns."""
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_llama_tpu_torch.ops import cuda_q40, kernels
+from distributed_llama_tpu_torch.probes import attention, int4, scales
+from distributed_llama_tpu_torch.probes.operands import scale_planes
+
+REL_TOL = 1e-5  # exact integer partials; the f32 block sums in another order
+
+
+class _Captured:
+    """Every (C function, arguments) a wrapper launches, so the launch
+    paths run on the CPU as on the card."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(kernels, "load", lambda name, sig: name)
+        monkeypatch.setattr(kernels, "launch",
+                            lambda lib, fn, t, *args: self.calls.append((lib, fn, args)))
+        monkeypatch.setattr(cuda_q40, "_device_kind", lambda t: "cuda")
+
+
+def _plan_args(plan):
+    return (plan.vec, plan.cols, plan.kw, plan.splits, plan.blocks_per_split)
+
+
+# -- P2 ----------------------------------------------------------------------
+
+# (nb, out) -> (vec, cols, kw, splits, blocks a split), worked by hand from
+# i8_gemv_plan's rule: 128-column tiles (4 columns a lane, 8 warps along k);
+# splits doubled while the tiles x splits stay under 128 CTAs and each
+# warp keeps its two blocks in flight (a split >= 16 blocks); at most 256
+# blocks a split
+P2_PLANS = [
+    ((64, 8192), (4, 128, 8, 2, 32)),     # the probe's 2048 -> 8192: 64 tiles x 2
+    ((64, 2048), (4, 128, 8, 4, 16)),     # 16 tiles: 4 splits reach 64 blocks of 16
+    ((256, 2048), (4, 128, 8, 8, 32)),    # 8192 -> 2048: 8 splits, 128 CTAs
+    ((64, 128256), (4, 128, 8, 1, 64)),   # a vocab width: 1002 tiles, no split
+    ((8, 64), (4, 128, 8, 1, 8)),         # too shallow to split
+    ((2048, 64), (4, 128, 8, 8, 256)),    # 65536 deep: 8 splits of the 256-block cap
+    ((448, 14336), (4, 128, 8, 2, 224)),  # 8B w2: 112 tiles x 2
+]
+
+
+@pytest.mark.parametrize("shape,want", P2_PLANS)
+def test_p2_plan_is_the_hand_worked_one(shape, want):
+    plan = scales.i8_gemv_plan(*shape)
+    assert _plan_args(plan) == want
+    nb, out_f = shape
+    assert plan.ctas(out_f) == -(-out_f // want[1]) * want[3]
+
+
+@pytest.mark.parametrize("nb", [1, 3, 8, 17, 64, 100, 256, 448, 1000, 2048])
+@pytest.mark.parametrize("out_f", [8, 64, 264, 2048, 8192, 128256])
+def test_p2_plan_covers_every_block_once(nb, out_f):
+    """Every split non-empty and within the cap, the splits' ranges and each
+    split's warp runs covering the contraction once, in order."""
+    plan = scales.i8_gemv_plan(nb, out_f)
+    assert 1 <= plan.splits <= scales.P2_MAX_SPLITS and plan.blocks_per_split <= scales.P2_MAX_BPS
+    seen = []
+    for s in range(plan.splits):
+        blocks = plan.split_range(s, nb)
+        assert len(blocks) >= 1
+        for kw in range(plan.kw):
+            seen += list(plan.warp_range(kw, blocks))
+    assert seen == list(range(nb))
+    assert (plan.vec, plan.kw) == (scales.P2_VEC, scales.P2_KW)
+
+
+def test_p2_plan_refuses_what_the_kernel_does_not_take():
+    for nb, out_f in ((0, 64), (4, 60), (4, 4), (4096, 64)):
+        with pytest.raises(ValueError):
+            scales.i8_gemv_plan(nb, out_f)
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 8192), (8192, 2048), (1024, 264)])
+def test_p2_launches_its_plan_once_whatever_the_row_count(monkeypatch, in_f, out_f):
+    """scale_plane_call hands the kernel i8_gemv_plan(nb, out) at 1..8 rows
+    and on both planes, with the plane's scale kind, launches once a call
+    and counts it once."""
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, 8, "cpu", seed=1)
+    planes = scale_planes(dt)
+    cap = _Captured(monkeypatch)
+    plan = scales.i8_gemv_plan(in_f // 32, out_f)
+    for rows in range(1, 9):
+        for plane, kind in (("f32", 1), ("i16", 2)):
+            before, calls = scales.scale_plane_call.launches, len(cap.calls)
+            out = scales.scale_plane_call(x8[:rows], xs[:rows], qt, planes[plane])
+            assert scales.scale_plane_call.launches == before + 1 and len(cap.calls) == calls + 1
+            assert out.shape == (rows, out_f) and out.dtype == torch.float32
+            lib, fn, args = cap.calls[-1]
+            assert (lib, fn) == (scales.P2_SOURCE, "i8_gemv")
+            assert args[4] == kind and args[6:9] == (rows, in_f // 32, out_f)
+            assert args[-5:] == _plan_args(plan)
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 8192), (8192, 264)])
+def test_p2_plain_rows_equal_their_one_row_calls(in_f, out_f):
+    """The plain version at 8 rows, under the shape's plan and two others:
+    row r equal to the one-row call on that row bit for bit (the order
+    never reads R), and within REL_TOL of B9's plain sum."""
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, 8, "cpu", seed=2)
+    plane = scale_planes(dt)["i16"]
+    nb = in_f // 32
+    want = cuda_q40.i8_blocks_plain(x8, xs, qt, dt)
+    for plan in (scales.i8_gemv_plan(nb, out_f), scales.GemvPlan(4, 128, 8, 1, nb),
+                 scales.GemvPlan(8, 512, 4, 4, -(-nb // 4))):
+        got = scales.scale_plane_call_plain(x8, xs, qt, plane, plan)
+        ones = torch.cat([scales.scale_plane_call_plain(x8[r:r + 1], xs[r:r + 1], qt, plane, plan)
+                          for r in range(8)])
+        assert torch.equal(got, ones), plan
+        assert (got - want).abs().max() <= REL_TOL * want.abs().max()
+
+
+def test_p2_plain_planes_agree_on_every_finite_scale():
+    """The f32 plane of the raw bits' values gives the i16 plane's bits."""
+    x8, xs, qt, dt, _ = int4.make_operands(1024, 256, 3, "cpu", seed=3)
+    planes = scale_planes(dt)
+    assert torch.equal(scales.scale_plane_call_plain(x8, xs, qt, planes["i16"]),
+                       scales.scale_plane_call_plain(x8, xs, qt, planes["f32"]))
+
+
+# -- P12 ---------------------------------------------------------------------
+
+# (S, hd) -> (cluster, width), worked by hand from attention_plan: S in
+# units of (warps x tile rows) columns (8 x 32 = 256 at hd 64, 8 x 16 = 128
+# at hd 128) spread over at most 8 CTAs, no CTA past S
+P12_PLANS = [
+    ((1024, 64), (4, 256)),
+    ((2048, 64), (8, 256)),
+    ((32768, 64), (8, 4096)),
+    ((40, 64), (1, 256)),
+    ((4097, 64), (6, 768)),  # 17 units: 3 a CTA, 6 CTAs
+    ((32768, 128), (8, 4096)),
+    ((2048, 128), (8, 256)),
+    ((300, 128), (3, 128)),
+    ((1000, 128), (8, 128)),
+]
+
+
+@pytest.mark.parametrize("shape,want", P12_PLANS)
+def test_p12_plan_is_the_hand_worked_one(shape, want):
+    plan = attention.attention_plan(*shape)
+    assert (plan.cluster, plan.width) == want
+    assert (8, plan.warps, plan.tile, plan.stages) == attention.ATT_VARIANT[shape[1]]
+    assert plan.run == want[1] // 8 and plan.run % plan.tile == 0
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 127, 128, 129, 1000, 2047, 2048, 5000, 32768, 100000])
+@pytest.mark.parametrize("max_cluster", [1, 8, 16])
+def test_p12_plan_covers_the_cache_once(S, max_cluster):
+    """C <= max_cluster CTAs of whole (warps x tile)-column units cover S,
+    the last one reaching it and none past it; each warp's run whole
+    tiles."""
+    for hd, *variant in attention.ATT_SWEEP_VARIANTS:
+        plan = attention.attention_plan(S, hd, max_cluster, tuple(variant))
+        assert 1 <= plan.cluster <= max_cluster
+        assert plan.width % (plan.warps * plan.tile) == 0 and plan.run % plan.tile == 0
+        assert (plan.cluster - 1) * plan.width < S <= plan.cluster * plan.width
+
+
+def test_p12_plan_refuses_what_the_kernel_does_not_take():
+    for args in ((1024, 96), (0, 64), (1024, 64, 17), (1024, 64, 0)):
+        with pytest.raises(ValueError):
+            attention.attention_plan(*args)
+    with pytest.raises(ValueError):  # sixteen warps' rings of 16-row tiles pass 227 KB at hd 128
+        attention.attention_plan(1024, 128, variant=(16, 16, 2))
+
+
+@pytest.mark.parametrize("S,hd,g", [(1024, 64, 4), (32768, 64, 4), (300, 128, 8)])
+def test_p12_launches_its_plan_once_whatever_pos_and_batch(monkeypatch, S, hd, g):
+    """decode_attention hands the kernel attention_plan(S, hd) at every
+    pos (before the cache, inside, past it) and col0, at batch 1 and 3, and
+    launches once a call."""
+    cap = _Captured(monkeypatch)
+    plan = attention.attention_plan(S, hd)
+    for b in (1, 3):
+        q, k, v = (torch.zeros((b, 2 * g, hd), dtype=torch.bfloat16),
+                   torch.zeros((b, 2, S, hd), dtype=torch.bfloat16),
+                   torch.zeros((b, 2, S, hd), dtype=torch.bfloat16))
+        for pos, col0 in ((-5, 0), (0, 0), (S // 2, 0), (S - 1, 0), (S + 50, 0), (S, 64)):
+            before, calls = attention.decode_attention.launches, len(cap.calls)
+            out = attention.decode_attention(q, k, v, pos, col0)
+            assert attention.decode_attention.launches == before + 1
+            assert len(cap.calls) == calls + 1 and out.shape == q.shape
+            lib, fn, args = cap.calls[-1]
+            assert (lib, fn) == ("attention_probe", "decode_attention")
+            assert args[4:11] == (b, 2, g, S, hd, pos, col0)
+            assert args[11:16] == (plan.cluster, plan.width, plan.warps, plan.tile, plan.stages)
+            assert args[-1] is None  # a launch, not an occupancy query
+
+
+def test_p12_refuses_more_heads_a_group_than_the_mma_rows(monkeypatch):
+    """The kernel puts a kv head's query heads on the MMA's rows 0..7: 9
+    heads a group are refused before any launch."""
+    cap = _Captured(monkeypatch)
+    q, k, v = attention.make_operands(1, 18, 2, 64, 128, "cpu")
+    with pytest.raises(ValueError):
+        attention.decode_attention(q, k, v, 100)
+    assert cap.calls == []
+
+
+@pytest.mark.parametrize("pos,col0", [(700, 0), (37, 0), (900, 256), (100, 200)])
+def test_p12_plain_reads_nothing_past_the_visible_columns(pos, col0):
+    """NaN in the cache from the first invisible column on changes nothing:
+    the runs stop there and a ragged tile is masked, not read. With nothing
+    visible the output is zeros."""
+    q, k, v = attention.make_operands(1, 8, 2, 64, 1000, "cpu", seed=pos)
+    want = attention.decode_attention_plain(q, k, v, pos, col0)
+    vis = attention.visible_columns(1000, pos, col0)
+    k[:, :, vis:] = float("nan")
+    v[:, :, vis:] = float("nan")
+    got = attention.decode_attention_plain(q, k, v, pos, col0)
+    assert torch.equal(got, want)
+    assert torch.isfinite(got.float()).all()
+    assert bool(got.any()) == (vis > 0)
+
+
+@pytest.mark.parametrize("max_cluster", [1, 4, 16])
+def test_p12_plain_plans_agree(max_cluster):
+    """The split and merge order changes only where p rounds: with every
+    visible column in the first tile (16 rows at hd 128) the other runs add
+    exact zeros (every plan gives the same bits); over the whole cache, any
+    two plans within one bf16 rounding of the largest output."""
+    q, k, v = attention.make_operands(2, 16, 4, 128, 2048, "cpu", seed=max_cluster)
+    ref = attention.attention_plan(2048, 128)
+    plan = attention.attention_plan(2048, 128, max_cluster)
+    q32 = q.float()
+    assert torch.equal(attention.decode_attention_plain(q32, k, v, 12, 0, plan),
+                       attention.decode_attention_plain(q32, k, v, 12, 0, ref))
+    a = attention.decode_attention_plain(q32, k, v, 2040, 0, plan)
+    b = attention.decode_attention_plain(q32, k, v, 2040, 0, ref)
+    assert (a - b).abs().max() <= 2.0 ** -8 * b.abs().max()
+
+
+def test_p12_merge_takes_the_largest_m_and_sums_in_order():
+    """_merge on hand-made states: M the largest m, acc and l weighted by
+    e^(m - M) and summed from the first; an empty state (m = NEG_INF, l 0)
+    adds exact zeros."""
+    ninf = attention.NEG_INF
+    m = torch.tensor([[1.0], [3.0], [ninf]])
+    l = torch.tensor([[2.0], [1.0], [0.0]])
+    acc = torch.tensor([[2.0, 4.0], [1.0, 1.0], [0.0, 0.0]])
+    M, L, O = attention._merge(m, l, acc, 0)
+    f = np.exp(np.float32(1.0) - np.float32(3.0))
+    assert M.item() == 3.0
+    assert torch.equal(L, torch.tensor([np.float32(2.0) * f + np.float32(1.0)]))
+    assert torch.equal(O, torch.tensor([np.float32(2.0) * f + 1, np.float32(4.0) * f + 1]))

@@ -54,25 +54,41 @@ P12_CASES = [
 
 @pytest.mark.parametrize("hd,g,S,pos,col0,block_s", P12_CASES)
 def test_p12_plain_matches_jax_decode_attention(hd, g, S, pos, col0, block_s):
-    """The plain version walks the Pallas kernel's blocks in its order, so
-    only the f32 dot order and exp differ: within one bf16 rounding (2^-8
-    relative) of the largest output."""
+    """The plain version walks the kernel's split-S runs (32-row tiles, one
+    online softmax a warp's run, merged in warp and then rank order), where
+    the Pallas kernel walks block_s-row blocks in one pass: p rounds to bf16
+    against other running maxima and the f32 sums run in another order. So
+    the two are held in f32, on a query of bf16 values given as f32 (both
+    cast it to bf16 and return f32): within one bf16 rounding (2^-8
+    relative) of the largest output. A bf16 query gives, on each side,
+    exactly that f32 output rounded to bf16 (both round only at the end)."""
     kv = 2
     q, (jk, tk), (jv, tv) = _cache(1, kv * g, kv, hd, S, seed=hd + g + S + pos)
     jq, tq = _bf16(q)
-    want = jgrouped.decode_attention(jq, jk, jv, pos, col0, block_s=block_s, interpret=True)
-    got = attention.decode_attention_plain(tq, tk, tv, pos, col0, block_s=block_s)
-    assert got.dtype == torch.bfloat16
-    tol = 2.0 ** -8 * float(np.abs(np.asarray(want.astype(jnp.float32))).max())
+    want = jgrouped.decode_attention(jq.astype(jnp.float32), jk, jv, pos, col0,
+                                     block_s=block_s, interpret=True)
+    got = attention.decode_attention_plain(tq.float(), tk, tv, pos, col0)
+    assert got.dtype == torch.float32
+    tol = 2.0 ** -8 * float(np.abs(np.asarray(want)).max())
     _close(got, want, tol)
-    if block_s == attention.BLOCK_S:  # the wrapper on CPU tensors: the plain version
-        assert torch.equal(attention.decode_attention(tq, tk, tv, pos, col0), got)
+    want16 = jgrouped.decode_attention(jq, jk, jv, pos, col0, block_s=block_s, interpret=True)
+    got16 = attention.decode_attention_plain(tq, tk, tv, pos, col0)
+    assert got16.dtype == torch.bfloat16 and torch.equal(got16, got.to(torch.bfloat16))
+    _close(torch.from_numpy(np.asarray(want)).to(torch.bfloat16), want16, 0.0)
+    # the wrapper on CPU tensors: the plain version
+    assert torch.equal(attention.decode_attention(tq, tk, tv, pos, col0), got16)
 
 
 def test_p12_plain_takes_an_f32_query_as_jax_does():
+    """An f32 query is cast to bf16 and the output stays f32. pos 20 puts
+    every visible column in the plain version's first 32-row tile and in
+    the Pallas kernel's one 256-row block, so both round p against the
+    same max and only the f32 sums' order differs: within 1e-5 of the
+    largest output. (Over many tiles the f32 query is held to 2^-8 in
+    test_p12_plain_matches_jax_decode_attention.)"""
     q, (jk, tk), (jv, tv) = _cache(2, 8, 2, 64, 256, seed=3)
-    want = jgrouped.decode_attention(jnp.asarray(q), jk, jv, 200, interpret=True)
-    got = attention.decode_attention_plain(torch.from_numpy(q), tk, tv, 200)
+    want = jgrouped.decode_attention(jnp.asarray(q), jk, jv, 20, interpret=True)
+    got = attention.decode_attention_plain(torch.from_numpy(q), tk, tv, 20)
     assert got.dtype == torch.float32
     _close(got, want, 1e-5 * float(np.abs(np.asarray(want)).max()))
 
@@ -145,9 +161,17 @@ def test_wrappers_check_their_operands():
 
 @pytest.mark.parametrize("b,n_kv,S", [(1, 8, 1024), (1, 8, 32768), (16, 8, 2048), (1, 2, 40)])
 def test_splits_are_a_function_of_the_shape(b, n_kv, S):
-    s = attention.attention_splits(b, n_kv, S)
-    assert 1 <= s <= -(-S // attention.ATT_TILE)
-    assert b * n_kv * s <= max(attention.TARGET_CTAS, b * n_kv)
+    """P12's plan reads (S, hd) only: its C <= 16 CTAs a (row, kv head)
+    cover S once in whole units of its warps' tiles, none past S; b and
+    n_kv only count the clusters (b * n_kv). P11's split stays within its
+    cap."""
+    for hd in attention.HEAD_DIMS:
+        plan = attention.attention_plan(S, hd)
+        assert 1 <= plan.cluster <= attention.ATT_MAX_CLUSTER
+        assert plan.width % (plan.warps * plan.tile) == 0
+        assert plan.cluster * plan.width >= S > (plan.cluster - 1) * plan.width
+        assert (plan.warps, plan.tile, plan.stages) == attention.ATT_VARIANT[hd][1:]
+    assert b * n_kv * plan.cluster <= b * n_kv * attention.ATT_MAX_CLUSTER
     r = attention.read_splits(n_kv, S, 64)
     assert 1 <= r <= attention.MAX_READ_SPLITS
 

@@ -117,8 +117,10 @@ def test_p13_plain_matches_jax_build_call(plane, tile_n, tile_knb, cols, blocks)
 
 @pytest.mark.parametrize("plane", ["f32", "i16"])
 def test_p2_plain_matches_jax_mm_kernel_i16(plane):
-    """P2 at its tile (1024, 64) -> (128 columns, 64 blocks): the f32 plane
-    through `_kernel_i8`, the raw-bits plane through `_mm_kernel_i16`."""
+    """P2 against the JAX probe at its tile (1024, 64): the f32 plane
+    through `_kernel_i8`, the raw-bits plane through `_mm_kernel_i16`; the
+    port sums in the order of its own plan at the probe's 2048 -> 8192 (4
+    columns a lane, all 8 warps along k, 2 splits of 32 blocks: 128 CTAs)."""
     x8, xs, qt, d16 = _sweep_operands(2048, 1024, seed=2)
     kernel, dt = {"f32": (_kernel_i8, d16.astype(np.float32)),
                   "i16": (jf16._mm_kernel_i16, d16.view(np.int16))}[plane]
@@ -127,7 +129,29 @@ def test_p2_plain_matches_jax_mm_kernel_i16(plane):
     pdt = scale_planes(pdt)["i16"] if plane == "i16" else pdt
     got = scales.scale_plane_call(px8, pxs, pqt, pdt)
     assert np.abs(got.numpy() - want).max() <= REL_TOL * np.abs(want).max()
-    assert scales.P2_TILE == (128, 64) and scales.P2_SHAPE[1:] == (2048, 8192)
+    assert scales.P2_SHAPE[1:] == (2048, 8192)
+    plan = scales.i8_gemv_plan(2048 // 32, 8192)
+    assert (plan.vec, plan.cols, plan.kw, plan.splits, plan.blocks_per_split) == (4, 128, 8, 2, 32)
+    assert plan.ctas(8192) == 128
+
+
+def test_p2_plain_matches_jax_mm_kernel_i16_on_exponent_31_patterns():
+    """A raw-bits plane whose every row holds inf and NaN patterns (exponent
+    31, both signs, mantissas 0..1023) beside ordinary scales:
+    `_mm_kernel_i16`'s integer convert maps them to the finite 2^16 * (1 +
+    mant / 1024), and so does P2's plain version (the kernel's compare and
+    select), within REL_TOL of the JAX output's largest value."""
+    x8, xs, qt, d16 = _sweep_operands(2048, 1024, seed=7)
+    bits = d16.view(np.int16).copy()
+    special = np.arange(1024, dtype=np.int32) | 0x7C00  # exponent 31, every mantissa
+    special = np.where(np.arange(1024) % 2, special | 0x8000, special)  # both signs
+    bits[::3] = special.astype(np.uint16).view(np.int16)  # every third block row
+    want = _jax_call(jf16._mm_kernel_i16, x8, xs, qt, bits, 1024, 64)
+    assert np.isfinite(want).all()
+    px8, pxs, pqt, pdt = operands_from_jax(x8, xs, qt, bits, device="cpu")
+    got = scales.scale_plane_call(px8, pxs, pqt, scale_planes(pdt)["i16"])
+    assert torch.isfinite(got).all()
+    assert np.abs(got.numpy() - want).max() <= REL_TOL * np.abs(want).max()
 
 
 def test_scale_planes_are_three_storages_of_one_value():
@@ -160,8 +184,10 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
     for cols, blocks in scales.tiles_for(64):
         for p in scales.PLANES:
             assert torch.equal(scales.i8_tile_call(x8, xs, qt, planes[p], cols, blocks), want)
-    for p in ("f32", "i16"):
-        assert torch.equal(scales.scale_plane_call(x8, xs, qt, planes[p]), want)
+    for p in ("f32", "i16"):  # P2 sums in its plan's order
+        got = scales.scale_plane_call(x8, xs, qt, planes[p])
+        assert torch.equal(got, scales.scale_plane_call_plain(x8, xs, qt, planes[p]))
+        assert (got - want).abs().max() <= REL_TOL * want.abs().max()
     bits = planes["i16"]
     assert torch.equal(scales.f16bits_to_f32(bits), scales.f16bits_to_f32_plain(bits))
     assert counts == [k.launches for k in scales.KERNELS]
@@ -176,8 +202,9 @@ def test_tile_and_plane_checks():
         scales.i8_tile_call(x8, xs, qt, d16.to(torch.bfloat16), 64, 8)
     with pytest.raises(ValueError):  # P2 takes the f32 and i16 planes, not B9's f16
         scales.scale_plane_call(x8, xs, qt, d16)
-    with pytest.raises(ValueError):  # P2's 64 blocks a CTA do not divide nb 16
-        scales.scale_plane_call(x8, xs, qt, d16.float())
+    with pytest.raises(ValueError):  # P2 takes at most 8 rows
+        scales.scale_plane_call(x8.expand(9, -1).contiguous(), xs.expand(9, -1).contiguous(),
+                                qt, d16.float())
     with pytest.raises(ValueError):
         scales.f16bits_to_f32(d16)  # f16, not its bits
     assert scales.tiles_for(448) == [(c, k) for c in (32, 64, 128) for k in (8, 16, 32, 64)]
