@@ -21,10 +21,12 @@ caught):
      a 16384-row cache at col_offset 0, 4096 (a straddling chunk) and
      8192 (fully masked: exact), and the four-shard combine against K3
      over the whole cache, at the 1B and 30B-A3B attention shapes;
-  3b. the kernel probes (B9, P3, P4, P14): each new kernel or instance
+  3b. the kernel probes (B9, P3, P4, P14): each kernel or instance
      against its plain version at every probe shape (Llama-3.2-1B layer
-     shapes and the full wcls 2048 -> 128256), the six int8-matmul
-     instances against each other (bit for bit) and P14's checksums; then
+     shapes and the full wcls 2048 -> 128256): B9 and P4's three instances
+     bit for bit equal to each other, P3's two arms (the one-row GEMV) at
+     1..8 rows bit for bit equal to their plain order and to each other and
+     within 1e-5 of B9, and P14's checksums; then
      the probes' entry points (probes/int4.py and probes/dma.py main) with
      their launch counters set to 0 just before and read just after: cold
      (operands out of L2) and hot times, the streaming ceiling per shape;
@@ -40,13 +42,15 @@ caught):
      f16 bits -> f32) on the 1B wcls plane bit for bit, P13 at B9's tile
      equal to B9 with each plane, P2 (the one-row GEMV) at 1..8 rows equal
      to its plain version bit for bit, its two planes equal and within
-     1e-5 of P13 at the old P2 tile, and P6 at P4's tile equal to P4;
+     1e-5 of P13 at the old P2 tile, and P6 at P3's plan equal to P3 and
+     within 1e-5 of P4;
      then the sweeps' entry points (probes/scales.py
      and probes/i4_tiles.py main), counted as the path "scale and tile
      sweeps", whose rows are held: P1 on every bit pattern bit for bit, P13
      at every tile of the JAX sweep's eight 1B and 8B shapes with its f16,
-     f32 and i16 planes bit for bit equal, P2, and P6 at every tile of its
-     five shapes, each within its tolerance of the plain version;
+     f32 and i16 planes bit for bit equal, P2 within its tolerance of the
+     plain version, and P6 at every tile of its five shapes bit for bit
+     equal to its plain version;
   3e. the unsigned-nibble codecs: P5 (split-half bytes, both storages) and
      P9/P10 (the T layout's feature-split words, both views) at every tile
      and both planes (f16, raw f16 bits) of the JAX probes' five 1B shapes,
@@ -935,8 +939,10 @@ def _row(name, source, replaces, errs, times, nbytes, nops, bw, peak, work):
 PROBE_SOURCES = {
     "q40_i8_unpacked": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu",
                         "distributed_llama_tpu/ops/pallas_q40.py:657"),
-    "i4_call_int8": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:153"),
-    "i4_call_bf16": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:153"),
+    "i4_call_int8": ("distributed_llama_tpu_torch/csrc/i4_gemv_probe.cu",
+                     "scripts/probe_int4.py:153"),
+    "i4_call_bf16": ("distributed_llama_tpu_torch/csrc/i4_gemv_probe.cu",
+                     "scripts/probe_int4.py:153"),
     "i32_call_int8": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:219"),
     "i32_call_bf16": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:219"),
     "i32_call_f32": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:219"),
@@ -945,12 +951,16 @@ PROBE_SOURCES = {
 
 
 def probe_checks(torch):
-    """B9 and the five P3/P4 instances against their plain versions at
-    every shape of the int4 probe (B9 at 8 rows too), each instance equal to
+    """B9 and P4's three instances against their plain versions at every
+    shape of the int4 probe (B9 at 8 rows too), each P4 instance equal to
     B9 bit for bit (exact integer partials in every dot type, one shared
-    scale-and-accumulate order); P14 at every swept tile of every dma probe
-    shape, its out and checksums against the plain version's. Returns
-    {kernel name: (max abs err, max rel err, tolerance)}."""
+    scale-and-accumulate order); P3's two arms (the one-row GEMV at
+    i4_gemv_plan) at 1..8 rows of every shape bit for bit equal to their
+    plain order (which holds their max error) and to each other, and
+    within SWEEP_REL_TOL of B9 (the f32 block sums in another order); P14
+    at every swept tile of every dma probe shape, its out and checksums
+    against the plain version's. Returns {kernel name: (max abs err, max
+    rel err, tolerance)}."""
     from distributed_llama_tpu_torch.ops import cuda_q40
     from distributed_llama_tpu_torch.probes import dma, int4
 
@@ -960,11 +970,14 @@ def probe_checks(torch):
         old = errs.get(name, (0.0, 0.0, 0.0))
         errs[name] = tuple(max(a, b) for a, b in zip(old, e))
 
+    p3 = (int4.i4_call_int8, int4.i4_call_bf16)
     for label, in_f, out_f in int4.SHAPES:
         for rows in ((1, 8) if out_f == 3072 else (1,)):
             x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, "cuda", seed=11)
             ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
             for _, fn, plain, w, dot, _ in int4.variants(qt):
+                if fn in p3:
+                    continue
                 got = fn(x8, xs, w, dt)
                 # exact integer partials, f32 block sums in another order
                 keep(fn.__name__, compare(torch, f"{fn.__name__} {label} rows {rows}",
@@ -973,6 +986,20 @@ def probe_checks(torch):
                 assert torch.equal(got, ref), f"{fn.__name__} {label}: differs from B9 by {diff}"
             del x8, xs, qt, dt, ref
             torch.cuda.empty_cache()
+        x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, 8, "cuda", seed=11)
+        qt4 = int4.pack_s4(qt)
+        full = int4.i4_call_plain(x8, xs, qt4, dt)
+        for rows in range(1, 9):
+            ref = cuda_q40.q40_i8_unpacked(x8[:rows], xs[:rows], qt, dt)
+            got = {fn: fn(x8[:rows], xs[:rows], qt4, dt) for fn in p3}
+            for fn, g in got.items():
+                name = f"{fn.__name__} {label} rows {rows}"
+                assert torch.equal(g, full[:rows]), f"{name}: differs from its plain order"
+                keep(fn.__name__, compare(torch, name, [(g, full[:rows])], rel_tol=SWEEP_REL_TOL))
+                compare(torch, f"{name} vs B9", [(g, ref)], rel_tol=SWEEP_REL_TOL)
+            assert torch.equal(*got.values()), f"P3 {label} rows {rows}: the arms differ"
+        del x8, xs, qt, qt4, dt, full, ref, got
+        torch.cuda.empty_cache()
     for label, in_f, out_f in dma.SHAPES:
         bias, qp = dma.make_plane(in_f, out_f, "cuda", seed=12)
         for tn, tk in dma.tiles_for(in_f, out_f):
@@ -1191,7 +1218,7 @@ SWEEP_SOURCES = {
                          "scripts/probe_f16_scales.py:118"),
     "i8_tile_call": ("distributed_llama_tpu_torch/csrc/i8_tile_probe.cu",
                      "scripts/sweep_i8_tiles.py:69"),
-    "i4_sweep_call": ("distributed_llama_tpu_torch/csrc/i8_tile_probe.cu",
+    "i4_sweep_call": ("distributed_llama_tpu_torch/csrc/i4_gemv_probe.cu",
                       "scripts/sweep_i4_tiles.py:123"),
 }
 SWEEP_PATH = "scale and tile sweeps"
@@ -1204,11 +1231,11 @@ def sweep_checks(torch):
     columns and B9's split, each plane, bit for bit equal to B9 at every
     sweep shape (1B and 8B); P2 at 1..8 rows equal to its plain version bit
     for bit, its two planes equal to each other and within SWEEP_REL_TOL of
-    P13 at P2_TILE (its int8-MMA design before); P6
-    at 64 columns and P4's split bit for bit equal to P4's bf16 instance.
-    Every tile against the plain version, the three planes' bit identity at
-    every tile and P1 on every bit pattern are the mains' rows, held in
-    sweep_rows."""
+    P13 at P2_TILE (its int8-MMA design before); P6 at P3's plan bit for
+    bit equal to P3's bf16 arm on the same values and within SWEEP_REL_TOL
+    of P4's bf16 instance (B9's order). Every tile against the plain
+    version, the three planes' bit identity at every tile and P1 on every
+    bit pattern are the mains' rows, held in sweep_rows."""
     from distributed_llama_tpu_torch.ops import cuda_q40
     from distributed_llama_tpu_torch.probes import i4_tiles, int4, scales
     from distributed_llama_tpu_torch.probes.operands import scale_planes
@@ -1246,14 +1273,14 @@ def sweep_checks(torch):
         del x8, xs, qt, dt16, planes, ref, got
         torch.cuda.empty_cache()
     for label, in_f, out_f in i4_tiles.SHAPES:
-        nb = in_f // 32
         x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, 1, "cuda", seed=6)
         qw = int4.pack_i32_t(qt)
-        splits = cuda_q40.i8_mma_splits(nb, out_f)
-        assert nb % splits == 0, f"{label}: P4's {splits} splits do not divide nb {nb}"
-        got = i4_tiles.i4_sweep_call(x8, xs, qw, dt.view(torch.int16), 64, nb // splits)
-        assert torch.equal(got, int4.i32_call_bf16(x8, xs, qw, dt)), \
-            f"i4_sweep_call {label} at P4's tile: differs from P4's bf16 instance"
+        got = i4_tiles.i4_sweep_call(x8, xs, qw, dt.view(torch.int16),
+                                     *i4_tiles.p3_tile(in_f // 32, out_f))
+        assert torch.equal(got, int4.i4_call_bf16(x8, xs, int4.pack_s4(qt), dt)), \
+            f"i4_sweep_call {label} at P3's plan: differs from P3's bf16 arm"
+        compare(torch, f"i4_sweep_call {label} at P3's plan vs P4",
+                [(got, int4.i32_call_bf16(x8, xs, qw, dt))], rel_tol=SWEEP_REL_TOL)
         del x8, xs, qt, dt, qw, got
     torch.cuda.empty_cache()
     log(json.dumps({"phase": "sweep_checks", "ok": True}))
@@ -1265,8 +1292,9 @@ def sweep_rows(torch, rates, counters):
     set to 0 just before and read just after; P1, P2, P13, P6 and B9 (P6's
     baseline) must have launched, and every row of the mains must hold its
     checks: P1 bit for bit equal to its plain version, every other row
-    within SWEEP_REL_TOL of the plain output's largest value and, at each
-    tile, the planes bit for bit equal. Returns (launches, one kernels-line row a probe: P1 on the 1B
+    within SWEEP_REL_TOL of the plain output's largest value (P6's bit for
+    bit equal to it, and at P3's plan to P3) and, at each tile, the planes
+    bit for bit equal. Returns (launches, one kernels-line row a probe: P1 on the 1B
     wcls plane, P2's i16 plane, P13 at the 8B wcls 4096 -> 128256 (i16
     plane, its best tile), P6 at the 1B wcls 2048 -> 32768 (its best tile))."""
     from distributed_llama_tpu_torch.ops import cuda_q40
@@ -1300,6 +1328,9 @@ def sweep_rows(torch, rates, counters):
             assert r["max_abs_err"] <= tol, f"{r['probe']} {r['shape']}: {r['max_abs_err']}"
             assert r.get("planes_bit_equal", True), \
                 f"{r['probe']} {r['shape']} {r['cols']}x{r['blocks_per_cta']}: the planes differ"
+            assert r.get("bit_equal_plain", True) and r.get("equals_p3", True), \
+                f"{r['probe']} {r['shape']} {r['cols']}x{r['blocks_per_cta']}: not its plain " \
+                f"order or not P3 at P3's plan"
             e = (r["max_abs_err"], r["max_abs_err"] / r["out_scale"], tol)
         old = errs.get(r["kernel"], (0.0, 0.0, 0.0))
         errs[r["kernel"]] = tuple(max(a, b) for a, b in zip(old, e))

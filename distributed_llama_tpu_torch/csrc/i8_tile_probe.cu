@@ -1,26 +1,22 @@
-// P13, P2, P6: the int8 decode matmul (q40_i8_mma.cuh) swept over its tile
-// and its scale plane's storage, and P1: the raw f16 bits -> f32 convert
-// alone.
+// P13: the int8 decode matmul (q40_i8_mma.cuh) swept over its tile and its
+// scale plane's storage, and P1: the raw f16 bits -> f32 convert alone.
 //
 // Replaces scripts/sweep_i8_tiles.py build_call (:69; bodies _kernel_i8 and
 // _kernel_i8_i16 :46: unpacked int8 weights, an f32 or raw-f16-bits scale
-// plane, at a (tile_n, tile_knb) tile), scripts/probe_f16_scales.py's
-// `build` (:118; _kernel_i8 and _mm_kernel_i16 :72: the same body at one
-// tile), scripts/sweep_i4_tiles.py i4_sweep_call (:123; body _kernel_w32 :56:
-// P4's [nb, 4, out] i32 nibble words, a bf16 dot, the raw-bits plane) and
-// probe_f16_scales.py probe_convert (:48; body _kernel :44: int16 bits ->
-// f32 with integer ops).
+// plane, at a (tile_n, tile_knb) tile) and probe_f16_scales.py
+// probe_convert (:48; body _kernel :44: int16 bits -> f32 with integer
+// ops). P2 and P6, the same function at one row from int8 and from i32
+// nibble words, run the one-row GEMV of i8_gemv.cuh (i8_gemv_probe.cu,
+// i4_gemv_probe.cu).
 //
 // The JAX grid is (out // tile_n, nb // tile_knb): its k axis adds tile_knb
 // blocks a step into one output tile. Here a CTA owns TN = `cols` output
 // columns (32, 64 or 128: the TPU's tile_n of 256..2048 lanes has no CTA
 // counterpart) and `blocks_per_cta` blocks (tile_knb's counterpart); the
 // nb / blocks_per_cta splits are summed in split order by a second pass.
-// Instances: weights W_I8, dot DOT_I8, scale F16 / F32 / I16 (P13, P2), and
-// weights W_I32, dot DOT_BF16, scale I16 (P6, whose three Mosaic variants
-// differ only in relayouts and are one kernel here), each at TN 32, 64 and
-// 128: 12 instances. At TN 64 and B9's split the F16 instance is B9's
-// kernel, and the W_I32 one P4's bf16 instance, on another scale storage.
+// Instances: weights W_I8, dot DOT_I8, scale F16 / F32 / I16, each at TN
+// 32, 64 and 128: 9 instances. At TN 64 and B9's split the F16 instance is
+// B9's kernel.
 //
 // P1 is memory-bound (2 bytes read and 4 written an element): one thread
 // converts 4 elements from one 8-byte load into one 16-byte store.
@@ -52,16 +48,13 @@ extern "C" const char* dlt_cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// x8 [rows, nb*32] int8; xs [rows, nb] f32; w: weights == 0 unpacked
-// [nb, 32, out] int8, 2 P4's [nb, 4, out] int32 nibble words; dt [nb, out]:
-// scale_kind 0 f16, 1 f32, 2 raw f16 bits (int16); out [rows, out] f32;
-// part [nb / blocks_per_cta, rows, out] f32 scratch (unused for one split).
-// dot: 0 int8 MMA, 1 bf16 MMA. Instances (weights, dot, scale_kind): (0, 0,
-// 0), (0, 0, 1), (0, 0, 2), (2, 1, 2), each at cols 32, 64 and 128.
-extern "C" int q40_i8_mma_tiled(const void* x8, const void* xs, const void* w, int weights,
-                                int dot, const void* dt, int scale_kind, void* out, void* part,
-                                int rows, int nb, int out_features, int cols,
-                                int blocks_per_cta, void* stream) {
+// x8 [rows, nb*32] int8; xs [rows, nb] f32; qt [nb, 32, out] int8; dt [nb,
+// out]: scale_kind 0 f16, 1 f32, 2 raw f16 bits (int16); out [rows, out]
+// f32; part [nb / blocks_per_cta, rows, out] f32 scratch (unused for one
+// split). The int8 MMA at cols 32, 64 or 128.
+extern "C" int q40_i8_mma_tiled(const void* x8, const void* xs, const void* qt, const void* dt,
+                                int scale_kind, void* out, void* part, int rows, int nb,
+                                int out_features, int cols, int blocks_per_cta, void* stream) {
   if (rows < 1 || rows > MAXR || nb < 1 || out_features < 8 || out_features % 8 != 0 ||
       blocks_per_cta < 1 || nb % blocks_per_cta != 0)
     return (int)cudaErrorInvalidValue;
@@ -71,23 +64,18 @@ extern "C" int q40_i8_mma_tiled(const void* x8, const void* xs, const void* w, i
   const float* xsp = reinterpret_cast<const float*>(xs);
   float* dst = reinterpret_cast<float*>(splits == 1 ? out : part);
   cudaError_t e;
-  const int key = (weights * 4 + dot) * 4 + scale_kind;
-  switch (key) {
-    case (W_I8 * 4 + DOT_I8) * 4 + SC_F16:
-      e = launch_cols<W_I8, DOT_I8, SC_F16>(cols, x, xsp, w, dt, dst, rows, nb, out_features,
+  switch (scale_kind) {
+    case SC_F16:
+      e = launch_cols<W_I8, DOT_I8, SC_F16>(cols, x, xsp, qt, dt, dst, rows, nb, out_features,
                                             splits, s);
       break;
-    case (W_I8 * 4 + DOT_I8) * 4 + SC_F32:
-      e = launch_cols<W_I8, DOT_I8, SC_F32>(cols, x, xsp, w, dt, dst, rows, nb, out_features,
+    case SC_F32:
+      e = launch_cols<W_I8, DOT_I8, SC_F32>(cols, x, xsp, qt, dt, dst, rows, nb, out_features,
                                             splits, s);
       break;
-    case (W_I8 * 4 + DOT_I8) * 4 + SC_I16:
-      e = launch_cols<W_I8, DOT_I8, SC_I16>(cols, x, xsp, w, dt, dst, rows, nb, out_features,
+    case SC_I16:
+      e = launch_cols<W_I8, DOT_I8, SC_I16>(cols, x, xsp, qt, dt, dst, rows, nb, out_features,
                                             splits, s);
-      break;
-    case (W_I32 * 4 + DOT_BF16) * 4 + SC_I16:
-      e = launch_cols<W_I32, DOT_BF16, SC_I16>(cols, x, xsp, w, dt, dst, rows, nb,
-                                               out_features, splits, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
-// The int8 decode matmul template shared by B9, P3 and P4 (q40_i8_mma.cu),
-// by the scale-plane and tile sweeps P13, P2 and P6 (i8_tile_probe.cu) and
-// by the unsigned-nibble codecs P5, P9 and P10 (i4_codec_probe.cu).
+// The int8 decode matmul template shared by B9 and P4 (q40_i8_mma.cu), by
+// the scale-plane and tile sweep P13 (i8_tile_probe.cu) and by the
+// unsigned-nibble codecs P5, P9 and P10 (i4_codec_probe.cu). P2, P3 and P6,
+// the same function at one row, run the one-row GEMV of i8_gemv.cuh.
 // out[r, o] = sum over 32-blocks b of partial[r, b, o] * (xs[r, b] * dt[b, o]),
 // where partial = the exact integer dot of the int8 row block with the
 // weight block (for the unsigned codecs: the dot with u = q + 8, less
@@ -8,29 +9,26 @@
 //
 // Replaces the JAX package's ops/pallas_q40.py _i8_call (:657), body
 // _kernel_i8 (:323) (B9: unpacked int8 weights [nb, 32, out] into the
-// matrix unit), the two probe kernels that A/B against it in
-// scripts/probe_int4.py: i4_call (:153, P3: 4-bit stored weights, int8 or
-// bf16 dot) and i32_call (:219, P4: [nb, 4, out] int32 words, nibble j of
-// word g holding q[4j + g] + 8; int8, bf16 or f32 dot), and the sweeps of
-// that body over its tile and its scale plane's storage:
-// scripts/sweep_i8_tiles.py build_call (:69, P13), probe_f16_scales.py's
-// `build` (:118, P2) and scripts/sweep_i4_tiles.py i4_sweep_call (:123, P6),
-// and the two codecs that store u = q + 8 in nibbles: the split-half bytes
-// of scripts/probe_int4b.py sh_call (:119, P5) and the feature-split words
-// of scripts/probe_int4c.py fs2d_call and fs_call (:145, :173, P9 and P10),
-// which are the port's own T layout (ops/quant.py), K1's operand.
+// matrix unit), the probe kernel that A/Bs against it in
+// scripts/probe_int4.py: i32_call (:219, P4: [nb, 4, out] int32 words,
+// nibble j of word g holding q[4j + g] + 8; int8, bf16 or f32 dot), the
+// sweep of that body over its tile and its scale plane's storage,
+// scripts/sweep_i8_tiles.py build_call (:69, P13), and the two codecs that
+// store u = q + 8 in nibbles: the split-half bytes of scripts/probe_int4b.py
+// sh_call (:119, P5) and the feature-split words of scripts/probe_int4c.py
+// fs2d_call and fs_call (:145, :173, P9 and P10), which are the port's own
+// T layout (ops/quant.py), K1's operand.
 //
 // What bounds it on Hopper: memory. Each weight is read once (1 byte for B9,
-// half a byte for P3 and P4) plus a 2-byte (f16, raw f16 bits) or 4-byte
-// (f32) scale per 32; at most 8 activation rows do 2 ops per weight each,
-// far below the int8 tensor rate.
+// half a byte for P4) plus a 2-byte (f16, raw f16 bits) or 4-byte (f32)
+// scale per 32; at most 8 activation rows do 2 ops per weight each, far
+// below the int8 tensor rate.
 //
 // Design (a simple kernel that is right; speed is later work):
-//   * one kernel template over a weight loader (unpacked int8, the port's
-//     s4 bytes, P4's i32 nibble words, the T layout's feature-split words,
-//     P5's split-half bytes), a dot type, the scale plane's
-//     storage (SCALE) and the output columns a CTA owns (TN: 32, 64 or 128;
-//     B9, P3 and P4 run at 64);
+//   * one kernel template over a weight loader (unpacked int8, P4's i32
+//     nibble words, the T layout's feature-split words, P5's split-half
+//     bytes), a dot type, the scale plane's storage (SCALE) and the output
+//     columns a CTA owns (TN: 32, 64 or 128; B9 and P4 run at 64);
 //   * a CTA owns TN output columns and a range of 32-blocks (split-K across
 //     CTAs); its 4 warps take the range's blocks in turn, each warp on all
 //     TN columns;
@@ -41,7 +39,7 @@
 //   * `qt` puts `out` innermost, so k is strided in memory while the MMA's B
 //     fragment wants 4 consecutive k per register. Each loader stages the
 //     block as [column][k] words in shared memory (a 4 x 4 byte transpose
-//     with __byte_perm for the int8, s4 and split-half planes; P4's words
+//     with __byte_perm for the int8 and split-half planes; P4's words
 //     already hold a column's 32 values, and the T layout's word g masked
 //     by 0x0F0F0F0F is staged word g, shifted down by 4 staged word 4 + g);
 //   * the split-half loader reads TN / 2 bytes of each k row, and each byte
@@ -81,7 +79,7 @@ constexpr int WARPS = 4;    // warps per CTA; warp w takes blocks kb + w + 4i
 constexpr int SROW = 12;    // words per staged column (8 used; 12 spreads the banks)
 constexpr int MAXR = 8;
 
-enum Weights { W_I8 = 0, W_S4 = 1, W_I32 = 2, W_FS = 3, W_SH = 4 };
+enum Weights { W_I8 = 0, W_I32 = 2, W_FS = 3, W_SH = 4 };  // the entries' weights codes
 enum Dot { DOT_I8 = 0, DOT_BF16 = 1, DOT_F32 = 2 };
 enum Scale { SC_F16 = 0, SC_F32 = 1, SC_I16 = 2 };
 
@@ -157,18 +155,13 @@ __device__ __forceinline__ int out_col(int tile, int cc, int out_f) {
   }
 }
 
-// four two's-complement nibbles, one per byte (0..15) -> four int8
-__device__ __forceinline__ unsigned sext4(unsigned u) {
-  return __vsub4(u ^ 0x08080808u, 0x08080808u);
-}
-
 // Stage block b's [32 k][TN columns] weights as sT[column * SROW + kq]: word
 // kq holds k = 4kq..4kq+3 of the column (low byte first) as int8 (u = q + 8
 // for the unsigned loaders). Columns at or past out_f stage zeros.
 template <int WK, int TN>
 __device__ __forceinline__ void stage_block(const void* __restrict__ w, int b, int c0,
                                             int out_f, int lane, unsigned* sT) {
-  if constexpr (WK == W_I8 || WK == W_S4) {
+  if constexpr (WK == W_I8) {
     // 8 * CQ (kq, column-quad) pairs, TN / 16 a lane; CQ lanes read one
     // TN-byte row segment, the next CQ lanes the next kq's
     constexpr int CQ = TN / 4;
@@ -180,24 +173,11 @@ __device__ __forceinline__ void stage_block(const void* __restrict__ w, int b, i
       const int col = c0 + cq * 4;
       unsigned a[4] = {0u, 0u, 0u, 0u};
       if (col < out_f) {
-        if (WK == W_I8) {
-          const int8_t* q = reinterpret_cast<const int8_t*>(w);
-          const size_t row = (size_t)b * QB + kq * 4;
+        const int8_t* q = reinterpret_cast<const int8_t*>(w);
+        const size_t row = (size_t)b * QB + kq * 4;
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            a[r] = (unsigned)__ldg(reinterpret_cast<const int*>(q + (row + r) * out_f + col));
-        } else {
-          // s4: byte row i holds k = 2i (low nibble) and 2i + 1 (high)
-          const uint8_t* q = reinterpret_cast<const uint8_t*>(w);
-          const size_t row = (size_t)b * (QB / 2) + kq * 2;
-          const unsigned w0 = (unsigned)__ldg(reinterpret_cast<const int*>(q + row * out_f + col));
-          const unsigned w1 =
-              (unsigned)__ldg(reinterpret_cast<const int*>(q + (row + 1) * out_f + col));
-          a[0] = sext4(w0 & 0x0F0F0F0Fu);
-          a[1] = sext4((w0 >> 4) & 0x0F0F0F0Fu);
-          a[2] = sext4(w1 & 0x0F0F0F0Fu);
-          a[3] = sext4((w1 >> 4) & 0x0F0F0F0Fu);
-        }
+        for (int r = 0; r < 4; ++r)
+          a[r] = (unsigned)__ldg(reinterpret_cast<const int*>(q + (row + r) * out_f + col));
       }
       unsigned o[4];
       transpose4x4(a[0], a[1], a[2], a[3], o);

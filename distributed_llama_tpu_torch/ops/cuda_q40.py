@@ -49,10 +49,11 @@ activations and an UNPACKED [nb, 32, out] int8 weight, one int8 tensor-core
 MMA (m16n8k32, k = one Q40 block) per block and 8 columns. out = sum over
 blocks of partial * (xs * dt) in f32, partial the exact integer dot. The
 same kernel template, with other weight loaders and dot types, runs the
-kernel probes P3 and P4 (probes/int4.py), the template's tile and
-scale-plane sweeps P13, P2 and P6 (probes/scales.py, probes/i4_tiles.py),
-and the unsigned-nibble codecs P5 (probes/int4b.py) and P9 / P10
-(probes/int4c.py), whose operands `check_u4_operands` checks.
+kernel probe P4 (probes/int4.py), the template's tile and scale-plane
+sweep P13 (probes/scales.py), and the unsigned-nibble codecs P5
+(probes/int4b.py) and P9 / P10 (probes/int4c.py), whose operands
+`check_u4_operands` checks. P2, P3 and P6 compute the same function as
+one-row GEMVs (csrc/i8_gemv.cuh, probes/gemv.py).
 Not ported to the serving path: `_i8_tiles` (:439, a v5e tile table) and
 `_dt_operand`/`_scale_f32` (:112-143, a Mosaic workaround: Hopper loads
 f16 natively); the raw-bits convert runs in the probes only.
@@ -147,9 +148,9 @@ _I8_MMA_SIG = {
     ),
 }
 # the int8-MMA template's weight storages (csrc/q40_i8_mma.cuh): q40_i8_mma
-# takes the first three; W_FS (the T layout's feature-split words) and W_SH
+# takes the first two; W_FS (the T layout's feature-split words) and W_SH
 # (split-half bytes) store u = q + 8 and run in csrc/i4_codec_probe.cu
-W_I8, W_S4, W_I32, W_FS, W_SH = 0, 1, 2, 3, 4
+W_I8, W_I32, W_FS, W_SH = 0, 2, 3, 4
 # q40_i8_mma's dot types (csrc/q40_i8_mma.cu)
 DOTS = {"int8": 0, "bf16": 1, "f32": 2}
 I8_MMA_COLS = 64  # output columns per CTA

@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "q40_gemv", "q40_gemm", "q40_grouped_gemm", "flash_attention", "paged_attention",
     "q40_i8_mma", "stream_probe", "attention_probe", "i8_tile_probe", "i4_codec_probe",
-    "i8_gemv_probe",
+    "i8_gemv_probe", "i4_gemv_probe",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

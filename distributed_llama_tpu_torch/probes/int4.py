@@ -7,17 +7,23 @@ same matmul costs from half a byte a weight:
 
   A. the 4-bit plane made on the device from int8 (`pack_s4`, plain torch),
      checked by a round trip (`stage_a`);
-  B. P3 (`i4_call`, scripts/probe_int4.py:153): B9's kernel reading the
-     port's s4 storage, with an int8 or a bf16 dot;
-  C. P4 (`i32_call`, :219): B9's kernel reading [nb, 4, out] int32 words,
-     value q[b, 4j + g, o] + 8 in nibble j of word [b, g, o] (`pack_i32`),
-     with an int8, a bf16 or an f32 dot.
+  B. P3 (`i4_call`, scripts/probe_int4.py:153): the port's s4 storage with
+     an int8 dot (__dp4a on the CUDA cores) or a bf16 dot (mma.sync), as a
+     one-row GEMV that unpacks the nibbles in registers
+     (csrc/i4_gemv_probe.cu, the template of csrc/i8_gemv.cuh), one launch
+     a call at `i4_gemv_plan(nb, out)` (probes/gemv.py), a function of the
+     shape alone;
+  C. P4 (`i32_call`, :219): B9's kernel (csrc/q40_i8_mma.cu) reading [nb,
+     4, out] int32 words, value q[b, 4j + g, o] + 8 in nibble j of word
+     [b, g, o] (`pack_i32`), with an int8, a bf16 or an f32 dot.
 
-All six instances are one CUDA kernel template (csrc/q40_i8_mma.cu); each
-wrapper takes the plain version for CPU tensors, launches its instance for
-CUDA tensors or raises, and counts its launches in `launches`. Every
-partial is an exact integer in every dot type, and the instances share the
-scale-and-accumulate code, so on the card they agree with B9 bit for bit.
+Every partial is an exact integer in every dot type. P4's three instances
+share B9's scale-and-accumulate code and agree with B9 bit for bit; P3's
+two arms agree with each other and with their plain version, which repeats
+the plan's order of f32 sums, bit for bit, and with B9 to within the f32
+rounding of another order. Each wrapper takes the plain version for CPU
+tensors, launches its kernel for CUDA tensors or raises, and counts its
+launches in `launches`.
 
     python -m distributed_llama_tpu_torch.probes.int4 [--device cpu] [--shape IN,OUT ...]
 
@@ -37,8 +43,8 @@ import torch
 from ..device import resolve_device
 from ..formats.quants import Q_BLOCK
 from ..ops import cuda_q40
-from ..ops.cuda_q40 import W_I32, W_S4, i8_blocks_plain, quantize_rows_q80
-from . import parse_shape
+from ..ops.cuda_q40 import W_I32, _gemv_order, i8_blocks_plain, quantize_rows_q80
+from . import gemv, parse_shape
 
 # the probe's four shapes (Llama-3.2-1B layer shapes) and the 1B's full
 # wcls, the one main-path shape the probe's list cuts
@@ -112,9 +118,15 @@ def stage_a(qt: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def i4_call_plain(x8, xs, qt4, dt, dot: str = "int8") -> torch.Tensor:
-    """P3's plain version: B9's math on the unpacked s4 plane."""
-    return i8_blocks_plain(x8, xs, unpack_s4(qt4), dt, dot)
+def i4_call_plain(x8, xs, qt4, dt, dot: str = "int8", plan=None) -> torch.Tensor:
+    """P3's plain version: the per-block terms of the unpacked s4 plane
+    summed in the kernel's order under `plan` (by default `i4_gemv_plan`),
+    bit for bit the kernel's. Both dots give the same exact partials, so
+    the same bits."""
+    if dot not in gemv.DOTS:
+        raise ValueError(f"P3's dot is one of {tuple(gemv.DOTS)}, got {dot!r}")
+    plan = plan or gemv.i4_gemv_plan(qt4.shape[0], qt4.shape[2])
+    return _gemv_order(gemv.block_terms(x8, xs, unpack_s4(qt4), dt.to(torch.float32)), plan)
 
 
 def i32_call_plain(x8, xs, qw, dt, dot: str = "int8") -> torch.Tensor:
@@ -122,35 +134,53 @@ def i32_call_plain(x8, xs, qw, dt, dot: str = "int8") -> torch.Tensor:
     return i8_blocks_plain(x8, xs, unpack_i32(qw), dt, dot)
 
 
-def _instance(name: str, weights: int, dot: str, rows_per_block: int, w_dtype, plain):
-    def call(x8, xs, w, dt):
-        cuda_q40.check_i8_operands(x8, xs, w, dt, rows_per_block, w_dtype)
+def _p4_instance(name: str, dot: str):
+    def call(x8, xs, qw, dt):
+        cuda_q40.check_i8_operands(x8, xs, qw, dt, 4, torch.int32)
         if x8.device.type == "cpu":
-            return plain(x8, xs, w, dt, dot)
-        out = cuda_q40.launch_i8_mma(x8, xs, w, weights, dot, dt)
+            return i32_call_plain(x8, xs, qw, dt, dot)
+        out = cuda_q40.launch_i8_mma(x8, xs, qw, W_I32, dot, dt)
         call.launches += 1
         return out
 
     call.__name__ = call.__qualname__ = name
-    call.__doc__ = (f"x8 [R <= 8, in] int8, xs [R, nb] f32, w [nb, {rows_per_block}, out] "
-                    f"{w_dtype}, dt [nb, out] f16 -> [R, out] f32, with a {dot} dot.")
+    call.__doc__ = (f"x8 [R <= 8, in] int8, xs [R, nb] f32, qw [nb, 4, out] int32, dt [nb, "
+                    f"out] f16 -> [R, out] f32, with a {dot} dot.")
     call.launches = 0
     return call
 
 
-i4_call_int8 = _instance("i4_call_int8", W_S4, "int8", Q_BLOCK // 2, torch.uint8, i4_call_plain)
-i4_call_bf16 = _instance("i4_call_bf16", W_S4, "bf16", Q_BLOCK // 2, torch.uint8, i4_call_plain)
-i32_call_int8 = _instance("i32_call_int8", W_I32, "int8", 4, torch.int32, i32_call_plain)
-i32_call_bf16 = _instance("i32_call_bf16", W_I32, "bf16", 4, torch.int32, i32_call_plain)
-i32_call_f32 = _instance("i32_call_f32", W_I32, "f32", 4, torch.int32, i32_call_plain)
+def _p3_instance(name: str, dot: str):
+    def call(x8, xs, qt4, dt):
+        cuda_q40.check_i8_operands(x8, xs, qt4, dt, Q_BLOCK // 2, torch.uint8)
+        if cuda_q40._device_kind(x8) == "cpu":
+            return i4_call_plain(x8, xs, qt4, dt, dot)
+        plan = gemv.i4_gemv_plan(qt4.shape[0], qt4.shape[2])
+        out = gemv.launch_i4_gemv(x8, xs, qt4, gemv.W_S4, gemv.DOTS[dot], dt, plan)
+        call.launches += 1
+        return out
+
+    call.__name__ = call.__qualname__ = name
+    call.__doc__ = (f"x8 [R <= 8, in] int8, xs [R, nb] f32, qt4 [nb, 16, out] uint8, dt "
+                    f"[nb, out] f16 -> [R, out] f32, with a {dot} dot, one launch at "
+                    f"i4_gemv_plan(nb, out).")
+    call.launches = 0
+    return call
+
+
+i4_call_int8 = _p3_instance("i4_call_int8", "int8")
+i4_call_bf16 = _p3_instance("i4_call_bf16", "bf16")
+i32_call_int8 = _p4_instance("i32_call_int8", "int8")
+i32_call_bf16 = _p4_instance("i32_call_bf16", "bf16")
+i32_call_f32 = _p4_instance("i32_call_f32", "f32")
 
 _I4 = {"int8": i4_call_int8, "bf16": i4_call_bf16}
 _I32 = {"int8": i32_call_int8, "bf16": i32_call_bf16, "f32": i32_call_f32}
 
 
 def i4_call(x8, xs, qt4, dt, dot: str = "int8") -> torch.Tensor:
-    """P3: B9 from the port's s4 storage qt4 [nb, 16, out] uint8, with an
-    int8 or a bf16 dot."""
+    """P3: the int8 decode matmul from the port's s4 storage qt4 [nb, 16,
+    out] uint8, with an int8 or a bf16 dot."""
     return _I4[dot](x8, xs, qt4, dt)
 
 

@@ -65,9 +65,9 @@ OLD_SIGS = {
 }
 
 
-def _compile(src: Path, out: Path, defines=()) -> subprocess.Popen:
+def _compile(src: Path, out: Path, defines=(), include: Path = kernels.CSRC) -> subprocess.Popen:
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, *defines, "-I", str(kernels.CSRC), "-o",
+    cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, *defines, "-I", str(include), "-o",
            str(out), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 

@@ -23,7 +23,8 @@ probes ask what the plane's storage and the tile cost:
   * P2 `scale_plane_call(x8, xs, qt, dt)` (probe_f16_scales.py:118, the
     inner `build`; bodies _kernel_i8 and _mm_kernel_i16 :72): the same
     function on an f32 or raw-bits plane, 2048 -> 8192 in the probe, as
-    its own one-row GEMV on the CUDA cores (csrc/i8_gemv_probe.cu): a lane
+    its own one-row GEMV on the CUDA cores (csrc/i8_gemv_probe.cu, the
+    template of csrc/i8_gemv.cuh that P3 and P6 share): a lane
     owns 4 or 8 consecutive columns, transposes each 4 x 4 byte patch in
     registers and takes __dp4a, at the plan `i8_gemv_plan(nb, out)` of the
     shape alone (columns a lane, warps along the contraction, a split-K
@@ -65,18 +66,18 @@ import torch
 from ..device import resolve_device
 from ..formats.quants import Q_BLOCK
 from ..ops import cuda_q40, kernels
-from ..ops.cuda_q40 import W_I8, GemvPlan, _gemv_order, i8_blocks_plain, quantize_rows_q80
-from . import parse_shape
+from ..ops.cuda_q40 import GemvPlan, _gemv_order, i8_blocks_plain, quantize_rows_q80
+from . import gemv, parse_shape
 from .operands import scale_planes
 
 SOURCE = "i8_tile_probe"
 P2_SOURCE = "i8_gemv_probe"
 _SIG = {
-    # x8, xs, w, weights, dot, dt, scale_kind, out, part, rows, nb, out,
-    # cols, blocks_per_cta, stream
+    # x8, xs, qt, dt, scale_kind, out, part, rows, nb, out, cols,
+    # blocks_per_cta, stream
     "q40_i8_mma_tiled": (
-        kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.P, kernels.I,
-        kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
+        kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.P, kernels.P, kernels.I,
+        kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
     ),
     # bits, out, n, stream
     "f16bits_to_f32": (kernels.P, kernels.P, kernels.LL, kernels.P),
@@ -101,9 +102,7 @@ P2_TILE = (128, 64)  # the JAX default (tile_n 1024, tile_knb 64): P13's, the ol
 # --sweep at 2048 -> 8192
 P2_VEC, P2_KW = 4, 8
 P2_TARGET_CTAS = 128  # CTAs the split-K aims a call at (132 SMs)
-P2_MAX_SPLITS = 8     # the portable cluster size
-P2_MAX_BPS = 256      # blocks a split stages in shared memory
-P2_WARPS = 8
+P2_MAX_SPLITS, P2_MAX_BPS, P2_WARPS = gemv.MAX_SPLITS, gemv.MAX_BPS, gemv.WARPS
 P2_SHAPE = ("ffn 2048->8192", 2048, 8192)
 CHAIN = 64  # calls in one chained graph, as the JAX probes' lax.scan
 # the JAX sweep's shapes: Llama-3.2-1B and Llama-3.1-8B layer shapes
@@ -191,13 +190,12 @@ def plane_f32(dt: torch.Tensor) -> torch.Tensor:
     return dt.to(torch.float32)
 
 
-def launch_tiled(x8, xs, w, weights: int, dot: str, dt, cols: int,
-                 blocks_per_cta: int) -> torch.Tensor:
+def launch_tiled(x8, xs, qt, dt, cols: int, blocks_per_cta: int) -> torch.Tensor:
     """One launch of csrc/i8_tile_probe.cu's q40_i8_mma_tiled on checked
     operands on the card."""
     if cuda_q40._device_kind(x8) != "cuda":
         raise ValueError(f"q40_i8_mma_tiled runs on a CUDA device, not {x8.device}")
-    R, nb, out_f = x8.shape[0], w.shape[0], w.shape[2]
+    R, nb, out_f = x8.shape[0], qt.shape[0], qt.shape[2]
     splits = nb // blocks_per_cta
     lib = kernels.load(SOURCE, _SIG)
     out = torch.empty((R, out_f), dtype=torch.float32, device=x8.device)
@@ -205,9 +203,8 @@ def launch_tiled(x8, xs, w, weights: int, dot: str, dt, cols: int,
                        device=x8.device)
     kernels.launch(
         lib, "q40_i8_mma_tiled", x8,
-        x8.data_ptr(), xs.data_ptr(), w.data_ptr(), weights, cuda_q40.DOTS[dot], dt.data_ptr(),
-        SCALE_KINDS[dt.dtype], out.data_ptr(), part.data_ptr(), R, nb, out_f, cols,
-        blocks_per_cta,
+        x8.data_ptr(), xs.data_ptr(), qt.data_ptr(), dt.data_ptr(), SCALE_KINDS[dt.dtype],
+        out.data_ptr(), part.data_ptr(), R, nb, out_f, cols, blocks_per_cta,
     )
     return out
 
@@ -227,7 +224,7 @@ def i8_tile_call(x8, xs, qt, dt, cols: int, blocks_per_cta: int) -> torch.Tensor
     check_tile(qt.shape[0], cols, blocks_per_cta)
     if cuda_q40._device_kind(x8) == "cpu":
         return i8_tile_call_plain(x8, xs, qt, dt, cols, blocks_per_cta)
-    out = launch_tiled(x8, xs, qt, W_I8, "int8", dt, cols, blocks_per_cta)
+    out = launch_tiled(x8, xs, qt, dt, cols, blocks_per_cta)
     i8_tile_call.launches += 1
     return out
 
@@ -237,40 +234,18 @@ i8_tile_call.launches = 0
 
 def i8_gemv_plan(nb: int, out_f: int) -> GemvPlan:
     """P2's plan for a weight of nb blocks by out_f columns (a multiple of
-    8): a function of the shape alone, never of the row count or the data,
-    so a row's sums are the same in every call. A lane owns P2_VEC columns
-    and a CTA's 8 warps put P2_KW along its contraction range; then the
-    fewest splits, a power of two up to P2_MAX_SPLITS, that reach
+    8): the probes' GEMV rule (probes/gemv.py probe_plan) at P2_VEC columns
+    a lane and P2_KW warps along its contraction range, aiming at
     P2_TARGET_CTAS while every warp keeps its loads in flight (64 / (8 *
-    P2_VEC) blocks), and at most P2_MAX_BPS blocks a split, none empty."""
-    if nb < 1 or out_f < 8 or out_f % 8:
-        raise ValueError(f"no P2 plan for nb {nb}, out {out_f}")
-    vec, kw = P2_VEC, P2_KW
-    cols = 32 * vec * (P2_WARPS // kw)
-    tiles = -(-out_f // cols)
-    flight = 8 // vec
-    splits = 1
-    while (2 * splits <= P2_MAX_SPLITS and tiles * splits < P2_TARGET_CTAS
-           and -(-nb // (2 * splits)) >= kw * flight):
-        splits *= 2
-    while -(-nb // splits) > P2_MAX_BPS and splits < P2_MAX_SPLITS:
-        splits *= 2
-    while (splits - 1) * -(-nb // splits) >= nb:  # an empty last split
-        splits //= 2
-    bps = -(-nb // splits)
-    if bps > P2_MAX_BPS:
-        raise ValueError(f"no P2 plan for nb {nb}: a split would stage {bps} blocks")
-    return GemvPlan(vec, cols, kw, splits, bps)
+    P2_VEC) blocks of int8 weights)."""
+    flight = gemv.FLIGHT_WORDS // gemv.block_words("i8", P2_VEC)
+    return gemv.probe_plan(nb, out_f, P2_VEC, P2_KW, flight, P2_TARGET_CTAS)
 
 
 def scale_plane_terms(x8, xs, qt, dt) -> torch.Tensor:
     """P2's per-block terms [nb, R, out] = p * (xs * dt) in f32, each
-    product rounded once as the kernel rounds it; p the exact integer dot
-    (|p| <= 32 * 128 * 128 < 2^24, exact in f32)."""
-    nb = qt.shape[0]
-    x = x8.reshape(x8.shape[0], nb, Q_BLOCK).to(torch.float32)
-    p = torch.einsum("rbk,bko->bro", x, qt.to(torch.float32))
-    return p * (xs.t().unsqueeze(-1) * plane_f32(dt).unsqueeze(1))
+    product rounded once as the kernel rounds it."""
+    return gemv.block_terms(x8, xs, qt, plane_f32(dt))
 
 
 def scale_plane_call_plain(x8, xs, qt, dt, plan: GemvPlan | None = None) -> torch.Tensor:

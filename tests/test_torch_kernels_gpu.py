@@ -625,7 +625,7 @@ def test_k4_row_block_bits_do_not_depend_on_other_blocks(cuda, block_r):
             assert torch.equal(alone, full[rows])
 
 
-# -- B9, P3, P4 (csrc/q40_i8_mma.cu) and P14 (csrc/stream_probe.cu) ----------
+# -- B9, P4 (csrc/q40_i8_mma.cu), P3 (csrc/i4_gemv_probe.cu), P14 -----------
 
 
 @pytest.mark.parametrize("rows", [1, 4, 8])
@@ -646,19 +646,47 @@ def test_b9_kernel_matches_plain(cuda, rows, in_f, out_f):
 @pytest.mark.parametrize("rows", [1, 3])
 @pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (2176, 264)])
 def test_p3_p4_instances_match_plain_and_b9_exactly(cuda, rows, in_f, out_f):
-    """Each of the five instances within 1e-5 of its plain version, and
-    equal to B9 bit for bit: exact partials in every dot type, one shared
-    scale-and-accumulate order."""
+    """P4's three instances within 1e-5 of their plain version and equal to
+    B9 bit for bit (exact partials in every dot type, one shared
+    scale-and-accumulate order); P3's two arms (the one-row GEMV at
+    i4_gemv_plan) equal to their plain order and to each other bit for bit,
+    and within 1e-5 of B9 (the f32 block sums in another order)."""
     x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, cuda, seed=7)
     ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
+    scale = ref.abs().max().item()
+    got = {}
     for label, fn, plain, w, dot, _ in int4.variants(qt)[1:]:
         before = fn.launches
-        got = fn(x8, xs, w, dt)
+        got[label] = fn(x8, xs, w, dt)
         want = plain(x8, xs, w, dt, dot)
         torch.cuda.synchronize()
         assert fn.launches == before + 1, label
-        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item(), label
-        assert torch.equal(got, ref), label
+        if fn in (int4.i4_call_int8, int4.i4_call_bf16):
+            assert torch.equal(got[label], want), label
+            assert (got[label] - ref).abs().max().item() <= 1e-5 * scale, label
+        else:
+            assert (got[label] - want).abs().max().item() <= 1e-5 * want.abs().max().item(), label
+            assert torch.equal(got[label], ref), label
+    assert torch.equal(got["s4 int8-dot"], got["s4 bf16-dot"])
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2176, 264), (2048, 128256)])
+def test_p3_equals_its_plain_order_at_every_row_count(cuda, in_f, out_f):
+    """P3's two arms at 1..8 rows: one launch a call at i4_gemv_plan, equal
+    to the plain order and to each other bit for bit, each row equal to its
+    one-row call (the plan never reads R)."""
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, 8, cuda, seed=in_f + out_f)
+    qt4 = int4.pack_s4(qt)
+    full = int4.i4_call_plain(x8, xs, qt4, dt)
+    for rows in range(1, 9):
+        got = {}
+        for fn in (int4.i4_call_int8, int4.i4_call_bf16):
+            before = fn.launches
+            got[fn] = fn(x8[:rows], xs[:rows], qt4, dt)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            assert torch.equal(got[fn], full[:rows]), (fn.__name__, rows)
+        assert torch.equal(got[int4.i4_call_int8], got[int4.i4_call_bf16]), rows
 
 
 def test_probe_wrappers_raise_instead_of_falling_back(cuda):
@@ -717,7 +745,8 @@ def test_stream_probe_leaves_its_accumulator_zero(cuda):
 def test_probe_shapes_run_on_the_card(cuda):
     """Each probe's per-shape routine, untimed, at one small shape."""
     rows = int4.run_shape("1024->512", 1024, 512, cuda, timed=False)
-    assert [r["max_err_vs_b9"] for r in rows] == [0.0] * 6
+    for r in rows:  # B9 and P4 bit for bit, P3 in its plan's order
+        assert r["max_err_vs_b9"] <= (1e-5 * r["out_scale"] if "s4" in r["probe"] else 0.0)
     best = dma.run_shape("2048->2048", 2048, 2048, cuda, timed=False)
     assert best["checksums_equal_all_tiles"] and best["max_rel_err_all_tiles"] == 0.0
 
@@ -876,7 +905,7 @@ def test_floor_probes_run_on_the_card(cuda):
     assert row["k1_vs_blocked"] == 0.0 and row["max_abs_err"] <= 1e-5 * row["out_scale"]
 
 
-# -- P1, P13, P2, P6 (csrc/i8_tile_probe.cu on csrc/q40_i8_mma.cuh) --------
+# -- P1, P13 (csrc/i8_tile_probe.cu), P2, P6 (the GEMV of csrc/i8_gemv.cuh) --
 
 
 @pytest.mark.parametrize("n", [65536, 65533, 1])
@@ -999,25 +1028,41 @@ def test_scale_plane_call_on_every_bit_pattern(cuda):
 @pytest.mark.parametrize("rows", [1, 3])
 @pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 264)])
 def test_i4_sweep_matches_plain_and_p4(cuda, rows, in_f, out_f):
-    """P6 at every tile, one launch a call whatever the variant, within
-    1e-5 of the plain version; at 64 columns and P4's split equal to P4's
-    bf16 instance bit for bit."""
+    """P6 at every tile, one launch a call whatever the variant, equal to
+    its plain order bit for bit and within 1e-5 of P4's bf16 instance (B9's
+    order); at P3's plan equal to P3's bf16 arm bit for bit."""
     nb = in_f // 32
     x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, cuda, seed=rows)
     qw = int4.pack_i32_t(qt)
     bits = dt.view(torch.int16)
-    want = i4_tiles.i4_sweep_call_plain(x8, xs, qw, bits, 64, nb)
-    scale = want.abs().max().item()
     p4 = int4.i32_call(x8, xs, qw, dt, dot="bf16")
-    splits = cuda_q40.i8_mma_splits(nb, out_f)
-    for cols, blocks in scales.tiles_for(nb) + [(64, nb // splits)]:
+    scale = p4.abs().max().item()
+    tiles, _ = i4_tiles.tiles_for(nb)
+    for cols, blocks in tiles:
+        want = i4_tiles.i4_sweep_call_plain(x8, xs, qw, bits, cols, blocks)
         for variant in i4_tiles.VARIANTS:
             before = i4_tiles.i4_sweep_call.launches
             got = i4_tiles.i4_sweep_call(x8, xs, qw, bits, cols, blocks, variant)
             torch.cuda.synchronize()
             assert i4_tiles.i4_sweep_call.launches == before + 1
-            assert (got - want).abs().max().item() <= 1e-5 * scale, (cols, blocks, variant)
-    assert torch.equal(i4_tiles.i4_sweep_call(x8, xs, qw, bits, 64, nb // splits), p4)
+            assert torch.equal(got, want), (cols, blocks, variant)
+            assert (got - p4).abs().max().item() <= 1e-5 * scale, (cols, blocks, variant)
+    p3 = i4_tiles.p3_tile(nb, out_f)
+    assert torch.equal(i4_tiles.i4_sweep_call(x8, xs, qw, bits, *p3),
+                       int4.i4_call_bf16(x8, xs, int4.pack_s4(qt), dt))
+
+
+@pytest.mark.parametrize("cols,blocks", [(128, 8), (1024, 64), (256, 16)])
+def test_i4_sweep_equals_its_plain_order_at_every_row_count(cuda, cols, blocks):
+    """P6 at 1..8 rows: equal to its plain order bit for bit, each row
+    equal to its one-row call."""
+    x8, xs, qt, dt, _ = int4.make_operands(2048, 3072, 8, cuda, seed=cols + blocks)
+    qw, bits = int4.pack_i32_t(qt), dt.view(torch.int16)
+    full = i4_tiles.i4_sweep_call_plain(x8, xs, qw, bits, cols, blocks)
+    for rows in range(1, 9):
+        got = i4_tiles.i4_sweep_call(x8[:rows], xs[:rows], qw, bits, cols, blocks)
+        torch.cuda.synchronize()
+        assert torch.equal(got, full[:rows]), rows
 
 
 def test_tile_probe_wrappers_raise_instead_of_falling_back(cuda):
@@ -1026,6 +1071,8 @@ def test_tile_probe_wrappers_raise_instead_of_falling_back(cuda):
     for cols, blocks in ((48, 8), (64, 3), (64, 0), (256, 8)):  # tiles that are not built
         with pytest.raises(ValueError):
             scales.i8_tile_call(x8, xs, qt, dt, cols, blocks)
+    # P6: not a tile column width, not a divisor, none, 16 splits past the cluster
+    for cols, blocks in ((48, 8), (128, 3), (128, 0), (2048, 8), (128, 4)):
         with pytest.raises(ValueError):
             i4_tiles.i4_sweep_call(x8, xs, qw, bits, cols, blocks)
     with pytest.raises(ValueError):  # B9's own f16 plane is not one of P2's
@@ -1033,9 +1080,9 @@ def test_tile_probe_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):  # a bf16 plane
         scales.i8_tile_call(x8, xs, qt, dt.to(torch.bfloat16), 64, 8)
     with pytest.raises(ValueError):  # a variant the JAX probe does not have
-        i4_tiles.i4_sweep_call(x8, xs, qw, bits, 64, 8, "concat-f32")
+        i4_tiles.i4_sweep_call(x8, xs, qw, bits, 128, 8, "concat-f32")
     with pytest.raises(ValueError):  # P6 reads the int16 bits, not the f16 plane
-        i4_tiles.i4_sweep_call(x8, xs, qw, dt, 64, 8)
+        i4_tiles.i4_sweep_call(x8, xs, qw, dt, 128, 8)
     with pytest.raises(ValueError):  # the plane on the CPU
         scales.i8_tile_call(x8, xs, qt, dt.cpu(), 64, 8)
     with pytest.raises(ValueError):  # f16 storage, not its int16 bits
@@ -1052,8 +1099,9 @@ def test_scale_probes_run_on_the_card(cuda):
     assert all(r["bit_equal_plain"] and r["equal_f16_on_finite"]
                for r in scales.convert_rows(cuda, time_it=False))
     got = i4_tiles.sweep_shape("1024->512", 1024, 512, cuda, time_it=False)
-    assert all(r["variants"] == list(i4_tiles.VARIANTS)
-               and r["max_abs_err"] <= 1e-5 * r["out_scale"] for r in got["tiles"])
+    assert all(r["variants"] == list(i4_tiles.VARIANTS) and r["bit_equal_plain"]
+               and r["max_abs_err_vs_b9"] <= 1e-5 * r["out_scale"] for r in got["tiles"])
+    assert [r["equals_p3"] for r in got["tiles"] if r["p3_plan"]] == [True]
 
 
 def _codec_operands(in_f, out_f, rows, device, seed):

@@ -1,19 +1,21 @@
 """The plans of P2 (probes/scales.py i8_gemv_plan, the one-row int8 GEMV on
-a scale plane) and P12 (probes/attention.py attention_plan, one-launch
-split-S decode attention merged in a cluster), on the CPU: each a function
-of the shape alone, held against hand-worked shapes; the wrappers' launch
-paths, run on the CPU with `kernels.load`/`kernels.launch` and the device
-check monkeypatched, hand the kernels those plans whatever the row count,
-pos or col0 and launch once a call; the plain versions, which repeat the
-kernels' orders, keep a row's bits independent of the other rows and read
-nothing past the visible columns."""
+a scale plane), P3 and P6 (probes/gemv.py i4_gemv_plan and tile_plan, the
+same GEMV from 4-bit stored weights) and P12 (probes/attention.py
+attention_plan, one-launch split-S decode attention merged in a cluster),
+on the CPU: each a function of the shape alone, held against hand-worked
+shapes; the wrappers' launch paths, run on the CPU with
+`kernels.load`/`kernels.launch` and the device check monkeypatched, hand
+the kernels those plans whatever the row count, pos or col0 and launch
+once a call; the plain versions, which repeat the kernels' orders, keep a
+row's bits independent of the other rows and read nothing past the
+visible columns."""
 
 import numpy as np
 import pytest
 import torch
 
 from distributed_llama_tpu_torch.ops import cuda_q40, kernels
-from distributed_llama_tpu_torch.probes import attention, int4, scales
+from distributed_llama_tpu_torch.probes import attention, gemv, i4_tiles, int4, scales
 from distributed_llama_tpu_torch.probes.operands import scale_planes
 
 REL_TOL = 1e-5  # exact integer partials; the f32 block sums in another order
@@ -129,6 +131,170 @@ def test_p2_plain_planes_agree_on_every_finite_scale():
     planes = scale_planes(dt)
     assert torch.equal(scales.scale_plane_call_plain(x8, xs, qt, planes["i16"]),
                        scales.scale_plane_call_plain(x8, xs, qt, planes["f32"]))
+
+
+# -- P3 and P6 --------------------------------------------------------------
+
+# (nb, out) -> (vec, cols, kw, splits, blocks a split), worked by hand from
+# i4_gemv_plan's rule: 256-column tiles (8 columns a lane, 8 warps along
+# k), 512 (4 warps along k) where more than 128 tiles; splits doubled while
+# the tiles x splits stay under 128 CTAs and each warp keeps its two
+# half-byte blocks in flight (a split >= 8 kw blocks); at most 256 blocks a
+# split
+P3_PLANS = [
+    ((64, 3072), (8, 256, 8, 4, 16)),     # wqkv: 12 tiles x 4; 8 splits would be 8 blocks
+    ((64, 16384), (8, 256, 8, 2, 32)),    # w13: 64 tiles x 2
+    ((256, 2048), (8, 256, 8, 8, 32)),    # w2: 8 tiles x 8
+    ((64, 32768), (8, 256, 8, 1, 64)),    # the probe's wcls: 128 tiles
+    ((64, 128256), (8, 512, 4, 1, 64)),   # the 1B wcls: 501 tiles of 256 -> 251 of 512
+    ((68, 264), (8, 256, 8, 4, 17)),      # a ragged depth and width: 2 tiles x 4
+    ((2048, 64), (8, 256, 8, 8, 256)),    # 65536 deep: 8 splits of the 256-block cap
+]
+
+
+@pytest.mark.parametrize("shape,want", P3_PLANS)
+def test_p3_plan_is_the_hand_worked_one(shape, want):
+    plan = gemv.i4_gemv_plan(*shape)
+    assert _plan_args(plan) == want
+    assert plan.ctas(shape[1]) == -(-shape[1] // want[1]) * want[3]
+
+
+@pytest.mark.parametrize("nb", [1, 3, 8, 17, 64, 68, 100, 256, 448, 1000, 2048])
+@pytest.mark.parametrize("out_f", [8, 64, 264, 2048, 3072, 32768, 128256])
+def test_p3_plan_covers_every_block_once(nb, out_f):
+    """Every split non-empty and within the cluster and the cap, the splits'
+    ranges and each split's warp runs covering the contraction once, in
+    order; the columns a lane divide the width."""
+    plan = gemv.i4_gemv_plan(nb, out_f)
+    assert 1 <= plan.splits <= gemv.MAX_SPLITS and plan.blocks_per_split <= gemv.MAX_BPS
+    assert out_f % plan.vec == 0 and plan.cols == 32 * plan.vec * (gemv.WARPS // plan.kw)
+    seen = []
+    for s in range(plan.splits):
+        blocks = plan.split_range(s, nb)
+        assert len(blocks) >= 1
+        for kw in range(plan.kw):
+            seen += list(plan.warp_range(kw, blocks))
+    assert seen == list(range(nb))
+    assert plan.vec == gemv.P3_VEC
+    # 4 warps along k only where 8 would leave more than the target's tiles
+    wide = -(-out_f // (32 * gemv.P3_VEC)) > gemv.P3_TARGET_CTAS
+    assert plan.kw == (gemv.P3_MIN_KW if wide else gemv.P3_KW)
+
+
+def test_p3_plan_refuses_what_the_kernel_does_not_take():
+    for nb, out_f in ((0, 64), (4, 60), (4, 4), (4096, 64)):
+        with pytest.raises(ValueError):
+            gemv.i4_gemv_plan(nb, out_f)
+
+
+@pytest.mark.parametrize("nb,cols,blocks,want", [
+    (64, 128, 8, (4, 128, 8, 8, 8)), (64, 256, 64, (4, 256, 4, 1, 64)),
+    (64, 512, 16, (4, 512, 2, 4, 16)), (256, 1024, 32, (4, 1024, 1, 8, 32)),
+])
+def test_p6_tile_is_its_plan(nb, cols, blocks, want):
+    assert _plan_args(gemv.tile_plan(nb, cols, blocks)) == want
+
+
+def test_p6_tiles_leave_out_only_what_passes_the_cluster():
+    """At nb 64 every tile of the JAX sweep's blocks fits; at nb 256 the 8-
+    and 16-block tiles (32 and 16 splits) are left out at every width."""
+    tiles, left = i4_tiles.tiles_for(64)
+    assert left == 0 and len(tiles) == 4 * 4
+    tiles, left = i4_tiles.tiles_for(256)
+    assert left == 2 * 4 and sorted({k for _, k in tiles}) == [32, 64, 128]
+    for nb, cols, blocks in ((64, 64, 8), (64, 128, 3), (256, 128, 16), (64, 2048, 8)):
+        with pytest.raises(ValueError):
+            gemv.tile_plan(nb, cols, blocks)
+
+
+def _p3_operands(in_f, out_f, rows, seed):
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, "cpu", seed=seed)
+    return x8, xs, qt, int4.pack_s4(qt), dt
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2176, 264)])
+def test_p3_launches_its_plan_once_whatever_the_row_count(monkeypatch, in_f, out_f):
+    """Both of P3's arms hand the kernel i4_gemv_plan(nb, out) at 1..8
+    rows, with the s4 loader, their dot and the f16 plane, launch once a
+    call and count it once."""
+    x8, xs, _, qt4, dt = _p3_operands(in_f, out_f, 8, seed=1)
+    cap = _Captured(monkeypatch)
+    plan = gemv.i4_gemv_plan(in_f // 32, out_f)
+    for rows in range(1, 9):
+        for fn, dot in ((int4.i4_call_int8, 0), (int4.i4_call_bf16, 1)):
+            before, calls = fn.launches, len(cap.calls)
+            out = fn(x8[:rows], xs[:rows], qt4, dt)
+            assert fn.launches == before + 1 and len(cap.calls) == calls + 1
+            assert out.shape == (rows, out_f) and out.dtype == torch.float32
+            lib, name, args = cap.calls[-1]
+            assert (lib, name) == (gemv.SOURCE, "i4_gemv")
+            assert args[3:5] == (gemv.W_S4, dot) and args[6] == 0
+            assert args[8:11] == (rows, in_f // 32, out_f)
+            assert args[-5:] == _plan_args(plan)
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048)])
+def test_p6_launches_its_tile_once_whatever_the_row_count(monkeypatch, in_f, out_f):
+    """P6 hands the kernel its tile's plan at 1..8 rows and every variant,
+    with the nibble-word loader, the bf16 dot and the raw-bits plane, and
+    launches once a call."""
+    x8, xs, qt, _, dt = _p3_operands(in_f, out_f, 8, seed=2)
+    qw, bits = int4.pack_i32_t(qt), dt.view(torch.int16)
+    nb = in_f // 32
+    cap = _Captured(monkeypatch)
+    tiles, _ = i4_tiles.tiles_for(nb)
+    for rows in range(1, 9):
+        for (cols, blocks), variant in zip(tiles, i4_tiles.VARIANTS * len(tiles)):
+            before, calls = i4_tiles.i4_sweep_call.launches, len(cap.calls)
+            out = i4_tiles.i4_sweep_call(x8[:rows], xs[:rows], qw, bits, cols, blocks, variant)
+            assert i4_tiles.i4_sweep_call.launches == before + 1
+            assert len(cap.calls) == calls + 1 and out.shape == (rows, out_f)
+            lib, name, args = cap.calls[-1]
+            assert (lib, name) == (gemv.SOURCE, "i4_gemv")
+            assert args[3:5] == (gemv.W_I32, 1) and args[6] == 2
+            assert args[8:11] == (rows, nb, out_f)
+            assert args[-5:] == _plan_args(gemv.tile_plan(nb, cols, blocks))
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 264)])
+def test_p3_plain_rows_equal_their_one_row_calls(in_f, out_f):
+    """P3's plain version at 8 rows under its plan and two others: row r
+    equal to the one-row call on that row bit for bit, the int8 and bf16
+    arms bit for bit equal, and within REL_TOL of B9's plain sum."""
+    x8, xs, qt, qt4, dt = _p3_operands(in_f, out_f, 8, seed=3)
+    nb = in_f // 32
+    want = cuda_q40.i8_blocks_plain(x8, xs, qt, dt)
+    for plan in (gemv.i4_gemv_plan(nb, out_f), scales.GemvPlan(4, 256, 4, 1, nb),
+                 scales.GemvPlan(8, 512, 4, 4, -(-nb // 4))):
+        got = int4.i4_call_plain(x8, xs, qt4, dt, "int8", plan)
+        ones = torch.cat([int4.i4_call_plain(x8[r:r + 1], xs[r:r + 1], qt4, dt, "int8", plan)
+                          for r in range(8)])
+        assert torch.equal(got, ones), plan
+        assert torch.equal(got, int4.i4_call_plain(x8, xs, qt4, dt, "bf16", plan)), plan
+        assert (got - want).abs().max() <= REL_TOL * want.abs().max()
+
+
+def test_p6_plain_rows_equal_their_one_row_calls():
+    x8, xs, qt, _, dt = _p3_operands(2048, 512, 8, seed=4)
+    qw, bits = int4.pack_i32_t(qt), dt.view(torch.int16)
+    for cols, blocks in ((128, 8), (1024, 64)):
+        got = i4_tiles.i4_sweep_call_plain(x8, xs, qw, bits, cols, blocks)
+        ones = torch.cat([i4_tiles.i4_sweep_call_plain(x8[r:r + 1], xs[r:r + 1], qw, bits,
+                                                       cols, blocks) for r in range(8)])
+        assert torch.equal(got, ones)
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 32768)])
+def test_p6_plain_at_p3s_plan_is_p3(in_f, out_f):
+    """On the same values (the s4 bytes and the nibble words of one int8
+    draw, the f16 plane and its raw bits) P6's plain version at P3's plan
+    tile is P3's plain version bit for bit, at 1 and 3 rows."""
+    x8, xs, qt, qt4, dt = _p3_operands(in_f, out_f, 3, seed=5)
+    qw, bits = int4.pack_i32_t(qt), dt.view(torch.int16)
+    tile = i4_tiles.p3_tile(in_f // 32, out_f)
+    for rows in (1, 3):
+        assert torch.equal(i4_tiles.i4_sweep_call_plain(x8[:rows], xs[:rows], qw, bits, *tile),
+                           int4.i4_call_plain(x8[:rows], xs[:rows], qt4, dt))
 
 
 # -- P12 ---------------------------------------------------------------------

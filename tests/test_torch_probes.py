@@ -16,7 +16,7 @@ from distributed_llama_tpu.ops.pallas_q40 import _dt_operand, _i8_call, _quantiz
 from distributed_llama_tpu.ops.quant import pack_q
 from distributed_llama_tpu_torch.ops import cuda_q40
 from distributed_llama_tpu_torch.ops.cuda_q40 import quantize_rows_q80
-from distributed_llama_tpu_torch.probes import dma, int4
+from distributed_llama_tpu_torch.probes import dma, gemv, int4
 from distributed_llama_tpu_torch.probes.operands import operands_from_jax
 from scripts import probe_dma as jdma
 from scripts import probe_int4 as jint4
@@ -63,6 +63,21 @@ def test_p3_plain_matches_jax_i4_call(dot):
     assert pqt4.dtype == torch.uint8 and pqt4.shape == (68, 16, 256)
     _within(int4.i4_call(px8, pxs, pqt4, pdt, dot=dot).numpy(), want)
     _within(int4.i4_call_plain(px8, pxs, pqt4, pdt, dot).numpy(), want)
+
+
+@pytest.mark.parametrize("dot", ["int8", "bf16"])
+def test_p3_plain_matches_jax_i4_call_at_w2_depth(dot):
+    """At the 1B w2's depth (nb 256) P3's plan splits the contraction (8
+    splits of 32 blocks at 256 columns): the plain order against JAX's
+    `i4_call`, within REL_TOL of the output's largest value (exact integer
+    partials, the f32 block sums in another order)."""
+    _, x8, xs, qt, dt = _jax_operands(8192, 256, 1, seed=5)
+    assert gemv.i4_gemv_plan(256, 256).splits > 1
+    qt4 = jnp.asarray(qt).astype(jnp.int4)
+    wconv = {"int8": jnp.int8, "bf16": jnp.bfloat16}[dot]
+    want = np.asarray(jint4.i4_call(x8, xs, qt4, dt, wconv=wconv, interpret=True))
+    px8, pxs, pqt4, pdt = operands_from_jax(x8, xs, qt4, dt, device="cpu")
+    _within(int4.i4_call(px8, pxs, pqt4, pdt, dot=dot).numpy(), want)
 
 
 @pytest.mark.parametrize("dot", ["int8", "bf16", "f32"])
@@ -157,7 +172,10 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
     ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
     for _, fn, plain, w, dot, _ in int4.variants(qt)[1:]:
         assert torch.equal(fn(x8, xs, w, dt), plain(x8, xs, w, dt, dot))
-        assert torch.equal(fn(x8, xs, w, dt), ref)  # exact partials, one order
+        if fn in (int4.i4_call_int8, int4.i4_call_bf16):  # P3: its plan's order
+            _within(fn(x8, xs, w, dt).numpy(), ref.numpy())
+        else:
+            assert torch.equal(fn(x8, xs, w, dt), ref)  # exact partials, one order
     dma.stream_call(*dma.make_plane(1024, 512, "cpu"), 256, 8)
     assert counts == [k.launches for k in (cuda_q40.q40_i8_unpacked, *int4.KERNELS,
                                             *dma.KERNELS)]
@@ -188,7 +206,8 @@ def test_int4_run_shape_on_the_cpu():
     assert [r["probe"] for r in rows] == ["i8 baseline", "s4 int8-dot", "s4 bf16-dot",
                                           "i32-unpack i8-dot", "i32-unpack bf16-dot",
                                           "i32-unpack f32-dot"]
-    assert all(r["max_err_vs_b9"] == 0.0 for r in rows)
+    for r in rows:  # B9 and P4 share B9's order; P3 sums in its plan's
+        assert r["max_err_vs_b9"] <= (REL_TOL * r["out_scale"] if "s4" in r["probe"] else 0.0)
     assert rows[0]["bytes"] == 1024 * 256 + 32 * 256 * 2 + 1024 + 32 * 4 + 256 * 4
 
 

@@ -36,7 +36,8 @@ def _jax_operands(in_f, out_f, seed):
 
 
 @pytest.mark.parametrize("variant", i4_tiles.VARIANTS)
-@pytest.mark.parametrize("tile_n,tile_knb,cols,blocks", [(512, 8, 64, 8), (1024, 32, 128, 32)])
+@pytest.mark.parametrize("tile_n,tile_knb,cols,blocks",
+                         [(512, 8, 512, 8), (1024, 32, 128, 32), (256, 16, 1024, 16)])
 def test_p6_plain_matches_jax_i4_sweep_call(variant, tile_n, tile_knb, cols, blocks):
     x8, xs, qt, qw, dt = _jax_operands(1024, 1024, seed=tile_knb)
     want = np.asarray(jsweep.i4_sweep_call(x8, xs, jnp.asarray(qw), dt, tile_n, tile_knb,
@@ -56,7 +57,7 @@ def test_p6_plain_matches_jax_i8_call():
     px8, pxs, pqw, pdt = operands_from_jax(x8, xs, qw, dt, device="cpu")
     bits = pdt.view(torch.int16)
     for variant in i4_tiles.VARIANTS:
-        got = i4_tiles.i4_sweep_call(px8, pxs, pqw, bits, 64, 16, variant).numpy()
+        got = i4_tiles.i4_sweep_call(px8, pxs, pqw, bits, 128, 16, variant).numpy()
         assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max()
 
 
@@ -66,9 +67,12 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_counts_nothing():
     before = i4_tiles.i4_sweep_call.launches
     ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
     for variant in i4_tiles.VARIANTS:
-        for cols, blocks in ((32, 8), (64, 16), (128, 32)):
+        for cols, blocks in ((128, 8), (256, 16), (1024, 32)):
             got = i4_tiles.i4_sweep_call(x8, xs, qw, dt.view(torch.int16), cols, blocks, variant)
-            assert torch.equal(got, ref)  # exact partials, one summation order
+            assert torch.equal(got, i4_tiles.i4_sweep_call_plain(
+                x8, xs, qw, dt.view(torch.int16), cols, blocks, variant))
+            # exact partials, the f32 block sums in the tile's order
+            assert (got - ref).abs().max() <= REL_TOL * ref.abs().max()
     assert i4_tiles.i4_sweep_call.launches == before
 
 
@@ -76,16 +80,17 @@ def test_checks_refuse_what_is_not_built():
     x8, xs, qt, dt, _ = int4.make_operands(1024, 128, 1, "cpu")
     qw, bits = int4.pack_i32_t(qt), dt.view(torch.int16)
     with pytest.raises(ValueError):
-        i4_tiles.i4_sweep_call(x8, xs, qw, bits, 64, 8, "concat-f32")
-    for cols, blocks in ((48, 8), (64, 5), (512, 8)):
+        i4_tiles.i4_sweep_call(x8, xs, qw, bits, 128, 8, "concat-f32")
+    # not a tile width, not a divisor of nb, 16 splits past the cluster limit
+    for cols, blocks in ((48, 8), (64, 8), (128, 5), (512, 2)):
         with pytest.raises(ValueError):
             i4_tiles.i4_sweep_call(x8, xs, qw, bits, cols, blocks)
     with pytest.raises(ValueError):  # B9's unpacked weight, not the words
-        i4_tiles.i4_sweep_call(x8, xs, qt, bits, 64, 8)
+        i4_tiles.i4_sweep_call(x8, xs, qt, bits, 128, 8)
     with pytest.raises(ValueError):  # an f32 plane
-        i4_tiles.i4_sweep_call(x8, xs, qw, dt.float(), 64, 8)
+        i4_tiles.i4_sweep_call(x8, xs, qw, dt.float(), 128, 8)
     with pytest.raises(ValueError):  # the f16 plane, not its int16 bits
-        i4_tiles.i4_sweep_call(x8, xs, qw, dt, 64, 8)
+        i4_tiles.i4_sweep_call(x8, xs, qw, dt, 128, 8)
 
 
 def test_i4_tiles_main_on_the_cpu(monkeypatch, capsys):
@@ -96,11 +101,13 @@ def test_i4_tiles_main_on_the_cpu(monkeypatch, capsys):
                           "--only", "1024", "--seed", "2"])
     assert [r["probe"] for r in rows][:1] == ["B9 baseline"] and rows[0]["in"] == 1024
     tiles = rows[1:]
-    assert len(tiles) == len(i4_tiles.tiles_for(32))
+    assert len(tiles) == len(i4_tiles.tiles_for(32)[0])
     assert all(r["variants"] == list(i4_tiles.VARIANTS) and r["max_abs_err"] == 0.0
-               and r["max_abs_err_vs_b9"] == 0.0 for r in tiles)
+               and r["bit_equal_plain"] and r["max_abs_err_vs_b9"] <= REL_TOL * r["out_scale"]
+               for r in tiles)
+    assert [r["equals_p3"] for r in tiles if r["p3_plan"]] == [True]
     assert tiles[0]["bytes"] == 1024 * 64 // 2 + 32 * 64 * 2 + 1024 + 32 * 4 + 64 * 4
     out = capsys.readouterr().out
-    assert "not measured" in out and "one instance" in out
+    assert "not measured" in out and "one instance" in out and "0 tiles left out" in out
     assert [s[1:] for s in i4_tiles.SHAPES] == [(2048, 3072), (2048, 2048), (2048, 16384),
                                                 (8192, 2048), (2048, 32768)]
