@@ -51,14 +51,16 @@ caught):
      f32 and i16 planes bit for bit equal, P2 within its tolerance of the
      plain version, and P6 at every tile of its five shapes bit for bit
      equal to its plain version;
-  3e. the unsigned-nibble codecs: P5 (split-half bytes, both storages) and
-     P9/P10 (the T layout's feature-split words, both views) at every tile
-     and both planes (f16, raw f16 bits) of the JAX probes' five 1B shapes,
-     at 1 and 3 rows, against their plain versions; at B9's tile each
-     codec bit for bit equal to B9 (f16) and to P13 (i16); then the probes'
-     entry points (probes/int4b.py and probes/int4c.py main, with B9 and
-     the first K1's body beside them on the same weights), counted as the path
-     "nibble codec probes", whose rows are held;
+  3e. the unsigned-nibble codecs (one-row GEMVs of csrc/i8_gemv.cuh): P5
+     (split-half bytes, both storages) and P9/P10 (the T layout's
+     feature-split words, both views) at every tile and both planes (f16,
+     raw f16 bits) of the JAX probes' five 1B shapes, at 1 and 3 rows, bit
+     for bit equal to their plain order and within 1e-5 of B9; at each
+     codec's default plan each of 8 rows equal to its one-row call; at P3's
+     plan equal to P3's int8 arm; then the probes' entry points
+     (probes/int4b.py and probes/int4c.py main, with B9 and the first K1's
+     body beside them on the same weights), counted as the path "nibble
+     codec probes", whose rows are held;
   4. small-input references: a tiny Llama and a tiny Qwen3-MoE through the
      engine on the card and on the CPU (plain versions), logits and greedy
      tokens compared; a tiny Llama's paged int8 BatchSession at batch 4,
@@ -1384,18 +1386,20 @@ CODEC_SOURCES = {
                 "scripts/probe_int4c.py:173"),
 }
 CODEC_PATH = "nibble codec probes"
-CODEC_REL_TOL = 1e-5  # exact corrected partials, f32 block sums in the tile's order
+CODEC_REL_TOL = 1e-5  # against B9: exact corrected partials, f32 block sums in another order
 
 
 def codec_checks(torch):
-    """Every instance of csrc/i4_codec_probe.cu (P5 and P9/P10, f16 and i16
-    planes, TN 32, 64, 128) at every tile of the five probe shapes, at 1 and
-    3 rows, against its plain version; P10 bit-equal to P9 and P5's two
-    storages to each other; at 64 columns and B9's split, both codecs bit
-    for bit equal to B9 on the f16 plane and to P13 on the i16 plane.
-    Returns {kernel name: (max abs err, max rel err, tolerance)}."""
+    """Every tile of csrc/i4_codec_probe.cu's two loaders (P5's split-half
+    bytes in both storages, P9/P10's feature-split words in both views, f16
+    and i16 planes; the one-row GEMV of csrc/i8_gemv.cuh) at the five probe
+    shapes, at 1 and 3 rows, bit for bit equal to its plain order; at the
+    default plan each of 1..8 rows equal to its one-row call; at P3's plan
+    equal to P3's int8 arm; within CODEC_REL_TOL of B9. Returns {kernel
+    name: (max abs err, max rel err, tolerance)} against the plain
+    versions (bit for bit: zero)."""
     from distributed_llama_tpu_torch.ops import cuda_q40
-    from distributed_llama_tpu_torch.probes import int4, int4b, int4c, scales
+    from distributed_llama_tpu_torch.probes import gemv, int4, int4b, int4c
 
     errs = {}
 
@@ -1403,43 +1407,61 @@ def codec_checks(torch):
         old = errs.get(name, (0.0, 0.0, 0.0))
         errs[name] = tuple(max(a, b) for a, b in zip(old, e))
 
+    def equal(name, got, want, where):
+        assert torch.equal(got.reshape(want.shape), want), f"{name} {where}: differs"
+        keep(name, (0.0, 0.0, 0.0))
+
     for label, in_f, out_f in int4c.SHAPES:
         nb = in_f // 32
-        splits = cuda_q40.i8_mma_splits(nb, out_f)
-        assert nb % splits == 0, f"{label}: B9's {splits} splits do not divide nb {nb}"
-        for rows in (1, 3):
+        fs_tiles, sh_tiles = int4c.tiles_for(nb, out_f)[0], int4b.tiles_for(nb, out_f)[0]
+        p3_tiles = {w: gemv.u4_p3_tile(nb, out_f, w) for w in (gemv.W_FS, gemv.W_SH)}
+        for rows in (1, 3, 8):
             x8, xs, qt, dt16, _ = int4.make_operands(in_f, out_f, rows, "cuda", seed=14 + rows)
             bs = int4b.block_sums(x8, nb)
             qp = int4c.pack_feature_split(qt)
             qp2d, qsh = qp.view(nb * 4, out_f), int4b.pack_split_half(qt)
-            planes = int4b.planes(dt16)
-            refs = {"f16": cuda_q40.q40_i8_unpacked(x8, xs, qt, dt16),
-                    "i16": scales.i8_tile_call(x8, xs, qt, planes["i16"], 64, nb // splits)}
-            for plane, d in planes.items():
+            p3 = int4.i4_call_int8(x8, xs, int4.pack_s4(qt), dt16)
+            b9 = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt16)
+            for plane, d in int4b.planes(dt16).items():
                 d2 = d.reshape(nb, 2, out_f // 2)
-                want_fs = int4c.fs2d_call_plain(x8, xs, bs, qp2d, d, 64, nb)
-                want_sh = int4b.sh_call_plain(x8, xs, bs, qsh, d2, 64, nb)
-                for cols, blocks in scales.tiles_for(nb) + [(64, nb // splits)]:
+                if rows == 8:  # the default plans: each row its one-row call
+                    fs, sh = (gemv.u4_gemv_plan(nb, out_f, w) for w in (gemv.W_FS, gemv.W_SH))
+                    got_fs = int4c.fs_call(x8, xs, bs, qp, d, fs.cols, fs.blocks_per_split)
+                    got_sh = int4b.sh_call(x8, xs, bs, qsh, d2, sh.cols, sh.blocks_per_split)
+                    for r in range(rows):
+                        one = (slice(r, r + 1),)
+                        equal("fs_call", int4c.fs_call(x8[one], xs[one], bs[one], qp, d, fs.cols,
+                                                       fs.blocks_per_split), got_fs[one],
+                              f"{label} {plane} row {r} of 8 at the default plan")
+                        equal("sh_call", int4b.sh_call(x8[one], xs[one], bs[one], qsh, d2,
+                                                       sh.cols, sh.blocks_per_split),
+                              got_sh[one], f"{label} {plane} row {r} of 8 at the default plan")
+                    for got in (got_fs, got_sh):
+                        compare(torch, f"codec {label} {plane} 8 rows vs B9",
+                                [(got.reshape(b9.shape), b9)], rel_tol=CODEC_REL_TOL)
+                    continue
+                for cols, blocks in fs_tiles:
                     where = f"{label} rows {rows} {plane} {cols}x{blocks}"
                     got = int4c.fs2d_call(x8, xs, bs, qp2d, d, cols, blocks)
-                    keep("fs2d_call", compare(torch, f"fs2d_call {where}", [(got, want_fs)],
-                                              rel_tol=CODEC_REL_TOL))
-                    keep("fs_call", errs["fs2d_call"])
-                    assert torch.equal(int4c.fs_call(x8, xs, bs, qp, d, cols, blocks), got), \
-                        f"fs_call {where}: differs from fs2d_call"
+                    equal("fs2d_call", got,
+                          int4c.fs2d_call_plain(x8, xs, bs, qp2d, d, cols, blocks), where)
+                    equal("fs_call", int4c.fs_call(x8, xs, bs, qp, d, cols, blocks), got, where)
+                    compare(torch, f"fs2d_call {where} vs B9", [(got, b9)],
+                            rel_tol=CODEC_REL_TOL)
+                    if (cols, blocks) == p3_tiles[gemv.W_FS]:
+                        equal("fs2d_call", got, p3, f"{where}: P3's plan, against P3")
+                for cols, blocks in sh_tiles:
+                    where = f"{label} rows {rows} {plane} {cols}x{blocks}"
                     sh = int4b.sh_call(x8, xs, bs, qsh, d2, cols, blocks, "i8ops")
-                    keep("sh_call", compare(torch, f"sh_call {where}", [(sh, want_sh)],
-                                            rel_tol=CODEC_REL_TOL))
-                    assert torch.equal(int4b.sh_call(x8, xs, bs, qsh.view(torch.int32), d2, cols,
-                                                     blocks, "i32st"), sh), \
-                        f"sh_call {where}: the i32st storage differs from i8ops"
-                    if (cols, blocks) == (64, nb // splits):
-                        ref = refs[plane]
-                        b = "B9" if plane == "f16" else "P13"
-                        assert torch.equal(got, ref), f"fs2d_call {where}: differs from {b}"
-                        assert torch.equal(sh.reshape(rows, out_f), ref), \
-                            f"sh_call {where}: differs from {b}"
-            del x8, xs, qt, dt16, bs, qp, qp2d, qsh, planes, refs, got, sh
+                    equal("sh_call", sh, int4b.sh_call_plain(x8, xs, bs, qsh, d2, cols, blocks),
+                          where)
+                    equal("sh_call", int4b.sh_call(x8, xs, bs, qsh.view(torch.int32), d2, cols,
+                                                   blocks, "i32st"), sh, f"{where} i32st")
+                    compare(torch, f"sh_call {where} vs B9", [(sh.reshape(b9.shape), b9)],
+                            rel_tol=CODEC_REL_TOL)
+                    if (cols, blocks) == p3_tiles[gemv.W_SH]:
+                        equal("sh_call", sh, p3, f"{where}: P3's plan, against P3")
+            del x8, xs, qt, dt16, bs, qp, qp2d, qsh, p3, b9
             torch.cuda.empty_cache()
     log(json.dumps({"phase": "codec_checks", "errs": errs}))
     return errs
@@ -1450,13 +1472,15 @@ def codec_rows(torch, rates, errs, counters):
     main), as a user runs them, with every launch counter in `counters` set
     to 0 just before and read just after; P5, P9, P10, B9 and K1's body
     must have launched, and every row of the mains must hold its checks:
-    within CODEC_REL_TOL of the plain output's largest value, the planes,
-    storages and views bit for bit equal. Returns (launches, one
-    kernels-line row a probe at the wcls 2048 -> 32768: P5 and P9 at their
-    best tile on the i16 plane (the JAX probes' `_dt_operand`), P10 at P9's
-    best tile)."""
+    bit for bit its plain order, within CODEC_REL_TOL of B9's largest
+    value, the planes, storages and views bit for bit equal, at P3's plan
+    equal to P3. Returns (launches, one kernels-line row a probe at the
+    wcls 2048 -> 32768: P5 and P9 at their best tile on the i16 plane (the
+    JAX probes' `_dt_operand`), P10 at P9's best tile, each with its
+    default plan's time and the launches one call makes, counted after
+    the path's counts are read)."""
     from distributed_llama_tpu_torch.ops import cuda_q40
-    from distributed_llama_tpu_torch.probes import int4_prod, int4b, int4c
+    from distributed_llama_tpu_torch.probes import gemv, int4, int4_prod, int4b, int4c
 
     bw, bf16_peak, int8_peak = rates
     torch.cuda.synchronize()
@@ -1476,32 +1500,57 @@ def codec_rows(torch, rates, errs, counters):
                               int4_prod.fs_call_tiles), CODEC_PATH)
     errs = dict(errs)
     for r in b_rows + c_rows:
-        tol = CODEC_REL_TOL * r["out_scale"]
-        assert r["max_abs_err"] <= tol, f"{r['probe']} {r['shape']}: {r['max_abs_err']}"
-        for flag in ("planes_bit_equal", "storages_bit_equal", "views_bit_equal"):
-            assert r.get(flag, True), f"{r['probe']} {r['shape']} {r.get('cols')}: {flag} fails"
-        if r["kernel"] in CODEC_SOURCES:
-            e = (r["max_abs_err"], r["max_abs_err"] / r["out_scale"], tol)
-            errs[r["kernel"]] = tuple(max(a, b) for a, b in zip(errs[r["kernel"]], e))
+        if r["kernel"] not in CODEC_SOURCES:  # the baselines: B9, the first K1's body
+            assert r["max_abs_err"] <= CODEC_REL_TOL * r["out_scale"], r
+            continue
+        where = f"{r['probe']} {r['shape']} {r['plane']} {r['cols']}x{r['blocks_per_cta']}"
+        assert r["max_abs_err_vs_b9"] <= CODEC_REL_TOL * r["out_scale"], f"{where}: vs B9"
+        for flag in ("bit_equal_plain", "planes_bit_equal", "storages_bit_equal",
+                     "views_bit_equal", "equals_p3"):
+            assert r.get(flag, True), f"{where}: {flag} fails"
+        e = (r["max_abs_err"], r["max_abs_err"] / r["out_scale"], 0.0)
+        errs[r["kernel"]] = tuple(max(a, b) for a, b in zip(errs[r["kernel"]], e))
 
-    def at_wcls(rows, probe, plane):
+    def at_wcls(rows, probe, plane, default=False):
         return min((r for r in rows if r["probe"] == probe and r["out"] == 32768
-                    and r["plane"] == plane), key=lambda r: r["cold_ms"])
+                    and r["plane"] == plane and (r.get("default_plan") or not default)),
+                   key=lambda r: r["cold_ms"])
 
+    # the launches of one call at the default plan, 2048 -> 32768
+    nb, out_f = 64, 32768
+    x8, xs, qt, dt16, _ = int4.make_operands(2048, out_f, 1, "cuda", seed=1)
+    bs, bits = int4b.block_sums(x8, nb), dt16.view(torch.int16)
+    one = {}
+    for fn, w, q, d in ((int4b.sh_call, gemv.W_SH, int4b.pack_split_half(qt),
+                         bits.reshape(nb, 2, out_f // 2)),
+                        (int4c.fs2d_call, gemv.W_FS, int4c.pack_feature_split(qt).view(-1, out_f),
+                         bits),
+                        (int4c.fs_call, gemv.W_FS, int4c.pack_feature_split(qt), bits)):
+        plan = gemv.u4_gemv_plan(nb, out_f, w)
+        before = fn.launches
+        fn(x8, xs, bs, q, d, plan.cols, plan.blocks_per_split)
+        one[fn.__name__] = fn.launches - before
+    del x8, xs, qt, dt16, bs, bits
     out = {}
     for name, rows, probe in (("sh_call", b_rows, "P5"), ("fs2d_call", c_rows, "P9"),
                               ("fs_call", c_rows, "P10")):
         r, f16 = at_wcls(rows, probe, "i16"), at_wcls(rows, probe, "f16")
+        default = at_wcls(c_rows if probe == "P10" else rows, "P9" if probe == "P10" else probe,
+                          "i16", default=True)
         times = {"ms": r["cold_ms"], "hot_ms": r["hot_ms"], "chain_ms": r["chain_ms"],
                  "plain_ms": r["plain_ms"], "library_ms": r["library_cold_ms"],
-                 "f16_ms": f16["cold_ms"], "x_b9": r["x_b9"], "x_first_k1": r["x_first_k1"]}
+                 "f16_ms": f16["cold_ms"], "default_ms": default["cold_ms"],
+                 "launches_a_call": one[name], "x_b9": r["x_b9"],
+                 "x_first_k1": r["x_first_k1"]}
         tile = "P9's best" if probe == "P10" else "best"
         out[name] = _row(name, *CODEC_SOURCES[name], errs[name], times, r["bytes"], r["ops"],
                          bw, int8_peak,
                          f"{probe}: {r['shape'].strip()} at 1 row, i16 plane, {tile} tile TN "
                          f"{r['cols']} x {r['blocks_per_cta']} blocks, cold (f16_ms: the f16 "
-                         f"plane's best, TN {f16['cols']} x {f16['blocks_per_cta']}); library: "
-                         f"torch.matmul on the bf16-dequantized plane")
+                         f"plane's best, TN {f16['cols']} x {f16['blocks_per_cta']}; "
+                         f"default_ms: the default plan's tile TN {default['cols']} x "
+                         f"{default['blocks_per_cta']}, P9's for P10; bit for bit the plain "
+                         f"order: tol 0); library: torch.matmul on the bf16-dequantized plane")
     return launches, out
 
 

@@ -1,13 +1,15 @@
 // The one-row int8 decode-matmul GEMV of the kernel probes P2
 // (i8_gemv_probe.cu: int8 weights on an f32 or raw-f16-bits scale plane),
 // P3 and P6 (i4_gemv_probe.cu: 4-bit stored weights on an f16 or raw-bits
-// plane, int8 or bf16 dot). R is 1..8 activation rows.
+// plane, int8 or bf16 dot) and P5 and P9/P10 (i4_codec_probe.cu: the two
+// codecs that store u = q + 8 in half a byte, int8 dot). R is 1..8
+// activation rows.
 // out[r, o] = sum over 32-blocks b of p[r, b, o] * (xs[r, b] * dt[b, o]),
 // p the exact integer dot of the int8 row block x8[r, 32b .. 32b + 31] with
 // the block's weight values in [-8, 7] (int8 weights: [-128, 127]).
 //
 // What bounds it on Hopper: memory. Each weight is read once (1 byte for
-// P2, half a byte for P3 and P6) with a 2- or 4-byte scale per 32 of them;
+// P2, half a byte for the others) with a 2- or 4-byte scale per 32 of them;
 // at most 8 rows do 2 integer ops a weight, far below the card's integer
 // rate. The bytes in flight across the card and a call's fixed costs set
 // its time.
@@ -23,15 +25,15 @@
 //     32V columns a warp;
 //   * for the __dp4a dot a lane owns V consecutive columns and loads each
 //     weight row of a block with one wide load along `out` (V bytes of an
-//     int8 or s4 byte row, 4V bytes of a nibble-word row), so a warp reads
-//     32V or 128V contiguous bytes a row; for the bf16 MMA the 4 lanes of
-//     a group (g, t) = (lane / 4, lane % 4) share 4V columns, lane t loading
-//     byte rows t, t + 4, t + 8, t + 12 (s4) or word row t (nibble words) of
-//     them. Either way a lane keeps FLIGHT (64) words of weights in
-//     registers: a block is 8V words of int8 and 4V of the 4-bit storages,
-//     so 1 to 4 blocks are in flight, issued before the first use and
-//     refilled as each block is used;
-//   * three loaders, the unpack in registers, no shared-memory staging of
+//     int8, s4 or split-half byte row, 4V bytes of a nibble-word row), so a
+//     warp reads 32V or 128V contiguous bytes a row; for the bf16 MMA the 4
+//     lanes of a group (g, t) = (lane / 4, lane % 4) share 4V columns, lane
+//     t loading byte rows t, t + 4, t + 8, t + 12 (s4) or word row t (nibble
+//     words) of them. Either way a lane keeps FLIGHT (64) words of weights in
+//     registers: a block is 8V words of int8 and split-half bytes and 4V of
+//     the other 4-bit storages, so 1 to 4 blocks are in flight, issued
+//     before the first use and refilled as each block is used;
+//   * five loaders, the unpack in registers, no shared-memory staging of
 //     the weights:
 //       W_I8 (P2, [nb, 32, out] int8): each 4 x 4 byte patch (4 k-rows of
 //         4 columns) transposed with __byte_perm, so word kq of a column
@@ -48,16 +50,27 @@
 //         masked it holds u for k = g, 8 + g, 16 + g, 24 + g, shifted down
 //         by 4 k = 4 + g, 12 + g, ..; for the MMA byte 2h + e of word t is
 //         the register of k 16h + 8e + t and + 4;
+//       W_FS (P9, P10, [nb, 4, out] int32, the T layout: byte j of word g
+//         holding u of k = 4g + j in its low nibble and of 16 + 4g + j in
+//         its high one): W_I32's loads, and word g masked holds k = 4g ..
+//         4g + 3, shifted down by 4 k = 16 + 4g .., the natural k order;
+//       W_SH (P5, [nb, 32, out / 2] bytes, byte [b, k, c] holding u of
+//         column c in its low nibble and of column c + out / 2 in its high
+//         one): W_I8's loads of V byte columns, each 4 x 4 patch transposed,
+//         then a word masked is column c's four k and shifted down by 4
+//         column c + out / 2's. A lane's V bytes give 2V output columns in
+//         two runs, one in each half of the output, each packed byte read
+//         once; a CTA's tile is two runs of 32V * (8 / KW) columns;
 //     the CTA stages its rows' x words once (for __dp4a in the same k
 //     order: a byte permutation once a CTA, not once a block);
 //   * two dots:
-//       DOT_I8 (P2, P3's int8 arm): __dp4a on the CUDA cores, 8 a column a
-//         block (the int8 MMA would use 1 of its 16 M rows at one
-//         activation row: PERF.md, P9/P10 against K1's body). The 4-bit
-//         loaders dot u with x and start from -8 * the row block's sum,
-//         staged with x: u <= 15 is a nonnegative int8, so the signed dp4a
-//         takes it as it is, and the difference is the signed partial
-//         exactly;
+//       DOT_I8 (P2, P3's int8 arm, P5, P9/P10): __dp4a on the CUDA cores,
+//         8 a column a block (the int8 MMA would use 1 of its 16 M rows at
+//         one activation row). The 4-bit loaders dot u with x and start from
+//         -8 * the row block's sum, staged with x (W_FS and W_SH take the
+//         sums the caller gives, as the JAX probes do; the others count
+//         them): u <= 15 is a nonnegative int8, so the signed dp4a takes it
+//         as it is, and the difference is the signed partial exactly;
 //       the bf16 dot (P3's bf16 arm, P6; the JAX probes cast both operands
 //         to bf16 and accumulate in f32) on one of two routes, which
 //         i4_gemv_probe.cu picks a loader (bf16_route):
@@ -87,9 +100,11 @@
 //     they form one thread-block cluster of <= 8 CTAs along grid x,
 //     reduced in the same launch. The plain versions (probes/scales.py
 //     scale_plane_call_plain, probes/int4.py i4_call_plain,
-//     probes/i4_tiles.py i4_sweep_call_plain) repeat that order with torch
-//     ops and equal the kernels bit for bit; at one plan the loaders, dots
-//     and planes give the same bits on the same values.
+//     probes/i4_tiles.py i4_sweep_call_plain, probes/int4b.py
+//     sh_call_plain, probes/int4c.py fs_call_plain) repeat that order with
+//     torch ops and equal the kernels bit for bit; at one plan's warps
+//     along k and blocks a split the loaders, dots and planes give the same
+//     bits on the same values.
 
 #pragma once
 
@@ -112,29 +127,46 @@ constexpr int MAX_SPLITS = 8;   // the portable cluster size
 constexpr int MAX_DEVICES = 64; // shared-memory opt-ins are kept per device
 constexpr int FLIGHT = 64;      // weight words a lane keeps in flight
 
-enum Weights { W_I8 = 0, W_S4 = 1, W_I32 = 2 };
+enum Weights { W_I8 = 0, W_S4 = 1, W_I32 = 2, W_FS = 3, W_SH = 4 };
 enum Dot { DOT_I8 = 0, DOT_BF16_MMA = 1, DOT_BF16_FMA = 2 };  // the template's dot routes
 enum Scale { SC_F16 = 0, SC_F32 = 1, SC_I16 = 2 };  // the entries' scale_kind codes
 
+// a column's row is one int32 word (the nibble words), else one byte
+template <int WK>
+__host__ __device__ constexpr bool words() {
+  return WK == W_I32 || WK == W_FS;
+}
 // the rows of a weight block in memory, and a lane's words of one row
 template <int WK>
 __host__ __device__ constexpr int block_rows() {
-  return WK == W_I8 ? QB : WK == W_S4 ? QB / 2 : 4;
+  return WK == W_I8 || WK == W_SH ? QB : WK == W_S4 ? QB / 2 : 4;
 }
 template <int WK, int V>
 __host__ __device__ constexpr int row_words() {
-  return WK == W_I32 ? V : V / 4;
+  return words<WK>() ? V : V / 4;
 }
 // the bytes of one column in one row of the weight
 template <int WK>
 __host__ __device__ constexpr int col_bytes() {
-  return WK == W_I32 ? 4 : 1;
+  return words<WK>() ? 4 : 1;
+}
+// the output runs a lane's columns feed: the split-half bytes two (column c
+// and c + out / 2), the others one
+template <int WK>
+__host__ __device__ constexpr int runs() {
+  return WK == W_SH ? 2 : 1;
 }
 // the 4-bit loaders stage -8 * each row block's sum beside x for the int8
 // dot, the bf16 MMA -136 * it (its weights are 136 + q)
 template <int WK, int DOT>
 __host__ __device__ constexpr bool stages_sums() {
   return (WK != W_I8 && DOT == DOT_I8) || DOT == DOT_BF16_MMA;
+}
+// the unsigned codecs take the row blocks' sums as an operand (the JAX
+// probes' bs); the others count them from x
+template <int WK>
+__host__ __device__ constexpr bool takes_sums() {
+  return WK == W_FS || WK == W_SH;
 }
 // The MMA layout (DOT_BF16_MMA, the 4-bit loaders): lane (g, t) = (lane /
 // 4, lane % 4) of a warp loads its group's 4V columns of byte rows t, t +
@@ -153,9 +185,9 @@ template <int WK, int DOT, int V>
 __host__ __device__ constexpr int lane_row_words() {
   return !mma_layout<DOT>() ? row_words<WK, V>() : WK == W_S4 ? V : 4 * V;
 }
-template <int DOT, int V>
+template <int WK, int DOT, int V>
 __host__ __device__ constexpr int lane_cols() {
-  return mma_layout<DOT>() ? 4 * V : V;
+  return runs<WK>() * (mma_layout<DOT>() ? 4 * V : V);
 }
 template <int R, int DOT>
 __host__ __device__ constexpr int lane_out_rows() {
@@ -198,7 +230,7 @@ __device__ __forceinline__ float byte_f32(unsigned w, int j) {
 template <int WK, int DOT, int V, int SCALE>
 struct WBlock {
   unsigned w[lane_rows<WK, DOT>()][lane_row_words<WK, DOT, V>()];
-  unsigned s[SCALE == SC_F32 ? lane_cols<DOT, V>() : lane_cols<DOT, V>() / 2];
+  unsigned s[SCALE == SC_F32 ? lane_cols<WK, DOT, V>() : lane_cols<WK, DOT, V>() / 2];
 };
 
 // n words from p with the widest loads (p aligned to 4n bytes, n 1, 2 or a
@@ -238,7 +270,7 @@ __device__ __forceinline__ void load_words_edge(unsigned (&w)[N], const void* p,
 
 // block b's rows of the lane (row0, row0 + step, ..: every row, or the MMA
 // layout's t, t + 4, ..) at its first column col, and the scales of its
-// columns
+// columns (out_f the plane's width)
 template <int WK, int DOT, int V, int SCALE>
 __device__ __forceinline__ void load_block(WBlock<WK, DOT, V, SCALE>& f,
                                            const void* __restrict__ qt,
@@ -247,12 +279,27 @@ __device__ __forceinline__ void load_block(WBlock<WK, DOT, V, SCALE>& f,
   constexpr int ROWS = lane_rows<WK, DOT>();
   constexpr int STEP = mma_layout<DOT>() ? 4 : 1;
   constexpr bool S4_MMA = mma_layout<DOT>() && WK == W_S4;
+  if constexpr (WK == W_SH) {
+    // byte rows of out / 2; the scales of byte column col's two columns
+    // (f16 or raw bits: V / 2 words a run)
+    static_assert(SCALE != SC_F32, "the split-half loader takes a 2-byte plane");
+    const int half = out_f / 2;
+    const unsigned char* q = reinterpret_cast<const unsigned char*>(qt) +
+                             (size_t)b * QB * half + col;
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) load_words(f.w[k], q + (size_t)k * half);
+    const unsigned short* d = reinterpret_cast<const unsigned short*>(dt) + (size_t)b * out_f + col;
+    using Run = unsigned[V / 2];
+    load_words(*reinterpret_cast<Run*>(f.s), d);
+    load_words(*reinterpret_cast<Run*>(f.s + V / 2), d + half);
+    return;
+  }
   const unsigned char* q =
       reinterpret_cast<const unsigned char*>(qt) +
       ((size_t)(b * block_rows<WK>() + row0) * out_f + col) * col_bytes<WK>();
   const unsigned char* d = reinterpret_cast<const unsigned char*>(dt) +
                            ((size_t)b * out_f + col) * (SCALE == SC_F32 ? 4 : 2);
-  if (!mma_layout<DOT>() || col + lane_cols<DOT, V>() <= out_f) {
+  if (!mma_layout<DOT>() || col + lane_cols<WK, DOT, V>() <= out_f) {
     // the s4 MMA layout's rows start 8-byte aligned (out % 8 == 0)
 #pragma unroll
     for (int k = 0; k < ROWS; ++k)
@@ -281,7 +328,8 @@ __device__ __forceinline__ float scale_of(const unsigned* s, int c) {
 }
 
 // The 4-bit loaders' u-words (u = q + 8 in each byte) of group i of a
-// block: lo[c] pairs with staged x word 2i, hi[c] with word 2i + 1.
+// block: lo[c] pairs with staged x word 2i, hi[c] with word 2i + 1 (not
+// W_SH, whose two nibbles are two columns: dot_block unpacks it).
 template <int WK, int DOT, int V, int SCALE>
 __device__ __forceinline__ void u_words(WBlock<WK, DOT, V, SCALE>& f, int i, unsigned (&lo)[V],
                                         unsigned (&hi)[V]) {
@@ -296,7 +344,7 @@ __device__ __forceinline__ void u_words(WBlock<WK, DOT, V, SCALE>& f, int i, uns
         hi[4 * v + j] = ((t[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
       }
     }
-  } else {
+  } else {  // W_I32, W_FS: one word a column, no transpose
 #pragma unroll
     for (int c = 0; c < V; ++c) {
       lo[c] = f.w[i][c] & 0x0F0F0F0Fu;
@@ -391,16 +439,61 @@ __device__ __forceinline__ void mma_block(float (&acc)[2][4 * V],
 }
 
 // acc[r][c] += p * (xs * d) for block bl of the CTA's range, p the exact
-// integer partial of row r and column c
+// integer partial of row r and column c (W_SH: c < V the lane's columns of
+// the first half, V + c the same of the second)
 template <int R, int V, int WK, int DOT, int SCALE>
-__device__ __forceinline__ void dot_block(float (&acc)[R][V], WBlock<WK, DOT, V, SCALE>& f,
+__device__ __forceinline__ void dot_block(float (&acc)[R][lane_cols<WK, DOT, V>()],
+                                          WBlock<WK, DOT, V, SCALE>& f,
                                           const int4* __restrict__ xw,
                                           const float* __restrict__ xs,
                                           const int* __restrict__ xb, int bl, int bps) {
-  float d[V];
+  constexpr int AC = lane_cols<WK, DOT, V>();
+  float d[AC];
 #pragma unroll
-  for (int c = 0; c < V; ++c) d[c] = scale_of<V, SCALE>(f.s, c);
-  if constexpr (WK == W_I8) {
+  for (int c = 0; c < AC; ++c) d[c] = scale_of<V, SCALE>(f.s, c);
+  if constexpr (WK == W_SH) {
+    // per x word kq (k = 4kq .. 4kq + 3): the 4 x 4 patches of byte rows
+    // 4kq .. 4kq + 3 transposed, each column word masked (column c) and
+    // shifted (column c + out / 2), both dotted with the natural x word
+    int p[R][AC];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < AC; ++c) p[r][c] = xb[r * bps + bl];  // -8 * the row block's sum
+#pragma unroll
+    for (int kq = 0; kq < QB / 4; ++kq) {
+      unsigned lo[V], hi[V];
+#pragma unroll
+      for (int v = 0; v < V / 4; ++v) {
+        unsigned t[4] = {f.w[4 * kq][v], f.w[4 * kq + 1][v], f.w[4 * kq + 2][v],
+                         f.w[4 * kq + 3][v]};
+        transpose4x4(t[0], t[1], t[2], t[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          lo[4 * v + j] = t[j] & 0x0F0F0F0Fu;
+          hi[4 * v + j] = (t[j] >> 4) & 0x0F0F0F0Fu;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int4 xv = xw[2 * (r * bps + bl) + (kq >> 2)];
+        const int e = kq & 3;
+        const int x = e == 0 ? xv.x : e == 1 ? xv.y : e == 2 ? xv.z : xv.w;
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          p[r][c] = __dp4a((int)lo[c], x, p[r][c]);
+          p[r][V + c] = __dp4a((int)hi[c], x, p[r][V + c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float xsv = xs[r * bps + bl];
+#pragma unroll
+      for (int c = 0; c < AC; ++c)
+        acc[r][c] = __fadd_rn(acc[r][c], __fmul_rn(__int2float_rn(p[r][c]), __fmul_rn(xsv, d[c])));
+    }
+  } else if constexpr (WK == W_I8) {
     // the block's 4 x 4 patches transposed in place once, then per row its
     // 8 x words against every column
 #pragma unroll
@@ -518,15 +611,22 @@ __device__ __forceinline__ void dot_block(float (&acc)[R][V], WBlock<WK, DOT, V,
 }
 
 // A row block's 8 natural x words n (word w holding k = 4w .. 4w + 3) in
-// the loader's k order: W_I8 as they are; W_S4 word 2i the even k of
+// the loader's k order: W_I8 and W_SH as they are; W_FS the same words,
+// word 2g = n[g] and 2g + 1 = n[4 + g]; W_S4 word 2i the even k of
 // 8i .. 8i + 7 and 2i + 1 the odd ones; W_I32 word 2g k = g, 8 + g, 16 + g,
 // 24 + g and 2g + 1 the same plus 4. The bf16 dot stages x + 128 (x ^ 0x80
 // a byte).
 template <int WK, int DOT>
 __device__ __forceinline__ void stage_x(const unsigned (&n)[8], unsigned (&o)[8]) {
-  if constexpr (WK == W_I8 || mma_layout<DOT>()) {
+  if constexpr (WK == W_I8 || WK == W_SH || mma_layout<DOT>()) {
 #pragma unroll
     for (int w = 0; w < 8; ++w) o[w] = n[w];
+  } else if constexpr (WK == W_FS) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      o[2 * g] = n[g];
+      o[2 * g + 1] = n[4 + g];
+    }
   } else if constexpr (WK == W_S4) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -548,28 +648,33 @@ __device__ __forceinline__ void stage_x(const unsigned (&n)[8], unsigned (&o)[8]
   }
 }
 
-// shared memory of a CTA: the warps' sums [KW][R][TILE] f32, then its range's
-// int8 rows [R][bps] x 32 bytes, row scales [R][bps] f32 and, for the 4-bit
-// loaders' int8 dot and the MMA, -8 or -136 * the row blocks' sums [R][bps]
-// int32
+// shared memory of a CTA: the warps' sums [KW][R][TILE] f32 (TILE the
+// CTA's output columns), then its range's int8 rows [R][bps] x 32 bytes,
+// row scales [R][bps] f32 and, for the 4-bit loaders' int8 dot and the MMA,
+// -8 or -136 * the row blocks' sums [R][bps] int32
 template <int R, int V, int KW, int WK, int DOT>
 constexpr size_t smem_bytes(int bps) {
-  return (size_t)KW * R * 32 * V * (NT / 32 / KW) * 4 +
+  return (size_t)KW * R * runs<WK>() * 32 * V * (NT / 32 / KW) * 4 +
          (size_t)R * bps * (QB + 4 + (stages_sums<WK, DOT>() ? 4 : 0));
 }
 
+// x8 [R, nb * 32] int8, xs_g [R, nb] f32, bs_g [R, nb] int32 (read where
+// takes_sums), qt the weight, dt [nb, out_f] the plane, out [R, out_f] f32
 template <int R, int V, int KW, int WK, int DOT, int SCALE>
 __global__ void __launch_bounds__(NT, 1)
 gemv_kernel(const int8_t* __restrict__ x8, const float* __restrict__ xs_g,
             const void* __restrict__ qt, const void* __restrict__ dt, float* __restrict__ out,
-            int nb, int out_f, int bps, int splits) {
+            int nb, int out_f, int bps, int splits, const int* __restrict__ bs_g) {
   constexpr int CW = NT / 32 / KW;  // warps across the column tile
-  constexpr int TILE = 32 * V * CW;
+  constexpr int BT = 32 * V * CW;   // the tile's weight columns (W_SH: bytes)
+  constexpr int TILE = runs<WK>() * BT;  // and output columns
   constexpr int U = FLIGHT / (lane_rows<WK, DOT>() * lane_row_words<WK, DOT, V>());  // in flight
+  static_assert(U >= 1, "a block's loads must fit FLIGHT words");
   constexpr int NEL = R * TILE;
   constexpr bool MMA = mma_layout<DOT>();
-  constexpr int AR = lane_out_rows<R, DOT>();  // a lane's rows of sums
-  constexpr int AC = lane_cols<DOT, V>();      // and columns
+  constexpr int AR = lane_out_rows<R, DOT>();    // a lane's rows of sums
+  constexpr int AC = lane_cols<WK, DOT, V>();    // and columns
+  constexpr int LC = AC / runs<WK>();            // of each run
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x;
@@ -578,13 +683,14 @@ gemv_kernel(const int8_t* __restrict__ x8, const float* __restrict__ xs_g,
   const int kw = warp % KW;
   const int cw = warp / KW;
   const int split = blockIdx.x % splits;  // the CTA's rank in its cluster
-  const int c0 = blockIdx.x / splits * TILE;
+  const int c0 = blockIdx.x / splits * BT;
   const int g = lane >> 2, t = lane & 3;  // the MMA layout's group and thread
   const int lcol = cw * 32 * V + (MMA ? g * 4 * V : lane * V);  // its first column in the tile
   const int col = c0 + lcol;
-  // out_f % V == 0: a lane's V columns are all in range or none; the MMA
+  const int row_w = out_f / runs<WK>();  // a weight row's columns (W_SH: bytes)
+  // row_w % V == 0: a lane's V columns are all in range or none; the MMA
   // runs on the whole warp, a group past the edge on zeros
-  const bool live = MMA ? c0 + cw * 32 * V < out_f : col < out_f;
+  const bool live = MMA ? c0 + cw * 32 * V < row_w : col < row_w;
   const int first = split * bps;
   const int nblk = max(0, min(nb, first + bps) - first);
   const int wb0 = first + kw * nblk / KW;
@@ -616,7 +722,9 @@ gemv_kernel(const int8_t* __restrict__ x8, const float* __restrict__ xs_g,
     xw[2 * at] = make_int4((int)o[0], (int)o[1], (int)o[2], (int)o[3]);
     xw[2 * at + 1] = make_int4((int)o[4], (int)o[5], (int)o[6], (int)o[7]);
     xs[at] = __ldg(xs_g + (size_t)r * nb + first + b);
-    if constexpr (stages_sums<WK, DOT>()) {
+    if constexpr (takes_sums<WK>()) {
+      xb[at] = -8 * __ldg(bs_g + (size_t)r * nb + first + b);
+    } else if constexpr (stages_sums<WK, DOT>()) {
       int s = 0;
 #pragma unroll
       for (int w = 0; w < 8; ++w) s = __dp4a((int)n[w], 0x01010101, s);
@@ -646,7 +754,8 @@ gemv_kernel(const int8_t* __restrict__ x8, const float* __restrict__ xs_g,
     }
   }
 
-  // the warps' sums, then the CTA's: warps in order
+  // the warps' sums, then the CTA's: warps in order (a run's columns at
+  // run * BT of the tile)
 #pragma unroll
   for (int i = 0; i < AR; ++i) {
     const int r = MMA ? 2 * t + i : i;
@@ -654,18 +763,23 @@ gemv_kernel(const int8_t* __restrict__ x8, const float* __restrict__ xs_g,
       float* dst = red + (kw * R + r) * TILE + lcol;
 #pragma unroll
       for (int c = 0; c < AC; c += 4)
-        *reinterpret_cast<float4*>(dst + c) =
+        *reinterpret_cast<float4*>(dst + c / LC * BT + c % LC) =
             make_float4(acc[i][c], acc[i][c + 1], acc[i][c + 2], acc[i][c + 3]);
     }
   }
   __syncthreads();
+  // output column of tile element j: run j / BT's column, or -1 past the edge
+  const auto out_col = [&](int j) {
+    const int c = c0 + j % BT;
+    return c < row_w ? c + j / BT * row_w : -1;
+  };
   for (int e = tid; e < NEL; e += NT) {
     float v = red[e];
 #pragma unroll
     for (int w = 1; w < KW; ++w) v = __fadd_rn(v, red[w * NEL + e]);
     if (splits == 1) {
-      const int c = c0 + e % TILE;
-      if (c < out_f) out[(size_t)(e / TILE) * out_f + c] = v;
+      const int c = out_col(e % TILE);
+      if (c >= 0) out[(size_t)(e / TILE) * out_f + c] = v;
     } else {
       red[e] = v;
     }
@@ -686,16 +800,17 @@ gemv_kernel(const int8_t* __restrict__ x8, const float* __restrict__ xs_g,
 #pragma unroll
     for (int s = 1; s < MAX_SPLITS; ++s)
       if (s < splits) v = __fadd_rn(v, p[s]);
-    const int c = c0 + e % TILE;
-    if (c < out_f) out[(size_t)(e / TILE) * out_f + c] = v;
+    const int c = out_col(e % TILE);
+    if (c >= 0) out[(size_t)(e / TILE) * out_f + c] = v;
   }
   cluster.sync();  // no CTA leaves while its sums may be read
 }
 
 template <int R, int V, int KW, int WK, int DOT, int SCALE>
 cudaError_t launch(const int8_t* x8, const float* xs, const void* qt, const void* dt,
-                   float* out, int nb, int out_f, int splits, int bps, cudaStream_t stream) {
-  constexpr int TILE = 32 * V * (NT / 32 / KW);
+                   float* out, int nb, int out_f, int splits, int bps, cudaStream_t stream,
+                   const int* bs = nullptr) {
+  constexpr int BT = 32 * V * (NT / 32 / KW);
   const size_t smem = smem_bytes<R, V, KW, WK, DOT>(bps);
   static size_t raised[MAX_DEVICES] = {};  // dynamic shared memory allowed so far
   int dev = 0;
@@ -708,7 +823,8 @@ cudaError_t launch(const int8_t* x8, const float* xs, const void* qt, const void
     if (e != cudaSuccess) return e;
     raised[dev] = smem;
   }
-  const int tiles = (out_f + TILE - 1) / TILE;
+  const int row_w = out_f / runs<WK>();
+  const int tiles = (row_w + BT - 1) / BT;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(tiles * splits));
   cfg.blockDim = dim3(NT);
@@ -722,7 +838,7 @@ cudaError_t launch(const int8_t* x8, const float* xs, const void* qt, const void
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
   e = cudaLaunchKernelEx(&cfg, gemv_kernel<R, V, KW, WK, DOT, SCALE>, x8, xs, qt, dt, out, nb,
-                         out_f, bps, splits);
+                         out_f, bps, splits, bs);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -732,9 +848,11 @@ cudaError_t launch(const int8_t* x8, const float* xs, const void* qt, const void
 template <int V, int KW, int WK, int DOT, int SCALE>
 cudaError_t launch_rows(int rows, const int8_t* x8, const float* xs, const void* qt,
                         const void* dt, float* out, int nb, int out_f, int splits, int bps,
-                        cudaStream_t s) {
-#define DLT_GEMV_ROW(N) \
-  case N: return launch<N, V, KW, WK, DOT, SCALE>(x8, xs, qt, dt, out, nb, out_f, splits, bps, s);
+                        cudaStream_t s, const int* bs = nullptr) {
+#define DLT_GEMV_ROW(N)                                                                      \
+  case N:                                                                                    \
+    return launch<N, V, KW, WK, DOT, SCALE>(x8, xs, qt, dt, out, nb, out_f, splits, bps, s, \
+                                            bs);
   switch (rows) {
     DLT_GEMV_ROW(1)
 #ifndef DLT_GEMV_ROWS_1_8

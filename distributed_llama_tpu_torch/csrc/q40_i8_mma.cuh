@@ -1,23 +1,18 @@
-// The int8 decode matmul template shared by B9 and P4 (q40_i8_mma.cu), by
-// the scale-plane and tile sweep P13 (i8_tile_probe.cu) and by the
-// unsigned-nibble codecs P5, P9 and P10 (i4_codec_probe.cu). P2, P3 and P6,
-// the same function at one row, run the one-row GEMV of i8_gemv.cuh.
+// The int8 decode matmul template shared by B9 and P4 (q40_i8_mma.cu) and
+// by the scale-plane and tile sweep P13 (i8_tile_probe.cu). P2, P3, P5, P6
+// and P9/P10, the same function at one row from other weight storages, run
+// the one-row GEMV of i8_gemv.cuh.
 // out[r, o] = sum over 32-blocks b of partial[r, b, o] * (xs[r, b] * dt[b, o]),
 // where partial = the exact integer dot of the int8 row block with the
-// weight block (for the unsigned codecs: the dot with u = q + 8, less
-// 8 * bs[r, b], the row block's sum).
+// weight block.
 //
 // Replaces the JAX package's ops/pallas_q40.py _i8_call (:657), body
 // _kernel_i8 (:323) (B9: unpacked int8 weights [nb, 32, out] into the
 // matrix unit), the probe kernel that A/Bs against it in
 // scripts/probe_int4.py: i32_call (:219, P4: [nb, 4, out] int32 words,
-// nibble j of word g holding q[4j + g] + 8; int8, bf16 or f32 dot), the
+// nibble j of word g holding q[4j + g] + 8; int8, bf16 or f32 dot), and the
 // sweep of that body over its tile and its scale plane's storage,
-// scripts/sweep_i8_tiles.py build_call (:69, P13), and the two codecs that
-// store u = q + 8 in nibbles: the split-half bytes of scripts/probe_int4b.py
-// sh_call (:119, P5) and the feature-split words of scripts/probe_int4c.py
-// fs2d_call and fs_call (:145, :173, P9 and P10), which are the port's own
-// T layout (ops/quant.py), K1's operand.
+// scripts/sweep_i8_tiles.py build_call (:69, P13).
 //
 // What bounds it on Hopper: memory. Each weight is read once (1 byte for B9,
 // half a byte for P4) plus a 2-byte (f16, raw f16 bits) or 4-byte (f32)
@@ -26,9 +21,8 @@
 //
 // Design (a simple kernel that is right; speed is later work):
 //   * one kernel template over a weight loader (unpacked int8, P4's i32
-//     nibble words, the T layout's feature-split words, P5's split-half
-//     bytes), a dot type, the scale plane's storage (SCALE) and the output
-//     columns a CTA owns (TN: 32, 64 or 128; B9 and P4 run at 64);
+//     nibble words), a dot type, the scale plane's storage (SCALE) and the
+//     output columns a CTA owns (TN: 32, 64 or 128; B9 and P4 run at 64);
 //   * a CTA owns TN output columns and a range of 32-blocks (split-K across
 //     CTAs); its 4 warps take the range's blocks in turn, each warp on all
 //     TN columns;
@@ -39,14 +33,8 @@
 //   * `qt` puts `out` innermost, so k is strided in memory while the MMA's B
 //     fragment wants 4 consecutive k per register. Each loader stages the
 //     block as [column][k] words in shared memory (a 4 x 4 byte transpose
-//     with __byte_perm for the int8 and split-half planes; P4's words
-//     already hold a column's 32 values, and the T layout's word g masked
-//     by 0x0F0F0F0F is staged word g, shifted down by 4 staged word 4 + g);
-//   * the split-half loader reads TN / 2 bytes of each k row, and each byte
-//     gives two of the CTA's TN columns: its low nibble column c, its high
-//     nibble column c + out / 2. So the CTA's columns are two runs of TN / 2,
-//     one in each half of the output (`out_col`), and every packed byte is
-//     read once;
+//     with __byte_perm for the int8 plane; P4's words already hold a
+//     column's 32 values);
 //   * the bf16 dot is two m16n8k16 MMAs per block, f32 accumulate; the f32
 //     dot is fmaf in one lane per column. Every partial is an integer of
 //     magnitude <= 32 * 127 * 8 = 32,512 < 2^24, exact in every dot type;
@@ -56,11 +44,8 @@
 //     :112-130). All three give the same f32 for every finite f16;
 //   * the scale-and-accumulate code is shared: acc += p * (xs * dt) in f32
 //     (JAX's association, no fused multiply-add), blocks in a fixed order per
-//     warp, then warps 0..3, then splits 0..S-1 in a second pass. The
-//     unsigned loaders first take p - 8 * bs: p <= 32 * 127 * 15 and
-//     8 * bs <= 32,512 are integers below 2^24, so the difference is the
-//     signed partial exactly. At one tile and split every instance
-//     therefore agrees bit for bit;
+//     warp, then warps 0..3, then splits 0..S-1 in a second pass. At one
+//     tile and split every instance therefore agrees bit for bit;
 //   * shared memory is TN * 448 bytes: static up to TN 64, dynamic (with
 //     the opt-in attribute) at TN 128, whose 56 KB pass the 48 KB static
 //     limit.
@@ -79,7 +64,7 @@ constexpr int WARPS = 4;    // warps per CTA; warp w takes blocks kb + w + 4i
 constexpr int SROW = 12;    // words per staged column (8 used; 12 spreads the banks)
 constexpr int MAXR = 8;
 
-enum Weights { W_I8 = 0, W_I32 = 2, W_FS = 3, W_SH = 4 };  // the entries' weights codes
+enum Weights { W_I8 = 0, W_I32 = 2 };  // the entries' weights codes
 enum Dot { DOT_I8 = 0, DOT_BF16 = 1, DOT_F32 = 2 };
 enum Scale { SC_F16 = 0, SC_F32 = 1, SC_I16 = 2 };
 
@@ -142,22 +127,9 @@ __device__ __forceinline__ void transpose4x4(unsigned a0, unsigned a1, unsigned 
   o[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-// The output column of staged column cc of column tile `tile`: the tile's
-// TN consecutive columns, or for the split-half loader TN / 2 of them from
-// each half of the output.
-template <int WK, int TN>
-__device__ __forceinline__ int out_col(int tile, int cc, int out_f) {
-  if constexpr (WK == W_SH) {
-    constexpr int H = TN / 2;
-    return tile * H + cc + (cc < H ? 0 : out_f / 2 - H);
-  } else {
-    return tile * TN + cc;
-  }
-}
-
 // Stage block b's [32 k][TN columns] weights as sT[column * SROW + kq]: word
-// kq holds k = 4kq..4kq+3 of the column (low byte first) as int8 (u = q + 8
-// for the unsigned loaders). Columns at or past out_f stage zeros.
+// kq holds k = 4kq..4kq+3 of the column (low byte first) as int8. Columns at
+// or past out_f stage zeros.
 template <int WK, int TN>
 __device__ __forceinline__ void stage_block(const void* __restrict__ w, int b, int c0,
                                             int out_f, int lane, unsigned* sT) {
@@ -184,7 +156,7 @@ __device__ __forceinline__ void stage_block(const void* __restrict__ w, int b, i
 #pragma unroll
       for (int j = 0; j < 4; ++j) sT[(cq * 4 + j) * SROW + kq] = o[j];
     }
-  } else if constexpr (WK == W_I32) {
+  } else {
     // P4: word g of column o holds q[4j + g] + 8 in nibble j, so the four
     // words give word kq = bytes (nibble kq of word g) - 8, g = 0..3
     const int* q = reinterpret_cast<const int*>(w);
@@ -205,57 +177,6 @@ __device__ __forceinline__ void stage_block(const void* __restrict__ w, int b, i
                            (((g4[2] >> s) & 0xFu) << 16) | (((g4[3] >> s) & 0xFu) << 24);
         sT[cc * SROW + kq] = __vsub4(u, 0x08080808u);
       }
-    }
-  } else if constexpr (WK == W_FS) {
-    // P9, P10, the T layout: byte k of word g of column o holds u of k =
-    // 4g + k in its low nibble and of 16 + 4g + k in its high nibble, so the
-    // word masked is staged word g and shifted down staged word 4 + g. Those
-    // two are the B fragment that thread t of an MMA group reads (col[t],
-    // col[4 + t] in the kernel) for g = t: a later loader could take them
-    // from the word in registers and skip shared memory.
-    const int* q = reinterpret_cast<const int*>(w);
-#pragma unroll
-    for (int h = 0; h < TN / 32; ++h) {
-      const int cc = lane + 32 * h;
-      const int col = c0 + cc;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const unsigned v =
-            col < out_f ? (unsigned)__ldg(q + ((size_t)b * 4 + g) * out_f + col) : 0u;
-        sT[cc * SROW + g] = v & 0x0F0F0F0Fu;
-        sT[cc * SROW + 4 + g] = (v >> 4) & 0x0F0F0F0Fu;
-      }
-    }
-  } else {
-    // P5: byte [b, k, c] of the [nb, 32, out / 2] plane holds u of column c
-    // in its low nibble and of column c + out / 2 in its high nibble. The
-    // CTA's bytes are TN / 2 a row, BQ quads of 4; each (kq, quad) pair reads
-    // a 4 x 4 byte patch once and stages 4 columns of each half from it.
-    // out_f / 2 is a multiple of TN / 2 (the entry checks), so no column is
-    // past the edge.
-    constexpr int H = TN / 2, BQ = H / 4;
-    constexpr int BQ_SHIFT = BQ == 4 ? 2 : BQ == 8 ? 3 : 4;
-    const uint8_t* q = reinterpret_cast<const uint8_t*>(w);
-    const size_t half = (size_t)out_f / 2;
-#pragma unroll
-    for (int i = 0; i < TN / 32; ++i) {
-      const int p = lane + 32 * i;
-      const int bq = p & (BQ - 1), kq = p >> BQ_SHIFT;
-      const uint8_t* src = q + ((size_t)b * QB + kq * 4) * half + c0 / 2 + bq * 4;
-      unsigned lo[4], hi[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const unsigned v = (unsigned)__ldg(reinterpret_cast<const int*>(src + r * half));
-        lo[r] = v & 0x0F0F0F0Fu;
-        hi[r] = (v >> 4) & 0x0F0F0F0Fu;
-      }
-      unsigned o[4];
-      transpose4x4(lo[0], lo[1], lo[2], lo[3], o);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sT[(bq * 4 + j) * SROW + kq] = o[j];
-      transpose4x4(hi[0], hi[1], hi[2], hi[3], o);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sT[(H + bq * 4 + j) * SROW + kq] = o[j];
     }
   }
 }
@@ -291,8 +212,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 q40_i8_mma_kernel(const int8_t* __restrict__ x8, const float* __restrict__ xs,
                   const void* __restrict__ w,
                   const typename ScaleStorage<SCALE>::T* __restrict__ dt,
-                  float* __restrict__ dst, int R, int nb, int out_f, int splits,
-                  const int* __restrict__ bs) {
+                  float* __restrict__ dst, int R, int nb, int out_f, int splits) {
   constexpr int NT = TN / 8;  // n8 MMA tiles per CTA
   unsigned (*s_tile)[TN * SROW];
   float (*s_part)[MAXR][TN];  // the f32 dot's partials
@@ -403,18 +323,9 @@ q40_i8_mma_kernel(const int8_t* __restrict__ x8, const float* __restrict__ xs,
     // shared scale and accumulate: acc += p * (xs * dt), no FMA
     if (row_ok) {
       const float xsv = xs[(size_t)g * nb + b];
-      if constexpr (WK == W_FS || WK == W_SH) {
-        // the loader staged u = q + 8: take 8 * the row block's sum off, exactly
-        const float b8 = __fmul_rn(8.0f, __int2float_rn(bs[(size_t)g * nb + b]));
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          p[nt][0] = __fsub_rn(p[nt][0], b8);
-          p[nt][1] = __fsub_rn(p[nt][1], b8);
-        }
-      }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const int col = out_col<WK, TN>(blockIdx.x, nt * 8 + 2 * t, out_f);
+        const int col = c0 + nt * 8 + 2 * t;
         if (col < out_f) {
           const float2 d2 = scale_pair<SCALE>(dt, (size_t)b * out_f + col);
           const float s0 = __fmul_rn(xsv, d2.x);
@@ -435,7 +346,7 @@ q40_i8_mma_kernel(const int8_t* __restrict__ x8, const float* __restrict__ xs,
   __syncthreads();
   for (int e = threadIdx.x; e < R * TN; e += WARPS * 32) {
     const int r = e / TN, cc = e % TN;
-    const int col = out_col<WK, TN>(blockIdx.x, cc, out_f);
+    const int col = c0 + cc;
     if (col >= out_f) continue;
     float s = s_red[0][r][cc];
 #pragma unroll
@@ -456,12 +367,10 @@ __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ o
 
 // One launch of an instance on `splits` x ceil(out_f / TN) CTAs, raising
 // the instance's dynamic shared memory limit once where TN needs it. dst is
-// out itself when splits == 1, else the [splits, R, out_f] partials. bs, the
-// rows' [R, nb] int32 block sums, is read by the unsigned loaders only.
+// out itself when splits == 1, else the [splits, R, out_f] partials.
 template <int WK, int DOT, int SCALE, int TN>
 cudaError_t launch(const int8_t* x8, const float* xs, const void* w, const void* dt,
-                   float* dst, int R, int nb, int out_f, int splits, cudaStream_t s,
-                   const int* bs = nullptr) {
+                   float* dst, int R, int nb, int out_f, int splits, cudaStream_t s) {
   constexpr size_t smem = i8_mma_dynamic_smem<TN>() ? i8_mma_smem_bytes<TN>() : 0;
   if (smem > 0) {
     static bool raised = false;
@@ -476,7 +385,7 @@ cudaError_t launch(const int8_t* x8, const float* xs, const void* w, const void*
   dim3 grid((out_f + TN - 1) / TN, splits);
   q40_i8_mma_kernel<WK, DOT, SCALE, TN><<<grid, WARPS * 32, smem, s>>>(
       x8, xs, w, reinterpret_cast<const typename ScaleStorage<SCALE>::T*>(dt), dst, R, nb,
-      out_f, splits, bs);
+      out_f, splits);
   return cudaGetLastError();
 }
 
@@ -484,11 +393,11 @@ cudaError_t launch(const int8_t* x8, const float* xs, const void* w, const void*
 template <int WK, int DOT, int SCALE>
 cudaError_t launch_cols(int cols, const int8_t* x8, const float* xs, const void* w,
                         const void* dt, float* dst, int R, int nb, int out_f, int splits,
-                        cudaStream_t s, const int* bs = nullptr) {
+                        cudaStream_t s) {
   switch (cols) {
-    case 32: return launch<WK, DOT, SCALE, 32>(x8, xs, w, dt, dst, R, nb, out_f, splits, s, bs);
-    case 64: return launch<WK, DOT, SCALE, 64>(x8, xs, w, dt, dst, R, nb, out_f, splits, s, bs);
-    case 128: return launch<WK, DOT, SCALE, 128>(x8, xs, w, dt, dst, R, nb, out_f, splits, s, bs);
+    case 32: return launch<WK, DOT, SCALE, 32>(x8, xs, w, dt, dst, R, nb, out_f, splits, s);
+    case 64: return launch<WK, DOT, SCALE, 64>(x8, xs, w, dt, dst, R, nb, out_f, splits, s);
+    case 128: return launch<WK, DOT, SCALE, 128>(x8, xs, w, dt, dst, R, nb, out_f, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }

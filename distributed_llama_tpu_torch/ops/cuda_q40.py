@@ -49,11 +49,9 @@ activations and an UNPACKED [nb, 32, out] int8 weight, one int8 tensor-core
 MMA (m16n8k32, k = one Q40 block) per block and 8 columns. out = sum over
 blocks of partial * (xs * dt) in f32, partial the exact integer dot. The
 same kernel template, with other weight loaders and dot types, runs the
-kernel probe P4 (probes/int4.py), the template's tile and scale-plane
-sweep P13 (probes/scales.py), and the unsigned-nibble codecs P5
-(probes/int4b.py) and P9 / P10 (probes/int4c.py), whose operands
-`check_u4_operands` checks. P2, P3 and P6 compute the same function as
-one-row GEMVs (csrc/i8_gemv.cuh, probes/gemv.py).
+kernel probe P4 (probes/int4.py) and the template's tile and scale-plane
+sweep P13 (probes/scales.py). P2, P3, P5, P6 and P9 / P10 compute the same
+function as one-row GEMVs (csrc/i8_gemv.cuh, probes/gemv.py).
 Not ported to the serving path: `_i8_tiles` (:439, a v5e tile table) and
 `_dt_operand`/`_scale_f32` (:112-143, a Mosaic workaround: Hopper loads
 f16 natively); the raw-bits convert runs in the probes only.
@@ -147,10 +145,8 @@ _I8_MMA_SIG = {
         kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
     ),
 }
-# the int8-MMA template's weight storages (csrc/q40_i8_mma.cuh): q40_i8_mma
-# takes the first two; W_FS (the T layout's feature-split words) and W_SH
-# (split-half bytes) store u = q + 8 and run in csrc/i4_codec_probe.cu
-W_I8, W_I32, W_FS, W_SH = 0, 2, 3, 4
+# the int8-MMA template's weight storages (csrc/q40_i8_mma.cuh)
+W_I8, W_I32 = 0, 2
 # q40_i8_mma's dot types (csrc/q40_i8_mma.cu)
 DOTS = {"int8": 0, "bf16": 1, "f32": 2}
 I8_MMA_COLS = 64  # output columns per CTA
@@ -722,34 +718,6 @@ def check_i8_operands(x8, xs, w, dt, rows_per_block: int, w_dtype,
         raise ValueError(f"expected a [nb, {rows_per_block}, out] {w_dtype} weight, got "
                          f"{w.dtype} {tuple(w.shape)}")
     _check_rows_and_plane(x8, xs, w, dt, w.shape[0], w.shape[2], dt_dtypes)
-
-
-def check_u4_operands(x8, xs, bs, w, dt, weights: int) -> None:
-    """The operands of the unsigned-nibble codecs (P5, P9, P10): x8, xs and
-    dt [nb, out] (f16 or its int16 bits) as `check_i8_operands` takes them,
-    bs [R, nb] int32 (the rows' block sums of x8), and w the codec's plane:
-    for W_FS the feature-split words [nb, 4, out] int32 (the T layout), for
-    W_SH the split-half bytes [nb, 32, out / 2] int8."""
-    if weights == W_FS:
-        ok = w.ndim == 3 and w.shape[1] == 4 and w.dtype == torch.int32
-        want = "[nb, 4, out] int32"
-    elif weights == W_SH:
-        ok = w.ndim == 3 and w.shape[1] == Q_BLOCK and w.dtype == torch.int8
-        want = "[nb, 32, out / 2] int8"
-    else:
-        raise ValueError(f"weights {weights} is not an unsigned-nibble storage")
-    if not ok:
-        raise ValueError(f"expected a {want} weight, got {w.dtype} {tuple(w.shape)}")
-    nb = w.shape[0]
-    out_f = w.shape[2] * (2 if weights == W_SH else 1)
-    _check_rows_and_plane(x8, xs, w, dt, nb, out_f, (torch.float16, torch.int16))
-    R = x8.shape[0]
-    if bs.dtype != torch.int32 or tuple(bs.shape) != (R, nb):
-        raise ValueError(f"bs must be [{R}, {nb}] int32, got {bs.dtype} {tuple(bs.shape)}")
-    if bs.device != x8.device:
-        raise ValueError(f"bs is on {bs.device}, x8 on {x8.device}")
-    if not bs.is_contiguous():
-        raise ValueError("bs must be contiguous")
 
 
 def _check_rows_and_plane(x8, xs, w, dt, nb: int, out_f: int, dt_dtypes) -> None:

@@ -13,9 +13,12 @@ f16, f32 or raw f16 bits and sweeps its CTA tile, and `i4_tiles`
 (scripts/sweep_i4_tiles.py, P6) sweeps P4's tile; `int4b`
 (scripts/probe_int4b.py, P5) and `int4c` (scripts/probe_int4c.py, P9, P10)
 feed the same matmul from the two unsigned-nibble codecs, split-half bytes
-and the T layout's feature-split words, beside B9 and K1. `timing` times a kernel cold
-(operands out of L2) and hot; `operands` carries the JAX probes' operands
-across, for the tests. Run a probe with
+and the T layout's feature-split words, beside B9 and K1; `gemv` holds the
+one-row GEMV's plans and launches (P3, P5, P6, P9/P10). `timing` times a
+kernel cold (operands out of L2) and hot; `operands` carries the JAX
+probes' operands across, for the tests. The `*_ab` modules time a
+redesigned kernel against an earlier build in one process and sweep its
+plans (`p5_p9_ab` for P5 and P9/P10). Run a probe with
 
     python -m distributed_llama_tpu_torch.probes.int4 [--device cpu] [--shape IN,OUT]
     python -m distributed_llama_tpu_torch.probes.dma [--device cpu] [--shape IN,OUT]

@@ -5,8 +5,11 @@ unsigned codecs share (probes/int4c.py holds P9 and P10).
 Both codecs store u = q + 8 in half a byte a weight and take the integer
 dot with u, then subtract 8 * bs[r, b], the row block's sum of x8
 (`block_sums`), before they scale: the corrected partial is the signed one
-exactly. On the card they are loaders of the int8-MMA template
-(csrc/q40_i8_mma.cuh) behind one C entry, csrc/i4_codec_probe.cu.
+exactly. On the card they are two loaders of the one-row GEMV template
+(csrc/i8_gemv.cuh, with P2, P3 and P6) behind one C entry,
+csrc/i4_codec_probe.cu: __dp4a on the CUDA cores, the nibbles unpacked in
+registers, one launch a call (probes/gemv.py: `launch_u4_gemv`, the plans,
+`check_u4_operands`).
 
 P5's plane (`pack_split_half`): byte [b, k, c] of [nb, 32, out / 2] holds
 column c's u in its low nibble and column c + out / 2's in its high nibble,
@@ -16,12 +19,17 @@ blocks_per_cta, storage)` (scripts/probe_int4b.py:119, body `_kernel_sh`
 words ("i32st", [nb, 32, out / 8]): the same bytes, one instance on the
 card. dt2 is the [nb, out] scale plane viewed as [nb, 2, out / 2], f16 or
 its raw int16 bits (the JAX probe's `_dt_operand`), and the result is
-[R, 2, out / 2], which reshapes to natural column order. A CTA owns `cols`
-output columns (32, 64 or 128): cols / 2 bytes of each k row, whose low
-nibbles give cols / 2 columns of the first half and whose high nibbles give
-the same cols / 2 columns of the second. So (out / 2) % (cols / 2) must be 0:
-the JAX grid's (out / 2) % tile_n, with tile_n bytes (a TPU lane width)
-giving 2 * tile_n columns. `blocks_per_cta` is tile_knb.
+[R, 2, out / 2], which reshapes to natural column order. The tile is the
+plan (`gemv.u4_tile_plan`): a CTA owns `cols` output columns (one of
+`gemv.u4_tile_cols(W_SH)`): cols / 2 bytes of each k row, a lane 4 of
+them, whose low nibbles give cols / 2 columns of the first half and whose
+high nibbles give the same cols / 2 columns of the second. So (out / 2) %
+(cols / 2) must be 0: the JAX grid's (out / 2) % tile_n, with tile_n bytes
+(a TPU lane width) giving 2 * tile_n columns. `blocks_per_cta` is
+tile_knb, the blocks of one split (a divisor of nb, at most 8 splits: the
+cluster limit; `tiles_for` leaves out and counts the JAX tiles past it).
+The plain version sums in the plan's order and equals the kernel bit for
+bit; `gemv.u4_gemv_plan(nb, out, W_SH)` is the default plan.
 
 The wrapper takes its plain version for CPU tensors, launches its kernel
 for CUDA tensors or raises, and counts its launches in `launches`.
@@ -32,8 +40,9 @@ for CUDA tensors or raises, and counts its launches in `launches`.
 runs the JAX script's five Llama-3.2-1B shapes (or the `--shape`s given;
 `--only` keeps the shapes whose label holds LABEL): B9's baseline and the first K1's
 body at its tile on the same weights, then every tile of `tiles_for` with
-the f16 and the i16 plane (one launch a storage), each against the plain
-version; on the card each point's cold and hot µs a call
+the f16 and the i16 plane (one launch a storage), each bit for bit against
+the plain version and within 1e-5 of B9, at P3's plan against P3's int8
+arm; on the card each point's cold and hot µs a call
 (probes/timing.py) and a chain of 64 calls in one CUDA graph, GB/s against
 the bytes the script counts (half a byte a weight, 2 a block), its CTAs
 and its speed against B9 and the first K1's body; then the best tile per shape and plane.
@@ -50,25 +59,15 @@ import torch
 
 from ..device import resolve_device
 from ..formats.quants import Q_BLOCK
-from ..ops import cuda_q40, kernels
-from ..ops.cuda_q40 import FIRST_K1_TILE, W_SH, i8_blocks_plain
+from ..ops import cuda_q40
+from ..ops.cuda_q40 import FIRST_K1_TILE, _gemv_order
 from ..ops.quant import pack_q
-from . import parse_shape
-from .int4 import make_operands
+from . import gemv, parse_shape
+from .gemv import W_SH
+from .int4 import i4_call_int8, make_operands, pack_s4
 from .int4_prod import fs_call_tiles, fs_call_tiles_plain
-from .scales import check_tile, library_ms, plane_f32, tiles_for, timed
+from .scales import library_ms, plane_f32, timed
 
-SOURCE = "i4_codec_probe"
-_SIG = {
-    # x8, xs, bs, w, weights, dt, scale_kind, out, part, rows, nb, out, cols,
-    # blocks_per_cta, stream
-    "q40_u4_mma": (
-        kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.P, kernels.I,
-        kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
-    ),
-}
-# the plane's storage -> q40_u4_mma's scale_kind
-SCALE_KINDS = {torch.float16: 0, torch.int16: 2}
 STORAGES = ("i8ops", "i32st")
 # the JAX script's shapes (Llama-3.2-1B; wcls cut to 32768)
 SHAPES = (
@@ -118,30 +117,10 @@ def _check_storage(storage: str) -> None:
         raise ValueError(f"storage must be one of {STORAGES}, got {storage!r}")
 
 
-# ---------------------------------------------------------------------------
-# the launch, shared with P9 and P10
-# ---------------------------------------------------------------------------
-
-
-def launch_u4(x8, xs, bs, w, weights: int, dt, cols: int, blocks_per_cta: int) -> torch.Tensor:
-    """One launch of csrc/i4_codec_probe.cu's q40_u4_mma on checked
-    operands on the card: w the feature-split words (W_FS) or the
-    split-half bytes (W_SH), dt [nb, out] f16 or int16 -> [R, out] f32."""
-    if cuda_q40._device_kind(x8) != "cuda":
-        raise ValueError(f"q40_u4_mma runs on a CUDA device, not {x8.device}")
-    R, nb, out_f = x8.shape[0], xs.shape[1], dt.shape[1]
-    splits = nb // blocks_per_cta
-    lib = kernels.load(SOURCE, _SIG)
-    out = torch.empty((R, out_f), dtype=torch.float32, device=x8.device)
-    part = torch.empty((splits, R, out_f) if splits > 1 else (1,), dtype=torch.float32,
-                       device=x8.device)
-    kernels.launch(
-        lib, "q40_u4_mma", x8,
-        x8.data_ptr(), xs.data_ptr(), bs.data_ptr(), w.data_ptr(), weights, dt.data_ptr(),
-        SCALE_KINDS[dt.dtype], out.data_ptr(), part.data_ptr(), R, nb, out_f, cols,
-        blocks_per_cta,
-    )
-    return out
+def tiles_for(nb: int, out_f: int) -> tuple[list, int]:
+    """P5's (cols, blocks_per_cta) tiles at nb blocks by out_f columns, and
+    the count of the JAX tiles past the cluster limit left out."""
+    return gemv.u4_tiles_for(nb, out_f, W_SH)
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +130,8 @@ def launch_u4(x8, xs, bs, w, weights: int, dt, cols: int, blocks_per_cta: int) -
 
 def _operands(x8, xs, bs, qp, dt2, cols: int, blocks_per_cta: int, storage: str):
     """Check P5's operands and tile; return the byte plane [nb, 32, out / 2]
-    int8 and the scale plane [nb, out], both views of what was given."""
+    int8 and the scale plane [nb, out], both views of what was given, and
+    the tile's plan."""
     _check_storage(storage)
     want = (torch.int8, 1) if storage == "i8ops" else (torch.int32, 4)
     if qp.ndim != 3 or qp.shape[1] != Q_BLOCK or qp.dtype != want[0]:
@@ -164,22 +144,20 @@ def _operands(x8, xs, bs, qp, dt2, cols: int, blocks_per_cta: int, storage: str)
             raise ValueError(f"{name} must be contiguous")
     w8 = qp.view(torch.int8)
     dt = dt2.reshape(dt2.shape[0], 2 * dt2.shape[2])
-    cuda_q40.check_u4_operands(x8, xs, bs, w8, dt, W_SH)
+    gemv.check_u4_operands(x8, xs, bs, w8, dt, W_SH)
     nb, out_f = dt.shape
-    check_tile(nb, cols, blocks_per_cta)
-    if (out_f // 2) % (cols // 2):
-        raise ValueError(f"the split-half plane needs (out / 2) % (cols / 2) == 0: out {out_f}, "
-                         f"cols {cols}")
-    return w8, dt
+    return w8, dt, gemv.u4_tile_plan(nb, out_f, cols, blocks_per_cta, W_SH)
 
 
 def sh_call_plain(x8, xs, bs, qp, dt2, cols: int, blocks_per_cta: int,
                   storage: str = "i8ops") -> torch.Tensor:
-    """P5's plain version: the bytes unpacked to signed int8, B9's math on
-    the plane's f32 values -> [R, 2, out / 2] f32. The tile changes only
-    the order of the f32 block sums; bs is the kernel's, not needed here."""
-    w8, dt = _operands(x8, xs, bs, qp, dt2, cols, blocks_per_cta, storage)
-    out = i8_blocks_plain(x8, xs, unpack_split_half(w8), plane_f32(dt))
+    """P5's plain version: the bytes unpacked to u = q + 8, each block's
+    dot less 8 * bs times xs * dt on the plane's f32 values
+    (`gemv.block_terms`), summed in the tile's plan's order
+    (`_gemv_order`) -> [R, 2, out / 2] f32, bit for bit the kernel's."""
+    w8, dt, plan = _operands(x8, xs, bs, qp, dt2, cols, blocks_per_cta, storage)
+    u = unpack_split_half(w8) + 8
+    out = _gemv_order(gemv.block_terms(x8, xs, u, plane_f32(dt), bs), plan)
     return out.reshape(x8.shape[0], 2, dt.shape[1] // 2)
 
 
@@ -188,12 +166,12 @@ def sh_call(x8, xs, bs, qp, dt2, cols: int, blocks_per_cta: int,
     """P5: x8 [R <= 8, in] int8, xs [R, nb] f32, bs [R, nb] int32 block sums
     of x8, qp the split-half plane as `storage` holds it, dt2 [nb, 2, out / 2]
     f16 or int16 (raw f16 bits) -> [R, 2, out / 2] f32, at a CTA of `cols`
-    columns owning `blocks_per_cta` blocks. Both storages run the one
-    instance."""
+    columns owning `blocks_per_cta` blocks (the plan `gemv.u4_tile_plan`),
+    one launch. Both storages run the one instance."""
     if cuda_q40._device_kind(x8) == "cpu":
         return sh_call_plain(x8, xs, bs, qp, dt2, cols, blocks_per_cta, storage)
-    w8, dt = _operands(x8, xs, bs, qp, dt2, cols, blocks_per_cta, storage)
-    out = launch_u4(x8, xs, bs, w8, W_SH, dt, cols, blocks_per_cta)
+    w8, dt, plan = _operands(x8, xs, bs, qp, dt2, cols, blocks_per_cta, storage)
+    out = gemv.launch_u4_gemv(x8, xs, bs, w8, W_SH, dt, plan)
     sh_call.launches += 1
     return out.reshape(x8.shape[0], 2, dt.shape[1] // 2)
 
@@ -298,7 +276,7 @@ def print_shape(label: str, base: list, rows: list, time_it: bool, flags: tuple)
                      f"{b['hot_ms'] * 1e3:.2f} us, chain {b['chain_ms'] * 1e3:.2f} us")
         print(line, flush=True)
     for r in rows:
-        line = (f"  {r['probe']} {r['plane']} TN {r['cols']:3d} x {r['blocks_per_cta']:3d} "
+        line = (f"  {r['probe']} {r['plane']} TN {r['cols']:4d} x {r['blocks_per_cta']:3d} "
                 f"blocks ({r['ctas']:5d} CTAs): maxerr vs plain {r['max_abs_err']:.3e}, vs B9 "
                 f"{r['max_abs_err_vs_b9']:.3e}")
         line += "".join(f", {f} {r[f]}" for f in flags if f in r)
@@ -310,16 +288,21 @@ def print_shape(label: str, base: list, rows: list, time_it: bool, flags: tuple)
         print(line, flush=True)
     if time_it:
         for plane in ("f16", "i16"):
-            r = best(rows, plane)
-            print(f"  BEST {label} {plane}: TN {r['cols']} x {r['blocks_per_cta']} blocks "
-                  f"{r['cold_ms'] * 1e3:.2f} us cold ({r['gb_s_phys']:.0f} GB/s, "
-                  f"{r['x_b9']:.2f}x B9, {r['x_first_k1']:.2f}x first K1)", flush=True)
+            for what, r in (("BEST", best(rows, plane)), ("DEFAULT", default_row(rows, plane))):
+                print(f"  {what} {label} {plane}: TN {r['cols']} x {r['blocks_per_cta']} blocks "
+                      f"{r['cold_ms'] * 1e3:.2f} us cold ({r['gb_s_phys']:.0f} GB/s, "
+                      f"{r['x_b9']:.2f}x B9, {r['x_first_k1']:.2f}x first K1)", flush=True)
 
 
 def best(rows: list, plane: str) -> dict:
     """The timed row of least cold time on `plane`."""
     return min((r for r in rows if r["plane"] == plane and "cold_ms" in r),
                key=lambda r: r["cold_ms"])
+
+
+def default_row(rows: list, plane: str) -> dict:
+    """The row of the default plan's tile on `plane`."""
+    return next(r for r in rows if r["plane"] == plane and r.get("default_plan"))
 
 
 def parse_args(prog: str, argv):
@@ -348,8 +331,10 @@ def parse_args(prog: str, argv):
 def sweep_shape(label: str, in_f: int, out_f: int, device, seed: int = 0,
                 time_it: bool = True) -> dict:
     """One shape: the baselines, then every tile with each plane, both
-    storages launched (one instance: bit-equal) against the plain version;
-    the i8ops launch timed. Returns {"baseline": rows, "tiles": rows}."""
+    storages launched (one instance: bit-equal) against the plain order
+    of the tile's plan bit for bit and against B9; at P3's plan against
+    P3's int8 arm; the i8ops launch timed. Returns {"baseline": rows,
+    "tiles": rows, "left_out": the JAX tiles past the cluster limit}."""
     nb = in_f // Q_BLOCK
     x8, xs, qt, dt16, x = make_operands(in_f, out_f, 1, device, seed)
     bs = block_sums(x8, nb)
@@ -360,45 +345,64 @@ def sweep_shape(label: str, in_f: int, out_f: int, device, seed: int = 0,
     views = {s: storage_view(qp, s) for s in STORAGES}
     b9 = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt16)
     dt2 = {p: d.reshape(nb, 2, out_f // 2) for p, d in planes(dt16).items()}
-    tiles = [(c, k) for c, k in tiles_for(nb) if (out_f // 2) % (c // 2) == 0]
+    tiles, left_out = tiles_for(nb, out_f)
     if not tiles:
         raise ValueError(f"{label}: no CTA width's half divides out / 2 = {out_f // 2}")
-    want = {p: sh_call_plain(x8, xs, bs, qp, d, *tiles[0]) for p, d in dt2.items()}
-    extra = {p: {"plain_ms": plain_ms(sh_call_plain, x8, xs, bs, qp, d, *tiles[0]), **lib}
+    # the signed weight's block terms, without bs: in a plan's order, the
+    # codec's output at that plan, from the unpacked weight alone
+    terms = {p: gemv.block_terms(x8, xs, qt, plane_f32(d)) for p, d in planes(dt16).items()}
+    default = gemv.u4_gemv_plan(nb, out_f, W_SH)
+    default = (default.cols, default.blocks_per_split)
+    p3 = gemv.u4_p3_tile(nb, out_f, W_SH)
+    p3_out = i4_call_int8(x8, xs, pack_s4(qt), dt16) if p3 in tiles else None
+    extra = {p: {"plain_ms": plain_ms(sh_call_plain, x8, xs, bs, qp, d, *default), **lib}
              for p, d in dt2.items()} if time_it else {}
     rows = []
     for cols, blocks in tiles:
+        plan = gemv.u4_tile_plan(nb, out_f, cols, blocks, W_SH)
         outs = {}
         for plane, d in dt2.items():
             got = {s: sh_call(x8, xs, bs, views[s], d, cols, blocks, s) for s in STORAGES}
             outs[plane] = got["i8ops"]
+            want = _gemv_order(terms[plane], plan)
+            flags = {"storages": list(STORAGES),
+                     "storages_bit_equal": torch.equal(got["i8ops"], got["i32st"]),
+                     "bit_equal_plain": torch.equal(got["i8ops"].reshape(want.shape), want),
+                     "default_plan": (cols, blocks) == default, "p3_plan": (cols, blocks) == p3}
+            if flags["p3_plan"]:
+                flags["equals_p3"] = torch.equal(got["i8ops"].reshape(p3_out.shape), p3_out)
             row = point(label, in_f, out_f, "P5", "sh_call", plane, cols, blocks, got["i8ops"],
-                        want[plane], b9, {"storages": list(STORAGES), "storages_bit_equal":
-                                          torch.equal(got["i8ops"], got["i32st"])})
+                        want, b9, flags)
             if time_it:
                 time_point(row, sh_call, (x8, xs, bs, qp, d, cols, blocks), base, extra[plane])
             rows.append(row)
         for row in rows[-len(dt2):]:
             row["planes_bit_equal"] = torch.equal(outs["f16"], outs["i16"])
-    return {"baseline": base, "tiles": rows}
+    return {"baseline": base, "tiles": rows, "left_out": left_out}
+
+
+# the checks a sweep row prints beside its own bit-equalities
+FLAGS = ("bit_equal_plain", "planes_bit_equal", "default_plan", "p3_plan", "equals_p3")
 
 
 def main(argv=None) -> list:
     """Run P5 over its shapes; print the baselines, one line a point and
     the best tile per shape and plane; return the rows."""
     args, device, time_it = parse_args("int4b", argv)
+    cols = "/".join(map(str, gemv.u4_tile_cols(W_SH)))
     print(f"storages {', '.join(STORAGES)}: one instance on the card (the same bytes); JAX "
-          f"tile_n (bytes, a TPU lane width) has no CTA counterpart: TN sweeps 32, 64 and 128 "
-          f"columns a CTA, TN / 2 bytes of each k row; tile_knb -> blocks a CTA", flush=True)
+          f"tile_n (bytes, a TPU lane width) has no CTA counterpart: TN sweeps {cols} columns a "
+          f"CTA, TN / 2 bytes of each k row, 4 a lane; tile_knb -> blocks a split, at most "
+          f"{gemv.MAX_SPLITS} splits", flush=True)
     rows = []
     for label, in_f, out_f in args.shape or SHAPES:
         if args.only and args.only not in label:
             continue
         got = sweep_shape(label, in_f, out_f, device, args.seed, time_it)
         w = work(1, in_f, out_f)
-        print(f"== {label} packed {w['phys_bytes'] / 1e6:.2f} MB ==", flush=True)
-        print_shape(label, got["baseline"], got["tiles"], time_it,
-                    ("storages_bit_equal", "planes_bit_equal"))
+        print(f"== {label} packed {w['phys_bytes'] / 1e6:.2f} MB | {got['left_out']} JAX tiles "
+              f"left out (more than {gemv.MAX_SPLITS} splits) ==", flush=True)
+        print_shape(label, got["baseline"], got["tiles"], time_it, ("storages_bit_equal", *FLAGS))
         rows.extend(got["baseline"])
         rows.extend(got["tiles"])
     print(json.dumps({"probe": "int4b", "device": str(device), "rows": len(rows)}), flush=True)

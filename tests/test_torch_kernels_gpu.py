@@ -16,7 +16,7 @@ from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
 from distributed_llama_tpu_torch.ops.quant import pack_q
 from distributed_llama_tpu_torch.parallel import make_mesh
 from distributed_llama_tpu_torch.probes import (
-    attention, dma, i4_tiles, int4, int4_prod, int4b, int4c, scales)
+    attention, dma, gemv, i4_tiles, int4, int4_prod, int4b, int4c, scales)
 from distributed_llama_tpu_torch.probes.operands import scale_planes
 from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
 from distributed_llama_tpu_torch.testing import tiny_header, write_tiny_model
@@ -1114,16 +1114,16 @@ def _codec_operands(in_f, out_f, rows, device, seed):
 @pytest.mark.parametrize("rows", [1, 3])
 @pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 264)])
 def test_feature_split_instances_match_plain_and_each_other(cuda, rows, in_f, out_f):
-    """P9 at every tile and plane within 1e-5 of the output scale of the
-    plain version (exact corrected partials, f32 block sums in the tile's
-    order); P10 on the [nb, 4, out] view and the i16 plane equal to P9 on
-    the f16 plane bit for bit."""
+    """P9 at every tile and plane bit for bit equal to the plain order of
+    the tile's plan (exact corrected partials, f32 block sums in the plan's
+    order; 264 columns leave a ragged last tile), one launch a call; P10 on
+    the [nb, 4, out] view and the i16 plane equal to P9 on the f16 plane."""
     nb = in_f // 32
     x8, xs, bs, qt, dt, qp, _ = _codec_operands(in_f, out_f, rows, cuda, rows + in_f)
     qp2d = qp.view(nb * 4, out_f)
-    want = int4c.fs2d_call_plain(x8, xs, bs, qp2d, dt, 64, nb)
-    scale = want.abs().max().item()
-    for cols, blocks in scales.tiles_for(nb):
+    tiles, _ = int4c.tiles_for(nb, out_f)
+    assert tiles
+    for cols, blocks in tiles:
         outs = []
         for d in int4b.planes(dt).values():
             before = (int4c.fs2d_call.launches, int4c.fs_call.launches)
@@ -1132,30 +1132,32 @@ def test_feature_split_instances_match_plain_and_each_other(cuda, rows, in_f, ou
             torch.cuda.synchronize()
             assert (int4c.fs2d_call.launches, int4c.fs_call.launches) == (before[0] + 1,
                                                                           before[1] + 1)
-            assert (outs[-1] - want).abs().max().item() <= 1e-5 * scale, (d.dtype, cols, blocks)
+            want = int4c.fs2d_call_plain(x8, xs, bs, qp2d, d, cols, blocks)
+            assert torch.equal(outs[-1], want), (d.dtype, cols, blocks)
         assert all(torch.equal(outs[0], o) for o in outs[1:]), (cols, blocks)
 
 
 @pytest.mark.parametrize("rows", [1, 3])
-@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 1056)])
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 2560)])
 def test_split_half_instances_match_plain_and_each_other(cuda, rows, in_f, out_f):
-    """P5 at every tile whose half-width divides out / 2 (at 1056 only TN
-    32: the others raise), each plane and storage within 1e-5 of the plain
-    version, [R, 2, out / 2] in natural column order; the two storages and
-    the two planes equal bit for bit."""
+    """P5 at every tile whose half-width divides out / 2 (at 2560 the two
+    narrower widths: the others raise), each plane and storage bit for bit
+    equal to the plain order of the tile's plan, [R, 2, out / 2] in natural
+    column order; the two storages and the two planes equal."""
     nb = in_f // 32
     x8, xs, bs, qt, dt, _, qp = _codec_operands(in_f, out_f, rows, cuda, rows + out_f)
     dt2 = {p: d.reshape(nb, 2, out_f // 2) for p, d in int4b.planes(dt).items()}
-    want = int4b.sh_call_plain(x8, xs, bs, qp, dt2["f16"], 32, nb)
-    assert torch.equal(want.reshape(rows, out_f), cuda_q40.i8_blocks_plain(x8, xs, qt, dt))
-    scale = want.abs().max().item()
-    for cols, blocks in scales.tiles_for(nb):
+    tiles, _ = int4b.tiles_for(nb, out_f)
+    for cols in gemv.u4_tile_cols(gemv.W_SH):
         if (out_f // 2) % (cols // 2):
+            assert all(c != cols for c, _ in tiles)
             with pytest.raises(ValueError):
-                int4b.sh_call(x8, xs, bs, qp, dt2["f16"], cols, blocks)
-            continue
+                int4b.sh_call(x8, xs, bs, qp, dt2["f16"], cols, nb)
+    assert tiles
+    for cols, blocks in tiles:
         outs = []
         for d in dt2.values():
+            want = int4b.sh_call_plain(x8, xs, bs, qp, d, cols, blocks)
             for storage in int4b.STORAGES:
                 before = int4b.sh_call.launches
                 outs.append(int4b.sh_call(x8, xs, bs, int4b.storage_view(qp, storage), d, cols,
@@ -1163,60 +1165,99 @@ def test_split_half_instances_match_plain_and_each_other(cuda, rows, in_f, out_f
                 torch.cuda.synchronize()
                 assert int4b.sh_call.launches == before + 1
                 assert outs[-1].shape == (rows, 2, out_f // 2)
-                assert (outs[-1] - want).abs().max().item() <= 1e-5 * scale, (storage, cols)
+                assert torch.equal(outs[-1], want), (storage, cols, blocks)
         assert all(torch.equal(outs[0], o) for o in outs[1:]), (cols, blocks)
 
 
+CODEC_SHAPES = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048), (2048, 32768)]
+
+
 @pytest.mark.parametrize("rows", [1, 3])
-@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
-                                        (2048, 32768)])
-def test_codecs_at_b9s_tile_are_b9_and_p13(cuda, rows, in_f, out_f):
-    """At 64 columns and B9's split, both codecs on the f16 plane equal B9
-    and on the i16 plane equal P13's i16 instance, bit for bit: the
-    corrected partials are the signed ones exactly, and the scale and
-    accumulate code is shared."""
+@pytest.mark.parametrize("in_f,out_f", CODEC_SHAPES)
+def test_codecs_at_p3s_plan_are_p3_and_near_b9(cuda, rows, in_f, out_f):
+    """At P3's plan's warps along k and blocks a split, both codecs on
+    either plane equal P3's int8 arm bit for bit (a plan's order does not
+    depend on the loader), and every codec output is within 1e-5 of B9's
+    largest value (the same exact partials, f32 sums in another order)."""
     nb = in_f // 32
-    splits = cuda_q40.i8_mma_splits(nb, out_f)
-    assert nb % splits == 0
     x8, xs, bs, qt, dt, qp, qsh = _codec_operands(in_f, out_f, rows, cuda, 5)
-    bits = dt.view(torch.int16)
+    p3 = int4.i4_call_int8(x8, xs, int4.pack_s4(qt), dt)
     b9 = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
-    p13 = scales.i8_tile_call(x8, xs, qt, bits, 64, nb // splits)
-    for d, ref in ((dt, b9), (bits, p13)):
-        assert torch.equal(int4c.fs2d_call(x8, xs, bs, qp.view(nb * 4, out_f), d, 64,
-                                           nb // splits), ref), d.dtype
-        got = int4b.sh_call(x8, xs, bs, qsh, d.reshape(nb, 2, out_f // 2), 64, nb // splits)
-        assert torch.equal(got.reshape(rows, out_f), ref), d.dtype
+    tol = 1e-5 * b9.abs().max().item()
+    fs_tile = gemv.u4_p3_tile(nb, out_f, gemv.W_FS)
+    sh_tile = gemv.u4_p3_tile(nb, out_f, gemv.W_SH)
+    for d in int4b.planes(dt).values():
+        got = int4c.fs2d_call(x8, xs, bs, qp.view(nb * 4, out_f), d, *fs_tile)
+        assert torch.equal(got, p3), d.dtype
+        sh = int4b.sh_call(x8, xs, bs, qsh, d.reshape(nb, 2, out_f // 2), *sh_tile)
+        assert torch.equal(sh.reshape(rows, out_f), p3), d.dtype
+        for w in (gemv.W_FS, gemv.W_SH):
+            plan = gemv.u4_gemv_plan(nb, out_f, w)
+            got = (int4c.fs_call(x8, xs, bs, qp, d, plan.cols, plan.blocks_per_split)
+                   if w == gemv.W_FS else
+                   int4b.sh_call(x8, xs, bs, qsh, d.reshape(nb, 2, out_f // 2), plan.cols,
+                                 plan.blocks_per_split).reshape(rows, out_f))
+            assert (got - b9).abs().max().item() <= tol, (w, d.dtype)
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 32768)])
+def test_codecs_default_plan_rows_equal_one_row_calls(cuda, in_f, out_f):
+    """At each codec's default plan (a function of the shape alone), 1..8
+    rows: each row bit for bit its one-row call, one launch a call."""
+    nb = in_f // 32
+    x8, xs, bs, qt, dt, qp, qsh = _codec_operands(in_f, out_f, 8, cuda, 8)
+    bits = dt.view(torch.int16)
+    fs = gemv.u4_gemv_plan(nb, out_f, gemv.W_FS)
+    sh = gemv.u4_gemv_plan(nb, out_f, gemv.W_SH)
+
+    def call(w, r0, r1):
+        if w == gemv.W_FS:
+            return int4c.fs_call(x8[r0:r1], xs[r0:r1], bs[r0:r1], qp, bits, fs.cols,
+                                 fs.blocks_per_split)
+        return int4b.sh_call(x8[r0:r1], xs[r0:r1], bs[r0:r1], qsh, bits.reshape(nb, 2, -1),
+                             sh.cols, sh.blocks_per_split).reshape(r1 - r0, out_f)
+
+    for w in (gemv.W_FS, gemv.W_SH):
+        singles = torch.cat([call(w, r, r + 1) for r in range(8)])
+        for rows in range(1, 9):
+            before = (int4c.fs_call.launches, int4b.sh_call.launches)
+            got = call(w, 0, rows)
+            torch.cuda.synchronize()
+            after = (int4c.fs_call.launches, int4b.sh_call.launches)
+            assert sum(after) - sum(before) == 1
+            assert torch.equal(got, singles[:rows]), (w, rows)
 
 
 def test_codec_wrappers_raise_instead_of_falling_back(cuda):
     x8, xs, bs, qt, dt, qp, qsh = _codec_operands(2048, 256, 1, cuda, 0)
     qp2d, dt2 = qp.view(256, 256), dt.reshape(64, 2, 128)
-    for cols, blocks in ((48, 8), (64, 3), (64, 0), (256, 8)):  # tiles that are not built
+    # tiles that are not built, and 16 splits: past the cluster limit
+    for cols, blocks in ((48, 8), (256, 3), (256, 0), (300, 8), (256, 4)):
         with pytest.raises(ValueError):
             int4c.fs2d_call(x8, xs, bs, qp2d, dt, cols, blocks)
         with pytest.raises(ValueError):
             int4b.sh_call(x8, xs, bs, qsh, dt2, cols, blocks)
     with pytest.raises(ValueError):  # bs as f32, as the JAX probes hold it
-        int4c.fs_call(x8, xs, bs.float(), qp, dt, 64, 8)
+        int4c.fs_call(x8, xs, bs.float(), qp, dt, 256, 8)
     with pytest.raises(ValueError):  # bs on the CPU
-        int4c.fs_call(x8, xs, bs.cpu(), qp, dt, 64, 8)
+        int4c.fs_call(x8, xs, bs.cpu(), qp, dt, 256, 8)
     with pytest.raises(ValueError):  # one row's sums for three rows
         int4c.fs_call(x8.expand(3, -1).contiguous(), xs.expand(3, -1).contiguous(), bs, qp, dt,
-                      64, 8)
+                      256, 8)
     with pytest.raises(ValueError):  # B9's unpacked weight, not the words
-        int4c.fs_call(x8, xs, bs, qt, dt, 64, 8)
+        int4c.fs_call(x8, xs, bs, qt, dt, 256, 8)
     with pytest.raises(ValueError):  # the split-half bytes as i32st without the view
-        int4b.sh_call(x8, xs, bs, qsh, dt2, 64, 8, "i32st")
+        int4b.sh_call(x8, xs, bs, qsh, dt2, 256, 8, "i32st")
     with pytest.raises(ValueError):  # a storage the JAX probe does not have
-        int4b.sh_call(x8, xs, bs, qsh, dt2, 64, 8, "u8ops")
+        int4b.sh_call(x8, xs, bs, qsh, dt2, 256, 8, "u8ops")
     with pytest.raises(ValueError):  # a bf16 plane
-        int4c.fs_call(x8, xs, bs, qp, dt.to(torch.bfloat16), 64, 8)
+        int4c.fs_call(x8, xs, bs, qp, dt.to(torch.bfloat16), 256, 8)
     with pytest.raises(ValueError):  # the plane on the CPU
-        int4b.sh_call(x8, xs, bs, qsh, dt2.cpu(), 64, 8)
+        int4b.sh_call(x8, xs, bs, qsh, dt2.cpu(), 256, 8)
     x8w, xsw, bsw, _, dtw, _, qshw = _codec_operands(2048, 264, 1, cuda, 0)
-    with pytest.raises(ValueError):  # (out / 2) % (cols / 2) != 0: 132 % 16
-        int4b.sh_call(x8w, xsw, bsw, qshw, dtw.reshape(64, 2, 132), 32, 8)
+    for cols in gemv.u4_tile_cols(gemv.W_SH):  # (out / 2) % (cols / 2) != 0: 132 bytes
+        with pytest.raises(ValueError):
+            int4b.sh_call(x8w, xsw, bsw, qshw, dtw.reshape(64, 2, 132), cols, 8)
 
 
 def test_codec_probes_run_on_the_card(cuda):
@@ -1224,9 +1265,10 @@ def test_codec_probes_run_on_the_card(cuda):
     for mod, flag in ((int4b, "storages_bit_equal"), (int4c, "views_bit_equal")):
         got = mod.sweep_shape("1024->512", 1024, 512, cuda, time_it=False)
         assert [r["probe"] for r in got["baseline"]] == ["B9 baseline", "first K1 body"]
-        assert len(got["tiles"]) == 2 * len(scales.tiles_for(32))
-        assert all(r[flag] and r["planes_bit_equal"] and r["max_abs_err"] <= 1e-5 * r["out_scale"]
-                   for r in got["tiles"])
+        assert len(got["tiles"]) == 2 * len(mod.tiles_for(32, 512)[0])
+        assert all(r[flag] and r["planes_bit_equal"] and r["bit_equal_plain"]
+                   and r["max_abs_err_vs_b9"] <= 1e-5 * r["out_scale"] for r in got["tiles"])
+        assert [r["equals_p3"] for r in got["tiles"] if r["p3_plan"]] == [True, True]
 
 
 # ---------------------------------------------------------------------------

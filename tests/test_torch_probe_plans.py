@@ -1,6 +1,9 @@
 """The plans of P2 (probes/scales.py i8_gemv_plan, the one-row int8 GEMV on
 a scale plane), P3 and P6 (probes/gemv.py i4_gemv_plan and tile_plan, the
-same GEMV from 4-bit stored weights) and P12 (probes/attention.py
+same GEMV from 4-bit stored weights), P5 and P9/P10 (probes/gemv.py
+u4_gemv_plan and u4_tile_plan, the same from the unsigned-nibble codecs;
+probes/p5_p9_ab.py's cases, old-source discovery and refusals) and P12
+(probes/attention.py
 attention_plan, one-launch split-S decode attention merged in a cluster),
 on the CPU: each a function of the shape alone, held against hand-worked
 shapes; the wrappers' launch paths, run on the CPU with
@@ -15,7 +18,9 @@ import pytest
 import torch
 
 from distributed_llama_tpu_torch.ops import cuda_q40, kernels
-from distributed_llama_tpu_torch.probes import attention, gemv, i4_tiles, int4, scales
+from distributed_llama_tpu_torch.ops.cuda_q40 import _gemv_order
+from distributed_llama_tpu_torch.probes import (
+    attention, gemv, i4_tiles, int4, int4b, int4c, p5_p9_ab, scales)
 from distributed_llama_tpu_torch.probes.operands import scale_planes
 
 REL_TOL = 1e-5  # exact integer partials; the f32 block sums in another order
@@ -295,6 +300,249 @@ def test_p6_plain_at_p3s_plan_is_p3(in_f, out_f):
     for rows in (1, 3):
         assert torch.equal(i4_tiles.i4_sweep_call_plain(x8[:rows], xs[:rows], qw, bits, *tile),
                            int4.i4_call_plain(x8[:rows], xs[:rows], qt4, dt))
+
+
+# -- P5 and P9/P10 --------------------------------------------------------------
+
+# (nb, out) -> (vec, cols, kw, splits, blocks a split) of each codec's
+# default plan, worked by hand from u4_gemv_plan's rule: P9's 8 word
+# columns a lane (256-column tiles at 8 warps along k, 512 at 4 where more
+# than 128 tiles), P5's 4 byte columns a lane (two runs of 128 a CTA at 8
+# warps along k, 2 x 256 at 4, but only where a CTA's bytes divide out / 2);
+# splits doubled while the tiles x splits stay under 128 CTAs and each warp
+# keeps a block (a split >= 8 blocks); at most 256 blocks a split
+U4_PLANS = [
+    (gemv.W_FS, (64, 3072), (8, 256, 8, 8, 8)),      # wqkv: 12 tiles x 8
+    (gemv.W_FS, (64, 16384), (8, 256, 8, 2, 32)),    # w13: 64 tiles x 2
+    (gemv.W_FS, (256, 2048), (8, 256, 8, 8, 32)),    # w2: 8 tiles x 8
+    (gemv.W_FS, (64, 32768), (8, 256, 8, 1, 64)),    # the probe's wcls: 128 tiles
+    (gemv.W_FS, (64, 128256), (8, 512, 4, 1, 64)),   # the 1B wcls: 251 tiles of 512
+    (gemv.W_FS, (68, 264), (8, 256, 8, 8, 9)),       # a ragged depth and width
+    (gemv.W_SH, (64, 3072), (4, 256, 8, 8, 8)),      # 1536 bytes a row: 12 tiles x 8
+    (gemv.W_SH, (256, 2048), (4, 256, 8, 8, 32)),    # w2: 8 tiles x 8
+    (gemv.W_SH, (64, 32768), (4, 256, 8, 1, 64)),    # 128 tiles
+    (gemv.W_SH, (64, 65536), (4, 512, 4, 1, 64)),    # 256 tiles of 256 -> 128 of 512
+    (gemv.W_SH, (64, 128256), (4, 256, 8, 1, 64)),   # 256 bytes do not divide 64128: 8 warps
+]
+
+
+@pytest.mark.parametrize("weights,shape,want", U4_PLANS)
+def test_u4_plan_is_the_hand_worked_one(weights, shape, want):
+    plan = gemv.u4_gemv_plan(*shape, weights)
+    assert _plan_args(plan) == want
+    assert plan.ctas(shape[1]) == -(-shape[1] // want[1]) * want[3]
+
+
+@pytest.mark.parametrize("weights", [gemv.W_FS, gemv.W_SH])
+@pytest.mark.parametrize("nb", [1, 3, 8, 17, 64, 68, 100, 256, 448, 1000, 2048])
+@pytest.mark.parametrize("out_f", [256, 264, 2048, 3072, 32768, 128256])
+def test_u4_plan_is_a_function_of_the_shape_alone(weights, nb, out_f):
+    """Each codec's default plan from (nb, out) alone, the same every call:
+    at most MAX_SPLITS splits, none empty, their warp runs covering the
+    contraction once in order; the columns a lane divide the weight row;
+    for P5 a CTA's cols / 2 bytes divide out / 2; where its blocks a split
+    divide nb it is one of the codec's tiles."""
+    if weights == gemv.W_SH and out_f == 264:  # 132 bytes a row: no split-half plan
+        with pytest.raises(ValueError):
+            gemv.u4_gemv_plan(nb, out_f, weights)
+        return
+    plan = gemv.u4_gemv_plan(nb, out_f, weights)
+    assert plan == gemv.u4_gemv_plan(nb, out_f, weights)
+    assert 1 <= plan.splits <= gemv.MAX_SPLITS and plan.blocks_per_split <= gemv.MAX_BPS
+    runs = gemv.U4_RUNS[weights]
+    assert plan.vec == gemv.U4_VEC[weights] and (out_f // runs) % plan.vec == 0
+    assert plan.cols == runs * 32 * plan.vec * (gemv.WARPS // plan.kw)
+    if runs == 2:
+        assert (out_f // 2) % (plan.cols // 2) == 0
+    seen = []
+    for s in range(plan.splits):
+        blocks = plan.split_range(s, nb)
+        assert len(blocks) >= 1
+        for kw in range(plan.kw):
+            seen += list(plan.warp_range(kw, blocks))
+    assert seen == list(range(nb))
+    if nb % plan.blocks_per_split == 0:
+        assert gemv.u4_tile_plan(nb, out_f, plan.cols, plan.blocks_per_split, weights) == plan
+
+
+def test_u4_tiles_leave_out_only_what_passes_the_cluster():
+    """At nb 64 every JAX tile_knb up to nb fits; at nb 256 the 8- and
+    16-block tiles (32 and 16 splits) are left out at every width; P5's
+    widths are those whose half divides out / 2. Every tile is a plan, and
+    a tile past the cluster limit is refused."""
+    tiles, left = int4c.tiles_for(64, 2048)
+    assert left == 0 and len(tiles) == 4 * 4
+    tiles, left = int4c.tiles_for(256, 2048)
+    assert left == 2 * 4 and sorted({k for _, k in tiles}) == [32, 64, 128, 256]
+    tiles, left = int4b.tiles_for(256, 3072)  # 1536 bytes a row: 1024-byte CTAs do not fit
+    assert sorted({c for c, _ in tiles}) == [256, 512, 1024] and left == 2 * 3
+    for weights in (gemv.W_FS, gemv.W_SH):
+        for nb, out_f in ((64, 2048), (256, 2048), (64, 3072)):
+            for cols, blocks in gemv.u4_tiles_for(nb, out_f, weights)[0]:
+                plan = gemv.u4_tile_plan(nb, out_f, cols, blocks, weights)
+                assert plan.splits == nb // blocks <= gemv.MAX_SPLITS and plan.cols == cols
+        for nb, cols, blocks in ((256, 256, 16), (256, 256, 8), (64, 128, 8), (64, 256, 3),
+                                 (64, 4096, 8)):
+            with pytest.raises(ValueError):
+                gemv.u4_tile_plan(nb, 2048, cols, blocks, weights)
+
+
+def _u4_operands(in_f, out_f, rows, seed):
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, "cpu", seed=seed)
+    return (x8, xs, int4b.block_sums(x8, in_f // 32), qt, dt, int4c.pack_feature_split(qt),
+            int4b.pack_split_half(qt))
+
+
+def _u4_plain(weights, x8, xs, bs, qp, qsh, d, cols, blocks):
+    """A codec's plain version in natural column order [R, out]."""
+    nb, out_f = d.shape
+    if weights == gemv.W_FS:
+        return int4c.fs_call_plain(x8, xs, bs, qp, d, cols, blocks)
+    return int4b.sh_call_plain(x8, xs, bs, qsh, d.reshape(nb, 2, out_f // 2), cols,
+                               blocks).reshape(x8.shape[0], out_f)
+
+
+@pytest.mark.parametrize("weights", [gemv.W_FS, gemv.W_SH])
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048)])
+def test_u4_plain_is_gemv_order_on_block_terms(weights, in_f, out_f):
+    """Both codecs' plain versions, which take the dot with u less 8 * bs,
+    equal the signed weight's block terms (`gemv.block_terms`, no bs)
+    summed in the tile's plan's order (`_gemv_order`) bit for bit, at every
+    tile, both planes, 1 and 3 rows."""
+    x8, xs, bs, qt, dt, qp, qsh = _u4_operands(in_f, out_f, 3, seed=6)
+    nb = in_f // 32
+    for rows in (1, 3):
+        for d in (dt, dt.view(torch.int16)):
+            terms = gemv.block_terms(x8[:rows], xs[:rows], qt, scales.plane_f32(d))
+            for cols, blocks in gemv.u4_tiles_for(nb, out_f, weights)[0]:
+                plan = gemv.u4_tile_plan(nb, out_f, cols, blocks, weights)
+                got = _u4_plain(weights, x8[:rows], xs[:rows], bs[:rows], qp, qsh, d, cols,
+                                blocks)
+                assert torch.equal(got, _gemv_order(terms, plan)), (rows, d.dtype, cols, blocks)
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 32768)])
+def test_u4_plain_at_p3s_plan_is_p3(in_f, out_f):
+    """On the same values (the s4 bytes, the feature-split words and the
+    split-half bytes of one int8 draw, the f16 plane and its raw bits) both
+    codecs' plain versions at P3's plan tile are P3's int8 plain version
+    bit for bit, at 1 and 3 rows."""
+    x8, xs, bs, qt, dt, qp, qsh = _u4_operands(in_f, out_f, 3, seed=7)
+    qt4, nb = int4.pack_s4(qt), in_f // 32
+    for rows in (1, 3):
+        want = int4.i4_call_plain(x8[:rows], xs[:rows], qt4, dt)
+        for weights in (gemv.W_FS, gemv.W_SH):
+            tile = gemv.u4_p3_tile(nb, out_f, weights)
+            for d in (dt, dt.view(torch.int16)):
+                got = _u4_plain(weights, x8[:rows], xs[:rows], bs[:rows], qp, qsh, d, *tile)
+                assert torch.equal(got, want), (weights, rows, d.dtype)
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048)])
+def test_u4_launch_their_tile_once_whatever_the_row_count(monkeypatch, in_f, out_f):
+    """P5 (both storages), P9 and P10 hand the kernel their tile's plan at
+    1..8 rows, with their loader, both planes' scale kinds and bs, launch
+    once a call and count it once; at the default plan's tile the plan is
+    the default plan."""
+    x8, xs, bs, _, dt, qp, qsh = _u4_operands(in_f, out_f, 8, seed=8)
+    nb = in_f // 32
+    cap = _Captured(monkeypatch)
+    for weights in (gemv.W_FS, gemv.W_SH):
+        plan = gemv.u4_gemv_plan(nb, out_f, weights)
+        tiles = gemv.u4_tiles_for(nb, out_f, weights)[0]
+        assert (plan.cols, plan.blocks_per_split) in tiles
+        for rows in range(1, 9):
+            for (cols, blocks), d in zip(tiles, (dt, dt.view(torch.int16)) * len(tiles)):
+                calls = []
+                if weights == gemv.W_FS:
+                    calls += [(int4c.fs2d_call, lambda: int4c.fs2d_call(
+                        x8[:rows], xs[:rows], bs[:rows], qp.view(nb * 4, out_f), d, cols,
+                        blocks)), (int4c.fs_call, lambda: int4c.fs_call(
+                            x8[:rows], xs[:rows], bs[:rows], qp, d, cols, blocks))]
+                else:
+                    for st in int4b.STORAGES:
+                        calls.append((int4b.sh_call, lambda st=st: int4b.sh_call(
+                            x8[:rows], xs[:rows], bs[:rows], int4b.storage_view(qsh, st),
+                            d.reshape(nb, 2, out_f // 2), cols, blocks, st)))
+                for fn, call in calls:
+                    before, n = fn.launches, len(cap.calls)
+                    out = call()
+                    assert fn.launches == before + 1 and len(cap.calls) == n + 1
+                    assert out.numel() == rows * out_f
+                    lib, name, args = cap.calls[-1]
+                    assert (lib, name) == (gemv.U4_SOURCE, "u4_gemv")
+                    assert args[4] == weights and args[6] == (0 if d.dtype == torch.float16
+                                                              else 2)
+                    assert args[2] == bs[:rows].data_ptr()
+                    assert args[8:11] == (rows, nb, out_f)
+                    assert args[-5:] == _plan_args(gemv.u4_tile_plan(nb, out_f, cols, blocks,
+                                                                     weights))
+                    if (cols, blocks) == (plan.cols, plan.blocks_per_split):
+                        assert args[-5:] == _plan_args(plan)
+
+
+def test_u4_wrappers_refuse_a_tile_past_the_cluster(monkeypatch):
+    """16 splits of 4 blocks (the JAX tile_knb 4 at nb 64) have no plan: on
+    CPU tensors and on the card's launch path alike the wrappers raise, and
+    nothing is launched."""
+    x8, xs, bs, _, dt, qp, qsh = _u4_operands(2048, 2048, 1, seed=9)
+    for patch in (False, True):
+        cap = _Captured(monkeypatch) if patch else None
+        for cols in (256, 512):
+            with pytest.raises(ValueError):
+                int4c.fs_call(x8, xs, bs, qp, dt, cols, 4)
+            with pytest.raises(ValueError):
+                int4b.sh_call(x8, xs, bs, qsh, dt.reshape(64, 2, 1024), cols, 4)
+        if cap:
+            assert cap.calls == []
+
+
+@pytest.mark.parametrize("weights", [gemv.W_FS, gemv.W_SH])
+def test_u4_plain_rows_equal_their_one_row_calls(weights):
+    x8, xs, bs, _, dt, qp, qsh = _u4_operands(2048, 3072, 8, seed=10)
+    plan = gemv.u4_gemv_plan(64, 3072, weights)
+    tile = (plan.cols, plan.blocks_per_split)
+    got = _u4_plain(weights, x8, xs, bs, qp, qsh, dt, *tile)
+    ones = torch.cat([_u4_plain(weights, x8[r:r + 1], xs[r:r + 1], bs[r:r + 1], qp, qsh, dt,
+                                *tile) for r in range(8)])
+    assert torch.equal(got, ones)
+
+
+def test_p5_p9_ab_cases_and_old_sources(tmp_path, monkeypatch):
+    """The A/B's case list (five shapes, 1 and 8 rows, two planes, P5's two
+    storages and P9/P10's two views), its old-source discovery, its sweep's
+    plans, and its refusals: no mode, a directory without the earlier
+    sources, no card."""
+    cases = p5_p9_ab.cases()
+    assert len(cases) == 5 * 2 * 2 * 4
+    assert {(c["probe"], c["variant"]) for c in cases} == {
+        ("P5", "i8ops"), ("P5", "i32st"), ("P9", "fs2d"), ("P10", "fs")}
+    assert [s[1:] for s in int4b.SHAPES] == sorted({(c["in"], c["out"]) for c in cases},
+                                                   key=[s[1:] for s in int4b.SHAPES].index)
+    with pytest.raises(FileNotFoundError):
+        p5_p9_ab.old_sources(tmp_path)
+    (tmp_path / "i4_codec_probe.cu").write_text("// old\n")
+    with pytest.raises(FileNotFoundError):  # the header is missing
+        p5_p9_ab.old_sources(tmp_path)
+    (tmp_path / "q40_i8_mma.cuh").write_text("// old\n")
+    assert set(p5_p9_ab.old_sources(tmp_path)) == set(p5_p9_ab.OLD_SOURCES)
+    with pytest.raises(SystemExit):
+        p5_p9_ab.main([])
+    with pytest.raises(FileNotFoundError):
+        p5_p9_ab.main(["--old", str(tmp_path / "nowhere")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert p5_p9_ab.main(["--old", str(tmp_path)]) == 2
+    assert p5_p9_ab.main(["--sweep"]) == 2
+    # the old arm's tiles: 3 widths x the blocks dividing nb; P5's where a
+    # CTA's bytes divide out / 2
+    assert len(p5_p9_ab.old_tiles(64, 3072, gemv.W_FS)) == 3 * 4
+    assert len(p5_p9_ab.old_tiles(64, 1056, gemv.W_SH)) == 1 * 4
+    for weights in (gemv.W_FS, gemv.W_SH):
+        plans = p5_p9_ab.sweep_plans(64, 3072, weights)
+        pairs = {(p.vec, p.kw) for p in plans}
+        assert pairs <= set(p5_p9_ab.SWEEP_PAIRS[weights]) and len(pairs) >= 4
+        assert all(p.splits * p.blocks_per_split >= 64 > (p.splits - 1) * p.blocks_per_split
+                   for p in plans)
 
 
 # -- P12 ---------------------------------------------------------------------

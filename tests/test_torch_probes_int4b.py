@@ -2,7 +2,8 @@
 version against scripts/probe_int4b.py's `sh_call` (with `interpret=True`)
 for both storages at two tiles and against `_i8_call`, on the same numpy
 draw; the port's `pack_split_half` and `block_sums` byte for byte against
-the script's."""
+the script's. The JAX tile_n stays the script's; `cols` and `blocks` are
+tiles of the port's plan (probes/gemv.py `u4_tile_plan`)."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,8 @@ import jax.numpy as jnp
 
 from distributed_llama_tpu.ops.pallas_q40 import _dt_operand, _i8_call, _quantize_rows_q80
 from distributed_llama_tpu_torch.ops import cuda_q40
-from distributed_llama_tpu_torch.probes import int4, int4b
+from distributed_llama_tpu_torch.ops.cuda_q40 import _gemv_order
+from distributed_llama_tpu_torch.probes import gemv, int4, int4b
 from distributed_llama_tpu_torch.probes.operands import operands_from_jax
 from scripts import probe_int4b as jb
 
@@ -53,7 +55,7 @@ def _storage(p8: np.ndarray, storage: str) -> np.ndarray:
 
 @pytest.mark.parametrize("storage", int4b.STORAGES)
 @pytest.mark.parametrize("in_f,out_f,tile_n,tile_knb,cols,blocks",
-                         [(512, 512, 256, 8, 64, 8), (1024, 768, 128, 16, 32, 16)])
+                         [(512, 512, 256, 8, 512, 8), (1024, 768, 128, 16, 256, 16)])
 def test_p5_plain_matches_jax_sh_call(storage, in_f, out_f, tile_n, tile_knb, cols, blocks):
     x8, xs, bs, qt, dt = _jax_operands(in_f, out_f, seed=tile_knb)
     nb, half = in_f // 32, out_f // 2
@@ -79,7 +81,7 @@ def test_p5_computes_i8_calls_function_in_natural_order(rows):
     for d in (bits, bits.view(torch.float16)):
         for storage in int4b.STORAGES:
             got = int4b.sh_call(px8, pxs, pbs, int4b.storage_view(qp, storage),
-                                d.reshape(64, 2, 128), 64, 16, storage).reshape(rows, 256)
+                                d.reshape(64, 2, 128), 256, 16, storage).reshape(rows, 256)
             assert np.abs(got.numpy() - want).max() <= REL_TOL * np.abs(want).max()
 
 
@@ -107,27 +109,36 @@ def test_block_sums_are_the_scripts(rows):
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu_and_counts_nothing():
-    """On CPU tensors sh_call gives B9's plain result in natural column
-    order at every tile, storage and plane; no launch is counted."""
-    x8, xs, qt, dt, _ = int4.make_operands(1024, 128, 3, "cpu", seed=4)
+    """On CPU tensors sh_call gives, in natural column order at every tile,
+    storage and plane, the signed weight's block terms (`block_terms`, no
+    bs) summed in the tile's plan's order bit for bit, within 1e-5 of B9's
+    plain result; no launch is counted."""
+    x8, xs, qt, dt, _ = int4.make_operands(1024, 512, 3, "cpu", seed=4)
     bs = int4b.block_sums(x8, 32)
     qp = int4b.pack_split_half(qt)
     before = int4b.sh_call.launches
-    ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
-    for cols, blocks in ((32, 8), (64, 16), (128, 32)):
+    b9 = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
+    terms = gemv.block_terms(x8, xs, qt, dt.float())
+    tiles, left_out = int4b.tiles_for(32, 512)
+    assert len(tiles) == 6 and left_out == 0
+    for cols, blocks in tiles:
+        ref = _gemv_order(terms, gemv.u4_tile_plan(32, 512, cols, blocks, gemv.W_SH))
         for d in (dt, dt.view(torch.int16)):
             for storage in int4b.STORAGES:
                 got = int4b.sh_call(x8, xs, bs, int4b.storage_view(qp, storage),
-                                    d.reshape(32, 2, 64), cols, blocks, storage)
-                assert got.shape == (3, 2, 64) and torch.equal(got.reshape(3, 128), ref)
+                                    d.reshape(32, 2, 256), cols, blocks, storage)
+                assert got.shape == (3, 2, 256) and torch.equal(got.reshape(3, 512), ref)
+        assert (ref - b9).abs().max().item() <= REL_TOL * b9.abs().max().item()
     assert int4b.sh_call.launches == before
 
 
 def test_checks_refuse_what_is_not_built():
-    x8, xs, qt, dt, _ = int4.make_operands(1024, 128, 1, "cpu")
+    x8, xs, qt, dt, _ = int4.make_operands(1024, 256, 1, "cpu")
     bs = int4b.block_sums(x8, 32)
-    qp, dt2 = int4b.pack_split_half(qt), dt.reshape(32, 2, 64)
-    for cols, blocks in ((48, 8), (64, 5), (512, 8)):  # tiles that are not built
+    qp, dt2 = int4b.pack_split_half(qt), dt.reshape(32, 2, 128)
+    # tiles that are not built (512 columns: 256 bytes a CTA, past 128 a row),
+    # and 16 splits of 2 blocks: past the cluster limit
+    for cols, blocks in ((48, 8), (64, 8), (256, 5), (512, 8), (256, 2)):
         with pytest.raises(ValueError):
             int4b.sh_call(x8, xs, bs, qp, dt2, cols, blocks)
     for q, d, b, storage in (
@@ -142,11 +153,11 @@ def test_checks_refuse_what_is_not_built():
         (qp, dt2, bs[:, 1:], "i8ops"),  # bs short of a block
     ):
         with pytest.raises(ValueError):
-            int4b.sh_call(x8, xs, b, q, d, 64, 8, storage)
-    # (out / 2) % (cols / 2) != 0: 132 bytes a row take no 16-byte CTA
+            int4b.sh_call(x8, xs, b, q, d, 256, 8, storage)
+    # (out / 2) % (cols / 2) != 0: 132 bytes a row take no 128-byte CTA
     x8, xs, qt, dt, _ = int4.make_operands(1024, 264, 1, "cpu")
     qp, dt2 = int4b.pack_split_half(qt), dt.reshape(32, 2, 132)
-    for cols in (32, 64, 128):
+    for cols in gemv.u4_tile_cols(gemv.W_SH):
         with pytest.raises(ValueError):
             int4b.sh_call(x8, xs, int4b.block_sums(x8, 32), qp, dt2, cols, 8)
 
@@ -155,16 +166,18 @@ def test_int4b_main_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):  # the card, unless told the CPU
         int4b.main(["--shape", "256,64"])
-    rows = int4b.main(["--device", "cpu", "--shape", "512,128", "--shape", "1024,64",
+    rows = int4b.main(["--device", "cpu", "--shape", "512,128", "--shape", "1024,256",
                        "--only", "1024", "--seed", "2"])
     assert [r["probe"] for r in rows[:2]] == ["B9 baseline", "first K1 body"]
     tiles = rows[2:]
-    # out / 2 = 32 bytes a row: TN 128 (64 bytes a CTA) does not fit
-    assert len(tiles) == 2 * len([t for t in int4b.tiles_for(32) if t[0] < 128])
+    # out / 2 = 128 bytes a row: only TN 256 (128 bytes a CTA) fits
+    assert len(tiles) == 2 * len(int4b.tiles_for(32, 256)[0]) == 6
     assert all(r["probe"] == "P5" and r["storages"] == list(int4b.STORAGES)
-               and r["storages_bit_equal"] and r["planes_bit_equal"]
-               and r["max_abs_err"] <= REL_TOL * r["out_scale"] for r in tiles)
-    assert tiles[0]["bytes"] == 1024 * 64 // 2 + 32 * 64 * 2 + 1024 + 32 * 8 + 64 * 4
+               and r["storages_bit_equal"] and r["planes_bit_equal"] and r["bit_equal_plain"]
+               and r["max_abs_err_vs_b9"] <= REL_TOL * r["out_scale"] for r in tiles)
+    assert sum(r["default_plan"] for r in tiles) == 2
+    assert [r["equals_p3"] for r in tiles if r["p3_plan"]] == [True, True]
+    assert tiles[0]["bytes"] == 1024 * 256 // 2 + 32 * 256 * 2 + 1024 + 32 * 8 + 256 * 4
     out = capsys.readouterr().out
     assert "not measured" in out and "one instance" in out
     assert [s[1:] for s in int4b.SHAPES] == [(2048, 3072), (2048, 2048), (2048, 16384),

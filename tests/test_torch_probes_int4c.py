@@ -2,7 +2,9 @@
 plain version against scripts/probe_int4c.py's `fs2d_call` and `fs_call`
 (with `interpret=True`) at two tiles and against `_i8_call`, on the same
 numpy draw; the port's `pack_feature_split` byte for byte against the
-script's and against the port's T layout (`ops/quant.py:pack_q`)."""
+script's and against the port's T layout (`ops/quant.py:pack_q`). The JAX
+tile_n stays the script's; `cols` and `blocks` are tiles of the port's plan
+(probes/gemv.py `u4_tile_plan`)."""
 
 import numpy as np
 import pytest
@@ -12,8 +14,9 @@ import jax.numpy as jnp
 
 from distributed_llama_tpu.ops.pallas_q40 import _dt_operand, _i8_call, _quantize_rows_q80
 from distributed_llama_tpu_torch.ops import cuda_q40
+from distributed_llama_tpu_torch.ops.cuda_q40 import _gemv_order
 from distributed_llama_tpu_torch.ops.quant import pack_q
-from distributed_llama_tpu_torch.probes import int4, int4b, int4c
+from distributed_llama_tpu_torch.probes import gemv, int4, int4b, int4c
 from distributed_llama_tpu_torch.probes.operands import operands_from_jax
 from scripts import probe_int4b as jb
 from scripts import probe_int4c as jc
@@ -45,7 +48,7 @@ def _port(x8, xs, bs, qt, dt):
     return px8, pxs, pbs, pqt, pdt.view(torch.int16)
 
 
-CASES = [(512, 512, 256, 8, 64, 8), (512, 512, 128, 16, 32, 16), (1024, 264, 88, 32, 128, 32)]
+CASES = [(512, 512, 256, 8, 256, 8), (512, 512, 128, 16, 512, 16), (1024, 264, 88, 32, 256, 32)]
 
 
 @pytest.mark.parametrize("in_f,out_f,tile_n,tile_knb,cols,blocks", CASES)
@@ -82,8 +85,8 @@ def test_p9_p10_compute_i8_calls_function(rows):
     px8, pxs, pbs, pqt, bits = _port(x8, xs, bs, qt, dt)
     qp = int4c.pack_feature_split(pqt)
     for d in (bits, bits.view(torch.float16)):
-        for got in (int4c.fs_call(px8, pxs, pbs, qp, d, 64, 16),
-                    int4c.fs2d_call(px8, pxs, pbs, qp.view(-1, 256), d, 32, 8)):
+        for got in (int4c.fs_call(px8, pxs, pbs, qp, d, 256, 16),
+                    int4c.fs2d_call(px8, pxs, pbs, qp.view(-1, 256), d, 512, 8)):
             assert np.abs(got.numpy() - want).max() <= REL_TOL * np.abs(want).max()
 
 
@@ -98,21 +101,28 @@ def test_pack_feature_split_is_the_scripts_and_the_t_layout(nb, out_f):
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
-    """On CPU tensors both wrappers give K1's plain GEMV on the same words
-    and plane, at every tile, on either plane; no launch is counted."""
+    """On CPU tensors both wrappers give, at every tile on either plane, the
+    signed weight's block terms (`block_terms`, no bs) summed in the tile's
+    plan's order bit for bit, within 1e-5 of K1's plain GEMV on the same
+    words and of B9; no launch is counted."""
     x8, xs, qt, dt, _ = int4.make_operands(1024, 128, 3, "cpu", seed=4)
     bs = int4b.block_sums(x8, 32)
     qp = int4c.pack_feature_split(qt)
     qp2d = qp.view(128, 128)
     before = (int4c.fs2d_call.launches, int4c.fs_call.launches)
-    ref = cuda_q40.q80_gemv_plain(x8, xs, bs, qp2d, dt)
-    for cols, blocks in ((32, 8), (64, 16), (128, 32)):
+    k1 = cuda_q40.q80_gemv_plain(x8, xs, bs, qp2d, dt)
+    b9 = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
+    terms = gemv.block_terms(x8, xs, qt, dt.float())
+    tiles, left_out = int4c.tiles_for(32, 128)
+    assert len(tiles) == 12 and left_out == 0
+    for cols, blocks in tiles:
+        ref = _gemv_order(terms, gemv.u4_tile_plan(32, 128, cols, blocks, gemv.W_FS))
         for d in (dt, dt.view(torch.int16)):
             assert torch.equal(int4c.fs2d_call(x8, xs, bs, qp2d, d, cols, blocks), ref)
             assert torch.equal(int4c.fs_call(x8, xs, bs, qp, d, cols, blocks), ref)
+        for other in (k1, b9):
+            assert (ref - other).abs().max().item() <= REL_TOL * other.abs().max().item()
     assert (int4c.fs2d_call.launches, int4c.fs_call.launches) == before
-    b9 = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
-    assert (ref - b9).abs().max().item() <= REL_TOL * b9.abs().max().item()
 
 
 def test_checks_refuse_what_is_not_built():
@@ -120,13 +130,14 @@ def test_checks_refuse_what_is_not_built():
     bs = int4b.block_sums(x8, 32)
     qp = int4c.pack_feature_split(qt)
     qp2d = qp.view(128, 128)
-    for cols, blocks in ((48, 8), (64, 5), (512, 8)):  # tiles that are not built
+    # tiles that are not built, and 16 splits of 2 blocks: past the cluster limit
+    for cols, blocks in ((48, 8), (64, 8), (300, 8), (256, 5), (256, 2)):
         with pytest.raises(ValueError):
             int4c.fs2d_call(x8, xs, bs, qp2d, dt, cols, blocks)
     with pytest.raises(ValueError):
-        int4c.fs_call(x8, xs, bs, qt, dt, 64, 8)  # B9's [nb, 32, out] int8
+        int4c.fs_call(x8, xs, bs, qt, dt, 256, 8)  # B9's [nb, 32, out] int8
     with pytest.raises(ValueError):
-        int4c.fs_call(x8, xs, bs, qp.view(torch.uint8), dt, 64, 8)  # bytes, not words
+        int4c.fs_call(x8, xs, bs, qp.view(torch.uint8), dt, 256, 8)  # bytes, not words
     for q, d, b in (
         (qp2d[:127], dt, bs),  # not a whole number of blocks
         (qp2d.t(), dt, bs),  # not contiguous
@@ -137,7 +148,7 @@ def test_checks_refuse_what_is_not_built():
         (qp2d, dt, torch.cat([bs, bs])),  # two rows' sums for one row
     ):
         with pytest.raises(ValueError):
-            int4c.fs2d_call(x8, xs, b, q, d, 64, 8)
+            int4c.fs2d_call(x8, xs, b, q, d, 256, 8)
 
 
 def test_int4c_main_on_the_cpu(monkeypatch, capsys):
@@ -148,9 +159,12 @@ def test_int4c_main_on_the_cpu(monkeypatch, capsys):
                        "--only", "1024", "--seed", "2"])
     assert [r["probe"] for r in rows[:2]] == ["B9 baseline", "first K1 body"]
     tiles = rows[2:]
-    assert len(tiles) == 2 * len(int4c.tiles_for(32))
+    assert len(tiles) == 2 * len(int4c.tiles_for(32, 64)[0]) == 24
     assert all(r["probe"] == "P9" and r["views_bit_equal"] and r["planes_bit_equal"]
-               and r["max_abs_err"] <= REL_TOL * r["out_scale"] for r in tiles)
+               and r["bit_equal_plain"] and r["max_abs_err_vs_b9"] <= REL_TOL * r["out_scale"]
+               for r in tiles)
+    assert sum(r["default_plan"] for r in tiles) == 2
+    assert [r["equals_p3"] for r in tiles if r["p3_plan"]] == [True, True]
     assert {r["plane"] for r in tiles} == {"f16", "i16"}
     assert tiles[0]["bytes"] == 1024 * 64 // 2 + 32 * 64 * 2 + 1024 + 32 * 8 + 64 * 4
     assert tiles[0]["phys_bytes"] == 1024 * 64 // 2 + 32 * 64 * 2
