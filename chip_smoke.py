@@ -23,15 +23,16 @@ caught):
      over the whole cache, at the 1B and 30B-A3B attention shapes;
   3b. the kernel probes (B9, P3, P4, P14): each kernel or instance
      against its plain version at every probe shape (Llama-3.2-1B layer
-     shapes and the full wcls 2048 -> 128256): B9 and P4's three instances
-     bit for bit equal to each other, P3's two arms (the one-row GEMV) at
-     1..8 rows bit for bit equal to their plain order and to each other and
-     within 1e-5 of B9, and P14's checksums; then
+     shapes and the full wcls 2048 -> 128256): P3's two arms and P4's
+     three (the one-row GEMV, each at its plan) at 1..8 rows bit for bit
+     equal to their plain order, P4 to P3 at P4's plan, within 1e-5 of B9,
+     and P14's checksums; then
      the probes' entry points (probes/int4.py and probes/dma.py main) with
      their launch counters set to 0 just before and read just after: cold
      (operands out of L2) and hot times, the streaming ceiling per shape;
   3c. the decode-attention floor probes and the first K1's body: P11 (pure
-     read), P12 (grouped decode attention, hd 64 and 128, g 4 and 8), P8 (K3
+     read, bit for bit its plain order), P12 (grouped decode attention,
+     hd 64 and 128, g 4 and 8), P8 (K3
      on a head-major cache) and P7 (the first K1's GEMV body at every tile,
      and its Q80 prologue alone) against their plain versions at the probe
      shapes, K1 on the same rows bit for bit equal to its blocked order;
@@ -42,8 +43,8 @@ caught):
      f16 bits -> f32) on the 1B wcls plane bit for bit, P13 at B9's tile
      equal to B9 with each plane, P2 (the one-row GEMV) at 1..8 rows equal
      to its plain version bit for bit, its two planes equal and within
-     1e-5 of P13 at the old P2 tile, and P6 at P3's plan equal to P3 and
-     within 1e-5 of P4;
+     1e-5 of P13 at the old P2 tile, and P6 at P3's and P4's plans equal
+     to their bf16 arms;
      then the sweeps' entry points (probes/scales.py
      and probes/i4_tiles.py main), counted as the path "scale and tile
      sweeps", whose rows are held: P1 on every bit pattern bit for bit, P13
@@ -945,26 +946,29 @@ PROBE_SOURCES = {
                      "scripts/probe_int4.py:153"),
     "i4_call_bf16": ("distributed_llama_tpu_torch/csrc/i4_gemv_probe.cu",
                      "scripts/probe_int4.py:153"),
-    "i32_call_int8": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:219"),
-    "i32_call_bf16": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:219"),
-    "i32_call_f32": ("distributed_llama_tpu_torch/csrc/q40_i8_mma.cu", "scripts/probe_int4.py:219"),
+    "i32_call_int8": ("distributed_llama_tpu_torch/csrc/i4_gemv_probe.cu",
+                      "scripts/probe_int4.py:219"),
+    "i32_call_bf16": ("distributed_llama_tpu_torch/csrc/i4_gemv_probe.cu",
+                      "scripts/probe_int4.py:219"),
+    "i32_call_f32": ("distributed_llama_tpu_torch/csrc/i4_gemv_probe.cu",
+                     "scripts/probe_int4.py:219"),
     "stream_call": ("distributed_llama_tpu_torch/csrc/stream_probe.cu", "scripts/probe_dma.py:40"),
 }
 
 
 def probe_checks(torch):
-    """B9 and P4's three instances against their plain versions at every
-    shape of the int4 probe (B9 at 8 rows too), each P4 instance equal to
-    B9 bit for bit (exact integer partials in every dot type, one shared
-    scale-and-accumulate order); P3's two arms (the one-row GEMV at
-    i4_gemv_plan) at 1..8 rows of every shape bit for bit equal to their
-    plain order (which holds their max error) and to each other, and
-    within SWEEP_REL_TOL of B9 (the f32 block sums in another order); P14
+    """B9 against its plain version at every shape of the int4 probe (at 8
+    rows too); P3's two arms (the one-row GEMV at i4_gemv_plan) and P4's
+    three (at i32_plan) at 1..8 rows of every shape bit for bit equal to
+    their plain order (which holds their max error; exact integer partials
+    in every dot type, one plan's order), P4 to P3's int8 instance at P4's
+    plan, and within SWEEP_REL_TOL of B9 (the f32 block sums in another
+    order); P14
     at every swept tile of every dma probe shape, its out and checksums
     against the plain version's. Returns {kernel name: (max abs err, max
     rel err, tolerance)}."""
     from distributed_llama_tpu_torch.ops import cuda_q40
-    from distributed_llama_tpu_torch.probes import dma, int4
+    from distributed_llama_tpu_torch.probes import dma, gemv, int4
 
     errs = {}
 
@@ -972,35 +976,41 @@ def probe_checks(torch):
         old = errs.get(name, (0.0, 0.0, 0.0))
         errs[name] = tuple(max(a, b) for a, b in zip(old, e))
 
-    p3 = (int4.i4_call_int8, int4.i4_call_bf16)
+    b9 = cuda_q40.q40_i8_unpacked
     for label, in_f, out_f in int4.SHAPES:
         for rows in ((1, 8) if out_f == 3072 else (1,)):
             x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, "cuda", seed=11)
-            ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
-            for _, fn, plain, w, dot, _ in int4.variants(qt):
-                if fn in p3:
-                    continue
-                got = fn(x8, xs, w, dt)
-                # exact integer partials, f32 block sums in another order
-                keep(fn.__name__, compare(torch, f"{fn.__name__} {label} rows {rows}",
-                                          [(got, plain(x8, xs, w, dt, dot))], rel_tol=1e-5))
-                diff = (got - ref).abs().max().item()
-                assert torch.equal(got, ref), f"{fn.__name__} {label}: differs from B9 by {diff}"
-            del x8, xs, qt, dt, ref
+            # exact integer partials, f32 block sums in another order
+            keep(b9.__name__, compare(torch, f"{b9.__name__} {label} rows {rows}",
+                                      [(b9(x8, xs, qt, dt),
+                                        cuda_q40.q40_i8_unpacked_plain(x8, xs, qt, dt))],
+                                      rel_tol=1e-5))
+            del x8, xs, qt, dt
             torch.cuda.empty_cache()
         x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, 8, "cuda", seed=11)
-        qt4 = int4.pack_s4(qt)
-        full = int4.i4_call_plain(x8, xs, qt4, dt)
+        qt4, qw = int4.pack_s4(qt), int4.pack_i32_t(qt)
+        p4_plan = int4.i32_plan(in_f // 32, out_f)
+        full = {int4.i4_call_int8: int4.i4_call_plain(x8, xs, qt4, dt),
+                int4.i32_call_int8: int4.i32_call_plain(x8, xs, qw, dt)}
+        full[int4.i4_call_bf16] = full[int4.i4_call_int8]
+        full[int4.i32_call_bf16] = full[int4.i32_call_f32] = full[int4.i32_call_int8]
         for rows in range(1, 9):
-            ref = cuda_q40.q40_i8_unpacked(x8[:rows], xs[:rows], qt, dt)
-            got = {fn: fn(x8[:rows], xs[:rows], qt4, dt) for fn in p3}
+            ref = b9(x8[:rows], xs[:rows], qt, dt)
+            got = {fn: fn(x8[:rows], xs[:rows], qt4 if fn in (int4.i4_call_int8,
+                                                              int4.i4_call_bf16) else qw, dt)
+                   for fn in int4.KERNELS}
             for fn, g in got.items():
                 name = f"{fn.__name__} {label} rows {rows}"
-                assert torch.equal(g, full[:rows]), f"{name}: differs from its plain order"
-                keep(fn.__name__, compare(torch, name, [(g, full[:rows])], rel_tol=SWEEP_REL_TOL))
+                want = full[fn][:rows]
+                assert torch.equal(g, want), f"{name}: differs from its plain order"
+                keep(fn.__name__, compare(torch, name, [(g, want)], rel_tol=SWEEP_REL_TOL))
                 compare(torch, f"{name} vs B9", [(g, ref)], rel_tol=SWEEP_REL_TOL)
-            assert torch.equal(*got.values()), f"P3 {label} rows {rows}: the arms differ"
-        del x8, xs, qt, qt4, dt, full, ref, got
+            # exact partials: P3's int8 instance at P4's plan gives P4's bits
+            p3_at = gemv.launch_i4_gemv(x8[:rows], xs[:rows], qt4, gemv.W_S4, gemv.DOTS["int8"],
+                                        dt, p4_plan)
+            assert torch.equal(got[int4.i32_call_int8], p3_at), \
+                f"P4 {label} rows {rows}: differs from P3 at P4's plan"
+        del x8, xs, qt, qt4, qw, dt, full, ref, got, p3_at
         torch.cuda.empty_cache()
     for label, in_f, out_f in dma.SHAPES:
         bias, qp = dma.make_plane(in_f, out_f, "cuda", seed=12)
@@ -1082,7 +1092,9 @@ ATT_REL_TOL = 2.0 ** -6  # P12 and P8 against their plain versions, of the outpu
 
 def floor_checks(torch):
     """P11, P12 and P8 at the attention probe's shapes (b 1, h 32, kv 8, hd
-    64, S 1024 / 2048 / 32768, pos = S - 10), P12 also at hd 128 and g 8
+    64, S 1024 / 2048 / 32768, pos = S - 10), P11 also at b 4, hd 128, bit
+    for bit its plain order and within 1e-6 of the column's sum of
+    magnitudes of torch's sum, P12 also at hd 128 and g 8
     and with col0 > 0; P7 at every tile of every int4_prod shape, at 1 and
     8 rows, K1 on the same rows bit-equal to its blocked order, and the
     prologue equal to its plain version. Returns {row name: (max abs err, max rel err,
@@ -1102,7 +1114,15 @@ def floor_checks(torch):
         # f32 sums of 8 * S bf16 values in another order: 1e-6 of the
         # column's sum of magnitudes
         mag = (k.float().abs().sum(dim=(1, 2)) + v.float().abs().sum(dim=(1, 2))).max().item()
-        keep("pure_read", compare(torch, f"pure_read S {S}", [(got, want)], abs_tol=1e-6 * mag))
+        compare(torch, f"pure_read S {S} vs torch's sum", [(got, want)], abs_tol=1e-6 * mag)
+        for bk, kk, vk in ((1, k, v), (4, *attention.make_operands(4, 8, 8, 128, S, "cuda",
+                                                                    seed=S + 1)[1:])):
+            g = attention.pure_read(kk, vk)
+            # the kernel's order repeated by the plain version: bit for bit
+            assert torch.equal(g, attention.pure_read_order_plain(kk, vk)), \
+                f"pure_read S {S} b {bk}: differs from its plain order"
+            keep("pure_read", compare(torch, f"pure_read S {S} b {bk}",
+                                      [(g, attention.pure_read_order_plain(kk, vk))], abs_tol=0.0))
         pos = S - 10
         q4 = q.reshape(1, 1, 32, 64)
         # p rounds to bf16 against each tile's (split's, block's) running
@@ -1233,9 +1253,9 @@ def sweep_checks(torch):
     columns and B9's split, each plane, bit for bit equal to B9 at every
     sweep shape (1B and 8B); P2 at 1..8 rows equal to its plain version bit
     for bit, its two planes equal to each other and within SWEEP_REL_TOL of
-    P13 at P2_TILE (its int8-MMA design before); P6 at P3's plan bit for
-    bit equal to P3's bf16 arm on the same values and within SWEEP_REL_TOL
-    of P4's bf16 instance (B9's order). Every tile against the plain
+    P13 at P2_TILE (its int8-MMA design before); P6 at P3's plan and at
+    P4's bit for bit equal to P3's and P4's bf16 arms on the same values.
+    Every tile against the plain
     version, the three planes' bit identity at every tile and P1 on every
     bit pattern are the mains' rows, held in sweep_rows."""
     from distributed_llama_tpu_torch.ops import cuda_q40
@@ -1281,8 +1301,12 @@ def sweep_checks(torch):
                                      *i4_tiles.p3_tile(in_f // 32, out_f))
         assert torch.equal(got, int4.i4_call_bf16(x8, xs, int4.pack_s4(qt), dt)), \
             f"i4_sweep_call {label} at P3's plan: differs from P3's bf16 arm"
-        compare(torch, f"i4_sweep_call {label} at P3's plan vs P4",
-                [(got, int4.i32_call_bf16(x8, xs, qw, dt))], rel_tol=SWEEP_REL_TOL)
+        # P6 at P4's warps along k and blocks a split, where its tiles have them
+        tile = i4_tiles.plan_tile(int4.i32_plan(in_f // 32, out_f))
+        if tile in i4_tiles.tiles_for(in_f // 32)[0]:
+            got = i4_tiles.i4_sweep_call(x8, xs, qw, dt.view(torch.int16), *tile)
+            assert torch.equal(got, int4.i32_call_bf16(x8, xs, qw, dt)), \
+                f"i4_sweep_call {label} at P4's plan: differs from P4's bf16 arm"
         del x8, xs, qt, dt, qw, got
     torch.cuda.empty_cache()
     log(json.dumps({"phase": "sweep_checks", "ok": True}))

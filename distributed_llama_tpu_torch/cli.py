@@ -9,7 +9,9 @@ CLI, `--kv-layout` defaults to paged (DLT_KV_LAYOUT env first);
 cache's sequence axis over an n-shard mesh (parallel/): n cards, or the
 CPU n times with `--device cpu`; like the JAX CLI it keeps the contiguous
 layout there and says so. Speculation and the prefix cache are not ported:
-their non-off values raise NotImplementedError naming ROADMAP A10.
+their non-off values raise NotImplementedError naming ROADMAP A10. The
+reference's `worker` mode, anywhere in argv, prints the JAX CLI's migration
+text on stderr and returns 2, as the JAX CLI does.
 
 Usage:
   python -m distributed_llama_tpu_torch.cli inference --model m.m \
@@ -40,7 +42,7 @@ from .tokenizer import (
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="distributed_llama_tpu_torch")
-    p.add_argument("mode", choices=["inference", "chat", "perplexity"])
+    p.add_argument("mode", choices=["inference", "chat", "perplexity", "worker"])
     p.add_argument("--model", required=False, default=None)
     p.add_argument("--tokenizer", required=False, default=None)
     p.add_argument("--prompt", default=None)
@@ -326,9 +328,29 @@ def run_chat(args) -> int:
     return 0
 
 
+def _worker_migration_message() -> int:
+    # the JAX CLI's text (distributed_llama_tpu/cli.py), word for word: the
+    # reference's `dllama worker` processes have no counterpart here either
+    print(
+        "this framework has no worker processes: multi-chip/multi-host "
+        "execution runs the SAME command on every host.\n"
+        "  reference:  dllama inference --workers h1:port h2:port ...\n"
+        "  here:       <same inference command> --tp N      (one host)\n"
+        "              <same inference command> --distributed "
+        "--coordinator h0:port --num-processes P --process-id i  (pod)\n"
+        "see docs/DISTRIBUTED.md",
+        file=sys.stderr,
+    )
+    return 2
+
+
 def main(argv=None) -> int:
     raw = list(argv) if argv is not None else sys.argv[1:]
+    if raw[:1] == ["worker"]:  # before parsing, so the reference's worker flags do not matter
+        return _worker_migration_message()
     args = build_arg_parser().parse_args(raw)
+    if args.mode == "worker":  # `worker` later in argv parses as the mode
+        return _worker_migration_message()
     if args.model is None or args.tokenizer is None:
         print("--model and --tokenizer are required", file=sys.stderr)
         return 2

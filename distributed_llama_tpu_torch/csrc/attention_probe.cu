@@ -19,16 +19,25 @@
 // visible ones). At the Llama-3.2-1B width (kv 8, hd 64) a layer's cache at
 // S 1024 is 2.1 MB, which L2 holds; at S 32768 it is 67 MB, a cold stream.
 //
-// P11's design: the TPU kernel walks the cache in order on one core,
-// carrying the sum in scratch; one CTA per row would give a handful of
-// CTAs on 132 SMs. So P11 splits the flattened [kv * S, hd] rows into
-// chunks (a function of the shape alone), each CTA loads every element, 16
-// bytes a thread, four rows in flight, and adds each into its sum (a GPU
-// drops a load whose value is unused, so a read that is not summed would
-// not be a read; K and V are distinct buffers, as a cache has them), and a
-// second kernel combines the chunks in a fixed order: 1024 / hd lanes an
-// output, each summing every (1024 / hd)-th chunk in turn, then one lane
-// adding the lane sums in turn.
+// P11's design (one launch a call, the merge in a fixed order inside it):
+// the TPU kernel walks the cache in order on one core, carrying the sum in
+// scratch; one CTA per row would give a handful of CTAs on 132 SMs. So a
+// row's flattened [kv * S, hd] rows are cut into chunks of whole CTA
+// iterations, as many as reach about 256 CTAs over the batch
+// (probes/attention.py read_plan, the shape alone). A CTA of 8 warps
+// loads every element, 16 bytes a thread, 4 rows' K and V vectors in
+// flight, and adds each into its thread's f32 sums (a GPU drops a load
+// whose value is unused, so a read that is not summed would not be a read;
+// K and V are distinct buffers, as a cache has them); the CTA's threads of
+// a column are summed in order through shared memory; a ticket finds the
+// row's last CTA, which adds the partials in a fixed order (K5's merge)
+// and resets the ticket. probes/attention.py pure_read_order_plain repeats
+// the order bit for bit. probes/p4_p11_ab.py --sweep (NVIDIA H100 80GB
+// HBM3, 700 W) chose the ticket over a row's splits as one thread-block
+// cluster merged through distributed shared memory in rank order: 16 CTAs
+// a row, the cluster's most, lost at S 1024 (hd 64, b 1: 7.92 against 4.86
+// us cold) and streamed a long cache 5.5x slower (S 32768: 163.6 against
+// 29.6 us); it replaced a second kernel's ordered combine.
 //
 // P12's design (one launch a call, no scratch, no second pass):
 //   * split-S as absolute column ranges from (S, hd) alone
@@ -80,92 +89,146 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int READ_THREADS = 256;
-constexpr int COMBINE_THREADS = 1024;  // P11's second pass: HD columns x (1024 / HD) lanes
+constexpr int READ_THREADS = 256;      // P11's CTA: 8 warps
+constexpr int READ_STAGE = 8192;       // floats of P11's shared memory: a merge pass's partials
 constexpr int MAX_CLUSTER = 16;        // the non-portable cluster size
 constexpr int MAX_G = 8;  // query heads a kv head: the MMA's rows 0..7 (8..15 stay zero)
 constexpr float NEG_INF = -FLT_MAX;
 constexpr int MAX_DEVICES = 64;  // shared-memory opt-ins are kept per device
 
+// acc[i] += the 8 bf16 values of v, in order
 __device__ __forceinline__ void add8(float* acc, const uint4& v) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
-    acc[2 * i] += f.x;
-    acc[2 * i + 1] += f.y;
+    acc[2 * i] = __fadd_rn(acc[2 * i], f.x);
+    acc[2 * i + 1] = __fadd_rn(acc[2 * i + 1], f.y);
   }
 }
 
-// P11, pass 1. grid (splits, b): CTA (sp, bi) sums rows [sp * chunk, +chunk)
-// of row bi's flattened [rows, HD] K and V into part[bi, sp, :].
-template <int HD>
-__global__ void __launch_bounds__(READ_THREADS)
-pure_read_partial(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-                  long long rows, long long chunk, float* __restrict__ part) {
-  constexpr int VPR = HD / 8;                // 16-byte vectors a row
-  constexpr int RPI = READ_THREADS / VPR;    // rows an iteration
-  __shared__ float red[RPI * HD];
+// P11's CTA: rows [r0, r1) of a batch row's flattened [rows, HD] K and V
+// (kb, vb as 16-byte vectors) summed into cs[HD]. Thread (ty, tx) owns
+// vector tx of rows r0 + ty, + RPI, .. and adds K then V of each row in
+// turn into its 8 f32 sums, U rows' K and V loads in flight; then thread c
+// < HD sums the RPI threads' column c in ty order (red: RPI * HD floats).
+// Leaves cs written and red free after its last barrier.
+template <int HD, int U>
+__device__ __forceinline__ void read_rows(const uint4* __restrict__ kb,
+                                          const uint4* __restrict__ vb, long long r0,
+                                          long long r1, float* red, float* cs) {
+  constexpr int VPR = HD / 8;              // 16-byte vectors a row
+  constexpr int RPI = READ_THREADS / VPR;  // rows an iteration
   const int tx = threadIdx.x % VPR;
   const int ty = threadIdx.x / VPR;
-  const long long r0 = blockIdx.x * chunk;
-  const long long r1 = min(r0 + chunk, rows);
-  const size_t base = (size_t)blockIdx.y * rows * HD;
-  const uint4* kv4 = reinterpret_cast<const uint4*>(k + base) + tx;
-  const uint4* vv4 = reinterpret_cast<const uint4*>(v + base) + tx;
   float acc[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
   long long r = r0 + ty;
-  for (; r + 3 * RPI < r1; r += 4 * RPI) {
-    uint4 a[4], b[4];
+  for (; r + (U - 1) * RPI < r1; r += U * RPI) {
+    uint4 a[U], b[U];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      a[u] = __ldcs(kv4 + (r + u * RPI) * VPR);
-      b[u] = __ldcs(vv4 + (r + u * RPI) * VPR);
+    for (int u = 0; u < U; ++u) {
+      a[u] = __ldcs(kb + (r + u * RPI) * VPR + tx);
+      b[u] = __ldcs(vb + (r + u * RPI) * VPR + tx);
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < U; ++u) {
       add8(acc, a[u]);
       add8(acc, b[u]);
     }
   }
   for (; r < r1; r += RPI) {
-    add8(acc, __ldcs(kv4 + r * VPR));
-    add8(acc, __ldcs(vv4 + r * VPR));
+    add8(acc, __ldcs(kb + r * VPR + tx));
+    add8(acc, __ldcs(vb + r * VPR + tx));
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) red[ty * HD + tx * 8 + i] = acc[i];
   __syncthreads();
   if (threadIdx.x < HD) {
     float s = 0.0f;
-    for (int y = 0; y < RPI; ++y) s += red[y * HD + threadIdx.x];
-    part[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * HD + threadIdx.x] = s;
+#pragma unroll 8
+    for (int y = 0; y < RPI; ++y) s = __fadd_rn(s, red[y * HD + threadIdx.x]);
+    cs[threadIdx.x] = s;
   }
+  __syncthreads();
 }
 
-// P11, pass 2. grid b, COMBINE_THREADS threads as (column c, lane y): lane
-// y sums splits y, y + Y, ... in order, then lane 0 adds the Y lane sums in
-// order. Y lanes a column keep that many partial loads in flight, where one
-// thread a column would wait on each load in turn.
-template <int HD>
-__global__ void __launch_bounds__(COMBINE_THREADS)
-pure_read_combine(const float* __restrict__ part, int splits, float* __restrict__ out) {
-  constexpr int Y = COMBINE_THREADS / HD;
-  __shared__ float red[COMBINE_THREADS];
-  const int c = threadIdx.x % HD;
-  const int y = threadIdx.x / HD;
-  const float* p = part + (size_t)blockIdx.x * splits * HD + c;
+// P11: grid (splits, b). CTA sp of row bi reads rows [sp * chunk, +chunk)
+// and stores its sums in part[bi, sp, :]; a ticket finds the row's last
+// CTA (thread 0's fence after the barrier makes the CTA's stores visible
+// before its ticket, the last CTA's fence orders its reads after it), which
+// adds the splits in a fixed order: lane y of a column (Y = READ_THREADS /
+// HD lanes) sums splits y, y + Y, .. in turn, then the Y lane sums are
+// added in lane order. The last CTA stages the partials through shared
+// memory, STAGE floats a pass, every thread's loads of a pass in flight at
+// once; it resets the ticket for the next call or graph replay.
+template <int HD, int U>
+__global__ void __launch_bounds__(READ_THREADS)
+pure_read_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                 long long rows, long long chunk, float* __restrict__ part,
+                 int* __restrict__ tickets, float* __restrict__ out) {
+  constexpr int Y = READ_THREADS / HD;
+  constexpr int CH = READ_STAGE / HD;                  // splits a pass, a multiple of Y
+  constexpr int LOADS = READ_STAGE / 4 / READ_THREADS;  // a thread's float4s a pass
+  __shared__ __align__(16) float stage[READ_STAGE];
+  __shared__ float cs[HD];
+  __shared__ bool s_last;
+  const int splits = (int)gridDim.x;
+  const int sp = (int)blockIdx.x;
+  const int bi = (int)blockIdx.y;
+  const int tid = (int)threadIdx.x;
+  const size_t base = (size_t)bi * rows * HD;
+  const long long r0 = sp * chunk;
+  read_rows<HD, U>(reinterpret_cast<const uint4*>(k + base),
+                   reinterpret_cast<const uint4*>(v + base), r0, min(r0 + chunk, rows), stage,
+                   cs);
+  if (splits == 1) {
+    if (tid < HD) out[(size_t)bi * HD + tid] = cs[tid];
+    return;
+  }
+  float* prow = part + (size_t)bi * splits * HD;
+  if (tid < HD) prow[(size_t)sp * HD + tid] = cs[tid];
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const bool last = atomicAdd(tickets + bi, 1) == splits - 1;
+    if (last) __threadfence();
+    s_last = last;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  const int c = tid % HD;
+  const int y = tid / HD;
   float s = 0.0f;
-#pragma unroll 4
-  for (int sp = y; sp < splits; sp += Y) s += p[(size_t)sp * HD];
-  red[threadIdx.x] = s;
+  for (int p0 = 0; p0 < splits; p0 += CH) {
+    const int np = min(CH, splits - p0);
+    const float4* src = reinterpret_cast<const float4*>(prow + (size_t)p0 * HD);
+    float4* dst = reinterpret_cast<float4*>(stage);
+    float4 t[LOADS];
+#pragma unroll
+    for (int j = 0; j < LOADS; ++j) {
+      const int i = tid + j * READ_THREADS;
+      if (4 * i < np * HD) t[j] = __ldcg(src + i);
+    }
+#pragma unroll
+    for (int j = 0; j < LOADS; ++j) {
+      const int i = tid + j * READ_THREADS;
+      if (4 * i < np * HD) dst[i] = t[j];
+    }
+    __syncthreads();
+    for (int i = y; i < np; i += Y) s = __fadd_rn(s, stage[i * HD + c]);
+    __syncthreads();
+  }
+  stage[y * HD + c] = s;
   __syncthreads();
   if (y == 0) {
     float t = 0.0f;
-    for (int i = 0; i < Y; ++i) t += red[i * HD + c];
-    out[(size_t)blockIdx.x * HD + c] = t;
+#pragma unroll
+    for (int j = 0; j < Y; ++j) t = __fadd_rn(t, stage[j * HD + c]);
+    out[(size_t)bi * HD + c] = t;
   }
+  if (tid == 0) tickets[bi] = 0;  // every split has arrived: ready for the next call
 }
 
 // P12's shared memory: each of the W warps' ring of ST tiles, a tile K [TR]
@@ -453,16 +516,15 @@ grouped_decode_kernel(const void* __restrict__ qp, int q_is_f32,
   cluster.sync();  // no CTA leaves while its state may be read
 }
 
-template <int HD>
+// One launch of P11 under its plan: grid (splits, b); part [b, splits, HD]
+// and tickets [b], zero on entry and on exit, where splits > 1.
+template <int HD, int U>
 cudaError_t launch_pure_read(const void* k, const void* v, int b, long long rows, int splits,
-                             float* part, float* out, cudaStream_t s) {
-  const long long chunk = (rows + splits - 1) / splits;
-  pure_read_partial<HD><<<dim3(splits, b), READ_THREADS, 0, s>>>(
-      reinterpret_cast<const __nv_bfloat16*>(k), reinterpret_cast<const __nv_bfloat16*>(v),
-      rows, chunk, part);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  pure_read_combine<HD><<<b, COMBINE_THREADS, 0, s>>>(part, splits, out);
+                             long long chunk, float* part, int* tickets, float* out,
+                             cudaStream_t s) {
+  pure_read_kernel<HD, U><<<dim3(splits, b), READ_THREADS, 0, s>>>(
+      reinterpret_cast<const __nv_bfloat16*>(k), reinterpret_cast<const __nv_bfloat16*>(v), rows,
+      chunk, part, tickets, out);
   return cudaGetLastError();
 }
 
@@ -540,19 +602,41 @@ extern "C" const char* dlt_cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// k, v [b, n_kv, S, hd] bf16, contiguous and 16-byte aligned; part [b,
-// splits, hd] f32 scratch; out [b, 1, hd] f32.
+// The (head_dim, rows in flight) instances of P11 the plan names
+// (probes/attention.py READ_UNROLL); built with -DDLT_P11_SWEEP, every
+// instance probes/p4_p11_ab.py --sweep chooses among.
+#ifdef DLT_P11_SWEEP
+#define DLT_P11_VARIANTS(X) X(64, 4) X(64, 8) X(128, 4) X(128, 8)
+#else
+#define DLT_P11_VARIANTS(X) X(64, 4) X(128, 4)
+#endif
+
+// k, v [b, n_kv, S, hd] bf16, contiguous and 16-byte aligned; out [b, 1,
+// hd] f32. The plan (probes/attention.py read_plan): `splits` CTAs a row,
+// each of `chunk` rows of the row's flattened [n_kv * S, hd] K and V (the
+// last may be shorter, none empty), `unroll` rows' loads in flight a
+// thread; where splits > 1, part [b, splits, hd] f32 scratch (16-byte
+// aligned) and tickets [b] int32, zero.
 extern "C" int pure_read(const void* k, const void* v, int b, int n_kv, int S, int hd,
-                         int splits, void* part, void* out, void* stream) {
-  if (b < 1 || n_kv < 1 || S < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+                         int splits, long long chunk, int unroll, void* part, void* tickets,
+                         void* out, void* stream) {
+  const long long rows = (long long)n_kv * S;
+  if (b < 1 || b > 65535 || n_kv < 1 || S < 1 || splits < 1 || chunk < 1 ||
+      (long long)splits * chunk < rows || (long long)(splits - 1) * chunk >= rows ||
+      (splits > 1 && (part == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(part) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  const long long rows = (long long)n_kv * S;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float* p = reinterpret_cast<float*>(part);
+  int* t = reinterpret_cast<int*>(tickets);
   float* o = reinterpret_cast<float*>(out);
-  if (hd == 64) return (int)launch_pure_read<64>(k, v, b, rows, splits, p, o, s);
-  if (hd == 128) return (int)launch_pure_read<128>(k, v, b, rows, splits, p, o, s);
+#define DLT_P11_CASE(HD, U)                                                                   \
+  if (hd == HD && unroll == U)                                                                \
+    return (int)launch_pure_read<HD, U>(k, v, b, rows, splits, chunk, p, t, o, s);
+  DLT_P11_VARIANTS(DLT_P11_CASE)
+#undef DLT_P11_CASE
   return (int)cudaErrorInvalidValue;
 }
 

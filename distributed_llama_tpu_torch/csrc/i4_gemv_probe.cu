@@ -1,17 +1,20 @@
-// P3 and P6: the int8 decode matmul from 4-bit stored weights, as one-row
-// GEMVs on the CUDA cores that unpack the nibbles in registers.
+// P3, P4 and P6: the int8 decode matmul from 4-bit stored weights, as
+// one-row GEMVs on the CUDA cores that unpack the nibbles in registers.
 // out[r, o] = sum over 32-blocks b of p[r, b, o] * (xs[r, b] * dt[b, o]),
 // p the exact integer dot of the int8 row block x8[r, 32b .. 32b + 31] with
 // the block's weight values q in [-8, 7].
 //
 // Replaces scripts/probe_int4.py i4_call (:153; body _kernel_i8_w4 :125:
 // the s4 weight [nb, 32, out] `jnp.int4`, here the port's bytes [nb, 16,
-// out] uint8, pack_s4; an int8 or a bf16 dot, `wconv`; the f16 plane) and
-// scripts/sweep_i4_tiles.py i4_sweep_call (:123; body _kernel_w32 :56:
+// out] uint8, pack_s4; an int8 or a bf16 dot, `wconv`; the f16 plane),
+// scripts/probe_int4.py i32_call (:219; body _kernel_i8_w32 :187: [nb, 4,
+// out] int32 words, nibble j of word g holding q[4j + g] + 8; an int8, a
+// bf16 or an f32 dot; the f16 plane) and scripts/sweep_i4_tiles.py
+// i4_sweep_call (:123; body _kernel_w32 :56:
 // [nb, 4, out] int32 words, nibble j of word g holding q[4j + g] + 8; a
 // bf16 dot in each of the variants concat-bf16, concat-i32 and split-dot,
 // which differ only in where Mosaic relayouts and are one instance here;
-// the raw-f16-bits plane). Both follow ops/pallas_q40.py _kernel_i8's math
+// the raw-f16-bits plane). All follow ops/pallas_q40.py _kernel_i8's math
 // (:323): acc += p * (xs * dt), no fused multiply-add. R is 1..8 rows; the
 // probes time one.
 //
@@ -42,6 +45,26 @@
 //     (int8 / bf16) to 56.94 / 70.66, near its best (55.06 / 69.16); 16
 //     columns a lane ran 8 rows 2.3x slower (int8 207.41 against 90.90).
 //     Both arms give the same bits;
+//   * P4 (`i32_call_int8`, `i32_call_bf16`, `i32_call_f32`): the W_I32
+//     loader on the f16 plane, one launch a call (it ran on the int8-MMA
+//     template of q40_i8_mma.cuh, whose split-K took a second kernel). The
+//     int8 arm takes __dp4a on the masked words, starting from -8 * the
+//     row block's sum, which the template counts from x; the bf16 arm takes
+//     the nibble words' route (bf16_route: exact f32 products on the CUDA
+//     cores); the f32 arm is JAX's f32 dot of exact integers, the same
+//     arithmetic, so it is the bf16 arm's instance under a second entry
+//     name and launch counter. Its plan, probes/int4.py i32_plan, is the
+//     codecs' rule at the feature-split words' geometry (u4_gemv_plan of
+//     W_FS: W_I32's loads, 8 columns a lane, one block a warp in flight per
+//     split doubling), at P3's (V, KW) pairs; probes/p4_p11_ab.py --sweep
+//     chose it over P3's rule (NVIDIA H100 80GB HBM3, 700 W): of the 9
+//     pairs by 1..8 splits at P4's five shapes (960 points, each bit for
+//     bit its plain order), it came within 2.1% (int8) and 5.1% (bf16) of
+//     each shape's best at 1 row, mean over the shapes (P3's rule 2.5% and
+//     8.5%: it splits wqkv 4 ways, not 8), and 14% / 2.2% at 8 rows; the
+//     CUDA cores beat mma.sync for the bf16 dot at every shape at 1 row
+//     (the 1B wcls 70.29 against 75.31 us). All three arms give P3's bits
+//     where the two plans agree (w13, w2, the wcls widths);
 //   * P6 (`i4_sweep_call`): the W_I32 loader on the raw-bits plane, the
 //     bf16 dot as exact f32 products on the CUDA cores, a lane's 16-byte
 //     load of a word row covering its 4 columns, each word one column's 8
@@ -55,9 +78,10 @@
 
 namespace {
 
-// P3's (V, KW) plan pairs; built with -DDLT_P3_SWEEP (with
-// -DDLT_GEMV_ROWS_1_8), every pair probes/p3_p6_ab.py --sweep chooses among
-// and the bf16 dot's other route (dot code 2) for P3 and P6, at 1 and 8 rows
+// P3's and P4's (V, KW) plan pairs; built with -DDLT_P3_SWEEP (with
+// -DDLT_GEMV_ROWS_1_8), every pair probes/p3_p6_ab.py --sweep and
+// probes/p4_p11_ab.py --sweep choose among and the bf16 dot's other route
+// (dot code 2) for P3, P4 and P6, at 1 and 8 rows
 #ifdef DLT_P3_SWEEP
 #define DLT_P3_PLANS(X) \
   X(4, 2) X(4, 4) X(4, 8) X(8, 2) X(8, 4) X(8, 8) X(16, 2) X(16, 4) X(16, 8)
@@ -97,7 +121,7 @@ template <int V, int KW, int WK, int SCALE>
 cudaError_t launch_dot(int dot, int rows, const int8_t* x8, const float* xs, const void* w,
                        const void* dt, float* out, int nb, int out_f, int splits, int bps,
                        cudaStream_t s) {
-  if constexpr (WK == W_S4)  // P6 has the bf16 dot only
+  if constexpr (WK == W_S4 || SCALE == SC_F16)  // P6 (the raw-bits plane) has the bf16 dot only
     if (dot == 0)
       return launch_rows<V, KW, WK, DOT_I8, SCALE>(rows, x8, xs, w, dt, out, nb, out_f, splits,
                                                    bps, s);
@@ -121,6 +145,13 @@ cudaError_t launch_plan(int weights, int dot, int scale_kind, int vec, int kw, i
                                            bps, s);
     DLT_P3_PLANS(DLT_P3_CASE)
 #undef DLT_P3_CASE
+  } else if (weights == W_I32 && scale_kind == SC_F16) {
+#define DLT_P4_CASE(V, KW)                                                                    \
+  if (vec == V && kw == KW)                                                                   \
+    return launch_dot<V, KW, W_I32, SC_F16>(dot, rows, x8, xs, w, dt, out, nb, out_f, splits, \
+                                            bps, s);
+    DLT_P3_PLANS(DLT_P4_CASE)
+#undef DLT_P4_CASE
   } else if (weights == W_I32 && scale_kind == SC_I16 && vec == P6_VEC) {
 #define DLT_P6_CASE(KW)                                                                       \
   if (kw == KW)                                                                               \
@@ -142,10 +173,10 @@ extern "C" const char* dlt_cuda_error_string(int e) {
 // 16, out] uint8, 2 the nibble words [nb, 4, out] int32; dot 0 int8
 // (__dp4a), 1 bf16 on the loader's route (bf16_route; built with
 // -DDLT_P3_SWEEP also 2, bf16 on the other route); dt [nb, out] f16
-// (scale_kind 0) or
-// raw f16 bits as int16 (scale_kind 2); out [rows, out] f32; every operand
-// but xs 16-byte aligned. Instances: (1, 0, 0) and (1, 1, 0) for P3, (2, 1,
-// 2) for P6. The plan: vec columns a lane (dividing out), cols columns a
+// (scale_kind 0) or raw f16 bits as int16 (scale_kind 2); out [rows, out]
+// f32; every operand but xs 16-byte aligned. Instances (weights, dot,
+// scale_kind): (1, 0, 0) and (1, 1, 0) for P3, (2, 0, 0) and (2, 1, 0) for
+// P4, both at P3's (vec, kw) pairs, (2, 1, 2) for P6. The plan: vec columns a lane (dividing out), cols columns a
 // CTA, kw warps along the contraction, splits block ranges of bps blocks
 // (the last may be shorter, none empty), one cluster a column tile.
 extern "C" int i4_gemv(const void* x8, const void* xs, const void* w, int weights, int dot,

@@ -1,9 +1,9 @@
 // The one-row int8 decode-matmul GEMV of the kernel probes P2
 // (i8_gemv_probe.cu: int8 weights on an f32 or raw-f16-bits scale plane),
-// P3 and P6 (i4_gemv_probe.cu: 4-bit stored weights on an f16 or raw-bits
-// plane, int8 or bf16 dot) and P5 and P9/P10 (i4_codec_probe.cu: the two
-// codecs that store u = q + 8 in half a byte, int8 dot). R is 1..8
-// activation rows.
+// P3, P4 and P6 (i4_gemv_probe.cu: 4-bit stored weights on an f16 or
+// raw-bits plane, int8 or bf16 dot, P4's f32 dot the bf16 arm's arithmetic)
+// and P5 and P9/P10 (i4_codec_probe.cu: the two codecs that store u = q + 8
+// in half a byte, int8 dot). R is 1..8 activation rows.
 // out[r, o] = sum over 32-blocks b of p[r, b, o] * (xs[r, b] * dt[b, o]),
 // p the exact integer dot of the int8 row block x8[r, 32b .. 32b + 31] with
 // the block's weight values in [-8, 7] (int8 weights: [-128, 127]).
@@ -45,7 +45,7 @@
 //         8i + 6 and shifted down by 4 k = 8i + 1, 8i + 3, ..; XOR 0x08 per
 //         byte turns the nibble n into u = n ^ 8 = q + 8. For the MMA a byte
 //         is one register of the A fragment as it stands (its two k);
-//       W_I32 (P6, [nb, 4, out] int32, nibble j of word g holding
+//       W_I32 (P4, P6, [nb, 4, out] int32, nibble j of word g holding
 //         q[4j + g] + 8): a word is one column's 8 values, so no transpose:
 //         masked it holds u for k = g, 8 + g, 16 + g, 24 + g, shifted down
 //         by 4 k = 4 + g, 12 + g, ..; for the MMA byte 2h + e of word t is
@@ -64,16 +64,16 @@
 //     the CTA stages its rows' x words once (for __dp4a in the same k
 //     order: a byte permutation once a CTA, not once a block);
 //   * two dots:
-//       DOT_I8 (P2, P3's int8 arm, P5, P9/P10): __dp4a on the CUDA cores,
-//         8 a column a block (the int8 MMA would use 1 of its 16 M rows at
-//         one activation row). The 4-bit loaders dot u with x and start from
+//       DOT_I8 (P2, the int8 arms of P3 and P4, P5, P9/P10): __dp4a on the
+//         CUDA cores, 8 a column a block (the int8 MMA would use 1 of its 16
+//         M rows at one activation row). The 4-bit loaders dot u with x and start from
 //         -8 * the row block's sum, staged with x (W_FS and W_SH take the
 //         sums the caller gives, as the JAX probes do; the others count
 //         them): u <= 15 is a nonnegative int8, so the signed dp4a takes it
 //         as it is, and the difference is the signed partial exactly;
-//       the bf16 dot (P3's bf16 arm, P6; the JAX probes cast both operands
-//         to bf16 and accumulate in f32) on one of two routes, which
-//         i4_gemv_probe.cu picks a loader (bf16_route):
+//       the bf16 dot (P3's bf16 arm, P4's bf16 and f32 arms, P6; the JAX
+//         probes cast both operands to bf16 and accumulate in f32) on one
+//         of two routes, which i4_gemv_probe.cu picks a loader (bf16_route):
 //       DOT_BF16_MMA: mma.sync m16n8k16 bf16, the weights as A (a group's
 //         column pair j as A's rows g and g + 8, so 16 columns an MMA) and
 //         x as B (its 8 columns the 8 rows, all live at 8 rows). A byte
@@ -99,12 +99,12 @@
 //     of a column tile in split order through distributed shared memory:
 //     they form one thread-block cluster of <= 8 CTAs along grid x,
 //     reduced in the same launch. The plain versions (probes/scales.py
-//     scale_plane_call_plain, probes/int4.py i4_call_plain,
-//     probes/i4_tiles.py i4_sweep_call_plain, probes/int4b.py
-//     sh_call_plain, probes/int4c.py fs_call_plain) repeat that order with
-//     torch ops and equal the kernels bit for bit; at one plan's warps
-//     along k and blocks a split the loaders, dots and planes give the same
-//     bits on the same values.
+//     scale_plane_call_plain, probes/int4.py i4_call_plain and
+//     i32_call_plain, probes/i4_tiles.py i4_sweep_call_plain,
+//     probes/int4b.py sh_call_plain, probes/int4c.py fs_call_plain) repeat
+//     that order with torch ops and equal the kernels bit for bit; at one
+//     plan's warps along k and blocks a split the loaders, dots and planes
+//     give the same bits on the same values.
 
 #pragma once
 

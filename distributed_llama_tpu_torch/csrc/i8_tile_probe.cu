@@ -5,7 +5,7 @@
 // _kernel_i8_i16 :46: unpacked int8 weights, an f32 or raw-f16-bits scale
 // plane, at a (tile_n, tile_knb) tile) and probe_f16_scales.py
 // probe_convert (:48; body _kernel :44: int16 bits -> f32 with integer
-// ops). P2 and P6, the same function at one row from int8 and from i32
+// ops). P2, P4 and P6, the same function at one row from int8 and from i32
 // nibble words, run the one-row GEMV of i8_gemv.cuh (i8_gemv_probe.cu,
 // i4_gemv_probe.cu).
 //
@@ -14,8 +14,8 @@
 // columns (32, 64 or 128: the TPU's tile_n of 256..2048 lanes has no CTA
 // counterpart) and `blocks_per_cta` blocks (tile_knb's counterpart); the
 // nb / blocks_per_cta splits are summed in split order by a second pass.
-// Instances: weights W_I8, dot DOT_I8, scale F16 / F32 / I16, each at TN
-// 32, 64 and 128: 9 instances. At TN 64 and B9's split the F16 instance is
+// Instances: scale F16 / F32 / I16, each at TN 32, 64 and 128: 9
+// instances. At TN 64 and B9's split the F16 instance is
 // B9's kernel.
 //
 // P1 is memory-bound (2 bytes read and 4 written an element): one thread
@@ -66,16 +66,13 @@ extern "C" int q40_i8_mma_tiled(const void* x8, const void* xs, const void* qt, 
   cudaError_t e;
   switch (scale_kind) {
     case SC_F16:
-      e = launch_cols<W_I8, DOT_I8, SC_F16>(cols, x, xsp, qt, dt, dst, rows, nb, out_features,
-                                            splits, s);
+      e = launch_cols<SC_F16>(cols, x, xsp, qt, dt, dst, rows, nb, out_features, splits, s);
       break;
     case SC_F32:
-      e = launch_cols<W_I8, DOT_I8, SC_F32>(cols, x, xsp, qt, dt, dst, rows, nb, out_features,
-                                            splits, s);
+      e = launch_cols<SC_F32>(cols, x, xsp, qt, dt, dst, rows, nb, out_features, splits, s);
       break;
     case SC_I16:
-      e = launch_cols<W_I8, DOT_I8, SC_I16>(cols, x, xsp, qt, dt, dst, rows, nb, out_features,
-                                            splits, s);
+      e = launch_cols<SC_I16>(cols, x, xsp, qt, dt, dst, rows, nb, out_features, splits, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -48,9 +48,8 @@ B9 `q40_i8_unpacked` (csrc/q40_i8_mma.cu) replaces `ops/pallas_q40.py:_i8_call`
 activations and an UNPACKED [nb, 32, out] int8 weight, one int8 tensor-core
 MMA (m16n8k32, k = one Q40 block) per block and 8 columns. out = sum over
 blocks of partial * (xs * dt) in f32, partial the exact integer dot. The
-same kernel template, with other weight loaders and dot types, runs the
-kernel probe P4 (probes/int4.py) and the template's tile and scale-plane
-sweep P13 (probes/scales.py). P2, P3, P5, P6 and P9 / P10 compute the same
+same kernel template runs its tile and scale-plane sweep P13
+(probes/scales.py). P2, P3, P4, P5, P6 and P9 / P10 compute the same
 function as one-row GEMVs (csrc/i8_gemv.cuh, probes/gemv.py).
 Not ported to the serving path: `_i8_tiles` (:439, a v5e tile table) and
 `_dt_operand`/`_scale_f32` (:112-143, a Mosaic workaround: Hopper loads
@@ -139,16 +138,12 @@ _GROUPED_SIG = {
     ),
 }
 _I8_MMA_SIG = {
-    # x8, xs, w, weights, dot, dt, out, part, rows, nb, out, splits, stream
+    # x8, xs, qt, dt, out, part, rows, nb, out, splits, stream
     "q40_i8_mma": (
-        kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.P,
-        kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
+        kernels.P, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
+        kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
     ),
 }
-# the int8-MMA template's weight storages (csrc/q40_i8_mma.cuh)
-W_I8, W_I32 = 0, 2
-# q40_i8_mma's dot types (csrc/q40_i8_mma.cu)
-DOTS = {"int8": 0, "bf16": 1, "f32": 2}
 I8_MMA_COLS = 64  # output columns per CTA
 _GEMM_SIG = {
     # x (bf16), q, d, out, rows, in, out, layer, cols, splits, blocks per
@@ -387,19 +382,17 @@ def q40_gemm_bf16_blocked(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor,
 
 
 def i8_blocks_plain(x8: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
-                    dt: torch.Tensor, dot: str = "int8") -> torch.Tensor:
-    """The plain version shared by B9, P3 and P4: x8 [R, nb*32] int8, xs
-    [R, nb] f32, wq [nb, 32, out] weight values in [-8, 7] (any integer
-    dtype), dt [nb, out] f16 -> [R, out] f32 = sum over blocks of partial *
-    (xs * dt), JAX's association. `dot` names the operand type of the
-    integer dot (int8 values are exact in bf16 and f32, and every partial,
-    |p| <= 32 * 127 * 8 < 2^24, is exact in f32): the result does not depend
-    on it."""
+                    dt: torch.Tensor) -> torch.Tensor:
+    """The plain version of B9 and P13 (and the closed form the one-row
+    GEMVs' orders are held to): x8 [R, nb*32] int8, xs [R, nb] f32, wq [nb,
+    32, out] weight values in [-8, 7] (any integer dtype), dt [nb, out] f16
+    -> [R, out] f32 = sum over blocks of partial * (xs * dt), JAX's
+    association; every partial, |p| <= 32 * 127 * 8 < 2^24, is exact in
+    f32."""
     nb = wq.shape[0]
     R = x8.shape[0]
-    ty = {"int8": torch.float32, "bf16": torch.bfloat16, "f32": torch.float32}[dot]
-    xb = x8.reshape(R, nb, Q_BLOCK).to(ty).to(torch.float32)
-    wf = wq.to(ty).to(torch.float32)
+    xb = x8.reshape(R, nb, Q_BLOCK).to(torch.float32)
+    wf = wq.to(torch.float32)
     partial = torch.einsum("rbf,bfo->rbo", xb, wf)  # exact integers
     scale = xs.unsqueeze(-1) * dt.to(torch.float32).unsqueeze(0)  # [R, nb, out]
     return (partial * scale).sum(dim=1)
@@ -743,11 +736,12 @@ def _check_rows_and_plane(x8, xs, w, dt, nb: int, out_f: int, dt_dtypes) -> None
             raise ValueError(f"{name} must be contiguous")
 
 
-def launch_i8_mma(x8, xs, w, weights: int, dot: str, dt) -> torch.Tensor:
-    """One launch of csrc/q40_i8_mma.cu on checked operands on the card."""
+def launch_i8_mma(x8, xs, qt, dt) -> torch.Tensor:
+    """One launch of csrc/q40_i8_mma.cu (B9) on checked operands on the
+    card, its split-K summed by a second kernel."""
     if _device_kind(x8) != "cuda":
         raise ValueError(f"q40_i8_mma runs on a CUDA device, not {x8.device}")
-    R, nb, out_f = x8.shape[0], w.shape[0], w.shape[2]
+    R, nb, out_f = x8.shape[0], qt.shape[0], qt.shape[2]
     splits = i8_mma_splits(nb, out_f)
     lib = kernels.load("q40_i8_mma", _I8_MMA_SIG)
     out = torch.empty((R, out_f), dtype=torch.float32, device=x8.device)
@@ -755,8 +749,8 @@ def launch_i8_mma(x8, xs, w, weights: int, dot: str, dt) -> torch.Tensor:
                        device=x8.device)
     kernels.launch(
         lib, "q40_i8_mma", x8,
-        x8.data_ptr(), xs.data_ptr(), w.data_ptr(), weights, DOTS[dot], dt.data_ptr(),
-        out.data_ptr(), part.data_ptr(), R, nb, out_f, splits,
+        x8.data_ptr(), xs.data_ptr(), qt.data_ptr(), dt.data_ptr(), out.data_ptr(),
+        part.data_ptr(), R, nb, out_f, splits,
     )
     return out
 
@@ -768,7 +762,7 @@ def q40_i8_unpacked(x8, xs, qt, dt) -> torch.Tensor:
     check_i8_operands(x8, xs, qt, dt, Q_BLOCK, torch.int8)
     if _device_kind(x8) == "cpu":
         return q40_i8_unpacked_plain(x8, xs, qt, dt)
-    out = launch_i8_mma(x8, xs, qt, W_I8, "int8", dt)
+    out = launch_i8_mma(x8, xs, qt, dt)
     q40_i8_unpacked.launches += 1
     return out
 

@@ -1,8 +1,8 @@
 """The kernel probes of the JAX package's `scripts/` on the card.
 
 `int4` (scripts/probe_int4.py) A/Bs the int8 decode matmul over unpacked
-weights (B9, ops/cuda_q40.py) against the same kernel fed from 4-bit storage
-(P3) and from int32 nibble words (P4); `dma` (scripts/probe_dma.py, P14)
+weights (B9, ops/cuda_q40.py) against the same function from 4-bit storage
+(P3) and from int32 nibble words (P4) as one-row GEMVs; `dma` (scripts/probe_dma.py, P14)
 measures how fast the card streams a packed weight plane; `attention`
 (scripts/probe_att_floor.py, probe_grouped_decode_att.py and
 probe_flash_headmajor.py: P11, P12, P8) measures the decode-attention floor
@@ -14,11 +14,11 @@ f16, f32 or raw f16 bits and sweeps its CTA tile, and `i4_tiles`
 (scripts/probe_int4b.py, P5) and `int4c` (scripts/probe_int4c.py, P9, P10)
 feed the same matmul from the two unsigned-nibble codecs, split-half bytes
 and the T layout's feature-split words, beside B9 and K1; `gemv` holds the
-one-row GEMV's plans and launches (P3, P5, P6, P9/P10). `timing` times a
+one-row GEMV's plans and launches (P3, P4, P5, P6, P9/P10). `timing` times a
 kernel cold (operands out of L2) and hot; `operands` carries the JAX
 probes' operands across, for the tests. The `*_ab` modules time a
 redesigned kernel against an earlier build in one process and sweep its
-plans (`p5_p9_ab` for P5 and P9/P10). Run a probe with
+plans (`p5_p9_ab` for P5 and P9/P10, `p4_p11_ab` for P4 and P11). Run a probe with
 
     python -m distributed_llama_tpu_torch.probes.int4 [--device cpu] [--shape IN,OUT]
     python -m distributed_llama_tpu_torch.probes.dma [--device cpu] [--shape IN,OUT]

@@ -6,7 +6,10 @@ All three read a head-major K/V cache [b, kv, S, hd] bf16:
 
   * P11 `pure_read(k, v)` (csrc/attention_probe.cu, probe_att_floor.py:68):
     out [b, 1, hd] f32 = the sum over (kv head, s) of K + V. The read alone:
-    the floor of decode attention;
+    the floor of decode attention. One launch at `read_plan` (the shape
+    alone), the splits of a row merged in a fixed order inside it;
+    `pure_read_order_plain` repeats that order bit for bit,
+    `pure_read_plain` is the closed form (torch's sum);
   * P12 `decode_attention(q, k, v, pos, col0)` (csrc/attention_probe.cu,
     probe_grouped_decode_att.py:73): grouped decode attention for one query
     token per row, q [b, h, hd], cache column s at position col0 + s and
@@ -61,8 +64,15 @@ HEAD_DIMS = (64, 128)
 SEQS = (1024, 2048, 32768)
 SHAPE_1B = dict(b=1, h=32, kv=8, hd=64)  # Llama-3.2-1B's attention
 LAYERS, CHAIN = 16, 64  # the JAX probes' chain: 16 layers, 64 times
-READ_THREADS = 256  # csrc/attention_probe.cu: threads of a P11 CTA
-MAX_READ_SPLITS = 512
+# csrc/attention_probe.cu's P11: a CTA of READ_THREADS threads reads a
+# contiguous chunk of a row's flattened [kv * S, hd] K and V, READ_UNROLL[hd]
+# rows' loads in flight a thread (the sweep build also READ_SWEEP_UNROLLS),
+# as many CTAs a row as reach READ_TARGET_CTAS over the batch; a ticket's
+# last CTA merges a row's splits. probes/p4_p11_ab.py --sweep chose them
+READ_THREADS = 256
+READ_UNROLL = {64: 4, 128: 4}
+READ_SWEEP_UNROLLS = (4, 8)
+READ_TARGET_CTAS = 256
 # csrc/attention_probe.cu's P12: a CTA's warps each walk their own run of
 # columns in tiles of cache rows; a cluster holds at most ATT_MAX_CLUSTER
 # CTAs. ATT_VARIANT: (CTAs a cluster at most, warps a CTA, tile rows, tiles
@@ -78,10 +88,11 @@ CHAIN_ONCE_MS = 100.0  # a chain longer than this is replayed once
 CONTROL = (2048, 512)  # the JAX control row's plane, in -> out
 
 _SIG = {
-    # k, v, b, n_kv, S, hd, splits, part, out, stream
+    # k, v, b, n_kv, S, hd, splits, chunk, unroll, part, tickets, out,
+    # stream
     "pure_read": (
-        kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
-        kernels.P, kernels.P, kernels.P,
+        kernels.P, kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.LL,
+        kernels.I, kernels.P, kernels.P, kernels.P, kernels.P,
     ),
     # q, q_is_f32, k, v, b, n_kv, g, S, hd, pos, col0, cluster, width,
     # warps, tile, stages, scale, out, max_clusters, stream
@@ -93,12 +104,34 @@ _SIG = {
 }
 
 
-def read_splits(n_kv: int, S: int, hd: int) -> int:
-    """P11's split of a row's kv * S cache rows: one iteration of a CTA's
-    threads (READ_THREADS / (hd / 8) rows) at the least, at most
-    MAX_READ_SPLITS. A function of the shape alone."""
-    rows_per_iter = READ_THREADS // (hd // 8)
-    return max(1, min(-(-n_kv * S // rows_per_iter), MAX_READ_SPLITS))
+@dataclass(frozen=True)
+class ReadPlan:
+    """P11's split of a row's n_kv * S cache rows: `splits` CTAs, CTA i
+    reading rows [i * chunk, (i + 1) * chunk) (the last may be shorter,
+    none empty), `unroll` rows' loads in flight a thread."""
+
+    splits: int
+    chunk: int
+    unroll: int
+
+
+def read_plan(b: int, n_kv: int, S: int, hd: int, splits: int | None = None,
+              unroll: int | None = None) -> ReadPlan:
+    """P11's plan, a function of the shape (b, n_kv, S, hd) alone: chunks
+    of whole iterations of a CTA (READ_THREADS / (hd / 8) rows, `unroll`
+    times), as many a row as reach READ_TARGET_CTAS over the b rows, none
+    empty. `splits` (CTAs a row at most) and `unroll` override the defaults
+    (the sweep's plans)."""
+    if hd not in HEAD_DIMS or min(b, n_kv, S) < 1:
+        raise ValueError(f"no P11 plan for b {b}, kv {n_kv}, S {S}, hd {hd}")
+    unroll = READ_UNROLL[hd] if unroll is None else unroll
+    splits = -(-READ_TARGET_CTAS // b) if splits is None else splits
+    if unroll not in READ_SWEEP_UNROLLS or splits < 1:
+        raise ValueError(f"no P11 plan of {splits} splits at {unroll} rows in flight")
+    unit = READ_THREADS // (hd // 8) * unroll
+    units = -(-n_kv * S // unit)
+    per = -(-units // min(splits, units))
+    return ReadPlan(-(-units // per), per * unit, unroll)
 
 
 @dataclass(frozen=True)
@@ -180,25 +213,73 @@ def pure_read_plain(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return s.unsqueeze(1)
 
 
-def pure_read(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """P11: the sum over (kv head, s) of K + V, K and V [b, kv, S, hd] bf16
-    -> [b, 1, hd] f32."""
+def pure_read_order_plain(k: torch.Tensor, v: torch.Tensor,
+                          plan: ReadPlan | None = None) -> torch.Tensor:
+    """P11's plain version in the kernel's order under `plan` (by default
+    `read_plan` of the shape), elementwise f32 adds, bit for bit the
+    kernel's: a thread's rows r0 + ty, + RPI, .. (RPI = READ_THREADS / (hd
+    / 8)), K then V of each into its sums; a CTA's RPI threads a column in
+    turn; then the splits by Y = READ_THREADS / hd lanes, lane y summing
+    splits y, y + Y, .. in turn, then the lanes in turn. Rows and splits
+    past the end add zeros, which change no sum (no sum is -0)."""
     _check_cache(k, v)
-    if k.device.type == "cpu":
-        return pure_read_plain(k, v)
-    if k.device.type != "cuda":
-        raise ValueError(f"unsupported device {k.device}")
-    _check_launch(k, v)
     b, n_kv, S, hd = k.shape
-    splits = read_splits(n_kv, S, hd)
-    lib = kernels.load("attention_probe", _SIG)
-    part = torch.empty((b, splits, hd), dtype=torch.float32, device=k.device)
+    plan = plan or read_plan(b, n_kv, S, hd)
+    rows, rpi = n_kv * S, READ_THREADS // (hd // 8)
+
+    def chunks(c):  # [b, splits, chunk / rpi, rpi, hd] f32
+        c = torch.nn.functional.pad(c.reshape(b, rows, hd).to(torch.float32),
+                                    (0, 0, 0, plan.splits * plan.chunk - rows))
+        return c.reshape(b, plan.splits, plan.chunk // rpi, rpi, hd)
+
+    kc, vc = chunks(k), chunks(v)
+    acc = torch.zeros((b, plan.splits, rpi, hd), dtype=torch.float32, device=k.device)
+    for i in range(plan.chunk // rpi):
+        acc = acc + kc[:, :, i]
+        acc = acc + vc[:, :, i]
+    cs = torch.zeros_like(acc[:, :, 0])
+    for y in range(rpi):
+        cs = cs + acc[:, :, y]
+    lanes_n = READ_THREADS // hd
+    n = -(-plan.splits // lanes_n)
+    p = torch.nn.functional.pad(cs, (0, 0, 0, n * lanes_n - plan.splits))
+    p = p.reshape(b, n, lanes_n, hd)
+    lanes = torch.zeros_like(p[:, 0])
+    for i in range(n):
+        lanes = lanes + p[:, i]
+    total = torch.zeros_like(lanes[:, 0])
+    for y in range(lanes_n):
+        total = total + lanes[:, y]
+    return total.unsqueeze(1)
+
+
+def _launch_read(k, v, plan: ReadPlan, lib=None) -> torch.Tensor:
+    """One launch of csrc/attention_probe.cu's P11 under `plan` on checked
+    CUDA operands -> [b, 1, hd] f32 (`lib`: another build of the source)."""
+    b, n_kv, S, hd = k.shape
+    lib = lib or kernels.load("attention_probe", _SIG)
     out = torch.empty((b, 1, hd), dtype=torch.float32, device=k.device)
+    part = tickets = None
+    if plan.splits > 1:  # K5's zeroed counters: each kernel leaves them zero
+        part = torch.empty((b, plan.splits, hd), dtype=torch.float32, device=k.device)
+        tickets = cuda_attention._tickets(k.device, b)
     kernels.launch(
         lib, "pure_read", k,
-        k.data_ptr(), v.data_ptr(), b, n_kv, S, hd, splits, part.data_ptr(),
-        out.data_ptr(),
+        k.data_ptr(), v.data_ptr(), b, n_kv, S, hd, plan.splits, plan.chunk, plan.unroll,
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), out.data_ptr(),
     )
+    return out
+
+
+def pure_read(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """P11: the sum over (kv head, s) of K + V, K and V [b, kv, S, hd] bf16
+    -> [b, 1, hd] f32, one launch at `read_plan` of the shape."""
+    _check_cache(k, v)
+    if cuda_q40._device_kind(k) == "cpu":
+        return pure_read_order_plain(k, v)
+    _check_launch(k, v)
+    out = _launch_read(k, v, read_plan(*k.shape))
     pure_read.launches += 1
     return out
 
@@ -404,11 +485,11 @@ def run_seq(S: int, device, seed: int = 0, timed: bool = True, shape=SHAPE_1B) -
     g = h // n_kv
     got = {"pure_read": pure_read(k, v), "decode_attention": decode_attention(q, k, v, pos),
            "flash_headmajor": flash_headmajor(q4, k, v, pos).reshape(b, h, hd)}
-    want = {"pure_read": pure_read_plain(k, v),
+    want = {"pure_read": pure_read_order_plain(k, v),
             "decode_attention": decode_attention_plain(q, k, v, pos),
             "flash_headmajor": flash_headmajor_plain(q4, k, v, pos).reshape(b, h, hd)}
     p12_vs_p8 = (got["decode_attention"].float() - got["flash_headmajor"].float()).abs().max()
-    ctas = {"pure_read": b * read_splits(n_kv, S, hd),
+    ctas = {"pure_read": b * read_plan(b, n_kv, S, hd).splits,
             "decode_attention": b * n_kv * attention_plan(S, hd).cluster,
             "flash_headmajor": b * n_kv * -(-g // cuda_attention.FLASH_ROWS)
             * cuda_attention.plan_for(q4, headmajor_view(k), pos).splits}
@@ -428,7 +509,7 @@ def run_seq(S: int, device, seed: int = 0, timed: bool = True, shape=SHAPE_1B) -
 
     sq, sk, sv = q4.transpose(1, 2), k[:, :, :pos + 1], v[:, :, :pos + 1]
     fns = {
-        "pure_read": (pure_read, pure_read_plain, (k, v),
+        "pure_read": (pure_read, pure_read_order_plain, (k, v),
                       lambda a, c: (torch.sum(a, dim=(1, 2), dtype=torch.float32)
                                     + torch.sum(c, dim=(1, 2), dtype=torch.float32)), (k, v)),
         "decode_attention": (decode_attention, decode_attention_plain, (q, k, v, pos),

@@ -87,13 +87,17 @@ def tiles_for(nb: int) -> tuple[list, int]:
     return kept, len(points) - len(kept)
 
 
-def p3_tile(nb: int, out_f: int) -> tuple[int, int]:
-    """The P6 tile (cols, blocks_per_cta) that sums in P3's plan's order at
-    (nb, out): P3's warps along k and its blocks a split. A plan's order
-    does not depend on the columns a lane, so P6 there gives P3's bits on
-    the same values."""
-    plan = gemv.i4_gemv_plan(nb, out_f)
+def plan_tile(plan: gemv.GemvPlan) -> tuple[int, int]:
+    """The P6 tile (cols, blocks_per_cta) that sums in `plan`'s order: its
+    warps along k and its blocks a split. A plan's order does not depend on
+    the columns a lane, so P6 there gives the plan's bits on the same
+    values (where its blocks a split divide nb, as P6's tiles need)."""
     return 32 * gemv.P6_VEC * (gemv.WARPS // plan.kw), plan.blocks_per_split
+
+
+def p3_tile(nb: int, out_f: int) -> tuple[int, int]:
+    """The P6 tile that sums in P3's plan's order at (nb, out)."""
+    return plan_tile(gemv.i4_gemv_plan(nb, out_f))
 
 
 def i4_sweep_call_plain(x8, xs, qw, dt, cols: int, blocks_per_cta: int,

@@ -13,15 +13,19 @@ same matmul costs from half a byte a weight:
      (csrc/i4_gemv_probe.cu, the template of csrc/i8_gemv.cuh), one launch
      a call at `i4_gemv_plan(nb, out)` (probes/gemv.py), a function of the
      shape alone;
-  C. P4 (`i32_call`, :219): B9's kernel (csrc/q40_i8_mma.cu) reading [nb,
-     4, out] int32 words, value q[b, 4j + g, o] + 8 in nibble j of word
-     [b, g, o] (`pack_i32`), with an int8, a bf16 or an f32 dot.
+  C. P4 (`i32_call`, :219): [nb, 4, out] int32 words, value q[b, 4j + g,
+     o] + 8 in nibble j of word [b, g, o] (`pack_i32`), with an int8, a
+     bf16 or an f32 dot, on the same GEMV template (the W_I32 loader of
+     csrc/i4_gemv_probe.cu, P6's), one launch a call at `i32_plan`: the int8
+     arm on __dp4a, the bf16 arm on exact f32 products on the CUDA cores,
+     and the f32 arm, JAX's f32 dot of exact integers, the bf16 arm's
+     instance under its own name and launch counter.
 
-Every partial is an exact integer in every dot type. P4's three instances
-share B9's scale-and-accumulate code and agree with B9 bit for bit; P3's
-two arms agree with each other and with their plain version, which repeats
-the plan's order of f32 sums, bit for bit, and with B9 to within the f32
-rounding of another order. Each wrapper takes the plain version for CPU
+Every partial is an exact integer in every dot type. P3's two arms agree
+with each other and P4's three with each other, each with its plain
+version, which repeats the plan's order of f32 sums, bit for bit; P4 with
+P3 where their plans agree, and both with B9 to within the f32 rounding of
+another order. Each wrapper takes the plain version for CPU
 tensors, launches its kernel for CUDA tensors or raises, and counts its
 launches in `launches`.
 
@@ -43,7 +47,7 @@ import torch
 from ..device import resolve_device
 from ..formats.quants import Q_BLOCK
 from ..ops import cuda_q40
-from ..ops.cuda_q40 import W_I32, _gemv_order, i8_blocks_plain, quantize_rows_q80
+from ..ops.cuda_q40 import _gemv_order, quantize_rows_q80
 from . import gemv, parse_shape
 
 # the probe's four shapes (Llama-3.2-1B layer shapes) and the 1B's full
@@ -129,23 +133,45 @@ def i4_call_plain(x8, xs, qt4, dt, dot: str = "int8", plan=None) -> torch.Tensor
     return _gemv_order(gemv.block_terms(x8, xs, unpack_s4(qt4), dt.to(torch.float32)), plan)
 
 
-def i32_call_plain(x8, xs, qw, dt, dot: str = "int8") -> torch.Tensor:
-    """P4's plain version: B9's math on the unpacked nibble words."""
-    return i8_blocks_plain(x8, xs, unpack_i32(qw), dt, dot)
+P4_DOTS = ("int8", "bf16", "f32")
+
+
+def i32_plan(nb: int, out_f: int) -> gemv.GemvPlan:
+    """P4's plan, a function of the shape alone: the codecs' rule at the
+    feature-split words' geometry (`gemv.u4_gemv_plan` of W_FS, whose loads
+    are W_I32's: 8 words a lane), which probes/p4_p11_ab.py --sweep chose
+    over P3's `i4_gemv_plan`."""
+    return gemv.u4_gemv_plan(nb, out_f, gemv.W_FS)
+
+
+def i32_call_plain(x8, xs, qw, dt, dot: str = "int8", plan=None) -> torch.Tensor:
+    """P4's plain version: the per-block terms of the unpacked nibble words
+    summed in the kernel's order under `plan` (by default `i32_plan`), bit
+    for bit the kernel's. The three dots give the same exact partials, so
+    the same bits, and at P3's plan P3's."""
+    if dot not in P4_DOTS:
+        raise ValueError(f"P4's dot is one of {P4_DOTS}, got {dot!r}")
+    plan = plan or i32_plan(qw.shape[0], qw.shape[2])
+    return _gemv_order(gemv.block_terms(x8, xs, unpack_i32(qw), dt.to(torch.float32)), plan)
 
 
 def _p4_instance(name: str, dot: str):
+    # the f32 dot is the bf16 arm's route (exact f32 products): one instance
+    code = gemv.DOTS["int8" if dot == "int8" else "bf16"]
+
     def call(x8, xs, qw, dt):
         cuda_q40.check_i8_operands(x8, xs, qw, dt, 4, torch.int32)
-        if x8.device.type == "cpu":
+        if cuda_q40._device_kind(x8) == "cpu":
             return i32_call_plain(x8, xs, qw, dt, dot)
-        out = cuda_q40.launch_i8_mma(x8, xs, qw, W_I32, dot, dt)
+        out = gemv.launch_i4_gemv(x8, xs, qw, gemv.W_I32, code, dt,
+                                  i32_plan(qw.shape[0], qw.shape[2]))
         call.launches += 1
         return out
 
     call.__name__ = call.__qualname__ = name
     call.__doc__ = (f"x8 [R <= 8, in] int8, xs [R, nb] f32, qw [nb, 4, out] int32, dt [nb, "
-                    f"out] f16 -> [R, out] f32, with a {dot} dot.")
+                    f"out] f16 -> [R, out] f32, with a {dot} dot, one launch at "
+                    f"i32_plan(nb, out).")
     call.launches = 0
     return call
 
@@ -185,8 +211,8 @@ def i4_call(x8, xs, qt4, dt, dot: str = "int8") -> torch.Tensor:
 
 
 def i32_call(x8, xs, qw, dt, dot: str = "int8") -> torch.Tensor:
-    """P4: B9 from [nb, 4, out] int32 nibble words, with an int8, a bf16 or
-    an f32 dot."""
+    """P4: the int8 decode matmul from [nb, 4, out] int32 nibble words, with
+    an int8, a bf16 or an f32 dot."""
     return _I32[dot](x8, xs, qw, dt)
 
 

@@ -190,3 +190,18 @@ def test_inference_with_compat_flags_prints_the_jax_cli_tokens(files, monkeypatc
     got = [l.split("|", 1)[1] for l in capsys.readouterr().out.splitlines()
            if l.startswith("🔶 Pred")]
     assert want and got == want
+
+
+@pytest.mark.parametrize("where", ["first", "after the flags"])
+def test_worker_mode_prints_the_jax_cli_migration_text(files, capsys, where):
+    """`worker`, first in argv or after the flags, gives the JAX CLI's
+    stderr and exit code 2 in both CLIs, and nothing on stdout."""
+    mp, _ = files
+    argv = ["worker"] if where == "first" else ["--model", mp, "--tokenizer", "unused", "worker"]
+    want_rc = jcli.main(list(argv))
+    want = capsys.readouterr()
+    got_rc = pcli.main(list(argv))
+    got = capsys.readouterr()
+    assert want_rc == got_rc == 2
+    assert got.err == want.err and "no worker processes" in got.err
+    assert got.out == want.out == ""

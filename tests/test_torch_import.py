@@ -38,6 +38,7 @@ import distributed_llama_tpu_torch.probes.p2_p12_ab
 import distributed_llama_tpu_torch.probes.gemv
 import distributed_llama_tpu_torch.probes.p3_p6_ab
 import distributed_llama_tpu_torch.probes.p5_p9_ab
+import distributed_llama_tpu_torch.probes.p4_p11_ab
 import distributed_llama_tpu_torch.parallel
 import distributed_llama_tpu_torch.parallel.mesh
 import distributed_llama_tpu_torch.parallel.pipeline
@@ -84,6 +85,7 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     assert "distributed_llama_tpu_torch.probes.p2_p12_ab" in mods
     assert "distributed_llama_tpu_torch.probes.p3_p6_ab" in mods
     assert "distributed_llama_tpu_torch.probes.p5_p9_ab" in mods
+    assert "distributed_llama_tpu_torch.probes.p4_p11_ab" in mods
     assert "distributed_llama_tpu_torch.probes.gemv" in mods
     assert "distributed_llama_tpu_torch.probes.int4_prod" in mods
     assert "distributed_llama_tpu_torch.probes.int4c" in mods

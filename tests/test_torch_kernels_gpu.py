@@ -625,7 +625,7 @@ def test_k4_row_block_bits_do_not_depend_on_other_blocks(cuda, block_r):
             assert torch.equal(alone, full[rows])
 
 
-# -- B9, P4 (csrc/q40_i8_mma.cu), P3 (csrc/i4_gemv_probe.cu), P14 -----------
+# -- B9 (csrc/q40_i8_mma.cu), P3 and P4 (csrc/i4_gemv_probe.cu), P14 ---------
 
 
 @pytest.mark.parametrize("rows", [1, 4, 8])
@@ -646,11 +646,11 @@ def test_b9_kernel_matches_plain(cuda, rows, in_f, out_f):
 @pytest.mark.parametrize("rows", [1, 3])
 @pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (2176, 264)])
 def test_p3_p4_instances_match_plain_and_b9_exactly(cuda, rows, in_f, out_f):
-    """P4's three instances within 1e-5 of their plain version and equal to
-    B9 bit for bit (exact partials in every dot type, one shared
-    scale-and-accumulate order); P3's two arms (the one-row GEMV at
-    i4_gemv_plan) equal to their plain order and to each other bit for bit,
-    and within 1e-5 of B9 (the f32 block sums in another order)."""
+    """P3's two arms (the one-row GEMV at i4_gemv_plan) and P4's three (at
+    i32_plan) equal to their plain order and each family's arms to each
+    other bit for bit (exact partials in every dot type, one plan's order of
+    the f32 sums), and within 1e-5 of B9 (the f32 block sums in another
+    order)."""
     x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, cuda, seed=7)
     ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
     scale = ref.abs().max().item()
@@ -661,13 +661,35 @@ def test_p3_p4_instances_match_plain_and_b9_exactly(cuda, rows, in_f, out_f):
         want = plain(x8, xs, w, dt, dot)
         torch.cuda.synchronize()
         assert fn.launches == before + 1, label
-        if fn in (int4.i4_call_int8, int4.i4_call_bf16):
-            assert torch.equal(got[label], want), label
-            assert (got[label] - ref).abs().max().item() <= 1e-5 * scale, label
-        else:
-            assert (got[label] - want).abs().max().item() <= 1e-5 * want.abs().max().item(), label
-            assert torch.equal(got[label], ref), label
+        assert torch.equal(got[label], want), label
+        assert (got[label] - ref).abs().max().item() <= 1e-5 * scale, label
     assert torch.equal(got["s4 int8-dot"], got["s4 bf16-dot"])
+    p4 = [g for label, g in got.items() if label.startswith("i32")]
+    assert all(torch.equal(g, p4[0]) for g in p4)
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2176, 264), (2048, 128256)])
+def test_p4_equals_its_plain_order_at_every_row_count(cuda, in_f, out_f):
+    """P4's three arms at 1..8 rows: one launch a call at i32_plan, equal
+    to the plain order bit for bit, so to each other and, on the same
+    values, to P3's int8 instance launched at P4's plan; each row equal to
+    its one-row call; within 1e-5 of B9."""
+    x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, 8, cuda, seed=in_f + 3 * out_f)
+    qw, qt4 = int4.pack_i32_t(qt), int4.pack_s4(qt)
+    full = int4.i32_call_plain(x8, xs, qw, dt)
+    plan = int4.i32_plan(in_f // 32, out_f)
+    for rows in range(1, 9):
+        p3 = gemv.launch_i4_gemv(x8[:rows], xs[:rows], qt4, gemv.W_S4, gemv.DOTS["int8"], dt,
+                                 plan)
+        ref = cuda_q40.q40_i8_unpacked(x8[:rows], xs[:rows], qt, dt)
+        for fn in (int4.i32_call_int8, int4.i32_call_bf16, int4.i32_call_f32):
+            before = fn.launches
+            got = fn(x8[:rows], xs[:rows], qw, dt)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            assert torch.equal(got, full[:rows]), (fn.__name__, rows)
+            assert torch.equal(got, p3), (fn.__name__, rows)
+            assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2176, 264), (2048, 128256)])
@@ -745,8 +767,9 @@ def test_stream_probe_leaves_its_accumulator_zero(cuda):
 def test_probe_shapes_run_on_the_card(cuda):
     """Each probe's per-shape routine, untimed, at one small shape."""
     rows = int4.run_shape("1024->512", 1024, 512, cuda, timed=False)
-    for r in rows:  # B9 and P4 bit for bit, P3 in its plan's order
-        assert r["max_err_vs_b9"] <= (1e-5 * r["out_scale"] if "s4" in r["probe"] else 0.0)
+    for r in rows:  # P3 and P4 in their plan's order, B9 in its own
+        assert r["max_err_vs_b9"] <= (1e-5 * r["out_scale"] if r["kernel"] != "q40_i8_unpacked"
+                                      else 0.0)
     best = dma.run_shape("2048->2048", 2048, 2048, cuda, timed=False)
     assert best["checksums_equal_all_tiles"] and best["max_rel_err_all_tiles"] == 0.0
 
@@ -754,8 +777,9 @@ def test_probe_shapes_run_on_the_card(cuda):
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("b,n_kv,S", [(1, 8, 1024), (2, 4, 1000), (1, 2, 37)])
 def test_pure_read_matches_plain(cuda, hd, b, n_kv, S):
-    """P11: f32 sums of bf16 values in another order than torch's: within
-    1e-6 of the column's sum of magnitudes."""
+    """P11: one launch, bit for bit its plain order; against torch's sum (f32
+    sums of bf16 values in another order) within 1e-6 of the column's sum
+    of magnitudes."""
     _, k, v = attention.make_operands(b, n_kv, n_kv, hd, S, cuda, seed=S)
     before = attention.pure_read.launches
     got = attention.pure_read(k, v)
@@ -764,7 +788,26 @@ def test_pure_read_matches_plain(cuda, hd, b, n_kv, S):
     torch.cuda.synchronize()
     assert attention.pure_read.launches == before + 1
     assert got.shape == (b, 1, hd) and got.dtype == torch.float32
+    assert torch.equal(got, attention.pure_read_order_plain(k, v))
     assert bool(((got - want).abs() <= 1e-6 * mag).all())
+
+
+@pytest.mark.parametrize("hd,b,n_kv,S", [(64, 1, 8, 1024), (128, 4, 8, 32768), (64, 3, 2, 37)])
+def test_pure_read_graph_replays_leave_its_tickets_zero(cuda, hd, b, n_kv, S):
+    """P11's ticket merge: eager calls and three replays of a captured call
+    each equal the plain order bit for bit, and leave every ticket zero."""
+    _, k, v = attention.make_operands(b, n_kv, n_kv, hd, S, cuda, seed=hd + S)
+    want = attention.pure_read_order_plain(k, v)
+    outs = [attention.pure_read(k, v) for _ in range(3)]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        g_out = attention.pure_read(k, v)
+    for _ in range(3):
+        g.replay()
+        outs.append(g_out.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    assert not cuda_attention._tickets(k.device, b).any()
 
 
 @pytest.mark.parametrize("hd,g,S,pos,col0", [
@@ -1029,8 +1072,9 @@ def test_scale_plane_call_on_every_bit_pattern(cuda):
 @pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2048, 264)])
 def test_i4_sweep_matches_plain_and_p4(cuda, rows, in_f, out_f):
     """P6 at every tile, one launch a call whatever the variant, equal to
-    its plain order bit for bit and within 1e-5 of P4's bf16 instance (B9's
-    order); at P3's plan equal to P3's bf16 arm bit for bit."""
+    its plain order bit for bit and within 1e-5 of P4's bf16 instance; at
+    P3's plan equal to P3's bf16 arm, and at P4's (where P6's tiles include
+    it) to P4's bf16 arm, bit for bit."""
     nb = in_f // 32
     x8, xs, qt, dt, _ = int4.make_operands(in_f, out_f, rows, cuda, seed=rows)
     qw = int4.pack_i32_t(qt)
@@ -1050,6 +1094,9 @@ def test_i4_sweep_matches_plain_and_p4(cuda, rows, in_f, out_f):
     p3 = i4_tiles.p3_tile(nb, out_f)
     assert torch.equal(i4_tiles.i4_sweep_call(x8, xs, qw, bits, *p3),
                        int4.i4_call_bf16(x8, xs, int4.pack_s4(qt), dt))
+    at_p4 = i4_tiles.plan_tile(int4.i32_plan(nb, out_f))
+    assert at_p4 in tiles
+    assert torch.equal(i4_tiles.i4_sweep_call(x8, xs, qw, bits, *at_p4), p4)
 
 
 @pytest.mark.parametrize("cols,blocks", [(128, 8), (1024, 64), (256, 16)])

@@ -2,9 +2,11 @@
 a scale plane), P3 and P6 (probes/gemv.py i4_gemv_plan and tile_plan, the
 same GEMV from 4-bit stored weights), P5 and P9/P10 (probes/gemv.py
 u4_gemv_plan and u4_tile_plan, the same from the unsigned-nibble codecs;
-probes/p5_p9_ab.py's cases, old-source discovery and refusals) and P12
-(probes/attention.py
-attention_plan, one-launch split-S decode attention merged in a cluster),
+probes/p5_p9_ab.py's cases, old-source discovery and refusals), P4
+(probes/int4.py i32_plan, the codecs' rule on the nibble words), P12
+(probes/attention.py attention_plan, one-launch split-S decode attention
+merged in a cluster) and P11 (read_plan, the one-launch read merged by a
+ticket; probes/p4_p11_ab.py's cases and refusals),
 on the CPU: each a function of the shape alone, held against hand-worked
 shapes; the wrappers' launch paths, run on the CPU with
 `kernels.load`/`kernels.launch` and the device check monkeypatched, hand
@@ -20,7 +22,7 @@ import torch
 from distributed_llama_tpu_torch.ops import cuda_q40, kernels
 from distributed_llama_tpu_torch.ops.cuda_q40 import _gemv_order
 from distributed_llama_tpu_torch.probes import (
-    attention, gemv, i4_tiles, int4, int4b, int4c, p5_p9_ab, scales)
+    attention, gemv, i4_tiles, int4, int4b, int4c, p4_p11_ab, p5_p9_ab, scales)
 from distributed_llama_tpu_torch.probes.operands import scale_planes
 
 REL_TOL = 1e-5  # exact integer partials; the f32 block sums in another order
@@ -300,6 +302,66 @@ def test_p6_plain_at_p3s_plan_is_p3(in_f, out_f):
     for rows in (1, 3):
         assert torch.equal(i4_tiles.i4_sweep_call_plain(x8[:rows], xs[:rows], qw, bits, *tile),
                            int4.i4_call_plain(x8[:rows], xs[:rows], qt4, dt))
+
+
+# -- P4 ----------------------------------------------------------------------
+
+P4_ARMS = ((int4.i32_call_int8, 0), (int4.i32_call_bf16, 1), (int4.i32_call_f32, 1))
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2176, 264)])
+def test_p4_launches_its_plan_once_whatever_the_row_count(monkeypatch, in_f, out_f):
+    """P4's three arms hand the kernel i32_plan(nb, out) (the codecs' rule
+    at the feature-split words' geometry) at 1..8 rows, with the
+    nibble-word loader and the f16 plane: the int8 arm
+    the int8 dot, the bf16 and f32 arms the bf16 code (one instance, exact
+    f32 products); each launches once a call and counts it on its own
+    counter."""
+    x8, xs, qt, _, dt = _p3_operands(in_f, out_f, 8, seed=11)
+    qw = int4.pack_i32_t(qt)
+    cap = _Captured(monkeypatch)
+    plan = int4.i32_plan(in_f // 32, out_f)
+    assert plan == gemv.u4_gemv_plan(in_f // 32, out_f, gemv.W_FS)
+    for rows in range(1, 9):
+        for fn, dot in P4_ARMS:
+            counts = [f.launches for f, _ in P4_ARMS]
+            calls = len(cap.calls)
+            out = fn(x8[:rows], xs[:rows], qw, dt)
+            assert [f.launches for f, _ in P4_ARMS] == [
+                c + (f is fn) for c, (f, _) in zip(counts, P4_ARMS)]
+            assert len(cap.calls) == calls + 1
+            assert out.shape == (rows, out_f) and out.dtype == torch.float32
+            lib, name, args = cap.calls[-1]
+            assert (lib, name) == (gemv.SOURCE, "i4_gemv")
+            assert args[3:5] == (gemv.W_I32, dot) and args[6] == 0
+            assert args[8:11] == (rows, in_f // 32, out_f)
+            assert args[-5:] == _plan_args(plan)
+
+
+@pytest.mark.parametrize("in_f,out_f", [(2048, 3072), (8192, 2048), (2176, 264)])
+def test_p4_plain_at_a_shared_plan_is_p3(in_f, out_f):
+    """On the same values (the nibble words and the s4 bytes of one int8
+    draw) P4's plain order is P3's bit for bit, every dot, at P4's plan,
+    P3's and two others (the order reads only the warps along k and the
+    blocks a split); each of 3 rows equals its one-row call; within REL_TOL
+    of B9's plain sum."""
+    x8, xs, qt, qt4, dt = _p3_operands(in_f, out_f, 3, seed=12)
+    qw = int4.pack_i32_t(qt)
+    nb = in_f // 32
+    want = cuda_q40.i8_blocks_plain(x8, xs, qt, dt)
+    for plan in (int4.i32_plan(nb, out_f), gemv.i4_gemv_plan(nb, out_f),
+                 scales.GemvPlan(4, 256, 4, 1, nb), scales.GemvPlan(8, 512, 4, 4, -(-nb // 4))):
+        p3 = int4.i4_call_plain(x8, xs, qt4, dt, "int8", plan)
+        for dot in int4.P4_DOTS:
+            assert torch.equal(int4.i32_call_plain(x8, xs, qw, dt, dot, plan), p3), (plan, dot)
+        ones = torch.cat([int4.i32_call_plain(x8[r:r + 1], xs[r:r + 1], qw, dt, "int8", plan)
+                          for r in range(3)])
+        assert torch.equal(ones, p3), plan
+        assert (p3 - want).abs().max() <= REL_TOL * want.abs().max()
+    assert torch.equal(int4.i32_call_plain(x8, xs, qw, dt),
+                       int4.i32_call_plain(x8, xs, qw, dt, plan=int4.i32_plan(nb, out_f)))
+    with pytest.raises(ValueError):
+        int4.i32_call_plain(x8, xs, qw, dt, "fp8")
 
 
 # -- P5 and P9/P10 --------------------------------------------------------------
@@ -671,3 +733,123 @@ def test_p12_merge_takes_the_largest_m_and_sums_in_order():
     assert M.item() == 3.0
     assert torch.equal(L, torch.tensor([np.float32(2.0) * f + np.float32(1.0)]))
     assert torch.equal(O, torch.tensor([np.float32(2.0) * f + 1, np.float32(4.0) * f + 1]))
+
+
+# -- P11 ---------------------------------------------------------------------
+
+# (b, kv, S, hd) -> (splits, chunk rows) of read_plan, worked by hand: whole
+# CTA iterations of 4 rows a thread (128 rows at hd 64, 64 at hd 128), as
+# many CTAs a row as reach 256 over the batch, none empty
+P11_PLANS = [
+    ((1, 8, 1024, 64), (64, 128)),      # 64 iterations, one a CTA
+    ((4, 8, 1024, 64), (64, 128)),      # 64 a row reach 256
+    ((16, 8, 1024, 64), (16, 512)),     # 16 a row: 4 iterations a CTA
+    ((1, 8, 32768, 64), (256, 1024)),   # 2048 iterations, 8 a CTA
+    ((4, 8, 32768, 128), (64, 4096)),
+    ((1, 8, 1024, 128), (128, 64)),
+    ((3, 2, 37, 64), (1, 128)),         # 74 rows: one ragged iteration
+    ((2, 4, 300, 128), (19, 64)),       # 1200 rows: the last CTA 48
+    ((256, 8, 1024, 64), (1, 8192)),    # a CTA a row already passes 256
+]
+
+
+@pytest.mark.parametrize("shape,want", P11_PLANS)
+def test_p11_plan_is_the_hand_worked_one(shape, want):
+    plan = attention.read_plan(*shape)
+    assert (plan.splits, plan.chunk) == want
+    assert plan.unroll == attention.READ_UNROLL[shape[3]]
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 16, 300])
+@pytest.mark.parametrize("n_kv,S", [(8, 1024), (8, 32768), (4, 300), (2, 37), (1, 1), (8, 1000)])
+def test_p11_plan_covers_the_cache_once(b, n_kv, S):
+    """The shape alone sets the plan: chunks of whole CTA iterations that
+    cover the row's kv * S rows once, none empty, at most about
+    READ_TARGET_CTAS CTAs over the batch (one a row at the least); the
+    sweep's overrides keep those properties."""
+    for hd in attention.HEAD_DIMS:
+        rows = n_kv * S
+        for splits, unroll in ((None, None), (7, 8), (1, 4), (10 ** 6, 4)):
+            plan = attention.read_plan(b, n_kv, S, hd, splits, unroll)
+            assert plan == attention.read_plan(b, n_kv, S, hd, splits, unroll)
+            assert plan.chunk % (attention.READ_THREADS // (hd // 8) * plan.unroll) == 0
+            assert plan.splits * plan.chunk >= rows > (plan.splits - 1) * plan.chunk
+            if splits is None:
+                assert b * plan.splits < attention.READ_TARGET_CTAS + b
+            else:
+                assert plan.splits <= splits
+
+
+def test_p11_plan_refuses_what_the_kernel_does_not_take():
+    for args in ((1, 8, 1024, 96), (0, 8, 1024, 64), (1, 8, 0, 64), (1, 0, 8, 64)):
+        with pytest.raises(ValueError):
+            attention.read_plan(*args)
+    for splits, unroll in ((0, 4), (4, 5), (4, 2)):
+        with pytest.raises(ValueError):
+            attention.read_plan(1, 8, 1024, 64, splits, unroll)
+
+
+@pytest.mark.parametrize("n_kv,S,hd", [(8, 1024, 64), (4, 300, 128), (2, 37, 64)])
+def test_p11_launches_its_plan_once_whatever_the_batch(monkeypatch, n_kv, S, hd):
+    """pure_read hands the kernel read_plan(b, kv, S, hd) at batch 1, 3 and
+    16, launches once a call, and gives it a partials buffer and zeroed
+    tickets only where a row has more than one split."""
+    cap = _Captured(monkeypatch)
+    for b in (1, 3, 16):
+        k = torch.zeros((b, n_kv, S, hd), dtype=torch.bfloat16)
+        plan = attention.read_plan(b, n_kv, S, hd)
+        before, calls = attention.pure_read.launches, len(cap.calls)
+        out = attention.pure_read(k, k.clone())
+        assert attention.pure_read.launches == before + 1 and len(cap.calls) == calls + 1
+        assert out.shape == (b, 1, hd) and out.dtype == torch.float32
+        lib, fn, args = cap.calls[-1]
+        assert (lib, fn) == ("attention_probe", "pure_read")
+        assert args[2:9] == (b, n_kv, S, hd, plan.splits, plan.chunk, plan.unroll)
+        assert (args[9] is None) == (args[10] is None) == (plan.splits == 1)
+
+
+def test_p11_order_plain_splits_agree_within_the_closed_form():
+    """Any split count reorders the f32 sums only: each within 1e-6 of the
+    column's sum of magnitudes of the others, and a split's rows past the
+    cache add nothing (a cache of zeros past S gives the same bits)."""
+    _, k, v = attention.make_operands(2, 8, 8, 64, 1000, "cpu", seed=3)
+    mag = (k.float().abs().sum(dim=(1, 2)) + v.float().abs().sum(dim=(1, 2))).unsqueeze(1)
+    ref = attention.pure_read_order_plain(k, v)
+    for splits in (1, 2, 5, 63):
+        got = attention.pure_read_order_plain(k, v, attention.read_plan(2, 8, 1000, 64, splits))
+        assert bool(((got - ref).abs() <= 1e-6 * mag).all()), splits
+    # one kv head of 8000 rows, and the same rows with the last CTA's 64
+    # missing ones read as zeros: the same bits
+    k1, v1 = k.reshape(2, 1, 8000, 64), v.reshape(2, 1, 8000, 64)
+    plan = attention.read_plan(2, 1, 8000, 64)
+    assert (plan.splits, plan.chunk) == (63, 128)
+    kz, vz = (torch.nn.functional.pad(t, (0, 0, 0, 64)) for t in (k1, v1))
+    assert torch.equal(attention.pure_read_order_plain(kz, vz, plan),
+                       attention.pure_read_order_plain(k1, v1, plan))
+
+
+def test_p4_p11_ab_cases_and_old_sources(tmp_path, monkeypatch):
+    """The A/B's P11 cases (S 1024 and 32768, hd 64 and 128, b 1 and 4), its
+    old-source discovery and its refusals: no mode, a directory without the
+    earlier sources, no card; the old P11's split as the earlier wrapper
+    computed it."""
+    assert len(p4_p11_ab.P11_CASES) == 8
+    assert {(S, b) for S, _, b in p4_p11_ab.P11_CASES} == {(1024, 1), (1024, 4), (32768, 1),
+                                                            (32768, 4)}
+    with pytest.raises(FileNotFoundError):
+        p4_p11_ab.old_sources(tmp_path)
+    for name in p4_p11_ab.OLD_SOURCES[:-1]:
+        (tmp_path / name).write_text("// old\n")
+    with pytest.raises(FileNotFoundError):  # attention_probe.cu is missing
+        p4_p11_ab.old_sources(tmp_path)
+    (tmp_path / "attention_probe.cu").write_text("// old\n")
+    assert set(p4_p11_ab.old_sources(tmp_path)) == set(p4_p11_ab.OLD_SOURCES)
+    with pytest.raises(SystemExit):
+        p4_p11_ab.main([])
+    with pytest.raises(FileNotFoundError):
+        p4_p11_ab.main(["--old", str(tmp_path / "nowhere")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert p4_p11_ab.main(["--old", str(tmp_path)]) == 2
+    assert p4_p11_ab.main(["--sweep", "p11"]) == 2
+    assert p4_p11_ab.old_read_splits(8, 1024, 64) == 256
+    assert p4_p11_ab.old_read_splits(8, 32768, 128) == 512

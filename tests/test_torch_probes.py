@@ -170,12 +170,15 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
     x8, xs, qt, dt, _ = int4.make_operands(512, 128, 2, "cpu")
     counts = [k.launches for k in (cuda_q40.q40_i8_unpacked, *int4.KERNELS, *dma.KERNELS)]
     ref = cuda_q40.q40_i8_unpacked(x8, xs, qt, dt)
-    for _, fn, plain, w, dot, _ in int4.variants(qt)[1:]:
-        assert torch.equal(fn(x8, xs, w, dt), plain(x8, xs, w, dt, dot))
-        if fn in (int4.i4_call_int8, int4.i4_call_bf16):  # P3: its plan's order
-            _within(fn(x8, xs, w, dt).numpy(), ref.numpy())
-        else:
-            assert torch.equal(fn(x8, xs, w, dt), ref)  # exact partials, one order
+    qt4 = int4.pack_s4(qt)
+    # exact partials: at one plan's order P3's bits, whatever the storage or dot
+    p3 = {"s4": int4.i4_call_int8(x8, xs, qt4, dt),
+          "i32": int4.i4_call_plain(x8, xs, qt4, dt, "int8", int4.i32_plan(16, 128))}
+    for label, fn, plain, w, dot, _ in int4.variants(qt)[1:]:
+        got = fn(x8, xs, w, dt)
+        assert torch.equal(got, plain(x8, xs, w, dt, dot))
+        assert torch.equal(got, p3[label.split()[0].split("-")[0]]), fn.__name__
+        _within(got.numpy(), ref.numpy())
     dma.stream_call(*dma.make_plane(1024, 512, "cpu"), 256, 8)
     assert counts == [k.launches for k in (cuda_q40.q40_i8_unpacked, *int4.KERNELS,
                                             *dma.KERNELS)]
@@ -206,8 +209,9 @@ def test_int4_run_shape_on_the_cpu():
     assert [r["probe"] for r in rows] == ["i8 baseline", "s4 int8-dot", "s4 bf16-dot",
                                           "i32-unpack i8-dot", "i32-unpack bf16-dot",
                                           "i32-unpack f32-dot"]
-    for r in rows:  # B9 and P4 share B9's order; P3 sums in its plan's
-        assert r["max_err_vs_b9"] <= (REL_TOL * r["out_scale"] if "s4" in r["probe"] else 0.0)
+    for r in rows:  # P3 and P4 sum in their plan's order, B9 in its own
+        assert r["max_err_vs_b9"] <= (REL_TOL * r["out_scale"] if r["kernel"] != "q40_i8_unpacked"
+                                      else 0.0)
     assert rows[0]["bytes"] == 1024 * 256 + 32 * 256 * 2 + 1024 + 32 * 4 + 256 * 4
 
 
@@ -226,3 +230,21 @@ def test_probe_mains_need_a_gpu_unless_told_cpu(monkeypatch, capsys):
     assert len(dma.main(["--device", "cpu", "--shape", "2048,256"])) == 1
     out = capsys.readouterr().out
     assert "not measured" in out and "maxerr vs B9 0.000e+00" in out
+
+
+@pytest.mark.parametrize("dot", ["int8", "bf16", "f32"])
+def test_p4_plain_matches_jax_i32_call_at_w2_depth(dot):
+    """At the 1B w2's depth (nb 256) P4's plan splits the contraction (8
+    splits of 32 blocks at 256 columns): the plain order against JAX's
+    `i32_call`, within REL_TOL of the output's largest value (exact integer
+    partials, the f32 block sums in another order), and the wrapper on CPU
+    tensors equal to it."""
+    _, x8, xs, qt, dt = _jax_operands(8192, 256, 1, seed=6)
+    assert int4.i32_plan(256, 256).splits > 1
+    qw = jint4.pack_i32(qt)
+    wconv = {"int8": jnp.int8, "bf16": jnp.bfloat16, "f32": jnp.float32}[dot]
+    want = np.asarray(jint4.i32_call(x8, xs, jnp.asarray(qw), dt, wconv=wconv, interpret=True))
+    px8, pxs, pqw, pdt = operands_from_jax(x8, xs, qw, dt, device="cpu")
+    got = int4.i32_call_plain(px8, pxs, pqw, pdt, dot)
+    _within(got.numpy(), want)
+    assert torch.equal(int4.i32_call(px8, pxs, pqw, pdt, dot=dot), got)

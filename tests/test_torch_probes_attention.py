@@ -132,13 +132,31 @@ def test_p11_plain_matches_its_closed_form(b, kv, S, hd):
     got = attention.pure_read_plain(tk, tv)
     assert got.shape == (b, 1, hd) and got.dtype == torch.float32
     assert (np.abs(got.double().numpy() - want) <= 1e-6 * mag).all()
-    assert torch.equal(attention.pure_read(tk, tv), got)
+    assert torch.equal(attention.pure_read(tk, tv), attention.pure_read_order_plain(tk, tv))
+
+
+@pytest.mark.parametrize("b,kv,S,hd", [(1, 8, 1024, 64), (2, 4, 300, 128), (4, 8, 1024, 64),
+                                       (3, 2, 37, 64), (16, 8, 512, 128)])
+def test_p11_order_plain_matches_its_closed_form(b, kv, S, hd):
+    """The kernel's order (per-thread strides, the CTA's reduction, the
+    merge) at its plan and at other split counts: within 1e-6 of the
+    column's sum of magnitudes of the float64 closed form."""
+    _, (_, tk), (_, tv) = _cache(b, kv, kv, hd, S, seed=S + b)
+    k64, v64 = tk.double().numpy(), tv.double().numpy()
+    want = (k64.sum(axis=(1, 2)) + v64.sum(axis=(1, 2)))[:, None, :]
+    mag = (np.abs(k64).sum(axis=(1, 2)) + np.abs(v64).sum(axis=(1, 2)))[:, None, :]
+    plans = {attention.read_plan(b, kv, S, hd)}
+    plans |= {attention.read_plan(b, kv, S, hd, splits) for splits in (1, 3, 16)}
+    for plan in plans:
+        got = attention.pure_read_order_plain(tk, tv, plan)
+        assert got.shape == (b, 1, hd) and got.dtype == torch.float32
+        assert (np.abs(got.double().numpy() - want) <= 1e-6 * mag).all(), plan
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
     q, k, v = attention.make_operands(1, 8, 2, 64, 128, "cpu")
     counts = [k_.launches for k_ in (*attention.KERNELS, cuda_attention.flash_attention)]
-    assert torch.equal(attention.pure_read(k, v), attention.pure_read_plain(k, v))
+    assert torch.equal(attention.pure_read(k, v), attention.pure_read_order_plain(k, v))
     assert torch.equal(attention.decode_attention(q, k, v, 100),
                        attention.decode_attention_plain(q, k, v, 100))
     q4 = q.reshape(1, 1, 8, 64)
@@ -163,8 +181,8 @@ def test_wrappers_check_their_operands():
 def test_splits_are_a_function_of_the_shape(b, n_kv, S):
     """P12's plan reads (S, hd) only: its C <= 16 CTAs a (row, kv head)
     cover S once in whole units of its warps' tiles, none past S; b and
-    n_kv only count the clusters (b * n_kv). P11's split stays within its
-    cap."""
+    n_kv only count the clusters (b * n_kv). P11's plan covers the row's
+    cache once in whole iterations of a CTA."""
     for hd in attention.HEAD_DIMS:
         plan = attention.attention_plan(S, hd)
         assert 1 <= plan.cluster <= attention.ATT_MAX_CLUSTER
@@ -172,8 +190,9 @@ def test_splits_are_a_function_of_the_shape(b, n_kv, S):
         assert plan.cluster * plan.width >= S > (plan.cluster - 1) * plan.width
         assert (plan.warps, plan.tile, plan.stages) == attention.ATT_VARIANT[hd][1:]
     assert b * n_kv * plan.cluster <= b * n_kv * attention.ATT_MAX_CLUSTER
-    r = attention.read_splits(n_kv, S, 64)
-    assert 1 <= r <= attention.MAX_READ_SPLITS
+    r = attention.read_plan(b, n_kv, S, 64)
+    assert r.splits * r.chunk >= n_kv * S > (r.splits - 1) * r.chunk
+    assert r == attention.read_plan(b, n_kv, S, 64)
 
 
 def test_attention_main_on_the_cpu(monkeypatch, capsys):
