@@ -81,17 +81,36 @@ caught):
      6000-token prompt and 64 greedy steps with B8 launched chunks x
      layers x shards times and K3 never, logits and tokens against sp = 1,
      and profiles of its prefill tail (B8's share) and decode. At
-     Qwen3-30B-A3B's width: the CLI's `inference` (contiguous);
+     Qwen3-30B-A3B's width: the CLI's `inference` (contiguous). Decode on
+     these paths replays CUDA graphs of the decode step (runtime/graphs.py)
+     except on the sp mesh, and the launch counters count each replay's
+     kernels;
+  5b. graphed decode against eager decode on one engine (`cuda_graphs`
+     off, then on): 256 greedy steps in 64-step chunks from PROMPT's end
+     and a seeded sampled chunk of each sampling arm (top-p 0.9 and
+     1.0), tokens and every chunk's last logits bit for bit equal, at
+     Llama-3.2-1B width batch 1 contiguous, paged bf16 and paged int8,
+     and the batch-16 paged int8 BatchSession (four rows re-admitted,
+     then four sampled at each arm); at Qwen3-30B-A3B width batch 1
+     contiguous. Then `warmup()` (its seconds, captures and graph-pool
+     bytes) and a pinned trace, a prompt decoding across the 256 and 512
+     kv buckets and (batch 16) a BatchSession admit/step/release cycle,
+     which must make 0 captures after warmup;
   6. where a token's time goes: torch.profiler over 16 batch-1 decode
      steps of each model (contiguous) and of the 1B on the paged int8
      layout (K5's share), over one batch-16 paged int8 chunk (K5's share)
-     and over a 128-token Qwen3-30B-A3B prefill (K4's share);
+     and over a 128-token Qwen3-30B-A3B prefill (K4's share); each decode
+     window eagerly and graphed in turns on one engine, reported as wall,
+     busy and idle, kernel and `cudaGraphLaunch` calls a token and tok/s;
+     the 1B contiguous window also sampled at temperature 0.8, top-p 0.9
+     (the top-p arm) and 1.0 (the full distribution);
   7. one {"kernels": [...]} line, then the card, then the result line.
 
 `python3 chip_smoke.py --profiles llama32_1b|qwen3_30b_a3b [--models DIR]`
 runs phases 1-2 and only that model's phase-6 windows (the paged int8
-decode and batch-16 chunk, or the prefill): run from the root of two trees
-in one call, it compares them end to end.
+decode and batch-16 chunk, or the prefill), each decode window graphed
+and eager: run from the root of two trees in one call, it compares them
+end to end.
 
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. Bounds use the card's published rates
@@ -2044,10 +2063,173 @@ def sp_path(torch, mp: str, tp: str, counters, expected, b8, k3):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5b: graphed decode against eager decode
+# ---------------------------------------------------------------------------
+
+GRAPH_CHUNKS = (64, 64, 64, 64)  # 256 greedy steps a trace, across the 256 kv bucket
+# then a sampled chunk of each arm, the top-p arm and the full distribution:
+# steps, temperature, top-p, seed
+GRAPH_SAMPLED = ((64, 0.8, 0.9, 1234), (32, 0.8, 1.0, 1235))
+
+
+def decode_trace(torch, eng, ids):
+    """ids[:-1] prefilled, then GRAPH_CHUNKS greedy and the GRAPH_SAMPLED
+    chunks through the engine's chunk step, eager or graphed as
+    `eng.cuda_graphs` says. Returns (host tokens [b, steps], each chunk's
+    last logits, decode seconds)."""
+    from distributed_llama_tpu_torch.tokenizer import Sampler
+
+    eng.reset()
+    eng.prefill(ids[:-1])
+    pos = len(ids) - 1
+    tok = eng._tokens([ids[-1]] * eng.batch)
+    chunks = [(n, 0.0, 0.9, None) for n in GRAPH_CHUNKS]
+    chunks += [(n, t, p, Sampler(eng.cfg.vocab_size, t, p, seed)) for n, t, p, seed in GRAPH_SAMPLED]
+    toks, logits = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n, t, topp, sampler in chunks:
+        out, tok = eng._decode_chunk(tok, pos, n, t, topp, eng._generator(sampler))
+        toks.append(out.cpu())
+        logits.append(eng.last_logits.clone())
+        pos += n
+    return torch.cat(toks, dim=1), logits, time.perf_counter() - t0
+
+
+def graph_vs_eager(torch, name: str, eng, ids) -> dict:
+    """`decode_trace` eagerly, then graphed (captures included) on the same
+    engine: tokens and every chunk's last logits equal bit for bit."""
+    runs = {}
+    for graphs in (False, True):
+        eng.cuda_graphs = graphs
+        runs[graphs] = decode_trace(torch, eng, ids)
+    (te, le, se), (tg, lg, sg) = runs[False], runs[True]
+    n = te.shape[1] * te.shape[0]
+    out = {"phase": "graphed_decode", "setup": name, "decode_steps": te.shape[1],
+           "batch": te.shape[0], "tokens_equal": torch.equal(te, tg),
+           "logits_equal": all(torch.equal(a, b) for a, b in zip(le, lg)),
+           "eager_tok_s": n / se, "graphed_tok_s_captures_included": n / sg,
+           "graphs": eng.graph_stats()}
+    log(json.dumps(out))
+    assert out["tokens_equal"], f"{name}: graphed decode tokens differ from eager"
+    assert out["logits_equal"], f"{name}: graphed decode logits differ from eager"
+    return out
+
+
+def pinned_trace(torch, name: str, eng, ids, session: bool) -> dict:
+    """warmup(), then a prompt whose decode crosses the 256 and 512 kv
+    buckets (streamed, so the TTFT ramp's chunk too) and, with `session`,
+    a BatchSession admit/step/release cycle with a sampled row: 0
+    recaptures after warmup."""
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+
+    eng.cuda_graphs = True
+    before = torch.cuda.memory_reserved()
+    stats = eng.warmup()
+    reserved = torch.cuda.memory_reserved() - before
+    prompt = (ids * 2)[:200]
+    eng.generate(prompt, 600, on_token=lambda t: None)
+    if session:
+        s = BatchSession(eng)
+        s.admit(0, ids, temperature=0.7, seed=5)
+        s.admit(3, ids[:40])
+        s.step(8)
+        s.step(64)
+        s.release(0)
+        s.step(8)
+        s.release(3)
+    after = eng.graph_stats()
+    out = {"phase": "graph_warmup", "setup": name, "warmup_s": stats["warmup_seconds"],
+           "captures": stats["captures"], "graph_pool_bytes": stats["pool_bytes"],
+           "reserved_bytes_added_by_warmup": reserved,
+           "recaptures_after_warmup": after["recaptures_after_warmup"],
+           "launches_per_replay": stats["launches_per_replay"]}
+    log(json.dumps(out))
+    assert after["recaptures_after_warmup"] == 0, f"{name}: a capture after warmup"
+    return out
+
+
+def graphed_batch_session(torch, name: str, eng, ids) -> dict:
+    """The batch-16 paged int8 BatchSession eagerly and graphed: 16 rows,
+    32 greedy 8-step chunks with four rows re-admitted at chunk 8, then
+    four rows re-admitted sampled (seeded) for one chunk at top-p 0.9 and
+    one at 1.0 (each sampling arm); every chunk's tokens and last logits
+    equal bit for bit."""
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+
+    b, chunk, n_chunks, swap_at = 16, 8, 32, 8
+    prompts = [ids[: 16 + (len(ids) - 16) * i // (b - 1)] for i in range(b)]
+    swapped = (2, 6, 10, 14)
+    runs = {}
+    for graphs in (False, True):
+        eng.cuda_graphs = graphs
+        s = BatchSession(eng)
+        for r in range(b):
+            s.admit(r, prompts[r])
+        toks, logits = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(n_chunks + 2):
+            if c >= n_chunks or c == swap_at:
+                for j, r in enumerate(swapped):
+                    s.release(r)
+                    s.admit(r, ids[10 + 5 * j : 34 + 25 * j],
+                            temperature=0.8 if c >= n_chunks else 0.0,
+                            topp=1.0 if c > n_chunks else 0.9, seed=100 + j)
+            toks.append(s.step(chunk))
+            logits.append(eng.last_logits.clone())
+        runs[graphs] = (toks, logits, time.perf_counter() - t0)
+    (te, le, se), (tg, lg, sg) = runs[False], runs[True]
+    out = {"phase": "graphed_decode", "setup": name,
+           "decode_steps": chunk * (n_chunks + 2), "batch": b,
+           "tokens_equal": all((a == g).all() for a, g in zip(te, tg)),
+           "logits_equal": all(torch.equal(a, g) for a, g in zip(le, lg)),
+           "eager_s": se, "graphed_s_captures_included": sg, "graphs": eng.graph_stats()}
+    log(json.dumps(out))
+    assert out["tokens_equal"], "batch-16 session: graphed tokens differ from eager"
+    assert out["logits_equal"], "batch-16 session: graphed logits differ from eager"
+    return out
+
+
+def graphed_decode_phase(torch, mp: str, tp: str, model: str) -> None:
+    """Phase 5b at one model's width: graphed against eager decode, then the
+    warm ladder's pinned trace. Llama-3.2-1B: batch 1 contiguous, paged
+    bf16 and paged int8, and the batch-16 paged int8 BatchSession;
+    Qwen3-30B-A3B: batch 1 contiguous."""
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer(tp).encode(PROMPT)
+    kw = dict(max_seq_len=MAX_SEQ_LEN, device="cuda")
+    if model == "qwen3_30b_a3b":
+        eng = InferenceEngine(mp, kv_layout="contiguous", **kw)
+        graph_vs_eager(torch, f"{model} batch 1 contiguous", eng, ids)
+        pinned_trace(torch, f"{model} batch 1 contiguous", eng, ids, session=False)
+        eng.close()
+        return
+    for layout, kv in (("contiguous", None), ("paged", None), ("paged", "int8")):
+        name = f"{model} batch 1 {layout} {kv or 'bf16'}"
+        eng = InferenceEngine(mp, kv_layout=layout, cache_dtype=kv, **kw)
+        graph_vs_eager(torch, name, eng, ids)
+        if kv == "int8":
+            pinned_trace(torch, name, eng, ids, session=False)
+        eng.close()
+        del eng
+        release(torch)
+    eng = InferenceEngine(mp, batch=16, kv_layout="paged", cache_dtype="int8", **kw)
+    graphed_batch_session(torch, f"{model} batch_session 16 paged int8", eng, ids)
+    pinned_trace(torch, f"{model} batch 16 paged int8", eng, ids, session=True)
+    eng.close()
+
+
 # the host-side launch calls a window counts: the CUDA runtime's and the
 # low-level cu* entries, plain and extended (a kernel launched as a
-# thread-block cluster goes through cudaLaunchKernelEx)
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+# thread-block cluster goes through cudaLaunchKernelEx), and a CUDA graph's
+# replay, counted apart as well
+GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx",
+                *GRAPH_LAUNCH_CALLS)
 
 
 def profile_window(torch, name: str, run, n_tokens: int, share_of=None) -> dict:
@@ -2057,7 +2239,8 @@ def profile_window(torch, name: str, run, n_tokens: int, share_of=None) -> dict:
     events (kernels, copies) only: an aten op's device time is its kernels'
     again; the device's idle share; kernels and host-side launch calls per
     token; the top kernels and host ops; with `share_of` ({label: a kernel
-    name's substring}), each label's share of the device busy time."""
+    name's substring, or a tuple of them}), each label's share of the
+    device busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2082,35 +2265,73 @@ def profile_window(torch, name: str, run, n_tokens: int, share_of=None) -> dict:
         "kernels_per_token": sum(e.count for e in on_dev) / n_tokens,
         "launch_calls_per_token": sum(
             e.count for e in events if e.key in LAUNCH_CALLS) / n_tokens,
+        "graph_launch_calls_per_token": sum(
+            e.count for e in events if e.key in GRAPH_LAUNCH_CALLS) / n_tokens,
+        "decode_tok_s": n_tokens / wall,
         "top_kernels_ms_per_token": {e.key[:100]: e.self_device_time_total / 1e3 / n_tokens
                                      for e in by_dev},
         "top_host_ops_ms_per_token": {e.key: e.self_cpu_time_total / 1e3 / n_tokens
                                       for e in by_cpu},
     }
     if share_of:
-        out["share"] = {label: sum(e.self_device_time_total for e in on_dev if sub in e.key) / dev_us
-                        for label, sub in share_of.items()}
+        subs = {label: (sub,) if isinstance(sub, str) else sub for label, sub in share_of.items()}
+        out["share"] = {label: sum(e.self_device_time_total for e in on_dev
+                                   if any(s in e.key for s in subs[label])) / dev_us
+                        for label in subs}
     log(json.dumps(out))
     return out
 
 
+# the profiled windows' metrics the graph A/B compares
+AB_KEYS = ("wall_ms_per_token", "device_busy_ms_per_token", "device_idle_share",
+           "kernels_per_token", "launch_calls_per_token", "graph_launch_calls_per_token",
+           "decode_tok_s")
+
+
+def graph_ab(torch, name: str, eng, run, n_tokens: int, share_of=None) -> dict:
+    """One window on one engine eagerly and graphed, in turns (eager,
+    graphed, graphed, eager), each profiled after a warm call (the graphed
+    warm call captures); returns and logs each arm's mean of AB_KEYS."""
+    windows = {False: [], True: []}
+    for graphs in (False, True, True, False):
+        eng.cuda_graphs = graphs
+        arm = "graphed" if graphs else "eager"
+        windows[graphs].append(profile_window(torch, f"{name} {arm}", run, n_tokens, share_of))
+    out = {"phase": "graph_ab", "window": name, "tokens": n_tokens}
+    for graphs, arm in ((False, "eager"), (True, "graphed")):
+        out[arm] = {k: sum(w[k] for w in windows[graphs]) / 2 for k in AB_KEYS}
+    log(json.dumps(out))
+    eng.cuda_graphs = True
+    return out
+
+
+# the 1B batch-1 windows' sampling settings (label, temperature, top-p):
+# greedy, then sampled through the top-p arm and with the full distribution
+GREEDY = (("", 0.0, 0.9),)
+SAMPLED = (*GREEDY, (" sampled t0.8 p0.9", 0.8, 0.9), (" sampled t0.8 p1.0", 0.8, 1.0))
+
+
 def decode_profile(torch, name: str, model_path: str, steps: int = 16, share_of=None,
-                   **engine_kw) -> dict:
+                   windows=GREEDY, **engine_kw) -> list:
     """16 batch-1 decode steps of the main path's engine (contiguous, or
-    the layout `engine_kw` names) after a 99-token prefill, profiled."""
+    the layout `engine_kw` names) after a 99-token prefill, profiled
+    eagerly and graphed (`graph_ab`), once for each sampling setting of
+    `windows`; each window decodes from position 99. Returns the
+    `graph_ab` records."""
     from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
 
     eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda", **engine_kw)
     prompt = [(7 * i) % 1000 + 1 for i in range(100)]
     eng.prefill(prompt[:-1])
     tok = torch.tensor([prompt[-1]], device="cuda")
-    at = [len(prompt) - 1]
 
-    def run():
-        eng._decode_chunk(tok, at[0], steps)
-        at[0] += steps
+    out = []
+    for label, temperature, topp in windows:
+        def run(temperature=temperature, topp=topp):
+            eng._decode_chunk(tok, len(prompt) - 1, steps, temperature, topp)
 
-    out = profile_window(torch, name, run, steps, share_of)
+        share = {**(share_of or {}), **SORT_SHARE} if temperature > 0 else share_of
+        out.append(graph_ab(torch, name + label, eng, run, steps, share))
     eng.close()
     return out
 
@@ -2119,11 +2340,13 @@ def decode_profile(torch, name: str, model_path: str, steps: int = 16, share_of=
 # kernel's name
 K5_SHARE = {"paged_attention (K5)": "paged_attention"}
 K4_SHARE = {"q40_grouped_gemm (K4)": "q40_grouped_gemm"}
+# the top-p arm's sort over the vocabulary (cub's radix sort and torch's own)
+SORT_SHARE = {"sort (top-p arm)": ("Sort", "sort")}
 # K1's GEMV (either design) and the first design's separate prologue
 K1_SHARE = {"q40_gemv (K1)": "q40_gemv", "quantize_rows_q80 (K1 prologue)": "quantize_rows_q80"}
 
 
-def int8_decode_profile(torch, model_path: str) -> dict:
+def int8_decode_profile(torch, model_path: str) -> list:
     """The CLI's `inference --kv-dtype int8` path at batch 1 (paged int8,
     K5 at b = 1): 16 decode steps after a 99-token prefill, profiled."""
     return decode_profile(torch, "llama32_1b paged int8 batch 1", model_path, share_of=K5_SHARE,
@@ -2143,9 +2366,10 @@ def prefill_profile(torch, name: str, model_path: str, n_tokens: int = 128) -> d
 
 
 def batch16_profile(torch, model_path: str, tp: str, sess=None) -> dict:
-    """One 8-step chunk of a batch-16 paged int8 BatchSession, profiled,
-    with K5's share. Without `sess` (the main run's), a session of its own:
-    the main run's 16 prompts, stepped 16 chunks of 8 first."""
+    """One 8-step chunk of a batch-16 paged int8 BatchSession, profiled
+    eagerly and graphed (`graph_ab`), with K5's share. Without `sess` (the
+    main run's), a session of its own: the main run's 16 prompts, stepped
+    16 chunks of 8 first."""
     eng = None
     if sess is None:
         from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
@@ -2161,8 +2385,8 @@ def batch16_profile(torch, model_path: str, tp: str, sess=None) -> dict:
             sess.admit(r, ids[: 16 + (len(ids) - 16) * r // (b - 1)])
         for _ in range(16):
             sess.step(8)
-    out = profile_window(torch, "llama32_1b batch-16 paged int8 chunk", lambda: sess.step(8),
-                         8 * 16, K5_SHARE)
+    out = graph_ab(torch, "llama32_1b batch-16 paged int8 chunk", sess.engine,
+                   lambda: sess.step(8), 8 * 16, K5_SHARE)
     if eng is not None:
         eng.close()
     return out
@@ -2179,17 +2403,17 @@ def profiles_only(torch, model: str, models_dir: Path | None) -> int:
     root = models_dir or BUILD
     if model == "llama32_1b":
         mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B, root=root)
-        out = [decode_profile(torch, "llama32_1b", mp, share_of=K1_SHARE)]
+        out = decode_profile(torch, "llama32_1b", mp, share_of=K1_SHARE, windows=SAMPLED)
         release(torch)
-        out.append(decode_profile(torch, "llama32_1b paged int8 batch 1", mp,
-                                  share_of={**K5_SHARE, **K1_SHARE}, kv_layout="paged",
-                                  cache_dtype="int8"))
+        out += decode_profile(torch, "llama32_1b paged int8 batch 1", mp,
+                              share_of={**K5_SHARE, **K1_SHARE}, kv_layout="paged",
+                              cache_dtype="int8")
         release(torch)
         out.append(batch16_profile(torch, mp, tp))
     else:
         mp, _, _, _ = synthetic_model("qwen3_30b_a3b", dict(QWEN3_30B_A3B, arch=QWEN3_MOE_ARCH),
                                       norm_epsilon=QWEN3_NORM_EPS, root=root)
-        out = [decode_profile(torch, "qwen3_30b_a3b", mp, share_of=K1_SHARE)]
+        out = decode_profile(torch, "qwen3_30b_a3b", mp, share_of=K1_SHARE)
         release(torch)
         out.append(prefill_profile(torch, "qwen3_30b_a3b", mp))
     print(json.dumps({"profiles": out, "tree": str(ROOT)}))
@@ -2340,7 +2564,7 @@ def main(argv=None) -> int:
     paths["llama32_1b inference contiguous"] = main_path(
         torch, "llama32_1b", mp, tp, LLAMA32_1B["n_layers"], counters, dense)
     release(torch)
-    decode_profile(torch, "llama32_1b", mp)
+    decode_profile(torch, "llama32_1b", mp, windows=SAMPLED)
     release(torch)
     paths["llama32_1b perplexity paged"] = perplexity_path(
         torch, mp, tp, counters, (q.q40_gemm_bf16_stacked, q.q40_gemm_bf16, ca.flash_attention))
@@ -2370,6 +2594,8 @@ def main(argv=None) -> int:
         (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked, ca.flash_attention_partial),
         ca.flash_attention_partial, ca.flash_attention)
     release(torch)
+    graphed_decode_phase(torch, mp, tp, "llama32_1b")
+    release(torch)
     Path(mp).unlink()  # room on the disk for the MoE file
     done("phases 5-6 at Llama-3.2-1B width")
 
@@ -2385,6 +2611,8 @@ def main(argv=None) -> int:
     decode_profile(torch, "qwen3_30b_a3b", mp)
     release(torch)
     prefill_profile(torch, "qwen3_30b_a3b", mp)
+    release(torch)
+    graphed_decode_phase(torch, mp, tp, "qwen3_30b_a3b")
     release(torch)
     done("phases 5-6 at Qwen3-30B-A3B width")
 

@@ -27,6 +27,11 @@ operands are the compute dtype (bf16 on the fast path), `linear` returns its
 input's dtype, and the cache is written in the cache dtype (int8 with f32
 scales on the quantized arm, read back dequantized to the compute dtype).
 
+Rows aligned at one position the host knows only as a device scalar (a
+decode graph's step, runtime/graphs.py) write the contiguous cache with one
+`index_copy_` along the sequence axis: the eager slice write's values and
+launch count.
+
 Rows at per-row positions may be parked (pos = seq_len) or finished: their
 writes must not land. JAX drops them with mode="drop" scatters; here the
 contiguous arm rewrites an in-bounds window with the old values
@@ -244,7 +249,8 @@ def _contiguous_attention(cfg, q, k, v, positions, pos_start, cache: KVCache, li
                           window):
     """Write this layer's K/V into the [L, b, S, h, d] cache in place and
     attend over its first kv_len positions. `window`: per-row positions'
-    `_row_window`, None for a scalar pos_start."""
+    `_row_window`, the [t] slots of rows aligned at a device position, or
+    None for an int pos_start."""
     t = q.shape[1]
     kw, vw, ks, vs = _kv_for_write(cfg, k, v)
     new = [(cache.k, kw), (cache.v, vw)]
@@ -255,6 +261,8 @@ def _contiguous_attention(cfg, q, k, v, positions, pos_start, cache: KVCache, li
             # padded prefill tails write junk past the true length: attention
             # masks it, and later writes replace it before any query reads it
             dst[li, :, pos_start : pos_start + t] = src
+        elif isinstance(window, torch.Tensor):
+            dst[li].index_copy_(1, window, src)
         else:
             _write_rows(dst[li], src, window)
     S = cache.k.shape[2]
@@ -386,7 +394,8 @@ def _layer(
     li: int,
     kv_len: int | None,
     kv_index,  # _PagedIndex (paged layout), a `_row_window` (contiguous at
-    # per-row positions) or None (contiguous at a scalar pos_start, or sp)
+    # per-row positions), the [t] slots of rows aligned at a device
+    # position, or None (contiguous at an int pos_start, or sp)
 ) -> torch.Tensor:
     b, t, _ = x.shape
     y = rms_norm(x, lp.norm0[li], cfg.norm_epsilon)
@@ -423,9 +432,11 @@ def forward(
     rope: RopeTables,
     cache: KVCache,
     tokens: torch.Tensor,  # [b, t] integer
-    pos_start,  # int: position of tokens[:, 0] in every row; or a [b] tensor
-    # on the device: each row's own (per-row sequences, batched decode; a
-    # row at seq_len is parked and writes nothing)
+    pos_start,  # int: position of tokens[:, 0] in every row; a 0-d tensor
+    # on the device: the same, known to the device only (the caller keeps
+    # it inside the cache); or a [b] tensor on the device: each row's own
+    # (per-row sequences, batched decode; a row at seq_len is parked and
+    # writes nothing)
     logits_mode: str = "last",  # "last" | "all"
     kv_len: int | None = None,  # attention reads the first kv_len positions
     page_table: torch.Tensor | None = None,  # [b, max_slots] int32 on the
@@ -445,8 +456,10 @@ def forward(
     if page_table is not None:
         sink = cache.k.shape[1] - 1
         kv_index = _paged_index(cfg, positions, page_table, page_size, sink, kv_len)
-    elif isinstance(pos_start, torch.Tensor):
+    elif isinstance(pos_start, torch.Tensor) and pos_start.ndim == 1:
         kv_index = _row_window(pos_start, cache.seq_len, tokens.shape[1])
+    elif isinstance(pos_start, torch.Tensor):
+        kv_index = positions[0]  # the slots every row writes
     else:
         kv_index = None
     return forward_layers(cfg, params, rope, cache, tokens, positions, pos_start, logits_mode,
@@ -455,10 +468,13 @@ def forward(
 
 def step_positions(tokens: torch.Tensor, pos_start, limit: int) -> tuple:
     """(positions [b, t], pos_start) of one step: pos_start an int, checked
-    against the cache's `limit`, or a [b] tensor of each row's first
-    position (returned as an int64 tensor)."""
+    against the cache's `limit`; a 0-d int64 tensor, the same for every row
+    (not checked: the value stays on the device); or a [b] tensor of each
+    row's first position (returned as an int64 tensor)."""
     b, t = tokens.shape
     steps = torch.arange(t, device=tokens.device)
+    if isinstance(pos_start, torch.Tensor) and pos_start.ndim == 0:
+        return (pos_start + steps).expand(b, t), pos_start
     if isinstance(pos_start, torch.Tensor):
         if pos_start.shape != (b,):
             raise ValueError(f"per-row positions must be [{b}], got {tuple(pos_start.shape)}")

@@ -7,8 +7,13 @@ the kept mass); the random numbers come from an explicit `torch.Generator`,
 so a seeded stream differs from jax.random's. Tests hand `_sample_topp`
 the uniform draw (`coin`) to compare the math.
 
-Temperature and top-p are host floats here: PyTorch runs eagerly, so the
-greedy/sampled split is a Python branch and costs no device sync.
+Temperature and top-p reach the sampled math as device vectors, as the JAX
+package's decode program takes them as traced operands: one captured CUDA
+graph (runtime/graphs.py) then serves every temperature and top-p, and the
+eager and the graphed decode sample with the same operations, so with the
+same draws they give the same tokens bit for bit. The host picks the arm
+(`sampler_arm`: greedy, the full distribution, or top-p), and the arm keys
+a graph: only the top-p arm pays for the sort over the vocabulary.
 
 The batched path's per-row sampling (`sample_logits_per_row`, the JAX
 package's :158) takes per-row settings as device vectors and one uniform
@@ -18,13 +23,31 @@ draw count (the counterpart of `split_row_keys` :143).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+#: the arms a decode step samples with (`sampler_arm`), each a graph key
+SAMPLERS = ("greedy", "full", "topp")
 
-def _sample_topp(probs: torch.Tensor, topp: float, coin: torch.Tensor) -> torch.Tensor:
+
+def sampler_arm(temperature, topp) -> str:
+    """The arm a chunk samples with, from its host settings (scalars, or
+    one per row): "greedy" where no row samples, "topp" where a sampled
+    row's topp lies in (0, 1), else "full". Compared in f32, as the device
+    compares them."""
+    t = np.asarray(temperature, dtype=np.float32)
+    p = np.asarray(topp, dtype=np.float32)
+    sampled = t > 0.0
+    if not sampled.any():
+        return "greedy"
+    return "topp" if (sampled & (p > 0.0) & (p < 1.0)).any() else "full"
+
+
+def _sample_topp(probs: torch.Tensor, topp, coin: torch.Tensor) -> torch.Tensor:
     """Top-p pick over [b, vocab] probs with a [b, 1] uniform `coin`: keep
     everything up to and including the first element whose cumulative
-    probability exceeds topp (reference: sample_topp, tokenizer.cpp:426-447)."""
+    probability exceeds topp, a float or a [b, 1] tensor (reference:
+    sample_topp, tokenizer.cpp:426-447)."""
     b, n = probs.shape
     sorted_probs, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     csum = torch.cumsum(sorted_probs, dim=-1)
@@ -45,17 +68,33 @@ def sample_logits_traced(
     topp: float,  # outside (0, 1) = full distribution
     generator: torch.Generator | None = None,
 ) -> torch.Tensor:
-    """Returns [b] int64 sampled tokens, on the logits' device."""
-    if temperature <= 0.0:
+    """Returns [b] int64 sampled tokens, on the logits' device: the greedy
+    argmax, or `sample_logits_device` with the settings as device vectors."""
+    arm = sampler_arm(temperature, topp)
+    if arm == "greedy":
         # argmax returns the first maximal index on ties, as jnp.argmax does
         return torch.argmax(logits, dim=-1)
-    b, n = logits.shape
-    probs = torch.softmax(logits / max(temperature, 1e-6), dim=-1)
-    coin = torch.rand((b, 1), generator=generator, device=logits.device)
-    if 0.0 < topp < 1.0:
-        return _sample_topp(probs, topp, coin)
-    cdf = torch.cumsum(probs, dim=-1)
-    return (cdf < coin).sum(dim=-1).clamp(0, n - 1)
+    b = logits.shape[0]
+    temp = torch.full((b,), float(temperature), dtype=torch.float32, device=logits.device)
+    topp_v = torch.full((b,), float(topp), dtype=torch.float32, device=logits.device)
+    return sample_logits_device(logits, temp, topp_v, generator, topp_arm=arm == "topp")
+
+
+def sample_logits_device(
+    logits: torch.Tensor,  # [b, vocab] f32
+    temperature: torch.Tensor,  # [b] f32 (> 0: the sampled step)
+    topp: torch.Tensor,  # [b] f32; outside (0, 1) = full distribution
+    generator: torch.Generator | None = None,
+    topp_arm: bool = True,  # False: no row's topp lies in (0, 1)
+) -> torch.Tensor:
+    """The sampled decode step with its settings on the device: one uniform
+    draw a row from `generator`, then `sample_logits_per_row`'s math (the
+    vocab-order CDF or the top-p sorted CDF, selected per row). No host
+    value enters but the arm, so a CUDA graph captures it once an arm for
+    every temperature and top-p; with the generator registered in the
+    graph, each replay draws fresh numbers. Returns [b] int64."""
+    coin = torch.rand((logits.shape[0], 1), generator=generator, device=logits.device)
+    return sample_logits_per_row(logits, coin, temperature, topp, topp_arm)
 
 
 _M32 = 0xFFFFFFFF
@@ -96,26 +135,22 @@ def sample_logits_per_row(
     coin: torch.Tensor,  # [b, 1] uniform draws (row_coins)
     temperature: torch.Tensor,  # [b] f32; <= 0 = greedy for that row
     topp: torch.Tensor,  # [b] f32; outside (0, 1) = full distribution
+    topp_arm: bool = True,  # False: no sampled row's topp lies in (0, 1)
 ) -> torch.Tensor:
     """Per-row sampling settings as device vectors, so one chunk serves any
     mix of greedy, temperature and top-p rows: the JAX package's
     `sample_logits_per_row` (:158). Each row takes the greedy argmax, the
     vocab-order CDF (topp outside (0, 1)) or the top-p sorted CDF, all
-    computed and then selected per row. Returns [b] int64."""
+    computed and then selected per row. Without `topp_arm` (`sampler_arm`
+    says "full") the sorted CDF, which no row would select, is skipped:
+    the same tokens. Returns [b] int64."""
     b, n = logits.shape
     greedy = torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits / temperature.clamp(min=1e-6)[:, None], dim=-1)
     full_pick = (torch.cumsum(probs, dim=-1) < coin).sum(dim=-1).clamp(0, n - 1)
-    in_topp = (topp > 0.0) & (topp < 1.0)
-    topp_safe = torch.where(in_topp, topp, 1.0)
-    sorted_probs, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    over = torch.cumsum(sorted_probs, dim=-1) > topp_safe[:, None]
-    keep = torch.logical_not(
-        torch.cat([torch.zeros((b, 1), dtype=torch.bool, device=logits.device), over[:, :-1]], dim=-1)
-    )
-    kept = torch.where(keep, sorted_probs, 0.0)
-    kept_sum = kept.sum(dim=-1, keepdim=True)
-    pick = (torch.cumsum(kept, dim=-1) < coin * kept_sum).sum(dim=-1).clamp(0, n - 1)
-    topp_pick = torch.gather(order, 1, pick[:, None])[:, 0]
-    sampled = torch.where(in_topp, topp_pick, full_pick)
+    sampled = full_pick
+    if topp_arm:
+        in_topp = (topp > 0.0) & (topp < 1.0)
+        topp_pick = _sample_topp(probs, torch.where(in_topp, topp, 1.0)[:, None], coin)
+        sampled = torch.where(in_topp, topp_pick, full_pick)
     return torch.where(temperature <= 0.0, greedy, sampled)

@@ -84,7 +84,8 @@ def pipeline_decode_chunk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """runtime/decode.py's decode_chunk over a sequence-parallel cache:
     n_steps forward+sample iterations with no host sync inside. Returns
-    (tokens [b, n_steps], last_token [b]) on the mesh's first device."""
+    (tokens [b, n_steps], last_token [b], the last step's logits) on the
+    mesh's first device."""
 
     def step(tok, pos):
         return pipeline_forward(cfg, mesh, params, rope, cache, tok, pos, kv_len=kv_len)

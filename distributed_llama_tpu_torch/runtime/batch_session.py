@@ -19,18 +19,41 @@ tracing (ROADMAP A10).
   its sampled tokens never depend on its co-tenants.
 * A finished row is parked (pos = seq_len): it keeps riding the chunk, its
   writes land nowhere, its tokens are discarded.
+* On the card `step` replays the engine's "batch_decode" CUDA graph of its
+  (batch, kv bucket, sampling arm) key (runtime/graphs.py, `batch_decode_step`),
+  unless `engine.graph_eligible` keeps the arm eager.
 """
 
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from ..models.params import KVCache
 from ..models.transformer import forward
-from ..ops.sampling import row_coins, sample_logits_per_row
+from ..ops.sampling import row_coins, sample_logits_per_row, sampler_arm
 
 _SEED_MASK = (1 << 63) - 1
+
+
+class Rows(NamedTuple):
+    """The per-row operands of a batch_decode chunk, [b] each, on the host
+    or the device: what `StepBuffers` holds for its graph."""
+
+    token: Any  # int64: the token each row feeds next
+    pos: Any  # int64: its position (seq_len = parked)
+    seeds: Any  # int64: its stream seed
+    draws: Any  # int64: its draw counter
+    temperature: Any  # f32: <= 0 = a greedy row
+    topp: Any  # f32
+
+
+def row_seeds(base: int, batch: int) -> list[int]:
+    """The stream seeds of `batch` rows drawn from one base seed (a
+    sampler's state), one stream a row."""
+    return [(int(base) ^ (r * 0x9E3779B97F4A7C15)) & _SEED_MASK for r in range(batch)]
 
 
 def batch_decode_chunk(
@@ -38,32 +61,50 @@ def batch_decode_chunk(
     params,
     rope,
     cache: KVCache,
-    token: torch.Tensor,  # [b] int64
-    pos: torch.Tensor,  # [b] int64 per-row positions (seq_len = parked)
-    seeds: torch.Tensor,  # [b] int64 per-row stream seeds
-    draws: torch.Tensor,  # [b] int64 per-row draw counters
-    temperature: torch.Tensor,  # [b] f32 (<= 0 = greedy row)
-    topp: torch.Tensor,  # [b] f32
+    rows: Rows,  # on the cache's device
     n_steps: int,
     kv_len: int | None = None,
     page_table: torch.Tensor | None = None,
     page_size: int | None = None,
-    sampled: bool = True,  # False: every row is greedy, so argmax alone
+    sampler: str = "topp",  # ops/sampling.py `sampler_arm` of the rows' settings
 ) -> torch.Tensor:
     """n_steps decode iterations with per-row positions and sampling, all
-    on the device. Returns tokens [b, n_steps]."""
+    on the device. Returns (tokens [b, n_steps], the last step's logits)."""
+    token, pos, seeds, draws, temperature, topp = rows
     out = []
+    logits = None
     for i in range(n_steps):
         logits = forward(
             cfg, params, rope, cache, token[:, None], pos + i,
             kv_len=kv_len, page_table=page_table, page_size=page_size,
         )
-        if sampled:
-            token = sample_logits_per_row(logits, row_coins(seeds, draws + i), temperature, topp)
+        if sampler != "greedy":
+            token = sample_logits_per_row(logits, row_coins(seeds, draws + i), temperature, topp,
+                                          topp_arm=sampler == "topp")
         else:
             token = torch.argmax(logits, dim=-1)
         out.append(token)
-    return torch.stack(out, dim=1)
+    return torch.stack(out, dim=1), logits
+
+
+def batch_decode_step(cfg, params, rope, cache: KVCache, bufs, kv_len: int,
+                      page_size: int | None = None, sampler: str = "topp") -> torch.Tensor:
+    """One capture-safe `batch_decode_chunk` iteration on static buffers
+    (runtime/graphs.py `StepBuffers`): the draw counter is `draws + step`
+    with the step counter on the device, so a graph of it replays every
+    step of a chunk. Returns the step's logits [b, vocab] f32."""
+    logits = forward(
+        cfg, params, rope, cache, bufs.token[:, None], bufs.pos, kv_len=kv_len,
+        page_table=bufs.table if page_size else None, page_size=page_size,
+    )
+    if sampler != "greedy":
+        token = sample_logits_per_row(
+            logits, row_coins(bufs.seeds, bufs.draws + bufs.step), bufs.temperature, bufs.topp,
+            topp_arm=sampler == "topp")
+    else:
+        token = torch.argmax(logits, dim=-1)
+    bufs.advance(token)
+    return logits
 
 
 def prefill_row(cfg, params, rope, cache: KVCache, tokens: torch.Tensor, pos_start: int,
@@ -207,15 +248,8 @@ class BatchSession:
             eng._ensure_pages(
                 (r, int(self.pos[r]), int(self.pos[r]) + n_steps) for r in self.active_rows()
             )
-        ints = torch.from_numpy(np.stack([self.token, self.pos, self.seeds, self.draws]))
-        floats = torch.from_numpy(np.stack([self.temp, self.topp]))
-        ints, floats = ints.to(eng.device), floats.to(eng.device)
-        toks = batch_decode_chunk(
-            eng.cfg, eng.params, eng.rope, eng.cache, ints[0], ints[1], ints[2], ints[3],
-            floats[0], floats[1], n_steps=n_steps, kv_len=kv_len,
-            page_table=eng._pt_operand() if eng.paged else None, page_size=eng.page_size,
-            sampled=bool((self.temp > 0.0).any()),
-        )
+        rows = Rows(self.token, self.pos, self.seeds, self.draws, self.temp, self.topp)
+        toks, _ = eng._decode_batch(rows, n_steps, kv_len, sampler_arm(self.temp, self.topp))
         host = toks.cpu().numpy()
         self.pos += n_steps
         # parked rows stay pinned at seq_len

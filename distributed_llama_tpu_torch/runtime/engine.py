@@ -7,9 +7,11 @@ src/dllama.cpp:13-151), for one device: `chunk_plan`, `__init__` with its
 `_kv_bucket`, `_new_cache`, `reset`, the paged plumbing (`_pt_operand`,
 `_ensure_pages`), `forward_tokens`, `prefill` (serial, no prefix cache),
 `decode_one`, `_dispatch_prefill_row`, `generate`, `_decode_host`,
-`_decode_device`, `generate_batch` and `_decode_batch_chunked`, and the
-`mesh=` argument for a sequence-parallel mesh (parallel/). Not ported: the
-prefix cache, speculation, grammar, and the other mesh axes (ROADMAP A13).
+`_decode_device`, `generate_batch` and `_decode_batch_chunked`, the
+`mesh=` argument for a sequence-parallel mesh (parallel/), and the decode
+ladder: `_kv_buckets`, `warm_plan` and `warmup`, whose programs are CUDA
+graphs here (runtime/graphs.py). Not ported: the prefix cache,
+speculation, grammar, and the other mesh axes (ROADMAP A13).
 
 * The engine runs on the card unless the caller asks for the CPU:
   `device=None` means "cuda" and raises where no GPU is present.
@@ -27,7 +29,12 @@ prefix cache, speculation, grammar, and the other mesh axes (ROADMAP A13).
   parallel/pipeline.py; weights, tokens and logits live on the mesh's
   first device.
 * Decode runs in chunks of device steps with one token fetch to the host
-  per chunk (`_decode_device`).
+  per chunk (`_decode_device`). On the card a chunk replays the CUDA graph
+  of one decode step (runtime/graphs.py) n times. Setting the
+  attribute `cuda_graphs` to False runs the same chunks eagerly, as the
+  JAX engine runs under `jax.disable_jit`: the reference the graphs are
+  held to and the other arm of their A/B, not a serving option.
+  `graph_eligible` names the arms that stay eager.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 import torch
@@ -43,12 +51,15 @@ from ..device import resolve_device
 from ..formats.mfile import MFileReader
 from ..models import config_from_header, forward, init_kv_cache, load_params
 from ..ops.rope import build_rope_tables
+from ..ops.sampling import SAMPLERS, sampler_arm
 from ..parallel.pipeline import pipeline_decode_chunk, pipeline_forward
 from ..tokenizer import Sampler
-from .decode import decode_chunk
+from .batch_session import Rows, batch_decode_chunk, batch_decode_step, row_seeds
+from .decode import decode_chunk, decode_step
+from .graphs import KINDS, DecodeGraphs, GraphKey, StepBuffers
 from .paged_kv import (
-    PagePool, copy_page, init_kv_pool, page_pool_bytes, resolve_kv_dtype, resolve_kv_layout,
-    resolve_page_size, resolve_pool_pages,
+    DeviceTables, PagePool, copy_page, init_kv_pool, page_pool_bytes, resolve_kv_dtype,
+    resolve_kv_layout, resolve_page_size, resolve_pool_pages,
 )
 
 
@@ -184,7 +195,7 @@ class InferenceEngine:
         self.paged = self.kv_layout == "paged"
         self.page_size = resolve_page_size(kv_page_size) if self.paged else None
         self.page_pool = None
-        self._pt_cache = None  # (pool version, device tables)
+        self._tables = None  # the device page tables (paged_kv.DeviceTables)
         if self.paged:
             ps = self.page_size
             page_bytes = page_pool_bytes(self.cfg, 1, ps)
@@ -192,6 +203,15 @@ class InferenceEngine:
             self.page_pool = PagePool(
                 resolve_pool_pages(kv_pool_mb, page_bytes, parity), ps, batch, self.cfg.seq_len
             )
+            self._tables = DeviceTables(self.page_pool, self.device)
+        # decode chunks replay CUDA graphs on the card (runtime/graphs.py);
+        # False runs them eagerly: the reference and the A/B's other arm
+        self.cuda_graphs = True
+        self._graphs = None  # graphs.DecodeGraphs, made at the first graphed chunk
+        self._bufs = None  # graphs.StepBuffers, likewise
+        self._gen = None  # the device generator of sampled chunks
+        self.last_logits = None  # the last decode step's logits [b, vocab]
+        self.warmup_seconds = None
         self.cache = self._new_cache()
         self._sync()
         self.load_seconds = time.perf_counter() - t0
@@ -275,12 +295,9 @@ class InferenceEngine:
 
     def _pt_operand(self) -> torch.Tensor:
         """The device page tables, uploaded again only when the pool's
-        tables changed (its version moved), not once per step."""
-        pool = self.page_pool
-        if self._pt_cache is None or self._pt_cache[0] != pool.version:
-            tables = torch.from_numpy(pool.device_tables()).to(self.device)
-            self._pt_cache = (pool.version, tables)
-        return self._pt_cache[1]
+        tables changed (its version moved), not once per step, and in
+        place: the decode graphs read this one buffer."""
+        return self._tables.operand(self.page_pool)
 
     def _ensure_pages(self, spans) -> None:
         """Make every (row, start, end) span privately writable before a
@@ -422,45 +439,225 @@ class InferenceEngine:
             if stop_fn is not None and stop_fn(token):
                 return
 
+    def _rng(self) -> torch.Generator:
+        """The engine's device generator: every sampled chunk draws from it,
+        and each sampled decode graph has it registered."""
+        if self._gen is None:
+            self._gen = torch.Generator(device=self.device)
+        return self._gen
+
     def _generator(self, sampler) -> torch.Generator | None:
         """The device generator for sampled chunks, seeded from the host
         sampler's xorshift* state (a different stream from the reference's;
         the host loop is the bit-parity path)."""
         if sampler is None or sampler.temperature == 0.0:
             return None
-        gen = torch.Generator(device=self.device)
+        gen = self._rng()
         gen.manual_seed(int(sampler._state) & 0xFFFFFFFFFFFFFFFF)
         return gen
 
     def _decode_chunk(self, tok_arr, pos: int, n: int, temperature: float = 0.0,
                       topp: float = 0.9, generator=None):
-        """n device decode steps from `tok_arr` [b] at pos on this engine's
-        cache and layout, through the sp pipeline on a mesh. Returns (tokens
-        [b, n], last_token [b]) on the device."""
+        """n device decode steps from `tok_arr` [b], every row at pos, on
+        this engine's cache and layout: the "decode" graph replayed where
+        graphs are on, else the eager loop (through the sp pipeline on a
+        mesh). Sampled steps draw from the engine's generator unless given
+        another (eager only). Sets `last_logits`. Returns (tokens [b, n],
+        last_token [b]) on the device."""
         kv_len = self._kv_bucket(pos + n)
+        sampler = sampler_arm(temperature, topp)
+        if sampler != "greedy" and generator is None:
+            generator = self._rng()
         if self.use_pipeline:
-            return pipeline_decode_chunk(
+            toks, last, self.last_logits = pipeline_decode_chunk(
                 self.cfg, self.mesh, self.params, self.rope, self.cache, tok_arr, pos,
                 n_steps=n, temperature=temperature, topp=topp, generator=generator, kv_len=kv_len,
             )
+            return toks, last
         if self.paged:
             self._ensure_pages_all_rows(pos, pos + n)
-        return decode_chunk(
-            self.cfg, self.params, self.rope, self.cache, tok_arr, pos,
-            n_steps=n, temperature=temperature, topp=topp, generator=generator, kv_len=kv_len,
-            page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
-        )
+        graphs = self._graphs_for("decode")
+        if graphs is None:
+            toks, last, self.last_logits = decode_chunk(
+                self.cfg, self.params, self.rope, self.cache, tok_arr, pos,
+                n_steps=n, temperature=temperature, topp=topp, generator=generator, kv_len=kv_len,
+                page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
+            )
+            return toks, last
+        if sampler != "greedy" and generator is not self._gen:
+            raise ValueError("a graphed sampled chunk draws from the engine's generator")
+        bufs = self._step_buffers()
+        bufs.token.copy_(tok_arr)
+        bufs.pos.fill_(int(pos))
+        bufs.temperature.fill_(float(temperature))
+        bufs.topp.fill_(float(topp))
+        return self._run_graphed(graphs, "decode", n, kv_len, sampler, generator)
+
+    def _decode_batch(self, rows: Rows, n: int, kv_len: int, sampler: str):
+        """n "batch_decode" steps with per-row positions and sampling from
+        `rows`, on the host or the device: the graph replayed where graphs
+        are on, else the eager loop. Sets `last_logits`. Returns (tokens
+        [b, n], last token [b]) on the device."""
+        graphs = self._graphs_for("batch_decode")
+        if graphs is None:
+            rows = Rows(*(torch.as_tensor(x).to(self.device) for x in rows))
+            toks, self.last_logits = batch_decode_chunk(
+                self.cfg, self.params, self.rope, self.cache, rows, n_steps=n,
+                kv_len=kv_len, page_table=self._pt_operand() if self.paged else None,
+                page_size=self.page_size, sampler=sampler,
+            )
+            return toks, toks[:, -1]
+        self._step_buffers().load(rows)
+        return self._run_graphed(graphs, "batch_decode", n, kv_len, sampler)
+
+    # -- CUDA graphs of the decode step (runtime/graphs.py) ------------------
+
+    def graph_eligible(self, kind: str, batch: int | None = None) -> bool:
+        """Whether a `kind` decode step ("decode" or "batch_decode") at
+        `batch` rows (default: the engine's) is captured as a CUDA graph: a
+        rule of shapes alone, whatever the device. Two arms stay eager:
+        * the sp pipeline (a mesh): its step spans several devices;
+        * the MoE grouped arm, which `_moe_ffn` takes at batch * n_active
+          >= n_experts (a Qwen3-30B-A3B batch of 16): `moe_ffn_ragged`
+          reads its group sizes back to the host."""
+        if kind not in KINDS:
+            raise ValueError(f"unknown decode kind {kind!r}")
+        b = self.batch if batch is None else batch
+        if self.use_pipeline:
+            return False
+        return not (self.cfg.is_moe and b * self.cfg.n_active_experts >= self.cfg.n_experts)
+
+    def _graphs_for(self, kind: str) -> DecodeGraphs | None:
+        """The graph cache a `kind` chunk runs through, or None: eager."""
+        if not (self.cuda_graphs and self.graph_eligible(kind)):
+            return None
+        if self._graphs is None:
+            if self.device.type != "cuda":
+                return None  # the caller asked for the CPU
+            self._graphs = DecodeGraphs(self.device)
+        return self._graphs
+
+    def _step_buffers(self) -> StepBuffers:
+        if self._bufs is None:
+            table = self._tables.buf if self.paged else None
+            self._bufs = StepBuffers(self.batch, self.cfg.seq_len, self.device, table)
+        return self._bufs
+
+    def _graph_key(self, kind: str, kv_len: int, sampler: str) -> GraphKey:
+        return GraphKey(kind, self.batch, kv_len, self.kv_layout, self.cfg.cache_dtype, sampler)
+
+    def _run_graphed(self, graphs: DecodeGraphs, kind: str, n: int, kv_len: int, sampler: str,
+                     generator=None):
+        """n steps of the `kind` step graph of (kv_len, sampler) on the
+        filled static buffers; the page table is uploaded first if it moved.
+        Sets `last_logits`. Returns fresh (tokens [b, n], last token [b])."""
+        bufs = self._step_buffers()
+        if self.paged:
+            self._pt_operand()
+        bufs.begin(n)
+        args = (self.cfg, self.params, self.rope, self.cache, bufs, kv_len, self.page_size)
+        if kind == "decode":
+            step = partial(decode_step, *args, sampler=sampler, generator=generator)
+        else:
+            step = partial(batch_decode_step, *args, sampler=sampler)
+        graphs.run(self._graph_key(kind, kv_len, sampler), step, n,
+                   generator if sampler != "greedy" and kind == "decode" else None)
+        self.last_logits = graphs.last_logits
+        return bufs.out[:, :n].clone(), bufs.token.clone()
+
+    def _kv_buckets(self) -> list:
+        """Every KV read bound `_kv_bucket` can return: the floor bucket
+        doubling up to seq_len (the JAX engine's :534)."""
+        out = [min(256, self.cfg.seq_len)]
+        while out[-1] < self.cfg.seq_len:
+            out.append(min(out[-1] * 2, self.cfg.seq_len))
+        return out
+
+    @staticmethod
+    def _halving_sizes(top: int) -> list:
+        """The sizes a dispatch shrink loop (`n //= 2` until it fits) can
+        produce from `top`, ascending."""
+        out = set()
+        n = max(1, top)
+        while n >= 1:
+            out.add(n)
+            n //= 2
+        return sorted(out)
+
+    def warm_plan(self) -> list:
+        """The decode ladder: the (kind, size, kv bucket) triples of kinds
+        "decode" and "batch_decode" that the JAX engine's `warm_plan` (:551)
+        lists for the same arguments, in its order: every decode chunk size
+        of the dispatch loops (the TTFT ramp's included) at every reachable
+        bucket, and batch_decode where batch > 1 and decode runs on the
+        device. Prefill, verify and prefix kinds run eagerly here and are
+        not listed.
+
+        A triple's program is the graph of its (kind, kv bucket) step,
+        replayed `size` times, for each sampling arm (greedy, full
+        distribution, top-p). `graph_eligible` keeps
+        two arms eager, by shapes alone: the sp pipeline and the MoE
+        grouped arm at batch * n_active >= n_experts."""
+        kvbs = self._kv_buckets()
+        sizes = sorted(set(self._halving_sizes(self.decode_chunk_size)
+                           + self._halving_sizes(min(8, self.decode_chunk_size))))
+        plan = [("decode", n, kvb) for kvb in kvbs for n in sizes if n <= kvb]
+        if self.batch > 1 and self.device_decode:
+            plan += [("batch_decode", n, kvb) for kvb in kvbs for n in sizes if n <= kvb]
+        return plan
+
+    def warmup(self) -> dict:
+        """Capture every graph `warm_plan` needs, every sampling arm, before
+        the first request (the JAX engine's `warmup` :816 compiles the same
+        ladder), then seal the cache: from here a capture is a ladder hole
+        and counts in `recaptures_after_warmup` (ROADMAP A14's sentinel).
+        Kinds `graph_eligible` refuses, and an engine on the CPU or with
+        `cuda_graphs` off, capture nothing. The warm steps write junk into
+        the cache at position 0, which `reset` then drops. Returns
+        `graph_stats()`."""
+        t0 = time.perf_counter()
+        for kind, _, kvb in self.warm_plan():
+            graphs = self._graphs_for(kind)
+            if graphs is None:
+                continue
+            for sampler in SAMPLERS:
+                if self._graph_key(kind, kvb, sampler) in graphs:
+                    continue
+                zeros = [0] * self.batch  # token 0 at position 0, seed 0, draw 0
+                self._step_buffers().load(
+                    Rows(zeros, zeros, zeros, zeros, [1.0] * self.batch, [0.9] * self.batch))
+                self._run_graphed(graphs, kind, 1, kvb, sampler, self._rng())
+        self.reset()
+        if self._graphs is not None:
+            self._graphs.seal()
+        self._sync()
+        self.warmup_seconds = time.perf_counter() - t0
+        return self.graph_stats()
+
+    def graph_stats(self) -> dict:
+        """Graphs, captures, recaptures after warmup, the shared pool's
+        device bytes and the warmup's seconds."""
+        g = self._graphs
+        out = g.stats() if g is not None else {"graphs": 0, "captures": 0,
+                                               "recaptures_after_warmup": 0, "sealed": False}
+        out["pool_bytes"] = g.pool_bytes() if g is not None else 0
+        out["warmup_seconds"] = self.warmup_seconds
+        return out
 
     def _decode_device(self, res, token, pos, max_pos, sampler, on_token, stop_fn, wall0):
         """Chunked on-device decode: n forward+sample steps per chunk, one
         token fetch per chunk; each chunk's last token stays on the device
-        and feeds the next chunk.
+        and feeds the next chunk. On the card a chunk is n replays of the
+        decode step's graph.
 
-        Unlike the JAX engine, there is no one-chunk lookahead: an eager
+        Unlike the JAX engine, there is no one-chunk lookahead. An eager
         dispatch is host work as long as the chunk itself, so dispatching
-        chunk i + 1 before reading chunk i would only hold chunk i's tokens
-        back by a whole chunk (on an H100 at 1B width, chip_smoke.py's CLI
-        run: TTFT 2.0 s with the lookahead, 0.29 s without)."""
+        chunk i + 1 before reading chunk i held chunk i's tokens back by a
+        whole chunk (on an H100 at 1B width, chip_smoke.py's eager CLI run:
+        TTFT 2.0 s with the lookahead, 0.29 s without). A graphed chunk's
+        dispatch is n graph launches, far shorter than the chunk, so there
+        a lookahead could hide the fetch; it is not ported, and its TTFT is
+        not measured."""
         temperature = 0.0 if sampler is None else sampler.temperature
         topp = sampler.topp if sampler is not None else 0.9
         gen = self._generator(sampler)
@@ -553,12 +750,17 @@ class InferenceEngine:
         """generate_batch's chunked decode loop, one token fetch per chunk
         and no lookahead (`_decode_device` gives the reason). Chunks are
         planned against the largest per-row budget; rows cap at their own
-        budgets as the tokens are consumed."""
+        budgets as the tokens are consumed. Each chunk is a "batch_decode"
+        chunk, `BatchSession.step`'s: per-row positions, and with a sampler
+        per-row streams (`row_coins`) seeded from the sampler's state."""
         temperature = 0.0 if sampler is None else sampler.temperature
         topp = sampler.topp if sampler is not None else 0.9
-        gen = self._generator(sampler)
-        pos0 = torch.tensor([l - 1 for l in lens], dtype=torch.long, device=self.device)
-        token = self._tokens([p[-1] for p in prompts])
+        base = int(sampler._state) if sampler is not None else 0
+        b = self.batch
+        rows = Rows(*(torch.tensor(x, dtype=torch.long, device=self.device) for x in (
+            [p[-1] for p in prompts], [l - 1 for l in lens], row_seeds(base, b), [0] * b)),
+            *(torch.full((b,), x, dtype=torch.float32, device=self.device)
+              for x in (temperature, topp)))
         done = [False] * self.batch
         total_needed = max(budgets)
         planned = 0
@@ -582,12 +784,9 @@ class InferenceEngine:
                     for r in range(self.batch)
                     if not done[r] and lens[r] - 1 + planned < self.cfg.seq_len
                 )
-            toks, token = decode_chunk(
-                self.cfg, self.params, self.rope, self.cache, token, pos0 + planned,
-                n_steps=n, temperature=temperature, topp=topp, generator=gen,
-                kv_len=self._kv_bucket(max_end),
-                page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
-            )
+            toks, last = self._decode_batch(rows, n, self._kv_bucket(max_end),
+                                            sampler_arm(temperature, topp))
+            rows = rows._replace(token=last, pos=rows.pos + n, draws=rows.draws + n)
             planned += n
             host = toks.cpu().tolist()  # [b][n], the chunk's one fetch
             for j in range(n):

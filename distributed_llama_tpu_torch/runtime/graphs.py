@@ -1,0 +1,220 @@
+"""CUDA graphs of the decode step: the port's counterpart of the JAX engine's
+jitted decode programs.
+
+JAX runs a decode chunk as one `lax.scan` program (`runtime/decode.py:
+decode_chunk` :36) and compiles the (kind, chunk size, kv bucket) ladder
+ahead of time (`runtime/engine.py:warm_plan` :551, `warmup` :816). PyTorch
+launches every op from the host, so here one decode *step* is captured as a
+CUDA graph a key and replayed n times a chunk: one `cudaGraphLaunch` a
+token in place of some 800 kernel launches at 1B width. (A whole chunk in
+one graph would hold ~53k nodes at 1B width and need a graph for every
+chunk size as well.)
+
+* A key (`GraphKey`) is (kind, batch, kv bucket, layout, kv dtype,
+  sampling arm: greedy, full distribution or top-p, the last alone paying
+  for a sort over the vocabulary): kind "decode" serves `generate`'s chunks (rows aligned),
+  "batch_decode" `BatchSession.step` and `generate_batch` (per-row
+  positions and sampling). The chunk size is a replay count, not part of
+  the key.
+* Every graph of an engine reads and writes one set of static buffers
+  (`StepBuffers`): token, positions, seeds, draw counters, temperature,
+  top-p, the step counter, the chunk's output and the engine's page table.
+  The caller fills them before a chunk; each step writes its token into
+  the output at the counter and advances token, positions and counter, so
+  n replays run the chunk with no host work between them.
+* The graphs of an engine share one memory pool: they never run at once.
+* A key's first use runs the step eagerly on a side stream (a real step of
+  the chunk), then captures it there, as torch's recipe asks: every lazy
+  set-up (a kernel's shared-memory opt-in and SM count, K5's tickets,
+  cuBLAS's workspace) happens outside the capture. A failed capture or
+  replay raises; nothing falls back to eager.
+* Launch accounting: the kernel wrappers count where they launch, and a
+  capture runs them once without launching anything. `run` takes back what
+  a capture added and keeps it as the graph's launches; each replay adds
+  them again, so the counters count the kernels that ran.
+* `captures` counts captures; after `seal()` (engine `warmup`) each
+  capture also counts in `recaptures_after_warmup`, the warm ladder's
+  hole counter.
+
+Without `capture` (on the CPU) `run` takes the same steps eagerly on the
+same buffers and registers each key once, so the static path and the
+ladder's coverage can be checked where no card is.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..ops import cuda_attention, cuda_q40
+
+#: the kinds of decode step a graph captures
+KINDS = ("decode", "batch_decode")
+
+
+@dataclass(frozen=True)
+class GraphKey:
+    kind: str  # "decode" | "batch_decode"
+    batch: int
+    kv_bucket: int
+    layout: str  # "contiguous" | "paged"
+    kv_dtype: str
+    sampler: str  # ops/sampling.py SAMPLERS
+
+
+class StepBuffers:
+    """The static operands and outputs of one engine's decode graphs:
+    [b] `token`, `pos`, `seeds` and `draws` (int64), `temperature` and
+    `topp` (f32), the fields of `batch_session.Rows`; `step` [1] int64 is
+    the chunk's step counter, `out` [b, cap] int64 the chunk's tokens,
+    `table` the engine's static page table (or None)."""
+
+    def __init__(self, batch: int, cap: int, device, table: torch.Tensor | None = None):
+        for name in ("token", "pos", "seeds", "draws"):
+            setattr(self, name, torch.zeros((batch,), dtype=torch.int64, device=device))
+        self.temperature = torch.zeros((batch,), dtype=torch.float32, device=device)
+        self.topp = torch.zeros((batch,), dtype=torch.float32, device=device)
+        self.step = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.out = torch.zeros((batch, cap), dtype=torch.int64, device=device)
+        self.table = table
+
+    def load(self, rows) -> None:
+        """Copy each field of `rows` (a `batch_session.Rows` of host or
+        device [b] arrays) into its buffer."""
+        for name, value in rows._asdict().items():
+            getattr(self, name).copy_(torch.as_tensor(value))
+
+    def begin(self, n: int) -> None:
+        """Start a chunk of n steps: the counter back to 0."""
+        if not 1 <= n <= self.out.shape[1]:
+            raise ValueError(f"a chunk takes 1..{self.out.shape[1]} steps, got {n}")
+        self.step.zero_()
+
+    def advance(self, token: torch.Tensor) -> None:
+        """The end of a step: `token` [b] into the output at the counter,
+        then token, positions and counter move on, all on the device."""
+        self.out.index_copy_(1, self.step, token[:, None])
+        self.token.copy_(token)
+        self.pos.add_(1)
+        self.step.add_(1)
+
+
+class LaunchCounts:
+    """The launch counters of the counted kernel wrappers (each a function
+    with a plain int attribute `launches`)."""
+
+    def __init__(self, kernels):
+        self.kernels = tuple(kernels)
+
+    def snapshot(self) -> tuple:
+        return tuple(k.launches for k in self.kernels)
+
+    def since(self, before: tuple) -> tuple:
+        """What each counter gained since `before`."""
+        return tuple(k.launches - b for k, b in zip(self.kernels, before))
+
+    def restore(self, before: tuple) -> None:
+        for k, b in zip(self.kernels, before):
+            k.launches = b
+
+    def add(self, launches: tuple, times: int = 1) -> None:
+        for k, n in zip(self.kernels, launches):
+            k.launches += n * times
+
+
+@dataclass
+class _Graph:
+    graph: object  # torch.cuda.CUDAGraph; None without capture
+    logits: torch.Tensor | None  # the captured step's logits, rewritten by each replay
+    launches: tuple  # each counted kernel's launches in one replay
+
+
+class DecodeGraphs:
+    """One engine's decode graphs, by key, in one memory pool."""
+
+    def __init__(self, device, capture: bool = True, kernels=None):
+        self.device = torch.device(device)
+        self.capture = capture
+        self.counts = LaunchCounts(
+            kernels if kernels is not None else (*cuda_q40.KERNELS, *cuda_attention.KERNELS))
+        self.graphs: dict = {}
+        self.captures = 0
+        self.recaptures_after_warmup = 0
+        self.sealed = False
+        self.last_logits = None  # the last step's logits, valid until the next run
+        self._pool = torch.cuda.graph_pool_handle() if capture else None
+        self._stream = torch.cuda.Stream(self.device) if capture else None
+
+    def __contains__(self, key: GraphKey) -> bool:
+        return key in self.graphs
+
+    def seal(self) -> None:
+        """The warm ladder is captured: from here a capture is a hole."""
+        self.sealed = True
+
+    def run(self, key: GraphKey, step, n: int, generator: torch.Generator | None = None) -> None:
+        """n steps of `step` (a callable over the static buffers that
+        returns the step's logits): the key's graph replayed n times, or,
+        for a new key, one eager step, the capture, and n - 1 replays.
+        `generator`: the one a sampled step draws from, registered with its
+        graph so that each replay draws fresh numbers."""
+        entry = self.graphs.get(key)
+        done = 0
+        if entry is None:
+            entry = self._new(key, step, generator)
+            done = 1
+        if not self.capture:
+            for _ in range(done, n):
+                self.last_logits = step()
+            return
+        for _ in range(done, n):
+            entry.graph.replay()
+            self.counts.add(entry.launches)
+        if n > done:
+            self.last_logits = entry.logits
+
+    def _new(self, key: GraphKey, step, generator) -> _Graph:
+        self.captures += 1
+        if self.sealed:
+            self.recaptures_after_warmup += 1
+        if not self.capture:
+            self.last_logits = step()
+            entry = self.graphs[key] = _Graph(None, None, ())
+            return entry
+        with torch.cuda.device(self.device):
+            current, side = torch.cuda.current_stream(), self._stream
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.last_logits = step()  # the chunk's first step, for real
+            current.wait_stream(side)
+            before = self.counts.snapshot()
+            graph = torch.cuda.CUDAGraph()
+            if generator is not None:
+                graph.register_generator_state(generator)
+            try:
+                with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                    logits = step()
+            finally:
+                launches = self.counts.since(before)
+                self.counts.restore(before)
+        entry = self.graphs[key] = _Graph(graph, logits, launches)
+        return entry
+
+    def pool_bytes(self) -> int:
+        """Device bytes the shared pool holds: the segments that
+        `torch.cuda.memory_snapshot` files under its id."""
+        if not self.capture:
+            return 0
+        segments = torch.cuda.memory_snapshot()
+        pool = tuple(self._pool)
+        return sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) == pool)
+
+    def stats(self) -> dict:
+        return {
+            "graphs": len(self.graphs), "captures": self.captures,
+            "recaptures_after_warmup": self.recaptures_after_warmup, "sealed": self.sealed,
+            "launches_per_replay": {
+                f"{key.kind}/kv{key.kv_bucket}/{key.sampler}":
+                sum(g.launches) for key, g in self.graphs.items()},
+        }

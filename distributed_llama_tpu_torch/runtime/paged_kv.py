@@ -26,7 +26,8 @@ kernel (ops/cuda_attention.py, K5), which reads the pool through the table.
 
 Host side :class:`PagePool` owns allocation: a free list, per-page
 refcounts and the page tables, under one lock. ``version`` moves on every
-table change, so the engine re-uploads the tables only then.
+table change, so the engine re-uploads the tables only then, in place,
+into one device buffer (:class:`DeviceTables`) that the decode graphs read.
 """
 
 from __future__ import annotations
@@ -249,3 +250,21 @@ class PagePool:
         forward pass writes and reads through."""
         with self._lock:
             return self.tables.copy()
+
+
+class DeviceTables:
+    """A pool's page tables on the device, in one ``[n_rows, max_slots]``
+    int32 buffer that keeps its storage: a CUDA graph captured against it
+    reads whatever was uploaded last. :meth:`operand` uploads into it in
+    place (``copy_``), and only when the pool's version moved."""
+
+    def __init__(self, pool: PagePool, device):
+        self.buf = torch.full((pool.n_rows, pool.max_slots), -1, dtype=torch.int32, device=device)
+        self.version = None
+
+    def operand(self, pool: PagePool) -> torch.Tensor:
+        version = pool.version
+        if self.version != version:
+            self.buf.copy_(torch.from_numpy(pool.device_tables()))
+            self.version = version
+        return self.buf

@@ -28,7 +28,13 @@ from distributed_llama_tpu.ops.sampling import _sample_topp as j_sample_topp
 from distributed_llama_tpu.runtime.engine import InferenceEngine as JEngine
 from distributed_llama_tpu.testing import tiny_header, write_tiny_model, write_tiny_tokenizer
 from distributed_llama_tpu_torch import cli as pcli
-from distributed_llama_tpu_torch.ops.sampling import _sample_topp, sample_logits_traced
+from distributed_llama_tpu_torch.ops.sampling import (
+    _sample_topp,
+    sample_logits_device,
+    sample_logits_per_row,
+    sample_logits_traced,
+    sampler_arm,
+)
 from distributed_llama_tpu_torch.runtime.engine import InferenceEngine, chunk_plan
 
 # tiny shapes: torch's intra-op threads would only contend with the JAX
@@ -182,6 +188,64 @@ def test_topp_matches_jax(topp):
     want = np.asarray(j_sample_topp(jnp.asarray(probs.numpy()), None, topp, coin=jnp.asarray(coin)))
     got = _sample_topp(probs, topp, torch.from_numpy(coin))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("temperature,topp", [
+    (0.0, 0.9), (0.7, 0.3), (0.7, 0.9), (1.0, 1.0), (0.8, 1.5), (1.3, 0.0)])
+def test_sampled_step_matches_jax_traced_arms(temperature, topp):
+    """The decode step's sampling math (`sample_logits_device`, which the
+    eager and the graphed batch-1 step run) against the JAX program's
+    scalar arms (`sample_logits_traced`: greedy, the top-p arm, and the
+    full distribution at topp outside (0, 1)) on the same logits, with the
+    port handed the coin JAX draws from its key."""
+    import jax
+    import jax.numpy as jnp
+
+    from distributed_llama_tpu.ops.sampling import sample_logits_traced as j_traced
+
+    b = 4
+    rng = np.random.default_rng(int(temperature * 10 + topp * 100))
+    logits = rng.standard_normal((b, 512)).astype(np.float32) * 3
+    logits[1, 7] = logits[1, 9] = logits[1].max() + 1  # a tie at the top
+    key = jax.random.PRNGKey(int(topp * 10))
+    want = np.asarray(j_traced(jnp.asarray(logits), key, jnp.float32(temperature),
+                               jnp.float32(topp)))
+    coin = torch.from_numpy(np.array(jax.random.uniform(key, (b, 1))))
+    lt = torch.from_numpy(logits)
+    temp, topp_v = torch.full((b,), temperature), torch.full((b,), topp)
+    np.testing.assert_array_equal(sample_logits_per_row(lt, coin, temp, topp_v).numpy(), want)
+    # the step's one draw a row from its generator, then that math
+    drawn = torch.rand((b, 1), generator=torch.Generator().manual_seed(3))
+    got = sample_logits_device(lt, temp, topp_v, torch.Generator().manual_seed(3))
+    assert torch.equal(got, sample_logits_per_row(lt, drawn, temp, topp_v))
+    traced = sample_logits_traced(lt, temperature, topp, torch.Generator().manual_seed(3))
+    assert torch.equal(traced, got if temperature > 0 else torch.argmax(lt, dim=-1))
+
+
+def test_sampler_arm_reads_the_host_settings():
+    assert sampler_arm(0.0, 0.9) == "greedy" and sampler_arm(-1.0, 0.5) == "greedy"
+    assert sampler_arm(0.8, 0.9) == "topp"
+    assert sampler_arm(0.8, 1.0) == "full" and sampler_arm(0.8, 0.0) == "full"
+    assert sampler_arm(0.8, 1.5) == "full"
+    assert sampler_arm(0.8, 1 - 1e-9) == "full"  # 1.0 in f32, as on the device
+    # per row: a greedy row's top-p does not count
+    assert sampler_arm(np.array([0.0, 0.0]), np.array([0.9, 0.9])) == "greedy"
+    assert sampler_arm(np.array([0.0, 0.7]), np.array([0.9, 1.0])) == "full"
+    assert sampler_arm(np.array([0.7, 0.7]), np.array([1.0, 0.5])) == "topp"
+
+
+@pytest.mark.parametrize("topp", [[1.0, 1.0, 0.0, 0.9], [1.5, 1.0, 1.0, 0.3]])
+def test_full_arm_skips_the_sort_with_the_same_tokens(topp):
+    """Without the top-p arm (no sampled row's topp in (0, 1); the last
+    row here is greedy) the rows take the same tokens, bit for bit."""
+    rng = np.random.default_rng(17)
+    logits = torch.from_numpy(rng.standard_normal((4, 512)).astype(np.float32) * 3)
+    coin = torch.from_numpy(rng.random((4, 1)).astype(np.float32))
+    temp = torch.tensor([0.7, 1.0, 1.3, 0.0])
+    topp_v = torch.tensor(topp)
+    assert sampler_arm(temp.numpy(), topp_v.numpy()) == "full"
+    want = sample_logits_per_row(logits, coin, temp, topp_v)
+    assert torch.equal(sample_logits_per_row(logits, coin, temp, topp_v, topp_arm=False), want)
 
 
 def test_greedy_takes_the_first_maximum():

@@ -19,6 +19,8 @@ import distributed_llama_tpu_torch.ops.moe
 import distributed_llama_tpu_torch.ops.kv_quant
 import distributed_llama_tpu_torch.runtime.batch_session
 import distributed_llama_tpu_torch.runtime.paged_kv
+import distributed_llama_tpu_torch.runtime.graphs
+import distributed_llama_tpu_torch.runtime.decode
 import distributed_llama_tpu_torch.testing
 import distributed_llama_tpu_torch.probes.int4
 import distributed_llama_tpu_torch.probes.dma

@@ -1476,3 +1476,105 @@ def test_sp_combine_with_splits_matches_k3(cuda, hd, g, pos):
         assert cuda_attention.plan_for(q, k, pos) == cuda_attention.plan_for(q, k[:, :local], pos)
         assert torch.equal(got, want)
     assert (got - want).abs().max().item() <= _b8_bound(want)
+
+
+# -- graphed decode (runtime/graphs.py): CUDA-graph replays against eager --
+
+GRAPH_PROMPT = [(7 * i) % 500 + 1 for i in range(230)]
+
+
+@pytest.fixture(scope="module")
+def graph_model(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("graphs") / "m.m")
+    write_tiny_model(path, tiny_header(dim=256, hidden_dim=512, n_layers=2, n_heads=4,
+                                       n_kv_heads=2, vocab_size=512, seq_len=1024), seed=8)
+    return path
+
+
+def _graph_runs(eng):
+    from distributed_llama_tpu_torch.tokenizer import Sampler
+
+    out = []
+    for graphs in (False, True):
+        eng.cuda_graphs = graphs
+        eng.reset()
+        greedy = eng.generate(GRAPH_PROMPT, len(GRAPH_PROMPT) + 60).tokens
+        g_logits = eng.last_logits.clone()
+        eng.reset()
+        sampled = eng.generate(GRAPH_PROMPT[:50], 90, sampler=Sampler(512, 0.8, 0.9, 7)).tokens
+        s_logits = eng.last_logits.clone()
+        eng.reset()
+        full = eng.generate(GRAPH_PROMPT[:50], 90, sampler=Sampler(512, 0.8, 1.0, 8)).tokens
+        out.append((greedy, g_logits, sampled, s_logits, full, eng.last_logits.clone()))
+    return out
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_graphed_decode_equals_eager(cuda, graph_model, layout, kv_dtype, batch):
+    eng = InferenceEngine(graph_model, device="cuda", decode_chunk_size=16, batch=batch,
+                          kv_layout=layout, cache_dtype=kv_dtype)
+    eager, graphed = _graph_runs(eng)
+    assert graphed[0] == eager[0] and graphed[2] == eager[2] and graphed[4] == eager[4]
+    assert all(torch.equal(graphed[i], eager[i]) for i in (1, 3, 5))
+    # kv 256 and 512 greedy, 256 top-p and 256 full distribution
+    assert eng.graph_stats()["captures"] == 4
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_graphed_batch_session_equals_eager(cuda, graph_model, layout):
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+
+    eng = InferenceEngine(graph_model, device="cuda", batch=4, kv_layout=layout,
+                          cache_dtype="int8")
+    out = []
+    for graphs in (False, True):
+        eng.cuda_graphs = graphs
+        s = BatchSession(eng)
+        for r in range(4):
+            s.admit(r, GRAPH_PROMPT[: 20 + 30 * r], temperature=0.7 if r % 2 else 0.0, seed=r)
+        toks = [s.step(8) for _ in range(5)]
+        s.release(1)
+        s.admit(1, GRAPH_PROMPT[:77])
+        toks += [s.step(8) for _ in range(5)]
+        out.append((np.concatenate(toks, axis=1), eng.last_logits.clone()))
+    assert np.array_equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+def test_graphed_launch_counts_equal_eager(cuda, graph_model):
+    """A replay adds the launches its capture took back: the counters count
+    what ran, as on the eager path."""
+    eng = InferenceEngine(graph_model, device="cuda", decode_chunk_size=16)
+    counted = (*cuda_q40.KERNELS, *cuda_attention.KERNELS)
+    got = []
+    for graphs in (False, True):
+        eng.cuda_graphs = graphs
+        eng.reset()
+        eng.prefill(GRAPH_PROMPT[:-1])
+        torch.cuda.synchronize()
+        for k in counted:
+            k.launches = 0
+        tok = torch.tensor([GRAPH_PROMPT[-1]], device="cuda")
+        eng._decode_chunk(tok, len(GRAPH_PROMPT) - 1, 16)
+        eng._decode_chunk(tok, len(GRAPH_PROMPT) - 1, 16)
+        torch.cuda.synchronize()
+        got.append({k.__name__: k.launches for k in counted})
+    assert got[0] == got[1] and got[0]["q40_gemv_q80_stacked"] > 0
+
+
+def test_no_recapture_after_warmup(cuda, graph_model):
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+
+    eng = InferenceEngine(graph_model, device="cuda", batch=4, kv_layout="paged",
+                          cache_dtype="int8", max_seq_len=1024)
+    stats = eng.warmup()
+    assert stats["captures"] == 2 * 3 * len(eng._kv_buckets()) and stats["sealed"]
+    assert stats["pool_bytes"] > 0
+    eng.generate(GRAPH_PROMPT, len(GRAPH_PROMPT) + 60, on_token=lambda t: None)
+    s = BatchSession(eng)
+    s.admit(0, GRAPH_PROMPT[:100], temperature=0.5)
+    s.step(8)
+    s.step(64)
+    s.release(0)
+    assert eng.graph_stats()["recaptures_after_warmup"] == 0
