@@ -96,6 +96,18 @@ caught):
      bytes) and a pinned trace, a prompt decoding across the 256 and 512
      kv buckets and (batch 16) a BatchSession admit/step/release cycle,
      which must make 0 captures after warmup;
+  5c. the prefix cache at Llama-3.2-1B width, counted as one path: a
+     1,024-token shared head with 64-token tails, batch 1 on the
+     contiguous, paged bf16 and paged int8 layouts, an engine with a 512
+     MB cache against one with the cache off: the hit prompt's prefill
+     timed cold and hit with its launches (the hit resumes at 1,024), its
+     first logits and 64 graphed greedy tokens bit for bit equal; a
+     24-token head (boundary 16, below one chunk) within
+     PREFIX_SUBCHUNK_TOL; on paged int8 a 45 MB pool where reclaim must
+     evict, then `warmup()` and hits with 0 captures after it; and a
+     batch-16 paged int8 BatchSession after `warmup()` whose 16
+     admissions share the head (15 hits), rows and last logits equal to
+     the same admissions with the cache off;
   6. where a token's time goes: torch.profiler over 16 batch-1 decode
      steps of each model (contiguous) and of the 1B on the paged int8
      layout (K5's share), over one batch-16 paged int8 chunk (K5's share)
@@ -2223,6 +2235,213 @@ def graphed_decode_phase(torch, mp: str, tp: str, model: str) -> None:
     eng.close()
 
 
+# ---------------------------------------------------------------------------
+# phase 5c: the prefix cache
+# ---------------------------------------------------------------------------
+
+PREFIX_HEAD_TOKENS = 1024  # the shared head: a multiple of the 32-row chunk
+PREFIX_TAIL_TOKENS = 64
+PREFIX_DECODE = 64
+# the 24-token head resumes at 16, below one chunk: its chunks take other
+# shapes than the cold run's (an 8-row tail takes K1's Q80 arm), so its
+# first logits are held to this share of the cold logits' largest value
+PREFIX_SUBCHUNK_TOL = 0.05
+
+
+def prefix_prompts(vocab: int) -> dict:
+    """Token prompts from seed 0: the 1,024-token head with four 64-token
+    tails (head + tail 0 publishes, tail 1 hits, tails 2-3 are the pool's
+    other heads' tails), two other heads for the tight pool, a 24-token
+    head, and 16 session tails."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(3, vocab, size=n)]
+
+    head = toks(PREFIX_HEAD_TOKENS)
+    return {
+        "publish": head + toks(PREFIX_TAIL_TOKENS),
+        "hit": head + toks(PREFIX_TAIL_TOKENS),
+        "head24": head[:24] + toks(PREFIX_TAIL_TOKENS),
+        "others": [toks(PREFIX_HEAD_TOKENS + PREFIX_TAIL_TOKENS) for _ in range(2)],
+        "session": [head + toks(PREFIX_TAIL_TOKENS) for _ in range(16)],
+    }
+
+
+def timed_prefill(torch, eng, ids, counters):
+    """`ids[:-1]` prefilled (no publish) with the launch counters zeroed
+    just before, then the decode step on the last token. Returns (prefill
+    ms, the prefill's launches, host logits of the first generated token)."""
+    torch.cuda.synchronize()
+    before = {k.__name__: k.launches for k in counters}
+    t0 = time.perf_counter()
+    eng.prefill(ids[:-1], publish=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.__name__: k.launches - before[k.__name__] for k in counters}
+    return ms, launches, eng.decode_one(ids[-1], len(ids) - 1)
+
+
+def prefix_layout(torch, mp: str, prompts: dict, counters, layout: str, kv) -> dict:
+    """One batch-1 layout: an engine with a 512 MB cache against one with
+    the cache off. The cold engine's first prefill warms it; then the hit
+    prompt's prefill is timed on both (the cached engine resumes at 1,024
+    after the publish prompt's prefill), its first logits and 64 graphed
+    greedy tokens equal bit for bit; the 24-token head within
+    PREFIX_SUBCHUNK_TOL. Paged int8 also runs the tight pool (two more
+    heads through a 45 MB pool: reclaim must evict) and warmup() then hits
+    with 0 recaptures."""
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+
+    kw = dict(max_seq_len=MAX_SEQ_LEN, device="cuda", kv_layout=layout, cache_dtype=kv)
+    tight = layout == "paged" and kv == "int8"
+    t0 = time.perf_counter()
+    cold = InferenceEngine(mp, prefix_cache_mb=0, **kw)
+    eng = InferenceEngine(mp, prefix_cache_mb=512, kv_pool_mb=45 if tight else None, **kw)
+    load_s = time.perf_counter() - t0
+    hit, n = prompts["hit"], PREFIX_DECODE
+
+    def tokens(e, ids):
+        """n greedy tokens after `ids`, from a reset."""
+        e.reset()
+        return e.generate(ids, len(ids) + n - 1).tokens[len(ids):]
+
+    cold.prefill(prompts["publish"][:-1])  # warms the cold engine's ladder
+    cold.reset()
+    eng.prefill(prompts["publish"][:-1])  # cold, and publishes the head
+    eng.reset()
+    cold_ms, cold_launches, want_logits = timed_prefill(torch, cold, hit, counters)
+    hit_ms, hit_launches, got_logits = timed_prefill(torch, eng, hit, counters)
+    hit_tokens = eng.last_prefix_hit_tokens
+    want, got = tokens(cold, hit), tokens(eng, hit)
+    gen_hit = eng.last_prefix_hit_tokens
+    out = {"phase": "prefix_cache", "setup": f"llama32_1b batch 1 {layout} {kv or 'bf16'}",
+           "engines_load_s": load_s, "head_tokens": PREFIX_HEAD_TOKENS,
+           "prompt_tokens": len(hit), "cold_prefill_ms": cold_ms, "hit_prefill_ms": hit_ms,
+           "last_prefix_hit_tokens": hit_tokens, "generate_hit_tokens": gen_hit,
+           "first_logits_equal": bool((got_logits == want_logits).all()),
+           "tokens_equal": got == want, "decode_tokens": len(got),
+           "cold_prefill_launches": {k: v for k, v in cold_launches.items() if v},
+           "hit_prefill_launches": {k: v for k, v in hit_launches.items() if v}}
+    # the 24-token head: boundary 16
+    eng.reset()
+    cold.reset()
+    _, _, got24 = timed_prefill(torch, eng, prompts["head24"], counters)
+    out["head24_hit_tokens"] = eng.last_prefix_hit_tokens
+    _, _, want24 = timed_prefill(torch, cold, prompts["head24"], counters)
+    scale = float(abs(want24).max())
+    out["head24_max_abs_err"] = float(abs(got24 - want24).max())
+    out["head24_logits_scale"] = scale
+    out["head24_bit_equal"] = bool((got24 == want24).all())
+    out["head24_argmax_equal"] = int(got24[0].argmax()) == int(want24[0].argmax())
+    if tight:
+        # two more 1,088-token heads: the third request needs pages only
+        # an eviction frees
+        for ids in prompts["others"]:
+            got_o = tokens(eng, ids[: PREFIX_HEAD_TOKENS + 1])
+        out["tight_pool_pages"] = eng.page_pool.n_pages
+        out["tight_pool_after_eviction_equal"] = got_o == tokens(
+            cold, prompts["others"][-1][: PREFIX_HEAD_TOKENS + 1])
+        out["tight_pool_evictions"] = eng.prefix_cache.counters["prefix_evictions"]
+        # warmup() clears the cache; then a publish, a hit and a 24-token
+        # head, with 0 captures after it
+        eng.warmup()
+        entries_after_warmup = eng.prefix_cache.n_entries
+        tokens(eng, prompts["publish"])
+        warm_hit = tokens(eng, hit)
+        out["warmup_hit_tokens"] = eng.last_prefix_hit_tokens
+        tokens(eng, prompts["head24"])
+        out["warmup"] = {"entries_after": entries_after_warmup,
+                         "hit_tokens_equal": warm_hit == want,
+                         "recaptures_after_warmup": eng.graph_stats()["recaptures_after_warmup"]}
+    out["counters"] = dict(eng.prefix_cache.counters)
+    out["cache"] = eng.prefix_cache.stats_snapshot()
+    log(json.dumps(out))
+    assert hit_tokens == gen_hit == PREFIX_HEAD_TOKENS, f"{out['setup']}: hit {hit_tokens}"
+    assert out["first_logits_equal"], f"{out['setup']}: hit logits differ from cold"
+    assert out["tokens_equal"] and len(got) == n, f"{out['setup']}: hit tokens differ from cold"
+    assert out["head24_hit_tokens"] == 16, out["head24_hit_tokens"]
+    assert out["head24_max_abs_err"] <= PREFIX_SUBCHUNK_TOL * scale, out["head24_max_abs_err"]
+    if tight:
+        assert out["tight_pool_evictions"] >= 1, "the tight pool never evicted"
+        assert out["tight_pool_after_eviction_equal"], "tight pool: tokens differ from cold"
+        assert entries_after_warmup == 0 and out["warmup_hit_tokens"] == PREFIX_HEAD_TOKENS
+        assert out["warmup"]["hit_tokens_equal"], "hit after warmup differs from cold"
+        assert out["warmup"]["recaptures_after_warmup"] == 0, "a capture after warmup"
+    cold.close()
+    eng.close()
+    return out
+
+
+def prefix_session(torch, mp: str, prompts: dict) -> dict:
+    """A batch-16 paged int8 BatchSession after warmup(): 16 admissions of
+    the head with their own tails (the first publishes at arming, the other
+    15 hit at 1,024), 64 greedy steps; every row's tokens and the last
+    logits equal the same admissions on an engine with the cache off, and
+    0 captures after warmup."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+
+    kw = dict(max_seq_len=MAX_SEQ_LEN, device="cuda", batch=16, kv_layout="paged",
+              cache_dtype="int8")
+    runs = {}
+    for mb in (512, 0):
+        eng = InferenceEngine(mp, prefix_cache_mb=mb, **kw)
+        if mb:
+            eng.warmup()
+        s = BatchSession(eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumes = []
+        for r, ids in enumerate(prompts["session"]):
+            s.begin_admit(r, ids)
+            resumes.append(s.pending_resume(r))
+            s.prefill_pending(r)
+        torch.cuda.synchronize()
+        admit_s = time.perf_counter() - t0
+        toks = np.concatenate([s.step(8) for _ in range(PREFIX_DECODE // 8)], axis=1)
+        runs[mb] = (toks, eng.last_logits.clone(), resumes, admit_s,
+                    None if eng.prefix_cache is None else dict(eng.prefix_cache.counters),
+                    eng.graph_stats()["recaptures_after_warmup"])
+        eng.close()
+        del eng, s
+        release(torch)
+    (tg, lg, rg, sg, cg, recap), (tw, lw, _, sw, _, _) = runs[512], runs[0]
+    out = {"phase": "prefix_cache", "setup": "llama32_1b batch_session 16 paged int8",
+           "resumes": rg, "admit_s_hit": sg, "admit_s_cold": sw,
+           "rows_equal": [bool((tg[r] == tw[r]).all()) for r in range(16)],
+           "logits_equal": torch.equal(lg, lw), "counters": cg,
+           "recaptures_after_warmup": recap}
+    log(json.dumps(out))
+    assert rg == [0] + [PREFIX_HEAD_TOKENS] * 15, rg
+    assert all(out["rows_equal"]) and out["logits_equal"], "session rows differ from cold"
+    assert recap == 0, "a capture after warmup in the session"
+    return out
+
+
+def prefix_cache_phase(torch, mp: str, tp: str, counters, expected) -> dict:
+    """Phase 5c, counted as one path: every launch counter set to 0 just
+    before and read just after."""
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    prompts = prefix_prompts(Tokenizer(tp).vocab_size)
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    for layout, kv in (("contiguous", None), ("paged", None), ("paged", "int8")):
+        prefix_layout(torch, mp, prompts, counters, layout, kv)
+        release(torch)
+    prefix_session(torch, mp, prompts)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    check_launched(launches, expected, "the prefix-cache phase")
+    return launches
+
+
 # the host-side launch calls a window counts: the CUDA runtime's and the
 # low-level cu* entries, plain and extended (a kernel launched as a
 # thread-block cluster goes through cudaLaunchKernelEx), and a CUDA graph's
@@ -2596,6 +2815,11 @@ def main(argv=None) -> int:
     release(torch)
     graphed_decode_phase(torch, mp, tp, "llama32_1b")
     release(torch)
+    paths["llama32_1b prefix cache"] = prefix_cache_phase(
+        torch, mp, tp, counters, (q.q40_gemm_bf16_stacked, q.q40_gemv_q80_stacked, q.q40_gemv_q80,
+                                  ca.flash_attention, ca.paged_flash_attention))
+    release(torch)
+    done("phase 5c")
     Path(mp).unlink()  # room on the disk for the MoE file
     done("phases 5-6 at Llama-3.2-1B width")
 

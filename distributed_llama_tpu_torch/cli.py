@@ -8,8 +8,11 @@ CLI, `--kv-layout` defaults to paged (DLT_KV_LAYOUT env first);
 `--kv-dtype int8` stores the cache in int8. `--sp n` splits the KV
 cache's sequence axis over an n-shard mesh (parallel/): n cards, or the
 CPU n times with `--device cpu`; like the JAX CLI it keeps the contiguous
-layout there and says so. Speculation and the prefix cache are not ported:
-their non-off values raise NotImplementedError naming ROADMAP A10. The
+layout there and says so. `--prefix-cache-mb` sizes the radix prefix cache
+(runtime/prefix_cache.py) as the JAX CLI does: -1, the default, means
+DLT_PREFIX_CACHE_MB env, else 512; 0 turns it off. Speculation is not
+ported: `--speculative` other than off raises NotImplementedError naming
+ROADMAP A10. The
 reference's `worker` mode, anywhere in argv, prints the JAX CLI's migration
 text on stderr and returns 2, as the JAX CLI does.
 
@@ -28,6 +31,7 @@ import numpy as np
 from .parallel import make_mesh
 from .runtime.engine import InferenceEngine
 from .runtime.paged_kv import resolve_kv_layout
+from .runtime.prefix_cache import resolve_budget_mb
 from .tokenizer import (
     EOS_FOUND,
     EOS_MAYBE,
@@ -101,24 +105,28 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="speculative decoding draft source; only off is ported",
     )
     p.add_argument(
-        "--prefix-cache-mb", type=int, default=0,
-        help="radix prefix cache budget; only 0 (off) is ported",
+        "--prefix-cache-mb", type=int, default=-1,
+        help="device budget of the radix prefix cache (cross-request KV "
+        "reuse over shared prompts). -1 = DLT_PREFIX_CACHE_MB env, "
+        "defaulting to 512; 0 disables",
     )
     return p
 
 
 def _refuse_unported(args) -> None:
     """Flags the JAX CLI has whose other values the port does not run."""
-    for flag, value, ported, item in (
-        ("--speculative", args.speculative, "off", "A10, speculation"),
-        ("--prefix-cache-mb", args.prefix_cache_mb, 0, "A10, prefix cache"),
-    ):
-        if value != ported:
-            raise NotImplementedError(f"{flag} {value} is not ported yet (ROADMAP {item})")
+    if args.speculative != "off":
+        raise NotImplementedError(
+            f"--speculative {args.speculative} is not ported yet (ROADMAP A10, speculation)")
 
 
 def make_engine(args) -> InferenceEngine:
     _refuse_unported(args)
+    # the prefix cache as the JAX CLI resolves it: a flag >= 0 wins, else
+    # DLT_PREFIX_CACHE_MB, else 512 (on for the CLI; library engines
+    # default to off)
+    flag = args.prefix_cache_mb
+    prefix_mb = resolve_budget_mb(None if flag < 0 else flag, default_mb=512)
     max_chunk = args.prefill_chunk_size if args.prefill_chunk_size > 0 else args.max_chunk
     mesh = None
     if args.sp > 1:
@@ -135,7 +143,7 @@ def make_engine(args) -> InferenceEngine:
             "pipeline meshes: this topology keeps the contiguous KV layout"
         )
         kv_layout = "contiguous"
-    return InferenceEngine(
+    engine = InferenceEngine(
         args.model,
         compute_dtype=args.compute_dtype,
         cache_dtype=args.cache_dtype,
@@ -149,7 +157,17 @@ def make_engine(args) -> InferenceEngine:
         kv_layout=kv_layout,
         kv_page_size=args.kv_page_size or None,
         kv_pool_mb=args.kv_pool_mb or None,
+        prefix_cache_mb=prefix_mb,
     )
+    if prefix_mb > 0 and engine.prefix_cache is None:
+        # the JAX CLI's warning, word for word: a requested cache that
+        # cannot be built means no KV reuse across requests
+        print(
+            "⚠️  prefix cache unavailable on this topology (sp>1 mesh or "
+            "tiny context): cross-request KV reuse is OFF; multi-turn "
+            "chats re-prefill their full history each turn"
+        )
+    return engine
 
 
 def make_sampler(args, vocab_size: int) -> Sampler:

@@ -3,9 +3,9 @@
 The counterpart of the JAX package's `runtime/batch_session.py`:
 `batch_decode_chunk` (:62), `prefill_row` (:114) and `BatchSession` (:160)
 with `admit`, `begin_admit`, `prefill_pending` (budgeted, interleaved with
-decode chunks), `release`, `step` and the row queries. Not ported: the
-prefix-cache splice and publish, speculation (`spec_step`), grammar and
-tracing (ROADMAP A10).
+decode chunks), `release`, `step`, `publish_row`, `pending_resume` and the
+row queries, and the prefix-cache splice and publish. Not ported:
+speculation (`spec_step`), grammar and tracing (ROADMAP A10).
 
 * Every batch row is an independent slot with its own position, last
   token, sampling settings and random stream.
@@ -13,6 +13,12 @@ tracing (ROADMAP A10).
   into its row alone at b = 1 (engine `_dispatch_prefill_row`), in chunks
   of a bounded token budget, so a long prompt interleaves with the other
   rows' decode.
+* Admission consults the engine's prefix cache (runtime/prefix_cache.py):
+  `begin_admit` matches the prompt and pins the entry; the first
+  `prefill_pending` splices it into the row (paged: shares its pages;
+  contiguous: copies its slice), unpins it and resumes at its boundary;
+  arming publishes the row's prompt, and `publish_row` a retiring row's
+  whole sequence.
 * `step(n)` decodes n tokens for all slots with per-row positions and
   per-row temperature and top-p; a row's draws come from a counter-based
   stream of its own seed and draw count (ops/sampling.py `row_coins`), so
@@ -150,6 +156,12 @@ class BatchSession:
         order."""
         return list(self._pending)
 
+    def pending_resume(self, row: int) -> int:
+        """The prefix-cache resume boundary of `row`'s staged admission
+        (the tokens its splice covers; 0 = cold)."""
+        st = self._pending.get(row)
+        return 0 if st is None else int(st["resume"])
+
     def admit(self, row: int, prompt_tokens: list[int], temperature: float = 0.0,
               topp: float = 0.9, seed: int | None = None) -> None:
         """Prefill `prompt_tokens[:-1]` into `row` and arm the slot: the
@@ -175,12 +187,20 @@ class BatchSession:
         if seed is None:
             self._admits += 1
             seed = (self._admits * 2654435761) & 0xFFFFFFFF
+        # the prefix-cache lookup at staging, host-only: the entry stays
+        # pinned until its splice in `prefill_pending` (or `release`)
+        resume, entry = 0, None
+        eng = self.engine
+        if eng.prefix_cache is not None and not eng._in_warmup:
+            resume, entry = eng.prefix_cache.match_for_splice(prompt_tokens[:-1])
         self._pending[row] = {
             "tokens": list(prompt_tokens),
             "done": 0,  # prefilled prefix length within tokens[:-1]
             "temperature": temperature,
             "topp": topp,
             "seed": int(seed) & _SEED_MASK,
+            "resume": resume,  # the prefix-cache boundary
+            "entry": entry,  # the pinned PrefixEntry to splice, or None
         }
 
     def prefill_pending(self, row: int, max_tokens: int | None = None) -> int:
@@ -195,6 +215,21 @@ class BatchSession:
         st = self._pending[row]
         pre = st["tokens"][:-1]
         budget = len(pre) if max_tokens is None else max_tokens
+        entry = st.pop("entry", None)
+        if entry is not None:
+            # the splice covers [0, resume); positions past it that the
+            # entry also wrote are rewritten by the chunks below before any
+            # query reads them
+            pc = eng.prefix_cache
+            try:
+                if eng.paged:
+                    pc.share_row(eng, entry, row, st["resume"])
+                else:
+                    pc.splice_row(eng, entry, row)
+            finally:
+                pc.entry_release(entry)
+            pc.record_hit(st["resume"])
+            st["done"] = min(st["resume"], len(pre))
         while st["done"] < len(pre) and budget > 0:
             done = st["done"]
             _, size, n_real = next(iter(chunk_plan(
@@ -216,19 +251,37 @@ class BatchSession:
         self.draws[row] = 0
         self.active[row] = True
         del self._pending[row]
+        if eng.prefix_cache is not None and not eng._in_warmup:
+            # at arming, so a burst of admissions sharing a prompt hits
+            # from the second one on
+            eng.prefix_cache.publish_from_row(eng, row, pre)
         return 0
 
     def release(self, row: int) -> None:
         """Park the row: its writes land nowhere from the next chunk on, so
         the slot can be re-admitted later without disturbing anyone. Drops
-        a staged admission mid-prefill; a paged engine unmaps the row's
-        pages."""
+        a staged admission mid-prefill and unpins the prefix entry it never
+        spliced; a paged engine unmaps the row's pages (pages that prefix
+        entries retain survive)."""
         self.active[row] = False
         self.pos[row] = self.seq_len
         self.temp[row] = 0.0
-        self._pending.pop(row, None)
+        st = self._pending.pop(row, None)
+        if st is not None and st.get("entry") is not None:
+            self.engine.prefix_cache.entry_release(st["entry"])
         if self.engine.paged:
             self.engine.page_pool.release_row(row)
+
+    def publish_row(self, row: int, tokens: list) -> None:
+        """Publish the KV of `row`'s first `len(tokens) - 1` tokens into the
+        engine's prefix cache (nothing without one): a retiring row's
+        prompt and delivered tokens, every position below the cap fed. The
+        last token is left out: its slot is unwritten when it was the last
+        sample of the row's last chunk."""
+        eng = self.engine
+        if eng.prefix_cache is None or eng._in_warmup or len(tokens) < 2:
+            return
+        eng.prefix_cache.publish_from_row(eng, row, list(tokens), max_len=len(tokens) - 1)
 
     def step(self, n_steps: int) -> np.ndarray:
         """One decode chunk for every slot; returns host tokens [b, n_steps]

@@ -5,13 +5,14 @@ The counterpart of the JAX package's `runtime/engine.py` (the reference's
 src/dllama.cpp:13-151), for one device: `chunk_plan`, `__init__` with its
 `batch`, `kv_layout`, `kv_page_size` and `kv_pool_mb` arguments,
 `_kv_bucket`, `_new_cache`, `reset`, the paged plumbing (`_pt_operand`,
-`_ensure_pages`), `forward_tokens`, `prefill` (serial, no prefix cache),
+`_ensure_pages`, `_reclaim_pages`), `forward_tokens`, `prefill` (serial),
 `decode_one`, `_dispatch_prefill_row`, `generate`, `_decode_host`,
 `_decode_device`, `generate_batch` and `_decode_batch_chunked`, the
-`mesh=` argument for a sequence-parallel mesh (parallel/), and the decode
+`mesh=` argument for a sequence-parallel mesh (parallel/), the decode
 ladder: `_kv_buckets`, `warm_plan` and `warmup`, whose programs are CUDA
-graphs here (runtime/graphs.py). Not ported: the prefix cache,
-speculation, grammar, and the other mesh axes (ROADMAP A13).
+graphs here (runtime/graphs.py), and the radix prefix cache's hooks
+(`prefix_cache_mb`, runtime/prefix_cache.py). Not ported: speculation,
+grammar, and the other mesh axes (ROADMAP A13).
 
 * The engine runs on the card unless the caller asks for the CPU:
   `device=None` means "cuda" and raises where no GPU is present.
@@ -35,12 +36,19 @@ speculation, grammar, and the other mesh axes (ROADMAP A13).
   JAX engine runs under `jax.disable_jit`: the reference the graphs are
   held to and the other arm of their A/B, not a serving option.
   `graph_eligible` names the arms that stay eager.
+* With a prefix cache, a prefill from position 0 (`prefill`, `generate`,
+  `generate_batch`) matches the cache, splices the hit into every row and
+  resumes the chunk plan at the hit's boundary; a completed prefill or
+  generation publishes its KV. A contiguous splice copies into the live
+  cache tensors, which the decode graphs read; a paged one maps shared
+  pages, and the page tables upload before the next step.
 """
 
 from __future__ import annotations
 
 import time
 import warnings
+import weakref
 from dataclasses import dataclass, field
 from functools import partial
 
@@ -61,6 +69,7 @@ from .paged_kv import (
     DeviceTables, PagePool, copy_page, init_kv_pool, page_pool_bytes, resolve_kv_dtype,
     resolve_kv_layout, resolve_page_size, resolve_pool_pages,
 )
+from .prefix_cache import PrefixCache
 
 
 @dataclass
@@ -142,6 +151,9 @@ class InferenceEngine:
         mesh=None,  # parallel.make_mesh(sp=n): the KV cache's sequence axis
         # split over n shards (contiguous layout, float cache). Replaces
         # `device`: the engine runs on the mesh's devices
+        prefix_cache_mb: int | None = None,  # the radix prefix cache's
+        # device budget (runtime/prefix_cache.py). None = DLT_PREFIX_CACHE_MB
+        # env, else 0 = off for library engines; the CLI defaults to 512
     ):
         if mesh is not None and device is not None:
             raise ValueError("give the engine a mesh or a device, not both")
@@ -195,13 +207,20 @@ class InferenceEngine:
         self.paged = self.kv_layout == "paged"
         self.page_size = resolve_page_size(kv_page_size) if self.paged else None
         self.page_pool = None
+        self.prefix_cache = None  # prefix_cache.PrefixCache, built below
         self._tables = None  # the device page tables (paged_kv.DeviceTables)
         if self.paged:
             ps = self.page_size
             page_bytes = page_pool_bytes(self.cfg, 1, ps)
             parity = batch * -(-self.cfg.seq_len // ps)
+            # the pool reaches the engine through a weak reference: a bound
+            # method would make a cycle that keeps the engine's device
+            # memory and CUDA graphs alive until a garbage collection, which
+            # may then run inside a later engine's graph capture
+            engine = weakref.ref(self)
             self.page_pool = PagePool(
-                resolve_pool_pages(kv_pool_mb, page_bytes, parity), ps, batch, self.cfg.seq_len
+                resolve_pool_pages(kv_pool_mb, page_bytes, parity), ps, batch, self.cfg.seq_len,
+                reclaim=lambda: engine()._reclaim_pages(),
             )
             self._tables = DeviceTables(self.page_pool, self.device)
         # decode chunks replay CUDA graphs on the card (runtime/graphs.py);
@@ -213,6 +232,10 @@ class InferenceEngine:
         self.last_logits = None  # the last decode step's logits [b, vocab]
         self.warmup_seconds = None
         self.cache = self._new_cache()
+        # warmup's junk steps neither match nor publish
+        self._in_warmup = False
+        self.prefix_cache = PrefixCache.build(self, prefix_cache_mb)
+        self.last_prefix_hit_tokens = 0  # tokens the last prefill skipped by a hit
         self._sync()
         self.load_seconds = time.perf_counter() - t0
         if verbose:
@@ -282,9 +305,10 @@ class InferenceEngine:
             raise NotImplementedError(f"{what} on a mesh is not ported (ROADMAP A13)")
 
     def reset(self):
-        """Fresh independent sequences: contiguous zeroes the cache; paged
-        unmaps every row (the pool's content is junk that later writes
-        replace before any query reads it)."""
+        """Fresh independent sequences: contiguous zeroes the cache in place
+        (prefix entries hold copies of their own); paged unmaps every row
+        (the pool's content is junk that later writes replace before any
+        query reads it; pages that prefix entries retain survive)."""
         if self.paged:
             self.page_pool.release_all_rows()
             return
@@ -292,6 +316,31 @@ class InferenceEngine:
             t.zero_()
 
     # -- paged-KV plumbing (runtime/paged_kv.py) -----------------------------
+
+    def _reclaim_pages(self) -> bool:
+        """The page pool's pressure valve: evict one LRU unpinned prefix
+        entry, giving its pages back, so the allocation can be planned
+        again. False: nothing to evict."""
+        return self.prefix_cache is not None and self.prefix_cache.evict_one()
+
+    def _splice_all_rows(self, tokens: list) -> int:
+        """Match `tokens` against the prefix cache and splice a hit into
+        every row: paged, by sharing the entry's pages; contiguous, by a
+        copy into the live cache. The entry is unpinned whatever happens.
+        Returns the resume boundary (0 = a miss)."""
+        pc = self.prefix_cache
+        resume, entry = pc.match_for_splice(tokens)
+        if entry is None:
+            return 0
+        try:
+            if self.paged:
+                pc.share_rows(self, entry, resume)
+            else:
+                pc.splice_rows(self, entry)
+        finally:
+            pc.entry_release(entry)
+        pc.record_hit(resume)
+        return resume
 
     def _pt_operand(self) -> torch.Tensor:
         """The device page tables, uploaded again only when the pool's
@@ -331,32 +380,47 @@ class InferenceEngine:
         logits = self._forward(self._tokens([tokens] * self.batch), pos_start, logits_mode)
         return logits.cpu().numpy()
 
-    def prefill(self, tokens: list[int], pos_start: int = 0, on_chunk=None) -> None:
+    def prefill(self, tokens: list[int], pos_start: int = 0, on_chunk=None,
+                publish: bool = True) -> None:
         """Feed `tokens` through the model in padded power-of-two chunks,
         the same sequence in every row. Only the KV cache matters: the first
         generated token's logits come from the decode step that feeds the
         final prompt token (the reference's shape: prefill covers
-        nInputTokens-1 tokens, dllama.cpp:44-85)."""
+        nInputTokens-1 tokens, dllama.cpp:44-85).
+
+        From position 0 a prefix-cache hit is spliced into every row and
+        the chunk plan resumes at its boundary (`last_prefix_hit_tokens`);
+        with `publish`, the completed prefill publishes its KV."""
+        self.last_prefix_hit_tokens = 0
         n = len(tokens)
         if n == 0:
             return
         t0 = time.perf_counter()
-        plan = list(chunk_plan(n, pos_start, self.max_chunk, self.cfg.seq_len))
-        if self.paged:
+        pc = self.prefix_cache
+        cached = pc is not None and pos_start == 0 and not self._in_warmup
+        resume = self._splice_all_rows(tokens) if cached else 0
+        self.last_prefix_hit_tokens = resume
+        rem = tokens[resume:]
+        base = pos_start + resume
+        plan = list(chunk_plan(len(rem), base, self.max_chunk, self.cfg.seq_len)) if rem else []
+        if self.paged and plan:
             # the whole span, padded tail included, before the first chunk
             i_last, size_last, _ = plan[-1]
-            self._ensure_pages_all_rows(pos_start, pos_start + i_last + size_last)
+            self._ensure_pages_all_rows(base, base + i_last + size_last)
         for i, size, n_real in plan:
-            chunk = tokens[i : i + n_real] + [0] * (size - n_real)
+            chunk = rem[i : i + n_real] + [0] * (size - n_real)
             self._forward(
-                self._tokens([chunk] * self.batch), pos_start + i,
-                kv_len=self._kv_bucket(pos_start + i + size),
+                self._tokens([chunk] * self.batch), base + i,
+                kv_len=self._kv_bucket(base + i + size),
             )
         self._sync()
         total_us = int((time.perf_counter() - t0) * 1e6)
         if on_chunk is not None:
             for _, _, n_real in plan:
-                on_chunk(StepTiming(eval_us=total_us * n_real // n, n_tokens=n_real))
+                on_chunk(StepTiming(eval_us=total_us * n_real // len(rem), n_tokens=n_real))
+        if publish and cached:
+            # every row holds the same sequence: publish row 0's
+            pc.publish_from_row(self, 0, tokens)
 
     def decode_one(self, token: int, pos: int) -> np.ndarray:
         """One decode step, the same token in every row; returns host logits
@@ -406,7 +470,9 @@ class InferenceEngine:
             raise ValueError("prompt is longer than the sequence length")
         res = GenerationResult(tokens=list(prompt_tokens), n_prompt_tokens=len(prompt_tokens))
         wall0 = time.perf_counter()
-        self.prefill(prompt_tokens[:-1], pos_start, on_chunk=res.eval_steps.append)
+        # publish=False: the publish below covers the prompt and the reply
+        self.prefill(prompt_tokens[:-1], pos_start, on_chunk=res.eval_steps.append,
+                     publish=False)
         res.prefill_us = int((time.perf_counter() - wall0) * 1e6)
         pos = pos_start + len(prompt_tokens) - 1
         token = prompt_tokens[-1]
@@ -417,6 +483,12 @@ class InferenceEngine:
             self._decode_host(res, token, pos, max_pos, sampler, on_token, stop_fn, wall0)
         res.total_us = int((time.perf_counter() - wall0) * 1e6)
         res.decode_us = res.total_us - res.prefill_us
+        if (self.prefix_cache is not None and pos_start == 0 and not self._in_warmup
+                and len(res.tokens) > 1):
+            # the conversation's publish, so the next turn of a chat
+            # matches its whole history; capped at len - 1, since the last
+            # sampled token may never have been fed
+            self.prefix_cache.publish_from_row(self, 0, res.tokens, max_len=len(res.tokens) - 1)
         return res
 
     def _decode_host(self, res, token, pos, max_pos, sampler, on_token, stop_fn, wall0):
@@ -613,20 +685,29 @@ class InferenceEngine:
         and counts in `recaptures_after_warmup` (ROADMAP A14's sentinel).
         Kinds `graph_eligible` refuses, and an engine on the CPU or with
         `cuda_graphs` off, capture nothing. The warm steps write junk into
-        the cache at position 0, which `reset` then drops. Returns
-        `graph_stats()`."""
+        the cache at position 0, which `reset` then drops; they neither
+        match nor publish, and the prefix cache is left empty, as the JAX
+        engine's warmup leaves it. Returns `graph_stats()`."""
         t0 = time.perf_counter()
-        for kind, _, kvb in self.warm_plan():
-            graphs = self._graphs_for(kind)
-            if graphs is None:
-                continue
-            for sampler in SAMPLERS:
-                if self._graph_key(kind, kvb, sampler) in graphs:
+        self._in_warmup = True
+        try:
+            if self.prefix_cache is not None:
+                # first: a junk step at position 0 may land on a page an
+                # entry shares
+                self.prefix_cache.clear()
+            for kind, _, kvb in self.warm_plan():
+                graphs = self._graphs_for(kind)
+                if graphs is None:
                     continue
-                zeros = [0] * self.batch  # token 0 at position 0, seed 0, draw 0
-                self._step_buffers().load(
-                    Rows(zeros, zeros, zeros, zeros, [1.0] * self.batch, [0.9] * self.batch))
-                self._run_graphed(graphs, kind, 1, kvb, sampler, self._rng())
+                for sampler in SAMPLERS:
+                    if self._graph_key(kind, kvb, sampler) in graphs:
+                        continue
+                    zeros = [0] * self.batch  # token 0 at position 0, seed 0, draw 0
+                    self._step_buffers().load(
+                        Rows(zeros, zeros, zeros, zeros, [1.0] * self.batch, [0.9] * self.batch))
+                    self._run_graphed(graphs, kind, 1, kvb, sampler, self._rng())
+        finally:
+            self._in_warmup = False
         self.reset()
         if self._graphs is not None:
             self._graphs.seal()
@@ -703,8 +784,10 @@ class InferenceEngine:
     ) -> list:
         """Independent continuations of `batch` different prompts in one
         batch, each row its own sequence with its own positions (the JAX
-        engine's `generate_batch` :1641, without the prefix cache,
-        speculation or grammar).
+        engine's `generate_batch` :1641, without speculation or grammar).
+        With a prefix cache the rows' common prefix is matched and a hit
+        spliced into every row; a batch without a hit publishes that
+        prefix after its decode.
 
         Rows are right-padded to a common length for prefill (junk written
         past a row's true length is causally masked until decode overwrites
@@ -732,18 +815,36 @@ class InferenceEngine:
                     f"exceeds the sequence length ({self.cfg.seq_len})"
                 )
         pre_t = max(lens) - 1
-        if pre_t > 0:
+        pc = self.prefix_cache
+        cached = pc is not None and not self._in_warmup and pre_t > 0
+        resume = common_len = 0
+        if cached:
+            # the rows agree on [0, common_len): splice a hit of that
+            # prefix into every row; the rows' tails and the entry's
+            # positions past the boundary are rewritten before any read
+            p0 = prompts[0]
+            while common_len < min(lens) and all(p[common_len] == p0[common_len] for p in prompts):
+                common_len += 1
+            if common_len:
+                resume = self._splice_all_rows(list(p0[: min(common_len, pre_t)]))
+        self.last_prefix_hit_tokens = resume
+        if pre_t > resume:
             padded = [list(p[:-1]) + [0] * (pre_t - (len(p) - 1)) for p in prompts]
-            plan = list(chunk_plan(pre_t, 0, self.max_chunk, self.cfg.seq_len))
+            plan = list(chunk_plan(pre_t - resume, resume, self.max_chunk, self.cfg.seq_len))
             if self.paged:
                 i_last, size_last, _ = plan[-1]
-                self._ensure_pages_all_rows(0, i_last + size_last)
+                self._ensure_pages_all_rows(resume, resume + i_last + size_last)
             for i, size, _ in plan:
-                rows = [row[i : i + size] + [0] * (size - len(row[i : i + size])) for row in padded]
-                self._forward(self._tokens(rows), i, kv_len=self._kv_bucket(i + size))
+                at = resume + i
+                rows = [row[at : at + size] + [0] * (size - len(row[at : at + size])) for row in padded]
+                self._forward(self._tokens(rows), at, kv_len=self._kv_bucket(at + size))
         out: list[list[int]] = [[] for _ in range(self.batch)]
         if max(budgets) > 0:
             self._decode_batch_chunked(prompts, lens, budgets, out, sampler, on_token, stop_fn)
+        if cached and resume == 0:
+            # after the decode, so a failed batch publishes nothing; a hit
+            # means the prefix is published already
+            pc.publish_from_row(self, 0, list(prompts[0]), max_len=min(common_len, lens[0] - 1))
         return out
 
     def _decode_batch_chunked(self, prompts, lens, budgets, out, sampler, on_token, stop_fn):

@@ -4,10 +4,11 @@ sharing and copy-on-write.
 The counterpart of the JAX package's `runtime/paged_kv.py`: the resolvers
 (:78-150), `page_pool_bytes` (:152), `init_kv_pool` (:162), `copy_page`
 (:184), `PagePoolExhausted` (:297) and `PagePool` (:302-552), for one
-device. The KV transport's page movers (`gather_pages`, `scatter_pages`),
-the prefix cache's hooks (the reclaim callback, `retain`/`release`,
-`allocate_pages`, `row_pages`) and the server's `/stats` snapshot are not
-ported.
+device, with the prefix cache's hooks (runtime/prefix_cache.py): the
+`reclaim` callback that `ensure` loops through, `row_pages`, `retain` and
+`release`. Not ported: the KV transport's and tiering's page movers
+(`allocate_pages`, `gather_pages`, `scatter_pages`; ROADMAP A12) and the
+server's `/stats` snapshot.
 
 The pool is ``[L, n_pages + 1, page_size, n_kv, head_dim]`` k/v tensors
 (plus ``[L, n_pages + 1, page_size, n_kv]`` f32 scales on the int8 arm).
@@ -134,7 +135,8 @@ def copy_page(cache: KVCache, src: int, dst: int) -> None:
 
 
 class PagePoolExhausted(RuntimeError):
-    """No free page: size the pool or free rows."""
+    """No free page and the reclaim hook made no progress: size the pool or
+    free rows."""
 
 
 class PagePool:
@@ -142,9 +144,11 @@ class PagePool:
 
     ``tables[row, slot]`` is the physical page holding the row's logical
     positions ``[slot*ps, (slot+1)*ps)``, or -1 (unmapped). ``version``
-    moves on every table change."""
+    moves on every table change. `reclaim` (``() -> bool``, the engine's
+    prefix-cache eviction) frees pages under pressure: True means it made
+    progress and the allocation is planned again."""
 
-    def __init__(self, n_pages: int, page_size: int, n_rows: int, seq_len: int):
+    def __init__(self, n_pages: int, page_size: int, n_rows: int, seq_len: int, reclaim=None):
         if n_pages <= 0:
             raise ValueError("page pool needs at least one page")
         self.n_pages = int(n_pages)
@@ -152,6 +156,10 @@ class PagePool:
         self.n_rows = int(n_rows)
         self.seq_len = int(seq_len)
         self.max_slots = -(-seq_len // page_size)
+        self.reclaim = reclaim
+        # releases past a page's last reference, clamped at 0 (the JAX
+        # pool's kv_pool_double_release counter)
+        self.double_releases = 0
         self.refs = np.zeros(self.n_pages, np.int32)
         self._free: list = list(range(self.n_pages - 1, -1, -1))
         self.tables = np.full((self.n_rows, self.max_slots), -1, np.int32)
@@ -174,40 +182,44 @@ class PagePool:
         `start` needs its content moved.
 
         Atomic per span: the whole plan applies only when every page it
-        needs is free; otherwise nothing changes and
-        :class:`PagePoolExhausted` raises."""
+        needs is free; otherwise nothing changes, the reclaim hook runs
+        outside the lock and the span is planned again, and
+        :class:`PagePoolExhausted` raises once reclaim makes no progress."""
         if end <= start:
             return []
         end = min(end, self.seq_len)
         ps = self.page_size
-        with self._lock:
-            plan = []  # (slot, current page or -1)
-            for slot in range(start // ps, -(-end // ps)):
-                cur = int(self.tables[row, slot])
-                if cur < 0 or int(self.refs[cur]) > 1:
-                    plan.append((slot, cur))
-            if not plan:
-                return []
-            if len(self._free) < len(plan):
+        while True:
+            with self._lock:
+                plan = []  # (slot, current page or -1)
+                for slot in range(start // ps, -(-end // ps)):
+                    cur = int(self.tables[row, slot])
+                    if cur < 0 or int(self.refs[cur]) > 1:
+                        plan.append((slot, cur))
+                if not plan:
+                    return []
+                if len(self._free) >= len(plan):
+                    cow: list = []
+                    for slot, cur in plan:
+                        page = self._free.pop()
+                        self.refs[page] = 1
+                        if cur >= 0:
+                            # the row gives up its claim on the shared
+                            # page; the content moves only when positions
+                            # below `start` live on it (a page-aligned
+                            # write overwrites it whole)
+                            self.refs[cur] -= 1
+                            if self.refs[cur] == 0:
+                                self._free.append(cur)
+                            if slot * ps < start:
+                                cow.append((cur, page))
+                        self.tables[row, slot] = page
+                    self.version += 1
+                    return cow
+            if self.reclaim is None or not self.reclaim():
                 raise PagePoolExhausted(
                     f"kv page pool exhausted ({self.n_pages} pages of {self.page_size} tokens)"
                 )
-            cow: list = []
-            for slot, cur in plan:
-                page = self._free.pop()
-                self.refs[page] = 1
-                if cur >= 0:
-                    # the row gives up its claim on the shared page; the
-                    # content moves only when positions below `start` live
-                    # on it (a page-aligned write overwrites it whole)
-                    self.refs[cur] -= 1
-                    if self.refs[cur] == 0:
-                        self._free.append(cur)
-                    if slot * ps < start:
-                        cow.append((cur, page))
-                self.tables[row, slot] = page
-            self.version += 1
-            return cow
 
     def share(self, row: int, pages) -> None:
         """Map `pages` into the row's leading slots with their refcounts
@@ -227,6 +239,36 @@ class PagePool:
                         self._free.append(cur)
                 self.tables[row, slot] = p
             self.version += 1
+
+    def row_pages(self, row: int, n_slots: int) -> tuple:
+        """The row's first `n_slots` physical pages (the publish path).
+        Raises when a slot is unmapped: the caller's length accounting is
+        off."""
+        with self._lock:
+            pages = [int(p) for p in self.tables[row, :n_slots]]
+        if any(p < 0 for p in pages):
+            raise ValueError(f"row {row} has unmapped slots below {n_slots * self.page_size}")
+        return tuple(pages)
+
+    def retain(self, pages) -> None:
+        """Take one reference per page (a prefix-cache entry's publish): the
+        pages survive every row release until the entry releases them."""
+        with self._lock:
+            for p in pages:
+                self.refs[p] += 1
+
+    def release(self, pages) -> None:
+        """Drop one reference per page (an entry's eviction or clear). A
+        release past the last reference clamps at 0 and is counted in
+        `double_releases`."""
+        with self._lock:
+            for p in pages:
+                self.refs[p] -= 1
+                if self.refs[p] == 0:
+                    self._free.append(p)
+                elif self.refs[p] < 0:
+                    self.refs[p] = 0
+                    self.double_releases += 1
 
     def release_row(self, row: int) -> None:
         """Unmap the whole row: every mapped page loses the row's

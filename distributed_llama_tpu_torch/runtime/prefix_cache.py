@@ -1,0 +1,506 @@
+"""Radix prefix cache: cross-request KV reuse on the device.
+
+The counterpart of the JAX package's `runtime/prefix_cache.py`: a radix
+tree (RadixAttention, SGLang) over token chains whose published nodes own
+KV slices, refcounted and LRU-evicted under a byte budget. A new request
+longest-prefix-matches the tree; the match is rounded down to a chunk
+boundary B; the cached KV is spliced into the request's row(s); chunked
+prefill resumes from B. Completed prefills publish their prompt's KV back,
+and completed generations the whole conversation, so the next turn of a
+chat resumes near its end.
+
+Ported: `PREFIX_MIN_TOKENS`, `prefix_buckets`, `bucket_down`,
+`resolve_budget_mb` (with ``DLT_PREFIX_CACHE_MB``), `PrefixEntry`, `_Node`
+and `PrefixCache` with `build`, matching, pinning, splicing, publishing and
+eviction. The JAX package's three jitted copy programs (:117-174) are
+in-place torch functions here on the engine's `KVCache` tensors, which the
+decode graphs (runtime/graphs.py) read: a splice writes into them, it never
+rebinds them.
+
+* Contiguous engines store a clone of the publishing row's ``[L, P, kv,
+  hd]`` slice and copy it into the live cache on a hit.
+* Paged engines store the publishing row's page ids, retained in the
+  engine's `PagePool`: a publish and a hit move no KV bytes, and a hit maps
+  the pages into the row's table (`PagePool.share`). A shared page is
+  never written: `PagePool.ensure` copies it first (`copy_page` copies the
+  int8 arm's scales with it).
+
+Why a hit equals a cold run: a published slice of length P holds, at every
+position below P, the KV that a cold prefill wrote there (it was copied out
+of a completed prefill or decode, never recomputed); positions in [B, P)
+may belong to a diverged sibling, but the resumed prefill rewrites every
+position >= B before a query at >= B reads it, as padded prefill tails
+already rely on.
+
+The port has no StepStats yet (ROADMAP A10d): the cache keeps its own
+`counters` under the JAX package's names, and the JAX package's
+`global_event` trace calls wait for A10d. Not ported: `insert_external`,
+`_materialize_contiguous`, `_materialize_paged`, `pin_entry`,
+`match_pinned` and the `tier` demotion hook, which serve the
+disaggregation and tiering paths (ROADMAP A12); and the pipeline mesh's
+slice shardings (the port's only mesh is sp, where the cache is off).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+
+import torch
+
+#: prefixes shorter than this are not worth a splice; also the smallest
+#: published bucket
+PREFIX_MIN_TOKENS = 16
+
+#: the counters the cache keeps, under the JAX package's StepStats names
+COUNTERS = ("prefix_hits", "prefix_misses", "prefix_hit_tokens", "prefix_inserts",
+            "prefix_evictions", "prefix_publish_skipped")
+
+
+def prefix_buckets(seq_len: int) -> list:
+    """Power-of-two published-slice lengths: PREFIX_MIN_TOKENS up to
+    seq_len // 2 (a prefix past half the context leaves no room to decode)."""
+    out = []
+    b = PREFIX_MIN_TOKENS
+    while b <= seq_len // 2:
+        out.append(b)
+        b *= 2
+    return out
+
+
+def bucket_down(n: int, seq_len: int) -> int:
+    """Largest prefix bucket <= n (0 = below the publishable floor)."""
+    best = 0
+    for b in prefix_buckets(seq_len):
+        if b <= n:
+            best = b
+    return best
+
+
+def resolve_budget_mb(explicit, default_mb: int) -> int:
+    """The one resolver of the prefix-cache budget: an explicit value wins;
+    otherwise ``DLT_PREFIX_CACHE_MB``; an unset or unparsable env value
+    means `default_mb` (library engines pass 0 = off, the CLI 512)."""
+    if explicit is not None:
+        return int(explicit)
+    raw = os.environ.get("DLT_PREFIX_CACHE_MB")
+    if raw is None or raw == "":
+        return default_mb
+    try:
+        return int(raw)
+    except ValueError:
+        return default_mb
+
+
+# -- the copies (JAX's jitted programs), in place on the live cache ----------
+
+
+def copy_prefix_into_rows(cache, k_seg: torch.Tensor, v_seg: torch.Tensor) -> None:
+    """Copy a cached slice [L, P, kv, hd] into positions [0, P) of every
+    row of a contiguous cache, in place."""
+    P = k_seg.shape[1]
+    cache.k[:, :, :P].copy_(k_seg[:, None])
+    cache.v[:, :, :P].copy_(v_seg[:, None])
+
+
+def copy_prefix_into_row(cache, k_seg: torch.Tensor, v_seg: torch.Tensor, row: int) -> None:
+    """Copy a cached slice [L, P, kv, hd] into positions [0, P) of one row,
+    in place."""
+    P = k_seg.shape[1]
+    cache.k[:, row, :P].copy_(k_seg)
+    cache.v[:, row, :P].copy_(v_seg)
+
+
+def extract_prefix_from_row(cache, row: int, length: int) -> tuple:
+    """A copy of positions [0, length) of one row: the [L, length, kv, hd]
+    pair a contiguous entry stores."""
+    return cache.k[:, row, :length].clone(), cache.v[:, row, :length].clone()
+
+
+# -- host-side structure ------------------------------------------------------
+
+
+@dataclass
+class PrefixEntry:
+    """One published slice: `tokens` (a bucket-length tuple) is the tree's
+    key; `refs` pins the entry against eviction between match and splice.
+    Contiguous engines store the slice's tensors in k/v; paged engines the
+    physical page ids in `pages`, retained in the engine's PagePool."""
+
+    tokens: tuple
+    k: object
+    v: object
+    nbytes: int
+    refs: int = 0
+    last_used: int = 0
+    pages: tuple = ()
+
+    @property
+    def length(self) -> int:
+        return len(self.tokens)
+
+
+class _Node:
+    """Radix node: `edge` is the token run from the parent (path
+    compression), children keyed by first token, `entry` set when a
+    published slice ends exactly here."""
+
+    __slots__ = ("edge", "children", "entry")
+
+    def __init__(self, edge=()):
+        self.edge = tuple(edge)
+        self.children: dict = {}
+        self.entry = None
+
+
+class PrefixCache:
+    """The engine-wide radix prefix cache (see the module docstring)."""
+
+    def __init__(self, budget_bytes: int, seq_len: int, max_chunk: int, page_pool=None):
+        self.budget_bytes = int(budget_bytes)
+        self.seq_len = seq_len
+        self.max_chunk = max_chunk
+        self.page_pool = page_pool  # paged engines: entries share refcounted pages
+        self.paged = page_pool is not None
+        self.buckets = prefix_buckets(seq_len)
+        self.counters = dict.fromkeys(COUNTERS, 0)
+        self._root = _Node()
+        self._entries: dict = {}  # token tuple -> PrefixEntry
+        self._bytes = 0
+        self._clock = 0
+        self._lock = threading.Lock()
+
+    @classmethod
+    def build(cls, engine, prefix_cache_mb=None):
+        """The engine's factory: the budget (argument > DLT_PREFIX_CACHE_MB
+        env > 0 = off) and the JAX package's three gates. Returns None when
+        the cache is off: on an sp > 1 mesh (it shards the sequence axis a
+        slice would splice into), for contiguous int8 (the copies would
+        need scale twins; paged int8 shares pages and needs none), and when
+        the context is too short for a publishable prefix."""
+        prefix_cache_mb = resolve_budget_mb(prefix_cache_mb, default_mb=0)
+        if prefix_cache_mb <= 0:
+            return None
+        if engine.use_pipeline:
+            return None
+        if engine.cfg.kv_quantized and not engine.paged:
+            return None
+        if not prefix_buckets(engine.cfg.seq_len):
+            return None
+        return cls(
+            prefix_cache_mb * 1024 * 1024,
+            seq_len=engine.cfg.seq_len,
+            max_chunk=engine.max_chunk,
+            page_pool=engine.page_pool if engine.paged else None,
+        )
+
+    # -- observability -----------------------------------------------------
+
+    def _incr(self, name, n=1):
+        self.counters[name] += n
+
+    @property
+    def n_entries(self) -> int:
+        return len(self._entries)
+
+    @property
+    def total_bytes(self) -> int:
+        """Device bytes the published entries hold."""
+        return self._bytes
+
+    def stats_snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "entries": len(self._entries),
+                "bytes": self._bytes,
+                "budget_bytes": self.budget_bytes,
+                "buckets": list(self.buckets),
+                "pinned": sum(1 for e in self._entries.values() if e.refs > 0),
+            }
+
+    # -- matching ----------------------------------------------------------
+
+    def resume_boundary(self, m: int) -> int:
+        """Round a matched length down to a chunk boundary: a multiple of
+        max_chunk, or below one chunk the largest power of two, so the
+        resumed prefill walks the chunk ladder a cold prefill walks."""
+        if m >= self.max_chunk:
+            return (m // self.max_chunk) * self.max_chunk
+        b = 0
+        p = 1
+        while p <= m:
+            b = p
+            p *= 2
+        return b
+
+    def _walk(self, tokens):
+        """(m, subtree_node, best_on_path): m = longest shared prefix with
+        any published chain; subtree_node roots the entries sharing exactly
+        m tokens; best_on_path = deepest entry whose whole chain matched."""
+        node = self._root
+        t = tuple(tokens)
+        m = 0
+        best = None
+        while True:
+            if node.entry is not None:
+                best = node.entry
+            if m == len(t):
+                return m, node, best
+            child = node.children.get(t[m])
+            if child is None:
+                return m, None, best
+            e = child.edge
+            lim = min(len(e), len(t) - m)
+            lcp = 0
+            while lcp < lim and e[lcp] == t[m + lcp]:
+                lcp += 1
+            m += lcp
+            if lcp == len(e):
+                node = child
+                continue
+            # diverged (or ran out of tokens) mid-edge: everything below
+            # `child` still shares exactly the first m tokens
+            return m, child, best
+
+    @staticmethod
+    def _first_entry(node):
+        if node is None:
+            return None
+        stack = [node]
+        while stack:
+            n = stack.pop()
+            if n.entry is not None:
+                return n.entry
+            stack.extend(n.children.values())
+        return None
+
+    def match(self, tokens):
+        """Longest-prefix match: (covered, entry), `covered` the leading
+        tokens of `tokens` whose KV the entry holds; (0, None) on a miss.
+        An entry deeper than the divergence is still usable: its positions
+        past `covered` are rewritten before any query reads them."""
+        with self._lock:
+            m, subtree, best = self._walk(tokens)
+            entry = self._first_entry(subtree)
+            if entry is not None:
+                return m, entry
+            if best is not None:
+                return min(m, best.length), best
+            return 0, None
+
+    def match_for_splice(self, tokens):
+        """The admission lookup: (resume boundary, entry) with the entry
+        pinned (refs + 1) until the caller's `entry_release`. A miss (a
+        boundary below the publishable floor included) is counted here; a
+        hit is counted by `record_hit` when the splice runs."""
+        covered, entry = self.match(tokens)
+        B = self.resume_boundary(min(covered, len(tokens)))
+        if self.paged and entry is not None:
+            # sharing maps whole pages read-only: floor the boundary to a
+            # page and cap it at the entry's own coverage
+            ps = self.page_pool.page_size
+            B = (min(B, entry.length) // ps) * ps
+        if entry is None or B < PREFIX_MIN_TOKENS:
+            self._incr("prefix_misses")
+            return 0, None
+        with self._lock:
+            entry.refs += 1
+            self._clock += 1
+            entry.last_used = self._clock
+        return B, entry
+
+    def record_hit(self, resume: int) -> None:
+        """Count one splice that ran (`resume` = prefill tokens skipped)."""
+        self._incr("prefix_hits")
+        self._incr("prefix_hit_tokens", resume)
+
+    def entry_release(self, entry) -> None:
+        with self._lock:
+            entry.refs = max(0, entry.refs - 1)
+
+    # -- splicing ----------------------------------------------------------
+
+    def splice_rows(self, engine, entry) -> None:
+        """Copy the entry's slice into every row of the live cache."""
+        copy_prefix_into_rows(engine.cache, entry.k, entry.v)
+
+    def splice_row(self, engine, entry, row: int) -> None:
+        """Copy the entry's slice into one row (BatchSession admissions)."""
+        copy_prefix_into_row(engine.cache, entry.k, entry.v, row)
+
+    def share_row(self, engine, entry, row: int, resume: int) -> None:
+        """The paged splice: map the entry's pages covering [0, resume)
+        into `row`'s table with their refcounts bumped. No KV moves; the
+        pool's version moves, so the next step uploads the tables."""
+        self.page_pool.share(row, entry.pages[: resume // self.page_pool.page_size])
+
+    def share_rows(self, engine, entry, resume: int) -> None:
+        """The paged splice into every row."""
+        for row in range(engine.batch):
+            self.share_row(engine, entry, row, resume)
+
+    # -- publishing --------------------------------------------------------
+
+    def publish_from_row(self, engine, row: int, tokens, max_len=None) -> bool:
+        """Publish the KV of `row`'s first `bucket_down(max_len)` tokens:
+        a copy (contiguous) or a retain of the row's pages (paged), then
+        the tree insert. Every position below max_len must already hold
+        final KV (callers cap at the last fed token). Dedupes by token
+        key; evicts LRU unpinned entries to fit the budget; skips, counted,
+        when pinned entries leave no room. Returns True when an entry was
+        inserted or refreshed."""
+        n = len(tokens) if max_len is None else min(max_len, len(tokens))
+        P = bucket_down(n, self.seq_len)
+        if self.paged:
+            # only whole pages can be shared read-only
+            P = (P // self.page_pool.page_size) * self.page_pool.page_size
+        if P < PREFIX_MIN_TOKENS:
+            return False
+        key = tuple(int(t) for t in tokens[:P])
+        with self._lock:
+            existing = self._entries.get(key)
+            if existing is not None:
+                self._clock += 1
+                existing.last_used = self._clock
+                return True
+            need = self._slice_nbytes(engine, P)
+            if need > self.budget_bytes or not self._evict_until(self.budget_bytes - need):
+                self._incr("prefix_publish_skipped")
+                return False
+        if self.paged:
+            # the row's pages below P are final: its later writes land
+            # past P, or copy a shared page first. An unmapped slot below
+            # P raises (the JAX package counts it as a skipped publish):
+            # the caller's length accounting is off
+            pages = self.page_pool.row_pages(row, P // self.page_pool.page_size)
+            self.page_pool.retain(pages)
+            k = v = None
+            nbytes = need
+        else:
+            pages = ()
+            k, v = extract_prefix_from_row(engine.cache, row, P)
+            nbytes = k.numel() * k.element_size() + v.numel() * v.element_size()
+        with self._lock:
+            if key in self._entries:  # raced with another publisher
+                if pages:
+                    self.page_pool.release(pages)
+                return True
+            self._clock += 1
+            entry = PrefixEntry(tokens=key, k=k, v=v, nbytes=nbytes,
+                                last_used=self._clock, pages=pages)
+            self._insert(entry)
+            self._entries[key] = entry
+            self._bytes += entry.nbytes
+        self._incr("prefix_inserts")
+        return True
+
+    def _slice_nbytes(self, engine, P: int) -> int:
+        if self.paged:
+            from .paged_kv import page_pool_bytes
+
+            ps = self.page_pool.page_size
+            return page_pool_bytes(engine.cfg, P // ps, ps)
+        L, _, _, h, d = engine.cache.k.shape
+        return 2 * L * P * h * d * engine.cache.k.element_size()
+
+    # -- tree maintenance (callers hold the lock) --------------------------
+
+    def _insert(self, entry) -> None:
+        t = entry.tokens
+        node = self._root
+        i = 0
+        while True:
+            if i == len(t):
+                node.entry = entry
+                return
+            child = node.children.get(t[i])
+            if child is None:
+                leaf = _Node(t[i:])
+                leaf.entry = entry
+                node.children[t[i]] = leaf
+                return
+            e = child.edge
+            lim = min(len(e), len(t) - i)
+            lcp = 0
+            while lcp < lim and e[lcp] == t[i + lcp]:
+                lcp += 1
+            if lcp == len(e):
+                node = child
+                i += lcp
+                continue
+            # split the edge at the divergence
+            mid = _Node(e[:lcp])
+            child.edge = e[lcp:]
+            mid.children[child.edge[0]] = child
+            node.children[t[i]] = mid
+            i += lcp
+            if i == len(t):
+                mid.entry = entry
+            else:
+                leaf = _Node(t[i:])
+                leaf.entry = entry
+                mid.children[t[i]] = leaf
+            return
+
+    def _detach(self, entry) -> None:
+        """Remove `entry` from the tree, pruning nodes left empty."""
+        t = entry.tokens
+        path = []  # (parent, first token, node)
+        node = self._root
+        i = 0
+        while i < len(t):
+            child = node.children.get(t[i])
+            if child is None:
+                return  # already detached
+            path.append((node, t[i], child))
+            i += len(child.edge)
+            node = child
+        if node.entry is not entry:
+            return
+        node.entry = None
+        for parent, first, n in reversed(path):
+            if n.entry is None and not n.children:
+                del parent.children[first]
+            else:
+                break
+
+    def _evict_until(self, target_bytes: int) -> bool:
+        """Evict LRU unpinned entries until total <= target; False when
+        pinned entries make the target unreachable."""
+        while self._bytes > target_bytes:
+            victims = [e for e in self._entries.values() if e.refs == 0]
+            if not victims:
+                return False
+            self._remove(min(victims, key=lambda e: e.last_used))
+            self._incr("prefix_evictions")
+        return True
+
+    def _remove(self, entry) -> None:
+        self._detach(entry)
+        self._entries.pop(entry.tokens, None)
+        self._bytes -= entry.nbytes
+        if entry.pages:
+            self.page_pool.release(entry.pages)
+
+    def evict_one(self) -> bool:
+        """Evict the LRU unpinned entry (the page pool's reclaim hook:
+        allocation pressure trades cached prefixes for live rows' pages).
+        False when everything is pinned or the cache is empty."""
+        with self._lock:
+            victims = [e for e in self._entries.values() if e.refs == 0]
+            if not victims:
+                return False
+            self._remove(min(victims, key=lambda e: e.last_used))
+            self._incr("prefix_evictions")
+            return True
+
+    def clear(self) -> None:
+        """Drop every entry; paged entries give their page references back."""
+        with self._lock:
+            for entry in self._entries.values():
+                if entry.pages:
+                    self.page_pool.release(entry.pages)
+            self._root = _Node()
+            self._entries.clear()
+            self._bytes = 0

@@ -161,7 +161,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     base = ["inference", "--model", mp, "--tokenizer", mp, "--prompt", "x", "--steps", "4",
             "--device", "cpu"]
     for mode in ("inference", "perplexity", "chat"):
-        for extra in (["--speculative", "ngram"], ["--prefix-cache-mb", "64"]):
+        for extra in (["--speculative", "ngram"], ["--speculative", "model"]):
             with pytest.raises(NotImplementedError, match="A10"):
                 pcli.main([mode] + base[1:] + extra)
 

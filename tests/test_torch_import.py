@@ -19,6 +19,7 @@ import distributed_llama_tpu_torch.ops.moe
 import distributed_llama_tpu_torch.ops.kv_quant
 import distributed_llama_tpu_torch.runtime.batch_session
 import distributed_llama_tpu_torch.runtime.paged_kv
+import distributed_llama_tpu_torch.runtime.prefix_cache
 import distributed_llama_tpu_torch.runtime.graphs
 import distributed_llama_tpu_torch.runtime.decode
 import distributed_llama_tpu_torch.testing

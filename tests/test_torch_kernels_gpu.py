@@ -1578,3 +1578,64 @@ def test_no_recapture_after_warmup(cuda, graph_model):
     s.step(64)
     s.release(0)
     assert eng.graph_stats()["recaptures_after_warmup"] == 0
+
+
+# -- the prefix cache (runtime/prefix_cache.py) with graphed decode --------
+
+PREFIX_HEAD = GRAPH_PROMPT[:150]
+PREFIX_PROMPTS = (GRAPH_PROMPT[:200], GRAPH_PROMPT[:200],
+                  PREFIX_HEAD + [(11 * i) % 500 + 3 for i in range(50)])
+
+
+def _prefix_runs(eng, n_new=32):
+    """Each PREFIX_PROMPTS request from a reset: tokens, hit tokens and the
+    last decode step's logits."""
+    out = []
+    for prompt in PREFIX_PROMPTS:
+        eng.reset()
+        toks = eng.generate(prompt, len(prompt) + n_new).tokens
+        out.append((toks, eng.last_prefix_hit_tokens, eng.last_logits.clone()))
+    return out
+
+
+@pytest.mark.parametrize("layout,kv_dtype", [("contiguous", None), ("paged", None),
+                                             ("paged", "int8")])
+def test_prefix_hit_equals_cold_with_graphed_decode(cuda, graph_model, layout, kv_dtype):
+    """bf16 on the card, decode graphed: the first request publishes 231
+    tokens as a 128-token entry; the same prompt and a prompt sharing its
+    first 150 tokens hit it at 128, a multiple of max_chunk, so the resumed
+    prefill takes the cold run's chunks from there and K2, K3 and K5 see the
+    cold run's shapes. Tokens and last logits equal the cold engine's bit
+    for bit."""
+    kw = dict(device="cuda", decode_chunk_size=16, kv_layout=layout, cache_dtype=kv_dtype)
+    got = _prefix_runs(InferenceEngine(graph_model, prefix_cache_mb=64, **kw))
+    want = _prefix_runs(InferenceEngine(graph_model, **kw))
+    assert [g[1] for g in got] == [0, 128, 128] and [w[1] for w in want] == [0, 0, 0]
+    for g, w in zip(got, want):
+        assert g[0] == w[0] and torch.equal(g[2], w[2])
+
+
+def test_no_recapture_after_warmup_across_prefix_hits(cuda, graph_model):
+    """warmup(), then cold, hit and partial-hit requests and a BatchSession
+    admission that hits: 0 captures after warmup, and the hits equal the
+    cold engine's tokens."""
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+
+    kw = dict(device="cuda", decode_chunk_size=16, kv_layout="paged", cache_dtype="int8")
+
+    def session_row(eng):
+        s = BatchSession(eng)
+        s.admit(1, PREFIX_PROMPTS[2])
+        row = np.concatenate([s.step(16)[1] for _ in range(2)]).tolist()
+        s.release(1)
+        return row
+
+    eng = InferenceEngine(graph_model, batch=2, prefix_cache_mb=64, **kw)
+    eng.warmup()
+    assert eng.prefix_cache.n_entries == 0
+    got = _prefix_runs(eng), session_row(eng)
+    assert eng.prefix_cache.counters["prefix_hits"] == 3
+    assert eng.graph_stats()["recaptures_after_warmup"] == 0
+    cold = InferenceEngine(graph_model, batch=2, **kw)
+    want = _prefix_runs(cold), session_row(cold)
+    assert [g[0] for g in got[0]] == [w[0] for w in want[0]] and got[1] == want[1]
