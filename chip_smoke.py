@@ -20,7 +20,11 @@ caught):
      partial) on 4096-row shards of
      a 16384-row cache at col_offset 0, 4096 (a straddling chunk) and
      8192 (fully masked: exact), and the four-shard combine against K3
-     over the whole cache, at the 1B and 30B-A3B attention shapes;
+     over the whole cache, at the 1B and 30B-A3B attention shapes; at the
+     shapes a speculative verify round gives them at 1B width, each
+     against its plain version with its time, library call and bound: K2
+     on the four layer shapes and B5 on the wcls at 9, 80 and 144 rows,
+     K5 at t = 5 and 9 queries a row, batch 1 and 16, per-row positions;
   3b. the kernel probes (B9, P3, P4, P14): each kernel or instance
      against its plain version at every probe shape (Llama-3.2-1B layer
      shapes and the full wcls 2048 -> 128256): P3's two arms and P4's
@@ -81,12 +85,16 @@ caught):
      6000-token prompt and 64 greedy steps with B8 launched chunks x
      layers x shards times and K3 never, logits and tokens against sp = 1,
      and profiles of its prefill tail (B8's share) and decode. At
-     Qwen3-30B-A3B's width: the CLI's `inference` (contiguous). Decode on
-     these paths replays CUDA graphs of the decode step (runtime/graphs.py)
-     except on the sp mesh, and the launch counters count each replay's
-     kernels;
+     Qwen3-30B-A3B's width: the CLI's `inference` (contiguous). The CLI
+     runs its default ngram speculation (greedy decode in verify rounds),
+     which is off at 30B-A3B, whose rounds would take the MoE gather arm;
+     the contiguous `inference` of each model runs again with
+     `--speculative off`, the tokens equal. Decode on these paths
+     replays CUDA graphs of the decode step and the verify round
+     (runtime/graphs.py) except on the sp mesh, and the launch counters
+     count each replay's kernels;
   5b. graphed decode against eager decode on one engine (`cuda_graphs`
-     off, then on): 256 greedy steps in 64-step chunks from PROMPT's end
+     off, then on): 192 greedy steps in 64-step chunks from PROMPT's end
      and a seeded sampled chunk of each sampling arm (top-p 0.9 and
      1.0), tokens and every chunk's last logits bit for bit equal, at
      Llama-3.2-1B width batch 1 contiguous, paged bf16 and paged int8,
@@ -108,9 +116,29 @@ caught):
      batch-16 paged int8 BatchSession after `warmup()` whose 16
      admissions share the head (15 hits), rows and last logits equal to
      the same admissions with the cache off;
-  6. where a token's time goes: torch.profiler over 16 batch-1 decode
+  5d. speculative decoding, counted as one path: at Llama-3.2-1B width,
+     batch 1 on the contiguous, paged bf16 and paged int8 layouts, 256
+     greedy steps from PROMPT without speculation and with ngram at k 4
+     and k 8 on one engine: k 4's tokens equal, k 8's equal, or parted
+     (the first divergence and its margin reported) where the chains with
+     and without speculation are equal once decode takes the verify
+     rounds' arms (`verify_arms`), with `arm_growth`: how far the two
+     arms' teacher-forced logits stray along the chain up to the
+     divergence; each arm twice more in turns for tok/s
+     with rounds, acceptance, verify ms, draft and fetch µs a round; a
+     verify round at k 4 and 8 graphed equal to eager bit for bit and
+     within SPEC_VERIFY_TOL of the stepwise logits; the batch-16 paged
+     int8 session's `spec_step` rounds against its `step` chunks,
+     `warmup()` at k 8 and a pinned spec trace with 0 captures after it;
+     `generate_batch` at batch 4 with and without speculation; at
+     Qwen3-30B-A3B width, on phase 5b's engine, the gather arm's verify
+     round graphed, its pool bytes, tok/s against off; torch.profiler over
+     64 tokens of the 1B contiguous decode with and without speculation
+     in turns (one `spec_ab` line);
+  6. where a token's time goes: torch.profiler over 8 batch-1 decode
      steps of each model (contiguous) and of the 1B on the paged int8
-     layout (K5's share), over one batch-16 paged int8 chunk (K5's share)
+     layout (K5's share; 16 steps until phase 5d came), over one
+     batch-16 paged int8 chunk (K5's share)
      and over a 128-token Qwen3-30B-A3B prefill (K4's share); each decode
      window eagerly and graphed in turns on one engine, reported as wall,
      busy and idle, kernel and `cudaGraphLaunch` calls a token and tok/s;
@@ -122,7 +150,9 @@ caught):
 runs phases 1-2 and only that model's phase-6 windows (the paged int8
 decode and batch-16 chunk, or the prefill), each decode window graphed
 and eager: run from the root of two trees in one call, it compares them
-end to end.
+end to end. `--spec-divergence` runs phases 1-2 and only phase 5d's
+paged int8 batch-1 chains without speculation and at k 8, with
+`arm_growth` where they part.
 
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. Bounds use the card's published rates
@@ -169,6 +199,9 @@ QWEN3_NORM_EPS = 1e-6
 MAX_SEQ_LEN = 4096
 PREFILL_ROWS = 32  # the CLI's default --nbatches
 DECODE_STEPS = 256
+# the 30B-A3B CLI runs (at the default speculation its verify rounds take
+# the MoE gather arm, ~258 ms a round: PERF.md)
+MOE_CLI_DECODE_STEPS = 128
 PROMPT = (
     "The quick brown fox jumps over the lazy dog while a small bird sings "
     "in the tall green tree near the old stone bridge."
@@ -454,9 +487,10 @@ def b5_row(torch, gen, wcls, dim, vocab, bw, bf16_peak):
 def paged_case(torch, gen, L, n_kv, g, hd, b, n_read, ps=16, t=1):
     """Inputs for K5 at one shape: an int8 pool of L layers with b * n_read
     mapped pages plus spare ones, each row's table a random permutation of
-    pool pages with its unmapped tail at -1, row 1 parked (pos_base =
-    seq_len, every entry read) and the live rows at random positions in
-    the last two pages of their view."""
+    pool pages with its unmapped tail at -1, row 1 parked where b > 1
+    (pos_base = seq_len, every entry read) and the live rows at random
+    positions in the last two pages of their view, with room for t
+    queries."""
     kv_len = n_read * ps
     P = b * n_read + 8
     k = torch.randint(-127, 128, (L, P, ps, n_kv, hd), dtype=torch.int8, device="cuda", generator=gen)
@@ -466,7 +500,8 @@ def paged_case(torch, gen, L, n_kv, g, hd, b, n_read, ps=16, t=1):
     table = torch.randperm(P, device="cuda", generator=gen)[: b * n_read].reshape(b, n_read)
     table = table.to(torch.int32).contiguous()
     pos = torch.randint(kv_len - 2 * ps, kv_len - t + 1, (b,), device="cuda", generator=gen)
-    pos[1] = MAX_SEQ_LEN  # parked at seq_len
+    if b > 1:
+        pos[1] = MAX_SEQ_LEN  # parked at seq_len
     for r in range(2, b, 5):  # rows whose last pages are unmapped, causally dead
         dead = (int(pos[r]) + t - 1) // ps + 1
         table[r, dead:] = -1
@@ -544,6 +579,140 @@ def paged_rows(torch, rates):
             del views, k, v, ks, vs
             torch.cuda.empty_cache()
     return chosen
+
+
+# the row counts a verify round gives K2 and B5 at 1B width: batch 1 at k 8
+# (t 9), batch 16 at k 4 (t 5) and at k 8
+VERIFY_ROWS = (9, 80, 144)
+# the verify feed's tokens a row: k 4 and 8
+VERIFY_T = (5, 9)
+
+
+def verify_gemm_rows(torch, rates) -> dict:
+    """K2 on the four 1B layer shapes and B5 on the 1B wcls at VERIFY_ROWS,
+    each held to its plain version (K2's tolerance: 1e-4 of the output
+    scale) on layers 0 and 15, timed a call (K2 over the 16 layers' weights
+    in one graph), beside torch.matmul on the bf16-dequantized weights and
+    the bound of one call. Logged; returns {kernel: {shape: {rows:
+    record}}}."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.probes import timing
+
+    bw, bf16_peak, _ = rates
+    c = LLAMA32_1B
+    dim, ff, L = c["dim"], c["hidden_dim"], c["n_layers"]
+    qkv_out = (c["n_heads"] + 2 * c["n_kv_heads"]) * c["head_dim"]
+    shapes = [("wqkv", dim, qkv_out), ("wo", c["n_heads"] * c["head_dim"], dim),
+              ("w13", dim, 2 * ff), ("w2", ff, dim)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+
+    def record(name, calls, pairs, lib, plain, i, o, rows):
+        """`calls`, `lib`, `plain`: lists of one call each, timed a call;
+        `pairs`: (kernel, plain) outputs held to K2's tolerance."""
+        errs = compare(torch, f"{name} {i}->{o} at {rows} rows", pairs, rel_tol=1e-4)
+        t_bytes = (_wbytes(i, o) + rows * (i + o) * 4) / bw * 1e3
+        t_ops = 2 * rows * i * o / bf16_peak * 1e3
+        return {"ms": timing.graph_ms(calls), "plain_ms": timing.graph_ms(plain),
+                "library_ms": timing.graph_ms(lib), "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "max_abs_err": errs[0], "max_rel_err": errs[1]}
+
+    out = {"q40_gemm_bf16_stacked": {}, "q40_gemm_bf16": {}}
+    for n, i, o in shapes:
+        q, d = random_q40_stack(torch, gen, L, i, o)
+        lib_w = [_dq(torch, q[li], d[li]) for li in range(L)]
+        out["q40_gemm_bf16_stacked"][n] = {"in": i, "out": o}
+        for rows in VERIFY_ROWS:
+            x = torch.randn((rows, i), device="cuda", generator=gen)
+            xb = x.to(torch.bfloat16)
+            rec = record(
+                "q40_gemm_bf16_stacked",
+                [partial(cuda_q40.q40_gemm_bf16_stacked, x, q, d, li) for li in range(L)],
+                [(cuda_q40.q40_gemm_bf16_stacked(x, q, d, li),
+                  cuda_q40.q40_gemm_bf16_plain(x, q[li], d[li])) for li in (0, L - 1)],
+                [partial(torch.matmul, xb, lib_w[li]) for li in range(L)],
+                [partial(cuda_q40.q40_gemm_bf16_plain, x, q[0], d[0])], i, o, rows)
+            out["q40_gemm_bf16_stacked"][n][rows] = rec
+        del q, d, lib_w
+    wq, wd = random_q40_stack(torch, gen, 1, dim, c["vocab_size"])
+    wq, wd = wq[0], wd[0]
+    w_bf16 = _dq(torch, wq, wd)
+    for rows in VERIFY_ROWS:
+        x = torch.randn((rows, dim), device="cuda", generator=gen)
+        xb = x.to(torch.bfloat16)
+        out["q40_gemm_bf16"][rows] = record(
+            "q40_gemm_bf16", [partial(cuda_q40.q40_gemm_bf16, x, wq, wd)],
+            [(cuda_q40.q40_gemm_bf16(x, wq, wd), cuda_q40.q40_gemm_bf16_plain(x, wq, wd))],
+            [partial(torch.matmul, xb, w_bf16)],
+            [partial(cuda_q40.q40_gemm_bf16_plain, x, wq, wd)], dim, c["vocab_size"], rows)
+    for name, rec in out.items():
+        log(json.dumps({"kernel_extra": name, "verify_rows": rec}))
+    del w_bf16
+    torch.cuda.empty_cache()
+    return out
+
+
+def verify_paged_rows(torch, rates) -> dict:
+    """K5 at the verify feed's t = 5 and 9 queries a row (20 and 36 folded
+    rows at 1B's g = 4), per-row positions, at 1B width over the 16 layers
+    of one round: batch 1 at n_read 16 (kv_len 256), batch 16 at n_read 16
+    with one row parked. Held to its plain version (1e-4 of the scale),
+    timed, beside SDPA on a pre-gathered dequantized bf16 view with the
+    per-query causal mask (nearest call, not the same function) and the
+    bound. Logged; returns {f"b{b}_t{t}": record}."""
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops.kv_quant import dequantize_kv
+    from distributed_llama_tpu_torch.probes import timing
+
+    bw, bf16_peak, _ = rates
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    L, n_kv, g, hd = LLAMA32_1B["n_layers"], 8, 4, 64
+    ps, n_read = 16, 16
+    out = {}
+    for b in (1, 16):
+        for t in VERIFY_T:
+            q, k, v, ks, vs, pos, table, kv_len = paged_case(torch, gen, L, n_kv, g, hd, b,
+                                                             n_read, t=t)
+            errs = compare(torch, f"paged_flash_attention b {b} t {t}", (
+                (ca.paged_flash_attention(q, k, v, ks, vs, li, pos, table, n_read, ps),
+                 ca.paged_flash_attention_plain(q, k, v, ks, vs, li, pos, table, n_read, ps))
+                for li in (0, L - 1)), rel_tol=1e-4)
+
+            def calls(fn):
+                return [partial(fn, q, k, v, ks, vs, li, pos, table, n_read, ps)
+                        for li in range(L)]
+
+            pages = table.clamp(min=0).long()
+            views = [[dequantize_kv(x[li, pages], s[li, pages], torch.bfloat16)
+                      .reshape(b, kv_len, n_kv, hd).transpose(1, 2) for x, s in ((k, ks), (v, vs))]
+                     for li in range(L)]
+            qpos = pos[:, None] + torch.arange(t, device="cuda")[None, :]
+            mask = (torch.arange(kv_len, device="cuda")[None, None, :] <= qpos[:, :, None])[:, None]
+            sq = q.to(torch.bfloat16).transpose(1, 2)
+            lib = [partial(F.scaled_dot_product_attention, sq, kk, vv, attn_mask=mask,
+                           enable_gqa=True) for kk, vv in views]
+            need = [n_read if int(p) >= MAX_SEQ_LEN else min(n_read, (int(p) + t - 1) // ps + 1)
+                    for p in pos.tolist()]
+            page_bytes = ps * n_kv * (hd + 4)
+            nbytes = L * (2 * sum(need) * page_bytes + 2 * b * t * n_kv * g * hd * 4
+                          + b * (n_read * 4 + 8))
+            nops = L * 4 * g * hd * ps * n_kv * t * sum(need)
+            t_bytes, t_ops = nbytes / bw * 1e3, nops / bf16_peak * 1e3
+            out[f"b{b}_t{t}"] = {
+                "ms": timing.graph_ms(calls(ca.paged_flash_attention)),
+                "plain_ms": timing.graph_ms(calls(ca.paged_flash_attention_plain)),
+                "library_ms": timing.graph_ms(lib), "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "max_abs_err": errs[0], "max_rel_err": errs[1], "layers": L,
+            }
+            del views, k, v, ks, vs
+            torch.cuda.empty_cache()
+    log(json.dumps({"kernel_extra": "paged_flash_attention", "verify_shapes": out}))
+    return out
 
 
 def flash_row(torch, gen, bw, bf16_peak, L, nh, nkv, hd):
@@ -1759,16 +1928,27 @@ def check_launched(launches, expected, where):
         assert launches[k.__name__] > 0, f"kernel {k.__name__} was never launched on {where}"
 
 
+def pred_text(text: str) -> str:
+    """The generated text of a CLI inference run: its Pred lines' texts
+    joined (split at newlines only: a token's text may hold a control
+    character that `splitlines` splits at; a line of no text shows "~")."""
+    lines = [line.split("| ", 1)[1] for line in text.split("\n") if line.startswith("🔶 Pred")]
+    texts = [re.sub(r"^\(\d+ tokens\) ", "", line) for line in lines]
+    return "".join("" if t == "~" else t for t in texts)
+
+
 def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expected,
-              extra=("--kv-layout", "contiguous")):
-    """The CLI's inference mode on one model: 256 greedy decode steps after
-    the prompt; each kernel in `expected` must have launched. The layout
-    is explicit: the CLI's default is paged."""
+              extra=("--kv-layout", "contiguous"), texts=None, decode_steps=DECODE_STEPS):
+    """The CLI's inference mode on one model: `decode_steps` greedy decode
+    steps after the prompt, at the CLI's default speculation unless `extra` says
+    otherwise; each kernel in `expected` must have launched. The layout is
+    explicit: the CLI's default is paged. `texts`: a dict that takes the
+    run's generated text under `extra`."""
     from distributed_llama_tpu_torch.tokenizer import Tokenizer
 
     n_prompt = len(Tokenizer(tp).encode(PROMPT))
     # decode runs positions n_prompt - 1 .. steps - 1 (the reference's maxPos)
-    steps = n_prompt - 1 + DECODE_STEPS
+    steps = n_prompt - 1 + decode_steps
     argv = ["inference", "--model", mp, "--tokenizer", tp, "--prompt", PROMPT,
             "--steps", str(steps), "--max-seq-len", str(MAX_SEQ_LEN),
             "--temperature", "0", "--device", "cuda", *extra]
@@ -1782,7 +1962,7 @@ def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expec
         return float(m.group(1))
 
     n_pred = int(num("Prediction", "nTokens"))
-    assert n_pred == DECODE_STEPS, f"decoded {n_pred} tokens, expected {DECODE_STEPS}"
+    assert n_pred == decode_steps, f"decoded {n_pred} tokens, expected {decode_steps}"
     summary = {
         "phase": "main_path", "model": name, "args": list(extra), "n_layers": n_layers,
         "prompt_tokens": n_prompt, "decode_tokens": n_pred,
@@ -1795,6 +1975,8 @@ def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expec
     }
     log(json.dumps(summary))
     check_launched(launches, expected, f"{name}'s main path {' '.join(extra)}")
+    if texts is not None:
+        texts[tuple(extra)] = pred_text(text)
     return launches
 
 
@@ -2079,25 +2261,30 @@ def sp_path(torch, mp: str, tp: str, counters, expected, b8, k3):
 # phase 5b: graphed decode against eager decode
 # ---------------------------------------------------------------------------
 
-GRAPH_CHUNKS = (64, 64, 64, 64)  # 256 greedy steps a trace, across the 256 kv bucket
+# 192 greedy steps a trace, from position 112 across the 256 kv bucket (cut
+# from 256 when phase 5d came, to keep the script's time)
+GRAPH_CHUNKS = (64, 64, 64)
 # then a sampled chunk of each arm, the top-p arm and the full distribution:
 # steps, temperature, top-p, seed
-GRAPH_SAMPLED = ((64, 0.8, 0.9, 1234), (32, 0.8, 1.0, 1235))
+GRAPH_SAMPLED = ((32, 0.8, 0.9, 1234), (16, 0.8, 1.0, 1235))
+# the 30B-A3B trace, shorter (an eager step there is ~4x the 1B's): 160
+# greedy steps, from 112 across the 256 bucket, and each sampled arm
+MOE_GRAPH_CHUNKS = dict(greedy=(64, 64, 32), sampled=((32, 0.8, 0.9, 1234), (16, 0.8, 1.0, 1235)))
 
 
-def decode_trace(torch, eng, ids):
-    """ids[:-1] prefilled, then GRAPH_CHUNKS greedy and the GRAPH_SAMPLED
-    chunks through the engine's chunk step, eager or graphed as
-    `eng.cuda_graphs` says. Returns (host tokens [b, steps], each chunk's
-    last logits, decode seconds)."""
+def decode_trace(torch, eng, ids, greedy=GRAPH_CHUNKS, sampled=GRAPH_SAMPLED):
+    """ids[:-1] prefilled, then the `greedy` chunks (GRAPH_CHUNKS) and the
+    `sampled` ones (GRAPH_SAMPLED) through the engine's chunk step, eager
+    or graphed as `eng.cuda_graphs` says. Returns (host tokens [b, steps],
+    each chunk's last logits, decode seconds)."""
     from distributed_llama_tpu_torch.tokenizer import Sampler
 
     eng.reset()
     eng.prefill(ids[:-1])
     pos = len(ids) - 1
     tok = eng._tokens([ids[-1]] * eng.batch)
-    chunks = [(n, 0.0, 0.9, None) for n in GRAPH_CHUNKS]
-    chunks += [(n, t, p, Sampler(eng.cfg.vocab_size, t, p, seed)) for n, t, p, seed in GRAPH_SAMPLED]
+    chunks = [(n, 0.0, 0.9, None) for n in greedy]
+    chunks += [(n, t, p, Sampler(eng.cfg.vocab_size, t, p, seed)) for n, t, p, seed in sampled]
     toks, logits = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2109,13 +2296,14 @@ def decode_trace(torch, eng, ids):
     return torch.cat(toks, dim=1), logits, time.perf_counter() - t0
 
 
-def graph_vs_eager(torch, name: str, eng, ids) -> dict:
-    """`decode_trace` eagerly, then graphed (captures included) on the same
-    engine: tokens and every chunk's last logits equal bit for bit."""
+def graph_vs_eager(torch, name: str, eng, ids, **chunks) -> dict:
+    """`decode_trace` (its `chunks`) eagerly, then graphed (captures
+    included) on the same engine: tokens and every chunk's last logits
+    equal bit for bit."""
     runs = {}
     for graphs in (False, True):
         eng.cuda_graphs = graphs
-        runs[graphs] = decode_trace(torch, eng, ids)
+        runs[graphs] = decode_trace(torch, eng, ids, **chunks)
     (te, le, se), (tg, lg, sg) = runs[False], runs[True]
     n = te.shape[1] * te.shape[0]
     out = {"phase": "graphed_decode", "setup": name, "decode_steps": te.shape[1],
@@ -2204,20 +2392,21 @@ def graphed_batch_session(torch, name: str, eng, ids) -> dict:
     return out
 
 
-def graphed_decode_phase(torch, mp: str, tp: str, model: str) -> None:
+def graphed_decode_phase(torch, mp: str, tp: str, model: str, eng=None) -> None:
     """Phase 5b at one model's width: graphed against eager decode, then the
     warm ladder's pinned trace. Llama-3.2-1B: batch 1 contiguous, paged
     bf16 and paged int8, and the batch-16 paged int8 BatchSession;
-    Qwen3-30B-A3B: batch 1 contiguous."""
+    Qwen3-30B-A3B: batch 1 contiguous on `eng` (a `spec_engine`, with
+    speculation off), then phase 5d's part there; `eng` is closed."""
     from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
     from distributed_llama_tpu_torch.tokenizer import Tokenizer
 
     ids = Tokenizer(tp).encode(PROMPT)
     kw = dict(max_seq_len=MAX_SEQ_LEN, device="cuda")
     if model == "qwen3_30b_a3b":
-        eng = InferenceEngine(mp, kv_layout="contiguous", **kw)
-        graph_vs_eager(torch, f"{model} batch 1 contiguous", eng, ids)
+        graph_vs_eager(torch, f"{model} batch 1 contiguous", eng, ids, **MOE_GRAPH_CHUNKS)
         pinned_trace(torch, f"{model} batch 1 contiguous", eng, ids, session=False)
+        spec_moe(torch, eng, ids)
         eng.close()
         return
     for layout, kv in (("contiguous", None), ("paged", None), ("paged", "int8")):
@@ -2442,6 +2631,590 @@ def prefix_cache_phase(torch, mp: str, tp: str, counters, expected) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_DECODE_STEPS = 256
+# the 30B-A3B runs: a round costs several decode tokens there (the gather
+# arm), and the model's steps are 4x the 1B's; the first 64 steps are a
+# plain chunk (PROMPT's end drafts nothing), the rest verify rounds
+MOE_SPEC_DECODE_STEPS = 128
+# a verify round's logits against the stepwise decode's at the same
+# positions, as a share of the stepwise logits' largest value: at k 4 the
+# round takes the decode step's arms (K1's Q80 arm at 5 rows, bit for bit
+# its 1-row calls), and the logits are equal bit for bit (measured on an
+# H100: 0 on all three layouts); at k 8 K2's bf16 arm at 9 rows (measured:
+# 0.22% on all three layouts)
+SPEC_VERIFY_TOL = {4: 0.0, 8: 0.005}
+# a 30B-A3B round of 5 tokens: the MoE gather arm where decode takes
+# K1-indexed (measured on an H100: 0.046%)
+MOE_SPEC_VERIFY_TOL = 0.002
+
+
+@contextlib.contextmanager
+def verify_arms(eng):
+    """Decode on the arms a verify round takes where decode takes others:
+    every dense Q40 matmul on K2's bf16 arm (a round of more than 8 rows;
+    decode's K1 quantizes x to Q80) and the MoE on its gather arm (a
+    30B-A3B round of 5 tokens; decode's K1-indexed). K2, K5 and the plain
+    attention compute each row and query alone, so on these arms the
+    chains with and without speculation are equal bit for bit: where they
+    part without them, the arms parted them, not a fault. The engine's
+    graphs are dropped before and after, so each arm captures its own."""
+    from distributed_llama_tpu_torch.models import transformer
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    saved = (cuda_q40.q40_gemv_q80_stacked, cuda_q40.q40_gemv_q80,
+             transformer._moe_decode_i8_eligible)
+    eng._graphs = None
+    gc.collect()
+    cuda_q40.q40_gemv_q80_stacked = cuda_q40.q40_gemm_bf16_stacked
+    cuda_q40.q40_gemv_q80 = cuda_q40.q40_gemm_bf16
+    transformer._moe_decode_i8_eligible = lambda *args: False
+    try:
+        yield
+    finally:
+        (cuda_q40.q40_gemv_q80_stacked, cuda_q40.q40_gemv_q80,
+         transformer._moe_decode_i8_eligible) = saved
+        eng._graphs = None
+        gc.collect()
+
+
+def spec_engine(mp: str, **kw):
+    """An engine with ngram speculation at draft_k 8, which `speculate`
+    switches between off, k 4 and k 8: the A/B arms of one engine."""
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+
+    return InferenceEngine(mp, max_seq_len=MAX_SEQ_LEN, device="cuda", speculative="ngram",
+                           draft_k=8, **kw)
+
+
+def speculate(eng, k: int) -> None:
+    """ngram speculation at draft_k k, or off at k 0."""
+    eng.set_speculation("ngram" if k else "off", k or None)
+
+
+def first_divergence(torch, want: list, got: list, n_prompt: int, logits_at):
+    """None where the token lists (prompt and generated) are equal; else
+    where the generated tokens first part, and the margin there:
+    `logits_at(j)` gives the logits from which the run without speculation
+    took want[j], replayed on its own path; the margin is want's logit less
+    got's, alone and as a share of their largest magnitude (`replayed`:
+    want[j] is their argmax, so the replay is the run's)."""
+    j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if j is None:
+        assert len(want) == len(got), (len(want), len(got))
+        return None
+    logits = logits_at(j).float().cpu()
+    margin = (logits[want[j]] - logits[got[j]]).item()
+    return {"index": j - n_prompt, "want": want[j], "got": got[j], "margin": margin,
+            "margin_share": margin / logits.abs().max().item(),
+            "replayed": int(logits.argmax()) == want[j]}
+
+
+def decode_logits(torch, eng, ids: list, n_steps: int = SPEC_DECODE_STEPS):
+    """`logits_at` for a batch-1 `generate` of PROMPT without speculation
+    (n_steps tokens):
+    PROMPT's prefill, then the run's own 64-step chunks (graphed) up to
+    the chunk that holds the step producing tokens[j], whose first steps
+    run eagerly at that chunk's kv bucket (eager equals graphed bit for
+    bit). Returns the step's row-0 logits."""
+    from distributed_llama_tpu_torch.runtime.decode import decode_chunk
+
+    def logits_at(j):
+        eng.reset()
+        eng.prefill(ids[:-1])
+        pos, tok = len(ids) - 1, eng._tokens([ids[-1]] * eng.batch)
+        max_pos, n = len(ids) - 1 + n_steps, eng.decode_chunk_size
+        while True:
+            while n > max_pos - pos:
+                n //= 2
+            if pos + n >= j:
+                if eng.paged:
+                    eng._ensure_pages_all_rows(pos, j)
+                _, _, logits = decode_chunk(
+                    eng.cfg, eng.params, eng.rope, eng.cache, tok, pos, j - pos,
+                    kv_len=eng._kv_bucket(pos + n),
+                    page_table=eng._pt_operand() if eng.paged else None, page_size=eng.page_size)
+                return logits[0]
+            _, tok = eng._decode_chunk(tok, pos, n)
+            pos += n
+
+    return logits_at
+
+
+def verify_check(torch, eng, ids: list, chain: list, k: int, tol: float,
+                 same_arms: bool = True) -> dict:
+    """One verify round over [PROMPT's last token] + the greedy chain's
+    next k tokens after PROMPT's prefill: eager (the position a 0-d device
+    tensor, as graphed), then graphed twice; ids and logits of the graphed
+    rounds bit for bit the eager round's. Against the stepwise logits of
+    the same k + 1 positions (eager decode, int positions) within `tol` of
+    their largest value; with `same_arms` (the round takes the decode
+    step's matmul arms) every draft accepted, else the count reported."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.runtime.speculative import accept_greedy
+
+    n = len(ids)
+    feed = np.array([[ids[-1]] + chain[n : n + k]] * eng.batch)
+    pos, kvb = n - 1, eng._kv_bucket(n + k)
+    outs = []
+    for graphs in (False, True, True):
+        eng.cuda_graphs = graphs
+        eng.reset()
+        eng.prefill(ids[:-1])
+        got_ids, got_logits = eng._dispatch_verify(feed, pos, kvb)
+        outs.append((got_ids.clone(), got_logits.clone()))
+    eng.cuda_graphs = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_ids.tolist()  # the round's fetch alone, its device work done
+    copy_us = (time.perf_counter() - t0) * 1e6
+    ids_e, logits_e = outs[0]
+    eng.reset()
+    eng.prefill(ids[:-1])
+    step = torch.stack([torch.from_numpy(eng.decode_one(int(t), pos + j)[0])
+                        for j, t in enumerate(feed[0])]).to(logits_e.device)
+    err = (logits_e[0] - step).abs().max().item()
+    scale = step.abs().max().item()
+    out = {"k": k, "graphed_equal_eager": all(torch.equal(i, ids_e) and torch.equal(l, logits_e)
+                                              for i, l in outs[1:]),
+           "max_abs_err_vs_stepwise": err, "share_of_scale": err / scale, "tol_share": tol,
+           "fetch_copy_us": copy_us,
+           "accepted": accept_greedy(feed[0, 1:].tolist(), ids_e[0].tolist())}
+    assert out["graphed_equal_eager"], f"k {k}: graphed verify differs from eager"
+    assert err <= tol * scale, f"k {k}: verify logits {err} from stepwise (> {tol * scale})"
+    assert out["accepted"] == k or not same_arms, f"k {k}: the chain's own drafts were rejected"
+    return out
+
+
+SPEC_PROFILE_STEPS = 64
+
+
+def spec_profile(torch, name: str, eng, ctx: list) -> dict:
+    """Where a token's time goes with ngram speculation at k 4 and without,
+    on one engine in turns (off, k 4, k 4, off): torch.profiler over the
+    decode of SPEC_PROFILE_STEPS greedy tokens after `ctx` (PROMPT and the
+    first 64 tokens of its greedy chain: past the plain chunk that PROMPT's
+    end, which drafts nothing, starts with), whose prefill runs outside the
+    window (`profile_window`); logs and returns each arm's mean of
+    AB_KEYS."""
+    from distributed_llama_tpu_torch.runtime.engine import GenerationResult
+
+    pos, n_steps = len(ctx) - 1, SPEC_PROFILE_STEPS
+
+    def setup():
+        eng.reset()
+        eng.prefill(ctx[:-1])
+
+    def decode(k):
+        res = GenerationResult(tokens=list(ctx), n_prompt_tokens=len(ctx))
+        if k:
+            eng._decode_speculative(res, ctx[-1], pos, pos + n_steps, None, None,
+                                    time.perf_counter())
+        else:
+            eng._decode_device(res, ctx[-1], pos, pos + n_steps, None, None, None,
+                               time.perf_counter())
+
+    windows = {0: [], 4: []}
+    for k in (0, 4, 4, 0):
+        speculate(eng, k)
+        windows[k].append(profile_window(torch, f"{name} {'ngram k 4' if k else 'off'}",
+                                         partial(decode, k), n_steps, setup=setup))
+    out = {"phase": "spec_ab", "window": name, "tokens": n_steps}
+    for k, arm in ((0, "off"), (4, "ngram k 4")):
+        out[arm] = {key: sum(w[key] for w in windows[k]) / 2 for key in AB_KEYS}
+    log(json.dumps(out))
+    return out
+
+
+def spec_layout(torch, mp: str, ids: list, layout: str, kv) -> dict:
+    """Batch 1 on one layout: SPEC_DECODE_STEPS greedy steps from PROMPT
+    without speculation, with ngram at k 4 and at k 8, on one engine
+    (graphed; the first run of each arm captures). k 4's rounds take
+    decode's arms and its tokens equal the run without; k 8's 9-token
+    rounds take K2's, so its tokens equal the run without or part where
+    `verify_arms` makes them equal again. Each arm twice more in turns
+    (off, k 4, k 8, k 8, k 4, off) for decode tok/s, and `verify_check`
+    at k 4 and 8."""
+    eng = spec_engine(mp, kv_layout=layout, cache_dtype=kv)
+    steps = len(ids) - 1 + SPEC_DECODE_STEPS
+
+    def run(k):
+        speculate(eng, k)
+        eng.reset()
+        torch.cuda.synchronize()
+        res = eng.generate(ids, steps)
+        assert res.n_pred_tokens == SPEC_DECODE_STEPS, res.n_pred_tokens
+        return res
+
+    first = {k: run(k) for k in (0, 4, 8)}
+    want = first[0].tokens
+    speculate(eng, 0)
+    div = {k: first_divergence(torch, want, first[k].tokens, len(ids),
+                               decode_logits(torch, eng, ids)) for k in (4, 8)}
+    tok_s = {0: [], 4: [], 8: []}
+    spec_timing = {4: [], 8: []}
+    for k in (0, 4, 8, 8, 4, 0):
+        res = run(k)
+        tok_s[k].append(SPEC_DECODE_STEPS / (res.decode_us / 1e6))
+        if k:
+            t = eng.last_spec_timing
+            spec_timing[k].append({
+                **t, "verify_ms_per_round": t["verify_us"] / 1e3 / max(t["rounds"], 1),
+                "draft_us_per_round": t["draft_us"] / max(t["rounds"] + t["fallback_chunks"], 1),
+                "fetch_us_per_round": t["fetch_us"] / max(t["rounds"], 1),
+                "tokens_per_round":
+                    t["emitted_tokens"] / max(t["rounds"] + t["fallback_chunks"], 1),
+                "tokens_equal": res.tokens == want})
+    name = f"llama32_1b batch 1 {layout} {kv or 'bf16'}"
+    profiled = (spec_profile(torch, name, eng, want[: len(ids) + 64])
+                if layout == "contiguous" else None)
+    speculate(eng, 8)
+    checks = [verify_check(torch, eng, ids, want, k, SPEC_VERIFY_TOL[k], same_arms=k == 4)
+              for k in (4, 8)]
+    out = {"phase": "speculation", "setup": name, "profiled": profiled,
+           "decode_steps": SPEC_DECODE_STEPS, "divergence": div, "decode_tok_s": tok_s,
+           "spec": spec_timing, "verify_checks": checks, "graphs": eng.graph_stats()}
+    if div[8] is not None:
+        with verify_arms(eng):
+            out["k8_equal_on_verify_arms"] = run(0).tokens == run(8).tokens
+        j = len(ids) + div[8]["index"]
+        out["k8_arm_growth"] = arm_growth(torch, eng, want, len(ids), j, first[8].tokens[j])
+    log(json.dumps(out))
+    assert div[4] is None, f"{layout} {kv}: k 4 tokens part from the run without speculation"
+    assert div[8] is None or out["k8_equal_on_verify_arms"], \
+        f"{layout} {kv}: k 8 parts from the run without speculation on the same arms: {div[8]}"
+    assert all(t["tokens_equal"] for t in spec_timing[4])
+    eng.close()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_matmuls(calls: list):
+    """Record each dense Q40 matmul call (K1 and K2, stacked and not) as
+    (slot, layer, x, out, q, d), the slot being the name `quant_matmul`
+    calls, whatever `verify_arms` put there. The calls' launches are
+    handed back to the kernels' counters on exit."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    names = ("q40_gemv_q80_stacked", "q40_gemv_q80", "q40_gemm_bf16_stacked", "q40_gemm_bf16")
+    saved = {n: getattr(cuda_q40, n) for n in names}
+
+    def wrap(name, fn):
+        def call(x, q, d, *layer):
+            out = fn(x, q, d, *layer)
+            calls.append((name, layer[0] if layer else None, x.detach().clone(),
+                          out.detach().clone(), q, d))
+            return out
+
+        call.launches = 0  # a kernel's own count lands here while it is patched
+        return call
+
+    wrapped = {n: wrap(n, saved[n]) for n in names}
+    for n in names:
+        setattr(cuda_q40, n, wrapped[n])
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(cuda_q40, n, saved[n])
+            saved[n].launches += wrapped[n].launches
+
+
+def first_parting_call(torch, own: list, other: list) -> dict:
+    """The first matmul call of one decode step whose output parts from the
+    other arm's by more than 5% of its scale: its slot and layer, how far
+    its input and the previous call's output had parted, its input's
+    largest magnitude, and that input through the plain K1 (Q80 x) and K2
+    (bf16 x) on the CPU, each against both arms' kernels; and for every
+    call up to it, how far its input and output had parted (`shares`: a
+    call's input is what the ops between it and the call before made)."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    def share(a, b):
+        return ((a.float() - b.float()).abs().max() / a.float().abs().max()).item()
+
+    assert [c[:2] for c in own] == [c[:2] for c in other], "the arms made other calls"
+    outs = [share(a[3], b[3]) for a, b in zip(own, other)]
+    ins = [share(a[2], b[2]) for a, b in zip(own, other)]
+    i = next((n for n, x in enumerate(outs) if x > 0.05), None)
+    if i is None:
+        return {"calls": len(own), "largest_out_share": max(outs)}
+    name, layer, x, out_own, q, d = own[i]
+    out_other = other[i][3]
+    if layer is not None:
+        q, d = q[layer], d[layer]
+    xc, qc, dc = x.float().cpu(), q.cpu(), d.cpu()
+    k1, k2 = cuda_q40.q40_gemv_q80_plain(xc, qc, dc), cuda_q40.q40_gemm_bf16_plain(xc, qc, dc)
+    return {"calls": len(own), "index": i, "slot": name, "layer": layer,
+            "in_share": share(x, other[i][2]), "out_share": outs[i],
+            "prev_out_share": outs[i - 1] if i else None, "x_amax": x.abs().max().item(),
+            "own_vs_plain_k1": share(k1, out_own.cpu()), "own_vs_plain_k2": share(k2, out_own.cpu()),
+            "other_vs_plain_k1": share(k1, out_other.cpu()),
+            "other_vs_plain_k2": share(k2, out_other.cpu()), "plain_k1_vs_k2": share(k1, k2),
+            "shares": [[a, b] for a, b in zip(ins[: i + 1], outs[: i + 1])]}
+
+
+def arm_growth(torch, eng, want: list, n_prompt: int, j: int, got_j: int) -> dict:
+    """Where a k 8 divergence comes from: decode along `want` (the chain
+    without speculation; its first n_prompt tokens the prompt), teacher
+    forced, one eager `decode_one` a position up to the step that gives
+    want[j], on decode's own arms and on the verify rounds'
+    (`verify_arms`). A generated token's share: the largest difference of
+    the two arms' logits over the own arms' largest logit. Reports where
+    the arms first differ and the share there, every 32nd token's share,
+    the share at j, at j the margin of want[j] over got_j (the token the
+    speculative chain took) on each arm, and the matmul call of that last
+    step where the arms part (`first_parting_call`)."""
+
+    def logits(arms, calls):
+        with arms:
+            eng.reset()
+            eng.prefill(want[: n_prompt - 1])
+            rows = [torch.from_numpy(eng.decode_one(int(want[p]), p)[0])
+                    for p in range(n_prompt - 1, j - 1)]
+            with recorded_matmuls(calls):
+                rows.append(torch.from_numpy(eng.decode_one(int(want[j - 1]), j - 1)[0]))
+            return torch.stack(rows)
+
+    own_calls, other_calls = [], []
+    own = logits(contextlib.nullcontext(), own_calls)
+    other = logits(verify_arms(eng), other_calls)
+    share = ((own - other).abs().amax(-1) / own.abs().amax(-1)).tolist()
+    first = next((i for i, x in enumerate(share) if x > 0), None)
+    return {"tokens": len(share), "first_differing_token": first,
+            "share_first": share[first] if first is not None else 0.0,
+            "share_every_32": share[::32], "share_at_divergence": share[-1],
+            "own_argmax_is_chain": sum(int(own[i].argmax()) == want[n_prompt + i]
+                                       for i in range(len(share))) / len(share),
+            "margin_own": (own[-1, want[j]] - own[-1, got_j]).item(),
+            "margin_verify_arms": (other[-1, want[j]] - other[-1, got_j]).item(),
+            "parting_call": first_parting_call(torch, own_calls, other_calls)}
+
+
+def spec_rows_divergence(torch, prompts: list, want: dict, got: dict, logits_at) -> dict:
+    """Each row's spec tokens against its tokens without speculation: None
+    where equal, else the first divergence with its margin in the run
+    without's own logits (`logits_at(r, d)`: the logits from which that
+    run took row r's d-th generated token)."""
+    out = {}
+    for r, w in want.items():
+        p, n = list(prompts[r]), len(prompts[r])
+        out[r] = first_divergence(torch, p + w, p + got[r][: len(w)], n,
+                                  lambda j, r=r, n=n: logits_at(r, j - n))
+    return out
+
+
+def spec_session(torch, mp: str, ids: list) -> dict:
+    """The batch-16 paged int8 BatchSession: 16 prefixes of PROMPT, 64
+    tokens a row in 8-token `step`s, then the same admissions in
+    `spec_step` rounds (ngram drafts of at most 4 tokens from each row's
+    own context: 80-row rounds, on K2's arm as `step`'s 16 rows are);
+    each row's tokens against its plain run: equal, or equal again under
+    `verify_arms`. Then `warmup()` at k 8 and a pinned spec trace (a
+    streamed generate across the 256 and 512 buckets, generate_batch,
+    spec_step and step rounds): 0 captures after warmup."""
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+    from distributed_llama_tpu_torch.runtime.speculative import NGramDraft
+
+    b, n = 16, 64
+    prompts = [ids[: 16 + (len(ids) - 16) * i // (b - 1)] for i in range(b)]
+    eng = spec_engine(mp, batch=b, kv_layout="paged", cache_dtype="int8")
+    speculate(eng, 4)
+    ds = NGramDraft()
+
+    def admitted():
+        s = BatchSession(eng)
+        for r in range(b):
+            s.admit(r, prompts[r])
+        torch.cuda.synchronize()
+        return s, time.perf_counter()
+
+    def stepped():
+        s, t0 = admitted()
+        steps = [s.step(8) for _ in range(n // 8)]
+        return {r: [int(t) for h in steps for t in h[r]] for r in range(b)}, \
+            time.perf_counter() - t0
+
+    def speculated():
+        s, t0 = admitted()
+        got, rounds = {r: [] for r in range(b)}, 0
+        while any(len(g) < n for g in got.values()):
+            drafts = {r: ds.draft(list(prompts[r]) + got[r], min(4, n - len(got[r]) - 1))
+                      for r in range(b) if len(got[r]) < n}
+            for r, e in s.spec_step(drafts).items():
+                got[r].extend(e)
+            rounds += 1
+        return got, time.perf_counter() - t0, rounds
+
+    want, step_s = stepped()
+    got, spec_s, rounds = speculated()
+    c = dict(eng.spec_counters)
+
+    def logits_at(r, d):
+        """Row r's logits of its d-th token in `step` chunks of 8 (every
+        position below 256: one kv bucket, whatever the chunk)."""
+        s = BatchSession(eng)
+        for i in range(b):
+            s.admit(i, prompts[i])
+        for _ in range(d // 8):
+            s.step(8)
+        s.step(d % 8 + 1)
+        return eng.last_logits[r]
+
+    divs = spec_rows_divergence(torch, prompts, want, got, logits_at)
+    out = {"phase": "speculation", "setup": "llama32_1b batch_session 16 paged int8",
+           "tokens_per_row": n, "rows_equal": sum(d is None for d in divs.values()),
+           "divergence": {r: d for r, d in divs.items() if d is not None},
+           "step_tok_s": b * n / step_s, "spec_step_tok_s": b * n / spec_s, "rounds": rounds,
+           "acceptance_rate": c.get("spec_acceptance_rate")}
+    if out["divergence"]:
+        with verify_arms(eng):
+            out["rows_equal_on_verify_arms"] = stepped()[0] == speculated()[0]
+    log(json.dumps(out))
+    assert not out["divergence"] or out["rows_equal_on_verify_arms"], \
+        "batch-16 spec_step rows part from step's on the same arms"
+    speculate(eng, 8)
+    stats = eng.warmup()
+    eng.generate((ids * 4)[:200], 600, on_token=lambda t: None)
+    eng.generate_batch([(ids * 2)[o : o + 60 + o] for o in range(b)], 24)
+    s = BatchSession(eng)
+    s.admit(0, ids)
+    s.admit(5, ids[:40])
+    s.admit(9, ids, temperature=0.7, seed=3)
+    for _ in range(4):
+        s.spec_step({r: ds.draft(ids, 8) for r in (0, 5)})
+        s.step(8)
+    s.release(9)
+    after = eng.graph_stats()
+    warm = {"phase": "graph_warmup", "setup": "llama32_1b batch 16 paged int8 speculation k 8",
+            "warmup_s": stats["warmup_seconds"], "captures": stats["captures"],
+            "graph_pool_bytes": stats["pool_bytes"],
+            "recaptures_after_warmup": after["recaptures_after_warmup"]}
+    log(json.dumps(warm))
+    assert after["recaptures_after_warmup"] == 0, "a capture after warmup on the spec trace"
+    eng.close()
+    return {**out, "warmup": warm}
+
+
+def spec_generate_batch(torch, mp: str, ids: list) -> dict:
+    """generate_batch at batch 4 (paged int8): four 81-token windows of
+    PROMPT, 64 tokens a row, without speculation and with ngram at k 4 on
+    one engine. A round's 20 rows take K2's arm where the decode chunk's 4
+    take K1's, so rows equal the run without or part where `verify_arms`
+    makes them equal again (each first divergence reported with its
+    margin)."""
+    eng = spec_engine(mp, batch=4, kv_layout="paged", cache_dtype="int8")
+    prompts = [ids[o : o + 81] for o in (0, 10, 20, 32)]
+    n, res, wall = 64, {}, {}
+    for k in (0, 4, 4, 0):
+        speculate(eng, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[k] = eng.generate_batch(prompts, n)
+        wall.setdefault(k, []).append(time.perf_counter() - t0)
+    c = dict(eng.spec_counters)
+
+    def logits_at(r, d):
+        """Row r's logits of its d-th token without speculation: a budget of
+        d + 1 (every position below 256: one kv bucket, whatever the
+        chunks)."""
+        speculate(eng, 0)
+        eng.generate_batch(prompts, d + 1)
+        return eng.last_logits[r]
+
+    divs = spec_rows_divergence(torch, prompts, dict(enumerate(res[0])),
+                                dict(enumerate(res[4])), logits_at)
+    out = {"phase": "speculation", "setup": "llama32_1b generate_batch 4 paged int8",
+           "tokens_per_row": n, "rows_equal": sum(d is None for d in divs.values()),
+           "divergence": {r: d for r, d in divs.items() if d is not None},
+           "wall_s": wall, "spec_counters": c}
+    if out["divergence"]:
+        with verify_arms(eng):
+            arms = {}
+            for k in (0, 4):
+                speculate(eng, k)
+                arms[k] = eng.generate_batch(prompts, n)
+        out["rows_equal_on_verify_arms"] = arms[0] == arms[4]
+    log(json.dumps(out))
+    assert not out["divergence"] or out["rows_equal_on_verify_arms"], \
+        "generate_batch spec rows part from the rows without on the same arms"
+    eng.close()
+    return out
+
+
+def speculation_phase(torch, mp: str, tp: str, counters, expected) -> dict:
+    """Phase 5d at Llama-3.2-1B width, counted as one path: every launch
+    counter set to 0 just before and read just after."""
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer(tp).encode(PROMPT)
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    for layout, kv in (("contiguous", None), ("paged", None), ("paged", "int8")):
+        spec_layout(torch, mp, ids, layout, kv)
+        release(torch)
+    spec_session(torch, mp, ids)
+    release(torch)
+    spec_generate_batch(torch, mp, ids)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    check_launched(launches, expected, "the speculation phase")
+    return launches
+
+
+def spec_moe(torch, eng, ids: list) -> dict:
+    """Phase 5d at Qwen3-30B-A3B width on the phase-5b engine (batch 1
+    contiguous): a verify round of 5 tokens makes 40 expert rows, fewer
+    than 128 experts, so the MoE takes its gather arm, graphed. Without
+    speculation, then ngram at k 4 (the first run captures; the pool's
+    bytes before and after), then in turns (off, k 4, k 4, off) for tok/s.
+    Decode takes K1-indexed where the round takes the gather arm, so the
+    tokens equal the run without or part where `verify_arms` makes them
+    equal again; `verify_check` at the cross-arm tolerance."""
+    steps = len(ids) - 1 + MOE_SPEC_DECODE_STEPS
+
+    def run(k):
+        speculate(eng, k)
+        eng.reset()
+        torch.cuda.synchronize()
+        res = eng.generate(ids, steps)
+        assert res.n_pred_tokens == MOE_SPEC_DECODE_STEPS
+        return res
+
+    want = run(0).tokens
+    pool0 = eng.graph_stats()["pool_bytes"]
+    got = run(4).tokens
+    pool1 = eng.graph_stats()["pool_bytes"]
+    speculate(eng, 0)
+    div = first_divergence(torch, want, got, len(ids),
+                           decode_logits(torch, eng, ids, MOE_SPEC_DECODE_STEPS))
+    tok_s, timing_k4 = {0: [], 4: []}, []
+    for k in (0, 4, 4, 0):
+        res = run(k)
+        tok_s[k].append(MOE_SPEC_DECODE_STEPS / (res.decode_us / 1e6))
+        if k:
+            t = eng.last_spec_timing
+            timing_k4.append({**t, "verify_ms_per_round":
+                              t["verify_us"] / 1e3 / max(t["rounds"], 1)})
+    check = verify_check(torch, eng, ids, want, 4, MOE_SPEC_VERIFY_TOL, same_arms=False)
+    out = {"phase": "speculation", "setup": "qwen3_30b_a3b batch 1 contiguous",
+           "decode_steps": MOE_SPEC_DECODE_STEPS, "divergence": div, "decode_tok_s": tok_s,
+           "spec": timing_k4, "verify_check": check,
+           "graph_pool_bytes_before_verify": pool0, "graph_pool_bytes_after_verify": pool1}
+    if div is not None:
+        with verify_arms(eng):
+            out["equal_on_verify_arms"] = run(0).tokens == run(4).tokens
+    log(json.dumps(out))
+    assert div is None or out["equal_on_verify_arms"], \
+        f"30B-A3B: spec parts from the run without speculation on the same arms: {div}"
+    return out
+
+
 # the host-side launch calls a window counts: the CUDA runtime's and the
 # low-level cu* entries, plain and extended (a kernel launched as a
 # thread-block cluster goes through cudaLaunchKernelEx), and a CUDA graph's
@@ -2451,9 +3224,10 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cu
                 *GRAPH_LAUNCH_CALLS)
 
 
-def profile_window(torch, name: str, run, n_tokens: int, share_of=None) -> dict:
+def profile_window(torch, name: str, run, n_tokens: int, share_of=None, setup=None) -> dict:
     """Where a decode window's time goes: torch.profiler over one call of
-    `run` (after one warm call), which decodes `n_tokens` tokens. Host wall
+    `run` (after one warm call), which decodes `n_tokens` tokens; `setup`,
+    if given, runs before each call, outside the window. Host wall
     per token; device busy time per token, summed over the device's own
     events (kernels, copies) only: an aten op's device time is its kernels'
     again; the device's idle share; kernels and host-side launch calls per
@@ -2463,7 +3237,9 @@ def profile_window(torch, name: str, run, n_tokens: int, share_of=None) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run()  # warm
+    for call in (setup, run, setup):  # warm
+        if call is not None:
+            call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2531,15 +3307,18 @@ SAMPLED = (*GREEDY, (" sampled t0.8 p0.9", 0.8, 0.9), (" sampled t0.8 p1.0", 0.8
 
 
 def decode_profile(torch, name: str, model_path: str, steps: int = 16, share_of=None,
-                   windows=GREEDY, **engine_kw) -> list:
-    """16 batch-1 decode steps of the main path's engine (contiguous, or
+                   windows=GREEDY, eng=None, **engine_kw) -> list:
+    """`steps` batch-1 decode steps of the main path's engine (contiguous, or
     the layout `engine_kw` names) after a 99-token prefill, profiled
     eagerly and graphed (`graph_ab`), once for each sampling setting of
-    `windows`; each window decodes from position 99. Returns the
-    `graph_ab` records."""
+    `windows`; each window decodes from position 99. `eng`: an engine to
+    use (and leave open) in place of one made from `model_path`. Returns
+    the `graph_ab` records."""
     from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
 
-    eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda", **engine_kw)
+    own = eng is None
+    if own:
+        eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda", **engine_kw)
     prompt = [(7 * i) % 1000 + 1 for i in range(100)]
     eng.prefill(prompt[:-1])
     tok = torch.tensor([prompt[-1]], device="cuda")
@@ -2551,7 +3330,8 @@ def decode_profile(torch, name: str, model_path: str, steps: int = 16, share_of=
 
         share = {**(share_of or {}), **SORT_SHARE} if temperature > 0 else share_of
         out.append(graph_ab(torch, name + label, eng, run, steps, share))
-    eng.close()
+    if own:
+        eng.close()
     return out
 
 
@@ -2567,20 +3347,24 @@ K1_SHARE = {"q40_gemv (K1)": "q40_gemv", "quantize_rows_q80 (K1 prologue)": "qua
 
 def int8_decode_profile(torch, model_path: str) -> list:
     """The CLI's `inference --kv-dtype int8` path at batch 1 (paged int8,
-    K5 at b = 1): 16 decode steps after a 99-token prefill, profiled."""
-    return decode_profile(torch, "llama32_1b paged int8 batch 1", model_path, share_of=K5_SHARE,
-                          kv_layout="paged", cache_dtype="int8")
+    K5 at b = 1): 8 decode steps after a 99-token prefill, profiled."""
+    return decode_profile(torch, "llama32_1b paged int8 batch 1", model_path, steps=8,
+                          share_of=K5_SHARE, kv_layout="paged", cache_dtype="int8")
 
 
-def prefill_profile(torch, name: str, model_path: str, n_tokens: int = 128) -> dict:
+def prefill_profile(torch, name: str, model_path: str, n_tokens: int = 128, eng=None) -> dict:
     """Prefill of n_tokens tokens (four 32-row chunks) on the CLI's
-    contiguous engine, profiled, with K4's share of the device time."""
+    contiguous engine (or `eng`, left open), profiled, with K4's share of
+    the device time."""
     from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
 
-    eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda")
+    own = eng is None
+    if own:
+        eng = InferenceEngine(model_path, max_seq_len=MAX_SEQ_LEN, device="cuda")
     prompt = [(11 * i) % 1000 + 1 for i in range(n_tokens)]
     out = profile_window(torch, name + " prefill", lambda: eng.prefill(prompt), n_tokens, K4_SHARE)
-    eng.close()
+    if own:
+        eng.close()
     return out
 
 
@@ -2639,6 +3423,31 @@ def profiles_only(torch, model: str, models_dir: Path | None) -> int:
     return 0
 
 
+def spec_divergence_only(torch) -> int:
+    """`--spec-divergence`: phase 5d's paged int8 batch-1 chains at 1B
+    width alone, without speculation and with ngram at k 8, and where they
+    part, `arm_growth`."""
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B)
+    ids = Tokenizer(tp).encode(PROMPT)
+    eng = spec_engine(mp, kv_layout="paged", cache_dtype="int8")
+    chains = {}
+    for k in (0, 8):
+        speculate(eng, k)
+        eng.reset()
+        chains[k] = eng.generate(ids, len(ids) - 1 + SPEC_DECODE_STEPS).tokens
+    speculate(eng, 0)
+    div = first_divergence(torch, chains[0], chains[8], len(ids), decode_logits(torch, eng, ids))
+    out = {"phase": "spec_divergence", "divergence": div}
+    if div is not None:
+        j = len(ids) + div["index"]
+        out["arm_growth"] = arm_growth(torch, eng, chains[0], len(ids), j, chains[8][j])
+    print(json.dumps(out))
+    eng.close()
+    return 0
+
+
 def release(torch) -> None:
     """Drop what a finished phase left on the card."""
     gc.collect()
@@ -2654,6 +3463,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profiles", choices=("llama32_1b", "qwen3_30b_a3b"),
                     help="only the profiled windows of one model")
     ap.add_argument("--models", type=Path, help="with --profiles: where the model files live")
+    ap.add_argument("--spec-divergence", action="store_true",
+                    help="only phase 5d's paged int8 k 8 chains and, where they part, arm_growth")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2690,8 +3501,9 @@ def main(argv=None) -> int:
         log(f"--- nvcc {name}.cu\n{text.strip()}")
     log(f"kernels built in {secs:.1f} s ({len(logs)} compiled, one nvcc each, in parallel)")
     done("phases 1-2")
-    if args.profiles:
-        rc = profiles_only(torch, args.profiles, args.models)
+    if args.profiles or args.spec_divergence:
+        rc = (profiles_only(torch, args.profiles, args.models) if args.profiles
+              else spec_divergence_only(torch))
         print(smi)
         return rc
 
@@ -2701,6 +3513,12 @@ def main(argv=None) -> int:
     rows.update({r["name"]: r for r in moe_kernel_checks(torch, rates)})  # K3 at hd 128
     release(torch)
     rows["paged_flash_attention"] = paged_rows(torch, rates)  # K5
+    release(torch)
+    # the verify rounds' row counts (K2, B5) and queries a row (K5)
+    verify = verify_gemm_rows(torch, rates)
+    for name in ("q40_gemm_bf16_stacked", "q40_gemm_bf16"):
+        rows[name]["verify_rows"] = verify[name]
+    rows["paged_flash_attention"]["verify_shapes"] = verify_paged_rows(torch, rates)
     release(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2780,11 +3598,22 @@ def main(argv=None) -> int:
     mp, tp, write_s, size = synthetic_model("llama32_1b", LLAMA32_1B)
     log(f"synthetic Llama-3.2-1B-width model: {size} bytes, ready in {write_s:.1f} s "
         f"(set-up, not timed below)")
+    # the CLI at its default ngram speculation and with it off: the same
+    # tokens (k 4 takes the decode step's arms)
+    texts = {}
     paths["llama32_1b inference contiguous"] = main_path(
-        torch, "llama32_1b", mp, tp, LLAMA32_1B["n_layers"], counters, dense)
+        torch, "llama32_1b", mp, tp, LLAMA32_1B["n_layers"], counters, dense, texts=texts)
     release(torch)
-    decode_profile(torch, "llama32_1b", mp, windows=SAMPLED)
+    paths["llama32_1b inference contiguous --speculative off"] = main_path(
+        torch, "llama32_1b", mp, tp, LLAMA32_1B["n_layers"], counters, dense,
+        extra=("--kv-layout", "contiguous", "--speculative", "off"), texts=texts)
+    assert len(set(texts.values())) == 1, "1B CLI: ngram and off print other tokens"
     release(torch)
+    done("the 1B contiguous CLI paths")
+    # 8 steps a window (16 until phase 5d came, to keep the script's time)
+    decode_profile(torch, "llama32_1b", mp, steps=8, windows=SAMPLED)
+    release(torch)
+    done("the 1B decode profiles")
     paths["llama32_1b perplexity paged"] = perplexity_path(
         torch, mp, tp, counters, (q.q40_gemm_bf16_stacked, q.q40_gemm_bf16, ca.flash_attention))
     release(torch)
@@ -2797,6 +3626,7 @@ def main(argv=None) -> int:
     release(torch)
     int8_decode_profile(torch, mp)
     release(torch)
+    done("the 1B perplexity, paged and int8 paths")
     launches, sess, eng = batch_session_path(
         torch, mp, tp, counters,
         (q.q40_gemm_bf16_stacked, q.q40_gemm_bf16, ca.flash_attention, ca.paged_flash_attention))
@@ -2808,18 +3638,26 @@ def main(argv=None) -> int:
     paths["llama32_1b generate_batch 4 paged int8"] = generate_batch_path(
         torch, mp, tp, counters, (q.q40_gemv_q80_stacked, ca.paged_flash_attention))
     release(torch)
+    done("the 1B batch-16 session and generate_batch paths")
     paths["llama32_1b sp=4 inference contiguous"] = sp_path(
         torch, mp, tp, counters,
         (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked, ca.flash_attention_partial),
         ca.flash_attention_partial, ca.flash_attention)
     release(torch)
+    done("the sp path")
     graphed_decode_phase(torch, mp, tp, "llama32_1b")
     release(torch)
+    done("phase 5b at 1B width")
     paths["llama32_1b prefix cache"] = prefix_cache_phase(
         torch, mp, tp, counters, (q.q40_gemm_bf16_stacked, q.q40_gemv_q80_stacked, q.q40_gemv_q80,
                                   ca.flash_attention, ca.paged_flash_attention))
     release(torch)
     done("phase 5c")
+    paths["llama32_1b speculation"] = speculation_phase(
+        torch, mp, tp, counters, (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked,
+                                  q.q40_gemm_bf16, ca.flash_attention, ca.paged_flash_attention))
+    release(torch)
+    done("phase 5d")
     Path(mp).unlink()  # room on the disk for the MoE file
     done("phases 5-6 at Llama-3.2-1B width")
 
@@ -2829,14 +3667,30 @@ def main(argv=None) -> int:
         f"(full depth, no cut), ready in {write_s:.1f} s (set-up, not timed below)")
     moe = (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked,
            q.q40_gemv_q80_indexed, q.q40_grouped_gemm_bf16, ca.flash_attention)
+    # the CLI's default does not speculate here: a 5-token round's 40
+    # expert rows would take the gather arm (`verify_takes_gather_arm`), so
+    # the default and `--speculative off` decode alike, through K1-indexed
+    texts = {}
     paths["qwen3_30b_a3b inference contiguous"] = main_path(
-        torch, "qwen3_30b_a3b", mp, tp, QWEN3_30B_A3B["n_layers"], counters, moe)
+        torch, "qwen3_30b_a3b", mp, tp, QWEN3_30B_A3B["n_layers"], counters, moe, texts=texts,
+        decode_steps=MOE_CLI_DECODE_STEPS)
     release(torch)
-    decode_profile(torch, "qwen3_30b_a3b", mp)
+    paths["qwen3_30b_a3b inference contiguous --speculative off"] = main_path(
+        torch, "qwen3_30b_a3b", mp, tp, QWEN3_30B_A3B["n_layers"], counters, moe,
+        extra=("--kv-layout", "contiguous", "--speculative", "off"), texts=texts,
+        decode_steps=MOE_CLI_DECODE_STEPS)
+    log(json.dumps({"phase": "cli_speculation", "model": "qwen3_30b_a3b",
+                    "tokens_equal": len(set(texts.values())) == 1}))
+    assert len(set(texts.values())) == 1, "30B-A3B CLI: the default and off print other tokens"
     release(torch)
-    prefill_profile(torch, "qwen3_30b_a3b", mp)
-    release(torch)
-    graphed_decode_phase(torch, mp, tp, "qwen3_30b_a3b")
+    done("the 30B-A3B CLI paths")
+    # one 18 GB load for the profiles, phase 5b and phase 5d's MoE part
+    eng = spec_engine(mp, kv_layout="contiguous")
+    speculate(eng, 0)
+    decode_profile(torch, "qwen3_30b_a3b", mp, steps=8, eng=eng)
+    prefill_profile(torch, "qwen3_30b_a3b", mp, eng=eng)
+    graphed_decode_phase(torch, mp, tp, "qwen3_30b_a3b", eng=eng)
+    del eng
     release(torch)
     done("phases 5-6 at Qwen3-30B-A3B width")
 

@@ -10,9 +10,18 @@ cache's sequence axis over an n-shard mesh (parallel/): n cards, or the
 CPU n times with `--device cpu`; like the JAX CLI it keeps the contiguous
 layout there and says so. `--prefix-cache-mb` sizes the radix prefix cache
 (runtime/prefix_cache.py) as the JAX CLI does: -1, the default, means
-DLT_PREFIX_CACHE_MB env, else 512; 0 turns it off. Speculation is not
-ported: `--speculative` other than off raises NotImplementedError naming
-ROADMAP A10. The
+DLT_PREFIX_CACHE_MB env, else 512; 0 turns it off. `--speculative`
+(off | ngram | model; runtime/speculative.py) defaults to DLT_SPECULATIVE
+env, else ngram, as in the JAX CLI: greedy generations decode in verify
+rounds, sampled ones as before. Unlike the JAX CLI, the default is off
+for a MoE model whose verify round at `--batch` would take the gather
+arm (`verify_takes_gather_arm`: Qwen3-30B-A3B at batch 1, where a round
+costs about 20 decode tokens); the flag or the env still turns it on. At
+`--batch` > 1 a round's rows take other matmul arms than batch 1's, so
+the printed row 0 may part from a batch-1 run. `--draft-k` caps the drafted tokens a
+round (0: DLT_DRAFT_K env, else 4); `--speculative model` drafts with
+the `--draft-model` file, a second engine at batch 1 with speculation and
+the prefix cache off, and raises ValueError without one. The
 reference's `worker` mode, anywhere in argv, prints the JAX CLI's migration
 text on stderr and returns 2, as the JAX CLI does.
 
@@ -28,10 +37,14 @@ import sys
 
 import numpy as np
 
+from .formats.mfile import MFileReader
 from .parallel import make_mesh
 from .runtime.engine import InferenceEngine
 from .runtime.paged_kv import resolve_kv_layout
 from .runtime.prefix_cache import resolve_budget_mb
+from .runtime.speculative import (
+    DRAFT_BUCKETS, ModelDraft, resolve_draft_k, resolve_spec_mode, verify_takes_gather_arm,
+)
 from .tokenizer import (
     EOS_FOUND,
     EOS_MAYBE,
@@ -101,8 +114,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "batch x seq_len worth of pages)",
     )
     p.add_argument(
-        "--speculative", choices=["off", "ngram", "model"], default="off",
-        help="speculative decoding draft source; only off is ported",
+        "--speculative", choices=["off", "ngram", "model"], default=None,
+        help="speculative decoding draft source for greedy generations "
+        "(default DLT_SPECULATIVE env, else ngram; else off on a MoE model "
+        "whose verify round at --batch takes the gather arm). At --batch > 1 "
+        "a round's rows take other matmul arms than batch 1's, so the "
+        "printed row 0 may part from a batch-1 run",
+    )
+    p.add_argument(
+        "--draft-k", type=int, default=0,
+        help="max drafted tokens a verify round, bucketed at 4 and 8 (0 = "
+        "DLT_DRAFT_K env, else 4)",
+    )
+    p.add_argument(
+        "--draft-model", default=None,
+        help="the draft model file of --speculative model",
     )
     p.add_argument(
         "--prefix-cache-mb", type=int, default=-1,
@@ -113,15 +139,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Flags the JAX CLI has whose other values the port does not run."""
-    if args.speculative != "off":
-        raise NotImplementedError(
-            f"--speculative {args.speculative} is not ported yet (ROADMAP A10, speculation)")
-
-
 def make_engine(args) -> InferenceEngine:
-    _refuse_unported(args)
+    # speculation as the JAX CLI resolves it: ngram unless the flag or
+    # DLT_SPECULATIVE says otherwise (library engines default to off); but
+    # off where a round of the smallest bucket takes the MoE gather arm
+    with MFileReader(args.model) as reader:
+        h = reader.header
+    gather = verify_takes_gather_arm(h, args.batch, DRAFT_BUCKETS[0] + 1)
+    spec_mode = resolve_spec_mode(args.speculative, default="off" if gather else "ngram")
+    draft_k = resolve_draft_k(args.draft_k or None)
+    if spec_mode == "model" and not args.draft_model:
+        raise ValueError("--speculative model requires --draft-model")
     # the prefix cache as the JAX CLI resolves it: a flag >= 0 wins, else
     # DLT_PREFIX_CACHE_MB, else 512 (on for the CLI; library engines
     # default to off)
@@ -143,22 +171,41 @@ def make_engine(args) -> InferenceEngine:
             "pipeline meshes: this topology keeps the contiguous KV layout"
         )
         kv_layout = "contiguous"
-    engine = InferenceEngine(
-        args.model,
-        compute_dtype=args.compute_dtype,
-        cache_dtype=args.cache_dtype,
-        max_seq_len=args.max_seq_len,
-        batch=args.batch,
-        max_chunk=max_chunk,
-        device_decode=not args.host_decode,
-        verbose=True,
-        device=None if mesh is not None else args.device,
-        mesh=mesh,
-        kv_layout=kv_layout,
-        kv_page_size=args.kv_page_size or None,
-        kv_pool_mb=args.kv_pool_mb or None,
-        prefix_cache_mb=prefix_mb,
-    )
+    draft_source = None
+    if spec_mode == "model":
+        # the draft engine: batch 1, speculation and the prefix cache off
+        # (explicitly, so an ambient DLT_SPECULATIVE=model cannot recurse);
+        # torn down if the main engine fails
+        draft_source = ModelDraft(
+            InferenceEngine(args.draft_model, compute_dtype=args.compute_dtype, batch=1,
+                            device_decode=True, device=args.device, prefix_cache_mb=0,
+                            speculative="off"),
+            owns=True,
+        )
+    try:
+        engine = InferenceEngine(
+            args.model,
+            compute_dtype=args.compute_dtype,
+            cache_dtype=args.cache_dtype,
+            max_seq_len=args.max_seq_len,
+            batch=args.batch,
+            max_chunk=max_chunk,
+            device_decode=not args.host_decode,
+            verbose=True,
+            device=None if mesh is not None else args.device,
+            mesh=mesh,
+            kv_layout=kv_layout,
+            kv_page_size=args.kv_page_size or None,
+            kv_pool_mb=args.kv_pool_mb or None,
+            prefix_cache_mb=prefix_mb,
+            speculative=spec_mode or "off",
+            draft_k=draft_k,
+            draft_source=draft_source,
+        )
+    except BaseException:
+        if draft_source is not None:
+            draft_source.close()
+        raise
     if prefix_mb > 0 and engine.prefix_cache is None:
         # the JAX CLI's warning, word for word: a requested cache that
         # cannot be built means no KV reuse across requests

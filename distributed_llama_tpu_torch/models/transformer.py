@@ -166,6 +166,13 @@ def combine_slots(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def moe_grouped(cfg, tokens: int) -> bool:
+    """Whether `_moe_ffn` takes its grouped arm at `tokens` (b * t) tokens:
+    as many expert rows (tokens * n_active) as experts or more. `cfg` is a
+    ModelConfig or a model file's header."""
+    return tokens * cfg.n_active_experts >= cfg.n_experts
+
+
 def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -> torch.Tensor:
     """Top-k expert SwiGLU (reference src/llm.cpp:440-514): the router on
     the normed activation, then the JAX package's choice of arm by the
@@ -176,9 +183,8 @@ def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -> 
       * otherwise (prefill tails of a few tokens, the f32 arm): gather each
         row's experts and dequantize them (plain torch; XLA in JAX)."""
     idx, wts = moe_router(y, lp.moe_gate[layer], cfg.n_active_experts)  # [b, t, k]
-    rows = y.shape[0] * y.shape[1] * cfg.n_active_experts
     act = partial(_activation, cfg)
-    if rows >= cfg.n_experts:
+    if moe_grouped(cfg, y.shape[0] * y.shape[1]):
         return moe_ffn_ragged(y, idx, wts, lp.w1, lp.w3, lp.w2, act, cfg.dtype, layer=layer)
     if _moe_decode_i8_eligible(cfg, y, lp):
         out = _moe_decode_i8(cfg, y, lp, layer, idx, wts)

@@ -3,9 +3,9 @@
 The counterpart of the JAX package's `runtime/batch_session.py`:
 `batch_decode_chunk` (:62), `prefill_row` (:114) and `BatchSession` (:160)
 with `admit`, `begin_admit`, `prefill_pending` (budgeted, interleaved with
-decode chunks), `release`, `step`, `publish_row`, `pending_resume` and the
-row queries, and the prefix-cache splice and publish. Not ported:
-speculation (`spec_step`), grammar and tracing (ROADMAP A10).
+decode chunks), `release`, `step`, `spec_step`, `publish_row`,
+`pending_resume` and the row queries, and the prefix-cache splice and
+publish. Not ported: grammar (ROADMAP A10c) and tracing (A10d).
 
 * Every batch row is an independent slot with its own position, last
   token, sampling settings and random stream.
@@ -28,6 +28,10 @@ speculation (`spec_step`), grammar and tracing (ROADMAP A10).
 * On the card `step` replays the engine's "batch_decode" CUDA graph of its
   (batch, kv bucket, sampling arm) key (runtime/graphs.py, `batch_decode_step`),
   unless `engine.graph_eligible` keeps the arm eager.
+* `spec_step(drafts)` is one speculative verify round over the named
+  greedy rows (runtime/speculative.py `verify_row_round`): the
+  "verify_row" graph of `decode.verify_step`; each row advances by its own
+  1..k+1 accepted tokens, the others stay parked for the round.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 from ..models.params import KVCache
 from ..models.transformer import forward
 from ..ops.sampling import row_coins, sample_logits_per_row, sampler_arm
+from .speculative import choose_bucket, verify_row_round
 
 _SEED_MASK = (1 << 63) - 1
 
@@ -282,6 +287,40 @@ class BatchSession:
         if eng.prefix_cache is None or eng._in_warmup or len(tokens) < 2:
             return
         eng.prefix_cache.publish_from_row(eng, row, list(tokens), max_len=len(tokens) - 1)
+
+    def spec_step(self, drafts: dict) -> dict:
+        """One speculative verify round for the rows named in `drafts` (row
+        -> proposed tokens; an empty list is valid: the row still advances
+        by its one greedy bonus token). Rows absent from `drafts` are
+        parked for the round. Every named row must be active and greedy,
+        and the round must fit the context: the JAX session's guards. One
+        verify dispatch and one [b, k+1] fetch serve every row; each row
+        keeps its longest draft prefix matching its own argmax chain plus
+        the bonus token, so rows advance unevenly. Returns {row: emitted
+        tokens}."""
+        eng = self.engine
+        if eng.spec_mode is None or not eng.device_decode:
+            raise ValueError("speculative decoding is not enabled on this engine")
+        rows = sorted(drafts)
+        if not rows:
+            return {}
+        for r in rows:
+            if not self.active[r]:
+                raise ValueError(f"row {r} is not active")
+            if self.temp[r] > 0.0:
+                raise ValueError(f"row {r} is sampled; speculation is greedy-only")
+        K = choose_bucket(eng.spec_buckets, max(len(drafts[r]) for r in rows))
+        ends = [int(self.pos[r]) + K + 1 for r in rows]
+        if max(ends) > self.seq_len:
+            raise ValueError(
+                f"verify round would overrun seq_len={self.seq_len}: "
+                f"max row end {max(ends)} (draft bucket {K})"
+            )
+        out = verify_row_round(eng, drafts, self.token, self.pos, self.seq_len)
+        for r, emitted in out.items():
+            self.pos[r] += len(emitted)
+            self.token[r] = emitted[-1]
+        return out
 
     def step(self, n_steps: int) -> np.ndarray:
         """One decode chunk for every slot; returns host tokens [b, n_steps]

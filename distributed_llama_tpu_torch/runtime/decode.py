@@ -17,6 +17,12 @@ arm) and a CUDA graph of it replays a chunk. The rows are aligned, as
 in `decode_chunk` at an int position; the forward pass takes that
 position as a 0-d device tensor and computes what it computes at the int:
 the same logits, bit for bit, with as many launches.
+
+`verify_step` is the speculative verify round on the same buffers
+(runtime/speculative.py), for both verify kinds: the feed at `bufs.pos[0]`
+(rows aligned) or at `bufs.pos` (per row), logits at every position and
+their argmax into the ids buffer, with no host sync, so a CUDA graph of
+it is one verify round.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ..models.params import KVCache, ModelParams
 from ..models.transformer import forward
 from ..ops.rope import RopeTables
 from ..ops.sampling import sample_logits_device, sample_logits_traced
+from .speculative import verify_chunk
 
 
 def decode_loop(step, token: torch.Tensor, pos_start, n_steps: int, temperature: float,
@@ -102,4 +109,21 @@ def decode_step(
     else:
         token = torch.argmax(logits, dim=-1)
     bufs.advance(token)
+    return logits
+
+
+def verify_step(cfg: ModelConfig, params: ModelParams, rope: RopeTables, cache: KVCache, bufs,
+                t: int, kv_len: int, page_size: int | None = None,
+                per_row: bool = False) -> torch.Tensor:
+    """One capture-safe verify round: `verify_chunk` over `bufs.feed[t]`,
+    its greedy ids written into `bufs.ids[t]`. The position operand is
+    the kind's: the 0-d `bufs.pos[0]` with the rows aligned ("verify"), or
+    with `per_row` the [b] `bufs.pos`, a row at seq_len parked, its writes
+    landing nowhere ("verify_row"). Nothing advances and nothing syncs
+    with the host. Returns the logits [b, t, vocab] f32."""
+    ids, logits = verify_chunk(
+        cfg, params, rope, cache, bufs.feed[t], bufs.pos if per_row else bufs.pos[0],
+        kv_len=kv_len, page_table=bufs.table if page_size else None, page_size=page_size,
+    )
+    bufs.ids[t].copy_(ids)
     return logits

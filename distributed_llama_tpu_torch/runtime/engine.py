@@ -10,9 +10,12 @@ src/dllama.cpp:13-151), for one device: `chunk_plan`, `__init__` with its
 `_decode_device`, `generate_batch` and `_decode_batch_chunked`, the
 `mesh=` argument for a sequence-parallel mesh (parallel/), the decode
 ladder: `_kv_buckets`, `warm_plan` and `warmup`, whose programs are CUDA
-graphs here (runtime/graphs.py), and the radix prefix cache's hooks
-(`prefix_cache_mb`, runtime/prefix_cache.py). Not ported: speculation,
-grammar, and the other mesh axes (ROADMAP A13).
+graphs here (runtime/graphs.py), the radix prefix cache's hooks
+(`prefix_cache_mb`, runtime/prefix_cache.py), and speculative decoding
+(`speculative`, `draft_k`, `draft_source`; runtime/speculative.py):
+`_dispatch_verify`, `_decode_speculative`, `_decode_batch_speculative`
+and the verify kinds of the ladder. Not ported: grammar (ROADMAP A10c),
+tracing (A10d), and the other mesh axes (A13).
 
 * The engine runs on the card unless the caller asks for the CPU:
   `device=None` means "cuda" and raises where no GPU is present.
@@ -42,6 +45,13 @@ grammar, and the other mesh axes (ROADMAP A13).
   generation publishes its KV. A contiguous splice copies into the live
   cache tensors, which the decode graphs read; a paged one maps shared
   pages, and the page tables upload before the next step.
+* With speculation on (the CLI's default is ngram; library engines default
+  to off), greedy `generate` and `generate_batch` decode in verify rounds:
+  a draft of up to k tokens, one verify forward over the k + 1 feed (a
+  CUDA graph on the card, keyed by its draft bucket and kv bucket), one
+  fetch of its greedy ids, and longest-prefix acceptance. A round with no
+  draft runs one plain decode chunk instead. Sampled requests and
+  host-decode engines never speculate.
 """
 
 from __future__ import annotations
@@ -58,18 +68,23 @@ import torch
 from ..device import resolve_device
 from ..formats.mfile import MFileReader
 from ..models import config_from_header, forward, init_kv_cache, load_params
+from ..models.transformer import moe_grouped
 from ..ops.rope import build_rope_tables
 from ..ops.sampling import SAMPLERS, sampler_arm
 from ..parallel.pipeline import pipeline_decode_chunk, pipeline_forward
 from ..tokenizer import Sampler
 from .batch_session import Rows, batch_decode_chunk, batch_decode_step, row_seeds
-from .decode import decode_chunk, decode_step
+from .decode import decode_chunk, decode_step, verify_step
 from .graphs import KINDS, DecodeGraphs, GraphKey, StepBuffers
 from .paged_kv import (
     DeviceTables, PagePool, copy_page, init_kv_pool, page_pool_bytes, resolve_kv_dtype,
     resolve_kv_layout, resolve_page_size, resolve_pool_pages,
 )
 from .prefix_cache import PrefixCache
+from .speculative import (
+    accept_greedy, build_draft_source, note_round, resolve_draft_k, resolve_spec_mode,
+    spec_buckets, verify_chunk, verify_row_round,
+)
 
 
 @dataclass
@@ -154,6 +169,14 @@ class InferenceEngine:
         prefix_cache_mb: int | None = None,  # the radix prefix cache's
         # device budget (runtime/prefix_cache.py). None = DLT_PREFIX_CACHE_MB
         # env, else 0 = off for library engines; the CLI defaults to 512
+        speculative: str | None = None,  # "off" | "ngram" | "model": the
+        # draft source of greedy speculative decode (runtime/speculative.py).
+        # None = DLT_SPECULATIVE env, else off for library engines; the CLI
+        # defaults to ngram
+        draft_k: int | None = None,  # max drafted tokens a verify round
+        # (bucketed at {4, 8}). None = DLT_DRAFT_K env, else 4
+        draft_source=None,  # a DraftSource; required for "model" (a
+        # speculative.ModelDraft wrapping the smaller engine)
     ):
         if mesh is not None and device is not None:
             raise ValueError("give the engine a mesh or a device, not both")
@@ -236,6 +259,12 @@ class InferenceEngine:
         self._in_warmup = False
         self.prefix_cache = PrefixCache.build(self, prefix_cache_mb)
         self.last_prefix_hit_tokens = 0  # tokens the last prefill skipped by a hit
+        self.draft_source = None
+        self.set_speculation(speculative, draft_k, draft_source)
+        # the JAX StepStats' spec_* counters and acceptance gauge
+        self.spec_counters: dict = {}
+        # rounds, drafts and times of the last speculative generate
+        self.last_spec_timing: dict | None = None
         self._sync()
         self.load_seconds = time.perf_counter() - t0
         if verbose:
@@ -243,6 +272,24 @@ class InferenceEngine:
 
     def close(self):
         self.reader.close()
+        if self.draft_source is not None:
+            self.draft_source.close()
+
+    def set_speculation(self, speculative: str | None, draft_k: int | None = None,
+                        draft_source=None) -> None:
+        """Set speculation from one setting, as `__init__` takes it (None:
+        DLT_SPECULATIVE env, else off): the mode, draft_k, the draft buckets
+        it enables and the draft source. A source it replaces is closed.
+        The verify kinds' graphs and static buffers are keyed and made by
+        feed length at first use, so the engine may switch between modes
+        and buckets at any time."""
+        old = self.draft_source
+        self.spec_mode = resolve_spec_mode(speculative, default="off")
+        self.draft_k = resolve_draft_k(draft_k)
+        self.spec_buckets = spec_buckets(self.draft_k) if self.spec_mode else ()
+        self.draft_source = build_draft_source(self.spec_mode, draft_source)
+        if old is not None and old is not self.draft_source:
+            old.close()
 
     def memory_report(self) -> str:
         def nbytes(x):
@@ -478,7 +525,14 @@ class InferenceEngine:
         token = prompt_tokens[-1]
         max_pos = min(self.cfg.seq_len, steps)
         if self.device_decode:
-            self._decode_device(res, token, pos, max_pos, sampler, on_token, stop_fn, wall0)
+            # greedy generations only: under a sampler, accepting drafts
+            # would change the random stream
+            use_spec = (self.spec_mode is not None and not self._in_warmup
+                        and (sampler is None or sampler.temperature == 0.0))
+            if use_spec:
+                self._decode_speculative(res, token, pos, max_pos, on_token, stop_fn, wall0)
+            else:
+                self._decode_device(res, token, pos, max_pos, sampler, on_token, stop_fn, wall0)
         else:
             self._decode_host(res, token, pos, max_pos, sampler, on_token, stop_fn, wall0)
         res.total_us = int((time.perf_counter() - wall0) * 1e6)
@@ -584,24 +638,27 @@ class InferenceEngine:
 
     # -- CUDA graphs of the decode step (runtime/graphs.py) ------------------
 
-    def graph_eligible(self, kind: str, batch: int | None = None) -> bool:
-        """Whether a `kind` decode step ("decode" or "batch_decode") at
-        `batch` rows (default: the engine's) is captured as a CUDA graph: a
-        rule of shapes alone, whatever the device. Two arms stay eager:
+    def graph_eligible(self, kind: str, batch: int | None = None, size: int = 1) -> bool:
+        """Whether a `kind` step (one of graphs.KINDS) at `batch` rows
+        (default: the engine's) and `size` tokens a row (the verify feed's
+        length; 1 for decode) is captured as a CUDA graph: a rule of shapes
+        alone, whatever the device. Two arms stay eager:
         * the sp pipeline (a mesh): its step spans several devices;
-        * the MoE grouped arm, which `_moe_ffn` takes at batch * n_active
-          >= n_experts (a Qwen3-30B-A3B batch of 16): `moe_ffn_ragged`
-          reads its group sizes back to the host."""
+        * the MoE grouped arm, which `_moe_ffn` takes at batch * size *
+          n_active >= n_experts (a Qwen3-30B-A3B decode batch of 16, or a
+          verify round of 16 rows): `moe_ffn_ragged` reads its group sizes
+          back to the host."""
         if kind not in KINDS:
             raise ValueError(f"unknown decode kind {kind!r}")
         b = self.batch if batch is None else batch
         if self.use_pipeline:
             return False
-        return not (self.cfg.is_moe and b * self.cfg.n_active_experts >= self.cfg.n_experts)
+        return not (self.cfg.is_moe and moe_grouped(self.cfg, b * size))
 
-    def _graphs_for(self, kind: str) -> DecodeGraphs | None:
-        """The graph cache a `kind` chunk runs through, or None: eager."""
-        if not (self.cuda_graphs and self.graph_eligible(kind)):
+    def _graphs_for(self, kind: str, size: int = 1) -> DecodeGraphs | None:
+        """The graph cache a `kind` step of `size` tokens a row runs
+        through, or None: eager."""
+        if not (self.cuda_graphs and self.graph_eligible(kind, size=size)):
             return None
         if self._graphs is None:
             if self.device.type != "cuda":
@@ -615,8 +672,58 @@ class InferenceEngine:
             self._bufs = StepBuffers(self.batch, self.cfg.seq_len, self.device, table)
         return self._bufs
 
-    def _graph_key(self, kind: str, kv_len: int, sampler: str) -> GraphKey:
-        return GraphKey(kind, self.batch, kv_len, self.kv_layout, self.cfg.cache_dtype, sampler)
+    def _graph_key(self, kind: str, kv_len: int, sampler: str, size: int = 1) -> GraphKey:
+        return GraphKey(kind, self.batch, kv_len, self.kv_layout, self.cfg.cache_dtype, sampler,
+                        size)
+
+    def _dispatch_verify(self, tokens, pos, kv_len: int):
+        """One speculative verify forward (runtime/speculative.py) over the
+        host feed `tokens` [b, t]: logits at every position and their
+        greedy argmax. `pos` is a host int (rows aligned: the "verify"
+        kind) or a [b] host array (per-row positions, rows at seq_len
+        parked: "verify_row"). The position reaches the forward pass as a
+        device tensor, eager and graphed alike, so the two agree bit for
+        bit; on the card the round replays the kind's CUDA graph of (t, kv
+        bucket). On an sp mesh it runs eagerly at the int position, rows
+        aligned only. Paged: maps [pos, pos + t) of every live row first.
+        Returns (ids [b, t] int32, logits [b, t, vocab] f32) on the device;
+        graphed, both are static outputs, valid until the next round."""
+        per_row = np.ndim(pos) != 0
+        t = np.shape(tokens)[1]
+        if self.paged:
+            if per_row:
+                self._ensure_pages((r, int(p), int(p) + t) for r, p in enumerate(pos)
+                                   if int(p) < self.cfg.seq_len)
+            else:
+                self._ensure_pages_all_rows(int(pos), int(pos) + t)
+        feed = torch.as_tensor(np.asarray(tokens), dtype=torch.long)
+        if self.use_pipeline:
+            if per_row:
+                self._refuse_on_mesh("a per-row verify")
+            logits = self._forward(feed.to(self.device), int(pos), logits_mode="all",
+                                   kv_len=kv_len)
+            return torch.argmax(logits, dim=-1).to(torch.int32), logits
+        kind = "verify_row" if per_row else "verify"
+        pos_host = torch.as_tensor(np.asarray(pos), dtype=torch.long)
+        graphs = self._graphs_for(kind, size=t)
+        if graphs is None:
+            return verify_chunk(
+                self.cfg, self.params, self.rope, self.cache, feed.to(self.device),
+                pos_host.to(self.device), kv_len=kv_len,
+                page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
+            )
+        bufs = self._step_buffers()
+        bufs.verify(t)[0].copy_(feed)
+        if per_row:
+            bufs.pos.copy_(pos_host)
+        else:
+            bufs.pos.fill_(int(pos))
+        if self.paged:
+            self._pt_operand()
+        step = partial(verify_step, self.cfg, self.params, self.rope, self.cache, bufs, t,
+                       kv_len, self.page_size, per_row)
+        graphs.run(self._graph_key(kind, kv_len, "greedy", size=t), step, 1)
+        return bufs.ids[t], graphs.last_logits
 
     def _run_graphed(self, graphs: DecodeGraphs, kind: str, n: int, kv_len: int, sampler: str,
                      generator=None):
@@ -645,6 +752,16 @@ class InferenceEngine:
             out.append(min(out[-1] * 2, self.cfg.seq_len))
         return out
 
+    def _chunk_size(self, limit: int, ramp: bool = False) -> int:
+        """The decode chunk a dispatch loop runs with `limit` tokens left:
+        decode_chunk_size, or the TTFT ramp's short first chunk
+        (min(8, decode_chunk_size)) for a streaming consumer, halved until
+        it fits: a size that `_halving_sizes` lists for the ladder."""
+        n = min(8, self.decode_chunk_size) if ramp else self.decode_chunk_size
+        while n > limit:
+            n //= 2
+        return max(n, 1)
+
     @staticmethod
     def _halving_sizes(top: int) -> list:
         """The sizes a dispatch shrink loop (`n //= 2` until it fits) can
@@ -658,24 +775,34 @@ class InferenceEngine:
 
     def warm_plan(self) -> list:
         """The decode ladder: the (kind, size, kv bucket) triples of kinds
-        "decode" and "batch_decode" that the JAX engine's `warm_plan` (:551)
-        lists for the same arguments, in its order: every decode chunk size
-        of the dispatch loops (the TTFT ramp's included) at every reachable
-        bucket, and batch_decode where batch > 1 and decode runs on the
-        device. Prefill, verify and prefix kinds run eagerly here and are
-        not listed.
+        "decode", "batch_decode", "verify" and "verify_row" that the JAX
+        engine's `warm_plan` (:551) lists for the same arguments, in its
+        order: every decode chunk size of the dispatch loops (the TTFT
+        ramp's included) at every reachable bucket, batch_decode where
+        batch > 1 and decode runs on the device, and with speculation on
+        (device decode) a verify of k + 1 tokens for each draft bucket k at
+        each bucket that covers it, verify_row beside it where batch > 1.
+        Prefill and prefix kinds run eagerly here and are not listed.
 
-        A triple's program is the graph of its (kind, kv bucket) step,
-        replayed `size` times, for each sampling arm (greedy, full
-        distribution, top-p). `graph_eligible` keeps
-        two arms eager, by shapes alone: the sp pipeline and the MoE
-        grouped arm at batch * n_active >= n_experts."""
+        A decode triple's program is the graph of its (kind, kv bucket)
+        step, replayed `size` times, for each sampling arm (greedy, full
+        distribution, top-p); a verify triple's is the greedy graph of its
+        (kind, size, kv bucket) round. `graph_eligible` keeps two arms
+        eager, by shapes alone: the sp pipeline and the MoE grouped arm at
+        batch * size * n_active >= n_experts."""
         kvbs = self._kv_buckets()
         sizes = sorted(set(self._halving_sizes(self.decode_chunk_size)
                            + self._halving_sizes(min(8, self.decode_chunk_size))))
         plan = [("decode", n, kvb) for kvb in kvbs for n in sizes if n <= kvb]
         if self.batch > 1 and self.device_decode:
             plan += [("batch_decode", n, kvb) for kvb in kvbs for n in sizes if n <= kvb]
+        if self.spec_mode is not None and self.device_decode:
+            for kvb in kvbs:
+                for k in self.spec_buckets:
+                    if k + 1 <= kvb:
+                        plan.append(("verify", k + 1, kvb))
+                        if self.batch > 1:
+                            plan.append(("verify_row", k + 1, kvb))
         return plan
 
     def warmup(self) -> dict:
@@ -687,7 +814,11 @@ class InferenceEngine:
         `cuda_graphs` off, capture nothing. The warm steps write junk into
         the cache at position 0, which `reset` then drops; they neither
         match nor publish, and the prefix cache is left empty, as the JAX
-        engine's warmup leaves it. Returns `graph_stats()`."""
+        engine's warmup leaves it. A verify kind's round is greedy and
+        feeds zeros at position 0; "verify_row" has row 0 live and the
+        other rows parked at seq_len, the serving shape. A draft source's
+        own warmup (a ModelDraft's engine) runs before the seal. Returns
+        `graph_stats()`."""
         t0 = time.perf_counter()
         self._in_warmup = True
         try:
@@ -695,7 +826,17 @@ class InferenceEngine:
                 # first: a junk step at position 0 may land on a page an
                 # entry shares
                 self.prefix_cache.clear()
-            for kind, _, kvb in self.warm_plan():
+            for kind, size, kvb in self.warm_plan():
+                if kind in ("verify", "verify_row"):
+                    graphs = self._graphs_for(kind, size=size)
+                    if graphs is None or self._graph_key(kind, kvb, "greedy", size) in graphs:
+                        continue
+                    pos = 0
+                    if kind == "verify_row":
+                        pos = np.full((self.batch,), self.cfg.seq_len, np.int64)
+                        pos[0] = 0
+                    self._dispatch_verify(np.zeros((self.batch, size), np.int64), pos, kvb)
+                    continue
                 graphs = self._graphs_for(kind)
                 if graphs is None:
                     continue
@@ -706,6 +847,8 @@ class InferenceEngine:
                     self._step_buffers().load(
                         Rows(zeros, zeros, zeros, zeros, [1.0] * self.batch, [0.9] * self.batch))
                     self._run_graphed(graphs, kind, 1, kvb, sampler, self._rng())
+            if self.draft_source is not None:
+                self.draft_source.warmup()
         finally:
             self._in_warmup = False
         self.reset()
@@ -743,17 +886,13 @@ class InferenceEngine:
         topp = sampler.topp if sampler is not None else 0.9
         gen = self._generator(sampler)
         tok_arr = self._tokens([token] * self.batch)
-        # a streaming consumer gets its first tokens after a short first
-        # chunk (the JAX engine's TTFT ramp; the same chunk ladder as there)
-        n = min(8, self.decode_chunk_size) if on_token is not None else self.decode_chunk_size
         first = True
         t_prev = time.perf_counter()
         while pos < max_pos:
-            limit = min(max_pos, self.cfg.seq_len) - pos
-            # largest power-of-two chunk that fits the remaining budget
-            while n > limit:
-                n //= 2
-            n = max(n, 1)
+            # a streaming consumer gets its first tokens after a short first
+            # chunk (the JAX engine's TTFT ramp; the same chunk ladder as there)
+            n = self._chunk_size(min(max_pos, self.cfg.seq_len) - pos,
+                                 ramp=first and on_token is not None)
             toks, tok_arr = self._decode_chunk(tok_arr, pos, n, temperature, topp, gen)
             host_toks = toks[0].tolist()  # the one device-to-host fetch of the chunk
             now = time.perf_counter()
@@ -772,7 +911,92 @@ class InferenceEngine:
                     # up to the chunk's tail, which a continuation rewrites
                     # before reading
                     return
-            n = self.decode_chunk_size
+
+    def _decode_speculative(self, res, token, pos, max_pos, on_token, stop_fn, wall0):
+        """Greedy speculative decode (runtime/speculative.py), the JAX
+        engine's `_decode_speculative`: each round the draft source proposes
+        up to k tokens from the live context, one verify round scores
+        [token, drafts...] at every position, and the longest draft prefix
+        matching the model's argmax chain is accepted with the bonus token.
+        A bucket qualifies only where the whole feed fits the context (pos
+        + k + 1 <= seq_len): at a device position the contiguous write
+        would index past the cache. A round with no draft runs one plain
+        decode chunk (the TTFT ramp's first). Tokens past max_pos or a stop
+        are discarded. Records `last_spec_timing`: `verify_us` covers the
+        rounds from dispatch to their ids on the host; `fetch_us`, inside
+        it, the fetches, which wait for the device work the dispatch left
+        running before they copy."""
+        ds = self.draft_source
+        seq_len = self.cfg.seq_len
+        t0 = time.perf_counter()
+        rounds = fallback_chunks = drafted = accepted = emitted_total = 0
+        draft_us = verify_us = fetch_us = 0
+        first = True
+        while pos < max_pos:
+            kmax = 0
+            for b in self.spec_buckets:
+                if pos + b + 1 <= seq_len:
+                    kmax = b
+            td = time.perf_counter()
+            drafts = ds.draft(list(res.tokens), kmax) if kmax else []
+            draft_us += int((time.perf_counter() - td) * 1e6)
+            tv = time.perf_counter()
+            if drafts:
+                drafts = [int(t) for t in drafts[:kmax]]
+                K = next(b for b in self.spec_buckets if b >= len(drafts))
+                size = K + 1
+                feed = [int(token)] + drafts + [0] * (K - len(drafts))
+                ids_dev, _ = self._dispatch_verify(
+                    np.asarray([feed] * self.batch, np.int64), pos, self._kv_bucket(pos + size))
+                tf = time.perf_counter()
+                ids = ids_dev[0].tolist()  # the round's one fetch
+                fetch_us += int((time.perf_counter() - tf) * 1e6)
+                a = accept_greedy(drafts, ids)
+                emitted = drafts[:a] + [ids[a]]
+                dt = int((time.perf_counter() - tv) * 1e6)
+                verify_us += dt
+                rounds += 1
+                drafted += len(drafts)
+                accepted += a
+                note_round(self.spec_counters, len(drafts), a)
+            else:
+                n = self._chunk_size(min(max_pos, seq_len) - pos,
+                                     ramp=first and on_token is not None)
+                toks, _ = self._decode_chunk(self._tokens([token] * self.batch), pos, n)
+                emitted = toks[0].tolist()  # the chunk's one fetch
+                dt = int((time.perf_counter() - tv) * 1e6)
+                fallback_chunks += 1
+            if first:
+                res.ttft_us = int((time.perf_counter() - wall0) * 1e6)
+                first = False
+            res.pred_steps.append(StepTiming(eval_us=dt, n_tokens=min(len(emitted), max_pos - pos)))
+            stopped = False
+            for t in emitted:
+                if pos >= max_pos:
+                    break  # a round's surplus past the budget is discarded
+                res.tokens.append(t)
+                pos += 1
+                emitted_total += 1
+                if on_token is not None:
+                    on_token(t)
+                if stop_fn is not None and stop_fn(t):
+                    stopped = True
+                    break
+            token = res.tokens[-1]
+            if stopped:
+                break
+        self.last_spec_timing = {
+            "rounds": rounds,
+            "fallback_chunks": fallback_chunks,
+            "draft_tokens": drafted,
+            "accepted_tokens": accepted,
+            "emitted_tokens": emitted_total,
+            "acceptance_rate": round(accepted / drafted, 4) if drafted else None,
+            "draft_us": draft_us,
+            "verify_us": verify_us,
+            "fetch_us": fetch_us,
+            "total_us": int((time.perf_counter() - t0) * 1e6),
+        }
 
     def generate_batch(
         self,
@@ -784,8 +1008,10 @@ class InferenceEngine:
     ) -> list:
         """Independent continuations of `batch` different prompts in one
         batch, each row its own sequence with its own positions (the JAX
-        engine's `generate_batch` :1641, without speculation or grammar).
-        With a prefix cache the rows' common prefix is matched and a hit
+        engine's `generate_batch` :1641, without grammar: ROADMAP A10c).
+        A greedy batch on a speculating device-decode engine decodes in
+        per-row verify rounds (`_decode_batch_speculative`). With a prefix
+        cache the rows' common prefix is matched and a hit
         spliced into every row; a batch without a hit publishes that
         prefix after its decode.
 
@@ -840,7 +1066,12 @@ class InferenceEngine:
                 self._forward(self._tokens(rows), at, kv_len=self._kv_bucket(at + size))
         out: list[list[int]] = [[] for _ in range(self.batch)]
         if max(budgets) > 0:
-            self._decode_batch_chunked(prompts, lens, budgets, out, sampler, on_token, stop_fn)
+            if (self.spec_mode is not None and self.device_decode and not self._in_warmup
+                    and (sampler is None or sampler.temperature == 0.0)):
+                self._decode_batch_speculative(prompts, lens, budgets, out, on_token, stop_fn)
+            else:
+                self._decode_batch_chunked(prompts, lens, budgets, out, sampler, on_token,
+                                           stop_fn)
         if cached and resume == 0:
             # after the decode, so a failed batch publishes nothing; a hit
             # means the prefix is published already
@@ -866,27 +1097,9 @@ class InferenceEngine:
         total_needed = max(budgets)
         planned = 0
         while planned < total_needed and not all(done):
-            ramp = planned == 0 and on_token is not None
-            n = min(8, self.decode_chunk_size) if ramp else self.decode_chunk_size
-            while n > total_needed - planned:
-                n //= 2
-            n = max(n, 1)
-            # the read bound covers the furthest position a live row reaches
-            max_end = min(
-                max(lens[r] + planned for r in range(self.batch) if not done[r]) + n,
-                self.cfg.seq_len,
-            )
-            if self.paged:
-                # live rows need pages over their chunk span; finished rows
-                # keep stepping, and their writes to unmapped slots go to
-                # the sink page
-                self._ensure_pages(
-                    (r, lens[r] - 1 + planned, lens[r] - 1 + planned + n)
-                    for r in range(self.batch)
-                    if not done[r] and lens[r] - 1 + planned < self.cfg.seq_len
-                )
-            toks, last = self._decode_batch(rows, n, self._kv_bucket(max_end),
-                                            sampler_arm(temperature, topp))
+            n = self._chunk_size(total_needed - planned, ramp=planned == 0 and on_token is not None)
+            live = {r: lens[r] - 1 + planned for r in range(self.batch) if not done[r]}
+            toks, last = self._batch_chunk(rows, live, n, sampler_arm(temperature, topp))
             rows = rows._replace(token=last, pos=rows.pos + n, draws=rows.draws + n)
             planned += n
             host = toks.cpu().tolist()  # [b][n], the chunk's one fetch
@@ -901,3 +1114,64 @@ class InferenceEngine:
                         on_token(r, tkn)
                     if (stop_fn is not None and stop_fn(r, tkn)) or len(out[r]) >= budgets[r]:
                         done[r] = True
+
+    def _batch_chunk(self, rows: Rows, live: dict, n: int, sampler: str):
+        """One "batch_decode" chunk of n steps from `rows` (`_decode_batch`).
+        `live` maps each live row to its position: those rows get pages over
+        their chunk span, and the read bound covers the furthest position
+        one reaches. Finished and parked rows step too; their writes to
+        unmapped slots go to the sink page."""
+        seq_len = self.cfg.seq_len
+        if self.paged:
+            self._ensure_pages((r, p, p + n) for r, p in live.items() if p < seq_len)
+        kvb = self._kv_bucket(min(max(live.values()) + 1 + n, seq_len))
+        return self._decode_batch(rows, n, kvb, sampler)
+
+    def _decode_batch_speculative(self, prompts, lens, budgets, out, on_token, stop_fn):
+        """generate_batch's speculative loop (greedy batches), the JAX
+        engine's `_decode_batch_speculative`: each round drafts per row from
+        the row's own context, then runs one per-row verify round
+        (`verify_row_round`; a row without a draft still takes its bonus
+        token) or, when no row drafted, one plain "batch_decode" chunk at
+        per-row positions, whose tokens past a row's budget or stop are
+        discarded. Finished rows park at seq_len. Rows advance unevenly, so
+        positions and tokens are host lists."""
+        b = self.batch
+        seq_len = self.cfg.seq_len
+        ds = self.draft_source
+        pos = [l - 1 for l in lens]
+        token = [int(p[-1]) for p in prompts]
+        done = [budgets[r] <= 0 for r in range(b)]
+        while not all(done):
+            live = [r for r in range(b) if not done[r]]
+            drafts = {}
+            for r in live:
+                # emitted <= drafts + 1 <= the remaining budget, which also
+                # keeps the round's writes inside the context
+                cap = min(self.spec_buckets[-1], budgets[r] - len(out[r]) - 1)
+                d = ds.draft(list(prompts[r]) + out[r], cap) if cap > 0 else []
+                drafts[r] = [int(t) for t in d[: max(cap, 0)]]
+            if any(drafts.values()):
+                emitted = verify_row_round(self, drafts, token, pos, seq_len)
+            else:
+                n = self._chunk_size(max(budgets[r] - len(out[r]) for r in live))
+                pv = np.full((b,), seq_len, np.int64)
+                tv = np.zeros((b,), np.int64)
+                for r in live:
+                    pv[r], tv[r] = pos[r], token[r]
+                zeros = np.zeros((b,), np.int64)
+                toks, _ = self._batch_chunk(
+                    Rows(tv, pv, zeros, zeros, np.zeros((b,), np.float32),
+                         np.full((b,), 0.9, np.float32)), {r: pos[r] for r in live}, n, "greedy")
+                host = toks.cpu().tolist()  # the chunk's one fetch
+                emitted = {r: host[r] for r in live}
+            for r, toks_r in emitted.items():
+                pos[r] += len(toks_r)
+                token[r] = toks_r[-1]
+                for t in toks_r:
+                    out[r].append(t)
+                    if on_token is not None:
+                        on_token(r, t)
+                    if (stop_fn is not None and stop_fn(r, t)) or len(out[r]) >= budgets[r]:
+                        done[r] = True
+                        break

@@ -12,16 +12,23 @@ chunk size as well.)
 
 * A key (`GraphKey`) is (kind, batch, kv bucket, layout, kv dtype,
   sampling arm: greedy, full distribution or top-p, the last alone paying
-  for a sort over the vocabulary): kind "decode" serves `generate`'s chunks (rows aligned),
+  for a sort over the vocabulary, size): kind "decode" serves `generate`'s chunks (rows aligned),
   "batch_decode" `BatchSession.step` and `generate_batch` (per-row
   positions and sampling). The chunk size is a replay count, not part of
-  the key.
+  the key: `size` is 1 for both. The verify kinds (runtime/speculative.py)
+  are one forward over a t = k + 1 token feed, greedy, replayed once a
+  round: "verify" with the rows aligned (`generate`), "verify_row" at
+  per-row positions with absent rows parked at seq_len (`generate_batch`,
+  `BatchSession.spec_step`). Their feed length is a shape, so `size` is t.
 * Every graph of an engine reads and writes one set of static buffers
   (`StepBuffers`): token, positions, seeds, draw counters, temperature,
-  top-p, the step counter, the chunk's output and the engine's page table.
+  top-p, the step counter, the chunk's output and the engine's page table,
+  and for each verify feed length t a [b, t] feed and its greedy ids.
   The caller fills them before a chunk; each step writes its token into
   the output at the counter and advances token, positions and counter, so
-  n replays run the chunk with no host work between them.
+  n replays run the chunk with no host work between them. A verify step
+  reads the feed at the positions and writes the ids; it advances
+  nothing.
 * The graphs of an engine share one memory pool: they never run at once.
 * A key's first use runs the step eagerly on a side stream (a real step of
   the chunk), then captures it there, as torch's recipe asks: every lazy
@@ -49,18 +56,19 @@ import torch
 
 from ..ops import cuda_attention, cuda_q40
 
-#: the kinds of decode step a graph captures
-KINDS = ("decode", "batch_decode")
+#: the kinds of step a graph captures
+KINDS = ("decode", "batch_decode", "verify", "verify_row")
 
 
 @dataclass(frozen=True)
 class GraphKey:
-    kind: str  # "decode" | "batch_decode"
+    kind: str  # one of KINDS
     batch: int
     kv_bucket: int
     layout: str  # "contiguous" | "paged"
     kv_dtype: str
-    sampler: str  # ops/sampling.py SAMPLERS
+    sampler: str  # ops/sampling.py SAMPLERS ("greedy" for the verify kinds)
+    size: int = 1  # the verify feed's length t; 1 for the decode kinds
 
 
 class StepBuffers:
@@ -68,7 +76,9 @@ class StepBuffers:
     [b] `token`, `pos`, `seeds` and `draws` (int64), `temperature` and
     `topp` (f32), the fields of `batch_session.Rows`; `step` [1] int64 is
     the chunk's step counter, `out` [b, cap] int64 the chunk's tokens,
-    `table` the engine's static page table (or None)."""
+    `table` the engine's static page table (or None); `feed[t]` [b, t]
+    int64 and `ids[t]` [b, t] int32, a verify round's feed and its greedy
+    ids, for each feed length t that `verify(t)` has made."""
 
     def __init__(self, batch: int, cap: int, device, table: torch.Tensor | None = None):
         for name in ("token", "pos", "seeds", "draws"):
@@ -78,6 +88,17 @@ class StepBuffers:
         self.step = torch.zeros((1,), dtype=torch.int64, device=device)
         self.out = torch.zeros((batch, cap), dtype=torch.int64, device=device)
         self.table = table
+        self.feed: dict = {}
+        self.ids: dict = {}
+
+    def verify(self, t: int) -> tuple:
+        """The feed and ids buffers of a verify round of t tokens a row,
+        made at their first use (before the round's graph captures)."""
+        if t not in self.feed:
+            b, device = self.token.shape[0], self.token.device
+            self.feed[t] = torch.zeros((b, t), dtype=torch.int64, device=device)
+            self.ids[t] = torch.zeros((b, t), dtype=torch.int32, device=device)
+        return self.feed[t], self.ids[t]
 
     def load(self, rows) -> None:
         """Copy each field of `rows` (a `batch_session.Rows` of host or
@@ -215,6 +236,7 @@ class DecodeGraphs:
             "graphs": len(self.graphs), "captures": self.captures,
             "recaptures_after_warmup": self.recaptures_after_warmup, "sealed": self.sealed,
             "launches_per_replay": {
-                f"{key.kind}/kv{key.kv_bucket}/{key.sampler}":
+                f"{key.kind}/kv{key.kv_bucket}/{key.sampler}"
+                + (f"/t{key.size}" if key.size != 1 else ""):
                 sum(g.launches) for key, g in self.graphs.items()},
         }

@@ -152,15 +152,45 @@ def test_kv_flags_and_defaults(files):
 
 def test_inference_paged_int8_batch_prints_row_zero(files, capsys):
     """`--batch 2 --kv-dtype int8` at the paged default: every row runs the
-    prompt; the CLI prints row 0's stream, the same as batch 1's."""
+    prompt; the CLI prints row 0's stream, the same as batch 1's. Without
+    speculation: a batch-2 verify round of 10 rows takes K2's bf16 arm
+    where batch 1's 5 rows take K1's Q80 arm, so the greedy chains may part
+    at a near-tie (the JAX package picks its arms by the same row count)."""
     mp, tp = files
     args = ["inference", "--model", mp, "--tokenizer", tp, "--prompt", TEXT, "--steps", "90",
-            "--temperature", "0", "--kv-dtype", "int8", "--device", "cpu"]
+            "--temperature", "0", "--kv-dtype", "int8", "--device", "cpu", "--speculative", "off"]
     assert pcli.main(args) == 0
     one = [l for l in capsys.readouterr().out.splitlines() if l.startswith("🔶 Pred")]
     assert pcli.main(args + ["--batch", "2"]) == 0
     two = [l for l in capsys.readouterr().out.splitlines() if l.startswith("🔶 Pred")]
     assert [l.split("|", 1)[1] for l in one] == [l.split("|", 1)[1] for l in two]
+
+
+def test_inference_paged_int8_batch_prints_row_zero_at_the_default(files, monkeypatch, capsys):
+    """The same at the CLI's default, ngram speculation. Batch 1's rounds of
+    5 rows take decode's arms (K1 quantizes x to Q80) and print the text of
+    the run without speculation. Batch 2's rounds of 10 rows take K2's bf16
+    arm, so its row 0 may part from batch 1 (the help text says so). With
+    every dense matmul on K2's bf16 arm, the verify rounds' arm, batch 2's
+    row 0 prints batch 1's text."""
+    mp, tp = files
+    args = ["inference", "--model", mp, "--tokenizer", tp, "--prompt", TEXT, "--steps", "90",
+            "--temperature", "0", "--kv-dtype", "int8", "--device", "cpu"]
+
+    def pred(extra):
+        assert pcli.main(args + extra) == 0
+        return [l.split("|", 1)[1] for l in capsys.readouterr().out.split("\n")
+                if l.startswith("🔶 Pred")]
+
+    def text(lines):
+        return "".join(re.sub(r"^ (\(\d+ tokens\) )?", "", l).replace("~", "") for l in lines)
+
+    one, off = pred([]), pred(["--speculative", "off"])
+    assert text(one) == text(off) and one != off
+    monkeypatch.setattr(cuda_q40, "q40_gemv_q80_stacked", cuda_q40.q40_gemm_bf16_stacked)
+    monkeypatch.setattr(cuda_q40, "q40_gemv_q80", cuda_q40.q40_gemm_bf16)
+    one, two = pred([]), pred(["--batch", "2"])
+    assert text(one) == text(two)
 
 
 _COMPAT = ["--nthreads", "4", "--buffer-float-type", "q80", "--net-turbo", "1",
@@ -186,7 +216,7 @@ def test_inference_with_compat_flags_prints_the_jax_cli_tokens(files, monkeypatc
     assert jcli.main(args + _JAX_OFF) == 0
     want = [l.split("|", 1)[1] for l in capsys.readouterr().out.splitlines()
             if l.startswith("🔶 Pred")]
-    assert pcli.main(args + ["--device", "cpu"]) == 0
+    assert pcli.main(args + ["--device", "cpu", "--speculative", "off"]) == 0
     got = [l.split("|", 1)[1] for l in capsys.readouterr().out.splitlines()
            if l.startswith("🔶 Pred")]
     assert want and got == want

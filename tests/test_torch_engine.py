@@ -149,21 +149,46 @@ def test_cli_prints_the_jax_cli_tokens(tmp_path, monkeypatch, capsys):
     assert jcli.main(args + ["--kv-layout", "contiguous", "--speculative", "off",
                              "--prefix-cache-mb", "0"]) == 0
     want = _pred_texts(capsys.readouterr().out)
-    assert pcli.main(args + ["--device", "cpu"]) == 0
+    assert pcli.main(args + ["--device", "cpu", "--speculative", "off"]) == 0
     out = capsys.readouterr().out
     assert want and _pred_texts(out) == want
     assert "Prediction" in out and "tokens/s:" in out
 
 
+def test_cli_defaults_print_the_jax_cli_tokens_with_speculation(tmp_path, monkeypatch, capsys):
+    """Neither CLI given `--speculative`: both run ngram speculation, their
+    default, and print the same greedy tokens in the same rounds (a Pred
+    line per verify round or fallback chunk)."""
+    mp, tp = str(tmp_path / "m.m"), str(tmp_path / "t.t")
+    write_tiny_model(mp, tiny_header(**_ARCHS["llama"]), seed=5)
+    write_tiny_tokenizer(tp, pad_to=512)
+    args = ["inference", "--model", mp, "--tokenizer", tp, "--prompt",
+            "hello world, the brown fox jumps over the lazy dog", "--steps", "80",
+            "--temperature", "0"]
+    monkeypatch.setenv("DLT_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("DLT_GRAMMAR", "0")
+    for name in ("DLT_SPECULATIVE", "DLT_DRAFT_K", "DLT_PREFIX_CACHE_MB"):
+        monkeypatch.delenv(name, raising=False)
+    assert jcli.main(args) == 0
+    want = _pred_texts(capsys.readouterr().out)
+    assert pcli.main(args + ["--device", "cpu"]) == 0
+    got = _pred_texts(capsys.readouterr().out)
+    assert want and got == want
+    # the rounds are not the chunks of a run without speculation
+    assert pcli.main(args + ["--device", "cpu", "--speculative", "off"]) == 0
+    assert _pred_texts(capsys.readouterr().out) != got
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """`--speculative model` without `--draft-model` raises ValueError in
+    every mode, as in the JAX CLI (`make_engine`)."""
     mp = str(tmp_path / "m.m")
     write_tiny_model(mp, tiny_header(**_ARCHS["llama"]), seed=5)
     base = ["inference", "--model", mp, "--tokenizer", mp, "--prompt", "x", "--steps", "4",
             "--device", "cpu"]
     for mode in ("inference", "perplexity", "chat"):
-        for extra in (["--speculative", "ngram"], ["--speculative", "model"]):
-            with pytest.raises(NotImplementedError, match="A10"):
-                pcli.main([mode] + base[1:] + extra)
+        with pytest.raises(ValueError, match="--draft-model"):
+            pcli.main([mode] + base[1:] + ["--speculative", "model"])
 
 
 def test_engine_without_device_needs_a_gpu(monkeypatch, tmp_path):

@@ -22,6 +22,7 @@ import distributed_llama_tpu_torch.runtime.paged_kv
 import distributed_llama_tpu_torch.runtime.prefix_cache
 import distributed_llama_tpu_torch.runtime.graphs
 import distributed_llama_tpu_torch.runtime.decode
+import distributed_llama_tpu_torch.runtime.speculative
 import distributed_llama_tpu_torch.testing
 import distributed_llama_tpu_torch.probes.int4
 import distributed_llama_tpu_torch.probes.dma

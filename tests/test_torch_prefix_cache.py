@@ -572,8 +572,8 @@ def _pred_texts(out: str) -> list:
 
 
 def test_cli_defaults_print_the_jax_cli_tokens(files, monkeypatch, capsys):
-    """Both CLIs at their defaults (paged bf16, a 512 MB prefix cache; the
-    JAX CLI with only `--speculative off`): the same greedy tokens."""
+    """Both CLIs at their defaults (paged bf16, a 512 MB prefix cache), each
+    with only `--speculative off`: the same greedy tokens."""
     mp, tp = files
     args = ["inference", "--model", mp, "--tokenizer", tp, "--prompt",
             "hello world, the brown fox jumps over the lazy dog", "--steps", "80",
@@ -583,7 +583,7 @@ def test_cli_defaults_print_the_jax_cli_tokens(files, monkeypatch, capsys):
     monkeypatch.delenv("DLT_PREFIX_CACHE_MB", raising=False)
     assert jcli.main(args + ["--speculative", "off"]) == 0
     want = _pred_texts(capsys.readouterr().out)
-    assert pcli.main(args + ["--device", "cpu"]) == 0
+    assert pcli.main(args + ["--device", "cpu", "--speculative", "off"]) == 0
     out = capsys.readouterr().out
     assert want and _pred_texts(out) == want
     assert "prefix cache unavailable" not in out

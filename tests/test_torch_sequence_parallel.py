@@ -439,7 +439,7 @@ def test_cli_sp_prints_the_jax_cli_tokens(tmp_path, monkeypatch, capsys):
     assert jcli.main(args + ["--speculative", "off", "--prefix-cache-mb", "0"]) == 0
     jout = capsys.readouterr().out
     want = _pred_texts(jout)
-    assert pcli.main(args + ["--device", "cpu"]) == 0
+    assert pcli.main(args + ["--device", "cpu", "--speculative", "off"]) == 0
     out = capsys.readouterr().out
     assert want and _pred_texts(out) == want
     warning = next(line for line in jout.splitlines() if "--kv-layout paged covers" in line)
