@@ -87,7 +87,9 @@ caught):
      and profiles of its prefill tail (B8's share) and decode. At
      Qwen3-30B-A3B's width: the CLI's `inference` (contiguous). The CLI
      runs its default ngram speculation (greedy decode in verify rounds),
-     which is off at 30B-A3B, whose rounds would take the MoE gather arm;
+     which is off at 30B-A3B, whose rounds would take the MoE gather arm,
+     and builds the grammar arena, so every decode step and round carries
+     the grammar mask (at the all-legal FREE state);
      the contiguous `inference` of each model runs again with
      `--speculative off`, the tokens equal. Decode on these paths
      replays CUDA graphs of the decode step and the verify round
@@ -100,7 +102,8 @@ caught):
      Llama-3.2-1B width batch 1 contiguous, paged bf16 and paged int8,
      and the batch-16 paged int8 BatchSession (four rows re-admitted,
      then four sampled at each arm); at Qwen3-30B-A3B width batch 1
-     contiguous. Then `warmup()` (its seconds, captures and graph-pool
+     contiguous, from a 200-token context (64 greedy steps across the 256
+     bucket and a shorter sampled chunk of each arm). Then `warmup()` (its seconds, captures and graph-pool
      bytes) and a pinned trace, a prompt decoding across the 256 and 512
      kv buckets and (batch 16) a BatchSession admit/step/release cycle,
      which must make 0 captures after warmup;
@@ -135,6 +138,25 @@ caught):
      round graphed, its pool bytes, tok/s against off; torch.profiler over
      64 tokens of the 1B contiguous decode with and without speculation
      in turns (one `spec_ab` line);
+  5e. grammar-constrained decoding (runtime/grammar.py), counted as one
+     path: at Llama-3.2-1B width, engines with the grammar arena (65
+     states of 128256 tokens, 33.3 MB on the card), batch 1 on the
+     contiguous, paged bf16 and paged int8 layouts: greedy `generate`
+     under a boolean JSON object and `(?:yes|no)`, eagerly, graphed and
+     with ngram at k 4 (on the contiguous layout also a repeat grammar
+     whose drafts verify under the mask): 0 illegal tokens, finished and a
+     full match, graphed equal to eager bit for bit, k 4 equal to off; a
+     batch-16 paged int8 BatchSession of 8 constrained rows (three
+     grammars, two rows sampled) beside 8 free rows, a `spec_step` round
+     and 8 `step`s, the free rows bit for bit those of the same rows alone
+     on an engine without the arena; `warmup()`, then installs that evict
+     from the arena and constrained work: 0 captures after warmup, the
+     table's storage fixed, each install's upload timed; the arena's cost,
+     engines with and without it in turns (graphed batch-1 decode and a
+     batch-16 chunk under torch.profiler, verify rounds at batch 1 t 5 and
+     batch 16 t 9); at Qwen3-30B-A3B width, on phase 5b's engine (built
+     with the arena, as the CLI builds it), one constrained greedy
+     generate of 64 tokens, 0 illegal tokens, counted as its own path;
   6. where a token's time goes: torch.profiler over 8 batch-1 decode
      steps of each model (contiguous) and of the 1B on the paged int8
      layout (K5's share; 16 steps until phase 5d came), over one
@@ -143,7 +165,7 @@ caught):
      window eagerly and graphed in turns on one engine, reported as wall,
      busy and idle, kernel and `cudaGraphLaunch` calls a token and tok/s;
      the 1B contiguous window also sampled at temperature 0.8, top-p 0.9
-     (the top-p arm) and 1.0 (the full distribution);
+     (the top-p arm; `--profiles` also at 1.0, the full distribution);
   7. one {"kernels": [...]} line, then the card, then the result line.
 
 `python3 chip_smoke.py --profiles llama32_1b|qwen3_30b_a3b [--models DIR]`
@@ -152,7 +174,8 @@ decode and batch-16 chunk, or the prefill), each decode window graphed
 and eager: run from the root of two trees in one call, it compares them
 end to end. `--spec-divergence` runs phases 1-2 and only phase 5d's
 paged int8 batch-1 chains without speculation and at k 8, with
-`arm_growth` where they part.
+`arm_growth` where they part. `--grammar` runs phases 1-2 and only phase
+5e at Llama-3.2-1B width.
 
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. Bounds use the card's published rates
@@ -2267,9 +2290,12 @@ GRAPH_CHUNKS = (64, 64, 64)
 # then a sampled chunk of each arm, the top-p arm and the full distribution:
 # steps, temperature, top-p, seed
 GRAPH_SAMPLED = ((32, 0.8, 0.9, 1234), (16, 0.8, 1.0, 1235))
-# the 30B-A3B trace, shorter (an eager step there is ~4x the 1B's): 160
-# greedy steps, from 112 across the 256 bucket, and each sampled arm
-MOE_GRAPH_CHUNKS = dict(greedy=(64, 64, 32), sampled=((32, 0.8, 0.9, 1234), (16, 0.8, 1.0, 1235)))
+# the 30B-A3B trace, shorter (an eager step there is ~4x the 1B's): from a
+# MOE_GRAPH_CONTEXT-token context, 64 greedy steps across the 256 bucket,
+# and each sampled arm (cut from 160 greedy steps from 112 and sampled
+# chunks of 32 and 16 when phase 5e came, to keep the script's time)
+MOE_GRAPH_CONTEXT = 200
+MOE_GRAPH_CHUNKS = dict(greedy=(32, 32), sampled=((16, 0.8, 0.9, 1234), (8, 0.8, 1.0, 1235)))
 
 
 def decode_trace(torch, eng, ids, greedy=GRAPH_CHUNKS, sampled=GRAPH_SAMPLED):
@@ -2404,7 +2430,8 @@ def graphed_decode_phase(torch, mp: str, tp: str, model: str, eng=None) -> None:
     ids = Tokenizer(tp).encode(PROMPT)
     kw = dict(max_seq_len=MAX_SEQ_LEN, device="cuda")
     if model == "qwen3_30b_a3b":
-        graph_vs_eager(torch, f"{model} batch 1 contiguous", eng, ids, **MOE_GRAPH_CHUNKS)
+        graph_vs_eager(torch, f"{model} batch 1 contiguous", eng, (ids * 2)[:MOE_GRAPH_CONTEXT],
+                       **MOE_GRAPH_CHUNKS)
         pinned_trace(torch, f"{model} batch 1 contiguous", eng, ids, session=False)
         spec_moe(torch, eng, ids)
         eng.close()
@@ -2638,8 +2665,9 @@ def prefix_cache_phase(torch, mp: str, tp: str, counters, expected) -> dict:
 SPEC_DECODE_STEPS = 256
 # the 30B-A3B runs: a round costs several decode tokens there (the gather
 # arm), and the model's steps are 4x the 1B's; the first 64 steps are a
-# plain chunk (PROMPT's end drafts nothing), the rest verify rounds
-MOE_SPEC_DECODE_STEPS = 128
+# plain chunk (PROMPT's end drafts nothing), the rest verify rounds (128
+# until phase 5e came, cut to keep the script's time)
+MOE_SPEC_DECODE_STEPS = 96
 # a verify round's logits against the stepwise decode's at the same
 # positions, as a share of the stepwise logits' largest value: at k 4 the
 # round takes the decode step's arms (K1's Q80 arm at 5 rows, bit for bit
@@ -3215,6 +3243,428 @@ def spec_moe(torch, eng, ids: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5e: grammar-constrained decoding
+# ---------------------------------------------------------------------------
+
+# the grammars (runtime/grammar.py), as tests/test_grammar.py and the port's
+# tests compile them: a boolean object (a short, fully determined tail a
+# random model finishes), a two-word alternation, an enum and a repeat
+GRAMMAR_BOOL = {"type": "object", "properties": {"ok": {"type": "boolean"}}}
+GRAMMAR_ENUM = {"enum": ["red", "green", "blue"]}
+# the 30B-A3B run's object: an unbounded string and integer, so a 64-token
+# budget may end it unfinished (held to legality; a finished run to a match)
+GRAMMAR_OPEN = {"type": "object", "properties": {"name": {"type": "string"},
+                                                 "n": {"type": "integer"}}}
+# a constrained generate's budget (the grammars above finish well before)
+GRAMMAR_STEPS = 64
+# the decode chunk of phase 5e's batch-1 engines: an eager chunk runs to its
+# end after the grammar finished, so a short one
+GRAMMAR_CHUNK = 16
+
+
+def grammar_specs() -> dict:
+    from distributed_llama_tpu_torch.runtime.grammar import schema_to_regex
+
+    return {"bool": ("json_schema", schema_to_regex(GRAMMAR_BOOL)),
+            "yesno": ("regex", "(?:yes|no)"),
+            "color": ("json_schema", schema_to_regex(GRAMMAR_ENUM)),
+            "repeat": ("regex", "(?:yes,)*no"),
+            "open": ("json_schema", schema_to_regex(GRAMMAR_OPEN))}
+
+
+def grammar_replay(tok, g, gen: list) -> dict:
+    """Walk `gen` through a fresh session of `g`: the legality and validity
+    oracle of a constrained stream (illegal tokens, finished, full match)."""
+    from distributed_llama_tpu_torch.runtime.grammar import GrammarArena, GrammarSession
+
+    s = GrammarSession(GrammarArena(len(tok.vocab), n_states=g.n_states + 1), g)
+    out, illegal = b"", 0
+    for t in gen:
+        if s.done:
+            break
+        r = s.advance(int(t))
+        if r == "illegal":
+            illegal += 1
+        elif r != "eos":
+            out += tok.vocab[int(t)]
+        if s.done or s.at_terminal:
+            break
+    finished = s.done or s.at_terminal
+    s.close()
+    return {"tokens": len(gen), "illegal": illegal, "finished": finished,
+            "fullmatch": bool(g.fullmatch(out)), "text": out.decode("utf-8", "replace")}
+
+
+def grammar_valid(check: dict, where: str, must_finish: bool = True) -> None:
+    assert check["illegal"] == 0, f"{where}: {check['illegal']} illegal tokens"
+    if must_finish or check["finished"]:
+        assert check["finished"] and check["fullmatch"], f"{where}: not a full match: {check}"
+
+
+def grammar_layout(torch, mp: str, tok, comp, layout: str, kv) -> dict:
+    """Batch 1 on one layout, an engine with the arena: constrained greedy
+    `generate` of PROMPT under the boolean object and the alternation,
+    eagerly, graphed and with ngram at k 4 (tokens and the last chunk's
+    logits of eager and graphed bit for bit; k 4's tokens the same); on the
+    contiguous layout also the repeat grammar from a prompt whose own
+    drafts are legal, so rounds verify under the mask."""
+    from distributed_llama_tpu_torch.runtime.grammar import GrammarSession
+
+    eng = spec_engine(mp, kv_layout=layout, cache_dtype=kv, grammar=True,
+                      decode_chunk_size=GRAMMAR_CHUNK)
+    specs = grammar_specs()
+    ids = tok.encode(PROMPT)
+    cases = [("bool", ids), ("yesno", ids)]
+    if layout == "contiguous":
+        cases.append(("repeat", tok.encode("yes,yes,yes,yes,yes,")))
+    name = f"llama32_1b batch 1 {layout} {kv or 'bf16'}"
+    out = {"phase": "grammar", "setup": name, "arena_states": eng.grammar.n_states,
+           "arena_bytes": eng._gr_table.numel() * 4, "cases": {}}
+    for gname, prompt in cases:
+        g = comp.compile(*specs[gname])
+        runs, logits, timing = {}, {}, None
+        for mode in ("eager", "graphed", "ngram k 4"):
+            eng.cuda_graphs = mode != "eager"
+            speculate(eng, 4 if mode == "ngram k 4" else 0)
+            eng.reset()
+            s = GrammarSession(eng.grammar, g)
+            res = eng.generate(prompt, len(prompt) - 1 + GRAMMAR_STEPS, grammar=s)
+            s.close()
+            runs[mode] = res.tokens[len(prompt):]
+            if mode != "ngram k 4":  # a round's logits are the verify's
+                logits[mode] = eng.last_logits.clone()
+            check = grammar_replay(tok, g, runs[mode])
+            grammar_valid(check, f"{name} {gname} {mode}", must_finish=gname != "repeat")
+            if mode == "ngram k 4":
+                timing = {k: eng.last_spec_timing[k] for k in
+                          ("rounds", "fallback_chunks", "draft_tokens", "accepted_tokens")}
+        out["cases"][gname] = {
+            **check, "graphed_equals_eager": runs["graphed"] == runs["eager"]
+            and torch.equal(logits["graphed"], logits["eager"]),
+            "spec_equals_off": runs["ngram k 4"] == runs["graphed"], "spec": timing}
+    log(json.dumps(out))
+    for gname, c in out["cases"].items():
+        assert c["graphed_equals_eager"], f"{name} {gname}: graphed differs from eager"
+        assert c["spec_equals_off"], f"{name} {gname}: ngram k 4 differs from off"
+    eng.close()
+    return out
+
+
+def grammar_session(torch, mp: str, tok, comp) -> dict:
+    """A batch-16 paged int8 BatchSession on an engine with the arena: 8
+    constrained rows (even rows; the boolean object, the alternation and
+    the enum; rows 12 and 14 sampled at temperature 0.8, top-p 0.9 and
+    1.0) beside 8 free greedy rows; one `spec_step` round over the greedy
+    rows (ngram drafts of their own context, a constrained row's cut to
+    its legal prefix), then 8 `step`s of 8. The free rows' tokens and
+    logits bit for bit those of the same free rows alone (the others
+    parked) on an engine without the arena; constrained rows legal and
+    finished. Then `warmup()`, installs that evict from the arena, a
+    constrained session and generate: 0 captures after warmup, the
+    table's storage fixed, each install's upload (its dirty rows) timed
+    beside a copy of the whole table."""
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+    from distributed_llama_tpu_torch.runtime.grammar import GrammarSession
+    from distributed_llama_tpu_torch.runtime.speculative import NGramDraft
+
+    b, chunk, n_chunks = 16, 8, 8
+    ids = tok.encode(PROMPT)
+    prompts = [ids[: 16 + (len(ids) - 16) * i // (b - 1)] for i in range(b)]
+    specs = grammar_specs()
+    names = {r: ("bool", "yesno", "color")[(r // 2) % 3] for r in range(0, b, 2)}
+    sampled = {12: 0.9, 14: 1.0}
+    ds = NGramDraft()
+
+    def run(eng, rows):
+        s = BatchSession(eng)
+        sess = {}
+        for r in rows:
+            g = None
+            if r in names and eng.grammar is not None:
+                g = sess[r] = GrammarSession(eng.grammar, comp.compile(*specs[names[r]]))
+            t = 0.8 if r in sampled else 0.0
+            s.admit(r, prompts[r], temperature=t, topp=sampled.get(r, 0.9), seed=100 + r,
+                    grammar=g)
+        got = {r: [] for r in rows}
+
+        def take(r, toks):
+            g = sess.get(r)
+            for t in toks:
+                if g is not None and (g.done or g.at_terminal):
+                    return
+                got[r].append(int(t))
+                if g is not None:
+                    g.advance(int(t))
+
+        greedy = [r for r in rows if r not in sampled]
+        for r, e in s.spec_step({r: ds.draft(list(prompts[r]), 4) for r in greedy}).items():
+            take(r, e)
+        logits = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            host = s.step(chunk)
+            logits.append(eng.last_logits.clone())
+            for r in rows:
+                take(r, host[r])
+        wall = time.perf_counter() - t0
+        for g in sess.values():
+            g.close()
+        return got, logits, wall
+
+    eng = spec_engine(mp, batch=b, kv_layout="paged", cache_dtype="int8", grammar=True)
+    speculate(eng, 4)
+    got, logits, wall = run(eng, range(b))
+    plain = spec_engine(mp, batch=b, kv_layout="paged", cache_dtype="int8", grammar=False)
+    speculate(plain, 4)
+    free = [r for r in range(b) if r not in names]
+    want, plain_logits, plain_wall = run(plain, free)
+    plain.close()
+    del plain
+    checks = {r: grammar_replay(tok, comp.compile(*specs[names[r]]), got[r]) for r in names}
+    out = {"phase": "grammar", "setup": "llama32_1b batch_session 16 paged int8",
+           "constrained_rows": {r: {"grammar": names[r], "sampled": r in sampled, **checks[r]}
+                                for r in names},
+           "free_rows_equal": all(got[r] == want[r] for r in free),
+           "free_logits_equal": all(torch.equal(a[r], p[r]) for a, p in zip(logits, plain_logits)
+                                    for r in free),
+           "step_s": wall, "step_s_without_arena_free_rows_only": plain_wall}
+    log(json.dumps(out))
+    assert out["free_rows_equal"] and out["free_logits_equal"], \
+        "batch-16 grammar session: a free row differs from its run without co-tenants or arena"
+    for r, c in checks.items():
+        grammar_valid(c, f"batch-16 row {r} ({names[r]})")
+
+    # warmup, then installs that evict from the arena and constrained work
+    ptr = eng._gr_table.data_ptr()
+    stats = eng.warmup()
+    uploads = []
+    evicting = [("regex", "a" * 40), ("regex", "b" * 40), ("regex", "c" * 40)]
+    v0 = eng.grammar.version
+    for kind, pat in evicting:  # 41 states each: the second and third evict
+        g = comp.compile(kind, pat)
+        s = GrammarSession(eng.grammar, g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._gr_operand()
+        torch.cuda.synchronize()
+        uploads.append((time.perf_counter() - t0) * 1e3)
+        res = eng.generate_batch([prompts[-1]] * b, [48] * b, grammars=[s] + [None] * (b - 1))
+        check = grammar_replay(tok, g, res[0])
+        grammar_valid(check, f"post-warmup install {pat[:3]}...")
+        s.close()
+    whole = []  # the whole table's copy, what an upload without dirty rows costs
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._gr_table.copy_(eng._gr_host)
+        torch.cuda.synchronize()
+        whole.append((time.perf_counter() - t0) * 1e3)
+    s2 = BatchSession(eng)
+    g = GrammarSession(eng.grammar, comp.compile(*specs["bool"]))
+    s2.admit(0, ids, grammar=g)
+    s2.admit(3, ids[:40])
+    s2.spec_step({0: [], 3: ds.draft(ids[:40], 4)})
+    got0 = []
+    for _ in range(4):
+        for t in s2.step(8)[0]:
+            if g.done or g.at_terminal:
+                break
+            got0.append(int(t))
+            g.advance(int(t))
+    s2.release(0)
+    s2.release(3)
+    g.close()
+    grammar_valid(grammar_replay(tok, g.grammar, got0), "post-warmup session row")
+    after = eng.graph_stats()
+    warm = {"phase": "grammar_warmup", "setup": "llama32_1b batch 16 paged int8 grammar",
+            "warmup_s": stats["warmup_seconds"], "captures": stats["captures"],
+            "graph_pool_bytes": stats["pool_bytes"],
+            "arena_versions": eng.grammar.version - v0,
+            "arena": eng.grammar.snapshot(), "upload_ms_per_install": uploads,
+            "whole_table_upload_ms": whole,
+            "table_storage_fixed": eng._gr_table.data_ptr() == ptr,
+            "recaptures_after_warmup": after["recaptures_after_warmup"]}
+    log(json.dumps(warm))
+    assert comp.compile(*evicting[0]).key not in eng.grammar._spans, "no install evicted"
+    assert warm["table_storage_fixed"], "the grammar table moved"
+    assert after["recaptures_after_warmup"] == 0, "a capture after warmup on the grammar trace"
+    eng.close()
+    return {**out, "warmup": warm}
+
+
+GRAMMAR_AB_TOKENS = 64
+GRAMMAR_PROFILE_TOKENS = 16
+GRAMMAR_VERIFY_ROUNDS = 20
+
+
+def verify_round_ms(torch, eng, t: int) -> float:
+    """The device time of one graphed verify round of t tokens a row (every
+    row live at PROMPT's end, FREE states), from CUDA events over
+    GRAMMAR_VERIFY_ROUNDS rounds after a warm one."""
+    import numpy as np
+
+    b = eng.batch
+    pos = np.full((b,), 112, np.int64) if b > 1 else 112
+    feed = np.zeros((b, t), np.int64)
+    kvb = eng._kv_bucket(112 + t)
+    eng._dispatch_verify(feed, pos, kvb)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(GRAMMAR_VERIFY_ROUNDS):
+        eng._dispatch_verify(feed, pos, kvb)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / GRAMMAR_VERIFY_ROUNDS
+
+
+def grammar_ab(torch, mp: str, tok) -> dict:
+    """What the arena costs, engines with and without it: graphed batch-1
+    contiguous decode after PROMPT (every step masked at the FREE state, as
+    the CLI's default engine decodes) and 8-step chunks of a batch-16 paged
+    int8 session. In turns (without, with, with, without): decode tok/s of
+    GRAMMAR_AB_TOKENS batch-1 tokens and of four batch-16 chunks (host
+    wall to a synchronize), and verify rounds of 5 tokens at batch 1 and 9
+    at batch 16 (CUDA events). Once an arm under torch.profiler (stable
+    counts, so one window each): busy ms and graph nodes a token over
+    GRAMMAR_PROFILE_TOKENS batch-1 tokens and over one batch-16 chunk."""
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+    from distributed_llama_tpu_torch.runtime.engine import GenerationResult
+
+    ids = tok.encode(PROMPT)
+    pos = len(ids) - 1
+    one = {on: spec_engine(mp, kv_layout="contiguous", grammar=on) for on in (False, True)}
+    sixteen = {on: spec_engine(mp, batch=16, kv_layout="paged", cache_dtype="int8", grammar=on)
+               for on in (False, True)}
+    prompts = [ids[: 16 + (len(ids) - 16) * i // 15] for i in range(16)]
+    sessions = {}
+    for on, eng in sixteen.items():
+        speculate(eng, 8)
+        s = sessions[on] = BatchSession(eng)
+        for r in range(16):
+            s.admit(r, prompts[r])
+
+    def setup(eng):
+        eng.reset()
+        eng.prefill(ids[:-1])
+
+    def decode(eng, n):
+        res = GenerationResult(tokens=list(ids), n_prompt_tokens=len(ids))
+        eng._decode_device(res, ids[-1], pos, pos + n, None, None, None, time.perf_counter())
+
+    def chunks(s, k=4):
+        if s.pos.max() + k * 8 + 1 > MAX_SEQ_LEN:
+            raise AssertionError("the batch-16 A/B session ran out of context")
+        for _ in range(k):
+            s.step(8)
+
+    arm = {False: "without arena", True: "with arena"}
+    out = {"phase": "grammar_ab", "tokens": GRAMMAR_AB_TOKENS,
+           "profiled_tokens": GRAMMAR_PROFILE_TOKENS}
+    rates = {k: {False: [], True: []} for k in ("batch 1 tok/s", "batch 16 tok/s",
+                                                "verify ms batch 1 t 5", "verify ms batch 16 t 9")}
+    for on in (False, True, True, False):
+        for eng in (one[on], one[on]):  # a warm run, then the timed one
+            setup(eng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(eng, GRAMMAR_AB_TOKENS)
+            torch.cuda.synchronize()
+        rates["batch 1 tok/s"][on].append(GRAMMAR_AB_TOKENS / (time.perf_counter() - t0))
+        chunks(sessions[on], 1)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks(sessions[on])
+        torch.cuda.synchronize()
+        rates["batch 16 tok/s"][on].append(4 * 8 * 16 / (time.perf_counter() - t0))
+    for on in (False, True):
+        out[f"batch 1 profiled {arm[on]}"] = profile_window(
+            torch, f"llama32_1b batch 1 contiguous {arm[on]}",
+            partial(decode, one[on], GRAMMAR_PROFILE_TOKENS), GRAMMAR_PROFILE_TOKENS,
+            setup=partial(setup, one[on]))
+        out[f"batch 16 profiled {arm[on]}"] = profile_window(
+            torch, f"llama32_1b batch-16 paged int8 chunk {arm[on]}",
+            partial(chunks, sessions[on], 1), 8 * 16)
+    # after the decode: a round writes junk KV at PROMPT's end in every row
+    for on in (False, True, True, False):
+        one[on].reset()
+        rates["verify ms batch 1 t 5"][on].append(verify_round_ms(torch, one[on], 5))
+        rates["verify ms batch 16 t 9"][on].append(verify_round_ms(torch, sixteen[on], 9))
+    for key, v in rates.items():
+        out[key] = {arm[on]: v[on] for on in (False, True)}
+    for key in [k for k in out if " profiled " in k]:
+        out[key] = {k: out[key][k] for k in AB_KEYS}
+    log(json.dumps(out))
+    for eng in (*one.values(), *sixteen.values()):
+        eng.close()
+    return out
+
+
+def grammar_phase(torch, mp: str, tp: str, counters, expected) -> dict:
+    """Phase 5e at Llama-3.2-1B width, counted as one path: every launch
+    counter set to 0 just before and read just after."""
+    from distributed_llama_tpu_torch.runtime.grammar import GrammarCompiler
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    tok = Tokenizer(tp)
+    t0 = time.perf_counter()
+    comp = GrammarCompiler(tok, vocab_size=LLAMA32_1B["vocab_size"])
+    for spec in grammar_specs().values():
+        comp.compile(*spec)
+    log(json.dumps({"phase": "grammar_compile", "vocab": LLAMA32_1B["vocab_size"],
+                    "seconds": time.perf_counter() - t0,
+                    "states": {k: comp.compile(*v).n_states for k, v in grammar_specs().items()}}))
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    for layout, kv in (("contiguous", None), ("paged", None), ("paged", "int8")):
+        grammar_layout(torch, mp, tok, comp, layout, kv)
+        release(torch)
+    grammar_session(torch, mp, tok, comp)
+    release(torch)
+    grammar_ab(torch, mp, tok)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    check_launched(launches, expected, "the grammar phase")
+    return launches
+
+
+def grammar_moe(torch, eng, tp: str, counters, expected) -> dict:
+    """Phase 5e at Qwen3-30B-A3B width on the phase-5b engine (built with
+    the arena): one constrained greedy generate of GRAMMAR_STEPS tokens
+    under the open object (an unbounded string and integer), 0 illegal
+    tokens, counted as its own path."""
+    from distributed_llama_tpu_torch.runtime.grammar import GrammarCompiler, GrammarSession
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    tok = Tokenizer(tp)
+    g = GrammarCompiler(tok, vocab_size=QWEN3_30B_A3B["vocab_size"]).compile(
+        *grammar_specs()["open"])
+    ids = tok.encode(PROMPT)
+    speculate(eng, 0)
+    eng.reset()
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    s = GrammarSession(eng.grammar, g)
+    t0 = time.perf_counter()
+    res = eng.generate(ids, len(ids) - 1 + GRAMMAR_STEPS, grammar=s)
+    wall = time.perf_counter() - t0
+    s.close()
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    check = grammar_replay(tok, g, res.tokens[len(ids):])
+    out = {"phase": "grammar", "setup": "qwen3_30b_a3b batch 1 contiguous",
+           "arena_states": eng.grammar.n_states, "arena_bytes": eng._gr_table.numel() * 4,
+           "wall_s": wall, **check, "launches": launches}
+    log(json.dumps(out))
+    grammar_valid(check, "30B-A3B constrained generate", must_finish=False)
+    check_launched(launches, expected, "the 30B-A3B grammar run")
+    return launches
+
+
 # the host-side launch calls a window counts: the CUDA runtime's and the
 # low-level cu* entries, plain and extended (a kernel launched as a
 # thread-block cluster goes through cudaLaunchKernelEx), and a CUDA graph's
@@ -3448,6 +3898,21 @@ def spec_divergence_only(torch) -> int:
     return 0
 
 
+def grammar_only(torch) -> int:
+    """`--grammar`: phase 5e at Llama-3.2-1B width alone, counted, each
+    kernel of its path launched."""
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+
+    mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B)
+    launches = grammar_phase(
+        torch, mp, tp, (*q.KERNELS, *ca.KERNELS),
+        (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked, q.q40_gemm_bf16,
+         ca.flash_attention, ca.paged_flash_attention))
+    print(json.dumps({"phase": "grammar_launches", "launches": launches}))
+    return 0
+
+
 def release(torch) -> None:
     """Drop what a finished phase left on the card."""
     gc.collect()
@@ -3465,6 +3930,8 @@ def main(argv=None) -> int:
     ap.add_argument("--models", type=Path, help="with --profiles: where the model files live")
     ap.add_argument("--spec-divergence", action="store_true",
                     help="only phase 5d's paged int8 k 8 chains and, where they part, arm_growth")
+    ap.add_argument("--grammar", action="store_true",
+                    help="only phase 5e at Llama-3.2-1B width")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3501,9 +3968,9 @@ def main(argv=None) -> int:
         log(f"--- nvcc {name}.cu\n{text.strip()}")
     log(f"kernels built in {secs:.1f} s ({len(logs)} compiled, one nvcc each, in parallel)")
     done("phases 1-2")
-    if args.profiles or args.spec_divergence:
+    if args.profiles or args.spec_divergence or args.grammar:
         rc = (profiles_only(torch, args.profiles, args.models) if args.profiles
-              else spec_divergence_only(torch))
+              else spec_divergence_only(torch) if args.spec_divergence else grammar_only(torch))
         print(smi)
         return rc
 
@@ -3610,8 +4077,10 @@ def main(argv=None) -> int:
     assert len(set(texts.values())) == 1, "1B CLI: ngram and off print other tokens"
     release(torch)
     done("the 1B contiguous CLI paths")
-    # 8 steps a window (16 until phase 5d came, to keep the script's time)
-    decode_profile(torch, "llama32_1b", mp, steps=8, windows=SAMPLED)
+    # 8 steps a window (16 until phase 5d came) and the top-p arm's window
+    # alone sampled (the full distribution's too until phase 5e came), to
+    # keep the script's time
+    decode_profile(torch, "llama32_1b", mp, steps=8, windows=SAMPLED[:2])
     release(torch)
     done("the 1B decode profiles")
     paths["llama32_1b perplexity paged"] = perplexity_path(
@@ -3658,6 +4127,11 @@ def main(argv=None) -> int:
                                   q.q40_gemm_bf16, ca.flash_attention, ca.paged_flash_attention))
     release(torch)
     done("phase 5d")
+    paths["llama32_1b grammar"] = grammar_phase(
+        torch, mp, tp, counters, (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked,
+                                  q.q40_gemm_bf16, ca.flash_attention, ca.paged_flash_attention))
+    release(torch)
+    done("phase 5e")
     Path(mp).unlink()  # room on the disk for the MoE file
     done("phases 5-6 at Llama-3.2-1B width")
 
@@ -3684,8 +4158,10 @@ def main(argv=None) -> int:
     assert len(set(texts.values())) == 1, "30B-A3B CLI: the default and off print other tokens"
     release(torch)
     done("the 30B-A3B CLI paths")
-    # one 18 GB load for the profiles, phase 5b and phase 5d's MoE part
-    eng = spec_engine(mp, kv_layout="contiguous")
+    # one 18 GB load for the profiles, phase 5b and phase 5d's and 5e's MoE
+    # parts; with the grammar arena, as the CLI builds its engine
+    eng = spec_engine(mp, kv_layout="contiguous", grammar=True)
+    paths["qwen3_30b_a3b grammar"] = grammar_moe(torch, eng, tp, counters, moe)
     speculate(eng, 0)
     decode_profile(torch, "qwen3_30b_a3b", mp, steps=8, eng=eng)
     prefill_profile(torch, "qwen3_30b_a3b", mp, eng=eng)

@@ -21,7 +21,11 @@ costs about 20 decode tokens); the flag or the env still turns it on. At
 the printed row 0 may part from a batch-1 run. `--draft-k` caps the drafted tokens a
 round (0: DLT_DRAFT_K env, else 4); `--speculative model` drafts with
 the `--draft-model` file, a second engine at batch 1 with speculation and
-the prefix cache off, and raises ValueError without one. The
+the prefix cache off, and raises ValueError without one. As in the JAX
+CLI, the engine builds the grammar arena (runtime/grammar.py) on one
+device with device decode, so every decode and verify graph carries the
+grammar mask at the all-legal FREE state; DLT_GRAMMAR=0 turns it off,
+and under `--sp` or `--host-decode` it stays off. The
 reference's `worker` mode, anywhere in argv, prints the JAX CLI's migration
 text on stderr and returns 2, as the JAX CLI does.
 
@@ -40,6 +44,7 @@ import numpy as np
 from .formats.mfile import MFileReader
 from .parallel import make_mesh
 from .runtime.engine import InferenceEngine
+from .runtime.grammar import resolve_grammar_enabled
 from .runtime.paged_kv import resolve_kv_layout
 from .runtime.prefix_cache import resolve_budget_mb
 from .runtime.speculative import (
@@ -171,6 +176,13 @@ def make_engine(args) -> InferenceEngine:
             "pipeline meshes: this topology keeps the contiguous KV layout"
         )
         kv_layout = "contiguous"
+    # the grammar arena as the JAX CLI builds it (cli.py:251-260): on by
+    # default where it can serve, one device with device decode, so every
+    # decode program carries the mask; off under --sp and --host-decode
+    # (an explicit DLT_GRAMMAR=1 still reaches the engine, which warns);
+    # DLT_GRAMMAR=0 turns it off. Library engines keep the env-or-off default
+    gr_capable = mesh is None and not args.host_decode
+    grammar = resolve_grammar_enabled(None, default="1" if gr_capable else "0")
     draft_source = None
     if spec_mode == "model":
         # the draft engine: batch 1, speculation and the prefix cache off
@@ -201,6 +213,7 @@ def make_engine(args) -> InferenceEngine:
             speculative=spec_mode or "off",
             draft_k=draft_k,
             draft_source=draft_source,
+            grammar=grammar,
         )
     except BaseException:
         if draft_source is not None:

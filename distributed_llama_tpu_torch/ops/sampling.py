@@ -19,6 +19,14 @@ The batched path's per-row sampling (`sample_logits_per_row`, the JAX
 package's :158) takes per-row settings as device vectors and one uniform
 draw per row from `row_coins`, a counter-based hash of the row's seed and
 draw count (the counterpart of `split_row_keys` :143).
+
+Grammar-constrained decoding (runtime/grammar.py) masks the logits before
+every arm (`apply_grammar_mask`, the JAX package's :27): one gather of the
+arena table's rows at the per-row states and a `where`. A free row rides
+the arena's all-legal FREE state, where the mask selects every logit as
+it is, so its tokens are the grammar-less engine's bit for bit.
+`advance_grammar` moves the states by the sampled tokens, as the JAX
+decode scan does (`runtime/decode.py:86-89`).
 """
 
 from __future__ import annotations
@@ -28,6 +36,36 @@ import torch
 
 #: the arms a decode step samples with (`sampler_arm`), each a graph key
 SAMPLERS = ("greedy", "full", "topp")
+
+#: the value of a grammar-illegal logit: exp() of it underflows to exactly 0
+#: in every compute dtype, and it stays finite in bfloat16 (JAX's `_MASKED`)
+MASKED = -1e30
+
+
+def apply_grammar_mask(
+    logits: torch.Tensor,  # [..., vocab]
+    grammar_table: torch.Tensor | None,  # [S, vocab] int32; -1 = illegal
+    grammar_state: torch.Tensor | None,  # [...] int64 global DFA states
+) -> torch.Tensor:
+    """Mask grammar-illegal tokens to MASKED before any sampling arm: the
+    legality rows ``table[state] >= 0`` gathered at the states, then a
+    `where`. The states are int64 on the device (torch's index dtype; the
+    table keeps JAX's int32 values), so the gather needs no cast inside a
+    graph. The identity when either operand is None (an engine without a
+    grammar arena)."""
+    if grammar_table is None or grammar_state is None:
+        return logits
+    legal = grammar_table[grammar_state] >= 0  # [..., vocab] bool
+    return torch.where(legal, logits, MASKED)
+
+
+def advance_grammar(grammar_table: torch.Tensor, grammar_state: torch.Tensor,
+                    token: torch.Tensor) -> torch.Tensor:
+    """The states after `token` [b]: ``table[state, token]`` where legal,
+    else the state unchanged (the JAX decode step's advance). Returns [b]
+    int64."""
+    adv = grammar_table[grammar_state, token].to(grammar_state.dtype)
+    return torch.where(adv < 0, grammar_state, adv)
 
 
 def sampler_arm(temperature, topp) -> str:
@@ -67,9 +105,13 @@ def sample_logits_traced(
     temperature: float,  # <= 0 = greedy
     topp: float,  # outside (0, 1) = full distribution
     generator: torch.Generator | None = None,
+    grammar_table: torch.Tensor | None = None,  # [S, vocab] int32 arena
+    grammar_state: torch.Tensor | None = None,  # [b] int64 global DFA states
 ) -> torch.Tensor:
     """Returns [b] int64 sampled tokens, on the logits' device: the greedy
-    argmax, or `sample_logits_device` with the settings as device vectors."""
+    argmax, or `sample_logits_device` with the settings as device vectors.
+    Grammar operands mask the logits before either arm."""
+    logits = apply_grammar_mask(logits, grammar_table, grammar_state)
     arm = sampler_arm(temperature, topp)
     if arm == "greedy":
         # argmax returns the first maximal index on ties, as jnp.argmax does
@@ -86,15 +128,19 @@ def sample_logits_device(
     topp: torch.Tensor,  # [b] f32; outside (0, 1) = full distribution
     generator: torch.Generator | None = None,
     topp_arm: bool = True,  # False: no row's topp lies in (0, 1)
+    grammar_table: torch.Tensor | None = None,
+    grammar_state: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The sampled decode step with its settings on the device: one uniform
     draw a row from `generator`, then `sample_logits_per_row`'s math (the
-    vocab-order CDF or the top-p sorted CDF, selected per row). No host
-    value enters but the arm, so a CUDA graph captures it once an arm for
-    every temperature and top-p; with the generator registered in the
-    graph, each replay draws fresh numbers. Returns [b] int64."""
+    vocab-order CDF or the top-p sorted CDF, selected per row), over the
+    grammar-masked logits. No host value enters but the arm, so a CUDA
+    graph captures it once an arm for every temperature and top-p; with
+    the generator registered in the graph, each replay draws fresh
+    numbers. Returns [b] int64."""
     coin = torch.rand((logits.shape[0], 1), generator=generator, device=logits.device)
-    return sample_logits_per_row(logits, coin, temperature, topp, topp_arm)
+    return sample_logits_per_row(logits, coin, temperature, topp, topp_arm,
+                                 grammar_table, grammar_state)
 
 
 _M32 = 0xFFFFFFFF
@@ -136,6 +182,8 @@ def sample_logits_per_row(
     temperature: torch.Tensor,  # [b] f32; <= 0 = greedy for that row
     topp: torch.Tensor,  # [b] f32; outside (0, 1) = full distribution
     topp_arm: bool = True,  # False: no sampled row's topp lies in (0, 1)
+    grammar_table: torch.Tensor | None = None,  # [S, vocab] int32 arena
+    grammar_state: torch.Tensor | None = None,  # [b] int64 global DFA states
 ) -> torch.Tensor:
     """Per-row sampling settings as device vectors, so one chunk serves any
     mix of greedy, temperature and top-p rows: the JAX package's
@@ -143,7 +191,9 @@ def sample_logits_per_row(
     vocab-order CDF (topp outside (0, 1)) or the top-p sorted CDF, all
     computed and then selected per row. Without `topp_arm` (`sampler_arm`
     says "full") the sorted CDF, which no row would select, is skipped:
-    the same tokens. Returns [b] int64."""
+    the same tokens. Grammar operands mask the logits before every arm
+    (JAX :176). Returns [b] int64."""
+    logits = apply_grammar_mask(logits, grammar_table, grammar_state)
     b, n = logits.shape
     greedy = torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits / temperature.clamp(min=1e-6)[:, None], dim=-1)

@@ -4,8 +4,8 @@ The counterpart of the JAX package's `runtime/batch_session.py`:
 `batch_decode_chunk` (:62), `prefill_row` (:114) and `BatchSession` (:160)
 with `admit`, `begin_admit`, `prefill_pending` (budgeted, interleaved with
 decode chunks), `release`, `step`, `spec_step`, `publish_row`,
-`pending_resume` and the row queries, and the prefix-cache splice and
-publish. Not ported: grammar (ROADMAP A10c) and tracing (A10d).
+`pending_resume` and the row queries, the prefix-cache splice and
+publish, and grammar-constrained rows. Not ported: tracing (ROADMAP A10d).
 
 * Every batch row is an independent slot with its own position, last
   token, sampling settings and random stream.
@@ -32,6 +32,13 @@ publish. Not ported: grammar (ROADMAP A10c) and tracing (A10d).
   greedy rows (runtime/speculative.py `verify_row_round`): the
   "verify_row" graph of `decode.verify_step`; each row advances by its own
   1..k+1 accepted tokens, the others stay parked for the round.
+* A row may be constrained by a grammar (runtime/grammar.py): `admit` and
+  `begin_admit` take a `GrammarSession`, which the row holds from arming
+  to `release` (its owner advances and closes it, as in the JAX session).
+  On an engine with a grammar arena every chunk and round carries the
+  per-row states (a free row rides the all-legal FREE state 0), masked
+  and advanced inside the step, so constrained and free rows share one
+  graph; the host sessions are authoritative between chunks.
 """
 
 from __future__ import annotations
@@ -43,7 +50,10 @@ import torch
 
 from ..models.params import KVCache
 from ..models.transformer import forward
-from ..ops.sampling import row_coins, sample_logits_per_row, sampler_arm
+from ..ops.sampling import (
+    advance_grammar, apply_grammar_mask, row_coins, sample_logits_per_row, sampler_arm,
+)
+from .decode import sample_step
 from .speculative import choose_bucket, verify_row_round
 
 _SEED_MASK = (1 << 63) - 1
@@ -59,6 +69,16 @@ class Rows(NamedTuple):
     draws: Any  # int64: its draw counter
     temperature: Any  # f32: <= 0 = a greedy row
     topp: Any  # f32
+
+
+def row_states(grammars) -> np.ndarray | None:
+    """The per-row grammar-state operand [b] of `grammars` (GrammarSession
+    or None a row; a free row's: FREE 0), or None where no row is
+    constrained (an engine with an arena then threads FREE zeros)."""
+    if grammars is None or all(g is None for g in grammars):
+        return None
+    return np.fromiter((g.row_state if g is not None else 0 for g in grammars), np.int64,
+                       count=len(grammars))
 
 
 def row_seeds(base: int, batch: int) -> list[int]:
@@ -78,9 +98,14 @@ def batch_decode_chunk(
     page_table: torch.Tensor | None = None,
     page_size: int | None = None,
     sampler: str = "topp",  # ops/sampling.py `sampler_arm` of the rows' settings
+    grammar_table: torch.Tensor | None = None,  # [S, vocab] int32 grammar arena
+    grammar_state: torch.Tensor | None = None,  # [b] int64: free rows at FREE 0
 ) -> torch.Tensor:
     """n_steps decode iterations with per-row positions and sampling, all
-    on the device. Returns (tokens [b, n_steps], the last step's logits)."""
+    on the device; with grammar operands each step masks the logits at the
+    rows' states and advances them by the token (JAX :76-108). Returns
+    (tokens [b, n_steps], the last step's logits), and with
+    `grammar_state` the final states as a 3rd output."""
     token, pos, seeds, draws, temperature, topp = rows
     out = []
     logits = None
@@ -91,10 +116,15 @@ def batch_decode_chunk(
         )
         if sampler != "greedy":
             token = sample_logits_per_row(logits, row_coins(seeds, draws + i), temperature, topp,
-                                          topp_arm=sampler == "topp")
+                                          topp_arm=sampler == "topp", grammar_table=grammar_table,
+                                          grammar_state=grammar_state)
         else:
-            token = torch.argmax(logits, dim=-1)
+            token = torch.argmax(apply_grammar_mask(logits, grammar_table, grammar_state), dim=-1)
+        if grammar_state is not None:
+            grammar_state = advance_grammar(grammar_table, grammar_state, token)
         out.append(token)
+    if grammar_state is not None:
+        return torch.stack(out, dim=1), logits, grammar_state
     return torch.stack(out, dim=1), logits
 
 
@@ -103,17 +133,16 @@ def batch_decode_step(cfg, params, rope, cache: KVCache, bufs, kv_len: int,
     """One capture-safe `batch_decode_chunk` iteration on static buffers
     (runtime/graphs.py `StepBuffers`): the draw counter is `draws + step`
     with the step counter on the device, so a graph of it replays every
-    step of a chunk. Returns the step's logits [b, vocab] f32."""
+    step of a chunk; the grammar mask and advance at `bufs.gstate` where
+    the engine has an arena (`decode.sample_step`). Returns the step's
+    logits [b, vocab] f32."""
     logits = forward(
         cfg, params, rope, cache, bufs.token[:, None], bufs.pos, kv_len=kv_len,
         page_table=bufs.table if page_size else None, page_size=page_size,
     )
-    if sampler != "greedy":
-        token = sample_logits_per_row(
-            logits, row_coins(bufs.seeds, bufs.draws + bufs.step), bufs.temperature, bufs.topp,
-            topp_arm=sampler == "topp")
-    else:
-        token = torch.argmax(logits, dim=-1)
+    token = sample_step(logits, bufs, sampler, lambda: sample_logits_per_row(
+        logits, row_coins(bufs.seeds, bufs.draws + bufs.step), bufs.temperature, bufs.topp,
+        topp_arm=sampler == "topp", grammar_table=bufs.grammar, grammar_state=bufs.gstate))
     bufs.advance(token)
     return logits
 
@@ -145,6 +174,10 @@ class BatchSession:
         self.topp = np.full((b,), 0.9, np.float32)
         self.seeds = np.zeros((b,), np.int64)
         self.draws = np.zeros((b,), np.int64)
+        # per-row GrammarSession or None; the session is shared with the
+        # request's owner, who advances it from the accepted tokens and
+        # closes it: this list only feeds the rows' state operand
+        self.grammars: list = [None] * b
         self._admits = 0  # numbers the unseeded admissions' streams
         # rows mid-admission, in staging order: prompt and prefill progress
         self._pending: dict[int, dict] = {}
@@ -168,18 +201,20 @@ class BatchSession:
         return 0 if st is None else int(st["resume"])
 
     def admit(self, row: int, prompt_tokens: list[int], temperature: float = 0.0,
-              topp: float = 0.9, seed: int | None = None) -> None:
+              topp: float = 0.9, seed: int | None = None, grammar=None) -> None:
         """Prefill `prompt_tokens[:-1]` into `row` and arm the slot: the
         row decodes from the next `step`."""
-        self.begin_admit(row, prompt_tokens, temperature, topp, seed)
+        self.begin_admit(row, prompt_tokens, temperature, topp, seed, grammar=grammar)
         self.prefill_pending(row)
 
     def begin_admit(self, row: int, prompt_tokens: list[int], temperature: float = 0.0,
-                    topp: float = 0.9, seed: int | None = None) -> None:
+                    topp: float = 0.9, seed: int | None = None, grammar=None) -> None:
         """Stage an admission without running its prefill; `prefill_pending`
         then advances it between decode chunks. The row stays parked until
         its prefill completes. `seed`: the row's stream; None gives each
-        admission a stream of its own, numbered in arrival order."""
+        admission a stream of its own, numbered in arrival order.
+        `grammar`: the GrammarSession constraining the row (None = free);
+        an engine without a grammar arena refuses it."""
         n = len(prompt_tokens)
         if n == 0:
             raise ValueError("empty prompt")
@@ -189,6 +224,8 @@ class BatchSession:
             raise ValueError(f"row {row} is still active")
         if row in self._pending:
             raise ValueError(f"row {row} already has a pending admission")
+        if grammar is not None and self.engine.grammar is None:
+            raise ValueError("this engine was built without a grammar arena")
         if seed is None:
             self._admits += 1
             seed = (self._admits * 2654435761) & 0xFFFFFFFF
@@ -204,6 +241,7 @@ class BatchSession:
             "temperature": temperature,
             "topp": topp,
             "seed": int(seed) & _SEED_MASK,
+            "grammar": grammar,
             "resume": resume,  # the prefix-cache boundary
             "entry": entry,  # the pinned PrefixEntry to splice, or None
         }
@@ -254,6 +292,7 @@ class BatchSession:
         self.topp[row] = st["topp"]
         self.seeds[row] = st["seed"]
         self.draws[row] = 0
+        self.grammars[row] = st["grammar"]
         self.active[row] = True
         del self._pending[row]
         if eng.prefix_cache is not None and not eng._in_warmup:
@@ -271,6 +310,7 @@ class BatchSession:
         self.active[row] = False
         self.pos[row] = self.seq_len
         self.temp[row] = 0.0
+        self.grammars[row] = None  # the session's owner closes it
         st = self._pending.pop(row, None)
         if st is not None and st.get("entry") is not None:
             self.engine.prefix_cache.entry_release(st["entry"])
@@ -316,7 +356,8 @@ class BatchSession:
                 f"verify round would overrun seq_len={self.seq_len}: "
                 f"max row end {max(ends)} (draft bucket {K})"
             )
-        out = verify_row_round(eng, drafts, self.token, self.pos, self.seq_len)
+        out = verify_row_round(eng, drafts, self.token, self.pos, self.seq_len,
+                               grammars=self.grammars)
         for r, emitted in out.items():
             self.pos[r] += len(emitted)
             self.token[r] = emitted[-1]
@@ -325,7 +366,9 @@ class BatchSession:
     def step(self, n_steps: int) -> np.ndarray:
         """One decode chunk for every slot; returns host tokens [b, n_steps]
         (junk in parked rows). Raises if an active row would run past
-        seq_len."""
+        seq_len. A constrained row's chunk starts at its session's state
+        and the device advances it from step to step; the session itself
+        is advanced by its owner from the returned tokens."""
         eng = self.engine
         ends = [int(self.pos[r]) + 1 + n_steps for r in self.active_rows()]
         if ends and max(ends) > self.seq_len:
@@ -341,7 +384,8 @@ class BatchSession:
                 (r, int(self.pos[r]), int(self.pos[r]) + n_steps) for r in self.active_rows()
             )
         rows = Rows(self.token, self.pos, self.seeds, self.draws, self.temp, self.topp)
-        toks, _ = eng._decode_batch(rows, n_steps, kv_len, sampler_arm(self.temp, self.topp))
+        toks, _ = eng._decode_batch(rows, n_steps, kv_len, sampler_arm(self.temp, self.topp),
+                                    gr_state=row_states(self.grammars))
         host = toks.cpu().numpy()
         self.pos += n_steps
         # parked rows stay pinned at seq_len

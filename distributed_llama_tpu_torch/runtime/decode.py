@@ -23,6 +23,18 @@ the same logits, bit for bit, with as many launches.
 (rows aligned) or at `bufs.pos` (per row), logits at every position and
 their argmax into the ids buffer, with no host sync, so a CUDA graph of
 it is one verify round.
+
+On an engine with a grammar arena (runtime/grammar.py) every step threads
+the arena's device table and the per-row grammar states, as the JAX
+engine threads them into every decode program (engine.py:1424-1460,
+:1472-1532): the logits are masked before the sampling arm
+(`ops/sampling.py:apply_grammar_mask`), and the decode steps advance the
+states by the sampled token in the step itself (`advance_grammar`, JAX
+`runtime/decode.py:86-89`), so a chunk's later steps are masked with no
+host round trip. A verify round masks its [b, t] logits with [b, t]
+states. Free rows ride the FREE state 0, the all-legal self-loop, so no
+graph key is added and the graphs of such an engine always carry the
+mask. The eager loops and the static steps call the same two functions.
 """
 
 from __future__ import annotations
@@ -33,22 +45,32 @@ from ..models.config import ModelConfig
 from ..models.params import KVCache, ModelParams
 from ..models.transformer import forward
 from ..ops.rope import RopeTables
-from ..ops.sampling import sample_logits_device, sample_logits_traced
+from ..ops.sampling import (
+    advance_grammar, apply_grammar_mask, sample_logits_device, sample_logits_traced,
+)
 from .speculative import verify_chunk
 
 
 def decode_loop(step, token: torch.Tensor, pos_start, n_steps: int, temperature: float,
-                topp: float, generator: torch.Generator | None):
+                topp: float, generator: torch.Generator | None, grammar_table=None,
+                grammar_state=None):
     """n_steps iterations of logits = step(token[:, None], pos) and a
-    sampled token that feeds the next one. Returns (tokens [b, n_steps],
-    last_token [b], the last step's logits [b, vocab]), all on the
-    device."""
+    sampled token that feeds the next one; with grammar operands the
+    logits are masked at the row's state and the state advances by the
+    token. Returns (tokens [b, n_steps], last_token [b], the last step's
+    logits [b, vocab]), all on the device, and with `grammar_state` the
+    final states [b] as a 4th output."""
     out = []
     logits = None
     for i in range(n_steps):
         logits = step(token[:, None], pos_start + i)  # a device add for per-row positions
-        token = sample_logits_traced(logits, temperature, topp, generator=generator)
+        token = sample_logits_traced(logits, temperature, topp, generator=generator,
+                                     grammar_table=grammar_table, grammar_state=grammar_state)
+        if grammar_state is not None:
+            grammar_state = advance_grammar(grammar_table, grammar_state, token)
         out.append(token)
+    if grammar_state is not None:
+        return torch.stack(out, dim=1), token, logits, grammar_state
     return torch.stack(out, dim=1), token, logits
 
 
@@ -66,10 +88,14 @@ def decode_chunk(
     kv_len: int | None = None,  # KV read bound covering pos_start + n_steps
     page_table: torch.Tensor | None = None,  # the paged layout's tables
     page_size: int | None = None,
+    grammar_table: torch.Tensor | None = None,  # [S, vocab] int32 grammar arena
+    grammar_state: torch.Tensor | None = None,  # [b] int64 global DFA states
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run n_steps forward+sample iterations; the cache is updated in
     place. Returns (tokens [b, n_steps], last_token [b], the last step's
-    logits), all on the device."""
+    logits), all on the device; with grammar operands the masked sampling
+    and the state advance of `decode_loop`, and the final states as a 4th
+    output."""
 
     def step(tok, pos):
         return forward(
@@ -77,7 +103,8 @@ def decode_chunk(
             logits_mode="last", kv_len=kv_len, page_table=page_table, page_size=page_size,
         )
 
-    return decode_loop(step, token, pos_start, n_steps, temperature, topp, generator)
+    return decode_loop(step, token, pos_start, n_steps, temperature, topp, generator,
+                       grammar_table, grammar_state)
 
 
 def decode_step(
@@ -86,7 +113,7 @@ def decode_step(
     rope: RopeTables,
     cache: KVCache,
     bufs,  # runtime/graphs.py StepBuffers: token, pos (every row the same), step, out,
-    # temperature, topp, table
+    # temperature, topp, table, grammar and gstate
     kv_len: int,
     page_size: int | None = None,  # the paged layout's page length (bufs.table set)
     sampler: str = "greedy",  # ops/sampling.py SAMPLERS
@@ -96,20 +123,34 @@ def decode_step(
     the next token (greedy argmax, or `sample_logits_device` with the
     buffers' settings and `generator`), written into the chunk's output at
     the step counter; then token, positions and counter advance
-    (`StepBuffers.advance`). Nothing syncs with the host and no host value
-    enters but the key's. Returns the step's logits [b, vocab] f32."""
+    (`StepBuffers.advance`). With the engine's grammar table in
+    `bufs.grammar` the logits are masked at `bufs.gstate` and the states
+    advance by the token (`sample_step`). Nothing syncs with the host and
+    no host value enters but the key's. Returns the step's logits [b,
+    vocab] f32."""
     logits = forward(
         cfg, params, rope, cache, bufs.token[:, None], bufs.pos[0],
         logits_mode="last", kv_len=kv_len, page_table=bufs.table if page_size else None,
         page_size=page_size,
     )
-    if sampler != "greedy":
-        token = sample_logits_device(logits, bufs.temperature, bufs.topp, generator,
-                                     topp_arm=sampler == "topp")
-    else:
-        token = torch.argmax(logits, dim=-1)
+    token = sample_step(logits, bufs, sampler, lambda: sample_logits_device(
+        logits, bufs.temperature, bufs.topp, generator, topp_arm=sampler == "topp",
+        grammar_table=bufs.grammar, grammar_state=bufs.gstate))
     bufs.advance(token)
     return logits
+
+
+def sample_step(logits: torch.Tensor, bufs, sampler: str, sampled) -> torch.Tensor:
+    """A static step's next token: `sampled()` (its arm over the masked
+    logits), or the greedy argmax over the logits masked at `bufs.gstate`;
+    then the grammar states advance by it, where the engine has an arena."""
+    if sampler != "greedy":
+        token = sampled()
+    else:
+        token = torch.argmax(apply_grammar_mask(logits, bufs.grammar, bufs.gstate), dim=-1)
+    if bufs.grammar is not None:
+        bufs.gstate.copy_(advance_grammar(bufs.grammar, bufs.gstate, token))
+    return token
 
 
 def verify_step(cfg: ModelConfig, params: ModelParams, rope: RopeTables, cache: KVCache, bufs,
@@ -119,11 +160,14 @@ def verify_step(cfg: ModelConfig, params: ModelParams, rope: RopeTables, cache: 
     its greedy ids written into `bufs.ids[t]`. The position operand is
     the kind's: the 0-d `bufs.pos[0]` with the rows aligned ("verify"), or
     with `per_row` the [b] `bufs.pos`, a row at seq_len parked, its writes
-    landing nowhere ("verify_row"). Nothing advances and nothing syncs
-    with the host. Returns the logits [b, t, vocab] f32."""
+    landing nowhere ("verify_row"). With the engine's grammar table the
+    logits are masked at `bufs.gstates[t]` before the argmax. Nothing
+    advances and nothing syncs with the host. Returns the (masked) logits
+    [b, t, vocab] f32."""
     ids, logits = verify_chunk(
         cfg, params, rope, cache, bufs.feed[t], bufs.pos if per_row else bufs.pos[0],
         kv_len=kv_len, page_table=bufs.table if page_size else None, page_size=page_size,
+        grammar_table=bufs.grammar, grammar_state=bufs.gstates.get(t),
     )
     bufs.ids[t].copy_(ids)
     return logits

@@ -14,8 +14,9 @@ graphs here (runtime/graphs.py), the radix prefix cache's hooks
 (`prefix_cache_mb`, runtime/prefix_cache.py), and speculative decoding
 (`speculative`, `draft_k`, `draft_source`; runtime/speculative.py):
 `_dispatch_verify`, `_decode_speculative`, `_decode_batch_speculative`
-and the verify kinds of the ladder. Not ported: grammar (ROADMAP A10c),
-tracing (A10d), and the other mesh axes (A13).
+and the verify kinds of the ladder, and grammar-constrained decoding
+(`grammar`, `_gr_operand`; runtime/grammar.py). Not ported: tracing
+(ROADMAP A10d) and the other mesh axes (A13).
 
 * The engine runs on the card unless the caller asks for the CPU:
   `device=None` means "cuda" and raises where no GPU is present.
@@ -52,6 +53,19 @@ tracing (A10d), and the other mesh axes (A13).
   fetch of its greedy ids, and longest-prefix acceptance. A round with no
   draft runs one plain decode chunk instead. Sampled requests and
   host-decode engines never speculate.
+* With a grammar arena (`grammar=True`; the CLI's default on one device,
+  library engines default to off), `generate(grammar=)`,
+  `generate_batch(grammars=)` and `BatchSession` rows decode under a
+  `GrammarSession`: every decode step and verify round masks the logits
+  at the rows' states, and the decode steps advance the states on the
+  device; free rows ride the all-legal FREE state. The arena's table
+  lives in one device buffer of its full [S, vocab] shape, made at build
+  and copied into in place when the arena's version moves (only the rows
+  that changed, from page-locked memory on the card), so the graphs keep
+  reading it. A chunk starts at the session's `row_state` (there is
+  no lookahead to chain); the session advances from the fetched tokens and
+  a terminal state stops the stream like EOS. An sp mesh or host decode
+  warns and serves unconstrained, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -73,8 +87,11 @@ from ..ops.rope import build_rope_tables
 from ..ops.sampling import SAMPLERS, sampler_arm
 from ..parallel.pipeline import pipeline_decode_chunk, pipeline_forward
 from ..tokenizer import Sampler
-from .batch_session import Rows, batch_decode_chunk, batch_decode_step, row_seeds
+from .batch_session import (
+    Rows, batch_decode_chunk, batch_decode_step, row_seeds, row_states,
+)
 from .decode import decode_chunk, decode_step, verify_step
+from .grammar import GrammarArena, resolve_grammar_enabled
 from .graphs import KINDS, DecodeGraphs, GraphKey, StepBuffers
 from .paged_kv import (
     DeviceTables, PagePool, copy_page, init_kv_pool, page_pool_bytes, resolve_kv_dtype,
@@ -177,6 +194,12 @@ class InferenceEngine:
         # (bucketed at {4, 8}). None = DLT_DRAFT_K env, else 4
         draft_source=None,  # a DraftSource; required for "model" (a
         # speculative.ModelDraft wrapping the smaller engine)
+        grammar: bool | None = None,  # build the grammar arena
+        # (runtime/grammar.py) so that requests may decode under a
+        # GrammarSession. None = DLT_GRAMMAR env, else off for library
+        # engines; the CLI defaults to on. One device, device decode only:
+        # on an sp mesh or with host decode the engine warns and serves
+        # unconstrained
     ):
         if mesh is not None and device is not None:
             raise ValueError("give the engine a mesh or a device, not both")
@@ -265,6 +288,31 @@ class InferenceEngine:
         self.spec_counters: dict = {}
         # rounds, drafts and times of the last speculative generate
         self.last_spec_timing: dict | None = None
+        # grammar-constrained decoding: the arena (host table) and its one
+        # device buffer, which every decode and verify graph reads
+        self.grammar = None
+        self._gr_host = self._gr_table = None
+        self._gr_spans = self._gr_version = None
+        self.last_grammar_state = None  # the last chunk's final device states
+        if resolve_grammar_enabled(grammar):
+            if mesh is not None or not device_decode:
+                warnings.warn(
+                    "grammar-constrained decoding is single-chip "
+                    "device-decode only; this engine serves unconstrained",
+                    stacklevel=2,
+                )
+            else:
+                self.grammar = GrammarArena(self.cfg.vocab_size)
+                host = torch.from_numpy(self.grammar.table)
+                if self.device.type == "cuda":
+                    # page-locked, so an upload is a DMA; the arena writes
+                    # into this storage in place
+                    host = host.pin_memory()
+                    self.grammar.table = host.numpy()
+                self._gr_host = host
+                self._gr_table = torch.empty(host.shape, dtype=torch.int32, device=self.device)
+                self._gr_table.copy_(host)
+                self._gr_spans, self._gr_version = self.grammar.spans(), self.grammar.version
         self._sync()
         self.load_seconds = time.perf_counter() - t0
         if verbose:
@@ -309,9 +357,13 @@ class InferenceEngine:
         )
         if self.use_pipeline:
             layout += f", sp {self.mesh.sp} shards of {self.cfg.seq_len // self.mesh.sp} rows"
+        gr = ""
+        if self.grammar is not None:
+            gr = (f", grammar arena {nbytes(self._gr_table) / 2**20:.1f} MiB "
+                  f"({self.grammar.n_states} states)")
         return (
             f"💿 weights {w / 2**20:.1f} MiB, KV cache {kv / 2**20:.1f} MiB "
-            f"({self.cfg.cache_dtype}, {layout}, batch {self.batch}) on {self.device}"
+            f"({self.cfg.cache_dtype}, {layout}, batch {self.batch}){gr} on {self.device}"
         )
 
     # -- low-level steps ----------------------------------------------------
@@ -394,6 +446,43 @@ class InferenceEngine:
         tables changed (its version moved), not once per step, and in
         place: the decode graphs read this one buffer."""
         return self._tables.operand(self.page_pool)
+
+    def _gr_operand(self) -> torch.Tensor:
+        """The device grammar table: the arena's [S, vocab] int32 table,
+        brought up to date only when the arena's version moved (an install
+        or an eviction), in place, on the current stream: the decode and
+        verify graphs read this one buffer (the JAX engine's :766 uploads a
+        new array instead). Only the dirty rows move: the table changes only
+        where a span appeared, moved or left (an install writes its span,
+        an eviction resets its span to -1), and a span of the same key and
+        place holds the same rows, so the spans that differ between the
+        last upload and now cover every row that differs."""
+        ar = self.grammar
+        if self._gr_version != ar.version:
+            spans, old = ar.spans(), self._gr_spans
+            dirty = {sp for k, sp in spans.items() if old.get(k) != sp}
+            dirty |= {sp for k, sp in old.items() if spans.get(k) != sp}
+            runs = []  # the dirty spans' rows as disjoint [lo, hi) runs
+            for base, size in sorted(dirty):
+                if runs and base <= runs[-1][1]:
+                    runs[-1][1] = max(runs[-1][1], base + size)
+                else:
+                    runs.append([base, base + size])
+            for lo, hi in runs:
+                self._gr_table[lo:hi].copy_(self._gr_host[lo:hi])
+            self._gr_spans, self._gr_version = spans, ar.version
+        return self._gr_table
+
+    def _gr_operands(self, gr_state, shape) -> tuple:
+        """An eager step's grammar operands: (the device table, the states
+        `gr_state` (host, global) or FREE zeros of `shape` on the device);
+        (None, None) without an arena."""
+        if self.grammar is None:
+            return None, None
+        if gr_state is None:
+            return self._gr_operand(), torch.zeros(shape, dtype=torch.int64, device=self.device)
+        states = torch.as_tensor(np.asarray(gr_state), dtype=torch.int64).to(self.device)
+        return self._gr_operand(), states
 
     def _ensure_pages(self, spans) -> None:
         """Make every (row, start, end) span privately writable before a
@@ -506,6 +595,9 @@ class InferenceEngine:
         on_token=None,
         stop_fn=None,
         pos_start: int = 0,
+        grammar=None,  # a GrammarSession (runtime/grammar.py) constraining
+        # this generation; advanced from every emitted token, and a terminal
+        # state stops like EOS
     ) -> GenerationResult:
         """The reference `inference()` loop (dllama.cpp:13-151): prefill all
         but the last prompt token, then decode until position `steps` or
@@ -513,6 +605,11 @@ class InferenceEngine:
         0's tokens are returned."""
         if not prompt_tokens:
             raise ValueError("prompt tokens required")
+        if grammar is not None and self.grammar is None:
+            raise ValueError(
+                "this engine was built without a grammar arena "
+                "(grammar=True / DLT_GRAMMAR=1, single-chip device-decode)"
+            )
         if pos_start + len(prompt_tokens) > self.cfg.seq_len:
             raise ValueError("prompt is longer than the sequence length")
         res = GenerationResult(tokens=list(prompt_tokens), n_prompt_tokens=len(prompt_tokens))
@@ -530,9 +627,11 @@ class InferenceEngine:
             use_spec = (self.spec_mode is not None and not self._in_warmup
                         and (sampler is None or sampler.temperature == 0.0))
             if use_spec:
-                self._decode_speculative(res, token, pos, max_pos, on_token, stop_fn, wall0)
+                self._decode_speculative(res, token, pos, max_pos, on_token, stop_fn, wall0,
+                                         grammar=grammar)
             else:
-                self._decode_device(res, token, pos, max_pos, sampler, on_token, stop_fn, wall0)
+                self._decode_device(res, token, pos, max_pos, sampler, on_token, stop_fn, wall0,
+                                    grammar=grammar)
         else:
             self._decode_host(res, token, pos, max_pos, sampler, on_token, stop_fn, wall0)
         res.total_us = int((time.perf_counter() - wall0) * 1e6)
@@ -583,13 +682,15 @@ class InferenceEngine:
         return gen
 
     def _decode_chunk(self, tok_arr, pos: int, n: int, temperature: float = 0.0,
-                      topp: float = 0.9, generator=None):
+                      topp: float = 0.9, generator=None, gr_state=None):
         """n device decode steps from `tok_arr` [b], every row at pos, on
         this engine's cache and layout: the "decode" graph replayed where
         graphs are on, else the eager loop (through the sp pipeline on a
         mesh). Sampled steps draw from the engine's generator unless given
-        another (eager only). Sets `last_logits`. Returns (tokens [b, n],
-        last_token [b]) on the device."""
+        another (eager only). With a grammar arena the steps start at the
+        host states `gr_state` [b] (None: FREE) and advance them on the
+        device. Sets `last_logits` and `last_grammar_state`. Returns
+        (tokens [b, n], last_token [b]) on the device."""
         kv_len = self._kv_bucket(pos + n)
         sampler = sampler_arm(temperature, topp)
         if sampler != "greedy" and generator is None:
@@ -604,36 +705,48 @@ class InferenceEngine:
             self._ensure_pages_all_rows(pos, pos + n)
         graphs = self._graphs_for("decode")
         if graphs is None:
-            toks, last, self.last_logits = decode_chunk(
+            table, gr = self._gr_operands(gr_state, (self.batch,))
+            out = decode_chunk(
                 self.cfg, self.params, self.rope, self.cache, tok_arr, pos,
                 n_steps=n, temperature=temperature, topp=topp, generator=generator, kv_len=kv_len,
                 page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
+                grammar_table=table, grammar_state=gr,
             )
+            toks, last, self.last_logits = out[:3]
+            self.last_grammar_state = out[3] if gr is not None else None
             return toks, last
         if sampler != "greedy" and generator is not self._gen:
             raise ValueError("a graphed sampled chunk draws from the engine's generator")
         bufs = self._step_buffers()
+        self._load_gr_state(bufs.gstate, gr_state)
         bufs.token.copy_(tok_arr)
         bufs.pos.fill_(int(pos))
         bufs.temperature.fill_(float(temperature))
         bufs.topp.fill_(float(topp))
         return self._run_graphed(graphs, "decode", n, kv_len, sampler, generator)
 
-    def _decode_batch(self, rows: Rows, n: int, kv_len: int, sampler: str):
+    def _decode_batch(self, rows: Rows, n: int, kv_len: int, sampler: str, gr_state=None):
         """n "batch_decode" steps with per-row positions and sampling from
         `rows`, on the host or the device: the graph replayed where graphs
-        are on, else the eager loop. Sets `last_logits`. Returns (tokens
-        [b, n], last token [b]) on the device."""
+        are on, else the eager loop. With a grammar arena the rows start at
+        the host states `gr_state` [b] (None: FREE). Sets `last_logits` and
+        `last_grammar_state`. Returns (tokens [b, n], last token [b]) on
+        the device."""
         graphs = self._graphs_for("batch_decode")
         if graphs is None:
             rows = Rows(*(torch.as_tensor(x).to(self.device) for x in rows))
-            toks, self.last_logits = batch_decode_chunk(
+            table, gr = self._gr_operands(gr_state, (self.batch,))
+            out = batch_decode_chunk(
                 self.cfg, self.params, self.rope, self.cache, rows, n_steps=n,
                 kv_len=kv_len, page_table=self._pt_operand() if self.paged else None,
-                page_size=self.page_size, sampler=sampler,
+                page_size=self.page_size, sampler=sampler, grammar_table=table, grammar_state=gr,
             )
+            toks, self.last_logits = out[:2]
+            self.last_grammar_state = out[2] if gr is not None else None
             return toks, toks[:, -1]
-        self._step_buffers().load(rows)
+        bufs = self._step_buffers()
+        self._load_gr_state(bufs.gstate, gr_state)
+        bufs.load(rows)
         return self._run_graphed(graphs, "batch_decode", n, kv_len, sampler)
 
     # -- CUDA graphs of the decode step (runtime/graphs.py) ------------------
@@ -669,14 +782,26 @@ class InferenceEngine:
     def _step_buffers(self) -> StepBuffers:
         if self._bufs is None:
             table = self._tables.buf if self.paged else None
-            self._bufs = StepBuffers(self.batch, self.cfg.seq_len, self.device, table)
+            self._bufs = StepBuffers(self.batch, self.cfg.seq_len, self.device, table,
+                                     self._gr_table)
         return self._bufs
+
+    def _load_gr_state(self, buf: torch.Tensor, gr_state) -> None:
+        """A graphed chunk's or round's grammar states into its static
+        buffer (`bufs.gstate`, `bufs.gstates[t]`): `gr_state` or FREE zeros
+        (every chunk and round sets them, so none inherits another's)."""
+        if self.grammar is None:
+            return
+        if gr_state is None:
+            buf.zero_()
+        else:
+            buf.copy_(torch.as_tensor(np.asarray(gr_state), dtype=torch.int64))
 
     def _graph_key(self, kind: str, kv_len: int, sampler: str, size: int = 1) -> GraphKey:
         return GraphKey(kind, self.batch, kv_len, self.kv_layout, self.cfg.cache_dtype, sampler,
                         size)
 
-    def _dispatch_verify(self, tokens, pos, kv_len: int):
+    def _dispatch_verify(self, tokens, pos, kv_len: int, gr_states=None):
         """One speculative verify forward (runtime/speculative.py) over the
         host feed `tokens` [b, t]: logits at every position and their
         greedy argmax. `pos` is a host int (rows aligned: the "verify"
@@ -686,6 +811,9 @@ class InferenceEngine:
         bit; on the card the round replays the kind's CUDA graph of (t, kv
         bucket). On an sp mesh it runs eagerly at the int position, rows
         aligned only. Paged: maps [pos, pos + t) of every live row first.
+        With a grammar arena the round always carries the mask: `gr_states`
+        [b, t] host global states (None: FREE), so the argmax, bonus
+        position included, never picks an illegal token.
         Returns (ids [b, t] int32, logits [b, t, vocab] f32) on the device;
         graphed, both are static outputs, valid until the next round."""
         per_row = np.ndim(pos) != 0
@@ -707,19 +835,24 @@ class InferenceEngine:
         pos_host = torch.as_tensor(np.asarray(pos), dtype=torch.long)
         graphs = self._graphs_for(kind, size=t)
         if graphs is None:
+            table, gr = self._gr_operands(gr_states, (self.batch, t))
             return verify_chunk(
                 self.cfg, self.params, self.rope, self.cache, feed.to(self.device),
                 pos_host.to(self.device), kv_len=kv_len,
                 page_table=self._pt_operand() if self.paged else None, page_size=self.page_size,
+                grammar_table=table, grammar_state=gr,
             )
         bufs = self._step_buffers()
         bufs.verify(t)[0].copy_(feed)
+        self._load_gr_state(bufs.gstates.get(t), gr_states)
         if per_row:
             bufs.pos.copy_(pos_host)
         else:
             bufs.pos.fill_(int(pos))
         if self.paged:
             self._pt_operand()
+        if self.grammar is not None:
+            self._gr_operand()
         step = partial(verify_step, self.cfg, self.params, self.rope, self.cache, bufs, t,
                        kv_len, self.page_size, per_row)
         graphs.run(self._graph_key(kind, kv_len, "greedy", size=t), step, 1)
@@ -733,6 +866,8 @@ class InferenceEngine:
         bufs = self._step_buffers()
         if self.paged:
             self._pt_operand()
+        if self.grammar is not None:
+            self._gr_operand()
         bufs.begin(n)
         args = (self.cfg, self.params, self.rope, self.cache, bufs, kv_len, self.page_size)
         if kind == "decode":
@@ -742,6 +877,7 @@ class InferenceEngine:
         graphs.run(self._graph_key(kind, kv_len, sampler), step, n,
                    generator if sampler != "greedy" and kind == "decode" else None)
         self.last_logits = graphs.last_logits
+        self.last_grammar_state = bufs.gstate if self.grammar is not None else None
         return bufs.out[:, :n].clone(), bufs.token.clone()
 
     def _kv_buckets(self) -> list:
@@ -817,7 +953,10 @@ class InferenceEngine:
         engine's warmup leaves it. A verify kind's round is greedy and
         feeds zeros at position 0; "verify_row" has row 0 live and the
         other rows parked at seq_len, the serving shape. A draft source's
-        own warmup (a ModelDraft's engine) runs before the seal. Returns
+        own warmup (a ModelDraft's engine) runs before the seal. On an
+        engine with a grammar arena every warm step carries the mask at the
+        FREE state, as every later chunk and round does (JAX :1139-1153),
+        so constrained requests after warmup capture nothing. Returns
         `graph_stats()`."""
         t0 = time.perf_counter()
         self._in_warmup = True
@@ -844,8 +983,10 @@ class InferenceEngine:
                     if self._graph_key(kind, kvb, sampler) in graphs:
                         continue
                     zeros = [0] * self.batch  # token 0 at position 0, seed 0, draw 0
-                    self._step_buffers().load(
+                    bufs = self._step_buffers()
+                    bufs.load(
                         Rows(zeros, zeros, zeros, zeros, [1.0] * self.batch, [0.9] * self.batch))
+                    self._load_gr_state(bufs.gstate, None)  # every row FREE
                     self._run_graphed(graphs, kind, 1, kvb, sampler, self._rng())
             if self.draft_source is not None:
                 self.draft_source.warmup()
@@ -868,7 +1009,8 @@ class InferenceEngine:
         out["warmup_seconds"] = self.warmup_seconds
         return out
 
-    def _decode_device(self, res, token, pos, max_pos, sampler, on_token, stop_fn, wall0):
+    def _decode_device(self, res, token, pos, max_pos, sampler, on_token, stop_fn, wall0,
+                       grammar=None):
         """Chunked on-device decode: n forward+sample steps per chunk, one
         token fetch per chunk; each chunk's last token stays on the device
         and feeds the next chunk. On the card a chunk is n replays of the
@@ -881,7 +1023,14 @@ class InferenceEngine:
         TTFT 2.0 s with the lookahead, 0.29 s without). A graphed chunk's
         dispatch is n graph launches, far shorter than the chunk, so there
         a lookahead could hide the fetch; it is not ported, and its TTFT is
-        not measured."""
+        not measured.
+
+        With a `grammar` session each chunk starts at its `row_state` (the
+        JAX engine chains the lookahead chunk from the device's final
+        states instead; with no lookahead the two agree for every row not
+        done), the session advances from each fetched token, and a
+        terminal or finished grammar stops like EOS: the token is
+        delivered, the chunk's tail is ordinary overrun."""
         temperature = 0.0 if sampler is None else sampler.temperature
         topp = sampler.topp if sampler is not None else 0.9
         gen = self._generator(sampler)
@@ -893,7 +1042,8 @@ class InferenceEngine:
             # chunk (the JAX engine's TTFT ramp; the same chunk ladder as there)
             n = self._chunk_size(min(max_pos, self.cfg.seq_len) - pos,
                                  ramp=first and on_token is not None)
-            toks, tok_arr = self._decode_chunk(tok_arr, pos, n, temperature, topp, gen)
+            gr = None if grammar is None else np.full((self.batch,), grammar.row_state)
+            toks, tok_arr = self._decode_chunk(tok_arr, pos, n, temperature, topp, gen, gr)
             host_toks = toks[0].tolist()  # the one device-to-host fetch of the chunk
             now = time.perf_counter()
             res.pred_steps.append(StepTiming(eval_us=int((now - t_prev) * 1e6), n_tokens=n))
@@ -904,6 +1054,8 @@ class InferenceEngine:
             for t in host_toks:
                 res.tokens.append(t)
                 pos += 1
+                if grammar is not None:
+                    grammar.advance(t)
                 if on_token is not None:
                     on_token(t)
                 if stop_fn is not None and stop_fn(t):
@@ -911,8 +1063,11 @@ class InferenceEngine:
                     # up to the chunk's tail, which a continuation rewrites
                     # before reading
                     return
+                if grammar is not None and (grammar.done or grammar.at_terminal):
+                    return
 
-    def _decode_speculative(self, res, token, pos, max_pos, on_token, stop_fn, wall0):
+    def _decode_speculative(self, res, token, pos, max_pos, on_token, stop_fn, wall0,
+                            grammar=None):
         """Greedy speculative decode (runtime/speculative.py), the JAX
         engine's `_decode_speculative`: each round the draft source proposes
         up to k tokens from the live context, one verify round scores
@@ -925,7 +1080,10 @@ class InferenceEngine:
         are discarded. Records `last_spec_timing`: `verify_us` covers the
         rounds from dispatch to their ids on the host; `fetch_us`, inside
         it, the fetches, which wait for the device work the dispatch left
-        running before they copy."""
+        running before they copy. With a `grammar` session the drafts are
+        cut to their legal prefix, the round masks each position at the
+        session's walk of the drafts (`verify_states`), and the session
+        advances and stops as in `_decode_device`."""
         ds = self.draft_source
         seq_len = self.cfg.seq_len
         t0 = time.perf_counter()
@@ -939,6 +1097,10 @@ class InferenceEngine:
                     kmax = b
             td = time.perf_counter()
             drafts = ds.draft(list(res.tokens), kmax) if kmax else []
+            if grammar is not None and drafts:
+                # grammar-hostile drafts collapse to their legal prefix
+                # before the round is shaped
+                drafts = drafts[: grammar.legal_prefix(drafts)]
             draft_us += int((time.perf_counter() - td) * 1e6)
             tv = time.perf_counter()
             if drafts:
@@ -946,8 +1108,15 @@ class InferenceEngine:
                 K = next(b for b in self.spec_buckets if b >= len(drafts))
                 size = K + 1
                 feed = [int(token)] + drafts + [0] * (K - len(drafts))
+                gr_states = None
+                if grammar is not None:
+                    row = np.zeros((size,), np.int64)
+                    vs = grammar.verify_states(drafts)
+                    row[: len(vs)] = vs
+                    gr_states = np.repeat(row[None, :], self.batch, axis=0)
                 ids_dev, _ = self._dispatch_verify(
-                    np.asarray([feed] * self.batch, np.int64), pos, self._kv_bucket(pos + size))
+                    np.asarray([feed] * self.batch, np.int64), pos, self._kv_bucket(pos + size),
+                    gr_states=gr_states)
                 tf = time.perf_counter()
                 ids = ids_dev[0].tolist()  # the round's one fetch
                 fetch_us += int((time.perf_counter() - tf) * 1e6)
@@ -962,7 +1131,9 @@ class InferenceEngine:
             else:
                 n = self._chunk_size(min(max_pos, seq_len) - pos,
                                      ramp=first and on_token is not None)
-                toks, _ = self._decode_chunk(self._tokens([token] * self.batch), pos, n)
+                gr = None if grammar is None else np.full((self.batch,), grammar.row_state)
+                toks, _ = self._decode_chunk(self._tokens([token] * self.batch), pos, n,
+                                             gr_state=gr)
                 emitted = toks[0].tolist()  # the chunk's one fetch
                 dt = int((time.perf_counter() - tv) * 1e6)
                 fallback_chunks += 1
@@ -977,9 +1148,14 @@ class InferenceEngine:
                 res.tokens.append(t)
                 pos += 1
                 emitted_total += 1
+                if grammar is not None:
+                    grammar.advance(t)
                 if on_token is not None:
                     on_token(t)
                 if stop_fn is not None and stop_fn(t):
+                    stopped = True
+                    break
+                if grammar is not None and (grammar.done or grammar.at_terminal):
                     stopped = True
                     break
             token = res.tokens[-1]
@@ -1005,10 +1181,14 @@ class InferenceEngine:
         sampler: Sampler | None = None,
         on_token=None,  # on_token(row, token) as tokens arrive
         stop_fn=None,  # stop_fn(row, token) -> bool, per row
+        grammars=None,  # per-row GrammarSession list (None entries: free
+        # rows riding the FREE state)
     ) -> list:
         """Independent continuations of `batch` different prompts in one
         batch, each row its own sequence with its own positions (the JAX
-        engine's `generate_batch` :1641, without grammar: ROADMAP A10c).
+        engine's `generate_batch` :1641). A constrained row (`grammars`)
+        advances its session from each token and stops at a terminal or
+        finished grammar, as `generate` does.
         A greedy batch on a speculating device-decode engine decodes in
         per-row verify rounds (`_decode_batch_speculative`). With a prefix
         cache the rows' common prefix is matched and a hit
@@ -1027,6 +1207,14 @@ class InferenceEngine:
             raise ValueError(f"need exactly {self.batch} prompts, got {len(prompts)}")
         if any(len(p) == 0 for p in prompts):
             raise ValueError("empty prompt")
+        if grammars is not None:
+            if self.grammar is None and any(g is not None for g in grammars):
+                raise ValueError(
+                    "this engine was built without a grammar arena "
+                    "(grammar=True / DLT_GRAMMAR=1, single-chip device-decode)"
+                )
+            if len(grammars) != self.batch:
+                raise ValueError("per-row grammars must match the batch size")
         lens = [len(p) for p in prompts]
         if isinstance(max_new_tokens, int):
             budgets = [max_new_tokens] * self.batch
@@ -1068,23 +1256,28 @@ class InferenceEngine:
         if max(budgets) > 0:
             if (self.spec_mode is not None and self.device_decode and not self._in_warmup
                     and (sampler is None or sampler.temperature == 0.0)):
-                self._decode_batch_speculative(prompts, lens, budgets, out, on_token, stop_fn)
+                self._decode_batch_speculative(prompts, lens, budgets, out, on_token, stop_fn,
+                                               grammars)
             else:
                 self._decode_batch_chunked(prompts, lens, budgets, out, sampler, on_token,
-                                           stop_fn)
+                                           stop_fn, grammars)
         if cached and resume == 0:
             # after the decode, so a failed batch publishes nothing; a hit
             # means the prefix is published already
             pc.publish_from_row(self, 0, list(prompts[0]), max_len=min(common_len, lens[0] - 1))
         return out
 
-    def _decode_batch_chunked(self, prompts, lens, budgets, out, sampler, on_token, stop_fn):
+    def _decode_batch_chunked(self, prompts, lens, budgets, out, sampler, on_token, stop_fn,
+                              grammars=None):
         """generate_batch's chunked decode loop, one token fetch per chunk
         and no lookahead (`_decode_device` gives the reason). Chunks are
         planned against the largest per-row budget; rows cap at their own
         budgets as the tokens are consumed. Each chunk is a "batch_decode"
         chunk, `BatchSession.step`'s: per-row positions, and with a sampler
-        per-row streams (`row_coins`) seeded from the sampler's state."""
+        per-row streams (`row_coins`) seeded from the sampler's state. A
+        chunk starts each constrained row at its session's `row_state` (the
+        JAX loop chains the device's final states into its lookahead
+        chunk: the same states for every row not done)."""
         temperature = 0.0 if sampler is None else sampler.temperature
         topp = sampler.topp if sampler is not None else 0.9
         base = int(sampler._state) if sampler is not None else 0
@@ -1099,7 +1292,8 @@ class InferenceEngine:
         while planned < total_needed and not all(done):
             n = self._chunk_size(total_needed - planned, ramp=planned == 0 and on_token is not None)
             live = {r: lens[r] - 1 + planned for r in range(self.batch) if not done[r]}
-            toks, last = self._batch_chunk(rows, live, n, sampler_arm(temperature, topp))
+            toks, last = self._batch_chunk(rows, live, n, sampler_arm(temperature, topp),
+                                           row_states(grammars))
             rows = rows._replace(token=last, pos=rows.pos + n, draws=rows.draws + n)
             planned += n
             host = toks.cpu().tolist()  # [b][n], the chunk's one fetch
@@ -1110,12 +1304,17 @@ class InferenceEngine:
                         continue
                     tkn = host[r][j]
                     out[r].append(tkn)
+                    g = grammars[r] if grammars is not None else None
+                    if g is not None:
+                        g.advance(tkn)
                     if on_token is not None:
                         on_token(r, tkn)
-                    if (stop_fn is not None and stop_fn(r, tkn)) or len(out[r]) >= budgets[r]:
+                    if ((stop_fn is not None and stop_fn(r, tkn))
+                            or (g is not None and (g.done or g.at_terminal))
+                            or len(out[r]) >= budgets[r]):
                         done[r] = True
 
-    def _batch_chunk(self, rows: Rows, live: dict, n: int, sampler: str):
+    def _batch_chunk(self, rows: Rows, live: dict, n: int, sampler: str, gr_state=None):
         """One "batch_decode" chunk of n steps from `rows` (`_decode_batch`).
         `live` maps each live row to its position: those rows get pages over
         their chunk span, and the read bound covers the furthest position
@@ -1125,9 +1324,10 @@ class InferenceEngine:
         if self.paged:
             self._ensure_pages((r, p, p + n) for r, p in live.items() if p < seq_len)
         kvb = self._kv_bucket(min(max(live.values()) + 1 + n, seq_len))
-        return self._decode_batch(rows, n, kvb, sampler)
+        return self._decode_batch(rows, n, kvb, sampler, gr_state)
 
-    def _decode_batch_speculative(self, prompts, lens, budgets, out, on_token, stop_fn):
+    def _decode_batch_speculative(self, prompts, lens, budgets, out, on_token, stop_fn,
+                                  grammars=None):
         """generate_batch's speculative loop (greedy batches), the JAX
         engine's `_decode_batch_speculative`: each round drafts per row from
         the row's own context, then runs one per-row verify round
@@ -1135,7 +1335,9 @@ class InferenceEngine:
         token) or, when no row drafted, one plain "batch_decode" chunk at
         per-row positions, whose tokens past a row's budget or stop are
         discarded. Finished rows park at seq_len. Rows advance unevenly, so
-        positions and tokens are host lists."""
+        positions and tokens are host lists. Constrained rows (`grammars`)
+        are cut to their legal drafts in the round and advance and stop as
+        in `_decode_batch_chunked`."""
         b = self.batch
         seq_len = self.cfg.seq_len
         ds = self.draft_source
@@ -1152,7 +1354,7 @@ class InferenceEngine:
                 d = ds.draft(list(prompts[r]) + out[r], cap) if cap > 0 else []
                 drafts[r] = [int(t) for t in d[: max(cap, 0)]]
             if any(drafts.values()):
-                emitted = verify_row_round(self, drafts, token, pos, seq_len)
+                emitted = verify_row_round(self, drafts, token, pos, seq_len, grammars=grammars)
             else:
                 n = self._chunk_size(max(budgets[r] - len(out[r]) for r in live))
                 pv = np.full((b,), seq_len, np.int64)
@@ -1162,16 +1364,22 @@ class InferenceEngine:
                 zeros = np.zeros((b,), np.int64)
                 toks, _ = self._batch_chunk(
                     Rows(tv, pv, zeros, zeros, np.zeros((b,), np.float32),
-                         np.full((b,), 0.9, np.float32)), {r: pos[r] for r in live}, n, "greedy")
+                         np.full((b,), 0.9, np.float32)), {r: pos[r] for r in live}, n, "greedy",
+                    row_states(grammars))
                 host = toks.cpu().tolist()  # the chunk's one fetch
                 emitted = {r: host[r] for r in live}
             for r, toks_r in emitted.items():
                 pos[r] += len(toks_r)
                 token[r] = toks_r[-1]
+                g = grammars[r] if grammars is not None else None
                 for t in toks_r:
                     out[r].append(t)
+                    if g is not None:
+                        g.advance(t)
                     if on_token is not None:
                         on_token(r, t)
-                    if (stop_fn is not None and stop_fn(r, t)) or len(out[r]) >= budgets[r]:
+                    if ((stop_fn is not None and stop_fn(r, t))
+                            or (g is not None and (g.done or g.at_terminal))
+                            or len(out[r]) >= budgets[r]):
                         done[r] = True
                         break

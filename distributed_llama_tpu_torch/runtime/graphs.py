@@ -23,7 +23,13 @@ chunk size as well.)
 * Every graph of an engine reads and writes one set of static buffers
   (`StepBuffers`): token, positions, seeds, draw counters, temperature,
   top-p, the step counter, the chunk's output and the engine's page table,
-  and for each verify feed length t a [b, t] feed and its greedy ids.
+  and for each verify feed length t a [b, t] feed and its greedy ids; on
+  an engine with a grammar arena also the arena's device table, the [b]
+  grammar states the decode steps mask with and advance, and for each t
+  a [b, t] state buffer. The engine copies into the table in place
+  (`InferenceEngine._gr_operand`), so a grammar install never recaptures:
+  the graphs hold its address. Free rows ride state 0, so the grammar
+  adds no key.
   The caller fills them before a chunk; each step writes its token into
   the output at the counter and advances token, positions and counter, so
   n replays run the chunk with no host work between them. A verify step
@@ -78,9 +84,13 @@ class StepBuffers:
     the chunk's step counter, `out` [b, cap] int64 the chunk's tokens,
     `table` the engine's static page table (or None); `feed[t]` [b, t]
     int64 and `ids[t]` [b, t] int32, a verify round's feed and its greedy
-    ids, for each feed length t that `verify(t)` has made."""
+    ids, for each feed length t that `verify(t)` has made. `grammar` is
+    the engine's [S, vocab] int32 grammar table (or None: no mask in any
+    step), `gstate` [b] int64 the rows' grammar states and `gstates[t]`
+    [b, t] int64 a verify round's per-position states."""
 
-    def __init__(self, batch: int, cap: int, device, table: torch.Tensor | None = None):
+    def __init__(self, batch: int, cap: int, device, table: torch.Tensor | None = None,
+                 grammar: torch.Tensor | None = None):
         for name in ("token", "pos", "seeds", "draws"):
             setattr(self, name, torch.zeros((batch,), dtype=torch.int64, device=device))
         self.temperature = torch.zeros((batch,), dtype=torch.float32, device=device)
@@ -88,16 +98,22 @@ class StepBuffers:
         self.step = torch.zeros((1,), dtype=torch.int64, device=device)
         self.out = torch.zeros((batch, cap), dtype=torch.int64, device=device)
         self.table = table
+        self.grammar = grammar
+        self.gstate = torch.zeros((batch,), dtype=torch.int64, device=device)
         self.feed: dict = {}
         self.ids: dict = {}
+        self.gstates: dict = {}
 
     def verify(self, t: int) -> tuple:
-        """The feed and ids buffers of a verify round of t tokens a row,
-        made at their first use (before the round's graph captures)."""
+        """The feed and ids buffers of a verify round of t tokens a row (and
+        its grammar states, where the engine has an arena), made at their
+        first use (before the round's graph captures)."""
         if t not in self.feed:
             b, device = self.token.shape[0], self.token.device
             self.feed[t] = torch.zeros((b, t), dtype=torch.int64, device=device)
             self.ids[t] = torch.zeros((b, t), dtype=torch.int32, device=device)
+            if self.grammar is not None:
+                self.gstates[t] = torch.zeros((b, t), dtype=torch.int64, device=device)
         return self.feed[t], self.ids[t]
 
     def load(self, rows) -> None:

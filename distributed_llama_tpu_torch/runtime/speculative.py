@@ -29,8 +29,15 @@ mismatch. One round emits 1..k+1 tokens of the plain greedy chain.
   feed is 8 or more tokens (k = 8): the one difference of arms from JAX.
 * The engine keeps the JAX package's counter names in a plain dict,
   `engine.spec_counters` (`note_round`, `spec_snapshot`).
+* Grammar-constrained rows (runtime/grammar.py) compose with speculation
+  as in the JAX package: a constrained row's drafts are cut to their
+  grammar-legal prefix (`GrammarSession.legal_prefix`), and a grammar
+  engine's verify round masks its [b, t] logits with the per-position
+  states (`GrammarSession.verify_states`; free rows and positions past
+  the acceptance horizon ride FREE), so acceptance, bonus token included,
+  never admits an illegal token.
 
-Not ported: the grammar operands (ROADMAP A10c) and tracing events (A10d).
+Not ported: tracing events (ROADMAP A10d).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import forward, moe_grouped
+from ..ops.sampling import apply_grammar_mask
 
 SPEC_MODES = ("off", "ngram", "model")
 
@@ -101,17 +109,21 @@ def verify_takes_gather_arm(cfg, batch: int, t: int) -> bool:
 
 
 def verify_chunk(cfg, params, rope, cache, tokens, pos_start, kv_len=None, page_table=None,
-                 page_size=None):
+                 page_size=None, grammar_table=None, grammar_state=None):
     """One verify forward over `tokens` [b, t]: logits at every position
     and their greedy argmax. `pos_start` is an int, a 0-d device tensor
     (rows aligned) or a [b] device tensor (per-row positions, a row at
     seq_len parked), as `forward` takes it. The t KV writes land in the
-    cache in place. Returns (greedy ids [b, t] int32, logits [b, t, vocab]
-    f32), on the device."""
+    cache in place. With grammar operands (`grammar_state` [b, t] int64:
+    position j's global state after the feed's first j drafts) the logits
+    are masked before the argmax (JAX `runtime/speculative.py:132-157`).
+    Returns (greedy ids [b, t] int32, logits [b, t, vocab] f32, masked),
+    on the device."""
     logits = forward(
         cfg, params, rope, cache, tokens, pos_start, logits_mode="all", kv_len=kv_len,
         page_table=page_table, page_size=page_size,
     )
+    logits = apply_grammar_mask(logits, grammar_table, grammar_state)
     return torch.argmax(logits, dim=-1).to(torch.int32), logits
 
 
@@ -147,18 +159,29 @@ def choose_bucket(buckets, dmax: int) -> int:
     return next((k for k in buckets if k >= dmax), buckets[-1])
 
 
-def verify_row_round(engine, drafts: dict, token, pos, seq_len: int) -> dict:
+def verify_row_round(engine, drafts: dict, token, pos, seq_len: int, grammars=None) -> dict:
     """One per-row verify round, the shared core of
     `BatchSession.spec_step` and `InferenceEngine._decode_batch_speculative`.
     `drafts` maps row -> proposed tokens (an empty list: the row takes its
     bonus token only); `token`/`pos` are row-indexable current state; rows
     absent from `drafts` are parked at `seq_len` (writes dropped, no
-    progress). Assembles the [b, K+1] feed, dispatches the ("verify_row",
-    K+1, kv bucket) round, fetches the greedy ids once and returns {row:
-    emitted tokens} after per-row acceptance (counted by `note_round`).
-    Callers advance their own position and token state."""
+    progress). `grammars` (row-indexable, entries None or GrammarSession):
+    a constrained row's drafts are cut to their legal prefix and the round
+    carries a [b, K+1] state operand (JAX :199-260). Assembles the [b, K+1]
+    feed, dispatches the ("verify_row", K+1, kv bucket) round, fetches the
+    greedy ids once and returns {row: emitted tokens} after per-row
+    acceptance (counted by `note_round`). Callers advance their own
+    position, token and grammar state."""
     rows = sorted(drafts)
+
+    def _sess(r):
+        return grammars[r] if grammars is not None else None
+
     clean = {r: [int(t) for t in drafts[r]] for r in rows}
+    for r in rows:
+        g = _sess(r)
+        if g is not None:
+            clean[r] = clean[r][: g.legal_prefix(clean[r])]
     K = choose_bucket(engine.spec_buckets, max(len(clean[r]) for r in rows))
     clean = {r: clean[r][:K] for r in rows}
     size = K + 1
@@ -168,8 +191,16 @@ def verify_row_round(engine, drafts: dict, token, pos, seq_len: int) -> dict:
         toks[r, 0] = int(token[r])
         toks[r, 1 : 1 + len(clean[r])] = clean[r]
         pv[r] = int(pos[r])
+    gr_states = None
+    if engine.grammar is not None and any(_sess(r) is not None for r in rows):
+        gr_states = np.zeros((engine.batch, size), np.int64)
+        for r in rows:
+            g = _sess(r)
+            if g is not None:
+                vs = g.verify_states(clean[r])
+                gr_states[r, : len(vs)] = vs
     kvb = engine._kv_bucket(min(int(max(pv[r] for r in rows)) + size, seq_len))
-    ids_dev, _ = engine._dispatch_verify(toks, pv, kvb)
+    ids_dev, _ = engine._dispatch_verify(toks, pv, kvb, gr_states=gr_states)
     ids = ids_dev.cpu().numpy()  # the round's one fetch
     out = {}
     for r in rows:

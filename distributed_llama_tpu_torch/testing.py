@@ -191,6 +191,16 @@ def byte_vocab_tokenizer(
     )
 
 
+def ascii_vocab_tokenizer(pad_to: int = 0, chat_template: str | None = None) -> TokenizerData:
+    """A printable-ASCII vocabulary: every token decodes to a unique printable
+    piece with no raw bytes, so a decoded stream maps back to token ids
+    unambiguously."""
+    return _vocab_tokenizer(
+        [bytes([i]) for i in range(32, 127)], 3, chat_template, pad_to,
+        filler="<f{:04d}>",
+    )
+
+
 def write_tiny_tokenizer(path: str, **kw) -> TokenizerData:
     t = byte_vocab_tokenizer(**kw)
     write_tfile(path, t)
