@@ -69,7 +69,9 @@ caught):
   4. small-input references: a tiny Llama and a tiny Qwen3-MoE through the
      engine on the card and on the CPU (plain versions), logits and greedy
      tokens compared; a tiny Llama's paged int8 BatchSession at batch 4,
-     card against CPU;
+     card against CPU; the q80 parity mode (f32, `q80_activations=True`)
+     on a tiny Llama and a tiny Qwen3-MoE, card against CPU: 48 greedy
+     tokens equal, first logits within Q80_TOL;
   5. the main paths, each with every kernel's launch counter set to 0 just
      before it and read just after (synthetic Q40 weights from a seed,
      written once into build/). At the full Llama-3.2-1B width: the CLI's
@@ -91,12 +93,16 @@ caught):
      and builds the grammar arena, so every decode step and round carries
      the grammar mask (at the all-legal FREE state);
      the contiguous `inference` of each model runs again with
-     `--speculative off`, the tokens equal. Decode on these paths
+     `--speculative off`, the tokens equal. Each `inference` run's step
+     report (`StepStats.report`, printed after the Timing block as the JAX
+     CLI prints it) holds prefill[...] entries counting its Eval lines and
+     decode[...] / spec_verify[...] entries counting its Pred lines (one a
+     chunk or a round). Decode on these paths
      replays CUDA graphs of the decode step and the verify round
      (runtime/graphs.py) except on the sp mesh, and the launch counters
      count each replay's kernels;
   5b. graphed decode against eager decode on one engine (`cuda_graphs`
-     off, then on): 192 greedy steps in 64-step chunks from PROMPT's end
+     off, then on): 160 greedy steps in chunks of 64, 48, 48 from PROMPT's end
      and a seeded sampled chunk of each sampling arm (top-p 0.9 and
      1.0), tokens and every chunk's last logits bit for bit equal, at
      Llama-3.2-1B width batch 1 contiguous, paged bf16 and paged int8,
@@ -107,6 +113,21 @@ caught):
      bytes) and a pinned trace, a prompt decoding across the 256 and 512
      kv buckets and (batch 16) a BatchSession admit/step/release cycle,
      which must make 0 captures after warmup;
+  5f. observability (runtime/telemetry.py, runtime/tracing.py), run after
+     5b and counted as one path, at Llama-3.2-1B width: a batch-1
+     contiguous engine with a 64 MB prefix cache and ngram at k 4, after
+     `warmup()`: a greedy generate that hits the cache and speculates,
+     untraced and traced, the same tokens, kernel launches and graph
+     replays, the spans in the JAX engine's order, as many spans as the
+     StepStats series gained; the guard's enter plus exit in µs (mean of
+     10,000, one `guard_cost` line); a stall: 0.5 s of device spin
+     (`torch.cuda._sleep`) before a graphed decode chunk with
+     DLT_STALL_LOG_MS 100 and DLT_STALL_TIMEOUT_MS 300 for that call,
+     one `[EXEC_STALL]` log and the hard-timeout line, StallError once the
+     fetch returns, a flight record with the request's decode_chunk span
+     and watchdog_stall, both counters up by one, then after `reset()` the
+     tokens of before and 0 recaptures; on phase 5b's batch-16 paged int8
+     engine a session with one traced row, untraced and traced alike;
   5c. the prefix cache at Llama-3.2-1B width, counted as one path: a
      1,024-token shared head with 64-token tails, batch 1 on the
      contiguous, paged bf16 and paged int8 layouts, an engine with a 512
@@ -127,7 +148,7 @@ caught):
      and without speculation are equal once decode takes the verify
      rounds' arms (`verify_arms`), with `arm_growth`: how far the two
      arms' teacher-forced logits stray along the chain up to the
-     divergence; each arm twice more in turns for tok/s
+     divergence; each arm once more in turns for tok/s
      with rounds, acceptance, verify ms, draft and fetch µs a round; a
      verify round at k 4 and 8 graphed equal to eager bit for bit and
      within SPEC_VERIFY_TOL of the stepwise logits; the batch-16 paged
@@ -171,11 +192,15 @@ caught):
 `python3 chip_smoke.py --profiles llama32_1b|qwen3_30b_a3b [--models DIR]`
 runs phases 1-2 and only that model's phase-6 windows (the paged int8
 decode and batch-16 chunk, or the prefill), each decode window graphed
-and eager: run from the root of two trees in one call, it compares them
-end to end. `--spec-divergence` runs phases 1-2 and only phase 5d's
+and eager, and at 1B width `guarded_paths_ab` (the decode and
+speculation loops, profiled, and the k 4 verify ms): run from the root of
+two trees in one call, it compares them end to end. `--spec-divergence` runs phases 1-2 and only phase 5d's
 paged int8 batch-1 chains without speculation and at k 8, with
 `arm_growth` where they part. `--grammar` runs phases 1-2 and only phase
-5e at Llama-3.2-1B width.
+5e at Llama-3.2-1B width; `--guarded-paths [--models DIR]` only
+`guarded_paths_ab`, for many short runs of two trees in turns, and with
+`--guard-share` also `guard_share`: the loops with and without their
+watchdog guards in one process.
 
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. Bounds use the card's published rates
@@ -1890,6 +1915,73 @@ def small_batch_reference(torch, tmp: Path):
         assert n > 0, f"paged int8 batch: kernel {k} never launched on the card"
 
 
+# the q80 parity mode's tiny models (phase 4) and a model seed each. The
+# card and the CPU sum f32 in other orders; where an activation lands on a
+# rounding boundary of its block they round it to neighbouring int8 steps,
+# which moves the logits by ~1% and may part the greedy chains at a
+# near-tie. Over seeds 0-11 on an H100 (`small_q80_reference`'s `seed`)
+# no step happened over the run on 5 (Llama: first logits within 4.1e-7
+# of their scale, 48 tokens equal) and 4 (Qwen3-MoE, 4.8e-7) seeds; the
+# others moved the logits 0.8-1.4%. The seeds below are the first of each
+# set
+Q80_CASES = {
+    "tiny_llama": (dict(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                        vocab_size=512, seq_len=512), 0),
+    "tiny_qwen3_moe": (dict(arch=QWEN3_MOE_ARCH, dim=256, hidden_dim=256, moe_hidden_dim=256,
+                            n_layers=2, n_heads=4, n_kv_heads=2, head_dim=64, n_experts=16,
+                            n_active_experts=2, vocab_size=512, seq_len=512), 1),
+}
+# the first logits' largest difference card against CPU, as a share of
+# their scale, where no activation rounds to another int8 step: f32 sums in
+# other orders only
+Q80_TOL = 1e-5
+Q80_DECODE_STEPS = 48
+
+
+def small_q80_reference(torch, tmp: Path, name: str, seed: int | None = None) -> dict:
+    """The q80 parity mode (compute_dtype float32, `q80_activations=True`:
+    every Q40 matmul input round-tripped through Q80, the reference's
+    `--buffer-float-type q80`) on a tiny model, on the card and on the CPU:
+    the first logits after a 39-token prompt within Q80_TOL of their scale
+    and Q80_DECODE_STEPS greedy tokens equal. The prefill's 32-row chunk
+    takes the MoE plain arm on the tiny Qwen3-MoE (the grouped kernel
+    refuses q80), its tail and decode the gather arm."""
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+    from distributed_llama_tpu_torch.testing import tiny_header, write_tiny_model
+
+    header_kw, pinned = Q80_CASES[name]
+    seed = pinned if seed is None else seed
+    path = str(tmp / f"{name}_q80_seed{seed}.m")
+    write_tiny_model(path, tiny_header(**header_kw), seed=seed)
+    prompt = [(7 * i) % 500 + 1 for i in range(40)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = InferenceEngine(path, device=dev, compute_dtype="float32", q80_activations=True,
+                              decode_chunk_size=16)
+        eng.prefill(prompt[:-1])
+        logits = torch.from_numpy(eng.decode_one(prompt[-1], len(prompt) - 1))
+        eng.reset()
+        toks = eng.generate(prompt, len(prompt) - 1 + Q80_DECODE_STEPS).tokens[len(prompt):]
+        out[dev] = (logits, toks)
+        eng.close()
+    (lg, tg), (lc, tc) = out["cuda"], out["cpu"]
+    rel = (lg - lc).abs().max().item() / lc.abs().max().item()
+    same = next((i for i, (a, b) in enumerate(zip(tg, tc)) if a != b), len(tc))
+    return {"phase": "small_q80_reference", "model": name, "seed": seed,
+            "logits_rel_err": rel, "tol": Q80_TOL, "tokens": len(tc),
+            "leading_tokens_equal": same, "finite": bool(torch.isfinite(lg).all())}
+
+
+def q80_references(torch, tmp: Path) -> None:
+    """`small_q80_reference` at the pinned seeds; raises where they part."""
+    for name in Q80_CASES:
+        r = small_q80_reference(torch, tmp, name)
+        log(json.dumps(r))
+        assert r["finite"], f"{name} q80: non-finite logits on the card"
+        assert r["logits_rel_err"] <= Q80_TOL, f"{name} q80: card logits off the CPU's: {r}"
+        assert r["leading_tokens_equal"] == r["tokens"], f"{name} q80: tokens part: {r}"
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main paths at full width
 # ---------------------------------------------------------------------------
@@ -1960,6 +2052,31 @@ def pred_text(text: str) -> str:
     return "".join("" if t == "~" else t for t in texts)
 
 
+def step_report(text: str) -> dict:
+    """The CLI's step report ({series: count}) after its Timing block,
+    checked against the run: the prefill series count the Eval lines (one
+    a prefill chunk), the decode and verify series the Pred lines (one a
+    decode chunk or a verify round)."""
+    assert "📊 Step performance report:" in text, "no step report in the CLI output"
+    lines = text.split("📊 Step performance report:")[1].strip().split("\n")
+    report = {}
+    for line in lines:
+        m = re.match(r"\s*(\S+)\s+n=(\d+)\s+avg=", line)
+        if not m:
+            break
+        report[m.group(1)] = int(m.group(2))
+    n_eval = sum(1 for line in text.split("\n") if line.startswith("🔷️ Eval"))
+    n_pred = sum(1 for line in text.split("\n") if line.startswith("🔶 Pred"))
+
+    def total(prefix):
+        return sum(n for k, n in report.items() if k.startswith(prefix))
+
+    assert total("prefill[") == n_eval > 0, f"step report {report} against {n_eval} Eval lines"
+    assert total("decode[") + total("spec_verify[") == n_pred > 0, \
+        f"step report {report} against {n_pred} Pred lines"
+    return report
+
+
 def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expected,
               extra=("--kv-layout", "contiguous"), texts=None, decode_steps=DECODE_STEPS):
     """The CLI's inference mode on one model: `decode_steps` greedy decode
@@ -1986,6 +2103,7 @@ def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expec
 
     n_pred = int(num("Prediction", "nTokens"))
     assert n_pred == decode_steps, f"decoded {n_pred} tokens, expected {decode_steps}"
+    report = step_report(text)
     summary = {
         "phase": "main_path", "model": name, "args": list(extra), "n_layers": n_layers,
         "prompt_tokens": n_prompt, "decode_tokens": n_pred,
@@ -1994,6 +2112,7 @@ def main_path(torch, name: str, mp: str, tp: str, n_layers: int, counters, expec
         "decode_tok_s": num("Prediction", "tokens/s"),
         "ttft_ms": num("Timing", "ttftMs"),
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "step_report": report,
         "launches": launches,
     }
     log(json.dumps(summary))
@@ -2284,9 +2403,10 @@ def sp_path(torch, mp: str, tp: str, counters, expected, b8, k3):
 # phase 5b: graphed decode against eager decode
 # ---------------------------------------------------------------------------
 
-# 192 greedy steps a trace, from position 112 across the 256 kv bucket (cut
-# from 256 when phase 5d came, to keep the script's time)
-GRAPH_CHUNKS = (64, 64, 64)
+# 160 greedy steps a trace, from position 112 across the 256 kv bucket (cut
+# from 256 when phase 5d came and from 192 when phase 5f came, to keep the
+# script's time: the eager arm runs ~20-37 tok/s)
+GRAPH_CHUNKS = (64, 48, 48)
 # then a sampled chunk of each arm, the top-p arm and the full distribution:
 # steps, temperature, top-p, seed
 GRAPH_SAMPLED = ((32, 0.8, 0.9, 1234), (16, 0.8, 1.0, 1235))
@@ -2423,7 +2543,8 @@ def graphed_decode_phase(torch, mp: str, tp: str, model: str, eng=None) -> None:
     warm ladder's pinned trace. Llama-3.2-1B: batch 1 contiguous, paged
     bf16 and paged int8, and the batch-16 paged int8 BatchSession;
     Qwen3-30B-A3B: batch 1 contiguous on `eng` (a `spec_engine`, with
-    speculation off), then phase 5d's part there; `eng` is closed."""
+    speculation off), then phase 5d's part there; `eng` is closed. At
+    Llama-3.2-1B width returns the batch-16 engine, open, for phase 5f."""
     from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
     from distributed_llama_tpu_torch.tokenizer import Tokenizer
 
@@ -2448,7 +2569,289 @@ def graphed_decode_phase(torch, mp: str, tp: str, model: str, eng=None) -> None:
     eng = InferenceEngine(mp, batch=16, kv_layout="paged", cache_dtype="int8", **kw)
     graphed_batch_session(torch, f"{model} batch_session 16 paged int8", eng, ids)
     pinned_trace(torch, f"{model} batch 16 paged int8", eng, ids, session=True)
+    return eng
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: observability (StepStats, request traces, the stall watchdog)
+# ---------------------------------------------------------------------------
+
+# the traced generate: a 64-step plain chunk from PROMPT's end (which drafts
+# nothing), then ngram k 4 verify rounds
+OBS_DECODE_STEPS = 128
+# the stalled generate: a 16-step chunk, then an 8-step one behind the spin
+OBS_STALL_STEPS = 24
+OBS_STALL_S = 0.5
+GUARD_CALLS = 10_000
+# what a traced generate that hits the prefix cache and speculates must
+# record, by the JAX engine's names (tests/test_torch_telemetry.py holds
+# the port's to the JAX engine's on the CPU)
+OBS_COUNTERS = ("prefix_hits", "prefix_hit_tokens", "prefix_misses", "prefix_inserts",
+                "spec_rounds", "spec_draft_tokens", "spec_accepted_tokens",
+                "spec_rejected_tokens")
+OBS_GAUGES = ("prefill_dispatch_overlap_pct", "prefix_cache_bytes", "prefix_cache_entries",
+              "spec_acceptance_rate")
+
+
+def counted_run(torch, counters, run):
+    """run() with each kernel counter's gain and the CUDA graph replays it
+    made: (its result, {kernel: launches}, replays)."""
+    replays = [0]
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counting(graph):
+        replays[0] += 1
+        return replay(graph)
+
+    torch.cuda.synchronize()
+    before = {k.__name__: k.launches for k in counters}
+    torch.cuda.CUDAGraph.replay = counting
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    return out, {k.__name__: k.launches - before[k.__name__] for k in counters}, replays[0]
+
+
+def series_gain(before: dict, after: dict) -> dict:
+    """{series: count} that a run added to a StepStats snapshot."""
+    reserved = ("counters", "gauges", "histograms")
+    return {k: v["count"] - before.get(k, {"count": 0})["count"]
+            for k, v in after.items() if k not in reserved
+            and v["count"] != before.get(k, {"count": 0})["count"]}
+
+
+def spin_cycles(torch, seconds: float) -> int:
+    """The `torch.cuda._sleep` cycles of `seconds` of device spin on this
+    card, from one timed spin of 1e8 cycles."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return int(1e8 * seconds * 1e3 / start.elapsed_time(end))
+
+
+def traced_generate(torch, eng, ids, counters) -> dict:
+    """A greedy generate that hits the prefix cache and speculates at k 4,
+    untraced and then traced: tokens, kernel launches and graph replays
+    equal; the trace's spans in the JAX engine's order and their counts
+    those of the StepStats series the run added."""
+    from distributed_llama_tpu_torch.runtime import tracing
+
+    steps = len(ids) - 1 + OBS_DECODE_STEPS
+
+    def gen(trace):
+        eng.reset()
+        eng.trace = trace
+        try:
+            return eng.generate(ids, steps).tokens
+        finally:
+            eng.trace = None
+
+    plain, l_plain, r_plain = counted_run(torch, counters, lambda: gen(None))
+    tid = tracing.mint_trace_id()
+    before = eng.stats.snapshot()
+    traced, l_traced, r_traced = counted_run(
+        torch, counters, lambda: gen(tracing.TRACER.start(tid, sampled=True)))
+    after = eng.stats.snapshot()
+    gain = series_gain(before, after)
+    names = [e[1] for e in tracing.TRACER.for_trace(tid)]
+    n_chunks = sum(n for k, n in gain.items() if k.startswith("prefill_dispatch["))
+    head = ["prefix_match", "prefix_splice"] + ["prefill_chunk"] * n_chunks + [
+        "prefill_sync", "prefill"]
+    tail = names[len(head):]
+    out = {"phase": "observability", "setup": "llama32_1b batch 1 contiguous ngram k 4 prefix hit",
+           "tokens_equal": traced == plain, "launches_equal": l_traced == l_plain,
+           "graph_replays": [r_plain, r_traced], "kernel_launches": sum(l_traced.values()),
+           "decode_tokens": OBS_DECODE_STEPS, "event_names": names, "series_added": gain,
+           "counters": after["counters"], "gauges": sorted(after["gauges"]),
+           "last_prefill_timing": eng.last_prefill_timing}
+    log(json.dumps(out))
+    assert out["tokens_equal"], "a traced generate gave other tokens"
+    assert out["launches_equal"] and r_traced == r_plain, "a traced generate launched otherwise"
+    assert names[: len(head)] == head, f"trace head {names[: len(head)]} != {head}"
+    assert set(tail) <= {"spec_round", "decode_chunk"} and tail.count("spec_round") > 0, tail
+    assert tail.count("spec_round") == gain.get("spec_verify[4]", 0), (tail, gain)
+    assert tail.count("decode_chunk") == sum(
+        n for k, n in gain.items() if k.startswith("decode[")), (tail, gain)
+    assert gain.get("prefill_sync") == 1 and n_chunks >= 1, gain
+    assert all(after["counters"].get(c, 0) > 0 for c in OBS_COUNTERS), after["counters"]
+    assert set(OBS_GAUGES) <= set(after["gauges"]), after["gauges"]
+    return out
+
+
+def traced_session(torch, eng16, ids, counters) -> dict:
+    """A batch-16 BatchSession (phase 5b's paged int8 engine), row 0
+    admitted with a trace, two 8-step chunks; untraced, then traced: tokens,
+    kernel launches and graph replays equal; one prefill_chunk span a chunk
+    of row 0's admission, and a batch_decode[8] series entry a step."""
+    import numpy as np
+
+    from distributed_llama_tpu_torch.runtime import tracing
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+
+    b = eng16.batch
+    prompts = [ids] + [ids[: 16 + (len(ids) - 16) * i // (b - 1)] for i in range(1, b)]
+
+    def session(trace):
+        s = BatchSession(eng16)
+        for r in range(b):
+            s.admit(r, prompts[r], trace=trace if r == 0 else None)
+        return [s.step(8) for _ in range(2)]
+
+    plain, l_plain, r_plain = counted_run(torch, counters, lambda: session(None))
+    tid = tracing.mint_trace_id()
+    before = eng16.stats.snapshot()
+    traced, l_traced, r_traced = counted_run(
+        torch, counters, lambda: session(tracing.TRACER.start(tid, sampled=True)))
+    gain = series_gain(before, eng16.stats.snapshot())
+    names = [e[1] for e in tracing.TRACER.for_trace(tid)]
+    n_chunks = len(list(range(0, len(ids) - 1, eng16.max_chunk)))
+    out = {"phase": "observability", "setup": "llama32_1b batch_session 16 paged int8",
+           "tokens_equal": all(np.array_equal(a, t) for a, t in zip(plain, traced)),
+           "launches_equal": l_traced == l_plain, "graph_replays": [r_plain, r_traced],
+           "event_names": names, "series_added": gain}
+    log(json.dumps(out))
+    assert out["tokens_equal"], "a traced session gave other tokens"
+    assert out["launches_equal"] and r_traced == r_plain, "a traced session launched otherwise"
+    assert names == ["prefill_chunk"] * n_chunks, names
+    assert gain.get("batch_decode[8]") == 2, gain
+    return out
+
+
+def guard_cost(eng) -> dict:
+    """The stall watchdog's host cost: the mean of GUARD_CALLS calls of
+    enter plus exit of one guard, and of the engine's `_guard` (a guard
+    made, entered and left, as every chunk and round makes one)."""
+    from distributed_llama_tpu_torch.runtime.telemetry import watchdog
+
+    wd = watchdog("decode[64]", stats=eng.stats)
+    t0 = time.perf_counter()
+    for _ in range(GUARD_CALLS):
+        with wd:
+            pass
+    enter_exit = (time.perf_counter() - t0) / GUARD_CALLS * 1e6
+    key = ("decode", 64, 256, "greedy")
+    t0 = time.perf_counter()
+    for _ in range(GUARD_CALLS):
+        with eng._guard("decode[64]", key):
+            pass
+    made = (time.perf_counter() - t0) / GUARD_CALLS * 1e6
+    out = {"phase": "guard_cost", "calls": GUARD_CALLS, "enter_exit_us": enter_exit,
+           "engine_guard_us": made}
+    log(json.dumps(out))
+    return out
+
+
+def stall_check(torch, eng, ids) -> dict:
+    """A stall on the card: OBS_STALL_S of device spin (`torch.cuda._sleep`)
+    enqueued on the engine's stream before the second graphed decode chunk
+    of a greedy generate, with DLT_STALL_LOG_MS 100 and DLT_STALL_TIMEOUT_MS
+    300 for that call only: one `[EXEC_STALL]` line, StallError once the
+    fetch returns, a flight record with the request's decode_chunk span and
+    the watchdog_stall event, both counters up by one; then `reset()` and
+    the same generate gives the tokens of before, with 0 recaptures."""
+    import os
+
+    from distributed_llama_tpu_torch.runtime import tracing
+    from distributed_llama_tpu_torch.runtime.telemetry import StallError
+
+    steps = len(ids) - 1 + OBS_STALL_STEPS
+    eng.set_speculation("off")
+    eng.reset()
+    want = eng.generate(ids, steps).tokens
+    cycles = spin_cycles(torch, OBS_STALL_S)
+    chunk = eng._decode_chunk
+    calls = []
+
+    def stalled(*args, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            torch.cuda._sleep(cycles)
+        return chunk(*args, **kw)
+
+    env = {"DLT_STALL_LOG_MS": "100", "DLT_STALL_TIMEOUT_MS": "300", "DLT_FLIGHTREC_DIR": ""}
+    saved = {k: os.environ.get(k) for k in env}
+    c0 = eng.stats.counters_snapshot()
+    tid = tracing.mint_trace_id()
+    err = io.StringIO()
+    raised = None
+    eng.reset()
+    eng.trace = tracing.TRACER.start(tid, sampled=True)
+    eng._decode_chunk = stalled
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            eng.generate(ids, steps)
+    except StallError as e:
+        raised = str(e)
+    finally:
+        wall = time.perf_counter() - t0
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        del eng._decode_chunk
+        eng.trace = None
+    c1 = eng.stats.counters_snapshot()
+    rec = tracing.last_flight_record()
+    lines = err.getvalue().strip().split("\n")
+    events = [(e["trace_id"], e["name"]) for e in rec["events"]] if rec else []
+    eng.reset()
+    again = eng.generate(ids, steps).tokens
+    out = {"phase": "stall", "spin_s": OBS_STALL_S, "spin_cycles": cycles, "wall_s": wall,
+           "raised": raised, "stderr": lines, "flight_record_reason": rec and rec["reason"],
+           "request_spans_in_record": [n for t, n in events if t == tid],
+           "counters_added": {k: c1.get(k, 0) - c0.get(k, 0)
+                              for k in ("exec_stall_logged", "exec_stall_timeout")},
+           "tokens_after_reset_equal": again == want,
+           "recaptures_after_warmup": eng.graph_stats()["recaptures_after_warmup"]}
+    log(json.dumps(out))
+    assert raised == "decode[8] exceeded 300 ms", out
+    assert sum("⏳ [EXEC_STALL] decode[8] exceeded 100 ms" in l for l in lines) == 1, lines
+    assert sum("[EXEC_STALL]" in l for l in lines) == 2, lines  # the log and the timeout
+    assert rec["reason"] == "stall:decode[8]", rec["reason"]
+    assert "decode_chunk" in out["request_spans_in_record"], out
+    assert ("", "watchdog_stall") in events
+    assert out["counters_added"] == {"exec_stall_logged": 1, "exec_stall_timeout": 1}, out
+    assert out["tokens_after_reset_equal"] and out["recaptures_after_warmup"] == 0, out
+    return out
+
+
+def observability_phase(torch, mp: str, tp: str, counters, expected, eng16) -> dict:
+    """Phase 5f at Llama-3.2-1B width, counted as one path: a batch-1
+    contiguous engine with a 64 MB prefix cache and ngram speculation at
+    k 4, after `warmup()` and a cold generate that publishes PROMPT:
+    `traced_generate`, `guard_cost`, `stall_check`; then
+    `traced_session` on phase 5b's batch-16 paged int8 engine `eng16`.
+    Returns the path's launches."""
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer(tp).encode(PROMPT)
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    eng = InferenceEngine(mp, max_seq_len=MAX_SEQ_LEN, device="cuda", prefix_cache_mb=64,
+                          speculative="ngram", draft_k=4)
+    eng.warmup()
+    eng.generate(ids, len(ids) - 1 + OBS_DECODE_STEPS)  # publishes PROMPT and its reply
+    traced_generate(torch, eng, ids, counters)
+    guard_cost(eng)
+    stall_check(torch, eng, ids)
     eng.close()
+    del eng
+    release(torch)
+    traced_session(torch, eng16, ids, counters)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    check_launched(launches, expected, "the observability phase")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2864,8 +3267,8 @@ def spec_layout(torch, mp: str, ids: list, layout: str, kv) -> dict:
     (graphed; the first run of each arm captures). k 4's rounds take
     decode's arms and its tokens equal the run without; k 8's 9-token
     rounds take K2's, so its tokens equal the run without or part where
-    `verify_arms` makes them equal again. Each arm twice more in turns
-    (off, k 4, k 8, k 8, k 4, off) for decode tok/s, and `verify_check`
+    `verify_arms` makes them equal again. Each arm once more in turns
+    (k 8, k 4, off; twice until phase 5f came) for decode tok/s, and `verify_check`
     at k 4 and 8."""
     eng = spec_engine(mp, kv_layout=layout, cache_dtype=kv)
     steps = len(ids) - 1 + SPEC_DECODE_STEPS
@@ -2885,7 +3288,7 @@ def spec_layout(torch, mp: str, ids: list, layout: str, kv) -> dict:
                                decode_logits(torch, eng, ids)) for k in (4, 8)}
     tok_s = {0: [], 4: [], 8: []}
     spec_timing = {4: [], 8: []}
-    for k in (0, 4, 8, 8, 4, 0):
+    for k in (8, 4, 0):
         res = run(k)
         tok_s[k].append(SPEC_DECODE_STEPS / (res.decode_us / 1e6))
         if k:
@@ -3200,7 +3603,8 @@ def spec_moe(torch, eng, ids: list) -> dict:
     contiguous): a verify round of 5 tokens makes 40 expert rows, fewer
     than 128 experts, so the MoE takes its gather arm, graphed. Without
     speculation, then ngram at k 4 (the first run captures; the pool's
-    bytes before and after), then in turns (off, k 4, k 4, off) for tok/s.
+    bytes before and after), then in turns (k 4, off; twice until phase 5f
+    came) for tok/s.
     Decode takes K1-indexed where the round takes the gather arm, so the
     tokens equal the run without or part where `verify_arms` makes them
     equal again; `verify_check` at the cross-arm tolerance."""
@@ -3222,7 +3626,7 @@ def spec_moe(torch, eng, ids: list) -> dict:
     div = first_divergence(torch, want, got, len(ids),
                            decode_logits(torch, eng, ids, MOE_SPEC_DECODE_STEPS))
     tok_s, timing_k4 = {0: [], 4: []}, []
-    for k in (0, 4, 4, 0):
+    for k in (4, 0):
         res = run(k)
         tok_s[k].append(MOE_SPEC_DECODE_STEPS / (res.decode_us / 1e6))
         if k:
@@ -3845,6 +4249,85 @@ def batch16_profile(torch, model_path: str, tp: str, sess=None) -> dict:
     return out
 
 
+# the guarded loops' A/B: generates a side, in turns without speculation
+# and at k 4; and `guard_share`'s generates an arm
+GUARDED_RUNS = 6
+GUARD_SHARE_RUNS = 10
+
+
+def guarded_paths_ab(torch, mp: str, tp: str) -> dict:
+    """The decode loops that the stall watchdog, StepStats and the trace
+    emitters sit on, at Llama-3.2-1B width batch 1 contiguous: phase 5d's
+    `spec_profile` (graphed decode through `_decode_device` without
+    speculation and ngram k 4 through `_decode_speculative`, profiled in
+    turns), then GUARDED_RUNS greedy generates of SPEC_DECODE_STEPS tokens
+    without speculation (decode tok/s) and at k 4 (verify ms a round,
+    `last_spec_timing`), in turns, after one of each that captures. Uses
+    only what the engine had before the watchdog came, so the same script
+    measures an older tree."""
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer(tp).encode(PROMPT)
+    steps = len(ids) - 1 + SPEC_DECODE_STEPS
+    eng = spec_engine(mp, kv_layout="contiguous")
+    speculate(eng, 0)
+    want = eng.generate(ids, steps).tokens
+    prof = spec_profile(torch, "llama32_1b batch 1 contiguous", eng, want[: len(ids) + 64])
+    tok_s, verify = [], []
+    for i in range(GUARDED_RUNS + 1):
+        for k in (0, 4):
+            speculate(eng, k)
+            eng.reset()
+            res = eng.generate(ids, steps)
+            assert res.tokens == want
+            if i == 0:
+                continue  # the first of each captures its graphs
+            if k:
+                t = eng.last_spec_timing
+                verify.append(t["verify_us"] / 1e3 / max(t["rounds"], 1))
+            else:
+                tok_s.append(SPEC_DECODE_STEPS / (res.decode_us / 1e6))
+    out = {"phase": "guarded_paths", "spec_ab": prof, "decode_tok_s_off": tok_s,
+           "verify_ms_per_round_k4": verify}
+    log(json.dumps(out))
+    eng.close()
+    return out
+
+
+def guard_share(torch, mp: str, tp: str) -> dict:
+    """The stall watchdog's share of the guarded loops, in one process (so
+    the process's host state, which moves tok/s by ~15% between processes,
+    is the same for both arms): greedy generates of SPEC_DECODE_STEPS
+    tokens without speculation and at k 4, GUARD_SHARE_RUNS each with the
+    engine's guards and with `_guard` returning a null context, in turns
+    (on, off, off, on, ...) after one of each that captures."""
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer(tp).encode(PROMPT)
+    steps = len(ids) - 1 + SPEC_DECODE_STEPS
+    eng = spec_engine(mp, kv_layout="contiguous")
+    guard = eng._guard
+    out = {"phase": "guard_share", "runs": GUARD_SHARE_RUNS}
+    for k in (0, 4):
+        speculate(eng, k)
+        arms = {"guarded": [], "unguarded": []}
+        order = ["guarded", "unguarded", "unguarded", "guarded"] * GUARD_SHARE_RUNS
+        for i, arm in enumerate(["guarded", "unguarded"] + order[: 2 * GUARD_SHARE_RUNS]):
+            eng._guard = guard if arm == "guarded" else (lambda label, key: contextlib.nullcontext())
+            eng.reset()
+            res = eng.generate(ids, steps)
+            if i < 2:
+                continue  # the first of each captures its graphs
+            t = eng.last_spec_timing
+            arms[arm].append(t["verify_us"] / 1e3 / max(t["rounds"], 1) if k
+                             else SPEC_DECODE_STEPS / (res.decode_us / 1e6))
+        out["verify_ms_per_round_k4" if k else "decode_tok_s_off"] = arms
+    eng._guard = guard
+    log(json.dumps(out))
+    eng.close()
+    return out
+
+
 def profiles_only(torch, model: str, models_dir: Path | None) -> int:
     """`--profiles MODEL`: only the profiled windows of one model, for an
     end-to-end comparison of two trees with this script (run it from the
@@ -3852,7 +4335,8 @@ def profiles_only(torch, model: str, models_dir: Path | None) -> int:
     batch-1 decode (K1's share beside K5's) and the batch-16 paged int8
     chunk, at Qwen3-30B-A3B width the contiguous decode (K1's share) and
     the prefill. `--models DIR` shares the synthetic model files between
-    the runs."""
+    the runs. At Llama-3.2-1B width also `guarded_paths_ab`: the decode
+    and speculation loops themselves, profiled, and the k 4 verify ms."""
     root = models_dir or BUILD
     if model == "llama32_1b":
         mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B, root=root)
@@ -3863,6 +4347,8 @@ def profiles_only(torch, model: str, models_dir: Path | None) -> int:
                               cache_dtype="int8")
         release(torch)
         out.append(batch16_profile(torch, mp, tp))
+        release(torch)
+        out.append(guarded_paths_ab(torch, mp, tp))
     else:
         mp, _, _, _ = synthetic_model("qwen3_30b_a3b", dict(QWEN3_30B_A3B, arch=QWEN3_MOE_ARCH),
                                       norm_epsilon=QWEN3_NORM_EPS, root=root)
@@ -3932,6 +4418,10 @@ def main(argv=None) -> int:
                     help="only phase 5d's paged int8 k 8 chains and, where they part, arm_growth")
     ap.add_argument("--grammar", action="store_true",
                     help="only phase 5e at Llama-3.2-1B width")
+    ap.add_argument("--guarded-paths", action="store_true",
+                    help="only `guarded_paths_ab` at Llama-3.2-1B width (with --models)")
+    ap.add_argument("--guard-share", action="store_true",
+                    help="with --guarded-paths: also `guard_share` (this tree only)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3968,6 +4458,13 @@ def main(argv=None) -> int:
         log(f"--- nvcc {name}.cu\n{text.strip()}")
     log(f"kernels built in {secs:.1f} s ({len(logs)} compiled, one nvcc each, in parallel)")
     done("phases 1-2")
+    if args.guarded_paths:
+        mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B, root=args.models or BUILD)
+        print(json.dumps(guarded_paths_ab(torch, mp, tp)))
+        if args.guard_share:
+            print(json.dumps(guard_share(torch, mp, tp)))
+        print(smi)
+        return 0
     if args.profiles or args.spec_divergence or args.grammar:
         rc = (profiles_only(torch, args.profiles, args.models) if args.profiles
               else spec_divergence_only(torch) if args.spec_divergence else grammar_only(torch))
@@ -4057,6 +4554,7 @@ def main(argv=None) -> int:
         vocab_size=512, seq_len=512), list(range(1, 37)),
         (q.q40_gemv_q80_indexed, q.q40_grouped_gemm_bf16))
     small_batch_reference(torch, tmp)
+    q80_references(torch, tmp)
     release(torch)
     done("phase 4")
 
@@ -4077,10 +4575,10 @@ def main(argv=None) -> int:
     assert len(set(texts.values())) == 1, "1B CLI: ngram and off print other tokens"
     release(torch)
     done("the 1B contiguous CLI paths")
-    # 8 steps a window (16 until phase 5d came) and the top-p arm's window
-    # alone sampled (the full distribution's too until phase 5e came), to
-    # keep the script's time
-    decode_profile(torch, "llama32_1b", mp, steps=8, windows=SAMPLED[:2])
+    # 8 steps a window (16 until phase 5d came), greedy (the top-p arm's
+    # window too until phase 5f came, the full distribution's until phase
+    # 5e came; both stay under --profiles), to keep the script's time
+    decode_profile(torch, "llama32_1b", mp, steps=8)
     release(torch)
     done("the 1B decode profiles")
     paths["llama32_1b perplexity paged"] = perplexity_path(
@@ -4114,9 +4612,16 @@ def main(argv=None) -> int:
         ca.flash_attention_partial, ca.flash_attention)
     release(torch)
     done("the sp path")
-    graphed_decode_phase(torch, mp, tp, "llama32_1b")
+    eng16 = graphed_decode_phase(torch, mp, tp, "llama32_1b")
     release(torch)
     done("phase 5b at 1B width")
+    paths["llama32_1b observability"] = observability_phase(
+        torch, mp, tp, counters, (q.q40_gemv_q80_stacked, q.q40_gemm_bf16_stacked,
+                                  ca.flash_attention, ca.paged_flash_attention), eng16)
+    eng16.close()
+    del eng16
+    release(torch)
+    done("phase 5f")
     paths["llama32_1b prefix cache"] = prefix_cache_phase(
         torch, mp, tp, counters, (q.q40_gemm_bf16_stacked, q.q40_gemv_q80_stacked, q.q40_gemv_q80,
                                   ca.flash_attention, ca.paged_flash_attention))

@@ -25,7 +25,9 @@ the prefix cache off, and raises ValueError without one. As in the JAX
 CLI, the engine builds the grammar arena (runtime/grammar.py) on one
 device with device decode, so every decode and verify graph carries the
 grammar mask at the all-legal FREE state; DLT_GRAMMAR=0 turns it off,
-and under `--sp` or `--host-decode` it stays off. The
+and under `--sp` or `--host-decode` it stays off. After the Timing
+block `inference` prints the engine's step report (`StepStats.report`:
+the prefill and decode or verify series), as the JAX CLI does. The
 reference's `worker` mode, anywhere in argv, prints the JAX CLI's migration
 text on stderr and returns 2, as the JAX CLI does.
 
@@ -286,6 +288,8 @@ def run_inference(args) -> int:
     print(f"     ttftMs: {(res.ttft_us or res.prefill_us) / 1000.0:3.2f}")
     print(f"   decodeMs: {res.decode_us / 1000.0:3.2f}")
     print(f"    totalMs: {res.total_us / 1000.0:3.2f}")
+    print()
+    print(engine.stats.report())
     engine.close()
     return 0
 

@@ -42,6 +42,13 @@ class ModelConfig:
     # cache_dtype: KV cache storage dtype; "int8" stores the payload in int8
     # with an f32 scale per (token, kv head) (ops/kv_quant.py).
     cache_dtype: str = "bfloat16"
+    # q80_activations: the parity mode emulating the reference's
+    # `--buffer-float-type q80` numerics (the JAX package's field): every
+    # Q40 matmul's input is round-tripped through Q80 (ops/quant.py
+    # `quantize_q80_activations`; the reference casts activations into q80
+    # buffers before each Q40 matmul, src/llm.cpp:221-255). Off in
+    # production; the engine's `q80_activations=` sets it.
+    q80_activations: bool = False
 
     @property
     def q_dim(self) -> int:

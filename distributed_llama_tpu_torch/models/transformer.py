@@ -61,17 +61,23 @@ from ..ops.kv_quant import dequantize_kv, quantize_kv
 from ..ops.moe import moe_ffn_ragged, moe_router
 from ..ops.norm import rms_norm
 from ..ops.quant import (
-    QuantTensor, _f32_matmul, dequantize_t, q40_stacked_aligned, quant_matmul, slice_layer,
+    QuantTensor, _f32_matmul, dequantize_t, q40_stacked_aligned, quant_matmul,
+    quantize_q80_activations, slice_layer,
 )
 from ..ops.rope import RopeTables, rope_rows, rotate
 from .config import ModelConfig
 from .params import KVCache, LayerParams, ModelParams
 
 
-def linear(x: torch.Tensor, w: Any, dtype, layer: int | None = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w: Any, dtype, layer: int | None = None,
+           q80: bool = False) -> torch.Tensor:
     """x @ w.T for a dense or Q40 weight; returns x.dtype. `layer`: use
-    w[layer] of an all-layers stacked weight."""
+    w[layer] of an all-layers stacked weight. `q80`: the reference-parity
+    mode, the Q40 matmul's input round-tripped through Q80
+    (ModelConfig.q80_activations)."""
     if isinstance(w, QuantTensor):
+        if q80:
+            x = quantize_q80_activations(x)
         return quant_matmul(x, w, dtype=dtype, layer=layer if w.q.ndim == 3 else None)
     if layer is not None and w.ndim == 3:
         w = w[layer]
@@ -88,10 +94,11 @@ def _activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _dense_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -> torch.Tensor:
     # fused in-projection: one kernel reads w1|w3
-    h13 = linear(y, lp.w13, cfg.dtype, layer)
+    q80 = cfg.q80_activations
+    h13 = linear(y, lp.w13, cfg.dtype, layer, q80)
     ff = h13.shape[-1] // 2
     h = _activation(cfg, h13[..., :ff]) * h13[..., ff:]
-    return linear(h, lp.w2, cfg.dtype, layer)
+    return linear(h, lp.w2, cfg.dtype, layer, q80)
 
 
 def _gather_expert(w: Any, idx: torch.Tensor) -> Any:
@@ -103,12 +110,14 @@ def _gather_expert(w: Any, idx: torch.Tensor) -> Any:
     return w[sel]
 
 
-def _expert_matmul(x: torch.Tensor, w: Any, dtype) -> torch.Tensor:
+def _expert_matmul(x: torch.Tensor, w: Any, dtype, q80: bool = False) -> torch.Tensor:
     """x [b, t, k, in] against per-token gathered experts (a QuantTensor in
     the T layout, or dense [..., out, in]) -> [b, t, k, out] in x.dtype. The
     operands take `dtype`, the products are exact in f32 and TF32 stays
-    off."""
+    off. `q80`: a Q40 expert's input round-tripped through Q80."""
     if isinstance(w, QuantTensor):
+        if q80:
+            x = quantize_q80_activations(x)
         wd = dequantize_t(w, dtype)  # [b, t, k, in, out]
     else:
         wd = w.to(dtype).transpose(-1, -2)
@@ -185,7 +194,8 @@ def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -> 
     idx, wts = moe_router(y, lp.moe_gate[layer], cfg.n_active_experts)  # [b, t, k]
     act = partial(_activation, cfg)
     if moe_grouped(cfg, y.shape[0] * y.shape[1]):
-        return moe_ffn_ragged(y, idx, wts, lp.w1, lp.w3, lp.w2, act, cfg.dtype, layer=layer)
+        return moe_ffn_ragged(y, idx, wts, lp.w1, lp.w3, lp.w2, act, cfg.dtype, layer=layer,
+                              q80=cfg.q80_activations)
     if _moe_decode_i8_eligible(cfg, y, lp):
         out = _moe_decode_i8(cfg, y, lp, layer, idx, wts)
     else:
@@ -193,8 +203,9 @@ def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -> 
         w3 = _gather_expert(slice_layer(lp.w3, layer), idx)
         w2 = _gather_expert(slice_layer(lp.w2, layer), idx)
         xk = y[:, :, None, :].expand(*y.shape[:2], cfg.n_active_experts, y.shape[-1])
-        h = act(_expert_matmul(xk, w1, cfg.dtype)) * _expert_matmul(xk, w3, cfg.dtype)
-        out = _expert_matmul(h, w2, cfg.dtype)  # [b, t, k, dim]
+        q80 = cfg.q80_activations
+        h = act(_expert_matmul(xk, w1, cfg.dtype, q80)) * _expert_matmul(xk, w3, cfg.dtype, q80)
+        out = _expert_matmul(h, w2, cfg.dtype, q80)  # [b, t, k, dim]
         out = (out.to(torch.float32) * wts.unsqueeze(-1)).sum(dim=2)
     return out.to(y.dtype)
 
@@ -405,7 +416,7 @@ def _layer(
 ) -> torch.Tensor:
     b, t, _ = x.shape
     y = rms_norm(x, lp.norm0[li], cfg.norm_epsilon)
-    qkv = linear(y, lp.wqkv, cfg.dtype, li)
+    qkv = linear(y, lp.wqkv, cfg.dtype, li, cfg.q80_activations)
     q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
     q = qkv[..., :q_dim].reshape(b, t, cfg.n_heads, cfg.head_dim)
     k = qkv[..., q_dim : q_dim + kv_dim].reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
@@ -423,7 +434,7 @@ def _layer(
     else:
         a = _contiguous_attention(cfg, q, k, v, positions, pos_start, cache, li, kv_len,
                                   kv_index)
-    att_out = linear(a.reshape(b, t, cfg.q_dim), lp.wo, cfg.dtype, li)
+    att_out = linear(a.reshape(b, t, cfg.q_dim), lp.wo, cfg.dtype, li, cfg.q80_activations)
     x = x + att_out.to(x.dtype)
 
     y = rms_norm(x, lp.norm1[li], cfg.norm_epsilon)
@@ -507,4 +518,4 @@ def forward_layers(cfg, params, rope, cache, tokens, positions, pos_start, logit
     x = rms_norm(x, params.final_norm, cfg.norm_epsilon)
     if logits_mode == "last":
         x = x[:, -1, :].contiguous()
-    return linear(x, params.wcls, cfg.dtype).to(torch.float32)
+    return linear(x, params.wcls, cfg.dtype, q80=cfg.q80_activations).to(torch.float32)

@@ -26,7 +26,10 @@ from __future__ import annotations
 import torch
 
 from .cuda_q40 import q40_grouped_gemm_bf16
-from .quant import QuantTensor, _f32_matmul, dequantize_t, q40_stacked_aligned, slice_layer
+from .quant import (
+    QuantTensor, _f32_matmul, dequantize_t, q40_stacked_aligned, quantize_q80_activations,
+    slice_layer,
+)
 
 
 def moe_router(
@@ -85,11 +88,11 @@ def _grouped_block_rows(rows: int, n_groups: int) -> int:
     return block_r
 
 
-def _grouped_eligible(w1, w3, w2, dtype) -> bool:
+def _grouped_eligible(w1, w3, w2, dtype, q80: bool = False) -> bool:
     """The grouped kernel serves bf16 compute on Q40 expert stacks with the
     stacked kernels' alignment (the JAX package's _grouped_quant_eligible);
-    the rest takes the plain per-expert arm."""
-    return dtype == torch.bfloat16 and all(
+    the rest, and the q80 parity mode, take the plain per-expert arm."""
+    return not q80 and dtype == torch.bfloat16 and all(
         isinstance(w, QuantTensor) and q40_stacked_aligned(w.in_features, w.out_features)
         for w in (w1, w3, w2)
     )
@@ -112,10 +115,12 @@ def moe_ffn_ragged(
     act_fn,
     dtype,  # matmul operand dtype
     layer: int | None = None,
+    q80: bool = False,  # the reference-parity Q80 round trip of the inputs
 ) -> torch.Tensor:
     """Exact top-k expert SwiGLU for all rows at once: for every (token,
     slot) row, h = act(y @ w1[e]) * (y @ w3[e]); out = sum_k wts * (h @
-    w2[e]), the slots summed in f32."""
+    w2[e]), the slots summed in f32. With `q80` the plain arm takes the
+    rows' inputs and h through Q80 (JAX :345-347)."""
     b, t, dim = y.shape
     k = idx.shape[-1]
     n_tok = b * t
@@ -123,7 +128,7 @@ def moe_ffn_ragged(
     e_flat = idx.reshape(rows)
     n_groups = (w1.q if isinstance(w1, QuantTensor) else w1).shape[-3]  # experts a layer
 
-    if _grouped_eligible(w1, w3, w2, dtype):
+    if _grouped_eligible(w1, w3, w2, dtype, q80):
         block_r = _grouped_block_rows(rows, n_groups)
         dest, block_expert, R_pad = _grouped_layout_direct(e_flat, n_groups, block_r)
         if layer is not None:
@@ -149,7 +154,10 @@ def moe_ffn_ragged(
         w1, w3, w2 = (slice_layer(w, layer) for w in (w1, w3, w2))
     order = torch.argsort(e_flat, stable=True)
     counts = torch.bincount(e_flat.long(), minlength=n_groups).tolist()
-    xs = y.reshape(n_tok, dim)[order // k].to(dtype).to(torch.float32)
+    xs = y.reshape(n_tok, dim)[order // k]
+    if q80:
+        xs = quantize_q80_activations(xs)
+    xs = xs.to(dtype).to(torch.float32)
     out_rows = torch.empty((rows, dim), dtype=torch.float32, device=y.device)
     start = 0
     for e, n in enumerate(counts):
@@ -158,6 +166,8 @@ def moe_ffn_ragged(
         xe = xs[start : start + n]
         h = act_fn(_f32_matmul(xe, _expert_matrix(w1, e, dtype).to(torch.float32)))
         h = (h * _f32_matmul(xe, _expert_matrix(w3, e, dtype).to(torch.float32))).to(y.dtype)
+        if q80:
+            h = quantize_q80_activations(h)
         hd = h.to(dtype).to(torch.float32)
         out_rows[start : start + n] = _f32_matmul(hd, _expert_matrix(w2, e, dtype).to(torch.float32))
         start += n

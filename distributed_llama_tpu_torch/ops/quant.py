@@ -219,3 +219,20 @@ def quant_matmul(
     else:
         out = _quant_matmul_xla(x, w.q, w.d, dtype)
     return out.to(od)
+
+
+def quantize_q80_activations(x: torch.Tensor) -> torch.Tensor:
+    """Round-trip x through Q80 (per-32-block int8 and an f16 scale): the
+    JAX package's `quantize_q80_activations` (ops/quant.py:304), which
+    emulates the reference's `--buffer-float-type q80` activations
+    (quantizeF32toQ80, src/nn/nn-quants.cpp:67-) for parity runs. The int8
+    values are taken against the unrounded f32 scale and dequantized with
+    the f16-rounded one, as the host codec (formats/quants.py) does.
+    Plain torch ops: XLA glue in JAX too."""
+    shape = x.shape
+    xf = x.to(torch.float32).reshape(*shape[:-1], shape[-1] // Q_BLOCK, Q_BLOCK)
+    delta = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    inv = torch.where(delta != 0, 1.0 / delta, torch.zeros_like(delta))
+    qv = torch.clamp(torch.round(xf * inv), -127, 127)
+    delta16 = delta.to(torch.float16).to(torch.float32)
+    return (qv * delta16).reshape(shape).to(x.dtype)

@@ -11,7 +11,9 @@ slabs, shard i on `mesh.devices[i]`, and `models/transformer.py`'s sp
 branch writes and attends shard by shard, then combines the shards' triples
 on the mesh's first device, where everything else runs once. Shards that
 share a card run one after another on its current stream, so the order, and
-each kernel's launch count, is fixed.
+each kernel's launch count, is fixed. The logits come from `forward_layers`
+too, so the q80 parity mode (`ModelConfig.q80_activations`) reaches the
+wcls matmul here as in the JAX `_logits_of` (:399).
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ The counterpart of the JAX package's `runtime/batch_session.py`:
 with `admit`, `begin_admit`, `prefill_pending` (budgeted, interleaved with
 decode chunks), `release`, `step`, `spec_step`, `publish_row`,
 `pending_resume` and the row queries, the prefix-cache splice and
-publish, and grammar-constrained rows. Not ported: tracing (ROADMAP A10d).
+publish, grammar-constrained rows, and the request traces and StepStats
+series (runtime/tracing.py, runtime/telemetry.py).
 
 * Every batch row is an independent slot with its own position, last
   token, sampling settings and random stream.
@@ -39,10 +40,17 @@ publish, and grammar-constrained rows. Not ported: tracing (ROADMAP A10d).
   per-row states (a free row rides the all-legal FREE state 0), masked
   and advanced inside the step, so constrained and free rows share one
   graph; the host sessions are authoritative between chunks.
+* A row may carry its request's Trace (`admit(trace=)`): its admission
+  emits ``prefix_match``, ``prefix_splice`` and one ``prefill_chunk`` span
+  a chunk, with the row (JAX :285, :304, :354). Each admission chunk and
+  each `step` runs under the engine's watchdog, and a step's wall lands in
+  the engine's StepStats as ``batch_decode[n]`` (JAX :585-596); a
+  `spec_step` round is guarded and recorded in `verify_row_round`.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -55,6 +63,7 @@ from ..ops.sampling import (
 )
 from .decode import sample_step
 from .speculative import choose_bucket, verify_row_round
+from .tracing import to_us
 
 _SEED_MASK = (1 << 63) - 1
 
@@ -201,20 +210,24 @@ class BatchSession:
         return 0 if st is None else int(st["resume"])
 
     def admit(self, row: int, prompt_tokens: list[int], temperature: float = 0.0,
-              topp: float = 0.9, seed: int | None = None, grammar=None) -> None:
+              topp: float = 0.9, seed: int | None = None, grammar=None, trace=None) -> None:
         """Prefill `prompt_tokens[:-1]` into `row` and arm the slot: the
         row decodes from the next `step`."""
-        self.begin_admit(row, prompt_tokens, temperature, topp, seed, grammar=grammar)
+        self.begin_admit(row, prompt_tokens, temperature, topp, seed, grammar=grammar,
+                         trace=trace)
         self.prefill_pending(row)
 
     def begin_admit(self, row: int, prompt_tokens: list[int], temperature: float = 0.0,
-                    topp: float = 0.9, seed: int | None = None, grammar=None) -> None:
+                    topp: float = 0.9, seed: int | None = None, grammar=None,
+                    trace=None) -> None:
         """Stage an admission without running its prefill; `prefill_pending`
         then advances it between decode chunks. The row stays parked until
         its prefill completes. `seed`: the row's stream; None gives each
         admission a stream of its own, numbered in arrival order.
         `grammar`: the GrammarSession constraining the row (None = free);
-        an engine without a grammar arena refuses it."""
+        an engine without a grammar arena refuses it. `trace`: the
+        request's runtime/tracing.py Trace (None = untraced), which takes
+        the admission's spans."""
         n = len(prompt_tokens)
         if n == 0:
             raise ValueError("empty prompt")
@@ -234,7 +247,12 @@ class BatchSession:
         resume, entry = 0, None
         eng = self.engine
         if eng.prefix_cache is not None and not eng._in_warmup:
+            t_match = time.perf_counter()
             resume, entry = eng.prefix_cache.match_for_splice(prompt_tokens[:-1])
+            if trace is not None:
+                trace.event("prefix_match", to_us(t_match),
+                            int((time.perf_counter() - t_match) * 1e6),
+                            ("resume_tokens", "row"), (resume, row))
         self._pending[row] = {
             "tokens": list(prompt_tokens),
             "done": 0,  # prefilled prefix length within tokens[:-1]
@@ -244,6 +262,9 @@ class BatchSession:
             "grammar": grammar,
             "resume": resume,  # the prefix-cache boundary
             "entry": entry,  # the pinned PrefixEntry to splice, or None
+            "trace": trace,
+            # one tuple append an admission chunk
+            "em_chunk": None if trace is None else trace.bind("prefill_chunk", ("size", "row")),
         }
 
     def prefill_pending(self, row: int, max_tokens: int | None = None) -> int:
@@ -264,6 +285,7 @@ class BatchSession:
             # entry also wrote are rewritten by the chunks below before any
             # query reads them
             pc = eng.prefix_cache
+            t_splice = time.perf_counter()
             try:
                 if eng.paged:
                     pc.share_row(eng, entry, row, st["resume"])
@@ -272,14 +294,28 @@ class BatchSession:
             finally:
                 pc.entry_release(entry)
             pc.record_hit(st["resume"])
+            if st["trace"] is not None:
+                st["trace"].event("prefix_splice", to_us(t_splice),
+                                  int((time.perf_counter() - t_splice) * 1e6),
+                                  ("tokens", "row"), (st["resume"], row))
             st["done"] = min(st["resume"], len(pre))
+        em_chunk = st["em_chunk"]
         while st["done"] < len(pre) and budget > 0:
             done = st["done"]
+            t_chunk = time.perf_counter()
             _, size, n_real = next(iter(chunk_plan(
                 min(len(pre) - done, budget), done, eng.max_chunk, self.seq_len
             )))
             chunk = pre[done : done + n_real] + [0] * (size - n_real)
-            eng._dispatch_prefill_row(row, chunk, done, eng._kv_bucket(done + size))
+            kv_len = eng._kv_bucket(done + size)
+            # keyed on the chunk's (size, kv bucket): the shapes its first
+            # call builds kernels for
+            with eng._guard(f"prefill_row[{size}|kv{kv_len}]", ("prefill_row", size, kv_len)):
+                eng._dispatch_prefill_row(row, chunk, done, kv_len)
+            if em_chunk is not None:
+                # the chunk's dispatch wall (the next step's fetch sees it
+                # complete, as the solo prefill's spans)
+                em_chunk(to_us(t_chunk), int((time.perf_counter() - t_chunk) * 1e6), n_real, row)
             st["done"] = done + n_real
             budget -= n_real
         remaining = len(pre) - st["done"]
@@ -377,6 +413,7 @@ class BatchSession:
                 f"max row end {max(ends)} (step n_steps={n_steps})"
             )
         kv_len = eng._kv_bucket(min(max(ends, default=1), self.seq_len))
+        t_chunk = time.perf_counter()
         if eng.paged:
             # live rows need private pages over their chunk span before the
             # chunk; parked rows write nothing and need nothing
@@ -384,9 +421,15 @@ class BatchSession:
                 (r, int(self.pos[r]), int(self.pos[r]) + n_steps) for r in self.active_rows()
             )
         rows = Rows(self.token, self.pos, self.seeds, self.draws, self.temp, self.topp)
-        toks, _ = eng._decode_batch(rows, n_steps, kv_len, sampler_arm(self.temp, self.topp),
-                                    gr_state=row_states(self.grammars))
-        host = toks.cpu().numpy()
+        arm = sampler_arm(self.temp, self.topp)
+        # the chunk's dispatch and its one fetch, watched: a wedged card
+        # raises StallError into the caller instead of hanging every row
+        with eng._guard(f"batch_decode[{n_steps}]", ("batch_decode", n_steps, kv_len, arm)):
+            toks, _ = eng._decode_batch(rows, n_steps, kv_len, arm,
+                                        gr_state=row_states(self.grammars))
+            host = eng._host_fetch(toks)
+        # the whole chunk's wall: the batched path's per-program series
+        eng.stats.record(f"batch_decode[{n_steps}]", (time.perf_counter() - t_chunk) * 1e6)
         self.pos += n_steps
         # parked rows stay pinned at seq_len
         self.pos[~self.active] = self.seq_len

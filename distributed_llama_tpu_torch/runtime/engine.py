@@ -14,9 +14,11 @@ graphs here (runtime/graphs.py), the radix prefix cache's hooks
 (`prefix_cache_mb`, runtime/prefix_cache.py), and speculative decoding
 (`speculative`, `draft_k`, `draft_source`; runtime/speculative.py):
 `_dispatch_verify`, `_decode_speculative`, `_decode_batch_speculative`
-and the verify kinds of the ladder, and grammar-constrained decoding
-(`grammar`, `_gr_operand`; runtime/grammar.py). Not ported: tracing
-(ROADMAP A10d) and the other mesh axes (A13).
+and the verify kinds of the ladder, grammar-constrained decoding
+(`grammar`, `_gr_operand`; runtime/grammar.py), the observability surface
+(`stats`, `trace`, `_warm`, `_guard`, `_host_fetch`, `last_prefill_timing`;
+runtime/telemetry.py and runtime/tracing.py) and the `q80_activations`
+parity mode. Not ported: the other mesh axes (A13).
 
 * The engine runs on the card unless the caller asks for the CPU:
   `device=None` means "cuda" and raises where no GPU is present.
@@ -66,10 +68,22 @@ and the verify kinds of the ladder, and grammar-constrained decoding
   no lookahead to chain); the session advances from the fetched tokens and
   a terminal state stops the stream like EOS. An sp mesh or host decode
   warns and serves unconstrained, as the JAX engine does.
+* Observability as in the JAX engine: `stats` (a StepStats) takes the
+  ``prefill_dispatch[size]``, ``prefill_sync``, ``prefill[size]``,
+  ``decode[n]`` and ``spec_verify[K]`` series, the spec_*, prefix_* and
+  kv_pool_* counters and their gauges; with `trace` set to a request's
+  Trace, `generate` emits its ``prefix_match``, ``prefix_splice``,
+  ``prefill_chunk``, ``prefill_sync``, ``prefill``, ``decode_chunk`` and
+  ``spec_round`` spans. Every chunk's and round's dispatch and fetch, and
+  a prefill's chunks and sync, run under the stall watchdog (`_guard`),
+  whose first call of a key (a graph capture, a kernel's first build) takes
+  the compile threshold. All of it is host work around the dispatches and
+  fetches: nothing is recorded inside a graph capture and no sync is added.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 import weakref
@@ -102,6 +116,8 @@ from .speculative import (
     accept_greedy, build_draft_source, note_round, resolve_draft_k, resolve_spec_mode,
     spec_buckets, verify_chunk, verify_row_round,
 )
+from .telemetry import StepStats, watchdog
+from .tracing import to_us
 
 
 @dataclass
@@ -200,6 +216,9 @@ class InferenceEngine:
         # engines; the CLI defaults to on. One device, device decode only:
         # on an sp mesh or with host decode the engine warns and serves
         # unconstrained
+        q80_activations: bool = False,  # the reference-parity mode: every
+        # Q40 matmul input round-tripped through Q80 (ModelConfig); library
+        # only, as in the JAX engine: no CLI flag maps to it
     ):
         if mesh is not None and device is not None:
             raise ValueError("give the engine a mesh or a device, not both")
@@ -232,6 +251,8 @@ class InferenceEngine:
         self.cfg = config_from_header(
             self.header, compute_dtype=compute_dtype, cache_dtype=cache_dtype
         )
+        if q80_activations:
+            self.cfg = dataclasses.replace(self.cfg, q80_activations=True)
         if self.use_pipeline:
             sp = mesh.sp
             if self.cfg.seq_len % sp or (self.cfg.seq_len // sp) % 128:
@@ -249,6 +270,17 @@ class InferenceEngine:
         # per-token host loop with the reference's exact RNG stream
         self.device_decode = device_decode
         self.decode_chunk_size = decode_chunk_size
+        self.stats = StepStats()
+        # the request's tracing context (runtime/tracing.py Trace), set by
+        # the caller around a request; None = untraced, and every emission
+        # site checks it, so library callers pay nothing
+        self.trace = None
+        # the keys of the calls this engine has run at least once: a first
+        # call captures a CUDA graph or builds a kernel, so its watchdog
+        # takes the compile threshold (`_guard`)
+        self._warm: set = set()
+        # the last prefill's dispatch-vs-wall summary (the JAX engine's)
+        self.last_prefill_timing: dict | None = None
         self.kv_layout = resolve_kv_layout(kv_layout)
         self.paged = self.kv_layout == "paged"
         self.page_size = resolve_page_size(kv_page_size) if self.paged else None
@@ -266,7 +298,7 @@ class InferenceEngine:
             engine = weakref.ref(self)
             self.page_pool = PagePool(
                 resolve_pool_pages(kv_pool_mb, page_bytes, parity), ps, batch, self.cfg.seq_len,
-                reclaim=lambda: engine()._reclaim_pages(),
+                reclaim=lambda: engine()._reclaim_pages(), stats=self.stats,
             )
             self._tables = DeviceTables(self.page_pool, self.device)
         # decode chunks replay CUDA graphs on the card (runtime/graphs.py);
@@ -284,8 +316,6 @@ class InferenceEngine:
         self.last_prefix_hit_tokens = 0  # tokens the last prefill skipped by a hit
         self.draft_source = None
         self.set_speculation(speculative, draft_k, draft_source)
-        # the JAX StepStats' spec_* counters and acceptance gauge
-        self.spec_counters: dict = {}
         # rounds, drafts and times of the last speculative generate
         self.last_spec_timing: dict | None = None
         # grammar-constrained decoding: the arena (host table) and its one
@@ -338,6 +368,28 @@ class InferenceEngine:
         self.draft_source = build_draft_source(self.spec_mode, draft_source)
         if old is not None and old is not self.draft_source:
             old.close()
+
+    @property
+    def spec_counters(self) -> dict:
+        """The spec_* counters and the ``spec_acceptance_rate`` gauge of
+        `stats` (the JAX StepStats names), one dict."""
+        out = {k: v for k, v in self.stats.counters_snapshot().items() if k.startswith("spec_")}
+        rate = self.stats.gauges_snapshot().get("spec_acceptance_rate")
+        if rate is not None:
+            out["spec_acceptance_rate"] = rate
+        return out
+
+    def _guard(self, label: str, key) -> watchdog:
+        """The stall watchdog for one blocking call (JAX :1170): `key`
+        names what the call runs, so a first call (a CUDA graph capture, a
+        kernel's first build) gets the compile threshold."""
+        first = key not in self._warm
+        self._warm.add(key)
+        return watchdog(label, compiling=first, stats=self.stats)
+
+    def _host_fetch(self, x: torch.Tensor) -> np.ndarray:
+        """The one blocking device-to-host fetch of a chunk or a round."""
+        return x.cpu().numpy()
 
     def memory_report(self) -> str:
         def nbytes(x):
@@ -422,15 +474,21 @@ class InferenceEngine:
         again. False: nothing to evict."""
         return self.prefix_cache is not None and self.prefix_cache.evict_one()
 
-    def _splice_all_rows(self, tokens: list) -> int:
+    def _splice_all_rows(self, tokens: list, tr=None) -> int:
         """Match `tokens` against the prefix cache and splice a hit into
         every row: paged, by sharing the entry's pages; contiguous, by a
         copy into the live cache. The entry is unpinned whatever happens.
+        With a trace `tr`, the ``prefix_match`` and ``prefix_splice`` spans.
         Returns the resume boundary (0 = a miss)."""
         pc = self.prefix_cache
+        t_match = time.perf_counter()
         resume, entry = pc.match_for_splice(tokens)
+        if tr is not None:
+            tr.event("prefix_match", to_us(t_match), int((time.perf_counter() - t_match) * 1e6),
+                     ("resume_tokens",), (resume,))
         if entry is None:
             return 0
+        t_splice = time.perf_counter()
         try:
             if self.paged:
                 pc.share_rows(self, entry, resume)
@@ -439,6 +497,9 @@ class InferenceEngine:
         finally:
             pc.entry_release(entry)
         pc.record_hit(resume)
+        if tr is not None:
+            tr.event("prefix_splice", to_us(t_splice), int((time.perf_counter() - t_splice) * 1e6),
+                     ("tokens",), (resume,))
         return resume
 
     def _pt_operand(self) -> torch.Tensor:
@@ -526,34 +587,79 @@ class InferenceEngine:
 
         From position 0 a prefix-cache hit is spliced into every row and
         the chunk plan resumes at its boundary (`last_prefix_hit_tokens`);
-        with `publish`, the completed prefill publishes its KV."""
+        with `publish`, the completed prefill publishes its KV.
+
+        Each chunk's eager dispatch wall lands in `stats` as
+        ``prefill_dispatch[size]``, the one sync's in ``prefill_sync``, each
+        chunk's share of the whole in ``prefill[size]``; the chunks and the
+        sync run under one watchdog keyed on every chunk's (size, kv
+        bucket) (JAX :1245-1400). `last_prefill_timing` and the
+        ``prefill_dispatch_overlap_pct`` gauge give the dispatch walls' share
+        of the prefill's: near 100% where the host's launches, not the
+        device, set the pace."""
         self.last_prefix_hit_tokens = 0
         n = len(tokens)
         if n == 0:
             return
         t0 = time.perf_counter()
         pc = self.prefix_cache
+        tr = self.trace
         cached = pc is not None and pos_start == 0 and not self._in_warmup
-        resume = self._splice_all_rows(tokens) if cached else 0
+        resume = self._splice_all_rows(tokens, tr) if cached else 0
         self.last_prefix_hit_tokens = resume
         rem = tokens[resume:]
         base = pos_start + resume
         plan = list(chunk_plan(len(rem), base, self.max_chunk, self.cfg.seq_len)) if rem else []
+        shapes = [(size, self._kv_bucket(base + i + size)) for i, size, _ in plan]
         if self.paged and plan:
             # the whole span, padded tail included, before the first chunk
             i_last, size_last, _ = plan[-1]
             self._ensure_pages_all_rows(base, base + i_last + size_last)
-        for i, size, n_real in plan:
-            chunk = rem[i : i + n_real] + [0] * (size - n_real)
-            self._forward(
-                self._tokens([chunk] * self.batch), base + i,
-                kv_len=self._kv_bucket(base + i + size),
-            )
-        self._sync()
+        dispatch_us = sync_us = 0
+        sync_t0 = None
+        chunk_log = []  # (dispatch start, dispatch us, size) a chunk
+        if plan:
+            with self._guard(f"prefill[{len(rem)}]", ("prefill", tuple(shapes))):
+                for (i, size, n_real), (_, kvb) in zip(plan, shapes):
+                    chunk = rem[i : i + n_real] + [0] * (size - n_real)
+                    td = time.perf_counter()
+                    self._forward(self._tokens([chunk] * self.batch), base + i, kv_len=kvb)
+                    dus = int((time.perf_counter() - td) * 1e6)
+                    dispatch_us += dus
+                    self.stats.record(f"prefill_dispatch[{size}]", dus)
+                    chunk_log.append((td, dus, size))
+                sync_t0 = time.perf_counter()
+                self._sync()
+        elif resume:
+            # a whole-prompt hit: wait for the splice, as the cold path waits
+            sync_t0 = time.perf_counter()
+            self._sync()
+        if sync_t0 is not None:
+            sync_us = int((time.perf_counter() - sync_t0) * 1e6)
+            self.stats.record("prefill_sync", sync_us)
         total_us = int((time.perf_counter() - t0) * 1e6)
-        if on_chunk is not None:
-            for _, _, n_real in plan:
-                on_chunk(StepTiming(eval_us=total_us * n_real // len(rem), n_tokens=n_real))
+        self.last_prefill_timing = {
+            "n_tokens": n,
+            "n_chunks": len(plan),
+            "prefix_hit_tokens": resume,
+            "total_us": total_us,
+            "dispatch_us": dispatch_us,
+            "sync_us": sync_us,
+            "overlap_pct": round(100.0 * dispatch_us / max(total_us, 1), 1),
+        }
+        self.stats.gauge("prefill_dispatch_overlap_pct", self.last_prefill_timing["overlap_pct"])
+        if tr is not None:
+            em = tr.bind("prefill_chunk", ("size",))
+            if em is not None:
+                for td, dus, size in chunk_log:
+                    em(to_us(td), dus, size)
+            if sync_t0 is not None:
+                tr.event("prefill_sync", to_us(sync_t0), sync_us)
+        for _, size, n_real in plan:
+            dt = total_us * n_real // len(rem)
+            self.stats.record(f"prefill[{size}]", dt)
+            if on_chunk is not None:
+                on_chunk(StepTiming(eval_us=dt, n_tokens=n_real))
         if publish and cached:
             # every row holds the same sequence: publish row 0's
             pc.publish_from_row(self, 0, tokens)
@@ -618,6 +724,10 @@ class InferenceEngine:
         self.prefill(prompt_tokens[:-1], pos_start, on_chunk=res.eval_steps.append,
                      publish=False)
         res.prefill_us = int((time.perf_counter() - wall0) * 1e6)
+        if self.trace is not None:
+            self.trace.event("prefill", to_us(wall0), res.prefill_us,
+                             ("n_tokens", "prefix_hit_tokens"),
+                             (len(prompt_tokens) - 1, self.last_prefix_hit_tokens))
         pos = pos_start + len(prompt_tokens) - 1
         token = prompt_tokens[-1]
         max_pos = min(self.cfg.seq_len, steps)
@@ -759,8 +869,12 @@ class InferenceEngine:
         * the sp pipeline (a mesh): its step spans several devices;
         * the MoE grouped arm, which `_moe_ffn` takes at batch * size *
           n_active >= n_experts (a Qwen3-30B-A3B decode batch of 16, or a
-          verify round of 16 rows): `moe_ffn_ragged` reads its group sizes
-          back to the host."""
+          verify round of 16 rows). On the bf16 kernel path its K4 arm
+          builds the expert-grouped layout on the device and reads nothing
+          back (ops/moe.py `_grouped_layout_direct`); only the f32 plain
+          arm reads its group sizes back to the host. The rule keeps the
+          arm eager on either dtype: capturing the K4 arm is untried
+          (ROADMAP 13b)."""
         if kind not in KINDS:
             raise ValueError(f"unknown decode kind {kind!r}")
         b = self.batch if batch is None else batch
@@ -956,7 +1070,9 @@ class InferenceEngine:
         own warmup (a ModelDraft's engine) runs before the seal. On an
         engine with a grammar arena every warm step carries the mask at the
         FREE state, as every later chunk and round does (JAX :1139-1153),
-        so constrained requests after warmup capture nothing. Returns
+        so constrained requests after warmup capture nothing. The keys of
+        the captured ladder join `_warm`, as the JAX warmup's guarded fill
+        marks them, so their later calls take the stall threshold. Returns
         `graph_stats()`."""
         t0 = time.perf_counter()
         self._in_warmup = True
@@ -968,18 +1084,24 @@ class InferenceEngine:
             for kind, size, kvb in self.warm_plan():
                 if kind in ("verify", "verify_row"):
                     graphs = self._graphs_for(kind, size=size)
-                    if graphs is None or self._graph_key(kind, kvb, "greedy", size) in graphs:
+                    if graphs is None:
+                        continue
+                    if self._graph_key(kind, kvb, "greedy", size) in graphs:
+                        self._warm.add((kind, size, kvb))
                         continue
                     pos = 0
                     if kind == "verify_row":
                         pos = np.full((self.batch,), self.cfg.seq_len, np.int64)
                         pos[0] = 0
                     self._dispatch_verify(np.zeros((self.batch, size), np.int64), pos, kvb)
+                    self._warm.add((kind, size, kvb))
                     continue
                 graphs = self._graphs_for(kind)
                 if graphs is None:
                     continue
                 for sampler in SAMPLERS:
+                    # the watchdog keys the ladder serves (`_guard`)
+                    self._warm.add((kind, size, kvb, sampler))
                     if self._graph_key(kind, kvb, sampler) in graphs:
                         continue
                     zeros = [0] * self.batch  # token 0 at position 0, seed 0, draw 0
@@ -1030,11 +1152,18 @@ class InferenceEngine:
         states instead; with no lookahead the two agree for every row not
         done), the session advances from each fetched token, and a
         terminal or finished grammar stops like EOS: the token is
-        delivered, the chunk's tail is ordinary overrun."""
+        delivered, the chunk's tail is ordinary overrun.
+
+        Each chunk's dispatch and fetch run under the watchdog; its wall
+        lands in `stats` as ``decode[n]`` and, traced, as a ``decode_chunk``
+        span through an emitter bound once (JAX :2135, :2166-2173)."""
         temperature = 0.0 if sampler is None else sampler.temperature
         topp = sampler.topp if sampler is not None else 0.9
+        arm = sampler_arm(temperature, topp)
         gen = self._generator(sampler)
         tok_arr = self._tokens([token] * self.batch)
+        # one tuple append a chunk; None = untraced or unsampled
+        em_chunk = self.trace.bind("decode_chunk", ("n",)) if self.trace is not None else None
         first = True
         t_prev = time.perf_counter()
         while pos < max_pos:
@@ -1043,10 +1172,15 @@ class InferenceEngine:
             n = self._chunk_size(min(max_pos, self.cfg.seq_len) - pos,
                                  ramp=first and on_token is not None)
             gr = None if grammar is None else np.full((self.batch,), grammar.row_state)
-            toks, tok_arr = self._decode_chunk(tok_arr, pos, n, temperature, topp, gen, gr)
-            host_toks = toks[0].tolist()  # the one device-to-host fetch of the chunk
+            with self._guard(f"decode[{n}]", ("decode", n, self._kv_bucket(pos + n), arm)):
+                toks, tok_arr = self._decode_chunk(tok_arr, pos, n, temperature, topp, gen, gr)
+                host_toks = self._host_fetch(toks)[0].tolist()  # the chunk's one fetch
             now = time.perf_counter()
-            res.pred_steps.append(StepTiming(eval_us=int((now - t_prev) * 1e6), n_tokens=n))
+            dt = int((now - t_prev) * 1e6)
+            if em_chunk is not None:
+                em_chunk(to_us(t_prev), dt, n)
+            self.stats.record(f"decode[{n}]", dt)
+            res.pred_steps.append(StepTiming(eval_us=dt, n_tokens=n))
             t_prev = now
             if first:
                 res.ttft_us = int((now - wall0) * 1e6)
@@ -1083,13 +1217,22 @@ class InferenceEngine:
         running before they copy. With a `grammar` session the drafts are
         cut to their legal prefix, the round masks each position at the
         session's walk of the drafts (`verify_states`), and the session
-        advances and stops as in `_decode_device`."""
+        advances and stops as in `_decode_device`. A round's dispatch and
+        fetch, and a fallback chunk's, run under the watchdog; `note_round`,
+        the ``spec_verify[K]`` and ``decode[n]`` series and, traced, the
+        ``spec_round`` and ``decode_chunk`` spans record them (JAX
+        :2215-2309)."""
         ds = self.draft_source
         seq_len = self.cfg.seq_len
         t0 = time.perf_counter()
         rounds = fallback_chunks = drafted = accepted = emitted_total = 0
         draft_us = verify_us = fetch_us = 0
         first = True
+        # one tuple append a round or a fallback chunk; None = untraced or
+        # unsampled
+        tr = self.trace
+        em_round = tr.bind("spec_round", ("drafted", "accepted")) if tr is not None else None
+        em_chunk = tr.bind("decode_chunk", ("n",)) if tr is not None else None
         while pos < max_pos:
             kmax = 0
             for b in self.spec_buckets:
@@ -1114,12 +1257,13 @@ class InferenceEngine:
                     vs = grammar.verify_states(drafts)
                     row[: len(vs)] = vs
                     gr_states = np.repeat(row[None, :], self.batch, axis=0)
-                ids_dev, _ = self._dispatch_verify(
-                    np.asarray([feed] * self.batch, np.int64), pos, self._kv_bucket(pos + size),
-                    gr_states=gr_states)
-                tf = time.perf_counter()
-                ids = ids_dev[0].tolist()  # the round's one fetch
-                fetch_us += int((time.perf_counter() - tf) * 1e6)
+                kvb = self._kv_bucket(pos + size)
+                with self._guard(f"verify[{K}]", ("verify", size, kvb)):
+                    ids_dev, _ = self._dispatch_verify(
+                        np.asarray([feed] * self.batch, np.int64), pos, kvb, gr_states=gr_states)
+                    tf = time.perf_counter()
+                    ids = self._host_fetch(ids_dev)[0].tolist()  # the round's one fetch
+                    fetch_us += int((time.perf_counter() - tf) * 1e6)
                 a = accept_greedy(drafts, ids)
                 emitted = drafts[:a] + [ids[a]]
                 dt = int((time.perf_counter() - tv) * 1e6)
@@ -1127,16 +1271,23 @@ class InferenceEngine:
                 rounds += 1
                 drafted += len(drafts)
                 accepted += a
-                note_round(self.spec_counters, len(drafts), a)
+                note_round(self.stats, len(drafts), a)
+                self.stats.record(f"spec_verify[{K}]", dt)
+                if em_round is not None:
+                    em_round(to_us(tv), dt, len(drafts), a)
             else:
                 n = self._chunk_size(min(max_pos, seq_len) - pos,
                                      ramp=first and on_token is not None)
                 gr = None if grammar is None else np.full((self.batch,), grammar.row_state)
-                toks, _ = self._decode_chunk(self._tokens([token] * self.batch), pos, n,
-                                             gr_state=gr)
-                emitted = toks[0].tolist()  # the chunk's one fetch
+                with self._guard(f"decode[{n}]", ("decode", n, self._kv_bucket(pos + n), "greedy")):
+                    toks, _ = self._decode_chunk(self._tokens([token] * self.batch), pos, n,
+                                                 gr_state=gr)
+                    emitted = self._host_fetch(toks)[0].tolist()  # the chunk's one fetch
                 dt = int((time.perf_counter() - tv) * 1e6)
                 fallback_chunks += 1
+                self.stats.record(f"decode[{n}]", dt)
+                if em_chunk is not None:
+                    em_chunk(to_us(tv), dt, n)
             if first:
                 res.ttft_us = int((time.perf_counter() - wall0) * 1e6)
                 first = False
@@ -1292,11 +1443,11 @@ class InferenceEngine:
         while planned < total_needed and not all(done):
             n = self._chunk_size(total_needed - planned, ramp=planned == 0 and on_token is not None)
             live = {r: lens[r] - 1 + planned for r in range(self.batch) if not done[r]}
-            toks, last = self._batch_chunk(rows, live, n, sampler_arm(temperature, topp),
+            host, last = self._batch_chunk(rows, live, n, sampler_arm(temperature, topp),
                                            row_states(grammars))
             rows = rows._replace(token=last, pos=rows.pos + n, draws=rows.draws + n)
             planned += n
-            host = toks.cpu().tolist()  # [b][n], the chunk's one fetch
+            host = host.tolist()  # [b][n]
             for j in range(n):
                 for r in range(self.batch):
                     if done[r] or len(out[r]) >= budgets[r]:
@@ -1315,16 +1466,20 @@ class InferenceEngine:
                         done[r] = True
 
     def _batch_chunk(self, rows: Rows, live: dict, n: int, sampler: str, gr_state=None):
-        """One "batch_decode" chunk of n steps from `rows` (`_decode_batch`).
-        `live` maps each live row to its position: those rows get pages over
-        their chunk span, and the read bound covers the furthest position
-        one reaches. Finished and parked rows step too; their writes to
-        unmapped slots go to the sink page."""
+        """One "batch_decode" chunk of n steps from `rows` (`_decode_batch`)
+        and its fetch, under the watchdog (JAX :1894, :2019). `live` maps
+        each live row to its position: those rows get pages over their
+        chunk span, and the read bound covers the furthest position one
+        reaches. Finished and parked rows step too; their writes to
+        unmapped slots go to the sink page. Returns (host tokens [b, n],
+        the last token [b] on the device)."""
         seq_len = self.cfg.seq_len
         if self.paged:
             self._ensure_pages((r, p, p + n) for r, p in live.items() if p < seq_len)
         kvb = self._kv_bucket(min(max(live.values()) + 1 + n, seq_len))
-        return self._decode_batch(rows, n, kvb, sampler, gr_state)
+        with self._guard(f"decode_batch[{n}]", ("batch_decode", n, kvb, sampler)):
+            toks, last = self._decode_batch(rows, n, kvb, sampler, gr_state)
+            return self._host_fetch(toks), last  # the chunk's one fetch
 
     def _decode_batch_speculative(self, prompts, lens, budgets, out, on_token, stop_fn,
                                   grammars=None):
@@ -1362,12 +1517,11 @@ class InferenceEngine:
                 for r in live:
                     pv[r], tv[r] = pos[r], token[r]
                 zeros = np.zeros((b,), np.int64)
-                toks, _ = self._batch_chunk(
+                host, _ = self._batch_chunk(
                     Rows(tv, pv, zeros, zeros, np.zeros((b,), np.float32),
                          np.full((b,), 0.9, np.float32)), {r: pos[r] for r in live}, n, "greedy",
                     row_states(grammars))
-                host = toks.cpu().tolist()  # the chunk's one fetch
-                emitted = {r: host[r] for r in live}
+                emitted = {r: host[r].tolist() for r in live}
             for r, toks_r in emitted.items():
                 pos[r] += len(toks_r)
                 token[r] = toks_r[-1]

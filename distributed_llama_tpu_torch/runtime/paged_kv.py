@@ -6,9 +6,11 @@ The counterpart of the JAX package's `runtime/paged_kv.py`: the resolvers
 (:184), `PagePoolExhausted` (:297) and `PagePool` (:302-552), for one
 device, with the prefix cache's hooks (runtime/prefix_cache.py): the
 `reclaim` callback that `ensure` loops through, `row_pages`, `retain` and
-`release`. Not ported: the KV transport's and tiering's page movers
-(`allocate_pages`, `gather_pages`, `scatter_pages`; ROADMAP A12) and the
-server's `/stats` snapshot.
+`release`, and the JAX pool's StepStats hooks (`stats=`, :340-349): the
+``kv_pool_*``, ``kv_cow_*`` and ``kv_pages_shared`` counters and the
+``kv_pool_pages_used`` / ``kv_pool_pages_free`` gauges. Not ported: the KV
+transport's and tiering's page movers (`allocate_pages`, `gather_pages`,
+`scatter_pages`; ROADMAP A12) and the server's `/stats` snapshot (A11).
 
 The pool is ``[L, n_pages + 1, page_size, n_kv, head_dim]`` k/v tensors
 (plus ``[L, n_pages + 1, page_size, n_kv]`` f32 scales on the int8 arm).
@@ -146,9 +148,12 @@ class PagePool:
     positions ``[slot*ps, (slot+1)*ps)``, or -1 (unmapped). ``version``
     moves on every table change. `reclaim` (``() -> bool``, the engine's
     prefix-cache eviction) frees pages under pressure: True means it made
-    progress and the allocation is planned again."""
+    progress and the allocation is planned again. `stats` (the engine's
+    StepStats, runtime/telemetry.py) takes the pool's counters and gauges
+    under the JAX pool's names."""
 
-    def __init__(self, n_pages: int, page_size: int, n_rows: int, seq_len: int, reclaim=None):
+    def __init__(self, n_pages: int, page_size: int, n_rows: int, seq_len: int, reclaim=None,
+                 stats=None):
         if n_pages <= 0:
             raise ValueError("page pool needs at least one page")
         self.n_pages = int(n_pages)
@@ -157,6 +162,7 @@ class PagePool:
         self.seq_len = int(seq_len)
         self.max_slots = -(-seq_len // page_size)
         self.reclaim = reclaim
+        self.stats = stats
         # releases past a page's last reference, clamped at 0 (the JAX
         # pool's kv_pool_double_release counter)
         self.double_releases = 0
@@ -165,6 +171,17 @@ class PagePool:
         self.tables = np.full((self.n_rows, self.max_slots), -1, np.int32)
         self.version = 0
         self._lock = threading.Lock()
+
+    # -- observability ------------------------------------------------------
+
+    def _incr(self, name: str, n: int = 1):
+        if self.stats is not None:
+            self.stats.incr(name, n)
+
+    def _gauges(self):
+        if self.stats is not None:
+            self.stats.gauge("kv_pool_pages_used", self.n_pages - len(self._free))
+            self.stats.gauge("kv_pool_pages_free", len(self._free))
 
     @property
     def free_pages(self) -> int:
@@ -213,13 +230,18 @@ class PagePool:
                                 self._free.append(cur)
                             if slot * ps < start:
                                 cow.append((cur, page))
+                                self._incr("kv_cow_copies")
+                            self._incr("kv_cow_pages")
                         self.tables[row, slot] = page
                     self.version += 1
+                    self._gauges()
                     return cow
             if self.reclaim is None or not self.reclaim():
+                self._incr("kv_pool_exhausted")
                 raise PagePoolExhausted(
                     f"kv page pool exhausted ({self.n_pages} pages of {self.page_size} tokens)"
                 )
+            self._incr("kv_pool_reclaims")
 
     def share(self, row: int, pages) -> None:
         """Map `pages` into the row's leading slots with their refcounts
@@ -239,6 +261,8 @@ class PagePool:
                         self._free.append(cur)
                 self.tables[row, slot] = p
             self.version += 1
+            self._incr("kv_pages_shared", len(pages))
+            self._gauges()
 
     def row_pages(self, row: int, n_slots: int) -> tuple:
         """The row's first `n_slots` physical pages (the publish path).
@@ -269,6 +293,8 @@ class PagePool:
                 elif self.refs[p] < 0:
                     self.refs[p] = 0
                     self.double_releases += 1
+                    self._incr("kv_pool_double_release")
+            self._gauges()
 
     def release_row(self, row: int) -> None:
         """Unmap the whole row: every mapped page loses the row's
@@ -282,6 +308,7 @@ class PagePool:
                         self._free.append(cur)
                     self.tables[row, slot] = -1
             self.version += 1
+            self._gauges()
 
     def release_all_rows(self) -> None:
         for r in range(self.n_rows):

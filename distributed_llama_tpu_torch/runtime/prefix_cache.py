@@ -32,12 +32,17 @@ may belong to a diverged sibling, but the resumed prefill rewrites every
 position >= B before a query at >= B reads it, as padded prefill tails
 already rely on.
 
-The port has no StepStats yet (ROADMAP A10d): the cache keeps its own
-`counters` under the JAX package's names, and the JAX package's
-`global_event` trace calls wait for A10d. Not ported: `insert_external`,
-`_materialize_contiguous`, `_materialize_paged`, `pin_entry`,
-`match_pinned` and the `tier` demotion hook, which serve the
-disaggregation and tiering paths (ROADMAP A12); and the pipeline mesh's
+Observability as in the JAX package: the counters go to the engine's
+StepStats (`stats=`, runtime/telemetry.py) under the JAX names, with the
+``prefix_cache_bytes`` / ``prefix_cache_entries`` gauges, and a hit and a
+publish each emit their engine-level `global_event` (``prefix_hit``,
+``prefix_publish``; runtime/tracing.py). `counters` keeps the same
+counts in a dict of its own, in step with StepStats, for readers of the
+cache alone. Not ported: `insert_external` with its
+``prefix_insert_external`` event, `_materialize_contiguous`,
+`_materialize_paged`, `pin_entry`, `match_pinned` and the `tier` demotion
+hook, which serve the disaggregation and tiering paths (ROADMAP A12); and
+the pipeline mesh's
 slice shardings (the port's only mesh is sp, where the cache is off).
 """
 
@@ -48,6 +53,8 @@ import threading
 from dataclasses import dataclass
 
 import torch
+
+from .tracing import global_event
 
 #: prefixes shorter than this are not worth a splice; also the smallest
 #: published bucket
@@ -157,8 +164,10 @@ class _Node:
 class PrefixCache:
     """The engine-wide radix prefix cache (see the module docstring)."""
 
-    def __init__(self, budget_bytes: int, seq_len: int, max_chunk: int, page_pool=None):
+    def __init__(self, budget_bytes: int, seq_len: int, max_chunk: int, page_pool=None,
+                 stats=None):
         self.budget_bytes = int(budget_bytes)
+        self.stats = stats  # the engine's StepStats, or None
         self.seq_len = seq_len
         self.max_chunk = max_chunk
         self.page_pool = page_pool  # paged engines: entries share refcounted pages
@@ -193,12 +202,20 @@ class PrefixCache:
             seq_len=engine.cfg.seq_len,
             max_chunk=engine.max_chunk,
             page_pool=engine.page_pool if engine.paged else None,
+            stats=engine.stats,
         )
 
     # -- observability -----------------------------------------------------
 
     def _incr(self, name, n=1):
         self.counters[name] += n
+        if self.stats is not None:
+            self.stats.incr(name, n)
+
+    def _gauges(self):
+        if self.stats is not None:
+            self.stats.gauge("prefix_cache_bytes", self._bytes)
+            self.stats.gauge("prefix_cache_entries", len(self._entries))
 
     @property
     def n_entries(self) -> int:
@@ -311,9 +328,12 @@ class PrefixCache:
         return B, entry
 
     def record_hit(self, resume: int) -> None:
-        """Count one splice that ran (`resume` = prefill tokens skipped)."""
+        """Count one splice that ran (`resume` = prefill tokens skipped),
+        with an engine-level trace event (the request's own prefix_match /
+        prefix_splice spans carry the per-request view)."""
         self._incr("prefix_hits")
         self._incr("prefix_hit_tokens", resume)
+        global_event("prefix_hit", keys=("tokens",), vals=(resume,))
 
     def entry_release(self, entry) -> None:
         with self._lock:
@@ -392,7 +412,9 @@ class PrefixCache:
             self._insert(entry)
             self._entries[key] = entry
             self._bytes += entry.nbytes
+            self._gauges()
         self._incr("prefix_inserts")
+        global_event("prefix_publish", keys=("tokens", "row"), vals=(P, int(row)))
         return True
 
     def _slice_nbytes(self, engine, P: int) -> int:
@@ -482,6 +504,7 @@ class PrefixCache:
         self._bytes -= entry.nbytes
         if entry.pages:
             self.page_pool.release(entry.pages)
+        self._gauges()
 
     def evict_one(self) -> bool:
         """Evict the LRU unpinned entry (the page pool's reclaim hook:
@@ -504,3 +527,4 @@ class PrefixCache:
             self._root = _Node()
             self._entries.clear()
             self._bytes = 0
+            self._gauges()

@@ -27,8 +27,11 @@ mismatch. One round emits 1..k+1 tokens of the plain greedy chain.
   contiguous bf16 cache takes the plain attention at every k. The JAX
   package's verify at a scalar position takes its flash kernel where the
   feed is 8 or more tokens (k = 8): the one difference of arms from JAX.
-* The engine keeps the JAX package's counter names in a plain dict,
-  `engine.spec_counters` (`note_round`, `spec_snapshot`).
+* Each round is recorded in the engine's StepStats under the JAX names
+  (`note_round`: the spec_* counters and the ``spec_acceptance_rate``
+  gauge; the ``spec_verify[K]`` latency series); `engine.spec_counters`
+  is their dict view (`spec_snapshot`). A per-row round also emits its
+  engine-level ``verify_row`` trace event (runtime/tracing.py).
 * Grammar-constrained rows (runtime/grammar.py) compose with speculation
   as in the JAX package: a constrained row's drafts are cut to their
   grammar-legal prefix (`GrammarSession.legal_prefix`), and a grammar
@@ -36,19 +39,19 @@ mismatch. One round emits 1..k+1 tokens of the plain greedy chain.
   states (`GrammarSession.verify_states`; free rows and positions past
   the acceptance horizon ride FREE), so acceptance, bonus token included,
   never admits an illegal token.
-
-Not ported: tracing events (ROADMAP A10d).
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
 
 from ..models.transformer import forward, moe_grouped
 from ..ops.sampling import apply_grammar_mask
+from .tracing import TRACER, to_us
 
 SPEC_MODES = ("off", "ngram", "model")
 
@@ -140,17 +143,29 @@ def accept_greedy(drafts, greedy_ids) -> int:
     return a
 
 
-def note_round(counters: dict, n_drafted: int, n_accepted: int) -> None:
-    """Record one verify round in `counters` (the engine's
-    `spec_counters`): the four spec_* counters and the lifetime
-    ``spec_acceptance_rate`` gauge (accepted / drafted)."""
-    for name, n in (("spec_rounds", 1), ("spec_draft_tokens", n_drafted),
-                    ("spec_accepted_tokens", n_accepted),
-                    ("spec_rejected_tokens", n_drafted - n_accepted)):
-        counters[name] = counters.get(name, 0) + n
-    drafted = counters["spec_draft_tokens"]
+def note_round(stats, n_drafted: int, n_accepted: int) -> None:
+    """Record one verify round in `stats` (the engine's StepStats): the
+    four spec_* counters and the lifetime ``spec_acceptance_rate`` gauge
+    (accepted / drafted), as JAX :174-190. A plain dict takes the same
+    counts and the gauge as a key of its own."""
+    counts = (("spec_rounds", 1), ("spec_draft_tokens", n_drafted),
+              ("spec_accepted_tokens", n_accepted),
+              ("spec_rejected_tokens", n_drafted - n_accepted))
+    if isinstance(stats, dict):
+        for name, n in counts:
+            stats[name] = stats.get(name, 0) + n
+        c = stats
+    else:
+        for name, n in counts:
+            stats.incr(name, n)
+        c = stats.counters_snapshot()
+    drafted = c.get("spec_draft_tokens", 0)
     if drafted:
-        counters["spec_acceptance_rate"] = round(counters["spec_accepted_tokens"] / drafted, 4)
+        rate = round(c.get("spec_accepted_tokens", 0) / drafted, 4)
+        if isinstance(stats, dict):
+            stats["spec_acceptance_rate"] = rate
+        else:
+            stats.gauge("spec_acceptance_rate", rate)
 
 
 def choose_bucket(buckets, dmax: int) -> int:
@@ -168,10 +183,12 @@ def verify_row_round(engine, drafts: dict, token, pos, seq_len: int, grammars=No
     progress). `grammars` (row-indexable, entries None or GrammarSession):
     a constrained row's drafts are cut to their legal prefix and the round
     carries a [b, K+1] state operand (JAX :199-260). Assembles the [b, K+1]
-    feed, dispatches the ("verify_row", K+1, kv bucket) round, fetches the
-    greedy ids once and returns {row: emitted tokens} after per-row
-    acceptance (counted by `note_round`). Callers advance their own
-    position, token and grammar state."""
+    feed, dispatches the ("verify_row", K+1, kv bucket) round and fetches
+    the greedy ids once under the engine's watchdog, records the
+    ``spec_verify[K]`` series and the round's ``verify_row`` event, and
+    returns {row: emitted tokens} after per-row acceptance (counted by
+    `note_round`). Callers advance their own position, token and grammar
+    state."""
     rows = sorted(drafts)
 
     def _sess(r):
@@ -200,12 +217,21 @@ def verify_row_round(engine, drafts: dict, token, pos, seq_len: int, grammars=No
                 vs = g.verify_states(clean[r])
                 gr_states[r, : len(vs)] = vs
     kvb = engine._kv_bucket(min(int(max(pv[r] for r in rows)) + size, seq_len))
-    ids_dev, _ = engine._dispatch_verify(toks, pv, kvb, gr_states=gr_states)
-    ids = ids_dev.cpu().numpy()  # the round's one fetch
+    t0 = time.perf_counter()
+    with engine._guard(f"verify_row[{K}]", ("verify_row", size, kvb)):
+        ids_dev, _ = engine._dispatch_verify(toks, pv, kvb, gr_states=gr_states)
+        ids = engine._host_fetch(ids_dev)  # the round's one fetch
+    engine.stats.record(f"spec_verify[{K}]", (time.perf_counter() - t0) * 1e6)
+    # one engine-level event a round (per-row acceptance spans belong to
+    # the caller, which owns the row -> request mapping)
+    TRACER.event(
+        "verify_row", to_us(t0), int((time.perf_counter() - t0) * 1e6),
+        ("rows", "bucket"), (len(rows), K),
+    )
     out = {}
     for r in rows:
         a = accept_greedy(clean[r], ids[r])
-        note_round(engine.spec_counters, len(clean[r]), a)
+        note_round(engine.stats, len(clean[r]), a)
         out[r] = clean[r][:a] + [int(ids[r, a])]
     return out
 
@@ -215,7 +241,7 @@ def spec_snapshot(engine) -> dict | None:
     and the acceptance counters (None when speculation is off)."""
     if engine.spec_mode is None:
         return None
-    c = engine.spec_counters
+    c = engine.stats.counters_snapshot()
     drafted = c.get("spec_draft_tokens", 0)
     accepted = c.get("spec_accepted_tokens", 0)
     return {

@@ -24,6 +24,8 @@ import distributed_llama_tpu_torch.runtime.graphs
 import distributed_llama_tpu_torch.runtime.decode
 import distributed_llama_tpu_torch.runtime.speculative
 import distributed_llama_tpu_torch.runtime.grammar
+import distributed_llama_tpu_torch.runtime.telemetry
+import distributed_llama_tpu_torch.runtime.tracing
 import distributed_llama_tpu_torch.testing
 import distributed_llama_tpu_torch.probes.int4
 import distributed_llama_tpu_torch.probes.dma
@@ -84,6 +86,8 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     assert "distributed_llama_tpu_torch.ops.moe" in mods
     assert "distributed_llama_tpu_torch.runtime.batch_session" in mods
     assert "distributed_llama_tpu_torch.runtime.grammar" in mods
+    assert "distributed_llama_tpu_torch.runtime.telemetry" in mods
+    assert "distributed_llama_tpu_torch.runtime.tracing" in mods
     assert "distributed_llama_tpu_torch.probes.operands" in mods
     assert "distributed_llama_tpu_torch.probes.attention" in mods
     assert "distributed_llama_tpu_torch.probes.k1_step" in mods
