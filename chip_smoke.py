@@ -84,7 +84,7 @@ caught):
      the sequence-parallel engine on an sp = 4 mesh of this one card (a
      16384-row cache in four 4096-row shards): the 113-token prompt's
      prefill logits bit for bit equal to the sp = 1 engine's, then a
-     6000-token prompt and 64 greedy steps with B8 launched chunks x
+     5000-token prompt and 32 greedy steps with B8 launched chunks x
      layers x shards times and K3 never, logits and tokens against sp = 1,
      and profiles of its prefill tail (B8's share) and decode. At
      Qwen3-30B-A3B's width: the CLI's `inference` (contiguous). The CLI
@@ -102,14 +102,13 @@ caught):
      (runtime/graphs.py) except on the sp mesh, and the launch counters
      count each replay's kernels;
   5b. graphed decode against eager decode on one engine (`cuda_graphs`
-     off, then on): 160 greedy steps in chunks of 64, 48, 48 from PROMPT's end
-     and a seeded sampled chunk of each sampling arm (top-p 0.9 and
-     1.0), tokens and every chunk's last logits bit for bit equal, at
-     Llama-3.2-1B width batch 1 contiguous, paged bf16 and paged int8,
-     and the batch-16 paged int8 BatchSession (four rows re-admitted,
-     then four sampled at each arm); at Qwen3-30B-A3B width batch 1
-     contiguous, from a 200-token context (64 greedy steps across the 256
-     bucket and a shorter sampled chunk of each arm). Then `warmup()` (its seconds, captures and graph-pool
+     off, then on): from a 200-token context 64 greedy steps in chunks of
+     32 across the 256 kv bucket and a seeded sampled chunk of each
+     sampling arm (top-p 0.9 and 1.0), tokens and every chunk's last
+     logits bit for bit equal, at Llama-3.2-1B width batch 1 contiguous,
+     paged bf16 and paged int8, and the batch-16 paged int8 BatchSession
+     (16 chunks, four rows re-admitted, then four sampled at each arm); at
+     Qwen3-30B-A3B width batch 1 contiguous, the same trace. Then `warmup()` (its seconds, captures and graph-pool
      bytes) and a pinned trace, a prompt decoding across the 256 and 512
      kv buckets and (batch 16) a BatchSession admit/step/release cycle,
      which must make 0 captures after warmup;
@@ -137,8 +136,8 @@ caught):
      24-token head (boundary 16, below one chunk) within
      PREFIX_SUBCHUNK_TOL; on paged int8 a 45 MB pool where reclaim must
      evict, then `warmup()` and hits with 0 captures after it; and a
-     batch-16 paged int8 BatchSession after `warmup()` whose 16
-     admissions share the head (15 hits), rows and last logits equal to
+     batch-16 paged int8 BatchSession after `warmup()` whose 8
+     admissions share the head (7 hits), rows and last logits equal to
      the same admissions with the cache off;
   5d. speculative decoding, counted as one path: at Llama-3.2-1B width,
      batch 1 on the contiguous, paged bf16 and paged int8 layouts, 256
@@ -178,6 +177,26 @@ caught):
      batch 16 t 9); at Qwen3-30B-A3B width, on phase 5b's engine (built
      with the arena, as the CLI builds it), one constrained greedy
      generate of 64 tokens, 0 illegal tokens, counted as its own path;
+  5g. the OpenAI-compatible server (server/api.py), at Llama-3.2-1B width
+     after 5e, three servers started through `serve()` on 127.0.0.1, each
+     its own path: (a) batch 1 at the CLI's defaults (paged bf16, ngram,
+     the prefix cache, the grammar arena), (b) `--batch 8 --kv-dtype
+     int8`, (c) the same with `--speculative off`. Chat requests of 32
+     greedy tokens from threads, each prompt alone first (TTFT and decode
+     tok/s from the server's `ttft_ms` / `tpot_ms` histograms); at batch 8
+     the eight prompts at once, seeded sampled (each row equal to its run
+     alone) and greedy (aggregate tok/s); at (a) and (b) a non-stream and
+     an SSE request at once, two sharing a system prompt (a prefix-cache
+     hit), a JSON-schema `response_format` reply that parses, `/health`,
+     `/stats`, `/metrics` (the TTFT histogram, StepStats series) and the
+     `/debug/*` views, a request's trace, and one forced engine failure:
+     a 500, the supervisor's close-and-rebuild (its seconds), the tokens
+     of before, the card's memory back within one graph pool; 0 captures
+     after warmup; then each greedy response against `engine.generate` on
+     the server's engine, exactly at (a) and (c) (at (b) a greedy token's
+     arm, verify round or decode step, follows the co-tenants' drafts:
+     where a row parts is reported); K1-stacked, K1 and K2 launched, K5 at
+     batch 8;
   6. where a token's time goes: torch.profiler over 8 batch-1 decode
      steps of each model (contiguous) and of the 1B on the paged int8
      layout (K5's share; 16 steps until phase 5d came), over one
@@ -197,7 +216,7 @@ speculation loops, profiled, and the k 4 verify ms): run from the root of
 two trees in one call, it compares them end to end. `--spec-divergence` runs phases 1-2 and only phase 5d's
 paged int8 batch-1 chains without speculation and at k 8, with
 `arm_growth` where they part. `--grammar` runs phases 1-2 and only phase
-5e at Llama-3.2-1B width; `--guarded-paths [--models DIR]` only
+5e at Llama-3.2-1B width, `--server` only phase 5g; `--guarded-paths [--models DIR]` only
 `guarded_paths_ab`, for many short runs of two trees in turns, and with
 `--guard-share` also `guard_share`: the loops with and without their
 watchdog guards in one process.
@@ -870,8 +889,10 @@ def flash_long(torch, gen, bw, bf16_peak, nh, nkv, hd):
 
 SP = 4  # the sp path's shards
 SP_SEQ_LEN = 16384  # its cache: four shards of 4096 rows
-SP_PROMPT_TOKENS = 6000
-SP_DECODE_STEPS = 64
+# (6000 and 64 until phase 5g came: cut to keep the script's time; 5000
+# still prefills through shard 0 into shard 1)
+SP_PROMPT_TOKENS = 5000
+SP_DECODE_STEPS = 32
 
 
 # B8's normalized output o / l (and the shards' combine) against its plain
@@ -2289,8 +2310,8 @@ def sp_path(torch, mp: str, tp: str, counters, expected, b8, k3):
       * the 113-token PROMPT's prefill logits, every chunk, equal the sp = 1
         engine's bit for bit (shards 1-3 add exact zeros and shard 0 runs
         K3's own loop through B8);
-      * a 6000-token seeded prompt (prefill through shard 0 into shard 1;
-        shards 2-3 fully masked) and 64 greedy steps, counted: B8 launched
+      * a 5000-token seeded prompt (prefill through shard 0 into shard 1;
+        shards 2-3 fully masked) and 32 greedy steps, counted: B8 launched
         chunks x layers x shards times and K3 never;
       * the last prompt row's logits within 5e-2 of their scale of the sp =
         1 engine's (the engine tests' bf16 bound: chunks past 4096 combine
@@ -2403,19 +2424,15 @@ def sp_path(torch, mp: str, tp: str, counters, expected, b8, k3):
 # phase 5b: graphed decode against eager decode
 # ---------------------------------------------------------------------------
 
-# 160 greedy steps a trace, from position 112 across the 256 kv bucket (cut
-# from 256 when phase 5d came and from 192 when phase 5f came, to keep the
-# script's time: the eager arm runs ~20-37 tok/s)
-GRAPH_CHUNKS = (64, 48, 48)
-# then a sampled chunk of each arm, the top-p arm and the full distribution:
-# steps, temperature, top-p, seed
-GRAPH_SAMPLED = ((32, 0.8, 0.9, 1234), (16, 0.8, 1.0, 1235))
-# the 30B-A3B trace, shorter (an eager step there is ~4x the 1B's): from a
-# MOE_GRAPH_CONTEXT-token context, 64 greedy steps across the 256 bucket,
-# and each sampled arm (cut from 160 greedy steps from 112 and sampled
-# chunks of 32 and 16 when phase 5e came, to keep the script's time)
-MOE_GRAPH_CONTEXT = 200
-MOE_GRAPH_CHUNKS = dict(greedy=(32, 32), sampled=((16, 0.8, 0.9, 1234), (8, 0.8, 1.0, 1235)))
+# a trace decodes from a GRAPH_CONTEXT-token context: 64 greedy steps across
+# the 256 kv bucket, then a sampled chunk of each arm, the top-p arm and the
+# full distribution (steps, temperature, top-p, seed). The eager arm runs
+# ~7 (30B-A3B) to ~37 (1B) tok/s: the 1B traces took 160 greedy steps from
+# PROMPT's end and sampled chunks of 32 and 16 until phase 5g came (the
+# 30B-A3B's until phase 5e), cut to keep the script's time
+GRAPH_CONTEXT = 200
+GRAPH_CHUNKS = (32, 32)
+GRAPH_SAMPLED = ((16, 0.8, 0.9, 1234), (8, 0.8, 1.0, 1235))
 
 
 def decode_trace(torch, eng, ids, greedy=GRAPH_CHUNKS, sampled=GRAPH_SAMPLED):
@@ -2498,13 +2515,14 @@ def pinned_trace(torch, name: str, eng, ids, session: bool) -> dict:
 
 def graphed_batch_session(torch, name: str, eng, ids) -> dict:
     """The batch-16 paged int8 BatchSession eagerly and graphed: 16 rows,
-    32 greedy 8-step chunks with four rows re-admitted at chunk 8, then
+    16 greedy 8-step chunks (32 until phase 5g came, cut to keep the
+    script's time) with four rows re-admitted at chunk 8, then
     four rows re-admitted sampled (seeded) for one chunk at top-p 0.9 and
     one at 1.0 (each sampling arm); every chunk's tokens and last logits
     equal bit for bit."""
     from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
 
-    b, chunk, n_chunks, swap_at = 16, 8, 32, 8
+    b, chunk, n_chunks, swap_at = 16, 8, 16, 8
     prompts = [ids[: 16 + (len(ids) - 16) * i // (b - 1)] for i in range(b)]
     swapped = (2, 6, 10, 14)
     runs = {}
@@ -2551,8 +2569,7 @@ def graphed_decode_phase(torch, mp: str, tp: str, model: str, eng=None) -> None:
     ids = Tokenizer(tp).encode(PROMPT)
     kw = dict(max_seq_len=MAX_SEQ_LEN, device="cuda")
     if model == "qwen3_30b_a3b":
-        graph_vs_eager(torch, f"{model} batch 1 contiguous", eng, (ids * 2)[:MOE_GRAPH_CONTEXT],
-                       **MOE_GRAPH_CHUNKS)
+        graph_vs_eager(torch, f"{model} batch 1 contiguous", eng, (ids * 2)[:GRAPH_CONTEXT])
         pinned_trace(torch, f"{model} batch 1 contiguous", eng, ids, session=False)
         spec_moe(torch, eng, ids)
         eng.close()
@@ -2560,7 +2577,7 @@ def graphed_decode_phase(torch, mp: str, tp: str, model: str, eng=None) -> None:
     for layout, kv in (("contiguous", None), ("paged", None), ("paged", "int8")):
         name = f"{model} batch 1 {layout} {kv or 'bf16'}"
         eng = InferenceEngine(mp, kv_layout=layout, cache_dtype=kv, **kw)
-        graph_vs_eager(torch, name, eng, ids)
+        graph_vs_eager(torch, name, eng, (ids * 2)[:GRAPH_CONTEXT])
         if kv == "int8":
             pinned_trace(torch, name, eng, ids, session=False)
         eng.close()
@@ -2861,6 +2878,9 @@ def observability_phase(torch, mp: str, tp: str, counters, expected, eng16) -> d
 PREFIX_HEAD_TOKENS = 1024  # the shared head: a multiple of the 32-row chunk
 PREFIX_TAIL_TOKENS = 64
 PREFIX_DECODE = 64
+# the batch-16 session's admissions (16 until phase 5g came: the cold arm's
+# 16 prefills of 1,088 tokens took ~20 s, cut to keep the script's time)
+PREFIX_SESSION_ROWS = 8
 # the 24-token head resumes at 16, below one chunk: its chunks take other
 # shapes than the cold run's (an 8-row tail takes K1's Q80 arm), so its
 # first logits are held to this share of the cold logits' largest value
@@ -2995,9 +3015,9 @@ def prefix_layout(torch, mp: str, prompts: dict, counters, layout: str, kv) -> d
 
 
 def prefix_session(torch, mp: str, prompts: dict) -> dict:
-    """A batch-16 paged int8 BatchSession after warmup(): 16 admissions of
-    the head with their own tails (the first publishes at arming, the other
-    15 hit at 1,024), 64 greedy steps; every row's tokens and the last
+    """A batch-16 paged int8 BatchSession after warmup(): PREFIX_SESSION_ROWS
+    admissions of the head with their own tails (the first publishes at
+    arming, the others hit at 1,024), 64 greedy steps; every row's tokens and the last
     logits equal the same admissions on an engine with the cache off, and
     0 captures after warmup."""
     import numpy as np
@@ -3016,7 +3036,7 @@ def prefix_session(torch, mp: str, prompts: dict) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         resumes = []
-        for r, ids in enumerate(prompts["session"]):
+        for r, ids in enumerate(prompts["session"][:PREFIX_SESSION_ROWS]):
             s.begin_admit(r, ids)
             resumes.append(s.pending_resume(r))
             s.prefill_pending(r)
@@ -3032,11 +3052,12 @@ def prefix_session(torch, mp: str, prompts: dict) -> dict:
     (tg, lg, rg, sg, cg, recap), (tw, lw, _, sw, _, _) = runs[512], runs[0]
     out = {"phase": "prefix_cache", "setup": "llama32_1b batch_session 16 paged int8",
            "resumes": rg, "admit_s_hit": sg, "admit_s_cold": sw,
-           "rows_equal": [bool((tg[r] == tw[r]).all()) for r in range(16)],
-           "logits_equal": torch.equal(lg, lw), "counters": cg,
+           "rows_equal": [bool((tg[r] == tw[r]).all()) for r in range(PREFIX_SESSION_ROWS)],
+           "logits_equal": torch.equal(lg[:PREFIX_SESSION_ROWS], lw[:PREFIX_SESSION_ROWS]),
+           "counters": cg,
            "recaptures_after_warmup": recap}
     log(json.dumps(out))
-    assert rg == [0] + [PREFIX_HEAD_TOKENS] * 15, rg
+    assert rg == [0] + [PREFIX_HEAD_TOKENS] * (PREFIX_SESSION_ROWS - 1), rg
     assert all(out["rows_equal"]) and out["logits_equal"], "session rows differ from cold"
     assert recap == 0, "a capture after warmup in the session"
     return out
@@ -4069,6 +4090,420 @@ def grammar_moe(torch, eng, tp: str, counters, expected) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5g: the OpenAI-compatible server (server/api.py)
+# ---------------------------------------------------------------------------
+
+# the greedy requests' budget, and the shared system prompt (~330 byte
+# tokens after the template: it covers the prefix cache's 256 bucket)
+SERVER_MAX_TOKENS = 32
+SERVER_SYSTEM = ("You are a careful assistant. Answer briefly, cite nothing, and keep to "
+                 "the facts the user gives you. ") * 3
+SERVER_USERS = ("Name a colour.", "Count to five.", "Say hello.", "Pick a number.",
+                "Spell cat.", "Name a fruit.", "Describe the sea.", "Say goodbye.")
+# the batch-8 server's burst: eight requests at once
+SERVER_BURST = 8
+
+
+class _Server:
+    """One port server on 127.0.0.1 and a free port, started through
+    `server.api.serve` as `python -m distributed_llama_tpu_torch.server.api`
+    starts it; `start_s` is serve()'s wall: the engine's load plus warmup."""
+
+    def __init__(self, mp: str, tp: str, extra):
+        import socket
+        import threading
+
+        from distributed_llama_tpu_torch.cli import build_arg_parser
+        from distributed_llama_tpu_torch.server import api
+
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        self.port = s.getsockname()[1]
+        s.close()
+        p = build_arg_parser()
+        p.add_argument("--port", type=int)
+        p.add_argument("--host")
+        args = p.parse_args(
+            ["inference", "--model", mp, "--tokenizer", tp, "--chat-template", "chatml",
+             "--max-seq-len", str(MAX_SEQ_LEN), "--temperature", "0", "--device", "cuda",
+             "--host", "127.0.0.1", "--port", str(self.port), *extra])
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            self.httpd = api.serve(args)
+        self.start_s = time.perf_counter() - t0
+        self.state = self.httpd.api_state
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def request(self, method: str, path: str, body=None, timeout=300):
+        """(status, body bytes, seconds to the response's first body byte)."""
+        import urllib.error
+        import urllib.request
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{self.port}{path}", data=data,
+                                     method=method, headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                first = r.read(1)
+                t_first = time.perf_counter() - t0
+                return r.status, first + r.read(), t_first
+        except urllib.error.HTTPError as e:
+            return e.code, e.read(), time.perf_counter() - t0
+
+    def chat(self, messages, **kw) -> dict:
+        code, body, _ = self.request("POST", "/v1/chat/completions",
+                                     {"messages": messages, "max_tokens": SERVER_MAX_TOKENS, **kw})
+        assert code == 200, f"chat answered {code}: {body[:300]!r}"
+        return json.loads(body)
+
+    def sse(self, messages) -> tuple:
+        """(the streamed text, seconds to the first chunk)."""
+        code, body, t_first = self.request(
+            "POST", "/v1/chat/completions",
+            {"messages": messages, "max_tokens": SERVER_MAX_TOKENS, "stream": True})
+        assert code == 200, f"SSE answered {code}"
+        events = [e for e in body.decode().split("\r\n\r\n") if e.strip()]
+        assert events[-1].strip() == "data: [DONE]", "SSE stream without [DONE]"
+        chunks = [json.loads(e[len("data: "):])["choices"][0] for e in events[:-1]]
+        assert chunks[-1]["finish_reason"] == "stop"
+        return "".join(c.get("delta", {}).get("content", "") for c in chunks), t_first
+
+    def get(self, path: str):
+        code, body, _ = self.request("GET", path)
+        assert code == 200, f"GET {path} answered {code}: {body[:300]!r}"
+        return body.decode()
+
+    def hist(self) -> dict:
+        """The unlabeled TTFT and per-output-token histograms' sums and
+        counts from /metrics (the server's own clocks)."""
+        text = self.get("/metrics")
+        out = {}
+        for name in ("ttft_ms", "tpot_ms"):
+            for part in ("sum", "count"):
+                m = re.search(rf"^dlt_{name}_{part} ([0-9.e+-]+)$", text, re.M)
+                out[f"{name}_{part}"] = float(m.group(1)) if m else 0.0
+        return out
+
+    def counters(self) -> dict:
+        return json.loads(self.get("/stats"))["steps"]["counters"]
+
+    def wait_serving(self, timeout_s=300.0) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout_s:
+            code, _, _ = self.request("GET", "/health")
+            if code == 200:
+                return time.perf_counter() - t0
+            time.sleep(0.02)
+        raise AssertionError("the server did not rejoin after the failure")
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+
+
+def _messages(user: str, system: str | None = None) -> list:
+    return ([{"role": "system", "content": system}] if system else []) + [
+        {"role": "user", "content": user}]
+
+
+def _timed(srv: _Server, messages, **kw) -> dict:
+    """One request alone: its response, and the server's TTFT and mean
+    per-output-token ms for it (the histograms' deltas, one request)."""
+    h0 = srv.hist()
+    out = srv.chat(messages, **kw)
+    h1 = srv.hist()
+    d = {k: h1[k] - h0[k] for k in h0}
+    assert d["ttft_ms_count"] == 1, f"one request moved the TTFT count by {d['ttft_ms_count']}"
+    tpot = d["tpot_ms_sum"] if d["tpot_ms_count"] else None
+    g = out["usage"]["goodput"]
+    return {"response": out, "content": out["choices"][0]["message"]["content"],
+            "ttft_ms": d["ttft_ms_sum"], "decode_tok_s": 1e3 / tpot if tpot else None,
+            "completion_tokens": out["usage"]["completion_tokens"],
+            "prefix_hit_tokens": g["prefix_hit_tokens"], "spec_accepted": g["spec_accepted_tokens"]}
+
+
+def reference_text(torch, srv: _Server, messages) -> tuple:
+    """What `engine.generate` gives on the server's engine for the same
+    prompt, greedy, through the server's text path (the stream decoder and
+    the stop detector): (text, tokens until the stop)."""
+    from distributed_llama_tpu_torch.tokenizer import (
+        EOS_FOUND, EOS_MAYBE, ChatItem, EosDetector, Sampler,
+    )
+
+    st = srv.state
+    tok, eng = st.tokenizer, st.engine
+    prompt = st.template.generate([ChatItem(m["role"], m["content"]) for m in messages], True)
+    ids = tok.encode(prompt.content, is_start=True)
+    res = eng.generate(ids, len(ids) - 1 + SERVER_MAX_TOKENS,
+                       sampler=Sampler(eng.cfg.vocab_size, 0.0, 0.9, 12345))
+    torch.cuda.synchronize()
+    width = max((len(s) for s in st.stops), default=0)
+    det = EosDetector(tok.eos_token_ids, st.stops, width, width)
+    dec = tok.stream_decoder()
+    text, n = [], 0
+    for t in res.tokens[len(ids):]:
+        n += 1
+        kind = det.append(t, dec.decode(t))
+        if kind != EOS_MAYBE:
+            text.append(det.get_delta() or "")
+            det.reset()
+        if kind == EOS_FOUND:
+            break
+    return "".join(text), n
+
+
+def _poison(srv: _Server, batched: bool):
+    """The next engine call fails: batch 1 through `generate` (the
+    serialized path), batch 8 through the session's chunk and verify round
+    (the Batcher loop). The rebuild replaces the engine, and the poison
+    with it."""
+    def boom(*a, **k):
+        raise RuntimeError("injected engine failure")
+
+    eng = srv.state.engine
+    if batched:
+        eng._decode_batch = boom
+        eng._dispatch_verify = boom
+    else:
+        eng.generate = boom
+
+
+def _burst(srv: _Server, users, kws=None) -> tuple:
+    """Every prompt at once, each from its own thread, request i with the
+    body fields `kws[i]`: (responses, wall s)."""
+    import threading
+
+    out = [None] * len(users)
+
+    def one(i):
+        out[i] = srv.chat(_messages(users[i]), **(kws[i] if kws else {}))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(users))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, time.perf_counter() - t0
+
+
+def _first_diff(a: str, b: str):
+    """Where two texts part (None: equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def server_run(torch, mp: str, tp: str, extra, counters, expected, name: str,
+               full: bool = True) -> dict:
+    """One server of phase 5g, its counters set to 0 just before the first
+    request and read after the last. Each prompt alone first, timed by the
+    server's own histograms; at batch 8 all eight at once, greedy (the
+    aggregate tok/s). With `full`: at batch 8 each alone again seeded and
+    sampled and the eight at once; a non-stream and an SSE request at once from
+    threads, two requests sharing the system prompt (the second must hit
+    the prefix cache), one under `response_format` (a JSON schema), the
+    views, a request's trace, and one forced engine failure (a 500, the
+    rebuild, then the tokens of before and the card's memory back within
+    one graph pool). Then, with the Batcher stopped, each greedy response
+    against `engine.generate` on the server's engine.
+
+    What must be equal: seeded sampled rows of the burst and their alone
+    runs (a sampled row never speculates, and its stream is its seed's:
+    the JAX Batcher's contract); greedy rows and their alone runs,
+    and greedy responses and `engine.generate`, where the server does not
+    speculate at batch > 1. With ngram speculation at batch > 1 a greedy
+    token is computed by a verify round (K2, bf16) or a decode step (K1,
+    Q80 activations) as the row's co-tenants' drafts (or generate's own
+    loop) schedule them, so a near-tie may part the texts: reported
+    (`greedy_parts`), not required."""
+    batched = "--batch" in extra
+    speculates = "off" not in extra
+    greedy_exact = not (batched and speculates)
+    srv = _Server(mp, tp, extra)
+    try:
+        st = srv.state
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        users = SERVER_USERS[:SERVER_BURST if batched else 2]
+        alone = {u: _timed(srv, _messages(u)) for u in users}
+        r1 = alone[users[0]]
+        out = {"phase": "server", "setup": name, "args": list(extra), "start_s": srv.start_s,
+               "warmup_s": st.engine.warmup_seconds}
+        greedy_parts = {}
+        if batched:
+            if full:
+                seeded = [dict(temperature=0.8, top_p=0.9, seed=100 + i)
+                          for i in range(len(users))]
+                sampled_alone = [srv.chat(_messages(u), **kw) for u, kw in zip(users, seeded)]
+                together, wall = _burst(srv, users, seeded)
+                for u, a, b in zip(users, sampled_alone, together):
+                    assert b["choices"][0]["message"]["content"] == \
+                        a["choices"][0]["message"]["content"], \
+                        f"{name}: a seeded sampled row of the burst differs from its run alone ({u!r})"
+                n_s = sum(r["usage"]["completion_tokens"] for r in together)
+                out["sampled_burst"] = {"tok_s": n_s / wall, "wall_s": wall}
+            greedy, gwall = _burst(srv, users)
+            for u, r in zip(users, greedy):
+                d = _first_diff(r["choices"][0]["message"]["content"], alone[u]["content"])
+                if d is not None:
+                    greedy_parts[u] = d
+            assert not (greedy_exact and greedy_parts), \
+                f"{name}: greedy rows of the burst part from their runs alone at {greedy_parts}"
+            n_g = sum(r["usage"]["completion_tokens"] for r in greedy)
+            out["burst"] = {"requests": len(users), "greedy_tok_s": n_g / gwall,
+                            "greedy_wall_s": gwall, "greedy_parts_from_alone": greedy_parts}
+        if full:
+            out.update(_server_surface(torch, srv, name, batched, r1, alone, users, greedy_exact))
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in counters}
+        out["recaptures_after_warmup"] = st.engine.graph_stats(live=False)[
+            "recaptures_after_warmup"]
+        assert out["recaptures_after_warmup"] == 0, f"{name}: a capture after warmup"
+        # each greedy response against engine.generate on the server's
+        # engine, with the Batcher stopped: this thread owns it now
+        if st.batcher is not None:
+            st.batcher.stop()
+        generate_parts = {}
+        for u, r in alone.items():
+            text, n = reference_text(torch, srv, _messages(u))
+            d = _first_diff(r["content"], text)
+            if d is not None or r["completion_tokens"] != n:
+                generate_parts[u] = d
+        assert not (greedy_exact and generate_parts), \
+            f"{name}: responses part from engine.generate at {generate_parts}"
+        from distributed_llama_tpu_torch.probes import timing
+
+        out.update({
+            "requests": [{"user": u, **{k: r[k] for k in (
+                "ttft_ms", "decode_tok_s", "completion_tokens", "prefix_hit_tokens",
+                "spec_accepted")}} for u, r in alone.items()],
+            "generate_checked": len(alone), "generate_parts": generate_parts,
+            "launches": launches, "card": timing.card_line()})
+        log(json.dumps(out))
+        check_launched(launches, expected, f"the {name} server")
+        return launches
+    finally:
+        srv.close()
+
+
+def _server_surface(torch, srv: _Server, name: str, batched: bool, r1: dict, alone: dict,
+                    users, greedy_exact: bool) -> dict:
+    """The rest of a full server run (see `server_run`); returns its
+    numbers. The non-stream and SSE pair run as co-tenants at batch 8: held
+    to their runs alone as `server_run` holds the greedy burst."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    st = srv.state
+    first = _messages(users[0])
+    # a non-stream request and an SSE one at once, from threads
+    with ThreadPoolExecutor(2) as ex:
+        a = ex.submit(srv.chat, first)
+        b = ex.submit(srv.sse, _messages(users[1]))
+        ns, (sse_text, sse_first_s) = a.result(), b.result()
+    pair_parts = {k: d for k, d in (
+        ("non-stream", _first_diff(ns["choices"][0]["message"]["content"], r1["content"])),
+        ("sse", _first_diff(sse_text, alone[users[1]]["content"]))) if d is not None}
+    assert not (greedy_exact and pair_parts), \
+        f"{name}: the non-stream and SSE pair part from their runs alone at {pair_parts}"
+    # two requests sharing the system prompt: the second hits
+    shared = [_timed(srv, _messages(u, SERVER_SYSTEM)) for u in users[:2]]
+    assert shared[1]["prefix_hit_tokens"] > 0, f"{name}: the shared prompt missed the cache"
+    # a constrained request
+    rf = {"type": "json_schema", "json_schema": {"name": "t", "schema": GRAMMAR_BOOL}}
+    constrained = _timed(srv, _messages("Emit the object.", SERVER_SYSTEM), response_format=rf)
+    assert isinstance(json.loads(constrained["content"]), dict), \
+        f"{name}: the constrained reply is not a JSON object"
+    # the views answer
+    assert json.loads(srv.get("/health"))["status"] == "ok"
+    stats = json.loads(srv.get("/stats"))
+    metrics = srv.get("/metrics")
+    for series in ("dlt_ttft_ms_bucket", "dlt_tpot_ms_bucket", "dlt_requests_completed_total",
+                   "dlt_goodput_tokens_per_s"):
+        assert series in metrics, f"{name}: /metrics lacks {series}"
+    assert re.search(r'^dlt_steps_total\{kind="(decode|batch_decode|spec_verify)\[', metrics,
+                     re.M), f"{name}: /metrics lacks the StepStats series"
+    for path in ("/v1/models", "/debug/config", "/debug/hot_prefixes", "/debug/quarantine",
+                 "/debug/batch_timeline"):
+        srv.get(path)
+    code, _, _ = srv.request("POST", "/admin/drain_hint", {"draining": False})
+    assert code == 200, f"{name}: /admin/drain_hint answered {code}"
+    # the trace id a response echoes, read back from /debug/trace
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}/v1/chat/completions",
+        data=json.dumps({"messages": first, "max_tokens": 4}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        tid = r.headers["X-DLT-Trace-Id"]
+        r.read()
+    spans = sorted({e["name"] for e in json.loads(srv.get(f"/debug/trace?id={tid}"))["events"]})
+    assert "request" in spans, f"{name}: the trace lacks its request span"
+    # the forced failure: a 500, the rebuild, then the tokens of before
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    pool_before = st.engine.warm_pool_bytes
+    old = st.engine
+    _poison(srv, batched)
+    t0 = time.perf_counter()
+    code, body, _ = srv.request("POST", "/v1/chat/completions",
+                                {"messages": first, "max_tokens": SERVER_MAX_TOKENS})
+    assert code == 500 and b"engine error" in body, f"{name}: the failure answered {code}"
+    srv.wait_serving()
+    recovery_s = time.perf_counter() - t0
+    assert st.engine is not old and old.closed, f"{name}: no rebuild"
+    del old
+    srv.get("/debug/flightrecord")  # the recovery's post-mortem
+    again = _timed(srv, first)
+    assert again["content"] == r1["content"], f"{name}: after the rebuild, other tokens"
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    pool_after = st.engine.warm_pool_bytes
+    assert abs(mem_after - mem_before) <= max(pool_before, pool_after), \
+        f"{name}: memory {mem_before} -> {mem_after} past one graph pool"
+    return {
+        "pool_bytes": pool_before, "recovery_s": recovery_s, "pair_parts": pair_parts,
+        # beside a non-stream request (a batch-1 server serves one at a time)
+        "sse_first_chunk_ms": sse_first_s * 1e3,
+        "shared": [{k: r[k] for k in ("ttft_ms", "decode_tok_s", "prefix_hit_tokens")}
+                   for r in shared],
+        "constrained": {"content": constrained["content"], "ttft_ms": constrained["ttft_ms"],
+                        "decode_tok_s": constrained["decode_tok_s"]},
+        "again_ttft_ms": again["ttft_ms"], "memory_before": mem_before,
+        "memory_after": mem_after, "trace_spans": spans, "stats_sections": sorted(stats),
+    }
+
+
+def server_phase(torch, mp: str, tp: str, counters) -> dict:
+    """Phase 5g at Llama-3.2-1B width, three servers, each its own path:
+    (a) batch 1 at the CLI's defaults (paged bf16, ngram, the prefix cache,
+    the grammar arena), (b) `--batch 8 --kv-dtype int8`, (c) the same with
+    `--speculative off`, lean: the greedy burst and `engine.generate`
+    held exactly. Returns {path: launches}."""
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+
+    base = (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked)
+    int8 = ("--batch", "8", "--kv-dtype", "int8")
+    paths = {}
+    for path, extra, expected, name, full in (
+            ("llama32_1b server batch 1 (the CLI defaults)", (), base, "batch 1", True),
+            ("llama32_1b server batch 8 paged int8", int8, (*base, ca.paged_flash_attention),
+             "batch 8 int8", True),
+            ("llama32_1b server batch 8 paged int8 --speculative off",
+             (*int8, "--speculative", "off"), (*base, ca.paged_flash_attention),
+             "batch 8 int8 speculation off", False)):
+        paths[path] = server_run(torch, mp, tp, extra, counters, expected, name, full=full)
+        release(torch)
+    return paths
+
+
 # the host-side launch calls a window counts: the CUDA runtime's and the
 # low-level cu* entries, plain and extended (a kernel launched as a
 # thread-block cluster goes through cudaLaunchKernelEx), and a CUDA graph's
@@ -4399,6 +4834,18 @@ def grammar_only(torch) -> int:
     return 0
 
 
+def server_only(torch) -> int:
+    """`--server`: phase 5g at Llama-3.2-1B width alone, each server counted,
+    each kernel of its path launched."""
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+
+    mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B)
+    paths = server_phase(torch, mp, tp, (*q.KERNELS, *ca.KERNELS))
+    print(json.dumps({"phase": "server_launches", "launches": paths}))
+    return 0
+
+
 def release(torch) -> None:
     """Drop what a finished phase left on the card."""
     gc.collect()
@@ -4418,6 +4865,8 @@ def main(argv=None) -> int:
                     help="only phase 5d's paged int8 k 8 chains and, where they part, arm_growth")
     ap.add_argument("--grammar", action="store_true",
                     help="only phase 5e at Llama-3.2-1B width")
+    ap.add_argument("--server", action="store_true",
+                    help="only phase 5g (the server) at Llama-3.2-1B width")
     ap.add_argument("--guarded-paths", action="store_true",
                     help="only `guarded_paths_ab` at Llama-3.2-1B width (with --models)")
     ap.add_argument("--guard-share", action="store_true",
@@ -4465,9 +4914,10 @@ def main(argv=None) -> int:
             print(json.dumps(guard_share(torch, mp, tp)))
         print(smi)
         return 0
-    if args.profiles or args.spec_divergence or args.grammar:
+    if args.profiles or args.spec_divergence or args.grammar or args.server:
         rc = (profiles_only(torch, args.profiles, args.models) if args.profiles
-              else spec_divergence_only(torch) if args.spec_divergence else grammar_only(torch))
+              else spec_divergence_only(torch) if args.spec_divergence
+              else grammar_only(torch) if args.grammar else server_only(torch))
         print(smi)
         return rc
 
@@ -4637,6 +5087,8 @@ def main(argv=None) -> int:
                                   q.q40_gemm_bf16, ca.flash_attention, ca.paged_flash_attention))
     release(torch)
     done("phase 5e")
+    paths.update(server_phase(torch, mp, tp, counters))
+    done("phase 5g")
     Path(mp).unlink()  # room on the disk for the MoE file
     done("phases 5-6 at Llama-3.2-1B width")
 

@@ -299,6 +299,7 @@ class InferenceEngine:
             self.page_pool = PagePool(
                 resolve_pool_pages(kv_pool_mb, page_bytes, parity), ps, batch, self.cfg.seq_len,
                 reclaim=lambda: engine()._reclaim_pages(), stats=self.stats,
+                page_bytes=page_bytes, kv_dtype=self.cfg.cache_dtype,
             )
             self._tables = DeviceTables(self.page_pool, self.device)
         # decode chunks replay CUDA graphs on the card (runtime/graphs.py);
@@ -309,6 +310,8 @@ class InferenceEngine:
         self._gen = None  # the device generator of sampled chunks
         self.last_logits = None  # the last decode step's logits [b, vocab]
         self.warmup_seconds = None
+        self.warm_pool_bytes = 0  # the graph pool's bytes when warmup ended
+        self.closed = False  # `close` released the device state
         self.cache = self._new_cache()
         # warmup's junk steps neither match nor publish
         self._in_warmup = False
@@ -349,9 +352,24 @@ class InferenceEngine:
             print(self.memory_report())
 
     def close(self):
+        """Release the engine: its model file, its draft source and its
+        device state (weights, KV cache, prefix entries, grammar table,
+        static buffers, and the decode graphs with their shared pool), so
+        an engine built after it never shares the card with this one's
+        memory (the server's rebuild, server/api.py). The host-side surface
+        (stats, configuration) stays readable; nothing runs after close.
+        Idempotent."""
+        self.closed = True
         self.reader.close()
         if self.draft_source is not None:
             self.draft_source.close()
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+        self._graphs = self._bufs = self._gen = self._tables = None
+        self.params = self.cache = self.rope = self.last_logits = None
+        self._gr_table = self._gr_host = self.last_grammar_state = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def set_speculation(self, speculative: str | None, draft_k: int | None = None,
                         draft_source=None) -> None:
@@ -459,7 +477,10 @@ class InferenceEngine:
         """Fresh independent sequences: contiguous zeroes the cache in place
         (prefix entries hold copies of their own); paged unmaps every row
         (the pool's content is junk that later writes replace before any
-        query reads it; pages that prefix entries retain survive)."""
+        query reads it; pages that prefix entries retain survive). Nothing
+        on a closed engine."""
+        if self.closed:
+            return
         if self.paged:
             self.page_pool.release_all_rows()
             return
@@ -1119,15 +1140,22 @@ class InferenceEngine:
             self._graphs.seal()
         self._sync()
         self.warmup_seconds = time.perf_counter() - t0
-        return self.graph_stats()
+        stats = self.graph_stats()
+        self.warm_pool_bytes = stats["pool_bytes"]
+        return stats
 
-    def graph_stats(self) -> dict:
+    def graph_stats(self, live: bool = True) -> dict:
         """Graphs, captures, recaptures after warmup, the shared pool's
-        device bytes and the warmup's seconds."""
+        device bytes and the warmup's seconds. `live=False` gives the pool's
+        bytes as warmup left them and asks the card nothing: the view a
+        thread other than the engine's may read (the server's `/stats`)."""
         g = self._graphs
         out = g.stats() if g is not None else {"graphs": 0, "captures": 0,
                                                "recaptures_after_warmup": 0, "sealed": False}
-        out["pool_bytes"] = g.pool_bytes() if g is not None else 0
+        if not live:
+            out["pool_bytes"] = self.warm_pool_bytes
+        else:
+            out["pool_bytes"] = g.pool_bytes() if g is not None else 0
         out["warmup_seconds"] = self.warmup_seconds
         return out
 

@@ -254,5 +254,5 @@ class DecodeGraphs:
             "launches_per_replay": {
                 f"{key.kind}/kv{key.kv_bucket}/{key.sampler}"
                 + (f"/t{key.size}" if key.size != 1 else ""):
-                sum(g.launches) for key, g in self.graphs.items()},
+                sum(g.launches) for key, g in list(self.graphs.items())},
         }

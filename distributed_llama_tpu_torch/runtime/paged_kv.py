@@ -150,14 +150,17 @@ class PagePool:
     prefix-cache eviction) frees pages under pressure: True means it made
     progress and the allocation is planned again. `stats` (the engine's
     StepStats, runtime/telemetry.py) takes the pool's counters and gauges
-    under the JAX pool's names."""
+    under the JAX pool's names. `page_bytes` (device bytes a page, scales
+    included) and `kv_dtype` label `snapshot`, the server's `/stats` view."""
 
     def __init__(self, n_pages: int, page_size: int, n_rows: int, seq_len: int, reclaim=None,
-                 stats=None):
+                 stats=None, page_bytes: int = 0, kv_dtype: str | None = None):
         if n_pages <= 0:
             raise ValueError("page pool needs at least one page")
         self.n_pages = int(n_pages)
         self.page_size = int(page_size)
+        self.page_bytes = int(page_bytes)
+        self.kv_dtype = kv_dtype
         self.n_rows = int(n_rows)
         self.seq_len = int(seq_len)
         self.max_slots = -(-seq_len // page_size)
@@ -190,6 +193,32 @@ class PagePool:
     @property
     def used_pages(self) -> int:
         return self.n_pages - len(self._free)
+
+    def snapshot(self) -> dict:
+        """Occupancy and capacity, under the JAX pool's keys (its
+        `snapshot`): stored bytes, so an int8 pool shows its real token
+        capacity."""
+        with self._lock:
+            return {
+                "n_pages": self.n_pages,
+                "page_size": self.page_size,
+                "used_pages": self.used_pages,
+                "free_pages": self.free_pages,
+                "max_slots": self.max_slots,
+                "shared_pages": int(np.sum(self.refs > 1)),
+                "kv_dtype": self.kv_dtype,
+                "page_bytes": self.page_bytes,
+                "pool_bytes": self.page_bytes * self.n_pages,
+                "used_bytes": self.page_bytes * self.used_pages,
+                "tokens_capacity": self.n_pages * self.page_size,
+            }
+
+    def row_holds_pages(self, row: int) -> bool:
+        """Whether any slot of `row` is mapped: the Batcher's park-or-shed
+        test (a parked admission waits only where another row holds pages
+        that can free)."""
+        with self._lock:
+            return bool((self.tables[row] >= 0).any())
 
     def ensure(self, row: int, start: int, end: int) -> list:
         """Make span ``[start, end)`` of `row` privately writable: allocate

@@ -48,9 +48,18 @@ class Tokenizer:
         self._regular_index = {
             self.vocab[i]: i for i in range(self.regular_vocab_size - 1, -1, -1)
         }
-        self._special = [
-            (self.vocab[i], i) for i in range(self.regular_vocab_size, self.vocab_size)
-        ]
+        # the special pieces by length, each piece to its first vocab index:
+        # a position takes the first special in vocab order whose piece
+        # starts there (the reference's findSpecialTokenStartWith), which is
+        # the least index found over the lengths. One dict probe a length,
+        # where a scan of every special a position cost ~1.5 s an encode on
+        # a vocab padded with 128k specials (the JAX tokenizer's scan)
+        by_len: dict[int, dict[bytes, int]] = {}
+        for i in range(self.vocab_size - 1, self.regular_vocab_size - 1, -1):
+            piece = self.vocab[i]
+            if piece:
+                by_len.setdefault(len(piece), {})[piece] = i
+        self._special_by_len = sorted(by_len.items())
         self._decode_buf = b""
 
     # -- encode ------------------------------------------------------------
@@ -71,13 +80,13 @@ class Tokenizer:
         while i < len(text):
             if add_special_tokens and not pending:
                 matched = -1
-                for piece, tid in self._special:
-                    if text.startswith(piece, i):
+                for n, pieces in self._special_by_len:
+                    tid = pieces.get(text[i : i + n])
+                    if tid is not None and (matched < 0 or tid < matched):
                         matched = tid
-                        i += len(piece)
-                        break
                 if matched >= 0:
                     tokens.append(matched)
+                    i += len(self.vocab[matched])
                     continue
             pending += text[i : i + 1]
             i += 1
@@ -121,9 +130,17 @@ class Tokenizer:
     def reset_decoder(self):
         self._decode_buf = b""
 
+    def stream_decoder(self) -> "StreamDecoder":
+        """An INDEPENDENT streaming-decode state over this tokenizer's vocab
+        — batch serving gives each concurrent row its own UTF-8 carry
+        buffer instead of sharing the tokenizer's."""
+        return StreamDecoder(self)
+
     def decode(self, token: int) -> str | None:
         """Streaming decode: returns printable text or None if the token only
-        extended an incomplete UTF-8 sequence (or was bos/eos)."""
+        extended an incomplete UTF-8 sequence (or was bos/eos). Uses the
+        tokenizer's own carry buffer (single-sequence use); see
+        `stream_decoder` for independent per-row state."""
         out, self._decode_buf = _decode_step(self, self._decode_buf, token)
         return out
 
@@ -159,6 +176,18 @@ def _decode_step(tok: "Tokenizer", buf: bytes, token: int):
         return None, buf
     out, buf = buf[:cut], buf[cut:]
     return (out.decode("utf-8", errors="replace") or None), buf
+
+
+class StreamDecoder:
+    """Per-row streaming decoder sharing a Tokenizer's vocab."""
+
+    def __init__(self, tok: Tokenizer):
+        self._tok = tok
+        self._buf = b""
+
+    def decode(self, token: int) -> str | None:
+        out, self._buf = _decode_step(self._tok, self._buf, token)
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,12 @@ import distributed_llama_tpu_torch.runtime.speculative
 import distributed_llama_tpu_torch.runtime.grammar
 import distributed_llama_tpu_torch.runtime.telemetry
 import distributed_llama_tpu_torch.runtime.tracing
+import distributed_llama_tpu_torch.runtime.supervisor
+import distributed_llama_tpu_torch.server
+import distributed_llama_tpu_torch.server.router
+import distributed_llama_tpu_torch.server.quarantine
+import distributed_llama_tpu_torch.server.scheduler
+import distributed_llama_tpu_torch.server.api
 import distributed_llama_tpu_torch.testing
 import distributed_llama_tpu_torch.probes.int4
 import distributed_llama_tpu_torch.probes.dma
@@ -88,6 +94,11 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     assert "distributed_llama_tpu_torch.runtime.grammar" in mods
     assert "distributed_llama_tpu_torch.runtime.telemetry" in mods
     assert "distributed_llama_tpu_torch.runtime.tracing" in mods
+    assert "distributed_llama_tpu_torch.runtime.supervisor" in mods
+    assert "distributed_llama_tpu_torch.server.api" in mods
+    assert "distributed_llama_tpu_torch.server.scheduler" in mods
+    assert "distributed_llama_tpu_torch.server.quarantine" in mods
+    assert "distributed_llama_tpu_torch.server.router" in mods
     assert "distributed_llama_tpu_torch.probes.operands" in mods
     assert "distributed_llama_tpu_torch.probes.attention" in mods
     assert "distributed_llama_tpu_torch.probes.k1_step" in mods
