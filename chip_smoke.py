@@ -197,6 +197,29 @@ caught):
      arm, verify round or decode step, follows the co-tenants' drafts:
      where a row parts is reported); K1-stacked, K1 and K2 launched, K5 at
      batch 8;
+  5h. the KV movement layer and the device views, at Llama-3.2-1B width
+     after 5g, through `serve()` on 127.0.0.1, one counted path: (a) a
+     server `--batch 4 --speculative off --prefix-cache-mb 12` with host
+     and disk tiers of one 256-token entry's size, three system prompts
+     that evict each other (demotions, a spill to disk), then a disk and a
+     host promotion, each equal to its cold run and `engine.generate`, the
+     promotion walls and hit counters; (c) on the same server
+     `/debug/costs` (full coverage of the JAX engine's ladder, the decode
+     FLOPs a token within 1.0-1.5 of the analytic 2 x matmul params),
+     `/metrics` (`dlt_mfu`, `dlt_bw_utilization`, the duty cycle in [0,
+     1]; `dlt_hbm_bytes{component=...}`, the modeled weights and KV 0.6-1.0
+     of the bytes the allocator reserved since the server started: the
+     ledger measures the whole process, earlier phases' leftovers
+     included) and `/debug/profile?ms=200` during a burst of
+     four (a concurrent capture gets 409; the trace holds the Batcher's
+     kernels or graph launches); then a forced failure whose rebuild
+     captures while this thread keeps the tier's drain copying: 0
+     recaptures, `hbm_drift_events` 0, the promoted tokens of before; (b)
+     a prefill worker and a decode worker (`--batch 4 --speculative off`)
+     in the process: the decode worker's tokens equal (a)'s on the device
+     path and on the HTTP path, a growing prefix skips the pages it holds,
+     a device-path fault degrades with equal tokens; each path's transfer
+     wall and bytes (JAX's bench bar, device 3x faster, reported);
   6. where a token's time goes: torch.profiler over 8 batch-1 decode
      steps of each model (contiguous) and of the 1B on the paged int8
      layout (K5's share; 16 steps until phase 5d came), over one
@@ -216,7 +239,8 @@ speculation loops, profiled, and the k 4 verify ms): run from the root of
 two trees in one call, it compares them end to end. `--spec-divergence` runs phases 1-2 and only phase 5d's
 paged int8 batch-1 chains without speculation and at k 8, with
 `arm_growth` where they part. `--grammar` runs phases 1-2 and only phase
-5e at Llama-3.2-1B width, `--server` only phase 5g; `--guarded-paths [--models DIR]` only
+5e at Llama-3.2-1B width, `--server` only phase 5g, `--kv` only phase 5h;
+`--guarded-paths [--models DIR]` only
 `guarded_paths_ab`, for many short runs of two trees in turns, and with
 `--guard-share` also `guard_share`: the loops with and without their
 watchdog guards in one process.
@@ -4504,6 +4528,420 @@ def server_phase(torch, mp: str, tp: str, counters) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 5h: the KV movement layer and the device views (runtime/kv_tiering.py,
+# server/disagg.py, runtime/profiling.py) through the server
+# ---------------------------------------------------------------------------
+
+# three system prompts of more than 256 byte tokens that part at their first
+# word: each publishes its own 256-token prefix entry (8 MiB of bf16 pages
+# at 1B width), so a budget of one entry evicts on every switch
+KV_SYSTEMS = tuple(
+    f"{w} assistant: answer briefly, cite nothing, keep to the facts the user gives you, "
+    "and say so when you do not know. " * 3
+    for w in ("Careful", "Patient", "Honest"))
+# server (a): batched (the Batcher applies each promotion on its thread),
+# speculation off (greedy rows exact: phase 5g), one 256-token entry of
+# prefix cache and of host tier, so demotions spill to disk
+KV_ARGS = ("--batch", "4", "--speculative", "off")
+KV_TIER_ARGS = (*KV_ARGS, "--prefix-cache-mb", "12")
+KV_TIER_ENV = {"DLT_KV_HOST_TIER_MB": "12", "DLT_KV_DISK_TIER_MB": "1024"}
+# the rebuild's drain traffic: a 16-token slice queued every KV_FEED_S, at
+# most KV_FEED_MAX of them (~270 MB of 1B KV), so the disk tier's budget
+# keeps the real entries the promotions after the rebuild need
+KV_FEED_S, KV_FEED_MAX = 0.02, 500
+KV_PROFILE_MS = 200
+# the profiled burst's requests: ~1 s of decode each at batch 4
+KV_BURST_TOKENS = 256
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    import os
+
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _wait_for(cond, what: str, timeout_s: float = 60.0) -> float:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(0.01)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def _metric(text: str, name: str):
+    m = re.search(rf"^{re.escape(name)} ([0-9.e+-]+)$", text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def _matmul_params(h: dict) -> int:
+    """Weight elements one token's matmuls read (the analytic decode FLOPs
+    are twice this): q, k, v, o, w1, w2, w3 a layer and the classifier."""
+    qd, kvd = h["n_heads"] * h["head_dim"], h["n_kv_heads"] * h["head_dim"]
+    per_layer = h["dim"] * qd + 2 * h["dim"] * kvd + qd * h["dim"] + 3 * h["dim"] * h["hidden_dim"]
+    return h["n_layers"] * per_layer + h["dim"] * h["vocab_size"]
+
+
+def _profile_during_burst(srv: "_Server") -> dict:
+    """/debug/profile?ms=KV_PROFILE_MS while four clients keep the Batcher
+    decoding (each sends long requests until both captures have answered:
+    the profiler's start and stop take up to seconds, and the recorded
+    window must still hold the Batcher's work), a second capture refused
+    with 409, and what the trace holds of the Batcher's work: kernel events
+    (the port's kernels and glue, in or out of graph replays) and graph
+    launches."""
+    import threading
+
+    out, codes, chats = {}, {}, []
+    batcher = srv.state.batcher
+    stop = threading.Event()
+
+    def chat(i):
+        while not stop.is_set():
+            chats.append(srv.request("POST", "/v1/chat/completions", {
+                "messages": _messages(SERVER_USERS[i], KV_SYSTEMS[i % len(KV_SYSTEMS)]),
+                "max_tokens": KV_BURST_TOKENS})[0])
+
+    def profile(key):
+        code, body, _ = srv.request("GET", f"/debug/profile?ms={KV_PROFILE_MS}")
+        codes[key] = code
+        if code == 200:
+            out.update(json.loads(body))
+
+    threads = [threading.Thread(target=chat, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        _wait_for(lambda: any(r is not None and not r.prefilling
+                              for r in list(batcher.slots)), "a decoding row")
+        first = threading.Thread(target=profile, args=("first",))
+        first.start()
+        time.sleep(0.05)
+        profile("second")
+        first.join()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    assert codes == {"first": 200, "second": 409}, f"profile answers {codes}"
+    assert chats and set(chats) == {200}, f"the burst answered {chats}"
+    with open(out["perfetto_trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    graph_launches = [e for e in events if e.get("name") in GRAPH_LAUNCH_CALLS]
+    port_kernels = [e for e in kernels if any(
+        s in e.get("name", "") for s in ("q40_", "flash", "paged", "gemv", "gemm"))]
+    cats = {}
+    for e in events:
+        cats[str(e.get("cat"))] = cats.get(str(e.get("cat")), 0) + 1
+    assert kernels or graph_launches, \
+        f"the profile holds none of the Batcher's work: {cats}, {len(events)} events"
+    names = sorted({e["name"][:60] for e in port_kernels})[:6]
+    return {"wall_ms": out["wall_ms"], "files": out["files"], "categories": cats,
+            "kernel_events": len(kernels),
+            "port_kernel_events": len(port_kernels), "graph_launches": len(graph_launches),
+            "port_kernel_names": names,
+            "seen_as": ("kernels in graph replays" if port_kernels else "graph launches")}
+
+
+def kv_tier_run(torch, mp: str, tp: str) -> tuple:
+    """Phase 5h (a) and (c) on one server, `KV_TIER_ARGS` with host and disk
+    tiers: three prompts past one entry's budget demote and spill; a disk
+    and a host promotion each equal their cold run and `engine.generate`;
+    the cost table, the ledger, the roofline gauges and a profile during a
+    burst; then a rebuild while demotions drain, with 0 recaptures and the
+    tokens of before. Returns (the phase's numbers, the cold answers by
+    system prompt)."""
+    t0 = time.perf_counter()
+    disk = BUILD / "smoke" / "kvtier"
+    if disk.exists():
+        for f in disk.iterdir():
+            f.unlink()
+    # what the process holds on the card before the server (earlier
+    # phases' leftovers): the ledger measures the whole process's reserve
+    reserved0 = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+    with _env(dict(KV_TIER_ENV, DLT_KV_DISK_TIER_DIR=str(disk))):
+        srv = _Server(mp, tp, KV_TIER_ARGS)
+    try:
+        st = srv.state
+        store = st.kv_tier
+        assert store is not None and st.engine.prefix_cache.tier is store
+        user = SERVER_USERS[0]
+
+        def demoted(n):  # the drain landed n demotions in host RAM
+            _wait_for(lambda: st.engine.stats.counters_snapshot().get(
+                "kv_tier_demoted_host", 0) >= n, f"demotion {n}")
+
+        cold = {}
+        for i, system in enumerate(KV_SYSTEMS):  # A, B, C: each evicts the last
+            cold[i] = _timed(srv, _messages(user, system))
+            demoted(i)
+        assert store.snapshot()["disk"]["entries"] >= 1, "no spill to disk"
+        c0 = srv.counters()
+        # A: evicted first, spilled to disk (B's demotion pushed it out of
+        # host RAM); its insert evicts C, demoted into host RAM
+        prom_disk = _timed(srv, _messages(user, KV_SYSTEMS[0]))
+        demoted(3)
+        prom_host = _timed(srv, _messages(user, KV_SYSTEMS[2]))
+        c1 = srv.counters()
+        hits = {t: c1.get(f"kv_tier_hits_{t}", 0) - c0.get(f"kv_tier_hits_{t}", 0)
+                for t in ("host", "disk")}
+        assert hits == {"host": 1, "disk": 1}, f"tier hits {hits}"
+        assert prom_disk["content"] == cold[0]["content"], "a disk promotion changed the tokens"
+        assert prom_host["content"] == cold[2]["content"], "a host promotion changed the tokens"
+        for r in (prom_disk, prom_host):
+            assert r["prefix_hit_tokens"] >= 256, f"promoted, then missed: {r['prefix_hit_tokens']}"
+        promotion_us = [r["response"]["usage"]["goodput"]["promotion_us"]
+                        for r in (prom_disk, prom_host)]
+        tiering = {
+            "demoted": {t: c1.get(f"kv_tier_demoted_{t}", 0) for t in ("host", "disk")},
+            "demoted_bytes": c1.get("kv_tier_demoted_bytes", 0),
+            "hits": hits, "promotions": c1.get("kv_tier_promotions", 0),
+            "promotion_us_disk_host": promotion_us,
+            "prefix_hit_tokens": [prom_disk["prefix_hit_tokens"], prom_host["prefix_hit_tokens"]],
+            "ttft_ms_cold_vs_promoted": {"disk": [cold[0]["ttft_ms"], prom_disk["ttft_ms"]],
+                                         "host": [cold[2]["ttft_ms"], prom_host["ttft_ms"]]},
+            "tiers": {k: store.snapshot()[k] for k in ("host", "disk")},
+        }
+
+        tiering["seconds"] = time.perf_counter() - t0
+        tiering["start_s"] = srv.start_s
+        t0 = time.perf_counter()
+        # (c) the device views
+        costs = json.loads(srv.get("/debug/costs"))
+        eng = st.engine
+        plan = eng.cost_plan()
+        assert costs["coverage"]["complete"] and not costs.get("failures"), costs.get("coverage")
+        assert costs["n_entries"] == costs["coverage"]["plan_size"] == len(plan)
+        kinds = {e["kind"] for e in costs["entries"]}
+        assert kinds == {"prefill", "decode", "prefill_row", "batch_decode", "page_copy",
+                         "page_extract", "page_insert"}, kinds
+        table = eng.cost_table(build=False)
+        dec = table.entries[("batch_decode", 1, 256)]
+        band = dec.flops_per_token / (2.0 * _matmul_params(LLAMA32_1B))
+        assert 1.0 <= band <= 1.5, f"decode FLOPs a token {band:.4f} x the analytic"
+        metrics = srv.get("/metrics")
+        shares = {g: _metric(metrics, f"dlt_{g}") for g in
+                  ("mfu", "bw_utilization", "device_duty_cycle")}
+        for g, v in shares.items():
+            assert v is not None and 0.0 <= v <= 1.0, f"dlt_{g} = {v}"
+        comps = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r'^dlt_hbm_bytes\{component="([a-z_]+)"\} ([0-9.e+-]+)$', metrics, re.M)}
+        for c in ("weights", "rope", "kv_cache", "unattributed"):
+            assert c in comps, f"dlt_hbm_bytes lacks {c}"
+        modeled = sum(v for c, v in comps.items() if c != "unattributed")
+        measured = modeled + comps["unattributed"]
+        ratio = (comps["weights"] + comps["kv_cache"]) / (measured - reserved0)
+        assert 0.6 <= ratio <= 1.0, \
+            f"modeled weights + KV {ratio:.3f} of the bytes the server reserved"
+        profile = _profile_during_burst(srv)
+        views = {
+            "cost_entries": costs["n_entries"], "cost_kinds": sorted(kinds),
+            "batch_decode_1_kv256": {"flops_per_token": dec.flops_per_token,
+                                     "bytes_per_token": dec.bytes_per_token,
+                                     "analytic_ratio": band,
+                                     "kernel_share_flops": dec.kernel_flops / dec.flops,
+                                     "kernel_share_bytes": dec.kernel_bytes / dec.bytes_accessed},
+            "gauges": shares, "hbm_bytes": comps, "reserved_before_server": reserved0,
+            "weights_kv_over_measured": ratio,
+            "headroom_bytes": _metric(metrics, "dlt_hbm_headroom_bytes"),
+            "profile": profile, "seconds": time.perf_counter() - t0,
+        }
+        t0 = time.perf_counter()
+
+        # a rebuild while demotions drain: this thread keeps the drain busy
+        # (16-token slices on the card queued as captures) until the new
+        # engine serves; the rebuild's captures and the drain's copies both
+        # take CAPTURE_LOCK
+        c = st.engine.cfg
+        junk = torch.randn((c.n_layers, 16, c.n_kv_heads, c.head_dim), device=st.engine.device,
+                           dtype=st.engine.cache.k.dtype)
+        torch.cuda.synchronize()
+        drift0 = srv.counters().get("hbm_drift_events", 0)
+        old = st.engine
+        _poison(srv, batched=True)
+        import queue
+        import threading
+
+        stop = threading.Event()
+        queued = [0]
+
+        def feed():
+            while not stop.is_set() and queued[0] < KV_FEED_MAX:
+                try:
+                    store._demote_q.put_nowait(
+                        (tuple([7] * 15 + [1000 + queued[0]]), junk, junk))
+                    queued[0] += 1
+                except queue.Full:
+                    pass
+                time.sleep(KV_FEED_S)
+
+        feeder = threading.Thread(target=feed, daemon=True)
+        feeder.start()
+        t0 = time.perf_counter()
+        code, body, _ = srv.request("POST", "/v1/chat/completions", {
+            "messages": _messages(user, KV_SYSTEMS[1]), "max_tokens": SERVER_MAX_TOKENS})
+        assert code == 500, f"the forced failure answered {code}"
+        srv.wait_serving()
+        recovery_s = time.perf_counter() - t0
+        stop.set()
+        feeder.join()
+        del junk
+        assert st.engine is not old and old.closed, "no rebuild"
+        del old
+        gs = st.engine.graph_stats(live=False)
+        assert gs["recaptures_after_warmup"] == 0 and (
+            gs["captures"] > 0 or st.engine.device.type != "cuda"), gs
+        c2 = srv.counters()
+
+        def landed():  # the queued slices that reached a tier
+            with store._lock:
+                return sum(1 for t in (*store._host, *store._disk) if len(t) == 16 and t[0] == 7)
+
+        _wait_for(lambda: landed() == queued[0] > 0, f"{queued[0]} queued slices in the tiers")
+        drained = landed()
+        again = {i: _timed(srv, _messages(user, KV_SYSTEMS[i])) for i in (0, 2)}
+        for i, r in again.items():
+            assert r["content"] == cold[i]["content"], f"after the rebuild, prompt {i} differs"
+            assert r["prefix_hit_tokens"] >= 256, \
+                f"after the rebuild, prompt {i} was not promoted ({r['prefix_hit_tokens']})"
+        drift = srv.counters().get("hbm_drift_events", 0) - drift0
+        srv.get("/metrics")  # the new engine's first reconcile
+        assert srv.counters().get("hbm_drift_events", 0) - drift0 == drift == 0, \
+            "hbm_drift_events moved across the rebuild"
+        rebuild = {"recovery_s": recovery_s, "captures": gs["captures"],
+                   "recaptures_after_warmup": gs["recaptures_after_warmup"],
+                   "demotions_queued": queued[0], "demotions_drained": drained,
+                   "dropped": c2.get("kv_tier_demote_dropped", 0),
+                   "promoted_after": {i: again[i]["prefix_hit_tokens"] for i in again},
+                   "hbm_drift_events": drift, "seconds": time.perf_counter() - t0}
+        assert st.engine.graph_stats(live=False)["recaptures_after_warmup"] == 0
+        # each cold answer against engine.generate, the Batcher stopped
+        st.batcher.stop()
+        for i in (0, 2):
+            text, n = reference_text(torch, srv, _messages(user, KV_SYSTEMS[i]))
+            assert text == cold[i]["content"], f"prompt {i}: the server parts from generate"
+        return {"tiering": tiering, "views": views, "rebuild": rebuild}, {
+            i: r["content"] for i, r in cold.items()}
+    finally:
+        srv.close()
+
+
+def kv_disagg_run(torch, mp: str, tp: str, cold: dict) -> dict:
+    """Phase 5h (b): a prefill worker and a decode worker (`KV_ARGS`) in
+    this process, greedy: the decode worker's tokens equal server (a)'s on
+    the device path and on the HTTP path, a growing prefix ships only its
+    missing pages, and a device-path fault degrades with equal tokens."""
+    from distributed_llama_tpu_torch.runtime import kv_transport
+    from distributed_llama_tpu_torch.server.disagg import DisaggClient
+
+    pf = _Server(mp, tp, ("--role", "prefill"))
+    try:
+        dec = _Server(mp, tp, (*KV_ARGS, "--role", "decode", "--prefill-peer",
+                               f"127.0.0.1:{pf.port}"))
+        try:
+            st = dec.state
+            user = SERVER_USERS[0]
+            assert st.disagg.snapshot()["peer_transports"] == {
+                f"127.0.0.1:{pf.port}": "device"}
+            paths = {}
+
+            def fetched(i, what):
+                c0 = dec.counters()
+                r = _timed(dec, _messages(user, KV_SYSTEMS[i]))
+                c1 = dec.counters()
+                assert r["content"] == cold[i], f"{what}: tokens differ from server (a)"
+                g = r["response"]["usage"]["goodput"]
+                delta = {k: c1.get(k, 0) - c0.get(k, 0) for k in (
+                    "disagg_kv_fetched", "disagg_degraded", "disagg_pages_skipped",
+                    "kv_transfer_bytes_device", "kv_transfer_bytes_http")}
+                return r, g, delta
+
+            r, g, d = fetched(0, "device path")
+            assert g["kv_transfer_path"] == "device" and d["disagg_kv_fetched"] == 1
+            paths["device"] = {"kv_transfer_us": g["kv_transfer_us"],
+                               "remote_prefill_us": g["remote_prefill_us"],
+                               "bytes": d["kv_transfer_bytes_device"], "ttft_ms": r["ttft_ms"]}
+            old = st.disagg
+            st.disagg = DisaggClient(st, old.peers, transport="http")
+            try:
+                r, g, d = fetched(1, "HTTP path")
+            finally:
+                st.disagg = old
+            assert g["kv_transfer_path"] == "http" and d["disagg_kv_fetched"] == 1
+            paths["http"] = {"kv_transfer_us": g["kv_transfer_us"],
+                             "remote_prefill_us": g["remote_prefill_us"],
+                             "bytes": d["kv_transfer_bytes_http"], "ttft_ms": r["ttft_ms"]}
+            kv_transport.set_device_chaos(OSError("injected device-path failure"))
+            try:
+                r, g, d = fetched(2, "a device-path fault")
+            finally:
+                kv_transport.set_device_chaos(None)
+                st.disagg._backoff_until.clear()
+            assert d["disagg_degraded"] == 1 and g["kv_transfer_path"] == "", d
+            # a prefix that grows past the 256 entry the worker shipped: the
+            # held leading pages are named, not shipped again
+            grown = _messages(user, KV_SYSTEMS[0] * 3)
+            c0 = dec.counters()
+            dec.chat(grown)
+            c1 = dec.counters()
+            skipped = c1.get("disagg_pages_skipped", 0) - c0.get("disagg_pages_skipped", 0)
+            assert skipped > 0, "the growing prefix shipped every page again"
+            speed = paths["http"]["kv_transfer_us"] / max(paths["device"]["kv_transfer_us"], 1)
+            gs = st.engine.graph_stats(live=False)
+            assert gs["recaptures_after_warmup"] == 0
+            return {"start_s": [pf.start_s, dec.start_s], "paths": paths,
+                    "http_over_device": speed,
+                    "device_at_least_3x_faster": speed >= 3.0,
+                    "degraded_tokens_equal": True, "pages_skipped": skipped,
+                    "worker": {k: v for k, v in pf.counters().items() if k.startswith("disagg")},
+                    "recaptures_after_warmup": gs["recaptures_after_warmup"]}
+        finally:
+            dec.close()
+    finally:
+        pf.close()
+
+
+def kv_phase(torch, mp: str, tp: str, counters) -> dict:
+    """Phase 5h at Llama-3.2-1B width, through `serve()` on 127.0.0.1: the
+    tiered store, the device views and a rebuild under drain traffic on
+    server (a), then prefill/decode disaggregation against (a)'s tokens.
+    One counted path: the counters are set to 0 before (a) starts serving
+    and read after the decode worker's last request. Returns {path:
+    launches}."""
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+    from distributed_llama_tpu_torch.probes import timing
+
+    t0 = time.perf_counter()
+    release(torch)
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    tier, cold = kv_tier_run(torch, mp, tp)
+    release(torch)
+    disagg = kv_disagg_run(torch, mp, tp, cold)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    release(torch)
+    log(json.dumps({"phase": "kv", **tier, "disagg": disagg, "launches": launches,
+                    "seconds": time.perf_counter() - t0, "card": timing.card_line()}))
+    check_launched(launches, (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked,
+                              ca.flash_attention), "phase 5h")
+    return {"llama32_1b kv tiers, disaggregation and device views": launches}
+
+
 # the host-side launch calls a window counts: the CUDA runtime's and the
 # low-level cu* entries, plain and extended (a kernel launched as a
 # thread-block cluster goes through cudaLaunchKernelEx), and a CUDA graph's
@@ -4846,6 +5284,18 @@ def server_only(torch) -> int:
     return 0
 
 
+def kv_only(torch) -> int:
+    """`--kv`: phase 5h at Llama-3.2-1B width alone, counted, each kernel of
+    its path launched."""
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+
+    mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B)
+    paths = kv_phase(torch, mp, tp, (*q.KERNELS, *ca.KERNELS))
+    print(json.dumps({"phase": "kv_launches", "launches": paths}))
+    return 0
+
+
 def release(torch) -> None:
     """Drop what a finished phase left on the card."""
     gc.collect()
@@ -4867,6 +5317,9 @@ def main(argv=None) -> int:
                     help="only phase 5e at Llama-3.2-1B width")
     ap.add_argument("--server", action="store_true",
                     help="only phase 5g (the server) at Llama-3.2-1B width")
+    ap.add_argument("--kv", action="store_true",
+                    help="only phase 5h (KV tiers, disaggregation, device views) at "
+                    "Llama-3.2-1B width")
     ap.add_argument("--guarded-paths", action="store_true",
                     help="only `guarded_paths_ab` at Llama-3.2-1B width (with --models)")
     ap.add_argument("--guard-share", action="store_true",
@@ -4914,10 +5367,11 @@ def main(argv=None) -> int:
             print(json.dumps(guard_share(torch, mp, tp)))
         print(smi)
         return 0
-    if args.profiles or args.spec_divergence or args.grammar or args.server:
+    if args.profiles or args.spec_divergence or args.grammar or args.server or args.kv:
         rc = (profiles_only(torch, args.profiles, args.models) if args.profiles
               else spec_divergence_only(torch) if args.spec_divergence
-              else grammar_only(torch) if args.grammar else server_only(torch))
+              else grammar_only(torch) if args.grammar
+              else kv_only(torch) if args.kv else server_only(torch))
         print(smi)
         return rc
 
@@ -5089,6 +5543,8 @@ def main(argv=None) -> int:
     done("phase 5e")
     paths.update(server_phase(torch, mp, tp, counters))
     done("phase 5g")
+    paths.update(kv_phase(torch, mp, tp, counters))
+    done("phase 5h")
     Path(mp).unlink()  # room on the disk for the MoE file
     done("phases 5-6 at Llama-3.2-1B width")
 

@@ -25,7 +25,10 @@ the prefix cache off, and raises ValueError without one. As in the JAX
 CLI, the engine builds the grammar arena (runtime/grammar.py) on one
 device with device decode, so every decode and verify graph carries the
 grammar mask at the all-legal FREE state; DLT_GRAMMAR=0 turns it off,
-and under `--sp` or `--host-decode` it stays off. After the Timing
+and under `--sp` or `--host-decode` it stays off. `--role` and
+`--prefill-peer` (the API server's disaggregated roles, server/disagg.py)
+parse here as in the JAX CLI and feed the server's ``DLT_ROLE`` /
+``DLT_PREFILL_PEER`` resolution. After the Timing
 block `inference` prints the engine's step report (`StepStats.report`:
 the prefill and decode or verify series), as the JAX CLI does. The
 reference's `worker` mode, anywhere in argv, prints the JAX CLI's migration
@@ -142,6 +145,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="device budget of the radix prefix cache (cross-request KV "
         "reuse over shared prompts). -1 = DLT_PREFIX_CACHE_MB env, "
         "defaulting to 512; 0 disables",
+    )
+    p.add_argument(
+        "--role", choices=["unified", "prefill", "decode"], default=None,
+        help="disaggregated serving role of the API server (server/disagg.py): "
+        "'prefill' workers answer POST /v1/prefill (run the prompt, ship "
+        "bucket-aligned KV); 'decode' workers fetch shipped KV from "
+        "--prefill-peer before admission and stream tokens; 'unified' "
+        "(default, or DLT_ROLE env) serves everything locally. "
+        "DLT_KV_TRANSPORT={auto,device,http} picks the transfer path per peer",
+    )
+    p.add_argument(
+        "--prefill-peer", action="append", default=None, metavar="HOST:PORT",
+        help="prefill worker a --role decode server fetches KV from "
+        "(repeatable; round-robin with in-request failover; default "
+        "DLT_PREFILL_PEER env, comma-separated). A dead peer degrades the "
+        "request to local prefill, never fails it",
     )
     return p
 

@@ -42,7 +42,10 @@ skip as a per-row select.
 
 Each wrapper takes its plain version for a tensor on the CPU, launches its
 kernel for a tensor on the card (or raises), and counts its launches in
-the plain int attribute `launches`.
+the plain int attribute `launches`. On ``meta`` tensors, under a cost
+census only (ops/census.py), it states its call's FLOPs and bytes (q and
+the output once, and the K/V rows the causal limit reads) and returns an
+empty result of its shape.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from dataclasses import dataclass
 
 import torch
 
-from . import kernels
+from . import census, kernels
 from .quant import _f32_matmul
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -456,6 +459,24 @@ def _check_flash_shapes(q, k_cache) -> None:
         raise ValueError("head counts or head_dim disagree")
 
 
+def _visible_keys(t: int, pos_start: int, col_offset: int, S: int) -> tuple:
+    """(sum over the t queries of the keys each sees, the most any sees):
+    query i at pos_start + i sees the rows of [col_offset, col_offset + S)
+    at or below its position."""
+    vis = [min(max(pos_start + i + 1 - col_offset, 0), S) for i in range(t)]
+    return sum(vis), max(vis)
+
+
+def _attention_cost(name, q, k, pairs: int, rows: int, extra: int, make):
+    """The census entry of one attention call: QK and PV dots over `pairs`
+    (query, key) pairs a head; q, `rows` K and V rows a batch row, and
+    `extra` bytes (the outputs, the paged tables and scales) moved once."""
+    b, _, H, hd = q.shape
+    kv_row = k.shape[-2] * k.shape[-1] * k.element_size()
+    moved = census.nbytes(q) + 2 * b * rows * kv_row + extra
+    return census.meta_kernel(name, 4.0 * b * H * hd * pairs, moved, make)
+
+
 def flash_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -469,6 +490,10 @@ def flash_attention(
     _check_flash_shapes(q, k_cache)
     if scale is None:
         scale = 1.0 / (q.shape[3] ** 0.5)
+    if q.device.type == "meta":
+        pairs, rows = _visible_keys(q.shape[1], int(pos_start), 0, k_cache.shape[1])
+        return _attention_cost("flash_attention", q, k_cache, pairs, rows, census.nbytes(q),
+                               lambda: torch.empty_like(q))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k_cache, v_cache, int(pos_start), scale)
     if q.device.type != "cuda":
@@ -497,6 +522,17 @@ def flash_attention_partial(
     _check_flash_shapes(q, k_local)
     if scale is None:
         scale = 1.0 / (q.shape[3] ** 0.5)
+    if q.device.type == "meta":
+        b, t, H, hd = q.shape
+        pairs, rows = _visible_keys(t, int(pos_start), int(col_offset), k_local.shape[1])
+
+        def make():
+            f32 = dict(dtype=torch.float32, device=q.device)
+            return (torch.empty((b, t, H, hd), **f32), torch.empty((b, t, H), **f32),
+                    torch.empty((b, t, H), **f32))
+
+        return _attention_cost("flash_attention_partial", q, k_local, pairs, rows,
+                               b * t * H * (hd + 2) * 4, make)
     if q.device.type == "cpu":
         return flash_attention_partial_plain(q, k_local, v_local, int(pos_start),
                                              int(col_offset), scale)
@@ -745,6 +781,16 @@ def paged_flash_attention(
                       n_read, page_size)
     if scale is None:
         scale = 1.0 / (q.shape[3] ** 0.5)
+    if q.device.type == "meta":
+        # the rows' n_read pages of int8 K and V with their f32 scales, the
+        # tables and positions once; where each row's causal limit falls is
+        # data, so every key of the pages read counts
+        b, t = q.shape[0], q.shape[1]
+        rows = n_read * page_size
+        scales = 2 * b * rows * k_scale.shape[-1] * k_scale.element_size()
+        extra = census.nbytes(q) + scales + b * n_read * 4 + census.nbytes(pos_base)
+        return _attention_cost("paged_flash_attention", q, k_pool, t * rows, rows, extra,
+                               lambda: torch.empty_like(q))
     if q.device.type == "cpu":
         return paged_flash_attention_plain(q, k_pool, v_pool, k_scale, v_scale, li, pos_base,
                                            page_table, n_read, page_size, scale)

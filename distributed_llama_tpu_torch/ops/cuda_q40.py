@@ -66,7 +66,10 @@ repeats its order of sums on the CPU.
 Every wrapper takes its plain version for a tensor on the CPU, launches its
 kernel for a tensor on the card (or raises), and counts its launches in a
 plain int attribute `launches`, incremented where it launches and nowhere
-else.
+else. On ``meta`` tensors, under a cost census only (ops/census.py), it
+states its call's FLOPs and bytes (`_matmul_cost`: x, one group's weight
+words and scales and the f32 output, each once) and returns an empty
+result of its shape.
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ from dataclasses import dataclass
 import torch
 
 from ..formats.quants import Q_BLOCK
-from . import kernels
+from . import census, kernels
 from .quant import _f32_matmul, unpack_q
 
 MAX_I8_ROWS = 8
@@ -687,6 +690,23 @@ def _check_groups(q, d, x, index):
         raise ValueError("the group index must be contiguous")
 
 
+def _group_bytes(q: torch.Tensor, d: torch.Tensor) -> int:
+    """Bytes of one group's (one layer's, one expert's) words and scales."""
+    return (q.shape[-2] * q.shape[-1] * q.element_size()
+            + d.shape[-2] * d.shape[-1] * d.element_size())
+
+
+def _matmul_cost(name: str, x, q, d, rows: int, groups: int, extra: int = 0):
+    """The census entry of one Q40 matmul call over `rows` rows against
+    `groups` weight groups, returning an empty f32 [rows, out] (or [...,
+    out] for x's leading shape) meta result."""
+    in_f, out_f = (q.shape[-2] // 4) * Q_BLOCK, q.shape[-1]
+    moved = census.nbytes(x) + groups * _group_bytes(q, d) + extra + rows * out_f * 4
+    lead = x.shape[:-1] if x.numel() // in_f == rows else (rows,)
+    return census.meta_kernel(name, 2.0 * rows * in_f * out_f, moved,
+                              lambda: x.new_empty((*lead, out_f), dtype=torch.float32))
+
+
 def _device_kind(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
@@ -760,6 +780,11 @@ def q40_i8_unpacked(x8, xs, qt, dt) -> torch.Tensor:
     scales (`quantize_rows_q80`), qt UNPACKED [nb, 32, out] int8 in [-8, 7],
     dt [nb, out] f16 -> [R, out] f32; out % 8 == 0."""
     check_i8_operands(x8, xs, qt, dt, Q_BLOCK, torch.int8)
+    if x8.device.type == "meta":
+        rows, out_f = x8.shape[0], qt.shape[-1]
+        moved = sum(census.nbytes(t) for t in (x8, xs, qt, dt)) + rows * out_f * 4
+        return census.meta_kernel("q40_i8_unpacked", 2.0 * rows * x8.shape[1] * out_f, moved,
+                                  lambda: x8.new_empty((rows, out_f), dtype=torch.float32))
     if _device_kind(x8) == "cpu":
         return q40_i8_unpacked_plain(x8, xs, qt, dt)
     out = launch_i8_mma(x8, xs, qt, dt)
@@ -775,6 +800,8 @@ def q40_gemv_q80_stacked(x, q, d, layer) -> torch.Tensor:
     most 8 rows, q [L, nb*4, out], d [L, nb, out] -> [..., out] f32."""
     _check_weight(q, d, x, stacked=True)
     li = _layer_index(layer, q.shape[0])
+    if x.device.type == "meta":
+        return _matmul_cost("q40_gemv_q80_stacked", x, q, d, x.numel() // (q.shape[-2] * 8), 1)
     if _device_kind(x) == "cpu":
         return q40_gemv_q80_plain(x, q[li], d[li])
     out = _launch_gemv(x, q, d, li)
@@ -789,6 +816,8 @@ def q40_gemv_q80(x, q, d) -> torch.Tensor:
     """K1 on an unstacked weight (B2, the decode logits): the same kernel at
     layer 0."""
     _check_weight(q, d, x, stacked=False)
+    if x.device.type == "meta":
+        return _matmul_cost("q40_gemv_q80", x, q, d, x.numel() // (q.shape[-2] * 8), 1)
     if _device_kind(x) == "cpu":
         return q40_gemv_q80_plain(x, q, d)
     out = _launch_gemv(x, q, d, 0)
@@ -804,6 +833,8 @@ def q40_gemm_bf16_stacked(x, q, d, layer) -> torch.Tensor:
     count), q [L, nb*4, out], d [L, nb, out] -> [..., out] f32."""
     _check_weight(q, d, x, stacked=True)
     li = _layer_index(layer, q.shape[0])
+    if x.device.type == "meta":
+        return _matmul_cost("q40_gemm_bf16_stacked", x, q, d, x.numel() // (q.shape[-2] * 8), 1)
     if _device_kind(x) == "cpu":
         return q40_gemm_bf16_plain(x, q[li], d[li])
     out = _launch_gemm(x, q, d, li)
@@ -822,6 +853,8 @@ def q40_gemm_bf16(x, q, d) -> torch.Tensor:
     and any out_features (the vocab widths 128256 and 151936 included) run
     as they are."""
     _check_weight(q, d, x, stacked=False)
+    if x.device.type == "meta":
+        return _matmul_cost("q40_gemm_bf16", x, q, d, x.numel() // (q.shape[-2] * 8), 1)
     if _device_kind(x) == "cpu":
         return q40_gemm_bf16_plain(x, q, d)
     out = _launch_gemm(x, q, d, 0)
@@ -847,6 +880,9 @@ def q40_gemv_q80_indexed(x, q, d, idx) -> torch.Tensor:
         raise ValueError(f"q40_gemv_q80_indexed takes 1..{MAX_I8_ROWS} slots, got {n}")
     if rows not in (1, n):
         raise ValueError(f"x has {rows} rows for {n} slots (1 shared row or one per slot)")
+    if x.device.type == "meta":
+        # the slots' groups, each read once (the distinct ones are data)
+        return _matmul_cost("q40_gemv_q80_indexed", x, q, d, n, n, census.nbytes(idx))
     if _device_kind(x) == "cpu":
         return q40_gemv_q80_indexed_plain(x, q, d, idx)
     out = _launch_gemv_indexed(x, q, d, idx)
@@ -872,6 +908,10 @@ def q40_grouped_gemm_bf16(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
     n_blocks = xp.shape[0] // block_r
     if block_expert.shape[0] != n_blocks:
         raise ValueError(f"{block_expert.shape[0]} block groups for {n_blocks} row blocks")
+    if xp.device.type == "meta":
+        n_groups = q.numel() // (q.shape[-2] * q.shape[-1])
+        return _matmul_cost("q40_grouped_gemm_bf16", xp, q, d, xp.shape[0],
+                            min(n_blocks, n_groups), census.nbytes(block_expert))
     if _device_kind(xp) == "cpu":
         return q40_grouped_gemm_bf16_plain(xp, q, d, block_expert, block_r)
     out = _launch_grouped(xp, q, d, block_expert, block_r)

@@ -17,8 +17,11 @@ graphs here (runtime/graphs.py), the radix prefix cache's hooks
 and the verify kinds of the ladder, grammar-constrained decoding
 (`grammar`, `_gr_operand`; runtime/grammar.py), the observability surface
 (`stats`, `trace`, `_warm`, `_guard`, `_host_fetch`, `last_prefill_timing`;
-runtime/telemetry.py and runtime/tracing.py) and the `q80_activations`
-parity mode. Not ported: the other mesh axes (A13).
+runtime/telemetry.py and runtime/tracing.py), the `q80_activations`
+parity mode, and the device views' hooks (runtime/profiling.py):
+`cost_plan` (the JAX engine's full warm ladder, key for key), the
+`cost_table` with its lock, `_t_start`, and the `kv_tier` a server
+attaches (runtime/kv_tiering.py). Not ported: the other mesh axes (A13).
 
 * The engine runs on the card unless the caller asks for the CPU:
   `device=None` means "cuda" and raises where no GPU is present.
@@ -84,6 +87,7 @@ parity mode. Not ported: the other mesh axes (A13).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import warnings
 import weakref
@@ -346,6 +350,16 @@ class InferenceEngine:
                 self._gr_table = torch.empty(host.shape, dtype=torch.int32, device=self.device)
                 self._gr_table.copy_(host)
                 self._gr_spans, self._gr_version = self.grammar.spans(), self.grammar.version
+        # the engine's lifetime anchor: the duty-cycle gauge
+        # (runtime/profiling.py roofline_view) divides busy time by it
+        self._t_start = time.perf_counter()
+        # the warm-ladder cost table (runtime/profiling.py), built by
+        # `cost_table()`: serve()'s post-warmup build or /debug/costs
+        self._cost_table = None
+        self._cost_table_lock = threading.Lock()
+        # the tiered KV store a server attaches (runtime/kv_tiering.py);
+        # the HBM ledger reads its host section
+        self.kv_tier = None
         self._sync()
         self.load_seconds = time.perf_counter() - t0
         if verbose:
@@ -1046,13 +1060,13 @@ class InferenceEngine:
 
     def warm_plan(self) -> list:
         """The decode ladder: the (kind, size, kv bucket) triples of kinds
-        "decode", "batch_decode", "verify" and "verify_row" that the JAX
-        engine's `warm_plan` (:551) lists for the same arguments, in its
-        order: every decode chunk size of the dispatch loops (the TTFT
-        ramp's included) at every reachable bucket, batch_decode where
-        batch > 1 and decode runs on the device, and with speculation on
-        (device decode) a verify of k + 1 tokens for each draft bucket k at
-        each bucket that covers it, verify_row beside it where batch > 1.
+        "decode", "batch_decode", "verify" and "verify_row" (graphs.KINDS)
+        of `cost_plan`, the JAX engine's `warm_plan` (:551), in its order:
+        every decode chunk size of the dispatch loops (the TTFT ramp's
+        included) at every reachable bucket, batch_decode where batch > 1
+        and decode runs on the device, and with speculation on (device
+        decode) a verify of k + 1 tokens for each draft bucket k at each
+        bucket that covers it, verify_row beside it where batch > 1.
         Prefill and prefix kinds run eagerly here and are not listed.
 
         A decode triple's program is the graph of its (kind, kv bucket)
@@ -1061,12 +1075,31 @@ class InferenceEngine:
         (kind, size, kv bucket) round. `graph_eligible` keeps two arms
         eager, by shapes alone: the sp pipeline and the MoE grouped arm at
         batch * size * n_active >= n_experts."""
+        return [key for key in self.cost_plan() if key[0] in KINDS]
+
+    def cost_plan(self) -> list:
+        """The JAX engine's `warm_plan` (:551) for the same arguments, key
+        for key and in its order: the programs of the cost table
+        (runtime/profiling.py), whose coverage it audits. Beside this
+        engine's graphed kinds it lists the kinds the port runs eagerly:
+        "prefill" (every chunk bucket at every kv bucket that covers it),
+        "prefill_row" where batch > 1 with device decode, the contiguous
+        prefix cache's "prefix_extract", "prefix_copy" and
+        "prefix_copy_row" at each prefix bucket, the paged layout's
+        "page_copy", and with a paged prefix cache "page_extract" and
+        "page_insert" at each prefix bucket of at least a page."""
         kvbs = self._kv_buckets()
-        sizes = sorted(set(self._halving_sizes(self.decode_chunk_size)
-                           + self._halving_sizes(min(8, self.decode_chunk_size))))
-        plan = [("decode", n, kvb) for kvb in kvbs for n in sizes if n <= kvb]
+        prefill_sizes = _chunk_buckets(self.max_chunk)
+        decode_sizes = sorted(set(self._halving_sizes(self.decode_chunk_size)
+                                  + self._halving_sizes(min(8, self.decode_chunk_size))))
+        plan = []
+        for kvb in kvbs:
+            plan += [("prefill", s, kvb) for s in prefill_sizes if s <= kvb]
+            plan += [("decode", n, kvb) for n in decode_sizes if n <= kvb]
         if self.batch > 1 and self.device_decode:
-            plan += [("batch_decode", n, kvb) for kvb in kvbs for n in sizes if n <= kvb]
+            for kvb in kvbs:
+                plan += [("prefill_row", s, kvb) for s in prefill_sizes if s <= kvb]
+                plan += [("batch_decode", n, kvb) for n in decode_sizes if n <= kvb]
         if self.spec_mode is not None and self.device_decode:
             for kvb in kvbs:
                 for k in self.spec_buckets:
@@ -1074,7 +1107,34 @@ class InferenceEngine:
                         plan.append(("verify", k + 1, kvb))
                         if self.batch > 1:
                             plan.append(("verify_row", k + 1, kvb))
+        if self.prefix_cache is not None and not self.paged:
+            for P in self.prefix_cache.buckets:
+                plan.append(("prefix_extract", P, P))
+                plan.append(("prefix_copy", P, P))
+                if self.batch > 1 and self.device_decode:
+                    plan.append(("prefix_copy_row", P, P))
+        if self.paged:
+            plan.append(("page_copy", self.page_size, self.page_size))
+            if self.prefix_cache is not None:
+                for P in self.prefix_cache.buckets:
+                    if P >= self.page_size:
+                        plan.append(("page_extract", P, P))
+                        plan.append(("page_insert", P, P))
         return plan
+
+    def cost_table(self, build: bool = True):
+        """The warm-ladder cost table (runtime/profiling.py CostTable), or
+        None. ``build=True`` builds the full `cost_plan` table on first use
+        (a census on meta tensors: host work, nothing on the card; a
+        partial table is upgraded), once, under a lock, so concurrent
+        ``/debug/costs`` handlers pay for it once."""
+        if build and (self._cost_table is None or self._cost_table.partial):
+            from .profiling import build_cost_table
+
+            with self._cost_table_lock:
+                if self._cost_table is None or self._cost_table.partial:
+                    self._cost_table = build_cost_table(self)
+        return self._cost_table
 
     def warmup(self) -> dict:
         """Capture every graph `warm_plan` needs, every sampling arm, before

@@ -48,6 +48,12 @@ chunk size as well.)
 * `captures` counts captures; after `seal()` (engine `warmup`) each
   capture also counts in `recaptures_after_warmup`, the warm ladder's
   hole counter.
+* Captures run in torch's default global error mode, where a CUDA call
+  from another thread may break the capture. Every capture holds the
+  process-wide `CAPTURE_LOCK`; a thread that is not its engine's
+  device-owning thread (the tier store's drain, a colocated server's
+  device-transport fetch, the profiler's start and stop) touches the card
+  only under it, so it never runs beside a capture.
 
 Without `capture` (on the CPU) `run` takes the same steps eagerly on the
 same buffers and registers each key once, so the static path and the
@@ -56,6 +62,7 @@ ladder's coverage can be checked where no card is.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -64,6 +71,10 @@ from ..ops import cuda_attention, cuda_q40
 
 #: the kinds of step a graph captures
 KINDS = ("decode", "batch_decode", "verify", "verify_row")
+
+#: held by every capture, and by any thread other than an engine's
+#: device-owning one while it touches the card (see the module docstring)
+CAPTURE_LOCK = threading.RLock()
 
 
 @dataclass(frozen=True)
@@ -230,7 +241,7 @@ class DecodeGraphs:
             if generator is not None:
                 graph.register_generator_state(generator)
             try:
-                with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                with CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._pool, stream=side):
                     logits = step()
             finally:
                 launches = self.counts.since(before)

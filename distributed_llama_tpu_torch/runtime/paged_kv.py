@@ -8,9 +8,13 @@ device, with the prefix cache's hooks (runtime/prefix_cache.py): the
 `reclaim` callback that `ensure` loops through, `row_pages`, `retain` and
 `release`, and the JAX pool's StepStats hooks (`stats=`, :340-349): the
 ``kv_pool_*``, ``kv_cow_*`` and ``kv_pages_shared`` counters and the
-``kv_pool_pages_used`` / ``kv_pool_pages_free`` gauges. Not ported: the KV
-transport's and tiering's page movers (`allocate_pages`, `gather_pages`,
-`scatter_pages`; ROADMAP A12) and the server's `/stats` snapshot (A11).
+``kv_pool_pages_used`` / ``kv_pool_pages_free`` gauges, the server's
+`/stats` snapshot, and the KV movement layer's page movers
+(runtime/kv_transport.py): `gather_pages` (JAX :227), `scatter_pages`
+(:257) and `PagePool.allocate_pages` (:440). `scatter_pages` writes into
+the live pool tensors in place (the decode graphs read them); on the
+int8 arm the gather dequantizes to f32 and the scatter quantizes, as in
+JAX.
 
 The pool is ``[L, n_pages + 1, page_size, n_kv, head_dim]`` k/v tensors
 (plus ``[L, n_pages + 1, page_size, n_kv]`` f32 scales on the int8 arm).
@@ -134,6 +138,54 @@ def copy_page(cache: KVCache, src: int, dst: int) -> None:
     in place: the copy-on-write of a write that starts mid-page."""
     for t in cache.tensors():
         t[:, dst].copy_(t[:, src])
+
+
+def _page_index(cache: KVCache, pages) -> torch.Tensor:
+    """A host page-id list as an int64 index on the pool's device."""
+    idx = np.asarray(pages, dtype=np.int64).reshape(-1)
+    return torch.from_numpy(idx).to(cache.k.device)
+
+
+def gather_pages(cache: KVCache, pages) -> tuple:
+    """Read the named pool pages into one new contiguous [L, n * ps, h, d]
+    k/v pair (the paged extract and demotion path). Negative ids clamp to
+    page 0, as in JAX. The int8 pool dequantizes on extract to f32, so
+    every consumer of this shape (the wire codec, the device transport,
+    the tiers) sees a float slice. The result owns its storage: a later
+    scatter into the same pages cannot change it."""
+    idx = _page_index(cache, pages).clamp(min=0)
+    k = cache.k.index_select(1, idx)  # [L, n, ps, h, d]
+    v = cache.v.index_select(1, idx)
+    if cache.k_scale is not None:
+        from ..ops.kv_quant import dequantize_kv
+
+        k = dequantize_kv(k, cache.k_scale.index_select(1, idx), torch.float32)
+        v = dequantize_kv(v, cache.v_scale.index_select(1, idx), torch.float32)
+    L, n, ps, h, d = k.shape
+    return k.reshape(L, n * ps, h, d), v.reshape(L, n * ps, h, d)
+
+
+def scatter_pages(cache: KVCache, k_seg: torch.Tensor, v_seg: torch.Tensor, pages) -> None:
+    """Write a contiguous [L, n * ps, h, d] slice into the named pool pages,
+    IN PLACE (`index_copy_` into the live pool tensors, which the decode
+    graphs read: nothing is rebound). The int8 pool quantizes the float
+    segment and writes the scales beside it. Ids are pairwise distinct by
+    allocation."""
+    idx = _page_index(cache, pages)
+    L, n = cache.k.shape[0], idx.shape[0]
+    ps, h, d = cache.k.shape[2], cache.k.shape[3], cache.k.shape[4]
+    dev = cache.k.device
+    k_seg = k_seg.to(dev).reshape(L, n, ps, h, d)
+    v_seg = v_seg.to(dev).reshape(L, n, ps, h, d)
+    if cache.k_scale is not None:
+        from ..ops.kv_quant import quantize_kv
+
+        k_seg, ks = quantize_kv(k_seg)
+        v_seg, vs = quantize_kv(v_seg)
+        cache.k_scale.index_copy_(1, idx, ks)
+        cache.v_scale.index_copy_(1, idx, vs)
+    cache.k.index_copy_(1, idx, k_seg.to(cache.k.dtype))
+    cache.v.index_copy_(1, idx, v_seg.to(cache.v.dtype))
 
 
 class PagePoolExhausted(RuntimeError):
@@ -265,6 +317,31 @@ class PagePool:
                     self.version += 1
                     self._gauges()
                     return cow
+            if self.reclaim is None or not self.reclaim():
+                self._incr("kv_pool_exhausted")
+                raise PagePoolExhausted(
+                    f"kv page pool exhausted ({self.n_pages} pages of {self.page_size} tokens)"
+                )
+            self._incr("kv_pool_reclaims")
+
+    def allocate_pages(self, n: int) -> tuple:
+        """Take `n` free pages with refs = 1, bound to no row: the external
+        insert's pages (a shipped slice scatters into them and a prefix
+        entry holds them until its release). Retries through the reclaim
+        hook under pressure; raises :class:`PagePoolExhausted` when
+        nothing frees."""
+        if n <= 0:
+            return ()
+        while True:
+            with self._lock:
+                if len(self._free) >= n:
+                    out = []
+                    for _ in range(n):
+                        page = self._free.pop()
+                        self.refs[page] = 1
+                        out.append(page)
+                    self._gauges()
+                    return tuple(out)
             if self.reclaim is None or not self.reclaim():
                 self._incr("kv_pool_exhausted")
                 raise PagePoolExhausted(

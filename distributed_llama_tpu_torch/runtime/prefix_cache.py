@@ -38,12 +38,20 @@ StepStats (`stats=`, runtime/telemetry.py) under the JAX names, with the
 publish each emit their engine-level `global_event` (``prefix_hit``,
 ``prefix_publish``; runtime/tracing.py). `counters` keeps the same
 counts in a dict of its own, in step with StepStats, for readers of the
-cache alone. Not ported: `insert_external` with its
-``prefix_insert_external`` event, `_materialize_contiguous`,
-`_materialize_paged`, `pin_entry`, `match_pinned` and the `tier` demotion
-hook, which serve the disaggregation and tiering paths (ROADMAP A12); and
-the pipeline mesh's
-slice shardings (the port's only mesh is sp, where the cache is off).
+cache alone.
+
+The disaggregation and tiering paths (runtime/kv_transport.py,
+runtime/kv_tiering.py, server/disagg.py) use `match_pinned`, `pin_entry`
+and `insert_external` (with its ``prefix_insert_external`` event), which
+lands a slice computed elsewhere as an ordinary entry: contiguous engines
+build one device pair from the base entry's leading span and the shipped
+segments (`_materialize_contiguous`), paged engines scatter the segments
+into freshly allocated pool pages in place and retain the base's pages
+(`_materialize_paged`). With a tier store attached (`tier`), `_remove`
+hands each victim to its `capture_demotion` before the victim's pages go
+back to the pool; `clear` (engine recovery) bypasses it. Not ported: the
+pipeline mesh's slice shardings (the port's only mesh is sp, where the
+cache is off).
 """
 
 from __future__ import annotations
@@ -179,6 +187,9 @@ class PrefixCache:
         self._bytes = 0
         self._clock = 0
         self._lock = threading.Lock()
+        # the tiered KV store (runtime/kv_tiering.py) a victim demotes to,
+        # or None: eviction deletes
+        self.tier = None
 
     @classmethod
     def build(cls, engine, prefix_cache_mb=None):
@@ -327,6 +338,34 @@ class PrefixCache:
             entry.last_used = self._clock
         return B, entry
 
+    def pin_entry(self, entry) -> None:
+        """Pin an entry (refs + 1) against eviction; release with
+        `entry_release`. Prefer `match_pinned`, which pins under the lock
+        hold that found the entry."""
+        with self._lock:
+            entry.refs += 1
+            self._clock += 1
+            entry.last_used = self._clock
+
+    def match_pinned(self, tokens):
+        """Longest-prefix match with the entry pinned under the same lock
+        hold that found it: the merge base of a disaggregated or tier fetch,
+        whose pages pool pressure must not recycle before the insert that
+        names them. Returns (covered, entry or None); the caller releases a
+        non-None entry exactly once."""
+        with self._lock:
+            m, subtree, best = self._walk(tokens)
+            entry = self._first_entry(subtree)
+            covered = m
+            if entry is None and best is not None:
+                covered, entry = min(m, best.length), best
+            if entry is None:
+                return 0, None
+            entry.refs += 1
+            self._clock += 1
+            entry.last_used = self._clock
+            return covered, entry
+
     def record_hit(self, resume: int) -> None:
         """Count one splice that ran (`resume` = prefill tokens skipped),
         with an engine-level trace event (the request's own prefix_match /
@@ -417,6 +456,139 @@ class PrefixCache:
         global_event("prefix_publish", keys=("tokens", "row"), vals=(P, int(row)))
         return True
 
+    def insert_external(self, engine, tokens, k_np, v_np, start: int = 0,
+                        base_entry=None) -> bool:
+        """Insert a slice computed outside this engine (a prefill worker's
+        shipped KV, a tier promotion) exactly like a local publish, so the
+        next admission's `match_for_splice` hits it through the ordinary
+        splice. `k_np`/`v_np` cover tokens ``[start, P)``: one array, or a
+        list of per-segment arrays along `doubling_segments(start, P)`;
+        host arrays off the wire (bf16 as uint16 words) or tensors on the
+        card. ``start > 0`` merges onto `base_entry` (pinned by the caller,
+        its tokens equal to ``tokens[:start]``). Runs on the engine's
+        device-owning thread: the paged arm writes the live pool. Returns
+        False, never raises to the serving path, when the slice is unusable
+        (off-bucket length, misaligned start, wrong shape, no room)."""
+        from .kv_transport import doubling_segments
+
+        P = len(tokens)
+        if P < PREFIX_MIN_TOKENS or P != bucket_down(P, self.seq_len):
+            return False
+        if start < 0 or start >= P:
+            return False
+        if start > 0:
+            if base_entry is None or start != bucket_down(start, self.seq_len):
+                return False
+            if tuple(base_entry.tokens[:start]) != tuple(int(t) for t in tokens[:start]):
+                return False
+        key = tuple(int(t) for t in tokens)
+        with self._lock:
+            existing = self._entries.get(key)
+            if existing is not None:
+                self._clock += 1
+                existing.last_used = self._clock
+                return True
+        segs = doubling_segments(start, P)
+        if isinstance(k_np, (list, tuple)):
+            if len(k_np) != len(segs) or len(v_np) != len(segs):
+                return False
+            parts = [(a, k_np[i], v_np[i]) for i, (a, _b) in enumerate(segs)]
+        else:
+            if k_np.shape[1] != P - start or v_np.shape[1] != P - start:
+                return False
+            parts = [(a, k_np[:, a - start : b - start], v_np[:, a - start : b - start])
+                     for a, b in segs]
+        L, _, _, h, d = engine.cache.k.shape
+        for a, kp, vp in parts:
+            b = a + kp.shape[1]
+            if tuple(kp.shape) != (L, b - a, h, d) or tuple(vp.shape) != (L, b - a, h, d):
+                return False
+        need = self._slice_nbytes(engine, P)
+        with self._lock:
+            if need > self.budget_bytes or not self._evict_until(self.budget_bytes - need):
+                self._incr("prefix_publish_skipped")
+                return False
+        if self.paged:
+            ok, k, v, pages = self._materialize_paged(engine, parts, start, P, base_entry)
+        else:
+            ok, k, v, pages = self._materialize_contiguous(engine, parts, start, P, base_entry)
+        if not ok:
+            return False
+        with self._lock:
+            if key in self._entries:  # raced with another inserter
+                if pages:
+                    self.page_pool.release(pages)
+                return True
+            if not self._evict_until(self.budget_bytes - need):
+                if pages:
+                    self.page_pool.release(pages)
+                self._incr("prefix_publish_skipped")
+                return False
+            self._clock += 1
+            entry = PrefixEntry(tokens=key, k=k, v=v, nbytes=need, last_used=self._clock,
+                                pages=pages)
+            self._insert(entry)
+            self._entries[key] = entry
+            self._bytes += entry.nbytes
+            self._gauges()
+        self._incr("prefix_inserts")
+        global_event("prefix_insert_external", keys=("tokens", "start"), vals=(P, start))
+        return True
+
+    def _materialize_contiguous(self, engine, parts, start, P, base_entry):
+        """One new [L, P, h, d] pair on the engine's device: the base
+        entry's leading span (its own tensors) and the shipped segments,
+        cast to the cache dtype and concatenated."""
+        from .kv_transport import from_wire
+
+        dev, dt = engine.cache.k.device, engine.cache.k.dtype
+        pieces_k, pieces_v = [], []
+        if start > 0:
+            # the base may be deeper than `start`; only its verified
+            # leading span merges
+            pieces_k.append(base_entry.k[:, :start])
+            pieces_v.append(base_entry.v[:, :start])
+        for _a, kp, vp in parts:
+            pieces_k.append(from_wire(kp, dev).to(dt))
+            pieces_v.append(from_wire(vp, dev).to(dt))
+        k = torch.cat(pieces_k, dim=1) if len(pieces_k) > 1 else pieces_k[0].clone()
+        v = torch.cat(pieces_v, dim=1) if len(pieces_v) > 1 else pieces_v[0].clone()
+        return True, k, v, ()
+
+    def _materialize_paged(self, engine, parts, start, P, base_entry):
+        """Scatter each shipped segment into freshly allocated pool pages
+        (in place, `scatter_pages`) and retain the base entry's leading
+        pages: the merged entry is page content under this pool's ids.
+        Allocation runs outside the trie lock (the reclaim hook takes it)."""
+        from .kv_transport import from_wire
+        from .paged_kv import PagePoolExhausted, scatter_pages
+
+        pool = self.page_pool
+        ps = pool.page_size
+        if start % ps != 0 or P % ps != 0:
+            return False, None, None, ()
+        if any((a % ps or kp.shape[1] % ps) for a, kp, _v in parts):
+            return False, None, None, ()
+        base_pages = ()
+        if start > 0:
+            base_pages = tuple(base_entry.pages[: start // ps])
+            if len(base_pages) != start // ps:
+                return False, None, None, ()
+        new_pages: list = []
+        dev = engine.cache.k.device
+        try:
+            for _a, kp, vp in parts:
+                seg_pages = pool.allocate_pages(kp.shape[1] // ps)
+                new_pages.extend(seg_pages)
+                scatter_pages(engine.cache, from_wire(kp, dev), from_wire(vp, dev), seg_pages)
+        except PagePoolExhausted:
+            if new_pages:
+                pool.release(new_pages)
+            self._incr("prefix_publish_skipped")
+            return False, None, None, ()
+        pool.retain(base_pages)
+        return True, None, None, base_pages + tuple(new_pages)
+
     def _slice_nbytes(self, engine, P: int) -> int:
         if self.paged:
             from .paged_kv import page_pool_bytes
@@ -502,6 +674,14 @@ class PrefixCache:
         self._detach(entry)
         self._entries.pop(entry.tokens, None)
         self._bytes -= entry.nbytes
+        if self.tier is not None:
+            # demote, not delete: the capture runs before the victim's
+            # pages return to the pool, on this (the device-owning) thread,
+            # so its gather reads the victim's bytes into storage of its
+            # own before any later scatter can reuse those pages. `clear`
+            # (engine recovery) bypasses this: a suspect cache must not
+            # seed a tier
+            self.tier.capture_demotion(entry)
         if entry.pages:
             self.page_pool.release(entry.pages)
         self._gauges()

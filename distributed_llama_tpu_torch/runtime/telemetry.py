@@ -6,9 +6,11 @@ names, counters, events and environment variables: `StallError`,
 `watchdog`, `_Series`, `StepStats` (with `report`), `GoodputLedger` and
 `GoodputAggregator` (reference: the executor's stall watchdog,
 src/nn/nn-executor.cpp:9-33,276-353, and the network performance
-monitor, src/nn/nn-network.cpp:883-1053). Not ported: `memory_report`
-and its `_tree_bytes` (ROADMAP A12); the engine's `memory_report` method
-prints its own device summary.
+monitor, src/nn/nn-network.cpp:883-1053), and `memory_report` with its
+`_tree_bytes` (JAX :596-616) over the port's tensor trees: the bytes of
+every tensor in a dataclass / list / dict tree (a Q40 weight's words and
+scales both), which the HBM ledger (runtime/profiling.py) itemizes. The
+engine's `memory_report` method prints its own, wider device summary.
 
 * **Stall watchdog**: `watchdog()` wraps a blocking device call (the
   engine's dispatch and fetch of a decode chunk, a verify round, a
@@ -650,3 +652,39 @@ class GoodputAggregator:
         out["goodput_tokens_per_s"] = self.goodput_tokens_per_s()
         out["by_class"] = self.by_class_snapshot()
         return out
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor in `tree`: a tensor, a dataclass (the params,
+    the KV cache, the rope tables, a Q40 weight), a list, tuple or dict of
+    them, or None."""
+    import dataclasses
+
+    import torch
+
+    if tree is None:
+        return 0
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return sum(_tree_bytes(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(x) for x in tree)
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(x) for x in tree.values())
+    return 0
+
+
+def memory_report(params, cache) -> str:
+    """Device-memory footprint summary (reference: per-node RAM requirement
+    print, src/nn/nn-core.cpp:177-191), the JAX package's line."""
+    pb = _tree_bytes(params)
+    cb = _tree_bytes(cache)
+
+    def fmt(n):
+        return f"{n / 1e9:.2f} GB" if n >= 1e8 else f"{n / 1e6:.1f} MB"
+
+    return (
+        f"💿 Device memory: weights {fmt(pb)}, kv cache {fmt(cb)}, "
+        f"total {fmt(pb + cb)}"
+    )

@@ -23,20 +23,31 @@ fronts it as it fronts a JAX replica.
   (scheduler.py), the poison quarantine (quarantine.py) and the
   supervised reset and rebuild (runtime/supervisor.py).
 
-Not ported (ROADMAP A12): ``/debug/costs`` and ``/debug/profile`` answer
-501, and ``/metrics`` lacks the profiling series (the HBM ledger and the
-roofline and SLO-attainment gauges). The disaggregated roles and the
-tiered KV store are absent too: the replica is ``unified``,
-``/v1/prefill`` and ``/v1/kv_fetch`` answer 404 as the JAX server's
-unified, untiered replica does, and an environment that asks for a role
-or a tier refuses to start (`refuse_unported_env`).
+* the device-performance views (runtime/profiling.py): ``GET
+  /debug/costs`` (the warm-ladder cost table, built after warmup unless
+  ``DLT_COST_TABLE=0``), ``GET /debug/profile?ms=`` (a single-flight
+  ``torch.profiler`` window; 409 while one runs) and ``/metrics``' HBM
+  ledger, roofline and SLO-attainment series;
+* the KV movement layer: a ``unified``, ``prefill`` or ``decode`` role
+  (``--role`` / ``DLT_ROLE``; server/disagg.py) with ``POST /v1/prefill``
+  on prefill workers, a decode worker's `DisaggClient` toward its
+  ``--prefill-peer`` over the same-process device path or the HTTP codec
+  (runtime/kv_transport.py; serve() registers every server as a device
+  peer), and the tiered KV store (runtime/kv_tiering.py: host, disk and
+  peer tiers under the prefix cache, ``DLT_KV_*_TIER_*``) with ``POST
+  /v1/kv_fetch`` and the ``X-DLT-Prefetch-Chain`` hint. A fetched slice
+  or promotion is inserted on the device-owning thread, right before the
+  request's admission (`PendingExternalKv` / `PendingPromotion`).
 
 Threads: every device call runs on the engine-owning thread, the
 `Batcher` loop at batch > 1 and the handler holding `ApiState.lock` at
 batch 1 (a single-threaded server). A CUDA graph captures in torch's
 global error mode, where another thread's CUDA call breaks the capture,
 so no handler touches a tensor on the card and warmup captures the
-ladder before the socket is bound. A request's seed reaches its batch row
+ladder before the socket is bound. The threads that must touch the card
+beside those (the tier store's drain, a prefill worker's extract for a
+colocated decode server, the profiler's start and stop) do so under
+`graphs.CAPTURE_LOCK`, which every capture holds. A request's seed reaches its batch row
 as the row's own sampling stream (`BatchSession.begin_admit`): the same
 seed gives the same text whatever its co-tenants, though not the JAX
 server's text.
@@ -55,7 +66,6 @@ import torch
 
 from ..runtime.engine import InferenceEngine
 from ..runtime.grammar import GrammarError
-from ..runtime.prefix_cache import PREFIX_MIN_TOKENS, bucket_down
 from ..runtime.telemetry import (
     GoodputAggregator,
     GoodputLedger,
@@ -112,44 +122,6 @@ def _on_device(engine):
     if engine.device.type == "cuda":
         return torch.cuda.device(engine.device)
     return contextlib.nullcontext()
-
-
-def _prefill_boundary(n_prompt_tokens: int, seq_len: int) -> int:
-    """The prefix bucket a prompt's cacheable span reaches, as the JAX
-    package's server/disagg.py `prefill_boundary` computes it: the largest
-    bucket <= the prompt less its last token (fed at decode time); 0 below
-    the cache's minimum."""
-    P = bucket_down(max(n_prompt_tokens - 1, 0), seq_len)
-    return P if P >= PREFIX_MIN_TOKENS else 0
-
-
-def refuse_unported_env(environ=None) -> None:
-    """Refuse to start where the environment asks for what the port's
-    server lacks (ROADMAP A12): a ``DLT_ROLE`` other than unified, or a
-    tier of the tiered KV store (``DLT_KV_HOST_TIER_MB`` or
-    ``DLT_KV_DISK_TIER_MB`` above 0, or ``DLT_KV_TIER_PEERS`` named: the
-    knobs the JAX server's store reads). Serving without them quietly
-    would be another replica than the one asked for."""
-    env = os.environ if environ is None else environ
-    asked = []
-    role = env.get("DLT_ROLE") or "unified"
-    if role != "unified":
-        asked.append(f"DLT_ROLE={role}")
-    for name in ("DLT_KV_HOST_TIER_MB", "DLT_KV_DISK_TIER_MB"):
-        try:
-            mb = int(env.get(name) or 0)
-        except ValueError:
-            mb = 0  # the JAX store's reading of a malformed value
-        if mb > 0:
-            asked.append(f"{name}={mb}")
-    if (env.get("DLT_KV_TIER_PEERS") or "").strip():
-        asked.append("DLT_KV_TIER_PEERS")
-    if asked:
-        raise RuntimeError(
-            f"{', '.join(asked)}: disaggregated roles and the tiered KV "
-            "store are not ported to the PyTorch server (ROADMAP A12); "
-            "unset them to serve a unified replica"
-        )
 
 
 class PromptTooLong(ValueError):
@@ -254,6 +226,10 @@ class _BatchReq:
         # next dispatch uploads, so handler threads must never touch it.
         self.grammar = grammar
         self.grammar_session = None  # set at admission; closed at _finish
+        self.kv_external = None  # a deferred disaggregated or tier insert
+        # (server/disagg.PendingExternalKv, runtime/kv_tiering.
+        # PendingPromotion): the Batcher loop applies it on its own thread
+        # right before admission
         self.stopped = False
         self.prefilling = False  # admitted, prompt still prefilling in
         # bounded chunks between decode steps (interleaved admission)
@@ -711,6 +687,13 @@ class Batcher:
                         req.trace.event(  # dlt: allow(trace-hot-emit)
                             "queue_wait", t0, max(nowu - t0, 0), ("row",), (row,)
                         )
+                    if req.kv_external is not None:
+                        # the deferred external-KV insert: THIS thread owns
+                        # the engine's device calls, so the paged scatter
+                        # into the live pool is race-free here, and the
+                        # begin_admit below matches the fresh entry
+                        req.kv_external.apply(self.state)
+                        req.kv_external = None
                     if req.grammar is not None:
                         # arena install on THIS thread (it mutates the
                         # shared table the next dispatch uploads); mixed
@@ -1098,7 +1081,6 @@ class ApiState:
     """Engine + tokenizer + cache shared by all requests (serialized)."""
 
     def __init__(self, engine: InferenceEngine, tokenizer: Tokenizer, args):
-        refuse_unported_env()
         self.engine = engine
         self.tokenizer = tokenizer
         self.args = args
@@ -1184,12 +1166,56 @@ class ApiState:
                 "⚠️  --host-decode serves requests serialized (batched serving "
                 "samples on-device); concurrent requests will queue"
             )
-        # disaggregated serving and the tiered KV store are not ported
-        # (ROADMAP A12): a unified replica without tiers, whose views
-        # (/stats, /debug/config) carry the JAX server's keys
-        self.role = "unified"
+        # disaggregated serving (server/disagg.py over the KV movement
+        # layer, runtime/kv_transport.py): the role and the decode worker's
+        # prefill-tier client, which exists only where it can work: decode
+        # role, peers named, a prefix cache to land shipped KV in
+        from .disagg import DisaggClient, resolve_peers, resolve_role
+
+        self.role = resolve_role(getattr(args, "role", None))
+        peers = resolve_peers(getattr(args, "prefill_peer", None))
         self.disagg = None
-        self.kv_tier = None
+        if self.role == "decode" and peers and engine.prefix_cache is not None:
+            self.disagg = DisaggClient(self, peers)
+        elif self.role == "decode" and not peers:
+            print(
+                "⚠️  --role decode without --prefill-peer serves prompts "
+                "locally (unified behavior)"
+            )
+        # the tiered KV store (runtime/kv_tiering.py): eviction demotes
+        # down host RAM, disk and the peer fleet, admission misses promote
+        # back up; any role runs it; None unless a tier is configured
+        from ..runtime.kv_tiering import TieredKvStore
+
+        self.kv_tier = TieredKvStore.build(engine, goodput=self.goodput)
+        if self.kv_tier is not None:
+            self.kv_tier.attach(engine)
+
+    def kv_tier_payload(self, ids, have_keys=()):
+        """The same-process fleet-cache provider contract (the tier-3 twin
+        of `prefill_extract`): the longest held host/disk-tier bucket as
+        serialized payload bytes, so the requester's verify gate sees the
+        bytes a socket would carry. None = not held."""
+        if self.kv_tier is None:
+            return None
+        return self.kv_tier.serve_fetch(list(ids), have_keys=tuple(have_keys))
+
+    def prefill_extract(self, ids, have_keys=(), trace_id=None):
+        """The same-process device-transport provider contract
+        (runtime/kv_transport.py `register_device_peer`): run the
+        prefill-worker core and hand its segments over as tensors on the
+        card. Raises on a non-prefill role or bad input, as the HTTP
+        handler answers 4xx."""
+        from .disagg import run_prefill_arrays
+
+        if self.role != "prefill":
+            raise OSError("this replica does not serve role=prefill")
+        header, segments = run_prefill_arrays(self, list(ids), have_keys=tuple(have_keys))
+        ks = [k for _, k, _ in segments]
+        vs = [v for _, _, v in segments]
+        if len(ks) == 1:
+            return header, ks[0], vs[0]
+        return header, ks, vs
 
     def _note_prefix_footprint(self, chain, ids):
         """Attach the tokenized cacheable-prefix footprint — pages plus
@@ -1197,10 +1223,12 @@ class ApiState:
         so int8 caches report quantized bytes) — to this request's chain
         keys in the hot-prefix tracker. The size half of the autoscaler's
         size-aware warm-handoff ranking."""
+        from .disagg import prefill_boundary
+
         pc = self.engine.prefix_cache
         if not chain or pc is None:
             return
-        P = _prefill_boundary(len(ids), self.engine.cfg.seq_len)
+        P = prefill_boundary(len(ids), self.engine.cfg.seq_len)
         if P <= 0:
             return
         pages = P // pc.page_pool.page_size if pc.paged else 0
@@ -1312,8 +1340,29 @@ class ApiState:
                 trace,
             )
             raise Overloaded(retry_after_s=1)
+        pending_kv = None
         try:
+            # disaggregated prefill (server/disagg.py): fetch the prompt's
+            # leading-bucket KV before admission; the INSERT is deferred to
+            # the Batcher loop (the device-owning thread: a paged insert
+            # writes the live pool), which applies it right before
+            # begin_admit so the ordinary match/splice picks it up. After
+            # the shed check (never burn a prefill worker on a shed
+            # request); degrades to local prefill on any failure
+            disagg_walls = self.disagg.fetch(ids, trace) if self.disagg else None
+            if disagg_walls is not None:
+                pending_kv = disagg_walls.pop("pending_kv", None)
+            # tiered-KV promotion (runtime/kv_tiering.py): when the prefill
+            # tier shipped nothing, try host RAM, then disk, then the fleet
+            # cache; the same deferred-insert contract. note_chain teaches
+            # the prefetch-hint index what tokens this chain resolves to
+            tier_walls = None
             self._note_prefix_footprint(params.get("_chain") or (), ids)
+            if self.kv_tier is not None:
+                self.kv_tier.note_chain(params.get("_chain") or (), ids)
+                if pending_kv is None:
+                    tier_walls = self.kv_tier.fetch(ids, trace)
+                    pending_kv = tier_walls.pop("pending_kv", None)
             base = []
             if prompt.public_prompt:
                 emit(prompt.public_prompt)
@@ -1323,6 +1372,8 @@ class ApiState:
             # on the public-prompt emit): release it, or the class's
             # quota leaks one slot per failed pre-admission step
             self.batcher.release_reservation(klass)
+            if pending_kv is not None:
+                pending_kv.abandon()
             raise
 
         req_box = []
@@ -1395,8 +1446,20 @@ class ApiState:
                     # still ours to give back (attempt 1's was already
                     # consumed by the first attempt's drain)
                     self.batcher.release_reservation(klass)
+                if pending_kv is not None:
+                    pending_kv.abandon()
                 raise
             req.ledger.retries = attempt
+            if disagg_walls is not None:
+                req.ledger.remote_prefill_us = disagg_walls["remote_prefill_us"]
+                req.ledger.kv_transfer_us = disagg_walls["kv_transfer_us"]
+                req.ledger.kv_transfer_path = disagg_walls.get("kv_transfer_path", "")
+            if tier_walls is not None:
+                req.ledger.promotion_us = tier_walls["promotion_us"]
+            # the deferred external-KV insert: the Batcher applies it on its
+            # thread right before this request's admission (idempotent: a
+            # stall retry's second attempt reuses it)
+            req.kv_external = pending_kv
             try:
                 self.batcher.submit(req)
                 break
@@ -1418,6 +1481,8 @@ class ApiState:
                         waste_reason="stall_retry", count_request=False,
                     )
                     continue
+                if pending_kv is not None:
+                    pending_kv.abandon()  # terminal failure: drop the pin
                 self._record_ledger(fail_ledger(req, "error"), trace)
                 raise
             except Overloaded:
@@ -1426,6 +1491,8 @@ class ApiState:
                 # the backlog shed above; a preempted row's decoded tokens
                 # are labeled "preempt" waste so the scheduler's cost is
                 # its own goodput line
+                if pending_kv is not None:
+                    pending_kv.abandon()
                 self._record_ledger(
                     fail_ledger(req, "shed"), trace,
                     waste_reason="preempt" if req.preempted else None,
@@ -1435,17 +1502,27 @@ class ApiState:
                 # the Batcher shed it at a chunk boundary (or pre-prefill):
                 # every token it decoded is `deadline` waste — compute for
                 # an answer nobody was still waiting for
+                if pending_kv is not None:
+                    pending_kv.abandon()
                 self._record_ledger(
                     fail_ledger(req, "deadline"), trace,
                     waste_reason="deadline",
                 )
                 raise
             except ClientDisconnected:
+                if pending_kv is not None:
+                    pending_kv.abandon()
                 self._record_ledger(fail_ledger(req, "client_gone"), trace)
                 raise
             except Exception:
+                if pending_kv is not None:
+                    pending_kv.abandon()
                 self._record_ledger(fail_ledger(req, "error"), trace)
                 raise
+        if pending_kv is not None:
+            # applied by the Batcher at admission (abandon is then a no-op);
+            # a request retired WITHOUT admission must still drop the pin
+            pending_kv.abandon()
         # n_out counts tokens the writer actually delivered (the EOS token
         # included) — req.n also counts post-stop overrun decoded before the
         # step loop noticed, which must not inflate usage accounting
@@ -1600,7 +1677,30 @@ class ApiState:
                 slo_class=resolve_slo_class(params.get("slo_class")),
             )
             raise DeadlineExceeded("deadline passed before prefill")
-        self._note_prefix_footprint(params.get("_chain") or (), ids)
+        # disaggregated prefill (server/disagg.py): the fetched KV lands in
+        # the prefix cache and engine.generate's ordinary prefill match
+        # splices it; any failure degrades to local prefill. The serialized
+        # path runs under self.lock, so the deferred insert applies inline:
+        # this IS the device-owning thread here
+        disagg_walls = self.disagg.fetch(ids, trace) if self.disagg else None
+        applied_external = False
+        with _on_device(engine):
+            if disagg_walls is not None:
+                pending_kv = disagg_walls.pop("pending_kv", None)
+                if pending_kv is not None:
+                    pending_kv.apply(self)
+                    applied_external = True
+            # tiered-KV promotion (runtime/kv_tiering.py) when the prefill
+            # tier shipped nothing; inline apply, as above
+            tier_walls = None
+            self._note_prefix_footprint(params.get("_chain") or (), ids)
+            if self.kv_tier is not None:
+                self.kv_tier.note_chain(params.get("_chain") or (), ids)
+                if not applied_external:
+                    tier_walls = self.kv_tier.fetch(ids, trace)
+                    pending_tier = tier_walls.pop("pending_kv", None)
+                    if pending_tier is not None:
+                        pending_tier.apply(self)
 
         buffer = []
         if prompt.public_prompt:
@@ -1626,6 +1726,12 @@ class ApiState:
             prompt_tokens=len(ids), retries=1 if retried else 0,
             slo_class=resolve_slo_class(params.get("slo_class")),
         )
+        if disagg_walls is not None:
+            led.remote_prefill_us = disagg_walls["remote_prefill_us"]
+            led.kv_transfer_us = disagg_walls["kv_transfer_us"]
+            led.kv_transfer_path = disagg_walls.get("kv_transfer_path", "")
+        if tier_walls is not None:
+            led.promotion_us = tier_walls["promotion_us"]
         self._inflight_ledger = led
         spec_accept_0 = engine.stats.counters_snapshot().get(
             "spec_accepted_tokens", 0
@@ -1820,6 +1926,8 @@ class ApiState:
         self._closed = True
         if self.batcher is not None:
             self.batcher.stop()
+        if self.kv_tier is not None:
+            self.kv_tier.close()
         self.engine.close()
 
     def _rebuild_engine(self):
@@ -1851,18 +1959,28 @@ class ApiState:
             engine.close()
             raise RuntimeError("replica closed during rebuild")
         self.engine = engine
+        # the KV movement layer follows the swap: the tier store demotes
+        # from (and promotes into) the fresh prefix cache, and the decode
+        # client pins bases in it
+        if self.kv_tier is not None:
+            self.kv_tier.attach(engine)
+        if self.disagg is not None:
+            self.disagg.engine = engine
 
 
 #: THE declared DLT_* knob surface of the port's serving path: every
-#: environment variable it reads, whether or not it is set on this replica,
-#: and the ones it refuses (`refuse_unported_env`). `/debug/config` serves
+#: environment variable it reads, whether or not it is set on this
+#: replica. `/debug/config` serves
 #: it (`env_surface`) so operators can discover every knob from a running
 #: box. Keep alphabetized.
 DLT_ENV_SURFACE = (
     "DLT_BATCH_TIMELINE",
     "DLT_BATCH_TIMELINE_SAMPLE",
     "DLT_COMPILE_LOG_MS",
+    "DLT_COST_TABLE",
     "DLT_DEFAULT_DEADLINE_MS",
+    "DLT_DISAGG_PEER_BACKOFF_S",
+    "DLT_DISAGG_TIMEOUT_S",
     "DLT_DRAFT_K",
     "DLT_FLIGHTREC_DIR",
     "DLT_FLIGHTREC_EVENTS",
@@ -1871,20 +1989,31 @@ DLT_ENV_SURFACE = (
     "DLT_GRAMMAR_CACHE_MB",
     "DLT_GRAMMAR_MAX_SPEC_KB",
     "DLT_GRAMMAR_MAX_STATES",
+    "DLT_HBM_DRIFT_MB",
+    "DLT_KV_DISK_TIER_DIR",
     "DLT_KV_DISK_TIER_MB",
     "DLT_KV_DTYPE",
     "DLT_KV_HOST_TIER_MB",
+    "DLT_KV_INTEGRITY_STRIKES",
+    "DLT_KV_INTEGRITY_TTL_S",
     "DLT_KV_LAYOUT",
     "DLT_KV_PAGE",
     "DLT_KV_POOL_MB",
     "DLT_KV_TIER_PEERS",
+    "DLT_KV_TRANSPORT",
     "DLT_NO_WARMUP",
+    "DLT_PEAK_HBM_GBS",
+    "DLT_PEAK_TFLOPS",
+    "DLT_PREFILL_PEER",
     "DLT_PREFIX_CACHE_MB",
+    "DLT_PROFILE_DIR",
     "DLT_QUARANTINE_SIZE",
     "DLT_QUARANTINE_STRIKES",
     "DLT_QUARANTINE_TTL_S",
     "DLT_ROLE",
     "DLT_SLO_PREEMPT",
+    "DLT_SLO_TPOT_MS",
+    "DLT_SLO_TTFT_MS",
     "DLT_SPECULATIVE",
     "DLT_STALL_LOG_MS",
     "DLT_STALL_TIMEOUT_MS",
@@ -1957,8 +2086,8 @@ def resolved_config(state: "ApiState") -> dict:
             "scheduler": batcher.scheduler.config.snapshot(),
         },
         "role": state.role,
-        "disagg": None,
-        "kv_tiering": None,
+        "disagg": None if state.disagg is None else state.disagg.snapshot(),
+        "kv_tiering": None if state.kv_tier is None else state.kv_tier.snapshot(),
         "supervisor": state.supervisor.config.snapshot(),
         "quarantine": {
             "limit": state.quarantine.limit,
@@ -2008,11 +2137,10 @@ class Handler(BaseHTTPRequestHandler):
         if route == "/metrics":
             # Prometheus text exposition: every StepStats counter/gauge/
             # percentile series plus the TTFT / per-output-token histograms,
-            # with Batcher occupancy and prefix-cache occupancy as gauges.
-            # The device-performance layer (the JAX server's
-            # runtime/profiling.py: the HBM ledger, the roofline and
-            # SLO-attainment gauges) is not ported (ROADMAP A12). Host
-            # reads only: nothing here touches the card
+            # with Batcher occupancy and prefix-cache occupancy as gauges,
+            # and the device-performance layer (runtime/profiling.py
+            # metrics_view: the HBM ledger, the roofline and SLO-attainment
+            # gauges). Host reads and the allocator's counters only
             st = self.state
             extra = {}
             if st.batcher is not None:
@@ -2025,19 +2153,36 @@ class Handler(BaseHTTPRequestHandler):
                 for k in ("entries", "bytes", "budget_bytes", "pinned"):
                     if k in snap:
                         extra[f"prefix_cache_{k}"] = snap[k]
+            from ..runtime.profiling import metrics_view
+
+            prof_gauges, prof_series = metrics_view(st.engine)
+            extra.update(prof_gauges)
             # goodput ledger rollup (runtime/telemetry.py): delivered-token
             # rate (unlabeled total + slo_class breakdown, one gauge
             # family) + per-reason waste counters (reason totals + the
             # {reason, slo_class} breakdown rows) — the federation scraper
             # (server/fleet.py) lifts both into the per-replica table
-            # (the KV-transfer and tier-promotion wall series of the JAX
-            # server render only once a transfer ran: ROADMAP A12)
-            series = {"goodput_tokens_per_s": st.goodput.goodput_series()}
+            series = dict(prof_series)
+            series["goodput_tokens_per_s"] = st.goodput.goodput_series()
+            # KV movement accounting (runtime/kv_transport.py): per-path
+            # transfer-wall quantiles and bytes moved
+            kvt_rows = []
+            for pth in ("device", "http"):
+                pct = st.engine.stats.percentiles(f"kv_transfer_us[{pth}]")
+                for q, v in sorted(pct.items()):
+                    kvt_rows.append(({"path": pth, "quantile": q}, round(v, 1)))
+            if kvt_rows:
+                series["kv_transfer_us"] = kvt_rows
+            # tier-promotion wall quantiles (runtime/kv_tiering.py)
+            promo_pct = st.engine.stats.percentiles("promotion_us")
+            if promo_pct:
+                series["promotion_us"] = [
+                    ({"quantile": q}, round(v, 1)) for q, v in sorted(promo_pct.items())
+                ]
             snap_counters = st.engine.stats.counters_snapshot()
             counter_series = {
                 "wasted_tokens": st.goodput.wasted_series()
                 + st.goodput.wasted_by_class_series(),
-                # zero-filled, as the JAX server renders them untiered
                 "kv_transfer_bytes": [
                     ({"path": pth}, snap_counters.get(f"kv_transfer_bytes_{pth}", 0))
                     for pth in ("device", "http")
@@ -2050,6 +2195,17 @@ class Handler(BaseHTTPRequestHandler):
                     for oc in ("verified", "rejected")
                 ],
             }
+            if st.kv_tier is not None:
+                # per-tier outcomes, zero-filled:
+                # dlt_kv_tier_hits_total{tier=host|disk|peer}
+                counter_series["kv_tier_hits"] = [
+                    ({"tier": t}, snap_counters.get(f"kv_tier_hits_{t}", 0))
+                    for t in ("host", "disk", "peer")
+                ]
+                counter_series["kv_tier_demotions"] = [
+                    ({"tier": t}, snap_counters.get(f"kv_tier_demoted_{t}", 0))
+                    for t in ("host", "disk")
+                ]
             if st.batcher is not None:
                 # scheduler decisions by (class, action) — zero-filled so
                 # the preemption dashboard exists before the first incident
@@ -2068,13 +2224,32 @@ class Handler(BaseHTTPRequestHandler):
             )
             self._respond(200, body.encode(), ctype=PROM_CONTENT_TYPE)
             return
-        if route in ("/debug/costs", "/debug/profile"):
-            # the warm-ladder cost table and the device profiler
-            # (runtime/profiling.py in the JAX package) are not ported
-            self._json(501, json.dumps({
-                "error": f"{route} is not ported to the PyTorch server "
-                "(ROADMAP A12)",
-            }).encode())
+        if route == "/debug/costs":
+            # the warm-ladder cost table (runtime/profiling.py): built on
+            # first hit where serve() did not build it (a census on meta
+            # tensors: host work, nothing on the card); coverage against
+            # the ladder rides the payload
+            engine = self.state.engine
+            table = engine.cost_table()
+            self._json(200, json.dumps(table.snapshot(engine.cost_plan())).encode())
+            return
+        if route == "/debug/profile":
+            from ..runtime.profiling import ProfileBusy, capture_profile
+
+            try:
+                ms = int(self._query_params().get("ms", "500"))
+            except ValueError:
+                self._json(400, b'{"error":"bad ms parameter"}')
+                return
+            try:
+                rec = capture_profile(ms)
+            except ProfileBusy:
+                self._json(409, b'{"error":"a profile capture is already in flight"}')
+                return
+            except Exception as e:
+                self._json(500, json.dumps({"error": f"profiler failed: {e}"}).encode())
+                return
+            self._json(200, json.dumps(rec).encode())
             return
         if route == "/debug/trace":
             tid = self._query_params().get("id", "")
@@ -2217,12 +2392,12 @@ class Handler(BaseHTTPRequestHandler):
                     if st.batcher is not None
                     else None
                 ),
-                # disaggregated serving and the tiered KV store: a
-                # unified replica without tiers (ROADMAP A12), under the
-                # JAX server's keys, which the fleet scraper reads
+                # disaggregated serving (server/disagg.py) and the tiered
+                # KV store (runtime/kv_tiering.py): the disagg_* and
+                # kv_tier_* counters ride steps.counters
                 "role": st.role,
-                "disagg": None,
-                "kv_tiering": None,
+                "disagg": None if st.disagg is None else st.disagg.snapshot(),
+                "kv_tiering": None if st.kv_tier is None else st.kv_tier.snapshot(),
                 # supervised engine lifecycle (runtime/supervisor.py):
                 # state, restart budget, transition counts — the /metrics
                 # twin is dlt_supervisor_transitions_total{state=...}
@@ -2269,6 +2444,14 @@ class Handler(BaseHTTPRequestHandler):
         if self.path != "/v1/chat/completions":
             self._json(404, b'{"error":"not found"}')
             return
+        if self.state.role == "prefill":
+            # a prefill worker's card is for prompt compute: chat here is a
+            # topology error, not something to half-serve
+            self._json(
+                404, b'{"error":"this replica serves role=prefill; '
+                b'POST /v1/prefill"}'
+            )
+            return
         length = int(self.headers.get("Content-Length", 0))
         try:
             params = json.loads(self.rfile.read(length) or b"{}")
@@ -2289,15 +2472,25 @@ class Handler(BaseHTTPRequestHandler):
         # warm-handoff tracker: this request's router-compatible prefix
         # chain keys (None for garbage message shapes — the 400 below owns
         # those; one bounded-dict touch per request, never per token)
-        from .router import messages_prefix_text, prefix_chain
+        from .router import (
+            PREFETCH_CHAIN_HEADER, messages_prefix_text, parse_chain_header, prefix_chain,
+        )
 
         prefix_text = messages_prefix_text(params.get("messages"))
         if prefix_text:
             chain = prefix_chain(prefix_text)
             self.state.hot_prefixes.record(chain)
-            # stash for the completion path: the hot-prefix tracker gets
-            # the tokenized footprint (note_size)
+            # stash for the completion path: the tier store's prefetch-hint
+            # index learns what tokens these chain keys resolve to
+            # (note_chain), the hot-prefix tracker the footprint (note_size)
             params["_chain"] = chain
+        # the router's prefetch hint (X-DLT-Prefetch-Chain): start lifting
+        # the chain it expects here from disk or a peer into host RAM
+        # before the request lands. Best effort; garbage is ignored
+        if self.state.kv_tier is not None:
+            hinted = parse_chain_header(self.headers.get(PREFETCH_CHAIN_HEADER))
+            if hinted:
+                self.state.kv_tier.prefetch_hint(hinted)
 
         # poison-request quarantine (server/quarantine.py): fingerprint the
         # FULL conversation; a fingerprint already implicated in `limit`
@@ -2358,19 +2551,82 @@ class Handler(BaseHTTPRequestHandler):
                 (self.path, getattr(self, "_last_status", 200)), always=True,
             )
 
+    def _read_ids_body(self):
+        """(ids, have) of a /v1/prefill or /v1/kv_fetch body, or None after
+        answering 400. A malformed `have` claim degrades to a full send."""
+        length = int(self.headers.get("Content-Length", 0))
+        try:
+            params = json.loads(self.rfile.read(length) or b"{}")
+            ids = [int(t) for t in params["ids"]]
+            try:
+                have = tuple(int(h, 16) for h in params.get("have", ()))
+            except (TypeError, ValueError):
+                have = ()
+        except (json.JSONDecodeError, KeyError, TypeError, ValueError):
+            self._json(400, b'{"error":"ids (a token id list) required"}')
+            return None
+        if not ids:
+            self._json(400, b'{"error":"empty ids"}')
+            return None
+        return ids, have
+
     def _serve_prefill(self):
-        """``POST /v1/prefill``: only a prefill worker serves it, and the
-        port's replicas are unified (ROADMAP A12) — the JAX server's
-        answer for any other role."""
-        self._json(
-            404, b'{"error":"this replica does not serve role=prefill"}'
+        """``POST /v1/prefill`` (server/disagg.py): a prefill worker runs
+        the prompt's leading bucket and ships the extracted KV as one
+        binary payload. Other roles 404 — the decode worker's degradation
+        path treats that like a dead peer."""
+        st = self.state
+        if st.role != "prefill":
+            self._json(404, b'{"error":"this replica does not serve role=prefill"}')
+            return
+        body = self._read_ids_body()
+        if body is None:
+            return
+        ids, have = body
+        # adopt the decode worker's trace id, so one trace stitches the
+        # decode worker's kv_transfer and this worker's spans together
+        tr = TRACER.start(
+            self.headers.get(TRACE_HEADER),
+            sampled=parse_sampled(self.headers.get(SAMPLED_HEADER)),
         )
+        self._trace = tr
+        t0 = now_us()
+        from .disagg import run_prefill
+
+        try:
+            payload = run_prefill(st, ids, have=have, trace=tr)
+        except ValueError as e:
+            self._json(400, json.dumps({"error": str(e)}).encode())
+            return
+        except Exception as e:
+            # an engine failure (run_prefill_arrays recovered the worker
+            # under its lock): report it; the decode worker degrades
+            self._json(500, json.dumps({"error": f"prefill failed: {e}"}).encode())
+            return
+        finally:
+            tr.event("prefill_request", t0, now_us() - t0, ("n_ids",), (len(ids),),
+                     always=True)
+        self._respond(200, payload, ctype="application/octet-stream")
 
     def _serve_kv_fetch(self):
-        """``POST /v1/kv_fetch``: the fleet-cache tier of the tiered KV
-        store, which the port lacks (ROADMAP A12) — the JAX server's
-        answer where tiering is off."""
-        self._json(404, b'{"error":"kv tiering disabled"}')
+        """``POST /v1/kv_fetch`` (runtime/kv_tiering.py): the fleet-cache
+        tier. A peer names a token prefix (and the pages it holds) and gets
+        one verified binary payload from this replica's host or disk tier,
+        or a 404 it treats as a miss. Host memory and disk only: serving
+        never touches the card."""
+        st = self.state
+        if st.kv_tier is None:
+            self._json(404, b'{"error":"kv tiering disabled"}')
+            return
+        body = self._read_ids_body()
+        if body is None:
+            return
+        ids, have = body
+        payload = st.kv_tier.serve_fetch(ids, have_keys=have)
+        if payload is None:
+            self._json(404, b'{"error":"miss"}')
+            return
+        self._respond(200, payload, ctype="application/octet-stream")
 
     def _serve_chat(self, params, stream):
         st = self.state
@@ -2574,8 +2830,8 @@ def serve(args) -> HTTPServer:
     from http.server import ThreadingHTTPServer
 
     from ..cli import make_engine
+    from ..runtime.kv_transport import register_device_peer
 
-    refuse_unported_env()  # before the weights load
     tokenizer = Tokenizer(args.tokenizer)
     engine = make_engine(args)
     try:
@@ -2585,10 +2841,21 @@ def serve(args) -> HTTPServer:
             # (cold TTFT), and no capture runs beside a handler thread
             with _on_device(engine):
                 engine.warmup()
+            if os.environ.get("DLT_COST_TABLE") != "0":
+                # the warm-ladder cost table from the start (/debug/costs,
+                # the roofline gauges of /metrics): a census on meta
+                # tensors, nothing on the card. DLT_COST_TABLE=0 defers it
+                # to the first /debug/costs
+                engine.cost_table()
         state = ApiState(engine, tokenizer, args)
     except BaseException:
         engine.close()
         raise
+    # the same-process device-path registry (runtime/kv_transport.py): a
+    # decode worker whose --prefill-peer names this port reaches this
+    # engine's tensors without a socket (DLT_KV_TRANSPORT decides whether
+    # clients take it); a weak reference, so a closed server drops out
+    register_device_peer(args.port, state)
     # a fresh Handler subclass per server: `state` as a class attribute on
     # the shared Handler would make two in-process replicas (gateway tests,
     # library embedders) clobber each other's engines. Handler.state stays

@@ -1,5 +1,6 @@
-"""The port imports neither jax, nor anything of the JAX package, nor the
-JAX package's scripts (the kernel probes there import jax)."""
+"""The port imports neither jax, nor ml_dtypes, nor anything of the JAX
+package, nor the JAX package's scripts (the kernel probes there import
+jax)."""
 
 import json
 import subprocess
@@ -27,7 +28,12 @@ import distributed_llama_tpu_torch.runtime.grammar
 import distributed_llama_tpu_torch.runtime.telemetry
 import distributed_llama_tpu_torch.runtime.tracing
 import distributed_llama_tpu_torch.runtime.supervisor
+import distributed_llama_tpu_torch.runtime.kv_transport
+import distributed_llama_tpu_torch.runtime.kv_tiering
+import distributed_llama_tpu_torch.runtime.profiling
+import distributed_llama_tpu_torch.ops.census
 import distributed_llama_tpu_torch.server
+import distributed_llama_tpu_torch.server.disagg
 import distributed_llama_tpu_torch.server.router
 import distributed_llama_tpu_torch.server.quarantine
 import distributed_llama_tpu_torch.server.scheduler
@@ -68,6 +74,8 @@ def _is_forbidden(name: str) -> bool:
         or name.startswith("distributed_llama_tpu.")
         or name == "scripts"
         or name.startswith("scripts.")
+        or name == "ml_dtypes"
+        or name.startswith("ml_dtypes.")
     )
 
 
@@ -79,6 +87,7 @@ def test_prefix_rule_tells_the_port_from_the_reference():
     assert not _is_forbidden("distributed_llama_tpu_torch.ops")
     assert not _is_forbidden("jaxlib_lookalike")
     assert _is_forbidden("scripts.probe_int4")
+    assert _is_forbidden("ml_dtypes")
     assert not _is_forbidden("distributed_llama_tpu_torch.probes.int4")
 
 
@@ -99,6 +108,9 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     assert "distributed_llama_tpu_torch.server.scheduler" in mods
     assert "distributed_llama_tpu_torch.server.quarantine" in mods
     assert "distributed_llama_tpu_torch.server.router" in mods
+    for name in ("runtime.kv_transport", "runtime.kv_tiering", "runtime.profiling",
+                 "server.disagg"):
+        assert f"distributed_llama_tpu_torch.{name}" in mods
     assert "distributed_llama_tpu_torch.probes.operands" in mods
     assert "distributed_llama_tpu_torch.probes.attention" in mods
     assert "distributed_llama_tpu_torch.probes.k1_step" in mods

@@ -8,9 +8,10 @@ ngram speculation, the prefix cache, the grammar arena), at batch 1 (the
 serialized path) and batch 2 (the Batcher). Each test sends both the same
 requests and compares what comes back: greedy content non-stream and SSE
 chunk by chunk, constrained content, the 4xx and 5xx answers and the
-recovery after an engine failure, the key sets of the views, and the
-/metrics series names, which differ by exactly the JAX server's profiling
-set (ROADMAP A12). The JAX gateway fronting a port replica streams what
+recovery after an engine failure, the key sets of the views, the answers
+of the KV movement routes of a unified, untiered replica, and the
+/metrics series names, which are equal. The JAX gateway fronting a port
+replica streams what
 it streams fronting a JAX one. A seeded sampled request is held to
 reproducibility within the port only: its row's stream is the port's own.
 """
@@ -216,13 +217,37 @@ def test_client_errors_are_400(pair):
         assert json.loads(p[1]).keys() == json.loads(j[1]).keys()
 
 
-def test_unported_routes(pair):
+def test_unported_routes(pair, tmp_path, monkeypatch):
+    """The routes a unified, untiered replica does not serve answer as the
+    JAX server's: /v1/prefill and /v1/kv_fetch 404 with its bodies;
+    /debug/costs 200 with full coverage of the JAX engine's warm ladder
+    (its keys exactly: the JAX server would compile the whole ladder to
+    answer, so its table is held to it in tests/test_torch_profiling.py),
+    and /debug/profile 200 with the same record keys and 400 on a bad
+    window."""
     for path in ("/v1/prefill", "/v1/kv_fetch"):
         j, p = (_status(port, {"ids": [1, 2, 3]}, path=path) for port in pair.ports)
         assert p == j and p[0] == 404
-    for path in ("/debug/costs", "/debug/profile"):
-        code, body = _get(pair.pport, path)
-        assert code == 501 and b"ROADMAP A12" in body
+    engine = pair.states[1].engine
+    try:
+        code, body = _get(pair.pport, "/debug/costs")
+    finally:
+        # the JAX server here has no table either (DLT_NO_WARMUP): keep the
+        # pair's /metrics alike for the tests after this one
+        engine._cost_table = None
+    assert code == 200
+    p = json.loads(body)
+    ladder = pair.states[0].engine.warm_plan()
+    assert p["coverage"]["complete"] and p["coverage"]["plan_size"] == len(ladder)
+    assert sorted((e["kind"], e["size"], e["kv_len"]) for e in p["entries"]) == sorted(ladder)
+    monkeypatch.setenv("DLT_PROFILE_DIR", str(tmp_path))
+    recs = []
+    for port in pair.ports:
+        code, body = _get(port, "/debug/profile?ms=20")
+        assert code == 200
+        recs.append(json.loads(body))
+        assert _get(port, "/debug/profile?ms=x")[0] == 400
+    assert recs[1].keys() == recs[0].keys()
 
 
 def _view_keys(port):
@@ -265,6 +290,8 @@ _TYPE_RE = re.compile(r"^# TYPE (\S+) ", re.M)
 
 
 def test_metrics_differ_by_the_profiling_set(pair):
+    """The /metrics `# TYPE` names of the port equal the JAX server's,
+    the profiling set (runtime/profiling.py metrics_view) included."""
     for port in pair.ports:
         _chat(port, {"messages": PROMPTS[1], "max_tokens": 6})
     j, p = (_get(port, "/metrics") for port in pair.ports)
@@ -272,9 +299,10 @@ def test_metrics_differ_by_the_profiling_set(pair):
     jnames, pnames = (set(_TYPE_RE.findall(body.decode())) for _, body in (j, p))
     gauges, series = metrics_view(pair.states[0].engine)
     profiling = {f"dlt_{k}" for k in (*gauges, *series)}
-    assert profiling and jnames - pnames == profiling
-    assert pnames - jnames == set()
-    for name in ("dlt_ttft_ms", "dlt_requests_completed_total"):
+    assert profiling and profiling <= pnames
+    assert pnames == jnames
+    for name in ("dlt_ttft_ms", "dlt_requests_completed_total", "dlt_hbm_bytes",
+                 "dlt_hbm_modeled_bytes", "dlt_slo_ttft_attainment"):
         assert name in pnames
 
 

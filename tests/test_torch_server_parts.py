@@ -4,8 +4,8 @@ On the same inputs the port's router chain keys, quarantine fingerprints,
 SLO-class and deadline resolvers, scheduler decisions and supervisor
 transitions equal the JAX package's. Also: the port's own additions the
 server needs (the page pool's snapshot, the per-row stream decoder, the
-engine's close, the cached graph view) and the refusal of what the port
-does not serve yet (ROADMAP A12).
+engine's close, the cached graph view), and the environment resolvers of
+the KV movement layer (role, peers, tier peers, transport) equal to JAX's.
 """
 
 import numpy as np
@@ -210,6 +210,66 @@ def test_parse_query():
     assert parse_query("id=ab12&n=3&junk&x=a=b") == {"id": "ab12", "n": "3", "x": "a=b"}
 
 
+_ROLE_ENVS = [{}, {"DLT_ROLE": "unified"}, {"DLT_ROLE": ""}, {"DLT_ROLE": "prefill"},
+              {"DLT_ROLE": "decode"}, {"DLT_ROLE": "typo"}]
+
+
+def _twin(monkeypatch, env, fn_j, fn_p, *args):
+    """fn_j(*args) and fn_p(*args) under `env`: the same value, or the same
+    exception type on both."""
+    for k in ("DLT_ROLE", "DLT_PREFILL_PEER", "DLT_KV_TIER_PEERS", "DLT_KV_TRANSPORT"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    out = []
+    for fn in (fn_j, fn_p):
+        try:
+            out.append(("ok", fn(*args)))
+        except Exception as e:
+            out.append(("raise", type(e).__name__))
+    assert out[1] == out[0], (env, args)
+    return out[1]
+
+
+@pytest.mark.parametrize("env", _ROLE_ENVS, ids=lambda e: str(e.get("DLT_ROLE")))
+def test_resolve_role_as_jax(monkeypatch, env):
+    from distributed_llama_tpu.server import disagg as j_disagg
+    from distributed_llama_tpu_torch.server import disagg as p_disagg
+
+    for explicit in (None, "prefill", "decode", "unified", "bogus"):
+        _twin(monkeypatch, env, j_disagg.resolve_role, p_disagg.resolve_role, explicit)
+
+
+@pytest.mark.parametrize("env", [{}, {"DLT_PREFILL_PEER": "a:1, b:2"},
+                                 {"DLT_PREFILL_PEER": ":9990"}, {"DLT_PREFILL_PEER": "x:nope"}])
+def test_resolve_peers_as_jax(monkeypatch, env):
+    from distributed_llama_tpu.server import disagg as j_disagg
+    from distributed_llama_tpu_torch.server import disagg as p_disagg
+
+    for explicit in (None, ["10.0.0.1:900", "h2:901"]):
+        _twin(monkeypatch, env, j_disagg.resolve_peers, p_disagg.resolve_peers, explicit)
+
+
+@pytest.mark.parametrize("env", [{}, {"DLT_KV_TIER_PEERS": "10.0.0.1:8101, :8102,"},
+                                 {"DLT_KV_TIER_PEERS": " "}])
+def test_resolve_tier_peers_as_jax(monkeypatch, env):
+    from distributed_llama_tpu.runtime import kv_tiering as j_tier
+    from distributed_llama_tpu_torch.runtime import kv_tiering as p_tier
+
+    for explicit in (None, [("h", 5)], ["q:7"]):
+        _twin(monkeypatch, env, j_tier.resolve_tier_peers, p_tier.resolve_tier_peers, explicit)
+
+
+@pytest.mark.parametrize("env", [{}, {"DLT_KV_TRANSPORT": "device"},
+                                 {"DLT_KV_TRANSPORT": "http"}, {"DLT_KV_TRANSPORT": "bogus"}])
+def test_resolve_transport_as_jax(monkeypatch, env):
+    from distributed_llama_tpu.runtime import kv_transport as j_kvt
+    from distributed_llama_tpu_torch.runtime import kv_transport as p_kvt
+
+    for explicit in (None, "auto", "device", "HTTP", "bogus"):
+        _twin(monkeypatch, env, j_kvt.resolve_transport, p_kvt.resolve_transport, explicit)
+
+
 @pytest.mark.parametrize("env", [
     {"DLT_ROLE": "prefill"},
     {"DLT_ROLE": "decode"},
@@ -217,15 +277,33 @@ def test_parse_query():
     {"DLT_KV_DISK_TIER_MB": "1"},
     {"DLT_KV_TIER_PEERS": "10.0.0.2:9990"},
 ])
-def test_unported_environment_refuses_to_start(env):
-    with pytest.raises(RuntimeError, match="ROADMAP A12"):
-        p_api.refuse_unported_env(env)
+def test_state_builds_under_the_environment_as_jax(monkeypatch, tmp_path, env):
+    """The server's ApiState builds under every role and tier variable the
+    JAX server accepts, with the role and the tier store JAX's would have."""
+    from types import SimpleNamespace
 
-
-def test_ported_environment_starts():
-    for env in ({}, {"DLT_ROLE": "unified"}, {"DLT_ROLE": ""}, {"DLT_KV_HOST_TIER_MB": "0"},
-                {"DLT_KV_DISK_TIER_MB": "junk"}, {"DLT_KV_TIER_PEERS": " "}):
-        p_api.refuse_unported_env(env)
+    monkeypatch.setenv("DLT_KV_DISK_TIER_DIR", str(tmp_path / "disk"))
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    path = str(tmp_path / "m.m")
+    write_tiny_model(path, tiny_header(seq_len=64), seed=1)
+    eng = InferenceEngine(path, compute_dtype="float32", device="cpu", prefix_cache_mb=4,
+                          kv_layout="paged")
+    args = SimpleNamespace(temperature=0.0, topp=0.9, seed=None, chat_template="chatml",
+                           host_decode=False, role=None, prefill_peer=None)
+    tok = PTokenizer.__new__(PTokenizer)
+    tok.eos_token_ids, tok.chat_template = [], None
+    tok.piece = lambda t: b""
+    state = p_api.ApiState(eng, tok, args)
+    try:
+        assert state.role == env.get("DLT_ROLE", "unified")
+        tiered = any(k.startswith("DLT_KV_") for k in env)
+        assert (state.kv_tier is not None) == tiered
+        if tiered:
+            assert eng.kv_tier is state.kv_tier and eng.prefix_cache.tier is state.kv_tier
+        assert state.disagg is None  # decode without --prefill-peer serves locally
+    finally:
+        state.close()
 
 
 def test_page_pool_snapshot_and_row_holds_pages_as_jax():
