@@ -84,7 +84,7 @@ caught):
      the sequence-parallel engine on an sp = 4 mesh of this one card (a
      16384-row cache in four 4096-row shards): the 113-token prompt's
      prefill logits bit for bit equal to the sp = 1 engine's, then a
-     5000-token prompt and 32 greedy steps with B8 launched chunks x
+     4400-token prompt and 16 greedy steps with B8 launched chunks x
      layers x shards times and K3 never, logits and tokens against sp = 1,
      and profiles of its prefill tail (B8's share) and decode. At
      Qwen3-30B-A3B's width: the CLI's `inference` (contiguous). The CLI
@@ -220,6 +220,23 @@ caught):
      path and on the HTTP path, a growing prefix skips the pages it holds,
      a device-path fault degrades with equal tokens; each path's transfer
      wall and bytes (JAX's bench bar, device 3x faster, reported);
+  5i. the shard loop (tensor, pipeline, data and expert parallelism):
+     each kernel of the mesh path at the shapes its shards give it
+     (Llama-3.2-1B at tp 2 and 4, Qwen3-30B-A3B at ep 2 x tp 2) against its
+     plain version, timed beside its bound and a library call
+     (`kernel_shard` lines, `shard_shapes` in the kernels line); then at
+     1B width, after the sp path, library engines on meshes of this card
+     named once a shard (distinct cards where there are as many): pp 2
+     equal to the single device bit for bit (PROMPT's prefill logits every
+     chunk, 32 greedy tokens, contiguous and paged bf16), tp 2 and pp 2 x
+     tp 2 within the bf16 bound with the chains' parting step reported,
+     generate_batch at batch 4 on dp 2 x tp 2 and a paged BatchSession at
+     batch 4 on pp 2 x tp 2 row for row equal to each row alone, each
+     chunk's collectives equal to their budget, a profiled decode window
+     of pp 2 x tp 2; and at the end, at Qwen3-30B-A3B's full width and
+     depth, ep 2 x tp 2 within the bound against phase 5b's engine (which
+     closes first), with K4 and K1-indexed on the local expert stacks.
+     Each mesh path is counted;
   6. where a token's time goes: torch.profiler over 8 batch-1 decode
      steps of each model (contiguous) and of the 1B on the paged int8
      layout (K5's share; 16 steps until phase 5d came), over one
@@ -239,7 +256,8 @@ speculation loops, profiled, and the k 4 verify ms): run from the root of
 two trees in one call, it compares them end to end. `--spec-divergence` runs phases 1-2 and only phase 5d's
 paged int8 batch-1 chains without speculation and at k 8, with
 `arm_growth` where they part. `--grammar` runs phases 1-2 and only phase
-5e at Llama-3.2-1B width, `--server` only phase 5g, `--kv` only phase 5h;
+5e at Llama-3.2-1B width, `--server` only phase 5g, `--kv` only phase 5h,
+`--mesh` only phase 5i;
 `--guarded-paths [--models DIR]` only
 `guarded_paths_ab`, for many short runs of two trees in turns, and with
 `--guard-share` also `guard_share`: the loops with and without their
@@ -286,6 +304,10 @@ QWEN3_30B_A3B = dict(
     rope_theta=1000000.0,
 )
 QWEN3_MOE_ARCH = 0xABCD02  # ArchType.QWEN3_MOE
+# the depth of the 30B-A3B file the main paths and phase 5i run (16 of its
+# 48 layers, cut to keep the script inside its time limit); the kernel
+# checks keep the full model's shapes
+MOE_PATH_LAYERS = 16
 QWEN3_NORM_EPS = 1e-6
 MAX_SEQ_LEN = 4096
 PREFILL_ROWS = 32  # the CLI's default --nbatches
@@ -913,10 +935,11 @@ def flash_long(torch, gen, bw, bf16_peak, nh, nkv, hd):
 
 SP = 4  # the sp path's shards
 SP_SEQ_LEN = 16384  # its cache: four shards of 4096 rows
-# (6000 and 64 until phase 5g came: cut to keep the script's time; 5000
-# still prefills through shard 0 into shard 1)
-SP_PROMPT_TOKENS = 5000
-SP_DECODE_STEPS = 32
+# (6000 and 64 until phase 5g came, 5000 and 32 until phase 5i came: cut
+# to keep the script's time; 4400 still prefills through shard 0 into
+# shard 1)
+SP_PROMPT_TOKENS = 4400
+SP_DECODE_STEPS = 16
 
 
 # B8's normalized output o / l (and the shards' combine) against its plain
@@ -1624,8 +1647,7 @@ def sweep_rows(torch, rates, counters):
     for k in counters:
         k.launches = 0
     t0 = time.perf_counter()
-    # all eight shapes at every tile: phase 3d takes ~35 s, so the 8B
-    # shapes need no --quick
+    # all eight shapes at every tile
     s_rows = scales.main(["--device", "cuda"])
     t1 = time.perf_counter()
     i_rows = i4_tiles.main(["--device", "cuda"])
@@ -2065,6 +2087,23 @@ def synthetic_model(stem: str, header_kw: dict, norm_epsilon: float | None = Non
     return str(mp), str(tp), time.perf_counter() - t0, mp.stat().st_size
 
 
+def start_model_writer(stem: str, header_kw: dict, norm_epsilon: float | None, nbytes: int):
+    """`synthetic_model` in a child process, so that a large file is written
+    while the card runs other phases; None (the caller writes it in turn)
+    where the disk would not hold it beside what is there with 4 GB to
+    spare. The child is a daemon: it ends with this process."""
+    import multiprocessing
+    import shutil
+
+    (BUILD / "models").mkdir(parents=True, exist_ok=True)
+    if shutil.disk_usage(BUILD).free < nbytes + (4 << 30):
+        return None
+    proc = multiprocessing.get_context("spawn").Process(
+        target=synthetic_model, args=(stem, header_kw, norm_epsilon), daemon=True)
+    proc.start()
+    return proc
+
+
 def run_cli(torch, argv, counters):
     """One CLI run on the card with every launch counter set to 0 just
     before and read just after. Returns (stdout, launches)."""
@@ -2334,8 +2373,8 @@ def sp_path(torch, mp: str, tp: str, counters, expected, b8, k3):
       * the 113-token PROMPT's prefill logits, every chunk, equal the sp = 1
         engine's bit for bit (shards 1-3 add exact zeros and shard 0 runs
         K3's own loop through B8);
-      * a 5000-token seeded prompt (prefill through shard 0 into shard 1;
-        shards 2-3 fully masked) and 32 greedy steps, counted: B8 launched
+      * a 4400-token seeded prompt (prefill through shard 0 into shard 1;
+        shards 2-3 fully masked) and 16 greedy steps, counted: B8 launched
         chunks x layers x shards times and K3 never;
       * the last prompt row's logits within 5e-2 of their scale of the sp =
         1 engine's (the engine tests' bf16 bound: chunks past 4096 combine
@@ -2442,6 +2481,580 @@ def sp_path(torch, mp: str, tp: str, counters, expected, b8, k3):
     eng.close()
     solo.close()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5i: the shard loop (tensor, pipeline, data and expert parallelism)
+# ---------------------------------------------------------------------------
+
+MESH_SEQ_LEN = 1024  # the 5i engines' context: PROMPT and its decode fit
+MESH_DECODE_STEPS = 32
+MESH_BATCH_STEPS = 16  # generate_batch's tokens a row (and its rows' runs alone)
+MESH_MOE_DECODE_STEPS = 16
+# the engine tests' bf16 bound on logits, a share of their scale: the tp and
+# ep shards' partial sums add in another order than one device's
+MESH_TOL = 5e-2
+# the shard shapes (label, in, out) each mesh gives the dense matmuls
+MESH_SHARD_MATMULS = (
+    ("1B tp2 wqkv", 2048, 1536), ("1B tp2 wo", 1024, 2048), ("1B tp2 w13", 2048, 8192),
+    ("1B tp2 w2", 4096, 2048), ("1B tp4 wqkv", 2048, 768), ("1B tp4 wo", 512, 2048),
+    ("1B tp4 w13", 2048, 4096), ("1B tp4 w2", 2048, 2048),
+    ("30B-A3B tp2 wqkv", 2048, 2560), ("30B-A3B tp2 wo", 2048, 2048),
+)
+
+
+def card_mesh(torch, **shape):
+    """A mesh of `shape` over distinct cards where there are as many, else
+    over this card named once a shard. Returns (mesh, distinct)."""
+    from distributed_llama_tpu_torch.parallel import make_mesh
+
+    n = 1
+    for v in shape.values():
+        n *= v
+    if torch.cuda.device_count() >= n:
+        return make_mesh(**shape, devices=[torch.device("cuda", i) for i in range(n)]), True
+    return make_mesh(**shape, devices=[torch.device("cuda", 0)] * n), False
+
+
+# a shard shape's calls are timed as a chain of this many, each on its own
+# layer's (or expert block's) weights, as phase 3 times a token's layers:
+# one call alone is mostly the graph's launch
+MESH_CHAIN = 8
+
+
+def _shard_entry(torch, name, label, fns, plains, libs, nbytes, nops, bw, peak, **tol):
+    """One shard shape of a kernel: each of its MESH_CHAIN calls held
+    against its plain version, then kernel, plain version and library call
+    timed as chains (CUDA events over graph replays, per call), beside the
+    bound of one call's work."""
+    from distributed_llama_tpu_torch.probes import timing
+
+    err, rel, t = compare(torch, f"{name} at {label}",
+                          ((fn(), plain()) for fn, plain in zip(fns, plains)), **tol)
+    t_bytes, t_ops = nbytes / bw * 1e3, nops / peak * 1e3
+    entry = {"shape": label, "max_abs_err": err, "max_rel_err": rel, "tol": t,
+             "ms": timing.graph_ms(fns), "plain_ms": timing.graph_ms(plains),
+             "library_ms": timing.graph_ms(libs), "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "calls": len(fns)}
+    log("kernel_shard " + json.dumps({"name": name, **entry}))
+    return entry
+
+
+def shard_shape_checks(torch, rates) -> dict:
+    """Phase 5i's kernel table: every kernel of the mesh path at the shapes
+    its shards give it (Llama-3.2-1B at tp 2 and 4, Qwen3-30B-A3B at ep 2 x
+    tp 2), each against its plain version with the phase 3 tolerances,
+    timed a call over a chain of MESH_CHAIN calls on distinct weights,
+    beside its bound and a library call. Returns {kernel: [entries]}."""
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+    from distributed_llama_tpu_torch.ops.moe import _grouped_block_rows, _grouped_layout_direct
+
+    bw, bf16_peak, int8_peak = rates
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    L = MESH_CHAIN
+    out = {}
+    for label, i, o in MESH_SHARD_MATMULS:
+        qs, ds = random_q40_stack(torch, gen, L, i, o)
+        ws = [_dq(torch, qs[li], ds[li]) for li in range(L)]
+        x1 = torch.randn((1, 1, i), device="cuda", generator=gen)
+        xb1 = x1.reshape(1, i).to(torch.bfloat16)
+        out.setdefault("q40_gemv_q80_stacked", []).append(_shard_entry(
+            torch, "q40_gemv_q80_stacked", f"{label} {i}->{o}, 1 row",
+            [partial(q.q40_gemv_q80_stacked, x1, qs, ds, li) for li in range(L)],
+            [partial(q.q40_gemv_q80_plain, x1, qs[li], ds[li]) for li in range(L)],
+            [partial(torch.matmul, xb1, w) for w in ws],
+            _wbytes(i, o) + (i + o) * 4, 2 * i * o, bw, int8_peak, rel_tol=1e-5))
+        x16 = torch.randn((1, 16, i), device="cuda", generator=gen)
+        xb16 = x16.reshape(16, i).to(torch.bfloat16)
+        out.setdefault("q40_gemm_bf16_stacked", []).append(_shard_entry(
+            torch, "q40_gemm_bf16_stacked", f"{label} {i}->{o}, 16 rows (a pp 2 microbatch)",
+            [partial(q.q40_gemm_bf16_stacked, x16, qs, ds, li) for li in range(L)],
+            [partial(q.q40_gemm_bf16_plain, x16, qs[li], ds[li]) for li in range(L)],
+            [partial(torch.matmul, xb16, w) for w in ws],
+            _wbytes(i, o) + 16 * (i + o) * 4, 2 * 16 * i * o, bw, bf16_peak, rel_tol=1e-4))
+        del qs, ds, ws
+    # the vocab-split classifier: 1B at tp 2 (64128 columns) and tp 4
+    # (32064), 30B-A3B at tp 2 (75968); a shard that is not a lane multiple
+    # is cut with zero columns up to one (parallel/sharding.py), and its
+    # bound and library call count its own columns only
+    from distributed_llama_tpu_torch.ops.quant import QuantTensor
+    from distributed_llama_tpu_torch.parallel.sharding import _lane_padded
+
+    n_w = 2
+    for label, dim, vocab in (("1B tp2", LLAMA32_1B["dim"], LLAMA32_1B["vocab_size"] // 2),
+                              ("1B tp4", LLAMA32_1B["dim"], LLAMA32_1B["vocab_size"] // 4),
+                              ("30B-A3B tp2", QWEN3_30B_A3B["dim"],
+                               QWEN3_30B_A3B["vocab_size"] // 2)):
+        qs, ds = random_q40_stack(torch, gen, n_w, dim, vocab)
+        ws = [_dq(torch, qs[j], ds[j]) for j in range(n_w)]
+        pw = [_lane_padded(QuantTensor(q=qs[j], d=ds[j])) for j in range(n_w)]
+        del qs, ds
+        width = pw[0].out_features
+        x1 = torch.randn((1, dim), device="cuda", generator=gen)
+        x32 = torch.randn((32, dim), device="cuda", generator=gen)
+        shape = f"{label} wcls {dim}->{vocab}" + (f" (padded to {width})" if width != vocab else "")
+        out.setdefault("q40_gemv_q80", []).append(_shard_entry(
+            torch, "q40_gemv_q80", f"{shape}, 1 row",
+            [partial(q.q40_gemv_q80, x1, w.q, w.d) for w in pw],
+            [partial(q.q40_gemv_q80_plain, x1, w.q, w.d) for w in pw],
+            [partial(torch.matmul, x1.to(torch.bfloat16), w) for w in ws],
+            _wbytes(dim, vocab) + (dim + vocab) * 4, 2 * dim * vocab, bw, int8_peak,
+            rel_tol=1e-5))
+        out.setdefault("q40_gemm_bf16", []).append(_shard_entry(
+            torch, "q40_gemm_bf16", f"{shape}, 32 rows",
+            [partial(q.q40_gemm_bf16, x32, w.q, w.d) for w in pw],
+            [partial(q.q40_gemm_bf16_plain, x32, w.q, w.d) for w in pw],
+            [partial(torch.matmul, x32.to(torch.bfloat16), w) for w in ws],
+            _wbytes(dim, vocab) + 32 * (dim + vocab) * 4, 2 * 32 * dim * vocab, bw, bf16_peak,
+            rel_tol=1e-4))
+        del pw, ws
+    # K3 at the shards' heads: t 32 and a pp 2 microbatch's 16 at position
+    # 64 over the 256-row view, each of the chain's calls a layer's cache
+    for label, nh, nkv, hd in (("1B tp2", 16, 4, 64), ("1B tp4", 8, 2, 64),
+                               ("30B-A3B tp2", 16, 2, 128)):
+        kc = torch.randn((L, 1, 256, nkv, hd), device="cuda", generator=gen).to(torch.bfloat16)
+        vc = torch.randn((L, 1, 256, nkv, hd), device="cuda", generator=gen).to(torch.bfloat16)
+        for t in (32, 16):
+            qq = [torch.randn((1, t, nh, hd), device="cuda", generator=gen) for _ in range(L)]
+            mask = (torch.arange(256, device="cuda")[None, :]
+                    <= 64 + torch.arange(t, device="cuda")[:, None])
+            sq = [x.to(torch.bfloat16).transpose(1, 2) for x in qq]
+            sk = [kc[li].transpose(1, 2) for li in range(L)]
+            sv = [vc[li].transpose(1, 2) for li in range(L)]
+            visible = sum(64 + j + 1 for j in range(t))
+            out.setdefault("flash_attention", []).append(_shard_entry(
+                torch, "flash_attention", f"{label} heads {nh}/{nkv} hd {hd}, t {t} at 64 of 256",
+                [partial(ca.flash_attention, qq[li], kc[li], vc[li], 64) for li in range(L)],
+                [partial(ca.flash_attention_plain, qq[li], kc[li], vc[li], 64) for li in range(L)],
+                [partial(F.scaled_dot_product_attention, sq[li], sk[li], sv[li], attn_mask=mask,
+                         enable_gqa=True) for li in range(L)],
+                2 * t * nh * hd * 4 + 2 * (64 + t) * nkv * hd * 2, 4 * nh * hd * visible,
+                bw, bf16_peak, abs_tol=1e-2))
+    # the 30B-A3B expert shards at ep 2 x tp 2: 64 local experts a layer,
+    # w1/w3 2048 -> 384 and w2 384 (12 blocks) -> 2048; the chain's calls
+    # index their layer's block of a flat [L * 64] stack
+    c = QWEN3_30B_A3B
+    E, k, dim, ff = c["n_experts"] // 2, c["n_active_experts"], c["dim"], c["moe_hidden_dim"] // 2
+    stacks = {"w1": random_q40_stack(torch, gen, L * E, dim, ff),
+              "w2": random_q40_stack(torch, gen, L * E, ff, dim)}
+    idx = [(torch.randperm(E, device="cuda", generator=gen)[:k] + li * E).to(torch.int32)
+           for li in range(L)]
+    ins = {"w1": torch.randn((1, dim), device="cuda", generator=gen),
+           "w2": torch.randn((k, ff), device="cuda", generator=gen)}
+    for n, i, o in (("w1", dim, ff), ("w2", ff, dim)):
+        sq_, sd_ = stacks[n]
+        xw = ins[n]
+        lws = [_dq(torch, sq_[ix.long()], sd_[ix.long()]) for ix in idx]
+        lx = (xw.to(torch.bfloat16).expand(k, 1, i) if n == "w1"
+              else xw.to(torch.bfloat16).unsqueeze(1))
+        out.setdefault("q40_gemv_q80_indexed", []).append(_shard_entry(
+            torch, "q40_gemv_q80_indexed", f"30B-A3B ep2 x tp2 {n} {i}->{o}, 8 slots of {E}",
+            [partial(q.q40_gemv_q80_indexed, xw, sq_, sd_, ix) for ix in idx],
+            [partial(q.q40_gemv_q80_indexed_plain, xw, sq_, sd_, ix) for ix in idx],
+            [partial(torch.matmul, lx, lw) for lw in lws],
+            k * _wbytes(i, o) + xw.shape[0] * i * 4 + k * o * 4, 2 * k * i * o, bw, int8_peak,
+            rel_tol=1e-5))
+        del lws
+    rows = PREFILL_ROWS * k
+    e_flat = torch.randint(0, E, (rows,), device="cuda", generator=gen, dtype=torch.int32)
+    block_r = _grouped_block_rows(rows, E)
+    dest, be, R_pad = _grouped_layout_direct(e_flat, E, block_r)
+    bes = [be + li * E for li in range(L)]
+    counts = torch.bincount(e_flat.long(), minlength=E)
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    hit = int((counts > 0).sum())
+    for n, i, o in (("w1", dim, ff), ("w2", ff, dim)):
+        sq_, sd_ = stacks[n]
+        xp = torch.zeros((R_pad, i), dtype=torch.bfloat16, device="cuda")
+        xp[dest] = torch.randn((rows, i), device="cuda", generator=gen).to(torch.bfloat16)
+        lws = [_dq(torch, sq_[li * E:(li + 1) * E], sd_[li * E:(li + 1) * E]) for li in range(L)]
+        lin = xp[dest[torch.argsort(e_flat, stable=True)]]
+        if hasattr(torch, "_grouped_mm"):
+            libs = [partial(torch._grouped_mm, lin, lw, offs=offs) for lw in lws]
+        else:
+            libs = [partial(torch.matmul, lin, lw[0]) for lw in lws]
+        out.setdefault("q40_grouped_gemm_bf16", []).append(_shard_entry(
+            torch, "q40_grouped_gemm_bf16",
+            f"30B-A3B ep2 x tp2 {n} {i}->{o}, {rows} rows over {hit} of {E} experts, "
+            f"block_r {block_r}",
+            [partial(q.q40_grouped_gemm_bf16, xp, sq_, sd_, b_, block_r) for b_ in bes],
+            [partial(q.q40_grouped_gemm_bf16_plain, xp, sq_, sd_, b_, block_r) for b_ in bes],
+            libs, hit * _wbytes(i, o) + rows * i * 2 + rows * o * 4, 2 * rows * i * o, bw,
+            bf16_peak, rel_tol=1e-4))
+        del lws
+    del stacks
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_prefill_logits(torch, eng, ids):
+    """`prefill_logits` on any layout: a paged engine maps each chunk's
+    pages first."""
+    from distributed_llama_tpu_torch.runtime.engine import chunk_plan
+
+    if eng.paged:
+        plan = list(chunk_plan(len(ids), 0, eng.max_chunk, eng.cfg.seq_len))
+        i, size, _ = plan[-1]
+        eng._ensure_pages_all_rows(0, i + size)
+    return prefill_logits(torch, eng, ids)
+
+
+def _counted(torch, counters, fn):
+    """fn() with every launch counter and the shard loop's collective
+    counter set to 0 just before and read just after. Returns (fn's
+    result, launches, collectives, wall seconds)."""
+    from distributed_llama_tpu_torch.parallel.pipeline import COUNTS
+
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    res = fn()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    wall = time.perf_counter() - t0
+    return res, {k.__name__: k.launches for k in counters}, COUNTS.snapshot(), wall
+
+
+def _budget_check(torch, eng, ids) -> dict:
+    """One 32-token chunk at position 0 against `collective_budget`."""
+    from distributed_llama_tpu_torch.parallel.pipeline import (
+        COUNTS, collective_budget, step_microbatches)
+
+    eng.reset()
+    kvb = eng._kv_bucket(32)
+    pt = None
+    if eng.paged:
+        eng._ensure_pages_all_rows(0, 32)
+        pt = eng._pt_operand()
+    M = step_microbatches(eng.params, eng.cache, eng.batch // eng.mesh.dp, 32, 0, kvb, pt,
+                          eng.page_size)
+    COUNTS.reset()
+    eng._forward(eng._tokens([ids[:32]] * eng.batch), 0, kv_len=kvb)
+    got, want = COUNTS.snapshot(), collective_budget(eng.cfg, eng.mesh, M)
+    assert got == want, f"collectives {got} against the budget {want}"
+    eng.reset()
+    return {"microbatches": M, **got}
+
+
+def _first_parting(torch, solo, prompt, got, want, tol):
+    """Where two greedy chains part, and the single device's top-2 margin
+    there, which must be under `tol` (a near-tie the sums' order may
+    flip). Returns (step or None, margin or None)."""
+    first = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if first is None:
+        return None, None
+    n = len(prompt)
+    feed = prompt[-1] if first == 0 else want[first - 1]
+    top2 = torch.from_numpy(solo.decode_one(feed, n - 1 + first))[0].topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    assert margin < tol, f"chains part at step {first} where the top-2 margin is {margin} >= {tol}"
+    return first, margin
+
+
+def mesh_phase(torch, mp: str, tp: str, counters) -> dict:
+    """Phase 5i at Llama-3.2-1B width and depth: the library's meshes on
+    this card (on distinct cards where there are as many). Gates, each on
+    the card:
+      * pp 2 equals the single device bit for bit: PROMPT's prefill logits,
+        every chunk (32-token chunks in two microbatches), and 32 greedy
+        tokens, contiguous and paged bf16;
+      * tp 2 and pp 2 x tp 2: the last prompt row's logits within MESH_TOL
+        of their scale, greedy tokens equal up to the first step whose
+        single-device top-2 margin is under that bound;
+      * generate_batch at batch 4 on dp 2 x tp 2 and a BatchSession at
+        batch 4, paged, on pp 2 x tp 2: each row equals its run alone on
+        the same mesh;
+      * K1-stacked, B2, K2, B5 and K3 launched on each path, and one
+        chunk's collectives equal to `collective_budget`.
+    Reported, not gated: prefill and decode tok/s, and a profiled 16-step
+    decode window (device-busy ms, launch calls a token, idle share) of the
+    pp 2 x tp 2 mesh beside the single device. Returns {path: launches}."""
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    ids = Tokenizer(tp).encode(PROMPT)
+    n = len(ids)
+    steps = n - 1 + MESH_DECODE_STEPS
+    dense = (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked, q.q40_gemm_bf16,
+             ca.flash_attention)
+    paths, report = {}, {"phase": "mesh", "model": "llama32_1b", "prompt_tokens": n,
+                         "decode_tokens": MESH_DECODE_STEPS, "cards": torch.cuda.device_count(),
+                         "section_s": {}}
+    t_sec = [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        report["section_s"][name] = now - t_sec[0]
+        t_sec[0] = now
+
+    def run_path(eng):
+        logits = mesh_prefill_logits(torch, eng, ids)
+        eng.reset()
+        return logits, eng.generate(ids, steps)
+
+    # -- pp 2: the single device's numbers, bit for bit --------------------
+    solos = {}
+    for layout in ("contiguous", "paged"):
+        kw = dict(max_seq_len=MESH_SEQ_LEN, kv_layout=layout)
+        solo = InferenceEngine(mp, device="cuda", **kw)
+        (want_logits, res1), _, _, _ = _counted(torch, counters, lambda: run_path(solo))
+        solos[layout] = res1
+        if layout == "paged":
+            solo.close()
+        else:
+            solo_c = solo
+        mesh, distinct = card_mesh(torch, pp=2)
+        eng = InferenceEngine(mp, mesh=mesh, **kw)
+        (got_logits, res), launches, coll, wall = _counted(torch, counters,
+                                                           lambda: run_path(eng))
+        bit = torch.equal(got_logits, want_logits)
+        toks_equal = res.tokens[n:] == res1.tokens[n:]
+        report[f"pp2 {layout}"] = {
+            "distinct_cards": distinct, "prefill_logits_bit_equal": bit,
+            "tokens_equal": toks_equal, "prefill_tok_s": (n - 1) / (res.prefill_us / 1e6),
+            "decode_tok_s": MESH_DECODE_STEPS / (res.decode_us / 1e6),
+            "solo_prefill_tok_s": (n - 1) / (res1.prefill_us / 1e6),
+            "solo_decode_tok_s": MESH_DECODE_STEPS / (res1.decode_us / 1e6),
+            "collectives": coll, "budget": _budget_check(torch, eng, ids), "launches": launches,
+        }
+        assert bit, f"pp 2 {layout}: prefill logits differ from the single device"
+        assert toks_equal, f"pp 2 {layout}: greedy tokens differ from the single device"
+        check_launched(launches, dense, f"the pp 2 {layout} mesh")
+        paths[f"llama32_1b mesh pp2 {layout}"] = launches
+        eng.close()
+        del eng
+        release(torch)
+
+    section("pp2")
+
+    # -- tp 2 and pp 2 x tp 2: within the bf16 bound -----------------------
+    solo = solo_c
+    solo.prefill(ids[:-1])
+    l1 = torch.from_numpy(solo.decode_one(ids[-1], n - 1))
+    want = solos["contiguous"].tokens[n:]
+    scale = l1.abs().max().item()
+    tol = MESH_TOL * scale
+    for shape in (dict(tp=2), dict(pp=2, tp=2)):
+        label = "x".join(f"{k}{v}" for k, v in shape.items())
+        mesh, distinct = card_mesh(torch, **shape)
+        eng = InferenceEngine(mp, mesh=mesh, max_seq_len=MESH_SEQ_LEN, kv_layout="contiguous")
+        eng.prefill(ids[:-1])
+        lg = torch.from_numpy(eng.decode_one(ids[-1], n - 1))
+        assert torch.isfinite(lg).all() and lg.shape == l1.shape
+        err = (lg - l1).abs().max().item()
+        eng.reset()
+        (_, res), launches, coll, wall = _counted(torch, counters, lambda: run_path(eng))
+        got = res.tokens[n:]
+        if got != want:
+            solo.reset()
+            solo.generate(ids, steps)  # the chain the margin is read along
+        first, margin = _first_parting(torch, solo, ids, got, want, tol)
+        report[label] = {
+            "distinct_cards": distinct, "last_row_logits_max_abs_err": err, "tol": tol,
+            "logits_scale": scale, "tokens_equal": first is None, "first_parting_step": first,
+            "solo_top2_margin_there": margin,
+            "prefill_tok_s": (n - 1) / (res.prefill_us / 1e6),
+            "decode_tok_s": MESH_DECODE_STEPS / (res.decode_us / 1e6),
+            "collectives": coll, "budget": _budget_check(torch, eng, ids), "launches": launches,
+        }
+        assert err <= tol, f"{label}: last-row logits differ by {err} > {tol}"
+        check_launched(launches, dense, f"the {label} mesh")
+        paths[f"llama32_1b mesh {label} contiguous"] = launches
+        if shape == dict(pp=2, tp=2):
+            # the mesh's decode window (the single device's graphed and
+            # eager windows are phase 6's)
+            at = [steps]
+            tok = torch.tensor([got[-1]], device=eng.device)
+
+            def window(n_steps=8):
+                eng._decode_chunk(tok, at[0], n_steps)
+                at[0] += n_steps
+
+            prof = profile_window(torch, f"llama32_1b mesh {label} decode", window, 8)
+            report[label]["profile"] = {k: prof[k] for k in AB_KEYS}
+        eng.close()
+        del eng
+        release(torch)
+    solo.close()
+    release(torch)
+    section("tp2, pp2xtp2")
+
+    # -- generate_batch at batch 4 on dp 2 x tp 2 ---------------------------
+    prompts = [ids[o : o + 81] for o in (0, 10, 20, 32)]
+    nb = MESH_BATCH_STEPS
+    mesh, distinct = card_mesh(torch, dp=2, tp=2)
+    kw = dict(max_seq_len=MESH_SEQ_LEN, kv_layout="contiguous")
+    eng = InferenceEngine(mp, mesh=mesh, batch=4, **kw)
+    out, launches, coll, wall = _counted(torch, counters, lambda: eng.generate_batch(prompts, nb))
+    eng.close()
+    del eng
+    one = InferenceEngine(mp, mesh=mesh, batch=2, **kw)
+    equal = []
+    for p, got in zip(prompts, out):
+        one.reset()
+        equal.append(one.generate(p, len(p) + nb).tokens[len(p) : len(p) + nb] == got)
+    one.close()
+    report["dp2xtp2 generate_batch 4"] = {"distinct_cards": distinct, "rows_equal_alone": equal,
+                                          "wall_s": wall, "tok_s_upper": 4 * nb / wall,
+                                          "collectives": coll, "launches": launches}
+    assert all(equal), "dp 2 x tp 2 generate_batch rows differ from their runs alone"
+    check_launched(launches, (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked,
+                              ca.flash_attention), "the dp 2 x tp 2 generate_batch")
+    paths["llama32_1b mesh dp2xtp2 generate_batch 4"] = launches
+    release(torch)
+    section("dp2xtp2 generate_batch")
+
+    # -- a BatchSession at batch 4, paged, on pp 2 x tp 2 --------------------
+    mesh, distinct = card_mesh(torch, pp=2, tp=2)
+    eng = InferenceEngine(mp, mesh=mesh, batch=4, max_seq_len=MESH_SEQ_LEN, kv_layout="paged")
+    sprompts = [ids[:16], ids[:48], ids[5:85], ids]
+
+    def session(rows):
+        s = BatchSession(eng)
+        for r in rows:
+            s.admit(r, sprompts[r])
+        toks = {r: [] for r in rows}
+        for _ in range(4):
+            host = s.step(8)
+            for r in rows:
+                toks[r].extend(int(t) for t in host[r])
+        for r in rows:
+            s.release(r)
+        return toks
+
+    toks, launches, coll, wall = _counted(torch, counters, lambda: session(range(4)))
+    alone = {r: session([r])[r] for r in range(4)}
+    same = [alone[r] == toks[r] for r in range(4)]
+    report["pp2xtp2 BatchSession 4 paged"] = {"distinct_cards": distinct, "rows_equal_alone": same,
+                                              "wall_s": wall, "collectives": coll,
+                                              "launches": launches}
+    assert all(same), "pp 2 x tp 2 session rows differ from their runs alone"
+    # an admission chunk runs its row alone at a scalar position: K3
+    check_launched(launches, (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked,
+                              ca.flash_attention), "the pp 2 x tp 2 session")
+    paths["llama32_1b mesh pp2xtp2 batch_session 4 paged"] = launches
+    eng.close()
+    del eng
+    release(torch)
+    section("pp2xtp2 session")
+    log(json.dumps(report))
+    return paths
+
+
+def mesh_moe_reference(torch, eng, ids) -> dict:
+    """The single device's side of `mesh_moe_phase`, from an engine on the
+    same file (phase 5b's at Qwen3-30B-A3B width): PROMPT's prefill logits,
+    MESH_MOE_DECODE_STEPS greedy tokens and each step's top-2 margin, so the
+    engine can close before the mesh's is built."""
+    n = len(ids)
+    logits = prefill_logits(torch, eng, ids)
+    eng.reset()
+    res = eng.generate(ids, n - 1 + MESH_MOE_DECODE_STEPS)
+    toks = res.tokens[n:]
+    eng.reset()
+    eng.prefill(ids[:-1])
+    margins, feed = [], ids[-1]
+    for j, t in enumerate(toks):
+        top2 = torch.from_numpy(eng.decode_one(feed, n - 1 + j))[0].topk(2).values
+        margins.append((top2[0] - top2[1]).item())
+        feed = t
+    eng.reset()
+    return {"logits": logits, "tokens": toks, "margins": margins, "res": res}
+
+
+def mesh_moe_phase(torch, mp: str, tp: str, counters, ref: dict) -> dict:
+    """Phase 5i at Qwen3-30B-A3B width (MOE_PATH_LAYERS deep) on ep 2 x tp 2 (each
+    ep shard 64 experts, each tp shard 384 of an expert's 768 columns),
+    against `mesh_moe_reference`: PROMPT's prefill logits within MESH_TOL of
+    their scale, MESH_MOE_DECODE_STEPS greedy tokens equal up to the first
+    step whose single-device top-2 margin is under that bound, and K4 and
+    K1-indexed launched on the local expert stacks. Returns {path:
+    launches}."""
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    ids = Tokenizer(tp).encode(PROMPT)
+    n = len(ids)
+    steps = n - 1 + MESH_MOE_DECODE_STEPS
+    mesh, distinct = card_mesh(torch, ep=2, tp=2)
+    eng = InferenceEngine(mp, mesh=mesh, max_seq_len=MESH_SEQ_LEN, kv_layout="contiguous")
+    load_s = time.perf_counter() - t0
+
+    def run():
+        logits = prefill_logits(torch, eng, ids)
+        eng.reset()
+        return logits, eng.generate(ids, steps)
+
+    (got_logits, res), launches, coll, wall = _counted(torch, counters, run)
+    want_logits, res1 = ref["logits"], ref["res"]
+    scale = want_logits.abs().max().item()
+    tol = MESH_TOL * scale
+    err = (got_logits - want_logits).abs().max().item()
+    got = res.tokens[n:]
+    first = next((j for j, (a, b) in enumerate(zip(got, ref["tokens"])) if a != b), None)
+    margin = ref["margins"][first] if first is not None else None
+    summary = {
+        "phase": "mesh", "model": "qwen3_30b_a3b", "layers": eng.cfg.n_layers,
+        "mesh": "ep2xtp2", "distinct_cards": distinct, "prompt_tokens": n,
+        "decode_tokens": MESH_MOE_DECODE_STEPS, "prefill_logits_max_abs_err": err, "tol": tol,
+        "logits_scale": scale, "tokens_equal": first is None, "first_parting_step": first,
+        "solo_top2_margin_there": margin,
+        "prefill_tok_s": (n - 1) / (res.prefill_us / 1e6),
+        "decode_tok_s": MESH_MOE_DECODE_STEPS / (res.decode_us / 1e6),
+        "solo_prefill_tok_s": (n - 1) / (res1.prefill_us / 1e6),
+        "solo_decode_tok_s": MESH_MOE_DECODE_STEPS / (res1.decode_us / 1e6),
+        "collectives": coll, "budget": _budget_check(torch, eng, ids), "launches": launches,
+        "load_and_cut_s": load_s, "seconds": time.perf_counter() - t0,
+    }
+    log(json.dumps(summary))
+    assert err <= tol, f"30B-A3B ep 2 x tp 2: prefill logits differ by {err} > {tol}"
+    assert margin is None or margin < tol, \
+        f"30B-A3B ep 2 x tp 2 parts at step {first} where the top-2 margin is {margin} >= {tol}"
+    check_launched(launches, (q.q40_grouped_gemm_bf16, q.q40_gemv_q80_indexed,
+                              q.q40_gemm_bf16_stacked, q.q40_gemv_q80_stacked,
+                              q.q40_gemm_bf16, q.q40_gemv_q80),
+                   "the 30B-A3B ep 2 x tp 2 mesh")
+    eng.close()
+    del eng
+    release(torch)
+    return {"qwen3_30b_a3b mesh ep2xtp2 contiguous": launches}
+
+
+def mesh_only(torch, rates) -> int:
+    """`--mesh`: phase 5i alone (its kernel table, the 1B and 30B-A3B
+    meshes), after phases 1-2."""
+    from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    counters = (*cuda_q40.KERNELS, *cuda_attention.KERNELS)
+    t0 = time.perf_counter()
+    log(json.dumps({"phase": "mesh_kernels", "shard_shapes": shard_shape_checks(torch, rates),
+                    "seconds": time.perf_counter() - t0}))
+    release(torch)
+    mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B)
+    paths = mesh_phase(torch, mp, tp, counters)
+    Path(mp).unlink()
+    moe_kw = dict(QWEN3_30B_A3B, arch=QWEN3_MOE_ARCH, n_layers=MOE_PATH_LAYERS)
+    mp, tp, _, _ = synthetic_model("qwen3_30b_a3b", moe_kw, norm_epsilon=QWEN3_NORM_EPS)
+    eng = spec_engine(mp, kv_layout="contiguous")
+    ref = mesh_moe_reference(torch, eng, Tokenizer(tp).encode(PROMPT))
+    eng.close()
+    del eng
+    release(torch)
+    paths.update(mesh_moe_phase(torch, mp, tp, counters, ref))
+    log(json.dumps({"phase": "mesh_launches", "launches": paths}))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -2585,8 +3198,9 @@ def graphed_decode_phase(torch, mp: str, tp: str, model: str, eng=None) -> None:
     warm ladder's pinned trace. Llama-3.2-1B: batch 1 contiguous, paged
     bf16 and paged int8, and the batch-16 paged int8 BatchSession;
     Qwen3-30B-A3B: batch 1 contiguous on `eng` (a `spec_engine`, with
-    speculation off), then phase 5d's part there; `eng` is closed. At
-    Llama-3.2-1B width returns the batch-16 engine, open, for phase 5f."""
+    speculation off), then phase 5d's part there; `eng` stays open for
+    phase 5i's reference. At Llama-3.2-1B width returns the batch-16
+    engine, open, for phase 5f."""
     from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
     from distributed_llama_tpu_torch.tokenizer import Tokenizer
 
@@ -2596,7 +3210,6 @@ def graphed_decode_phase(torch, mp: str, tp: str, model: str, eng=None) -> None:
         graph_vs_eager(torch, f"{model} batch 1 contiguous", eng, (ids * 2)[:GRAPH_CONTEXT])
         pinned_trace(torch, f"{model} batch 1 contiguous", eng, ids, session=False)
         spec_moe(torch, eng, ids)
-        eng.close()
         return
     for layout, kv in (("contiguous", None), ("paged", None), ("paged", "int8")):
         name = f"{model} batch 1 {layout} {kv or 'bf16'}"
@@ -5320,6 +5933,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kv", action="store_true",
                     help="only phase 5h (KV tiers, disaggregation, device views) at "
                     "Llama-3.2-1B width")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only phase 5i (the shard loop's meshes and its kernel table)")
     ap.add_argument("--guarded-paths", action="store_true",
                     help="only `guarded_paths_ab` at Llama-3.2-1B width (with --models)")
     ap.add_argument("--guard-share", action="store_true",
@@ -5352,6 +5967,20 @@ def main(argv=None) -> int:
         f"| bounds from the {rate_key} data sheet: {rates[0] / 1e12} TB/s, "
         f"{rates[1] / 1e12} bf16 TFLOP/s, {rates[2] / 1e12} int8 TOP/s")
 
+    # the 30B-A3B file (7.0 GB at MOE_PATH_LAYERS) in a child process
+    # beside the build and phases 3-3e, whose numbers are device
+    # times (CUDA events over graph replays); it is joined before phase 4,
+    # so that no host-timed phase shares the CPU or the disk with it
+    full = not (args.guarded_paths or args.profiles or args.spec_divergence or args.grammar
+                or args.server or args.kv or args.mesh)
+    moe_kw = dict(QWEN3_30B_A3B, arch=QWEN3_MOE_ARCH, n_layers=MOE_PATH_LAYERS)
+    t_writer = time.perf_counter()
+    writer = start_model_writer("qwen3_30b_a3b", moe_kw, QWEN3_NORM_EPS,
+                                7_100_000_000) if full else None
+    if full:
+        log("writing the Qwen3-30B-A3B-width file " +
+            ("in a child process" if writer else "after the 1B phases (the disk is short)"))
+
     # 2. build
     t0 = time.perf_counter()
     logs = kernels.build(ptxas_verbose=True)
@@ -5367,8 +5996,9 @@ def main(argv=None) -> int:
             print(json.dumps(guard_share(torch, mp, tp)))
         print(smi)
         return 0
-    if args.profiles or args.spec_divergence or args.grammar or args.server or args.kv:
+    if args.profiles or args.spec_divergence or args.grammar or args.server or args.kv or args.mesh:
         rc = (profiles_only(torch, args.profiles, args.models) if args.profiles
+              else mesh_only(torch, rates) if args.mesh
               else spec_divergence_only(torch) if args.spec_divergence
               else grammar_only(torch) if args.grammar
               else kv_only(torch) if args.kv else server_only(torch))
@@ -5441,6 +6071,12 @@ def main(argv=None) -> int:
     rows.update(codec_kernels)
     release(torch)
     done("phase 3e")
+    if writer is not None:
+        t_wait = time.perf_counter()
+        writer.join()
+        assert writer.exitcode == 0, f"the model writer exited {writer.exitcode}"
+        log(f"the child's write ended {time.perf_counter() - t_writer:.1f} s after it began; "
+            f"waited {time.perf_counter() - t_wait:.1f} s for it after phase 3e")
 
     # 4. small inputs against the CPU
     tmp = BUILD / "smoke"
@@ -5516,6 +6152,13 @@ def main(argv=None) -> int:
         ca.flash_attention_partial, ca.flash_attention)
     release(torch)
     done("the sp path")
+    # 5i. the shard loop: its kernels at the shard shapes, then the meshes
+    for name, entries in shard_shape_checks(torch, rates).items():
+        rows[name]["shard_shapes"] = entries
+    release(torch)
+    paths.update(mesh_phase(torch, mp, tp, counters))
+    release(torch)
+    done("phase 5i at 1B width")
     eng16 = graphed_decode_phase(torch, mp, tp, "llama32_1b")
     release(torch)
     done("phase 5b at 1B width")
@@ -5548,10 +6191,9 @@ def main(argv=None) -> int:
     Path(mp).unlink()  # room on the disk for the MoE file
     done("phases 5-6 at Llama-3.2-1B width")
 
-    moe_kw = dict(QWEN3_30B_A3B, arch=QWEN3_MOE_ARCH)
     mp, tp, write_s, size = synthetic_model("qwen3_30b_a3b", moe_kw, norm_epsilon=QWEN3_NORM_EPS)
-    log(f"synthetic Qwen3-30B-A3B-width model: {size} bytes, {QWEN3_30B_A3B['n_layers']} layers "
-        f"(full depth, no cut), ready in {write_s:.1f} s (set-up, not timed below)")
+    log(f"synthetic Qwen3-30B-A3B-width model: {size} bytes, {MOE_PATH_LAYERS} of "
+        f"{QWEN3_30B_A3B['n_layers']} layers, ready in {write_s:.1f} s (set-up, not timed below)")
     moe = (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked,
            q.q40_gemv_q80_indexed, q.q40_grouped_gemm_bf16, ca.flash_attention)
     # the CLI's default does not speculate here: a 5-token round's 40
@@ -5559,11 +6201,11 @@ def main(argv=None) -> int:
     # the default and `--speculative off` decode alike, through K1-indexed
     texts = {}
     paths["qwen3_30b_a3b inference contiguous"] = main_path(
-        torch, "qwen3_30b_a3b", mp, tp, QWEN3_30B_A3B["n_layers"], counters, moe, texts=texts,
+        torch, "qwen3_30b_a3b", mp, tp, MOE_PATH_LAYERS, counters, moe, texts=texts,
         decode_steps=MOE_CLI_DECODE_STEPS)
     release(torch)
     paths["qwen3_30b_a3b inference contiguous --speculative off"] = main_path(
-        torch, "qwen3_30b_a3b", mp, tp, QWEN3_30B_A3B["n_layers"], counters, moe,
+        torch, "qwen3_30b_a3b", mp, tp, MOE_PATH_LAYERS, counters, moe,
         extra=("--kv-layout", "contiguous", "--speculative", "off"), texts=texts,
         decode_steps=MOE_CLI_DECODE_STEPS)
     log(json.dumps({"phase": "cli_speculation", "model": "qwen3_30b_a3b",
@@ -5571,7 +6213,7 @@ def main(argv=None) -> int:
     assert len(set(texts.values())) == 1, "30B-A3B CLI: the default and off print other tokens"
     release(torch)
     done("the 30B-A3B CLI paths")
-    # one 18 GB load for the profiles, phase 5b and phase 5d's and 5e's MoE
+    # one load for the profiles, phase 5b and phase 5d's and 5e's MoE
     # parts; with the grammar arena, as the CLI builds its engine
     eng = spec_engine(mp, kv_layout="contiguous", grammar=True)
     paths["qwen3_30b_a3b grammar"] = grammar_moe(torch, eng, tp, counters, moe)
@@ -5579,9 +6221,19 @@ def main(argv=None) -> int:
     decode_profile(torch, "qwen3_30b_a3b", mp, steps=8, eng=eng)
     prefill_profile(torch, "qwen3_30b_a3b", mp, eng=eng)
     graphed_decode_phase(torch, mp, tp, "qwen3_30b_a3b", eng=eng)
+    # 5i's single-device side on this engine (speculation off), which
+    # closes before the mesh's engine cuts the same file (two copies
+    # at most)
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    speculate(eng, 0)
+    ref = mesh_moe_reference(torch, eng, Tokenizer(tp).encode(PROMPT))
+    eng.close()
     del eng
     release(torch)
     done("phases 5-6 at Qwen3-30B-A3B width")
+    paths.update(mesh_moe_phase(torch, mp, tp, counters, ref))
+    done("phase 5i at Qwen3-30B-A3B width")
 
     # 7. the record: one row a kernel; `launches` sums the main paths'
     # counts (each path counted on its own), `launches_by_path` holds them
@@ -5593,7 +6245,8 @@ def main(argv=None) -> int:
         count = r.get("counter", name)
         return {path: p[count] for path, p in paths.items() if r.get("path", path) == path}
 
-    kern = [{**{k: r[k] for k in keys}, **{k: r[k] for k in ("cold_ms", "hot_ms") if k in r},
+    kern = [{**{k: r[k] for k in keys},
+             **{k: r[k] for k in ("cold_ms", "hot_ms", "shard_shapes") if k in r},
              "launches": sum(by_path(name, r).values()), "launches_by_path": by_path(name, r)}
             for name, r in rows.items()]
     print(json.dumps({"kernels": kern}))

@@ -5,10 +5,12 @@ The counterpart of the JAX package's `cli.py`: the `inference`,
 same flags where the port runs them, plus `--device {cuda,cpu}` (default
 cuda: the CLI runs on the card unless asked for the CPU). As in the JAX
 CLI, `--kv-layout` defaults to paged (DLT_KV_LAYOUT env first);
-`--kv-dtype int8` stores the cache in int8. `--sp n` splits the KV
-cache's sequence axis over an n-shard mesh (parallel/): n cards, or the
-CPU n times with `--device cpu`; like the JAX CLI it keeps the contiguous
-layout there and says so. `--prefix-cache-mb` sizes the radix prefix cache
+`--kv-dtype int8` stores the cache in int8. `--tp`, `--pp`, `--dp`, `--ep`
+and `--sp` lay the engine over a mesh of that many shards (parallel/): the
+visible cards, or the CPU for every shard with `--device cpu`; as in the
+JAX CLI, `--batch` must split over `--dp` and is at least `--dp`, and the
+paged layout stays on pure pp x tp meshes, where others keep contiguous and
+say so. `--prefix-cache-mb` sizes the radix prefix cache
 (runtime/prefix_cache.py) as the JAX CLI does: -1, the default, means
 DLT_PREFIX_CACHE_MB env, else 512; 0 turns it off. `--speculative`
 (off | ngram | model; runtime/speculative.py) defaults to DLT_SPECULATIVE
@@ -25,7 +27,7 @@ the prefix cache off, and raises ValueError without one. As in the JAX
 CLI, the engine builds the grammar arena (runtime/grammar.py) on one
 device with device decode, so every decode and verify graph carries the
 grammar mask at the all-legal FREE state; DLT_GRAMMAR=0 turns it off,
-and under `--sp` or `--host-decode` it stays off. `--role` and
+and on a mesh or under `--host-decode` it stays off. `--role` and
 `--prefill-peer` (the API server's disaggregated roles, server/disagg.py)
 parse here as in the JAX CLI and feed the server's ``DLT_ROLE`` /
 ``DLT_PREFILL_PEER`` resolution. After the Timing
@@ -92,7 +94,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="where the model runs (default cuda; no GPU is an error, not a "
         "fallback)",
     )
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size")
+    p.add_argument("--pp", type=int, default=1, help="pipeline-parallel mesh size")
     p.add_argument("--sp", type=int, default=1, help="sequence-parallel mesh size (long context)")
+    p.add_argument("--ep", type=int, default=1, help="expert-parallel mesh size (MoE)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh size (batch)")
     p.add_argument(
         "--batch", type=int, default=1,
         help="engine batch rows (the CLI's modes run the same sequence in each)",
@@ -169,9 +175,18 @@ def make_engine(args) -> InferenceEngine:
     # speculation as the JAX CLI resolves it: ngram unless the flag or
     # DLT_SPECULATIVE says otherwise (library engines default to off); but
     # off where a round of the smallest bucket takes the MoE gather arm
+    # --batch against --dp, as the JAX CLI checks it (cli.py:180-191): an
+    # explicit batch must split over the dp shards; the batch is at least dp
+    batch = args.batch or 1
+    if batch % args.dp != 0 and batch != 1:
+        raise ValueError(
+            f"--batch {batch} must be a multiple of --dp {args.dp} "
+            f"(each dp shard holds batch/dp rows)"
+        )
+    batch = max(batch, args.dp)
     with MFileReader(args.model) as reader:
         h = reader.header
-    gather = verify_takes_gather_arm(h, args.batch, DRAFT_BUCKETS[0] + 1)
+    gather = verify_takes_gather_arm(h, batch, DRAFT_BUCKETS[0] + 1)
     spec_mode = resolve_spec_mode(args.speculative, default="off" if gather else "ngram")
     draft_k = resolve_draft_k(args.draft_k or None)
     if spec_mode == "model" and not args.draft_model:
@@ -183,23 +198,29 @@ def make_engine(args) -> InferenceEngine:
     prefix_mb = resolve_budget_mb(None if flag < 0 else flag, default_mb=512)
     max_chunk = args.prefill_chunk_size if args.prefill_chunk_size > 0 else args.max_chunk
     mesh = None
-    if args.sp > 1:
-        # the CPU stands in for n devices, as the JAX tests' forced host
+    axes = dict(tp=args.tp, pp=args.pp, sp=args.sp, ep=args.ep, dp=args.dp)
+    if any(v > 1 for v in axes.values()):
+        # the CPU stands in for every shard, as the JAX tests' forced host
         # devices do; on the card the mesh takes the visible cards
-        devices = [args.device] * args.sp if args.device == "cpu" else None
-        mesh = make_mesh(sp=args.sp, devices=devices)
+        n = args.tp * args.pp * args.sp * args.ep * args.dp
+        devices = [args.device] * n if args.device == "cpu" else None
+        mesh = make_mesh(**axes, devices=devices)
     # paged is the CLI's default, as in the JAX CLI (cli.py:236); library
-    # engines keep contiguous. A mesh keeps contiguous, as there (:236-250)
+    # engines keep contiguous. The mesh-paged path covers pure pp x tp
+    # meshes; other meshes keep contiguous, as there (:236-250)
     kv_layout = resolve_kv_layout(args.kv_layout, default="paged")
     if kv_layout == "paged" and mesh is not None:
-        print(
-            "⚠️  --kv-layout paged covers single-chip and pure pp x tp "
-            "pipeline meshes: this topology keeps the contiguous KV layout"
-        )
-        kv_layout = "contiguous"
+        pure_pptp = args.dp == 1 and args.sp == 1 and args.ep == 1 and (
+            args.pp > 1 or args.tp > 1)
+        if not pure_pptp:
+            print(
+                "⚠️  --kv-layout paged covers single-chip and pure pp x tp "
+                "pipeline meshes: this topology keeps the contiguous KV layout"
+            )
+            kv_layout = "contiguous"
     # the grammar arena as the JAX CLI builds it (cli.py:251-260): on by
     # default where it can serve, one device with device decode, so every
-    # decode program carries the mask; off under --sp and --host-decode
+    # decode program carries the mask; off on a mesh and under --host-decode
     # (an explicit DLT_GRAMMAR=1 still reaches the engine, which warns);
     # DLT_GRAMMAR=0 turns it off. Library engines keep the env-or-off default
     gr_capable = mesh is None and not args.host_decode
@@ -221,7 +242,7 @@ def make_engine(args) -> InferenceEngine:
             compute_dtype=args.compute_dtype,
             cache_dtype=args.cache_dtype,
             max_seq_len=args.max_seq_len,
-            batch=args.batch,
+            batch=batch,
             max_chunk=max_chunk,
             device_decode=not args.host_decode,
             verbose=True,

@@ -256,17 +256,59 @@ def _weight_from_numpy(w, device) -> Weight:
     return _from_numpy(w, device)
 
 
-def params_from_jax(tree: dict, device=None) -> ModelParams:
+def _deinterleave(a: np.ndarray, sizes: list, tp: int, axis: int) -> np.ndarray:
+    """Undo the JAX loader's `_interleave` (models/params.py:184): `a`'s
+    `axis` holds, for each tp shard in turn, its block of every part;
+    returns the parts in plain concat order (the port's tp = 1 order)."""
+    per = [n // tp for n in sizes]
+    starts = np.cumsum([0] + per)
+    blocks = np.split(a, tp, axis=axis)
+    return np.concatenate(
+        [np.take(blk, range(starts[i], starts[i + 1]), axis=axis)
+         for i in range(len(sizes)) for blk in blocks], axis=axis)
+
+
+def _fused_sizes(lt: dict) -> dict:
+    """The parts of each fused field, from the unfused weights' widths:
+    q_dim is wo's in features, ff w2's (T layout: in is q's word rows x 8)."""
+    def in_features(w):
+        return w["q"].shape[-2] * 8 if isinstance(w, dict) else w.shape[-1]
+
+    def out_features(w):
+        return w["q"].shape[-1] if isinstance(w, dict) else w.shape[-2]
+
+    q_dim = in_features(lt["wo"])
+    kv_dim = (out_features(lt["wqkv"]) - q_dim) // 2
+    out = {"wqkv": [q_dim, kv_dim, kv_dim]}
+    if lt.get("w13") is not None:
+        ff = in_features(lt["w2"])
+        out["w13"] = [ff, ff]
+    return out
+
+
+def params_from_jax(tree: dict, device=None, tp: int = 1) -> ModelParams:
     """The JAX package's `ModelParams` -> the port's, without importing JAX,
     on `device` (None: the card; see `device.resolve_device`).
 
     `tree` holds numpy arrays keyed by the JAX field names:
     ``{"embedding", "final_norm", "wcls", "layers": {field: ...}}``, where a
     QuantTensor is ``{"q": ..., "d": ...}`` and an unused field is None. The
-    JAX loader's fused fields (wqkv, w13) are taken as they are; its separate
-    q/k/v fields must be None, and so must w1/w3 unless the tree is a MoE
-    one (moe_gate set, w13 None, w1/w3/w2 the [L, E, ...] expert stacks)."""
+    JAX loader's fused fields (wqkv, w13) are taken as they are at `tp` = 1;
+    at the `tp` the JAX params were loaded for (`load_params(tp=)`, which
+    interleaves each tp shard's parts) they are put back in the port's
+    plain concat order, which `parallel/sharding.py` cuts per shard. Its
+    separate q/k/v fields must be None, and so must w1/w3 unless the tree is
+    a MoE one (moe_gate set, w13 None, w1/w3/w2 the [L, E, ...] expert
+    stacks)."""
     lt = tree["layers"]
+    if tp > 1:
+        lt = dict(lt)
+        for name, sizes in _fused_sizes(lt).items():
+            w = lt[name]
+            if isinstance(w, dict):
+                lt[name] = {k: _deinterleave(np.asarray(w[k]), sizes, tp, -1) for k in ("q", "d")}
+            else:
+                lt[name] = _deinterleave(np.asarray(w), sizes, tp, -2)
     moe = lt.get("moe_gate") is not None
     unfused = ("q", "k", "v") if moe else ("q", "k", "v", "w1", "w3")
     for name in unfused + (("w13",) if moe else ()):

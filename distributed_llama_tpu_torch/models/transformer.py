@@ -58,10 +58,10 @@ from ..ops.cuda_attention import (
 )
 from ..ops.cuda_q40 import q40_gemv_q80_indexed
 from ..ops.kv_quant import dequantize_kv, quantize_kv
-from ..ops.moe import moe_ffn_ragged, moe_router
+from ..ops.moe import ep_local_route, moe_ffn_ragged, moe_router
 from ..ops.norm import rms_norm
 from ..ops.quant import (
-    QuantTensor, _f32_matmul, dequantize_t, q40_stacked_aligned, quant_matmul,
+    QuantTensor, _f32_matmul, dequantize_t, q40_expert_aligned, quant_matmul,
     quantize_q80_activations, slice_layer,
 )
 from ..ops.rope import RopeTables, rope_rows, rotate
@@ -140,8 +140,8 @@ def _moe_decode_i8_eligible(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams) 
         cfg.dtype == torch.bfloat16
         and y.shape[0] * y.shape[1] == 1
         and all(isinstance(w, QuantTensor) for w in (lp.w1, lp.w2, lp.w3))
-        and q40_stacked_aligned(lp.w1.in_features, lp.w1.out_features)
-        and q40_stacked_aligned(lp.w2.in_features, lp.w2.out_features)
+        and q40_expert_aligned(lp.w1.in_features, lp.w1.out_features)
+        and q40_expert_aligned(lp.w2.in_features, lp.w2.out_features)
     )
 
 
@@ -182,7 +182,8 @@ def moe_grouped(cfg, tokens: int) -> bool:
     return tokens * cfg.n_active_experts >= cfg.n_experts
 
 
-def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -> torch.Tensor:
+def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int, route=None,
+             ep=None) -> torch.Tensor:
     """Top-k expert SwiGLU (reference src/llm.cpp:440-514): the router on
     the normed activation, then the JAX package's choice of arm by the
     static row count rows = b * t * k:
@@ -190,8 +191,18 @@ def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int) -> 
         over every hit expert once;
       * one token on the bf16 kernel path: _moe_decode_i8 (K1-indexed);
       * otherwise (prefill tails of a few tokens, the f32 arm): gather each
-        row's experts and dequantize them (plain torch; XLA in JAX)."""
-    idx, wts = moe_router(y, lp.moe_gate[layer], cfg.n_active_experts)  # [b, t, k]
+        row's experts and dequantize them (plain torch; XLA in JAX).
+    `route`: the router's (idx, wts), computed once for every shard of a
+    mesh (the gate is replicated); None computes it here. `ep`: (e0,
+    n_local), expert parallelism (JAX's `ep_axis`, :186-263): `lp` holds
+    experts e0 .. e0 + n_local; slots routed to another shard are clamped
+    to a local expert and zero-weighted before any arm is chosen
+    (`ep_local_route`), so they add exact zeros, and the caller sums the
+    shards' partials (JAX's psum over ep)."""
+    idx, wts = route if route is not None else moe_router(y, lp.moe_gate[layer],
+                                                          cfg.n_active_experts)  # [b, t, k]
+    if ep is not None:
+        idx, wts = ep_local_route(idx, wts, ep)
     act = partial(_activation, cfg)
     if moe_grouped(cfg, y.shape[0] * y.shape[1]):
         return moe_ffn_ragged(y, idx, wts, lp.w1, lp.w3, lp.w2, act, cfg.dtype, layer=layer,
@@ -246,7 +257,7 @@ def _row_window(pos: torch.Tensor, S: int, t: int) -> tuple:
     steps = torch.arange(t, device=dev)
     j = steps[None, :] - (pos - w)[:, None]
     rows = torch.arange(pos.shape[0], device=dev)[:, None]
-    return rows, w[:, None] + steps, j.clamp(min=0), j >= 0
+    return rows, w[:, None] + steps, j.clamp(0, t - 1), (j >= 0) & (j < t)
 
 
 def _write_rows(dst: torch.Tensor, src: torch.Tensor, window: tuple) -> None:
@@ -387,20 +398,29 @@ def _sp_attention(cfg, q, k, v, positions, pos_start, sp: SpShards, li, kv_len):
     per-shard attention run on the shards' devices."""
     kw, vw = k.to(cfg.kv_dtype), v.to(cfg.kv_dtype)
     k_views, v_views = [], []
+    per_row = isinstance(pos_start, torch.Tensor)
     for cache, off in zip(sp.caches, sp.offsets):
         dev = cache.k.device
-        scatter_cache_update_sp(cache.k, kw.to(dev), pos_start, off, layer=li)
-        scatter_cache_update_sp(cache.v, vw.to(dev), pos_start, off, layer=li)
         local_seq = cache.k.shape[2]
+        if per_row:
+            # each row's rows that land in this shard; a parked row's land
+            # in none (JAX's drop scatter, ops/attention.py)
+            win = _row_window(pos_start.to(dev) - off, local_seq, q.shape[1])
+            _write_rows(cache.k[li], kw.to(dev), win)
+            _write_rows(cache.v[li], vw.to(dev), win)
+        else:
+            scatter_cache_update_sp(cache.k, kw.to(dev), pos_start, off, layer=li)
+            scatter_cache_update_sp(cache.v, vw.to(dev), pos_start, off, layer=li)
         local_kv = min(kv_len, local_seq) if kv_len is not None else local_seq
         k_views.append(cache.k[li, :, :local_kv])
         v_views.append(cache.v[li, :, :local_kv])
-    if k_views[0].dtype == torch.bfloat16 and flash_attention_aligned(q, k_views[0], q.shape[1]):
+    if (not per_row and k_views[0].dtype == torch.bfloat16
+            and flash_attention_aligned(q, k_views[0], q.shape[1])):
         return flash_attention_sp(q, k_views, v_views, pos_start, sp.offsets)
     return gqa_attention_sp(q, k_views, v_views, positions, sp.offsets)
 
 
-def _layer(
+def attention_out(
     cfg: ModelConfig,
     rope: tuple,  # the (cos, sin) rows of `positions` (ops/rope.py rope_rows)
     x: torch.Tensor,  # [b, t, dim] residual stream (f32)
@@ -412,8 +432,13 @@ def _layer(
     kv_len: int | None,
     kv_index,  # _PagedIndex (paged layout), a `_row_window` (contiguous at
     # per-row positions), the [t] slots of rows aligned at a device
-    # position, or None (contiguous at an int pos_start, or sp)
+    # position, or None (contiguous at an int pos_start)
 ) -> torch.Tensor:
+    """The attention half of a layer up to its output projection: the
+    [b, t, dim] term the residual adds. Head counts and widths are the
+    config's, which on a mesh is the shard's (parallel/sharding.py
+    `shard_config`): a tp shard's term is its partial sum, which the shard
+    loop reduces (JAX's `reduce_fn`, transformer.py:645)."""
     b, t, _ = x.shape
     y = rms_norm(x, lp.norm0[li], cfg.norm_epsilon)
     qkv = linear(y, lp.wqkv, cfg.dtype, li, cfg.q80_activations)
@@ -434,13 +459,26 @@ def _layer(
     else:
         a = _contiguous_attention(cfg, q, k, v, positions, pos_start, cache, li, kv_len,
                                   kv_index)
-    att_out = linear(a.reshape(b, t, cfg.q_dim), lp.wo, cfg.dtype, li, cfg.q80_activations)
-    x = x + att_out.to(x.dtype)
+    return linear(a.reshape(b, t, cfg.q_dim), lp.wo, cfg.dtype, li, cfg.q80_activations)
 
+
+def ffn_out(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, li: int, route=None,
+            ep=None) -> torch.Tensor:
+    """The FFN half of a layer on the normed `y`: the term the residual
+    adds (a tp shard's partial; under `ep` an ep shard's, see `_moe_ffn`)."""
+    if cfg.is_moe:
+        return _moe_ffn(cfg, y, lp, li, route, ep)
+    return _dense_ffn(cfg, y, lp, li)
+
+
+def _layer(cfg, rope, x, positions, pos_start, lp, cache, li, kv_len, kv_index) -> torch.Tensor:
+    """One layer on one device (`attention_out`, then `ffn_out`);
+    parallel/pipeline.py runs the two halves per shard with the reduces
+    between them."""
+    x = x + attention_out(cfg, rope, x, positions, pos_start, lp, cache, li, kv_len,
+                          kv_index).to(x.dtype)
     y = rms_norm(x, lp.norm1[li], cfg.norm_epsilon)
-    ff = _moe_ffn(cfg, y, lp, li) if cfg.is_moe else _dense_ffn(cfg, y, lp, li)
-    x = x + ff.to(x.dtype)
-    return x
+    return x + ffn_out(cfg, y, lp, li).to(x.dtype)
 
 
 def forward(
@@ -462,7 +500,17 @@ def forward(
 ) -> torch.Tensor:
     """One forward step (prefill chunk or decode token); writes the chunk's
     K/V into `cache` in place. Returns f32 logits: [b, vocab] for "last",
-    [b, t, vocab] for "all"."""
+    [b, t, vocab] for "all". With `params` a mesh's (parallel/sharding.py
+    MeshParams) and `cache` its MeshKV, the step runs the mesh's shard
+    loop (parallel/pipeline.py `pipeline_forward`)."""
+    if getattr(params, "mesh", None) is not None:
+        # a MeshParams: the shard loop (parallel/pipeline.py), which every
+        # entry point above this one reaches through here
+        from ..parallel.pipeline import pipeline_forward
+
+        return pipeline_forward(cfg, params.mesh, params, rope, cache, tokens, pos_start,
+                                logits_mode, kv_len=kv_len, page_table=page_table,
+                                page_size=page_size)
     if logits_mode not in ("last", "all"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     if (page_table is None) != (page_size is None):
@@ -507,9 +555,8 @@ def step_positions(tokens: torch.Tensor, pos_start, limit: int) -> tuple:
 
 def forward_layers(cfg, params, rope, cache, tokens, positions, pos_start, logits_mode, kv_len,
                    kv_index) -> torch.Tensor:
-    """Embedding, every layer and the logits of one step, once the caller
-    has laid out its positions and cache index (`forward`), or passed a
-    sequence-parallel cache as `cache` (parallel/pipeline.py)."""
+    """Embedding, every layer and the logits of one step on one device,
+    once `forward` has laid out its positions and cache index."""
     x = params.embedding[tokens].to(torch.float32)
     rows = rope_rows(rope, positions)
     for li in range(cfg.n_layers):

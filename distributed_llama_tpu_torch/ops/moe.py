@@ -17,8 +17,10 @@ runs the three matmuls through the grouped kernel K4
 the flat group index (the JAX package's production path; its
 DLT_MOE_LAYER_FOLD switch is not kept). Off that path (f32 compute, dense
 expert weights) it takes the JAX package's ragged_dot arm as a plain
-per-expert torch matmul. The expert-parallel arms (`ep_axis`) are not
-ported yet (ROADMAP A13).
+per-expert torch matmul. Under expert parallelism (`ep`, JAX's `ep_axis`
+:254-263, :316-354) the stacks hold one shard's experts and rows routed
+elsewhere add exact zeros; the shard loop (parallel/pipeline.py) sums the
+shards' partials.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from .cuda_q40 import q40_grouped_gemm_bf16
 from .quant import (
-    QuantTensor, _f32_matmul, dequantize_t, q40_stacked_aligned, quantize_q80_activations,
+    QuantTensor, _f32_matmul, dequantize_t, q40_expert_aligned, quantize_q80_activations,
     slice_layer,
 )
 
@@ -78,6 +80,18 @@ def _grouped_layout_direct(g_flat: torch.Tensor, n_groups: int, block_r: int):
     return dest.long(), block_expert, R_pad
 
 
+def ep_local_route(idx: torch.Tensor, wts: torch.Tensor, ep) -> tuple:
+    """The route an ep shard holding experts e0 .. e0 + n_local runs (JAX's
+    `ep_axis` arms, transformer.py:228-250, ops/moe.py:254-263): slots
+    routed to another shard are clamped to a local expert and
+    zero-weighted, so every arm (K4, K1-indexed, the gather and plain
+    arms) gives them an exact zero, and indices stay in range."""
+    e0, n_local = ep
+    local = idx - e0
+    valid = (local >= 0) & (local < n_local)
+    return local.clamp(0, n_local - 1), wts * valid.to(wts.dtype)
+
+
 def _grouped_block_rows(rows: int, n_groups: int) -> int:
     """block_r from static counts (the JAX package's moe.py:286-289): about
     rows per group, a power of two in [8, 64]."""
@@ -90,10 +104,11 @@ def _grouped_block_rows(rows: int, n_groups: int) -> int:
 
 def _grouped_eligible(w1, w3, w2, dtype, q80: bool = False) -> bool:
     """The grouped kernel serves bf16 compute on Q40 expert stacks with the
-    stacked kernels' alignment (the JAX package's _grouped_quant_eligible);
+    expert kernels' alignment (the JAX package's _grouped_quant_eligible,
+    there at nb % 8 == 0; `q40_expert_aligned`);
     the rest, and the q80 parity mode, take the plain per-expert arm."""
     return not q80 and dtype == torch.bfloat16 and all(
-        isinstance(w, QuantTensor) and q40_stacked_aligned(w.in_features, w.out_features)
+        isinstance(w, QuantTensor) and q40_expert_aligned(w.in_features, w.out_features)
         for w in (w1, w3, w2)
     )
 
@@ -120,7 +135,8 @@ def moe_ffn_ragged(
     """Exact top-k expert SwiGLU for all rows at once: for every (token,
     slot) row, h = act(y @ w1[e]) * (y @ w3[e]); out = sum_k wts * (h @
     w2[e]), the slots summed in f32. With `q80` the plain arm takes the
-    rows' inputs and h through Q80 (JAX :345-347)."""
+    rows' inputs and h through Q80 (JAX :345-347). Under expert
+    parallelism the route comes through `ep_local_route` first."""
     b, t, dim = y.shape
     k = idx.shape[-1]
     n_tok = b * t

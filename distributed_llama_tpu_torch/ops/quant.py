@@ -174,6 +174,16 @@ def q40_stacked_aligned(in_features: int, out_features: int) -> bool:
     return out_features % LANE == 0 and (in_features // Q_BLOCK) % 8 == 0
 
 
+def q40_expert_aligned(in_features: int, out_features: int) -> bool:
+    """The expert kernels' gate (K4 grouped, K1-indexed): lane-aligned
+    out_features over whole Q40 blocks. Unlike `q40_stacked_aligned` it
+    takes any block count, as both kernels walk a ragged last run of
+    blocks: a tp shard of a MoE expert stack (Qwen3-30B-A3B's w2 at tp 2
+    holds 12 blocks) runs its kernels. JAX's Pallas kernels take nb % 8 ==
+    0 only; at such a shard its expert FFN takes the XLA arms."""
+    return out_features % LANE == 0 and in_features % Q_BLOCK == 0
+
+
 def quant_matmul(
     x: torch.Tensor,
     w: QuantTensor,

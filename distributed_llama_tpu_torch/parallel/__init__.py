@@ -1,12 +1,15 @@
-"""Parallel layer: the device mesh and the sequence-parallel forward.
+"""Parallel layer: topology, the device mesh, the shards and the shard loop.
 
-The counterpart of the JAX package's `parallel/`, for the `sp` axis alone:
-`make_mesh` (mesh.py) and the pp = 1 sequence-parallel steps of
-`pipeline.py`. One process drives every shard of the mesh, as JAX's one
-controller does under `shard_map`; the other axes (tp, pp, dp, ep) and
-`torch.distributed` across hosts are not ported (ROADMAP A13).
+The counterpart of the JAX package's `parallel/`: `PPxTPTopology`
+(topology.py), `make_mesh` (mesh.py), the NamedSharding rules as shards cut
+once per mesh cell (sharding.py) and the shard_map pipeline as a loop over
+the shards (pipeline.py), for every axis: tp, pp, dp, ep and sp. One
+process drives every shard, as JAX's one controller does under
+`shard_map`; `torch.distributed` across hosts (`multihost.py`) and the
+GSPMD execution arm are not ported (ROADMAP A13b).
 """
 
 from .mesh import AXES, Mesh, make_mesh
+from .topology import PPxTPTopology
 
-__all__ = ["AXES", "Mesh", "make_mesh"]
+__all__ = ["AXES", "Mesh", "PPxTPTopology", "make_mesh"]

@@ -26,6 +26,9 @@ series (runtime/tracing.py, runtime/telemetry.py).
   its sampled tokens never depend on its co-tenants.
 * A finished row is parked (pos = seq_len): it keeps riding the chunk, its
   writes land nowhere, its tokens are discarded.
+* On a mesh every step and admission chunk runs the shard loop
+  (parallel/pipeline.py; JAX :543), an admission chunk as the full batch
+  with the other rows parked.
 * On the card `step` replays the engine's "batch_decode" CUDA graph of its
   (batch, kv bucket, sampling arm) key (runtime/graphs.py, `batch_decode_step`),
   unless `engine.graph_eligible` keeps the arm eager.
@@ -61,6 +64,8 @@ from ..models.transformer import forward
 from ..ops.sampling import (
     advance_grammar, apply_grammar_mask, row_coins, sample_logits_per_row, sampler_arm,
 )
+from ..parallel.pipeline import pipeline_forward
+from ..parallel.sharding import MeshKV
 from .decode import sample_step
 from .speculative import choose_bucket, verify_row_round
 from .tracing import to_us
@@ -161,7 +166,13 @@ def prefill_row(cfg, params, rope, cache: KVCache, tokens: torch.Tensor, pos_sta
     """Prefill one row of a contiguous batched cache with the ordinary b = 1
     forward at a scalar position (flash-eligible), on a view of the row's
     slab: the writes land in place, no copy moves in or out (JAX slices
-    the row out and writes it back)."""
+    the row out and writes it back). On a mesh the view is the row's in
+    every shard of its dp group (`MeshKV.row_view`; JAX runs the whole
+    batch with the other rows parked, engine.py:1066-1089)."""
+    if isinstance(cache, MeshKV):
+        view = cache.row_view(row)
+        pipeline_forward(cfg, view.mesh, params, rope, view, tokens, pos_start, kv_len=kv_len)
+        return
     view = KVCache(*(None if t is None else t[:, row : row + 1]
                      for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
     forward(cfg, params, rope, view, tokens, pos_start, kv_len=kv_len)
@@ -172,7 +183,6 @@ class BatchSession:
     thread-safe. Device work happens in `prefill_pending` and `step`."""
 
     def __init__(self, engine):
-        engine._refuse_on_mesh("BatchSession")
         self.engine = engine
         b = engine.batch
         self.seq_len = engine.cfg.seq_len

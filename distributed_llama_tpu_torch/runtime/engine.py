@@ -8,7 +8,8 @@ src/dllama.cpp:13-151), for one device: `chunk_plan`, `__init__` with its
 `_ensure_pages`, `_reclaim_pages`), `forward_tokens`, `prefill` (serial),
 `decode_one`, `_dispatch_prefill_row`, `generate`, `_decode_host`,
 `_decode_device`, `generate_batch` and `_decode_batch_chunked`, the
-`mesh=` argument for a sequence-parallel mesh (parallel/), the decode
+`mesh=` and `execution=` arguments with the JAX engine's mesh rules
+(:245-365; parallel/), the decode
 ladder: `_kv_buckets`, `warm_plan` and `warmup`, whose programs are CUDA
 graphs here (runtime/graphs.py), the radix prefix cache's hooks
 (`prefix_cache_mb`, runtime/prefix_cache.py), and speculative decoding
@@ -21,7 +22,8 @@ runtime/telemetry.py and runtime/tracing.py), the `q80_activations`
 parity mode, and the device views' hooks (runtime/profiling.py):
 `cost_plan` (the JAX engine's full warm ladder, key for key), the
 `cost_table` with its lock, `_t_start`, and the `kv_tier` a server
-attaches (runtime/kv_tiering.py). Not ported: the other mesh axes (A13).
+attaches (runtime/kv_tiering.py). Not ported: the `execution="gspmd"`
+arm and multihost meshes (ROADMAP A13b).
 
 * The engine runs on the card unless the caller asks for the CPU:
   `device=None` means "cuda" and raises where no GPU is present.
@@ -33,11 +35,13 @@ attaches (runtime/kv_tiering.py). Not ported: the other mesh axes (A13).
   Padded tail positions write junk into cache slots past the true length;
   those slots are masked (attention sees t <= pos) or overwritten by the
   next real token before they are read.
-* The KV cache lives on the device and is updated in place. On an sp mesh
-  it is a list of per-shard [L, b, seq_len / sp, n_kv, hd] slabs, shard i
-  on the mesh's device i, and every step goes through
-  parallel/pipeline.py; weights, tokens and logits live on the mesh's
-  first device.
+* The KV cache lives on the device and is updated in place. On a mesh
+  the weights and the cache are cut into shards, one per mesh cell, each
+  on its cell's device (parallel/sharding.py MeshParams and MeshKV), and
+  every step runs the shard loop (parallel/pipeline.py) through
+  `models.transformer.forward`, so every entry point (prefill, decode,
+  verify, generate_batch, BatchSession) runs on a mesh as on one device;
+  tokens and logits live on the mesh's first device.
 * Decode runs in chunks of device steps with one token fetch to the host
   per chunk (`_decode_device`). On the card a chunk replays the CUDA graph
   of one decode step (runtime/graphs.py) n times. Setting the
@@ -103,7 +107,7 @@ from ..models import config_from_header, forward, init_kv_cache, load_params
 from ..models.transformer import moe_grouped
 from ..ops.rope import build_rope_tables
 from ..ops.sampling import SAMPLERS, sampler_arm
-from ..parallel.pipeline import pipeline_decode_chunk, pipeline_forward
+from ..parallel.sharding import check_mesh, mesh_kv, mesh_pool, shard_params
 from ..tokenizer import Sampler
 from .batch_session import (
     Rows, batch_decode_chunk, batch_decode_step, row_seeds, row_states,
@@ -178,7 +182,7 @@ def chunk_plan(n_tokens: int, pos_start: int, max_chunk: int, seq_len: int):
 
 
 class InferenceEngine:
-    """Owns params + cache for one model on one device, or on an sp mesh:
+    """Owns params + cache for one model on one device, or on a mesh:
     `batch` rows, in the contiguous or the paged KV layout."""
 
     def __init__(
@@ -200,9 +204,14 @@ class InferenceEngine:
         # env, else 16
         kv_pool_mb: int | None = None,  # the paged pool's device budget; None =
         # DLT_KV_POOL_MB env, else batch x seq_len worth of pages
-        mesh=None,  # parallel.make_mesh(sp=n): the KV cache's sequence axis
-        # split over n shards (contiguous layout, float cache). Replaces
-        # `device`: the engine runs on the mesh's devices
+        mesh=None,  # parallel.make_mesh(tp=, pp=, dp=, ep=, sp=): the model
+        # and its cache cut over the mesh (float cache; the paged layout on
+        # pure pp x tp only). Replaces `device`: the engine runs on the
+        # mesh's devices
+        execution: str = "auto",  # the JAX engine's: "auto" or "pipeline"
+        # run the shard loop on any mesh of more than one shard ("auto" on
+        # a one-shard mesh runs one device); "gspmd", JAX's XLA-partitioned
+        # arm, is not ported (ROADMAP A13b)
         prefix_cache_mb: int | None = None,  # the radix prefix cache's
         # device budget (runtime/prefix_cache.py). None = DLT_PREFIX_CACHE_MB
         # env, else 0 = off for library engines; the CLI defaults to 512
@@ -226,15 +235,31 @@ class InferenceEngine:
     ):
         if mesh is not None and device is not None:
             raise ValueError("give the engine a mesh or a device, not both")
-        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
+        self.device = mesh.first if mesh is not None else resolve_device(device)
         if batch < 1:
             raise ValueError(f"batch must be at least 1, got {batch}")
         self.mesh = mesh
-        # a mesh with more than one shard runs every step through
-        # parallel/pipeline.py, as the JAX engine's sp axis requires its
-        # shard_map pipeline (engine.py:274-290)
-        self.use_pipeline = mesh is not None and mesh.sp > 1
-        if mesh is not None and resolve_kv_layout(kv_layout) == "paged":
+        # the JAX engine's mesh rules (:274-299, :345-356)
+        needs_pipeline = mesh is not None and (mesh.pp > 1 or mesh.sp > 1 or mesh.ep > 1)
+        if execution not in ("auto", "gspmd", "pipeline"):
+            raise ValueError(f"unknown execution mode {execution!r}")
+        if execution == "gspmd" and needs_pipeline:
+            raise ValueError("pp/sp/ep mesh axes require the pipeline path")
+        if execution == "pipeline" and mesh is None:
+            raise ValueError("execution='pipeline' requires a mesh")
+        if execution == "gspmd":
+            raise NotImplementedError(
+                "execution='gspmd' (XLA-partitioned, use_pallas=False) is not "
+                "ported: the shard loop runs every mesh (ROADMAP A13b)")
+        # every mesh of more than one shard runs the shard loop: JAX's
+        # pipeline arm, and for a dp-only mesh its GSPMD arm's work
+        self.use_pipeline = mesh is not None and (mesh.size > 1 or execution == "pipeline")
+        if mesh is not None and batch % mesh.dp != 0:
+            raise ValueError(
+                f"batch ({batch}) must divide over the dp mesh axis ({mesh.dp})"
+            )
+        if (mesh is not None and resolve_kv_layout(kv_layout) == "paged"
+                and (not self.use_pipeline or mesh.dp > 1 or mesh.sp > 1 or mesh.ep > 1)):
             raise ValueError(
                 "kv_layout='paged' on meshes requires the pure pp x tp "
                 "shard_map pipeline path (dp=sp=ep=1); other topologies "
@@ -259,12 +284,17 @@ class InferenceEngine:
             self.cfg = dataclasses.replace(self.cfg, q80_activations=True)
         if self.use_pipeline:
             sp = mesh.sp
-            if self.cfg.seq_len % sp or (self.cfg.seq_len // sp) % 128:
+            if sp > 1 and (self.cfg.seq_len % sp or (self.cfg.seq_len // sp) % 128):
                 raise ValueError(
                     f"seq_len {self.cfg.seq_len} must split over sp={sp} into shards of a "
                     f"multiple of 128 rows (the flash kernels' cache tiles)"
                 )
+            check_mesh(self.cfg, mesh)
         self.params = load_params(self.reader, self.cfg, device=self.device)
+        if self.use_pipeline:
+            # cut once, then the whole copy goes (the shards own their
+            # storage wherever a cut is not a leading-axis view)
+            self.params = shard_params(self.cfg, self.params, mesh)
         # the header's seq_len is already capped at max_seq_len, so the
         # tables cover the cache, not the model's 128k context
         self.rope = build_rope_tables(self.header, device=self.device)
@@ -305,7 +335,8 @@ class InferenceEngine:
                 reclaim=lambda: engine()._reclaim_pages(), stats=self.stats,
                 page_bytes=page_bytes, kv_dtype=self.cfg.cache_dtype,
             )
-            self._tables = DeviceTables(self.page_pool, self.device)
+            # one table buffer a distinct device the shards run on
+            self._tables = {dev: DeviceTables(self.page_pool, dev) for dev in self._devices()}
         # decode chunks replay CUDA graphs on the card (runtime/graphs.py);
         # False runs them eagerly: the reference and the A/B's other arm
         self.cuda_graphs = True
@@ -382,8 +413,15 @@ class InferenceEngine:
         self._graphs = self._bufs = self._gen = self._tables = None
         self.params = self.cache = self.rope = self.last_logits = None
         self._gr_table = self._gr_host = self.last_grammar_state = None
-        if self.device.type == "cuda":
+        if any(dev.type == "cuda" for dev in self._devices()):
             torch.cuda.empty_cache()
+
+    def _devices(self) -> list:
+        """The distinct devices the engine's shards run on, first device
+        first."""
+        if self.mesh is None or not self.use_pipeline:
+            return [self.device]
+        return list(dict.fromkeys(self.mesh.devices))
 
     def set_speculation(self, speculative: str | None, draft_k: int | None = None,
                         draft_source=None) -> None:
@@ -432,15 +470,21 @@ class InferenceEngine:
             return x.numel() * x.element_size()
 
         p = self.params
-        w = sum(nbytes(getattr(p.layers, f)) for f in p.layers.__dataclass_fields__)
-        w += nbytes(p.embedding) + nbytes(p.final_norm) + nbytes(p.wcls)
+        if self.use_pipeline:
+            w = sum(nbytes(t) for t in p.tensors())
+        else:
+            w = sum(nbytes(getattr(p.layers, f)) for f in p.layers.__dataclass_fields__)
+            w += nbytes(p.embedding) + nbytes(p.final_norm) + nbytes(p.wcls)
         kv = sum(nbytes(t) for t in self._cache_tensors())
         layout = (
             f"paged: {self.page_pool.n_pages} pages of {self.page_size}"
             if self.paged else "contiguous"
         )
         if self.use_pipeline:
-            layout += f", sp {self.mesh.sp} shards of {self.cfg.seq_len // self.mesh.sp} rows"
+            axes = ", ".join(f"{k} {v}" for k, v in self.mesh.shape.items() if v > 1)
+            layout += f", mesh {axes or 'of one shard'}"
+            if self.mesh.sp > 1:
+                layout += f", sp {self.mesh.sp} shards of {self.cfg.seq_len // self.mesh.sp} rows"
         gr = ""
         if self.grammar is not None:
             gr = (f", grammar arena {nbytes(self._gr_table) / 2**20:.1f} MiB "
@@ -463,7 +507,7 @@ class InferenceEngine:
         return min(b, self.cfg.seq_len)
 
     def _sync(self):
-        for dev in set(self.mesh.devices if self.mesh is not None else [self.device]):
+        for dev in self._devices():
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
@@ -471,21 +515,16 @@ class InferenceEngine:
         return torch.tensor(rows, dtype=torch.long).to(self.device, non_blocking=True)
 
     def _new_cache(self):
+        if self.use_pipeline:
+            if self.paged:
+                return mesh_pool(self.cfg, self.mesh, self.page_pool.n_pages, self.page_size)
+            return mesh_kv(self.cfg, self.mesh, self.batch)
         if self.paged:
             return init_kv_pool(self.cfg, self.page_pool.n_pages, self.page_size, self.device)
-        if self.use_pipeline:
-            local_seq = self.cfg.seq_len // self.mesh.sp
-            return [init_kv_cache(self.cfg, batch=self.batch, seq_len=local_seq, device=dev)
-                    for dev in self.mesh.devices]
         return init_kv_cache(self.cfg, batch=self.batch, device=self.device)
 
     def _cache_tensors(self) -> tuple:
-        shards = self.cache if self.use_pipeline else [self.cache]
-        return tuple(t for shard in shards for t in shard.tensors())
-
-    def _refuse_on_mesh(self, what: str) -> None:
-        if self.use_pipeline:
-            raise NotImplementedError(f"{what} on a mesh is not ported (ROADMAP A13)")
+        return self.cache.tensors()
 
     def reset(self):
         """Fresh independent sequences: contiguous zeroes the cache in place
@@ -537,11 +576,14 @@ class InferenceEngine:
                      ("tokens",), (resume,))
         return resume
 
-    def _pt_operand(self) -> torch.Tensor:
+    def _pt_operand(self):
         """The device page tables, uploaded again only when the pool's
         tables changed (its version moved), not once per step, and in
-        place: the decode graphs read this one buffer."""
-        return self._tables.operand(self.page_pool)
+        place: the decode graphs read this one buffer. On a mesh, a dict of
+        the buffers by device (the tables are replicated: page ids are
+        global); else the one device's."""
+        tables = {dev: t.operand(self.page_pool) for dev, t in self._tables.items()}
+        return tables if self.use_pipeline else tables[self.device]
 
     def _gr_operand(self) -> torch.Tensor:
         """The device grammar table: the arena's [S, vocab] int32 table,
@@ -592,12 +634,8 @@ class InferenceEngine:
 
     def _forward(self, tokens: torch.Tensor, pos, logits_mode="last", kv_len=None):
         """One forward step on this engine's cache and layout, through the
-        sp pipeline on a mesh."""
-        if self.use_pipeline:
-            return pipeline_forward(
-                self.cfg, self.mesh, self.params, self.rope, self.cache, tokens, pos,
-                logits_mode=logits_mode, kv_len=kv_len,
-            )
+        shard loop on a mesh (JAX :660-690: prefill chunks in pp
+        microbatches, `parallel.pipeline.microbatch_count`)."""
         return forward(
             self.cfg, self.params, self.rope, self.cache, tokens, pos,
             logits_mode=logits_mode, kv_len=kv_len,
@@ -713,13 +751,17 @@ class InferenceEngine:
         """One admission-prefill chunk into `row` alone, at b = 1 and a
         scalar position (flash-eligible): paged, through the row's table
         slice against the shared pool; contiguous, on a view of the row's
-        slab (no copy: the writes land in place)."""
+        slab (no copy: the writes land in place). A mesh runs the same
+        step over the row's shards."""
         toks = self._tokens([chunk])
         if self.paged:
             self._ensure_pages([(row, pos, pos + len(chunk))])
+            pt = self._pt_operand()
+            pt = ({dev: t[row : row + 1] for dev, t in pt.items()} if self.use_pipeline
+                  else pt[row : row + 1])
             forward(
                 self.cfg, self.params, self.rope, self.cache, toks, pos, kv_len=kv_len,
-                page_table=self._pt_operand()[row : row + 1], page_size=self.page_size,
+                page_table=pt, page_size=self.page_size,
             )
             return
         from .batch_session import prefill_row
@@ -831,7 +873,7 @@ class InferenceEngine:
         """n device decode steps from `tok_arr` [b], every row at pos, on
         this engine's cache and layout: the "decode" graph replayed where
         graphs are on, else the eager loop (through the sp pipeline on a
-        mesh). Sampled steps draw from the engine's generator unless given
+        mesh, the shard loop). Sampled steps draw from the engine's generator unless given
         another (eager only). With a grammar arena the steps start at the
         host states `gr_state` [b] (None: FREE) and advance them on the
         device. Sets `last_logits` and `last_grammar_state`. Returns
@@ -840,12 +882,6 @@ class InferenceEngine:
         sampler = sampler_arm(temperature, topp)
         if sampler != "greedy" and generator is None:
             generator = self._rng()
-        if self.use_pipeline:
-            toks, last, self.last_logits = pipeline_decode_chunk(
-                self.cfg, self.mesh, self.params, self.rope, self.cache, tok_arr, pos,
-                n_steps=n, temperature=temperature, topp=topp, generator=generator, kv_len=kv_len,
-            )
-            return toks, last
         if self.paged:
             self._ensure_pages_all_rows(pos, pos + n)
         graphs = self._graphs_for("decode")
@@ -901,7 +937,8 @@ class InferenceEngine:
         (default: the engine's) and `size` tokens a row (the verify feed's
         length; 1 for decode) is captured as a CUDA graph: a rule of shapes
         alone, whatever the device. Two arms stay eager:
-        * the sp pipeline (a mesh): its step spans several devices;
+        * the shard loop (a mesh): its step spans several devices (graphs
+          of a mesh's steps are ROADMAP 13b);
         * the MoE grouped arm, which `_moe_ffn` takes at batch * size *
           n_active >= n_experts (a Qwen3-30B-A3B decode batch of 16, or a
           verify round of 16 rows). On the bf16 kernel path its K4 arm
@@ -930,7 +967,7 @@ class InferenceEngine:
 
     def _step_buffers(self) -> StepBuffers:
         if self._bufs is None:
-            table = self._tables.buf if self.paged else None
+            table = self._tables[self.device].buf if self.paged else None
             self._bufs = StepBuffers(self.batch, self.cfg.seq_len, self.device, table,
                                      self._gr_table)
         return self._bufs
@@ -958,8 +995,8 @@ class InferenceEngine:
         parked: "verify_row"). The position reaches the forward pass as a
         device tensor, eager and graphed alike, so the two agree bit for
         bit; on the card the round replays the kind's CUDA graph of (t, kv
-        bucket). On an sp mesh it runs eagerly at the int position, rows
-        aligned only. Paged: maps [pos, pos + t) of every live row first.
+        bucket). On a mesh it runs eagerly, through the shard loop.
+        Paged: maps [pos, pos + t) of every live row first.
         With a grammar arena the round always carries the mask: `gr_states`
         [b, t] host global states (None: FREE), so the argmax, bonus
         position included, never picks an illegal token.
@@ -974,12 +1011,6 @@ class InferenceEngine:
             else:
                 self._ensure_pages_all_rows(int(pos), int(pos) + t)
         feed = torch.as_tensor(np.asarray(tokens), dtype=torch.long)
-        if self.use_pipeline:
-            if per_row:
-                self._refuse_on_mesh("a per-row verify")
-            logits = self._forward(feed.to(self.device), int(pos), logits_mode="all",
-                                   kv_len=kv_len)
-            return torch.argmax(logits, dim=-1).to(torch.int32), logits
         kind = "verify_row" if per_row else "verify"
         pos_host = torch.as_tensor(np.asarray(pos), dtype=torch.long)
         graphs = self._graphs_for(kind, size=t)
@@ -1073,7 +1104,7 @@ class InferenceEngine:
         step, replayed `size` times, for each sampling arm (greedy, full
         distribution, top-p); a verify triple's is the greedy graph of its
         (kind, size, kv bucket) round. `graph_eligible` keeps two arms
-        eager, by shapes alone: the sp pipeline and the MoE grouped arm at
+        eager, by shapes alone: the shard loop and the MoE grouped arm at
         batch * size * n_active >= n_experts."""
         return [key for key in self.cost_plan() if key[0] in KINDS]
 
@@ -1441,7 +1472,6 @@ class InferenceEngine:
         keeps riding the chunks, its writes past seq_len land nowhere
         (forward's per-row arms) and its tokens are discarded. Returns one
         list of generated tokens per row (a stop token included)."""
-        self._refuse_on_mesh("generate_batch")
         if len(prompts) != self.batch:
             raise ValueError(f"need exactly {self.batch} prompts, got {len(prompts)}")
         if any(len(p) == 0 for p in prompts):

@@ -401,7 +401,9 @@ class TieredKvStore:
             with engine._guard(f"page_extract[{P}]", ("page_extract", P, P)):
                 k, v = gather_pages(engine.cache, entry.pages)
         else:
-            k, v = entry.k, entry.v
+            from .prefix_cache import global_slice
+
+            k, v = (global_slice(engine.cache, x) for x in (entry.k, entry.v))
         try:
             self._demote_q.put_nowait((tuple(entry.tokens), k, v))
         except queue.Full:

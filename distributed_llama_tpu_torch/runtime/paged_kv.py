@@ -135,7 +135,9 @@ def init_kv_pool(cfg: ModelConfig, n_pages: int, page_size: int, device=None) ->
 
 def copy_page(cache: KVCache, src: int, dst: int) -> None:
     """Copy one physical page (every layer, scales included) onto another,
-    in place: the copy-on-write of a write that starts mid-page."""
+    in place: the copy-on-write of a write that starts mid-page. On a mesh
+    (parallel/sharding.py MeshKV) every shard's pool copies its own part
+    of the page."""
     for t in cache.tensors():
         t[:, dst].copy_(t[:, src])
 
@@ -152,7 +154,15 @@ def gather_pages(cache: KVCache, pages) -> tuple:
     page 0, as in JAX. The int8 pool dequantizes on extract to f32, so
     every consumer of this shape (the wire codec, the device transport,
     the tiers) sees a float slice. The result owns its storage: a later
-    scatter into the same pages cannot change it."""
+    scatter into the same pages cannot change it. A mesh's pool gathers
+    on every (pp, tp) shard and joins the blocks on the mesh's first
+    device."""
+    if getattr(cache, "mesh", None) is not None:
+        from ..parallel.sharding import join_global
+
+        parts = {(p, t): gather_pages(shard, pages) for (_, p, t, _), shard in cache.shards.items()}
+        return tuple(join_global({key: kv[i] for key, kv in parts.items()}, cache.mesh, 0, 2)
+                     for i in (0, 1))
     idx = _page_index(cache, pages).clamp(min=0)
     k = cache.k.index_select(1, idx)  # [L, n, ps, h, d]
     v = cache.v.index_select(1, idx)
@@ -170,7 +180,14 @@ def scatter_pages(cache: KVCache, k_seg: torch.Tensor, v_seg: torch.Tensor, page
     IN PLACE (`index_copy_` into the live pool tensors, which the decode
     graphs read: nothing is rebound). The int8 pool quantizes the float
     segment and writes the scales beside it. Ids are pairwise distinct by
-    allocation."""
+    allocation. A mesh's pool takes each (pp, tp) shard's block."""
+    if getattr(cache, "mesh", None) is not None:
+        from ..parallel.sharding import split_global
+
+        ks, vs = (split_global(x, cache.mesh, 0, 2) for x in (k_seg, v_seg))
+        for (_, p, t, _), shard in cache.shards.items():
+            scatter_pages(shard, ks[(p, t)], vs[(p, t)], pages)
+        return
     idx = _page_index(cache, pages)
     L, n = cache.k.shape[0], idx.shape[0]
     ps, h, d = cache.k.shape[2], cache.k.shape[3], cache.k.shape[4]

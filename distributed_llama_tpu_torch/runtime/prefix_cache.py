@@ -49,9 +49,13 @@ segments (`_materialize_contiguous`), paged engines scatter the segments
 into freshly allocated pool pages in place and retain the base's pages
 (`_materialize_paged`). With a tier store attached (`tier`), `_remove`
 hands each victim to its `capture_demotion` before the victim's pages go
-back to the pool; `clear` (engine recovery) bypasses it. Not ported: the
-pipeline mesh's slice shardings (the port's only mesh is sp, where the
-cache is off).
+back to the pool; `clear` (engine recovery) bypasses it.
+
+On a mesh (JAX :257-272, `pp_prefix_sharding`) the cache is on unless sp > 1.
+A contiguous entry holds one slice per (pp, tp) shard, in that shard's
+layout and on its device, as a dict {(p, t): [L/pp, P, kv/tp, hd]}, so a
+splice copies shard to shard; a paged entry retains pages, whose ids are
+global.
 """
 
 from __future__ import annotations
@@ -111,17 +115,34 @@ def resolve_budget_mb(explicit, default_mb: int) -> int:
 # -- the copies (JAX's jitted programs), in place on the live cache ----------
 
 
-def copy_prefix_into_rows(cache, k_seg: torch.Tensor, v_seg: torch.Tensor) -> None:
+def _mesh_cells(cache, row=None):
+    """(shard, (p, t), local row) of a mesh cache's shards: every shard, or
+    those of `row`'s dp group."""
+    for (d, p, t, _), shard in cache.shards.items():
+        bl = shard.k.shape[1]
+        if row is None or row // bl == d:
+            yield shard, (p, t), None if row is None else row % bl
+
+
+def copy_prefix_into_rows(cache, k_seg, v_seg) -> None:
     """Copy a cached slice [L, P, kv, hd] into positions [0, P) of every
-    row of a contiguous cache, in place."""
+    row of a contiguous cache, in place (a mesh's: shard by shard)."""
+    if getattr(cache, "mesh", None) is not None:
+        for shard, key, _ in _mesh_cells(cache):
+            copy_prefix_into_rows(shard, k_seg[key], v_seg[key])
+        return
     P = k_seg.shape[1]
     cache.k[:, :, :P].copy_(k_seg[:, None])
     cache.v[:, :, :P].copy_(v_seg[:, None])
 
 
-def copy_prefix_into_row(cache, k_seg: torch.Tensor, v_seg: torch.Tensor, row: int) -> None:
+def copy_prefix_into_row(cache, k_seg, v_seg, row: int) -> None:
     """Copy a cached slice [L, P, kv, hd] into positions [0, P) of one row,
-    in place."""
+    in place (a mesh's: into the row's dp group, shard by shard)."""
+    if getattr(cache, "mesh", None) is not None:
+        for shard, key, local in _mesh_cells(cache, row):
+            copy_prefix_into_row(shard, k_seg[key], v_seg[key], local)
+        return
     P = k_seg.shape[1]
     cache.k[:, row, :P].copy_(k_seg)
     cache.v[:, row, :P].copy_(v_seg)
@@ -129,8 +150,29 @@ def copy_prefix_into_row(cache, k_seg: torch.Tensor, v_seg: torch.Tensor, row: i
 
 def extract_prefix_from_row(cache, row: int, length: int) -> tuple:
     """A copy of positions [0, length) of one row: the [L, length, kv, hd]
-    pair a contiguous entry stores."""
+    pair a contiguous entry stores (a mesh's: a {(p, t): slice} dict of
+    each shard's block)."""
+    if getattr(cache, "mesh", None) is not None:
+        parts = {key: extract_prefix_from_row(shard, local, length)
+                 for shard, key, local in _mesh_cells(cache, row)}
+        return {k: kv[0] for k, kv in parts.items()}, {k: kv[1] for k, kv in parts.items()}
     return cache.k[:, row, :length].clone(), cache.v[:, row, :length].clone()
+
+
+def global_slice(cache, x):
+    """A contiguous entry's slice as one [L, P, kv, hd] tensor: a mesh
+    entry's (pp, tp) blocks joined on the mesh's first device (what the
+    wire codec and the tiers take), else `x` itself."""
+    if not isinstance(x, dict):
+        return x
+    from ..parallel.sharding import join_global
+
+    return join_global(x, cache.mesh, 0, 2)
+
+
+def _nbytes(x) -> int:
+    parts = x.values() if isinstance(x, dict) else (x,)
+    return sum(t.numel() * t.element_size() for t in parts)
 
 
 # -- host-side structure ------------------------------------------------------
@@ -195,14 +237,14 @@ class PrefixCache:
     def build(cls, engine, prefix_cache_mb=None):
         """The engine's factory: the budget (argument > DLT_PREFIX_CACHE_MB
         env > 0 = off) and the JAX package's three gates. Returns None when
-        the cache is off: on an sp > 1 mesh (it shards the sequence axis a
-        slice would splice into), for contiguous int8 (the copies would
+        the cache is off: on a mesh with sp > 1 (it shards the sequence
+        axis a slice would splice into), for contiguous int8 (the copies would
         need scale twins; paged int8 shares pages and needs none), and when
         the context is too short for a publishable prefix."""
         prefix_cache_mb = resolve_budget_mb(prefix_cache_mb, default_mb=0)
         if prefix_cache_mb <= 0:
             return None
-        if engine.use_pipeline:
+        if engine.mesh is not None and engine.mesh.sp > 1:
             return None
         if engine.cfg.kv_quantized and not engine.paged:
             return None
@@ -439,7 +481,7 @@ class PrefixCache:
         else:
             pages = ()
             k, v = extract_prefix_from_row(engine.cache, row, P)
-            nbytes = k.numel() * k.element_size() + v.numel() * v.element_size()
+            nbytes = _nbytes(k) + _nbytes(v)
         with self._lock:
             if key in self._entries:  # raced with another publisher
                 if pages:
@@ -546,13 +588,19 @@ class PrefixCache:
         if start > 0:
             # the base may be deeper than `start`; only its verified
             # leading span merges
-            pieces_k.append(base_entry.k[:, :start])
-            pieces_v.append(base_entry.v[:, :start])
+            bk, bv = (global_slice(engine.cache, x) for x in (base_entry.k, base_entry.v))
+            pieces_k.append(bk[:, :start])
+            pieces_v.append(bv[:, :start])
         for _a, kp, vp in parts:
             pieces_k.append(from_wire(kp, dev).to(dt))
             pieces_v.append(from_wire(vp, dev).to(dt))
         k = torch.cat(pieces_k, dim=1) if len(pieces_k) > 1 else pieces_k[0].clone()
         v = torch.cat(pieces_v, dim=1) if len(pieces_v) > 1 else pieces_v[0].clone()
+        mesh = getattr(engine.cache, "mesh", None)
+        if mesh is not None:
+            from ..parallel.sharding import split_global
+
+            k, v = split_global(k, mesh, 0, 2), split_global(v, mesh, 0, 2)
         return True, k, v, ()
 
     def _materialize_paged(self, engine, parts, start, P, base_entry):
@@ -595,8 +643,8 @@ class PrefixCache:
 
             ps = self.page_pool.page_size
             return page_pool_bytes(engine.cfg, P // ps, ps)
-        L, _, _, h, d = engine.cache.k.shape
-        return 2 * L * P * h * d * engine.cache.k.element_size()
+        cfg = engine.cfg
+        return 2 * cfg.n_layers * P * cfg.n_kv_heads * cfg.head_dim * engine.cache.k.element_size()
 
     # -- tree maintenance (callers hold the lock) --------------------------
 

@@ -66,6 +66,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 from .telemetry import _tree_bytes
@@ -294,6 +295,33 @@ def _to_meta(tree, lead: int | None = None):
     return tree
 
 
+def _meta_mesh(engine, cfg, meta) -> tuple:
+    """A mesh engine's MeshParams and MeshKV as meta tensors on a mesh of
+    the same shape whose every cell is the meta device, each stage cut to
+    cfg.n_layers / pp layers."""
+    from ..parallel.mesh import Mesh
+    from ..parallel.sharding import MeshKV, MeshParams, shard_config
+
+    mesh = engine.mesh
+    mm = Mesh(shape=mesh.shape, grid=np.full(mesh.grid.shape, meta, dtype=object))
+    lead = cfg.n_layers // mesh.pp
+    p = engine.params
+
+    def one(d: dict, lead_=None, key=lambda k: k[:-1] + (meta,)):
+        out = {}
+        for k, v in d.items():
+            out.setdefault(key(k), _to_meta(v, lead_))
+        return out
+
+    params = MeshParams(
+        mesh=mm, cfg=cfg, scfg=shard_config(cfg, mm), layers=one(p.layers, lead),
+        wcls=one(p.wcls), embedding=one(p.embedding, key=lambda k: meta),
+        final_norm=one(p.final_norm, key=lambda k: meta))
+    cache = MeshKV(mesh=mm, shards={k: _to_meta(v, lead) for k, v in engine.cache.shards.items()},
+                   paged=engine.cache.paged)
+    return params, cache
+
+
 def _storages(tree, out: set) -> set:
     if isinstance(tree, torch.Tensor):
         out.add(tree.untyped_storage()._cdata)
@@ -318,11 +346,14 @@ class _MetaEngine:
         from .graphs import StepBuffers
 
         self.cfg = dataclasses.replace(engine.cfg, n_layers=n_layers)
-        self.params = dataclasses.replace(_to_meta(engine.params),
-                                          layers=_to_meta(engine.params.layers, n_layers))
-        self.rope = _to_meta(engine.rope)
-        self.cache = _to_meta(engine.cache, n_layers)
         meta = torch.device("meta")
+        if engine.use_pipeline:
+            self.params, self.cache = _meta_mesh(engine, self.cfg, meta)
+        else:
+            self.params = dataclasses.replace(_to_meta(engine.params),
+                                              layers=_to_meta(engine.params.layers, n_layers))
+            self.cache = _to_meta(engine.cache, n_layers)
+        self.rope = _to_meta(engine.rope)
         self.table = None
         if engine.paged:
             pool = engine.page_pool
@@ -351,15 +382,17 @@ def _layer_extrapolated(engine, key, metas: dict):
     engine's depth: every layer of a step does the same work, so the
     census is linear in the layer count (c1 + (L - 1) * (c2 - c1), exact),
     and two shallow steps cost a fraction of a deep one."""
-    L = engine.cfg.n_layers
-    depths = (1, 2) if L > 1 else (1,)
+    # a mesh's stages each take a layer at a time: depths pp and 2 pp
+    unit = engine.mesh.pp if engine.use_pipeline else 1
+    L = engine.cfg.n_layers // unit
+    depths = (unit, 2 * unit) if L > 1 else (unit,)
     for n in depths:
         if n not in metas:
             metas[n] = _MetaEngine(engine, n)
-    c1 = _census_step(engine, key, metas[1])
+    c1 = _census_step(engine, key, metas[unit])
     if L == 1:
         return c1
-    c2 = _census_step(engine, key, metas[2])
+    c2 = _census_step(engine, key, metas[2 * unit])
     out = tuple(a + (L - 1) * (b - a) for a, b in zip(c1[:4], c2[:4]))
     calls = {k: c1[4].get(k, 0) + (L - 1) * (c2[4].get(k, 0) - c1[4].get(k, 0))
              for k in set(c1[4]) | set(c2[4])}
@@ -405,6 +438,12 @@ def _census_step(engine, key, meta: _MetaEngine):
     seg_dtype = torch.float32 if cfg.kv_quantized else m.cache.k.dtype
     if kind in ("prefix_copy", "prefix_copy_row", "page_insert"):
         seg = torch.empty((L, size, h, d), dtype=seg_dtype, device=dev)
+        if engine.use_pipeline and kind != "page_insert":
+            # a mesh entry's slice: one block a (pp, tp) shard
+            mesh = engine.mesh
+            seg = {(p, t): torch.empty((L // mesh.pp, size, h // mesh.tp, d), dtype=seg_dtype,
+                                       device=dev)
+                   for p in range(mesh.pp) for t in range(mesh.tp)}
         extra = (seg,)
     if kind in ("verify", "verify_row"):
         m.bufs.verify(size)
@@ -419,7 +458,12 @@ def _census_step(engine, key, meta: _MetaEngine):
             forward(cfg, m.params, m.rope, m.cache, toks(b), kvb - size, kv_len=kvb,
                     page_table=m.table, page_size=ps)
         elif kind == "prefill_row":
-            if engine.paged:
+            if engine.use_pipeline:
+                # the mesh's admission chunk: the full batch, rows parked
+                pos = torch.full((b,), kvb - size, dtype=torch.long, device=dev)
+                forward(cfg, m.params, m.rope, m.cache, toks(b), pos, kv_len=kvb,
+                        page_table=m.table, page_size=ps)
+            elif engine.paged:
                 forward(cfg, m.params, m.rope, m.cache, toks(1), kvb - size, kv_len=kvb,
                         page_table=m.table[:1], page_size=ps)
             else:

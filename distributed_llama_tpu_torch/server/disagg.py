@@ -120,7 +120,7 @@ def run_prefill_arrays(state, ids: list, have_keys=(), trace=None):
     failure recovers the worker (under the same lock, so on the thread
     that owns its device) and propagates."""
     from ..runtime.graphs import CAPTURE_LOCK
-    from ..runtime.prefix_cache import bucket_down, extract_prefix_from_row
+    from ..runtime.prefix_cache import bucket_down, extract_prefix_from_row, global_slice
     from .api import _on_device
 
     engine = state.engine
@@ -170,7 +170,8 @@ def run_prefill_arrays(state, ids: list, have_keys=(), trace=None):
                         segments.append((a, k, v))
                 else:
                     with engine._guard(f"prefix_extract[{P}]", ("prefix_extract", P, P)):
-                        k, v = extract_prefix_from_row(engine.cache, 0, P)
+                        k, v = (global_slice(engine.cache, x)
+                                for x in extract_prefix_from_row(engine.cache, 0, P))
                     if S > 0:
                         # partial send: only tokens [S, P) leave
                         k = k[:, S:].contiguous()

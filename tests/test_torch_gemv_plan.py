@@ -212,3 +212,80 @@ def test_k1_indexed_launches_its_plan_once_whatever_the_slot_count(monkeypatch, 
         assert launched[2] == (1 if shared else n) and launched[6:8] == (n, 4)
         assert launched[-5:] == _plan_args(plan)
     assert len(cap.calls) == 8
+
+
+# (in, out, slots) of the K1 calls on the meshes' shards (parallel/sharding.py):
+# Llama-3.2-1B at tp 2 (wqkv, wo, w13, w2, wcls) and tp 4 (its wcls shard,
+# 32064 columns lane-padded to 32128), Qwen3-30B-A3B at tp 2 (wqkv, wo, its
+# wcls shard, 75968 columns padded to 76032) and its ep 2 x tp 2 expert
+# shards (w1/w3 2048 -> 384, w2 384 -> 2048: 12 blocks, outside the stacked
+# kernels' nb % 8 gate, inside the expert kernels' `q40_expert_aligned`)
+SHARD_PATH = [(2048, 1536, 1), (1024, 2048, 1), (2048, 8192, 1), (4096, 2048, 1),
+              (2048, 64128, 1), (2048, 768, 1), (512, 2048, 1), (2048, 4096, 1),
+              (2048, 32128, 1), (2048, 2048, 1), (2048, 2560, 1), (2048, 76032, 1),
+              (2048, 384, 8), (384, 2048, 8)]
+
+
+@pytest.mark.parametrize("in_f,out_f,slots", SHARD_PATH)
+def test_plans_answer_at_the_shard_shapes(in_f, out_f, slots):
+    """K1's, K2's and K4's plans exist at every shard shape, each covering
+    every block and column once; every plan there is the one its shape
+    has anywhere else (a function of (nb, out) alone)."""
+    nb = in_f // 32
+    plan = cuda_q40.gemv_plan(nb, out_f)
+    splits = [plan.split_range(s, nb) for s in range(plan.splits)]
+    assert [b for r in splits for b in r] == list(range(nb))
+    assert plan.ctas(out_f) * slots >= 1
+    gemm = cuda_q40.gemm_plan(nb, out_f)
+    assert gemm.splits * gemm.blocks_per_split >= nb > (gemm.splits - 1) * gemm.blocks_per_split
+    if slots > 1:
+        from distributed_llama_tpu_torch.ops.quant import q40_expert_aligned, q40_stacked_aligned
+
+        assert q40_expert_aligned(in_f, out_f)
+        assert q40_stacked_aligned(in_f, out_f) == (nb % 8 == 0)
+        for block_r in cuda_q40.GROUPED_BLOCK_ROWS:
+            g = cuda_q40.grouped_plan(nb, out_f, block_r)
+            assert g.ctas(out_f, 1) * g.cols >= out_f
+
+
+@pytest.mark.parametrize("out_f", [32064, 75968])
+def test_lane_padded_vocab_shard_takes_k1_and_k2(monkeypatch, out_f):
+    """A classifier shard that is not a lane multiple (Llama-3.2-1B's
+    vocab at tp 4, Qwen3-30B-A3B's at tp 2) is cut with zero columns up to
+    one: its logits there are exact zeros, its own columns equal the
+    unpadded weight's plain matmul, and `quant_matmul` hands it to K1 at
+    decode rows (at the padded width's plan) and to K2 at prefill rows."""
+    from distributed_llama_tpu_torch.ops.quant import QuantTensor, _quant_matmul_xla, quant_matmul
+    from distributed_llama_tpu_torch.parallel.sharding import _lane_padded
+
+    in_f = 256
+    q, d = (torch.from_numpy(a[0]) for a in _weights(in_f, out_f, layers=1, seed=3))
+    w = _lane_padded(QuantTensor(q=q, d=d))
+    padded = -(-out_f // 128) * 128
+    assert w.out_features == padded and w.q.is_contiguous() and w.d.is_contiguous()
+    assert torch.equal(w.q[:, :out_f], q) and torch.equal(w.d[:, :out_f], d)
+    x = torch.from_numpy(_x(16, in_f, seed=4))
+    got = quant_matmul(x, w, dtype=torch.float32)
+    assert not got[:, out_f:].any()
+    _held(got[:, :out_f].numpy(), _quant_matmul_xla(x, q, d, torch.float32).numpy())
+    cap = _Captured(monkeypatch)
+    for rows, name in ((1, "q40_gemv_q80"), (16, "q40_gemm_bf16")):
+        quant_matmul(x[:rows].bfloat16(), w)
+        assert cap.calls[-1][0] == name and padded in cap.calls[-1][1]
+    assert cap.calls[0][1][-5:] == _plan_args(cuda_q40.gemv_plan(in_f // 32, padded))
+    assert len(cap.calls) == 2
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_k1_indexed_blocked_sums_at_a_12_block_expert_shard(shared):
+    """The ep 2 x tp 2 w2 shard of Qwen3-30B-A3B (384 -> 2048, 12 blocks):
+    K1-indexed's order of sums at its plan against its plain version."""
+    in_f, out_f, k = 384, 256, 8
+    qp, dt = _weights(in_f, out_f, 16, seed=3)
+    q, d = torch.from_numpy(qp), torch.from_numpy(dt)
+    x = torch.from_numpy(_x(1 if shared else k, in_f, seed=4))
+    idx = torch.tensor([3, 7, 0, 15, 9, 2, 11, 5], dtype=torch.int32)
+    plan = cuda_q40.gemv_plan(in_f // 32, out_f)
+    got = cuda_q40.q40_gemv_q80_indexed_blocked(x, q, d, idx, plan)
+    want = cuda_q40.q40_gemv_q80_indexed_plain(x, q, d, idx)
+    _held(got.numpy(), want.numpy())

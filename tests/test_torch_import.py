@@ -32,6 +32,11 @@ import distributed_llama_tpu_torch.runtime.kv_transport
 import distributed_llama_tpu_torch.runtime.kv_tiering
 import distributed_llama_tpu_torch.runtime.profiling
 import distributed_llama_tpu_torch.ops.census
+import distributed_llama_tpu_torch.parallel
+import distributed_llama_tpu_torch.parallel.topology
+import distributed_llama_tpu_torch.parallel.mesh
+import distributed_llama_tpu_torch.parallel.sharding
+import distributed_llama_tpu_torch.parallel.pipeline
 import distributed_llama_tpu_torch.server
 import distributed_llama_tpu_torch.server.disagg
 import distributed_llama_tpu_torch.server.router
@@ -109,7 +114,8 @@ def test_fresh_import_loads_no_jax_and_no_jax_package():
     assert "distributed_llama_tpu_torch.server.quarantine" in mods
     assert "distributed_llama_tpu_torch.server.router" in mods
     for name in ("runtime.kv_transport", "runtime.kv_tiering", "runtime.profiling",
-                 "server.disagg"):
+                 "server.disagg", "parallel.topology", "parallel.mesh", "parallel.sharding",
+                 "parallel.pipeline"):
         assert f"distributed_llama_tpu_torch.{name}" in mods
     assert "distributed_llama_tpu_torch.probes.operands" in mods
     assert "distributed_llama_tpu_torch.probes.attention" in mods

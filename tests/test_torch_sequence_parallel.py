@@ -38,6 +38,7 @@ from distributed_llama_tpu_torch.ops import cuda_attention as pca
 from distributed_llama_tpu_torch.ops.rope import build_rope_tables
 from distributed_llama_tpu_torch.parallel import make_mesh
 from distributed_llama_tpu_torch.parallel.pipeline import pipeline_forward
+from distributed_llama_tpu_torch.parallel.sharding import MeshKV, shard_params
 from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
 from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
 
@@ -50,6 +51,11 @@ NEG_INF = float(np.finfo(np.float32).min)
 
 def _cpu_mesh(sp):
     return make_mesh(sp=sp, devices=["cpu"] * sp)
+
+
+def _sp_kv(mesh, shards):
+    """An sp-only mesh's cache from its per-shard KVCaches, in sp order."""
+    return MeshKV(mesh=mesh, shards={(0, 0, 0, s): c for s, c in enumerate(shards)})
 
 
 def _bf16_pair(x):
@@ -287,6 +293,7 @@ def test_pipeline_forward_bounded_kv_matches_unsharded_and_jax(tmp_path, kv_len)
     mesh = _cpu_mesh(4)
     whole = init_kv_cache(cfg, batch=1, device="cpu")
     shards = [init_kv_cache(cfg, batch=1, seq_len=16, device="cpu") for _ in range(4)]
+    mp = shard_params(cfg, params, mesh)
     jmesh = j_make_mesh(sp=4)
     jcfg, jparams, jrope, jcache = _jax_sp(path, jmesh)
     steps = [([3, 99, 41, 7], 0), ([5], 4)]
@@ -295,7 +302,8 @@ def test_pipeline_forward_bounded_kv_matches_unsharded_and_jax(tmp_path, kv_len)
     for toks, pos in steps:
         arr = torch.tensor([toks])
         want = forward(cfg, params, rope, whole, arr, pos, kv_len=kv_len)
-        got = pipeline_forward(cfg, mesh, params, rope, shards, arr, pos, kv_len=kv_len)
+        got = pipeline_forward(cfg, mesh, mp, rope, _sp_kv(mesh, shards), arr, pos,
+                               kv_len=kv_len)
         jgot, jcache = j_pipeline_forward(jcfg, jmesh, jparams, jrope, jcache,
                                           jnp.asarray([toks], jnp.int32), jnp.int32(pos),
                                           kv_len=kv_len)
@@ -370,10 +378,14 @@ def test_bf16_engine_logits_match_the_jax_sp_mesh(engine_model, monkeypatch, sp)
 
 
 def test_engine_refuses_what_a_mesh_does_not_run(engine_model):
-    """Paged KV on a mesh raises as in the JAX engine; shards must be
-    multiples of 128 rows; the batched entry points and per-row positions
-    on a mesh raise naming A13; int8 KV falls back to float with JAX's
-    warning."""
+    """What an sp mesh refuses and runs, as the JAX engine: paged KV on an
+    sp mesh raises (the paged layout is pure pp x tp only); shards must be
+    multiples of 128 rows; `execution="gspmd"` raises as JAX's rules do on
+    an sp mesh, and names A13b where JAX would run it; int8 KV falls back
+    to float with JAX's warning. The batched entry points and per-row
+    positions now run: generate_batch and a BatchSession on the sp = 2 mesh
+    give the single device's tokens, and a per-row-position step the
+    unsharded forward's logits (f32 sum order: 1e-5)."""
     mesh = _cpu_mesh(2)
     with pytest.raises(ValueError, match="paged"):
         InferenceEngine(engine_model, mesh=mesh, kv_layout="paged")
@@ -381,14 +393,33 @@ def test_engine_refuses_what_a_mesh_does_not_run(engine_model):
         InferenceEngine(engine_model, mesh=_cpu_mesh(8), max_seq_len=512)
     with pytest.raises(ValueError, match="not both"):
         InferenceEngine(engine_model, mesh=mesh, device="cpu")
-    eng = InferenceEngine(engine_model, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A13"):
-        eng.generate_batch([[1, 2]], 4)
-    with pytest.raises(NotImplementedError, match="A13"):
-        BatchSession(eng)
-    with pytest.raises(NotImplementedError, match="A13"):
-        pipeline_forward(eng.cfg, mesh, eng.params, eng.rope, eng.cache, torch.tensor([[1]]),
-                         torch.tensor([3]))
+    with pytest.raises(ValueError, match="require the pipeline path"):
+        InferenceEngine(engine_model, mesh=mesh, execution="gspmd")
+    with pytest.raises(NotImplementedError, match="A13b"):
+        InferenceEngine(engine_model, mesh=make_mesh(dp=2, devices=["cpu"] * 2), batch=2,
+                        execution="gspmd")
+    prompts = [ENGINE_PROMPT[:20], ENGINE_PROMPT[30:41]]
+    eng = InferenceEngine(engine_model, compute_dtype="float32", mesh=mesh, batch=2)
+    solo = InferenceEngine(engine_model, compute_dtype="float32", device="cpu", batch=2)
+    assert eng.generate_batch(prompts, 12) == solo.generate_batch(prompts, 12)
+    eng.reset()
+    solo.reset()
+    want = []
+    for e in (eng, solo):
+        bs = BatchSession(e)
+        for r, p in enumerate(prompts):
+            bs.admit(r, p)
+        want.append(bs.step(8).tolist())
+    assert want[0] == want[1]
+    shards = [init_kv_cache(eng.cfg, batch=2, seq_len=256, device="cpu") for _ in range(2)]
+    whole = init_kv_cache(eng.cfg, batch=2, device="cpu")
+    toks, pos = torch.tensor([[1, 5], [7, 9]]), torch.tensor([254, 3])
+    got = pipeline_forward(eng.cfg, mesh, shard_params(eng.cfg, solo.params, mesh), eng.rope,
+                           _sp_kv(mesh, shards), toks, pos)
+    ref = forward(eng.cfg, solo.params, solo.rope, whole, toks, pos)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(torch.cat([c.k for c in shards], dim=2).numpy(),
+                               whole.k.numpy(), rtol=1e-5, atol=1e-5)
     with pytest.warns(UserWarning, match="single-chip only"):
         e8 = InferenceEngine(engine_model, mesh=mesh, cache_dtype="int8")
     assert not e8.cfg.kv_quantized
@@ -398,16 +429,19 @@ def test_engine_refuses_what_a_mesh_does_not_run(engine_model):
 
 
 def test_make_mesh_raises_as_jax_does(monkeypatch):
-    """Too few devices raises JAX's message; any axis but sp raises naming
-    ROADMAP A13; with no devices given the mesh takes the visible cards, so
-    without a GPU it raises."""
+    """Too few devices raises JAX's message; every axis builds, with JAX's
+    axis extents and its grid of devices in JAX's order; with no devices
+    given the mesh takes the visible cards, so without a GPU it raises."""
     with pytest.raises(ValueError, match="mesh needs 16 devices, have 8"):
         j_make_mesh(sp=16)
     with pytest.raises(ValueError, match="mesh needs 16 devices, have 8"):
         make_mesh(sp=16, devices=["cpu"] * 8)
     for axis in ("tp", "pp", "dp", "ep"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            make_mesh(**{axis: 2}, devices=["cpu"] * 4)
+        jm = j_make_mesh(**{axis: 2, "sp": 2})
+        pm = make_mesh(**{axis: 2, "sp": 2}, devices=[torch.device("cpu", i) for i in range(8)])
+        assert pm.shape == dict(jm.shape)
+        assert pm.grid.shape == jm.devices.shape
+        assert [d.index for d in pm.grid.reshape(-1)] == [d.id for d in jm.devices.reshape(-1)]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(ValueError, match="mesh needs 2 devices, have 0"):
         make_mesh(sp=2)
