@@ -25,6 +25,16 @@ caught):
      against its plain version with its time, library call and bound: K2
      on the four layer shapes and B5 on the wcls at 9, 80 and 144 rows,
      K5 at t = 5 and 9 queries a row, batch 1 and 16, per-row positions;
+     K3's device-position entry (a 0-d int64 on the card, the entry a
+     graphed prefill chunk or verify round takes) at t 8, 9 and 32 and at
+     positions 0, the middle and the end of a 1,024-row bucket, at head_dim
+     64 and 128, against its plain version and bit for bit against the int
+     entry, and with a device row of a 16-row cache bit for bit against K3
+     on that row's view, then timed beside the int entry, SDPA and its
+     bound at the main path's chunk and at position 8 of the bucket; K4 at
+     a 30B-A3B k 4 verify round's 40 expert rows (the small-row arm, at
+     its exact-scale rounding), against its plain version, beside
+     `torch._grouped_mm`, its default-rounding instances and its bound;
   3b. the kernel probes (B9, P3, P4, P14): each kernel or instance
      against its plain version at every probe shape (Llama-3.2-1B layer
      shapes and the full wcls 2048 -> 128256): P3's two arms and P4's
@@ -88,12 +98,14 @@ caught):
      layers x shards times and K3 never, logits and tokens against sp = 1,
      and profiles of its prefill tail (B8's share) and decode. At
      Qwen3-30B-A3B's width: the CLI's `inference` (contiguous). The CLI
-     runs its default ngram speculation (greedy decode in verify rounds),
-     which is off at 30B-A3B, whose rounds would take the MoE gather arm,
+     runs its default ngram speculation (greedy decode in verify rounds;
+     a 30B-A3B round runs its FFN on K4's small-row arm),
      and builds the grammar arena, so every decode step and round carries
      the grammar mask (at the all-legal FREE state);
      the contiguous `inference` of each model runs again with
-     `--speculative off`, the tokens equal. Each `inference` run's step
+     `--speculative off`, the tokens equal at 1B (at 30B-A3B a round's K4
+     and decode's K1-indexed may part the two at a near-tie: logged, and
+     phase 5d holds them equal on the same arms). Each `inference` run's step
      report (`StepStats.report`, printed after the Timing block as the JAX
      CLI prints it) holds prefill[...] entries counting its Eval lines and
      decode[...] / spec_verify[...] entries counting its Pred lines (one a
@@ -237,11 +249,34 @@ caught):
      depth, ep 2 x tp 2 within the bound against phase 5b's engine (which
      closes first), with K4 and K1-indexed on the local expert stacks.
      Each mesh path is counted;
+  5j. compiled prefill (prefill and admission chunks as CUDA graphs), one
+     counted path a model: at Llama-3.2-1B width, graphed against eager
+     on one engine, bit for bit, a 300-token prompt's KV cache (each row's
+     pages in table order where paged) and the next 16 greedy tokens and
+     every step's logits, batch 1 on the contiguous, paged bf16 and paged
+     int8 layouts and the 16 admissions ("prefill_row") of a batch-16
+     BatchSession, paged int8 and contiguous bf16 (there K3 reads the row
+     that the device names, in place; a 1,087-token admission's wall
+     eager and graphed in turns); the pipelined and serial prefill arms
+     bit for bit,
+     and `prefill_overlap_probe`'s arms at 1,087 tokens; a 32-row chunk
+     and the 1,087-token cold prefill profiled eagerly and graphed in
+     turns (launch calls, busy, idle) and host-timed; `warmup()` (its
+     seconds, captures, pool bytes) and a prompt ladder across the 256 ..
+     4096 kv buckets with 0 captures after it. At Qwen3-30B-A3B width, on
+     phase 5b's engine: graphed against eager with K4 captured (nine
+     32-row chunks and a 4-row tail, K4's small-row arm), the 128-token
+     prefill profiled eagerly and graphed (K4's share) and host-timed, a
+     graphed k 4 verify round's ms, and a speculative generate of at
+     least 8 rounds that launch K4 and never the gather arm (every graph
+     captured anew under the watch), its tokens equal to the generate's
+     without speculation (or, parted at a near-tie, equal once decode
+     takes the round's arms, `verify_arms`);
   6. where a token's time goes: torch.profiler over 8 batch-1 decode
      steps of each model (contiguous) and of the 1B on the paged int8
      layout (K5's share; 16 steps until phase 5d came), over one
      batch-16 paged int8 chunk (K5's share)
-     and over a 128-token Qwen3-30B-A3B prefill (K4's share); each decode
+     (the 128-token Qwen3-30B-A3B prefill, K4's share, is phase 5j's); each decode
      window eagerly and graphed in turns on one engine, reported as wall,
      busy and idle, kernel and `cudaGraphLaunch` calls a token and tok/s;
      the 1B contiguous window also sampled at temperature 0.8, top-p 0.9
@@ -257,7 +292,8 @@ two trees in one call, it compares them end to end. `--spec-divergence` runs pha
 paged int8 batch-1 chains without speculation and at k 8, with
 `arm_growth` where they part. `--grammar` runs phases 1-2 and only phase
 5e at Llama-3.2-1B width, `--server` only phase 5g, `--kv` only phase 5h,
-`--mesh` only phase 5i;
+`--mesh` only phase 5i, `--prefill` only K3's device-position checks
+and phase 5j;
 `--guarded-paths [--models DIR]` only
 `guarded_paths_ab`, for many short runs of two trees in turns, and with
 `--guard-share` also `guard_share`: the loops with and without their
@@ -895,10 +931,96 @@ def flash_row(torch, gen, bw, bf16_peak, L, nh, nkv, hd):
     )
     if hd == 64:
         row["long"] = flash_long(torch, gen, bw, bf16_peak, nh, nkv, hd)
+    row["device_position"] = flash_dev_checks(torch, gen, bw, bf16_peak, nh, nkv, hd)
     return row
 
 
 FLASH_LONG = (32, 6000, 8192)  # t, pos, view rows
+# K3's device-position entry: a 1,024-row bucket's view, chunks of t
+# queries at its start, its middle and its end
+FLASH_DEV_S = 1024
+FLASH_DEV_T = (8, 9, 32)
+
+
+def _flash_bound(t, pos, nh, nkv, hd, bw, bf16_peak):
+    """K3's bound for t queries at pos: q in and o out (f32), the K/V rows
+    the causal limit reads (bf16), and the visible pairs' two dots."""
+    t_bytes = (2 * t * nh * hd * 4 + 2 * (pos + t) * nkv * hd * 2) / bw * 1e3
+    t_ops = 4 * nh * hd * sum(pos + i + 1 for i in range(t)) / bf16_peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_dev_checks(torch, gen, bw, bf16_peak, nh, nkv, hd) -> dict:
+    """K3 at a 0-d device position (`flash_attention_fwd_dev`, the entry a
+    graphed prefill chunk and verify round take): at t 8, 9 and 32 and at
+    positions 0, the middle and the end of a 1,024-row bucket, against its
+    plain version (K3's 1e-2) and bit for bit against the int entry (one
+    shape-only plan); with a device row of a 16-row cache (a graphed
+    admission chunk of a contiguous batch-16 cache) bit for bit against K3
+    on a view of that row. Then timed beside the int entry in the same
+    call, at t 32 at position 64 over a 256-row view (the main path's
+    chunk; and there with a device row of the 16-row cache) and at
+    position 8 of the 1,024-row bucket (the shape-only plan's most idle
+    CTAs), each with its bound and SDPA's time. Logged once."""
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops import cuda_attention
+    from distributed_llama_tpu_torch.probes import timing
+
+    S = FLASH_DEV_S
+    cache = torch.randn((2, 1, S + 256, nkv, hd), device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = cache[0, :, :S], cache[1, :, :S]
+    err, checked = 0.0, 0
+    for t in FLASH_DEV_T:
+        q = torch.randn((1, t, nh, hd), device="cuda", generator=gen)
+        for pos in (0, (S - t) // 2, S - t):
+            dev = torch.tensor(pos, dtype=torch.int64, device="cuda")
+            got = cuda_attention.flash_attention(q, k, v, dev)
+            want = cuda_attention.flash_attention_plain(q, k, v, pos)
+            e = (got - want).abs().max().item()
+            assert e <= 1e-2, f"K3 at a device position {pos}, t {t}, hd {hd}: max abs err {e}"
+            assert torch.equal(got, cuda_attention.flash_attention(q, k, v, pos)), \
+                f"K3's device and int entries differ at pos {pos}, t {t}, hd {hd}"
+            err, checked = max(err, e), checked + 1
+    batch = torch.randn((2, 16, S, nkv, hd), device="cuda", generator=gen).to(torch.bfloat16)
+    row_checked = 0
+    for t in (8, 32):
+        q = torch.randn((1, t, nh, hd), device="cuda", generator=gen)
+        dev = torch.tensor(S // 2, dtype=torch.int64, device="cuda")
+        for r in (0, 7, 15):
+            got = cuda_attention.flash_attention(q, batch[0], batch[1], dev,
+                                                 row=torch.tensor([r], device="cuda"))
+            assert torch.equal(got, cuda_attention.flash_attention(
+                q, batch[0, r:r + 1], batch[1, r:r + 1], dev)), \
+                f"K3 at device row {r}, t {t}, hd {hd} differs from K3 on the row's view"
+            row_checked += 1
+    timed = {}
+    for label, t, pos, view in (("chunk", PREFILL_ROWS, 64, 256),
+                                ("bucket_start", PREFILL_ROWS, 8, S)):
+        q = torch.randn((1, t, nh, hd), device="cuda", generator=gen)
+        kv_, vv_ = k[:, :view], v[:, :view]
+        dev = torch.tensor(pos, dtype=torch.int64, device="cuda")
+        mask = torch.arange(view, device="cuda")[None, :] <= pos + torch.arange(t, device="cuda")[:, None]
+        sq, sk, sv = q.to(torch.bfloat16).transpose(1, 2), kv_.transpose(1, 2), vv_.transpose(1, 2)
+        bound, by = _flash_bound(t, pos, nh, nkv, hd, bw, bf16_peak)
+        plan = cuda_attention.plan_for(q, kv_)
+        timed[label] = {
+            "t": t, "pos": pos, "view": view, "splits": plan.splits,
+            "split_tiles": plan.split_tiles,
+            "ms": timing.graph_ms([partial(cuda_attention.flash_attention, q, kv_, vv_, dev)] * 16),
+            "int_ms": timing.graph_ms([partial(cuda_attention.flash_attention, q, kv_, vv_, pos)] * 16),
+            "row_ms": (timing.graph_ms([partial(
+                cuda_attention.flash_attention, q, batch[0, :, :view], batch[1, :, :view], dev,
+                row=torch.tensor([7], device="cuda"))] * 16) if label == "chunk" else None),
+            "library_ms": timing.graph_ms([partial(F.scaled_dot_product_attention, sq, sk, sv,
+                                                   attn_mask=mask, enable_gqa=True)] * 16),
+            "bound_ms": bound, "bound_by": by,
+        }
+    out = {"checked": checked, "device_row_checked": row_checked, "max_abs_err": err,
+           "timed": timed}
+    del batch
+    log(json.dumps({"kernel_extra": "flash_attention", "hd": hd, "device_position": out}))
+    return out
 
 
 def flash_long(torch, gen, bw, bf16_peak, nh, nkv, hd):
@@ -924,7 +1046,7 @@ def flash_long(torch, gen, bw, bf16_peak, nh, nkv, hd):
     t_bytes = (2 * t * nh * hd * 4 + 2 * (pos + t) * nkv * hd * 2) / bw * 1e3
     t_ops = 4 * nh * hd * visible / bf16_peak * 1e3
     row = {"t": t, "pos": pos, "S": S, "max_abs_err": err,
-           "splits": cuda_attention.plan_for(q, k, pos).splits,
+           "splits": cuda_attention.plan_for(q, k).splits,
            "ms": timing.graph_ms([partial(cuda_attention.flash_attention, q, k, v, pos)] * 16),
            "library_ms": timing.graph_ms([partial(F.scaled_dot_product_attention, sq, sk, sv,
                                                   attn_mask=mask, enable_gqa=True)] * 16),
@@ -1148,6 +1270,7 @@ def moe_kernel_checks(torch, rates):
 
     # -- K4: one layer's (w1, w3, w2) of a 32-token prefill chunk ------------
     layer = L - 1
+    verify_round = k4_round(torch, gen, stacks, roles, layer, rates)
     rows = PREFILL_ROWS * k
     e_flat = torch.stack([torch.randperm(E, device="cuda", generator=gen)[:k]
                           for _ in range(PREFILL_ROWS)]).reshape(rows).to(torch.int32)
@@ -1211,6 +1334,7 @@ def moe_kernel_checks(torch, rates):
         f"one layer of a 32-token prefill chunk: (w1, w3, w2), 256 rows over {hit} of 128 "
         f"experts, block_r 8, R_pad 1152, layer 47 folded into the flat index; library: {lib_name}",
     )
+    row["verify_round"] = verify_round
     results.append(row)
     del lw, lin, stacks
     torch.cuda.empty_cache()
@@ -1220,6 +1344,86 @@ def moe_kernel_checks(torch, rates):
                              c["head_dim"]))
     torch.cuda.empty_cache()
     return results
+
+
+MOE_VERIFY_TOKENS = 5  # a k 4 verify round's feed at batch 1
+# phase 5j's 30B-A3B speculative generate: its tokens, and the verify
+# rounds it must run at least
+MOE_SPEC_EQ_STEPS = 96
+MOE_SPEC_MIN_ROUNDS = 8
+
+
+def k4_round(torch, gen, stacks, roles, layer, rates) -> dict:
+    """K4 at a 30B-A3B batch-1 k 4 verify round's rows (5 tokens x 8 slots
+    = 40 expert rows, the small-row arm that replaced the gather arm, at
+    its exact-scale rounding, the gather arm's weights): one layer's (w1,
+    w3, w2) calls against the plain version (K2's 1e-4),
+    timed beside `torch._grouped_mm` on the layer's bf16-dequantized
+    experts, with its bound (the bytes of the experts hit, the rows in and
+    out). Logged once."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.ops.moe import _grouped_block_rows, _grouped_layout_direct
+    from distributed_llama_tpu_torch.probes import timing
+
+    bw, bf16_peak, _ = rates
+    c = QWEN3_30B_A3B
+    E, k = c["n_experts"], c["n_active_experts"]
+    rows = MOE_VERIFY_TOKENS * k
+    e_flat = torch.stack([torch.randperm(E, device="cuda", generator=gen)[:k]
+                          for _ in range(MOE_VERIFY_TOKENS)]).reshape(rows).to(torch.int32)
+    block_r = _grouped_block_rows(rows, E)
+    dest, block_expert, R_pad = _grouped_layout_direct(e_flat, E, block_r)
+    be = block_expert + layer * E
+    ins = {}
+    for n, i, _ in roles:
+        if n == "w3":
+            ins[n] = ins["w1"]
+            continue
+        x = torch.zeros((R_pad, i), dtype=torch.bfloat16 if n == "w1" else torch.float32,
+                        device="cuda")
+        x[dest] = torch.randn((rows, i), device="cuda", generator=gen).to(x.dtype)
+        ins[n] = x
+    errs = compare(torch, "q40_grouped_gemm_bf16 (verify round)", (
+        (cuda_q40.q40_grouped_gemm_bf16(ins[n], *stacks[n], be, block_r, True),
+         cuda_q40.q40_grouped_gemm_bf16_plain(ins[n], *stacks[n], be, block_r, True))
+        for n, _, _ in roles), rel_tol=1e-4)
+    counts = torch.bincount(e_flat.long(), minlength=E)
+    hit_ids = torch.nonzero(counts).flatten() + layer * E
+    lw = {n: _dq(torch, stacks[n][0][hit_ids], stacks[n][1][hit_ids]) for n, _, _ in roles}
+    src = dest[torch.argsort(e_flat, stable=True)]
+    lin = {n: ins[n][src].to(torch.bfloat16) for n, _, _ in roles}
+    offs = torch.cumsum(counts[counts > 0], 0).to(torch.int32)
+    hit = int(hit_ids.numel())
+    calls = [partial(cuda_q40.q40_grouped_gemm_bf16, ins[n], *stacks[n], be, block_r, True)
+             for n, _, _ in roles]
+    out = {
+        "tokens": MOE_VERIFY_TOKENS, "rows": rows, "experts_hit": hit, "block_r": block_r,
+        "R_pad": R_pad, "max_abs_err": errs[0], "exact_scale": True,
+        "ms": timing.graph_ms(calls),
+        "default_scale_ms": timing.graph_ms([
+            partial(cuda_q40.q40_grouped_gemm_bf16, ins[n], *stacks[n], be, block_r)
+            for n, _, _ in roles]),
+        "plain_ms": timing.graph_ms([partial(cuda_q40.q40_grouped_gemm_bf16_plain, ins[n],
+                                             *stacks[n], be, block_r, True)
+                                     for n, _, _ in roles]),
+        "library_ms": (timing.graph_ms([partial(torch._grouped_mm, lin[n], lw[n], offs=offs)
+                                        for n, _, _ in roles])
+                       if hasattr(torch, "_grouped_mm") else None),
+    }
+    nbytes = sum(hit * _wbytes(i, o) + rows * i * (2 if n != "w2" else 4) + rows * o * 4
+                 for n, i, o in roles)
+    nops = sum(2 * rows * i * o for _, i, o in roles)
+    t_bytes, t_ops = nbytes / bw * 1e3, nops / bf16_peak * 1e3
+    out.update({"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    # times of the three calls of one layer, as the 32-token chunk's row
+    out["ms"], out["plain_ms"] = out["ms"] * 3, out["plain_ms"] * 3
+    out["default_scale_ms"] *= 3
+    if out["library_ms"] is not None:
+        out["library_ms"] *= 3
+    log(json.dumps({"kernel_extra": "q40_grouped_gemm_bf16", "verify_round": out}))
+    del lw, lin
+    return out
 
 
 def _entry(torch, name, source, replaces, errs, fn, plain, lib, nbytes, nops,
@@ -3227,6 +3431,340 @@ def graphed_decode_phase(torch, mp: str, tp: str, model: str, eng=None) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5j: compiled prefill (prefill and admission chunks as CUDA graphs)
+# ---------------------------------------------------------------------------
+
+# a prompt that crosses every chunk size down to 1 and the 256 kv bucket:
+# 299 prefill tokens are nine 32-row chunks and 8-, 2- and 1-row tails
+PREFILL_EQ_TOKENS = 300
+# the 30B-A3B's: nine 32-row chunks (K4's grouped arm) and a 4-row tail
+# (the small-row K4 arm: 32 expert rows of 128 experts)
+MOE_PREFILL_EQ_TOKENS = 293
+PREFILL_EQ_DECODE = 16
+# PERF.md's cold prefill: 1,087 tokens, 34 chunks of 32 rows
+PREFILL_LONG_TOKENS = 1087
+# the prompt ladder after warmup: contexts across the 256 .. 4096 kv buckets
+PREFILL_LADDER = (100, 300, 600, 1100, 2100)
+
+
+def _prefill_prompt(n: int, stride: int = 7) -> list:
+    return [(stride * i) % 1000 + 1 for i in range(n)]
+
+
+def _kv_rows(torch, eng) -> list:
+    """The engine's KV cache as its rows see it: contiguous, the cache
+    tensors; paged, each tensor's pages in each row's table order (the
+    pool's free list may hand an arm other physical pages)."""
+    tensors = eng._cache_tensors()
+    if not eng.paged:
+        return [t.clone() for t in tensors]
+    tables = eng.page_pool.device_tables()
+    out = []
+    for r in range(eng.batch):
+        pages = torch.as_tensor(tables[r][tables[r] >= 0], dtype=torch.long, device="cuda")
+        out += [t[:, pages].clone() for t in tensors]
+    return out
+
+
+def _prefill_arm(torch, eng, graphs: bool, run) -> tuple:
+    """One arm of an eager/graphed comparison on `eng`: the cache zeroed
+    (so junk a former run left compares equal), then `run()`, which
+    prefills and returns the decode's one-step callable; the KV cache's
+    bytes, then PREFILL_EQ_DECODE greedy steps' tokens and logits, all on
+    the same arm."""
+    eng.cuda_graphs = graphs
+    eng.reset()
+    for t in eng._cache_tensors():
+        t.zero_()
+    step = run()
+    torch.cuda.synchronize()
+    kv = _kv_rows(torch, eng)
+    toks, logits = [], []
+    for i in range(PREFILL_EQ_DECODE):
+        toks.append(torch.as_tensor(step(i)).cpu())
+        logits.append(eng.last_logits.clone())
+    eng.cuda_graphs = True
+    return kv, torch.cat(toks, dim=1), logits
+
+
+def prefill_equal(torch, name: str, eng, run) -> dict:
+    """Graphed prefill against eager on one engine, bit for bit: the KV
+    cache after `run` (which prefills and returns the decode's step), then
+    the next PREFILL_EQ_DECODE greedy tokens and every step's logits."""
+    eager = _prefill_arm(torch, eng, False, run)
+    graphed = _prefill_arm(torch, eng, True, run)
+    kv_equal = all(torch.equal(a, b) for a, b in zip(eager[0], graphed[0]))
+    tok_equal = torch.equal(eager[1], graphed[1])
+    logit_equal = all(torch.equal(a, b) for a, b in zip(eager[2], graphed[2]))
+    kinds = sorted({(k.kind, k.size) for k in eng._graphs.graphs if k.kind.startswith("prefill")})
+    out = {"phase": "prefill_graphs", "setup": name, "kv_equal": kv_equal,
+           "tokens_equal": tok_equal, "logits_equal": logit_equal,
+           "prefill_graphs": [f"{k}/{s}" for k, s in kinds]}
+    log(json.dumps(out))
+    assert kv_equal and tok_equal and logit_equal, f"{name}: graphed prefill differs from eager"
+    assert kinds, f"{name}: no prefill graph captured"
+    return out
+
+
+def _solo_run(torch, eng, prompt):
+    """`prompt[:-1]` prefilled in every row, then batch-1 decode steps."""
+    def run():
+        eng.prefill(prompt[:-1])
+        state = {"tok": torch.tensor([prompt[-1]] * eng.batch, device="cuda")}
+
+        def step(i):
+            toks, state["tok"] = eng._decode_chunk(state["tok"], len(prompt) - 1 + i, 1)
+            return toks
+        return step
+    return run
+
+
+def _admission_run(torch, eng, prompts):
+    """A batch-16 BatchSession's admissions (each row's prefill alone, the
+    "prefill_row" kind), then its one-step chunks."""
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+
+    def run():
+        s = BatchSession(eng)
+        for r, p in enumerate(prompts):
+            s.admit(r, p)
+        return lambda i: s.step(1)
+    return run
+
+
+def prefill_timing(torch, name: str, eng, prompt, reps: int = 2) -> dict:
+    """The host wall of one cold prefill of `prompt`, eager and graphed in
+    turns on one engine (eager, graphed, graphed, eager, `reps` times each
+    after a warm call), with the card's work waited for: the ms a prefill
+    takes end to end."""
+    walls = {False: [], True: []}
+    for graphs in (False, True):
+        eng.cuda_graphs = graphs
+        eng.reset()
+        eng.prefill(prompt)  # warm: builds, captures
+    torch.cuda.synchronize()
+    for graphs in (False, True, True, False) * reps:
+        eng.cuda_graphs = graphs
+        eng.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.prefill(prompt)
+        torch.cuda.synchronize()
+        walls[graphs].append((time.perf_counter() - t0) * 1e3)
+    eng.cuda_graphs = True
+    out = {"phase": "prefill_timing", "setup": name, "tokens": len(prompt),
+           "eager_ms": walls[False], "graphed_ms": walls[True],
+           "eager_tok_s": len(prompt) / (min(walls[False]) / 1e3),
+           "graphed_tok_s": len(prompt) / (min(walls[True]) / 1e3),
+           "last_prefill_timing": eng.last_prefill_timing}
+    log(json.dumps(out))
+    return out
+
+
+def admission_timing(torch, name: str, eng, prompt, row: int = 7, reps: int = 2) -> dict:
+    """The host wall of one BatchSession admission of `prompt` into `row`
+    (its prefill chunks, the "prefill_row" kind), eager and graphed in
+    turns on one engine (eager, graphed, graphed, eager, `reps` times each
+    after a warm call), the card's work waited for."""
+    from distributed_llama_tpu_torch.runtime.batch_session import BatchSession
+
+    sess = BatchSession(eng)
+    walls = {False: [], True: []}
+
+    def once(graphs):
+        eng.cuda_graphs = graphs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.admit(row, prompt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        sess.release(row)
+        return wall
+
+    for graphs in (False, True):
+        once(graphs)  # warm: builds, captures
+    for graphs in (False, True, True, False) * reps:
+        walls[graphs].append(once(graphs))
+    eng.cuda_graphs = True
+    out = {"phase": "admission_timing", "setup": name, "tokens": len(prompt), "row": row,
+           "eager_ms": walls[False], "graphed_ms": walls[True]}
+    log(json.dumps(out))
+    return out
+
+
+def prefill_phase(torch, mp: str, tp: str, counters) -> dict:
+    """Phase 5j at Llama-3.2-1B width (see the module docstring), counted
+    as one path; returns its launches."""
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+    from distributed_llama_tpu_torch.runtime.engine import InferenceEngine
+    from distributed_llama_tpu_torch.runtime.profiling import prefill_overlap_probe
+
+    kw = dict(max_seq_len=MAX_SEQ_LEN, device="cuda")
+    for k in counters:
+        k.launches = 0
+    prompt = _prefill_prompt(PREFILL_EQ_TOKENS)
+    # (a) graphed against eager, batch 1 on three layouts
+    for layout, kv in (("contiguous", None), ("paged", None), ("paged", "int8")):
+        eng = InferenceEngine(mp, kv_layout=layout, cache_dtype=kv, **kw)
+        prefill_equal(torch, f"llama32_1b batch 1 {layout} {kv or 'bf16'}", eng,
+                      _solo_run(torch, eng, prompt))
+        if layout == "contiguous":
+            # (b) the pipelined and serial arms, bit for bit
+            got = []
+            for pipelined in (True, False):
+                eng.prefill_pipelined = pipelined
+                eng.reset()
+                eng.prefill(prompt[:-1])
+                torch.cuda.synchronize()
+                got.append([t.clone() for t in eng._cache_tensors()])
+            eng.prefill_pipelined = True
+            equal = all(torch.equal(a, b) for a, b in zip(*got))
+            log(json.dumps({"phase": "prefill_pipeline", "pipelined_equals_serial": equal}))
+            assert equal, "the pipelined and serial prefill arms differ"
+            del got
+            # (c) a 32-row chunk and the 1,087-token cold prefill, eager and
+            # graphed in turns, profiled and host-timed
+            one = _prefill_prompt(PREFILL_ROWS)
+            graph_ab(torch, "llama32_1b prefill one 32-row chunk", eng,
+                     lambda: eng.prefill(one), PREFILL_ROWS)
+            long = _prefill_prompt(PREFILL_LONG_TOKENS, stride=11)
+            graph_ab(torch, f"llama32_1b prefill {PREFILL_LONG_TOKENS} tokens", eng,
+                     lambda: eng.prefill(long), PREFILL_LONG_TOKENS)
+            prefill_timing(torch, "llama32_1b contiguous", eng, long)
+        eng.close()
+        del eng
+        release(torch)
+    # (a) a batch-16 BatchSession's admissions (paged int8, as phase 5's)
+    eng = InferenceEngine(mp, batch=16, kv_layout="paged", cache_dtype="int8", **kw)
+    prompts = [_prefill_prompt(40 + 37 * r, stride=3 + r) for r in range(16)]
+    prefill_equal(torch, "llama32_1b batch_session 16 paged int8 admissions", eng,
+                  _admission_run(torch, eng, prompts))
+    eng.close()
+    del eng
+    release(torch)
+    # ... and on a contiguous bf16 cache, where a graphed admission chunk's
+    # K3 reads the row that the device names, in place; its admission
+    # wall eager against graphed
+    eng = InferenceEngine(mp, batch=16, kv_layout="contiguous", **kw)
+    prefill_equal(torch, "llama32_1b batch_session 16 contiguous bf16 admissions", eng,
+                  _admission_run(torch, eng, prompts))
+    admission_timing(torch, "llama32_1b batch_session 16 contiguous bf16", eng,
+                     _prefill_prompt(PREFILL_LONG_TOKENS, stride=11))
+    eng.close()
+    del eng
+    release(torch)
+    # (b) the overlap probe's arms (JAX's keys), 1,087 tokens
+    arms = prefill_overlap_probe(mp, PREFILL_LONG_TOKENS, reps=2, max_chunk=PREFILL_ROWS,
+                                 max_seq_len=MAX_SEQ_LEN)
+    log(json.dumps({"phase": "prefill_overlap_probe", "arms": arms}))
+    release(torch)
+    # (e) warmup, then a prompt ladder across the kv buckets: no capture
+    eng = InferenceEngine(mp, batch=1, kv_layout="paged", **kw)
+    stats = eng.warmup()
+    walls = {}
+    for n in PREFILL_LADDER:
+        eng.reset()
+        t0 = time.perf_counter()
+        eng.generate(_prefill_prompt(n, stride=13), n + 8)
+        walls[n] = (time.perf_counter() - t0) * 1e3
+    after = eng.graph_stats()
+    out = {"phase": "prefill_warm_ladder", "warmup_seconds": stats["warmup_seconds"],
+           "captures": stats["captures"], "pool_bytes": stats["pool_bytes"],
+           "prefill_graphs": sum(k.kind.startswith("prefill") for k in eng._graphs.graphs),
+           "recaptures_after_warmup": after["recaptures_after_warmup"],
+           "ladder_ms": walls}
+    log(json.dumps(out))
+    assert after["recaptures_after_warmup"] == 0, "the prompt ladder captured after warmup"
+    eng.close()
+    del eng
+    release(torch)
+    launches = {k.__name__: k.launches for k in counters}
+    check_launched(launches, (q.q40_gemm_bf16_stacked, q.q40_gemm_bf16, q.q40_gemv_q80_stacked,
+                              ca.flash_attention, ca.paged_flash_attention), "phase 5j at 1B")
+    return launches
+
+
+def prefill_moe(torch, eng, counters) -> dict:
+    """Phase 5j at Qwen3-30B-A3B width on the phase-5b engine (batch 1
+    contiguous, speculation off), counted as one path: graphed prefill
+    against eager with K4 captured (its grouped arm and, at the 4-row
+    tail, its small-row arm), the 128-token prefill eager and graphed in
+    turns (profiled: wall, idle share, K4's share), and a k 4 verify
+    round's ms; then K4 and no gather arm in a speculative generate of at
+    least MOE_SPEC_MIN_ROUNDS rounds, whose tokens equal the generate's
+    with speculation off (or do once decode takes the round's arms)."""
+    from distributed_llama_tpu_torch.models import transformer
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+
+    for k in counters:
+        k.launches = 0
+    prompt = _prefill_prompt(MOE_PREFILL_EQ_TOKENS)
+    eq = prefill_equal(torch, "qwen3_30b_a3b batch 1 contiguous", eng,
+                       _solo_run(torch, eng, prompt))
+    one = _prefill_prompt(128, stride=11)
+    ab = graph_ab(torch, "qwen3_30b_a3b prefill 128 tokens", eng, lambda: eng.prefill(one), 128,
+                  K4_SHARE)
+    timing = prefill_timing(torch, "qwen3_30b_a3b contiguous", eng, one)
+    # (d) every graph of the rounds below captured with the gather arm
+    # watched: the engine's graphs dropped first, so no verify graph of an
+    # earlier phase replays an arm the watch cannot see
+    gathered = []
+    real = transformer._gather_expert
+    transformer._gather_expert = lambda *a: gathered.append(1) or real(*a)
+    eng._graphs = None
+    gc.collect()
+    spec_prompt = [11, 23, 37, 41, 53] * 24  # periodic, so that ngram drafts
+    steps = len(spec_prompt) - 1 + MOE_SPEC_EQ_STEPS
+    try:
+        speculate(eng, 4)
+        round_ms = verify_round_ms(torch, eng, MOE_VERIFY_TOKENS)
+        before = q.q40_grouped_gemm_bf16.launches
+        eng.reset()
+        res = eng.generate(spec_prompt, steps)
+        k4_in_rounds = q.q40_grouped_gemm_bf16.launches - before
+        rounds = eng.last_spec_timing["rounds"] if eng.last_spec_timing else 0
+    finally:
+        transformer._gather_expert = real
+        speculate(eng, 0)
+    # K4's launches in one replay of each verify graph (the round's kernels)
+    k4_at = eng._graphs.counts.kernels.index(q.q40_grouped_gemm_bf16)
+    k4_a_round = {f"t{key.size}/kv{key.kv_bucket}": g.launches[k4_at]
+                  for key, g in eng._graphs.graphs.items() if key.kind == "verify"}
+    # the same generate with speculation off: the same tokens, or, where
+    # the round's K4 and decode's K1-indexed part them at a near-tie, the
+    # same tokens once decode runs the round's arms (`verify_arms`)
+    eng.reset()
+    off = eng.generate(spec_prompt, steps)
+    div = first_divergence(torch, off.tokens, res.tokens, len(spec_prompt),
+                           decode_logits(torch, eng, spec_prompt, MOE_SPEC_EQ_STEPS))
+    out = {"phase": "prefill_moe", "verify_round_ms": round_ms, "spec_rounds": rounds,
+           "k4_launches_in_spec_generate": k4_in_rounds, "k4_launches_a_round": k4_a_round,
+           "gather_arm_calls": len(gathered), "spec_equals_off": div is None,
+           "divergence": div,
+           "graph_ab": {a: ab[a] for a in ("eager", "graphed")},
+           "timing": {k: timing[k] for k in ("eager_ms", "graphed_ms")}, "equal": eq}
+    if div is not None:
+        with verify_arms(eng):
+            def run(k):
+                speculate(eng, k)
+                eng.reset()
+                return eng.generate(spec_prompt, steps).tokens
+
+            out["equal_on_verify_arms"] = run(0) == run(4)
+        speculate(eng, 0)
+    log(json.dumps(out))
+    assert rounds >= MOE_SPEC_MIN_ROUNDS, \
+        f"30B-A3B: {rounds} verify rounds, fewer than {MOE_SPEC_MIN_ROUNDS}"
+    assert k4_a_round and all(n > 0 for n in k4_a_round.values()) and not gathered, \
+        "30B-A3B verify rounds: K4 must launch and the gather arm must not"
+    assert res.n_pred_tokens == off.n_pred_tokens == MOE_SPEC_EQ_STEPS
+    assert div is None or out["equal_on_verify_arms"], \
+        f"30B-A3B: speculation parts from --speculative off on the same arms: {div}"
+    return {k.__name__: k.launches for k in counters}
+
+
+# ---------------------------------------------------------------------------
 # phase 5f: observability (StepStats, request traces, the stall watchdog)
 # ---------------------------------------------------------------------------
 
@@ -3736,8 +4274,9 @@ MOE_SPEC_DECODE_STEPS = 96
 # H100: 0 on all three layouts); at k 8 K2's bf16 arm at 9 rows (measured:
 # 0.22% on all three layouts)
 SPEC_VERIFY_TOL = {4: 0.0, 8: 0.005}
-# a 30B-A3B round of 5 tokens: the MoE gather arm where decode takes
-# K1-indexed (measured on an H100: 0.046%)
+# a 30B-A3B round of 5 tokens: the MoE on K4 where decode takes
+# K1-indexed (measured on an H100 when such rounds took the gather arm:
+# 0.046%)
 MOE_SPEC_VERIFY_TOL = 0.002
 
 
@@ -3745,27 +4284,31 @@ MOE_SPEC_VERIFY_TOL = 0.002
 def verify_arms(eng):
     """Decode on the arms a verify round takes where decode takes others:
     every dense Q40 matmul on K2's bf16 arm (a round of more than 8 rows;
-    decode's K1 quantizes x to Q80) and the MoE on its gather arm (a
-    30B-A3B round of 5 tokens; decode's K1-indexed). K2, K5 and the plain
-    attention compute each row and query alone, so on these arms the
-    chains with and without speculation are equal bit for bit: where they
-    part without them, the arms parted them, not a fault. The engine's
-    graphs are dropped before and after, so each arm captures its own."""
+    decode's K1 quantizes x to Q80) and the MoE on K4 (a 30B-A3B round of
+    5 tokens takes the small-row K4 arm; decode's K1-indexed). K2, K4, K5
+    and the plain attention compute each row and query alone, so on these
+    arms the chains with and without speculation are equal bit for bit:
+    where they part without them, the arms parted them, not a fault. The
+    engine's graphs are dropped before and after, so each arm captures its
+    own."""
     from distributed_llama_tpu_torch.models import transformer
     from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.ops.moe import grouped_eligible
 
     saved = (cuda_q40.q40_gemv_q80_stacked, cuda_q40.q40_gemv_q80,
-             transformer._moe_decode_i8_eligible)
+             transformer._moe_decode_i8_eligible, transformer.moe_small_rows_grouped)
     eng._graphs = None
     gc.collect()
     cuda_q40.q40_gemv_q80_stacked = cuda_q40.q40_gemm_bf16_stacked
     cuda_q40.q40_gemv_q80 = cuda_q40.q40_gemm_bf16
     transformer._moe_decode_i8_eligible = lambda *args: False
+    transformer.moe_small_rows_grouped = lambda cfg, y, lp: grouped_eligible(
+        lp.w1, lp.w3, lp.w2, cfg.dtype, cfg.q80_activations)
     try:
         yield
     finally:
         (cuda_q40.q40_gemv_q80_stacked, cuda_q40.q40_gemv_q80,
-         transformer._moe_decode_i8_eligible) = saved
+         transformer._moe_decode_i8_eligible, transformer.moe_small_rows_grouped) = saved
         eng._graphs = None
         gc.collect()
 
@@ -4259,11 +4802,11 @@ def speculation_phase(torch, mp: str, tp: str, counters, expected) -> dict:
 def spec_moe(torch, eng, ids: list) -> dict:
     """Phase 5d at Qwen3-30B-A3B width on the phase-5b engine (batch 1
     contiguous): a verify round of 5 tokens makes 40 expert rows, fewer
-    than 128 experts, so the MoE takes its gather arm, graphed. Without
+    than 128 experts, so the MoE takes its small-row K4 arm, graphed. Without
     speculation, then ngram at k 4 (the first run captures; the pool's
     bytes before and after), then in turns (k 4, off; twice until phase 5f
     came) for tok/s.
-    Decode takes K1-indexed where the round takes the gather arm, so the
+    Decode takes K1-indexed where the round takes K4, so the
     tokens equal the run without or part where `verify_arms` makes them
     equal again; `verify_check` at the cross-arm tolerance."""
     steps = len(ids) - 1 + MOE_SPEC_DECODE_STEPS
@@ -5909,6 +6452,33 @@ def kv_only(torch) -> int:
     return 0
 
 
+def prefill_only(torch, rates) -> int:
+    """`--prefill`: K3's device-position checks of phase 3 at both head
+    dims, then phase 5j at Llama-3.2-1B and Qwen3-30B-A3B widths (the
+    script's 16 layers), each counted."""
+    from distributed_llama_tpu_torch.ops import cuda_attention as ca
+    from distributed_llama_tpu_torch.ops import cuda_q40 as q
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for c in (LLAMA32_1B, QWEN3_30B_A3B):
+        flash_dev_checks(torch, gen, rates[0], rates[1], c["n_heads"], c["n_kv_heads"],
+                         c["head_dim"])
+    release(torch)
+    counters = (*q.KERNELS, *ca.KERNELS)
+    paths = {}
+    mp, tp, _, _ = synthetic_model("llama32_1b", LLAMA32_1B)
+    paths["llama32_1b prefill graphs"] = prefill_phase(torch, mp, tp, counters)
+    moe_kw = dict(QWEN3_30B_A3B, arch=QWEN3_MOE_ARCH, n_layers=MOE_PATH_LAYERS)
+    mp, tp, _, _ = synthetic_model("qwen3_30b_a3b", moe_kw, norm_epsilon=QWEN3_NORM_EPS)
+    eng = spec_engine(mp, kv_layout="contiguous", grammar=True)
+    speculate(eng, 0)
+    paths["qwen3_30b_a3b prefill graphs"] = prefill_moe(torch, eng, counters)
+    eng.close()
+    print(json.dumps({"phase": "prefill_launches", "launches": paths}))
+    return 0
+
+
 def release(torch) -> None:
     """Drop what a finished phase left on the card."""
     gc.collect()
@@ -5935,6 +6505,8 @@ def main(argv=None) -> int:
                     "Llama-3.2-1B width")
     ap.add_argument("--mesh", action="store_true",
                     help="only phase 5i (the shard loop's meshes and its kernel table)")
+    ap.add_argument("--prefill", action="store_true",
+                    help="only K3's device-position checks and phase 5j (compiled prefill)")
     ap.add_argument("--guarded-paths", action="store_true",
                     help="only `guarded_paths_ab` at Llama-3.2-1B width (with --models)")
     ap.add_argument("--guard-share", action="store_true",
@@ -5972,7 +6544,7 @@ def main(argv=None) -> int:
     # times (CUDA events over graph replays); it is joined before phase 4,
     # so that no host-timed phase shares the CPU or the disk with it
     full = not (args.guarded_paths or args.profiles or args.spec_divergence or args.grammar
-                or args.server or args.kv or args.mesh)
+                or args.server or args.kv or args.mesh or args.prefill)
     moe_kw = dict(QWEN3_30B_A3B, arch=QWEN3_MOE_ARCH, n_layers=MOE_PATH_LAYERS)
     t_writer = time.perf_counter()
     writer = start_model_writer("qwen3_30b_a3b", moe_kw, QWEN3_NORM_EPS,
@@ -5996,9 +6568,11 @@ def main(argv=None) -> int:
             print(json.dumps(guard_share(torch, mp, tp)))
         print(smi)
         return 0
-    if args.profiles or args.spec_divergence or args.grammar or args.server or args.kv or args.mesh:
+    if (args.profiles or args.spec_divergence or args.grammar or args.server or args.kv
+            or args.mesh or args.prefill):
         rc = (profiles_only(torch, args.profiles, args.models) if args.profiles
               else mesh_only(torch, rates) if args.mesh
+              else prefill_only(torch, rates) if args.prefill
               else spec_divergence_only(torch) if args.spec_divergence
               else grammar_only(torch) if args.grammar
               else kv_only(torch) if args.kv else server_only(torch))
@@ -6103,6 +6677,12 @@ def main(argv=None) -> int:
     mp, tp, write_s, size = synthetic_model("llama32_1b", LLAMA32_1B)
     log(f"synthetic Llama-3.2-1B-width model: {size} bytes, ready in {write_s:.1f} s "
         f"(set-up, not timed below)")
+    # 5h first: its /debug/profile capture runs on a server thread, and in
+    # two whole runs on an H100 (after the main thread's profiler windows
+    # below) it once hung and once recorded no CUDA activity, where run
+    # alone (`--kv`) it recorded the Batcher's kernels
+    paths.update(kv_phase(torch, mp, tp, counters))
+    done("phase 5h")
     # the CLI at its default ngram speculation and with it off: the same
     # tokens (k 4 takes the decode step's arms)
     texts = {}
@@ -6162,6 +6742,9 @@ def main(argv=None) -> int:
     eng16 = graphed_decode_phase(torch, mp, tp, "llama32_1b")
     release(torch)
     done("phase 5b at 1B width")
+    paths["llama32_1b prefill graphs"] = prefill_phase(torch, mp, tp, counters)
+    release(torch)
+    done("phase 5j at 1B width")
     paths["llama32_1b observability"] = observability_phase(
         torch, mp, tp, counters, (q.q40_gemv_q80_stacked, q.q40_gemm_bf16_stacked,
                                   ca.flash_attention, ca.paged_flash_attention), eng16)
@@ -6186,8 +6769,6 @@ def main(argv=None) -> int:
     done("phase 5e")
     paths.update(server_phase(torch, mp, tp, counters))
     done("phase 5g")
-    paths.update(kv_phase(torch, mp, tp, counters))
-    done("phase 5h")
     Path(mp).unlink()  # room on the disk for the MoE file
     done("phases 5-6 at Llama-3.2-1B width")
 
@@ -6196,9 +6777,10 @@ def main(argv=None) -> int:
         f"{QWEN3_30B_A3B['n_layers']} layers, ready in {write_s:.1f} s (set-up, not timed below)")
     moe = (q.q40_gemv_q80_stacked, q.q40_gemv_q80, q.q40_gemm_bf16_stacked,
            q.q40_gemv_q80_indexed, q.q40_grouped_gemm_bf16, ca.flash_attention)
-    # the CLI's default does not speculate here: a 5-token round's 40
-    # expert rows would take the gather arm (`verify_takes_gather_arm`), so
-    # the default and `--speculative off` decode alike, through K1-indexed
+    # the CLI's default speculates here too (ngram, as the JAX CLI): a
+    # 5-token round's 40 expert rows take K4's small-row arm where decode
+    # takes K1-indexed, so the two runs' tokens may part at a near-tie;
+    # phase 5d's `spec_moe` holds the chains equal on the same arms
     texts = {}
     paths["qwen3_30b_a3b inference contiguous"] = main_path(
         torch, "qwen3_30b_a3b", mp, tp, MOE_PATH_LAYERS, counters, moe, texts=texts,
@@ -6210,7 +6792,6 @@ def main(argv=None) -> int:
         decode_steps=MOE_CLI_DECODE_STEPS)
     log(json.dumps({"phase": "cli_speculation", "model": "qwen3_30b_a3b",
                     "tokens_equal": len(set(texts.values())) == 1}))
-    assert len(set(texts.values())) == 1, "30B-A3B CLI: the default and off print other tokens"
     release(torch)
     done("the 30B-A3B CLI paths")
     # one load for the profiles, phase 5b and phase 5d's and 5e's MoE
@@ -6219,8 +6800,10 @@ def main(argv=None) -> int:
     paths["qwen3_30b_a3b grammar"] = grammar_moe(torch, eng, tp, counters, moe)
     speculate(eng, 0)
     decode_profile(torch, "qwen3_30b_a3b", mp, steps=8, eng=eng)
-    prefill_profile(torch, "qwen3_30b_a3b", mp, eng=eng)
     graphed_decode_phase(torch, mp, tp, "qwen3_30b_a3b", eng=eng)
+    speculate(eng, 0)
+    # 5j (its 128-token prefill window, eager and graphed, is phase 6's)
+    paths["qwen3_30b_a3b prefill graphs"] = prefill_moe(torch, eng, counters)
     # 5i's single-device side on this engine (speculation off), which
     # closes before the mesh's engine cuts the same file (two copies
     # at most)

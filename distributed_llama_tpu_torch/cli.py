@@ -14,12 +14,9 @@ say so. `--prefix-cache-mb` sizes the radix prefix cache
 (runtime/prefix_cache.py) as the JAX CLI does: -1, the default, means
 DLT_PREFIX_CACHE_MB env, else 512; 0 turns it off. `--speculative`
 (off | ngram | model; runtime/speculative.py) defaults to DLT_SPECULATIVE
-env, else ngram, as in the JAX CLI: greedy generations decode in verify
-rounds, sampled ones as before. Unlike the JAX CLI, the default is off
-for a MoE model whose verify round at `--batch` would take the gather
-arm (`verify_takes_gather_arm`: Qwen3-30B-A3B at batch 1, where a round
-costs about 20 decode tokens); the flag or the env still turns it on. At
-`--batch` > 1 a round's rows take other matmul arms than batch 1's, so
+env, else ngram, as in the JAX CLI, on every model: greedy generations
+decode in verify rounds, sampled ones as before (a MoE model's round runs
+its FFN on K4, ops/moe.py). At `--batch` > 1 a round's rows take other matmul arms than batch 1's, so
 the printed row 0 may part from a batch-1 run. `--draft-k` caps the drafted tokens a
 round (0: DLT_DRAFT_K env, else 4); `--speculative model` drafts with
 the `--draft-model` file, a second engine at batch 1 with speculation and
@@ -48,15 +45,12 @@ import sys
 
 import numpy as np
 
-from .formats.mfile import MFileReader
 from .parallel import make_mesh
 from .runtime.engine import InferenceEngine
 from .runtime.grammar import resolve_grammar_enabled
 from .runtime.paged_kv import resolve_kv_layout
 from .runtime.prefix_cache import resolve_budget_mb
-from .runtime.speculative import (
-    DRAFT_BUCKETS, ModelDraft, resolve_draft_k, resolve_spec_mode, verify_takes_gather_arm,
-)
+from .runtime.speculative import ModelDraft, resolve_draft_k, resolve_spec_mode
 from .tokenizer import (
     EOS_FOUND,
     EOS_MAYBE,
@@ -132,8 +126,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--speculative", choices=["off", "ngram", "model"], default=None,
         help="speculative decoding draft source for greedy generations "
-        "(default DLT_SPECULATIVE env, else ngram; else off on a MoE model "
-        "whose verify round at --batch takes the gather arm). At --batch > 1 "
+        "(default DLT_SPECULATIVE env, else ngram). At --batch > 1 "
         "a round's rows take other matmul arms than batch 1's, so the "
         "printed row 0 may part from a batch-1 run",
     )
@@ -172,9 +165,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def make_engine(args) -> InferenceEngine:
-    # speculation as the JAX CLI resolves it: ngram unless the flag or
-    # DLT_SPECULATIVE says otherwise (library engines default to off); but
-    # off where a round of the smallest bucket takes the MoE gather arm
     # --batch against --dp, as the JAX CLI checks it (cli.py:180-191): an
     # explicit batch must split over the dp shards; the batch is at least dp
     batch = args.batch or 1
@@ -184,10 +174,9 @@ def make_engine(args) -> InferenceEngine:
             f"(each dp shard holds batch/dp rows)"
         )
     batch = max(batch, args.dp)
-    with MFileReader(args.model) as reader:
-        h = reader.header
-    gather = verify_takes_gather_arm(h, batch, DRAFT_BUCKETS[0] + 1)
-    spec_mode = resolve_spec_mode(args.speculative, default="off" if gather else "ngram")
+    # speculation as the JAX CLI resolves it: ngram unless the flag or
+    # DLT_SPECULATIVE says otherwise (library engines default to off)
+    spec_mode = resolve_spec_mode(args.speculative, default="ngram")
     draft_k = resolve_draft_k(args.draft_k or None)
     if spec_mode == "model" and not args.draft_model:
         raise ValueError("--speculative model requires --draft-model")

@@ -21,12 +21,26 @@
 //     query heads of a kv head fold into the rows as _attend_block folds
 //     them: row R is token R / g, head kvh * g + R % g, position pos_start +
 //     R / g.
-//   * split-S to fill the card: the visible KV range is cut into `splits`
+//   * split-S to fill the card: the view's S rows are cut into `splits`
 //     runs of `split_tiles` whole 64-row tiles, aligned on the shard's
 //     rows, which are aligned on global columns (a shard is a multiple of
 //     128 rows). The plan (ops/cuda_attention.py flash_plan) is a function
-//     of the chunk's visible tile count and the grid alone, so a chunk
-//     inside shard 0 gets the same splits under K3 and under B8.
+//     of the shapes alone (the view's tile count and the grid), as the JAX
+//     kernel's grid is: a call's sums never depend on its position, so a
+//     chunk run eagerly at a host position and replayed in a CUDA graph at
+//     a device position gives the same bits, and B8 on a shard splits as K3
+//     on a view of the shard's length. A CTA whose run lies wholly past its
+//     rows' causal limit writes neutral partials (o = 0, m = NEG_INF, l = 0)
+//     and exits: the combine adds exact zeros for it.
+//   * K3's position comes by value or from the device (`pos_dev`, one int32
+//     or int64 the CTA reads first): the JAX kernel's scalar-prefetch
+//     `pos_start`, so a CUDA graph of a prefill chunk replays at any
+//     position of its kv bucket. A one-row call may also name its cache row
+//     on the device (`row_dev`, one int64 into a cache of `cache_b` rows):
+//     a CUDA graph of one batch row's admission chunk reads that row in
+//     place, at whatever row the buffer holds. A row outside the cache
+//     reads row 0 with a NaN scale, so its output is NaN, never a read out
+//     of bounds.
 //   * with one split a CTA writes its result directly (one launch). With
 //     more, each CTA writes its unnormalized (o, m, l) to a workspace the
 //     wrapper allocated, and a second kernel combines the splits in split
@@ -121,7 +135,8 @@ flash_attention_fwd_kernel(const void* __restrict__ qp, int q_is_f32,
                            float* __restrict__ o_ws, float* __restrict__ m_ws,
                            float* __restrict__ l_ws, int t, int S, int n_heads, int n_kv,
                            int pos_start, int col_offset, int block_t, float scale,
-                           int split_tiles, int splits) {
+                           int split_tiles, int splits, const void* __restrict__ pos_dev,
+                           int pos_i64, const long long* __restrict__ row_dev, int cache_b) {
   using L = Smem<HD>;
   constexpr int KS = HD / 16;  // k-steps of Q K^T
   constexpr int NO = HD / 8;   // 8-column groups of O
@@ -140,8 +155,19 @@ flash_attention_fwd_kernel(const void* __restrict__ qp, int q_is_f32,
   const int bi = bk / n_kv;
   const int kvh = bk % n_kv;
   const int row0 = blockIdx.y * ROWS;  // first score row of this tile
+  long long cache_row = bi;  // the cache row this CTA reads
+  if (row_dev != nullptr) {
+    cache_row = *row_dev;
+    if (cache_row < 0 || cache_row >= cache_b) {
+      cache_row = 0;
+      scale = __int_as_float(0x7fc00000);
+    }
+  }
   const int split = blockIdx.z;
   const int n_rows = t * g;
+  if (pos_dev != nullptr)
+    pos_start = pos_i64 ? (int)*reinterpret_cast<const long long*>(pos_dev)
+                        : *reinterpret_cast<const int*>(pos_dev);
 
   // this CTA's tiles: its split's run, cut at its rows' causal limit
   const int last_row = min(row0 + ROWS, n_rows) - 1;
@@ -150,9 +176,23 @@ flash_attention_fwd_kernel(const void* __restrict__ qp, int q_is_f32,
   const int n_tiles = kv_end > 0 ? (kv_end + BS - 1) / BS : 0;
   const int j0 = split * split_tiles;
   const int j1 = min(n_tiles, j0 + split_tiles);
+  if (splits > 1 && j0 >= j1) {
+    // a run wholly past the causal limit: neutral partials for the combine
+    for (int i = tid; i <= last_row - row0; i += THREADS) {
+      const size_t ws_row = ((size_t)split * gridDim.x + bk) * n_rows + row0 + i;
+      m_ws[ws_row] = NEG_INF;
+      l_ws[ws_row] = 0.0f;
+    }
+    for (int i = tid; i < (last_row - row0 + 1) * (HD / 4); i += THREADS) {
+      const size_t ws_row = ((size_t)split * gridDim.x + bk) * n_rows + row0 + i / (HD / 4);
+      reinterpret_cast<float4*>(o_ws + ws_row * HD)[i % (HD / 4)] =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    return;
+  }
 
-  const __nv_bfloat16* kbase = kc + (size_t)bi * ksb + (size_t)kvh * ksh;
-  const __nv_bfloat16* vbase = vc + (size_t)bi * ksb + (size_t)kvh * ksh;
+  const __nv_bfloat16* kbase = kc + (size_t)cache_row * ksb + (size_t)kvh * ksh;
+  const __nv_bfloat16* vbase = vc + (size_t)cache_row * ksb + (size_t)kvh * ksh;
   if (j0 < j1) load_tile<HD>(Kr, Vr, kbase, vbase, kss, j0, S, tid);
   dlt::cp_async_commit();
 
@@ -352,7 +392,8 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
 flash_combine_kernel(const float* __restrict__ o_ws, const float* __restrict__ m_ws,
                      const float* __restrict__ l_ws, float* __restrict__ o,
                      float* __restrict__ m_out, float* __restrict__ l_out, int splits, int t,
-                     int n_heads, int n_kv, int pos_start, int col_offset, int block_t) {
+                     int n_heads, int n_kv, int pos_start, int col_offset, int block_t,
+                     const void* __restrict__ pos_dev, int pos_i64) {
   constexpr int RPB = COMBINE_THREADS / HD;  // rows a block
   const int g = n_heads / n_kv;
   const int n_rows = t * g;
@@ -361,6 +402,9 @@ flash_combine_kernel(const float* __restrict__ o_ws, const float* __restrict__ m
   const int R = blockIdx.y * RPB + threadIdx.x / HD;
   const int dd = threadIdx.x % HD;
   if (R >= n_rows) return;
+  if (PARTIAL && pos_dev != nullptr)
+    pos_start = pos_i64 ? (int)*reinterpret_cast<const long long*>(pos_dev)
+                        : *reinterpret_cast<const int*>(pos_dev);
   float M = NEG_INF;
   for (int s = 0; s < splits; ++s) M = fmaxf(M, m_ws[((size_t)s * BK + bk) * n_rows + R]);
   float acc = 0.0f;
@@ -392,7 +436,8 @@ cudaError_t launch(const void* q, int q_is_f32, const void* k, const void* v, lo
                    long long kss, long long ksh, void* o, void* m, void* l, void* o_ws,
                    void* m_ws, void* l_ws, int b, int t, int S, int n_heads, int n_kv,
                    int pos_start, int col_offset, int block_t, float scale, int split_tiles,
-                   int splits, cudaStream_t stream) {
+                   int splits, const void* pos_dev, int pos_i64, const long long* row_dev,
+                   int cache_b, cudaStream_t stream) {
   const size_t smem = Smem<HD>::total;
   static bool raised[MAX_DEVICES] = {};  // the opt-in is per device
   int dev = 0;
@@ -413,7 +458,8 @@ cudaError_t launch(const void* q, int q_is_f32, const void* k, const void* v, lo
       reinterpret_cast<const __nv_bfloat16*>(v), ksb, kss, ksh, reinterpret_cast<float*>(o),
       reinterpret_cast<float*>(m), reinterpret_cast<float*>(l), reinterpret_cast<float*>(o_ws),
       reinterpret_cast<float*>(m_ws), reinterpret_cast<float*>(l_ws), t, S, n_heads, n_kv,
-      pos_start, col_offset, block_t, scale, split_tiles, splits);
+      pos_start, col_offset, block_t, scale, split_tiles, splits, pos_dev, pos_i64, row_dev,
+      cache_b);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   constexpr int RPB = COMBINE_THREADS / HD;
@@ -422,7 +468,7 @@ cudaError_t launch(const void* q, int q_is_f32, const void* k, const void* v, lo
           reinterpret_cast<const float*>(o_ws), reinterpret_cast<const float*>(m_ws),
           reinterpret_cast<const float*>(l_ws), reinterpret_cast<float*>(o),
           reinterpret_cast<float*>(m), reinterpret_cast<float*>(l), splits, t, n_heads, n_kv,
-          pos_start, col_offset, block_t);
+          pos_start, col_offset, block_t, pos_dev, pos_i64);
   return cudaGetLastError();
 }
 
@@ -454,11 +500,11 @@ extern "C" const char* dlt_cuda_error_string(int e) {
 // (ops/cuda_attention.py flash_plan): `splits` runs of `split_tiles` 64-row
 // tiles; with splits > 1 the workspace o_ws [splits, b * n_kv, t * g, hd],
 // m_ws and l_ws [splits, b * n_kv, t * g] f32 (else null).
-extern "C" int flash_attention_fwd(const void* q, int q_is_f32, const void* k, const void* v,
-                                   long long ksb, long long kss, long long ksh, void* o, int b,
-                                   int t, int S, int n_heads, int n_kv, int head_dim,
-                                   int pos_start, float scale, int split_tiles, int splits,
-                                   void* o_ws, void* m_ws, void* l_ws, void* stream) {
+static int k3(const void* q, int q_is_f32, const void* k, const void* v, long long ksb,
+              long long kss, long long ksh, void* o, int b, int t, int S, int n_heads, int n_kv,
+              int head_dim, int pos_start, const void* pos_dev, int pos_i64,
+              const long long* row_dev, int cache_b, float scale, int split_tiles, int splits,
+              void* o_ws, void* m_ws, void* l_ws, void* stream) {
   const cudaError_t bad = check_args(q, k, v, ksb, kss, ksh, b, t, S, n_heads, n_kv, split_tiles,
                                      splits, o_ws, m_ws, l_ws);
   if (bad != cudaSuccess) return (int)bad;
@@ -466,12 +512,44 @@ extern "C" int flash_attention_fwd(const void* q, int q_is_f32, const void* k, c
   if (head_dim == 64)
     return (int)launch<64, false>(q, q_is_f32, k, v, ksb, kss, ksh, o, nullptr, nullptr, o_ws,
                                   m_ws, l_ws, b, t, S, n_heads, n_kv, pos_start, 0, 1, scale,
-                                  split_tiles, splits, s);
+                                  split_tiles, splits, pos_dev, pos_i64, row_dev, cache_b, s);
   if (head_dim == 128)
     return (int)launch<128, false>(q, q_is_f32, k, v, ksb, kss, ksh, o, nullptr, nullptr, o_ws,
                                    m_ws, l_ws, b, t, S, n_heads, n_kv, pos_start, 0, 1, scale,
-                                   split_tiles, splits, s);
+                                   split_tiles, splits, pos_dev, pos_i64, row_dev, cache_b,
+                                   s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_attention_fwd(const void* q, int q_is_f32, const void* k, const void* v,
+                                   long long ksb, long long kss, long long ksh, void* o, int b,
+                                   int t, int S, int n_heads, int n_kv, int head_dim,
+                                   int pos_start, float scale, int split_tiles, int splits,
+                                   void* o_ws, void* m_ws, void* l_ws, void* stream) {
+  return k3(q, q_is_f32, k, v, ksb, kss, ksh, o, b, t, S, n_heads, n_kv, head_dim, pos_start,
+            nullptr, 0, nullptr, 0, scale, split_tiles, splits, o_ws, m_ws, l_ws, stream);
+}
+
+// K3 at a device position: as flash_attention_fwd, pos_start read on the
+// device from `pos_dev` (one int64 where pos_i64, else one int32), so a
+// captured launch replays at whatever position the buffer holds. The plan
+// is the same shape-only one. `row_dev` (null, or one int64 on the device;
+// then b is 1): the cache row the query reads, k and v holding `cache_b`
+// rows at stride ksb.
+extern "C" int flash_attention_fwd_dev(const void* q, int q_is_f32, const void* k,
+                                       const void* v, long long ksb, long long kss,
+                                       long long ksh, void* o, int b, int t, int S, int n_heads,
+                                       int n_kv, int head_dim, const void* pos_dev, int pos_i64,
+                                       const void* row_dev, int cache_b, float scale,
+                                       int split_tiles, int splits, void* o_ws, void* m_ws,
+                                       void* l_ws, void* stream) {
+  if (pos_dev == nullptr || reinterpret_cast<uintptr_t>(pos_dev) % (pos_i64 ? 8 : 4) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (row_dev != nullptr && (b != 1 || cache_b < 1 || reinterpret_cast<uintptr_t>(row_dev) % 8))
+    return (int)cudaErrorInvalidValue;
+  return k3(q, q_is_f32, k, v, ksb, kss, ksh, o, b, t, S, n_heads, n_kv, head_dim, 0, pos_dev,
+            pos_i64, reinterpret_cast<const long long*>(row_dev), cache_b, scale, split_tiles,
+            splits, o_ws, m_ws, l_ws, stream);
 }
 
 // B8: as flash_attention_fwd over one shard whose row 0 is the global
@@ -494,10 +572,10 @@ extern "C" int flash_attention_partial_fwd(const void* q, int q_is_f32, const vo
   if (head_dim == 64)
     return (int)launch<64, true>(q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, o_ws, m_ws, l_ws, b,
                                  t, S, n_heads, n_kv, pos_start, col_offset, block_t, scale,
-                                 split_tiles, splits, s);
+                                 split_tiles, splits, nullptr, 0, nullptr, 0, s);
   if (head_dim == 128)
     return (int)launch<128, true>(q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, o_ws, m_ws, l_ws,
                                   b, t, S, n_heads, n_kv, pos_start, col_offset, block_t, scale,
-                                  split_tiles, splits, s);
+                                  split_tiles, splits, nullptr, 0, nullptr, 0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,6 +17,14 @@
 // once to bf16; x . w accumulates in f32 on the tensor cores. Only the
 // order of the f32 sums differs from the plain version.
 //
+// The exact-scale rounding (`exact_scale`, the small-row MoE arm's, where
+// the JAX package gathers each row's experts and dequantizes them with
+// `dequantize_t`): each weight is bf16(f32(scale) * (u - 8)), the f32
+// product exact (4 bits by 11), rounded once, so the weights are the gather
+// arm's bit for bit. It costs two f32 multiplies and one pack a pair where
+// the default costs one bf16 FMA; the small-row arm reads few rows, so the
+// weight bytes bound it either way.
+//
 // What bounds it on Hopper: memory. A 32-token chunk of Qwen3-30B-A3B
 // routes 256 rows over ~110 of 128 experts, ~2 rows an expert: ~2 * 2
 // flops per weight against 0.5625 bytes per weight, far under the ~295
@@ -152,6 +160,15 @@ __device__ __forceinline__ unsigned dequant2(unsigned biased, unsigned s2) {
   return dlt::fma_bf16x2(t, s2, 0x80008000u);                            // * s + (-0)
 }
 
+// 0x4300 | u pairs -> bf16(f32(u - 8) * s) pairs: the subtraction is exact,
+// the f32 products are exact, the pack rounds once (cvt.rn.bf16x2.f32)
+__device__ __forceinline__ unsigned dequant2_exact(unsigned biased, float s) {
+  const unsigned t = dlt::fma_bf16x2(biased, 0x3F803F80u, 0xC308C308u);  // * 1 - 136
+  const __nv_bfloat162 w = __floats2bfloat162_rn(__uint_as_float(t << 16) * s,
+                                                 __uint_as_float(t & 0xFFFF0000u) * s);
+  return *reinterpret_cast<const unsigned*>(&w);
+}
+
 // bf16(f32(f16 scale)) in both halves
 __device__ __forceinline__ unsigned scale2(__half h) {
   const __nv_bfloat16 sb = __float2bfloat16_rn(__half2float(h));
@@ -159,7 +176,7 @@ __device__ __forceinline__ unsigned scale2(__half h) {
   return bits | (bits << 16);
 }
 
-template <int MT, int NT>
+template <int MT, int NT, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 q40_grouped_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ q,
                         const __half* __restrict__ d, const int* __restrict__ block_group,
@@ -239,15 +256,28 @@ q40_grouped_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restri
         const int col = warp * 16 * MT + 16 * mt + gid;
         const unsigned w0 = (unsigned)ws[(blk * 4 + tig) * L::WLD + col];
         const unsigned w1 = (unsigned)ws[(blk * 4 + tig) * L::WLD + col + 8];
-        const unsigned s0 = scale2(ds[blk * L::BN + col]);
-        const unsigned s1 = scale2(ds[blk * L::BN + col + 8]);
+        const __half h0 = ds[blk * L::BN + col];
+        const __half h1 = ds[blk * L::BN + col + 8];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           unsigned a[4];
-          a[0] = dequant2(((w0 >> (4 * h)) & 0x000F000Fu) | 0x43004300u, s0);      // 4tig, +2
-          a[1] = dequant2(((w1 >> (4 * h)) & 0x000F000Fu) | 0x43004300u, s1);
-          a[2] = dequant2(((w0 >> (8 + 4 * h)) & 0x000F000Fu) | 0x43004300u, s0);  // +1, +3
-          a[3] = dequant2(((w1 >> (8 + 4 * h)) & 0x000F000Fu) | 0x43004300u, s1);
+          const unsigned p0 = ((w0 >> (4 * h)) & 0x000F000Fu) | 0x43004300u;      // 4tig, +2
+          const unsigned p1 = ((w1 >> (4 * h)) & 0x000F000Fu) | 0x43004300u;
+          const unsigned p2 = ((w0 >> (8 + 4 * h)) & 0x000F000Fu) | 0x43004300u;  // +1, +3
+          const unsigned p3 = ((w1 >> (8 + 4 * h)) & 0x000F000Fu) | 0x43004300u;
+          if constexpr (EXACT) {
+            const float f0 = __half2float(h0), f1 = __half2float(h1);
+            a[0] = dequant2_exact(p0, f0);
+            a[1] = dequant2_exact(p1, f1);
+            a[2] = dequant2_exact(p2, f0);
+            a[3] = dequant2_exact(p3, f1);
+          } else {
+            const unsigned s0 = scale2(h0), s1 = scale2(h1);
+            a[0] = dequant2(p0, s0);
+            a[1] = dequant2(p1, s1);
+            a[2] = dequant2(p2, s0);
+            a[3] = dequant2(p3, s1);
+          }
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) dlt::mma_bf16(acc[mt][nt], a, bx[nt][h][0], bx[nt][h][1]);
         }
@@ -272,7 +302,7 @@ q40_grouped_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restri
   }
 }
 
-template <int MT, int NT>
+template <int MT, int NT, bool EXACT>
 cudaError_t launch(const __nv_bfloat16* x, const int* q, const __half* d, const int* bg,
                    long long n_groups, float* out, int n_blocks, int nb, int out_f, int vec,
                    cudaStream_t stream) {
@@ -283,30 +313,30 @@ cudaError_t launch(const __nv_bfloat16* x, const int* q, const __half* d, const 
   if (e != cudaSuccess) return e;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!raised[dev]) {
-    e = cudaFuncSetAttribute(q40_grouped_gemm_kernel<MT, NT>,
+    e = cudaFuncSetAttribute(q40_grouped_gemm_kernel<MT, NT, EXACT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     raised[dev] = true;
   }
   dim3 grid((out_f + Smem<MT, NT>::BN - 1) / Smem<MT, NT>::BN, n_blocks);
-  q40_grouped_gemm_kernel<MT, NT><<<grid, THREADS, smem, stream>>>(x, q, d, bg, n_groups, out,
-                                                                    nb, out_f, vec);
+  q40_grouped_gemm_kernel<MT, NT, EXACT><<<grid, THREADS, smem, stream>>>(
+      x, q, d, bg, n_groups, out, nb, out_f, vec);
   return cudaGetLastError();
 }
 
-template <int MT>
+template <int MT, bool EXACT>
 cudaError_t launch_rows(const __nv_bfloat16* x, const int* q, const __half* d, const int* bg,
                         long long n_groups, float* out, int n_blocks, int block_r, int nb,
                         int out_f, int vec, cudaStream_t s) {
   switch (block_r) {
     case 8:
-      return launch<MT, 1>(x, q, d, bg, n_groups, out, n_blocks, nb, out_f, vec, s);
+      return launch<MT, 1, EXACT>(x, q, d, bg, n_groups, out, n_blocks, nb, out_f, vec, s);
     case 16:
-      return launch<MT, 2>(x, q, d, bg, n_groups, out, n_blocks, nb, out_f, vec, s);
+      return launch<MT, 2, EXACT>(x, q, d, bg, n_groups, out, n_blocks, nb, out_f, vec, s);
     case 32:
-      return launch<MT, 4>(x, q, d, bg, n_groups, out, n_blocks, nb, out_f, vec, s);
+      return launch<MT, 4, EXACT>(x, q, d, bg, n_groups, out, n_blocks, nb, out_f, vec, s);
     case 64:
-      return launch<MT, 8>(x, q, d, bg, n_groups, out, n_blocks, nb, out_f, vec, s);
+      return launch<MT, 8, EXACT>(x, q, d, bg, n_groups, out, n_blocks, nb, out_f, vec, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -320,13 +350,14 @@ extern "C" const char* dlt_cuda_error_string(int e) {
 
 // x [n_blocks * block_r, in] bf16; q [n_groups, in/8, out] int32; d
 // [n_groups, in/32, out] f16; block_group [n_blocks] int32 on the device;
-// out [n_blocks * block_r, out] f32. The plan (ops/cuda_q40.py
-// grouped_plan): cols 64 or 128 output columns a CTA.
+// out [n_blocks * block_r, out] f32. exact_scale: 1 forms each weight as
+// bf16(f32(scale) * (u - 8)), 0 as bf16((u - 8) * bf16(scale)). The plan
+// (ops/cuda_q40.py grouped_plan): cols 64 or 128 output columns a CTA.
 extern "C" int q40_grouped_gemm_bf16(const void* x, const void* q, const void* d,
                                      const void* block_group, int n_blocks,
                                      long long n_groups, void* out, int block_r,
-                                     int in_features, int out_features, int cols,
-                                     void* stream) {
+                                     int in_features, int out_features, int exact_scale,
+                                     int cols, void* stream) {
   if (n_blocks < 1 || n_blocks > 65535 || n_groups < 1 || in_features % QB != 0 ||
       in_features < QB || out_features < 1)
     return (int)cudaErrorInvalidValue;
@@ -342,11 +373,16 @@ extern "C" int q40_grouped_gemm_bf16(const void* x, const void* q, const void* d
   const int* bg = reinterpret_cast<const int*>(block_group);
   float* o = reinterpret_cast<float*>(out);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (exact_scale != 0 && exact_scale != 1) return (int)cudaErrorInvalidValue;
   if (cols == 128)
-    return (int)launch_rows<2>(xp, qp, dp, bg, n_groups, o, n_blocks, block_r, nb, out_features,
-                               vec, s);
+    return (int)(exact_scale ? launch_rows<2, true>(xp, qp, dp, bg, n_groups, o, n_blocks,
+                                                    block_r, nb, out_features, vec, s)
+                             : launch_rows<2, false>(xp, qp, dp, bg, n_groups, o, n_blocks,
+                                                     block_r, nb, out_features, vec, s));
   if (cols == 64)
-    return (int)launch_rows<1>(xp, qp, dp, bg, n_groups, o, n_blocks, block_r, nb, out_features,
-                               vec, s);
+    return (int)(exact_scale ? launch_rows<1, true>(xp, qp, dp, bg, n_groups, o, n_blocks,
+                                                    block_r, nb, out_features, vec, s)
+                             : launch_rows<1, false>(xp, qp, dp, bg, n_groups, o, n_blocks,
+                                                     block_r, nb, out_features, vec, s));
   return (int)cudaErrorInvalidValue;
 }

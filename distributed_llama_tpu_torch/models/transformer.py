@@ -2,8 +2,9 @@
 
 The counterpart of the JAX package's `models/transformer.py`: its `linear`
 (:39), `_dense_ffn` (:79), the MoE block (`_gather_expert` :93,
-`_expert_matmul` :105, `_n_local_experts` :179, `_moe_ffn` :186,
-`_moe_decode_i8` :270, single device), `_attention_auto` (:135),
+`_expert_matmul` :105, `_n_local_experts` :179, `_moe_ffn` :186 with its
+gather arm `_moe_gather` :240, `_moe_decode_i8` :270, single device; the
+port runs K4 where JAX gathers on the bf16 kernel path), `_attention_auto` (:135),
 `_fused_paged_eligible` (:164), the paged branch of `_layer` (:410-493), its
 stacked contiguous branch with scalar or per-row positions and the int8 arm
 (:495-558), its sequence-parallel branch (:591-640, driven by
@@ -28,9 +29,14 @@ input's dtype, and the cache is written in the cache dtype (int8 with f32
 scales on the quantized arm, read back dequantized to the compute dtype).
 
 Rows aligned at one position the host knows only as a device scalar (a
-decode graph's step, runtime/graphs.py) write the contiguous cache with one
-`index_copy_` along the sequence axis: the eager slice write's values and
-launch count.
+decode graph's step, a graphed prefill chunk, runtime/graphs.py) write the
+contiguous cache with one `index_copy_` along the sequence axis: the eager
+slice write's values and launch count. A one-row step into a batch row
+the host knows only as a device scalar (a graphed admission chunk, `row`)
+writes that row's slots with one `index_put_`; K3 reads that row of the
+kv bucket in place (its device-row operand), and the plain attention and
+the int8 arm's dequantization read it through one `index_select`: the
+values of the row's view either way, so the eager view's bits.
 
 Rows at per-row positions may be parked (pos = seq_len) or finished: their
 writes must not land. JAX drops them with mode="drop" scatters; here the
@@ -58,7 +64,7 @@ from ..ops.cuda_attention import (
 )
 from ..ops.cuda_q40 import q40_gemv_q80_indexed
 from ..ops.kv_quant import dequantize_kv, quantize_kv
-from ..ops.moe import ep_local_route, moe_ffn_ragged, moe_router
+from ..ops.moe import ep_local_route, grouped_eligible, moe_ffn_ragged, moe_router
 from ..ops.norm import rms_norm
 from ..ops.quant import (
     QuantTensor, _f32_matmul, dequantize_t, q40_expert_aligned, quant_matmul,
@@ -176,10 +182,24 @@ def combine_slots(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def moe_grouped(cfg, tokens: int) -> bool:
-    """Whether `_moe_ffn` takes its grouped arm at `tokens` (b * t) tokens:
-    as many expert rows (tokens * n_active) as experts or more. `cfg` is a
-    ModelConfig or a model file's header."""
+    """Whether `_moe_ffn` takes its grouped arm at `tokens` (b * t) tokens
+    on every path: as many expert rows (tokens * n_active) as experts or
+    more. `cfg` is a ModelConfig or a model file's header."""
     return tokens * cfg.n_active_experts >= cfg.n_experts
+
+
+def moe_small_rows_grouped(cfg, y: torch.Tensor, lp: LayerParams) -> bool:
+    """The small-row K4 arm: more than one token, short of `moe_grouped`,
+    on the bf16 kernel path with aligned Q40 expert stacks (a verify round
+    of 2-15 tokens a row, a prefill tail, batched decode at b * k < E).
+    There K4 reads each hit expert once, where the gather arm would
+    dequantize every routed expert of every row. `_moe_ffn` runs it at
+    K4's exact-scale rounding, so its numbers are those of the gather arm
+    that JAX takes there: each weight bf16(f32(scale) * (u - 8)), bf16
+    operands, f32 sums."""
+    tokens = y.shape[0] * y.shape[1]
+    return (tokens > 1 and not moe_grouped(cfg, tokens)
+            and grouped_eligible(lp.w1, lp.w3, lp.w2, cfg.dtype, cfg.q80_activations))
 
 
 def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int, route=None,
@@ -190,8 +210,13 @@ def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int, rou
       * rows >= E (prefill chunks): moe_ffn_ragged, the grouped kernel K4
         over every hit expert once;
       * one token on the bf16 kernel path: _moe_decode_i8 (K1-indexed);
-      * otherwise (prefill tails of a few tokens, the f32 arm): gather each
-        row's experts and dequantize them (plain torch; XLA in JAX).
+      * more tokens on the bf16 kernel path: K4 too
+        (`moe_small_rows_grouped`), where JAX gathers: a block of 8 rows a
+        hit expert, with the weights rounded as the gather arm rounds them
+        (K4's `exact_scale`);
+      * otherwise (the f32 arm, unaligned or dense experts, the q80 parity
+        mode): gather each row's experts and dequantize them (plain torch;
+        XLA in JAX).
     `route`: the router's (idx, wts), computed once for every shard of a
     mesh (the gate is replicated); None computes it here. `ep`: (e0,
     n_local), expert parallelism (JAX's `ep_axis`, :186-263): `lp` holds
@@ -207,32 +232,53 @@ def _moe_ffn(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer: int, rou
     if moe_grouped(cfg, y.shape[0] * y.shape[1]):
         return moe_ffn_ragged(y, idx, wts, lp.w1, lp.w3, lp.w2, act, cfg.dtype, layer=layer,
                               q80=cfg.q80_activations)
+    if moe_small_rows_grouped(cfg, y, lp):
+        return moe_ffn_ragged(y, idx, wts, lp.w1, lp.w3, lp.w2, act, cfg.dtype, layer=layer,
+                              exact_scale=True)
     if _moe_decode_i8_eligible(cfg, y, lp):
         out = _moe_decode_i8(cfg, y, lp, layer, idx, wts)
     else:
-        w1 = _gather_expert(slice_layer(lp.w1, layer), idx)
-        w3 = _gather_expert(slice_layer(lp.w3, layer), idx)
-        w2 = _gather_expert(slice_layer(lp.w2, layer), idx)
-        xk = y[:, :, None, :].expand(*y.shape[:2], cfg.n_active_experts, y.shape[-1])
-        q80 = cfg.q80_activations
-        h = act(_expert_matmul(xk, w1, cfg.dtype, q80)) * _expert_matmul(xk, w3, cfg.dtype, q80)
-        out = _expert_matmul(h, w2, cfg.dtype, q80)  # [b, t, k, dim]
-        out = (out.to(torch.float32) * wts.unsqueeze(-1)).sum(dim=2)
+        out = _moe_gather(cfg, y, lp, layer, idx, wts)
     return out.to(y.dtype)
 
 
-def _attention_auto(cfg, q, k_view, v_view, positions, pos_start):
+def _moe_gather(cfg: ModelConfig, y: torch.Tensor, lp: LayerParams, layer, idx, wts):
+    """The gather arm (JAX :240-248): each (token, slot) row's expert
+    weights gathered and dequantized to the compute dtype, f32 products,
+    the slots summed in f32. Returns [b, t, dim] f32."""
+    w1 = _gather_expert(slice_layer(lp.w1, layer), idx)
+    w3 = _gather_expert(slice_layer(lp.w3, layer), idx)
+    w2 = _gather_expert(slice_layer(lp.w2, layer), idx)
+    xk = y[:, :, None, :].expand(*y.shape[:2], cfg.n_active_experts, y.shape[-1])
+    q80 = cfg.q80_activations
+    act = partial(_activation, cfg)
+    h = act(_expert_matmul(xk, w1, cfg.dtype, q80)) * _expert_matmul(xk, w3, cfg.dtype, q80)
+    out = _expert_matmul(h, w2, cfg.dtype, q80)  # [b, t, k, dim]
+    return (out.to(torch.float32) * wts.unsqueeze(-1)).sum(dim=2)
+
+
+def _attention_auto(cfg, q, k_view, v_view, positions, pos_start, row=None):
     """Prefill-sized q on a bf16 cache, all rows aligned at a scalar
-    `pos_start` -> the flash kernel (K3); otherwise (decode t = 1, per-row
-    positions, the f32 parity path, unaligned shapes) the plain whole-view
-    attention, whose reads the engine bounds with kv_len."""
+    `pos_start` (a host int, or a 0-d device tensor that K3 reads itself,
+    as the JAX kernel takes its scalar-prefetch position) -> the flash
+    kernel (K3); otherwise (decode t = 1, per-row positions, the f32 parity
+    path, unaligned shapes) the plain whole-view attention, whose reads the
+    engine bounds with kv_len. `row`: a one-row q reads this row ([1] int64
+    on the device) of the views' batch, K3 in place, the plain attention
+    from a copy of the row."""
     t = q.shape[1]
+    scalar = isinstance(pos_start, int) or (
+        isinstance(pos_start, torch.Tensor) and pos_start.ndim == 0)
+    if row is not None and (isinstance(pos_start, int) or not (
+            k_view.dtype == torch.bfloat16 and flash_attention_aligned(q, k_view, t))):
+        # K3 reads a device row only at a device position
+        k_view, v_view, row = k_view.index_select(0, row), v_view.index_select(0, row), None
     if (
-        isinstance(pos_start, int)
+        scalar
         and k_view.dtype == torch.bfloat16
         and flash_attention_aligned(q, k_view, t)
     ):
-        return flash_attention(q, k_view, v_view, pos_start)
+        return flash_attention(q, k_view, v_view, pos_start, row=row)
     return gqa_attention(q, k_view, v_view, positions)
 
 
@@ -273,19 +319,31 @@ def _write_rows(dst: torch.Tensor, src: torch.Tensor, window: tuple) -> None:
     dst[rows, idx] = torch.where(keep, src[rows, j], dst[rows, idx])
 
 
+@dataclass(frozen=True)
+class _RowSlots:
+    """A one-row step into batch row `row` ([1] int64 on the device) of a
+    contiguous cache, writing the [t] `slots`."""
+
+    row: torch.Tensor
+    slots: torch.Tensor
+
+
 def _contiguous_attention(cfg, q, k, v, positions, pos_start, cache: KVCache, li, kv_len,
                           window):
     """Write this layer's K/V into the [L, b, S, h, d] cache in place and
     attend over its first kv_len positions. `window`: per-row positions'
-    `_row_window`, the [t] slots of rows aligned at a device position, or
-    None for an int pos_start."""
+    `_row_window`, the [t] slots of rows aligned at a device position, a
+    `_RowSlots` (one row of the batch, named on the device), or None for
+    an int pos_start."""
     t = q.shape[1]
     kw, vw, ks, vs = _kv_for_write(cfg, k, v)
     new = [(cache.k, kw), (cache.v, vw)]
     if cfg.kv_quantized:
         new += [(cache.k_scale, ks), (cache.v_scale, vs)]
     for dst, src in new:
-        if window is None:
+        if isinstance(window, _RowSlots):
+            dst[li].index_put_((window.row[:, None], window.slots[None, :]), src)
+        elif window is None:
             # padded prefill tails write junk past the true length: attention
             # masks it, and later writes replace it before any query reads it
             dst[li, :, pos_start : pos_start + t] = src
@@ -295,14 +353,22 @@ def _contiguous_attention(cfg, q, k, v, positions, pos_start, cache: KVCache, li
             _write_rows(dst[li], src, window)
     S = cache.k.shape[2]
     view_len = min(kv_len, S) if kv_len is not None else S
-    k_view = cache.k[li, :, :view_len]
-    v_view = cache.v[li, :, :view_len]
+    row = window.row if isinstance(window, _RowSlots) else None
+
+    def view(x):
+        return x[li, :, :view_len]
+
+    k_view, v_view = view(cache.k), view(cache.v)
     if cfg.kv_quantized:
         # the bucketed view dequantized to the compute dtype (flash stays
-        # eligible on the bf16 path)
-        k_view = dequantize_kv(k_view, cache.k_scale[li, :, :view_len], cfg.dtype)
-        v_view = dequantize_kv(v_view, cache.v_scale[li, :, :view_len], cfg.dtype)
-    return _attention_auto(cfg, q, k_view, v_view, positions, pos_start)
+        # eligible on the bf16 path), of the one row where a row is named
+        def one(x):
+            return x if row is None else x.index_select(0, row)
+
+        k_view = dequantize_kv(one(k_view), one(view(cache.k_scale)), cfg.dtype)
+        v_view = dequantize_kv(one(v_view), one(view(cache.v_scale)), cfg.dtype)
+        row = None
+    return _attention_auto(cfg, q, k_view, v_view, positions, pos_start, row)
 
 
 @dataclass(frozen=True)
@@ -497,6 +563,9 @@ def forward(
     page_table: torch.Tensor | None = None,  # [b, max_slots] int32 on the
     # device: the paged layout, where `cache` is the page pool
     page_size: int | None = None,  # the paged layout's page length
+    row: torch.Tensor | None = None,  # [1] or 0-d int64 on the device: a
+    # b = 1 step into this batch row of a contiguous cache (a graphed
+    # admission chunk), rows aligned at pos_start
 ) -> torch.Tensor:
     """One forward step (prefill chunk or decode token); writes the chunk's
     K/V into `cache` in place. Returns f32 logits: [b, vocab] for "last",
@@ -518,7 +587,11 @@ def forward(
     limit = cfg.seq_len if page_table is not None else cache.seq_len
     positions, pos_start = step_positions(tokens, pos_start, limit)
     # the layer-invariant index work, once per forward
-    if page_table is not None:
+    if row is not None:
+        if page_table is not None or tokens.shape[0] != 1 or positions.ndim != 2:
+            raise ValueError("`row` names one row of a contiguous cache for a b = 1 step")
+        kv_index = _RowSlots(row.reshape(1).long(), positions[0])
+    elif page_table is not None:
         sink = cache.k.shape[1] - 1
         kv_index = _paged_index(cfg, positions, page_table, page_size, sink, kv_len)
     elif isinstance(pos_start, torch.Tensor) and pos_start.ndim == 1:

@@ -7,13 +7,19 @@ through the page table, each beside its plain PyTorch version.
 (:46) and `_kernel` (:103): blocked causal attention from a scalar
 `pos_start` with an f32 online softmax (m clamped to NEG_INF / 2, l to
 1e-30, P cast to the V dtype before PV), the g query heads of a KV head
-folded into the score rows. The kernel reads the cache in place through its
-strides and splits the visible KV range over CTAs by `flash_plan` (a
-function of the visible tile count and the grid alone), combining the
-splits in split order; `flash_split_plain` repeats that blocking on the
-CPU. The plain version repeats the Pallas kernel's blocking (query
-blocks of min(512, t), KV blocks of min(1024, S), invisible blocks skipped)
-so that it follows the JAX kernel's rounding as closely as torch allows.
+folded into the score rows. The position is a host int or, as the JAX
+kernel's scalar-prefetch operand, a 0-d int32 or int64 tensor on the
+device, which the kernel reads itself (`flash_attention_fwd_dev`), so a
+CUDA graph of a prefill chunk or a verify round replays at any position.
+The kernel reads the cache in place through its strides and splits the
+view's KV tiles over CTAs by `plan_for`, a function of the shapes alone
+(b, t, heads and the view's S), as the JAX kernel's grid is: a split past
+the causal limit exits with neutral partials, and the splits combine in
+split order, so a call's bits never depend on how its position reached
+it. `flash_split_plain` repeats that blocking on the CPU. The plain version
+repeats the Pallas kernel's blocking (query blocks of min(512, t), KV
+blocks of min(1024, S), invisible blocks skipped) so that it follows the
+JAX kernel's rounding as closely as torch allows.
 
 `flash_attention_partial` (B8, the same source) replaces
 `ops/pallas_attention.py:flash_attention_partial` (:398), body
@@ -72,6 +78,16 @@ _SIG = {
         kernels.I, kernels.F, kernels.I, kernels.I,
         kernels.P, kernels.P, kernels.P, kernels.P,
     ),
+    # q, q_is_f32, k, v, ksb, kss, ksh, o, b, t, S, n_heads, n_kv, hd,
+    # pos_dev, pos_i64, row_dev, cache_b, scale, split_tiles, splits, o_ws,
+    # m_ws, l_ws, stream
+    "flash_attention_fwd_dev": (
+        kernels.P, kernels.I, kernels.P, kernels.P,
+        kernels.LL, kernels.LL, kernels.LL, kernels.P,
+        kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I,
+        kernels.P, kernels.I, kernels.P, kernels.I, kernels.F, kernels.I, kernels.I,
+        kernels.P, kernels.P, kernels.P, kernels.P,
+    ),
     # q, q_is_f32, k, v, ksb, kss, ksh, o, m, l, b, t, S, n_heads, n_kv, hd,
     # pos_start, col_offset, block_t, scale, split_tiles, splits, o_ws,
     # m_ws, l_ws, stream
@@ -92,9 +108,10 @@ FLASH_TARGET_CTAS = 264
 
 @dataclass(frozen=True)
 class FlashPlan:
-    """K3's and B8's split of the visible KV range: `splits` runs of
+    """K3's and B8's split of the view's KV tiles: `splits` runs of
     `split_tiles` FLASH_TILE-row tiles (the last may be shorter), one CTA
-    per (batch * kv head, `rows` score rows, split)."""
+    per (batch * kv head, `rows` score rows, split); a CTA whose run lies
+    past its rows' causal limit exits with neutral partials."""
 
     rows: int
     split_tiles: int
@@ -110,24 +127,24 @@ def visible_tiles(t: int, S: int, pos_start: int, col_offset: int = 0) -> int:
 
 
 def flash_plan(n_tiles: int, base_ctas: int) -> FlashPlan:
-    """The split of `n_tiles` visible tiles over a grid of `base_ctas`
-    (batch * kv head) x row-tile CTAs: the fewest splits of whole tiles that
-    reach FLASH_TARGET_CTAS. A function of these two counts alone: a chunk
-    inside shard 0 splits alike under K3 and B8."""
+    """The split of `n_tiles` tiles over a grid of `base_ctas` (batch * kv
+    head) x row-tile CTAs: the fewest splits of whole tiles that reach
+    FLASH_TARGET_CTAS. A function of these two counts alone."""
     want = -(-FLASH_TARGET_CTAS // max(base_ctas, 1))
     splits = max(1, min(want, n_tiles))
     split_tiles = max(1, -(-n_tiles // splits))
     return FlashPlan(FLASH_ROWS, split_tiles, max(1, -(-n_tiles // split_tiles)))
 
 
-def plan_for(q: torch.Tensor, k_view: torch.Tensor, pos_start: int,
-             col_offset: int = 0) -> FlashPlan:
+def plan_for(q: torch.Tensor, k_view: torch.Tensor) -> FlashPlan:
     """The plan of one call: q [b, t, H, hd] against a [b, S, n_kv, hd]
-    view whose row 0 is the global position col_offset."""
+    view, a function of these shapes alone (the JAX kernel's grid is):
+    every tile of the view is some split's, whatever the position. K3 on
+    a view and B8 on a shard of the same length split alike."""
     b, t, n_heads, _ = q.shape
     S, n_kv = k_view.shape[1], k_view.shape[2]
     base = b * n_kv * -(-(t * (n_heads // n_kv)) // FLASH_ROWS)
-    return flash_plan(visible_tiles(t, S, pos_start, col_offset), base)
+    return flash_plan(-(-S // FLASH_TILE), base)
 
 
 _PAGED_SIG = {
@@ -270,17 +287,18 @@ def flash_attention_plain(
     q: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
-    pos_start: int,
+    pos_start,
     scale: float | None = None,
     block_t: int = DEFAULT_BLOCK_T,
     block_s: int = DEFAULT_BLOCK_S,
 ) -> torch.Tensor:
     """K3's plain version: q [b, t, H, hd], k/v [b, S, n_kv, hd] -> [b, t, H,
-    hd] in q.dtype."""
+    hd] in q.dtype. `pos_start`: an int or a 0-d tensor (read on the
+    host)."""
     b, t, _, hd = q.shape
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
-    acc, _, l = _flash_blocks(q, k_cache, v_cache, pos_start, 0, scale, block_t, block_s)
+    acc, _, l = _flash_blocks(q, k_cache, v_cache, int(pos_start), 0, scale, block_t, block_s)
     out = acc / torch.clamp(l, min=1e-30)
     return _unfold(out, b, t, k_cache.shape[2]).to(q.dtype)
 
@@ -339,7 +357,7 @@ def flash_split_plain(q, k_view, v_view, pos_start: int, col_offset: int = 0,
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     if plan is None:
-        plan = plan_for(q, k_view, pos_start, col_offset)
+        plan = plan_for(q, k_view)
     q4 = (q.reshape(b, t, n_kv, g, hd).permute(0, 2, 1, 3, 4).reshape(b * n_kv, n_rows, hd)
           .to(torch.bfloat16).to(torch.float32))
     k3 = k_view.permute(0, 2, 1, 3).reshape(b * n_kv, S, hd).to(torch.float32)
@@ -413,21 +431,39 @@ def _ptrs(tensors) -> list:
     return [None if x is None else x.data_ptr() for x in tensors]
 
 
-def _launch(q, k_cache, v_cache, pos_start: int, scale: float) -> torch.Tensor:
+def _check_device_position(pos: torch.Tensor, q: torch.Tensor) -> None:
+    if pos.numel() != 1 or pos.ndim > 1 or pos.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"a device position is one int32 or int64, got {pos.dtype} "
+                         f"{tuple(pos.shape)}")
+    if pos.device != q.device:
+        raise ValueError(f"the position is on {pos.device}, q on {q.device}")
+
+
+def _launch(q, k_cache, v_cache, pos_start, scale: float, row=None) -> torch.Tensor:
+    """K3 at an int `pos_start` (`flash_attention_fwd`) or at a 0-d device
+    tensor the kernel reads (`flash_attention_fwd_dev`, there with the
+    cache row `row` read on the device too), on the one plan."""
     b, t, n_heads, hd = q.shape
     S, n_kv = k_cache.shape[1], k_cache.shape[2]
     _check_launch(q, k_cache, v_cache)
-    plan = plan_for(q, k_cache, pos_start)
+    plan = plan_for(q, k_cache)
     lib = kernels.load("flash_attention", _SIG)
     out = torch.empty((b, t, n_heads, hd), dtype=torch.float32, device=q.device)
     ws = _workspace(q, n_kv, plan)
     ksb, kss, ksh, _ = k_cache.stride()
-    kernels.launch(
-        lib, "flash_attention_fwd", q,
-        q.data_ptr(), int(q.dtype == torch.float32), k_cache.data_ptr(),
-        v_cache.data_ptr(), ksb, kss, ksh, out.data_ptr(), b, t, S, n_heads,
-        n_kv, hd, int(pos_start), float(scale), plan.split_tiles, plan.splits, *_ptrs(ws),
-    )
+    head = (q.data_ptr(), int(q.dtype == torch.float32), k_cache.data_ptr(),
+            v_cache.data_ptr(), ksb, kss, ksh, out.data_ptr(), b, t, S, n_heads, n_kv, hd)
+    if row is not None and not isinstance(pos_start, torch.Tensor):
+        raise ValueError("a device row needs a device position")
+    if isinstance(pos_start, torch.Tensor):
+        _check_device_position(pos_start, q)
+        kernels.launch(lib, "flash_attention_fwd_dev", q, *head, pos_start.data_ptr(),
+                       int(pos_start.dtype == torch.int64),
+                       None if row is None else row.data_ptr(), k_cache.shape[0], float(scale),
+                       plan.split_tiles, plan.splits, *_ptrs(ws))
+    else:
+        kernels.launch(lib, "flash_attention_fwd", q, *head, int(pos_start), float(scale),
+                       plan.split_tiles, plan.splits, *_ptrs(ws))
     return out.to(q.dtype)
 
 
@@ -435,7 +471,7 @@ def _launch_partial(q, k_local, v_local, pos_start: int, col_offset: int, scale:
     b, t, n_heads, hd = q.shape
     S, n_kv = k_local.shape[1], k_local.shape[2]
     _check_launch(q, k_local, v_local)
-    plan = plan_for(q, k_local, pos_start, col_offset)
+    plan = plan_for(q, k_local)
     lib = kernels.load("flash_attention", _SIG)
     o = torch.empty((b, t, n_heads, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((b, t, n_heads), dtype=torch.float32, device=q.device)
@@ -450,6 +486,16 @@ def _launch_partial(q, k_local, v_local, pos_start: int, col_offset: int, scale:
         *_ptrs(ws),
     )
     return o, m, l
+
+
+def _check_device_row(row: torch.Tensor, q: torch.Tensor, k_cache: torch.Tensor) -> None:
+    if row.shape != (1,) or row.dtype != torch.int64:
+        raise ValueError(f"a device row is one int64 in a [1] tensor, got {row.dtype} "
+                         f"{tuple(row.shape)}")
+    if row.device != q.device:
+        raise ValueError(f"the row is on {row.device}, q on {q.device}")
+    if q.shape[0] != 1:
+        raise ValueError(f"a device row serves a one-row q, got {q.shape[0]} rows")
 
 
 def _check_flash_shapes(q, k_cache) -> None:
@@ -481,24 +527,45 @@ def flash_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
-    pos_start: int,
+    pos_start,
     scale: float | None = None,
+    row: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Blocked causal GQA attention with positions = pos_start + arange(t);
     the contract of `gqa_attention`. q [b, t, H, hd]; k/v [b, S, n_kv, hd]
-    (views of the stacked cache are read in place). Returns q.dtype."""
-    _check_flash_shapes(q, k_cache)
+    (views of the stacked cache are read in place); `pos_start` an int or
+    a 0-d int32/int64 tensor on q's device, which the kernel reads (no
+    host sync: a CUDA graph's operand). `row`: a [1] int64 tensor on q's
+    device naming the one cache row a one-row q reads from k/v [B, S, n_kv,
+    hd] (with a device position): the kernel reads it too, so a graph of
+    one batch row's chunk reads that row in place, at any row. Returns
+    q.dtype."""
+    if row is not None:
+        _check_device_row(row, q, k_cache)
+        k_one = k_cache[:1]
+    else:
+        k_one = k_cache
+    _check_flash_shapes(q, k_one)
     if scale is None:
         scale = 1.0 / (q.shape[3] ** 0.5)
     if q.device.type == "meta":
-        pairs, rows = _visible_keys(q.shape[1], int(pos_start), 0, k_cache.shape[1])
+        k_cache = k_one
+        # a device position has no value here: the census takes the chunk
+        # that ends at the view's last row, the most its causal limit reads
+        p = (k_cache.shape[1] - q.shape[1] if isinstance(pos_start, torch.Tensor)
+             else int(pos_start))
+        pairs, rows = _visible_keys(q.shape[1], p, 0, k_cache.shape[1])
         return _attention_cost("flash_attention", q, k_cache, pairs, rows, census.nbytes(q),
                                lambda: torch.empty_like(q))
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k_cache, v_cache, int(pos_start), scale)
+        if row is not None:
+            k_cache, v_cache = k_cache.index_select(0, row), v_cache.index_select(0, row)
+        return flash_attention_plain(q, k_cache, v_cache, pos_start, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    out = _launch(q, k_cache, v_cache, int(pos_start), scale)
+    out = _launch(q, k_cache, v_cache,
+                  pos_start if isinstance(pos_start, torch.Tensor) else int(pos_start), scale,
+                  row)
     flash_attention.launches += 1
     return out
 

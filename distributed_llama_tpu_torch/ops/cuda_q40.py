@@ -61,7 +61,9 @@ K4 `q40_grouped_gemm_bf16` (csrc/q40_grouped_gemm.cu) replaces
 block_expert[i] of a flat expert stack (MoE prefill), with the weights as
 the MMA's 16-row operand and one CTA per (row block, `grouped_plan`
 column tile) over the whole contraction; `q40_grouped_gemm_bf16_blocked`
-repeats its order of sums on the CPU.
+repeats its order of sums on the CPU. Its `exact_scale` instances form the
+weights as the JAX package's gather arm does (`dequantize_t`), for the MoE
+FFN's small-row arm, where JAX gathers.
 
 Every wrapper takes its plain version for a tensor on the CPU, launches its
 kernel for a tensor on the card (or raises), and counts its launches in a
@@ -134,10 +136,10 @@ GEMV_MAX_CTAS = 256
 GEMV_SPLIT_CTAS = 128
 _GROUPED_SIG = {
     # x (bf16), q, d, block_group, n_blocks, n_groups, out, block_r, in,
-    # out, cols, stream
+    # out, exact_scale, cols, stream
     "q40_grouped_gemm_bf16": (
         kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.LL,
-        kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
+        kernels.P, kernels.I, kernels.I, kernels.I, kernels.I, kernels.I, kernels.P,
     ),
 }
 _I8_MMA_SIG = {
@@ -490,23 +492,34 @@ def q40_gemv_q80_indexed_blocked(x, q, d, idx, plan: GemvPlan) -> torch.Tensor:
     return torch.cat(rows)
 
 
-def q40_grouped_gemm_bf16_plain(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
+def _grouped_weights(qf, df, sel, exact_scale: bool) -> torch.Tensor:
+    """The groups `sel` of a flat stack as K4 forms them, [n, nb, 32, out]
+    bf16: (u - 8) * bf16(scale) rounded to bf16 (K2's and JAX's grouped
+    kernel's rounding), or with `exact_scale` bf16(f32(scale) * (u - 8)),
+    the gather arm's `dequantize_t`."""
+    scale = df[sel].to(torch.float32)
+    if not exact_scale:
+        scale = scale.to(torch.bfloat16).to(torch.float32)
+    return (unpack_q(qf[sel]).to(torch.float32) * scale.unsqueeze(2)).to(torch.bfloat16)
+
+
+def q40_grouped_gemm_bf16_plain(xp, q, d, block_expert, block_r: int,
+                                exact_scale: bool = False) -> torch.Tensor:
     """K4's plain version: row block i of xp [R_pad, in] (cast to bf16)
-    times group block_expert[i] of the flat stack, K2's rounding ->
-    [R_pad, out] f32."""
+    times group block_expert[i] of the flat stack, K2's rounding (or the
+    gather arm's, `exact_scale`) -> [R_pad, out] f32."""
     qf, df = flat_groups(q, d)
     nb = qf.shape[-2] // 4
     out_f = qf.shape[-1]
     n_blocks = xp.shape[0] // block_r
-    sel = block_expert.long()
-    sb = df[sel].to(torch.float32).to(torch.bfloat16).to(torch.float32)
-    w = (unpack_q(qf[sel]).to(torch.float32) * sb.unsqueeze(2)).to(torch.bfloat16)
+    w = _grouped_weights(qf, df, block_expert.long(), exact_scale)
     w = w.reshape(n_blocks, nb * Q_BLOCK, out_f).to(torch.float32)
     xb = xp.reshape(n_blocks, block_r, nb * Q_BLOCK).to(torch.bfloat16).to(torch.float32)
     return _f32_matmul(xb, w).reshape(n_blocks * block_r, out_f)
 
 
-def q40_grouped_gemm_bf16_blocked(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
+def q40_grouped_gemm_bf16_blocked(xp, q, d, block_expert, block_r: int,
+                                  exact_scale: bool = False) -> torch.Tensor:
     """K4's sums in the kernel's order, for the CPU tests: K2's plain
     weights and x, each Q40 block's 32 products summed in f32 (two
     16-feature MMA steps in the kernel), the blocks of a row block
@@ -517,9 +530,7 @@ def q40_grouped_gemm_bf16_blocked(xp, q, d, block_expert, block_r: int) -> torch
     nb = qf.shape[-2] // 4
     out_f = qf.shape[-1]
     n_blocks = xp.shape[0] // block_r
-    sel = block_expert.long()
-    sb = df[sel].to(torch.float32).to(torch.bfloat16).to(torch.float32)
-    w = (unpack_q(qf[sel]).to(torch.float32) * sb.unsqueeze(2)).to(torch.bfloat16)
+    w = _grouped_weights(qf, df, block_expert.long(), exact_scale)
     w = w.to(torch.float32)  # [n_blocks, nb, 32, out]
     xb = xp.reshape(n_blocks, block_r, nb, Q_BLOCK).to(torch.bfloat16).to(torch.float32)
     per_block = torch.einsum("nrbf,nbfo->bnro", xb, w)  # [nb, n_blocks, block_r, out]
@@ -657,7 +668,8 @@ def _launch_gemv_indexed(x, q, d, idx, plan: GemvPlan | None = None, lib=None) -
     return out
 
 
-def _launch_grouped(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
+def _launch_grouped(xp, q, d, block_expert, block_r: int,
+                    exact_scale: bool = False) -> torch.Tensor:
     nb = q.shape[-2] // 4
     in_f, out_f = nb * Q_BLOCK, q.shape[-1]
     plan = grouped_plan(nb, out_f, block_r)
@@ -668,7 +680,7 @@ def _launch_grouped(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
         lib, "q40_grouped_gemm_bf16", xp,
         xb.data_ptr(), q.data_ptr(), d.data_ptr(), block_expert.data_ptr(),
         xp.shape[0] // block_r, q.numel() // (nb * 4 * out_f), out.data_ptr(), block_r, in_f,
-        out_f, plan.cols,
+        out_f, int(exact_scale), plan.cols,
     )
     return out
 
@@ -893,12 +905,16 @@ def q40_gemv_q80_indexed(x, q, d, idx) -> torch.Tensor:
 q40_gemv_q80_indexed.launches = 0
 
 
-def q40_grouped_gemm_bf16(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
+def q40_grouped_gemm_bf16(xp, q, d, block_expert, block_r: int,
+                          exact_scale: bool = False) -> torch.Tensor:
     """K4 (B7): row block i of xp [R_pad, in] (cast to bf16) times group
     block_expert[i] of q [..., nb*4, out], d [..., nb, out] (leading axes
     flatten to groups; [L, E] stacks take layer * E + expert). block_r is
     8, 16, 32 or 64 and divides R_pad; block_expert is [R_pad // block_r]
-    int32 on xp's device. Returns [R_pad, out] f32."""
+    int32 on xp's device. Each weight is (u - 8) * bf16(scale) rounded to
+    bf16, as JAX's grouped kernel forms it, or with `exact_scale`
+    bf16(f32(scale) * (u - 8)), as its gather arm does. Returns [R_pad,
+    out] f32."""
     _check_groups(q, d, xp, block_expert)
     if xp.ndim != 2:
         raise ValueError(f"xp must be [R_pad, in], got {tuple(xp.shape)}")
@@ -913,8 +929,8 @@ def q40_grouped_gemm_bf16(xp, q, d, block_expert, block_r: int) -> torch.Tensor:
         return _matmul_cost("q40_grouped_gemm_bf16", xp, q, d, xp.shape[0],
                             min(n_blocks, n_groups), census.nbytes(block_expert))
     if _device_kind(xp) == "cpu":
-        return q40_grouped_gemm_bf16_plain(xp, q, d, block_expert, block_r)
-    out = _launch_grouped(xp, q, d, block_expert, block_r)
+        return q40_grouped_gemm_bf16_plain(xp, q, d, block_expert, block_r, exact_scale)
+    out = _launch_grouped(xp, q, d, block_expert, block_r, exact_scale)
     q40_grouped_gemm_bf16.launches += 1
     return out
 

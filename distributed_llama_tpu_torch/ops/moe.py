@@ -11,7 +11,8 @@ The counterpart of the JAX package's `ops/moe.py`: `moe_router` (:50),
 
 `moe_ffn_ragged` runs every (token, slot) row's expert SwiGLU at once. On
 the bf16 kernel path it lays the rows out grouped by expert (each group
-padded to a block_r multiple, without a sort and without a host sync) and
+padded to a block_r multiple, without a sort and without a host sync, and
+with no allocation but the step's own: a CUDA graph captures it) and
 runs the three matmuls through the grouped kernel K4
 (ops/cuda_q40.py:q40_grouped_gemm_bf16), with the layer always folded into
 the flat group index (the JAX package's production path; its
@@ -102,7 +103,7 @@ def _grouped_block_rows(rows: int, n_groups: int) -> int:
     return block_r
 
 
-def _grouped_eligible(w1, w3, w2, dtype, q80: bool = False) -> bool:
+def grouped_eligible(w1, w3, w2, dtype, q80: bool = False) -> bool:
     """The grouped kernel serves bf16 compute on Q40 expert stacks with the
     expert kernels' alignment (the JAX package's _grouped_quant_eligible,
     there at nb % 8 == 0; `q40_expert_aligned`);
@@ -131,12 +132,16 @@ def moe_ffn_ragged(
     dtype,  # matmul operand dtype
     layer: int | None = None,
     q80: bool = False,  # the reference-parity Q80 round trip of the inputs
+    exact_scale: bool = False,  # K4 forms the weights as the gather arm does
 ) -> torch.Tensor:
     """Exact top-k expert SwiGLU for all rows at once: for every (token,
     slot) row, h = act(y @ w1[e]) * (y @ w3[e]); out = sum_k wts * (h @
     w2[e]), the slots summed in f32. With `q80` the plain arm takes the
-    rows' inputs and h through Q80 (JAX :345-347). Under expert
-    parallelism the route comes through `ep_local_route` first."""
+    rows' inputs and h through Q80 (JAX :345-347). `exact_scale`: K4's
+    weights are bf16(f32(scale) * (u - 8)), the JAX gather arm's, where
+    this serves a chunk JAX gathers (`models/transformer.py:_moe_ffn`).
+    Under expert parallelism the route comes through `ep_local_route`
+    first."""
     b, t, dim = y.shape
     k = idx.shape[-1]
     n_tok = b * t
@@ -144,7 +149,7 @@ def moe_ffn_ragged(
     e_flat = idx.reshape(rows)
     n_groups = (w1.q if isinstance(w1, QuantTensor) else w1).shape[-3]  # experts a layer
 
-    if _grouped_eligible(w1, w3, w2, dtype, q80):
+    if grouped_eligible(w1, w3, w2, dtype, q80):
         block_r = _grouped_block_rows(rows, n_groups)
         dest, block_expert, R_pad = _grouped_layout_direct(e_flat, n_groups, block_r)
         if layer is not None:
@@ -156,7 +161,7 @@ def moe_ffn_ragged(
         xp[dest] = xrep.to(torch.bfloat16)
 
         def gdot(x_, w_):
-            return q40_grouped_gemm_bf16(x_, w_.q, w_.d, block_expert, block_r)
+            return q40_grouped_gemm_bf16(x_, w_.q, w_.d, block_expert, block_r, exact_scale)
 
         h = (act_fn(gdot(xp, w1)) * gdot(xp, w3)).to(y.dtype)
         per_row = gdot(h, w2)[dest].reshape(n_tok, k, dim)  # original order

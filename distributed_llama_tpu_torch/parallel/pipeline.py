@@ -49,7 +49,7 @@ from ..models.config import ModelConfig
 from ..models.transformer import (
     SpShards, _paged_index, _row_window, attention_out, ffn_out, linear, step_positions,
 )
-from ..ops.cuda_attention import FLASH_ROWS, flash_plan, visible_tiles
+from ..ops.cuda_attention import FLASH_ROWS, FLASH_TILE, flash_plan
 from ..ops.moe import moe_router
 from ..ops.norm import rms_norm
 from ..ops.rope import RopeTables, rope_rows
@@ -93,13 +93,13 @@ def collective_budget(cfg: ModelConfig, mesh: Mesh, microbatches: int) -> dict:
                 ep_combine=L * M if mesh.ep > 1 else 0)
 
 
-def _flash_split(cfg: ModelConfig, b: int, t: int, pos_start: int, view_len: int) -> int:
-    """The KV tiles a split of K3 takes for t queries at pos_start over a
-    view_len-row view (ops/cuda_attention.py `plan_for`), on a shard of
-    `cfg`'s heads."""
+def _flash_split(cfg: ModelConfig, b: int, t: int, view_len: int) -> int:
+    """The KV tiles a split of K3 takes for t queries over a view_len-row
+    view (ops/cuda_attention.py `plan_for`, a function of shapes alone), on
+    a shard of `cfg`'s heads."""
     g = cfg.n_heads // cfg.n_kv_heads
     base = b * cfg.n_kv_heads * -(-(t * g) // FLASH_ROWS)
-    return flash_plan(visible_tiles(t, view_len, pos_start), base).split_tiles
+    return flash_plan(-(-view_len // FLASH_TILE), base).split_tiles
 
 
 def microbatch_count(cfg: ModelConfig, pp: int, b: int, t: int, pos_start=None,
@@ -119,9 +119,7 @@ def microbatch_count(cfg: ModelConfig, pp: int, b: int, t: int, pos_start=None,
             or (t >= FLASH_MIN_T) != (mt >= FLASH_MIN_T)):
         return 1
     if isinstance(pos_start, int) and view_len is not None and t >= FLASH_MIN_T:
-        whole = _flash_split(cfg, b, t, pos_start, view_len)
-        if any(_flash_split(cfg, b, mt, pos_start + m * mt, view_len) != whole
-               for m in range(pp)):
+        if _flash_split(cfg, b, mt, view_len) != _flash_split(cfg, b, t, view_len):
             return 1
     return pp
 

@@ -492,7 +492,7 @@ def run_seq(S: int, device, seed: int = 0, timed: bool = True, shape=SHAPE_1B) -
     ctas = {"pure_read": b * read_plan(b, n_kv, S, hd).splits,
             "decode_attention": b * n_kv * attention_plan(S, hd).cluster,
             "flash_headmajor": b * n_kv * -(-g // cuda_attention.FLASH_ROWS)
-            * cuda_attention.plan_for(q4, headmajor_view(k), pos).splits}
+            * cuda_attention.plan_for(q4, headmajor_view(k)).splits}
     rows = []
     for name in ("pure_read", "decode_attention", "flash_headmajor"):
         err = (got[name].float() - want[name].float()).abs().max().item()

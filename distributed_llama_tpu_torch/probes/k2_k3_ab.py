@@ -236,7 +236,7 @@ def k3_cases(old: Old) -> list:
             [lambda a=a, b=b, c=c: cuda_attention.flash_attention(a, b, c, pos) for a, b, c in views],
             [_sdpa(a, b, c, pos) for a, b, c in views],
             L * (2 * t * nh * hd * 4 + 2 * (pos + t) * nkv * hd * 2), L * 4 * nh * hd * visible,
-            diff, splits=cuda_attention.plan_for(qs[0], views[0][1], pos).splits))
+            diff, splits=cuda_attention.plan_for(qs[0], views[0][1]).splits))
         del ck, cv
     # long context: one chunk at position 6000 over an 8192-row view, hd 64
     t, pos, S = 32, 6000, 8192
@@ -250,7 +250,7 @@ def k3_cases(old: Old) -> list:
                     [lambda: cuda_attention.flash_attention(q, k, v, pos)] * REPS,
                     [_sdpa(q, k, v, pos)] * REPS,
                     2 * t * NH * HD * 4 + 2 * (pos + t) * NKV * HD * 2, 4 * NH * HD * visible,
-                    diff, per_call=True, splits=cuda_attention.plan_for(q, k, pos).splits))
+                    diff, per_call=True, splits=cuda_attention.plan_for(q, k).splits))
     # B8: the 4096-row shard 0 of a chunk at 4080, all visible, both widths
     for nh, nkv, hd in ((NH, NKV, HD), (NH30, NKV30, HD30)):
         t, S, pos = 32, 4096, 4080
@@ -265,7 +265,7 @@ def k3_cases(old: Old) -> list:
                         [lambda: old.partial(q, k, v, pos, 0)] * REPS,
                         [lambda: cuda_attention.flash_attention_partial(q, k, v, pos, 0)] * REPS,
                         [_sdpa(q, k, v, pos)] * REPS, nbytes, 4 * nh * hd * visible, diff,
-                        per_call=True, splits=cuda_attention.plan_for(q, k, pos).splits,
+                        per_call=True, splits=cuda_attention.plan_for(q, k).splits,
                         library="SDPA, nearest"))
     # P8: K3 at t = 1 over a head-major 32768-row cache
     from .attention import headmajor_view
@@ -282,7 +282,7 @@ def k3_cases(old: Old) -> list:
                     [lambda: cuda_attention.flash_attention(q, k, v, pos)] * REPS,
                     [_sdpa(q, k, v, pos)] * REPS,
                     2 * (pos + 1) * NKV * HD * 2 + 2 * NH * HD * 2, 4 * NH * HD * (pos + 1), diff,
-                    per_call=True, splits=cuda_attention.plan_for(q, k, pos).splits))
+                    per_call=True, splits=cuda_attention.plan_for(q, k).splits))
     return out
 
 

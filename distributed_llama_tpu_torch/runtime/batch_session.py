@@ -161,21 +161,26 @@ def batch_decode_step(cfg, params, rope, cache: KVCache, bufs, kv_len: int,
     return logits
 
 
-def prefill_row(cfg, params, rope, cache: KVCache, tokens: torch.Tensor, pos_start: int,
-                row: int, kv_len: int | None = None) -> None:
+def prefill_row(cfg, params, rope, cache: KVCache, tokens: torch.Tensor, pos_start,
+                row, kv_len: int | None = None) -> torch.Tensor:
     """Prefill one row of a contiguous batched cache with the ordinary b = 1
-    forward at a scalar position (flash-eligible), on a view of the row's
-    slab: the writes land in place, no copy moves in or out (JAX slices
-    the row out and writes it back). On a mesh the view is the row's in
-    every shard of its dp group (`MeshKV.row_view`; JAX runs the whole
-    batch with the other rows parked, engine.py:1066-1089)."""
+    forward at a scalar position (flash-eligible). `row` a host int: on a
+    view of the row's slab, so the writes land in place and no copy moves
+    in or out (JAX slices the row out and writes it back); a [1] or 0-d
+    int64 tensor on the device (a graphed admission chunk, one graph for
+    every row): the forward's `row` operand, the same values. On a mesh
+    the view is the row's in every shard of its dp group
+    (`MeshKV.row_view`; JAX runs the whole batch with the other rows
+    parked, engine.py:1066-1089). Returns the chunk's last-row logits."""
     if isinstance(cache, MeshKV):
-        view = cache.row_view(row)
-        pipeline_forward(cfg, view.mesh, params, rope, view, tokens, pos_start, kv_len=kv_len)
-        return
+        view = cache.row_view(int(row))
+        return pipeline_forward(cfg, view.mesh, params, rope, view, tokens, pos_start,
+                                kv_len=kv_len)
+    if isinstance(row, torch.Tensor):
+        return forward(cfg, params, rope, cache, tokens, pos_start, kv_len=kv_len, row=row)
     view = KVCache(*(None if t is None else t[:, row : row + 1]
                      for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
-    forward(cfg, params, rope, view, tokens, pos_start, kv_len=kv_len)
+    return forward(cfg, params, rope, view, tokens, pos_start, kv_len=kv_len)
 
 
 class BatchSession:

@@ -18,6 +18,12 @@ in `decode_chunk` at an int position; the forward pass takes that
 position as a 0-d device tensor and computes what it computes at the int:
 the same logits, bit for bit, with as many launches.
 
+`prefill_step` is one prefill chunk on the same buffers: the chunk's
+tokens and its position on the device, so a CUDA graph of (kind, batch,
+chunk size, kv bucket, layout, kv dtype) replays every chunk of that shape
+at any position of its bucket, as the JAX engine's jitted prefill takes
+its position as a device operand.
+
 `verify_step` is the speculative verify round on the same buffers
 (runtime/speculative.py), for both verify kinds: the feed at `bufs.pos[0]`
 (rows aligned) or at `bufs.pos` (per row), logits at every position and
@@ -138,6 +144,30 @@ def decode_step(
         grammar_table=bufs.grammar, grammar_state=bufs.gstate))
     bufs.advance(token)
     return logits
+
+
+def prefill_step(cfg: ModelConfig, params: ModelParams, rope: RopeTables, cache: KVCache, bufs,
+                 size: int, kv_len: int, page_size: int | None = None,
+                 row: bool = False) -> torch.Tensor:
+    """One capture-safe prefill chunk (the JAX engine's jitted prefill
+    program, engine.py:1302-1320): `forward` over the chunk operand
+    `bufs.prefill(size, row)` (tokens, then the 0-d device position, then
+    the row), the KV writes landing in the cache in place; nothing syncs
+    with the host. "prefill" (`row` False): every row, through the
+    engine's page table `bufs.table` where paged. "prefill_row" (`row`):
+    one batch row alone at b = 1: paged through the one-row table
+    `bufs.row_table`, contiguous into the row the operand names on the
+    device, so one graph serves every row. Returns the last row's logits
+    [rows, vocab] f32 (JAX's prefill fetches none of it)."""
+    tokens, pos, at = bufs.prefill_views(bufs.prefill(size, row), size)
+    if not row:
+        return forward(cfg, params, rope, cache, tokens, pos, logits_mode="last", kv_len=kv_len,
+                       page_table=bufs.table if page_size else None, page_size=page_size)
+    if page_size:
+        return forward(cfg, params, rope, cache, tokens, pos, logits_mode="last", kv_len=kv_len,
+                       page_table=bufs.row_table, page_size=page_size)
+    return forward(cfg, params, rope, cache, tokens, pos, logits_mode="last", kv_len=kv_len,
+                   row=at)
 
 
 def sample_step(logits: torch.Tensor, bufs, sampler: str, sampled) -> torch.Tensor:

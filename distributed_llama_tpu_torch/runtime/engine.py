@@ -5,7 +5,8 @@ The counterpart of the JAX package's `runtime/engine.py` (the reference's
 src/dllama.cpp:13-151), for one device: `chunk_plan`, `__init__` with its
 `batch`, `kv_layout`, `kv_page_size` and `kv_pool_mb` arguments,
 `_kv_bucket`, `_new_cache`, `reset`, the paged plumbing (`_pt_operand`,
-`_ensure_pages`, `_reclaim_pages`), `forward_tokens`, `prefill` (serial),
+`_ensure_pages`, `_reclaim_pages`), `forward_tokens`, `prefill` with
+`prefill_pipelined` and `_pipelined_chunks` (JAX :1177-1198),
 `decode_one`, `_dispatch_prefill_row`, `generate`, `_decode_host`,
 `_decode_device`, `generate_batch` and `_decode_batch_chunked`, the
 `mesh=` and `execution=` arguments with the JAX engine's mesh rules
@@ -44,10 +45,13 @@ arm and multihost meshes (ROADMAP A13b).
   tokens and logits live on the mesh's first device.
 * Decode runs in chunks of device steps with one token fetch to the host
   per chunk (`_decode_device`). On the card a chunk replays the CUDA graph
-  of one decode step (runtime/graphs.py) n times. Setting the
-  attribute `cuda_graphs` to False runs the same chunks eagerly, as the
-  JAX engine runs under `jax.disable_jit`: the reference the graphs are
-  held to and the other arm of their A/B, not a serving option.
+  of one decode step (runtime/graphs.py) n times, and each prefill and
+  admission chunk replays the graph of its (kind, chunk size, kv bucket),
+  its tokens, position and row in one device operand (`_dispatch_chunk`).
+  Setting the attribute `cuda_graphs` to False runs the same chunks
+  eagerly, as the JAX engine runs under `jax.disable_jit`: the reference
+  the graphs are held to and the other arm of their A/B, not a serving
+  option.
   `graph_eligible` names the arms that stay eager.
 * With a prefix cache, a prefill from position 0 (`prefill`, `generate`,
   `generate_batch`) matches the cache, splices the hit into every row and
@@ -91,6 +95,7 @@ arm and multihost meshes (ROADMAP A13b).
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 import warnings
@@ -105,6 +110,7 @@ from ..device import resolve_device
 from ..formats.mfile import MFileReader
 from ..models import config_from_header, forward, init_kv_cache, load_params
 from ..models.transformer import moe_grouped
+from ..ops.moe import grouped_eligible
 from ..ops.rope import build_rope_tables
 from ..ops.sampling import SAMPLERS, sampler_arm
 from ..parallel.sharding import check_mesh, mesh_kv, mesh_pool, shard_params
@@ -112,7 +118,7 @@ from ..tokenizer import Sampler
 from .batch_session import (
     Rows, batch_decode_chunk, batch_decode_step, row_seeds, row_states,
 )
-from .decode import decode_chunk, decode_step, verify_step
+from .decode import decode_chunk, decode_step, prefill_step, verify_step
 from .grammar import GrammarArena, resolve_grammar_enabled
 from .graphs import KINDS, DecodeGraphs, GraphKey, StepBuffers
 from .paged_kv import (
@@ -232,6 +238,10 @@ class InferenceEngine:
         q80_activations: bool = False,  # the reference-parity mode: every
         # Q40 matmul input round-tripped through Q80 (ModelConfig); library
         # only, as in the JAX engine: no CLI flag maps to it
+        prefill_pipelined: bool | None = None,  # None = DLT_PREFILL_PIPELINE
+        # env, else on: chunk k + 1 dispatches while the card runs chunk k;
+        # False = the strict serial arm (dispatch, wait for the card,
+        # dispatch), the bit-parity reference (JAX :194)
     ):
         if mesh is not None and device is not None:
             raise ValueError("give the engine a mesh or a device, not both")
@@ -291,6 +301,11 @@ class InferenceEngine:
                 )
             check_mesh(self.cfg, mesh)
         self.params = load_params(self.reader, self.cfg, device=self.device)
+        # the MoE FFN's grouped arm runs K4 (capturable) rather than the f32
+        # plain arm, which reads its group sizes back to the host
+        lp = self.params.layers
+        self._moe_k4 = self.cfg.is_moe and grouped_eligible(
+            lp.w1, lp.w3, lp.w2, self.cfg.dtype, self.cfg.q80_activations)
         if self.use_pipeline:
             # cut once, then the whole copy goes (the shards own their
             # storage wherever a cut is not a leading-axis view)
@@ -315,6 +330,9 @@ class InferenceEngine:
         self._warm: set = set()
         # the last prefill's dispatch-vs-wall summary (the JAX engine's)
         self.last_prefill_timing: dict | None = None
+        if prefill_pipelined is None:
+            prefill_pipelined = os.environ.get("DLT_PREFILL_PIPELINE", "1") != "0"
+        self.prefill_pipelined = prefill_pipelined
         self.kv_layout = resolve_kv_layout(kv_layout)
         self.paged = self.kv_layout == "paged"
         self.page_size = resolve_page_size(kv_page_size) if self.paged else None
@@ -662,7 +680,16 @@ class InferenceEngine:
         the chunk plan resumes at its boundary (`last_prefix_hit_tokens`);
         with `publish`, the completed prefill publishes its KV.
 
-        Each chunk's eager dispatch wall lands in `stats` as
+        On the card each chunk replays the CUDA graph of its ("prefill",
+        chunk size, kv bucket) key with the tokens and the position as
+        device operands (JAX's jitted prefill, :1302-1320); with
+        `cuda_graphs` off, or where `graph_eligible` refuses, it runs
+        eagerly at a host position, the same bits. The chunk loop is
+        `_pipelined_chunks`: chunk after chunk with no wait between, or the
+        serial arm (`prefill_pipelined=False`) waits for the card after
+        every chunk.
+
+        Each chunk's dispatch wall lands in `stats` as
         ``prefill_dispatch[size]``, the one sync's in ``prefill_sync``, each
         chunk's share of the whole in ``prefill[size]``; the chunks and the
         sync run under one watchdog keyed on every chunk's (size, kv
@@ -692,15 +719,23 @@ class InferenceEngine:
         sync_t0 = None
         chunk_log = []  # (dispatch start, dispatch us, size) a chunk
         if plan:
+            def prep(idx):
+                i, size, n_real = plan[idx]
+                chunk = rem[i : i + n_real] + [0] * (size - n_real)
+                return self._chunk_operand([chunk] * self.batch, base + i)
+
+            def dispatch(idx, host):
+                nonlocal dispatch_us
+                size, kvb = shapes[idx]
+                td = time.perf_counter()
+                self._dispatch_chunk("prefill", host, size, kvb)
+                dus = int((time.perf_counter() - td) * 1e6)
+                dispatch_us += dus
+                self.stats.record(f"prefill_dispatch[{size}]", dus)
+                chunk_log.append((td, dus, size))
+
             with self._guard(f"prefill[{len(rem)}]", ("prefill", tuple(shapes))):
-                for (i, size, n_real), (_, kvb) in zip(plan, shapes):
-                    chunk = rem[i : i + n_real] + [0] * (size - n_real)
-                    td = time.perf_counter()
-                    self._forward(self._tokens([chunk] * self.batch), base + i, kv_len=kvb)
-                    dus = int((time.perf_counter() - td) * 1e6)
-                    dispatch_us += dus
-                    self.stats.record(f"prefill_dispatch[{size}]", dus)
-                    chunk_log.append((td, dus, size))
+                self._pipelined_chunks(len(plan), prep, dispatch)
                 sync_t0 = time.perf_counter()
                 self._sync()
         elif resume:
@@ -749,24 +784,87 @@ class InferenceEngine:
 
     def _dispatch_prefill_row(self, row: int, chunk: list, pos: int, kv_len: int) -> None:
         """One admission-prefill chunk into `row` alone, at b = 1 and a
-        scalar position (flash-eligible): paged, through the row's table
-        slice against the shared pool; contiguous, on a view of the row's
+        scalar position (flash-eligible): on the card the "prefill_row"
+        graph of (chunk size, kv bucket), the row a device operand, so one
+        graph serves every row; eagerly, paged through the row's table
+        slice against the shared pool, contiguous on a view of the row's
         slab (no copy: the writes land in place). A mesh runs the same
         step over the row's shards."""
-        toks = self._tokens([chunk])
         if self.paged:
             self._ensure_pages([(row, pos, pos + len(chunk))])
-            pt = self._pt_operand()
-            pt = ({dev: t[row : row + 1] for dev, t in pt.items()} if self.use_pipeline
-                  else pt[row : row + 1])
-            forward(
-                self.cfg, self.params, self.rope, self.cache, toks, pos, kv_len=kv_len,
-                page_table=pt, page_size=self.page_size,
-            )
-            return
-        from .batch_session import prefill_row
+        self._dispatch_chunk("prefill_row", self._chunk_operand([chunk], pos, row), len(chunk),
+                             kv_len)
 
-        prefill_row(self.cfg, self.params, self.rope, self.cache, toks, pos, row, kv_len)
+    @staticmethod
+    def _chunk_operand(rows: list, pos: int, row: int = 0) -> np.ndarray:
+        """A prefill chunk's host operand: its token rows flattened, then
+        its position and its batch row, [rows * size + 2] int64 (the
+        layout of `StepBuffers.prefill`). Host work only."""
+        return np.concatenate([np.asarray(rows, dtype=np.int64).reshape(-1),
+                               np.asarray([pos, row], dtype=np.int64)])
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """`host` as a tensor the card can copy from without waiting: page-
+        locked on the card, as it is on the CPU."""
+        t = torch.from_numpy(host)
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _dispatch_chunk(self, kind: str, host: np.ndarray, size: int, kv_len: int):
+        """One prefill chunk of `kind` ("prefill": every row; "prefill_row":
+        the operand's row alone) from its host operand (`_chunk_operand`):
+        the kind's graph of (size, kv bucket) replayed on the static
+        operand, filled by one copy; or, where `_graphs_for` gives none,
+        the eager forward at the host position (the same bits: K3 takes
+        one plan at either). Returns the chunk's last-row logits on the
+        device (valid until the next chunk, graphed)."""
+        rows = 1 if kind == "prefill_row" else self.batch
+        pos, row = int(host[rows * size]), int(host[rows * size + 1])
+        graphs = self._graphs_for(kind, size=size)
+        if graphs is None:
+            toks = self._upload(host[: rows * size].reshape(rows, size)).to(
+                self.device, non_blocking=True)
+            if kind == "prefill":
+                return self._forward(toks, pos, kv_len=kv_len)
+            if self.paged:
+                pt = self._pt_operand()
+                pt = ({dev: t[row : row + 1] for dev, t in pt.items()} if self.use_pipeline
+                      else pt[row : row + 1])
+                return forward(self.cfg, self.params, self.rope, self.cache, toks, pos,
+                               kv_len=kv_len, page_table=pt, page_size=self.page_size)
+            from .batch_session import prefill_row
+
+            return prefill_row(self.cfg, self.params, self.rope, self.cache, toks, pos, row,
+                               kv_len)
+        bufs = self._step_buffers()
+        one_row = kind == "prefill_row"
+        bufs.prefill(size, one_row).copy_(self._upload(host), non_blocking=True)
+        if self.paged:
+            if one_row:
+                self._tables[self.device].row_operand(self.page_pool, row, bufs.row_table)
+            else:
+                self._pt_operand()
+        step = partial(prefill_step, self.cfg, self.params, self.rope, self.cache, bufs, size,
+                       kv_len, self.page_size, one_row)
+        graphs.run(self._graph_key(kind, kv_len, "greedy", size), step, 1)
+        return graphs.last_logits
+
+    def _pipelined_chunks(self, n_chunks: int, prep, dispatch):
+        """The one owner of the prefill chunk loop, `prefill`'s and
+        `generate_batch`'s (JAX :1177-1198): `prep(idx)` builds chunk idx's
+        host operand, `dispatch(idx, operand)` launches it. Pipelined, the
+        host goes on to the next chunk while the card runs this one; serial
+        (`prefill_pipelined` False), the card finishes each chunk before the
+        next (dispatch, wait, dispatch), the reference arm. JAX's worker
+        thread overlaps its next chunk's device_put with the dispatch; the
+        port's operand is a few ints of host work, built inline. Both arms
+        run the same chunks on the same operands: the same bits. Returns
+        the last dispatch's output."""
+        out = None
+        for idx in range(n_chunks):
+            out = dispatch(idx, prep(idx))
+            if not self.prefill_pipelined:
+                self._sync()
+        return out
 
     # -- generation ---------------------------------------------------------
 
@@ -934,25 +1032,26 @@ class InferenceEngine:
 
     def graph_eligible(self, kind: str, batch: int | None = None, size: int = 1) -> bool:
         """Whether a `kind` step (one of graphs.KINDS) at `batch` rows
-        (default: the engine's) and `size` tokens a row (the verify feed's
-        length; 1 for decode) is captured as a CUDA graph: a rule of shapes
-        alone, whatever the device. Two arms stay eager:
+        (default: the engine's; a "prefill_row" chunk is one row) and
+        `size` tokens a row (the verify feed's length, the prefill chunk's
+        size; 1 for decode) is captured as a CUDA graph: a rule of shapes
+        and the weights' arms alone, whatever the device. Two arms stay
+        eager:
         * the shard loop (a mesh): its step spans several devices (graphs
           of a mesh's steps are ROADMAP 13b);
-        * the MoE grouped arm, which `_moe_ffn` takes at batch * size *
-          n_active >= n_experts (a Qwen3-30B-A3B decode batch of 16, or a
-          verify round of 16 rows). On the bf16 kernel path its K4 arm
-          builds the expert-grouped layout on the device and reads nothing
-          back (ops/moe.py `_grouped_layout_direct`); only the f32 plain
-          arm reads its group sizes back to the host. The rule keeps the
-          arm eager on either dtype: capturing the K4 arm is untried
-          (ROADMAP 13b)."""
+        * the MoE FFN's f32 plain arm, which `_moe_ffn` takes at batch *
+          size * n_active >= n_experts off the bf16 kernel path (f32
+          compute, unaligned or dense experts, the q80 parity mode): it
+          reads its group sizes back to the host (ops/moe.py). On the bf16
+          kernel path the grouped arm is K4, which builds the
+          expert-grouped layout on the device and reads nothing back: it
+          is captured like any other kernel."""
         if kind not in KINDS:
-            raise ValueError(f"unknown decode kind {kind!r}")
-        b = self.batch if batch is None else batch
+            raise ValueError(f"unknown graph kind {kind!r}")
+        b = 1 if kind == "prefill_row" else self.batch if batch is None else batch
         if self.use_pipeline:
             return False
-        return not (self.cfg.is_moe and moe_grouped(self.cfg, b * size))
+        return not (self.cfg.is_moe and moe_grouped(self.cfg, b * size) and not self._moe_k4)
 
     def _graphs_for(self, kind: str, size: int = 1) -> DecodeGraphs | None:
         """The graph cache a `kind` step of `size` tokens a row runs
@@ -1090,31 +1189,35 @@ class InferenceEngine:
         return sorted(out)
 
     def warm_plan(self) -> list:
-        """The decode ladder: the (kind, size, kv bucket) triples of kinds
-        "decode", "batch_decode", "verify" and "verify_row" (graphs.KINDS)
-        of `cost_plan`, the JAX engine's `warm_plan` (:551), in its order:
-        every decode chunk size of the dispatch loops (the TTFT ramp's
-        included) at every reachable bucket, batch_decode where batch > 1
-        and decode runs on the device, and with speculation on (device
+        """The graph ladder: the (kind, size, kv bucket) triples of the
+        graphed kinds (graphs.KINDS: "prefill", "decode", "prefill_row",
+        "batch_decode", "verify", "verify_row") of `cost_plan`, the JAX
+        engine's `warm_plan` (:551) key for key, in its order: every
+        prefill chunk bucket at every kv bucket that covers it, every
+        decode chunk size of the dispatch loops (the TTFT ramp's included)
+        at every reachable bucket, prefill_row and batch_decode where batch
+        > 1 and decode runs on the device, and with speculation on (device
         decode) a verify of k + 1 tokens for each draft bucket k at each
-        bucket that covers it, verify_row beside it where batch > 1.
-        Prefill and prefix kinds run eagerly here and are not listed.
+        bucket that covers it, verify_row beside it where batch > 1. The
+        prefix copy kinds run eagerly here and are not listed.
 
-        A decode triple's program is the graph of its (kind, kv bucket)
-        step, replayed `size` times, for each sampling arm (greedy, full
-        distribution, top-p); a verify triple's is the greedy graph of its
-        (kind, size, kv bucket) round. `graph_eligible` keeps two arms
-        eager, by shapes alone: the shard loop and the MoE grouped arm at
-        batch * size * n_active >= n_experts."""
+        A prefill triple's program is the graph of its (kind, size, kv
+        bucket) chunk, replayed once a chunk; a decode triple's is the
+        graph of its (kind, kv bucket) step, replayed `size` times, for
+        each sampling arm (greedy, full distribution, top-p); a verify
+        triple's is the greedy graph of its (kind, size, kv bucket) round.
+        `graph_eligible` keeps two arms eager: the shard loop and the MoE
+        f32 plain arm."""
         return [key for key in self.cost_plan() if key[0] in KINDS]
 
     def cost_plan(self) -> list:
         """The JAX engine's `warm_plan` (:551) for the same arguments, key
         for key and in its order: the programs of the cost table
         (runtime/profiling.py), whose coverage it audits. Beside this
-        engine's graphed kinds it lists the kinds the port runs eagerly:
-        "prefill" (every chunk bucket at every kv bucket that covers it),
-        "prefill_row" where batch > 1 with device decode, the contiguous
+        engine's graphed kinds (`warm_plan`: "prefill" at every chunk
+        bucket of every kv bucket that covers it, "decode", "prefill_row"
+        and "batch_decode" where batch > 1 with device decode, the verify
+        kinds) it lists the kinds the port runs eagerly: the contiguous
         prefix cache's "prefix_extract", "prefix_copy" and
         "prefix_copy_row" at each prefix bucket, the paged layout's
         "page_copy", and with a paged prefix cache "page_extract" and
@@ -1168,9 +1271,9 @@ class InferenceEngine:
         return self._cost_table
 
     def warmup(self) -> dict:
-        """Capture every graph `warm_plan` needs, every sampling arm, before
-        the first request (the JAX engine's `warmup` :816 compiles the same
-        ladder), then seal the cache: from here a capture is a ladder hole
+        """Capture every graph `warm_plan` needs, every sampling arm and
+        every prefill chunk, before the first request (the JAX engine's
+        `warmup` :816 compiles the same ladder), then seal the cache: from here a capture is a ladder hole
         and counts in `recaptures_after_warmup` (ROADMAP A14's sentinel).
         Kinds `graph_eligible` refuses, and an engine on the CPU or with
         `cuda_graphs` off, capture nothing. The warm steps write junk into
@@ -1194,6 +1297,20 @@ class InferenceEngine:
                 # entry shares
                 self.prefix_cache.clear()
             for kind, size, kvb in self.warm_plan():
+                if kind in ("prefill", "prefill_row"):
+                    # a junk chunk of zeros at position 0 (row 0): its
+                    # writes land in the cache (paged: unmapped, so the
+                    # sink page), which `reset` drops below
+                    graphs = self._graphs_for(kind, size=size)
+                    if graphs is None:
+                        continue
+                    if self._graph_key(kind, kvb, "greedy", size) not in graphs:
+                        rows = 1 if kind == "prefill_row" else self.batch
+                        self._dispatch_chunk(kind, self._chunk_operand([[0] * size] * rows, 0),
+                                             size, kvb)
+                    if kind == "prefill_row":
+                        self._warm.add((kind, size, kvb))  # BatchSession's guard key
+                    continue
                 if kind in ("verify", "verify_row"):
                     graphs = self._graphs_for(kind, size=size)
                     if graphs is None:
@@ -1517,10 +1634,21 @@ class InferenceEngine:
             if self.paged:
                 i_last, size_last, _ = plan[-1]
                 self._ensure_pages_all_rows(resume, resume + i_last + size_last)
-            for i, size, _ in plan:
+
+            def prep(idx):
+                i, size, _ = plan[idx]
                 at = resume + i
-                rows = [row[at : at + size] + [0] * (size - len(row[at : at + size])) for row in padded]
-                self._forward(self._tokens(rows), at, kv_len=self._kv_bucket(at + size))
+                rows = [row[at : at + size] + [0] * (size - len(row[at : at + size]))
+                        for row in padded]
+                return self._chunk_operand(rows, at)
+
+            def dispatch(idx, host):
+                i, size, _ = plan[idx]
+                return self._dispatch_chunk("prefill", host, size,
+                                            self._kv_bucket(resume + i + size))
+
+            # JAX :1737-1764: the shared chunk loop, graphed chunks on the card
+            self._pipelined_chunks(len(plan), prep, dispatch)
         out: list[list[int]] = [[] for _ in range(self.batch)]
         if max(budgets) > 0:
             if (self.spec_mode is not None and self.device_decode and not self._in_warmup

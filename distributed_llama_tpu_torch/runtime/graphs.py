@@ -1,5 +1,5 @@
-"""CUDA graphs of the decode step: the port's counterpart of the JAX engine's
-jitted decode programs.
+"""CUDA graphs of the decode step, the verify round and the prefill chunk:
+the port's counterpart of the JAX engine's jitted programs.
 
 JAX runs a decode chunk as one `lax.scan` program (`runtime/decode.py:
 decode_chunk` :36) and compiles the (kind, chunk size, kv bucket) ladder
@@ -20,10 +20,21 @@ chunk size as well.)
   round: "verify" with the rows aligned (`generate`), "verify_row" at
   per-row positions with absent rows parked at seq_len (`generate_batch`,
   `BatchSession.spec_step`). Their feed length is a shape, so `size` is t.
+  The prefill kinds are one forward over a chunk of `size` tokens at a
+  device position, replayed once a chunk (JAX's jitted prefill program,
+  engine.py:1302-1320, warmed per (chunk size, kv bucket), :570-588):
+  "prefill" with every row at the position (`prefill`, `generate_batch`),
+  "prefill_row" one row of the batch alone, the row a device operand too
+  (an admission chunk: `BatchSession`, `generate_batch` on no engine here),
+  so one graph serves every row.
 * Every graph of an engine reads and writes one set of static buffers
   (`StepBuffers`): token, positions, seeds, draw counters, temperature,
   top-p, the step counter, the chunk's output and the engine's page table,
-  and for each verify feed length t a [b, t] feed and its greedy ids; on
+  and for each verify feed length t a [b, t] feed and its greedy ids, for
+  each prefill chunk size one operand of the chunk's tokens, its position
+  and (an admission's) row, filled by one host-to-device copy as JAX's
+  prefill moves its tokens and position in one transfer, and the one-row
+  page table an admission chunk reads; on
   an engine with a grammar arena also the arena's device table, the [b]
   grammar states the decode steps mask with and advance, and for each t
   a [b, t] state buffer. The engine copies into the table in place
@@ -70,7 +81,7 @@ import torch
 from ..ops import cuda_attention, cuda_q40
 
 #: the kinds of step a graph captures
-KINDS = ("decode", "batch_decode", "verify", "verify_row")
+KINDS = ("decode", "batch_decode", "verify", "verify_row", "prefill", "prefill_row")
 
 #: held by every capture, and by any thread other than an engine's
 #: device-owning one while it touches the card (see the module docstring)
@@ -84,8 +95,8 @@ class GraphKey:
     kv_bucket: int
     layout: str  # "contiguous" | "paged"
     kv_dtype: str
-    sampler: str  # ops/sampling.py SAMPLERS ("greedy" for the verify kinds)
-    size: int = 1  # the verify feed's length t; 1 for the decode kinds
+    sampler: str  # ops/sampling.py SAMPLERS ("greedy" for the verify and prefill kinds)
+    size: int = 1  # the verify feed's length t, the prefill chunk's size; 1 for decode
 
 
 class StepBuffers:
@@ -95,7 +106,13 @@ class StepBuffers:
     the chunk's step counter, `out` [b, cap] int64 the chunk's tokens,
     `table` the engine's static page table (or None); `feed[t]` [b, t]
     int64 and `ids[t]` [b, t] int32, a verify round's feed and its greedy
-    ids, for each feed length t that `verify(t)` has made. `grammar` is
+    ids, for each feed length t that `verify(t)` has made;
+    `prefill_io[(size, row)]` [rows * size + 2] int64, a prefill chunk's
+    tokens (rows = b, or 1 for an admission chunk), its position and its
+    batch row, for each chunk `prefill(size, row)` has made (views:
+    `prefill_views`); `row_table` [1, max_slots] int32 an admission
+    chunk's page table row (paged: `paged_kv.DeviceTables.row_operand`
+    copies the row's table into it in place). `grammar` is
     the engine's [S, vocab] int32 grammar table (or None: no mask in any
     step), `gstate` [b] int64 the rows' grammar states and `gstates[t]`
     [b, t] int64 a verify round's per-position states."""
@@ -114,6 +131,9 @@ class StepBuffers:
         self.feed: dict = {}
         self.ids: dict = {}
         self.gstates: dict = {}
+        self.prefill_io: dict = {}
+        self.row_table = None if table is None else torch.full(
+            (1, table.shape[1]), -1, dtype=table.dtype, device=device)
 
     def verify(self, t: int) -> tuple:
         """The feed and ids buffers of a verify round of t tokens a row (and
@@ -126,6 +146,23 @@ class StepBuffers:
             if self.grammar is not None:
                 self.gstates[t] = torch.zeros((b, t), dtype=torch.int64, device=device)
         return self.feed[t], self.ids[t]
+
+    def prefill(self, size: int, row: bool = False) -> torch.Tensor:
+        """The operand of a prefill chunk of `size` tokens a row (every row,
+        or with `row` one admission row): [rows * size + 2] int64, made at
+        its first use (before the chunk's graph captures)."""
+        if (size, row) not in self.prefill_io:
+            rows = 1 if row else self.token.shape[0]
+            self.prefill_io[(size, row)] = torch.zeros(
+                (rows * size + 2,), dtype=torch.int64, device=self.token.device)
+        return self.prefill_io[(size, row)]
+
+    @staticmethod
+    def prefill_views(io: torch.Tensor, size: int) -> tuple:
+        """A prefill operand's (tokens [rows, size], position 0-d, row [1])
+        views."""
+        n = io.shape[0] - 2
+        return io[:n].view(n // size, size), io[n], io[n + 1 :]
 
     def load(self, rows) -> None:
         """Copy each field of `rows` (a `batch_session.Rows` of host or

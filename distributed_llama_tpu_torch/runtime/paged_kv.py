@@ -460,3 +460,11 @@ class DeviceTables:
             self.buf.copy_(torch.from_numpy(pool.device_tables()))
             self.version = version
         return self.buf
+
+    def row_operand(self, pool: PagePool, row: int, out: torch.Tensor) -> torch.Tensor:
+        """Row `row`'s table, brought up to date, copied in place into the
+        fixed ``[1, max_slots]`` buffer `out` on the device (one
+        device-to-device copy): a graphed admission chunk reads `out`,
+        whichever row it serves, so one graph serves every row."""
+        out.copy_(self.operand(pool)[row : row + 1])
+        return out

@@ -26,10 +26,12 @@ names, counters, gauges and ``/debug/costs`` / ``/metrics`` /
     in-place writes into them, intermediates on chip.
 
   A decode or batch_decode entry is its one-step graph's census times
-  `size`; a verify entry is one round; prefill, prefix and page kinds run
-  eagerly in the port and are censused from one step of that shape (a
-  prefill chunk ending at its kv bucket). Served at ``GET /debug/costs``
-  with coverage against the ladder.
+  `size`; a verify entry is one round; a prefill or prefill_row entry is
+  one chunk's graph, censused from one step of that shape at a host
+  position (a chunk ending at its kv bucket: the arms and kernels its
+  graph takes at a device position); the prefix and page kinds run
+  eagerly in the port and are censused from one step of that shape.
+  Served at ``GET /debug/costs`` with coverage against the ladder.
 * **HBM ledger** — modeled per-component device bytes (weights, rope
   tables, KV cache, contiguous prefix entries, a draft engine),
   reconciled against the card's measured bytes: the caching allocator's
@@ -44,6 +46,9 @@ names, counters, gauges and ``/debug/costs`` / ``/metrics`` /
   ``dlt_device_duty_cycle`` and per-program rates; SLO attainment from
   the TTFT/TPOT histograms against ``DLT_SLO_TTFT_MS`` /
   ``DLT_SLO_TPOT_MS``.
+* **Prefill overlap probe** — `prefill_overlap_probe`, JAX's (:1070):
+  the pipelined and serial prefill arms' walls and dispatch shares, from
+  ``last_prefill_timing`` and the ``prefill_dispatch[size]`` series.
 * **On-demand capture** — ``GET /debug/profile?ms=...`` runs
   ``torch.profiler`` (CPU activity, and CUDA activity where a card is
   present) around live serving for a bounded window, single-flight
@@ -842,6 +847,64 @@ def bench_profile(engine, final_pos: int | None = None) -> dict:
         out["decode_bytes_per_token_modeled"] = round(dchunk.bytes_per_token, 1)
         out["decode_flops_per_token_modeled"] = round(dchunk.flops_per_token, 1)
     return out
+
+
+# -- prefill overlap probe ----------------------------------------------------
+
+
+def prefill_overlap_probe(
+    model_path: str,
+    prompt_tokens: int,
+    reps: int = 3,
+    max_chunk: int = 512,
+    compute_dtype: str = "bfloat16",
+    max_seq_len: int = 0,
+    device=None,
+) -> list:
+    """Dispatch-vs-compute overlap of the pipelined prefill against the
+    serial arm (JAX :1070-1124, the same keys): every number comes from
+    the engine's `last_prefill_timing` and its ``prefill_dispatch[size]``
+    StepStats series, the sources `/stats` and `/metrics` export. One
+    engine an arm (on the card; the prefix cache off, so no splice
+    replaces the prefill measured); the first prefill builds the kernels
+    and captures the chunks' graphs, then `reps` timed ones. `max_seq_len`:
+    the engine's cap (0: the model's context); `device`: the engines'
+    (None: the card)."""
+    from .engine import InferenceEngine
+
+    arms = []
+    for pipelined in (True, False):
+        eng = InferenceEngine(model_path, compute_dtype=compute_dtype, max_chunk=max_chunk,
+                              max_seq_len=max_seq_len, prefill_pipelined=pipelined,
+                              prefix_cache_mb=0, device=device)
+        try:
+            prompt = [(i % 1000) + 1 for i in range(prompt_tokens)]
+            eng.prefill(prompt)
+            walls = []
+            for _ in range(reps):
+                eng.reset()
+                t0 = time.perf_counter()
+                eng.prefill(prompt)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            t = dict(eng.last_prefill_timing or {})
+            arms.append({
+                "pipelined": pipelined,
+                "n_tokens": prompt_tokens,
+                "n_chunks": t.get("n_chunks", 0),
+                "best_wall_ms": round(min(walls), 1),
+                "tok_s": round(prompt_tokens / min(walls) * 1e3, 1),
+                "dispatch_ms": round(t.get("dispatch_us", 0) / 1e3, 1),
+                "sync_ms": round(t.get("sync_us", 0) / 1e3, 1),
+                "overlap_pct": t.get("overlap_pct"),
+                "dispatch_series": {
+                    k: {"count": s.count, "avg_ms": round(s.total_us / s.count / 1e3, 2)}
+                    for k, s in sorted(eng.stats.series.items())
+                    if k.startswith("prefill_dispatch") and s.count
+                },
+            })
+        finally:
+            eng.close()
+    return arms
 
 
 # -- on-demand profiler capture ----------------------------------------------

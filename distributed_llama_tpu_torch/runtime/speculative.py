@@ -22,11 +22,17 @@ mismatch. One round emits 1..k+1 tokens of the plain greedy chain.
   runtime/decode.py's `verify_step`.
 * The verify position is a device tensor, eager and graphed alike (a 0-d
   tensor with the rows aligned, a [b] tensor per row), so the two take the
-  same arms and agree bit for bit. `models/transformer.py:_attention_auto`
-  sends only an int position to the flash kernel (K3), so a verify on a
-  contiguous bf16 cache takes the plain attention at every k. The JAX
-  package's verify at a scalar position takes its flash kernel where the
-  feed is 8 or more tokens (k = 8): the one difference of arms from JAX.
+  same arms and agree bit for bit. With the rows aligned a feed of 8 or
+  more tokens (k = 8) on a bf16 cache takes the flash kernel (K3), which
+  reads the 0-d position on the device, as the JAX package's verify takes
+  its flash kernel; shorter feeds and per-row positions take the plain
+  attention, as in JAX.
+* A MoE model's round of more than one token and fewer than n_experts /
+  n_active runs its FFN on K4 on the bf16 kernel path
+  (`models/transformer.py:moe_small_rows_grouped`), where the JAX package
+  gathers each row's experts: each hit expert read once, its weights
+  rounded as JAX's gather arm rounds them (K4's exact-scale rounding).
+  Only the f32 and unaligned arms still gather.
 * Each round is recorded in the engine's StepStats under the JAX names
   (`note_round`: the spec_* counters and the ``spec_acceptance_rate``
   gauge; the ``spec_verify[K]`` latency series); `engine.spec_counters`
@@ -49,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from ..models.transformer import forward, moe_grouped
+from ..models.transformer import forward
 from ..ops.sampling import apply_grammar_mask
 from .tracing import TRACER, to_us
 
@@ -95,17 +101,6 @@ def spec_buckets(draft_k: int) -> tuple:
     least the smallest bucket."""
     out = tuple(b for b in DRAFT_BUCKETS if b <= draft_k)
     return out or (DRAFT_BUCKETS[0],)
-
-
-def verify_takes_gather_arm(cfg, batch: int, t: int) -> bool:
-    """Whether a verify round of t tokens a row at `batch` rows runs the
-    MoE FFN's gather arm (`models/transformer.py:_moe_ffn`: more than one
-    token, short of the grouped arm), which dequantizes every routed
-    expert of every layer a round: a Qwen3-30B-A3B round at batch 1 costs
-    about 20 decode tokens there. `cfg` is a ModelConfig or a model file's
-    header. The CLI does not speculate by default where this holds
-    (ROADMAP queue C)."""
-    return cfg.n_experts > 0 and 1 < batch * t and not moe_grouped(cfg, batch * t)
 
 
 # -- the verify forward ------------------------------------------------------

@@ -2005,6 +2005,7 @@ DLT_ENV_SURFACE = (
     "DLT_PEAK_HBM_GBS",
     "DLT_PEAK_TFLOPS",
     "DLT_PREFILL_PEER",
+    "DLT_PREFILL_PIPELINE",
     "DLT_PREFIX_CACHE_MB",
     "DLT_PROFILE_DIR",
     "DLT_QUARANTINE_SIZE",

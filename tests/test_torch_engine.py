@@ -155,12 +155,11 @@ def test_cli_prints_the_jax_cli_tokens(tmp_path, monkeypatch, capsys):
     assert "Prediction" in out and "tokens/s:" in out
 
 
-def test_cli_defaults_print_the_jax_cli_tokens_with_speculation(tmp_path, monkeypatch, capsys):
-    """Neither CLI given `--speculative`: both run ngram speculation, their
-    default, and print the same greedy tokens in the same rounds (a Pred
-    line per verify round or fallback chunk)."""
+def _cli_speculation_tokens(tmp_path, monkeypatch, capsys, header, seed):
+    """(the JAX CLI's Pred lines, the port's) at both CLIs' defaults (ngram
+    speculation), then the port's with `--speculative off`."""
     mp, tp = str(tmp_path / "m.m"), str(tmp_path / "t.t")
-    write_tiny_model(mp, tiny_header(**_ARCHS["llama"]), seed=5)
+    write_tiny_model(mp, tiny_header(**header), seed=seed)
     write_tiny_tokenizer(tp, pad_to=512)
     args = ["inference", "--model", mp, "--tokenizer", tp, "--prompt",
             "hello world, the brown fox jumps over the lazy dog", "--steps", "80",
@@ -173,10 +172,34 @@ def test_cli_defaults_print_the_jax_cli_tokens_with_speculation(tmp_path, monkey
     want = _pred_texts(capsys.readouterr().out)
     assert pcli.main(args + ["--device", "cpu"]) == 0
     got = _pred_texts(capsys.readouterr().out)
+    assert pcli.main(args + ["--device", "cpu", "--speculative", "off"]) == 0
+    return want, got, _pred_texts(capsys.readouterr().out)
+
+
+def test_cli_defaults_print_the_jax_cli_tokens_with_speculation(tmp_path, monkeypatch, capsys):
+    """Neither CLI given `--speculative`: both run ngram speculation, their
+    default, and print the same greedy tokens in the same rounds (a Pred
+    line per verify round or fallback chunk)."""
+    want, got, off = _cli_speculation_tokens(tmp_path, monkeypatch, capsys, _ARCHS["llama"], 5)
     assert want and got == want
     # the rounds are not the chunks of a run without speculation
-    assert pcli.main(args + ["--device", "cpu", "--speculative", "off"]) == 0
-    assert _pred_texts(capsys.readouterr().out) != got
+    assert off != got
+
+
+_MOE = dict(arch=ArchType.QWEN3_MOE, dim=256, hidden_dim=256, n_layers=2, n_heads=4,
+            n_kv_heads=2, head_dim=64, n_experts=16, n_active_experts=2, moe_hidden_dim=256,
+            vocab_size=512, seq_len=512)
+
+
+def test_cli_defaults_print_the_jax_cli_tokens_with_speculation_on_moe(tmp_path, monkeypatch,
+                                                                       capsys):
+    """The same on the tiny Qwen3-MoE model: both CLIs speculate by
+    default, and the port's rounds of 2-15 tokens run the MoE FFN on K4 at
+    the gather arm's weights (`moe_small_rows_grouped`), where JAX gathers:
+    the same rounds and tokens."""
+    want, got, off = _cli_speculation_tokens(tmp_path, monkeypatch, capsys, _MOE, 0)
+    assert want and got == want
+    assert off != got
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):

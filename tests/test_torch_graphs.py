@@ -80,7 +80,8 @@ def test_static_step_equals_int_position_path(path, layout, kv_dtype, batch):
     assert got[0] == want[0] and got[2] == want[2]
     assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
     # one decode graph a (kv bucket, sampler): 256 and 512 greedy, 256 sampled
-    assert eng._graphs.captures == 3
+    assert sum(k.kind == "decode" for k in eng._graphs.graphs) == 3
+    assert eng._graphs.captures == len(eng._graphs.graphs)
 
 
 @pytest.mark.parametrize("batch", [1, 3])
@@ -96,7 +97,7 @@ def test_static_full_distribution_arm_equals_eager(path, batch):
     want, want_logits, _ = run(False)
     got, got_logits, eng = run(True)
     assert got == want and torch.equal(got_logits, want_logits)
-    assert {k.sampler for k in eng._graphs.graphs} == {"full"}
+    assert {k.sampler for k in eng._graphs.graphs if k.kind == "decode"} == {"full"}
     if batch > 1:
         out = []
         for static in (False, True):
@@ -106,7 +107,8 @@ def test_static_full_distribution_arm_equals_eager(path, batch):
             s.admit(1, PROMPT[:40])  # greedy, at the default top-p 0.9
             out.append((s.step(8), eng.last_logits.clone(), eng))
         assert np.array_equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
-        assert {k.sampler for k in out[1][2]._graphs.graphs} == {"full"}
+        assert {k.sampler for k in out[1][2]._graphs.graphs
+                if k.kind == "batch_decode"} == {"full"}
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])
@@ -125,7 +127,8 @@ def test_static_batch_session_equals_eager(path, layout):
     want, want_logits, _ = run(False)
     got, got_logits, eng = run(True)
     assert np.array_equal(got, want) and torch.equal(got_logits, want_logits)
-    assert all(k.kind == "batch_decode" and k.batch == 4 for k in eng._graphs.graphs)
+    assert all(k.kind in ("batch_decode", "prefill_row") and k.batch == 4
+               for k in eng._graphs.graphs)
 
 
 def test_static_generate_batch_equals_eager(path):
@@ -133,7 +136,7 @@ def test_static_generate_batch_equals_eager(path):
     want = _engine(path, False, batch=3, kv_layout="paged").generate_batch(prompts, [20, 9, 14])
     eng = _engine(path, True, batch=3, kv_layout="paged")
     assert eng.generate_batch(prompts, [20, 9, 14]) == want
-    assert {k.kind for k in eng._graphs.graphs} == {"batch_decode"}
+    assert {k.kind for k in eng._graphs.graphs} == {"prefill", "batch_decode"}
     sampler = Sampler(512, 0.8, 0.9, 11)
     want = _engine(path, False, batch=3).generate_batch(prompts, 12, sampler=sampler)
     assert _engine(path, True, batch=3).generate_batch(prompts, 12, sampler=sampler) == want
@@ -148,7 +151,8 @@ def test_warm_plan_matches_the_jax_decode_ladder(path, batch, max_seq_len, layou
     kw = dict(batch=batch, max_seq_len=max_seq_len, kv_layout=layout,
               decode_chunk_size=decode_chunk_size)
     jeng = JEngine(path, speculative="off", prefix_cache_mb=0, grammar=False, **kw)
-    want = [t for t in jeng.warm_plan() if t[0] in ("decode", "batch_decode")]
+    want = [t for t in jeng.warm_plan()
+            if t[0] in ("prefill", "decode", "prefill_row", "batch_decode")]
     eng = InferenceEngine(path, device="cpu", **kw)
     assert eng.warm_plan() == want
     assert eng._kv_buckets() == jeng._kv_buckets()
@@ -157,9 +161,10 @@ def test_warm_plan_matches_the_jax_decode_ladder(path, batch, max_seq_len, layou
 def test_warm_plan_without_device_decode_matches_jax(path):
     kw = dict(batch=4, device_decode=False)
     jeng = JEngine(path, speculative="off", prefix_cache_mb=0, grammar=False, **kw)
-    want = [t for t in jeng.warm_plan() if t[0] in ("decode", "batch_decode")]
+    want = [t for t in jeng.warm_plan()
+            if t[0] in ("prefill", "decode", "prefill_row", "batch_decode")]
     assert InferenceEngine(path, device="cpu", **kw).warm_plan() == want
-    assert {t[0] for t in want} == {"decode"}
+    assert {t[0] for t in want} == {"prefill", "decode"}
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])
@@ -169,7 +174,9 @@ def test_warmup_covers_the_pinned_trace(path, layout):
     eng = _engine(path, True, batch=4, kv_layout=layout, cache_dtype="int8", max_seq_len=512)
     stats = eng.warmup()
     n_buckets = len(eng._kv_buckets())
-    assert stats["sealed"] and stats["captures"] == 2 * 3 * n_buckets  # 2 kinds x 3 arms
+    n_prefill = sum(k[0] in ("prefill", "prefill_row") for k in eng.warm_plan())
+    # 2 decode kinds x 3 arms a bucket, and one graph a prefill key
+    assert stats["sealed"] and stats["captures"] == 2 * 3 * n_buckets + n_prefill
     assert stats["recaptures_after_warmup"] == 0
     eng.generate(PROMPT, len(PROMPT) + 60, on_token=lambda t: None)  # 229 -> 289: 256, 512
     eng.generate(PROMPT[:40], 60, sampler=Sampler(512, 0.5, 0.9, 3))
@@ -236,24 +243,36 @@ def test_graph_eligible_is_a_rule_of_shapes(path, moe_path):
     assert dense.graph_eligible("decode") and dense.graph_eligible("batch_decode", 64)
     moe = InferenceEngine(moe_path, device="cpu")  # 16 experts, 2 active
     assert moe.graph_eligible("decode")
-    assert moe.graph_eligible("batch_decode", 7)  # 14 rows: the gather arm
-    assert not moe.graph_eligible("batch_decode", 8)  # 16 rows: the grouped arm (K4)
-    assert not moe.graph_eligible("decode", 16)
+    assert moe.graph_eligible("batch_decode", 7)  # 14 rows: the small-row K4 arm
+    # 16 rows: the grouped arm, K4 on the bf16 kernel path (captured) and
+    # the plain arm in f32 (eager: it reads its group sizes back)
+    assert moe.graph_eligible("batch_decode", 8) and moe.graph_eligible("decode", 16)
+    moe32 = InferenceEngine(moe_path, device="cpu", compute_dtype="float32")
+    assert moe32.graph_eligible("batch_decode", 7)  # 14 rows: the gather arm
+    assert not moe32.graph_eligible("batch_decode", 8)
+    assert not moe32.graph_eligible("decode", 16)
+    assert not moe32.graph_eligible("prefill", 1, size=8)
+    assert moe32.graph_eligible("prefill_row", 8, size=4)  # one row of 4 tokens
     mesh = InferenceEngine(path, mesh=make_mesh(sp=2, devices=["cpu"] * 2))
     assert not mesh.graph_eligible("decode") and not mesh.graph_eligible("batch_decode", 1)
     with pytest.raises(ValueError):
-        dense.graph_eligible("prefill")
+        dense.graph_eligible("prefix_copy")
 
 
 def test_the_grouped_moe_arm_stays_eager(moe_path):
-    """A MoE engine at b * k >= E captures nothing, warmup included, and
-    decodes as the eager engine does."""
-    eng = _engine(moe_path, True, batch=8)
-    assert eng.warmup()["captures"] == 0
+    """An f32 MoE engine at b * k >= E (the grouped plain arm, which reads
+    its group sizes back) captures none of its steps, warmup included, and
+    decodes as the eager engine does: warmup captures only the admission
+    chunks of fewer than E / k tokens, which take the gather arm."""
+    eng = _engine(moe_path, True, batch=8, compute_dtype="float32")
+    assert eng.warmup()["captures"] == len(eng._graphs.graphs)
+    assert {(k.kind, k.size) for k in eng._graphs.graphs} == {
+        ("prefill_row", s) for s in (1, 2, 4)}
     prompts = [PROMPT[i : i + 9] for i in range(8)]
     got = eng.generate_batch(prompts, 6)
-    assert eng._graphs.captures == 0
-    assert got == _engine(moe_path, False, batch=8).generate_batch(prompts, 6)
+    assert eng.graph_stats()["recaptures_after_warmup"] == 0
+    assert got == _engine(moe_path, False, batch=8,
+                          compute_dtype="float32").generate_batch(prompts, 6)
 
 
 def test_moe_batch_one_decode_is_graphed(moe_path):
@@ -261,7 +280,7 @@ def test_moe_batch_one_decode_is_graphed(moe_path):
     eng = _engine(moe_path, True)
     got = _runs(eng)
     assert got[0] == want[0] and got[2] == want[2] and torch.equal(got[1], want[1])
-    assert eng._graphs.captures == 3
+    assert sum(k.kind == "decode" for k in eng._graphs.graphs) == 3
 
 
 def test_cpu_engines_capture_nothing(path):

@@ -110,10 +110,11 @@ def test_flash_plan_splits_cover_the_visible_tiles_once(n_tiles, base):
 @pytest.mark.parametrize("t,pos", [(32, 64), (32, 6000), (8, 4080), (32, 4080), (1, 32758)])
 def test_flash_plan_fills_the_card_at_serving_widths(hd, n_heads, n_kv, t, pos):
     """At both models' widths a chunk gets at least one CTA per SM where
-    its visible tiles allow it (one tile a split at most)."""
+    its visible tiles allow it (one tile a split at most); the plan is the
+    view's, the same at every position."""
     S = 32768
     q, k = torch.zeros((1, t, n_heads, hd)), torch.zeros((1, S, n_kv, hd))
-    plan = pca.plan_for(q, k, pos)
+    plan = pca.plan_for(q, k)
     base = n_kv * -(-(t * n_heads // n_kv) // pca.FLASH_ROWS)
     assert base * plan.splits >= min(SMS, base * pca.visible_tiles(t, S, pos))
 
@@ -121,17 +122,20 @@ def test_flash_plan_fills_the_card_at_serving_widths(hd, n_heads, n_kv, t, pos):
 @pytest.mark.parametrize("pos", [0, 40, 1000, 4064])
 @pytest.mark.parametrize("hd,g", [(64, 4), (128, 8)])
 def test_k3_and_b8_on_shard_0_launch_the_same_plan(monkeypatch, pos, hd, g):
-    """A chunk inside shard 0: K3 over the whole 16384-row cache and B8 on
-    the first 4096-row shard hand the kernel the same splits (and so the
-    same sums), with a workspace of the plan's size where it has more than
-    one split."""
+    """A chunk inside shard 0: K3 over a view of the shard's length (the
+    first 4096 rows of the 16384-row cache) and B8 on the first 4096-row
+    shard hand the kernel the same splits (and so the same sums), with a
+    workspace of the plan's size where it has more than one split. The
+    plan is the shapes' alone: the whole cache's view splits otherwise,
+    and no position moves either."""
     t, n_kv, S, local = 32, 2, 16384, 4096
     q = torch.zeros((1, t, n_kv * g, hd))
     kv = torch.zeros((1, S, n_kv, hd), dtype=torch.bfloat16)
-    plan = pca.plan_for(q, kv, pos)
-    assert plan == pca.plan_for(q, kv[:, :local], pos, 0)
+    plan = pca.plan_for(q, kv[:, :local])
+    assert plan.split_tiles * plan.splits >= local // pca.FLASH_TILE
+    assert pca.plan_for(q, kv).split_tiles > plan.split_tiles
     cap = _Captured(monkeypatch)
-    pca._launch(q, kv, kv, pos, 0.125)
+    pca._launch(q, kv[:, :local], kv[:, :local], pos, 0.125)
     pca._launch_partial(q, kv[:, :local], kv[:, :local], pos, 0, 0.125)
     (k3, a3), (b8, a8) = cap.calls
     assert (k3, b8) == ("flash_attention_fwd", "flash_attention_partial_fwd")
@@ -192,9 +196,9 @@ def test_k3_split_and_combine_matches_pallas(hd, g, t, S, pos, split_tiles):
     tile a split."""
     q, kb, vb, kt, vt = _att_case(t, S, g, hd, seed=t + S + pos + hd)
     qt = torch.from_numpy(q)
-    plan = pca.plan_for(qt, kt, pos)
+    plan = pca.plan_for(qt, kt)
     if split_tiles:
-        n = pca.visible_tiles(t, S, pos)
+        n = S // pca.FLASH_TILE
         plan = pca.FlashPlan(plan.rows, split_tiles, n)
     want = np.asarray(jpa.flash_attention(jnp.asarray(q), kb, vb, jnp.int32(pos), interpret=True))
     o, _, l = pca.flash_split_plain(qt, kt, vt, pos, 0, plan=plan)

@@ -210,7 +210,10 @@ def test_moe_decode_i8_matches_jax(tmp_path, layer):
 
 @pytest.mark.parametrize("t", [2, 3, 7])
 def test_gather_arm_matches_jax(tmp_path, t):
-    """rows = 2t < E = 16 and t > 1: both sides gather each row's experts."""
+    """rows = 2t < E = 16 and t > 1: JAX's `_moe_ffn` gathers each row's
+    experts; the port's, on these aligned bf16 stacks, runs K4 at its
+    exact-scale rounding (`moe_small_rows_grouped`), whose weights are the
+    gather arm's."""
     jcfg, jp, cfg, pp = _both_params(_tiny_moe(tmp_path, seed=6))
     y = np.random.default_rng(t).standard_normal((1, t, cfg.dim)).astype(np.float32)
     want = jtf._moe_ffn(jcfg, jnp.asarray(y), jp.layers, jnp.int32(1))
@@ -218,6 +221,63 @@ def test_gather_arm_matches_jax(tmp_path, t):
     # bf16 weights and inputs, exact products, f32 sums in another order
     # (measured < 1e-6); h rounds to bf16 for w2 as in the grouped arm
     assert _rel_err(got.numpy(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("t", [2, 3, 7])
+def test_small_row_k4_arm_matches_jax(tmp_path, monkeypatch, t):
+    """rows = 2t < E = 16 and t > 1 on aligned bf16 Q40 stacks: the port's
+    `_moe_ffn` takes K4 (`moe_small_rows_grouped`; its plain version on the
+    CPU) at its exact-scale rounding and gathers nothing, and gives JAX's
+    gather arm's numbers within 1e-4 (the same bf16 weights and products,
+    f32 sums in another order), as the port's own gather arm
+    (`_moe_gather`, the f32, unaligned and q80 arms') does."""
+    jcfg, jp, cfg, pp = _both_params(_tiny_moe(tmp_path, seed=6))
+    y = np.random.default_rng(t).standard_normal((1, t, cfg.dim)).astype(np.float32)
+    yt = torch.from_numpy(y)
+    want = jtf._moe_ffn(jcfg, jnp.asarray(y), jp.layers, jnp.int32(1))
+    idx, wts = moe.moe_router(yt, pp.layers.moe_gate[1], cfg.n_active_experts)
+    gathered = ptf._moe_gather(cfg, yt, pp.layers, 1, idx, wts).to(yt.dtype).numpy()
+    calls, scales = [], []
+    real = cuda_q40.q40_grouped_gemm_bf16
+    monkeypatch.setattr(ptf, "_gather_expert", lambda *a: calls.append(1))
+    monkeypatch.setattr(moe, "q40_grouped_gemm_bf16",
+                        lambda *a: scales.append(a[-1]) or real(*a))
+    assert ptf.moe_small_rows_grouped(cfg, yt, pp.layers)
+    got = ptf._moe_ffn(cfg, yt, pp.layers, 1).numpy()
+    assert not calls and scales == [True] * 3
+    assert _rel_err(got, want) <= 1e-4
+    assert _rel_err(got, gathered) <= 1e-4
+
+
+@pytest.mark.parametrize("block_r", [8, 16])
+def test_grouped_exact_scale_forms_the_gather_arms_weights(block_r):
+    """K4's exact-scale plain version is the JAX gather arm's product: each
+    row block against its group's `dequantize_t(w, bfloat16)` (f32 scale
+    times (u - 8), rounded once), bf16 x, f32 sums (within 1e-6 of their
+    scale: another order); the blocked version repeats it, and the default
+    rounding (bf16 scale first) is another set of weights."""
+    from distributed_llama_tpu.ops.quant import dequantize_t as jdequantize_t
+
+    rng = np.random.default_rng(block_r + 1)
+    E, dim, ff = 8, 256, 128
+    q, d = _q40_stack(rng, (E,), ff, dim)
+    g = rng.integers(0, E, size=12).astype(np.int32)
+    _, block_expert, R_pad = moe._grouped_layout_direct(torch.from_numpy(g), E, block_r)
+    xp = rng.standard_normal((R_pad, dim)).astype(np.float32)
+    be = block_expert.numpy()
+    w = np.asarray(jdequantize_t(JQuant(q=jnp.asarray(q[be]), d=jnp.asarray(d[be])),
+                                 jnp.bfloat16).astype(jnp.float32))  # [n, dim, ff]
+    xb = np.asarray(jnp.asarray(xp).astype(jnp.bfloat16).astype(jnp.float32))
+    want = np.einsum("nri,nio->nro", xb.reshape(len(be), block_r, dim).astype(np.float64),
+                     w.astype(np.float64)).reshape(R_pad, ff)
+    args = (torch.from_numpy(xp), torch.from_numpy(q), torch.from_numpy(d), block_expert,
+            block_r)
+    got = cuda_q40.q40_grouped_gemm_bf16(*args, True)
+    blocked = cuda_q40.q40_grouped_gemm_bf16_blocked(*args, True)
+    other = cuda_q40.q40_grouped_gemm_bf16(*args)
+    assert _rel_err(got.numpy(), want) <= 1e-6
+    assert _rel_err(blocked.numpy(), got.numpy()) <= 1e-6
+    assert _rel_err(other.numpy(), want) > 1e-4
 
 
 def _jax_tree(p) -> dict:
@@ -281,11 +341,13 @@ N_DECODE = 40
 
 
 def test_bf16_greedy_tokens_match_interpret_mode_jax(tmp_path, monkeypatch):
-    """All three arms: a grouped 32-row chunk and a gather 4-row tail in
-    prefill, then indexed decode across 40 tokens. The bf16 roundings of
-    tests/test_torch_engine.py's docstring apply here too: over model seeds
-    0-11, 9 agree over all 40 tokens and 3 part at a near-tie (after 6, 16
-    and 28 tokens). The pinned seed is one that agrees."""
+    """All three arms: a grouped 32-row chunk and a 4-row tail in prefill,
+    then indexed decode across 40 tokens. The tail is K4's on the port
+    (`moe_small_rows_grouped`, at the gather arm's weights), where JAX
+    gathers. The bf16 roundings of tests/test_torch_engine.py's docstring
+    apply here too: over model seeds 0-11, 9 agree over all 40 tokens and
+    3 part at a near-tie (after 6, 16 and 28 tokens). The pinned seed is
+    one that agrees."""
     path = _tiny_moe(tmp_path, seed=0)
     steps = len(PROMPT) - 1 + N_DECODE
     je = _jax_engine(path, monkeypatch, interpret=True, dtype="bfloat16")

@@ -220,3 +220,17 @@ def test_k4_launches_its_plan(monkeypatch, block_r):
     plan = cuda_q40.grouped_plan(8, 384, block_r)
     assert [fn for fn, _ in cap.calls] == ["q40_grouped_gemm_bf16"] * 2
     assert all(args[-1] == plan.cols and args[7] == block_r for _, args in cap.calls)
+
+
+@pytest.mark.parametrize("exact_scale", [False, True])
+def test_k4_hands_the_kernel_its_rounding(monkeypatch, exact_scale):
+    """The wrapper hands the kernel its weight rounding (`exact_scale`,
+    the small-row MoE arm's) beside the plan's column tile, and counts the
+    launch."""
+    rng = np.random.default_rng(3)
+    q, d = (torch.from_numpy(a) for a in _q40(rng, 4, 256, 384))
+    be = torch.tensor([0, 3], dtype=torch.int32)
+    cap = _Captured(monkeypatch)
+    cuda_q40._launch_grouped(torch.zeros((16, 256)), q, d, be, 8, exact_scale)
+    (fn, args), = cap.calls
+    assert fn == "q40_grouped_gemm_bf16" and args[-2:] == (int(exact_scale), 128)

@@ -207,7 +207,7 @@ def test_verify_matches_jax(path, layout, kv, per_row):
         got.append((ids.clone(), logits.clone()))
         if static:
             key = eng._graph_key("verify_row" if per_row else "verify", kvb, "greedy", 9)
-            assert list(eng._graphs.graphs) == [key]
+            assert [k for k in eng._graphs.graphs if k.kind.startswith("verify")] == [key]
     (ids, logits), (sids, slogits) = got
     assert torch.equal(ids, sids) and torch.equal(logits, slogits)
     live = [0, 2] if per_row else [0]
@@ -533,7 +533,7 @@ def test_spec_step_guards(path):
 def test_warm_plan_matches_jax(deep_path, batch, draft_k, max_seq_len, device_decode):
     kw = dict(batch=batch, draft_k=draft_k, max_seq_len=max_seq_len,
               device_decode=device_decode, speculative="ngram", decode_chunk_size=16)
-    kinds = ("decode", "batch_decode", "verify", "verify_row")
+    kinds = ("prefill", "decode", "prefill_row", "batch_decode", "verify", "verify_row")
     want = [t for t in _jengine(deep_path, **kw).warm_plan() if t[0] in kinds]
     got = _engine(deep_path, **kw).warm_plan()
     assert got == want
@@ -550,7 +550,9 @@ def test_warmup_covers_a_pinned_spec_trace(deep_path):
     n_kvb = len(eng._kv_buckets())
     verify = [k for k in eng._graphs.graphs if k.kind.startswith("verify")]
     assert len(verify) == 2 * 2 * n_kvb  # 2 kinds x 2 buckets
-    assert stats["captures"] == 2 * 3 * n_kvb + len(verify)
+    prefill = [k for k in eng._graphs.graphs if k.kind.startswith("prefill")]
+    assert len(prefill) == sum(k[0].startswith("prefill") for k in eng.warm_plan())
+    assert stats["captures"] == 2 * 3 * n_kvb + len(verify) + len(prefill)
     prompt = ([7, 9, 11, 13] * 64)[:240]
     eng.generate(prompt, 300, on_token=lambda t: None)
     eng.generate_batch([PROMPT, [5] * 6, prompt[:50]], [30, 20, 12])
@@ -574,7 +576,7 @@ def test_graph_eligible_counts_verify_rows(moe_path):
     assert not eng.graph_eligible("verify_row", 2, size=5)
     assert eng.graph_eligible("decode", 7) and not eng.graph_eligible("batch_decode", 8)
     with pytest.raises(ValueError):
-        eng.graph_eligible("prefill")
+        eng.graph_eligible("prefix_copy")
     # the 9-token round then runs eagerly and gives the plain tokens
     static = _engine(moe_path, True, speculative="ngram", draft_k=8)
     assert static.generate(PROMPT * 4, 60).tokens == _engine(moe_path).generate(PROMPT * 4,
@@ -582,29 +584,39 @@ def test_graph_eligible_counts_verify_rows(moe_path):
     assert all(k.size != 9 for k in static._graphs.graphs)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("batch,t", [(1, 5), (1, 9), (2, 5), (4, 5)])
-def test_verify_takes_gather_arm_names_the_moe_arm(moe_path, monkeypatch, batch, t):
-    """`verify_takes_gather_arm`, the CLI default's rule, names the arm
-    `_moe_ffn` takes for a verify round of t tokens at `batch` rows (16
-    experts, 2 active): the gather arm at 10 expert rows, K4's grouped arm
-    at 18 and more."""
+def test_verify_takes_gather_arm_names_the_moe_arm(moe_path, monkeypatch, batch, t, dtype):
+    """The MoE arm a verify round of t tokens at `batch` rows takes (16
+    experts, 2 active), as `_moe_ffn`'s rules name it: in f32 the gather
+    arm at 10 expert rows, the grouped arm at 18 and more
+    (`moe_grouped`); on the bf16 kernel path (the engine's `_moe_k4`) K4
+    at every row count (`moe_small_rows_grouped` below the grouped arm),
+    and the gather arm never."""
     from distributed_llama_tpu_torch.models import transformer
 
-    calls = []
+    calls, arms = [], []
     real = transformer._gather_expert
+    small = transformer.moe_small_rows_grouped
     monkeypatch.setattr(transformer, "_gather_expert", lambda *a: calls.append(1) or real(*a))
-    eng = _engine(moe_path, batch=batch)
+    monkeypatch.setattr(transformer, "moe_small_rows_grouped",
+                        lambda *a: arms.append(small(*a)) or arms[-1])
+    eng = _engine(moe_path, batch=batch, compute_dtype=dtype)
     pspec.verify_chunk(eng.cfg, eng.params, eng.rope, eng.cache,
                        torch.zeros((batch, t), dtype=torch.long), 0)
-    assert bool(calls) == pspec.verify_takes_gather_arm(eng.cfg, batch, t)
+    grouped = transformer.moe_grouped(eng.cfg, batch * t)
+    assert eng._moe_k4 == (dtype == "bfloat16")
+    assert grouped == (batch * t * 2 >= 16)
+    assert arms == ([] if grouped else [eng._moe_k4] * eng.cfg.n_layers)
+    assert bool(calls) == (not grouped and not eng._moe_k4)
 
 
 def test_cli_default_is_off_where_a_round_takes_the_moe_gather_arm(path, moe_path,
                                                                      monkeypatch):
-    """The CLI's speculation default is ngram, the JAX CLI's, except on a
-    MoE model whose 5-token round at `--batch` takes the gather arm (here
-    batch 1; at batch 2 its 20 expert rows take K4's grouped arm); the
-    flag and DLT_SPECULATIVE still turn it on."""
+    """The CLI's speculation default is ngram, the JAX CLI's, on every
+    model: a MoE model's round no longer turns it off (its FFN takes K4 on
+    the bf16 kernel path, `moe_small_rows_grouped`); the flag and
+    DLT_SPECULATIVE still set it."""
     monkeypatch.delenv("DLT_SPECULATIVE", raising=False)
 
     def mode(p, *extra):
@@ -614,11 +626,11 @@ def test_cli_default_is_off_where_a_round_takes_the_moe_gather_arm(path, moe_pat
         return eng.spec_mode
 
     assert mode(path) == "ngram"
-    assert mode(moe_path) is None
-    assert mode(moe_path, "--batch", "2") == "ngram"
-    assert mode(moe_path, "--speculative", "ngram") == "ngram"
-    monkeypatch.setenv("DLT_SPECULATIVE", "ngram")
     assert mode(moe_path) == "ngram"
+    assert mode(moe_path, "--batch", "2") == "ngram"
+    assert mode(moe_path, "--speculative", "off") is None
+    monkeypatch.setenv("DLT_SPECULATIVE", "off")
+    assert mode(moe_path) is None
 
 
 def test_set_speculation_switches_the_engine(path):
